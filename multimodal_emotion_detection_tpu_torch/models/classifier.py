@@ -1,0 +1,182 @@
+"""The end-to-end multimodal classifier: frontend -> encoders -> concat head.
+
+The serving forward of the JAX package's ``MultimodalClassifier`` with
+``train_fusion='concat'``: each modality's features go through its
+encoder (audio through the log-mel / MFCC frontend first), the embeddings
+are concatenated in config modality order, then Linear -> ReLU -> Linear.
+``use_modality_mask=False`` (the default) ignores the availability mask,
+as the reference forward does; ``True`` zeroes a missing modality's
+features before its encoder.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from multimodal_emotion_detection_tpu_torch.models.encoders import build_encoder
+from multimodal_emotion_detection_tpu_torch.models.recurrent import _CellParams
+from multimodal_emotion_detection_tpu_torch.ops.logmel import (
+    LogMelParams,
+    log_mel_spectrogram,
+    mfcc,
+)
+
+
+class MultimodalClassifier(nn.Module):
+    def __init__(
+        self,
+        modalities: Tuple[str, ...],
+        encoder_configs: Dict[str, Dict[str, Any]],
+        num_classes: int = 8,
+        output_dim: int = 128,
+        hidden_dim: int = 256,
+        use_modality_mask: bool = False,
+        audio_frontend: Optional[LogMelParams] = None,  # None -> raw waveform
+        frontend_kind: str = "logmel",  # 'logmel' | 'mfcc'
+        frontend_n_mfcc: int = 40,
+    ):
+        super().__init__()
+        self.modalities = tuple(modalities)
+        self.use_modality_mask = use_modality_mask
+        self.audio_frontend = audio_frontend
+        self.frontend_kind = frontend_kind
+        self.frontend_n_mfcc = frontend_n_mfcc
+        for modality in self.modalities:
+            cfg = dict(encoder_configs.get(modality, {}))
+            if modality == "audio" and audio_frontend is not None:
+                # the frontend's width overrides the encoder input dim
+                cfg["input_dim"] = (
+                    frontend_n_mfcc if frontend_kind == "mfcc"
+                    else audio_frontend.n_mels
+                )
+            # registered under the JAX tree's names: <modality>_encoder
+            self.add_module(
+                f"{modality}_encoder",
+                build_encoder(
+                    modality=modality,
+                    input_dim=cfg.get("input_dim", 64),
+                    output_dim=output_dim,
+                    encoder_config=cfg,
+                ),
+            )
+        self.head_in = nn.Linear(output_dim * len(self.modalities), hidden_dim)
+        self.head_out = nn.Linear(hidden_dim, num_classes)
+
+    def _apply_frontend(self, modality: str, features: torch.Tensor) -> torch.Tensor:
+        if modality == "audio" and self.audio_frontend is not None:
+            if self.frontend_kind == "mfcc":
+                return mfcc(features, self.audio_frontend,
+                            n_mfcc=self.frontend_n_mfcc)
+            return log_mel_spectrogram(features, self.audio_frontend)
+        return features
+
+    def encode(
+        self,
+        features: Dict[str, torch.Tensor],
+        mask: Optional[torch.Tensor] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """Per-modality embeddings (B, output_dim)."""
+        encoded = {}
+        for i, modality in enumerate(self.modalities):
+            if modality not in features:
+                continue
+            x = self._apply_frontend(modality, features[modality])
+            if self.use_modality_mask and mask is not None:
+                m = mask[:, i].reshape((-1,) + (1,) * (x.ndim - 1))
+                x = x * m.to(x.dtype)
+            encoded[modality] = getattr(self, f"{modality}_encoder")(x)
+        return encoded
+
+    def forward(
+        self,
+        features: Dict[str, torch.Tensor],
+        mask: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        encoded = self.encode(features, mask)
+        ordered = [encoded[m] for m in self.modalities if m in encoded]
+        if not ordered:
+            raise ValueError("No modalities were encoded")
+        fused = torch.cat(ordered, dim=-1)
+        return self.head_out(torch.relu(self.head_in(fused)))
+
+
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded random weights with the JAX package's initialisers: LSTM
+    tensors U(-1/sqrt(H), 1/sqrt(H)); Linear weights lecun-normal
+    (truncated at 2 sigma), biases zero; LayerNorm scale 1, bias 0."""
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, _CellParams):
+                module.reset_parameters(generator)
+            elif isinstance(module, nn.Linear):
+                std = math.sqrt(1.0 / module.in_features) / 0.87962566103423978
+                nn.init.trunc_normal_(module.weight, 0.0, std, -2 * std,
+                                      2 * std, generator=generator)
+                nn.init.zeros_(module.bias)
+            elif isinstance(module, nn.LayerNorm):
+                nn.init.ones_(module.weight)
+                nn.init.zeros_(module.bias)
+    return model
+
+
+def logmel_params_from_config(fe) -> LogMelParams:
+    """FrontendConfig -> LogMelParams."""
+    return LogMelParams(
+        sample_rate=fe.sample_rate,
+        n_fft=fe.n_fft,
+        hop_length=fe.hop_length,
+        win_length=fe.win_length,
+        n_mels=fe.n_mels,
+        fmin=fe.fmin,
+        fmax=fe.fmax,
+        log_epsilon=fe.log_epsilon,
+    )
+
+
+def classifier_from_config(config) -> MultimodalClassifier:
+    """Build the serving model from a ``Config``.  Its parameters mean
+    nothing until a checkpoint or ``init_weights`` fills them."""
+    model_cfg = config.model
+    fe = model_cfg.frontend
+    if model_cfg.train_fusion != "concat":
+        raise NotImplementedError(
+            f"model.train_fusion={model_cfg.train_fusion!r}: the fusion "
+            "library is not ported yet (ROADMAP.md Queue 1 item 7)"
+        )
+    if config.runtime.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"runtime.compute_dtype={config.runtime.compute_dtype!r}: only "
+            "float32 is ported (ROADMAP.md Queue 1 item 2)"
+        )
+    if fe.video != "none":
+        raise NotImplementedError(
+            f"model.frontend.video={fe.video!r}: the on-device resize is "
+            "not ported yet (ROADMAP.md Queue 1 item 12)"
+        )
+    frontend = None
+    encoder_configs = {
+        name: dict(cfg) for name, cfg in dict(model_cfg.encoders).items()
+    }
+    if fe.audio in ("logmel", "mfcc"):
+        if fe.cache:
+            # features were computed once per split: the encoder reads
+            # them directly (the same parameter tree, no frontend)
+            width = fe.n_mfcc if fe.audio == "mfcc" else fe.n_mels
+            encoder_configs.setdefault("audio", {})["input_dim"] = width
+        else:
+            frontend = logmel_params_from_config(fe)
+    return MultimodalClassifier(
+        modalities=tuple(config.dataset.modalities),
+        encoder_configs=encoder_configs,
+        num_classes=config.dataset.num_classes,
+        output_dim=model_cfg.output_dim,
+        hidden_dim=model_cfg.hidden_dim,
+        use_modality_mask=model_cfg.use_modality_mask,
+        audio_frontend=frontend,
+        frontend_kind=fe.audio if fe.audio != "raw" else "logmel",
+        frontend_n_mfcc=fe.n_mfcc,
+    )

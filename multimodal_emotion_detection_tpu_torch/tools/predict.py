@@ -1,0 +1,118 @@
+"""Inference / robustness-evaluation CLI (the serving path), on the card.
+
+    python -m multimodal_emotion_detection_tpu_torch.tools.predict \
+        --checkpoint model.pt [--config configs/base.yaml] [--split test] \
+        [--missing keep_idx,keep_idx] [--out preds/] [overrides...]
+
+Loads a port checkpoint (``scripts/jax_ckpt_to_torch.py`` converts a JAX
+one), runs the inference forward over a split and writes ``logits.npy``,
+``predictions.npy``, ``labels.npy`` and ``metrics.json`` as the JAX
+package's predict does.  It runs on the CUDA card; ``runtime.platform=cpu``
+runs it on the CPU instead, and without a card and without that override
+it raises.  ``--missing i[,j]`` keeps only the listed modality indices.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(description="Inference / robustness eval")
+    parser.add_argument("--checkpoint", required=True)
+    parser.add_argument("--config", default=None)
+    parser.add_argument("--split", default="test",
+                        choices=["train", "val", "test"])
+    parser.add_argument("--mc-dropout", type=int, default=0)
+    parser.add_argument("--missing", default=None,
+                        help="comma-separated modality indices to KEEP")
+    parser.add_argument("--quantize-weights", default="none",
+                        choices=["none", "int8", "int8-bf16", "bfloat16"])
+    parser.add_argument("--quantize-min-size", type=int, default=None)
+    parser.add_argument("--quantized-artifact", default=None)
+    parser.add_argument("--out", default="./predictions")
+    parser.add_argument("overrides", nargs="*")
+    return parser.parse_args(argv)
+
+
+def _refuse_unported(args) -> None:
+    if args.mc_dropout > 0:
+        raise SystemExit(
+            "--mc-dropout is not ported yet (ROADMAP.md Queue 1 item 9)")
+    if args.quantize_weights != "none" or args.quantized_artifact is not None:
+        raise SystemExit(
+            "--quantize-weights / --quantized-artifact are not ported yet "
+            "(ROADMAP.md Queue 1 item 10)")
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    _refuse_unported(args)
+
+    from multimodal_emotion_detection_tpu_torch.config import load_config
+    from multimodal_emotion_detection_tpu_torch.data.masking import (
+        simulate_missing_modalities,
+    )
+    from multimodal_emotion_detection_tpu_torch.tools._restore import (
+        restore_for_eval,
+    )
+    from multimodal_emotion_detection_tpu_torch.training.steps import forward
+    from multimodal_emotion_detection_tpu_torch.uncertainty.calibration import (
+        compute_calibration_metrics,
+    )
+    from multimodal_emotion_detection_tpu_torch.utils.runtime import (
+        device_from_config,
+    )
+
+    config = load_config(args.config, args.overrides)
+    # the loader feeds RAW features, so the frontend runs inside the
+    # forward even if training cached features per split
+    config.model.frontend.cache = False
+    device = device_from_config(config)
+
+    model, meta, loader = restore_for_eval(
+        config, args.checkpoint, args.split, device)
+    print(f"Restored {args.checkpoint} (meta: {meta}) on {device}")
+
+    keep = (
+        [int(i) for i in args.missing.split(",")]
+        if args.missing is not None else None
+    )
+    logits_list, labels_list = [], []
+    for features, labels, mask in loader:
+        if keep is not None:
+            features, mask = simulate_missing_modalities(features, mask, keep)
+        logits = forward(model, features, mask)
+        logits_list.append(logits.cpu().numpy())
+        labels_list.append(labels.numpy())
+
+    logits = np.concatenate(logits_list)[: loader.num_samples]
+    labels = np.concatenate(labels_list)[: loader.num_samples]
+    preds = logits.argmax(-1)
+
+    out_dir = Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    np.save(out_dir / "logits.npy", logits)
+    np.save(out_dir / "predictions.npy", preds)
+    np.save(out_dir / "labels.npy", labels)
+
+    metrics = compute_calibration_metrics(
+        logits, labels, config.evaluation.num_calibration_bins
+    )
+    metrics["split"] = args.split
+    metrics["missing_pattern"] = keep
+    metrics["mc_dropout_samples"] = args.mc_dropout
+    metrics["quantize_weights"] = args.quantize_weights
+    (out_dir / "metrics.json").write_text(json.dumps(metrics, indent=2))
+    print(json.dumps(metrics, indent=2))
+    print(f"Wrote predictions to {out_dir}")
+    return metrics
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

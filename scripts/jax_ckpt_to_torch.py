@@ -1,0 +1,62 @@
+"""Convert a JAX checkpoint (``.ckpt``) into a PyTorch-port checkpoint.
+
+    python scripts/jax_ckpt_to_torch.py outputs/<run>/best.ckpt model.pt
+
+Reads the msgpack TrainState the JAX package saves, takes its ``params``
+and writes them in the port's format (``torch.save({"state_dict",
+"meta"})``), with the JSON sidecar's meta (epoch, step, val_loss) when
+there is one.  The port's predict CLI then serves it:
+
+    python -m multimodal_emotion_detection_tpu_torch.tools.predict \
+        --checkpoint model.pt --config configs/base.yaml ...
+
+This script is the one place that reads both frameworks' formats; it
+needs flax, the port does not.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+from flax import serialization
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from multimodal_emotion_detection_tpu_torch.training.checkpoints import (  # noqa: E402
+    save_checkpoint,
+)
+from multimodal_emotion_detection_tpu_torch.utils.weights import (  # noqa: E402
+    state_dict_from_jax_params,
+)
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    return np.asarray(tree)
+
+
+def main(argv=None) -> Path:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("jax_checkpoint")
+    parser.add_argument("out")
+    args = parser.parse_args(argv)
+
+    src = Path(args.jax_checkpoint)
+    state = serialization.msgpack_restore(src.read_bytes())
+    state_dict = state_dict_from_jax_params(_to_numpy(state["params"]))
+    sidecar = src.with_suffix(src.suffix + ".json")
+    meta = json.loads(sidecar.read_text()) if sidecar.exists() else {}
+    meta["converted_from"] = src.name
+    out = Path(args.out)
+    save_checkpoint(out, state_dict, meta)
+    print(f"Wrote {out} ({len(state_dict)} tensors)")
+    return out
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

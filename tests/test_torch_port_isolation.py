@@ -1,0 +1,53 @@
+"""PyTorch port: it imports nothing of JAX or the JAX package, and its
+kernel wrappers take the plain path only for CPU tensors."""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from multimodal_emotion_detection_tpu_torch.ops import logmel, lstm_kernel
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "multimodal_emotion_detection_tpu"}
+
+
+def _imported_top_levels(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module.split(".")[0]
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    files = sorted((ROOT / "multimodal_emotion_detection_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 15
+    bad = {
+        str(f.relative_to(ROOT)): sorted(set(_imported_top_levels(f)) & FORBIDDEN)
+        for f in files
+    }
+    assert not {f: mods for f, mods in bad.items() if mods}
+
+
+def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
+    logmel.LOGMEL.launches = 0
+    lstm_kernel.LSTM2_INFER.launches = 0
+    rng = np.random.RandomState(0)
+    wave = torch.from_numpy(rng.randn(2, 2048).astype(np.float32))
+    p = logmel.LogMelParams()
+    torch.testing.assert_close(logmel.logmel_cuda(wave, p),
+                               logmel.logmel_frames(wave, p), rtol=0, atol=0)
+    x = torch.from_numpy(rng.randn(2, 5, 3).astype(np.float32))
+    g = torch.Generator().manual_seed(0)
+    l0, l1 = ({"w_ih": torch.randn(d, 32, generator=g),
+               "w_hh": torch.randn(8, 32, generator=g),
+               "b": torch.randn(32, generator=g)} for d in (3, 8))
+    torch.testing.assert_close(lstm_kernel.lstm2_infer(x, l0, l1),
+                               lstm_kernel.lstm2_infer_reference(x, l0, l1),
+                               rtol=0, atol=0)
+    assert logmel.LOGMEL.launches == 0
+    assert lstm_kernel.LSTM2_INFER.launches == 0
