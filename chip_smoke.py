@@ -1,14 +1,14 @@
-"""Drive the PyTorch port's serving path on one CUDA card.
+"""Drive the PyTorch port's serving and training paths on one CUDA card.
 
     python3 chip_smoke.py
 
 1. Prints the card (name, count, nvidia-smi name and power limit).
-2. Builds every CUDA kernel of the path from ``csrc/`` (one nvcc per
+2. Builds every CUDA kernel of both paths from ``csrc/`` (one nvcc per
    source, all at once) and prints ptxas's register / shared-memory /
    spill report.
-3. Holds each kernel against its plain PyTorch version on the card at the
-   shapes the serving path gives it, and times kernel, plain version and,
-   where one exists, the one PyTorch call computing the same function.
+3. Holds each serving kernel against its plain PyTorch version on the card
+   at the shapes the serving path gives it, and times kernel, plain version
+   and, where one exists, the one PyTorch call computing the same function.
 4. Serves: writes a 64-clip synthetic test split, builds the flagship
    (configs/base.yaml + model.frontend.audio=logmel) with seeded weights,
    saves a checkpoint and runs the port's predict CLI on it at batch 32.
@@ -18,7 +18,20 @@
    runs its plain version.  Then the
    forward's latency at batch 32 and 1 (host clock) and, under
    torch.profiler, its device time by kernel and the device's busy share.
-5. Prints one JSON line describing every kernel, nvidia-smi's name and
+5. Holds the two training kernels (training forward with residuals,
+   reverse dgates chain) against their plain versions at the flagship's
+   training shape (B=32, T=372, D=64, H=256, keep mask at dropout 0.1) and
+   times them beside cuDNN's LSTM forward and backward, and the whole
+   recurrence gradient beside cuDNN's forward + backward.
+6. Trains: writes synthetic train / val / test splits of 96 / 64 / 64
+   full-width clips and runs the port's train CLI for 2 epochs at batch 32
+   with seeded weights.  The launch counts are zeroed just before and read
+   just after: the training kernels once per train step, lstm2_infer once
+   per eval batch, logmel once per both.  The artifacts must exist.  One
+   train step on the card is held against the same step on the CPU (plain
+   versions, same batch and masks); then the train step's latency at batch
+   32 (host clock) and its device time by kernel under torch.profiler.
+7. Prints one JSON line describing every kernel, nvidia-smi's name and
    power limit of the card, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -313,10 +326,321 @@ def phase_serve(kernels):
         profile_forward(label, lambda: forward(model, batch))
 
 
-def profile_forward(label: str, fn, reps: int = 20) -> None:
-    """Where a forward's time goes: device time by kernel over ``reps``
-    back-to-back forwards under torch.profiler, and the device's busy share
-    of the host-clock window they took."""
+def _lstm_train_inputs(seed: int):
+    """The flagship's training shape (log-mel 64, LSTM 2x256, batch 32):
+    time-major x, keep mask at dropout 0.1, both layers' weights."""
+    dev = torch.device("cuda")
+    b, t, d, h = 32, 372, 64, 256
+    rng = np.random.RandomState(seed)
+    k = 1.0 / np.sqrt(h)
+
+    def layer(d_in):
+        return {name: torch.from_numpy(
+            rng.uniform(-k, k, shape).astype(np.float32)).to(dev)
+            for name, shape in (("w_ih", (d_in, 4 * h)),
+                                ("w_hh", (h, 4 * h)), ("b", (4 * h,)))}
+
+    l0, l1 = layer(d), layer(h)
+    x_tm = torch.from_numpy(rng.randn(t, b, d).astype(np.float32)).to(dev)
+    keep = torch.from_numpy(
+        ((rng.rand(t, b, h) < 0.9) / 0.9).astype(np.float32)).to(dev)
+    return x_tm, keep, l0, l1
+
+
+def _cudnn_lstm(l0, l1):
+    """Yardstick only, never called by the port: cuDNN's 2-layer LSTM with
+    the same weights (torch keeps (4H, D) matrices and two biases)."""
+    d, h = l0["w_ih"].shape[0], l0["w_hh"].shape[0]
+    lib = torch.nn.LSTM(d, h, num_layers=2, batch_first=True).cuda()
+    with torch.no_grad():
+        for i, p in enumerate((l0, l1)):
+            getattr(lib, f"weight_ih_l{i}").copy_(p["w_ih"].T)
+            getattr(lib, f"weight_hh_l{i}").copy_(p["w_hh"].T)
+            getattr(lib, f"bias_ih_l{i}").copy_(p["b"])
+            getattr(lib, f"bias_hh_l{i}").zero_()
+    return lib.train()
+
+
+def phase_lstm_train_fwd(lstm_kernel, flush):
+    x_tm, keep, l0, l1 = _lstm_train_inputs(3)
+    t, b, d = x_tm.shape
+    h = l0["w_hh"].shape[0]
+    outs = lstm_kernel.lstm2_train_fwd_residuals(x_tm, keep, l0, l1)
+    torch.cuda.synchronize()
+    refs = lstm_kernel.lstm2_train_fwd_reference(x_tm, keep, l0, l1)
+    errs = {}
+    for name, out, ref in zip(("packed", "h0_prev", "h1_prev", "x1", "finals"),
+                              outs, refs):
+        errs[name] = max_errs(out, ref)[0]
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4, msg=name)
+    print(f"[lstm2_train_fwd] B={b} T={t} D={d} H={h}, keep p=0.1: max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + " (bound 1e-4 abs + 1e-4 rel)")
+
+    lib = _cudnn_lstm(l0, l1)
+    x_bt = x_tm.transpose(0, 1).contiguous()
+
+    def run_lib():
+        lib(x_bt)  # training forward with autograd: saves what backward needs
+
+    ms = device_ms(lambda: lstm_kernel.lstm2_train_fwd_residuals(x_tm, keep, l0, l1),
+                   flush)
+    plain_ms = device_ms(
+        lambda: lstm_kernel.lstm2_train_fwd_reference(x_tm, keep, l0, l1),
+        flush, reps=5)
+    library_ms = device_ms(run_lib, flush)
+    flops = 2 * b * t * (d * 4 * h + 3 * h * 4 * h)
+    nbytes = 4 * (t * b * (d + h + 13 * h) + d * 4 * h + 3 * h * 4 * h
+                  + 2 * 4 * h + 4 * b * h)
+    bound_ms, bound_by = bound(flops, nbytes)
+    print(f"[lstm2_train_fwd] kernel {ms:.4f} ms (input projection + one "
+          f"cooperative launch, {t + 1} grid barriers, "
+          f"{1e3 * ms / (t + 1):.3f} us per phase), plain {plain_ms:.4f} ms, "
+          f"cuDNN nn.LSTM training forward at keep=1 {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP, "
+          f"{nbytes / 1e6:.2f} MB incl. the residual stores)")
+    kern = {"name": "lstm2_train_fwd", "route": "cuda",
+            "source": "multimodal_emotion_detection_tpu_torch/csrc/lstm2_train_fwd.cu",
+            "replaces": "multimodal_emotion_detection_tpu/ops/lstm_kernel.py:2270",
+            "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+    return kern, (x_tm, keep, l0, l1, refs[0])
+
+
+def phase_lstm_bwd_chain(lstm_kernel, lstm_vjp, flush, inputs):
+    x_tm, keep, l0, l1, packed = inputs
+    t, b, d = x_tm.shape
+    h = l0["w_hh"].shape[0]
+    dh = torch.from_numpy(np.random.RandomState(4).randn(b, h).astype(np.float32)).cuda()
+    args = (packed, keep, dh, l0["w_hh"], l1["w_hh"], l1["w_ih"])
+    outs = lstm_kernel.lstm2_bwd_chain(*args)
+    torch.cuda.synchronize()
+    refs = lstm_kernel.lstm2_bwd_chain_reference(*args)
+    errs = {}
+    for name, out, ref in zip(("dg0", "dg1"), outs, refs):
+        errs[name] = max_errs(out, ref)[0]
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4, msg=name)
+    print(f"[lstm2_bwd_chain] B={b} T={t} H={h}: max abs err dg0 {errs['dg0']:.3e}, "
+          f"dg1 {errs['dg1']:.3e} (bound 1e-4 abs + 1e-4 rel)")
+
+    lib = _cudnn_lstm(l0, l1)
+    x_bt = x_tm.transpose(0, 1).contiguous()
+    lib_params = list(lib.parameters())
+    h_lib = lib(x_bt)[1][0][-1]
+
+    def run_lib_bwd():
+        torch.autograd.grad(h_lib, lib_params, dh, retain_graph=True)
+
+    ms = device_ms(lambda: lstm_kernel.lstm2_bwd_chain(*args), flush)
+    plain_ms = device_ms(lambda: lstm_kernel.lstm2_bwd_chain_reference(*args),
+                         flush, reps=5)
+    library_ms = device_ms(run_lib_bwd, flush)
+    flops = 2 * b * t * 3 * 4 * h * h
+    nbytes = 4 * (t * b * (10 * h + h + 8 * h) + b * h + 3 * h * 4 * h)
+    bound_ms, bound_by = bound(flops, nbytes)
+    print(f"[lstm2_bwd_chain] kernel {ms:.4f} ms (one cooperative launch, "
+          f"{t + 1} grid barriers, {1e3 * ms / (t + 1):.3f} us per phase), plain "
+          f"{plain_ms:.4f} ms, cuDNN backward of h_n at keep=1 {library_ms:.4f} ms "
+          "(it also forms the weight gradients), bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP, "
+          f"{nbytes / 1e6:.2f} MB)")
+
+    # the whole recurrence gradient at keep=1: the kernel pair plus the
+    # hoisted weight-gradient products, against cuDNN forward + backward
+    ones = torch.ones_like(keep)
+    p0 = {k: v.clone().requires_grad_() for k, v in l0.items()}
+    p1 = {k: v.clone().requires_grad_() for k, v in l1.items()}
+    ours_params = [*p0.values(), *p1.values()]
+
+    def run_ours_grad():
+        out = lstm_vjp.fused_lstm_final(x_bt, ones, p0, p1)
+        return torch.autograd.grad(out, ours_params, dh)
+
+    def run_lib_grad():
+        return torch.autograd.grad(lib(x_bt)[1][0][-1], lib_params, dh)
+
+    g_ours, g_lib = run_ours_grad(), run_lib_grad()
+    # cuDNN keeps (4H, D) matrices: compare dW_hh of layer 1 (ours (H, 4H))
+    grad_err = float((g_ours[4] - g_lib[5].T).abs().max() / g_lib[5].abs().max())
+    whole_ms = device_ms(run_ours_grad, flush)
+    whole_lib_ms = device_ms(run_lib_grad, flush)
+    print(f"[lstm2_bwd_chain] whole recurrence gradient (forward + reverse chain "
+          f"+ hoisted weight products) {whole_ms:.4f} ms vs cuDNN forward + "
+          f"backward {whole_lib_ms:.4f} ms; dW_hh1 relative to cuDNN's "
+          f"{grad_err:.3e}")
+    if not grad_err < 1e-3:
+        raise RuntimeError("the recurrence gradient disagrees with cuDNN's")
+    return {"name": "lstm2_bwd_chain", "route": "cuda",
+            "source": "multimodal_emotion_detection_tpu_torch/csrc/lstm2_bwd_chain.cu",
+            "replaces": "multimodal_emotion_detection_tpu/ops/lstm_kernel.py:2482",
+            "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
+def _write_split(root: Path, split: str, n: int, seed: int) -> None:
+    d = root / split
+    d.mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    np.save(d / "audio.npy", rng.randn(n, 48000, 1).astype(np.float32))
+    np.save(d / "video.npy", rng.rand(n, 24, 4096).astype(np.float32))
+    np.save(d / "labels.npy", rng.randint(0, 8, n).astype(np.int32))
+
+
+def phase_train(kernels):
+    import copy
+    import csv
+
+    from multimodal_emotion_detection_tpu_torch import train
+    from multimodal_emotion_detection_tpu_torch.config import load_config
+    from multimodal_emotion_detection_tpu_torch.data.loader import (
+        create_dataloaders,
+    )
+    from multimodal_emotion_detection_tpu_torch.models.classifier import (
+        classifier_from_config,
+        init_weights,
+    )
+    from multimodal_emotion_detection_tpu_torch.models.noise import Noise
+    from multimodal_emotion_detection_tpu_torch.ops import logmel, lstm_kernel
+    from multimodal_emotion_detection_tpu_torch.training.optim import (
+        build_optimizer,
+    )
+    from multimodal_emotion_detection_tpu_torch.training.steps import train_step
+
+    sizes = {"train": 96, "val": 64, "test": 64}
+    data = WORK / "train_data"
+    for seed, (split, n) in enumerate(sizes.items()):
+        _write_split(data, split, n, 10 + seed)
+    config_path = str(ROOT / "configs" / "base.yaml")
+    overrides = ["model.frontend.audio=logmel", "training.max_epochs=2",
+                 f"dataset.data_dir={data}", f"experiment.save_dir={WORK}",
+                 "experiment.name=train_run"]
+    cfg = load_config(config_path, overrides)
+    bsz = cfg.dataset.batch_size
+    steps = 2 * sizes["train"] // bsz
+    evals = 2 * sizes["val"] // bsz + sizes["test"] // bsz
+
+    counters = {"logmel": logmel.LOGMEL, "lstm2_infer": lstm_kernel.LSTM2_INFER,
+                "lstm2_train_fwd": lstm_kernel.LSTM2_TRAIN_FWD,
+                "lstm2_bwd_chain": lstm_kernel.LSTM2_BWD_CHAIN}
+    expected = {"logmel": steps + evals, "lstm2_infer": evals,
+                "lstm2_train_fwd": steps, "lstm2_bwd_chain": steps}
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    results = train.main(["--config", config_path, *overrides])
+    train_s = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    print(f"[train] train.main, 2 epochs of {sizes['train']} clips at batch "
+          f"{bsz} ({steps} steps, {evals} eval batches): {train_s:.3f} s wall "
+          f"(first call: data load and set-up included); launches {launches}")
+    for name, count in launches.items():
+        if count != expected[name]:
+            raise RuntimeError(f"{name} launched {count} times on the training "
+                               f"path, expected {expected[name]}")
+        kernels[name]["launches"] = count
+        kernels[name]["launches_by_path"]["train"] = count
+    run_dir = WORK / "train_run"
+    for rel in ("results.json", "best.ckpt", "checkpoints/last.ckpt",
+                "confusion_matrix.npy", "csv_logs/version_0/metrics.csv"):
+        if not (run_dir / rel).exists():
+            raise RuntimeError(f"train.main did not write {rel}")
+    if not all(np.isfinite(v) for v in results.values()):
+        raise RuntimeError(f"non-finite results: {results}")
+    with open(run_dir / "csv_logs/version_0/metrics.csv") as f:
+        rows = [r for r in csv.DictReader(f) if r.get("train/clips_per_sec")]
+    print(f"[train] results {json.dumps(results)}; the Trainer's own "
+          "train/clips_per_sec (host clock around each epoch, card synchronised): "
+          + ", ".join(f"epoch {r['epoch']} {float(r['train/clips_per_sec']):.2f}"
+                      for r in rows))
+
+    # one train step on the card against the same step on the CPU (plain
+    # versions), same weights, batch and masks
+    dev = torch.device("cuda")
+    model = init_weights(classifier_from_config(cfg), torch.Generator().manual_seed(0))
+    train_loader = create_dataloaders(
+        cfg.dataset.name, cfg.dataset.data_dir, cfg.dataset.modalities,
+        batch_size=bsz, seed=cfg.seed, device=dev)[0]
+    idx = torch.from_numpy(train_loader.epoch_batch_indices(0)[0].astype(np.int64))
+    valid = torch.from_numpy(train_loader.epoch_batch_valid()[0])
+    feats, labels = train_loader.device_arrays()
+    step_kw = dict(lr=cfg.training.learning_rate,
+                   clip_norm=cfg.training.gradient_clip_norm,
+                   modality_dropout=cfg.training.augmentation.modality_dropout)
+    sides = {}
+    for side, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        m = copy.deepcopy(model).to(device)
+        opt, _ = build_optimizer(cfg.training, m.parameters(), len(train_loader))
+        if side == "card":
+            noise = Noise(torch.Generator(device=dev).manual_seed(0))
+            f, lab = feats, labels
+        else:
+            noise = Noise(replay=sides["card"]["noise"].drawn)
+            f = {k: v[idx.to(dev)].cpu() for k, v in feats.items()}
+            lab = labels[idx.to(dev)].cpu()
+        i = idx.to(device) if side == "card" else torch.arange(bsz)
+        metrics = train_step(m, opt, f, lab, i, valid.to(device), noise=noise,
+                             **step_kw)
+        sides[side] = {"noise": noise, "loss": float(metrics["loss"]),
+                       "grads": {k: p.grad.detach().cpu() for k, p in m.named_parameters()},
+                       "params": {k: p.detach().cpu() for k, p in m.named_parameters()}}
+    card, cpu = sides["card"], sides["cpu"]
+    loss_err = abs(card["loss"] - cpu["loss"])
+    # relative to the largest gradient entry: a tensor whose true gradient
+    # is zero (the attention pool's score bias, which softmax over time does
+    # not see) holds only round-off, against which no relative error means
+    # anything
+    grad_abs = {k: float((card["grads"][k] - g).abs().max())
+                for k, g in cpu["grads"].items()}
+    g_max = max(float(g.abs().max()) for g in cpu["grads"].values())
+    worst = max(grad_abs, key=grad_abs.get)
+    grad_err = grad_abs[worst] / g_max
+    # an Adam step is lr * g / (|g| + eps): where |g| nears eps it turns
+    # round-off into a step of up to lr, so only well-conditioned elements
+    # are held to the bound
+    lr = cfg.training.learning_rate
+    param_err = max(float(((card["params"][k] - p).abs()
+                           * (cpu["grads"][k].abs() > 1e-6)).max())
+                    for k, p in cpu["params"].items())
+    param_any = max(float((card["params"][k] - p).abs().max())
+                    for k, p in cpu["params"].items())
+    print(f"[train] one step on the card vs the CPU (plain versions, same batch and "
+          f"masks): loss {card['loss']:.6f} vs {cpu['loss']:.6f}, abs err "
+          f"{loss_err:.3e} (bound 1e-4); gradients max abs err {grad_abs[worst]:.3e} "
+          f"({worst}) = {grad_err:.3e} of the largest gradient {g_max:.3e} "
+          f"(bound 1e-4); updated parameters max "
+          f"abs err {param_err:.3e} where |g| > 1e-6 (bound 1e-5), {param_any:.3e} "
+          f"anywhere (bound 2.2 lr = {2.2 * lr:.1e})")
+    if not (loss_err < 1e-4 and grad_err < 1e-4 and param_err < 1e-5
+            and param_any < 2.2 * lr):
+        raise RuntimeError("the card's train step disagrees with the CPU's")
+
+    # train-step latency at b32 on the resident split
+    model = model.to(dev)
+    opt, sched = build_optimizer(cfg.training, model.parameters(), len(train_loader))
+    gen = torch.Generator(device=dev)
+    idx_all = torch.from_numpy(
+        train_loader.epoch_batch_indices(0).astype(np.int64)).to(dev)
+    valid_dev = valid.to(dev)
+    state = {"step": 0}
+
+    def one_step():
+        s = state["step"]
+        gen.manual_seed(s)
+        train_step(model, opt, feats, labels, idx_all[s % idx_all.shape[0]],
+                   valid_dev, noise=Noise(gen), **step_kw)
+        state["step"] = s + 1
+
+    p50, p90 = host_ms(one_step, reps=60)
+    print(f"[train] train-step latency b32 (host clock around synchronize, 60 "
+          f"steps, split on the card): p50 {p50:.4f} ms, p90 {p90:.4f} ms = "
+          f"{32e3 / p50:.1f} clips/s at p50")
+    profile_forward("train b32", one_step, reps=10, what="train step")
+
+
+def profile_forward(label: str, fn, reps: int = 20, what: str = "forward") -> None:
+    """Where a forward's (or train step's) time goes: device time by kernel
+    over ``reps`` back-to-back calls under torch.profiler, and the device's
+    busy share of the host-clock window they took."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -329,19 +653,23 @@ def profile_forward(label: str, fn, reps: int = 20) -> None:
         window_us = 1e6 * (time.perf_counter() - t0)
     by_name = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # a user annotation (e.g. "Optimizer.step#AdamW.step") spans the
+        # kernels inside it on the device track: counting it would count
+        # them twice
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy_us = sum(by_name.values())
     if not busy_us:
         print(f"[profile] {label}: device time not measured (the profiler "
               "recorded no device activity)")
         return
-    print(f"[profile] {label}: {reps} forwards in {window_us / 1e3:.4f} ms "
+    print(f"[profile] {label}: {reps} {what}s in {window_us / 1e3:.4f} ms "
           f"(host clock, profiler on); device busy {busy_us / 1e3:.4f} ms = "
           f"{100 * busy_us / window_us:.1f}% of it, idle "
           f"{100 * (1 - busy_us / window_us):.1f}%")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        print(f"[profile] {label}:   {us / reps:9.2f} us/forward "
+        print(f"[profile] {label}:   {us / reps:9.2f} us/{what} "
               f"{100 * us / busy_us:5.1f}%  {name[:90]}")
 
 
@@ -349,18 +677,24 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch sees no CUDA card")
     sys.path.insert(0, str(ROOT))
-    from multimodal_emotion_detection_tpu_torch.ops import _build, logmel, lstm_kernel
+    from multimodal_emotion_detection_tpu_torch.ops import (
+        _build,
+        logmel,
+        lstm_kernel,
+        lstm_vjp,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    name = torch.cuda.get_device_name(0)
+    card_name = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
-    print(f"[device] {name}, count {torch.cuda.device_count()}, torch "
+    print(f"[device] {card_name}, count {torch.cuda.device_count()}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
     print(f"[device] nvidia-smi: {smi}")
 
     t0 = time.perf_counter()
-    reports = _build.build(["logmel", "lstm2_infer"])
+    reports = _build.build(["logmel", "lstm2_infer", "lstm2_train_fwd",
+                            "lstm2_bwd_chain"])
     print(f"[build] {time.perf_counter() - t0:.1f} s for {sorted(reports) or 'nothing (cached)'}")
     for src, log in reports.items():
         for line in log.splitlines():
@@ -371,14 +705,26 @@ def main() -> None:
     kernels = {"logmel": phase_logmel(logmel, flush),
                "lstm2_infer": phase_lstm(lstm_kernel, flush)}
     phase_serve(kernels)
+    for kern in kernels.values():
+        kern["launches_by_path"] = {"serve": kern["launches"]}
+    kernels["lstm2_train_fwd"], train_inputs = phase_lstm_train_fwd(lstm_kernel, flush)
+    kernels["lstm2_bwd_chain"] = phase_lstm_bwd_chain(lstm_kernel, lstm_vjp, flush,
+                                                      train_inputs)
+    for kern in ("lstm2_train_fwd", "lstm2_bwd_chain"):
+        kernels[kern]["launches_by_path"] = {}
+    del train_inputs, flush
+    phase_train(kernels)
 
+    # launches: the training path's run, the slice's main path, which drives
+    # all four kernels; launches_by_path: each path's own run
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err",
-             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "launches_by_path"]
     print(json.dumps({"kernels": [{k: kern[k] for k in order}
                                   for kern in kernels.values()]}))
     print(nvidia_smi())  # the card's name and power limit, as nvidia-smi says
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": card_name, "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":

@@ -25,6 +25,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Any, Dict, List, Optional
 
 import yaml
@@ -318,3 +319,28 @@ def load_config(
     if overrides:
         apply_overrides(config, overrides)
     return config
+
+
+# ---------------------------------------------------------------------------
+# Serialization / snapshot
+# ---------------------------------------------------------------------------
+
+
+def config_to_dict(config: Any) -> Dict[str, Any]:
+    return dataclasses.asdict(config)
+
+
+def config_to_yaml(config: Config) -> str:
+    return yaml.safe_dump(config_to_dict(config), sort_keys=False)
+
+
+def snapshot_config(config: Config, run_dir: Path,
+                    overrides: Optional[List[str]] = None) -> Path:
+    """Write the resolved config and the overrides under
+    ``run_dir/config_snapshot``."""
+    snap_dir = Path(run_dir) / "config_snapshot"
+    snap_dir.mkdir(parents=True, exist_ok=True)
+    (snap_dir / "config.yaml").write_text(config_to_yaml(config))
+    (snap_dir / "overrides.yaml").write_text(
+        yaml.safe_dump(list(overrides or []), sort_keys=False))
+    return snap_dir

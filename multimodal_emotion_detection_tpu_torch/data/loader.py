@@ -1,15 +1,24 @@
-"""Evaluation batches over one on-disk split.
+"""Batches over on-disk splits: the device-resident training path and
+in-order evaluation.
 
-``MultimodalLoader`` walks a split in order in fixed-size batches.  The
-trailing partial batch is padded by wrapping indices round to the start,
-so every batch has the same shape, and the availability mask zeroes the
-padding rows (a row with an all-zero mask is not a real sample).
+* **Device-resident** (training and the Trainer's evaluation): the whole
+  split is placed on the device once (``device_arrays``); each step gathers
+  its batch there with ``index_select`` by a (B,) index row of
+  ``epoch_batch_indices``, so steady-state training copies no features
+  from the host.
+* **Host iteration** (``__iter__``, the predict CLI): in-order batches,
+  each copied to the device.
+
+Batch order is the JAX package's, index for index: an epoch-seeded
+permutation ``RandomState((seed * 1_000_003 + epoch) % 2**31)`` when
+shuffling, the trailing partial batch padded by wrapping the order round
+cyclically, and ``epoch_batch_valid`` marking the padding rows with 0.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterator, List, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,18 +32,18 @@ Batch = Tuple[Dict[str, torch.Tensor], torch.Tensor, torch.Tensor]
 
 
 class MultimodalLoader:
-    """Iterates ``(features, labels, mask)`` batches over one split, in
-    order; features and mask on ``device``, labels on the CPU.
-
-    Evaluation only: no shuffling and no modality dropout (both belong to
-    training, ROADMAP.md Queue 1 item 5).
-    """
+    """Fixed-size batches over one split; features on ``device``."""
 
     def __init__(self, arrays: MultimodalArrays, batch_size: int,
+                 shuffle: bool = False, seed: int = 42,
                  device: torch.device = torch.device("cpu")):
         self.arrays = arrays
         self.batch_size = int(batch_size)
+        self.shuffle = shuffle
+        self.seed = int(seed)
         self.device = torch.device(device)
+        self.frontend_cached = False
+        self._device_arrays: Optional[Tuple[Dict[str, torch.Tensor], torch.Tensor]] = None
 
     def __len__(self) -> int:
         return math.ceil(len(self.arrays) / self.batch_size)
@@ -43,22 +52,56 @@ class MultimodalLoader:
     def num_samples(self) -> int:
         return len(self.arrays)
 
-    def batch_indices(self) -> np.ndarray:
-        """(num_batches, batch_size) row indices; the tail wraps round."""
-        total = len(self) * self.batch_size
-        order = np.resize(np.arange(len(self.arrays)), total)
-        return order.reshape(len(self), self.batch_size)
+    def replace_features(self, name: str, values: np.ndarray) -> None:
+        """Swap one modality's host array (e.g. for cached frontend
+        features); the device copy is placed anew on next use."""
+        self.arrays.features[name] = values
+        self._device_arrays = None
 
-    def batch_valid(self) -> np.ndarray:
-        """(num_batches, batch_size) 1.0 for real rows, 0.0 for padding."""
-        valid = np.zeros(len(self) * self.batch_size, dtype=np.float32)
-        valid[: len(self.arrays)] = 1.0
-        return valid.reshape(len(self), self.batch_size)
+    def device_arrays(self) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """The whole split on ``device``, placed once: features float32,
+        labels int64."""
+        if self._device_arrays is None:
+            features = {name: torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+                        for name, arr in self.arrays.features.items()}
+            labels = torch.from_numpy(self.arrays.labels.astype(np.int64)).to(self.device)
+            self._device_arrays = (features, labels)
+        return self._device_arrays
+
+    def epoch_batch_indices(self, epoch: int = 0) -> np.ndarray:
+        """(num_batches, batch_size) int32 row indices for one epoch."""
+        n = len(self.arrays)
+        if self.shuffle:
+            rng = np.random.RandomState((self.seed * 1_000_003 + epoch) % (2**31))
+            order = rng.permutation(n)
+        else:
+            order = np.arange(n)
+        num_batches = len(self)
+        total = num_batches * self.batch_size
+        if total > n:
+            # cyclic wrap (handles splits smaller than one batch too);
+            # epoch_batch_valid() zeroes positions >= n either way
+            order = np.resize(order, total)
+        else:
+            order = order[:total]
+        return order.reshape(num_batches, self.batch_size).astype(np.int32)
+
+    def epoch_batch_valid(self) -> np.ndarray:
+        """(num_batches, batch_size) 1.0 for real rows, 0.0 for wrap-padding."""
+        n = len(self.arrays)
+        num_batches = len(self)
+        valid = np.ones((num_batches * self.batch_size,), dtype=np.float32)
+        if num_batches * self.batch_size > n:
+            valid[n:] = 0.0
+        return valid.reshape(num_batches, self.batch_size)
 
     def __iter__(self) -> Iterator[Batch]:
-        valid = self.batch_valid()
+        """In-order ``(features, labels, mask)`` batches of epoch 0:
+        features and mask on ``device``, labels on the CPU; the mask is 1
+        for every modality of a real row and 0 on padding rows."""
+        valid = self.epoch_batch_valid()
         m = self.arrays.num_modalities
-        for b, idx in enumerate(self.batch_indices()):
+        for b, idx in enumerate(self.epoch_batch_indices(0)):
             features = {
                 name: torch.from_numpy(np.ascontiguousarray(arr[idx])).to(self.device)
                 for name, arr in self.arrays.features.items()
@@ -77,3 +120,34 @@ def create_eval_loader(data_dir: str, modalities: List[str], split: str,
     that split is read."""
     arrays = ArrayDataset(data_dir, modalities, split, mmap=mmap).arrays
     return MultimodalLoader(arrays, batch_size, device=device)
+
+
+def create_dataloaders(
+    dataset_name: str,
+    data_dir: str,
+    modalities: List[str],
+    batch_size: int = 32,
+    seed: int = 42,
+    device_resident: bool = True,
+    mmap: bool = False,
+    device: torch.device = torch.device("cpu"),
+) -> Tuple[MultimodalLoader, MultimodalLoader, MultimodalLoader]:
+    """Train (shuffled by ``seed`` and epoch), val and test loaders over the
+    on-disk ``.npy`` layout.  Modality dropout belongs to the train step."""
+    if dataset_name == "synthetic":
+        raise NotImplementedError(
+            "dataset.name=synthetic is not ported yet (ROADMAP.md Queue 1 "
+            "item 5); point dataset.data_dir at an on-disk split"
+        )
+    if not device_resident:
+        raise NotImplementedError(
+            "dataset.device_resident=false (the host-streaming loader) is "
+            "not ported yet (ROADMAP.md Queue 1 item 5)"
+        )
+    splits = {split: ArrayDataset(data_dir, modalities, split, mmap=mmap).arrays
+              for split in ("train", "val", "test")}
+    train = MultimodalLoader(splits["train"], batch_size, shuffle=True,
+                             seed=seed, device=device)
+    val = MultimodalLoader(splits["val"], batch_size, device=device)
+    test = MultimodalLoader(splits["test"], batch_size, device=device)
+    return train, val, test

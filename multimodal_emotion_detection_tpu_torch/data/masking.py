@@ -1,10 +1,30 @@
-"""Missing-modality simulation for robustness evaluation."""
+"""Modality availability masks: dropout for training, missing-modality
+simulation for robustness evaluation."""
 
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
 
 import torch
+
+
+def modality_dropout_mask(generator: torch.Generator, batch_size: int,
+                          num_modalities: int, dropout_prob: float,
+                          device: torch.device) -> torch.Tensor:
+    """(B, M) float mask, 1 = available, each modality dropped with
+    probability ``dropout_prob``; a row that drops every modality gets one
+    uniformly chosen modality back, so every row keeps at least one.
+    Drawn from ``generator`` on ``device``."""
+    if dropout_prob <= 0.0:
+        return torch.ones((batch_size, num_modalities), dtype=torch.float32,
+                          device=device)
+    keep = torch.rand((batch_size, num_modalities), generator=generator,
+                      device=device) >= dropout_prob
+    fallback_idx = torch.randint(0, num_modalities, (batch_size,),
+                                 generator=generator, device=device)
+    fallback = torch.nn.functional.one_hot(fallback_idx, num_modalities).bool()
+    all_dropped = ~keep.any(dim=-1, keepdim=True)
+    return torch.where(all_dropped, fallback, keep).to(torch.float32)
 
 
 def simulate_missing_modalities(

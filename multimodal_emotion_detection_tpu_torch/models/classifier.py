@@ -1,12 +1,13 @@
 """The end-to-end multimodal classifier: frontend -> encoders -> concat head.
 
-The serving forward of the JAX package's ``MultimodalClassifier`` with
+The forward of the JAX package's ``MultimodalClassifier`` with
 ``train_fusion='concat'``: each modality's features go through its
 encoder (audio through the log-mel / MFCC frontend first), the embeddings
 are concatenated in config modality order, then Linear -> ReLU -> Linear.
 ``use_modality_mask=False`` (the default) ignores the availability mask,
 as the reference forward does; ``True`` zeroes a missing modality's
-features before its encoder.
+features before its encoder.  In training mode the encoders' dropout masks
+come from the forward's ``noise``; the concat head has no dropout.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 from torch import nn
 
 from multimodal_emotion_detection_tpu_torch.models.encoders import build_encoder
+from multimodal_emotion_detection_tpu_torch.models.noise import Noise
 from multimodal_emotion_detection_tpu_torch.models.recurrent import _CellParams
 from multimodal_emotion_detection_tpu_torch.ops.logmel import (
     LogMelParams,
@@ -78,6 +80,7 @@ class MultimodalClassifier(nn.Module):
         self,
         features: Dict[str, torch.Tensor],
         mask: Optional[torch.Tensor] = None,
+        noise: Optional[Noise] = None,
     ) -> Dict[str, torch.Tensor]:
         """Per-modality embeddings (B, output_dim)."""
         encoded = {}
@@ -88,15 +91,16 @@ class MultimodalClassifier(nn.Module):
             if self.use_modality_mask and mask is not None:
                 m = mask[:, i].reshape((-1,) + (1,) * (x.ndim - 1))
                 x = x * m.to(x.dtype)
-            encoded[modality] = getattr(self, f"{modality}_encoder")(x)
+            encoded[modality] = getattr(self, f"{modality}_encoder")(x, noise=noise)
         return encoded
 
     def forward(
         self,
         features: Dict[str, torch.Tensor],
         mask: Optional[torch.Tensor] = None,
+        noise: Optional[Noise] = None,
     ) -> torch.Tensor:
-        encoded = self.encode(features, mask)
+        encoded = self.encode(features, mask, noise)
         ordered = [encoded[m] for m in self.modalities if m in encoded]
         if not ordered:
             raise ValueError("No modalities were encoded")
@@ -138,7 +142,7 @@ def logmel_params_from_config(fe) -> LogMelParams:
 
 
 def classifier_from_config(config) -> MultimodalClassifier:
-    """Build the serving model from a ``Config``.  Its parameters mean
+    """Build the model from a ``Config``.  Its parameters mean
     nothing until a checkpoint or ``init_weights`` fills them."""
     model_cfg = config.model
     fe = model_cfg.frontend
@@ -150,7 +154,7 @@ def classifier_from_config(config) -> MultimodalClassifier:
     if config.runtime.compute_dtype != "float32":
         raise NotImplementedError(
             f"runtime.compute_dtype={config.runtime.compute_dtype!r}: only "
-            "float32 is ported (ROADMAP.md Queue 1 item 2)"
+            "float32 is ported (ROADMAP.md Queue 1 item 13)"
         )
     if fe.video != "none":
         raise NotImplementedError(

@@ -1,4 +1,4 @@
-"""Per-modality encoders of the serving slice (inference forward).
+"""Per-modality encoders of the ported slice (serving and training).
 
 * ``SequenceEncoder`` — the 2-layer LSTM branch: final hidden state ->
   Linear projection;
@@ -8,8 +8,9 @@
   defaults and modality-name heuristics.
 
 Module and parameter names follow the JAX package's parameter tree, so a
-converted JAX checkpoint loads key for key.  Dropout is the identity in
-these inference forwards.  Encoder kinds outside the slice raise
+converted JAX checkpoint loads key for key.  Dropout acts only in training
+mode, with masks drawn from the forward's ``Noise``; in eval mode it is
+the identity.  Encoder kinds outside the slice raise
 ``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them.
 """
 
@@ -20,6 +21,7 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
+from multimodal_emotion_detection_tpu_torch.models.noise import Noise, dropout
 from multimodal_emotion_detection_tpu_torch.models.recurrent import (
     FusedStackedRNN,
 )
@@ -64,30 +66,35 @@ class SequenceEncoder(nn.Module):
     MAX_FUSED_LEN = 2048
 
     def __init__(self, input_dim: int, hidden_dim: int, output_dim: int,
-                 num_layers: int = 2):
+                 num_layers: int = 2, dropout: float = 0.1):
         super().__init__()
-        self.rnn = FusedStackedRNN(input_dim, hidden_dim, num_layers)
+        # the JAX package drops out between layers only
+        self.rnn = FusedStackedRNN(input_dim, hidden_dim, num_layers,
+                                   dropout=dropout if num_layers > 1 else 0.0)
         self.projection = nn.Linear(hidden_dim, output_dim)
 
-    def forward(self, sequence: torch.Tensor) -> torch.Tensor:
+    def forward(self, sequence: torch.Tensor,
+                noise: Optional[Noise] = None) -> torch.Tensor:
         if sequence.shape[1] > self.MAX_FUSED_LEN:
             raise NotImplementedError(
                 f"sequence of {sequence.shape[1]} steps: the layerwise "
                 "chunked-remat LSTM (StackedRNN, e.g. model.frontend.audio="
                 "raw) is not ported yet (ROADMAP.md Queue 1 item 3)"
             )
-        return self.projection(self.rnn(sequence.to(torch.float32)))
+        return self.projection(self.rnn(sequence.to(torch.float32), noise))
 
 
 class FrameEncoder(nn.Module):
-    """Per-frame MLP + temporal pooling + LayerNorm + projection."""
+    """Per-frame MLP + dropout + temporal pooling + dropout + LayerNorm +
+    projection."""
 
     def __init__(self, frame_dim: int, hidden_dim: int, output_dim: int,
-                 temporal_pooling: str = "attention"):
+                 temporal_pooling: str = "attention", dropout: float = 0.1):
         super().__init__()
         if temporal_pooling not in ("attention", "average", "max"):
             raise ValueError(f"Unknown pooling: {temporal_pooling}")
         self.temporal_pooling = temporal_pooling
+        self.dropout = float(dropout)
         self.frame_mlp = nn.Linear(frame_dim, hidden_dim)
         if temporal_pooling == "attention":
             self.pool = AttentionPool(hidden_dim)
@@ -95,15 +102,17 @@ class FrameEncoder(nn.Module):
         self.projection = nn.Linear(hidden_dim, output_dim)
 
     def forward(self, frames: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = torch.relu(self.frame_mlp(frames.to(torch.float32)))
+                mask: Optional[torch.Tensor] = None,
+                noise: Optional[Noise] = None) -> torch.Tensor:
+        p = self.dropout if self.training else 0.0
+        x = dropout(torch.relu(self.frame_mlp(frames.to(torch.float32))), p, noise)
         if self.temporal_pooling == "attention":
             pooled = self.pool(x, mask)
         elif self.temporal_pooling == "average":
             pooled = masked_mean(x, mask, dim=1)
         else:
             pooled = masked_max(x, mask, dim=1)
-        return self.projection(self.proj_ln(pooled))
+        return self.projection(self.proj_ln(dropout(pooled, p, noise)))
 
 
 # ---------------------------------------------------------------------------
@@ -126,9 +135,9 @@ def build_encoder(
 
     Same keys, defaults and heuristics as the JAX factory ('video'/'frames'
     -> frame, audio/imu/... -> sequence, else mlp; hidden_dim defaults to
-    2*output_dim).  Route keys of the TPU build (``scan_unroll``,
-    ``inference_kernel``, ``use_flash``) and ``dropout`` are accepted and
-    have no effect on this inference forward.
+    2*output_dim; dropout defaults to 0.1).  Route keys of the TPU build
+    (``scan_unroll``, ``inference_kernel``, ``use_flash``) are accepted and
+    do not route: the device does.
     """
     cfg = dict(encoder_config or {})
     enc_type = cfg.pop("type", None)
@@ -137,7 +146,7 @@ def build_encoder(
     if dt_over not in (None, "float32"):
         raise NotImplementedError(
             f"model.encoders.{modality}.dtype={dt_over!r}: only float32 "
-            "is ported (ROADMAP.md Queue 1 item 2)"
+            "is ported (ROADMAP.md Queue 1 item 13)"
         )
 
     if enc_type is None:
@@ -151,12 +160,14 @@ def build_encoder(
 
     hidden = cfg.pop("hidden_dim", None)
     hidden = hidden if hidden is not None else output_dim * 2
+    rate = cfg.pop("dropout", 0.1)
     if enc_type == "frame":
         return FrameEncoder(
             frame_dim=in_dim,
             hidden_dim=hidden,
             output_dim=output_dim,
             temporal_pooling=cfg.pop("temporal_pooling", "attention"),
+            dropout=rate,
         )
     if enc_type == "sequence":
         kind = cfg.pop("encoder_type", "lstm")
@@ -176,6 +187,7 @@ def build_encoder(
             hidden_dim=hidden,
             output_dim=output_dim,
             num_layers=cfg.pop("num_layers", 2),
+            dropout=rate,
         )
     if enc_type in ("mlp", "pretrained_cnn"):
         raise NotImplementedError(

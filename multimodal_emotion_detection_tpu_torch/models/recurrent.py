@@ -1,4 +1,4 @@
-"""Stacked LSTM for the final-hidden serving path.
+"""Stacked LSTM, final hidden state: serving and training.
 
 The parameter layout matches the JAX package's ``_CellParams`` /
 ``FusedStackedRNN``: ``layer_<l>.{w_ih (D, 4H), w_hh (H, 4H), b (4H,)}``,
@@ -8,11 +8,14 @@ gate order i, f, g, o, so a JAX checkpoint maps onto it key for key.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
 
+from multimodal_emotion_detection_tpu_torch.models.noise import Noise, keep_mask
 from multimodal_emotion_detection_tpu_torch.ops.lstm_kernel import lstm2_infer
+from multimodal_emotion_detection_tpu_torch.ops.lstm_vjp import fused_lstm_final
 
 
 class _CellParams(nn.Module):
@@ -35,23 +38,32 @@ class _CellParams(nn.Module):
 
 
 class FusedStackedRNN(nn.Module):
-    """Deterministic 2-layer LSTM returning the last layer's final hidden
-    state (B, H).
+    """2-layer LSTM returning the last layer's final hidden state (B, H).
 
-    The forward is ``ops.lstm_kernel.lstm2_infer``: the hand-written
-    kernel on the card, its plain version on the CPU.  Inference only —
-    dropout between the layers is the identity here.
+    In eval mode the forward is ``ops.lstm_kernel.lstm2_infer``.  In
+    training mode it is ``ops.lstm_vjp.fused_lstm_final`` (training forward
+    and reverse-chain kernels), with dropout between the layers: a keep
+    mask Bernoulli(1 - dropout) / (1 - dropout) of shape (T, B, H) drawn
+    from ``noise`` (all ones at dropout 0).  Each op is the hand-written
+    kernel on the card and its plain version on the CPU.
     """
 
-    def __init__(self, in_dim: int, hidden_dim: int, num_layers: int = 2):
+    def __init__(self, in_dim: int, hidden_dim: int, num_layers: int = 2,
+                 dropout: float = 0.0):
         super().__init__()
         if num_layers != 2:
             raise NotImplementedError(
                 f"FusedStackedRNN with num_layers={num_layers}: only the "
                 "2-layer LSTM is ported (ROADMAP.md Queue 1 item 3)"
             )
+        self.dropout = float(dropout)
         self.layer_0 = _CellParams(in_dim, hidden_dim)
         self.layer_1 = _CellParams(hidden_dim, hidden_dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return lstm2_infer(x, self.layer_0.as_dict(), self.layer_1.as_dict())
+    def forward(self, x: torch.Tensor, noise: Optional[Noise] = None) -> torch.Tensor:
+        layer0, layer1 = self.layer_0.as_dict(), self.layer_1.as_dict()
+        if not self.training:
+            return lstm2_infer(x, layer0, layer1)
+        shape = (x.shape[1], x.shape[0], self.layer_0.w_hh.shape[0])
+        keep = keep_mask(noise, shape, self.dropout, x.device)
+        return fused_lstm_final(x, keep, layer0, layer1)

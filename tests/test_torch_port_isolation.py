@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from multimodal_emotion_detection_tpu_torch.ops import logmel, lstm_kernel
+from multimodal_emotion_detection_tpu_torch.ops.lstm_vjp import fused_lstm_final
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "multimodal_emotion_detection_tpu"}
@@ -33,9 +34,13 @@ def test_port_and_chip_smoke_import_no_jax():
     assert not {f: mods for f, mods in bad.items() if mods}
 
 
+COUNTERS = (logmel.LOGMEL, lstm_kernel.LSTM2_INFER, lstm_kernel.LSTM2_TRAIN_FWD,
+            lstm_kernel.LSTM2_BWD_CHAIN)
+
+
 def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
-    logmel.LOGMEL.launches = 0
-    lstm_kernel.LSTM2_INFER.launches = 0
+    for counter in COUNTERS:
+        counter.launches = 0
     rng = np.random.RandomState(0)
     wave = torch.from_numpy(rng.randn(2, 2048).astype(np.float32))
     p = logmel.LogMelParams()
@@ -49,5 +54,10 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     torch.testing.assert_close(lstm_kernel.lstm2_infer(x, l0, l1),
                                lstm_kernel.lstm2_infer_reference(x, l0, l1),
                                rtol=0, atol=0)
-    assert logmel.LOGMEL.launches == 0
-    assert lstm_kernel.LSTM2_INFER.launches == 0
+    # the training pair, through the autograd Function
+    keep = torch.ones(5, 2, 8)
+    p0 = {k: v.clone().requires_grad_() for k, v in l0.items()}
+    p1 = {k: v.clone().requires_grad_() for k, v in l1.items()}
+    fused_lstm_final(x, keep, p0, p1).sum().backward()
+    assert all(p.grad is not None for p in (*p0.values(), *p1.values()))
+    assert [c.launches for c in COUNTERS] == [0, 0, 0, 0]

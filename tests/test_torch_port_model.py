@@ -75,7 +75,7 @@ def test_classifier_logits_match_jax(jax_kernels):
     ("model.encoders.audio.encoder_type=transformer", "item 8"),
     ("model.encoders.audio.num_layers=3", "item 3"),
     ("model.train_fusion=library", "item 7"),
-    ("runtime.compute_dtype=bfloat16", "item 2"),
+    ("runtime.compute_dtype=bfloat16", "item 13"),
 ])
 def test_configs_outside_the_slice_raise(override, item):
     cfg = load_config("configs/base.yaml", NARROW + [override])
