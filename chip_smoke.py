@@ -12,8 +12,9 @@
 4. Serves: writes a 64-clip synthetic test split, builds the flagship
    (configs/base.yaml + model.frontend.audio=logmel) with seeded weights,
    saves a checkpoint and runs the port's predict CLI on it at batch 32.
-   The kernels' launch counts are zeroed just before and read just after:
-   each kernel must have run once per batch.  The logits are checked
+   Every kernel's launch count is zeroed just before and read just after:
+   log-mel and lstm2_infer must have run once per batch, the others never.
+   The logits are checked
    against the model's own forward on the CPU, where every kernel wrapper
    runs its plain version.  Then the
    forward's latency at batch 32 and 1 (host clock) and, under
@@ -26,12 +27,25 @@
 6. Trains: writes synthetic train / val / test splits of 96 / 64 / 64
    full-width clips and runs the port's train CLI for 2 epochs at batch 32
    with seeded weights.  The launch counts are zeroed just before and read
-   just after: the training kernels once per train step, lstm2_infer once
-   per eval batch, logmel once per both.  The artifacts must exist.  One
+   just after: the 2-layer training kernels once per train step,
+   lstm2_infer once per eval batch, logmel once per both, the one-layer
+   kernels never.  The artifacts must exist.  One
    train step on the card is held against the same step on the CPU (plain
    versions, same batch and masks); then the train step's latency at batch
    32 (host clock) and its device time by kernel under torch.profiler.
-7. Prints one JSON line describing every kernel, nvidia-smi's name and
+7. The big sweep config (LSTM 3x512, output 256, head 512, video 512,
+   log-mel cached per split; ``BIG``): holds the single-layer training
+   forward, its eval form and the single-layer reverse chain against their
+   plain versions at B=32, T=372, H=512 and times them beside cuDNN, and
+   the whole 3-layer recurrence gradient beside cuDNN's.
+8. Trains the big config as in 6 (``[train_big]``): 3 training forwards and
+   3 reverse chains per step, 3 eval-form launches per eval batch, log-mel
+   once per split, and no launch of the 2-layer kernels; the card step
+   against the CPU step; train-step latency and profile.  Then serves the
+   trained ``best.ckpt`` through the predict CLI (``[serve_big]``: 3
+   eval-form launches and 1 log-mel per batch), logits against the CPU
+   forward, latency and profile.
+9. Prints one JSON line describing every kernel, nvidia-smi's name and
    power limit of the card, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -201,15 +215,8 @@ def phase_lstm(lstm_kernel, flush):
     print(f"[lstm2_infer] B=1: max abs err {a1:.3e}")
     torch.testing.assert_close(out1, ref1, rtol=0, atol=1e-4)
 
-    # yardstick only, never called by the port: cuDNN's LSTM with the
-    # same weights (torch keeps (4H, D) matrices and two biases)
-    lib = torch.nn.LSTM(d, h, num_layers=2, batch_first=True).to(dev)
+    lib = _cudnn_lstm(l0, l1)
     with torch.no_grad():
-        for i, p in enumerate((l0, l1)):
-            getattr(lib, f"weight_ih_l{i}").copy_(p["w_ih"].T)
-            getattr(lib, f"weight_hh_l{i}").copy_(p["w_hh"].T)
-            getattr(lib, f"bias_ih_l{i}").copy_(p["b"])
-            getattr(lib, f"bias_hh_l{i}").zero_()
         lib_out = lib(x)[1][0][-1]
     lib_err, _ = max_errs(lib_out, ref)
     print(f"[lstm2_infer] torch.nn.LSTM (cuDNN) vs plain: max abs err {lib_err:.3e}")
@@ -242,18 +249,90 @@ def phase_lstm(lstm_kernel, flush):
             "library_ms": library_ms}
 
 
-def phase_serve(kernels):
+def run_counted(counters, expected, path: str, fn):
+    """Zero every kernel's launch count, run ``fn``, read the counts: each
+    must equal ``expected[name]``, 0 where it is not listed.  Returns
+    ``(fn's result, wall seconds, counts)``."""
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    wall = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    for name, count in launches.items():
+        if count != expected.get(name, 0):
+            raise RuntimeError(f"{name} launched {count} times on the {path} "
+                               f"path, expected {expected.get(name, 0)}")
+    return out, wall, launches
+
+
+def serve_path(tag: str, counters, expected, ckpt: Path, overrides,
+               audio: np.ndarray, video: np.ndarray, out_dir: Path):
+    """The predict CLI on ``ckpt`` over the test split (``audio``,
+    ``video``) at batch 32 with the launch counts checked; the logits
+    against the model's own forward on the CPU, where every kernel wrapper
+    runs its plain version (each kernel was held against it on the card);
+    then the forward's latency and profile at batch 32 and 1."""
+    from multimodal_emotion_detection_tpu_torch.config import load_config
+    from multimodal_emotion_detection_tpu_torch.tools import predict
+    from multimodal_emotion_detection_tpu_torch.tools._restore import (
+        restore_for_eval,
+    )
+    from multimodal_emotion_detection_tpu_torch.training.steps import forward
+
+    config_path = str(ROOT / "configs" / "base.yaml")
+    n = audio.shape[0]
+    metrics, predict_s, launches = run_counted(
+        counters, expected, tag, lambda: predict.main([
+            "--checkpoint", str(ckpt), "--config", config_path, "--split", "test",
+            "--out", str(out_dir), *overrides]))
+    print(f"[{tag}] predict over {n} clips at batch 32: {predict_s:.3f} s wall "
+          f"(first call, data load included); launches {launches}")
+    logits = np.load(out_dir / "logits.npy")
+    if logits.shape != (n, 8) or not np.isfinite(logits).all():
+        raise RuntimeError(f"bad logits: shape {logits.shape}")
+    if not (out_dir / "metrics.json").exists():
+        raise RuntimeError("metrics.json was not written")
+    print(f"[{tag}] metrics {json.dumps(metrics)}")
+
+    cfg = load_config(config_path, overrides)
+    cfg.model.frontend.cache = False  # as predict: raw features in
+    model, _, _ = restore_for_eval(cfg, ckpt, "test", torch.device("cpu"))
+    with torch.no_grad():
+        ref = torch.cat([
+            forward(model, {"audio": torch.from_numpy(audio[i:i + 32]),
+                            "video": torch.from_numpy(video[i:i + 32])})
+            for i in range(0, n, 32)]).numpy()
+    err = float(np.abs(logits - ref).max())
+    agree = int((logits.argmax(-1) == ref.argmax(-1)).sum())
+    print(f"[{tag}] logits vs the plain-version forward on the CPU: max abs "
+          f"err {err:.3e} (bound 1e-3), argmax agreement {agree}/{n}")
+    if err > 1e-3 or agree != n:
+        raise RuntimeError("served logits disagree with the plain forward")
+
+    dev = torch.device("cuda")
+    model = model.to(dev).eval()
+    b32 = {"audio": torch.from_numpy(audio[:32]).to(dev),
+           "video": torch.from_numpy(video[:32]).to(dev)}
+    b1 = {k: v[:1].contiguous() for k, v in b32.items()}
+    for label, batch in (("b32", b32), ("b1", b1)):
+        p50, p90 = host_ms(lambda: forward(model, batch))
+        print(f"[{tag}] forward latency {label} (host clock around "
+              f"synchronize, 110 requests, inputs on the card): "
+              f"p50 {p50:.4f} ms, p90 {p90:.4f} ms")
+        profile_forward(f"{tag} {label}", lambda: forward(model, batch))
+    return launches
+
+
+def phase_serve(counters):
     from multimodal_emotion_detection_tpu_torch.config import load_config
     from multimodal_emotion_detection_tpu_torch.models.classifier import (
         classifier_from_config,
         init_weights,
     )
-    from multimodal_emotion_detection_tpu_torch.ops import logmel, lstm_kernel
-    from multimodal_emotion_detection_tpu_torch.tools import predict
     from multimodal_emotion_detection_tpu_torch.training.checkpoints import (
         save_checkpoint,
     )
-    from multimodal_emotion_detection_tpu_torch.training.steps import forward
 
     n = 64
     data = WORK / "data"
@@ -266,64 +345,15 @@ def phase_serve(kernels):
     np.save(split / "video.npy", video)
     np.save(split / "labels.npy", rng.randint(0, 8, n).astype(np.int32))
 
-    config_path = str(ROOT / "configs" / "base.yaml")
     overrides = ["model.frontend.audio=logmel", f"dataset.data_dir={data}"]
-    cfg = load_config(config_path, overrides)
+    cfg = load_config(str(ROOT / "configs" / "base.yaml"), overrides)
     model = init_weights(classifier_from_config(cfg),
                          torch.Generator().manual_seed(0))
     ckpt = WORK / "flagship_seed0.pt"
     save_checkpoint(ckpt, model.state_dict(), {"seed": 0})
-    out_dir = WORK / "predictions"
-
-    counters = {"logmel": logmel.LOGMEL, "lstm2_infer": lstm_kernel.LSTM2_INFER}
-    for c in counters.values():
-        c.launches = 0
-    t0 = time.perf_counter()
-    metrics = predict.main(["--checkpoint", str(ckpt), "--config", config_path,
-                            "--split", "test", "--out", str(out_dir), *overrides])
-    predict_s = time.perf_counter() - t0
-    launches = {name: c.launches for name, c in counters.items()}
-    print(f"[serve] predict over {n} clips at batch {cfg.dataset.batch_size}: "
-          f"{predict_s:.3f} s wall (first call, data load included); "
-          f"launches {launches}")
-    for name, count in launches.items():
-        if count != n // cfg.dataset.batch_size:
-            raise RuntimeError(f"{name} launched {count} times on the serving "
-                               f"path, expected {n // cfg.dataset.batch_size}")
-        kernels[name]["launches"] = count
-
-    logits = np.load(out_dir / "logits.npy")
-    if logits.shape != (n, 8) or not np.isfinite(logits).all():
-        raise RuntimeError(f"bad logits: shape {logits.shape}")
-    if not (out_dir / "metrics.json").exists():
-        raise RuntimeError("metrics.json was not written")
-    print(f"[serve] metrics {json.dumps(metrics)}")
-
-    # the model's own forward on the CPU, where every kernel wrapper runs
-    # its plain version (each kernel was held against it on the card above)
-    ref = torch.cat([
-        forward(model, {"audio": torch.from_numpy(audio[i:i + 32]),
-                        "video": torch.from_numpy(video[i:i + 32])})
-        for i in range(0, n, 32)]).numpy()
-    err = float(np.abs(logits - ref).max())
-    agree = int((logits.argmax(-1) == ref.argmax(-1)).sum())
-    print(f"[serve] logits vs the plain-version forward on the CPU: max abs "
-          f"err {err:.3e} (bound 1e-3), argmax agreement {agree}/{n}")
-    if err > 1e-3 or agree != n:
-        raise RuntimeError("served logits disagree with the plain forward")
-
-    dev = torch.device("cuda")
-    model = model.to(dev).eval()
-
-    b32 = {"audio": torch.from_numpy(audio[:32]).to(dev),
-           "video": torch.from_numpy(video[:32]).to(dev)}
-    b1 = {k: v[:1].contiguous() for k, v in b32.items()}
-    for label, batch in (("b32", b32), ("b1", b1)):
-        p50, p90 = host_ms(lambda: forward(model, batch))
-        print(f"[serve] forward latency {label} (host clock around "
-              f"synchronize, 110 requests, inputs on the card): "
-              f"p50 {p50:.4f} ms, p90 {p90:.4f} ms")
-        profile_forward(label, lambda: forward(model, batch))
+    batches = n // cfg.dataset.batch_size
+    return serve_path("serve", counters, {"logmel": batches, "lstm2_infer": batches},
+                      ckpt, overrides, audio, video, WORK / "predictions")
 
 
 def _lstm_train_inputs(seed: int):
@@ -347,13 +377,13 @@ def _lstm_train_inputs(seed: int):
     return x_tm, keep, l0, l1
 
 
-def _cudnn_lstm(l0, l1):
-    """Yardstick only, never called by the port: cuDNN's 2-layer LSTM with
-    the same weights (torch keeps (4H, D) matrices and two biases)."""
-    d, h = l0["w_ih"].shape[0], l0["w_hh"].shape[0]
-    lib = torch.nn.LSTM(d, h, num_layers=2, batch_first=True).cuda()
+def _cudnn_lstm(*layers, batch_first: bool = True):
+    """Yardstick only, never called by the port: cuDNN's LSTM with the
+    same layers' weights (torch keeps (4H, D) matrices and two biases)."""
+    d, h = layers[0]["w_ih"].shape[0], layers[0]["w_hh"].shape[0]
+    lib = torch.nn.LSTM(d, h, num_layers=len(layers), batch_first=batch_first).cuda()
     with torch.no_grad():
-        for i, p in enumerate((l0, l1)):
+        for i, p in enumerate(layers):
             getattr(lib, f"weight_ih_l{i}").copy_(p["w_ih"].T)
             getattr(lib, f"weight_hh_l{i}").copy_(p["w_hh"].T)
             getattr(lib, f"bias_ih_l{i}").copy_(p["b"])
@@ -361,7 +391,7 @@ def _cudnn_lstm(l0, l1):
     return lib.train()
 
 
-def phase_lstm_train_fwd(lstm_kernel, flush):
+def phase_lstm2_train_fwd(lstm_kernel, flush):
     x_tm, keep, l0, l1 = _lstm_train_inputs(3)
     t, b, d = x_tm.shape
     h = l0["w_hh"].shape[0]
@@ -407,7 +437,7 @@ def phase_lstm_train_fwd(lstm_kernel, flush):
     return kern, (x_tm, keep, l0, l1, refs[0])
 
 
-def phase_lstm_bwd_chain(lstm_kernel, lstm_vjp, flush, inputs):
+def phase_lstm2_bwd_chain(lstm_kernel, lstm_vjp, flush, inputs):
     x_tm, keep, l0, l1, packed = inputs
     t, b, d = x_tm.shape
     h = l0["w_hh"].shape[0]
@@ -453,7 +483,7 @@ def phase_lstm_bwd_chain(lstm_kernel, lstm_vjp, flush, inputs):
     ours_params = [*p0.values(), *p1.values()]
 
     def run_ours_grad():
-        out = lstm_vjp.fused_lstm_final(x_bt, ones, p0, p1)
+        out = lstm_vjp.fused_lstm_final(x_bt, ones[:, None], (p0, p1))
         return torch.autograd.grad(out, ours_params, dh)
 
     def run_lib_grad():
@@ -477,6 +507,192 @@ def phase_lstm_bwd_chain(lstm_kernel, lstm_vjp, flush, inputs):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
 
+def _big_layer_inputs(seed: int):
+    """One layer of the big sweep config at its training shape (B=32,
+    T=372, H=512): the layer-0 input (log-mel, D=64) and a deeper layer's
+    (D=512, an h series times a keep mask), both layers' w_ih and b, and
+    one w_hh."""
+    dev = torch.device("cuda")
+    b, t, h = 32, 372, 512
+    rng = np.random.RandomState(seed)
+    k = 1.0 / np.sqrt(h)
+
+    def u(*shape, lim=k):
+        return torch.from_numpy(rng.uniform(-lim, lim, shape).astype(np.float32)).to(dev)
+
+    x0 = torch.from_numpy(rng.randn(t, b, 64).astype(np.float32)).to(dev)
+    x1 = u(t, b, h, lim=1.0)
+    return {"D=64": (x0, u(64, 4 * h), u(4 * h)),
+            "D=512": (x1, u(h, 4 * h), u(4 * h))}, u(h, 4 * h)
+
+
+def phase_lstm1_train_fwd(lstm_kernel, flush):
+    inputs, w_hh = _big_layer_inputs(5)
+    t, b, _ = inputs["D=64"][0].shape
+    h = w_hh.shape[0]
+    errs, eval_errs = {}, {}
+    for label, (x, w_ih, bias) in inputs.items():
+        ih = torch.matmul(x, w_ih) + bias
+        outs = lstm_kernel.lstm1_train_fwd(ih, w_hh)
+        torch.cuda.synchronize()
+        refs = lstm_kernel.lstm1_train_fwd_reference(ih, w_hh)
+        for name, out, ref in zip(("g", "h_prev", "c_prev", "finals"), outs, refs):
+            errs[f"{name} {label}"] = max_errs(out, ref)[0]
+            torch.testing.assert_close(out, ref, rtol=0, atol=1e-4, msg=name)
+        for series in (True, False):
+            out = lstm_kernel.lstm1_infer(ih, w_hh, series)
+            torch.cuda.synchronize()
+            ref = lstm_kernel.lstm1_infer_reference(ih, w_hh, series)
+            eval_errs[f"{'series' if series else 'final'} {label}"] = max_errs(out, ref)[0]
+            torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
+    print(f"[lstm1_train_fwd] B={b} T={t} H={h}, input D=64 and D=512: max abs "
+          "err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + " (bound 1e-4 abs)")
+    print("[lstm1_infer] eval form: max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in eval_errs.items())
+          + " (bound 1e-4 abs)")
+
+    # timed at a deeper layer's shape; the input projection is outside
+    # the kernel on this route (one torch.matmul between launches)
+    x, w_ih, bias = inputs["D=512"]
+    ih = torch.matmul(x, w_ih) + bias
+    lib = _cudnn_lstm({"w_ih": w_ih, "w_hh": w_hh, "b": bias}, batch_first=False)
+
+    def run_lib_train():
+        lib(x)  # training forward with autograd: saves what backward needs
+
+    def run_lib_eval():
+        with torch.no_grad():
+            lib(x)
+
+    ms = device_ms(lambda: lstm_kernel.lstm1_train_fwd(ih, w_hh), flush)
+    plain_ms = device_ms(lambda: lstm_kernel.lstm1_train_fwd_reference(ih, w_hh),
+                         flush, reps=5)
+    library_ms = device_ms(run_lib_train, flush)
+    eval_ms = device_ms(lambda: lstm_kernel.lstm1_infer(ih, w_hh, True), flush)
+    eval_final_ms = device_ms(lambda: lstm_kernel.lstm1_infer(ih, w_hh, False), flush)
+    eval_plain_ms = device_ms(
+        lambda: lstm_kernel.lstm1_infer_reference(ih, w_hh, True), flush, reps=5)
+    eval_library_ms = device_ms(run_lib_eval, flush)
+    flops = 2 * b * t * h * 4 * h
+    # ih and w_hh read; g, h_prev, c_prev and finals written
+    nbytes = 4 * (2 * t * b * 4 * h + h * 4 * h + 2 * t * b * h + 2 * b * h)
+    bound_ms, bound_by = bound(flops, nbytes)
+    # ih and w_hh read; the h series written
+    eval_bytes = 4 * (t * b * 4 * h + h * 4 * h + t * b * h)
+    eval_bound_ms, eval_bound_by = bound(flops, eval_bytes)
+    print(f"[lstm1_train_fwd] kernel {ms:.4f} ms (one cooperative launch, {t} "
+          f"grid barriers, {1e3 * ms / t:.3f} us per step), plain {plain_ms:.4f} "
+          f"ms, cuDNN nn.LSTM({h}, {h}) training forward (input projection "
+          f"included) {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+          f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB incl. the residual stores)")
+    print(f"[lstm1_infer] kernel {eval_ms:.4f} ms with the h series out, "
+          f"{eval_final_ms:.4f} ms final h only ({1e3 * eval_ms / t:.3f} us per "
+          f"step), plain {eval_plain_ms:.4f} ms, cuDNN nn.LSTM({h}, {h}) "
+          f"inference forward {eval_library_ms:.4f} ms, bound {eval_bound_ms:.4f} ms "
+          f"({eval_bound_by}: {flops / 1e9:.3f} GFLOP, {eval_bytes / 1e6:.2f} MB)")
+    source = "multimodal_emotion_detection_tpu_torch/csrc/lstm1_fwd.cu"
+    train_kern = {"name": "lstm1_train_fwd", "route": "cuda", "source": source,
+                  "replaces": "multimodal_emotion_detection_tpu/ops/lstm_kernel.py:1078",
+                  "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
+                  "bound_ms": bound_ms, "bound_by": bound_by,
+                  "library_ms": library_ms}
+    eval_kern = {"name": "lstm1_infer", "route": "cuda", "source": source,
+                 "replaces": "multimodal_emotion_detection_tpu/ops/lstm_kernel.py:1078",
+                 "max_abs_err": max(eval_errs.values()), "ms": eval_ms,
+                 "plain_ms": eval_plain_ms, "bound_ms": eval_bound_ms,
+                 "bound_by": eval_bound_by, "library_ms": eval_library_ms}
+    return train_kern, eval_kern, (inputs, w_hh)
+
+
+def phase_lstm_bwd_chain(lstm_kernel, lstm_vjp, flush, layer_inputs):
+    inputs, w_hh = layer_inputs
+    x, w_ih, bias = inputs["D=512"]
+    t, b, _ = x.shape
+    h = w_hh.shape[0]
+    g, _, c_prev, _ = lstm_kernel.lstm1_train_fwd_reference(
+        torch.matmul(x, w_ih) + bias, w_hh)
+    rng = np.random.RandomState(6)
+    dhf = torch.from_numpy(rng.randn(b, h).astype(np.float32)).cuda()
+    dhs = torch.from_numpy(rng.randn(t, b, h).astype(np.float32)).cuda()
+    errs = {}
+    for label, series in (("dh_series given", dhs), ("dh_series None", None)):
+        out = lstm_kernel.lstm_bwd_chain(g, c_prev, series, dhf, w_hh)
+        torch.cuda.synchronize()
+        ref = lstm_kernel.lstm_bwd_chain_reference(g, c_prev, series, dhf, w_hh)
+        errs[label] = max_errs(out, ref)[0]
+        torch.testing.assert_close(out, ref, rtol=0, atol=1e-4, msg=label)
+    print(f"[lstm_bwd_chain] B={b} T={t} H={h}: max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + " (bound 1e-4 abs)")
+
+    lib = _cudnn_lstm({"w_ih": w_ih, "w_hh": w_hh, "b": bias}, batch_first=False)
+    lib_params = list(lib.parameters())
+    h_lib = lib(x)[1][0][-1]
+
+    def run_lib_bwd():
+        torch.autograd.grad(h_lib, lib_params, dhf, retain_graph=True)
+
+    # a lower layer's chain (dh_series from the layer above), and the top
+    # layer's (none)
+    ms = device_ms(lambda: lstm_kernel.lstm_bwd_chain(g, c_prev, dhs, dhf, w_hh), flush)
+    top_ms = device_ms(lambda: lstm_kernel.lstm_bwd_chain(g, c_prev, None, dhf, w_hh),
+                       flush)
+    plain_ms = device_ms(
+        lambda: lstm_kernel.lstm_bwd_chain_reference(g, c_prev, dhs, dhf, w_hh),
+        flush, reps=5)
+    library_ms = device_ms(run_lib_bwd, flush)
+    flops = 2 * b * t * 4 * h * h
+    # g, c_prev, dh_series, dh_final and w_hh read; dgates written
+    nbytes = 4 * (2 * t * b * 4 * h + 2 * t * b * h + b * h + h * 4 * h)
+    bound_ms, bound_by = bound(flops, nbytes)
+    print(f"[lstm_bwd_chain] kernel {ms:.4f} ms with dh_series, {top_ms:.4f} ms "
+          f"without (one cooperative launch, {t} grid barriers, "
+          f"{1e3 * ms / t:.3f} us per step), plain {plain_ms:.4f} ms, cuDNN "
+          f"backward of h_n for nn.LSTM({h}, {h}) {library_ms:.4f} ms (it also "
+          f"forms the weight gradients), bound {bound_ms:.4f} ms ({bound_by}: "
+          f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+
+    # the whole 3-layer recurrence gradient at keep=1 (3 forwards, 3
+    # chains, the hops and the hoisted weight products) against cuDNN's
+    # 3-layer forward + backward on the same weights
+    x0 = inputs["D=64"][0].transpose(0, 1).contiguous()  # (B, T, 64)
+    d = x0.shape[2]
+    k = 1.0 / np.sqrt(h)
+    layers = [{name: torch.from_numpy(
+        rng.uniform(-k, k, shape).astype(np.float32)).cuda().requires_grad_()
+        for name, shape in (("w_ih", (d if i == 0 else h, 4 * h)),
+                            ("w_hh", (h, 4 * h)), ("b", (4 * h,)))}
+        for i in range(3)]
+    ours_params = [p[n] for p in layers for n in ("w_ih", "w_hh", "b")]
+    ones = torch.ones((t, 2, b, h), device="cuda")
+    lib3 = _cudnn_lstm(*layers)
+    lib3_params = list(lib3.parameters())
+
+    def run_ours_grad():
+        out = lstm_vjp.fused_lstm_final(x0, ones, layers)
+        return torch.autograd.grad(out, ours_params, dhf)
+
+    def run_lib_grad():
+        return torch.autograd.grad(lib3(x0)[1][0][-1], lib3_params, dhf)
+
+    g_ours, g_lib = run_ours_grad(), run_lib_grad()
+    # cuDNN keeps (4H, D) matrices: compare dW_hh of layer 2 (ours (H, 4H))
+    grad_err = float((g_ours[7] - g_lib[9].T).abs().max() / g_lib[9].abs().max())
+    whole_ms = device_ms(run_ours_grad, flush)
+    whole_lib_ms = device_ms(run_lib_grad, flush)
+    print(f"[lstm_bwd_chain] whole 3-layer recurrence gradient (3 forwards + 3 "
+          f"reverse chains + hops + hoisted weight products) {whole_ms:.4f} ms vs "
+          f"cuDNN nn.LSTM({d}, {h}, num_layers=3) forward + backward "
+          f"{whole_lib_ms:.4f} ms; dW_hh2 relative to cuDNN's {grad_err:.3e}")
+    if not grad_err < 1e-3:
+        raise RuntimeError("the layered recurrence gradient disagrees with cuDNN's")
+    return {"name": "lstm_bwd_chain", "route": "cuda",
+            "source": "multimodal_emotion_detection_tpu_torch/csrc/lstm_bwd_chain.cu",
+            "replaces": "multimodal_emotion_detection_tpu/ops/lstm_kernel.py:514",
+            "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
 def _write_split(root: Path, split: str, n: int, seed: int) -> None:
     d = root / split
     d.mkdir(parents=True, exist_ok=True)
@@ -486,7 +702,11 @@ def _write_split(root: Path, split: str, n: int, seed: int) -> None:
     np.save(d / "labels.npy", rng.randint(0, 8, n).astype(np.int32))
 
 
-def phase_train(kernels):
+def phase_train(counters, tag: str, model_overrides, expected_fn):
+    """The train CLI for 2 epochs on synthetic 96 / 64 / 64 clip splits at
+    batch 32 with the launch counts checked (``expected_fn(steps,
+    eval_batches)``); one card step against the CPU step; the train step's
+    latency and profile.  Returns ``(launches, run directory, overrides)``."""
     import copy
     import csv
 
@@ -498,48 +718,35 @@ def phase_train(kernels):
     from multimodal_emotion_detection_tpu_torch.models.classifier import (
         classifier_from_config,
         init_weights,
+        logmel_params_from_config,
     )
     from multimodal_emotion_detection_tpu_torch.models.noise import Noise
-    from multimodal_emotion_detection_tpu_torch.ops import logmel, lstm_kernel
+    from multimodal_emotion_detection_tpu_torch.ops import logmel
     from multimodal_emotion_detection_tpu_torch.training.optim import (
         build_optimizer,
     )
     from multimodal_emotion_detection_tpu_torch.training.steps import train_step
 
-    sizes = {"train": 96, "val": 64, "test": 64}
+    sizes = TRAIN_SPLITS
     data = WORK / "train_data"
-    for seed, (split, n) in enumerate(sizes.items()):
-        _write_split(data, split, n, 10 + seed)
+    if not (data / "test" / "labels.npy").exists():
+        for seed, (split, n) in enumerate(sizes.items()):
+            _write_split(data, split, n, 10 + seed)
     config_path = str(ROOT / "configs" / "base.yaml")
-    overrides = ["model.frontend.audio=logmel", "training.max_epochs=2",
+    overrides = [*model_overrides, "training.max_epochs=2",
                  f"dataset.data_dir={data}", f"experiment.save_dir={WORK}",
-                 "experiment.name=train_run"]
+                 f"experiment.name={tag}_run"]
     cfg = load_config(config_path, overrides)
     bsz = cfg.dataset.batch_size
     steps = 2 * sizes["train"] // bsz
     evals = 2 * sizes["val"] // bsz + sizes["test"] // bsz
-
-    counters = {"logmel": logmel.LOGMEL, "lstm2_infer": lstm_kernel.LSTM2_INFER,
-                "lstm2_train_fwd": lstm_kernel.LSTM2_TRAIN_FWD,
-                "lstm2_bwd_chain": lstm_kernel.LSTM2_BWD_CHAIN}
-    expected = {"logmel": steps + evals, "lstm2_infer": evals,
-                "lstm2_train_fwd": steps, "lstm2_bwd_chain": steps}
-    for c in counters.values():
-        c.launches = 0
-    t0 = time.perf_counter()
-    results = train.main(["--config", config_path, *overrides])
-    train_s = time.perf_counter() - t0
-    launches = {name: c.launches for name, c in counters.items()}
-    print(f"[train] train.main, 2 epochs of {sizes['train']} clips at batch "
+    results, train_s, launches = run_counted(
+        counters, expected_fn(steps, evals), tag,
+        lambda: train.main(["--config", config_path, *overrides]))
+    print(f"[{tag}] train.main, 2 epochs of {sizes['train']} clips at batch "
           f"{bsz} ({steps} steps, {evals} eval batches): {train_s:.3f} s wall "
           f"(first call: data load and set-up included); launches {launches}")
-    for name, count in launches.items():
-        if count != expected[name]:
-            raise RuntimeError(f"{name} launched {count} times on the training "
-                               f"path, expected {expected[name]}")
-        kernels[name]["launches"] = count
-        kernels[name]["launches_by_path"]["train"] = count
-    run_dir = WORK / "train_run"
+    run_dir = WORK / f"{tag}_run"
     for rel in ("results.json", "best.ckpt", "checkpoints/last.ckpt",
                 "confusion_matrix.npy", "csv_logs/version_0/metrics.csv"):
         if not (run_dir / rel).exists():
@@ -548,7 +755,7 @@ def phase_train(kernels):
         raise RuntimeError(f"non-finite results: {results}")
     with open(run_dir / "csv_logs/version_0/metrics.csv") as f:
         rows = [r for r in csv.DictReader(f) if r.get("train/clips_per_sec")]
-    print(f"[train] results {json.dumps(results)}; the Trainer's own "
+    print(f"[{tag}] results {json.dumps(results)}; the Trainer's own "
           "train/clips_per_sec (host clock around each epoch, card synchronised): "
           + ", ".join(f"epoch {r['epoch']} {float(r['train/clips_per_sec']):.2f}"
                       for r in rows))
@@ -560,6 +767,12 @@ def phase_train(kernels):
     train_loader = create_dataloaders(
         cfg.dataset.name, cfg.dataset.data_dir, cfg.dataset.modalities,
         batch_size=bsz, seed=cfg.seed, device=dev)[0]
+    if cfg.model.frontend.cache:
+        # as the Trainer caches it: the split's log-mel features, once
+        raw = torch.from_numpy(train_loader.arrays.features["audio"]).to(dev)
+        with torch.inference_mode():
+            feats = logmel.logmel_cuda(raw, logmel_params_from_config(cfg.model.frontend))
+        train_loader.replace_features("audio", feats.cpu().numpy())
     idx = torch.from_numpy(train_loader.epoch_batch_indices(0)[0].astype(np.int64))
     valid = torch.from_numpy(train_loader.epoch_batch_valid()[0])
     feats, labels = train_loader.device_arrays()
@@ -594,6 +807,13 @@ def phase_train(kernels):
     g_max = max(float(g.abs().max()) for g in cpu["grads"].values())
     worst = max(grad_abs, key=grad_abs.get)
     grad_err = grad_abs[worst] / g_max
+    # how much of the difference is one factor on every gradient (the
+    # global-norm clip's), and what is left after it
+    dot = sum(float((card["grads"][k] * g).sum()) for k, g in cpu["grads"].items())
+    sq = sum(float((g * g).sum()) for g in cpu["grads"].values())
+    fit = dot / sq
+    residual = max(float((card["grads"][k] - fit * g).abs().max())
+                   for k, g in cpu["grads"].items()) / g_max
     # an Adam step is lr * g / (|g| + eps): where |g| nears eps it turns
     # round-off into a step of up to lr, so only well-conditioned elements
     # are held to the bound
@@ -603,11 +823,12 @@ def phase_train(kernels):
                     for k, p in cpu["params"].items())
     param_any = max(float((card["params"][k] - p).abs().max())
                     for k, p in cpu["params"].items())
-    print(f"[train] one step on the card vs the CPU (plain versions, same batch and "
+    print(f"[{tag}] one step on the card vs the CPU (plain versions, same batch and "
           f"masks): loss {card['loss']:.6f} vs {cpu['loss']:.6f}, abs err "
           f"{loss_err:.3e} (bound 1e-4); gradients max abs err {grad_abs[worst]:.3e} "
           f"({worst}) = {grad_err:.3e} of the largest gradient {g_max:.3e} "
-          f"(bound 1e-4); updated parameters max "
+          f"(bound 1e-4; card = {fit:.7f} x CPU fits them to {residual:.3e} of "
+          f"the largest); updated parameters max "
           f"abs err {param_err:.3e} where |g| > 1e-6 (bound 1e-5), {param_any:.3e} "
           f"anywhere (bound 2.2 lr = {2.2 * lr:.1e})")
     if not (loss_err < 1e-4 and grad_err < 1e-4 and param_err < 1e-5
@@ -631,10 +852,11 @@ def phase_train(kernels):
         state["step"] = s + 1
 
     p50, p90 = host_ms(one_step, reps=60)
-    print(f"[train] train-step latency b32 (host clock around synchronize, 60 "
+    print(f"[{tag}] train-step latency b32 (host clock around synchronize, 60 "
           f"steps, split on the card): p50 {p50:.4f} ms, p90 {p90:.4f} ms = "
           f"{32e3 / p50:.1f} clips/s at p50")
-    profile_forward("train b32", one_step, reps=10, what="train step")
+    profile_forward(f"{tag} b32", one_step, reps=10, what="train step")
+    return launches, run_dir, overrides
 
 
 def profile_forward(label: str, fn, reps: int = 20, what: str = "forward") -> None:
@@ -673,6 +895,20 @@ def profile_forward(label: str, fn, reps: int = 20, what: str = "forward") -> No
               f"{100 * us / busy_us:5.1f}%  {name[:90]}")
 
 
+TRAIN_SPLITS = {"train": 96, "val": 64, "test": 64}
+# the reference's big sweep config (bench.py's big=True legs), log-mel
+# cached per split as the bench's big-config leg runs it
+BIG = ["model.frontend.audio=logmel", "model.frontend.cache=true",
+       "model.output_dim=256", "model.hidden_dim=512",
+       "model.encoders.audio.hidden_dim=512", "model.encoders.audio.num_layers=3",
+       "model.encoders.video.hidden_dim=512"]
+# the path whose run gives each kernel's "launches": the training path of
+# the slice that ported it
+MAIN_PATH = {"logmel": "train", "lstm2_infer": "train", "lstm2_train_fwd": "train",
+             "lstm2_bwd_chain": "train", "lstm1_train_fwd": "train_big",
+             "lstm1_infer": "train_big", "lstm_bwd_chain": "train_big"}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch sees no CUDA card")
@@ -683,6 +919,7 @@ def main() -> None:
         lstm_kernel,
         lstm_vjp,
     )
+    from multimodal_emotion_detection_tpu_torch.training.loop import FRONTEND_CHUNK
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -694,29 +931,57 @@ def main() -> None:
 
     t0 = time.perf_counter()
     reports = _build.build(["logmel", "lstm2_infer", "lstm2_train_fwd",
-                            "lstm2_bwd_chain"])
+                            "lstm2_bwd_chain", "lstm1_fwd", "lstm_bwd_chain"])
     print(f"[build] {time.perf_counter() - t0:.1f} s for {sorted(reports) or 'nothing (cached)'}")
     for src, log in reports.items():
         for line in log.splitlines():
             if "ptxas" in line:
                 print(f"[build:{src}] {line.strip()}")
 
+    counters = {"logmel": logmel.LOGMEL, "lstm2_infer": lstm_kernel.LSTM2_INFER,
+                "lstm2_train_fwd": lstm_kernel.LSTM2_TRAIN_FWD,
+                "lstm2_bwd_chain": lstm_kernel.LSTM2_BWD_CHAIN,
+                "lstm1_train_fwd": lstm_kernel.LSTM1_TRAIN_FWD,
+                "lstm1_infer": lstm_kernel.LSTM1_INFER,
+                "lstm_bwd_chain": lstm_kernel.LSTM_BWD_CHAIN}
     flush = L2Flush()
     kernels = {"logmel": phase_logmel(logmel, flush),
                "lstm2_infer": phase_lstm(lstm_kernel, flush)}
-    phase_serve(kernels)
-    for kern in kernels.values():
-        kern["launches_by_path"] = {"serve": kern["launches"]}
-    kernels["lstm2_train_fwd"], train_inputs = phase_lstm_train_fwd(lstm_kernel, flush)
-    kernels["lstm2_bwd_chain"] = phase_lstm_bwd_chain(lstm_kernel, lstm_vjp, flush,
-                                                      train_inputs)
-    for kern in ("lstm2_train_fwd", "lstm2_bwd_chain"):
-        kernels[kern]["launches_by_path"] = {}
-    del train_inputs, flush
-    phase_train(kernels)
+    by_path = {"serve": phase_serve(counters)}
+    kernels["lstm2_train_fwd"], train_inputs = phase_lstm2_train_fwd(lstm_kernel, flush)
+    kernels["lstm2_bwd_chain"] = phase_lstm2_bwd_chain(lstm_kernel, lstm_vjp, flush,
+                                                       train_inputs)
+    del train_inputs
+    (kernels["lstm1_train_fwd"], kernels["lstm1_infer"],
+     layer_inputs) = phase_lstm1_train_fwd(lstm_kernel, flush)
+    kernels["lstm_bwd_chain"] = phase_lstm_bwd_chain(lstm_kernel, lstm_vjp, flush,
+                                                     layer_inputs)
+    del layer_inputs, flush
 
-    # launches: the training path's run, the slice's main path, which drives
-    # all four kernels; launches_by_path: each path's own run
+    by_path["train"] = phase_train(
+        counters, "train", ["model.frontend.audio=logmel"],
+        lambda steps, evals: {"logmel": steps + evals, "lstm2_infer": evals,
+                              "lstm2_train_fwd": steps, "lstm2_bwd_chain": steps})[0]
+    # the big config caches log-mel once per split, in chunks
+    cached = sum(-(-n // FRONTEND_CHUNK) for n in TRAIN_SPLITS.values())
+    by_path["train_big"], big_run, big_overrides = phase_train(
+        counters, "train_big", BIG,
+        lambda steps, evals: {"logmel": cached, "lstm1_train_fwd": 3 * steps,
+                              "lstm_bwd_chain": 3 * steps, "lstm1_infer": 3 * evals})
+    test = WORK / "train_data" / "test"
+    batches = TRAIN_SPLITS["test"] // 32
+    by_path["serve_big"] = serve_path(
+        "serve_big", counters, {"logmel": batches, "lstm1_infer": 3 * batches},
+        big_run / "best.ckpt", big_overrides, np.load(test / "audio.npy"),
+        np.load(test / "video.npy"), WORK / "predictions_big")
+
+    # launches: the run of the path that MAIN_PATH names; launches_by_path:
+    # every path's own run, the counts zeroed just before it
+    for name, kern in kernels.items():
+        kern["launches_by_path"] = {path: counts[name] for path, counts in by_path.items()}
+        kern["launches"] = kern["launches_by_path"][MAIN_PATH[name]]
+        if kern["launches"] < 1:
+            raise RuntimeError(f"{name} never launched on the {MAIN_PATH[name]} path")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "launches_by_path"]

@@ -1,7 +1,7 @@
 """Per-modality encoders of the ported slice (serving and training).
 
-* ``SequenceEncoder`` — the 2-layer LSTM branch: final hidden state ->
-  Linear projection;
+* ``SequenceEncoder`` — the LSTM branch (2 or more layers): final hidden
+  state -> Linear projection;
 * ``FrameEncoder`` — per-frame Linear + ReLU, temporal pooling
   (attention / average / max), LayerNorm, Linear projection;
 * ``build_encoder`` — the factory, with the JAX package's config keys,
@@ -60,7 +60,8 @@ class AttentionPool(nn.Module):
 
 
 class SequenceEncoder(nn.Module):
-    """Time series (B, T, D) -> 2-layer LSTM final hidden -> Linear."""
+    """Time series (B, T, D) -> L-layer LSTM (L >= 2) final hidden ->
+    Linear."""
 
     # past this length the JAX package switches to the layerwise scan
     MAX_FUSED_LEN = 2048

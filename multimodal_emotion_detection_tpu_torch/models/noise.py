@@ -5,7 +5,9 @@ port threads a ``Noise``: every dropout mask and the modality-dropout mask
 of one step are drawn from its ``torch.Generator`` (on the device the
 tensors live on), in a fixed order.  ``drawn`` keeps what was drawn, and
 ``Noise(replay=drawn)`` hands the same masks back in the same order, so
-one step can be repeated on another device with identical masks.
+one step can be repeated on another device with identical masks.  An
+L-layer LSTM draws its L-1 inter-layer keep masks as one (T, L-1, B, H)
+mask, so the draw order of a step does not depend on the depth.
 """
 
 from __future__ import annotations

@@ -14,8 +14,15 @@ import torch
 from torch import nn
 
 from multimodal_emotion_detection_tpu_torch.models.noise import Noise, keep_mask
-from multimodal_emotion_detection_tpu_torch.ops.lstm_kernel import lstm2_infer
-from multimodal_emotion_detection_tpu_torch.ops.lstm_vjp import fused_lstm_final
+from multimodal_emotion_detection_tpu_torch.ops.lstm_kernel import (
+    lstm1_infer,
+    lstm2_infer,
+)
+from multimodal_emotion_detection_tpu_torch.ops.lstm_vjp import (
+    fused_lstm_final,
+    lstm_route,
+    sm_count,
+)
 
 
 class _CellParams(nn.Module):
@@ -38,32 +45,48 @@ class _CellParams(nn.Module):
 
 
 class FusedStackedRNN(nn.Module):
-    """2-layer LSTM returning the last layer's final hidden state (B, H).
+    """L-layer LSTM (L >= 2) returning the top layer's final hidden state
+    (B, H).
 
-    In eval mode the forward is ``ops.lstm_kernel.lstm2_infer``.  In
-    training mode it is ``ops.lstm_vjp.fused_lstm_final`` (training forward
-    and reverse-chain kernels), with dropout between the layers: a keep
-    mask Bernoulli(1 - dropout) / (1 - dropout) of shape (T, B, H) drawn
-    from ``noise`` (all ones at dropout 0).  Each op is the hand-written
-    kernel on the card and its plain version on the CPU.
+    ``ops.lstm_vjp.lstm_route`` picks the kernels: the 2-layer ones for 2
+    layers of H up to twice the card's SM count, one layer per launch
+    otherwise.  In eval mode the forward is ``lstm2_infer``, or per layer
+    the input projection and ``lstm1_infer`` (the h series into the next
+    layer, the final h out of the top one).  In training mode it is
+    ``ops.lstm_vjp.fused_lstm_final``, with dropout between the layers: a
+    keep mask Bernoulli(1 - dropout) / (1 - dropout) of shape
+    (T, L-1, B, H), one draw per step, from ``noise`` (all ones at dropout
+    0).  Each op is the hand-written kernel on the card and its plain
+    version on the CPU.
     """
 
     def __init__(self, in_dim: int, hidden_dim: int, num_layers: int = 2,
                  dropout: float = 0.0):
         super().__init__()
-        if num_layers != 2:
+        if num_layers < 2:
             raise NotImplementedError(
-                f"FusedStackedRNN with num_layers={num_layers}: only the "
-                "2-layer LSTM is ported (ROADMAP.md Queue 1 item 3)"
+                f"FusedStackedRNN with num_layers={num_layers}: a 1-layer "
+                "LSTM (StackedRNN / LSTMLayer) is not ported yet (ROADMAP.md "
+                "Queue 1 item 3)"
             )
         self.dropout = float(dropout)
-        self.layer_0 = _CellParams(in_dim, hidden_dim)
-        self.layer_1 = _CellParams(hidden_dim, hidden_dim)
+        self.num_layers = num_layers
+        for layer in range(num_layers):
+            self.add_module(f"layer_{layer}", _CellParams(
+                in_dim if layer == 0 else hidden_dim, hidden_dim))
 
     def forward(self, x: torch.Tensor, noise: Optional[Noise] = None) -> torch.Tensor:
-        layer0, layer1 = self.layer_0.as_dict(), self.layer_1.as_dict()
+        layers = [getattr(self, f"layer_{i}").as_dict()
+                  for i in range(self.num_layers)]
+        h_dim = layers[0]["w_hh"].shape[0]
         if not self.training:
-            return lstm2_infer(x, layer0, layer1)
-        shape = (x.shape[1], x.shape[0], self.layer_0.w_hh.shape[0])
+            if lstm_route(self.num_layers, h_dim, sm_count(x.device)) == "pair":
+                return lstm2_infer(x, *layers)
+            x_l = x.to(torch.float32).transpose(0, 1)
+            for i, p in enumerate(layers):
+                x_l = lstm1_infer(torch.matmul(x_l, p["w_ih"]) + p["b"],
+                                  p["w_hh"], want_series=i < self.num_layers - 1)
+            return x_l
+        shape = (x.shape[1], self.num_layers - 1, x.shape[0], h_dim)
         keep = keep_mask(noise, shape, self.dropout, x.device)
-        return fused_lstm_final(x, keep, layer0, layer1)
+        return fused_lstm_final(x, keep, layers)

@@ -1,10 +1,12 @@
-"""2-layer LSTM recurrences: CUDA kernels + plain PyTorch versions.
+"""LSTM recurrences: CUDA kernels + plain PyTorch versions.
 
 Parameters keep the JAX package's layout: ``w_ih`` (D, 4H), ``w_hh``
-(H, 4H) and one fused bias ``b`` (4H,), gate order i, f, g, o.  Layer 0's
-input projection ``x @ w_ih0 + b0`` is one ``torch.matmul`` over all
+(H, 4H) and one fused bias ``b`` (4H,), gate order i, f, g, o.  Each
+layer's input projection ``x @ w_ih + b`` is one ``torch.matmul`` over all
 steps; each recurrence runs in its ``csrc/`` kernel on the card and in the
 loop of its plain version on the CPU.
+
+Two layers in one launch (H up to twice the SM count):
 
 * ``lstm2_infer``: final hidden state (B, H) from zero state
   (``csrc/lstm2_infer.cu``);
@@ -13,11 +15,20 @@ loop of its plain version on the CPU.
 * ``lstm2_bwd_chain``: the reverse dgates chain of both layers over those
   residuals (``csrc/lstm2_bwd_chain.cu``).
 
-The residual layout is the JAX package's: ``packed`` (T, B, 10H) =
+One layer per launch, any depth (H up to at least 1024):
+
+* ``lstm1_train_fwd``: one layer's training forward over its hoisted
+  input projection, with its residuals; ``lstm1_infer`` the same kernel
+  source's eval form (``csrc/lstm1_fwd.cu``);
+* ``lstm_bwd_chain``: one layer's reverse dgates chain
+  (``csrc/lstm_bwd_chain.cu``).
+
+The 2-layer residual layout is the JAX package's: ``packed`` (T, B, 10H) =
 ``[g0 | g1 | c0_prev | c1_prev]`` at the ``RES2_*`` offsets (units of H),
 ``h0_prev`` / ``h1_prev`` / ``x1`` (T, B, H) and ``finals`` (4, B, H) =
-``[h0, c0, h1, c1]``.  Unlike the TPU kernels, exactly T steps run: there
-are no pad rows.
+``[h0, c0, h1, c1]``; one layer's is ``g`` (T, B, 4H), ``h_prev`` and
+``c_prev`` (T, B, H) and ``finals`` (B, 2H) = ``[h | c]``.  Unlike the TPU
+kernels, exactly T steps run: there are no pad rows.
 """
 
 from __future__ import annotations
@@ -293,3 +304,183 @@ def lstm2_bwd_chain(packed: torch.Tensor, keep_tm: torch.Tensor,
         batch, t_len, h_dim, stream_of(packed),
     )
     return dg0, dg1
+
+
+# ---------------------------------------------------------------------------
+# One layer per launch: training forward, its eval form, reverse chain
+# ---------------------------------------------------------------------------
+
+
+def lstm1_train_fwd_reference(ih: torch.Tensor, w_hh: torch.Tensor):
+    """Plain version of one layer's training forward.
+
+    ih (T, B, 4H) the hoisted input projection -> ``(g (T, B, 4H),
+    h_prev (T, B, H), c_prev (T, B, H), finals (B, 2H) = [h | c])``: the
+    gate pre-activations and the state before each step, from zero state.
+    Differentiable, so autograd through it is a plain reference for the
+    layered gradient.
+    """
+    batch, h_dim = ih.shape[1], w_hh.shape[0]
+    h = c = ih.new_zeros((batch, h_dim))
+    gs, hps, cps = [], [], []
+    for t in range(ih.shape[0]):
+        g = ih[t] + h @ w_hh
+        gs.append(g)
+        hps.append(h)
+        cps.append(c)
+        h, c = _cell(c, g)
+    return (torch.stack(gs), torch.stack(hps), torch.stack(cps),
+            torch.cat([h, c], dim=-1))
+
+
+def h_series(h_prev: torch.Tensor, finals: torch.Tensor) -> torch.Tensor:
+    """The h after each step (T, B, H) from a training forward's residuals:
+    h after step t is h_prev(t+1), and after step T-1 the final h."""
+    return torch.cat([h_prev[1:], finals[None, :, :h_prev.shape[2]]])
+
+
+def lstm1_infer_reference(ih: torch.Tensor, w_hh: torch.Tensor,
+                          want_series: bool) -> torch.Tensor:
+    """Plain version of the eval form: the h series (T, B, H) after each
+    step, or only the final h (B, H)."""
+    _, h_prev, _, finals = lstm1_train_fwd_reference(ih, w_hh)
+    return h_series(h_prev, finals) if want_series else finals[:, :w_hh.shape[0]]
+
+
+def lstm_bwd_chain_reference(g: torch.Tensor, c_prev: torch.Tensor,
+                             dh_series, dh_final: torch.Tensor,
+                             w_hh: torch.Tensor) -> torch.Tensor:
+    """Plain version of one layer's reverse chain: dgates (T, B, 4H).
+
+    Walks t = T-1 .. 0 with carries dh (``dh_final`` at the start) and dc
+    (zero): ``(dg, dc) = cell_bwd(g[t], c_prev[t], dh + dh_series[t], dc)``,
+    ``dh = dg w_hh^T``.  ``dh_series=None`` means zeros (the top layer of
+    a final-hidden-only stack).
+    """
+    dh = dh_final.to(torch.float32)
+    dc = torch.zeros_like(dh)
+    dgs = []
+    for t in reversed(range(g.shape[0])):
+        dh_t = dh if dh_series is None else dh + dh_series[t]
+        dg, dc = _cell_bwd(g[t], c_prev[t], dh_t, dc)
+        dh = dg @ w_hh.T
+        dgs.append(dg)
+    return torch.stack(dgs[::-1])
+
+
+LSTM1_TRAIN_FWD = CudaKernel(
+    "lstm1_fwd", "lstm1_fwd_train_launch",
+    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+)
+LSTM1_INFER = CudaKernel(
+    "lstm1_fwd", "lstm1_fwd_infer_launch",
+    [_P, _P, _P, _I, _I, _I, _I, _P],
+)
+LSTM_BWD_CHAIN = CudaKernel(
+    "lstm_bwd_chain", "lstm_bwd_chain_launch",
+    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+)
+
+
+def _layer_shapes(name: str, ih: torch.Tensor, w_hh: torch.Tensor):
+    if ih.dim() != 3:
+        raise ValueError(f"{name}: ih has shape {tuple(ih.shape)}, expected (T, B, 4H)")
+    t_len, batch, _ = ih.shape
+    h_dim = w_hh.shape[0]
+    _check_shapes(name, ih=(ih, (t_len, batch, 4 * h_dim)),
+                  w_hh=(w_hh, (h_dim, 4 * h_dim)))
+    if t_len < 1 or batch < 1:
+        raise ValueError(f"{name}: empty input of shape {tuple(ih.shape)}")
+    return t_len, batch, h_dim
+
+
+def lstm1_train_fwd(ih: torch.Tensor, w_hh: torch.Tensor):
+    """One layer's training forward: ih (T, B, 4H), w_hh (H, 4H) ->
+    ``(g, h_prev, c_prev, finals)``, all float32.
+
+    On a CUDA tensor this launches ``csrc/lstm1_fwd.cu`` (one cooperative
+    launch for the whole sequence) and counts it in
+    ``LSTM1_TRAIN_FWD.launches``; on a CPU tensor it runs
+    ``lstm1_train_fwd_reference``.
+    """
+    if ih.device.type == "cpu":
+        return lstm1_train_fwd_reference(ih, w_hh)
+    t_len, batch, h_dim = _layer_shapes("lstm1_train_fwd", ih, w_hh)
+    ih, w_hh = ih.contiguous(), w_hh.contiguous()
+    new = dict(dtype=torch.float32, device=ih.device)
+    g = torch.empty((t_len, batch, 4 * h_dim), **new)
+    h_prev = torch.empty((t_len, batch, h_dim), **new)
+    c_prev = torch.empty((t_len, batch, h_dim), **new)
+    finals = torch.empty((batch, 2 * h_dim), **new)
+    check_cuda_f32("lstm1_train_fwd", ih=ih, w_hh=w_hh)
+    LSTM1_TRAIN_FWD(
+        ih.data_ptr(), w_hh.data_ptr(), g.data_ptr(), h_prev.data_ptr(),
+        c_prev.data_ptr(), finals.data_ptr(), batch, t_len, h_dim, stream_of(ih),
+    )
+    return g, h_prev, c_prev, finals
+
+
+def lstm1_infer(ih: torch.Tensor, w_hh: torch.Tensor,
+                want_series: bool) -> torch.Tensor:
+    """Eval form of ``lstm1_train_fwd``: ih (T, B, 4H) -> the h series
+    (T, B, H) (the next layer's input) or, with ``want_series`` false, the
+    final h (B, H).  It stores no gates and no cell states.
+
+    On a CUDA tensor this launches ``csrc/lstm1_fwd.cu``'s eval entry and
+    counts it in ``LSTM1_INFER.launches``; on a CPU tensor it runs
+    ``lstm1_infer_reference``.
+    """
+    if ih.device.type == "cpu":
+        return lstm1_infer_reference(ih, w_hh, want_series)
+    t_len, batch, h_dim = _layer_shapes("lstm1_infer", ih, w_hh)
+    ih, w_hh = ih.contiguous(), w_hh.contiguous()
+    # the kernel's blocks exchange h through ``out``: the series itself,
+    # or two slots used in turn when only the final h is wanted
+    slots = t_len if want_series else 2
+    out = torch.empty((slots, batch, h_dim), dtype=torch.float32, device=ih.device)
+    check_cuda_f32("lstm1_infer", ih=ih, w_hh=w_hh)
+    LSTM1_INFER(ih.data_ptr(), w_hh.data_ptr(), out.data_ptr(), batch, t_len,
+                h_dim, int(want_series), stream_of(ih))
+    return out if want_series else out[(t_len - 1) % 2]
+
+
+def lstm_bwd_chain(g: torch.Tensor, c_prev: torch.Tensor, dh_series,
+                   dh_final: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
+    """One layer's reverse dgates chain: dgates (T, B, 4H) float32.
+
+    ``g`` (T, B, 4H) and ``c_prev`` (T, B, H) are ``lstm1_train_fwd``'s
+    residuals, ``dh_series`` (T, B, H) the per-step cotangent from the
+    layer above (``None``: zeros, and the kernel reads nothing),
+    ``dh_final`` (B, H) the final hidden state's.  On a CUDA tensor this
+    launches ``csrc/lstm_bwd_chain.cu`` (one cooperative launch) and counts
+    it in ``LSTM_BWD_CHAIN.launches``; on a CPU tensor it runs
+    ``lstm_bwd_chain_reference``.
+    """
+    if g.device.type == "cpu":
+        return lstm_bwd_chain_reference(g, c_prev, dh_series, dh_final, w_hh)
+    if g.dim() != 3:
+        raise ValueError(f"lstm_bwd_chain: g has shape {tuple(g.shape)}, expected (T, B, 4H)")
+    t_len, batch, _ = g.shape
+    h_dim = w_hh.shape[0]
+    series = (t_len, batch, h_dim)
+    dh = dh_final.to(torch.float32).contiguous()
+    g, c_prev, w_hh = g.contiguous(), c_prev.contiguous(), w_hh.contiguous()
+    shaped = dict(g=(g, (t_len, batch, 4 * h_dim)), c_prev=(c_prev, series),
+                  dh_final=(dh, (batch, h_dim)), w_hh=(w_hh, (h_dim, 4 * h_dim)))
+    tensors = dict(g=g, c_prev=c_prev, dh_final=dh, w_hh=w_hh)
+    if dh_series is not None:
+        dh_series = dh_series.to(torch.float32).contiguous()
+        shaped["dh_series"] = (dh_series, series)
+        tensors["dh_series"] = dh_series
+    _check_shapes("lstm_bwd_chain", **shaped)
+    if t_len < 1 or batch < 1:
+        raise ValueError(f"lstm_bwd_chain: empty residuals {tuple(g.shape)}")
+    dg = torch.empty((t_len, batch, 4 * h_dim), dtype=torch.float32, device=g.device)
+    check_cuda_f32("lstm_bwd_chain", **tensors)
+    LSTM_BWD_CHAIN(
+        g.data_ptr(), c_prev.data_ptr(),
+        dh_series.data_ptr() if dh_series is not None else None,
+        dh.data_ptr(), w_hh.data_ptr(), dg.data_ptr(), batch, t_len, h_dim,
+        stream_of(g),
+    )
+    return dg

@@ -1,34 +1,67 @@
-"""Gradient of the 2-layer LSTM's final hidden state, with hoisted weight
+"""Gradient of a stacked LSTM's final hidden state, with hoisted weight
 gradients.
 
-``FusedLSTMFinal`` is the counterpart of the JAX package's
-``fused_lstm_final`` on its residual-native route: the forward is
-``lstm2_train_fwd_residuals`` (saving the residuals), the backward is the
-serial reverse chain ``lstm2_bwd_chain``, which emits every step's dgates
-of both layers, followed by the weight gradients as single matrix products
-over the flattened (T*B, .) series:
+Two routes compute the same function, the counterparts of the JAX
+package's ``fused_lstm_final`` routes; ``lstm_route`` picks one from the
+depth, the width and the card's SM count, and ``fused_lstm_final`` takes
+it:
 
-    dW_ih0 = x^T dg0     dW_hh0 = h0_prev^T dg0     db0 = sum dg0
-    dW_ih1 = x1^T dg1    dW_hh1 = h1_prev^T dg1     db1 = sum dg1
+* ``FusedLSTMFinal`` (2 layers, H up to twice the SM count), the
+  residual-native route: the forward is ``lstm2_train_fwd_residuals``
+  (saving the residuals), the backward the serial reverse chain
+  ``lstm2_bwd_chain``, which emits every step's dgates of both layers;
+* ``LayeredLSTMFinal`` (any depth and the wider layers), the layered
+  route: per layer, the input projection ``x_l @ w_ih_l + b_l`` as one
+  ``torch.matmul``, then ``lstm1_train_fwd``; backward top-down, per layer
+  ``lstm_bwd_chain``, then the hop ``(dg_l @ w_ih_l^T) * keep_{l-1}`` into
+  the layer below as one ``torch.matmul``.
 
-On the card both recurrences are hand-written kernels; on the CPU the same
-Function runs their plain versions.  The keep mask is a dropout draw and
-gets no gradient.
+Both then form the weight gradients as single matrix products over the
+flattened (T*B, .) series:
+
+    dW_ih_l = x_l^T dg_l     dW_hh_l = h_prev_l^T dg_l     db_l = sum dg_l
+
+On the card the recurrences are hand-written kernels; on the CPU the same
+Functions run their plain versions.  The keep masks are dropout draws and
+get no gradient.
 """
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 
 from multimodal_emotion_detection_tpu_torch.ops.lstm_kernel import (
     Params,
+    h_series,
+    lstm1_train_fwd,
     lstm2_bwd_chain,
     lstm2_train_fwd_residuals,
+    lstm_bwd_chain,
 )
+
+# the card the CPU mirrors when it picks a route: an H100's SM count
+H100_SMS = 132
 
 
 def _flat(a: torch.Tensor) -> torch.Tensor:
     return a.reshape(a.shape[0] * a.shape[1], -1)
+
+
+def lstm_route(num_layers: int, hidden: int, sm_count: int) -> str:
+    """``"pair"`` where the 2-layer kernels take the stack (2 layers, at
+    most 2 hidden units per CTA of one CTA per SM), else ``"layered"``."""
+    if num_layers == 2 and hidden <= 2 * sm_count:
+        return "pair"
+    return "layered"
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's SM count, or the H100's for a CPU tensor."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).multi_processor_count
+    return H100_SMS
 
 
 class FusedLSTMFinal(torch.autograd.Function):
@@ -60,10 +93,56 @@ class FusedLSTMFinal(torch.autograd.Function):
                 _flat(x1).T @ dg1f, _flat(h1p).T @ dg1f, dg1f.sum(0))
 
 
-def fused_lstm_final(x: torch.Tensor, keep: torch.Tensor, layer0: Params,
-                     layer1: Params) -> torch.Tensor:
-    """x (B, T, D), keep (T, B, H) -> layer 1's final hidden state (B, H),
-    differentiable in x and both layers' parameters."""
-    return FusedLSTMFinal.apply(
-        x, keep, layer0["w_ih"], layer0["w_hh"], layer0["b"],
-        layer1["w_ih"], layer1["w_hh"], layer1["b"])
+class LayeredLSTMFinal(torch.autograd.Function):
+    """(x (B, T, D), keep (T, L-1, B, H), w_ih0, w_hh0, b0, ..., w_ih_{L-1},
+    w_hh_{L-1}, b_{L-1}) -> final hidden state of the top layer (B, H)."""
+
+    @staticmethod
+    def forward(ctx, x, keep, *weights):
+        n_layers = len(weights) // 3
+        x_l = x.to(torch.float32).transpose(0, 1).contiguous()
+        residuals = []
+        for layer in range(n_layers):
+            w_ih, w_hh, b = weights[3 * layer:3 * layer + 3]
+            g, h_prev, c_prev, finals = lstm1_train_fwd(
+                torch.matmul(x_l, w_ih) + b, w_hh)
+            residuals += [x_l, g, h_prev, c_prev]
+            if layer < n_layers - 1:
+                x_l = h_series(h_prev, finals) * keep[:, layer]
+        ctx.save_for_backward(keep, *residuals, *weights)
+        return finals[:, :w_hh.shape[0]].contiguous()
+
+    @staticmethod
+    def backward(ctx, dh_final):
+        keep, *saved = ctx.saved_tensors
+        n_layers = len(saved) // 7
+        residuals, weights = saved[:4 * n_layers], saved[4 * n_layers:]
+        dh_final = dh_final.to(torch.float32).contiguous()
+        grads = [None] * (3 * n_layers)
+        dh_series = None  # the top layer's per-step cotangent is zero
+        for layer in reversed(range(n_layers)):
+            x_l, g, h_prev, c_prev = residuals[4 * layer:4 * layer + 4]
+            w_ih, w_hh = weights[3 * layer], weights[3 * layer + 1]
+            dhf = dh_final if layer == n_layers - 1 else torch.zeros_like(dh_final)
+            dg = lstm_bwd_chain(g, c_prev, dh_series, dhf, w_hh)
+            dgf = _flat(dg)
+            grads[3 * layer:3 * layer + 3] = [
+                _flat(x_l).T @ dgf, _flat(h_prev).T @ dgf, dgf.sum(0)]
+            if layer > 0:
+                dh_series = torch.matmul(dg, w_ih.T) * keep[:, layer - 1]
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.matmul(dg, weights[0].T).transpose(0, 1)
+        return (dx, None, *grads)
+
+
+def fused_lstm_final(x: torch.Tensor, keep: torch.Tensor,
+                     layers: Sequence[Params]) -> torch.Tensor:
+    """x (B, T, D), keep (T, L-1, B, H) the inter-layer keep masks ->
+    the top layer's final hidden state (B, H), differentiable in x and
+    every layer's parameters.  The route is ``lstm_route``'s."""
+    weights = [p[name] for p in layers for name in ("w_ih", "w_hh", "b")]
+    h_dim = layers[0]["w_hh"].shape[0]
+    if lstm_route(len(layers), h_dim, sm_count(x.device)) == "pair":
+        return FusedLSTMFinal.apply(x, keep[:, 0], *weights)
+    return LayeredLSTMFinal.apply(x, keep, *weights)

@@ -136,7 +136,7 @@ def test_fused_lstm_final_grads_match_plain_autograd(b, t, d, h):
         (fn(x, p0, p1) * weight).sum().backward()
         return [x.grad] + [p.grad for p in (*p0.values(), *p1.values())]
 
-    ours = grads(lambda x, p0, p1: fused_lstm_final(x, keep, p0, p1))
+    ours = grads(lambda x, p0, p1: fused_lstm_final(x, keep[:, None], (p0, p1)))
     plain = grads(lambda x, p0, p1: lstm_kernel.lstm2_train_fwd_reference(
         x.transpose(0, 1), keep, p0, p1)[4][2])
     for i, (g, r) in enumerate(zip(ours, plain)):
@@ -144,3 +144,141 @@ def test_fused_lstm_final_grads_match_plain_autograd(b, t, d, h):
         scale = float(r.abs().max())
         torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4 * max(scale, 1.0),
                                    msg=f"gradient {i}")
+
+
+LAYER_SHAPES = [(1, 5, 64), (37, 5, 128), (32, 5, 512),
+                (1, 372, 64), (37, 372, 128), (32, 372, 512)]
+
+
+def _layer_case(dev, b, t, h, seed):
+    """A layer's hoisted input projection (T, B, 4H) and its w_hh."""
+    rng = np.random.RandomState(seed)
+    k = 1.0 / np.sqrt(h)
+    ih = rng.uniform(-1.0, 1.0, (t, b, 4 * h)).astype(np.float32)
+    w_hh = rng.uniform(-k, k, (h, 4 * h)).astype(np.float32)
+    return torch.from_numpy(ih).to(dev), torch.from_numpy(w_hh).to(dev)
+
+
+@pytest.mark.parametrize("b,t,h", LAYER_SHAPES)
+def test_lstm1_fwd_kernels_match_plain(b, t, h):
+    dev = _card()
+    ih, w_hh = _layer_case(dev, b, t, h, seed=b * 1000 + t + h)
+    before = lstm_kernel.LSTM1_TRAIN_FWD.launches
+    outs = lstm_kernel.lstm1_train_fwd(ih, w_hh)
+    torch.cuda.synchronize()
+    assert lstm_kernel.LSTM1_TRAIN_FWD.launches == before + 1
+    refs = lstm_kernel.lstm1_train_fwd_reference(ih, w_hh)
+    # float32 sums in another order than cuBLAS, carried through T steps
+    for name, out, ref in zip(("g", "h_prev", "c_prev", "finals"), outs, refs):
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4, msg=name)
+    for series in (True, False):
+        before = lstm_kernel.LSTM1_INFER.launches
+        out = lstm_kernel.lstm1_infer(ih, w_hh, series)
+        torch.cuda.synchronize()
+        assert lstm_kernel.LSTM1_INFER.launches == before + 1
+        ref = lstm_kernel.lstm1_infer_reference(ih, w_hh, series)
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4,
+                                   msg=f"eval form, series={series}")
+
+
+@pytest.mark.parametrize("b,t,h", LAYER_SHAPES)
+def test_lstm_bwd_chain_kernel_matches_plain(b, t, h):
+    dev = _card()
+    ih, w_hh = _layer_case(dev, b, t, h, seed=b * 1000 + t + h + 1)
+    g, _, c_prev, _ = lstm_kernel.lstm1_train_fwd_reference(ih, w_hh)
+    rng = np.random.RandomState(t + h)
+    dhf = torch.from_numpy(rng.randn(b, h).astype(np.float32)).to(dev)
+    dhs = torch.from_numpy(rng.randn(t, b, h).astype(np.float32)).to(dev)
+    for series in (dhs, None):
+        before = lstm_kernel.LSTM_BWD_CHAIN.launches
+        out = lstm_kernel.lstm_bwd_chain(g, c_prev, series, dhf, w_hh)
+        torch.cuda.synchronize()
+        assert lstm_kernel.LSTM_BWD_CHAIN.launches == before + 1
+        ref = lstm_kernel.lstm_bwd_chain_reference(g, c_prev, series, dhf, w_hh)
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4,
+                                   msg=f"dh_series given: {series is not None}")
+
+
+@pytest.mark.parametrize("b,t,d,h", [(3, 40, 6, 64), (32, 372, 64, 512)])
+def test_layered_grads_match_plain_autograd(b, t, d, h):
+    from multimodal_emotion_detection_tpu_torch.ops.lstm_vjp import (
+        fused_lstm_final,
+    )
+
+    dev = _card()
+    rng = np.random.RandomState(b + h)
+    k = 1.0 / np.sqrt(h)
+    layers = [{name: torch.from_numpy(
+        rng.uniform(-k, k, shape).astype(np.float32)).to(dev)
+        for name, shape in (("w_ih", (d if i == 0 else h, 4 * h)),
+                            ("w_hh", (h, 4 * h)), ("b", (4 * h,)))}
+        for i in range(3)]
+    x = torch.from_numpy(rng.randn(b, t, d).astype(np.float32)).to(dev)
+    keep = torch.from_numpy(
+        ((rng.rand(t, 2, b, h) < 0.9) / 0.9).astype(np.float32)).to(dev)
+    weight = torch.from_numpy(rng.randn(b, h).astype(np.float32)).to(dev)
+
+    def grads(fn):
+        xg = x.clone().requires_grad_()
+        ps = [{n: v.clone().requires_grad_() for n, v in p.items()} for p in layers]
+        (fn(xg, ps) * weight).sum().backward()
+        return [xg.grad] + [p[n].grad for p in ps for n in ("w_ih", "w_hh", "b")]
+
+    def plain(xg, ps):
+        x_l = xg.transpose(0, 1)
+        for i, p in enumerate(ps):
+            _, hp, _, finals = lstm_kernel.lstm1_train_fwd_reference(
+                x_l @ p["w_ih"] + p["b"], p["w_hh"])
+            x_l = torch.cat([hp[1:], finals[None, :, :h]])
+            if i < 2:
+                x_l = x_l * keep[:, i]
+        return finals[:, :h]
+
+    launches = (lstm_kernel.LSTM1_TRAIN_FWD.launches,
+                lstm_kernel.LSTM_BWD_CHAIN.launches)
+    ours = grads(lambda xg, ps: fused_lstm_final(xg, keep, ps))
+    assert (lstm_kernel.LSTM1_TRAIN_FWD.launches,
+            lstm_kernel.LSTM_BWD_CHAIN.launches) == (launches[0] + 3, launches[1] + 3)
+    for i, (g, r) in enumerate(zip(ours, grads(plain))):
+        # weight gradients sum T*B terms: relative 1e-4 of the largest
+        scale = float(r.abs().max())
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4 * max(scale, 1.0),
+                                   msg=f"gradient {i}")
+
+
+def test_two_layer_h512_trains_and_serves_on_the_layered_kernels():
+    from multimodal_emotion_detection_tpu_torch.models.noise import Noise
+    from multimodal_emotion_detection_tpu_torch.models.recurrent import (
+        FusedStackedRNN,
+    )
+
+    dev = _card()
+    b, t, d, h = 32, 372, 64, 512
+    rnn = FusedStackedRNN(d, h, num_layers=2, dropout=0.1)
+    for layer in (rnn.layer_0, rnn.layer_1):
+        layer.reset_parameters(torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.RandomState(5).randn(b, t, d).astype(np.float32))
+    counters = (lstm_kernel.LSTM1_TRAIN_FWD, lstm_kernel.LSTM_BWD_CHAIN,
+                lstm_kernel.LSTM1_INFER, lstm_kernel.LSTM2_TRAIN_FWD,
+                lstm_kernel.LSTM2_INFER)
+    before = [c.launches for c in counters]
+    card = rnn.to(dev).train()
+    noise = Noise(torch.Generator(device=dev).manual_seed(0))
+    card(x.to(dev), noise).sum().backward()
+    grads = {n: p.grad.cpu() for n, p in card.named_parameters()}
+    card.eval()
+    with torch.no_grad():
+        served = card(x.to(dev)).cpu()
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [2, 2, 2, 0, 0]
+
+    cpu = rnn.cpu().train()
+    for p in cpu.parameters():
+        p.grad = None
+    cpu(x, Noise(replay=noise.drawn)).sum().backward()
+    for n, p in cpu.named_parameters():
+        scale = float(p.grad.abs().max())
+        torch.testing.assert_close(grads[n], p.grad, rtol=1e-4,
+                                   atol=1e-4 * max(scale, 1.0), msg=n)
+    with torch.no_grad():
+        torch.testing.assert_close(served, cpu.eval()(x), rtol=1e-4, atol=1e-4)

@@ -7,6 +7,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from multimodal_emotion_detection_tpu_torch.models.recurrent import FusedStackedRNN
 from multimodal_emotion_detection_tpu_torch.ops import logmel, lstm_kernel
 from multimodal_emotion_detection_tpu_torch.ops.lstm_vjp import fused_lstm_final
 
@@ -35,7 +36,8 @@ def test_port_and_chip_smoke_import_no_jax():
 
 
 COUNTERS = (logmel.LOGMEL, lstm_kernel.LSTM2_INFER, lstm_kernel.LSTM2_TRAIN_FWD,
-            lstm_kernel.LSTM2_BWD_CHAIN)
+            lstm_kernel.LSTM2_BWD_CHAIN, lstm_kernel.LSTM1_TRAIN_FWD,
+            lstm_kernel.LSTM1_INFER, lstm_kernel.LSTM_BWD_CHAIN)
 
 
 def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
@@ -58,6 +60,13 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     keep = torch.ones(5, 2, 8)
     p0 = {k: v.clone().requires_grad_() for k, v in l0.items()}
     p1 = {k: v.clone().requires_grad_() for k, v in l1.items()}
-    fused_lstm_final(x, keep, p0, p1).sum().backward()
+    fused_lstm_final(x, keep[:, None], (p0, p1)).sum().backward()
     assert all(p.grad is not None for p in (*p0.values(), *p1.values()))
-    assert [c.launches for c in COUNTERS] == [0, 0, 0, 0]
+    # the layered route (3 layers), training and eval
+    p2 = {k: v.detach().clone().requires_grad_() for k, v in p1.items()}
+    fused_lstm_final(x, torch.ones(5, 2, 2, 8), (p0, p1, p2)).sum().backward()
+    assert p2["w_hh"].grad is not None
+    rnn = FusedStackedRNN(3, 8, num_layers=3).eval()
+    with torch.no_grad():
+        assert rnn(x).shape == (2, 8)
+    assert [c.launches for c in COUNTERS] == [0] * len(COUNTERS)

@@ -114,7 +114,7 @@ def _torch_grads(x, keep, l0, l1, weight):
     xt = torch.from_numpy(x).requires_grad_()
     p0 = {k: v.requires_grad_() for k, v in _torch(l0).items()}
     p1 = {k: v.requires_grad_() for k, v in _torch(l1).items()}
-    h = fused_lstm_final(xt, torch.from_numpy(_tm(keep)), p0, p1)
+    h = fused_lstm_final(xt, torch.from_numpy(_tm(keep))[:, None], (p0, p1))
     (h * torch.from_numpy(weight)).sum().backward()
     return h.detach().numpy(), [xt.grad.numpy()] + [
         (p0, p1)[layer][name].grad.numpy() for layer, name in PARAM_NAMES]

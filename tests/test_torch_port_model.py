@@ -73,7 +73,7 @@ def test_classifier_logits_match_jax(jax_kernels):
 @pytest.mark.parametrize("override,item", [
     ("model.encoders.audio.encoder_type=gru", "item 6"),
     ("model.encoders.audio.encoder_type=transformer", "item 8"),
-    ("model.encoders.audio.num_layers=3", "item 3"),
+    ("model.encoders.audio.num_layers=1", "item 3"),
     ("model.train_fusion=library", "item 7"),
     ("runtime.compute_dtype=bfloat16", "item 13"),
 ])

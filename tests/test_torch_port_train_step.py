@@ -245,3 +245,22 @@ def test_train_step_trajectory_matches_jax():
                 continue
             np.testing.assert_allclose(got[k].numpy(), v.numpy(), rtol=0,
                                        atol=1e-4, err_msg=f"{k}, step {s}")
+
+
+def test_clip_by_global_norm_is_exact_on_a_wide_gradient():
+    # the big config's video frame layer: a 4096 x 512 gradient, where a
+    # float32 reduction on the CPU is off by ~3e-5 relative
+    g = torch.Generator().manual_seed(0)
+    grads = [torch.randn(4096, 512, generator=g) * 1e-3,
+             torch.randn(512, 2048, generator=g) * 1e-3, torch.randn(8, generator=g)]
+    norm = float(torch.sqrt(sum((t.double() ** 2).sum() for t in grads)))
+    clipped = [t.clone() for t in grads]
+    optim.clip_by_global_norm(clipped, 1.0)
+    for c, t in zip(clipped, grads):
+        np.testing.assert_allclose(c.double().numpy(), t.double().numpy() / norm,
+                                   rtol=1e-6, atol=0)
+    small = [t * 1e-3 / norm for t in grads]  # norm 1e-3: left as it is
+    kept = [t.clone() for t in small]
+    optim.clip_by_global_norm(kept, 1.0)
+    for k, t in zip(kept, small):
+        torch.testing.assert_close(k, t, rtol=0, atol=0)
