@@ -45,7 +45,17 @@
    trained ``best.ckpt`` through the predict CLI (``[serve_big]``: 3
    eval-form launches and 1 log-mel per batch), logits against the CPU
    forward, latency and profile.
-9. Prints one JSON line describing every kernel, nvidia-smi's name and
+9. The GRU audio encoder config (GRU 2x256, log-mel cached per split;
+   ``GRU``): holds the three 2-layer GRU kernels (eval form, training
+   forward with residuals, reverse chain) against their plain versions at
+   B=32, T=372, D=64, H=256 and times them beside cuDNN's GRU, and the
+   whole recurrence gradient beside cuDNN's.  Trains it as in 6
+   (``[train_gru]``: one training forward and one reverse chain per step,
+   gru2_infer once per eval batch, log-mel once per split, no LSTM
+   kernel), card step against the CPU step, latency and profile; serves
+   its ``best.ckpt`` (``[serve_gru]``: log-mel and gru2_infer once per
+   batch), logits against the CPU forward, latency and profile.
+10. Prints one JSON line describing every kernel, nvidia-smi's name and
    power limit of the card, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -693,6 +703,216 @@ def phase_lstm_bwd_chain(lstm_kernel, lstm_vjp, flush, layer_inputs):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
 
+def _gru_inputs(seed: int):
+    """The GRU config's training shape (log-mel 64, GRU 2x256, batch 32):
+    time-major x, keep mask at dropout 0.1, both layers' weights."""
+    dev = torch.device("cuda")
+    b, t, d, h = 32, 372, 64, 256
+    rng = np.random.RandomState(seed)
+    k = 1.0 / np.sqrt(h)
+
+    def layer(d_in):
+        return {name: torch.from_numpy(
+            rng.uniform(-k, k, shape).astype(np.float32)).to(dev)
+            for name, shape in (("w_ih", (d_in, 3 * h)), ("w_hh", (h, 3 * h)),
+                                ("b_ih", (3 * h,)), ("b_hh", (3 * h,)))}
+
+    l0, l1 = layer(d), layer(h)
+    x_tm = torch.from_numpy(rng.randn(t, b, d).astype(np.float32)).to(dev)
+    keep = torch.from_numpy(
+        ((rng.rand(t, b, h) < 0.9) / 0.9).astype(np.float32)).to(dev)
+    return x_tm, keep, l0, l1
+
+
+def _cudnn_gru(*layers):
+    """Yardstick only, never called by the port: cuDNN's GRU with the same
+    layers' weights (torch keeps (3H, D) matrices; gate order r, z, n and
+    b_hh inside the reset product, as the port's)."""
+    d, h = layers[0]["w_ih"].shape[0], layers[0]["w_hh"].shape[0]
+    lib = torch.nn.GRU(d, h, num_layers=len(layers), batch_first=True).cuda()
+    with torch.no_grad():
+        for i, p in enumerate(layers):
+            getattr(lib, f"weight_ih_l{i}").copy_(p["w_ih"].T)
+            getattr(lib, f"weight_hh_l{i}").copy_(p["w_hh"].T)
+            getattr(lib, f"bias_ih_l{i}").copy_(p["b_ih"])
+            getattr(lib, f"bias_hh_l{i}").copy_(p["b_hh"])
+    return lib.train()
+
+
+def phase_gru2_infer(lstm_kernel, flush):
+    x_tm, _, l0, l1 = _gru_inputs(7)
+    t, b, d = x_tm.shape
+    h = l0["w_hh"].shape[0]
+    x = x_tm.transpose(0, 1).contiguous()
+    out = lstm_kernel.gru2_infer(x, l0, l1)
+    torch.cuda.synchronize()
+    ref = lstm_kernel.gru2_infer_reference(x, l0, l1)
+    abs_err, rel_err = max_errs(out, ref)
+    print(f"[gru2_infer] B={b} T={t} D={d} H={h}: max abs err {abs_err:.3e}, "
+          f"max rel err {rel_err:.3e} (bound 1e-4 abs on h1)")
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
+    x1 = x[:1].contiguous()
+    out1 = lstm_kernel.gru2_infer(x1, l0, l1)
+    ref1 = lstm_kernel.gru2_infer_reference(x1, l0, l1)
+    a1, _ = max_errs(out1, ref1)
+    print(f"[gru2_infer] B=1: max abs err {a1:.3e}")
+    torch.testing.assert_close(out1, ref1, rtol=0, atol=1e-4)
+
+    lib = _cudnn_gru(l0, l1)
+    with torch.no_grad():
+        lib_err, _ = max_errs(lib(x)[1][-1], ref)
+    print(f"[gru2_infer] torch.nn.GRU (cuDNN) vs plain: max abs err {lib_err:.3e}")
+
+    def run_lib():
+        with torch.no_grad():
+            lib(x)
+
+    ms = device_ms(lambda: lstm_kernel.gru2_infer(x, l0, l1), flush)
+    plain_ms = device_ms(lambda: lstm_kernel.gru2_infer_reference(x, l0, l1),
+                         flush, reps=5)
+    library_ms = device_ms(run_lib, flush)
+    ms_b1 = device_ms(lambda: lstm_kernel.gru2_infer(x1, l0, l1), flush)
+    flops = 2 * b * t * (d * 3 * h + 3 * h * 3 * h)
+    # x, the four weight matrices and four biases read; h1 written
+    nbytes = 4 * (b * t * d + d * 3 * h + 3 * h * 3 * h + 4 * 3 * h + b * h)
+    bound_ms, bound_by = bound(flops, nbytes)
+    print(f"[gru2_infer] kernel {ms:.4f} ms (input projection + one cooperative "
+          f"launch, {t + 1} grid barriers, {1e3 * ms / (t + 1):.3f} us per phase), "
+          f"plain {plain_ms:.4f} ms, cuDNN nn.GRU inference forward {library_ms:.4f} "
+          f"ms, bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP, "
+          f"{nbytes / 1e6:.2f} MB; serial chain of {2 * t} layer-steps)")
+    print(f"[gru2_infer] B=1 kernel {ms_b1:.4f} ms ({1e3 * ms_b1 / (t + 1):.3f} us "
+          "per barrier phase)")
+    return {"name": "gru2_infer", "route": "cuda",
+            "source": "multimodal_emotion_detection_tpu_torch/csrc/gru2_infer.cu",
+            "replaces": "multimodal_emotion_detection_tpu/ops/lstm_kernel.py:204",
+            "max_abs_err": max(abs_err, a1), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
+def phase_gru2_train_fwd(lstm_kernel, flush):
+    x_tm, keep, l0, l1 = _gru_inputs(8)
+    t, b, d = x_tm.shape
+    h = l0["w_hh"].shape[0]
+    outs = lstm_kernel.gru2_train_fwd_residuals(x_tm, keep, l0, l1)
+    torch.cuda.synchronize()
+    refs = lstm_kernel.gru2_train_fwd_reference(x_tm, keep, l0, l1)
+    errs = {}
+    for name, out, ref in zip(("packed", "h0_prev", "h1_prev", "x1", "finals"),
+                              outs, refs):
+        errs[name] = max_errs(out, ref)[0]
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4, msg=name)
+    print(f"[gru2_train_fwd] B={b} T={t} D={d} H={h}, keep p=0.1: max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + " (bound 1e-4 abs + 1e-4 rel)")
+
+    lib = _cudnn_gru(l0, l1)
+    x_bt = x_tm.transpose(0, 1).contiguous()
+
+    def run_lib():
+        lib(x_bt)  # training forward with autograd: saves what backward needs
+
+    ms = device_ms(lambda: lstm_kernel.gru2_train_fwd_residuals(x_tm, keep, l0, l1),
+                   flush)
+    plain_ms = device_ms(
+        lambda: lstm_kernel.gru2_train_fwd_reference(x_tm, keep, l0, l1),
+        flush, reps=5)
+    library_ms = device_ms(run_lib, flush)
+    flops = 2 * b * t * (d * 3 * h + 3 * h * 3 * h)
+    # x, keep, weights and biases read; packed (8H), h0_prev, h1_prev, x1
+    # and finals written
+    nbytes = 4 * (t * b * (d + h + 11 * h) + d * 3 * h + 3 * h * 3 * h
+                  + 4 * 3 * h + 2 * b * h)
+    bound_ms, bound_by = bound(flops, nbytes)
+    print(f"[gru2_train_fwd] kernel {ms:.4f} ms (input projection + one "
+          f"cooperative launch, {t + 1} grid barriers, "
+          f"{1e3 * ms / (t + 1):.3f} us per phase), plain {plain_ms:.4f} ms, "
+          f"cuDNN nn.GRU training forward at keep=1 {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP, "
+          f"{nbytes / 1e6:.2f} MB incl. the residual stores)")
+    kern = {"name": "gru2_train_fwd", "route": "cuda",
+            "source": "multimodal_emotion_detection_tpu_torch/csrc/gru2_train_fwd.cu",
+            "replaces": "multimodal_emotion_detection_tpu/ops/lstm_kernel.py:2812",
+            "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+    return kern, (x_tm, keep, l0, l1, refs)
+
+
+def phase_gru2_bwd_chain(lstm_kernel, lstm_vjp, flush, inputs):
+    x_tm, keep, l0, l1, refs = inputs
+    t, b, d = x_tm.shape
+    h = l0["w_hh"].shape[0]
+    dh = torch.from_numpy(np.random.RandomState(9).randn(b, h).astype(np.float32)).cuda()
+    args = (*refs[:3], keep, dh, l0["w_hh"], l1["w_hh"], l1["w_ih"])
+    outs = lstm_kernel.gru2_bwd_chain(*args)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, out, ref in zip(("dih0", "dhn0", "dih1", "dhn1"), outs,
+                              lstm_kernel.gru2_bwd_chain_reference(*args)):
+        errs[name] = max_errs(out, ref)[0]
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4, msg=name)
+    print(f"[gru2_bwd_chain] B={b} T={t} H={h}: max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + " (bound 1e-4 abs + 1e-4 rel)")
+
+    lib = _cudnn_gru(l0, l1)
+    x_bt = x_tm.transpose(0, 1).contiguous()
+    lib_params = list(lib.parameters())
+    h_lib = lib(x_bt)[1][-1]
+
+    def run_lib_bwd():
+        torch.autograd.grad(h_lib, lib_params, dh, retain_graph=True)
+
+    ms = device_ms(lambda: lstm_kernel.gru2_bwd_chain(*args), flush)
+    plain_ms = device_ms(lambda: lstm_kernel.gru2_bwd_chain_reference(*args),
+                         flush, reps=5)
+    library_ms = device_ms(run_lib_bwd, flush)
+    flops = 2 * b * t * 3 * 3 * h * h
+    # packed (8H), h0_prev, h1_prev, keep, dh_final and three weights read;
+    # dih0, dih1 (3H) and dhn0, dhn1 written
+    nbytes = 4 * (t * b * (8 * h + 3 * h + 8 * h) + b * h + 3 * h * 3 * h)
+    bound_ms, bound_by = bound(flops, nbytes)
+    print(f"[gru2_bwd_chain] kernel {ms:.4f} ms (one cooperative launch, "
+          f"{t + 1} grid barriers, {1e3 * ms / (t + 1):.3f} us per phase), plain "
+          f"{plain_ms:.4f} ms, cuDNN backward of h_n at keep=1 {library_ms:.4f} ms "
+          "(it also forms the weight gradients), bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP, "
+          f"{nbytes / 1e6:.2f} MB)")
+
+    # the whole recurrence gradient at keep=1: the kernel pair plus the
+    # hoisted weight-gradient products, against cuDNN forward + backward
+    ones = torch.ones_like(keep)
+    p0 = {k: v.clone().requires_grad_() for k, v in l0.items()}
+    p1 = {k: v.clone().requires_grad_() for k, v in l1.items()}
+    ours_params = [*p0.values(), *p1.values()]
+
+    def run_ours_grad():
+        out = lstm_vjp.fused_gru_final(x_bt, ones[:, None], (p0, p1))
+        return torch.autograd.grad(out, ours_params, dh)
+
+    def run_lib_grad():
+        return torch.autograd.grad(lib(x_bt)[1][-1], lib_params, dh)
+
+    g_ours, g_lib = run_ours_grad(), run_lib_grad()
+    # cuDNN keeps (3H, H) matrices: compare dW_hh of layer 1 (ours (H, 3H)),
+    # and db_hh of layer 1, whose n third differs from db_ih's
+    grad_err = float((g_ours[5] - g_lib[5].T).abs().max() / g_lib[5].abs().max())
+    bias_err = float((g_ours[7] - g_lib[7]).abs().max() / g_lib[7].abs().max())
+    whole_ms = device_ms(run_ours_grad, flush)
+    whole_lib_ms = device_ms(run_lib_grad, flush)
+    print(f"[gru2_bwd_chain] whole recurrence gradient (forward + reverse chain "
+          f"+ hoisted weight products) {whole_ms:.4f} ms vs cuDNN forward + "
+          f"backward {whole_lib_ms:.4f} ms; dW_hh1 relative to cuDNN's "
+          f"{grad_err:.3e}, db_hh1 {bias_err:.3e}")
+    if not (grad_err < 1e-3 and bias_err < 1e-3):
+        raise RuntimeError("the GRU recurrence gradient disagrees with cuDNN's")
+    return {"name": "gru2_bwd_chain", "route": "cuda",
+            "source": "multimodal_emotion_detection_tpu_torch/csrc/gru2_bwd_chain.cu",
+            "replaces": "multimodal_emotion_detection_tpu/ops/lstm_kernel.py:3053",
+            "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
 def _write_split(root: Path, split: str, n: int, seed: int) -> None:
     d = root / split
     d.mkdir(parents=True, exist_ok=True)
@@ -902,11 +1122,17 @@ BIG = ["model.frontend.audio=logmel", "model.frontend.cache=true",
        "model.output_dim=256", "model.hidden_dim=512",
        "model.encoders.audio.hidden_dim=512", "model.encoders.audio.num_layers=3",
        "model.encoders.video.hidden_dim=512"]
+# the JAX package's GRU bench leg (bench.py's encoder="gru" at b32, log-mel
+# cached per split): log-mel 64 -> GRU 2x256 -> Dense 128
+GRU = ["model.frontend.audio=logmel", "model.frontend.cache=true",
+       "model.encoders.audio.encoder_type=gru"]
 # the path whose run gives each kernel's "launches": the training path of
 # the slice that ported it
 MAIN_PATH = {"logmel": "train", "lstm2_infer": "train", "lstm2_train_fwd": "train",
              "lstm2_bwd_chain": "train", "lstm1_train_fwd": "train_big",
-             "lstm1_infer": "train_big", "lstm_bwd_chain": "train_big"}
+             "lstm1_infer": "train_big", "lstm_bwd_chain": "train_big",
+             "gru2_infer": "train_gru", "gru2_train_fwd": "train_gru",
+             "gru2_bwd_chain": "train_gru"}
 
 
 def main() -> None:
@@ -931,7 +1157,8 @@ def main() -> None:
 
     t0 = time.perf_counter()
     reports = _build.build(["logmel", "lstm2_infer", "lstm2_train_fwd",
-                            "lstm2_bwd_chain", "lstm1_fwd", "lstm_bwd_chain"])
+                            "lstm2_bwd_chain", "lstm1_fwd", "lstm_bwd_chain",
+                            "gru2_infer", "gru2_train_fwd", "gru2_bwd_chain"])
     print(f"[build] {time.perf_counter() - t0:.1f} s for {sorted(reports) or 'nothing (cached)'}")
     for src, log in reports.items():
         for line in log.splitlines():
@@ -943,7 +1170,10 @@ def main() -> None:
                 "lstm2_bwd_chain": lstm_kernel.LSTM2_BWD_CHAIN,
                 "lstm1_train_fwd": lstm_kernel.LSTM1_TRAIN_FWD,
                 "lstm1_infer": lstm_kernel.LSTM1_INFER,
-                "lstm_bwd_chain": lstm_kernel.LSTM_BWD_CHAIN}
+                "lstm_bwd_chain": lstm_kernel.LSTM_BWD_CHAIN,
+                "gru2_infer": lstm_kernel.GRU2_INFER,
+                "gru2_train_fwd": lstm_kernel.GRU2_TRAIN_FWD,
+                "gru2_bwd_chain": lstm_kernel.GRU2_BWD_CHAIN}
     flush = L2Flush()
     kernels = {"logmel": phase_logmel(logmel, flush),
                "lstm2_infer": phase_lstm(lstm_kernel, flush)}
@@ -956,7 +1186,12 @@ def main() -> None:
      layer_inputs) = phase_lstm1_train_fwd(lstm_kernel, flush)
     kernels["lstm_bwd_chain"] = phase_lstm_bwd_chain(lstm_kernel, lstm_vjp, flush,
                                                      layer_inputs)
-    del layer_inputs, flush
+    del layer_inputs
+    kernels["gru2_infer"] = phase_gru2_infer(lstm_kernel, flush)
+    kernels["gru2_train_fwd"], gru_inputs = phase_gru2_train_fwd(lstm_kernel, flush)
+    kernels["gru2_bwd_chain"] = phase_gru2_bwd_chain(lstm_kernel, lstm_vjp, flush,
+                                                     gru_inputs)
+    del gru_inputs, flush
 
     by_path["train"] = phase_train(
         counters, "train", ["model.frontend.audio=logmel"],
@@ -974,6 +1209,14 @@ def main() -> None:
         "serve_big", counters, {"logmel": batches, "lstm1_infer": 3 * batches},
         big_run / "best.ckpt", big_overrides, np.load(test / "audio.npy"),
         np.load(test / "video.npy"), WORK / "predictions_big")
+    by_path["train_gru"], gru_run, gru_overrides = phase_train(
+        counters, "train_gru", GRU,
+        lambda steps, evals: {"logmel": cached, "gru2_train_fwd": steps,
+                              "gru2_bwd_chain": steps, "gru2_infer": evals})
+    by_path["serve_gru"] = serve_path(
+        "serve_gru", counters, {"logmel": batches, "gru2_infer": batches},
+        gru_run / "best.ckpt", gru_overrides, np.load(test / "audio.npy"),
+        np.load(test / "video.npy"), WORK / "predictions_gru")
 
     # launches: the run of the path that MAIN_PATH names; launches_by_path:
     # every path's own run, the counts zeroed just before it

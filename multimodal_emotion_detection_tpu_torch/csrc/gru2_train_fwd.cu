@@ -1,0 +1,348 @@
+// 2-layer GRU training forward with residuals, for Hopper (sm_90a).
+//
+// Replaces: multimodal_emotion_detection_tpu/ops/lstm_kernel.py::
+// gru2_train_fwd_residuals (kernel body _gru2_fwd_res_kernel).  Same
+// function as the plain PyTorch version ops/lstm_kernel.py::
+// gru2_train_fwd_reference: given layer 0's hoisted input projection
+// ih0 = x @ w_ih0 + b_ih0 (T, B, 3H, time-major) and the layer-0 -> 1 keep
+// mask (T, B, H), run from zero state for t = 0..T-1
+//
+//   h0 = gru(h0, ih0[t], w_hh0, b_hh0)
+//   x1 = h0 * keep[t]
+//   h1 = gru(h1, x1 @ w_ih1 + b_ih1, w_hh1, b_hh1)
+//
+// (gru as in gru2_infer.cu) and store what the backward consumes, in the
+// JAX package's layout:
+//   packed[t]  (B, 8H) = [r0 | z0 | n0 | hn0 | r1 | z1 | n1 | hn1]
+//                        (activations; hn = h_prev @ W_hn + b_hn, before r)
+//   h0p[t], h1p[t] (B, H) = the state BEFORE step t;  x1[t] (B, H)
+//   finals (2, B, H) = [h0, h1] after step T-1.
+//
+// What bounds it on the H100: the serial chain, as for gru2_infer.  At the
+// flagship shape (B=32, T=372, D=64, H=256) the input projection and the
+// recurrent products are 15.2 GFLOP and the residual stores ~140 MB
+// (~0.23 ms at 67 TFLOP/s, ~0.05 ms at 3.35 TB/s), but every step needs
+// the whole previous hidden state of all units, so T+1 device-wide
+// exchanges set the time.
+//
+// Design: gru2_infer.cu's, plus the residuals, as lstm2_train_fwd.cu is
+// lstm2_infer.cu's.  One persistent cooperative launch; CTA c owns hidden
+// units [c*UPC, (c+1)*UPC) of both layers and keeps their gate columns of
+// w_hh0, w_ih1 and w_hh1 in shared memory.  The layers are wavefronted:
+// phase p runs layer 0 at step p and layer 1 at step p-1, one grid barrier
+// per phase, T+1 in all.  The residual outputs are themselves the
+// exchange: phase p reads h0(p-1) = h0p[p], x1(p-1) = x1[p-1] and
+// h1(p-2) = h1p[p-1] (through L2, ld.cg) and writes h0p[p+1], x1[p] and
+// h1p[p], rows no CTA reads in the same phase, so no separate exchange
+// buffer and no extra copy exist; a unit's own previous h comes back from
+// the tile.  A cell thread stores its unit's r, z, n, hn as single floats
+// spread over the 8H row: the stores are not coalesced, which L2 absorbs
+// before they reach device memory.  Exactly T steps run; any B >= 1.
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int NT = 256;          // threads per CTA
+constexpr int NW = NT / 32;      // warps = slices of each dot product
+constexpr int ROWS = 32;         // batch rows per pass: one per lane
+constexpr int LOADS = 8;         // float4 loads in flight per thread and tile
+constexpr int kUnsupported = -1; // shape the kernel does not take
+
+__device__ __forceinline__ float sigmoidf(float x) {
+  return 1.0f / (1.0f + expf(-x));
+}
+
+// acc[c] += x * w[c] over the G gate columns of one weight row in shared
+// memory, in float2 pieces where G is even
+template <int G>
+__device__ __forceinline__ void fma_cols(float (&acc)[G], float x, const float* w) {
+  if constexpr (G % 2 == 0) {
+    const float2* w2 = reinterpret_cast<const float2*>(w);
+#pragma unroll
+    for (int q = 0; q < G / 2; ++q) {
+      const float2 v = w2[q];
+      acc[2 * q] += x * v.x;
+      acc[2 * q + 1] += x * v.y;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < G; ++c) acc[c] += x * w[c];
+  }
+}
+
+// rows [bt0, bt0 + nb) of a (B, H) state into a (ROWS, H + 1) tile, or
+// zeros for the zero initial state (src == nullptr)
+__device__ __forceinline__ void load_tile(const float* src, float* tile,
+                                          int bt0, int nb, int H, int lane,
+                                          int warp) {
+  if (lane >= nb) return;
+  float* dst = tile + lane * (H + 1);
+  const int h4 = H / 4;
+  if (src == nullptr) {
+    for (int k = warp; k < H; k += NW) dst[k] = 0.0f;
+    return;
+  }
+  const float4* row = reinterpret_cast<const float4*>(src + (size_t)(bt0 + lane) * H);
+  for (int q0 = warp; q0 < h4; q0 += NW * LOADS) {
+    float4 v[LOADS];
+#pragma unroll
+    for (int u = 0; u < LOADS; ++u) {
+      const int q = q0 + NW * u;
+      if (q < h4) v[u] = __ldcg(row + q);
+    }
+#pragma unroll
+    for (int u = 0; u < LOADS; ++u) {
+      const int q = q0 + NW * u;
+      if (q < h4) {
+        float* e = dst + 4 * q;
+        e[0] = v[u].x; e[1] = v[u].y; e[2] = v[u].z; e[3] = v[u].w;
+      }
+    }
+  }
+}
+
+// the GRU cell for one (row, unit): input part ih[3] and recurrent part
+// hh[3] (biases included) of the r, z, n gates, previous h -> new h, and
+// the activations a[4] = {r, z, n, hn} the backward reads
+__device__ __forceinline__ float gru_cell(const float* ih, const float* hh,
+                                          float h, float* a) {
+  a[0] = sigmoidf(ih[0] + hh[0]);
+  a[1] = sigmoidf(ih[1] + hh[1]);
+  a[2] = tanhf(ih[2] + a[0] * hh[2]);
+  a[3] = hh[2];
+  return (1.0f - a[1]) * a[2] + a[1] * h;
+}
+
+template <int UPC>
+__global__ void __launch_bounds__(NT) gru2_train_fwd_kernel(
+    const float* __restrict__ ih0,    // (T, B, 3H)
+    const float* __restrict__ keep,   // (T, B, H)
+    const float* __restrict__ w_hh0,  // (H, 3H)
+    const float* __restrict__ b_hh0,  // (3H)
+    const float* __restrict__ w_ih1,  // (H, 3H)
+    const float* __restrict__ b_ih1,  // (3H)
+    const float* __restrict__ w_hh1,  // (H, 3H)
+    const float* __restrict__ b_hh1,  // (3H)
+    float* packed,                    // (T, B, 8H) out
+    float* h0p,                       // (T, B, H) out, also the h0 exchange
+    float* h1p,                       // (T, B, H) out, also the h1 exchange
+    float* x1,                        // (T, B, H) out, also layer 1's input
+    float* __restrict__ finals,       // (2, B, H) out
+    int batch, int t_len, int hidden) {
+  constexpr int G = 3 * UPC;  // gate columns a CTA owns
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) float smem[];
+  const int H = hidden;
+  const int H3 = 3 * H;
+  const int H8 = 8 * H;
+  const int HP = H + 1;              // odd row stride: rows in distinct banks
+  float* w0 = smem;                  // H * G
+  float* wi1 = w0 + H * G;           // H * G
+  float* wh1 = wi1 + H * G;          // H * G
+  float* red = wh1 + H * G;          // NW * 3 * G * ROWS partial sums
+  float* ta = red + NW * 3 * G * ROWS;  // ROWS * HP : h0(p-1)
+  float* tx = ta + ROWS * HP;        // ROWS * HP : x1(p-1)
+  float* tb = tx + ROWS * HP;        // ROWS * HP : h1(p-2)
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int j0 = blockIdx.x * UPC;
+  const size_t BH = (size_t)batch * H;
+
+  // column col = g*UPC + u of the CTA <-> column g*H + j0 + u of W
+  for (int i = tid; i < H * G; i += NT) {
+    const int k = i / G, col = i % G;
+    const size_t src = (size_t)k * H3 + (col / UPC) * H + j0 + col % UPC;
+    w0[i] = w_hh0[src];
+    wi1[i] = w_ih1[src];
+    wh1[i] = w_hh1[src];
+  }
+
+  // this thread's cell update, if any: row cr, unit cu, layer cl
+  const bool has_cell = tid < 2 * UPC * ROWS;
+  const int cr = tid % ROWS;
+  const int cu = (tid / ROWS) % UPC;
+  const int cl = tid / (ROWS * UPC);
+  const int j = j0 + cu;
+  float bhh[3], bih[3];
+#pragma unroll
+  for (int g = 0; g < 3; ++g) {
+    bhh[g] = has_cell ? (cl == 0 ? b_hh0 : b_hh1)[g * H + j] : 0.0f;
+    bih[g] = (has_cell && cl == 1) ? b_ih1[g * H + j] : 0.0f;
+  }
+
+  for (int p = 0; p <= t_len; ++p) {
+    const bool do0 = p < t_len;  // layer 0 at step p
+    const bool do1 = p >= 1;     // layer 1 at step s = p-1
+    const int s = p - 1;
+    const float* src_a = (do0 && p >= 1) ? h0p + (size_t)p * BH : nullptr;
+    const float* src_x = do1 ? x1 + (size_t)s * BH : nullptr;
+    const float* src_b = p >= 2 ? h1p + (size_t)s * BH : nullptr;
+
+    for (int bt0 = 0; bt0 < batch; bt0 += ROWS) {
+      const int nb = min(ROWS, batch - bt0);
+      const bool cell = has_cell && cr < nb;
+      const int cb = bt0 + cr;
+      const size_t o = (size_t)cb * H + j;  // (b, j) in a (B, H) array
+      // layer 0's ih0 and keep values come from device memory: start first
+      float ihv[3], kv = 0.0f;
+      if (cell && cl == 0 && do0) {
+        const float* src = ih0 + ((size_t)p * batch + cb) * H3 + j;
+#pragma unroll
+        for (int g = 0; g < 3; ++g) ihv[g] = __ldg(src + g * H);
+        kv = __ldg(keep + (size_t)p * BH + o);
+      }
+
+      __syncthreads();
+      load_tile(src_a, ta, bt0, nb, H, lane, warp);
+      load_tile(src_x, tx, bt0, nb, H, lane, warp);
+      load_tile(src_b, tb, bt0, nb, H, lane, warp);
+      __syncthreads();
+
+      float a0[G], a1[G], a2[G];
+#pragma unroll
+      for (int col = 0; col < G; ++col) a0[col] = a1[col] = a2[col] = 0.0f;
+      if (lane < nb) {
+        const float* ra = ta + lane * HP;
+        const float* rx = tx + lane * HP;
+        const float* rb = tb + lane * HP;
+        for (int k = warp; k < H; k += NW) {
+          fma_cols<G>(a0, ra[k], w0 + k * G);
+          fma_cols<G>(a1, rx[k], wi1 + k * G);
+          fma_cols<G>(a2, rb[k], wh1 + k * G);
+        }
+      }
+      // red[((w*3 + m)*G + col)*ROWS + row]: lanes write consecutive words
+#pragma unroll
+      for (int col = 0; col < G; ++col) {
+        red[((warp * 3 + 0) * G + col) * ROWS + lane] = a0[col];
+        red[((warp * 3 + 1) * G + col) * ROWS + lane] = a1[col];
+        red[((warp * 3 + 2) * G + col) * ROWS + lane] = a2[col];
+      }
+      __syncthreads();
+
+      if (cell && cl == 0 && do0) {
+        float hh[3], act[4];
+#pragma unroll
+        for (int g = 0; g < 3; ++g) {
+          const int col = g * UPC + cu;
+          float acc = 0.0f;
+#pragma unroll
+          for (int w = 0; w < NW; ++w) acc += red[((w * 3 + 0) * G + col) * ROWS + cr];
+          hh[g] = acc + bhh[g];
+        }
+        const float h = gru_cell(ihv, hh, ta[cr * HP + j], act);
+        float* pk = packed + ((size_t)p * batch + cb) * H8 + j;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) pk[g * H] = act[g];
+        x1[(size_t)p * BH + o] = h * kv;
+        if (p == 0) h0p[o] = 0.0f;
+        if (p + 1 < t_len) {
+          h0p[(size_t)(p + 1) * BH + o] = h;
+        } else {
+          finals[o] = h;
+        }
+      }
+      if (cell && cl == 1 && do1) {
+        float ih[3], hh[3], act[4];
+#pragma unroll
+        for (int g = 0; g < 3; ++g) {
+          const int col = g * UPC + cu;
+          float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+          for (int w = 0; w < NW; ++w) {
+            s1 += red[((w * 3 + 1) * G + col) * ROWS + cr];
+            s2 += red[((w * 3 + 2) * G + col) * ROWS + cr];
+          }
+          ih[g] = s1 + bih[g];
+          hh[g] = s2 + bhh[g];
+        }
+        const float h = gru_cell(ih, hh, tb[cr * HP + j], act);
+        float* pk = packed + ((size_t)s * batch + cb) * H8 + j;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) pk[(4 + g) * H] = act[g];
+        if (s == 0) h1p[o] = 0.0f;
+        if (s + 1 < t_len) {
+          h1p[(size_t)(s + 1) * BH + o] = h;
+        } else {
+          finals[BH + o] = h;
+        }
+      }
+    }
+    grid.sync();
+  }
+}
+
+template <int UPC>
+int launch(const float* ih0, const float* keep, const float* w_hh0,
+           const float* b_hh0, const float* w_ih1, const float* b_ih1,
+           const float* w_hh1, const float* b_hh1, float* packed, float* h0p,
+           float* h1p, float* x1, float* finals, int batch, int t_len,
+           int hidden, int max_smem, cudaStream_t stream) {
+  constexpr int G = 3 * UPC;
+  const size_t smem =
+      (size_t)(3 * hidden * G + NW * 3 * G * ROWS + 3 * ROWS * (hidden + 1)) *
+      sizeof(float);
+  if (smem > (size_t)max_smem) return kUnsupported;
+  const void* fn = reinterpret_cast<const void*>(&gru2_train_fwd_kernel<UPC>);
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  void* args[] = {(void*)&ih0,    (void*)&keep,   (void*)&w_hh0,
+                  (void*)&b_hh0,  (void*)&w_ih1,  (void*)&b_ih1,
+                  (void*)&w_hh1,  (void*)&b_hh1,  (void*)&packed,
+                  (void*)&h0p,    (void*)&h1p,    (void*)&x1,
+                  (void*)&finals, (void*)&batch,  (void*)&t_len,
+                  (void*)&hidden};
+  // refuses (cudaErrorCooperativeLaunchTooLarge) a grid that cannot be
+  // resident all at once, so the grid barrier cannot deadlock
+  err = cudaLaunchCooperativeKernel(fn, dim3(hidden / UPC), dim3(NT), args,
+                                    smem, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Units per CTA: the fewest that keep the grid within one CTA per SM, as in
+// gru2_infer.cu.  UPC 1 and 2 cover H up to twice the SM count (264 on the
+// H100); larger H is refused as unsupported.
+extern "C" int gru2_train_fwd_launch(
+    const float* ih0, const float* keep, const float* w_hh0,
+    const float* b_hh0, const float* w_ih1, const float* b_ih1,
+    const float* w_hh1, const float* b_hh1, float* packed, float* h0p,
+    float* h1p, float* x1, float* finals, int batch, int t_len, int hidden,
+    void* stream) {
+  if (batch < 1 || t_len < 1 || hidden < 1 || hidden % 4 != 0) {
+    return kUnsupported;
+  }
+  int dev = 0, sms = 0, max_smem = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&max_smem,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define GRU2_TRY(U)                                                          \
+  if (hidden % (U) == 0 && hidden / (U) <= sms)                              \
+    return launch<U>(ih0, keep, w_hh0, b_hh0, w_ih1, b_ih1, w_hh1, b_hh1,    \
+                     packed, h0p, h1p, x1, finals, batch, t_len, hidden,     \
+                     max_smem, s);
+  GRU2_TRY(1)
+  GRU2_TRY(2)
+#undef GRU2_TRY
+  return kUnsupported;
+}
+
+extern "C" const char* gru2_train_fwd_error_string(int err) {
+  if (err == kUnsupported) return "shape not supported by gru2_train_fwd";
+  return cudaGetErrorString((cudaError_t)err);
+}

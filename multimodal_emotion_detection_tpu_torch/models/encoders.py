@@ -1,7 +1,7 @@
 """Per-modality encoders of the ported slice (serving and training).
 
-* ``SequenceEncoder`` — the LSTM branch (2 or more layers): final hidden
-  state -> Linear projection;
+* ``SequenceEncoder`` — the recurrent branch (an LSTM of 2 or more layers,
+  or a 2-layer GRU): final hidden state -> Linear projection;
 * ``FrameEncoder`` — per-frame Linear + ReLU, temporal pooling
   (attention / average / max), LayerNorm, Linear projection;
 * ``build_encoder`` — the factory, with the JAX package's config keys,
@@ -60,27 +60,31 @@ class AttentionPool(nn.Module):
 
 
 class SequenceEncoder(nn.Module):
-    """Time series (B, T, D) -> L-layer LSTM (L >= 2) final hidden ->
-    Linear."""
+    """Time series (B, T, D) -> L-layer LSTM (L >= 2) or 2-layer GRU
+    (``encoder_type``) final hidden -> Linear."""
 
     # past this length the JAX package switches to the layerwise scan
     MAX_FUSED_LEN = 2048
 
     def __init__(self, input_dim: int, hidden_dim: int, output_dim: int,
-                 num_layers: int = 2, dropout: float = 0.1):
+                 num_layers: int = 2, dropout: float = 0.1,
+                 encoder_type: str = "lstm"):
         super().__init__()
         # the JAX package drops out between layers only
         self.rnn = FusedStackedRNN(input_dim, hidden_dim, num_layers,
-                                   dropout=dropout if num_layers > 1 else 0.0)
+                                   dropout=dropout if num_layers > 1 else 0.0,
+                                   cell_type=encoder_type)
         self.projection = nn.Linear(hidden_dim, output_dim)
 
     def forward(self, sequence: torch.Tensor,
                 noise: Optional[Noise] = None) -> torch.Tensor:
         if sequence.shape[1] > self.MAX_FUSED_LEN:
+            kind = self.rnn.cell_type.upper()
+            item = 6 if kind == "GRU" else 3
             raise NotImplementedError(
                 f"sequence of {sequence.shape[1]} steps: the layerwise "
-                "chunked-remat LSTM (StackedRNN, e.g. model.frontend.audio="
-                "raw) is not ported yet (ROADMAP.md Queue 1 item 3)"
+                f"chunked-remat {kind} (StackedRNN, e.g. model.frontend.audio="
+                f"raw) is not ported yet (ROADMAP.md Queue 1 item {item})"
             )
         return self.projection(self.rnn(sequence.to(torch.float32), noise))
 
@@ -172,16 +176,16 @@ def build_encoder(
         )
     if enc_type == "sequence":
         kind = cfg.pop("encoder_type", "lstm")
-        if kind != "lstm":
-            item = 6 if kind == "gru" else 8
+        if kind not in ("lstm", "gru"):
             raise NotImplementedError(
                 f"model.encoders.{modality}.encoder_type={kind!r} is not "
-                f"ported yet (ROADMAP.md Queue 1 item {item})"
+                "ported yet (ROADMAP.md Queue 1 item 8)"
             )
         if not cfg.pop("fused", True):
+            item = 6 if kind == "gru" else 3
             raise NotImplementedError(
-                f"model.encoders.{modality}.fused=false: the layerwise LSTM "
-                "is not ported yet (ROADMAP.md Queue 1 item 3)"
+                f"model.encoders.{modality}.fused=false: the layerwise "
+                f"{kind.upper()} is not ported yet (ROADMAP.md Queue 1 item {item})"
             )
         return SequenceEncoder(
             input_dim=in_dim,
@@ -189,6 +193,7 @@ def build_encoder(
             output_dim=output_dim,
             num_layers=cfg.pop("num_layers", 2),
             dropout=rate,
+            encoder_type=kind,
         )
     if enc_type in ("mlp", "pretrained_cnn"):
         raise NotImplementedError(

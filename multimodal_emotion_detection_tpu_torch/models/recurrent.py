@@ -1,8 +1,10 @@
-"""Stacked LSTM, final hidden state: serving and training.
+"""Stacked LSTM or GRU, final hidden state: serving and training.
 
 The parameter layout matches the JAX package's ``_CellParams`` /
-``FusedStackedRNN``: ``layer_<l>.{w_ih (D, 4H), w_hh (H, 4H), b (4H,)}``,
-gate order i, f, g, o, so a JAX checkpoint maps onto it key for key.
+``FusedStackedRNN``: an LSTM's ``layer_<l>.{w_ih (D, 4H), w_hh (H, 4H),
+b (4H,)}``, gate order i, f, g, o; a GRU's ``layer_<l>.{w_ih (D, 3H),
+w_hh (H, 3H), b_ih (3H,), b_hh (3H,)}``, gate order r, z, n; so a JAX
+checkpoint maps onto it key for key.
 """
 
 from __future__ import annotations
@@ -15,10 +17,14 @@ from torch import nn
 
 from multimodal_emotion_detection_tpu_torch.models.noise import Noise, keep_mask
 from multimodal_emotion_detection_tpu_torch.ops.lstm_kernel import (
+    gru2_infer,
     lstm1_infer,
     lstm2_infer,
 )
 from multimodal_emotion_detection_tpu_torch.ops.lstm_vjp import (
+    H100_SMS,
+    check_gru_stack,
+    fused_gru_final,
     fused_lstm_final,
     lstm_route,
     sm_count,
@@ -26,60 +32,81 @@ from multimodal_emotion_detection_tpu_torch.ops.lstm_vjp import (
 
 
 class _CellParams(nn.Module):
-    """One LSTM layer's parameters, in the JAX layout."""
+    """One LSTM or GRU layer's parameters, in the JAX layout."""
 
-    def __init__(self, in_dim: int, hidden_dim: int):
+    def __init__(self, in_dim: int, hidden_dim: int, cell_type: str = "lstm"):
         super().__init__()
-        self.w_ih = nn.Parameter(torch.empty(in_dim, 4 * hidden_dim))
-        self.w_hh = nn.Parameter(torch.empty(hidden_dim, 4 * hidden_dim))
-        self.b = nn.Parameter(torch.empty(4 * hidden_dim))
+        gates = (4 if cell_type == "lstm" else 3) * hidden_dim
+        self.w_ih = nn.Parameter(torch.empty(in_dim, gates))
+        self.w_hh = nn.Parameter(torch.empty(hidden_dim, gates))
+        if cell_type == "lstm":
+            self.b = nn.Parameter(torch.empty(gates))
+        else:
+            self.b_ih = nn.Parameter(torch.empty(gates))
+            self.b_hh = nn.Parameter(torch.empty(gates))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """U(-1/sqrt(H), 1/sqrt(H)) for every tensor, as the JAX init."""
         k = 1.0 / math.sqrt(self.w_hh.shape[0])
-        for p in (self.w_ih, self.w_hh, self.b):
+        for p in self.parameters():
             nn.init.uniform_(p, -k, k, generator=generator)
 
     def as_dict(self):
-        return {"w_ih": self.w_ih, "w_hh": self.w_hh, "b": self.b}
+        return dict(self.named_parameters())
 
 
 class FusedStackedRNN(nn.Module):
-    """L-layer LSTM (L >= 2) returning the top layer's final hidden state
-    (B, H).
+    """L-layer LSTM (L >= 2) or 2-layer GRU returning the top layer's final
+    hidden state (B, H).
 
-    ``ops.lstm_vjp.lstm_route`` picks the kernels: the 2-layer ones for 2
-    layers of H up to twice the card's SM count, one layer per launch
+    LSTM: ``ops.lstm_vjp.lstm_route`` picks the kernels: the 2-layer ones
+    for 2 layers of H up to twice the card's SM count, one layer per launch
     otherwise.  In eval mode the forward is ``lstm2_infer``, or per layer
     the input projection and ``lstm1_infer`` (the h series into the next
     layer, the final h out of the top one).  In training mode it is
-    ``ops.lstm_vjp.fused_lstm_final``, with dropout between the layers: a
-    keep mask Bernoulli(1 - dropout) / (1 - dropout) of shape
-    (T, L-1, B, H), one draw per step, from ``noise`` (all ones at dropout
-    0).  Each op is the hand-written kernel on the card and its plain
-    version on the CPU.
+    ``ops.lstm_vjp.fused_lstm_final``.
+
+    GRU (``cell_type="gru"``): only the stacks the 2-layer GRU kernels take
+    (``ops.lstm_vjp.check_gru_stack``); eval runs ``gru2_infer``, training
+    ``ops.lstm_vjp.fused_gru_final``.
+
+    Training mode drops out between the layers: a keep mask Bernoulli(1 -
+    dropout) / (1 - dropout) of shape (T, L-1, B, H), one draw per step,
+    from ``noise`` (all ones at dropout 0).  Each op is the hand-written
+    kernel on the card and its plain version on the CPU.
     """
 
     def __init__(self, in_dim: int, hidden_dim: int, num_layers: int = 2,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, cell_type: str = "lstm"):
         super().__init__()
+        if cell_type not in ("lstm", "gru"):
+            raise ValueError(f"Unknown cell type {cell_type!r}")
+        if cell_type == "gru":
+            # against an H100 here, as the CPU mirrors one; each forward
+            # checks again against the card it runs on
+            check_gru_stack(num_layers, hidden_dim, H100_SMS)
         if num_layers < 2:
             raise NotImplementedError(
                 f"FusedStackedRNN with num_layers={num_layers}: a 1-layer "
                 "LSTM (StackedRNN / LSTMLayer) is not ported yet (ROADMAP.md "
                 "Queue 1 item 3)"
             )
+        self.cell_type = cell_type
         self.dropout = float(dropout)
         self.num_layers = num_layers
         for layer in range(num_layers):
             self.add_module(f"layer_{layer}", _CellParams(
-                in_dim if layer == 0 else hidden_dim, hidden_dim))
+                in_dim if layer == 0 else hidden_dim, hidden_dim, cell_type))
 
     def forward(self, x: torch.Tensor, noise: Optional[Noise] = None) -> torch.Tensor:
         layers = [getattr(self, f"layer_{i}").as_dict()
                   for i in range(self.num_layers)]
         h_dim = layers[0]["w_hh"].shape[0]
+        gru = self.cell_type == "gru"
         if not self.training:
+            if gru:
+                check_gru_stack(self.num_layers, h_dim, sm_count(x.device))
+                return gru2_infer(x, *layers)
             if lstm_route(self.num_layers, h_dim, sm_count(x.device)) == "pair":
                 return lstm2_infer(x, *layers)
             x_l = x.to(torch.float32).transpose(0, 1)
@@ -89,4 +116,4 @@ class FusedStackedRNN(nn.Module):
             return x_l
         shape = (x.shape[1], self.num_layers - 1, x.shape[0], h_dim)
         keep = keep_mask(noise, shape, self.dropout, x.device)
-        return fused_lstm_final(x, keep, layers)
+        return (fused_gru_final if gru else fused_lstm_final)(x, keep, layers)

@@ -1,10 +1,12 @@
-"""LSTM recurrences: CUDA kernels + plain PyTorch versions.
+"""LSTM and GRU recurrences: CUDA kernels + plain PyTorch versions.
 
-Parameters keep the JAX package's layout: ``w_ih`` (D, 4H), ``w_hh``
-(H, 4H) and one fused bias ``b`` (4H,), gate order i, f, g, o.  Each
-layer's input projection ``x @ w_ih + b`` is one ``torch.matmul`` over all
-steps; each recurrence runs in its ``csrc/`` kernel on the card and in the
-loop of its plain version on the CPU.
+Parameters keep the JAX package's layout: for an LSTM layer ``w_ih``
+(D, 4H), ``w_hh`` (H, 4H) and one fused bias ``b`` (4H,), gate order i, f,
+g, o; for a GRU layer ``w_ih`` (D, 3H), ``w_hh`` (H, 3H), ``b_ih`` and
+``b_hh`` (3H,), gate order r, z, n.  Each layer-0 input projection (``x @
+w_ih + b``, or ``+ b_ih``) is one ``torch.matmul`` over all steps; each
+recurrence runs in its ``csrc/`` kernel on the card and in the loop of its
+plain version on the CPU.
 
 Two layers in one launch (H up to twice the SM count):
 
@@ -27,8 +29,24 @@ The 2-layer residual layout is the JAX package's: ``packed`` (T, B, 10H) =
 ``[g0 | g1 | c0_prev | c1_prev]`` at the ``RES2_*`` offsets (units of H),
 ``h0_prev`` / ``h1_prev`` / ``x1`` (T, B, H) and ``finals`` (4, B, H) =
 ``[h0, c0, h1, c1]``; one layer's is ``g`` (T, B, 4H), ``h_prev`` and
-``c_prev`` (T, B, H) and ``finals`` (B, 2H) = ``[h | c]``.  Unlike the TPU
-kernels, exactly T steps run: there are no pad rows.
+``c_prev`` (T, B, H) and ``finals`` (B, 2H) = ``[h | c]``.
+
+Two GRU layers in one launch (H up to twice the SM count), the twins of
+the 2-layer LSTM kernels:
+
+* ``gru2_infer``: final hidden state (B, H) from zero state
+  (``csrc/gru2_infer.cu``);
+* ``gru2_train_fwd_residuals``: the training forward with its residuals
+  (``csrc/gru2_train_fwd.cu``);
+* ``gru2_bwd_chain``: the reverse chain of both layers, emitting ``dih``
+  and only the ``dhn`` lane of ``dhh`` (``csrc/gru2_bwd_chain.cu``).
+
+The GRU residual layout is the JAX package's too: ``packed`` (T, B, 8H) =
+``[r0 | z0 | n0 | hn0 | r1 | z1 | n1 | hn1]`` (gate activations, and
+``hn = h_prev w_hn + b_hn`` before the reset gate multiplies it),
+``h0_prev`` / ``h1_prev`` / ``x1`` (T, B, H) and ``finals`` (2, B, H) =
+``[h0, h1]``.  Unlike the TPU kernels, exactly T steps run: there are no
+pad rows.
 """
 
 from __future__ import annotations
@@ -169,11 +187,11 @@ def lstm2_train_fwd_reference(x_tm: torch.Tensor, keep_tm: torch.Tensor,
             torch.stack(x1s), torch.stack([h0, c0, h1, c1]))
 
 
-def _refuse_dys(dys) -> None:
+def _refuse_dys(dys, cell: str = "LSTM", item: int = 3) -> None:
     if dys is not None:
         raise NotImplementedError(
-            "a sequence-output LSTM (dys given to the backward chain) is not "
-            "ported yet (ROADMAP.md Queue 1 item 3)"
+            f"a sequence-output {cell} (dys given to the backward chain) is "
+            f"not ported yet (ROADMAP.md Queue 1 item {item})"
         )
 
 
@@ -484,3 +502,245 @@ def lstm_bwd_chain(g: torch.Tensor, c_prev: torch.Tensor, dh_series,
         stream_of(g),
     )
     return dg
+
+
+# ---------------------------------------------------------------------------
+# GRU, two layers per launch: serving, training forward, reverse chain
+# ---------------------------------------------------------------------------
+
+GRU_RES2_W = 8  # packed residual width in units of H: [r|z|n|hn] x 2 layers
+
+
+def _gru_step(h: torch.Tensor, ih_t: torch.Tensor, w_hh: torch.Tensor,
+              b_hh: torch.Tensor):
+    """One GRU step -> ``(h_new, r, z, n, hn)``.  ``b_hh`` stays beside
+    ``h @ w_hh``: its n third sits inside the reset product."""
+    hh = h @ w_hh + b_hh
+    xr, xz, xn = ih_t.chunk(3, dim=-1)
+    hr, hz, hn = hh.chunk(3, dim=-1)
+    r = torch.sigmoid(xr + hr)
+    z = torch.sigmoid(xz + hz)
+    n = torch.tanh(xn + r * hn)
+    return (1.0 - z) * n + z * h, r, z, n, hn
+
+
+def _gru_input_projection(x: torch.Tensor, layer0: Params) -> torch.Tensor:
+    return torch.matmul(x.to(torch.float32), layer0["w_ih"]) + layer0["b_ih"]
+
+
+def gru2_infer_reference(x: torch.Tensor, layer0: Params, layer1: Params) -> torch.Tensor:
+    """Plain version: x (B, T, D) -> final h of layer 1 (B, H), one step of
+    each layer at a time."""
+    ih0 = _gru_input_projection(x, layer0)
+    batch, h_dim = x.shape[0], layer0["w_hh"].shape[0]
+    h0 = h1 = ih0.new_zeros((batch, h_dim))
+    for t in range(x.shape[1]):
+        h0 = _gru_step(h0, ih0[:, t], layer0["w_hh"], layer0["b_hh"])[0]
+        ih1 = h0 @ layer1["w_ih"] + layer1["b_ih"]
+        h1 = _gru_step(h1, ih1, layer1["w_hh"], layer1["b_hh"])[0]
+    return h1
+
+
+def gru2_train_fwd_reference(x_tm: torch.Tensor, keep_tm: torch.Tensor,
+                             layer0: Params, layer1: Params):
+    """Plain version of the GRU training forward.
+
+    x_tm (T, B, D) time-major, keep_tm (T, B, H) the layer-0 -> 1 keep mask
+    -> ``(packed, h0_prev, h1_prev, x1, finals)`` in the module's GRU
+    residual layout.  Differentiable, so autograd through it is a plain
+    reference for the kernel pair's gradients.
+    """
+    ih0 = _gru_input_projection(x_tm, layer0)
+    keep = keep_tm.to(torch.float32)
+    batch, h_dim = x_tm.shape[1], layer0["w_hh"].shape[0]
+    h0 = h1 = ih0.new_zeros((batch, h_dim))
+    packed, h0p, h1p, x1s = [], [], [], []
+    for t in range(x_tm.shape[0]):
+        h0n, r0, z0, n0, hn0 = _gru_step(h0, ih0[t], layer0["w_hh"], layer0["b_hh"])
+        x1 = h0n * keep[t]
+        ih1 = x1 @ layer1["w_ih"] + layer1["b_ih"]
+        h1n, r1, z1, n1, hn1 = _gru_step(h1, ih1, layer1["w_hh"], layer1["b_hh"])
+        packed.append(torch.cat([r0, z0, n0, hn0, r1, z1, n1, hn1], dim=-1))
+        h0p.append(h0)
+        h1p.append(h1)
+        x1s.append(x1)
+        h0, h1 = h0n, h1n
+    return (torch.stack(packed), torch.stack(h0p), torch.stack(h1p),
+            torch.stack(x1s), torch.stack([h0, h1]))
+
+
+def _gru_cell_bwd(dh: torch.Tensor, h_prev: torch.Tensor, r: torch.Tensor,
+                  z: torch.Tensor, n: torch.Tensor, hn: torch.Tensor):
+    """One GRU step backward -> ``(dih (B, 3H) = [dr_pre | dz_pre |
+    dn_pre], dhn (B, H) = dn_pre * r, dh_prev's direct part dh * z)``.
+    ``dhh = [dr_pre | dz_pre | dhn]`` shares its first 2H lanes with dih."""
+    dn_pre = dh * (1.0 - z) * (1.0 - n * n)
+    dr_pre = dn_pre * hn * r * (1.0 - r)
+    dz_pre = dh * (h_prev - n) * z * (1.0 - z)
+    return torch.cat([dr_pre, dz_pre, dn_pre], dim=-1), dn_pre * r, dh * z
+
+
+def gru2_bwd_chain_reference(packed: torch.Tensor, h0p: torch.Tensor,
+                             h1p: torch.Tensor, keep_tm: torch.Tensor,
+                             dh_final: torch.Tensor, w_hh0: torch.Tensor,
+                             w_hh1: torch.Tensor, w_ih1: torch.Tensor,
+                             dys=None):
+    """Plain version of the GRU reverse chain: ``(dih0, dhn0, dih1, dhn1)``,
+    (T, B, 3H) and (T, B, H) per layer.
+
+    Per reverse step t: layer 1's cell backward, ``dh1 <- dh1 z1 + [dih1[:,
+    :2H] | dhn1] w_hh1^T``, the hop ``dx1 = dih1 w_ih1^T`` times ``keep[t]``
+    into layer 0, layer 0's cell backward, ``dh0 <- dh0 z0 + [dih0[:, :2H] |
+    dhn0] w_hh0^T``.  Only the final hidden state of layer 1 has a
+    cotangent (``dh_final``).
+    """
+    _refuse_dys(dys, "GRU", 6)
+    h_dim = w_hh0.shape[0]
+    keep = keep_tm.to(torch.float32)
+    dh1 = dh_final.to(torch.float32)
+    dh0 = torch.zeros_like(dh1)
+    outs = ([], [], [], [])
+    for t in reversed(range(packed.shape[0])):
+        r0, z0, n0, hn0, r1, z1, n1, hn1 = packed[t].split(h_dim, dim=-1)
+        dih1, dhn1, dd1 = _gru_cell_bwd(dh1, h1p[t], r1, z1, n1, hn1)
+        dh1 = dd1 + torch.cat([dih1[:, :2 * h_dim], dhn1], dim=-1) @ w_hh1.T
+        dx1 = dih1 @ w_ih1.T
+        dih0, dhn0, dd0 = _gru_cell_bwd(dh0 + dx1 * keep[t], h0p[t], r0, z0, n0, hn0)
+        dh0 = dd0 + torch.cat([dih0[:, :2 * h_dim], dhn0], dim=-1) @ w_hh0.T
+        for out, val in zip(outs, (dih0, dhn0, dih1, dhn1)):
+            out.append(val)
+    return tuple(torch.stack(o[::-1]) for o in outs)
+
+
+GRU2_INFER = CudaKernel(
+    "gru2_infer", "gru2_infer_launch",
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+)
+GRU2_TRAIN_FWD = CudaKernel(
+    "gru2_train_fwd", "gru2_train_fwd_launch",
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+)
+GRU2_BWD_CHAIN = CudaKernel(
+    "gru2_bwd_chain", "gru2_bwd_chain_launch",
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+)
+
+
+def _gru_weights(name: str, h_dim: int, layer0: Params, layer1: Params):
+    """The recurrent weights and biases both GRU kernels take, contiguous
+    and shape-checked: w_hh0, b_hh0, w_ih1, b_ih1, w_hh1, b_hh1."""
+    w = (layer0["w_hh"], layer0["b_hh"], layer1["w_ih"], layer1["b_ih"],
+         layer1["w_hh"], layer1["b_hh"])
+    w = tuple(t.contiguous() for t in w)
+    square, bias = (h_dim, 3 * h_dim), (3 * h_dim,)
+    _check_shapes(name, w_hh0=(w[0], square), b_hh0=(w[1], bias),
+                  w_ih1=(w[2], square), b_ih1=(w[3], bias),
+                  w_hh1=(w[4], square), b_hh1=(w[5], bias))
+    return w
+
+
+def gru2_infer(x: torch.Tensor, layer0: Params, layer1: Params) -> torch.Tensor:
+    """x (B, T, D) -> final h of the 2-layer GRU's layer 1 (B, H), float32.
+
+    On a CUDA tensor this launches ``csrc/gru2_infer.cu`` (one cooperative
+    launch for the whole sequence) and counts it in
+    ``GRU2_INFER.launches``; on a CPU tensor it runs
+    ``gru2_infer_reference``.
+    """
+    if x.device.type == "cpu":
+        return gru2_infer_reference(x, layer0, layer1)
+    batch, t_len, _ = x.shape
+    h_dim = layer0["w_hh"].shape[0]
+    if t_len < 1 or batch < 1:
+        raise ValueError(f"gru2_infer: empty input of shape {tuple(x.shape)}")
+    ih0 = _gru_input_projection(x, layer0).contiguous()
+    w = _gru_weights("gru2_infer", h_dim, layer0, layer1)
+    # h state exchanged between the kernel's blocks, double-buffered per
+    # layer; the kernel reads slot 1 of each as the zero initial state
+    h_state = torch.zeros((2, 2, batch, h_dim), dtype=torch.float32, device=x.device)
+    out = torch.empty((batch, h_dim), dtype=torch.float32, device=x.device)
+    check_cuda_f32("gru2_infer", ih0=ih0, w_hh0=w[0], b_hh0=w[1], w_ih1=w[2],
+                   b_ih1=w[3], w_hh1=w[4], b_hh1=w[5])
+    GRU2_INFER(
+        ih0.data_ptr(), *(t.data_ptr() for t in w), h_state[0].data_ptr(),
+        h_state[1].data_ptr(), out.data_ptr(), batch, t_len, h_dim, stream_of(x),
+    )
+    return out
+
+
+def gru2_train_fwd_residuals(x_tm: torch.Tensor, keep_tm: torch.Tensor,
+                             layer0: Params, layer1: Params):
+    """GRU training forward: x_tm (T, B, D), keep_tm (T, B, H) ->
+    ``(packed, h0_prev, h1_prev, x1, finals)``, all float32.
+
+    On a CUDA tensor this launches ``csrc/gru2_train_fwd.cu`` (one
+    cooperative launch for the whole sequence) and counts it in
+    ``GRU2_TRAIN_FWD.launches``; on a CPU tensor it runs
+    ``gru2_train_fwd_reference``.
+    """
+    if x_tm.device.type == "cpu":
+        return gru2_train_fwd_reference(x_tm, keep_tm, layer0, layer1)
+    t_len, batch, _ = x_tm.shape
+    h_dim = layer0["w_hh"].shape[0]
+    if t_len < 1 or batch < 1:
+        raise ValueError(f"gru2_train_fwd: empty input of shape {tuple(x_tm.shape)}")
+    ih0 = _gru_input_projection(x_tm, layer0).contiguous()
+    keep = keep_tm.to(torch.float32).contiguous()
+    w = _gru_weights("gru2_train_fwd", h_dim, layer0, layer1)
+    _check_shapes("gru2_train_fwd", keep=(keep, (t_len, batch, h_dim)))
+    new = dict(dtype=torch.float32, device=x_tm.device)
+    packed = torch.empty((t_len, batch, GRU_RES2_W * h_dim), **new)
+    h0p, h1p, x1 = (torch.empty((t_len, batch, h_dim), **new) for _ in range(3))
+    finals = torch.empty((2, batch, h_dim), **new)
+    check_cuda_f32("gru2_train_fwd", ih0=ih0, keep=keep, w_hh0=w[0], b_hh0=w[1],
+                   w_ih1=w[2], b_ih1=w[3], w_hh1=w[4], b_hh1=w[5])
+    GRU2_TRAIN_FWD(
+        ih0.data_ptr(), keep.data_ptr(), *(t.data_ptr() for t in w),
+        packed.data_ptr(), h0p.data_ptr(), h1p.data_ptr(), x1.data_ptr(),
+        finals.data_ptr(), batch, t_len, h_dim, stream_of(x_tm),
+    )
+    return packed, h0p, h1p, x1, finals
+
+
+def gru2_bwd_chain(packed: torch.Tensor, h0p: torch.Tensor, h1p: torch.Tensor,
+                   keep_tm: torch.Tensor, dh_final: torch.Tensor,
+                   w_hh0: torch.Tensor, w_hh1: torch.Tensor, w_ih1: torch.Tensor,
+                   dys=None):
+    """GRU reverse chain: ``(dih0, dhn0, dih1, dhn1)``, (T, B, 3H) and
+    (T, B, H) per layer, float32.
+
+    On a CUDA tensor this launches ``csrc/gru2_bwd_chain.cu`` (one
+    cooperative launch) and counts it in ``GRU2_BWD_CHAIN.launches``; on a
+    CPU tensor it runs ``gru2_bwd_chain_reference``.  ``dys`` (a
+    sequence-output cotangent) is not taken: it raises.
+    """
+    _refuse_dys(dys, "GRU", 6)
+    if packed.device.type == "cpu":
+        return gru2_bwd_chain_reference(packed, h0p, h1p, keep_tm, dh_final,
+                                        w_hh0, w_hh1, w_ih1)
+    t_len, batch, _ = packed.shape
+    h_dim = w_hh0.shape[0]
+    keep = keep_tm.to(torch.float32).contiguous()
+    dh = dh_final.to(torch.float32).contiguous()
+    packed, h0p, h1p = packed.contiguous(), h0p.contiguous(), h1p.contiguous()
+    w_hh0, w_hh1, w_ih1 = (w.contiguous() for w in (w_hh0, w_hh1, w_ih1))
+    series, square = (t_len, batch, h_dim), (h_dim, 3 * h_dim)
+    _check_shapes("gru2_bwd_chain",
+                  packed=(packed, (t_len, batch, GRU_RES2_W * h_dim)),
+                  h0p=(h0p, series), h1p=(h1p, series), keep=(keep, series),
+                  dh_final=(dh, (batch, h_dim)), w_hh0=(w_hh0, square),
+                  w_hh1=(w_hh1, square), w_ih1=(w_ih1, square))
+    if t_len < 1 or batch < 1:
+        raise ValueError(f"gru2_bwd_chain: empty residuals {tuple(packed.shape)}")
+    new = dict(dtype=torch.float32, device=packed.device)
+    dih0, dih1 = (torch.empty((t_len, batch, 3 * h_dim), **new) for _ in range(2))
+    dhn0, dhn1 = (torch.empty(series, **new) for _ in range(2))
+    check_cuda_f32("gru2_bwd_chain", packed=packed, h0p=h0p, h1p=h1p, keep=keep,
+                   dh_final=dh, w_hh0=w_hh0, w_hh1=w_hh1, w_ih1=w_ih1)
+    GRU2_BWD_CHAIN(
+        packed.data_ptr(), h0p.data_ptr(), h1p.data_ptr(), keep.data_ptr(),
+        dh.data_ptr(), w_hh0.data_ptr(), w_hh1.data_ptr(), w_ih1.data_ptr(),
+        dih0.data_ptr(), dhn0.data_ptr(), dih1.data_ptr(), dhn1.data_ptr(),
+        batch, t_len, h_dim, stream_of(packed),
+    )
+    return dih0, dhn0, dih1, dhn1

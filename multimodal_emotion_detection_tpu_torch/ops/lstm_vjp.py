@@ -1,5 +1,5 @@
-"""Gradient of a stacked LSTM's final hidden state, with hoisted weight
-gradients.
+"""Gradient of a stacked LSTM's or GRU's final hidden state, with hoisted
+weight gradients.
 
 Two routes compute the same function, the counterparts of the JAX
 package's ``fused_lstm_final`` routes; ``lstm_route`` picks one from the
@@ -21,6 +21,15 @@ flattened (T*B, .) series:
 
     dW_ih_l = x_l^T dg_l     dW_hh_l = h_prev_l^T dg_l     db_l = sum dg_l
 
+The GRU twin, ``FusedGRUFinal`` (2 layers, H up to twice the SM count;
+``fused_gru_final`` refuses other stacks), is the counterpart of the JAX
+package's residual-native GRU route: ``gru2_train_fwd_residuals``, then
+one ``gru2_bwd_chain`` launch, which emits ``dih`` and only the ``dhn``
+lane of ``dhh = [dih[:, :2H] | dhn]``, so
+
+    dW_ih_l = x_l^T dih_l    dW_hh_l = h_prev_l^T [dih_l[:, :2H] | dhn_l]
+    db_ih_l = sum dih_l      db_hh_l = [sum dih_l[:, :2H] | sum dhn_l]
+
 On the card the recurrences are hand-written kernels; on the CPU the same
 Functions run their plain versions.  The keep masks are dropout draws and
 get no gradient.
@@ -34,6 +43,8 @@ import torch
 
 from multimodal_emotion_detection_tpu_torch.ops.lstm_kernel import (
     Params,
+    gru2_bwd_chain,
+    gru2_train_fwd_residuals,
     h_series,
     lstm1_train_fwd,
     lstm2_bwd_chain,
@@ -146,3 +157,63 @@ def fused_lstm_final(x: torch.Tensor, keep: torch.Tensor,
     if lstm_route(len(layers), h_dim, sm_count(x.device)) == "pair":
         return FusedLSTMFinal.apply(x, keep[:, 0], *weights)
     return LayeredLSTMFinal.apply(x, keep, *weights)
+
+
+def check_gru_stack(num_layers: int, hidden: int, sm_count: int) -> None:
+    """Raise unless the 2-layer GRU kernels take the stack: 2 layers, at
+    most 2 hidden units per CTA of one CTA per SM."""
+    if num_layers != 2 or hidden > 2 * sm_count:
+        raise NotImplementedError(
+            f"a GRU of {num_layers} layers of {hidden} units: only 2 layers "
+            f"of at most {2 * sm_count} units are ported; the layered GRU "
+            "(GRULayer, one layer per launch) is not ported yet (ROADMAP.md "
+            "Queue 1 item 6)"
+        )
+
+
+class FusedGRUFinal(torch.autograd.Function):
+    """(x (B, T, D), keep (T, B, H), w_ih0, w_hh0, b_ih0, b_hh0, w_ih1,
+    w_hh1, b_ih1, b_hh1) -> final hidden state of layer 1 (B, H)."""
+
+    @staticmethod
+    def forward(ctx, x, keep, w_ih0, w_hh0, b_ih0, b_hh0, w_ih1, w_hh1, b_ih1, b_hh1):
+        x_tm = x.to(torch.float32).transpose(0, 1).contiguous()
+        layer0 = {"w_ih": w_ih0, "w_hh": w_hh0, "b_ih": b_ih0, "b_hh": b_hh0}
+        layer1 = {"w_ih": w_ih1, "w_hh": w_hh1, "b_ih": b_ih1, "b_hh": b_hh1}
+        packed, h0p, h1p, x1, finals = gru2_train_fwd_residuals(
+            x_tm, keep, layer0, layer1)
+        ctx.save_for_backward(x_tm, keep, packed, h0p, h1p, x1,
+                              w_ih0, w_hh0, w_ih1, w_hh1)
+        return finals[1].clone()
+
+    @staticmethod
+    def backward(ctx, dh_final):
+        (x_tm, keep, packed, h0p, h1p, x1,
+         w_ih0, w_hh0, w_ih1, w_hh1) = ctx.saved_tensors
+        h_dim = w_hh0.shape[0]
+        dih0, dhn0, dih1, dhn1 = gru2_bwd_chain(packed, h0p, h1p, keep, dh_final,
+                                                w_hh0, w_hh1, w_ih1)
+
+        def layer_grads(x_l, h_prev, dih, dhn):
+            dih_f, dhn_f, hp_t = _flat(dih), _flat(dhn), _flat(h_prev).T
+            db_ih = dih_f.sum(0)
+            return (_flat(x_l).T @ dih_f,
+                    torch.cat([hp_t @ dih_f[:, :2 * h_dim], hp_t @ dhn_f], dim=1),
+                    db_ih, torch.cat([db_ih[:2 * h_dim], dhn_f.sum(0)]))
+
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = (dih0 @ w_ih0.T).transpose(0, 1)
+        return (dx, None, *layer_grads(x_tm, h0p, dih0, dhn0),
+                *layer_grads(x1, h1p, dih1, dhn1))
+
+
+def fused_gru_final(x: torch.Tensor, keep: torch.Tensor,
+                    layers: Sequence[Params]) -> torch.Tensor:
+    """x (B, T, D), keep (T, L-1, B, H) the inter-layer keep masks -> the
+    top layer's final hidden state (B, H), differentiable in x and every
+    layer's parameters.  Only the stacks ``check_gru_stack`` passes are
+    taken; any other raises, on the CPU as on the card."""
+    check_gru_stack(len(layers), layers[0]["w_hh"].shape[0], sm_count(x.device))
+    weights = [p[name] for p in layers for name in ("w_ih", "w_hh", "b_ih", "b_hh")]
+    return FusedGRUFinal.apply(x, keep[:, 0], *weights)

@@ -7,8 +7,12 @@ name or layout on the way:
 * a Dense ``kernel`` (in, out) becomes a Linear ``weight`` (out, in);
 * a LayerNorm ``scale`` becomes ``weight``.
 
-LSTM tensors keep the JAX layout (``w_ih`` (D, 4H), ``w_hh`` (H, 4H), one
-fused ``b``, gates i, f, g, o).
+Recurrent tensors keep their JAX names and layout: an LSTM layer's
+``w_ih`` (D, 4H), ``w_hh`` (H, 4H) and one fused ``b``, gates i, f, g, o; a
+GRU layer's ``w_ih`` (D, 3H), ``w_hh`` (H, 3H), ``b_ih`` and ``b_hh``, gates
+r, z, n.  So a JAX classifier with either encoder maps key for key
+(``tests/test_torch_port_gru_config.py`` loads a JAX GRU classifier's
+tree with ``strict=True``).
 """
 
 from __future__ import annotations

@@ -282,3 +282,129 @@ def test_two_layer_h512_trains_and_serves_on_the_layered_kernels():
                                    atol=1e-4 * max(scale, 1.0), msg=n)
     with torch.no_grad():
         torch.testing.assert_close(served, cpu.eval()(x), rtol=1e-4, atol=1e-4)
+
+
+def _gru_case(dev, b, t, d, h, seed):
+    """Time-major x, keep mask at dropout 0.1, both GRU layers (the r third
+    of b_ih in [-1.5, -0.5], so r sits away from 1)."""
+    rng = np.random.RandomState(seed)
+    k = 1.0 / np.sqrt(h)
+
+    def layer(d_in):
+        p = {name: rng.uniform(-k, k, shape).astype(np.float32)
+             for name, shape in (("w_ih", (d_in, 3 * h)), ("w_hh", (h, 3 * h)),
+                                 ("b_ih", (3 * h,)), ("b_hh", (3 * h,)))}
+        p["b_ih"][:h] = rng.uniform(-1.5, -0.5, h)
+        return {name: torch.from_numpy(v).to(dev) for name, v in p.items()}
+
+    l0, l1 = layer(d), layer(h)
+    x_tm = torch.from_numpy(rng.randn(t, b, d).astype(np.float32)).to(dev)
+    keep = torch.from_numpy(
+        ((rng.rand(t, b, h) < 0.9) / 0.9).astype(np.float32)).to(dev)
+    return x_tm, keep, l0, l1
+
+
+GRU_SHAPES = [(1, 5, 6, 128), (37, 5, 6, 256), (32, 5, 64, 256),
+              (1, 372, 6, 128), (37, 372, 6, 256), (32, 372, 64, 256)]
+
+
+@pytest.mark.parametrize("b,t,d,h", GRU_SHAPES)
+def test_gru2_kernels_match_plain(b, t, d, h):
+    dev = _card()
+    x_tm, keep, l0, l1 = _gru_case(dev, b, t, d, h, seed=b * 1000 + t + h)
+    x = x_tm.transpose(0, 1).contiguous()
+    before = lstm_kernel.GRU2_INFER.launches
+    out = lstm_kernel.gru2_infer(x, l0, l1)
+    torch.cuda.synchronize()
+    assert lstm_kernel.GRU2_INFER.launches == before + 1
+    # float32 sums in another order than cuBLAS, carried through T steps
+    torch.testing.assert_close(out, lstm_kernel.gru2_infer_reference(x, l0, l1),
+                               rtol=1e-4, atol=1e-4, msg="gru2_infer")
+
+    before = lstm_kernel.GRU2_TRAIN_FWD.launches
+    outs = lstm_kernel.gru2_train_fwd_residuals(x_tm, keep, l0, l1)
+    torch.cuda.synchronize()
+    assert lstm_kernel.GRU2_TRAIN_FWD.launches == before + 1
+    refs = lstm_kernel.gru2_train_fwd_reference(x_tm, keep, l0, l1)
+    for name, o, r in zip(("packed", "h0_prev", "h1_prev", "x1", "finals"), outs, refs):
+        torch.testing.assert_close(o, r, rtol=1e-4, atol=1e-4, msg=name)
+
+    dh = torch.from_numpy(
+        np.random.RandomState(t).randn(b, h).astype(np.float32)).to(dev)
+    args = (*refs[:3], keep, dh, l0["w_hh"], l1["w_hh"], l1["w_ih"])
+    before = lstm_kernel.GRU2_BWD_CHAIN.launches
+    outs = lstm_kernel.gru2_bwd_chain(*args)
+    torch.cuda.synchronize()
+    assert lstm_kernel.GRU2_BWD_CHAIN.launches == before + 1
+    for name, o, r in zip(("dih0", "dhn0", "dih1", "dhn1"), outs,
+                          lstm_kernel.gru2_bwd_chain_reference(*args)):
+        torch.testing.assert_close(o, r, rtol=1e-4, atol=1e-4, msg=name)
+
+
+@pytest.mark.parametrize("b,t,d,h", [(3, 40, 6, 128), (32, 372, 64, 256)])
+def test_fused_gru_final_grads_match_plain_autograd(b, t, d, h):
+    from multimodal_emotion_detection_tpu_torch.ops.lstm_vjp import (
+        fused_gru_final,
+    )
+
+    dev = _card()
+    x_tm, keep, l0, l1 = _gru_case(dev, b, t, d, h, seed=17 + b)
+    weight = torch.from_numpy(
+        np.random.RandomState(b).randn(b, h).astype(np.float32)).to(dev)
+
+    def grads(fn):
+        x = x_tm.transpose(0, 1).contiguous().requires_grad_()
+        p0 = {k: v.clone().requires_grad_() for k, v in l0.items()}
+        p1 = {k: v.clone().requires_grad_() for k, v in l1.items()}
+        (fn(x, p0, p1) * weight).sum().backward()
+        return [x.grad] + [p.grad for p in (*p0.values(), *p1.values())]
+
+    launches = (lstm_kernel.GRU2_TRAIN_FWD.launches, lstm_kernel.GRU2_BWD_CHAIN.launches)
+    ours = grads(lambda x, p0, p1: fused_gru_final(x, keep[:, None], (p0, p1)))
+    assert (lstm_kernel.GRU2_TRAIN_FWD.launches,
+            lstm_kernel.GRU2_BWD_CHAIN.launches) == (launches[0] + 1, launches[1] + 1)
+    plain = grads(lambda x, p0, p1: lstm_kernel.gru2_train_fwd_reference(
+        x.transpose(0, 1), keep, p0, p1)[4][1])
+    for i, (g, r) in enumerate(zip(ours, plain)):
+        # weight gradients sum T*B terms: relative 1e-4 of the largest
+        scale = float(r.abs().max())
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4 * max(scale, 1.0),
+                                   msg=f"gradient {i}")
+
+
+def test_gru_rnn_trains_one_step_and_serves_on_the_card():
+    from multimodal_emotion_detection_tpu_torch.models.noise import Noise
+    from multimodal_emotion_detection_tpu_torch.models.recurrent import (
+        FusedStackedRNN,
+    )
+
+    dev = _card()
+    b, t, d, h = 32, 372, 64, 256
+    rnn = FusedStackedRNN(d, h, num_layers=2, dropout=0.1, cell_type="gru")
+    for layer in (rnn.layer_0, rnn.layer_1):
+        layer.reset_parameters(torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.RandomState(6).randn(b, t, d).astype(np.float32))
+    counters = (lstm_kernel.GRU2_TRAIN_FWD, lstm_kernel.GRU2_BWD_CHAIN,
+                lstm_kernel.GRU2_INFER, lstm_kernel.LSTM2_TRAIN_FWD,
+                lstm_kernel.LSTM2_INFER, lstm_kernel.LSTM1_TRAIN_FWD)
+    before = [c.launches for c in counters]
+    card = rnn.to(dev).train()
+    noise = Noise(torch.Generator(device=dev).manual_seed(0))
+    card(x.to(dev), noise).sum().backward()
+    grads = {n: p.grad.cpu() for n, p in card.named_parameters()}
+    card.eval()
+    with torch.no_grad():
+        served = card(x.to(dev)).cpu()
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [1, 1, 1, 0, 0, 0]
+
+    cpu = rnn.cpu().train()
+    for p in cpu.parameters():
+        p.grad = None
+    cpu(x, Noise(replay=noise.drawn)).sum().backward()
+    for n, p in cpu.named_parameters():
+        scale = float(p.grad.abs().max())
+        torch.testing.assert_close(grads[n], p.grad, rtol=1e-4,
+                                   atol=1e-4 * max(scale, 1.0), msg=n)
+    with torch.no_grad():
+        torch.testing.assert_close(served, cpu.eval()(x), rtol=1e-4, atol=1e-4)

@@ -37,7 +37,9 @@ def test_port_and_chip_smoke_import_no_jax():
 
 COUNTERS = (logmel.LOGMEL, lstm_kernel.LSTM2_INFER, lstm_kernel.LSTM2_TRAIN_FWD,
             lstm_kernel.LSTM2_BWD_CHAIN, lstm_kernel.LSTM1_TRAIN_FWD,
-            lstm_kernel.LSTM1_INFER, lstm_kernel.LSTM_BWD_CHAIN)
+            lstm_kernel.LSTM1_INFER, lstm_kernel.LSTM_BWD_CHAIN,
+            lstm_kernel.GRU2_INFER, lstm_kernel.GRU2_TRAIN_FWD,
+            lstm_kernel.GRU2_BWD_CHAIN)
 
 
 def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
@@ -69,4 +71,10 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     rnn = FusedStackedRNN(3, 8, num_layers=3).eval()
     with torch.no_grad():
         assert rnn(x).shape == (2, 8)
+    # the 2-layer GRU, training and eval
+    gru = FusedStackedRNN(3, 8, cell_type="gru")
+    gru(x).sum().backward()
+    assert all(p.grad is not None for p in gru.parameters())
+    with torch.no_grad():
+        assert gru.eval()(x).shape == (2, 8)
     assert [c.launches for c in COUNTERS] == [0] * len(COUNTERS)
