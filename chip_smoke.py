@@ -55,7 +55,24 @@
    kernel), card step against the CPU step, latency and profile; serves
    its ``best.ckpt`` (``[serve_gru]``: log-mel and gru2_infer once per
    batch), logits against the CPU forward, latency and profile.
-10. Prints one JSON line describing every kernel, nvidia-smi's name and
+10. The transformer audio encoder config (``TRANSFORMER``: 2 post-LN
+   blocks h256, 4 heads, log-mel cached per split): ``[flash_fwd]`` /
+   ``[flash_bwd]`` hold the flash forward and fused backward against their
+   plain versions at the encoder's (32, 4, 372, 64) (dropout 0 and 0.1,
+   one seed), at (4, 4, 1000, 64) with a key-padding bias and at the
+   blockwise fold of one raw clip (94, 4, 512, 64), check the dropout
+   mask's kept fraction, and time them beside
+   ``scaled_dot_product_attention``; ``[flash_long]`` runs
+   ``flash_attention`` forward + backward at (2, 4, 5000, 64), past the
+   fused form's 4,096 keys, so the two-pass kernels run (once each, the
+   fused one never), against the plain versions, and times them.
+   ``[train_tf]`` trains it as in 6 (two flash forwards per train step and
+   per eval batch, two fused backwards per step, log-mel once per split
+   chunk, no recurrent kernel), card step against the CPU step with the
+   Philox seeds replayed, latency and profile; ``[serve_tf]`` serves its
+   ``best.ckpt`` (log-mel once and the flash forward twice per batch),
+   logits against the CPU forward, latency and profile.
+11. Prints one JSON line describing every kernel, nvidia-smi's name and
    power limit of the card, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -913,6 +930,228 @@ def phase_gru2_bwd_chain(lstm_kernel, lstm_vjp, flush, inputs):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
 
+def _flash_inputs(b, h, tq, tk, d, seed, valid_keys=None):
+    """q, k, v, dO (B, H, T, D) on the card and the (B, Tk) key bias: None,
+    or 0 for the keys ``valid_keys`` (B, Tk) marks and -1e9 elsewhere."""
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(seed)
+    q = torch.from_numpy(rng.randn(b, h, tq, d).astype(np.float32)).to(dev)
+    k, v = (torch.from_numpy(rng.randn(b, h, tk, d).astype(np.float32)).to(dev)
+            for _ in range(2))
+    do = torch.from_numpy(rng.randn(b, h, tq, d).astype(np.float32)).to(dev)
+    bias = None
+    if valid_keys is not None:
+        bias = torch.from_numpy(
+            np.where(valid_keys, 0.0, -1e9).astype(np.float32)).to(dev)
+    return q, k, v, bias, do
+
+
+def _flash_cases():
+    """The shapes the encoder's attention takes, with the key bias and the
+    dropout rate of each: the slice's (32 clips, 4 heads, 372 frames, 64)
+    without a bias at rates 0 (eval) and 0.1 (training, one seed for both
+    calls); (4, 4, 1000, 64), many key tiles and a ragged edge, with a
+    random key-padding bias; and the blockwise fold of one raw clip, 94
+    blocks of 512 with the last one padded past 48,000 samples."""
+    rng = np.random.RandomState(21)
+    pad_mask = rng.rand(4, 1000) > 0.2
+    pad_mask[:, 0] = True
+    fold = np.ones((94, 512), bool)
+    fold[-1, 48000 - 93 * 512:] = False
+    return [("(32, 4, 372, 64) rate 0", (32, 4, 372, 372, 64), None, 0.0),
+            ("(32, 4, 372, 64) rate 0.1", (32, 4, 372, 372, 64), None, 0.1),
+            ("(4, 4, 1000, 64) key bias, rate 0.1", (4, 4, 1000, 1000, 64),
+             pad_mask, 0.1),
+            ("(94, 4, 512, 64) blockwise fold, rate 0.1", (94, 4, 512, 512, 64),
+             fold, 0.1)]
+
+
+def _grad_close(name, outs, refs, labels):
+    """Max abs errors of ``outs`` against ``refs``, each held to 1e-4 of
+    its largest entry (a gradient sums up to T terms)."""
+    errs = {}
+    for label, out, ref in zip(labels, outs, refs):
+        scale = max(float(ref.abs().max()), 1.0)
+        errs[label] = max_errs(out, ref)[0]
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4 * scale,
+                                   msg=f"{name} {label}")
+    return errs
+
+
+def _sdpa(q, k, v, bias):
+    """Yardstick only, never called by the port: PyTorch's fused attention
+    on the same inputs (its own kernel choice, no dropout)."""
+    mask = None if bias is None else bias[:, None, None, :]
+    return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+
+def phase_flash(fa, flush):
+    """``[flash_fwd]`` / ``[flash_bwd]``: both kernels against their plain
+    versions at every case of ``_flash_cases``, the kept fraction of the
+    mask, and times at the slice's training shape."""
+    seed = torch.tensor([0x5EED_0F_F1A5], dtype=torch.int64, device="cuda")
+    fwd_errs, bwd_errs = {}, {}
+    for label, (b, h, tq, tk, d), valid, rate in _flash_cases():
+        q, k, v, bias, do = _flash_inputs(b, h, tq, tk, d, tq + tk, valid)
+        o, lse = fa.flash_fwd(q, k, v, bias, seed, rate)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, bias, seed, rate)
+        fwd_errs[f"O {label}"] = max_errs(o, o_ref)[0]
+        fwd_errs[f"LSE {label}"] = max_errs(lse, lse_ref)[0]
+        torch.testing.assert_close(o, o_ref, rtol=1e-4, atol=1e-4, msg=label)
+        torch.testing.assert_close(lse, lse_ref, rtol=1e-4, atol=1e-4, msg=label)
+        delta = (do * o_ref).sum(-1)
+        args = (q, k, v, bias, seed, rate, do, lse_ref, delta)
+        outs = fa.flash_bwd_fused(*args)
+        torch.cuda.synchronize()
+        errs = _grad_close("flash_bwd_fused", outs, fa.flash_bwd_reference(*args),
+                           ("dQ", "dK", "dV"))
+        bwd_errs.update({f"{n} {label}": e for n, e in errs.items()})
+        del q, k, v, bias, do, o, lse, o_ref, lse_ref, delta, args, outs
+    print("[flash_fwd] kernel vs plain: max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in fwd_errs.items())
+          + " (bound 1e-4 abs + 1e-4 rel); at rate 0.1 the outputs agree, so "
+          "the kernel's Philox mask is the plain version's")
+    print("[flash_bwd] fused kernel vs plain: max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in bwd_errs.items())
+          + " (bound 1e-4 of the largest entry)")
+
+    b, h, t, d = 32, 4, 372, 64
+    keep = fa.attn_keep_mask(seed, 0.1, (b, h, t, t)) > 0
+    n = keep.numel()
+    kept = float(keep.float().mean())
+    sigma = (0.1 * 0.9 / n) ** 0.5
+    print(f"[flash_fwd] attn_keep_mask at rate 0.1 over {n} elements: kept "
+          f"{kept:.6f}, expected 0.9 +- {6 * sigma:.6f} (6 sigma)")
+    if abs(kept - 0.9) > 6 * sigma:
+        raise RuntimeError("the dropout mask's kept fraction is off")
+    del keep
+
+    q, k, v, _, do = _flash_inputs(b, h, t, t, d, 5)
+    o, lse = fa.flash_fwd_reference(q, k, v, None, seed, 0.1)
+    delta = (do * o).sum(-1)
+    args = (q, k, v, None, seed, 0.1, do, lse, delta)
+    lib_err = max_errs(_sdpa(q, k, v, None), fa.flash_fwd_reference(
+        q, k, v, None, seed, 0.0)[0])[0]
+    ms = device_ms(lambda: fa.flash_fwd(q, k, v, None, seed, 0.1), flush)
+    eval_ms = device_ms(lambda: fa.flash_fwd(q, k, v, None, seed, 0.0), flush)
+    plain_ms = device_ms(lambda: fa.flash_fwd_reference(q, k, v, None, seed, 0.1),
+                         flush, reps=5)
+    library_ms = device_ms(lambda: _sdpa(q, k, v, None), flush)
+    bwd_ms = device_ms(lambda: fa.flash_bwd_fused(*args), flush)
+    bwd_plain_ms = device_ms(lambda: fa.flash_bwd_reference(*args), flush, reps=5)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    lib_out = _sdpa(*leaves, None)
+    bwd_library_ms = device_ms(
+        lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True), flush)
+
+    def lib_train():
+        torch.autograd.grad(_sdpa(*leaves, None), leaves, do)
+
+    def ours_train():
+        ls = [x.clone().requires_grad_() for x in (q, k, v)]
+        torch.autograd.grad(fa.flash_attention(*ls, dropout_rate=0.1,
+                                               dropout_seed=seed), ls, do)
+
+    train_ms, lib_train_ms = device_ms(ours_train, flush), device_ms(lib_train, flush)
+    pairs = b * h * t * t
+    # q, k, v read, O and LSE written; for the backward q, k, v, dO, LSE and
+    # Delta read, dQ, dK, dV written (the fused form's partials not counted)
+    fwd_bound = bound(4 * pairs * d, 4 * (4 * b * h * t * d + b * h * t))
+    bwd_bound = bound(10 * pairs * d, 4 * (7 * b * h * t * d + 2 * b * h * t))
+    n_spans = fa.kv_spans(t)[0]
+    print(f"[flash_fwd] B={b} H={h} T={t} D={d}: kernel {ms:.4f} ms at rate 0.1 "
+          f"({eval_ms:.4f} ms at rate 0), plain {plain_ms:.4f} ms, "
+          f"scaled_dot_product_attention (no dropout; max abs err {lib_err:.3e} vs "
+          f"plain) {library_ms:.4f} ms, bound {fwd_bound[0]:.4f} ms ({fwd_bound[1]}: "
+          f"{4 * pairs * d / 1e9:.3f} GFLOP; the Philox mask's integer work not "
+          "counted)")
+    print(f"[flash_bwd] fused kernel {bwd_ms:.4f} ms at rate 0.1 ({n_spans} kv spans, "
+          f"partials summed in it), plain {bwd_plain_ms:.4f} ms, SDPA backward "
+          f"(autograd.grad, no dropout) {bwd_library_ms:.4f} ms, bound "
+          f"{bwd_bound[0]:.4f} ms ({bwd_bound[1]}: {10 * pairs * d / 1e9:.3f} GFLOP)")
+    print(f"[flash_bwd] forward + backward through flash_attention {train_ms:.4f} ms "
+          f"vs SDPA forward + backward {lib_train_ms:.4f} ms")
+    src = "multimodal_emotion_detection_tpu_torch/csrc/"
+    fwd = {"name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd.cu",
+           "replaces": "multimodal_emotion_detection_tpu/ops/flash_attention.py:159",
+           "max_abs_err": max(fwd_errs.values()), "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
+           "library_ms": library_ms}
+    bwd = {"name": "flash_bwd_fused", "route": "cuda", "source": src + "flash_bwd.cu",
+           "replaces": "multimodal_emotion_detection_tpu/ops/flash_attention.py:266",
+           "max_abs_err": max(bwd_errs.values()), "ms": bwd_ms,
+           "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound[0],
+           "bound_by": bwd_bound[1], "library_ms": bwd_library_ms}
+    return fwd, bwd
+
+
+LONG = (2, 4, 5000, 64)  # past FUSE_MAX_TK keys: the two-pass backward
+
+
+def phase_flash_long(fa, counters, flush):
+    """``[flash_long]``: ``flash_attention`` forward + backward at (2, 4,
+    5000, 64) with a key bias and dropout 0.1, with the launch counts
+    checked (the forward once, the two-pass kernels once each, the fused
+    form never), its gradients against the plain versions; then the two
+    kernels' times beside SDPA's backward."""
+    b, h, t, d = LONG
+    rng = np.random.RandomState(31)
+    valid = rng.rand(b, t) > 0.1
+    valid[:, 0] = True
+    q, k, v, bias, do = _flash_inputs(b, h, t, t, d, 32, valid)
+    seed = torch.tensor([0xA77E5710], dtype=torch.int64, device="cuda")
+    if fa.bwd_route(t) != "two_pass":
+        raise RuntimeError(f"T={t} does not take the two-pass backward")
+
+    def run():
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = fa.flash_attention(*leaves, bias, dropout_rate=0.1, dropout_seed=seed)
+        grads = torch.autograd.grad(out, leaves, do)
+        torch.cuda.synchronize()
+        return (out.detach(), *grads)
+
+    outs, _, launches = run_counted(
+        counters, {"flash_fwd": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1},
+        "flash_long", run)
+    o_ref, lse = fa.flash_fwd_reference(q, k, v, bias, seed, 0.1)
+    delta = (do * o_ref).sum(-1)
+    args = (q, k, v, bias, seed, 0.1, do, lse, delta)
+    errs = _grad_close("flash_long", outs, (o_ref, *fa.flash_bwd_reference(*args)),
+                       ("O", "dQ", "dK", "dV"))
+    print(f"[flash_long] B={b} H={h} T={t} D={d}, key bias, rate 0.1: launches "
+          f"{launches}; max abs err vs plain "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + " (bound 1e-4 of the largest entry)")
+    dkv_ms = device_ms(lambda: fa.flash_bwd_dkv(*args), flush, reps=5)
+    dq_ms = device_ms(lambda: fa.flash_bwd_dq(*args), flush, reps=5)
+    plain_ms = device_ms(lambda: fa.flash_bwd_reference(*args), flush, reps=3)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    lib_out = _sdpa(*leaves, bias)
+    library_ms = device_ms(
+        lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True),
+        flush, reps=5)
+    pairs = b * h * t * t
+    dkv_bound = bound(8 * pairs * d, 4 * (6 * b * h * t * d + 2 * b * h * t + b * t))
+    dq_bound = bound(6 * pairs * d, 4 * (5 * b * h * t * d + 2 * b * h * t + b * t))
+    print(f"[flash_long] dkv kernel {dkv_ms:.4f} ms (bound {dkv_bound[0]:.4f} ms, "
+          f"{dkv_bound[1]}: {8 * pairs * d / 1e9:.3f} GFLOP), dq kernel {dq_ms:.4f} "
+          f"ms (bound {dq_bound[0]:.4f} ms, {dq_bound[1]}: {6 * pairs * d / 1e9:.3f} "
+          f"GFLOP); plain backward (dQ, dK, dV at once) {plain_ms:.4f} ms; SDPA "
+          f"backward (dQ, dK, dV at once, no dropout) {library_ms:.4f} ms")
+    src = "multimodal_emotion_detection_tpu_torch/csrc/flash_bwd.cu"
+    common = {"route": "cuda", "source": src,
+              "max_abs_err": max(errs[n] for n in ("dQ", "dK", "dV")),
+              "plain_ms": plain_ms, "library_ms": library_ms}
+    return launches, [
+        {"name": "flash_bwd_dkv", **common, "ms": dkv_ms,
+         "replaces": "multimodal_emotion_detection_tpu/ops/flash_attention.py:255",
+         "bound_ms": dkv_bound[0], "bound_by": dkv_bound[1]},
+        {"name": "flash_bwd_dq", **common, "ms": dq_ms,
+         "replaces": "multimodal_emotion_detection_tpu/ops/flash_attention.py:212",
+         "bound_ms": dq_bound[0], "bound_by": dq_bound[1]}]
+
+
 def _write_split(root: Path, split: str, n: int, seed: int) -> None:
     d = root / split
     d.mkdir(parents=True, exist_ok=True)
@@ -1126,13 +1365,20 @@ BIG = ["model.frontend.audio=logmel", "model.frontend.cache=true",
 # cached per split): log-mel 64 -> GRU 2x256 -> Dense 128
 GRU = ["model.frontend.audio=logmel", "model.frontend.cache=true",
        "model.encoders.audio.encoder_type=gru"]
+# the JAX package's transformer bench leg (bench.py's encoder="transformer"
+# at b32, log-mel cached per split; float32 here): log-mel 64 -> Dense 256
+# + positions -> 2 post-LN blocks (4 heads of 64, FFN 1024) -> mean -> 128
+TRANSFORMER = ["model.frontend.audio=logmel", "model.frontend.cache=true",
+               "model.encoders.audio.encoder_type=transformer"]
 # the path whose run gives each kernel's "launches": the training path of
 # the slice that ported it
 MAIN_PATH = {"logmel": "train", "lstm2_infer": "train", "lstm2_train_fwd": "train",
              "lstm2_bwd_chain": "train", "lstm1_train_fwd": "train_big",
              "lstm1_infer": "train_big", "lstm_bwd_chain": "train_big",
              "gru2_infer": "train_gru", "gru2_train_fwd": "train_gru",
-             "gru2_bwd_chain": "train_gru"}
+             "gru2_bwd_chain": "train_gru", "flash_fwd": "train_tf",
+             "flash_bwd_fused": "train_tf", "flash_bwd_dkv": "flash_long",
+             "flash_bwd_dq": "flash_long"}
 
 
 def main() -> None:
@@ -1145,6 +1391,7 @@ def main() -> None:
         lstm_kernel,
         lstm_vjp,
     )
+    from multimodal_emotion_detection_tpu_torch.ops import flash_attention as fa
     from multimodal_emotion_detection_tpu_torch.training.loop import FRONTEND_CHUNK
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1158,7 +1405,8 @@ def main() -> None:
     t0 = time.perf_counter()
     reports = _build.build(["logmel", "lstm2_infer", "lstm2_train_fwd",
                             "lstm2_bwd_chain", "lstm1_fwd", "lstm_bwd_chain",
-                            "gru2_infer", "gru2_train_fwd", "gru2_bwd_chain"])
+                            "gru2_infer", "gru2_train_fwd", "gru2_bwd_chain",
+                            "flash_fwd", "flash_bwd"])
     print(f"[build] {time.perf_counter() - t0:.1f} s for {sorted(reports) or 'nothing (cached)'}")
     for src, log in reports.items():
         for line in log.splitlines():
@@ -1173,7 +1421,9 @@ def main() -> None:
                 "lstm_bwd_chain": lstm_kernel.LSTM_BWD_CHAIN,
                 "gru2_infer": lstm_kernel.GRU2_INFER,
                 "gru2_train_fwd": lstm_kernel.GRU2_TRAIN_FWD,
-                "gru2_bwd_chain": lstm_kernel.GRU2_BWD_CHAIN}
+                "gru2_bwd_chain": lstm_kernel.GRU2_BWD_CHAIN,
+                "flash_fwd": fa.FLASH_FWD, "flash_bwd_fused": fa.FLASH_BWD_FUSED,
+                "flash_bwd_dkv": fa.FLASH_BWD_DKV, "flash_bwd_dq": fa.FLASH_BWD_DQ}
     flush = L2Flush()
     kernels = {"logmel": phase_logmel(logmel, flush),
                "lstm2_infer": phase_lstm(lstm_kernel, flush)}
@@ -1191,7 +1441,11 @@ def main() -> None:
     kernels["gru2_train_fwd"], gru_inputs = phase_gru2_train_fwd(lstm_kernel, flush)
     kernels["gru2_bwd_chain"] = phase_gru2_bwd_chain(lstm_kernel, lstm_vjp, flush,
                                                      gru_inputs)
-    del gru_inputs, flush
+    del gru_inputs
+    kernels["flash_fwd"], kernels["flash_bwd_fused"] = phase_flash(fa, flush)
+    by_path["flash_long"], (kernels["flash_bwd_dkv"], kernels["flash_bwd_dq"]) = (
+        phase_flash_long(fa, counters, flush))
+    del flush
 
     by_path["train"] = phase_train(
         counters, "train", ["model.frontend.audio=logmel"],
@@ -1217,6 +1471,16 @@ def main() -> None:
         "serve_gru", counters, {"logmel": batches, "gru2_infer": batches},
         gru_run / "best.ckpt", gru_overrides, np.load(test / "audio.npy"),
         np.load(test / "video.npy"), WORK / "predictions_gru")
+    # two blocks: one flash forward each per forward, one fused backward
+    # each per train step
+    by_path["train_tf"], tf_run, tf_overrides = phase_train(
+        counters, "train_tf", TRANSFORMER,
+        lambda steps, evals: {"logmel": cached, "flash_fwd": 2 * (steps + evals),
+                              "flash_bwd_fused": 2 * steps})
+    by_path["serve_tf"] = serve_path(
+        "serve_tf", counters, {"logmel": batches, "flash_fwd": 2 * batches},
+        tf_run / "best.ckpt", tf_overrides, np.load(test / "audio.npy"),
+        np.load(test / "video.npy"), WORK / "predictions_tf")
 
     # launches: the run of the path that MAIN_PATH names; launches_by_path:
     # every path's own run, the counts zeroed just before it

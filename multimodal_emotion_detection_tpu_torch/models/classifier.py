@@ -111,11 +111,16 @@ class MultimodalClassifier(nn.Module):
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random weights with the JAX package's initialisers: LSTM
     tensors U(-1/sqrt(H), 1/sqrt(H)); Linear weights lecun-normal
-    (truncated at 2 sigma), biases zero; LayerNorm scale 1, bias 0."""
+    (truncated at 2 sigma), biases zero; LayerNorm scale 1, bias 0;
+    Embedding rows normal with variance 1/width."""
     with torch.no_grad():
         for module in model.modules():
             if isinstance(module, _CellParams):
                 module.reset_parameters(generator)
+            elif isinstance(module, nn.Embedding):
+                nn.init.normal_(module.weight, 0.0,
+                                1.0 / math.sqrt(module.embedding_dim),
+                                generator=generator)
             elif isinstance(module, nn.Linear):
                 std = math.sqrt(1.0 / module.in_features) / 0.87962566103423978
                 nn.init.trunc_normal_(module.weight, 0.0, std, -2 * std,

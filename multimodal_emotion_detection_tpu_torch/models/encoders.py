@@ -1,7 +1,10 @@
-"""Per-modality encoders of the ported slice (serving and training).
+"""Per-modality encoders of the ported slices (serving and training).
 
 * ``SequenceEncoder`` — the recurrent branch (an LSTM of 2 or more layers,
-  or a 2-layer GRU): final hidden state -> Linear projection;
+  or a 2-layer GRU): final hidden state -> Linear projection; and the
+  transformer branch: Linear in-projection + learned positions -> post-LN
+  ``TransformerBlock`` s (attention through the flash kernels) -> mean over
+  time -> Linear projection;
 * ``FrameEncoder`` — per-frame Linear + ReLU, temporal pooling
   (attention / average / max), LayerNorm, Linear projection;
 * ``build_encoder`` — the factory, with the JAX package's config keys,
@@ -9,9 +12,10 @@
 
 Module and parameter names follow the JAX package's parameter tree, so a
 converted JAX checkpoint loads key for key.  Dropout acts only in training
-mode, with masks drawn from the forward's ``Noise``; in eval mode it is
-the identity.  Encoder kinds outside the slice raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them.
+mode, with masks (and the attention kernels' Philox seeds) drawn from the
+forward's ``Noise``; in eval mode it is the identity.  Encoder kinds
+outside the port raise ``NotImplementedError`` naming the ``ROADMAP.md``
+item that ports them.
 """
 
 from __future__ import annotations
@@ -19,11 +23,16 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from multimodal_emotion_detection_tpu_torch.models.noise import Noise, dropout
 from multimodal_emotion_detection_tpu_torch.models.recurrent import (
     FusedStackedRNN,
+)
+from multimodal_emotion_detection_tpu_torch.ops.flash_attention import (
+    MASKED,
+    flash_attention,
 )
 
 
@@ -59,25 +68,128 @@ class AttentionPool(nn.Module):
         return torch.einsum("bt,bth->bh", weights, frames)
 
 
+class SelfAttention(nn.Module):
+    """Multi-head self-attention through the flash kernels, the
+    counterpart of the JAX package's ``_FlashSelfAttention``.
+
+    ``query`` / ``key`` / ``value`` are the JAX DenseGeneral (D -> H, Dh)
+    projections as Linear (D -> H*Dh), ``out`` the DenseGeneral (H, Dh) ->
+    D as Linear (H*Dh -> D); ``utils/weights.py`` maps the JAX tensors.
+    """
+
+    def __init__(self, dim: int, num_heads: int):
+        super().__init__()
+        if dim % num_heads:
+            raise ValueError(f"width {dim} is not a multiple of {num_heads} heads")
+        self.num_heads = num_heads
+        self.query = nn.Linear(dim, dim)
+        self.key = nn.Linear(dim, dim)
+        self.value = nn.Linear(dim, dim)
+        self.out = nn.Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor],
+                rate: float, seed: Optional[torch.Tensor]) -> torch.Tensor:
+        b, t, dim = x.shape
+
+        def heads(proj):  # (B, T, H*Dh) -> (B, H, T, Dh)
+            return proj(x).view(b, t, self.num_heads, -1).transpose(1, 2)
+
+        o = flash_attention(heads(self.query), heads(self.key), heads(self.value),
+                            bias, dropout_rate=rate, dropout_seed=seed)
+        return self.out(o.transpose(1, 2).reshape(b, t, dim))
+
+
+class TransformerBlock(nn.Module):
+    """Post-LN encoder layer (torch ``nn.TransformerEncoderLayer``
+    semantics): x = LN(x + MHA(x)); x = LN(x + Linear(drop(GELU(Linear(x))))),
+    GELU the exact erf form, LayerNorm eps 1e-5.  In training mode the
+    attention probabilities drop out inside the kernel (seeded from the
+    forward's ``Noise``) and the feed-forward hidden layer takes a keep
+    mask; the residual branches have no dropout, as in the JAX block."""
+
+    def __init__(self, hidden_dim: int, num_heads: int = 4, dropout: float = 0.1):
+        super().__init__()
+        self.dropout = float(dropout)
+        self.self_attn = SelfAttention(hidden_dim, num_heads)
+        self.ln1 = nn.LayerNorm(hidden_dim, eps=1e-5)
+        self.ffn_in = nn.Linear(hidden_dim, 4 * hidden_dim)
+        self.ffn_out = nn.Linear(4 * hidden_dim, hidden_dim)
+        self.ln2 = nn.LayerNorm(hidden_dim, eps=1e-5)
+
+    def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                noise: Optional[Noise] = None) -> torch.Tensor:
+        p = self.dropout if self.training else 0.0
+        seed = None
+        if p > 0.0:
+            if noise is None:
+                raise ValueError("a training forward with dropout needs a Noise source")
+            seed = noise.seed(x.device)
+        x = self.ln1(x + self.self_attn(x, bias, p, seed))
+        h = dropout(F.gelu(self.ffn_in(x), approximate="none"), p, noise)
+        return self.ln2(x + self.ffn_out(h))
+
+
 class SequenceEncoder(nn.Module):
-    """Time series (B, T, D) -> L-layer LSTM (L >= 2) or 2-layer GRU
-    (``encoder_type``) final hidden -> Linear."""
+    """Time series (B, T, D) -> L-layer LSTM (L >= 2) or 2-layer GRU final
+    hidden, or L post-LN transformer blocks mean-pooled over time
+    (``encoder_type``) -> Linear."""
 
     # past this length the JAX package switches to the layerwise scan
     MAX_FUSED_LEN = 2048
 
     def __init__(self, input_dim: int, hidden_dim: int, output_dim: int,
                  num_layers: int = 2, dropout: float = 0.1,
-                 encoder_type: str = "lstm"):
+                 encoder_type: str = "lstm", max_len: int = 4096,
+                 attention_block: int = 512):
         super().__init__()
-        # the JAX package drops out between layers only
-        self.rnn = FusedStackedRNN(input_dim, hidden_dim, num_layers,
-                                   dropout=dropout if num_layers > 1 else 0.0,
-                                   cell_type=encoder_type)
+        self.encoder_type = encoder_type
+        if encoder_type == "transformer":
+            self.max_len = max_len
+            self.attention_block = attention_block
+            self.num_layers = num_layers
+            self.input_proj = nn.Linear(input_dim, hidden_dim)
+            self.pos_embedding = nn.Embedding(max_len, hidden_dim)
+            for i in range(num_layers):
+                self.add_module(f"block_{i}", TransformerBlock(hidden_dim, 4, dropout))
+        else:
+            # the JAX package drops out between layers only
+            self.rnn = FusedStackedRNN(input_dim, hidden_dim, num_layers,
+                                       dropout=dropout if num_layers > 1 else 0.0,
+                                       cell_type=encoder_type)
         self.projection = nn.Linear(hidden_dim, output_dim)
+
+    def _transformer(self, x: torch.Tensor, noise: Optional[Noise]) -> torch.Tensor:
+        batch, seq_len, _ = x.shape
+        # O(T^2) attention is impossible at raw-waveform lengths: past
+        # max_len, attend in local blocks folded into the batch, then pool
+        # over the whole sequence
+        blockwise = seq_len > self.max_len
+        t = seq_len
+        valid = bias = None
+        if blockwise:
+            block = self.attention_block
+            t = seq_len + (-seq_len) % block
+            x = F.pad(x, (0, 0, 0, t - seq_len))
+            valid = (torch.arange(t, device=x.device) < seq_len).expand(batch, t)
+        positions = torch.arange(t, device=x.device).clamp(max=self.max_len - 1)
+        h = self.input_proj(x) + self.pos_embedding(positions)[None]
+        if blockwise:
+            h = h.reshape(batch * (t // block), block, -1)
+            block_valid = valid.reshape(-1, block).clone()
+            # a fully padded block would softmax over nothing: keep one
+            # sentinel key valid (its outputs are masked out in pooling)
+            block_valid[:, 0] |= ~block_valid.any(dim=1)
+            bias = torch.where(block_valid, 0.0, MASKED).to(torch.float32)
+        for i in range(self.num_layers):
+            h = getattr(self, f"block_{i}")(h, bias, noise)
+        if blockwise:
+            h = h.reshape(batch, t, -1)
+        return masked_mean(h, valid, dim=1)
 
     def forward(self, sequence: torch.Tensor,
                 noise: Optional[Noise] = None) -> torch.Tensor:
+        if self.encoder_type == "transformer":
+            return self.projection(self._transformer(sequence.to(torch.float32), noise))
         if sequence.shape[1] > self.MAX_FUSED_LEN:
             kind = self.rnn.cell_type.upper()
             item = 6 if kind == "GRU" else 3
@@ -176,12 +288,12 @@ def build_encoder(
         )
     if enc_type == "sequence":
         kind = cfg.pop("encoder_type", "lstm")
-        if kind not in ("lstm", "gru"):
+        if kind not in ("lstm", "gru", "transformer"):
             raise NotImplementedError(
                 f"model.encoders.{modality}.encoder_type={kind!r} is not "
                 "ported yet (ROADMAP.md Queue 1 item 8)"
             )
-        if not cfg.pop("fused", True):
+        if not cfg.pop("fused", True) and kind != "transformer":
             item = 6 if kind == "gru" else 3
             raise NotImplementedError(
                 f"model.encoders.{modality}.fused=false: the layerwise "

@@ -7,7 +7,9 @@ tensors live on), in a fixed order.  ``drawn`` keeps what was drawn, and
 ``Noise(replay=drawn)`` hands the same masks back in the same order, so
 one step can be repeated on another device with identical masks.  An
 L-layer LSTM draws its L-1 inter-layer keep masks as one (T, L-1, B, H)
-mask, so the draw order of a step does not depend on the depth.
+mask, so the draw order of a step does not depend on the depth.  A
+transformer block draws one Philox seed for its attention-probability
+dropout (``Noise.seed``), then its feed-forward keep mask.
 """
 
 from __future__ import annotations
@@ -46,6 +48,14 @@ class Noise:
             return torch.bernoulli(probs, generator=g) / (1.0 - p)
 
         return self.draw(fn, device)
+
+    def seed(self, device: torch.device) -> torch.Tensor:
+        """One int64 in [0, 2**62) (a (1,) tensor on ``device``): the key
+        of a kernel that draws its own mask, as the flash-attention
+        kernels do from Philox; replayed like a mask, so a CPU replay
+        regenerates the kernel's mask exactly."""
+        return self.draw(lambda g: torch.randint(
+            0, 2**62, (1,), generator=g, dtype=torch.int64, device=device), device)
 
 
 def keep_mask(noise: Optional[Noise], shape, p: float,

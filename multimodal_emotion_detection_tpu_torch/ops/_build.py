@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled on first use into its own shared
 library under ``build/torch_kernels/`` at the root of the checkout (a
-directory git ignores), named by a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is not.  The sources expose
+directory git ignores), named by a hash of the source, the ``csrc/``
+headers it includes and the flags, so an edited source or header is
+rebuilt and an unchanged one is not.  The sources expose
 a plain C interface: every pointer and the stream are ``void*``, and each
 entry returns a CUDA error code (0 on success).  Nothing here runs when
 the module is imported; a build or launch failure raises, and no caller
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -42,12 +44,26 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _sources(path: Path, seen: List[Path]) -> List[Path]:
+    """``path`` and every ``#include "..."`` of a file under ``csrc/`` it
+    reaches, depth first, each once."""
+    if path in seen:
+        return seen
+    seen.append(path)
+    for name in re.findall(r'^\s*#\s*include\s+"([^"]+)"', path.read_text(), re.M):
+        if (CSRC / name).exists():
+            _sources(CSRC / name, seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of the source,
+    the headers it includes and the flags, so an edited header rebuilds."""
+    digest = hashlib.sha256()
+    for src in _sources(CSRC / f"{name}.cu", []):
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, str]:

@@ -1,0 +1,362 @@
+"""Flash attention: CUDA kernels + plain PyTorch versions.
+
+The JAX package's layout at the public function: ``flash_attention(q, k, v,
+bias=None, *, dropout_rate=0.0, dropout_seed=None)`` takes q (B, H, Tq, D),
+k and v (B, H, Tk, D), float32, and an optional (B, Tk) additive key bias
+(0 valid, -1e9 masked; a mask, so it gets no gradient).  Scale is 1/sqrt(D);
+any Tq, Tk >= 1 is taken.
+
+Four kernels, each behind a wrapper with its launch counter:
+
+* ``flash_fwd`` (``csrc/flash_fwd.cu``): online-softmax attention, writes O
+  and the per-row logsumexp LSE (B, H, Tq);
+* ``flash_bwd_fused`` (``csrc/flash_bwd.cu``): the kv-major backward that
+  recomputes the probabilities from LSE, accumulates dK and dV on chip and
+  writes each kv span's dQ partial to its own slot; the wrapper sums the
+  slots (no atomics, so the result is deterministic);
+* ``flash_bwd_dkv`` and ``flash_bwd_dq`` (same source): the two-pass
+  backward for long key sequences, dK and dV kv-major, dQ q-major.
+
+``FlashAttention`` (an ``autograd.Function``) saves (q, k, v, bias, seed,
+O, LSE); its backward forms Delta = rowsum(dO * O) and takes the fused or
+the two-pass form by ``bwd_route(Tk)``, as the JAX package does past 8
+blocks of 512 keys.
+
+Attention-probability dropout follows torch's semantics, as the JAX
+kernel's: the softmax normaliser comes from the undropped probabilities,
+only the P V stream is masked and rescaled by 1/(1 - rate).  The keep mask
+is a pure function of (seed, b, h, i, j): Philox4x32-10 keyed by the
+call's int64 seed (low word, high word), counter (j, i // 4, h, b), the
+output word i % 4; an element is kept iff that word >= min(floor(rate *
+2**32), 2**32 - 1).  ``attn_keep_mask`` computes it in torch integer ops,
+the kernels in ``csrc/philox.cuh``, so the mask on the card and on the CPU
+is the same, and the backward regenerates the forward's.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from multimodal_emotion_detection_tpu_torch.ops._build import (
+    CudaKernel,
+    check_cuda_f32,
+    stream_of,
+)
+
+MASKED = -1e9  # additive bias of a masked key (the JAX package's convention)
+# past this many keys the fused backward's dQ partials (one slot per kv
+# span, at most MAX_SPANS) would outgrow what it saves: the two-pass form
+# takes over, as the JAX package's _FUSE_MAX_NK = 8 blocks of 512
+FUSE_MAX_TK = 4096
+MAX_SPANS = 8
+KV_TILE = 64  # keys per tile of the kernels
+MAX_HEAD_DIM = 128
+
+# ---------------------------------------------------------------------------
+# Dropout mask: Philox4x32-10 in torch integer ops
+# ---------------------------------------------------------------------------
+
+_M0, _M1 = 0xD2511F53, 0xCD9E8D57
+_W0, _W1 = 0x9E3779B9, 0xBB67AE85
+_U32 = 0xFFFFFFFF
+
+
+def _mulhilo(a: int, x: torch.Tensor):
+    """(hi, lo) 32-bit words of the 64-bit product a * x, for a 32-bit
+    constant ``a`` and int64 ``x`` in [0, 2**32): the product overflows
+    int64, so it is formed from a's 16-bit halves."""
+    p_lo = x * (a & 0xFFFF)  # < 2**48
+    p_hi = x * (a >> 16)  # < 2**48
+    s = p_lo + ((p_hi & 0xFFFF) << 16)  # < 2**49
+    return (p_hi >> 16) + (s >> 32), s & _U32
+
+
+def philox4x32(counter, key):
+    """Philox4x32-10 (Random123): four int64 tensors of 32-bit words
+    (broadcastable) and a key of two -> the four output words."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + _W0) & _U32, (k1 + _W1) & _U32
+        hi0, lo0 = _mulhilo(_M0, c0)
+        hi1, lo1 = _mulhilo(_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def drop_threshold(rate: float) -> int:
+    """The 32-bit word below which an element is dropped."""
+    return min(int(math.floor(rate * 4294967296.0)), _U32)
+
+
+def attn_keep_mask(seed: torch.Tensor, rate: float, shape) -> torch.Tensor:
+    """The (B, H, Tq, Tk) float32 keep mask of one attention call: 0 for a
+    dropped element, 1/(1 - rate) for a kept one.  ``seed`` is the call's
+    int64 tensor of one element (on any device; read without a host sync)."""
+    b, h, tq, tk = shape
+    dev = seed.device
+    s = seed.reshape(()).to(torch.int64)
+    key = (s & _U32, (s >> 32) & _U32)
+    ar = lambda n: torch.arange(n, dtype=torch.int64, device=dev)  # noqa: E731
+    counter = (ar(tk).view(1, 1, 1, tk), ar((tq + 3) // 4).view(1, 1, -1, 1),
+               ar(h).view(1, h, 1, 1), ar(b).view(b, 1, 1, 1))
+    words = torch.stack(philox4x32(counter, key), dim=3)  # (B, H, Tq/4, 4, Tk)
+    words = words.reshape(b, h, -1, tk)[:, :, :tq]
+    scale = torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32, device=dev)
+    return (words >= drop_threshold(rate)).to(torch.float32) * scale
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+
+def attention_reference(q, k, v, bias=None, keep=None) -> torch.Tensor:
+    """Plain softmax attention with the kernels' scale and bias
+    conventions; ``keep`` (B, H, Tq, Tk), e.g. ``attn_keep_mask``'s,
+    multiplies the probabilities after the softmax.  Differentiable."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias[:, None, None, :]
+    p = torch.softmax(s, dim=-1)
+    if keep is not None:
+        p = p * keep
+    return torch.matmul(p, v)
+
+
+def _probs(q, k, bias, lse=None):
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias[:, None, None, :]
+    if lse is None:
+        lse = torch.logsumexp(s, dim=-1)
+    return torch.exp(s - lse[..., None]), lse, scale
+
+
+def flash_fwd_reference(q, k, v, bias, seed, rate: float):
+    """Plain version of the forward kernel -> (O, LSE (B, H, Tq))."""
+    p, lse, _ = _probs(q, k, bias)
+    if rate > 0.0:
+        p = p * attn_keep_mask(seed, rate, p.shape)
+    return torch.matmul(p, v), lse
+
+
+def flash_bwd_reference(q, k, v, bias, seed, rate: float, do, lse, delta):
+    """Plain version of the backward kernels' contract -> (dQ, dK, dV).
+
+    P = exp(S - LSE); with M the keep mask (1/(1 - rate) where kept),
+    dV = (P M)^T dO, dS = P (M (dO V^T) - Delta) / sqrt(D), dQ = dS K,
+    dK = dS^T Q; Delta = rowsum(dO O) is unchanged by dropout."""
+    p, _, scale = _probs(q, k, bias, lse)
+    dp = torch.matmul(do, v.transpose(-1, -2))
+    p_drop = p
+    if rate > 0.0:
+        keep = attn_keep_mask(seed, rate, p.shape)
+        p_drop, dp = p * keep, dp * keep
+    dv = torch.matmul(p_drop.transpose(-1, -2), do)
+    ds = p * (dp - delta[..., None]) * scale
+    return torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q), dv
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_U, _F = ctypes.c_uint, ctypes.c_float
+FLASH_FWD = CudaKernel(
+    "flash_fwd", "flash_fwd_launch",
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _U, _F, _P],
+)
+_BWD_ARGS = [_P] * 11 + [_I] * 6 + [_F, _U, _F, _P]
+FLASH_BWD_FUSED = CudaKernel("flash_bwd", "flash_bwd_fused_launch", _BWD_ARGS)
+FLASH_BWD_DKV = CudaKernel("flash_bwd", "flash_bwd_dkv_launch", _BWD_ARGS)
+FLASH_BWD_DQ = CudaKernel("flash_bwd", "flash_bwd_dq_launch", _BWD_ARGS)
+
+
+def bwd_route(tk: int) -> str:
+    """'fused' (one kv-major pass, dQ partials per kv span) up to
+    ``FUSE_MAX_TK`` keys, 'two_pass' (dK/dV kv-major, dQ q-major) past it."""
+    return "fused" if tk <= FUSE_MAX_TK else "two_pass"
+
+
+def kv_spans(tk: int) -> Tuple[int, int]:
+    """(number of kv spans, kv tiles per span) of the fused backward: at
+    most ``MAX_SPANS`` spans, so the dQ partials stay <= 8 x |dQ|."""
+    tiles = -(-tk // KV_TILE)
+    per_span = -(-tiles // MAX_SPANS)
+    return -(-tiles // per_span), per_span
+
+
+def _checked(name: str, q, k, v, bias, seed, rate: float, **more):
+    """Shape / type / device checks before a launch; returns the dims and
+    the seed pointer (None at rate 0)."""
+    if q.dim() != 4:
+        raise ValueError(f"{name}: q has shape {tuple(q.shape)}, expected (B, H, Tq, D)")
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    shapes = dict(k=(k, (b, h, tk, d)), v=(v, (b, h, tk, d)))
+    if bias is not None:
+        shapes["bias"] = (bias, (b, tk))
+    for arg, t in more.items():
+        shapes[arg] = (t, (b, h, tq, d) if t.dim() == 4 else (b, h, tq))
+    for arg, (t, shape) in shapes.items():
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, expected {shape}")
+    if min(b, h, tq, tk, d) < 1:
+        raise ValueError(f"{name}: empty dimension in q{tuple(q.shape)} / k{tuple(k.shape)}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {d} > {MAX_HEAD_DIM} is not supported")
+    tensors = dict(q=q, k=k, v=v, **more)
+    if bias is not None:
+        tensors["bias"] = bias
+    check_cuda_f32(name, **tensors)
+    seed_ptr = None
+    if rate > 0.0:
+        if (seed.dtype != torch.int64 or seed.numel() != 1
+                or seed.device != q.device):
+            raise ValueError(f"{name}: the seed must be one int64 on {q.device}")
+        seed_ptr = seed.data_ptr()
+    return b, h, tq, tk, d, seed_ptr
+
+
+def _drop_args(rate: float):
+    return drop_threshold(rate), 1.0 / (1.0 - rate) if rate > 0.0 else 1.0
+
+
+def flash_fwd(q, k, v, bias, seed, rate: float):
+    """Attention forward -> (O (B, H, Tq, D), LSE (B, H, Tq)), float32.
+
+    On a CUDA tensor this launches ``csrc/flash_fwd.cu`` and counts it in
+    ``FLASH_FWD.launches``; on a CPU tensor it runs ``flash_fwd_reference``.
+    """
+    if q.device.type == "cpu":
+        return flash_fwd_reference(q, k, v, bias, seed, rate)
+    b, h, tq, tk, d, seed_ptr = _checked("flash_fwd", q, k, v, bias, seed, rate)
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    FLASH_FWD(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+              bias.data_ptr() if bias is not None else None, seed_ptr,
+              o.data_ptr(), lse.data_ptr(), b, h, tq, tk, d,
+              1.0 / math.sqrt(d), *_drop_args(rate), stream_of(q))
+    return o, lse
+
+
+def _bwd_launch(kernel, name, q, k, v, bias, seed, rate, do, lse, delta,
+                dq_out, dk, dv, spans_arg):
+    b, h, tq, tk, d, seed_ptr = _checked(name, q, k, v, bias, seed, rate,
+                                         do=do, lse=lse, delta=delta)
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(bias), seed_ptr,
+           do.data_ptr(), lse.data_ptr(), delta.data_ptr(), ptr(dq_out),
+           ptr(dk), ptr(dv), b, h, tq, tk, d, spans_arg,
+           1.0 / math.sqrt(d), *_drop_args(rate), stream_of(q))
+
+
+def flash_bwd_fused(q, k, v, bias, seed, rate: float, do, lse, delta):
+    """Fused backward -> (dQ, dK, dV), float32.
+
+    On a CUDA tensor this launches ``csrc/flash_bwd.cu``'s kv-major kernel
+    in its fused form (one CTA per kv span, head and batch row; each span's
+    dQ partial in its own slot, summed here) and counts it in
+    ``FLASH_BWD_FUSED.launches``; on a CPU tensor it runs
+    ``flash_bwd_reference``.
+    """
+    if q.device.type == "cpu":
+        return flash_bwd_reference(q, k, v, bias, seed, rate, do, lse, delta)
+    n_spans, per_span = kv_spans(k.shape[2])
+    dqp = q.new_empty((n_spans,) + tuple(q.shape))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _bwd_launch(FLASH_BWD_FUSED, "flash_bwd_fused", q, k, v, bias, seed, rate,
+                do, lse, delta, dqp, dk, dv, per_span)
+    return dqp.sum(dim=0), dk, dv
+
+
+def flash_bwd_dkv(q, k, v, bias, seed, rate: float, do, lse, delta):
+    """Two-pass backward, first pass -> (dK, dV), float32.
+
+    On a CUDA tensor this launches ``csrc/flash_bwd.cu``'s kv-major kernel
+    in its dK/dV-only form and counts it in ``FLASH_BWD_DKV.launches``; on
+    a CPU tensor it runs ``flash_bwd_reference``.
+    """
+    if q.device.type == "cpu":
+        return flash_bwd_reference(q, k, v, bias, seed, rate, do, lse, delta)[1:]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _bwd_launch(FLASH_BWD_DKV, "flash_bwd_dkv", q, k, v, bias, seed, rate,
+                do, lse, delta, None, dk, dv, 1)
+    return dk, dv
+
+
+def flash_bwd_dq(q, k, v, bias, seed, rate: float, do, lse, delta):
+    """Two-pass backward, second pass -> dQ, float32.
+
+    On a CUDA tensor this launches ``csrc/flash_bwd.cu``'s q-major kernel
+    and counts it in ``FLASH_BWD_DQ.launches``; on a CPU tensor it runs
+    ``flash_bwd_reference``.
+    """
+    if q.device.type == "cpu":
+        return flash_bwd_reference(q, k, v, bias, seed, rate, do, lse, delta)[0]
+    dq = torch.empty_like(q)
+    _bwd_launch(FLASH_BWD_DQ, "flash_bwd_dq", q, k, v, bias, seed, rate,
+                do, lse, delta, dq, None, None, 0)
+    return dq
+
+
+class FlashAttention(torch.autograd.Function):
+    """O = dropout(softmax(q k^T / sqrt(D) + bias)) v over the kernels;
+    gradients for q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, seed, rate: float):
+        o, lse = flash_fwd(q, k, v, bias, seed, rate)
+        ctx.save_for_backward(q, k, v, bias, seed, o, lse)
+        ctx.rate = rate
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, seed, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        delta = (do * o).sum(dim=-1)
+        args = (q, k, v, bias, seed, ctx.rate, do, lse, delta)
+        if bwd_route(k.shape[2]) == "fused":
+            dq, dk, dv = flash_bwd_fused(*args)
+        else:
+            dk, dv = flash_bwd_dkv(*args)
+            dq = flash_bwd_dq(*args)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, bias: Optional[torch.Tensor] = None, *,
+                    dropout_rate: float = 0.0,
+                    dropout_seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Differentiable attention through the flash kernels (the plain
+    versions on CPU tensors); q (B, H, Tq, D), k and v (B, H, Tk, D), bias
+    (B, Tk) additive on the keys; ``dropout_seed`` an int64 tensor of one
+    element, required when ``dropout_rate > 0``."""
+    batch, heads, tq, d = q.shape
+    tk = k.shape[2]
+    if min(batch, heads, tq, tk, d) < 1:
+        raise ValueError(f"flash_attention: empty dimension in q{tuple(q.shape)} / "
+                         f"k{tuple(k.shape)}")
+    if bias is not None:
+        if tuple(bias.shape) != (batch, tk):
+            raise ValueError(f"flash_attention: bias shape {tuple(bias.shape)} != "
+                             f"(batch, Tk) = ({batch}, {tk})")
+        # a mask, not a parameter: no dbias is computed, so cut the edge
+        bias = bias.detach().to(torch.float32).contiguous()
+    rate = float(dropout_rate)
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout_rate {rate} not in [0, 1)")
+    if rate > 0.0 and dropout_seed is None:
+        raise ValueError("dropout_rate > 0 requires dropout_seed")
+    seed = dropout_seed if rate > 0.0 else None
+    return FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                                bias, seed, rate)

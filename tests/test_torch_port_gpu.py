@@ -408,3 +408,81 @@ def test_gru_rnn_trains_one_step_and_serves_on_the_card():
                                    atol=1e-4 * max(scale, 1.0), msg=n)
     with torch.no_grad():
         torch.testing.assert_close(served, cpu.eval()(x), rtol=1e-4, atol=1e-4)
+
+
+def _flash_case(dev, b, h, tq, tk, d, masked, seed):
+    rng = np.random.RandomState(seed)
+    q = torch.from_numpy(rng.randn(b, h, tq, d).astype(np.float32)).to(dev)
+    k, v = (torch.from_numpy(rng.randn(b, h, tk, d).astype(np.float32)).to(dev)
+            for _ in range(2))
+    bias = None
+    if masked:
+        keep = rng.rand(b, tk) > 0.25
+        keep[:, 0] = True
+        bias = torch.from_numpy(np.where(keep, 0.0, -1e9).astype(np.float32)).to(dev)
+    do = torch.from_numpy(rng.randn(b, h, tq, d).astype(np.float32)).to(dev)
+    return q, k, v, bias, do
+
+
+FLASH_SHAPES = [
+    # b, h, tq, tk, d, masked, rate
+    (1, 1, 1, 1, 64, False, 0.0),        # one query, one key
+    (2, 4, 77, 77, 40, True, 0.0),       # ragged tiles, padded head dim
+    (2, 2, 130, 130, 64, False, 0.1),    # dropout, three key tiles
+    (1, 2, 50, 300, 128, True, 0.2),     # cross attention, head dim 128
+    (32, 4, 372, 372, 64, False, 0.1),   # the encoder's shape
+    (3, 4, 512, 512, 64, True, 0.1),     # blockwise-fold blocks
+    (1, 2, 70, 1100, 32, True, 0.1),     # several key tiles per span
+]
+
+
+@pytest.mark.parametrize("b,h,tq,tk,d,masked,rate", FLASH_SHAPES)
+def test_flash_kernels_match_plain(b, h, tq, tk, d, masked, rate):
+    from multimodal_emotion_detection_tpu_torch.ops import flash_attention as fa
+
+    dev = _card()
+    q, k, v, bias, do = _flash_case(dev, b, h, tq, tk, d, masked, seed=tq + tk + d)
+    seed = torch.tensor([tq * 1000 + tk], dtype=torch.int64, device=dev)
+    before = fa.FLASH_FWD.launches
+    o, lse = fa.flash_fwd(q, k, v, bias, seed, rate)
+    torch.cuda.synchronize()
+    assert fa.FLASH_FWD.launches == before + 1
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, bias, seed, rate)
+    # float32 sums in another order than cuBLAS
+    torch.testing.assert_close(o, o_ref, rtol=1e-4, atol=1e-4, msg="O")
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-5, msg="LSE")
+
+    delta = (do * o_ref).sum(-1)
+    args = (q, k, v, bias, seed, rate, do, lse_ref, delta)
+    refs = fa.flash_bwd_reference(*args)
+    counters = (fa.FLASH_BWD_FUSED, fa.FLASH_BWD_DKV, fa.FLASH_BWD_DQ)
+    before = [c.launches for c in counters]
+    fused = fa.flash_bwd_fused(*args)
+    two_pass = (fa.flash_bwd_dq(*args), *fa.flash_bwd_dkv(*args))
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [1, 1, 1]
+    for form, outs in (("fused", fused), ("two-pass", two_pass)):
+        for name, g, r in zip(("dQ", "dK", "dV"), outs, refs):
+            # sums over up to Tq or Tk terms: relative 1e-4 of the largest
+            scale = float(r.abs().max())
+            torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4 * max(scale, 1.0),
+                                       msg=f"{form} {name}")
+
+
+def test_flash_attention_on_the_card_matches_the_cpu_with_one_seed():
+    from multimodal_emotion_detection_tpu_torch.ops import flash_attention as fa
+
+    dev = _card()
+    cpu = _flash_case(torch.device("cpu"), 2, 4, 200, 200, 64, True, seed=3)
+    seed = torch.tensor([2**45 + 3], dtype=torch.int64)
+
+    def run(tensors, s):
+        q, k, v = (t.clone().requires_grad_() for t in tensors[:3])
+        out = fa.flash_attention(q, k, v, tensors[3], dropout_rate=0.1, dropout_seed=s)
+        (out * tensors[4]).sum().backward()
+        return [out.detach().cpu()] + [t.grad.cpu() for t in (q, k, v)]
+
+    card = run([t.to(dev) if t is not None else None for t in cpu], seed.to(dev))
+    # the same Philox mask on both sides: the results agree to round-off
+    for name, g, r in zip(("O", "dQ", "dK", "dV"), card, run(cpu, seed)):
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4, msg=name)

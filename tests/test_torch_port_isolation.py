@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from multimodal_emotion_detection_tpu_torch.models.recurrent import FusedStackedRNN
+from multimodal_emotion_detection_tpu_torch.ops import flash_attention as fa
 from multimodal_emotion_detection_tpu_torch.ops import logmel, lstm_kernel
 from multimodal_emotion_detection_tpu_torch.ops.lstm_vjp import fused_lstm_final
 
@@ -39,7 +40,8 @@ COUNTERS = (logmel.LOGMEL, lstm_kernel.LSTM2_INFER, lstm_kernel.LSTM2_TRAIN_FWD,
             lstm_kernel.LSTM2_BWD_CHAIN, lstm_kernel.LSTM1_TRAIN_FWD,
             lstm_kernel.LSTM1_INFER, lstm_kernel.LSTM_BWD_CHAIN,
             lstm_kernel.GRU2_INFER, lstm_kernel.GRU2_TRAIN_FWD,
-            lstm_kernel.GRU2_BWD_CHAIN)
+            lstm_kernel.GRU2_BWD_CHAIN, fa.FLASH_FWD, fa.FLASH_BWD_FUSED,
+            fa.FLASH_BWD_DKV, fa.FLASH_BWD_DQ)
 
 
 def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
@@ -77,4 +79,11 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     assert all(p.grad is not None for p in gru.parameters())
     with torch.no_grad():
         assert gru.eval()(x).shape == (2, 8)
+    # flash attention, both backward routes
+    q = torch.from_numpy(rng.randn(2, 2, 5, 4).astype(np.float32)).requires_grad_()
+    seed = torch.tensor([7], dtype=torch.int64)
+    fa.flash_attention(q, q, q, dropout_rate=0.1, dropout_seed=seed).sum().backward()
+    args = (q.detach(), q.detach(), q.detach(), None, seed, 0.1, q.detach(),
+            torch.zeros(2, 2, 5), torch.zeros(2, 2, 5))
+    assert fa.flash_bwd_dkv(*args)[0].shape == fa.flash_bwd_dq(*args).shape
     assert [c.launches for c in COUNTERS] == [0] * len(COUNTERS)

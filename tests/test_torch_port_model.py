@@ -76,7 +76,10 @@ def test_classifier_logits_match_jax(jax_kernels):
     pytest.param(["model.encoders.audio.encoder_type=gru",
                   "model.encoders.audio.num_layers=3"], "item 6",
                  id="model.encoders.audio.encoder_type=gru-item 6"),
-    ("model.encoders.audio.encoder_type=transformer", "item 8"),
+    # an encoder kind still outside the port; the id is the one this case
+    # had while the transformer was refused
+    pytest.param(["model.encoders.audio.encoder_type=cnn"], "item 8",
+                 id="model.encoders.audio.encoder_type=transformer-item 8"),
     ("model.encoders.audio.num_layers=1", "item 3"),
     ("model.train_fusion=library", "item 7"),
     ("runtime.compute_dtype=bfloat16", "item 13"),
