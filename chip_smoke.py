@@ -55,7 +55,19 @@
    kernel), card step against the CPU step, latency and profile; serves
    its ``best.ckpt`` (``[serve_gru]``: log-mel and gru2_infer once per
    batch), logits against the CPU forward, latency and profile.
-10. The transformer audio encoder config (``TRANSFORMER``: 2 post-LN
+10. The big sweep config with the GRU encoder (GRU 3x512, log-mel cached
+   per split; ``BIG_GRU``): ``[gru1_train_fwd]`` / ``[gru1_infer]`` hold
+   the one-layer GRU training forward and its eval form, ``[gru_bwd_chain]``
+   the one-layer GRU reverse chain (with and without ``dh_series``), against
+   their plain versions at B=32, T=372, H=512, with the whole 3-layer
+   gradient against autograd through the plain forward, and time them
+   beside cuDNN's GRU.  ``[train_big_gru]`` trains it as in 6 (3 training
+   forwards and 3 reverse chains per step, 3 eval-form launches per eval
+   batch, log-mel once per split, no 2-layer kernel), card step against
+   the CPU step, latency and profile; ``[serve_big_gru]`` serves its
+   ``best.ckpt`` (3 eval-form launches and 1 log-mel per batch), logits
+   against the CPU forward, latency and profile.
+11. The transformer audio encoder config (``TRANSFORMER``: 2 post-LN
    blocks h256, 4 heads, log-mel cached per split): ``[flash_fwd]`` /
    ``[flash_bwd]`` hold the flash forward and fused backward against their
    plain versions at the encoder's (32, 4, 372, 64) (dropout 0 and 0.1,
@@ -72,7 +84,7 @@
    Philox seeds replayed, latency and profile; ``[serve_tf]`` serves its
    ``best.ckpt`` (log-mel once and the flash forward twice per batch),
    logits against the CPU forward, latency and profile.
-11. Prints one JSON line describing every kernel, nvidia-smi's name and
+12. Prints one JSON line describing every kernel, nvidia-smi's name and
    power limit of the card, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -534,13 +546,14 @@ def phase_lstm2_bwd_chain(lstm_kernel, lstm_vjp, flush, inputs):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
 
-def _big_layer_inputs(seed: int):
+def _big_layer_inputs(seed: int, gates: int = 4):
     """One layer of the big sweep config at its training shape (B=32,
-    T=372, H=512): the layer-0 input (log-mel, D=64) and a deeper layer's
-    (D=512, an h series times a keep mask), both layers' w_ih and b, and
-    one w_hh."""
+    T=372, H=512) with ``gates`` gates (4 for the LSTM, 3 for the GRU): the
+    layer-0 input (log-mel, D=64) and a deeper layer's (D=512, an h series
+    times a keep mask), both layers' w_ih and input bias, and one w_hh."""
     dev = torch.device("cuda")
     b, t, h = 32, 372, 512
+    g = gates * h
     rng = np.random.RandomState(seed)
     k = 1.0 / np.sqrt(h)
 
@@ -549,8 +562,7 @@ def _big_layer_inputs(seed: int):
 
     x0 = torch.from_numpy(rng.randn(t, b, 64).astype(np.float32)).to(dev)
     x1 = u(t, b, h, lim=1.0)
-    return {"D=64": (x0, u(64, 4 * h), u(4 * h)),
-            "D=512": (x1, u(h, 4 * h), u(4 * h))}, u(h, 4 * h)
+    return {"D=64": (x0, u(64, g), u(g)), "D=512": (x1, u(h, g), u(g))}, u(h, g)
 
 
 def phase_lstm1_train_fwd(lstm_kernel, flush):
@@ -741,12 +753,12 @@ def _gru_inputs(seed: int):
     return x_tm, keep, l0, l1
 
 
-def _cudnn_gru(*layers):
+def _cudnn_gru(*layers, batch_first: bool = True):
     """Yardstick only, never called by the port: cuDNN's GRU with the same
     layers' weights (torch keeps (3H, D) matrices; gate order r, z, n and
     b_hh inside the reset product, as the port's)."""
     d, h = layers[0]["w_ih"].shape[0], layers[0]["w_hh"].shape[0]
-    lib = torch.nn.GRU(d, h, num_layers=len(layers), batch_first=True).cuda()
+    lib = torch.nn.GRU(d, h, num_layers=len(layers), batch_first=batch_first).cuda()
     with torch.no_grad():
         for i, p in enumerate(layers):
             getattr(lib, f"weight_ih_l{i}").copy_(p["w_ih"].T)
@@ -926,6 +938,216 @@ def phase_gru2_bwd_chain(lstm_kernel, lstm_vjp, flush, inputs):
     return {"name": "gru2_bwd_chain", "route": "cuda",
             "source": "multimodal_emotion_detection_tpu_torch/csrc/gru2_bwd_chain.cu",
             "replaces": "multimodal_emotion_detection_tpu/ops/lstm_kernel.py:3053",
+            "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
+def phase_gru1_train_fwd(lstm_kernel, flush):
+    """``[gru1_train_fwd]`` (and ``[gru1_infer]``, its eval form): one GRU
+    layer of the big GRU config at B=32, T=372, H=512, layer-0 and deeper
+    inputs, against the plain versions; times beside cuDNN's GRU."""
+    inputs, w_hh = _big_layer_inputs(11, gates=3)
+    t, b, _ = inputs["D=64"][0].shape
+    h = w_hh.shape[0]
+    k = 1.0 / np.sqrt(h)
+    b_hh = torch.from_numpy(
+        np.random.RandomState(12).uniform(-k, k, 3 * h).astype(np.float32)).cuda()
+    errs, eval_errs = {}, {}
+    for label, (x, w_ih, b_ih) in inputs.items():
+        ih = torch.matmul(x, w_ih) + b_ih
+        outs = lstm_kernel.gru1_train_fwd(ih, w_hh, b_hh)
+        torch.cuda.synchronize()
+        refs = lstm_kernel.gru1_train_fwd_reference(ih, w_hh, b_hh)
+        for name, out, ref in zip(("gates", "h_prev", "h"), outs, refs):
+            errs[f"{name} {label}"] = max_errs(out, ref)[0]
+            torch.testing.assert_close(out, ref, rtol=0, atol=1e-4, msg=name)
+        for series in (True, False):
+            out = lstm_kernel.gru1_infer(ih, w_hh, b_hh, series)
+            torch.cuda.synchronize()
+            ref = lstm_kernel.gru1_infer_reference(ih, w_hh, b_hh, series)
+            eval_errs[f"{'series' if series else 'final'} {label}"] = max_errs(out, ref)[0]
+            torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
+    print(f"[gru1_train_fwd] B={b} T={t} H={h}, input D=64 and D=512: max abs "
+          "err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + " (bound 1e-4 abs)")
+    print("[gru1_infer] eval form: max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in eval_errs.items())
+          + " (bound 1e-4 abs)")
+
+    # timed at a deeper layer's shape; the input projection is outside
+    # the kernel on this route (one torch.matmul between launches)
+    x, w_ih, b_ih = inputs["D=512"]
+    ih = torch.matmul(x, w_ih) + b_ih
+    lib = _cudnn_gru({"w_ih": w_ih, "w_hh": w_hh, "b_ih": b_ih, "b_hh": b_hh},
+                     batch_first=False)
+
+    def run_lib_train():
+        lib(x)  # training forward with autograd: saves what backward needs
+
+    def run_lib_eval():
+        with torch.no_grad():
+            lib(x)
+
+    ms = device_ms(lambda: lstm_kernel.gru1_train_fwd(ih, w_hh, b_hh), flush)
+    plain_ms = device_ms(
+        lambda: lstm_kernel.gru1_train_fwd_reference(ih, w_hh, b_hh), flush, reps=5)
+    library_ms = device_ms(run_lib_train, flush)
+    eval_ms = device_ms(lambda: lstm_kernel.gru1_infer(ih, w_hh, b_hh, True), flush)
+    eval_final_ms = device_ms(lambda: lstm_kernel.gru1_infer(ih, w_hh, b_hh, False),
+                              flush)
+    eval_plain_ms = device_ms(
+        lambda: lstm_kernel.gru1_infer_reference(ih, w_hh, b_hh, True), flush, reps=5)
+    eval_library_ms = device_ms(run_lib_eval, flush)
+    flops = 2 * b * t * h * 3 * h
+    # ih, w_hh and b_hh read; gates (4H), h_prev and the final h written
+    nbytes = 4 * (t * b * 3 * h + h * 3 * h + 3 * h + t * b * 5 * h + b * h)
+    bound_ms, bound_by = bound(flops, nbytes)
+    # ih, w_hh and b_hh read; the h series written
+    eval_bytes = 4 * (t * b * 3 * h + h * 3 * h + 3 * h + t * b * h)
+    eval_bound_ms, eval_bound_by = bound(flops, eval_bytes)
+    print(f"[gru1_train_fwd] kernel {ms:.4f} ms (one cooperative launch, {t} "
+          f"grid barriers, {1e3 * ms / t:.3f} us per step), plain {plain_ms:.4f} "
+          f"ms, cuDNN nn.GRU({h}, {h}) training forward (input projection "
+          f"included) {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+          f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB incl. the residual stores)")
+    print(f"[gru1_infer] kernel {eval_ms:.4f} ms with the h series out, "
+          f"{eval_final_ms:.4f} ms final h only ({1e3 * eval_ms / t:.3f} us per "
+          f"step), plain {eval_plain_ms:.4f} ms, cuDNN nn.GRU({h}, {h}) "
+          f"inference forward {eval_library_ms:.4f} ms, bound {eval_bound_ms:.4f} ms "
+          f"({eval_bound_by}: {flops / 1e9:.3f} GFLOP, {eval_bytes / 1e6:.2f} MB)")
+    source = "multimodal_emotion_detection_tpu_torch/csrc/gru1_fwd.cu"
+    # no TPU kernel: it replaces the XLA scan the JAX package runs there
+    replaces = "multimodal_emotion_detection_tpu/ops/lstm_vjp.py:798"
+    train_kern = {"name": "gru1_train_fwd", "route": "cuda", "source": source,
+                  "replaces": replaces, "max_abs_err": max(errs.values()), "ms": ms,
+                  "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                  "library_ms": library_ms}
+    eval_kern = {"name": "gru1_infer", "route": "cuda", "source": source,
+                 "replaces": replaces, "max_abs_err": max(eval_errs.values()),
+                 "ms": eval_ms, "plain_ms": eval_plain_ms, "bound_ms": eval_bound_ms,
+                 "bound_by": eval_bound_by, "library_ms": eval_library_ms}
+    return train_kern, eval_kern, (inputs, w_hh, b_hh)
+
+
+def phase_gru_bwd_chain(lstm_kernel, lstm_vjp, flush, layer_inputs):
+    """``[gru_bwd_chain]``: one GRU layer's reverse chain at B=32, T=372,
+    H=512, with and without ``dh_series``, against the plain version; the
+    whole 3-layer ``LayeredGRUFinal`` gradient against autograd through the
+    plain forward; times beside cuDNN's GRU backward."""
+    inputs, w_hh, b_hh = layer_inputs
+    x, w_ih, b_ih = inputs["D=512"]
+    t, b, _ = x.shape
+    h = w_hh.shape[0]
+    gates, h_prev, _ = lstm_kernel.gru1_train_fwd_reference(
+        torch.matmul(x, w_ih) + b_ih, w_hh, b_hh)
+    rng = np.random.RandomState(13)
+    dhf = torch.from_numpy(rng.randn(b, h).astype(np.float32)).cuda()
+    dhs = torch.from_numpy(rng.randn(t, b, h).astype(np.float32)).cuda()
+    errs = {}
+    for label, series in (("dh_series given", dhs), ("dh_series None", None)):
+        outs = lstm_kernel.gru_bwd_chain(gates, h_prev, series, dhf, w_hh)
+        torch.cuda.synchronize()
+        refs = lstm_kernel.gru_bwd_chain_reference(gates, h_prev, series, dhf, w_hh)
+        for name, out, ref in zip(("dih", "dhn"), outs, refs):
+            errs[f"{name} {label}"] = max_errs(out, ref)[0]
+            torch.testing.assert_close(out, ref, rtol=0, atol=1e-4, msg=f"{name} {label}")
+    print(f"[gru_bwd_chain] B={b} T={t} H={h}: max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + " (bound 1e-4 abs)")
+
+    lib = _cudnn_gru({"w_ih": w_ih, "w_hh": w_hh, "b_ih": b_ih, "b_hh": b_hh},
+                     batch_first=False)
+    lib_params = list(lib.parameters())
+    h_lib = lib(x)[1][-1]
+
+    def run_lib_bwd():
+        torch.autograd.grad(h_lib, lib_params, dhf, retain_graph=True)
+
+    # a lower layer's chain (dh_series from the layer above), and the top
+    # layer's (none)
+    ms = device_ms(lambda: lstm_kernel.gru_bwd_chain(gates, h_prev, dhs, dhf, w_hh),
+                   flush)
+    top_ms = device_ms(lambda: lstm_kernel.gru_bwd_chain(gates, h_prev, None, dhf, w_hh),
+                       flush)
+    plain_ms = device_ms(
+        lambda: lstm_kernel.gru_bwd_chain_reference(gates, h_prev, dhs, dhf, w_hh),
+        flush, reps=5)
+    library_ms = device_ms(run_lib_bwd, flush)
+    flops = 2 * b * t * 3 * h * h
+    # gates (4H), h_prev, dh_series, dh_final and w_hh read; dih (3H) and
+    # dhn written
+    nbytes = 4 * (t * b * (4 * h + h + h + 3 * h + h) + b * h + h * 3 * h)
+    bound_ms, bound_by = bound(flops, nbytes)
+    print(f"[gru_bwd_chain] kernel {ms:.4f} ms with dh_series, {top_ms:.4f} ms "
+          f"without (one cooperative launch, {t} grid barriers, "
+          f"{1e3 * ms / t:.3f} us per step), plain {plain_ms:.4f} ms, cuDNN "
+          f"backward of h_n for nn.GRU({h}, {h}) {library_ms:.4f} ms (it also "
+          f"forms the weight gradients), bound {bound_ms:.4f} ms ({bound_by}: "
+          f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+
+    # the whole 3-layer recurrence gradient (3 forwards, 3 chains, the hops
+    # and the hoisted weight products): at dropout 0.1 against autograd
+    # through the plain forward, at keep=1 against cuDNN's 3-layer forward
+    # + backward on the same weights
+    x0 = inputs["D=64"][0].transpose(0, 1).contiguous()  # (B, T, 64)
+    d = x0.shape[2]
+    k = 1.0 / np.sqrt(h)
+    names = ("w_ih", "w_hh", "b_ih", "b_hh")
+    layers = [{name: torch.from_numpy(
+        rng.uniform(-k, k, shape).astype(np.float32)).cuda().requires_grad_()
+        for name, shape in (("w_ih", (d if i == 0 else h, 3 * h)), ("w_hh", (h, 3 * h)),
+                            ("b_ih", (3 * h,)), ("b_hh", (3 * h,)))}
+        for i in range(3)]
+    ours_params = [p[n] for p in layers for n in names]
+    keep = torch.from_numpy(
+        ((rng.rand(t, 2, b, h) < 0.9) / 0.9).astype(np.float32)).cuda()
+
+    def plain_final(keep_tm):
+        x_l = x0.transpose(0, 1)
+        for i, p in enumerate(layers):
+            _, hp, hf = lstm_kernel.gru1_train_fwd_reference(
+                x_l @ p["w_ih"] + p["b_ih"], p["w_hh"], p["b_hh"])
+            x_l = torch.cat([hp[1:], hf[None]])
+            if i < 2:
+                x_l = x_l * keep_tm[:, i]
+        return hf
+
+    g_ours = torch.autograd.grad(lstm_vjp.fused_gru_final(x0, keep, layers),
+                                 ours_params, dhf)
+    g_plain = torch.autograd.grad(plain_final(keep), ours_params, dhf)
+    grad_errs = _grad_close("LayeredGRUFinal", g_ours, g_plain,
+                            [f"layer_{i}.{n}" for i in range(3) for n in names])
+    worst = max(grad_errs, key=grad_errs.get)
+    print(f"[gru_bwd_chain] whole 3-layer gradient at dropout 0.1 vs autograd "
+          f"through the plain forward: max abs err {grad_errs[worst]:.3e} ({worst}; "
+          "bound 1e-4 of each tensor's largest entry)")
+    ones = torch.ones((t, 2, b, h), device="cuda")
+    lib3 = _cudnn_gru(*layers)
+    lib3_params = list(lib3.parameters())
+
+    def run_ours_grad():
+        out = lstm_vjp.fused_gru_final(x0, ones, layers)
+        return torch.autograd.grad(out, ours_params, dhf)
+
+    def run_lib_grad():
+        return torch.autograd.grad(lib3(x0)[1][-1], lib3_params, dhf)
+
+    g_ours, g_lib = run_ours_grad(), run_lib_grad()
+    # cuDNN keeps (3H, H) matrices: compare dW_hh of layer 2 (ours (H, 3H)),
+    # and db_hh of layer 2, whose n third differs from db_ih's
+    rel_err = float((g_ours[9] - g_lib[9].T).abs().max() / g_lib[9].abs().max())
+    bias_err = float((g_ours[11] - g_lib[11]).abs().max() / g_lib[11].abs().max())
+    whole_ms = device_ms(run_ours_grad, flush)
+    whole_lib_ms = device_ms(run_lib_grad, flush)
+    print(f"[gru_bwd_chain] whole 3-layer recurrence gradient at keep=1 (3 "
+          f"forwards + 3 reverse chains + hops + hoisted weight products) "
+          f"{whole_ms:.4f} ms vs cuDNN nn.GRU({d}, {h}, num_layers=3) forward + "
+          f"backward {whole_lib_ms:.4f} ms; dW_hh2 relative to cuDNN's "
+          f"{rel_err:.3e}, db_hh2 {bias_err:.3e}")
+    if not (rel_err < 1e-3 and bias_err < 1e-3):
+        raise RuntimeError("the layered GRU gradient disagrees with cuDNN's")
+    return {"name": "gru_bwd_chain", "route": "cuda",
+            "source": "multimodal_emotion_detection_tpu_torch/csrc/gru_bwd_chain.cu",
+            "replaces": "multimodal_emotion_detection_tpu/ops/lstm_kernel.py:1265",
             "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
@@ -1365,6 +1587,9 @@ BIG = ["model.frontend.audio=logmel", "model.frontend.cache=true",
 # cached per split): log-mel 64 -> GRU 2x256 -> Dense 128
 GRU = ["model.frontend.audio=logmel", "model.frontend.cache=true",
        "model.encoders.audio.encoder_type=gru"]
+# the big sweep config with the GRU encoder that configs/base.yaml:46
+# offers: log-mel 64 -> GRU 3x512 -> Dense 256, the one-layer GRU kernels
+BIG_GRU = BIG + ["model.encoders.audio.encoder_type=gru"]
 # the JAX package's transformer bench leg (bench.py's encoder="transformer"
 # at b32, log-mel cached per split; float32 here): log-mel 64 -> Dense 256
 # + positions -> 2 post-LN blocks (4 heads of 64, FFN 1024) -> mean -> 128
@@ -1376,7 +1601,9 @@ MAIN_PATH = {"logmel": "train", "lstm2_infer": "train", "lstm2_train_fwd": "trai
              "lstm2_bwd_chain": "train", "lstm1_train_fwd": "train_big",
              "lstm1_infer": "train_big", "lstm_bwd_chain": "train_big",
              "gru2_infer": "train_gru", "gru2_train_fwd": "train_gru",
-             "gru2_bwd_chain": "train_gru", "flash_fwd": "train_tf",
+             "gru2_bwd_chain": "train_gru", "gru1_train_fwd": "train_big_gru",
+             "gru1_infer": "train_big_gru", "gru_bwd_chain": "train_big_gru",
+             "flash_fwd": "train_tf",
              "flash_bwd_fused": "train_tf", "flash_bwd_dkv": "flash_long",
              "flash_bwd_dq": "flash_long"}
 
@@ -1406,7 +1633,7 @@ def main() -> None:
     reports = _build.build(["logmel", "lstm2_infer", "lstm2_train_fwd",
                             "lstm2_bwd_chain", "lstm1_fwd", "lstm_bwd_chain",
                             "gru2_infer", "gru2_train_fwd", "gru2_bwd_chain",
-                            "flash_fwd", "flash_bwd"])
+                            "gru1_fwd", "gru_bwd_chain", "flash_fwd", "flash_bwd"])
     print(f"[build] {time.perf_counter() - t0:.1f} s for {sorted(reports) or 'nothing (cached)'}")
     for src, log in reports.items():
         for line in log.splitlines():
@@ -1422,6 +1649,9 @@ def main() -> None:
                 "gru2_infer": lstm_kernel.GRU2_INFER,
                 "gru2_train_fwd": lstm_kernel.GRU2_TRAIN_FWD,
                 "gru2_bwd_chain": lstm_kernel.GRU2_BWD_CHAIN,
+                "gru1_train_fwd": lstm_kernel.GRU1_TRAIN_FWD,
+                "gru1_infer": lstm_kernel.GRU1_INFER,
+                "gru_bwd_chain": lstm_kernel.GRU_BWD_CHAIN,
                 "flash_fwd": fa.FLASH_FWD, "flash_bwd_fused": fa.FLASH_BWD_FUSED,
                 "flash_bwd_dkv": fa.FLASH_BWD_DKV, "flash_bwd_dq": fa.FLASH_BWD_DQ}
     flush = L2Flush()
@@ -1442,6 +1672,11 @@ def main() -> None:
     kernels["gru2_bwd_chain"] = phase_gru2_bwd_chain(lstm_kernel, lstm_vjp, flush,
                                                      gru_inputs)
     del gru_inputs
+    (kernels["gru1_train_fwd"], kernels["gru1_infer"],
+     gru_layer_inputs) = phase_gru1_train_fwd(lstm_kernel, flush)
+    kernels["gru_bwd_chain"] = phase_gru_bwd_chain(lstm_kernel, lstm_vjp, flush,
+                                                   gru_layer_inputs)
+    del gru_layer_inputs
     kernels["flash_fwd"], kernels["flash_bwd_fused"] = phase_flash(fa, flush)
     by_path["flash_long"], (kernels["flash_bwd_dkv"], kernels["flash_bwd_dq"]) = (
         phase_flash_long(fa, counters, flush))
@@ -1471,6 +1706,16 @@ def main() -> None:
         "serve_gru", counters, {"logmel": batches, "gru2_infer": batches},
         gru_run / "best.ckpt", gru_overrides, np.load(test / "audio.npy"),
         np.load(test / "video.npy"), WORK / "predictions_gru")
+    # the big config's depth with the GRU: 3 one-layer GRU launches per
+    # step, per eval batch and per served batch; the pair never
+    by_path["train_big_gru"], big_gru_run, big_gru_overrides = phase_train(
+        counters, "train_big_gru", BIG_GRU,
+        lambda steps, evals: {"logmel": cached, "gru1_train_fwd": 3 * steps,
+                              "gru_bwd_chain": 3 * steps, "gru1_infer": 3 * evals})
+    by_path["serve_big_gru"] = serve_path(
+        "serve_big_gru", counters, {"logmel": batches, "gru1_infer": 3 * batches},
+        big_gru_run / "best.ckpt", big_gru_overrides, np.load(test / "audio.npy"),
+        np.load(test / "video.npy"), WORK / "predictions_big_gru")
     # two blocks: one flash forward each per forward, one fused backward
     # each per train step
     by_path["train_tf"], tf_run, tf_overrides = phase_train(

@@ -1,7 +1,7 @@
 """Per-modality encoders of the ported slices (serving and training).
 
-* ``SequenceEncoder`` — the recurrent branch (an LSTM of 2 or more layers,
-  or a 2-layer GRU): final hidden state -> Linear projection; and the
+* ``SequenceEncoder`` — the recurrent branch (an LSTM or a GRU of any
+  depth): final hidden state -> Linear projection; and the
   transformer branch: Linear in-projection + learned positions -> post-LN
   ``TransformerBlock`` s (attention through the flash kernels) -> mean over
   time -> Linear projection;
@@ -130,9 +130,11 @@ class TransformerBlock(nn.Module):
 
 
 class SequenceEncoder(nn.Module):
-    """Time series (B, T, D) -> L-layer LSTM (L >= 2) or 2-layer GRU final
-    hidden, or L post-LN transformer blocks mean-pooled over time
-    (``encoder_type``) -> Linear."""
+    """Time series (B, T, D) -> L-layer LSTM or GRU final hidden, or L
+    post-LN transformer blocks mean-pooled over time (``encoder_type``) ->
+    Linear.  Up to ``MAX_FUSED_LEN`` steps the JAX package's fused and
+    layerwise recurrent modules (``fused``, depth 1) compute the same
+    function on the same parameter tree, so both run the same kernels."""
 
     # past this length the JAX package switches to the layerwise scan
     MAX_FUSED_LEN = 2048
@@ -191,12 +193,11 @@ class SequenceEncoder(nn.Module):
         if self.encoder_type == "transformer":
             return self.projection(self._transformer(sequence.to(torch.float32), noise))
         if sequence.shape[1] > self.MAX_FUSED_LEN:
-            kind = self.rnn.cell_type.upper()
-            item = 6 if kind == "GRU" else 3
             raise NotImplementedError(
                 f"sequence of {sequence.shape[1]} steps: the layerwise "
-                f"chunked-remat {kind} (StackedRNN, e.g. model.frontend.audio="
-                f"raw) is not ported yet (ROADMAP.md Queue 1 item {item})"
+                f"chunked-remat {self.rnn.cell_type.upper()} (StackedRNN, e.g. "
+                "model.frontend.audio=raw) is not ported yet (ROADMAP.md "
+                "Queue 1 item 3)"
             )
         return self.projection(self.rnn(sequence.to(torch.float32), noise))
 
@@ -253,8 +254,8 @@ def build_encoder(
     Same keys, defaults and heuristics as the JAX factory ('video'/'frames'
     -> frame, audio/imu/... -> sequence, else mlp; hidden_dim defaults to
     2*output_dim; dropout defaults to 0.1).  Route keys of the TPU build
-    (``scan_unroll``, ``inference_kernel``, ``use_flash``) are accepted and
-    do not route: the device does.
+    (``scan_unroll``, ``fused``, ``inference_kernel``, ``use_flash``) are
+    accepted and do not route: the device does.
     """
     cfg = dict(encoder_config or {})
     enc_type = cfg.pop("type", None)
@@ -292,12 +293,6 @@ def build_encoder(
             raise NotImplementedError(
                 f"model.encoders.{modality}.encoder_type={kind!r} is not "
                 "ported yet (ROADMAP.md Queue 1 item 8)"
-            )
-        if not cfg.pop("fused", True) and kind != "transformer":
-            item = 6 if kind == "gru" else 3
-            raise NotImplementedError(
-                f"model.encoders.{modality}.fused=false: the layerwise "
-                f"{kind.upper()} is not ported yet (ROADMAP.md Queue 1 item {item})"
             )
         return SequenceEncoder(
             input_dim=in_dim,

@@ -17,6 +17,7 @@ from torch import nn
 
 from multimodal_emotion_detection_tpu_torch.models.noise import Noise, keep_mask
 from multimodal_emotion_detection_tpu_torch.ops.lstm_kernel import (
+    gru1_infer,
     gru2_infer,
     lstm1_infer,
     lstm2_infer,
@@ -56,24 +57,24 @@ class _CellParams(nn.Module):
 
 
 class FusedStackedRNN(nn.Module):
-    """L-layer LSTM (L >= 2) or 2-layer GRU returning the top layer's final
+    """L-layer LSTM or GRU (any L >= 1) returning the top layer's final
     hidden state (B, H).
 
-    LSTM: ``ops.lstm_vjp.lstm_route`` picks the kernels: the 2-layer ones
-    for 2 layers of H up to twice the card's SM count, one layer per launch
-    otherwise.  In eval mode the forward is ``lstm2_infer``, or per layer
-    the input projection and ``lstm1_infer`` (the h series into the next
-    layer, the final h out of the top one).  In training mode it is
-    ``ops.lstm_vjp.fused_lstm_final``.
+    ``ops.lstm_vjp.lstm_route`` (``gru_route`` for a GRU, the same rule)
+    picks the kernels: the 2-layer ones for 2 layers of H up to twice the
+    card's SM count, one layer per launch otherwise.  In eval mode the
+    forward is ``lstm2_infer`` / ``gru2_infer``, or per layer the input
+    projection and ``lstm1_infer`` / ``gru1_infer`` (the h series into the
+    next layer, the final h out of the top one).  In training mode it is
+    ``ops.lstm_vjp.fused_lstm_final`` / ``fused_gru_final``.  A GRU wider
+    than the one-layer kernels take (``ops.lstm_vjp.check_gru_stack``) is
+    refused.
 
-    GRU (``cell_type="gru"``): only the stacks the 2-layer GRU kernels take
-    (``ops.lstm_vjp.check_gru_stack``); eval runs ``gru2_infer``, training
-    ``ops.lstm_vjp.fused_gru_final``.
-
-    Training mode drops out between the layers: a keep mask Bernoulli(1 -
-    dropout) / (1 - dropout) of shape (T, L-1, B, H), one draw per step,
-    from ``noise`` (all ones at dropout 0).  Each op is the hand-written
-    kernel on the card and its plain version on the CPU.
+    Training mode drops out between the layers (not at depth 1, as the JAX
+    package): a keep mask Bernoulli(1 - dropout) / (1 - dropout) of shape
+    (T, L-1, B, H), one draw per step, from ``noise`` (all ones at dropout
+    0).  Each op is the hand-written kernel on the card and its plain
+    version on the CPU.
     """
 
     def __init__(self, in_dim: int, hidden_dim: int, num_layers: int = 2,
@@ -81,18 +82,14 @@ class FusedStackedRNN(nn.Module):
         super().__init__()
         if cell_type not in ("lstm", "gru"):
             raise ValueError(f"Unknown cell type {cell_type!r}")
+        if num_layers < 1:
+            raise ValueError(f"FusedStackedRNN needs a layer, got num_layers={num_layers}")
         if cell_type == "gru":
             # against an H100 here, as the CPU mirrors one; each forward
             # checks again against the card it runs on
-            check_gru_stack(num_layers, hidden_dim, H100_SMS)
-        if num_layers < 2:
-            raise NotImplementedError(
-                f"FusedStackedRNN with num_layers={num_layers}: a 1-layer "
-                "LSTM (StackedRNN / LSTMLayer) is not ported yet (ROADMAP.md "
-                "Queue 1 item 3)"
-            )
+            check_gru_stack(hidden_dim, H100_SMS)
         self.cell_type = cell_type
-        self.dropout = float(dropout)
+        self.dropout = float(dropout) if num_layers > 1 else 0.0
         self.num_layers = num_layers
         for layer in range(num_layers):
             self.add_module(f"layer_{layer}", _CellParams(
@@ -104,15 +101,20 @@ class FusedStackedRNN(nn.Module):
         h_dim = layers[0]["w_hh"].shape[0]
         gru = self.cell_type == "gru"
         if not self.training:
+            sms = sm_count(x.device)
             if gru:
-                check_gru_stack(self.num_layers, h_dim, sm_count(x.device))
-                return gru2_infer(x, *layers)
-            if lstm_route(self.num_layers, h_dim, sm_count(x.device)) == "pair":
-                return lstm2_infer(x, *layers)
+                check_gru_stack(h_dim, sms)
+            if lstm_route(self.num_layers, h_dim, sms) == "pair":
+                return (gru2_infer if gru else lstm2_infer)(x, *layers)
             x_l = x.to(torch.float32).transpose(0, 1)
             for i, p in enumerate(layers):
-                x_l = lstm1_infer(torch.matmul(x_l, p["w_ih"]) + p["b"],
-                                  p["w_hh"], want_series=i < self.num_layers - 1)
+                series = i < self.num_layers - 1
+                if gru:
+                    x_l = gru1_infer(torch.matmul(x_l, p["w_ih"]) + p["b_ih"],
+                                     p["w_hh"], p["b_hh"], want_series=series)
+                else:
+                    x_l = lstm1_infer(torch.matmul(x_l, p["w_ih"]) + p["b"],
+                                      p["w_hh"], want_series=series)
             return x_l
         shape = (x.shape[1], self.num_layers - 1, x.shape[0], h_dim)
         keep = keep_mask(noise, shape, self.dropout, x.device)

@@ -47,6 +47,16 @@ The GRU residual layout is the JAX package's too: ``packed`` (T, B, 8H) =
 ``h0_prev`` / ``h1_prev`` / ``x1`` (T, B, H) and ``finals`` (2, B, H) =
 ``[h0, h1]``.  Unlike the TPU kernels, exactly T steps run: there are no
 pad rows.
+
+One GRU layer per launch, any depth (H up to 8 times the SM count), the
+twins of the one-layer LSTM kernels:
+
+* ``gru1_train_fwd``: one layer's training forward over its hoisted input
+  projection, with its residuals ``gates`` (T, B, 4H) = ``[r | z | n |
+  hn]`` and ``h_prev`` (T, B, H); ``gru1_infer`` the same kernel source's
+  eval form (``csrc/gru1_fwd.cu``);
+* ``gru_bwd_chain``: one layer's reverse chain, emitting ``dih`` and the
+  ``dhn`` lane of ``dhh`` (``csrc/gru_bwd_chain.cu``).
 """
 
 from __future__ import annotations
@@ -400,13 +410,14 @@ LSTM_BWD_CHAIN = CudaKernel(
 )
 
 
-def _layer_shapes(name: str, ih: torch.Tensor, w_hh: torch.Tensor):
+def _layer_shapes(name: str, ih: torch.Tensor, w_hh: torch.Tensor, gates: int = 4):
     if ih.dim() != 3:
-        raise ValueError(f"{name}: ih has shape {tuple(ih.shape)}, expected (T, B, 4H)")
+        raise ValueError(
+            f"{name}: ih has shape {tuple(ih.shape)}, expected (T, B, {gates}H)")
     t_len, batch, _ = ih.shape
     h_dim = w_hh.shape[0]
-    _check_shapes(name, ih=(ih, (t_len, batch, 4 * h_dim)),
-                  w_hh=(w_hh, (h_dim, 4 * h_dim)))
+    _check_shapes(name, ih=(ih, (t_len, batch, gates * h_dim)),
+                  w_hh=(w_hh, (h_dim, gates * h_dim)))
     if t_len < 1 or batch < 1:
         raise ValueError(f"{name}: empty input of shape {tuple(ih.shape)}")
     return t_len, batch, h_dim
@@ -744,3 +755,176 @@ def gru2_bwd_chain(packed: torch.Tensor, h0p: torch.Tensor, h1p: torch.Tensor,
         batch, t_len, h_dim, stream_of(packed),
     )
     return dih0, dhn0, dih1, dhn1
+
+
+# ---------------------------------------------------------------------------
+# GRU, one layer per launch: training forward, its eval form, reverse chain
+# ---------------------------------------------------------------------------
+
+
+def gru1_train_fwd_reference(ih: torch.Tensor, w_hh: torch.Tensor,
+                             b_hh: torch.Tensor):
+    """Plain version of one GRU layer's training forward.
+
+    ih (T, B, 3H) the hoisted input projection ``x @ w_ih + b_ih`` ->
+    ``(gates (T, B, 4H) = [r | z | n | hn], h_prev (T, B, H), h (B, H))``:
+    the gate activations and ``hn = h_prev w_hn + b_hn`` of each step, the
+    state before each step, from zero state, and the final h.
+    Differentiable, so autograd through it is a plain reference for the
+    layered gradient.
+    """
+    batch, h_dim = ih.shape[1], w_hh.shape[0]
+    h = ih.new_zeros((batch, h_dim))
+    gates, hps = [], []
+    for t in range(ih.shape[0]):
+        hps.append(h)
+        h, r, z, n, hn = _gru_step(h, ih[t], w_hh, b_hh)
+        gates.append(torch.cat([r, z, n, hn], dim=-1))
+    return torch.stack(gates), torch.stack(hps), h
+
+
+def gru1_infer_reference(ih: torch.Tensor, w_hh: torch.Tensor,
+                         b_hh: torch.Tensor, want_series: bool) -> torch.Tensor:
+    """Plain version of the eval form: the h series (T, B, H) after each
+    step, or only the final h (B, H)."""
+    _, h_prev, h = gru1_train_fwd_reference(ih, w_hh, b_hh)
+    return h_series(h_prev, h) if want_series else h
+
+
+def gru_bwd_chain_reference(gates: torch.Tensor, h_prev: torch.Tensor,
+                            dh_series, dh_final: torch.Tensor,
+                            w_hh: torch.Tensor):
+    """Plain version of one GRU layer's reverse chain: ``(dih (T, B, 3H),
+    dhn (T, B, H))``.
+
+    Walks t = T-1 .. 0 with the carry dh (``dh_final`` at the start):
+    ``dh_t = dh + dh_series[t]``, the cell backward, ``dh = dh_t z +
+    [dih[:, :2H] | dhn] w_hh^T``.  ``dhh = [dih[:, :2H] | dhn]`` shares its
+    first 2H lanes with ``dih``, so only its n lane is returned.
+    ``dh_series=None`` means zeros (the top layer of a final-hidden-only
+    stack).
+    """
+    h_dim = w_hh.shape[0]
+    dh = dh_final.to(torch.float32)
+    dihs, dhns = [], []
+    for t in reversed(range(gates.shape[0])):
+        dh_t = dh if dh_series is None else dh + dh_series[t]
+        dih, dhn, direct = _gru_cell_bwd(dh_t, h_prev[t], *gates[t].split(h_dim, dim=-1))
+        dh = direct + torch.cat([dih[:, :2 * h_dim], dhn], dim=-1) @ w_hh.T
+        dihs.append(dih)
+        dhns.append(dhn)
+    return torch.stack(dihs[::-1]), torch.stack(dhns[::-1])
+
+
+GRU1_TRAIN_FWD = CudaKernel(
+    "gru1_fwd", "gru1_fwd_train_launch",
+    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+)
+GRU1_INFER = CudaKernel(
+    "gru1_fwd", "gru1_fwd_infer_launch",
+    [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+)
+GRU_BWD_CHAIN = CudaKernel(
+    "gru_bwd_chain", "gru_bwd_chain_launch",
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+)
+
+
+def _gru_layer(name: str, ih: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor):
+    """Shape-checked, contiguous (ih, w_hh, b_hh) and (T, B, H)."""
+    t_len, batch, h_dim = _layer_shapes(name, ih, w_hh, gates=3)
+    _check_shapes(name, b_hh=(b_hh, (3 * h_dim,)))
+    return (ih.contiguous(), w_hh.contiguous(), b_hh.contiguous()), (t_len, batch, h_dim)
+
+
+def gru1_train_fwd(ih: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor):
+    """One GRU layer's training forward: ih (T, B, 3H), w_hh (H, 3H), b_hh
+    (3H,) -> ``(gates, h_prev, h)``, all float32.
+
+    On a CUDA tensor this launches ``csrc/gru1_fwd.cu`` (one cooperative
+    launch for the whole sequence) and counts it in
+    ``GRU1_TRAIN_FWD.launches``; on a CPU tensor it runs
+    ``gru1_train_fwd_reference``.
+    """
+    if ih.device.type == "cpu":
+        return gru1_train_fwd_reference(ih, w_hh, b_hh)
+    (ih, w_hh, b_hh), (t_len, batch, h_dim) = _gru_layer("gru1_train_fwd", ih, w_hh, b_hh)
+    new = dict(dtype=torch.float32, device=ih.device)
+    gates = torch.empty((t_len, batch, 4 * h_dim), **new)
+    h_prev = torch.empty((t_len, batch, h_dim), **new)
+    h = torch.empty((batch, h_dim), **new)
+    check_cuda_f32("gru1_train_fwd", ih=ih, w_hh=w_hh, b_hh=b_hh)
+    GRU1_TRAIN_FWD(
+        ih.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), gates.data_ptr(),
+        h_prev.data_ptr(), h.data_ptr(), batch, t_len, h_dim, stream_of(ih),
+    )
+    return gates, h_prev, h
+
+
+def gru1_infer(ih: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
+               want_series: bool) -> torch.Tensor:
+    """Eval form of ``gru1_train_fwd``: ih (T, B, 3H) -> the h series
+    (T, B, H) (the next layer's input) or, with ``want_series`` false, the
+    final h (B, H).  It stores no gates.
+
+    On a CUDA tensor this launches ``csrc/gru1_fwd.cu``'s eval entry and
+    counts it in ``GRU1_INFER.launches``; on a CPU tensor it runs
+    ``gru1_infer_reference``.
+    """
+    if ih.device.type == "cpu":
+        return gru1_infer_reference(ih, w_hh, b_hh, want_series)
+    (ih, w_hh, b_hh), (t_len, batch, h_dim) = _gru_layer("gru1_infer", ih, w_hh, b_hh)
+    # the kernel's blocks exchange h through ``out``: the series itself,
+    # or two slots used in turn when only the final h is wanted
+    slots = t_len if want_series else 2
+    out = torch.empty((slots, batch, h_dim), dtype=torch.float32, device=ih.device)
+    check_cuda_f32("gru1_infer", ih=ih, w_hh=w_hh, b_hh=b_hh)
+    GRU1_INFER(ih.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), out.data_ptr(),
+               batch, t_len, h_dim, int(want_series), stream_of(ih))
+    return out if want_series else out[(t_len - 1) % 2]
+
+
+def gru_bwd_chain(gates: torch.Tensor, h_prev: torch.Tensor, dh_series,
+                  dh_final: torch.Tensor, w_hh: torch.Tensor):
+    """One GRU layer's reverse chain: ``(dih (T, B, 3H), dhn (T, B, H))``
+    float32.
+
+    ``gates`` (T, B, 4H) and ``h_prev`` (T, B, H) are ``gru1_train_fwd``'s
+    residuals, ``dh_series`` (T, B, H) the per-step cotangent from the layer
+    above (``None``: zeros, and the kernel reads nothing), ``dh_final``
+    (B, H) the final hidden state's.  On a CUDA tensor this launches
+    ``csrc/gru_bwd_chain.cu`` (one cooperative launch) and counts it in
+    ``GRU_BWD_CHAIN.launches``; on a CPU tensor it runs
+    ``gru_bwd_chain_reference``.
+    """
+    if gates.device.type == "cpu":
+        return gru_bwd_chain_reference(gates, h_prev, dh_series, dh_final, w_hh)
+    if gates.dim() != 3:
+        raise ValueError(
+            f"gru_bwd_chain: gates has shape {tuple(gates.shape)}, expected (T, B, 4H)")
+    t_len, batch, _ = gates.shape
+    h_dim = w_hh.shape[0]
+    series = (t_len, batch, h_dim)
+    dh = dh_final.to(torch.float32).contiguous()
+    gates, h_prev, w_hh = gates.contiguous(), h_prev.contiguous(), w_hh.contiguous()
+    shaped = dict(gates=(gates, (t_len, batch, 4 * h_dim)), h_prev=(h_prev, series),
+                  dh_final=(dh, (batch, h_dim)), w_hh=(w_hh, (h_dim, 3 * h_dim)))
+    tensors = dict(gates=gates, h_prev=h_prev, dh_final=dh, w_hh=w_hh)
+    if dh_series is not None:
+        dh_series = dh_series.to(torch.float32).contiguous()
+        shaped["dh_series"] = (dh_series, series)
+        tensors["dh_series"] = dh_series
+    _check_shapes("gru_bwd_chain", **shaped)
+    if t_len < 1 or batch < 1:
+        raise ValueError(f"gru_bwd_chain: empty residuals {tuple(gates.shape)}")
+    new = dict(dtype=torch.float32, device=gates.device)
+    dih = torch.empty((t_len, batch, 3 * h_dim), **new)
+    dhn = torch.empty(series, **new)
+    check_cuda_f32("gru_bwd_chain", **tensors)
+    GRU_BWD_CHAIN(
+        gates.data_ptr(), h_prev.data_ptr(),
+        dh_series.data_ptr() if dh_series is not None else None,
+        dh.data_ptr(), w_hh.data_ptr(), dih.data_ptr(), dhn.data_ptr(),
+        batch, t_len, h_dim, stream_of(gates),
+    )
+    return dih, dhn

@@ -21,11 +21,15 @@ flattened (T*B, .) series:
 
     dW_ih_l = x_l^T dg_l     dW_hh_l = h_prev_l^T dg_l     db_l = sum dg_l
 
-The GRU twin, ``FusedGRUFinal`` (2 layers, H up to twice the SM count;
-``fused_gru_final`` refuses other stacks), is the counterpart of the JAX
-package's residual-native GRU route: ``gru2_train_fwd_residuals``, then
-one ``gru2_bwd_chain`` launch, which emits ``dih`` and only the ``dhn``
-lane of ``dhh = [dih[:, :2H] | dhn]``, so
+The GRU twins, picked by ``gru_route`` (the same rule) in
+``fused_gru_final``, are the counterparts of the JAX package's GRU routes:
+``FusedGRUFinal`` (2 layers, H up to twice the SM count) runs
+``gru2_train_fwd_residuals``, then one ``gru2_bwd_chain`` launch;
+``LayeredGRUFinal`` (any depth and the wider layers, up to 8 units per SM)
+runs per layer the input projection and ``gru1_train_fwd``, backward
+top-down ``gru_bwd_chain`` and the hop ``(dih_l @ w_ih_l^T) *
+keep_{l-1}``.  Their chains emit ``dih`` and only the ``dhn`` lane of
+``dhh = [dih[:, :2H] | dhn]``, so
 
     dW_ih_l = x_l^T dih_l    dW_hh_l = h_prev_l^T [dih_l[:, :2H] | dhn_l]
     db_ih_l = sum dih_l      db_hh_l = [sum dih_l[:, :2H] | sum dhn_l]
@@ -43,8 +47,10 @@ import torch
 
 from multimodal_emotion_detection_tpu_torch.ops.lstm_kernel import (
     Params,
+    gru1_train_fwd,
     gru2_bwd_chain,
     gru2_train_fwd_residuals,
+    gru_bwd_chain,
     h_series,
     lstm1_train_fwd,
     lstm2_bwd_chain,
@@ -66,6 +72,10 @@ def lstm_route(num_layers: int, hidden: int, sm_count: int) -> str:
     if num_layers == 2 and hidden <= 2 * sm_count:
         return "pair"
     return "layered"
+
+
+# the GRU kernels come in the same two families with the same ceilings
+gru_route = lstm_route
 
 
 def sm_count(device: torch.device) -> int:
@@ -159,16 +169,28 @@ def fused_lstm_final(x: torch.Tensor, keep: torch.Tensor,
     return LayeredLSTMFinal.apply(x, keep, *weights)
 
 
-def check_gru_stack(num_layers: int, hidden: int, sm_count: int) -> None:
-    """Raise unless the 2-layer GRU kernels take the stack: 2 layers, at
-    most 2 hidden units per CTA of one CTA per SM."""
-    if num_layers != 2 or hidden > 2 * sm_count:
+def check_gru_stack(hidden: int, sm_count: int) -> None:
+    """Raise unless a GRU kernel takes layers of ``hidden`` units: the
+    one-layer kernels hold at most 8 hidden units per CTA of one CTA per
+    SM, and the 2-layer ones fewer."""
+    if hidden > 8 * sm_count:
         raise NotImplementedError(
-            f"a GRU of {num_layers} layers of {hidden} units: only 2 layers "
-            f"of at most {2 * sm_count} units are ported; the layered GRU "
-            "(GRULayer, one layer per launch) is not ported yet (ROADMAP.md "
-            "Queue 1 item 6)"
+            f"a GRU of {hidden} units: the GRU kernels take at most "
+            f"{8 * sm_count} on a card of {sm_count} SMs (ROADMAP.md Queue 2, "
+            "shape ceilings)"
         )
+
+
+def _gru_layer_grads(x_l, h_prev, dih, dhn):
+    """One GRU layer's hoisted weight gradients ``(dW_ih, dW_hh, db_ih,
+    db_hh)`` from its chain's ``dih`` and ``dhn`` (the shared-lane
+    assembly of ``dhh``)."""
+    h_dim = dhn.shape[-1]
+    dih_f, dhn_f, hp_t = _flat(dih), _flat(dhn), _flat(h_prev).T
+    db_ih = dih_f.sum(0)
+    return (_flat(x_l).T @ dih_f,
+            torch.cat([hp_t @ dih_f[:, :2 * h_dim], hp_t @ dhn_f], dim=1),
+            db_ih, torch.cat([db_ih[:2 * h_dim], dhn_f.sum(0)]))
 
 
 class FusedGRUFinal(torch.autograd.Function):
@@ -190,30 +212,66 @@ class FusedGRUFinal(torch.autograd.Function):
     def backward(ctx, dh_final):
         (x_tm, keep, packed, h0p, h1p, x1,
          w_ih0, w_hh0, w_ih1, w_hh1) = ctx.saved_tensors
-        h_dim = w_hh0.shape[0]
         dih0, dhn0, dih1, dhn1 = gru2_bwd_chain(packed, h0p, h1p, keep, dh_final,
                                                 w_hh0, w_hh1, w_ih1)
-
-        def layer_grads(x_l, h_prev, dih, dhn):
-            dih_f, dhn_f, hp_t = _flat(dih), _flat(dhn), _flat(h_prev).T
-            db_ih = dih_f.sum(0)
-            return (_flat(x_l).T @ dih_f,
-                    torch.cat([hp_t @ dih_f[:, :2 * h_dim], hp_t @ dhn_f], dim=1),
-                    db_ih, torch.cat([db_ih[:2 * h_dim], dhn_f.sum(0)]))
-
         dx = None
         if ctx.needs_input_grad[0]:
             dx = (dih0 @ w_ih0.T).transpose(0, 1)
-        return (dx, None, *layer_grads(x_tm, h0p, dih0, dhn0),
-                *layer_grads(x1, h1p, dih1, dhn1))
+        return (dx, None, *_gru_layer_grads(x_tm, h0p, dih0, dhn0),
+                *_gru_layer_grads(x1, h1p, dih1, dhn1))
+
+
+class LayeredGRUFinal(torch.autograd.Function):
+    """(x (B, T, D), keep (T, L-1, B, H), w_ih0, w_hh0, b_ih0, b_hh0, ...,
+    b_hh_{L-1}) -> final hidden state of the top layer (B, H)."""
+
+    @staticmethod
+    def forward(ctx, x, keep, *weights):
+        n_layers = len(weights) // 4
+        x_l = x.to(torch.float32).transpose(0, 1).contiguous()
+        residuals = []
+        for layer in range(n_layers):
+            w_ih, w_hh, b_ih, b_hh = weights[4 * layer:4 * layer + 4]
+            gates, h_prev, h = gru1_train_fwd(torch.matmul(x_l, w_ih) + b_ih,
+                                              w_hh, b_hh)
+            residuals += [x_l, gates, h_prev]
+            if layer < n_layers - 1:
+                x_l = h_series(h_prev, h) * keep[:, layer]
+        ctx.save_for_backward(keep, *residuals, *weights)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh_final):
+        keep, *saved = ctx.saved_tensors
+        n_layers = len(saved) // 7
+        residuals, weights = saved[:3 * n_layers], saved[3 * n_layers:]
+        dh_final = dh_final.to(torch.float32).contiguous()
+        grads = [None] * (4 * n_layers)
+        dh_series = None  # the top layer's per-step cotangent is zero
+        for layer in reversed(range(n_layers)):
+            x_l, gates, h_prev = residuals[3 * layer:3 * layer + 3]
+            w_ih, w_hh = weights[4 * layer], weights[4 * layer + 1]
+            dhf = dh_final if layer == n_layers - 1 else torch.zeros_like(dh_final)
+            dih, dhn = gru_bwd_chain(gates, h_prev, dh_series, dhf, w_hh)
+            grads[4 * layer:4 * layer + 4] = _gru_layer_grads(x_l, h_prev, dih, dhn)
+            if layer > 0:
+                dh_series = torch.matmul(dih, w_ih.T) * keep[:, layer - 1]
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.matmul(dih, weights[0].T).transpose(0, 1)
+        return (dx, None, *grads)
 
 
 def fused_gru_final(x: torch.Tensor, keep: torch.Tensor,
                     layers: Sequence[Params]) -> torch.Tensor:
     """x (B, T, D), keep (T, L-1, B, H) the inter-layer keep masks -> the
     top layer's final hidden state (B, H), differentiable in x and every
-    layer's parameters.  Only the stacks ``check_gru_stack`` passes are
-    taken; any other raises, on the CPU as on the card."""
-    check_gru_stack(len(layers), layers[0]["w_hh"].shape[0], sm_count(x.device))
+    layer's parameters.  The route is ``gru_route``'s; a width that
+    ``check_gru_stack`` refuses raises, on the CPU as on the card."""
+    h_dim = layers[0]["w_hh"].shape[0]
+    sms = sm_count(x.device)
+    check_gru_stack(h_dim, sms)
     weights = [p[name] for p in layers for name in ("w_ih", "w_hh", "b_ih", "b_hh")]
-    return FusedGRUFinal.apply(x, keep[:, 0], *weights)
+    if gru_route(len(layers), h_dim, sms) == "pair":
+        return FusedGRUFinal.apply(x, keep[:, 0], *weights)
+    return LayeredGRUFinal.apply(x, keep, *weights)

@@ -410,6 +410,147 @@ def test_gru_rnn_trains_one_step_and_serves_on_the_card():
         torch.testing.assert_close(served, cpu.eval()(x), rtol=1e-4, atol=1e-4)
 
 
+def _gru_layer_case(dev, b, t, h, seed):
+    """A GRU layer's hoisted input projection (T, B, 3H), w_hh and b_hh;
+    the r third of ih shifted down, so r sits away from 1."""
+    rng = np.random.RandomState(seed)
+    k = 1.0 / np.sqrt(h)
+    ih = rng.uniform(-1.0, 1.0, (t, b, 3 * h)).astype(np.float32)
+    ih[..., :h] -= 1.0
+    w_hh = rng.uniform(-k, k, (h, 3 * h)).astype(np.float32)
+    b_hh = rng.uniform(-k, k, (3 * h,)).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (ih, w_hh, b_hh))
+
+
+@pytest.mark.parametrize("b,t,h", LAYER_SHAPES)
+def test_gru1_fwd_kernels_match_plain(b, t, h):
+    dev = _card()
+    ih, w_hh, b_hh = _gru_layer_case(dev, b, t, h, seed=b * 1000 + t + h + 2)
+    before = lstm_kernel.GRU1_TRAIN_FWD.launches
+    outs = lstm_kernel.gru1_train_fwd(ih, w_hh, b_hh)
+    torch.cuda.synchronize()
+    assert lstm_kernel.GRU1_TRAIN_FWD.launches == before + 1
+    refs = lstm_kernel.gru1_train_fwd_reference(ih, w_hh, b_hh)
+    # float32 sums in another order than cuBLAS, carried through T steps
+    for name, out, ref in zip(("gates", "h_prev", "h"), outs, refs):
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4, msg=name)
+    for series in (True, False):
+        before = lstm_kernel.GRU1_INFER.launches
+        out = lstm_kernel.gru1_infer(ih, w_hh, b_hh, series)
+        torch.cuda.synchronize()
+        assert lstm_kernel.GRU1_INFER.launches == before + 1
+        ref = lstm_kernel.gru1_infer_reference(ih, w_hh, b_hh, series)
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4,
+                                   msg=f"eval form, series={series}")
+
+
+@pytest.mark.parametrize("b,t,h", LAYER_SHAPES)
+def test_gru_bwd_chain_kernel_matches_plain(b, t, h):
+    dev = _card()
+    ih, w_hh, b_hh = _gru_layer_case(dev, b, t, h, seed=b * 1000 + t + h + 3)
+    gates, h_prev, _ = lstm_kernel.gru1_train_fwd_reference(ih, w_hh, b_hh)
+    rng = np.random.RandomState(t + h + 1)
+    dhf = torch.from_numpy(rng.randn(b, h).astype(np.float32)).to(dev)
+    dhs = torch.from_numpy(rng.randn(t, b, h).astype(np.float32)).to(dev)
+    for series in (dhs, None):
+        before = lstm_kernel.GRU_BWD_CHAIN.launches
+        outs = lstm_kernel.gru_bwd_chain(gates, h_prev, series, dhf, w_hh)
+        torch.cuda.synchronize()
+        assert lstm_kernel.GRU_BWD_CHAIN.launches == before + 1
+        refs = lstm_kernel.gru_bwd_chain_reference(gates, h_prev, series, dhf, w_hh)
+        for name, out, ref in zip(("dih", "dhn"), outs, refs):
+            torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4,
+                                       msg=f"{name}, dh_series given: {series is not None}")
+
+
+@pytest.mark.parametrize("b,t,d,h", [(3, 40, 6, 64), (32, 372, 64, 512)])
+def test_layered_gru_grads_match_plain_autograd(b, t, d, h):
+    from multimodal_emotion_detection_tpu_torch.ops.lstm_vjp import (
+        fused_gru_final,
+    )
+
+    dev = _card()
+    rng = np.random.RandomState(b + h + 1)
+    k = 1.0 / np.sqrt(h)
+    names = ("w_ih", "w_hh", "b_ih", "b_hh")
+    layers = [{name: torch.from_numpy(
+        rng.uniform(-k, k, shape).astype(np.float32)).to(dev)
+        for name, shape in (("w_ih", (d if i == 0 else h, 3 * h)),
+                            ("w_hh", (h, 3 * h)), ("b_ih", (3 * h,)),
+                            ("b_hh", (3 * h,)))}
+        for i in range(3)]
+    x = torch.from_numpy(rng.randn(b, t, d).astype(np.float32)).to(dev)
+    keep = torch.from_numpy(
+        ((rng.rand(t, 2, b, h) < 0.9) / 0.9).astype(np.float32)).to(dev)
+    weight = torch.from_numpy(rng.randn(b, h).astype(np.float32)).to(dev)
+
+    def grads(fn):
+        xg = x.clone().requires_grad_()
+        ps = [{n: v.clone().requires_grad_() for n, v in p.items()} for p in layers]
+        (fn(xg, ps) * weight).sum().backward()
+        return [xg.grad] + [p[n].grad for p in ps for n in names]
+
+    def plain(xg, ps):
+        x_l = xg.transpose(0, 1)
+        for i, p in enumerate(ps):
+            _, hp, hf = lstm_kernel.gru1_train_fwd_reference(
+                x_l @ p["w_ih"] + p["b_ih"], p["w_hh"], p["b_hh"])
+            x_l = torch.cat([hp[1:], hf[None]])
+            if i < 2:
+                x_l = x_l * keep[:, i]
+        return hf
+
+    launches = (lstm_kernel.GRU1_TRAIN_FWD.launches, lstm_kernel.GRU_BWD_CHAIN.launches)
+    ours = grads(lambda xg, ps: fused_gru_final(xg, keep, ps))
+    assert (lstm_kernel.GRU1_TRAIN_FWD.launches,
+            lstm_kernel.GRU_BWD_CHAIN.launches) == (launches[0] + 3, launches[1] + 3)
+    for i, (g, r) in enumerate(zip(ours, grads(plain))):
+        # weight gradients sum T*B terms: relative 1e-4 of the largest
+        scale = float(r.abs().max())
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4 * max(scale, 1.0),
+                                   msg=f"gradient {i}")
+
+
+@pytest.mark.parametrize("num_layers", [1, 3])
+def test_layered_gru_trains_one_step_and_serves_on_the_card(num_layers):
+    from multimodal_emotion_detection_tpu_torch.models.noise import Noise
+    from multimodal_emotion_detection_tpu_torch.models.recurrent import (
+        FusedStackedRNN,
+    )
+
+    dev = _card()
+    b, t, d, h = 32, 372, 64, 512
+    rnn = FusedStackedRNN(d, h, num_layers=num_layers, dropout=0.1, cell_type="gru")
+    for i in range(num_layers):
+        getattr(rnn, f"layer_{i}").reset_parameters(torch.Generator().manual_seed(i))
+    x = torch.from_numpy(np.random.RandomState(7).randn(b, t, d).astype(np.float32))
+    counters = (lstm_kernel.GRU1_TRAIN_FWD, lstm_kernel.GRU_BWD_CHAIN,
+                lstm_kernel.GRU1_INFER, lstm_kernel.GRU2_TRAIN_FWD,
+                lstm_kernel.GRU2_INFER, lstm_kernel.LSTM1_TRAIN_FWD)
+    before = [c.launches for c in counters]
+    card = rnn.to(dev).train()
+    noise = Noise(torch.Generator(device=dev).manual_seed(0))
+    card(x.to(dev), noise).sum().backward()
+    grads = {n: p.grad.cpu() for n, p in card.named_parameters()}
+    card.eval()
+    with torch.no_grad():
+        served = card(x.to(dev)).cpu()
+    torch.cuda.synchronize()
+    n = num_layers
+    assert [c.launches - k for c, k in zip(counters, before)] == [n, n, n, 0, 0, 0]
+
+    cpu = rnn.cpu().train()
+    for p in cpu.parameters():
+        p.grad = None
+    cpu(x, Noise(replay=noise.drawn)).sum().backward()
+    for name, p in cpu.named_parameters():
+        scale = float(p.grad.abs().max())
+        torch.testing.assert_close(grads[name], p.grad, rtol=1e-4,
+                                   atol=1e-4 * max(scale, 1.0), msg=name)
+    with torch.no_grad():
+        torch.testing.assert_close(served, cpu.eval()(x), rtol=1e-4, atol=1e-4)
+
+
 def _flash_case(dev, b, h, tq, tk, d, masked, seed):
     rng = np.random.RandomState(seed)
     q = torch.from_numpy(rng.randn(b, h, tq, d).astype(np.float32)).to(dev)

@@ -3,7 +3,8 @@ package's Pallas kernels (interpret mode), ``fused_gru_final``'s value and
 gradients against ``jax.grad`` of JAX's ``fused_gru_final`` on both JAX
 routes (the residual-native kernel pair and the scan), the eval forward
 against JAX's ``FusedStackedRNN(cell_type="gru")`` on both its routes, the
-stacks the port refuses, and the CPU wrappers.
+stacks the pair does not take (the layered route's, against the plain
+loop), the width the port refuses, and the CPU wrappers.
 
 Inputs, weights and keep masks come from numpy seeds; JAX runs at matmul
 precision "highest".  The JAX kernels need H % 128 == 0 and B >= 8 and pad
@@ -35,6 +36,7 @@ from multimodal_emotion_detection_tpu_torch.models.noise import Noise
 from multimodal_emotion_detection_tpu_torch.models.recurrent import FusedStackedRNN
 from multimodal_emotion_detection_tpu_torch.ops import lstm_kernel
 from multimodal_emotion_detection_tpu_torch.ops.lstm_kernel import (
+    gru1_train_fwd_reference,
     gru2_bwd_chain,
     gru2_bwd_chain_reference,
     gru2_infer,
@@ -222,17 +224,60 @@ def _zero_gru(num_layers, h, d=4):
             for i in range(num_layers)]
 
 
+def _plain_stack(x, keep, layers):
+    """The final h of a GRU stack through the plain one-layer loop."""
+    x_l = x.transpose(0, 1)
+    for i, p in enumerate(layers):
+        _, hp, h = gru1_train_fwd_reference(x_l @ p["w_ih"] + p["b_ih"], p["w_hh"],
+                                            p["b_hh"])
+        x_l = torch.cat([hp[1:], h[None]])
+        if i < len(layers) - 1:
+            x_l = x_l * keep[:, i]
+    return h
+
+
 @pytest.mark.parametrize("num_layers,h", [(3, 8), (1, 8), (2, 384)],
                          ids=["depth3", "depth1", "h384"])
 def test_gru_stacks_the_kernels_do_not_take_raise(num_layers, h):
-    """Depth other than 2, or H above twice the SM count (the CPU mirrors
-    an H100's 132): refused on the CPU as on the card, by the module and by
-    the autograd route."""
-    with pytest.raises(NotImplementedError, match="item 6"):
-        FusedStackedRNN(4, h, num_layers=num_layers, cell_type="gru")
-    keep = torch.ones(3, max(num_layers - 1, 1), 2, h)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        fused_gru_final(torch.zeros(2, 3, 4), keep, _zero_gru(num_layers, h))
+    """Stacks the 2-layer kernels do not take (depth other than 2, or H
+    above twice the SM count; the CPU mirrors an H100's 132) were refused
+    until the layered route came: now they train and serve through it, the
+    same function as the plain one-layer loop, and launch nothing of the
+    2-layer pair on the CPU.  ``test_gru_wider_than_the_kernels_raises``
+    holds the one refusal left."""
+    gen = torch.Generator().manual_seed(num_layers + h)
+    rnn = FusedStackedRNN(4, h, num_layers=num_layers, dropout=0.1, cell_type="gru")
+    for i in range(num_layers):
+        getattr(rnn, f"layer_{i}").reset_parameters(gen)
+    x = torch.randn(2, 5, 4, generator=gen)
+    weight = torch.randn(2, h, generator=gen)
+    noise = Noise(torch.Generator().manual_seed(1))
+    (rnn(x, noise) * weight).sum().backward()
+    got = {n: p.grad for n, p in rnn.named_parameters()}
+    keep = noise.drawn[0] if num_layers > 1 else None
+    layers = [{k: v.detach().clone().requires_grad_()
+               for k, v in getattr(rnn, f"layer_{i}").as_dict().items()}
+              for i in range(num_layers)]
+    (_plain_stack(x, keep, layers) * weight).sum().backward()
+    for i, p in enumerate(layers):
+        for k, v in p.items():
+            torch.testing.assert_close(got[f"layer_{i}.{k}"], v.grad, rtol=1e-5,
+                                       atol=1e-6, msg=f"layer_{i}.{k}")
+    ones = torch.ones(5, max(num_layers - 1, 1), 2, h)
+    with torch.no_grad():
+        torch.testing.assert_close(rnn.eval()(x), _plain_stack(x, ones, layers),
+                                   rtol=1e-5, atol=1e-6)
+
+
+def test_gru_wider_than_the_kernels_raises():
+    """Above 8 hidden units per SM (1,056 on the H100) no GRU kernel takes
+    the layer: refused on the CPU as on the card, by the module and by the
+    autograd route."""
+    with pytest.raises(NotImplementedError, match="shape ceilings"):
+        FusedStackedRNN(4, 1064, num_layers=3, cell_type="gru")
+    with pytest.raises(NotImplementedError, match="shape ceilings"):
+        fused_gru_final(torch.zeros(2, 3, 4), torch.ones(3, 2, 2, 1064),
+                        _zero_gru(3, 1064))
 
 
 def test_cpu_wrappers_are_the_plain_versions_and_launch_nothing():

@@ -10,7 +10,10 @@ import torch
 from multimodal_emotion_detection_tpu_torch.models.recurrent import FusedStackedRNN
 from multimodal_emotion_detection_tpu_torch.ops import flash_attention as fa
 from multimodal_emotion_detection_tpu_torch.ops import logmel, lstm_kernel
-from multimodal_emotion_detection_tpu_torch.ops.lstm_vjp import fused_lstm_final
+from multimodal_emotion_detection_tpu_torch.ops.lstm_vjp import (
+    fused_gru_final,
+    fused_lstm_final,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "multimodal_emotion_detection_tpu"}
@@ -40,7 +43,8 @@ COUNTERS = (logmel.LOGMEL, lstm_kernel.LSTM2_INFER, lstm_kernel.LSTM2_TRAIN_FWD,
             lstm_kernel.LSTM2_BWD_CHAIN, lstm_kernel.LSTM1_TRAIN_FWD,
             lstm_kernel.LSTM1_INFER, lstm_kernel.LSTM_BWD_CHAIN,
             lstm_kernel.GRU2_INFER, lstm_kernel.GRU2_TRAIN_FWD,
-            lstm_kernel.GRU2_BWD_CHAIN, fa.FLASH_FWD, fa.FLASH_BWD_FUSED,
+            lstm_kernel.GRU2_BWD_CHAIN, lstm_kernel.GRU1_TRAIN_FWD,
+            lstm_kernel.GRU1_INFER, lstm_kernel.GRU_BWD_CHAIN, fa.FLASH_FWD, fa.FLASH_BWD_FUSED,
             fa.FLASH_BWD_DKV, fa.FLASH_BWD_DQ)
 
 
@@ -79,6 +83,14 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     assert all(p.grad is not None for p in gru.parameters())
     with torch.no_grad():
         assert gru.eval()(x).shape == (2, 8)
+    # the layered GRU (3 layers), training and eval
+    g3 = [{k: torch.randn(d if k == "w_ih" else 8, 24, generator=g).requires_grad_()
+           if k.startswith("w") else torch.randn(24, generator=g).requires_grad_()
+           for k in ("w_ih", "w_hh", "b_ih", "b_hh")} for d in (3, 8, 8)]
+    fused_gru_final(x, torch.ones(5, 2, 2, 8), g3).sum().backward()
+    assert all(p.grad is not None for layer in g3 for p in layer.values())
+    with torch.no_grad():
+        assert FusedStackedRNN(3, 8, num_layers=3, cell_type="gru").eval()(x).shape == (2, 8)
     # flash attention, both backward routes
     q = torch.from_numpy(rng.randn(2, 2, 5, 4).astype(np.float32)).requires_grad_()
     seed = torch.tensor([7], dtype=torch.int64)

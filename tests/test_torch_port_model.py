@@ -71,16 +71,19 @@ def test_classifier_logits_match_jax(jax_kernels):
 
 
 @pytest.mark.parametrize("override,item", [
-    # a GRU the 2-layer kernels do not take; the id is the one this case
+    # a GRU wider than every GRU kernel takes; the id is the one this case
     # had while every GRU was refused
     pytest.param(["model.encoders.audio.encoder_type=gru",
-                  "model.encoders.audio.num_layers=3"], "item 6",
+                  "model.encoders.audio.hidden_dim=1064"], "shape ceilings",
                  id="model.encoders.audio.encoder_type=gru-item 6"),
     # an encoder kind still outside the port; the id is the one this case
     # had while the transformer was refused
     pytest.param(["model.encoders.audio.encoder_type=cnn"], "item 8",
                  id="model.encoders.audio.encoder_type=transformer-item 8"),
-    ("model.encoders.audio.num_layers=1", "item 3"),
+    # the on-device video resize; the id is the one this case had while
+    # the one-layer LSTM was refused
+    pytest.param("model.frontend.video=resize", "item 12",
+                 id="model.encoders.audio.num_layers=1-item 3"),
     ("model.train_fusion=library", "item 7"),
     ("runtime.compute_dtype=bfloat16", "item 13"),
 ])
