@@ -23,7 +23,12 @@
    reverse dgates chain) against their plain versions at the flagship's
    training shape (B=32, T=372, D=64, H=256, keep mask at dropout 0.1) and
    times them beside cuDNN's LSTM forward and backward, and the whole
-   recurrence gradient beside cuDNN's forward + backward.
+   recurrence gradient beside cuDNN's forward + backward.  Then
+   ``[lstm2_bwd_chain_remat]`` does the same for the gate-rematerialising
+   pair (``runtime.lstm_remat_gates``: the forward's no-gates form, the
+   reverse chain that recomputes the gates), holds it against the
+   stored-gates pair on the same inputs, and times and measures the peak
+   memory of the whole recurrence gradient on both routes.
 6. Trains: writes synthetic train / val / test splits of 96 / 64 / 64
    full-width clips and runs the port's train CLI for 2 epochs at batch 32
    with seeded weights.  The launch counts are zeroed just before and read
@@ -33,6 +38,9 @@
    train step on the card is held against the same step on the CPU (plain
    versions, same batch and masks); then the train step's latency at batch
    32 (host clock) and its device time by kernel under torch.profiler.
+   ``[train_remat]`` does all of this again with
+   ``runtime.lstm_remat_gates=true``: the no-gates forward and the remat
+   chain once per train step, the stored-gates pair never.
 7. The big sweep config (LSTM 3x512, output 256, head 512, video 512,
    log-mel cached per split; ``BIG``): holds the single-layer training
    forward, its eval form and the single-layer reverse chain against their
@@ -544,6 +552,147 @@ def phase_lstm2_bwd_chain(lstm_kernel, lstm_vjp, flush, inputs):
             "replaces": "multimodal_emotion_detection_tpu/ops/lstm_kernel.py:2482",
             "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
+def phase_lstm2_remat(lstm_kernel, lstm_vjp, flush):
+    """``[lstm2_bwd_chain_remat]``: the gate-rematerialising pair at the
+    flagship's training shape (B=32, T=372, D=64, H=256, keep p=0.1).  The
+    no-gates training forward and the remat reverse chain against their
+    plain versions; the no-gates residuals against the stored-gates form's
+    (bit for bit) and the remat chain against the stored-gates chain on the
+    same forward (the recompute's rounding); times of both forms beside
+    cuDNN; the whole recurrence gradient and its peak memory on both
+    routes."""
+    x_tm, keep, l0, l1 = _lstm_train_inputs(8)
+    t, b, d = x_tm.shape
+    h = l0["w_hh"].shape[0]
+    names = ("packed", "h0_prev", "h1_prev", "x1", "finals")
+
+    def fwd(store_gates):
+        return lstm_kernel.lstm2_train_fwd_residuals(x_tm, keep, l0, l1,
+                                                     store_gates=store_gates)
+
+    outs = fwd(False)
+    torch.cuda.synchronize()
+    refs = lstm_kernel.lstm2_train_fwd_reference(x_tm, keep, l0, l1, store_gates=False)
+    fwd_errs = {}
+    for name, out, ref in zip(names, outs, refs):
+        fwd_errs[name] = max_errs(out, ref)[0]
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4, msg=name)
+    stored = fwd(True)
+    same = [torch.equal(o, s) for o, s in zip(outs, (stored[0][..., 8 * h:], *stored[1:]))]
+    print(f"[lstm2_train_fwd_nogates] B={b} T={t} D={d} H={h}, keep p=0.1: max abs "
+          "err " + ", ".join(f"{k} {v:.3e}" for k, v in fwd_errs.items())
+          + f" (bound 1e-4 abs + 1e-4 rel); equal to the stored-gates form's "
+          f"c_prev lanes and series bit for bit: {all(same)}")
+    if not all(same):
+        raise RuntimeError("the no-gates forward differs from the stored-gates form")
+
+    dh = torch.from_numpy(np.random.RandomState(9).randn(b, h).astype(np.float32)).cuda()
+    packed, h0p, h1p, x1 = outs[:4]
+    args = (packed, keep, x_tm, x1, h0p, h1p, dh, l0, l1)
+    dgs = lstm_kernel.lstm2_bwd_chain_remat(*args)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, out, ref in zip(("dg0", "dg1"), dgs,
+                              lstm_kernel.lstm2_bwd_chain_remat_reference(*args)):
+        errs[name] = max_errs(out, ref)[0]
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4, msg=name)
+    stored_args = (stored[0], keep, dh, l0["w_hh"], l1["w_hh"], l1["w_ih"])
+    dgs_stored = lstm_kernel.lstm2_bwd_chain(*stored_args)
+    vs_stored = {name: float((a - s).abs().max() / s.abs().max())
+                 for name, a, s in zip(("dg0", "dg1"), dgs, dgs_stored)}
+    print(f"[lstm2_bwd_chain_remat] B={b} T={t} D={d} H={h}: max abs err dg0 "
+          f"{errs['dg0']:.3e}, dg1 {errs['dg1']:.3e} (bound 1e-4 abs + 1e-4 rel); "
+          "against the stored-gates chain on the same forward (the recompute's "
+          "rounding, carried by the chain): max abs diff relative to the largest "
+          + ", ".join(f"{k} {v:.3e}" for k, v in vs_stored.items()))
+
+    lib = _cudnn_lstm(l0, l1)
+    x_bt = x_tm.transpose(0, 1).contiguous()
+    lib_params = list(lib.parameters())
+    h_lib = lib(x_bt)[1][0][-1]
+
+    def run_lib_bwd():
+        torch.autograd.grad(h_lib, lib_params, dh, retain_graph=True)
+
+    fwd_ms = device_ms(lambda: fwd(False), flush)
+    fwd_stored_ms = device_ms(lambda: fwd(True), flush)
+    fwd_plain_ms = device_ms(lambda: lstm_kernel.lstm2_train_fwd_reference(
+        x_tm, keep, l0, l1, store_gates=False), flush, reps=5)
+    fwd_lib_ms = device_ms(lambda: lib(x_bt), flush)
+    ms = device_ms(lambda: lstm_kernel.lstm2_bwd_chain_remat(*args), flush)
+    stored_ms = device_ms(lambda: lstm_kernel.lstm2_bwd_chain(*stored_args), flush)
+    plain_ms = device_ms(lambda: lstm_kernel.lstm2_bwd_chain_remat_reference(*args),
+                         flush, reps=5)
+    library_ms = device_ms(run_lib_bwd, flush)
+    # the forward as row 11 counts it (its layer-0 projection included),
+    # with 5H of residual stores per row instead of 13H
+    fwd_flops = 2 * b * t * (d * 4 * h + 3 * h * 4 * h)
+    fwd_bytes = 4 * (t * b * (d + h + 5 * h) + d * 4 * h + 3 * h * 4 * h
+                     + 2 * 4 * h + 4 * b * h)
+    fwd_bound_ms, fwd_bound_by = bound(fwd_flops, fwd_bytes)
+    # the chain's three products per step plus the recompute of g0 (D + H
+    # deep) and g1 (2H deep); packed, keep, x, x1, h0p, h1p, dh_final and the
+    # weights read, dg0 and dg1 written
+    flops = 2 * t * b * 4 * h * (3 * h + d + h + 2 * h)
+    nbytes = 4 * (t * b * (2 * h + h + d + 3 * h + 8 * h) + b * h
+                  + (d + 3 * h) * 4 * h + 2 * 4 * h)
+    bound_ms, bound_by = bound(flops, nbytes)
+    per, per_stored = 1e3 * ms / (t + 1), 1e3 * stored_ms / (t + 1)
+    print(f"[lstm2_train_fwd_nogates] kernel {fwd_ms:.4f} ms ({1e3 * fwd_ms / (t + 1):.3f} "
+          f"us per phase; the stored-gates form {fwd_stored_ms:.4f} ms), plain "
+          f"{fwd_plain_ms:.4f} ms, cuDNN nn.LSTM training forward at keep=1 "
+          f"{fwd_lib_ms:.4f} ms, bound {fwd_bound_ms:.4f} ms ({fwd_bound_by}: "
+          f"{fwd_flops / 1e9:.3f} GFLOP, {fwd_bytes / 1e6:.2f} MB incl. the residual stores)")
+    print(f"[lstm2_bwd_chain_remat] kernel {ms:.4f} ms (one cooperative launch, "
+          f"{t + 1} grid barriers, {per:.3f} us per phase; the stored-gates chain "
+          f"{stored_ms:.4f} ms, {per_stored:.3f} us per phase: the recompute costs "
+          f"{per - per_stored:.3f} us per phase), plain {plain_ms:.4f} ms, cuDNN "
+          f"backward of h_n at keep=1 {library_ms:.4f} ms (it also forms the weight "
+          f"gradients), bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP, "
+          f"{nbytes / 1e6:.2f} MB)")
+
+    # the whole recurrence gradient at keep=1 on both routes: time, peak
+    # memory (the residuals live from the forward to the backward)
+    ones = torch.ones_like(keep)
+    p0 = {k: v.clone().requires_grad_() for k, v in l0.items()}
+    p1 = {k: v.clone().requires_grad_() for k, v in l1.items()}
+    params = [*p0.values(), *p1.values()]
+
+    def run_grad(remat):
+        out = lstm_vjp.fused_lstm_final(x_bt, ones[:, None], (p0, p1), remat_gates=remat)
+        return torch.autograd.grad(out, params, dh)
+
+    whole = {}
+    for remat in (True, False):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        grads = run_grad(remat)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e6
+        whole[remat] = (grads, peak, device_ms(lambda: run_grad(remat), flush))
+    grad_diff = max(float((a - s).abs().max() / s.abs().max())
+                    for a, s in zip(whole[True][0], whole[False][0]))
+    print(f"[lstm2_bwd_chain_remat] whole recurrence gradient at keep=1: remat "
+          f"{whole[True][2]:.4f} ms, peak {whole[True][1]:.2f} MB above the inputs; "
+          f"stored gates {whole[False][2]:.4f} ms, peak {whole[False][1]:.2f} MB; "
+          f"gradients differ by {grad_diff:.3e} of each tensor's largest")
+    if not grad_diff < 1e-3:
+        raise RuntimeError("the remat route's gradient disagrees with the stored-gates route's")
+    src = "multimodal_emotion_detection_tpu_torch/csrc/"
+    return ({"name": "lstm2_train_fwd_nogates", "route": "cuda",
+             "source": src + "lstm2_train_fwd.cu",
+             "replaces": "multimodal_emotion_detection_tpu/ops/lstm_kernel.py:2270",
+             "max_abs_err": max(fwd_errs.values()), "ms": fwd_ms,
+             "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound_ms,
+             "bound_by": fwd_bound_by, "library_ms": fwd_lib_ms},
+            {"name": "lstm2_bwd_chain_remat", "route": "cuda",
+             "source": src + "lstm2_bwd_chain_remat.cu",
+             "replaces": "multimodal_emotion_detection_tpu/ops/lstm_kernel.py:2687",
+             "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
 
 
 def _big_layer_inputs(seed: int, gates: int = 4):
@@ -1598,7 +1747,8 @@ TRANSFORMER = ["model.frontend.audio=logmel", "model.frontend.cache=true",
 # the path whose run gives each kernel's "launches": the training path of
 # the slice that ported it
 MAIN_PATH = {"logmel": "train", "lstm2_infer": "train", "lstm2_train_fwd": "train",
-             "lstm2_bwd_chain": "train", "lstm1_train_fwd": "train_big",
+             "lstm2_bwd_chain": "train", "lstm2_train_fwd_nogates": "train_remat",
+             "lstm2_bwd_chain_remat": "train_remat", "lstm1_train_fwd": "train_big",
              "lstm1_infer": "train_big", "lstm_bwd_chain": "train_big",
              "gru2_infer": "train_gru", "gru2_train_fwd": "train_gru",
              "gru2_bwd_chain": "train_gru", "gru1_train_fwd": "train_big_gru",
@@ -1631,7 +1781,8 @@ def main() -> None:
 
     t0 = time.perf_counter()
     reports = _build.build(["logmel", "lstm2_infer", "lstm2_train_fwd",
-                            "lstm2_bwd_chain", "lstm1_fwd", "lstm_bwd_chain",
+                            "lstm2_bwd_chain", "lstm2_bwd_chain_remat",
+                            "lstm1_fwd", "lstm_bwd_chain",
                             "gru2_infer", "gru2_train_fwd", "gru2_bwd_chain",
                             "gru1_fwd", "gru_bwd_chain", "flash_fwd", "flash_bwd"])
     print(f"[build] {time.perf_counter() - t0:.1f} s for {sorted(reports) or 'nothing (cached)'}")
@@ -1643,6 +1794,8 @@ def main() -> None:
     counters = {"logmel": logmel.LOGMEL, "lstm2_infer": lstm_kernel.LSTM2_INFER,
                 "lstm2_train_fwd": lstm_kernel.LSTM2_TRAIN_FWD,
                 "lstm2_bwd_chain": lstm_kernel.LSTM2_BWD_CHAIN,
+                "lstm2_train_fwd_nogates": lstm_kernel.LSTM2_TRAIN_FWD_NOGATES,
+                "lstm2_bwd_chain_remat": lstm_kernel.LSTM2_BWD_CHAIN_REMAT,
                 "lstm1_train_fwd": lstm_kernel.LSTM1_TRAIN_FWD,
                 "lstm1_infer": lstm_kernel.LSTM1_INFER,
                 "lstm_bwd_chain": lstm_kernel.LSTM_BWD_CHAIN,
@@ -1662,6 +1815,8 @@ def main() -> None:
     kernels["lstm2_bwd_chain"] = phase_lstm2_bwd_chain(lstm_kernel, lstm_vjp, flush,
                                                        train_inputs)
     del train_inputs
+    kernels["lstm2_train_fwd_nogates"], kernels["lstm2_bwd_chain_remat"] = (
+        phase_lstm2_remat(lstm_kernel, lstm_vjp, flush))
     (kernels["lstm1_train_fwd"], kernels["lstm1_infer"],
      layer_inputs) = phase_lstm1_train_fwd(lstm_kernel, flush)
     kernels["lstm_bwd_chain"] = phase_lstm_bwd_chain(lstm_kernel, lstm_vjp, flush,
@@ -1686,6 +1841,14 @@ def main() -> None:
         counters, "train", ["model.frontend.audio=logmel"],
         lambda steps, evals: {"logmel": steps + evals, "lstm2_infer": evals,
                               "lstm2_train_fwd": steps, "lstm2_bwd_chain": steps})[0]
+    # the flagship with its gates rematerialised: the no-gates forward and
+    # the remat chain per step, the stored-gates pair never
+    by_path["train_remat"] = phase_train(
+        counters, "train_remat", ["model.frontend.audio=logmel",
+                                  "runtime.lstm_remat_gates=true"],
+        lambda steps, evals: {"logmel": steps + evals, "lstm2_infer": evals,
+                              "lstm2_train_fwd_nogates": steps,
+                              "lstm2_bwd_chain_remat": steps})[0]
     # the big config caches log-mel once per split, in chunks
     cached = sum(-(-n // FRONTEND_CHUNK) for n in TRAIN_SPLITS.values())
     by_path["train_big"], big_run, big_overrides = phase_train(

@@ -12,7 +12,10 @@
 //   g1 = (x1 @ w_ih1 + b1) + h1 @ w_hh1      ; (h1, c1) = cell(g1, c1)
 //
 // and store what the backward consumes, in the JAX package's layout:
-//   packed[t]  (B, 10H) = [g0 | g1 | c0_prev | c1_prev]
+//   packed[t]  (B, 10H) = [g0 | g1 | c0_prev | c1_prev], or in the no-gates
+//              form (STORE_GATES false, lstm2_train_fwd_nogates_launch; for
+//              the reverse chain that recomputes the gates,
+//              lstm2_bwd_chain_remat.cu) (B, 2H) = [c0_prev | c1_prev]
 //   h0p[t], h1p[t] (B, H) = the state BEFORE step t;  x1[t] (B, H)
 //   finals (4, B, H) = [h0, c0, h1, c1] after step T-1.
 //
@@ -33,7 +36,8 @@
 // same phase, so no separate exchange buffer and no extra copy exist.  A
 // cell thread stores its unit's 4 gates and c_prev as single floats spread
 // over the 10H row: the stores are not coalesced, which L2 absorbs before
-// they reach device memory.  Exactly T steps run; any B >= 1.
+// they reach device memory; the no-gates form skips the 8H of gate stores.
+// Exactly T steps run; any B >= 1.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -84,7 +88,7 @@ __device__ __forceinline__ void load_tile(const float* src, float* tile,
   }
 }
 
-template <int UPC>
+template <int UPC, bool STORE_GATES>
 __global__ void __launch_bounds__(NT) lstm2_train_fwd_kernel(
     const float* __restrict__ ih0,    // (T, B, 4H)
     const float* __restrict__ keep,   // (T, B, H)
@@ -92,7 +96,7 @@ __global__ void __launch_bounds__(NT) lstm2_train_fwd_kernel(
     const float* __restrict__ w_ih1,  // (H, 4H)
     const float* __restrict__ b1,     // (4H)
     const float* __restrict__ w_hh1,  // (H, 4H)
-    float* packed,                    // (T, B, 10H) out
+    float* packed,                    // (T, B, 10H or 2H) out
     float* h0p,                       // (T, B, H) out, also the h0 exchange
     float* h1p,                       // (T, B, H) out, also the h1 exchange
     float* x1,                        // (T, B, H) out, also layer 1's input
@@ -103,7 +107,7 @@ __global__ void __launch_bounds__(NT) lstm2_train_fwd_kernel(
   extern __shared__ __align__(16) float smem[];
   const int H = hidden;
   const int H4 = 4 * H;
-  const int H10 = 10 * H;
+  const int PW = (STORE_GATES ? 10 : 2) * H;  // packed row width
   const int HP = H + 1;              // odd row stride: rows in distinct banks
   float* w0 = smem;                  // H * G
   float* wi1 = w0 + H * G;           // H * G
@@ -219,10 +223,14 @@ __global__ void __launch_bounds__(NT) lstm2_train_fwd_kernel(
         const float c = sigmoidf(g4[1]) * c_prev + sigmoidf(g4[0]) * tanhf(g4[2]);
         const float h = sigmoidf(g4[3]) * tanhf(c);
         c0s[cb * UPC + cu] = c;
-        float* pk = packed + ((size_t)p * batch + cb) * H10 + j;
+        float* pk = packed + ((size_t)p * batch + cb) * PW + j;
+        if (STORE_GATES) {
 #pragma unroll
-        for (int g = 0; g < 4; ++g) pk[g * H] = g4[g];
-        pk[8 * H] = c_prev;
+          for (int g = 0; g < 4; ++g) pk[g * H] = g4[g];
+          pk[8 * H] = c_prev;
+        } else {
+          pk[0] = c_prev;
+        }
         x1[(size_t)p * BH + o] = h * kv;
         if (p == 0) h0p[o] = 0.0f;
         if (p + 1 < t_len) {
@@ -249,10 +257,14 @@ __global__ void __launch_bounds__(NT) lstm2_train_fwd_kernel(
         const float c = sigmoidf(g4[1]) * c_prev + sigmoidf(g4[0]) * tanhf(g4[2]);
         const float h = sigmoidf(g4[3]) * tanhf(c);
         c1s[cb * UPC + cu] = c;
-        float* pk = packed + ((size_t)s * batch + cb) * H10 + j;
+        float* pk = packed + ((size_t)s * batch + cb) * PW + j;
+        if (STORE_GATES) {
 #pragma unroll
-        for (int g = 0; g < 4; ++g) pk[(4 + g) * H] = g4[g];
-        pk[9 * H] = c_prev;
+          for (int g = 0; g < 4; ++g) pk[(4 + g) * H] = g4[g];
+          pk[9 * H] = c_prev;
+        } else {
+          pk[H] = c_prev;
+        }
         if (s == 0) h1p[o] = 0.0f;
         if (s + 1 < t_len) {
           h1p[(size_t)(s + 1) * BH + o] = h;
@@ -266,7 +278,7 @@ __global__ void __launch_bounds__(NT) lstm2_train_fwd_kernel(
   }
 }
 
-template <int UPC>
+template <int UPC, bool STORE_GATES>
 int launch(const float* ih0, const float* keep, const float* w_hh0,
            const float* w_ih1, const float* b1, const float* w_hh1,
            float* packed, float* h0p, float* h1p, float* x1, float* finals,
@@ -277,7 +289,8 @@ int launch(const float* ih0, const float* keep, const float* w_hh0,
       (size_t)(3 * hidden * G + NW * 3 * G * ROWS + 3 * ROWS * (hidden + 1) +
                2 * batch * UPC) * sizeof(float);
   if (smem > (size_t)max_smem) return kUnsupported;
-  const void* fn = reinterpret_cast<const void*>(&lstm2_train_fwd_kernel<UPC>);
+  const void* fn =
+      reinterpret_cast<const void*>(&lstm2_train_fwd_kernel<UPC, STORE_GATES>);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -294,16 +307,14 @@ int launch(const float* ih0, const float* keep, const float* w_hh0,
   return cudaGetLastError();
 }
 
-}  // namespace
-
 // Units per CTA: the fewest that keep the grid within one CTA per SM, as in
 // lstm2_infer.cu.  UPC 1 and 2 cover H up to twice the SM count (264 on the
 // H100); larger H is refused as unsupported.
-extern "C" int lstm2_train_fwd_launch(
-    const float* ih0, const float* keep, const float* w_hh0,
-    const float* w_ih1, const float* b1, const float* w_hh1, float* packed,
-    float* h0p, float* h1p, float* x1, float* finals, int batch, int t_len,
-    int hidden, void* stream) {
+template <bool STORE_GATES>
+int dispatch(const float* ih0, const float* keep, const float* w_hh0,
+             const float* w_ih1, const float* b1, const float* w_hh1,
+             float* packed, float* h0p, float* h1p, float* x1, float* finals,
+             int batch, int t_len, int hidden, void* stream) {
   if (batch < 1 || t_len < 1 || hidden < 1 || hidden % 4 != 0) {
     return kUnsupported;
   }
@@ -316,14 +327,36 @@ extern "C" int lstm2_train_fwd_launch(
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
   const cudaStream_t s = (cudaStream_t)stream;
-#define LSTM2_TRY(U)                                                         \
-  if (hidden % (U) == 0 && hidden / (U) <= sms)                              \
-    return launch<U>(ih0, keep, w_hh0, w_ih1, b1, w_hh1, packed, h0p, h1p,   \
-                     x1, finals, batch, t_len, hidden, max_smem, s);
+#define LSTM2_TRY(U)                                                          \
+  if (hidden % (U) == 0 && hidden / (U) <= sms)                               \
+    return launch<U, STORE_GATES>(ih0, keep, w_hh0, w_ih1, b1, w_hh1, packed, \
+                                  h0p, h1p, x1, finals, batch, t_len, hidden, \
+                                  max_smem, s);
   LSTM2_TRY(1)
   LSTM2_TRY(2)
 #undef LSTM2_TRY
   return kUnsupported;
+}
+
+}  // namespace
+
+extern "C" int lstm2_train_fwd_launch(
+    const float* ih0, const float* keep, const float* w_hh0,
+    const float* w_ih1, const float* b1, const float* w_hh1, float* packed,
+    float* h0p, float* h1p, float* x1, float* finals, int batch, int t_len,
+    int hidden, void* stream) {
+  return dispatch<true>(ih0, keep, w_hh0, w_ih1, b1, w_hh1, packed, h0p, h1p,
+                        x1, finals, batch, t_len, hidden, stream);
+}
+
+// packed (T, B, 2H) = [c0_prev | c1_prev]: no gates
+extern "C" int lstm2_train_fwd_nogates_launch(
+    const float* ih0, const float* keep, const float* w_hh0,
+    const float* w_ih1, const float* b1, const float* w_hh1, float* packed,
+    float* h0p, float* h1p, float* x1, float* finals, int batch, int t_len,
+    int hidden, void* stream) {
+  return dispatch<false>(ih0, keep, w_hh0, w_ih1, b1, w_hh1, packed, h0p, h1p,
+                         x1, finals, batch, t_len, hidden, stream);
 }
 
 extern "C" const char* lstm2_train_fwd_error_string(int err) {

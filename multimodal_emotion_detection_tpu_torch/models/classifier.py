@@ -20,7 +20,10 @@ from torch import nn
 
 from multimodal_emotion_detection_tpu_torch.models.encoders import build_encoder
 from multimodal_emotion_detection_tpu_torch.models.noise import Noise
-from multimodal_emotion_detection_tpu_torch.models.recurrent import _CellParams
+from multimodal_emotion_detection_tpu_torch.models.recurrent import (
+    FusedStackedRNN,
+    _CellParams,
+)
 from multimodal_emotion_detection_tpu_torch.ops.logmel import (
     LogMelParams,
     log_mel_spectrogram,
@@ -178,7 +181,7 @@ def classifier_from_config(config) -> MultimodalClassifier:
             encoder_configs.setdefault("audio", {})["input_dim"] = width
         else:
             frontend = logmel_params_from_config(fe)
-    return MultimodalClassifier(
+    model = MultimodalClassifier(
         modalities=tuple(config.dataset.modalities),
         encoder_configs=encoder_configs,
         num_classes=config.dataset.num_classes,
@@ -189,3 +192,7 @@ def classifier_from_config(config) -> MultimodalClassifier:
         frontend_kind=fe.audio if fe.audio != "raw" else "logmel",
         frontend_n_mfcc=fe.n_mfcc,
     )
+    for module in model.modules():
+        if isinstance(module, FusedStackedRNN):
+            module.remat_gates = bool(config.runtime.lstm_remat_gates)
+    return model

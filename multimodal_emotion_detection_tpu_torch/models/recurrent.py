@@ -75,6 +75,11 @@ class FusedStackedRNN(nn.Module):
     (T, L-1, B, H), one draw per step, from ``noise`` (all ones at dropout
     0).  Each op is the hand-written kernel on the card and its plain
     version on the CPU.
+
+    ``remat_gates`` (set from ``runtime.lstm_remat_gates`` where the model
+    is built) makes the 2-layer LSTM pair's training route recompute its
+    gates in the backward instead of storing them; the layered LSTM, the
+    GRU and the eval forward ignore it, as in the JAX package.
     """
 
     def __init__(self, in_dim: int, hidden_dim: int, num_layers: int = 2,
@@ -89,6 +94,7 @@ class FusedStackedRNN(nn.Module):
             # checks again against the card it runs on
             check_gru_stack(hidden_dim, H100_SMS)
         self.cell_type = cell_type
+        self.remat_gates = False
         self.dropout = float(dropout) if num_layers > 1 else 0.0
         self.num_layers = num_layers
         for layer in range(num_layers):
@@ -118,4 +124,6 @@ class FusedStackedRNN(nn.Module):
             return x_l
         shape = (x.shape[1], self.num_layers - 1, x.shape[0], h_dim)
         keep = keep_mask(noise, shape, self.dropout, x.device)
-        return (fused_gru_final if gru else fused_lstm_final)(x, keep, layers)
+        if gru:
+            return fused_gru_final(x, keep, layers)
+        return fused_lstm_final(x, keep, layers, remat_gates=self.remat_gates)

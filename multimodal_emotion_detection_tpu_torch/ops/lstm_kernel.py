@@ -15,7 +15,13 @@ Two layers in one launch (H up to twice the SM count):
 * ``lstm2_train_fwd_residuals``: the training forward, time-major, with
   the residuals the backward consumes (``csrc/lstm2_train_fwd.cu``);
 * ``lstm2_bwd_chain``: the reverse dgates chain of both layers over those
-  residuals (``csrc/lstm2_bwd_chain.cu``).
+  residuals (``csrc/lstm2_bwd_chain.cu``);
+* ``lstm2_train_fwd_residuals(store_gates=False)`` and
+  ``lstm2_bwd_chain_remat``: the gate-rematerialising pair
+  (``runtime.lstm_remat_gates``).  The forward (the same source, its
+  no-gates form) stores only the cell states; the reverse chain
+  (``csrc/lstm2_bwd_chain_remat.cu``) recomputes each step's gate
+  pre-activations from the streamed x, h_prev and x1 series.
 
 One layer per launch, any depth (H up to at least 1024):
 
@@ -27,6 +33,7 @@ One layer per launch, any depth (H up to at least 1024):
 
 The 2-layer residual layout is the JAX package's: ``packed`` (T, B, 10H) =
 ``[g0 | g1 | c0_prev | c1_prev]`` at the ``RES2_*`` offsets (units of H),
+or (T, B, 2H) = ``[c0_prev | c1_prev]`` at the ``RES3_*`` ones without gates,
 ``h0_prev`` / ``h1_prev`` / ``x1`` (T, B, H) and ``finals`` (4, B, H) =
 ``[h0, c0, h1, c1]``; one layer's is ``g`` (T, B, 4H), ``h_prev`` and
 ``c_prev`` (T, B, H) and ``finals`` (B, 2H) = ``[h | c]``.
@@ -149,6 +156,8 @@ def lstm2_infer(x: torch.Tensor, layer0: Params, layer1: Params) -> torch.Tensor
 # ---------------------------------------------------------------------------
 
 RES2_G0, RES2_G1, RES2_C0P, RES2_C1P, RES2_W = 0, 4, 8, 9, 10
+# without the gates, which the remat chain recomputes
+RES3_C0P, RES3_C1P, RES3_W = 0, 1, 2
 
 
 def _cell_bwd(g: torch.Tensor, c_prev: torch.Tensor, dh: torch.Tensor,
@@ -169,13 +178,15 @@ def _cell_bwd(g: torch.Tensor, c_prev: torch.Tensor, dh: torch.Tensor,
 
 
 def lstm2_train_fwd_reference(x_tm: torch.Tensor, keep_tm: torch.Tensor,
-                              layer0: Params, layer1: Params):
+                              layer0: Params, layer1: Params,
+                              store_gates: bool = True):
     """Plain version of the training forward.
 
     x_tm (T, B, D) time-major, keep_tm (T, B, H) the layer-0 -> 1 keep
     mask -> ``(packed, h0_prev, h1_prev, x1, finals)`` in the module's
-    residual layout.  Differentiable, so autograd through it is a plain
-    reference for the kernel pair's gradients.
+    residual layout (``packed`` without the gates unless ``store_gates``).
+    Differentiable, so autograd through it is a plain reference for the
+    kernel pair's gradients.
     """
     ih0 = _input_projection(x_tm, layer0)
     keep = keep_tm.to(torch.float32)
@@ -188,7 +199,8 @@ def lstm2_train_fwd_reference(x_tm: torch.Tensor, keep_tm: torch.Tensor,
         x1 = h0n * keep[t]
         g1 = (x1 @ layer1["w_ih"] + layer1["b"]) + h1 @ layer1["w_hh"]
         h1n, c1n = _cell(c1, g1)
-        packed.append(torch.cat([g0, g1, c0, c1], dim=-1))
+        packed.append(torch.cat([g0, g1, c0, c1] if store_gates else [c0, c1],
+                                dim=-1))
         h0p.append(h0)
         h1p.append(h1)
         x1s.append(x1)
@@ -218,32 +230,84 @@ def lstm2_bwd_chain_reference(packed: torch.Tensor, keep_tm: torch.Tensor,
     """
     _refuse_dys(dys)
     h_dim = w_hh0.shape[0]
+
+    def step(t):
+        pk = packed[t]
+        return (pk[:, RES2_G0 * h_dim:RES2_G1 * h_dim],
+                pk[:, RES2_G1 * h_dim:RES2_C0P * h_dim],
+                pk[:, RES2_C0P * h_dim:RES2_C1P * h_dim],
+                pk[:, RES2_C1P * h_dim:RES2_W * h_dim])
+
+    return _lstm2_chain(packed.shape[0], step, keep_tm, dh_final, w_hh0,
+                        w_hh1, w_ih1)
+
+
+def _lstm2_chain(t_len: int, step, keep_tm: torch.Tensor, dh_final: torch.Tensor,
+                 w_hh0: torch.Tensor, w_hh1: torch.Tensor, w_ih1: torch.Tensor):
+    """The reverse walk both chains share; ``step(t)`` gives step t's
+    ``(g0, g1, c0_prev, c1_prev)``."""
     keep = keep_tm.to(torch.float32)
     dh1 = dh_final.to(torch.float32)
     dc1 = dh0 = dc0 = torch.zeros_like(dh1)
     dg0s, dg1s = [], []
-    for t in reversed(range(packed.shape[0])):
-        pk = packed[t]
-        dg1, dc1 = _cell_bwd(pk[:, RES2_G1 * h_dim:RES2_C0P * h_dim],
-                             pk[:, RES2_C1P * h_dim:RES2_W * h_dim], dh1, dc1)
+    for t in reversed(range(t_len)):
+        g0, g1, c0p, c1p = step(t)
+        dg1, dc1 = _cell_bwd(g1, c1p, dh1, dc1)
         dh1 = dg1 @ w_hh1.T
         dx1 = dg1 @ w_ih1.T
-        dg0, dc0 = _cell_bwd(pk[:, RES2_G0 * h_dim:RES2_G1 * h_dim],
-                             pk[:, RES2_C0P * h_dim:RES2_C1P * h_dim],
-                             dh0 + dx1 * keep[t], dc0)
+        dg0, dc0 = _cell_bwd(g0, c0p, dh0 + dx1 * keep[t], dc0)
         dh0 = dg0 @ w_hh0.T
         dg0s.append(dg0)
         dg1s.append(dg1)
     return torch.stack(dg0s[::-1]), torch.stack(dg1s[::-1])
 
 
+def lstm2_bwd_chain_remat_reference(packed: torch.Tensor, keep_tm: torch.Tensor,
+                                    x_tm: torch.Tensor, x1: torch.Tensor,
+                                    h0p: torch.Tensor, h1p: torch.Tensor,
+                                    dh_final: torch.Tensor, layer0: Params,
+                                    layer1: Params, dys=None):
+    """Plain version of the gate-rematerialising reverse chain: ``(dg0,
+    dg1)``, each (T, B, 4H), over ``packed`` (T, B, 2H) = ``[c0_prev |
+    c1_prev]``.
+
+    The chain of ``lstm2_bwd_chain_reference``, with each step's gate
+    pre-activations recomputed from the streamed series as the JAX kernel
+    forms them: ``g0 = (x w_ih0 + b0) + h0_prev w_hh0`` and ``g1 = [x1 |
+    h1_prev] [w_ih1; w_hh1] + b1``.
+    """
+    _refuse_dys(dys)
+    h_dim = layer0["w_hh"].shape[0]
+    w_xh1 = torch.cat([layer1["w_ih"], layer1["w_hh"]], dim=0)
+
+    def step(t):
+        pk = packed[t]
+        g0 = (x_tm[t].to(torch.float32) @ layer0["w_ih"] + layer0["b"]) \
+            + h0p[t] @ layer0["w_hh"]
+        g1 = torch.cat([x1[t], h1p[t]], dim=-1) @ w_xh1 + layer1["b"]
+        return (g0, g1, pk[:, RES3_C0P * h_dim:RES3_C1P * h_dim],
+                pk[:, RES3_C1P * h_dim:RES3_W * h_dim])
+
+    return _lstm2_chain(packed.shape[0], step, keep_tm, dh_final,
+                        layer0["w_hh"], layer1["w_hh"], layer1["w_ih"])
+
+
 LSTM2_TRAIN_FWD = CudaKernel(
     "lstm2_train_fwd", "lstm2_train_fwd_launch",
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+)
+# the same source's no-gates form, counted apart
+LSTM2_TRAIN_FWD_NOGATES = CudaKernel(
+    "lstm2_train_fwd", "lstm2_train_fwd_nogates_launch",
     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 )
 LSTM2_BWD_CHAIN = CudaKernel(
     "lstm2_bwd_chain", "lstm2_bwd_chain_launch",
     [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+)
+LSTM2_BWD_CHAIN_REMAT = CudaKernel(
+    "lstm2_bwd_chain_remat", "lstm2_bwd_chain_remat_launch",
+    [_P] * 15 + [_I, _I, _I, _I, _P],
 )
 
 
@@ -255,17 +319,21 @@ def _check_shapes(name: str, **shaped) -> None:
 
 
 def lstm2_train_fwd_residuals(x_tm: torch.Tensor, keep_tm: torch.Tensor,
-                              layer0: Params, layer1: Params):
+                              layer0: Params, layer1: Params,
+                              store_gates: bool = True):
     """Training forward: x_tm (T, B, D), keep_tm (T, B, H) ->
-    ``(packed, h0_prev, h1_prev, x1, finals)``, all float32.
+    ``(packed, h0_prev, h1_prev, x1, finals)``, all float32; ``packed`` is
+    (T, B, 10H), or (T, B, 2H) without the gates.
 
     On a CUDA tensor this launches ``csrc/lstm2_train_fwd.cu`` (one
     cooperative launch for the whole sequence) and counts it in
-    ``LSTM2_TRAIN_FWD.launches``; on a CPU tensor it runs
+    ``LSTM2_TRAIN_FWD.launches``, its no-gates form in
+    ``LSTM2_TRAIN_FWD_NOGATES.launches``; on a CPU tensor it runs
     ``lstm2_train_fwd_reference``.
     """
     if x_tm.device.type == "cpu":
-        return lstm2_train_fwd_reference(x_tm, keep_tm, layer0, layer1)
+        return lstm2_train_fwd_reference(x_tm, keep_tm, layer0, layer1,
+                                         store_gates=store_gates)
     t_len, batch, _ = x_tm.shape
     h_dim = layer0["w_hh"].shape[0]
     if t_len < 1 or batch < 1:
@@ -281,12 +349,13 @@ def lstm2_train_fwd_residuals(x_tm: torch.Tensor, keep_tm: torch.Tensor,
                   w_hh0=(w_hh0, square), w_ih1=(w_ih1, square),
                   b1=(b1, (4 * h_dim,)), w_hh1=(w_hh1, square))
     new = dict(dtype=torch.float32, device=x_tm.device)
-    packed = torch.empty((t_len, batch, RES2_W * h_dim), **new)
+    width = RES2_W if store_gates else RES3_W
+    packed = torch.empty((t_len, batch, width * h_dim), **new)
     h0p, h1p, x1 = (torch.empty((t_len, batch, h_dim), **new) for _ in range(3))
     finals = torch.empty((4, batch, h_dim), **new)
     check_cuda_f32("lstm2_train_fwd", ih0=ih0, keep=keep, w_hh0=w_hh0,
                    w_ih1=w_ih1, b1=b1, w_hh1=w_hh1)
-    LSTM2_TRAIN_FWD(
+    (LSTM2_TRAIN_FWD if store_gates else LSTM2_TRAIN_FWD_NOGATES)(
         ih0.data_ptr(), keep.data_ptr(), w_hh0.data_ptr(), w_ih1.data_ptr(),
         b1.data_ptr(), w_hh1.data_ptr(), packed.data_ptr(), h0p.data_ptr(),
         h1p.data_ptr(), x1.data_ptr(), finals.data_ptr(), batch, t_len,
@@ -330,6 +399,60 @@ def lstm2_bwd_chain(packed: torch.Tensor, keep_tm: torch.Tensor,
         packed.data_ptr(), keep.data_ptr(), dh.data_ptr(), w_hh0.data_ptr(),
         w_hh1.data_ptr(), w_ih1.data_ptr(), dg0.data_ptr(), dg1.data_ptr(),
         batch, t_len, h_dim, stream_of(packed),
+    )
+    return dg0, dg1
+
+
+def lstm2_bwd_chain_remat(packed: torch.Tensor, keep_tm: torch.Tensor,
+                          x_tm: torch.Tensor, x1: torch.Tensor, h0p: torch.Tensor,
+                          h1p: torch.Tensor, dh_final: torch.Tensor,
+                          layer0: Params, layer1: Params, dys=None):
+    """Gate-rematerialising reverse chain: ``(dg0, dg1)``, each (T, B, 4H)
+    float32, over the no-gates forward's ``packed`` (T, B, 2H), its
+    ``x1`` / ``h0p`` / ``h1p`` (T, B, H) and the raw layer-0 input ``x_tm``
+    (T, B, D).
+
+    On a CUDA tensor this launches ``csrc/lstm2_bwd_chain_remat.cu`` (one
+    cooperative launch) and counts it in ``LSTM2_BWD_CHAIN_REMAT.launches``;
+    on a CPU tensor it runs ``lstm2_bwd_chain_remat_reference``.  ``dys``
+    is not taken: it raises.
+    """
+    _refuse_dys(dys)
+    if packed.device.type == "cpu":
+        return lstm2_bwd_chain_remat_reference(packed, keep_tm, x_tm, x1, h0p,
+                                               h1p, dh_final, layer0, layer1)
+    t_len, batch, _ = packed.shape
+    h_dim = layer0["w_hh"].shape[0]
+    d_in = x_tm.shape[-1]
+    keep = keep_tm.to(torch.float32).contiguous()
+    dh = dh_final.to(torch.float32).contiguous()
+    x = x_tm.to(torch.float32).contiguous()
+    x1, h0p, h1p = (a.contiguous() for a in (x1, h0p, h1p))
+    w_ih0, b0, w_hh0 = (layer0[k].contiguous() for k in ("w_ih", "b", "w_hh"))
+    w_ih1, b1, w_hh1 = (layer1[k].contiguous() for k in ("w_ih", "b", "w_hh"))
+    series = (t_len, batch, h_dim)
+    square = (h_dim, 4 * h_dim)
+    _check_shapes("lstm2_bwd_chain_remat",
+                  packed=(packed, (t_len, batch, RES3_W * h_dim)),
+                  keep=(keep, series), x=(x, (t_len, batch, d_in)), x1=(x1, series),
+                  h0p=(h0p, series), h1p=(h1p, series), dh_final=(dh, (batch, h_dim)),
+                  w_ih0=(w_ih0, (d_in, 4 * h_dim)), b0=(b0, (4 * h_dim,)),
+                  w_hh0=(w_hh0, square), w_ih1=(w_ih1, square),
+                  b1=(b1, (4 * h_dim,)), w_hh1=(w_hh1, square))
+    if t_len < 1 or batch < 1:
+        raise ValueError(f"lstm2_bwd_chain_remat: empty residuals {tuple(packed.shape)}")
+    new = dict(dtype=torch.float32, device=packed.device)
+    dg0 = torch.empty((t_len, batch, 4 * h_dim), **new)
+    dg1 = torch.empty((t_len, batch, 4 * h_dim), **new)
+    check_cuda_f32("lstm2_bwd_chain_remat", packed=packed, keep=keep, x=x, x1=x1,
+                   h0p=h0p, h1p=h1p, dh_final=dh, w_ih0=w_ih0, b0=b0,
+                   w_hh0=w_hh0, w_ih1=w_ih1, b1=b1, w_hh1=w_hh1)
+    LSTM2_BWD_CHAIN_REMAT(
+        packed.data_ptr(), keep.data_ptr(), x.data_ptr(), x1.data_ptr(),
+        h0p.data_ptr(), h1p.data_ptr(), dh.data_ptr(), w_ih0.data_ptr(),
+        b0.data_ptr(), w_hh0.data_ptr(), w_ih1.data_ptr(), b1.data_ptr(),
+        w_hh1.data_ptr(), dg0.data_ptr(), dg1.data_ptr(), batch, t_len, h_dim,
+        d_in, stream_of(packed),
     )
     return dg0, dg1
 

@@ -9,7 +9,10 @@ it:
 * ``FusedLSTMFinal`` (2 layers, H up to twice the SM count), the
   residual-native route: the forward is ``lstm2_train_fwd_residuals``
   (saving the residuals), the backward the serial reverse chain
-  ``lstm2_bwd_chain``, which emits every step's dgates of both layers;
+  ``lstm2_bwd_chain``, which emits every step's dgates of both layers.
+  With ``remat_gates`` (``runtime.lstm_remat_gates``) the forward stores no
+  gates and the backward is ``lstm2_bwd_chain_remat``, which recomputes
+  them from the saved input and state series;
 * ``LayeredLSTMFinal`` (any depth and the wider layers), the layered
   route: per layer, the input projection ``x_l @ w_ih_l + b_l`` as one
   ``torch.matmul``, then ``lstm1_train_fwd``; backward top-down, per layer
@@ -54,6 +57,7 @@ from multimodal_emotion_detection_tpu_torch.ops.lstm_kernel import (
     h_series,
     lstm1_train_fwd,
     lstm2_bwd_chain,
+    lstm2_bwd_chain_remat,
     lstm2_train_fwd_residuals,
     lstm_bwd_chain,
 )
@@ -86,30 +90,37 @@ def sm_count(device: torch.device) -> int:
 
 
 class FusedLSTMFinal(torch.autograd.Function):
-    """(x (B, T, D), keep (T, B, H), w_ih0, w_hh0, b0, w_ih1, w_hh1, b1)
-    -> final hidden state of layer 1 (B, H)."""
+    """(x (B, T, D), keep (T, B, H), remat_gates, w_ih0, w_hh0, b0, w_ih1,
+    w_hh1, b1) -> final hidden state of layer 1 (B, H)."""
 
     @staticmethod
-    def forward(ctx, x, keep, w_ih0, w_hh0, b0, w_ih1, w_hh1, b1):
+    def forward(ctx, x, keep, remat_gates, w_ih0, w_hh0, b0, w_ih1, w_hh1, b1):
         x_tm = x.to(torch.float32).transpose(0, 1).contiguous()
         layer0 = {"w_ih": w_ih0, "w_hh": w_hh0, "b": b0}
         layer1 = {"w_ih": w_ih1, "w_hh": w_hh1, "b": b1}
         packed, h0p, h1p, x1, finals = lstm2_train_fwd_residuals(
-            x_tm, keep, layer0, layer1)
+            x_tm, keep, layer0, layer1, store_gates=not remat_gates)
+        ctx.remat_gates = remat_gates
         ctx.save_for_backward(x_tm, keep, packed, h0p, h1p, x1,
-                              w_ih0, w_hh0, w_ih1, w_hh1)
+                              w_ih0, w_hh0, b0, w_ih1, w_hh1, b1)
         return finals[2].clone()
 
     @staticmethod
     def backward(ctx, dh_final):
         (x_tm, keep, packed, h0p, h1p, x1,
-         w_ih0, w_hh0, w_ih1, w_hh1) = ctx.saved_tensors
-        dg0, dg1 = lstm2_bwd_chain(packed, keep, dh_final, w_hh0, w_hh1, w_ih1)
+         w_ih0, w_hh0, b0, w_ih1, w_hh1, b1) = ctx.saved_tensors
+        if ctx.remat_gates:
+            dg0, dg1 = lstm2_bwd_chain_remat(
+                packed, keep, x_tm, x1, h0p, h1p, dh_final,
+                {"w_ih": w_ih0, "w_hh": w_hh0, "b": b0},
+                {"w_ih": w_ih1, "w_hh": w_hh1, "b": b1})
+        else:
+            dg0, dg1 = lstm2_bwd_chain(packed, keep, dh_final, w_hh0, w_hh1, w_ih1)
         dg0f, dg1f = _flat(dg0), _flat(dg1)
         dx = None
         if ctx.needs_input_grad[0]:
             dx = (dg0 @ w_ih0.T).transpose(0, 1)
-        return (dx, None,
+        return (dx, None, None,
                 _flat(x_tm).T @ dg0f, _flat(h0p).T @ dg0f, dg0f.sum(0),
                 _flat(x1).T @ dg1f, _flat(h1p).T @ dg1f, dg1f.sum(0))
 
@@ -158,14 +169,15 @@ class LayeredLSTMFinal(torch.autograd.Function):
 
 
 def fused_lstm_final(x: torch.Tensor, keep: torch.Tensor,
-                     layers: Sequence[Params]) -> torch.Tensor:
+                     layers: Sequence[Params], remat_gates: bool = False) -> torch.Tensor:
     """x (B, T, D), keep (T, L-1, B, H) the inter-layer keep masks ->
     the top layer's final hidden state (B, H), differentiable in x and
-    every layer's parameters.  The route is ``lstm_route``'s."""
+    every layer's parameters.  The route is ``lstm_route``'s; only the
+    pair route reads ``remat_gates``, as in the JAX package."""
     weights = [p[name] for p in layers for name in ("w_ih", "w_hh", "b")]
     h_dim = layers[0]["w_hh"].shape[0]
     if lstm_route(len(layers), h_dim, sm_count(x.device)) == "pair":
-        return FusedLSTMFinal.apply(x, keep[:, 0], *weights)
+        return FusedLSTMFinal.apply(x, keep[:, 0], bool(remat_gates), *weights)
     return LayeredLSTMFinal.apply(x, keep, *weights)
 
 

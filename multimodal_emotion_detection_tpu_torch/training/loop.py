@@ -64,10 +64,6 @@ def refuse_outside_slice(config) -> None:
         raise NotImplementedError(
             f"runtime.lstm_residual_dtype={rt.lstm_residual_dtype!r}: only "
             "float32 residual streams are ported (ROADMAP.md Queue 1 item 13)")
-    if rt.lstm_remat_gates:
-        raise NotImplementedError(
-            "runtime.lstm_remat_gates=true: the gate-rematerialising kernel "
-            "pair is not ported (ROADMAP.md Queue 2 row 13)")
     if rt.profile_dir:
         raise NotImplementedError(
             "runtime.profile_dir is not ported yet (ROADMAP.md Queue 1 item 5)")

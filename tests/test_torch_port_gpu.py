@@ -146,6 +146,75 @@ def test_fused_lstm_final_grads_match_plain_autograd(b, t, d, h):
                                    msg=f"gradient {i}")
 
 
+RES_NAMES = ("packed", "h0_prev", "h1_prev", "x1", "finals")
+REMAT_SHAPES = [(32, 372, 64, 256),                  # the flagship
+                (32, 1, 64, 256), (32, 2, 64, 256),  # the wavefront's ends
+                (1, 5, 64, 256), (33, 5, 64, 256),   # one row; a ragged second pass
+                (33, 7, 5, 128),                     # one unit per block, odd D
+                (3, 9, 64, 264)]                     # the widest pair, 2 x 132 SMs
+
+
+@pytest.mark.parametrize("b,t,d,h", REMAT_SHAPES)
+def test_lstm2_remat_kernels_match_plain(b, t, d, h):
+    dev = _card()
+    x_tm, keep, l0, l1 = _lstm_case(dev, b, t, d, h, seed=b * 1000 + t + 5)
+    before = lstm_kernel.LSTM2_TRAIN_FWD_NOGATES.launches
+    outs = lstm_kernel.lstm2_train_fwd_residuals(x_tm, keep, l0, l1, store_gates=False)
+    torch.cuda.synchronize()
+    assert lstm_kernel.LSTM2_TRAIN_FWD_NOGATES.launches == before + 1
+    assert outs[0].shape == (t, b, 2 * h)
+    refs = lstm_kernel.lstm2_train_fwd_reference(x_tm, keep, l0, l1, store_gates=False)
+    for name, out, ref in zip(RES_NAMES, outs, refs):
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4, msg=name)
+    # the stored-gates form runs the same arithmetic: its series and cell
+    # states are these bit for bit
+    stored = lstm_kernel.lstm2_train_fwd_residuals(x_tm, keep, l0, l1)
+    for name, out, ref in zip(RES_NAMES, outs, (stored[0][..., 8 * h:], *stored[1:])):
+        assert torch.equal(out, ref), name
+
+    dh = torch.from_numpy(
+        np.random.RandomState(t).randn(b, h).astype(np.float32)).to(dev)
+    args = (outs[0], keep, x_tm, outs[3], outs[1], outs[2], dh, l0, l1)
+    before = lstm_kernel.LSTM2_BWD_CHAIN_REMAT.launches
+    dgs = lstm_kernel.lstm2_bwd_chain_remat(*args)
+    torch.cuda.synchronize()
+    assert lstm_kernel.LSTM2_BWD_CHAIN_REMAT.launches == before + 1
+    for name, out, ref in zip(("dg0", "dg1"), dgs,
+                              lstm_kernel.lstm2_bwd_chain_remat_reference(*args)):
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4, msg=name)
+
+
+@pytest.mark.parametrize("b,t,d,h", [(3, 40, 6, 64), (32, 372, 64, 256)])
+def test_remat_lstm_final_grads_match_plain_autograd(b, t, d, h):
+    from multimodal_emotion_detection_tpu_torch.ops.lstm_vjp import (
+        fused_lstm_final,
+    )
+
+    dev = _card()
+    x_tm, keep, l0, l1 = _lstm_case(dev, b, t, d, h, seed=17 + b)
+    weight = torch.from_numpy(
+        np.random.RandomState(b).randn(b, h).astype(np.float32)).to(dev)
+
+    def grads(fn):
+        x = x_tm.transpose(0, 1).contiguous().requires_grad_()
+        p0 = {k: v.clone().requires_grad_() for k, v in l0.items()}
+        p1 = {k: v.clone().requires_grad_() for k, v in l1.items()}
+        (fn(x, p0, p1) * weight).sum().backward()
+        return [x.grad] + [p.grad for p in (*p0.values(), *p1.values())]
+
+    before = lstm_kernel.LSTM2_BWD_CHAIN_REMAT.launches
+    ours = grads(lambda x, p0, p1: fused_lstm_final(x, keep[:, None], (p0, p1),
+                                                    remat_gates=True))
+    assert lstm_kernel.LSTM2_BWD_CHAIN_REMAT.launches == before + 1
+    plain = grads(lambda x, p0, p1: lstm_kernel.lstm2_train_fwd_reference(
+        x.transpose(0, 1), keep, p0, p1)[4][2])
+    for i, (g, r) in enumerate(zip(ours, plain)):
+        # weight gradients sum T*B terms: relative 1e-4 of the largest
+        scale = float(r.abs().max())
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4 * max(scale, 1.0),
+                                   msg=f"gradient {i}")
+
+
 LAYER_SHAPES = [(1, 5, 64), (37, 5, 128), (32, 5, 512),
                 (1, 372, 64), (37, 372, 128), (32, 372, 512)]
 

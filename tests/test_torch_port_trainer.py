@@ -205,7 +205,6 @@ def test_frontend_cache_gives_the_same_trajectory(data_dir, tmp_path):
 @pytest.mark.parametrize("override,item", [
     ("runtime.lstm_residual_dtype=bfloat16", "item 13"),
     ("runtime.compute_dtype=bfloat16", "item 13"),
-    ("runtime.lstm_remat_gates=true", "row 13"),
     ("runtime.profile_dir=prof", "item 5"),
     ("model.encoders.video.weights_path=w.pth", "item 5"),
     ("dataset.name=synthetic", "item 5"),
