@@ -75,7 +75,23 @@
    the CPU step, latency and profile; ``[serve_big_gru]`` serves its
    ``best.ckpt`` (3 eval-form launches and 1 log-mel per batch), logits
    against the CPU forward, latency and profile.
-11. The transformer audio encoder config (``TRANSFORMER``: 2 post-LN
+11. The legacy-layout pair (``set_res2_mode("off")``, the route the JAX
+   package's numerics gate cross-checks): ``[lstm2_train_fwd_legacy]`` /
+   ``[lstm2_bwd_chain_legacy]`` and ``[gru2_train_fwd_legacy]`` /
+   ``[gru2_bwd_chain_legacy]`` hold its four kernels (rows 5, 9, 8 and 10
+   of PERF.md's table; the chains with and without ``dys``) against their
+   plain versions at B=32, T=372, D=64, H=256, time them beside the
+   residual-native pair's on the same inputs, the plain versions and cuDNN,
+   the fused GRU chain beside the layered one over the same residuals (1e-5
+   of the largest), and hold the whole recurrence gradient of each legacy
+   route (the GRU's fused and layered) to the residual-native route's (dx
+   1e-6, weights 1e-5 of the largest).
+   ``[train_legacy]`` trains the flagship as in 6 with the switch set (the
+   two legacy kernels once per step, lstm2_infer per eval batch, no other
+   pair), ``[train_gru_legacy]`` the GRU config with it and
+   ``lstm_vjp.GRU_BWD2_ENABLED``; card step against the CPU step, latency and
+   profile.  Neither is served again: the eval forward ignores the switch.
+12. The transformer audio encoder config (``TRANSFORMER``: 2 post-LN
    blocks h256, 4 heads, log-mel cached per split): ``[flash_fwd]`` /
    ``[flash_bwd]`` hold the flash forward and fused backward against their
    plain versions at the encoder's (32, 4, 372, 64) (dropout 0 and 0.1,
@@ -92,7 +108,7 @@
    Philox seeds replayed, latency and profile; ``[serve_tf]`` serves its
    ``best.ckpt`` (log-mel once and the flash forward twice per batch),
    logits against the CPU forward, latency and profile.
-12. Prints one JSON line describing every kernel, nvidia-smi's name and
+13. Prints one JSON line describing every kernel, nvidia-smi's name and
    power limit of the card, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -695,6 +711,172 @@ def phase_lstm2_remat(lstm_kernel, lstm_vjp, flush):
              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
 
 
+
+def _shifted(a: torch.Tensor) -> torch.Tensor:
+    """The series before each step from the series after it."""
+    return torch.cat([torch.zeros_like(a[:1]), a[:-1]])
+
+
+def _whole_grads(fused, x_bt, keep, layers, dh):
+    """``fused``'s output cotangent ``dh`` pulled back to x and every
+    parameter, and a callable that runs it again (for timing)."""
+    x = x_bt.clone().requires_grad_()
+    ps = [{k: v.clone().requires_grad_() for k, v in p.items()} for p in layers]
+    params = [x] + [v for p in ps for v in p.values()]
+
+    def run():
+        return torch.autograd.grad(fused(x, keep[:, None], ps), params, dh)
+
+    return run(), run
+
+
+def _routes_agree(tag, names, legacy, residual, dx_bound=1e-6, dw_bound=1e-5):
+    """The legacy route's gradient against the residual-native route's:
+    dx within ``dx_bound`` of the largest |dx|, every weight gradient within
+    ``dw_bound`` of its largest entry (the JAX package's gate between the
+    two layouts, ``ops/envelope.py`` V2_VS_LEGACY_GRAD_REL, on dx)."""
+    rel = {n: float((a - b).abs().max() / b.abs().max())
+           for n, a, b in zip(names, legacy, residual)}
+    exact = all(torch.equal(a, b) for a, b in zip(legacy, residual))
+    print(f"[{tag}] legacy vs residual-native whole gradient, max abs diff "
+          f"relative to the largest: " + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+          + f" (bounds dx {dx_bound:g}, weights {dw_bound:g}); bit for bit: {exact}")
+    if rel["dx"] > dx_bound or max(v for k, v in rel.items() if k != "dx") > dw_bound:
+        raise RuntimeError(f"[{tag}] the legacy route's gradient disagrees with the "
+                           "residual-native route's")
+    return rel
+
+
+def phase_lstm2_legacy(lstm_kernel, lstm_vjp, flush):
+    """``[lstm2_train_fwd_legacy]`` / ``[lstm2_bwd_chain_legacy]``: rows 5 and
+    9, the legacy-layout pair (``set_res2_mode("off")``), at the flagship's
+    training shape (B=32, T=372, D=64, H=256, keep p=0.1).  Each kernel
+    against its plain version (the chain with and without ``dys``); times
+    beside the residual-native pair's (rows 11 and 12) on the same inputs,
+    the plain versions' and cuDNN's; the whole recurrence gradient on both
+    routes, held to each other, and timed."""
+    x_tm, keep, l0, l1 = _lstm_train_inputs(12)
+    t, b, d = x_tm.shape
+    h = l0["w_hh"].shape[0]
+    outs = lstm_kernel.lstm2_train_fwd_legacy(x_tm, keep, l0, l1)
+    torch.cuda.synchronize()
+    refs = lstm_kernel.lstm2_train_fwd_legacy_reference(x_tm, keep, l0, l1)
+    fwd_errs = {}
+    for name, out, ref in zip(("ys", "h_final", "g0", "g1", "h0_new", "c0_new",
+                               "c1_new"), outs, refs):
+        fwd_errs[name] = max_errs(out, ref)[0]
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4, msg=name)
+    packed, h0p, h1p, _, finals = lstm_kernel.lstm2_train_fwd_residuals(x_tm, keep, l0, l1)
+    ys, h_final, g0, g1, h0, c0, c1 = outs
+    same = (torch.equal(g0, packed[..., :4 * h]) and torch.equal(g1, packed[..., 4 * h:8 * h])
+            and torch.equal(_shifted(c0), packed[..., 8 * h:9 * h])
+            and torch.equal(_shifted(c1), packed[..., 9 * h:])
+            and torch.equal(_shifted(h0), h0p) and torch.equal(_shifted(ys), h1p)
+            and torch.equal(h_final, finals[2]))
+    print(f"[lstm2_train_fwd_legacy] B={b} T={t} D={d} H={h}, keep p=0.1: max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in fwd_errs.items())
+          + f" (bound 1e-4 abs + 1e-4 rel); the residual-native form's gates and "
+          f"shifted series bit for bit: {same}")
+
+    rng = np.random.RandomState(13)
+    dh = torch.from_numpy(rng.randn(b, h).astype(np.float32)).cuda()
+    dys = torch.from_numpy(rng.randn(t, b, h).astype(np.float32)).cuda()
+    # the chain's inputs as the legacy route builds them: contiguous gate
+    # series and the shifted c series
+    g0c, g1c, cp0, cp1 = g0.contiguous(), g1.contiguous(), _shifted(c0), _shifted(c1)
+    w = (l0["w_hh"], l1["w_hh"], l1["w_ih"])
+    errs = {}
+    for label, stream in (("", None), (" with dys", dys)):
+        args = (g0c, g1c, cp0, cp1, stream, keep, dh, *w)
+        dgs = lstm_kernel.lstm2_bwd_chain_legacy(*args)
+        torch.cuda.synchronize()
+        for name, out, ref in zip(("dg0", "dg1"), dgs,
+                                  lstm_kernel.lstm2_bwd_chain_legacy_reference(*args)):
+            errs[name + label] = max_errs(out, ref)[0]
+            torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4, msg=name + label)
+    res_args = (packed, keep, dh, *w)
+    same_chain = all(torch.equal(a, r) for a, r in zip(
+        lstm_kernel.lstm2_bwd_chain_legacy(g0c, g1c, cp0, cp1, None, keep, dh, *w),
+        lstm_kernel.lstm2_bwd_chain(*res_args)))
+    print(f"[lstm2_bwd_chain_legacy] B={b} T={t} H={h}: max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (bound 1e-4 abs + 1e-4 rel); the residual-native chain's dg bit for "
+          f"bit: {same_chain}")
+
+    lib = _cudnn_lstm(l0, l1)
+    x_bt = x_tm.transpose(0, 1).contiguous()
+    lib_params = list(lib.parameters())
+    h_lib = lib(x_bt)[1][0][-1]
+
+    def run_lib_bwd():
+        torch.autograd.grad(h_lib, lib_params, dh, retain_graph=True)
+
+    fwd_ms = device_ms(lambda: lstm_kernel.lstm2_train_fwd_legacy(x_tm, keep, l0, l1), flush)
+    fwd_res_ms = device_ms(
+        lambda: lstm_kernel.lstm2_train_fwd_residuals(x_tm, keep, l0, l1), flush)
+    fwd_plain_ms = device_ms(
+        lambda: lstm_kernel.lstm2_train_fwd_legacy_reference(x_tm, keep, l0, l1),
+        flush, reps=5)
+    fwd_lib_ms = device_ms(lambda: lib(x_bt), flush)
+    chain = (g0c, g1c, cp0, cp1)
+    ms = device_ms(lambda: lstm_kernel.lstm2_bwd_chain_legacy(*chain, None, keep, dh, *w),
+                   flush)
+    ms_dys = device_ms(lambda: lstm_kernel.lstm2_bwd_chain_legacy(*chain, dys, keep, dh, *w),
+                       flush)
+    res_ms = device_ms(lambda: lstm_kernel.lstm2_bwd_chain(*res_args), flush)
+    plain_ms = device_ms(lambda: lstm_kernel.lstm2_bwd_chain_legacy_reference(
+        *chain, None, keep, dh, *w), flush, reps=5)
+    library_ms = device_ms(run_lib_bwd, flush)
+    # the forward as rows 11 counts it (its layer-0 projection included),
+    # with the legacy layout's 12H of stores per row and h_final
+    fwd_flops = 2 * b * t * (d * 4 * h + 3 * h * 4 * h)
+    fwd_bytes = 4 * (t * b * (d + h + 12 * h) + d * 4 * h + 3 * h * 4 * h
+                     + 2 * 4 * h + b * h)
+    fwd_bound_ms, fwd_bound_by = bound(fwd_flops, fwd_bytes)
+    # the chain without dys: g0, g1, c0_prev, c1_prev, keep, dh_final and
+    # three weights read, dg (8H) written
+    flops = 2 * b * t * 3 * 4 * h * h
+    nbytes = 4 * (t * b * (8 * h + 2 * h + h + 8 * h) + b * h + 3 * h * 4 * h)
+    bound_ms, bound_by = bound(flops, nbytes)
+    print(f"[lstm2_train_fwd_legacy] kernel {fwd_ms:.4f} ms (input projection + one "
+          f"cooperative launch, {1e3 * fwd_ms / (t + 1):.3f} us per phase; the "
+          f"residual-native form {fwd_res_ms:.4f} ms in this phase), plain "
+          f"{fwd_plain_ms:.4f} ms, cuDNN nn.LSTM training forward at keep=1 "
+          f"{fwd_lib_ms:.4f} ms, bound {fwd_bound_ms:.4f} ms ({fwd_bound_by}: "
+          f"{fwd_flops / 1e9:.3f} GFLOP, {fwd_bytes / 1e6:.2f} MB incl. the 12H stores)")
+    print(f"[lstm2_bwd_chain_legacy] kernel {ms:.4f} ms ({1e3 * ms / (t + 1):.3f} us per "
+          f"phase; {ms_dys:.4f} ms with dys; the residual-native chain {res_ms:.4f} ms "
+          f"in this phase), plain {plain_ms:.4f} ms, cuDNN backward of h_n at keep=1 "
+          f"{library_ms:.4f} ms (it also forms the weight gradients), bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+
+    # the whole recurrence gradient at keep p=0.1 on both routes, same inputs
+    names = ("dx", "dw_ih0", "dw_hh0", "db0", "dw_ih1", "dw_hh1", "db1")
+    whole = {}
+    for mode in ("off", "auto"):
+        prev = lstm_vjp.set_res2_mode(mode)
+        try:
+            grads, run = _whole_grads(lstm_vjp.fused_lstm_final, x_bt, keep, (l0, l1), dh)
+            whole[mode] = (grads, device_ms(run, flush))
+        finally:
+            lstm_vjp.set_res2_mode(prev)
+    _routes_agree("lstm2_bwd_chain_legacy", names, whole["off"][0], whole["auto"][0])
+    print(f"[lstm2_bwd_chain_legacy] whole recurrence gradient (forward + reverse chain "
+          f"+ hoisted weight products): legacy {whole['off'][1]:.4f} ms, residual-native "
+          f"{whole['auto'][1]:.4f} ms")
+    src = "multimodal_emotion_detection_tpu_torch/csrc/"
+    return ({"name": "lstm2_train_fwd_legacy", "route": "cuda",
+             "source": src + "lstm2_train_fwd.cu",
+             "replaces": "multimodal_emotion_detection_tpu/ops/lstm_kernel.py:669",
+             "max_abs_err": max(fwd_errs.values()), "ms": fwd_ms,
+             "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound_ms,
+             "bound_by": fwd_bound_by, "library_ms": fwd_lib_ms},
+            {"name": "lstm2_bwd_chain_legacy", "route": "cuda",
+             "source": src + "lstm2_bwd_chain.cu",
+             "replaces": "multimodal_emotion_detection_tpu/ops/lstm_kernel.py:1685",
+             "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
+
 def _big_layer_inputs(seed: int, gates: int = 4):
     """One layer of the big sweep config at its training shape (B=32,
     T=372, H=512) with ``gates`` gates (4 for the LSTM, 3 for the GRU): the
@@ -1090,6 +1272,158 @@ def phase_gru2_bwd_chain(lstm_kernel, lstm_vjp, flush, inputs):
             "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
+
+
+def phase_gru2_legacy(lstm_kernel, lstm_vjp, flush):
+    """``[gru2_train_fwd_legacy]`` / ``[gru2_bwd_chain_legacy]``: rows 8 and
+    10, the legacy-layout GRU pair, at the GRU config's training shape
+    (B=32, T=372, D=64, H=256, keep p=0.1).  Each kernel against its plain
+    version (the chain with and without ``dys``); times beside the
+    residual-native pair's (rows 14 and 15) on the same inputs, the plain
+    versions' and cuDNN's; row 10 against the layered backward over the
+    same residuals (two row-7 launches and the hop: ``GRU_BWD2_ENABLED``
+    off, the JAX package's default) in value and time; the whole recurrence
+    gradient on the legacy routes against the residual-native one."""
+    x_tm, keep, l0, l1 = _gru_inputs(14)
+    t, b, d = x_tm.shape
+    h = l0["w_hh"].shape[0]
+    ys, h_final, layers = lstm_kernel.gru2_train_fwd_legacy(x_tm, keep, l0, l1)
+    torch.cuda.synchronize()
+    r_ys, r_hf, r_layers = lstm_kernel.gru2_train_fwd_legacy_reference(x_tm, keep, l0, l1)
+    pairs = [("ys", ys, r_ys), ("h_final", h_final, r_hf)] + [
+        (f"{n}{i}", layers[i][j], r_layers[i][j])
+        for i in range(2) for j, n in enumerate(("r", "z", "n", "hn", "h"))]
+    fwd_errs = {}
+    for name, out, ref in pairs:
+        fwd_errs[name] = max_errs(out, ref)[0]
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4, msg=name)
+    packed, h0p, h1p, _, finals = lstm_kernel.gru2_train_fwd_residuals(x_tm, keep, l0, l1)
+    same = all(torch.equal(torch.cat(layers[i][:4], dim=-1), packed[..., 4 * h * i:4 * h * (i + 1)])
+               and torch.equal(_shifted(layers[i][4]), hp) for i, hp in enumerate((h0p, h1p)))
+    same = same and torch.equal(h_final, finals[1])
+    print(f"[gru2_train_fwd_legacy] B={b} T={t} D={d} H={h}, keep p=0.1: max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in fwd_errs.items())
+          + " (bound 1e-4 abs + 1e-4 rel); the residual-native form's activations "
+          f"and shifted series bit for bit: {same}")
+
+    rng = np.random.RandomState(15)
+    dh = torch.from_numpy(rng.randn(b, h).astype(np.float32)).cuda()
+    dys = torch.from_numpy(rng.randn(t, b, h).astype(np.float32)).cuda()
+    res0, res1 = ((_shifted(lay[4]),) + tuple(lay[:4]) for lay in layers)
+    w = (l0["w_hh"], l1["w_hh"], l1["w_ih"])
+    names = ("dih0", "dhh0", "dih1", "dhh1")
+    errs = {}
+    for label, stream in (("", None), (" with dys", dys)):
+        args = (res0, res1, stream, keep, dh, *w)
+        outs = lstm_kernel.gru2_bwd_chain_legacy(*args)
+        torch.cuda.synchronize()
+        refs = lstm_kernel.gru2_bwd_chain_legacy_reference(*args)
+        for name, out, ref in zip(names, (*outs[0], *outs[1]), (*refs[0], *refs[1])):
+            errs[name + label] = max_errs(out, ref)[0]
+            torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4, msg=name + label)
+    fused = lstm_kernel.gru2_bwd_chain_legacy(res0, res1, None, keep, dh, *w)
+    res_args = (packed, h0p, h1p, keep, dh, *w)
+    dih0, dhn0, dih1, dhn1 = lstm_kernel.gru2_bwd_chain(*res_args)
+    same_chain = (torch.equal(fused[0][0], dih0) and torch.equal(fused[0][1][..., 2 * h:], dhn0)
+                  and torch.equal(fused[1][0], dih1)
+                  and torch.equal(fused[1][1][..., 2 * h:], dhn1))
+    layered = lstm_vjp.gru_bwd_layered_legacy(res0, res1, None, keep, dh, *w)
+    vs_layered = {name: float((a - r).abs().max() / r.abs().max()) for name, a, r in
+                  zip(names, (*fused[0], *fused[1]), (*layered[0], *layered[1]))}
+    print(f"[gru2_bwd_chain_legacy] B={b} T={t} H={h}: max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (bound 1e-4 abs + 1e-4 rel); the residual-native chain's dih and dhn bit "
+          f"for bit: {same_chain}; against the layered backward over the same "
+          "residuals (2 x gru_bwd_chain + hop), max abs diff relative to the largest "
+          + ", ".join(f"{k} {v:.3e}" for k, v in vs_layered.items()) + " (bound 1e-5)")
+    if max(vs_layered.values()) > 1e-5:
+        raise RuntimeError("the fused legacy GRU chain disagrees with the layered one")
+
+    lib = _cudnn_gru(l0, l1)
+    x_bt = x_tm.transpose(0, 1).contiguous()
+    lib_params = list(lib.parameters())
+    h_lib = lib(x_bt)[1][-1]
+
+    def run_lib_bwd():
+        torch.autograd.grad(h_lib, lib_params, dh, retain_graph=True)
+
+    fwd_ms = device_ms(lambda: lstm_kernel.gru2_train_fwd_legacy(x_tm, keep, l0, l1), flush)
+    fwd_res_ms = device_ms(
+        lambda: lstm_kernel.gru2_train_fwd_residuals(x_tm, keep, l0, l1), flush)
+    fwd_plain_ms = device_ms(
+        lambda: lstm_kernel.gru2_train_fwd_legacy_reference(x_tm, keep, l0, l1),
+        flush, reps=5)
+    fwd_lib_ms = device_ms(lambda: lib(x_bt), flush)
+    ms = device_ms(lambda: lstm_kernel.gru2_bwd_chain_legacy(res0, res1, None, keep, dh, *w),
+                   flush)
+    ms_dys = device_ms(
+        lambda: lstm_kernel.gru2_bwd_chain_legacy(res0, res1, dys, keep, dh, *w), flush)
+    res_ms = device_ms(lambda: lstm_kernel.gru2_bwd_chain(*res_args), flush)
+    layered_ms = device_ms(
+        lambda: lstm_vjp.gru_bwd_layered_legacy(res0, res1, None, keep, dh, *w), flush)
+    plain_ms = device_ms(lambda: lstm_kernel.gru2_bwd_chain_legacy_reference(
+        res0, res1, None, keep, dh, *w), flush, reps=5)
+    library_ms = device_ms(run_lib_bwd, flush)
+    # the forward as row 14 counts it, with the legacy layout's 10H of
+    # stores per row and h_final
+    fwd_flops = 2 * b * t * (d * 3 * h + 3 * h * 3 * h)
+    fwd_bytes = 4 * (t * b * (d + h + 10 * h) + d * 3 * h + 3 * h * 3 * h
+                     + 4 * 3 * h + b * h)
+    fwd_bound_ms, fwd_bound_by = bound(fwd_flops, fwd_bytes)
+    # the chain without dys (the wrapper packs res0 and res1 first; counted
+    # as the kernel reads them): res0, res1 (5H each), keep, dh_final and
+    # three weights read, out (12H) written
+    flops = 2 * b * t * 3 * 3 * h * h
+    nbytes = 4 * (t * b * (10 * h + h + 12 * h) + b * h + 3 * h * 3 * h)
+    bound_ms, bound_by = bound(flops, nbytes)
+    print(f"[gru2_train_fwd_legacy] kernel {fwd_ms:.4f} ms (input projection + one "
+          f"cooperative launch, {1e3 * fwd_ms / (t + 1):.3f} us per phase; the "
+          f"residual-native form {fwd_res_ms:.4f} ms in this phase), plain "
+          f"{fwd_plain_ms:.4f} ms, cuDNN nn.GRU training forward at keep=1 "
+          f"{fwd_lib_ms:.4f} ms, bound {fwd_bound_ms:.4f} ms ({fwd_bound_by}: "
+          f"{fwd_flops / 1e9:.3f} GFLOP, {fwd_bytes / 1e6:.2f} MB incl. the 10H stores)")
+    print(f"[gru2_bwd_chain_legacy] kernel {ms:.4f} ms (packing res0 / res1 + one "
+          f"cooperative launch, {1e3 * ms / (t + 1):.3f} us per phase; {ms_dys:.4f} ms "
+          f"with dys; the residual-native chain {res_ms:.4f} ms and the layered backward "
+          f"over the same residuals {layered_ms:.4f} ms in this phase), plain "
+          f"{plain_ms:.4f} ms, cuDNN backward of h_n at keep=1 {library_ms:.4f} ms (it "
+          f"also forms the weight gradients), bound {bound_ms:.4f} ms ({bound_by}: "
+          f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+
+    # the whole recurrence gradient at keep p=0.1 on the legacy routes (the
+    # fused chain, then the layered one) and the residual-native route
+    names = ("dx",) + tuple(f"d{n}{i}" for i in range(2)
+                             for n in ("w_ih", "w_hh", "b_ih", "b_hh"))
+    whole = {}
+    for route, mode, bwd2 in (("fused", "off", True), ("layered", "off", False),
+                              ("residual", "auto", False)):
+        prev, prev_bwd2 = lstm_vjp.set_res2_mode(mode), lstm_vjp.GRU_BWD2_ENABLED
+        lstm_vjp.GRU_BWD2_ENABLED = bwd2
+        try:
+            grads, run = _whole_grads(lstm_vjp.fused_gru_final, x_bt, keep, (l0, l1), dh)
+            whole[route] = (grads, device_ms(run, flush))
+        finally:
+            lstm_vjp.set_res2_mode(prev)
+            lstm_vjp.GRU_BWD2_ENABLED = prev_bwd2
+    _routes_agree("gru2_bwd_chain_legacy", names, whole["fused"][0], whole["residual"][0])
+    _routes_agree("gru2_bwd_chain_legacy layered", names, whole["layered"][0],
+                  whole["residual"][0])
+    print(f"[gru2_bwd_chain_legacy] whole recurrence gradient (forward + reverse chain "
+          f"+ hoisted weight products): legacy with row 10 {whole['fused'][1]:.4f} ms, "
+          f"legacy layered {whole['layered'][1]:.4f} ms, residual-native "
+          f"{whole['residual'][1]:.4f} ms")
+    src = "multimodal_emotion_detection_tpu_torch/csrc/"
+    return ({"name": "gru2_train_fwd_legacy", "route": "cuda",
+             "source": src + "gru2_train_fwd.cu",
+             "replaces": "multimodal_emotion_detection_tpu/ops/lstm_kernel.py:1354",
+             "max_abs_err": max(fwd_errs.values()), "ms": fwd_ms,
+             "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound_ms,
+             "bound_by": fwd_bound_by, "library_ms": fwd_lib_ms},
+            {"name": "gru2_bwd_chain_legacy", "route": "cuda",
+             "source": src + "gru2_bwd_chain.cu",
+             "replaces": "multimodal_emotion_detection_tpu/ops/lstm_kernel.py:1886",
+             "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
 
 def phase_gru1_train_fwd(lstm_kernel, flush):
     """``[gru1_train_fwd]`` (and ``[gru1_infer]``, its eval form): one GRU
@@ -1755,7 +2089,11 @@ MAIN_PATH = {"logmel": "train", "lstm2_infer": "train", "lstm2_train_fwd": "trai
              "gru1_infer": "train_big_gru", "gru_bwd_chain": "train_big_gru",
              "flash_fwd": "train_tf",
              "flash_bwd_fused": "train_tf", "flash_bwd_dkv": "flash_long",
-             "flash_bwd_dq": "flash_long"}
+             "flash_bwd_dq": "flash_long",
+             "lstm2_train_fwd_legacy": "train_legacy",
+             "lstm2_bwd_chain_legacy": "train_legacy",
+             "gru2_train_fwd_legacy": "train_gru_legacy",
+             "gru2_bwd_chain_legacy": "train_gru_legacy"}
 
 
 def main() -> None:
@@ -1780,6 +2118,7 @@ def main() -> None:
     print(f"[device] nvidia-smi: {smi}")
 
     t0 = time.perf_counter()
+    # the legacy-layout kernels are template forms of the pair's sources
     reports = _build.build(["logmel", "lstm2_infer", "lstm2_train_fwd",
                             "lstm2_bwd_chain", "lstm2_bwd_chain_remat",
                             "lstm1_fwd", "lstm_bwd_chain",
@@ -1806,7 +2145,11 @@ def main() -> None:
                 "gru1_infer": lstm_kernel.GRU1_INFER,
                 "gru_bwd_chain": lstm_kernel.GRU_BWD_CHAIN,
                 "flash_fwd": fa.FLASH_FWD, "flash_bwd_fused": fa.FLASH_BWD_FUSED,
-                "flash_bwd_dkv": fa.FLASH_BWD_DKV, "flash_bwd_dq": fa.FLASH_BWD_DQ}
+                "flash_bwd_dkv": fa.FLASH_BWD_DKV, "flash_bwd_dq": fa.FLASH_BWD_DQ,
+                "lstm2_train_fwd_legacy": lstm_kernel.LSTM2_TRAIN_FWD_LEGACY,
+                "lstm2_bwd_chain_legacy": lstm_kernel.LSTM2_BWD_CHAIN_LEGACY,
+                "gru2_train_fwd_legacy": lstm_kernel.GRU2_TRAIN_FWD_LEGACY,
+                "gru2_bwd_chain_legacy": lstm_kernel.GRU2_BWD_CHAIN_LEGACY}
     flush = L2Flush()
     kernels = {"logmel": phase_logmel(logmel, flush),
                "lstm2_infer": phase_lstm(lstm_kernel, flush)}
@@ -1817,6 +2160,8 @@ def main() -> None:
     del train_inputs
     kernels["lstm2_train_fwd_nogates"], kernels["lstm2_bwd_chain_remat"] = (
         phase_lstm2_remat(lstm_kernel, lstm_vjp, flush))
+    kernels["lstm2_train_fwd_legacy"], kernels["lstm2_bwd_chain_legacy"] = (
+        phase_lstm2_legacy(lstm_kernel, lstm_vjp, flush))
     (kernels["lstm1_train_fwd"], kernels["lstm1_infer"],
      layer_inputs) = phase_lstm1_train_fwd(lstm_kernel, flush)
     kernels["lstm_bwd_chain"] = phase_lstm_bwd_chain(lstm_kernel, lstm_vjp, flush,
@@ -1827,6 +2172,8 @@ def main() -> None:
     kernels["gru2_bwd_chain"] = phase_gru2_bwd_chain(lstm_kernel, lstm_vjp, flush,
                                                      gru_inputs)
     del gru_inputs
+    kernels["gru2_train_fwd_legacy"], kernels["gru2_bwd_chain_legacy"] = (
+        phase_gru2_legacy(lstm_kernel, lstm_vjp, flush))
     (kernels["gru1_train_fwd"], kernels["gru1_infer"],
      gru_layer_inputs) = phase_gru1_train_fwd(lstm_kernel, flush)
     kernels["gru_bwd_chain"] = phase_gru_bwd_chain(lstm_kernel, lstm_vjp, flush,
@@ -1849,6 +2196,18 @@ def main() -> None:
         lambda steps, evals: {"logmel": steps + evals, "lstm2_infer": evals,
                               "lstm2_train_fwd_nogates": steps,
                               "lstm2_bwd_chain_remat": steps})[0]
+    # the flagship on the legacy-layout pair (the JAX package's
+    # set_res2_mode("off"), a module global with no config key): its two
+    # kernels per step, the residual-native and remat pairs never
+    prev = lstm_vjp.set_res2_mode("off")
+    try:
+        by_path["train_legacy"] = phase_train(
+            counters, "train_legacy", ["model.frontend.audio=logmel"],
+            lambda steps, evals: {"logmel": steps + evals, "lstm2_infer": evals,
+                                  "lstm2_train_fwd_legacy": steps,
+                                  "lstm2_bwd_chain_legacy": steps})[0]
+    finally:
+        lstm_vjp.set_res2_mode(prev)
     # the big config caches log-mel once per split, in chunks
     cached = sum(-(-n // FRONTEND_CHUNK) for n in TRAIN_SPLITS.values())
     by_path["train_big"], big_run, big_overrides = phase_train(
@@ -1869,6 +2228,21 @@ def main() -> None:
         "serve_gru", counters, {"logmel": batches, "gru2_infer": batches},
         gru_run / "best.ckpt", gru_overrides, np.load(test / "audio.npy"),
         np.load(test / "video.npy"), WORK / "predictions_gru")
+    # the GRU config on the legacy-layout pair with the fused legacy chain
+    # (the JAX package's GRU_BWD2_ENABLED, which its TPU default leaves off)
+    prev = lstm_vjp.set_res2_mode("off")
+    prev_bwd2, lstm_vjp.GRU_BWD2_ENABLED = lstm_vjp.GRU_BWD2_ENABLED, True
+    try:
+        by_path["train_gru_legacy"] = phase_train(
+            counters, "train_gru_legacy", GRU,
+            lambda steps, evals: {"logmel": cached, "gru2_infer": evals,
+                                  "gru2_train_fwd_legacy": steps,
+                                  "gru2_bwd_chain_legacy": steps})[0]
+    finally:
+        lstm_vjp.set_res2_mode(prev)
+        lstm_vjp.GRU_BWD2_ENABLED = prev_bwd2
+    print("[train_legacy] [train_gru_legacy] not served again: the eval forward "
+          "ignores the route, as the JAX package's does ([serve], [serve_gru])")
     # the big config's depth with the GRU: 3 one-layer GRU launches per
     # step, per eval batch and per served batch; the pair never
     by_path["train_big_gru"], big_gru_run, big_gru_overrides = phase_train(

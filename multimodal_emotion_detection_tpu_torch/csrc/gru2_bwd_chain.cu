@@ -2,14 +2,16 @@
 //
 // Replaces: multimodal_emotion_detection_tpu/ops/lstm_kernel.py::
 // gru2_bwd_chain_res_padded (kernel body _gru2_bwd_res_kernel, per-step
-// math _gru_cell_bwd_k).  Same function as the plain PyTorch version
-// ops/lstm_kernel.py::gru2_bwd_chain_reference: over the residuals of
+// math _gru_cell_bwd_k) and, in its legacy form, gru2_bwd_chain_pallas
+// (_gru2_bwd_kernel).  Same function as the plain PyTorch versions
+// ops/lstm_kernel.py::gru2_bwd_chain_reference and
+// gru2_bwd_chain_legacy_reference: over the residuals of
 // gru2_train_fwd (packed (T, B, 8H) = [r0|z0|n0|hn0|r1|z1|n1|hn1], the
 // states before each step h0p, h1p (T, B, H), the keep mask (T, B, H)) and
 // the cotangent of layer 1's final hidden state dh_final (B, H), walk
 // t = T-1 .. 0 with carries dh1 (dh_final at the start) and dh0 (zero):
 //
-//   (dih1, dhn1, dd1) = cell_bwd(dh1, h1p[t], r1, z1, n1, hn1)
+//   (dih1, dhn1, dd1) = cell_bwd(dh1 + dys[t], h1p[t], r1, z1, n1, hn1)
 //   dh1 = dd1 + [dih1[:, :2H] | dhn1] @ w_hh1^T ;  dx1 = dih1 @ w_ih1^T
 //   (dih0, dhn0, dd0) = cell_bwd(dh0 + dx1 * keep[t], h0p[t], r0, ..)
 //   dh0 = dd0 + [dih0[:, :2H] | dhn0] @ w_hh0^T
@@ -19,8 +21,13 @@
 // dih = [dr_pre | dz_pre | dn_pre], dhn = dn_pre r, dd = dh z.  It writes
 // dih0, dih1 (T, B, 3H) and dhn0, dhn1 (T, B, H): dhh = [dih[:, :2H] | dhn]
 // shares its first 2H lanes with dih, so only its n lane is stored.  The
-// hoisted weight gradients are plain matrix products outside
-// (ops/lstm_vjp.py).
+// legacy form (gru2_bwd_chain_legacy_launch) reads the older layout's
+// res0, res1 (T, B, 5H) = [h_prev | r | z | n | hn] and, where one is
+// given, the sequence output's cotangent dys (T, B, H; without it the
+// stream is not read), and writes, as the TPU kernel does, the full dhh:
+// out (T, B, 12H) = [dih0 | dhh0 | dih1 | dhh1], whose r and z lanes of
+// dhh are copies of dih's; the residual form has no dys.  The hoisted
+// weight gradients are plain matrix products outside (ops/lstm_vjp.py).
 //
 // What bounds it on the H100: the serial chain.  At the flagship shape
 // (B=32, T=372, H=256) the three products per step are 14.0 GFLOP and the
@@ -43,7 +50,8 @@
 // dih1 of the phase before; one grid barrier per phase, T+1 in all.  The
 // direct parts dd = dh z stay in the CTA, with the thread that owns the
 // (row, unit).  The cell threads load their residuals before the products,
-// to hide that latency.  Exactly T steps run; any B >= 1.
+// to hide that latency.  The two forms differ only in their row strides
+// and the legacy form's two extra stores.  Exactly T steps run; any B >= 1.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -78,26 +86,36 @@ __device__ __forceinline__ float cell_bwd(float dh, float h_prev,
   return dh * z;
 }
 
-template <int UPC>
+// residual form: layer l's {r, z, n, hn} at lane 4H*l of the packed
+// (T, B, 8H) rows, h_prev the (T, B, H) series, dys null, dih (T, B, 3H)
+// and dhn (T, B, H) apart; legacy form: res_l (T, B, 5H) = [h_prev | r |
+// z | n | hn], dih_l, dhh_l = [dr | dz | dhn] and so dhn_l at lanes 6H*l,
+// 6H*l + 3H and 6H*l + 5H of the (T, B, 12H) out rows
+template <int UPC, bool LEGACY>
 __global__ void __launch_bounds__(NT) gru2_bwd_chain_kernel(
-    const float* __restrict__ packed,    // (T, B, 8H)
-    const float* __restrict__ h0p,       // (T, B, H)
-    const float* __restrict__ h1p,       // (T, B, H)
+    const float* __restrict__ act0,      // (T, B, .) layer 0's r, z, n, hn
+    const float* __restrict__ act1,      // (T, B, .) layer 1's
+    const float* __restrict__ h0p,       // (T, B, .) layer 0's h_prev
+    const float* __restrict__ h1p,       // (T, B, .) layer 1's
+    const float* __restrict__ dys,       // (T, B, H) or null
     const float* __restrict__ keep,      // (T, B, H)
     const float* __restrict__ dh_final,  // (B, H)
     const float* __restrict__ w_hh0,     // (H, 3H)
     const float* __restrict__ w_hh1,     // (H, 3H)
     const float* __restrict__ w_ih1,     // (H, 3H)
-    float* dih0,                         // (T, B, 3H) out, also the exchange
-    float* dhn0,                         // (T, B, H) out, also the exchange
-    float* dih1,                         // (T, B, 3H) out, also the exchange
-    float* dhn1,                         // (T, B, H) out, also the exchange
+    float* dih0,                         // (T, B, .) out, also the exchange
+    float* dhn0,                         // (T, B, .) out, also the exchange
+    float* dih1,                         // (T, B, .) out, also the exchange
+    float* dhn1,                         // (T, B, .) out, also the exchange
     int batch, int t_len, int hidden) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
   const int H = hidden;
   const int H3 = 3 * H;
-  const int H8 = 8 * H;
+  const int AS = (LEGACY ? 5 : 8) * H;  // row strides: activations,
+  const int HS = LEGACY ? 5 * H : H;    // h_prev,
+  const int IS = LEGACY ? 12 * H : H3;  // dih,
+  const int NS = LEGACY ? 12 * H : H;   // dhn
   // wr[(m*UPC + u)*3H + col] = W_m[j0 + u][col]; m: 0 w_hh1, 1 w_ih1, 2 w_hh0
   float* wr = smem;                     // 3 * UPC * 3H
   float* red = wr + 3 * UPC * H3;       // ROWS * UPC * 3 reduced products
@@ -109,7 +127,8 @@ __global__ void __launch_bounds__(NT) gru2_bwd_chain_kernel(
   const int lane = tid % 32;
   const int j0 = blockIdx.x * UPC;
   const size_t BH = (size_t)batch * H;
-  const size_t BG = (size_t)batch * H3;
+  const size_t BI = (size_t)batch * IS;
+  const size_t BN = (size_t)batch * NS;
 
   for (int i = tid; i < UPC * H3; i += NT) {
     const int u = i / H3, col = i % H3;
@@ -149,18 +168,21 @@ __global__ void __launch_bounds__(NT) gru2_bwd_chain_kernel(
       const int cb = bt0 + cr;
       const size_t o = (size_t)cb * H + j;
       // the cell's residuals come from device memory: start them first
-      float act[4], hp = 0.0f, kv = 0.0f;
+      float act[4], hp = 0.0f, kv = 0.0f, dy = 0.0f;
       if (cell && cl == 1 && do1) {
-        const float* pk = packed + ((size_t)t1 * batch + cb) * H8 + j;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) act[i] = __ldg(pk + (4 + i) * H);
-        hp = __ldg(h1p + (size_t)t1 * BH + o);
-      }
-      if (cell && cl == 0 && do0) {
-        const float* pk = packed + ((size_t)t0 * batch + cb) * H8 + j;
+        const size_t r = (size_t)t1 * batch + cb;
+        const float* pk = act1 + r * AS + j;
 #pragma unroll
         for (int i = 0; i < 4; ++i) act[i] = __ldg(pk + i * H);
-        hp = __ldg(h0p + (size_t)t0 * BH + o);
+        hp = __ldg(h1p + r * HS + j);
+        if (dys != nullptr) dy = __ldg(dys + (size_t)t1 * BH + o);
+      }
+      if (cell && cl == 0 && do0) {
+        const size_t r = (size_t)t0 * batch + cb;
+        const float* pk = act0 + r * AS + j;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) act[i] = __ldg(pk + i * H);
+        hp = __ldg(h0p + r * HS + j);
         kv = __ldg(keep + (size_t)t0 * BH + o);
       }
 
@@ -175,13 +197,13 @@ __global__ void __launch_bounds__(NT) gru2_bwd_chain_kernel(
         for (int r = 0; r < RPW; ++r) {
           const int row = bt0 + warp + NW * r;
           if (row >= batch) continue;  // warp-uniform
-          const float4* i1 = reinterpret_cast<const float4*>(dih1 + (size_t)t0 * BG + (size_t)row * H3);
-          const float4* n1 = reinterpret_cast<const float4*>(dhn1 + (size_t)t0 * BH + (size_t)row * H);
+          const float4* i1 = reinterpret_cast<const float4*>(dih1 + (size_t)t0 * BI + (size_t)row * IS);
+          const float4* n1 = reinterpret_cast<const float4*>(dhn1 + (size_t)t0 * BN + (size_t)row * NS);
           const float4* i0 = nullptr;
           const float4* n0 = nullptr;
           if (have0) {
-            i0 = reinterpret_cast<const float4*>(dih0 + (size_t)(t0 + 1) * BG + (size_t)row * H3);
-            n0 = reinterpret_cast<const float4*>(dhn0 + (size_t)(t0 + 1) * BH + (size_t)row * H);
+            i0 = reinterpret_cast<const float4*>(dih0 + (size_t)(t0 + 1) * BI + (size_t)row * IS);
+            n0 = reinterpret_cast<const float4*>(dhn0 + (size_t)(t0 + 1) * BN + (size_t)row * NS);
           }
           for (int c0 = lane; c0 < g4; c0 += 32 * LOADS) {
             // vi1: dih1 (the hop's row); vh1, vh0: dhh1, dhh0
@@ -240,21 +262,31 @@ __global__ void __launch_bounds__(NT) gru2_bwd_chain_kernel(
       const float* rd = red + (cr * UPC + cu) * 3;
       if (cell && cl == 1 && do1) {
         float* dd = dd1s + cb * UPC + cu;
+        float dh = *dd + rd[0];
+        if (dys != nullptr) dh += dy;
         float d[4];
-        *dd = cell_bwd(*dd + rd[0], hp, act, d);
-        float* out = dih1 + (size_t)t1 * BG + (size_t)cb * H3 + j;
+        *dd = cell_bwd(dh, hp, act, d);
+        float* out = dih1 + (size_t)t1 * BI + (size_t)cb * IS + j;
 #pragma unroll
         for (int i = 0; i < 3; ++i) out[i * H] = d[i];
-        dhn1[(size_t)t1 * BH + o] = d[3];
+        if (LEGACY) {  // dhh's r and z lanes
+          out[3 * H] = d[0];
+          out[4 * H] = d[1];
+        }
+        dhn1[(size_t)t1 * BN + (size_t)cb * NS + j] = d[3];
       }
       if (cell && cl == 0 && do0) {
         float* dd = dd0s + cb * UPC + cu;
         float d[4];
         *dd = cell_bwd((*dd + rd[2]) + rd[1] * kv, hp, act, d);
-        float* out = dih0 + (size_t)t0 * BG + (size_t)cb * H3 + j;
+        float* out = dih0 + (size_t)t0 * BI + (size_t)cb * IS + j;
 #pragma unroll
         for (int i = 0; i < 3; ++i) out[i * H] = d[i];
-        dhn0[(size_t)t0 * BH + o] = d[3];
+        if (LEGACY) {
+          out[3 * H] = d[0];
+          out[4 * H] = d[1];
+        }
+        dhn0[(size_t)t0 * BN + (size_t)cb * NS + j] = d[3];
       }
       __syncthreads();  // red is rewritten by the next pass
     }
@@ -262,25 +294,27 @@ __global__ void __launch_bounds__(NT) gru2_bwd_chain_kernel(
   }
 }
 
-template <int UPC>
-int launch(const float* packed, const float* h0p, const float* h1p,
-           const float* keep, const float* dh_final, const float* w_hh0,
-           const float* w_hh1, const float* w_ih1, float* dih0, float* dhn0,
-           float* dih1, float* dhn1, int batch, int t_len, int hidden,
-           int max_smem, cudaStream_t stream) {
+template <int UPC, bool LEGACY>
+int launch(const float* act0, const float* act1, const float* h0p,
+           const float* h1p, const float* dys, const float* keep,
+           const float* dh_final, const float* w_hh0, const float* w_hh1,
+           const float* w_ih1, float* dih0, float* dhn0, float* dih1,
+           float* dhn1, int batch, int t_len, int hidden, int max_smem,
+           cudaStream_t stream) {
   const size_t smem =
       (size_t)(3 * UPC * 3 * hidden + ROWS * UPC * 3 + 2 * batch * UPC) *
       sizeof(float);
   if (smem > (size_t)max_smem) return kUnsupported;
-  const void* fn = reinterpret_cast<const void*>(&gru2_bwd_chain_kernel<UPC>);
+  const void* fn = reinterpret_cast<const void*>(&gru2_bwd_chain_kernel<UPC, LEGACY>);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  void* args[] = {(void*)&packed, (void*)&h0p,   (void*)&h1p,
-                  (void*)&keep,   (void*)&dh_final, (void*)&w_hh0,
-                  (void*)&w_hh1,  (void*)&w_ih1, (void*)&dih0,
-                  (void*)&dhn0,   (void*)&dih1,  (void*)&dhn1,
-                  (void*)&batch,  (void*)&t_len, (void*)&hidden};
+  void* args[] = {(void*)&act0,  (void*)&act1,     (void*)&h0p,
+                  (void*)&h1p,   (void*)&dys,      (void*)&keep,
+                  (void*)&dh_final, (void*)&w_hh0, (void*)&w_hh1,
+                  (void*)&w_ih1, (void*)&dih0,     (void*)&dhn0,
+                  (void*)&dih1,  (void*)&dhn1,     (void*)&batch,
+                  (void*)&t_len, (void*)&hidden};
   // refuses (cudaErrorCooperativeLaunchTooLarge) a grid that cannot be
   // resident all at once, so the grid barrier cannot deadlock
   err = cudaLaunchCooperativeKernel(fn, dim3(hidden / UPC), dim3(NT), args,
@@ -289,19 +323,15 @@ int launch(const float* packed, const float* h0p, const float* h1p,
   return cudaGetLastError();
 }
 
-}  // namespace
-
 // Units per CTA: the fewest that keep the grid within one CTA per SM, the
 // forward's partition.  UPC 1 and 2 cover H up to twice the SM count (264
 // on the H100); larger H is refused as unsupported.
-extern "C" int gru2_bwd_chain_launch(const float* packed, const float* h0p,
-                                     const float* h1p, const float* keep,
-                                     const float* dh_final,
-                                     const float* w_hh0, const float* w_hh1,
-                                     const float* w_ih1, float* dih0,
-                                     float* dhn0, float* dih1, float* dhn1,
-                                     int batch, int t_len, int hidden,
-                                     void* stream) {
+template <bool LEGACY>
+int dispatch(const float* act0, const float* act1, const float* h0p,
+             const float* h1p, const float* dys, const float* keep,
+             const float* dh_final, const float* w_hh0, const float* w_hh1,
+             const float* w_ih1, float* dih0, float* dhn0, float* dih1,
+             float* dhn1, int batch, int t_len, int hidden, void* stream) {
   if (batch < 1 || t_len < 1 || hidden < 1 || hidden % 4 != 0) {
     return kUnsupported;
   }
@@ -316,13 +346,41 @@ extern "C" int gru2_bwd_chain_launch(const float* packed, const float* h0p,
   const cudaStream_t s = (cudaStream_t)stream;
 #define GRU2_TRY(U)                                                          \
   if (hidden % (U) == 0 && hidden / (U) <= sms)                              \
-    return launch<U>(packed, h0p, h1p, keep, dh_final, w_hh0, w_hh1, w_ih1,  \
-                     dih0, dhn0, dih1, dhn1, batch, t_len, hidden, max_smem, \
-                     s);
+    return launch<U, LEGACY>(act0, act1, h0p, h1p, dys, keep, dh_final,     \
+                             w_hh0, w_hh1, w_ih1, dih0, dhn0, dih1, dhn1,    \
+                             batch, t_len, hidden, max_smem, s);
   GRU2_TRY(1)
   GRU2_TRY(2)
 #undef GRU2_TRY
   return kUnsupported;
+}
+
+}  // namespace
+
+extern "C" int gru2_bwd_chain_launch(const float* packed, const float* h0p,
+                                     const float* h1p, const float* keep,
+                                     const float* dh_final,
+                                     const float* w_hh0, const float* w_hh1,
+                                     const float* w_ih1, float* dih0,
+                                     float* dhn0, float* dih1, float* dhn1,
+                                     int batch, int t_len, int hidden,
+                                     void* stream) {
+  return dispatch<false>(packed, packed + 4 * (size_t)hidden, h0p, h1p, nullptr,
+                         keep, dh_final, w_hh0, w_hh1, w_ih1, dih0, dhn0, dih1,
+                         dhn1, batch, t_len, hidden, stream);
+}
+
+// the legacy form: res0, res1 (T, B, 5H) = [h_prev | r | z | n | hn], dys
+// (T, B, H) or null; out (T, B, 12H) = [dih0 | dhh0 | dih1 | dhh1]
+extern "C" int gru2_bwd_chain_legacy_launch(
+    const float* res0, const float* res1, const float* dys, const float* keep,
+    const float* dh_final, const float* w_hh0, const float* w_hh1,
+    const float* w_ih1, float* out, int batch, int t_len, int hidden,
+    void* stream) {
+  const size_t h = (size_t)hidden;
+  return dispatch<true>(res0 + h, res1 + h, res0, res1, dys, keep, dh_final,
+                        w_hh0, w_hh1, w_ih1, out, out + 5 * h, out + 6 * h,
+                        out + 11 * h, batch, t_len, hidden, stream);
 }
 
 extern "C" const char* gru2_bwd_chain_error_string(int err) {

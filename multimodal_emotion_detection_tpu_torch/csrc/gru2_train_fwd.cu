@@ -1,9 +1,11 @@
 // 2-layer GRU training forward with residuals, for Hopper (sm_90a).
 //
 // Replaces: multimodal_emotion_detection_tpu/ops/lstm_kernel.py::
-// gru2_train_fwd_residuals (kernel body _gru2_fwd_res_kernel).  Same
-// function as the plain PyTorch version ops/lstm_kernel.py::
-// gru2_train_fwd_reference: given layer 0's hoisted input projection
+// gru2_train_fwd_residuals (kernel body _gru2_fwd_res_kernel) and, in its
+// legacy form, gru2_train_fwd_pallas (_gru2_fwd_train_kernel).  Same
+// function as the plain PyTorch versions ops/lstm_kernel.py::
+// gru2_train_fwd_reference and gru2_train_fwd_legacy_reference: given
+// layer 0's hoisted input projection
 // ih0 = x @ w_ih0 + b_ih0 (T, B, 3H, time-major) and the layer-0 -> 1 keep
 // mask (T, B, H), run from zero state for t = 0..T-1
 //
@@ -16,7 +18,12 @@
 //   packed[t]  (B, 8H) = [r0 | z0 | n0 | hn0 | r1 | z1 | n1 | hn1]
 //                        (activations; hn = h_prev @ W_hn + b_hn, before r)
 //   h0p[t], h1p[t] (B, H) = the state BEFORE step t;  x1[t] (B, H)
-//   finals (2, B, H) = [h0, h1] after step T-1.
+//   finals (2, B, H) = [h0, h1] after step T-1;
+// or, in the legacy form (LEGACY, gru2_train_fwd_legacy_launch), the older
+// layout of the TPU kernel _gru2_fwd_train_kernel:
+//   res[t] (B, 10H) = [r0 | z0 | n0 | hn0 | h0 | r1 | z1 | n1 | hn1 | h1],
+//                     h the state AFTER step t
+//   h_final (B, H) = h1 after step T-1.
 //
 // What bounds it on the H100: the serial chain, as for gru2_infer.  At the
 // flagship shape (B=32, T=372, D=64, H=256) the input projection and the
@@ -37,11 +44,18 @@
 // buffer and no extra copy exist; a unit's own previous h comes back from
 // the tile.  A cell thread stores its unit's r, z, n, hn as single floats
 // spread over the 8H row: the stores are not coalesced, which L2 absorbs
-// before they reach device memory.  Exactly T steps run; any B >= 1.
+// before they reach device memory.  The legacy form exchanges through its
+// own h lanes: phase p reads h0(p-1) = res[p-1] lane 4H and h1(p-2) =
+// res[p-2] lane 9H (rows 10H apart), and forms layer 1's input x1(p-1) =
+// h0(p-1) * keep[p-1] from the same tile and a tile of keep inside the
+// product, so it stores no x1.  Every form loads its state tiles a row
+// per warp (state_tile.cuh).  Exactly T steps run; any B >= 1.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "state_tile.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -75,37 +89,6 @@ __device__ __forceinline__ void fma_cols(float (&acc)[G], float x, const float* 
   }
 }
 
-// rows [bt0, bt0 + nb) of a (B, H) state into a (ROWS, H + 1) tile, or
-// zeros for the zero initial state (src == nullptr)
-__device__ __forceinline__ void load_tile(const float* src, float* tile,
-                                          int bt0, int nb, int H, int lane,
-                                          int warp) {
-  if (lane >= nb) return;
-  float* dst = tile + lane * (H + 1);
-  const int h4 = H / 4;
-  if (src == nullptr) {
-    for (int k = warp; k < H; k += NW) dst[k] = 0.0f;
-    return;
-  }
-  const float4* row = reinterpret_cast<const float4*>(src + (size_t)(bt0 + lane) * H);
-  for (int q0 = warp; q0 < h4; q0 += NW * LOADS) {
-    float4 v[LOADS];
-#pragma unroll
-    for (int u = 0; u < LOADS; ++u) {
-      const int q = q0 + NW * u;
-      if (q < h4) v[u] = __ldcg(row + q);
-    }
-#pragma unroll
-    for (int u = 0; u < LOADS; ++u) {
-      const int q = q0 + NW * u;
-      if (q < h4) {
-        float* e = dst + 4 * q;
-        e[0] = v[u].x; e[1] = v[u].y; e[2] = v[u].z; e[3] = v[u].w;
-      }
-    }
-  }
-}
-
 // the GRU cell for one (row, unit): input part ih[3] and recurrent part
 // hh[3] (biases included) of the r, z, n gates, previous h -> new h, and
 // the activations a[4] = {r, z, n, hn} the backward reads
@@ -118,7 +101,7 @@ __device__ __forceinline__ float gru_cell(const float* ih, const float* hh,
   return (1.0f - a[1]) * a[2] + a[1] * h;
 }
 
-template <int UPC>
+template <int UPC, bool LEGACY>
 __global__ void __launch_bounds__(NT) gru2_train_fwd_kernel(
     const float* __restrict__ ih0,    // (T, B, 3H)
     const float* __restrict__ keep,   // (T, B, H)
@@ -128,18 +111,18 @@ __global__ void __launch_bounds__(NT) gru2_train_fwd_kernel(
     const float* __restrict__ b_ih1,  // (3H)
     const float* __restrict__ w_hh1,  // (H, 3H)
     const float* __restrict__ b_hh1,  // (3H)
-    float* packed,                    // (T, B, 8H) out
+    float* packed,                    // (T, B, 8H; legacy: res 10H) out
     float* h0p,                       // (T, B, H) out, also the h0 exchange
     float* h1p,                       // (T, B, H) out, also the h1 exchange
     float* x1,                        // (T, B, H) out, also layer 1's input
-    float* __restrict__ finals,       // (2, B, H) out
+    float* __restrict__ finals,       // (2, B, H) out; legacy: h_final (B, H)
     int batch, int t_len, int hidden) {
   constexpr int G = 3 * UPC;  // gate columns a CTA owns
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
   const int H = hidden;
   const int H3 = 3 * H;
-  const int H8 = 8 * H;
+  const int PW = (LEGACY ? 10 : 8) * H;  // packed row width
   const int HP = H + 1;              // odd row stride: rows in distinct banks
   float* w0 = smem;                  // H * G
   float* wi1 = w0 + H * G;           // H * G
@@ -181,9 +164,19 @@ __global__ void __launch_bounds__(NT) gru2_train_fwd_kernel(
     const bool do0 = p < t_len;  // layer 0 at step p
     const bool do1 = p >= 1;     // layer 1 at step s = p-1
     const int s = p - 1;
-    const float* src_a = (do0 && p >= 1) ? h0p + (size_t)p * BH : nullptr;
-    const float* src_x = do1 ? x1 + (size_t)s * BH : nullptr;
-    const float* src_b = p >= 2 ? h1p + (size_t)s * BH : nullptr;
+    const float* src_a;  // h0(p-1)
+    const float* src_x;  // x1(p-1), or in the legacy form keep[p-1]
+    const float* src_b;  // h1(p-2)
+    if constexpr (LEGACY) {
+      const size_t RW = (size_t)batch * PW;
+      src_a = p >= 1 ? packed + (size_t)(p - 1) * RW + 4 * H : nullptr;
+      src_x = do1 ? keep + (size_t)s * BH : nullptr;
+      src_b = p >= 2 ? packed + (size_t)(p - 2) * RW + 9 * H : nullptr;
+    } else {
+      src_a = (do0 && p >= 1) ? h0p + (size_t)p * BH : nullptr;
+      src_x = do1 ? x1 + (size_t)s * BH : nullptr;
+      src_b = p >= 2 ? h1p + (size_t)s * BH : nullptr;
+    }
 
     for (int bt0 = 0; bt0 < batch; bt0 += ROWS) {
       const int nb = min(ROWS, batch - bt0);
@@ -196,13 +189,14 @@ __global__ void __launch_bounds__(NT) gru2_train_fwd_kernel(
         const float* src = ih0 + ((size_t)p * batch + cb) * H3 + j;
 #pragma unroll
         for (int g = 0; g < 3; ++g) ihv[g] = __ldg(src + g * H);
-        kv = __ldg(keep + (size_t)p * BH + o);
+        if (!LEGACY) kv = __ldg(keep + (size_t)p * BH + o);
       }
 
       __syncthreads();
-      load_tile(src_a, ta, bt0, nb, H, lane, warp);
-      load_tile(src_x, tx, bt0, nb, H, lane, warp);
-      load_tile(src_b, tb, bt0, nb, H, lane, warp);
+      const int rs = LEGACY ? PW : H;  // row stride of the h series
+      state_tile::load_rows<NW, LOADS>(src_a, ta, bt0, nb, H, rs, lane, warp);
+      state_tile::load_rows<NW, LOADS>(src_x, tx, bt0, nb, H, H, lane, warp);
+      state_tile::load_rows<NW, LOADS>(src_b, tb, bt0, nb, H, rs, lane, warp);
       __syncthreads();
 
       float a0[G], a1[G], a2[G];
@@ -214,7 +208,8 @@ __global__ void __launch_bounds__(NT) gru2_train_fwd_kernel(
         const float* rb = tb + lane * HP;
         for (int k = warp; k < H; k += NW) {
           fma_cols<G>(a0, ra[k], w0 + k * G);
-          fma_cols<G>(a1, rx[k], wi1 + k * G);
+          // x1 = h0 * keep, the same product the residual form stores
+          fma_cols<G>(a1, LEGACY ? ra[k] * rx[k] : rx[k], wi1 + k * G);
           fma_cols<G>(a2, rb[k], wh1 + k * G);
         }
       }
@@ -238,15 +233,19 @@ __global__ void __launch_bounds__(NT) gru2_train_fwd_kernel(
           hh[g] = acc + bhh[g];
         }
         const float h = gru_cell(ihv, hh, ta[cr * HP + j], act);
-        float* pk = packed + ((size_t)p * batch + cb) * H8 + j;
+        float* pk = packed + ((size_t)p * batch + cb) * PW + j;
 #pragma unroll
         for (int g = 0; g < 4; ++g) pk[g * H] = act[g];
-        x1[(size_t)p * BH + o] = h * kv;
-        if (p == 0) h0p[o] = 0.0f;
-        if (p + 1 < t_len) {
-          h0p[(size_t)(p + 1) * BH + o] = h;
+        if constexpr (LEGACY) {
+          pk[4 * H] = h;
         } else {
-          finals[o] = h;
+          x1[(size_t)p * BH + o] = h * kv;
+          if (p == 0) h0p[o] = 0.0f;
+          if (p + 1 < t_len) {
+            h0p[(size_t)(p + 1) * BH + o] = h;
+          } else {
+            finals[o] = h;
+          }
         }
       }
       if (cell && cl == 1 && do1) {
@@ -264,14 +263,22 @@ __global__ void __launch_bounds__(NT) gru2_train_fwd_kernel(
           hh[g] = s2 + bhh[g];
         }
         const float h = gru_cell(ih, hh, tb[cr * HP + j], act);
-        float* pk = packed + ((size_t)s * batch + cb) * H8 + j;
+        if constexpr (LEGACY) {
+          float* pk = packed + ((size_t)s * batch + cb) * PW + 5 * H + j;
 #pragma unroll
-        for (int g = 0; g < 4; ++g) pk[(4 + g) * H] = act[g];
-        if (s == 0) h1p[o] = 0.0f;
-        if (s + 1 < t_len) {
-          h1p[(size_t)(s + 1) * BH + o] = h;
+          for (int g = 0; g < 4; ++g) pk[g * H] = act[g];
+          pk[4 * H] = h;
+          if (s + 1 == t_len) finals[o] = h;
         } else {
-          finals[BH + o] = h;
+          float* pk = packed + ((size_t)s * batch + cb) * PW + 4 * H + j;
+#pragma unroll
+          for (int g = 0; g < 4; ++g) pk[g * H] = act[g];
+          if (s == 0) h1p[o] = 0.0f;
+          if (s + 1 < t_len) {
+            h1p[(size_t)(s + 1) * BH + o] = h;
+          } else {
+            finals[BH + o] = h;
+          }
         }
       }
     }
@@ -279,7 +286,7 @@ __global__ void __launch_bounds__(NT) gru2_train_fwd_kernel(
   }
 }
 
-template <int UPC>
+template <int UPC, bool LEGACY>
 int launch(const float* ih0, const float* keep, const float* w_hh0,
            const float* b_hh0, const float* w_ih1, const float* b_ih1,
            const float* w_hh1, const float* b_hh1, float* packed, float* h0p,
@@ -290,7 +297,7 @@ int launch(const float* ih0, const float* keep, const float* w_hh0,
       (size_t)(3 * hidden * G + NW * 3 * G * ROWS + 3 * ROWS * (hidden + 1)) *
       sizeof(float);
   if (smem > (size_t)max_smem) return kUnsupported;
-  const void* fn = reinterpret_cast<const void*>(&gru2_train_fwd_kernel<UPC>);
+  const void* fn = reinterpret_cast<const void*>(&gru2_train_fwd_kernel<UPC, LEGACY>);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -308,17 +315,15 @@ int launch(const float* ih0, const float* keep, const float* w_hh0,
   return cudaGetLastError();
 }
 
-}  // namespace
-
 // Units per CTA: the fewest that keep the grid within one CTA per SM, as in
 // gru2_infer.cu.  UPC 1 and 2 cover H up to twice the SM count (264 on the
 // H100); larger H is refused as unsupported.
-extern "C" int gru2_train_fwd_launch(
-    const float* ih0, const float* keep, const float* w_hh0,
-    const float* b_hh0, const float* w_ih1, const float* b_ih1,
-    const float* w_hh1, const float* b_hh1, float* packed, float* h0p,
-    float* h1p, float* x1, float* finals, int batch, int t_len, int hidden,
-    void* stream) {
+template <bool LEGACY>
+int dispatch(const float* ih0, const float* keep, const float* w_hh0,
+             const float* b_hh0, const float* w_ih1, const float* b_ih1,
+             const float* w_hh1, const float* b_hh1, float* packed, float* h0p,
+             float* h1p, float* x1, float* finals, int batch, int t_len,
+             int hidden, void* stream) {
   if (batch < 1 || t_len < 1 || hidden < 1 || hidden % 4 != 0) {
     return kUnsupported;
   }
@@ -333,13 +338,38 @@ extern "C" int gru2_train_fwd_launch(
   const cudaStream_t s = (cudaStream_t)stream;
 #define GRU2_TRY(U)                                                          \
   if (hidden % (U) == 0 && hidden / (U) <= sms)                              \
-    return launch<U>(ih0, keep, w_hh0, b_hh0, w_ih1, b_ih1, w_hh1, b_hh1,    \
-                     packed, h0p, h1p, x1, finals, batch, t_len, hidden,     \
-                     max_smem, s);
+    return launch<U, LEGACY>(ih0, keep, w_hh0, b_hh0, w_ih1, b_ih1, w_hh1,   \
+                             b_hh1, packed, h0p, h1p, x1, finals, batch,     \
+                             t_len, hidden, max_smem, s);
   GRU2_TRY(1)
   GRU2_TRY(2)
 #undef GRU2_TRY
   return kUnsupported;
+}
+
+}  // namespace
+
+extern "C" int gru2_train_fwd_launch(
+    const float* ih0, const float* keep, const float* w_hh0,
+    const float* b_hh0, const float* w_ih1, const float* b_ih1,
+    const float* w_hh1, const float* b_hh1, float* packed, float* h0p,
+    float* h1p, float* x1, float* finals, int batch, int t_len, int hidden,
+    void* stream) {
+  return dispatch<false>(ih0, keep, w_hh0, b_hh0, w_ih1, b_ih1, w_hh1, b_hh1,
+                         packed, h0p, h1p, x1, finals, batch, t_len, hidden,
+                         stream);
+}
+
+// the legacy form: res (T, B, 10H) = [r0|z0|n0|hn0|h0 | r1|z1|n1|hn1|h1]
+// after each step, h_final (B, H)
+extern "C" int gru2_train_fwd_legacy_launch(
+    const float* ih0, const float* keep, const float* w_hh0,
+    const float* b_hh0, const float* w_ih1, const float* b_ih1,
+    const float* w_hh1, const float* b_hh1, float* res, float* h_final,
+    int batch, int t_len, int hidden, void* stream) {
+  return dispatch<true>(ih0, keep, w_hh0, b_hh0, w_ih1, b_ih1, w_hh1, b_hh1,
+                        res, nullptr, nullptr, nullptr, h_final, batch, t_len,
+                        hidden, stream);
 }
 
 extern "C" const char* gru2_train_fwd_error_string(int err) {

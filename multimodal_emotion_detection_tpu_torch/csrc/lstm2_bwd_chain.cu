@@ -2,20 +2,27 @@
 //
 // Replaces: multimodal_emotion_detection_tpu/ops/lstm_kernel.py::
 // lstm2_bwd_chain_padded (kernel body _lstm2_bwd_res_kernel, per-step math
-// _lstm2_step_fn).  Same function as the plain PyTorch version
-// ops/lstm_kernel.py::lstm2_bwd_chain_reference: over the residuals of
-// lstm2_train_fwd (packed (T, B, 10H) = [g0 | g1 | c0_prev | c1_prev], the
-// keep mask (T, B, H)) and the cotangent of layer 1's final hidden state
-// dh_final (B, H), walk t = T-1 .. 0 with carries dh1, dc1, dh0, dc0
-// (dh1 = dh_final, the rest zero, at the start):
+// _lstm2_step_fn) and, in its legacy form, lstm2_bwd_chain_pallas
+// (_lstm2_bwd_kernel).  Same function as the plain PyTorch versions
+// ops/lstm_kernel.py::lstm2_bwd_chain_reference and
+// lstm2_bwd_chain_legacy_reference: over the residuals of lstm2_train_fwd
+// (packed (T, B, 10H) = [g0 | g1 | c0_prev | c1_prev], the keep mask
+// (T, B, H)) and the cotangent of layer 1's final hidden state dh_final
+// (B, H), walk t = T-1 .. 0 with carries dh1, dc1, dh0, dc0 (dh1 =
+// dh_final, the rest zero, at the start):
 //
-//   (dg1, dc1) = cell_bwd(g1[t], c1_prev[t], dh1, dc1)
+//   (dg1, dc1) = cell_bwd(g1[t], c1_prev[t], dh1 + dys[t], dc1)
 //   dh1 = dg1 @ w_hh1^T ;  dx1 = dg1 @ w_ih1^T
 //   (dg0, dc0) = cell_bwd(g0[t], c0_prev[t], dh0 + dx1 * keep[t], dc0)
 //   dh0 = dg0 @ w_hh0^T
 //
-// and write dg0[t], dg1[t] (T, B, 4H each).  The hoisted weight gradients
-// are plain matrix products outside (ops/lstm_vjp.py).
+// and write dg0[t], dg1[t] (T, B, 4H each).  The legacy form
+// (lstm2_bwd_chain_legacy_launch) reads the older layout's separate series
+// g0, g1 (T, B, 4H), c0_prev, c1_prev (T, B, H) and, where one is given,
+// the sequence output's cotangent dys (T, B, H; without it the stream is
+// not read), and writes dg (T, B, 8H) = [dg0 | dg1]; the residual form has
+// no dys.  The hoisted weight gradients are plain matrix products outside
+// (ops/lstm_vjp.py).
 //
 // What bounds it on the H100: the serial chain.  At the flagship shape
 // (B=32, T=372, H=256) the three products per step are 18.7 GFLOP and the
@@ -35,7 +42,8 @@
 // step T-1-q and layer 0 at step T-q, which consumes dx1 from layer 1's
 // dg1 of the phase before; one grid barrier per phase, T+1 in all.  The
 // cell threads load their residuals before the products, to hide that
-// latency.  Exactly T steps run; any B >= 1.
+// latency.  The two forms differ only in their row strides.  Exactly T
+// steps run; any B >= 1.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -75,22 +83,31 @@ __device__ __forceinline__ float cell_bwd(const float* g, float c_prev,
   return dcs * sf;
 }
 
-template <int UPC>
+// residual form: g0, g1, c0_prev, c1_prev are lanes 0, 4H, 8H, 9H of the
+// packed (T, B, 10H) rows, dys is null, dg0 and dg1 are (T, B, 4H); legacy
+// form: four separate series, dg0 and dg1 lanes 0 and 4H of (T, B, 8H) rows
+template <int UPC, bool LEGACY>
 __global__ void __launch_bounds__(NT) lstm2_bwd_chain_kernel(
-    const float* __restrict__ packed,    // (T, B, 10H)
+    const float* __restrict__ g0,        // (T, B, .) layer 0's gates
+    const float* __restrict__ g1,        // (T, B, .) layer 1's gates
+    const float* __restrict__ cp0,       // (T, B, .) layer 0's c_prev
+    const float* __restrict__ cp1,       // (T, B, .) layer 1's c_prev
+    const float* __restrict__ dys,       // (T, B, H) or null
     const float* __restrict__ keep,      // (T, B, H)
     const float* __restrict__ dh_final,  // (B, H)
     const float* __restrict__ w_hh0,     // (H, 4H)
     const float* __restrict__ w_hh1,     // (H, 4H)
     const float* __restrict__ w_ih1,     // (H, 4H)
-    float* dg0,                          // (T, B, 4H) out, also the exchange
-    float* dg1,                          // (T, B, 4H) out, also the exchange
+    float* dg0,                          // (T, B, .) out, also the exchange
+    float* dg1,                          // (T, B, .) out, also the exchange
     int batch, int t_len, int hidden) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
   const int H = hidden;
   const int H4 = 4 * H;
-  const int H10 = 10 * H;
+  const int GS = LEGACY ? H4 : 10 * H;  // row strides: gates,
+  const int CS = LEGACY ? H : 10 * H;   // c_prev,
+  const int DS = LEGACY ? 8 * H : H4;   // dgates
   // wr[(m*UPC + u)*4H + col] = W_m[j0 + u][col]; m: 0 w_hh1, 1 w_ih1, 2 w_hh0
   float* wr = smem;                     // 3 * UPC * 4H
   float* red = wr + 3 * UPC * H4;       // ROWS * UPC * 3 reduced products
@@ -102,7 +119,7 @@ __global__ void __launch_bounds__(NT) lstm2_bwd_chain_kernel(
   const int lane = tid % 32;
   const int j0 = blockIdx.x * UPC;
   const size_t BH = (size_t)batch * H;
-  const size_t BG = (size_t)batch * H4;
+  const size_t BG = (size_t)batch * DS;
 
   for (int i = tid; i < UPC * H4; i += NT) {
     const int u = i / H4, col = i % H4;
@@ -137,19 +154,22 @@ __global__ void __launch_bounds__(NT) lstm2_bwd_chain_kernel(
       const int cb = bt0 + cr;
       const size_t o = (size_t)cb * H + j;
       // the cell's residuals come from device memory: start them first
-      float g[4], c_prev = 0.0f, kv = 0.0f, dhf = 0.0f;
+      float g[4], c_prev = 0.0f, kv = 0.0f, dhf = 0.0f, dy = 0.0f;
       if (cell && cl == 1 && do1) {
-        const float* pk = packed + ((size_t)t1 * batch + cb) * H10 + j;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) g[i] = __ldg(pk + (4 + i) * H);
-        c_prev = __ldg(pk + 9 * H);
-        if (q == 0) dhf = __ldg(dh_final + o);
-      }
-      if (cell && cl == 0 && do0) {
-        const float* pk = packed + ((size_t)t0 * batch + cb) * H10 + j;
+        const size_t r = (size_t)t1 * batch + cb;
+        const float* pk = g1 + r * GS + j;
 #pragma unroll
         for (int i = 0; i < 4; ++i) g[i] = __ldg(pk + i * H);
-        c_prev = __ldg(pk + 8 * H);
+        c_prev = __ldg(cp1 + r * CS + j);
+        if (q == 0) dhf = __ldg(dh_final + o);
+        if (dys != nullptr) dy = __ldg(dys + (size_t)t1 * BH + o);
+      }
+      if (cell && cl == 0 && do0) {
+        const size_t r = (size_t)t0 * batch + cb;
+        const float* pk = g0 + r * GS + j;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) g[i] = __ldg(pk + i * H);
+        c_prev = __ldg(cp0 + r * CS + j);
         kv = __ldg(keep + (size_t)t0 * BH + o);
       }
 
@@ -164,9 +184,9 @@ __global__ void __launch_bounds__(NT) lstm2_bwd_chain_kernel(
         for (int r = 0; r < RPW; ++r) {
           const int row = bt0 + warp + NW * r;
           if (row >= batch) continue;  // warp-uniform
-          const float4* r1 = reinterpret_cast<const float4*>(src1 + (size_t)row * H4);
+          const float4* r1 = reinterpret_cast<const float4*>(src1 + (size_t)row * DS);
           const float4* r0 = src0 != nullptr
-              ? reinterpret_cast<const float4*>(src0 + (size_t)row * H4) : nullptr;
+              ? reinterpret_cast<const float4*>(src0 + (size_t)row * DS) : nullptr;
           for (int c0 = lane; c0 < h4; c0 += 32 * LOADS) {
             float4 v1[LOADS], v0[LOADS];
 #pragma unroll
@@ -219,10 +239,11 @@ __global__ void __launch_bounds__(NT) lstm2_bwd_chain_kernel(
 
       const float* rd = red + (cr * UPC + cu) * 3;
       if (cell && cl == 1 && do1) {
-        const float dh = q == 0 ? dhf : rd[0];
+        float dh = q == 0 ? dhf : rd[0];
+        if (dys != nullptr) dh += dy;
         float d[4];
         dc1s[cb * UPC + cu] = cell_bwd(g, c_prev, dh, dc1s[cb * UPC + cu], d);
-        float* out = dg1 + (size_t)t1 * BG + (size_t)cb * H4 + j;
+        float* out = dg1 + (size_t)t1 * BG + (size_t)cb * DS + j;
 #pragma unroll
         for (int i = 0; i < 4; ++i) out[i * H] = d[i];
       }
@@ -230,7 +251,7 @@ __global__ void __launch_bounds__(NT) lstm2_bwd_chain_kernel(
         const float dh = rd[2] + rd[1] * kv;
         float d[4];
         dc0s[cb * UPC + cu] = cell_bwd(g, c_prev, dh, dc0s[cb * UPC + cu], d);
-        float* out = dg0 + (size_t)t0 * BG + (size_t)cb * H4 + j;
+        float* out = dg0 + (size_t)t0 * BG + (size_t)cb * DS + j;
 #pragma unroll
         for (int i = 0; i < 4; ++i) out[i * H] = d[i];
       }
@@ -240,23 +261,25 @@ __global__ void __launch_bounds__(NT) lstm2_bwd_chain_kernel(
   }
 }
 
-template <int UPC>
-int launch(const float* packed, const float* keep, const float* dh_final,
-           const float* w_hh0, const float* w_hh1, const float* w_ih1,
-           float* dg0, float* dg1, int batch, int t_len, int hidden,
-           int max_smem, cudaStream_t stream) {
+template <int UPC, bool LEGACY>
+int launch(const float* g0, const float* g1, const float* cp0,
+           const float* cp1, const float* dys, const float* keep,
+           const float* dh_final, const float* w_hh0, const float* w_hh1,
+           const float* w_ih1, float* dg0, float* dg1, int batch, int t_len,
+           int hidden, int max_smem, cudaStream_t stream) {
   const size_t smem =
       (size_t)(3 * UPC * 4 * hidden + ROWS * UPC * 3 + 2 * batch * UPC) *
       sizeof(float);
   if (smem > (size_t)max_smem) return kUnsupported;
-  const void* fn = reinterpret_cast<const void*>(&lstm2_bwd_chain_kernel<UPC>);
+  const void* fn = reinterpret_cast<const void*>(&lstm2_bwd_chain_kernel<UPC, LEGACY>);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  void* args[] = {(void*)&packed, (void*)&keep,  (void*)&dh_final,
-                  (void*)&w_hh0,  (void*)&w_hh1, (void*)&w_ih1,
-                  (void*)&dg0,    (void*)&dg1,   (void*)&batch,
-                  (void*)&t_len,  (void*)&hidden};
+  void* args[] = {(void*)&g0,    (void*)&g1,       (void*)&cp0,
+                  (void*)&cp1,   (void*)&dys,      (void*)&keep,
+                  (void*)&dh_final, (void*)&w_hh0, (void*)&w_hh1,
+                  (void*)&w_ih1, (void*)&dg0,      (void*)&dg1,
+                  (void*)&batch, (void*)&t_len,    (void*)&hidden};
   // refuses (cudaErrorCooperativeLaunchTooLarge) a grid that cannot be
   // resident all at once, so the grid barrier cannot deadlock
   err = cudaLaunchCooperativeKernel(fn, dim3(hidden / UPC), dim3(NT), args,
@@ -265,17 +288,15 @@ int launch(const float* packed, const float* keep, const float* dh_final,
   return cudaGetLastError();
 }
 
-}  // namespace
-
 // Units per CTA: the fewest that keep the grid within one CTA per SM, the
 // forward's partition.  UPC 1 and 2 cover H up to twice the SM count (264
 // on the H100); larger H is refused as unsupported.
-extern "C" int lstm2_bwd_chain_launch(const float* packed, const float* keep,
-                                      const float* dh_final,
-                                      const float* w_hh0, const float* w_hh1,
-                                      const float* w_ih1, float* dg0,
-                                      float* dg1, int batch, int t_len,
-                                      int hidden, void* stream) {
+template <bool LEGACY>
+int dispatch(const float* g0, const float* g1, const float* cp0,
+             const float* cp1, const float* dys, const float* keep,
+             const float* dh_final, const float* w_hh0, const float* w_hh1,
+             const float* w_ih1, float* dg0, float* dg1, int batch, int t_len,
+             int hidden, void* stream) {
   if (batch < 1 || t_len < 1 || hidden < 1 || hidden % 4 != 0) {
     return kUnsupported;
   }
@@ -290,12 +311,39 @@ extern "C" int lstm2_bwd_chain_launch(const float* packed, const float* keep,
   const cudaStream_t s = (cudaStream_t)stream;
 #define LSTM2_TRY(U)                                                         \
   if (hidden % (U) == 0 && hidden / (U) <= sms)                              \
-    return launch<U>(packed, keep, dh_final, w_hh0, w_hh1, w_ih1, dg0, dg1,  \
-                     batch, t_len, hidden, max_smem, s);
+    return launch<U, LEGACY>(g0, g1, cp0, cp1, dys, keep, dh_final, w_hh0,   \
+                             w_hh1, w_ih1, dg0, dg1, batch, t_len, hidden,   \
+                             max_smem, s);
   LSTM2_TRY(1)
   LSTM2_TRY(2)
 #undef LSTM2_TRY
   return kUnsupported;
+}
+
+}  // namespace
+
+extern "C" int lstm2_bwd_chain_launch(const float* packed, const float* keep,
+                                      const float* dh_final,
+                                      const float* w_hh0, const float* w_hh1,
+                                      const float* w_ih1, float* dg0,
+                                      float* dg1, int batch, int t_len,
+                                      int hidden, void* stream) {
+  const size_t h = (size_t)hidden;
+  return dispatch<false>(packed, packed + 4 * h, packed + 8 * h, packed + 9 * h,
+                         nullptr, keep, dh_final, w_hh0, w_hh1, w_ih1, dg0, dg1,
+                         batch, t_len, hidden, stream);
+}
+
+// the legacy form: separate g0, g1 (T, B, 4H), cp0, cp1 (T, B, H), dys
+// (T, B, H) or null; dg (T, B, 8H) = [dg0 | dg1]
+extern "C" int lstm2_bwd_chain_legacy_launch(
+    const float* g0, const float* g1, const float* cp0, const float* cp1,
+    const float* dys, const float* keep, const float* dh_final,
+    const float* w_hh0, const float* w_hh1, const float* w_ih1, float* dg,
+    int batch, int t_len, int hidden, void* stream) {
+  return dispatch<true>(g0, g1, cp0, cp1, dys, keep, dh_final, w_hh0, w_hh1,
+                        w_ih1, dg, dg + 4 * (size_t)hidden, batch, t_len,
+                        hidden, stream);
 }
 
 extern "C" const char* lstm2_bwd_chain_error_string(int err) {

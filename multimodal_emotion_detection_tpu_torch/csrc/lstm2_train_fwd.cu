@@ -1,9 +1,11 @@
 // 2-layer LSTM training forward with residuals, for Hopper (sm_90a).
 //
 // Replaces: multimodal_emotion_detection_tpu/ops/lstm_kernel.py::
-// lstm2_train_fwd_residuals (kernel body _lstm2_fwd_res_kernel).  Same
-// function as the plain PyTorch version ops/lstm_kernel.py::
-// lstm2_train_fwd_reference: given layer 0's hoisted input projection
+// lstm2_train_fwd_residuals (kernel body _lstm2_fwd_res_kernel) and, in
+// its legacy form, lstm2_train_fwd_pallas (_lstm2_fwd_train_kernel).  Same
+// function as the plain PyTorch versions ops/lstm_kernel.py::
+// lstm2_train_fwd_reference and lstm2_train_fwd_legacy_reference: given
+// layer 0's hoisted input projection
 // ih0 = x @ w_ih0 + b0 (T, B, 4H, time-major) and the layer-0 -> 1 keep
 // mask (T, B, H), run from zero state for t = 0..T-1
 //
@@ -17,7 +19,11 @@
 //              the reverse chain that recomputes the gates,
 //              lstm2_bwd_chain_remat.cu) (B, 2H) = [c0_prev | c1_prev]
 //   h0p[t], h1p[t] (B, H) = the state BEFORE step t;  x1[t] (B, H)
-//   finals (4, B, H) = [h0, c0, h1, c1] after step T-1.
+//   finals (4, B, H) = [h0, c0, h1, c1] after step T-1;
+// or, in the legacy form (LEGACY, lstm2_train_fwd_legacy_launch), the
+// older layout of the TPU kernel _lstm2_fwd_train_kernel:
+//   res[t] (B, 12H) = [g0 | g1 | h0 | h1 | c0 | c1], the states AFTER step t
+//   h_final (B, H) = h1 after step T-1.
 //
 // What bounds it on the H100: the serial chain, as for lstm2_infer.  At the
 // flagship shape (B=32, T=372, H=256) the recurrent products are 18.7 GFLOP
@@ -37,11 +43,18 @@
 // cell thread stores its unit's 4 gates and c_prev as single floats spread
 // over the 10H row: the stores are not coalesced, which L2 absorbs before
 // they reach device memory; the no-gates form skips the 8H of gate stores.
+// The legacy form exchanges through its own h lanes: phase p reads
+// h0(p-1) = res[p-1] lane 8H and h1(p-2) = res[p-2] lane 9H (rows 12H
+// apart), and forms layer 1's input x1(p-1) = h0(p-1) * keep[p-1] from the
+// same tile and a tile of keep inside the product, so it stores no x1.
+// Every form loads its state tiles a row per warp (state_tile.cuh).
 // Exactly T steps run; any B >= 1.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "state_tile.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -57,38 +70,7 @@ __device__ __forceinline__ float sigmoidf(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-// rows [bt0, bt0 + nb) of a (B, H) state into a (ROWS, H + 1) tile, or
-// zeros for the zero initial state (src == nullptr)
-__device__ __forceinline__ void load_tile(const float* src, float* tile,
-                                          int bt0, int nb, int H, int lane,
-                                          int warp) {
-  if (lane >= nb) return;
-  float* dst = tile + lane * (H + 1);
-  const int h4 = H / 4;
-  if (src == nullptr) {
-    for (int k = warp; k < H; k += NW) dst[k] = 0.0f;
-    return;
-  }
-  const float4* row = reinterpret_cast<const float4*>(src + (size_t)(bt0 + lane) * H);
-  for (int q0 = warp; q0 < h4; q0 += NW * LOADS) {
-    float4 v[LOADS];
-#pragma unroll
-    for (int u = 0; u < LOADS; ++u) {
-      const int q = q0 + NW * u;
-      if (q < h4) v[u] = __ldcg(row + q);
-    }
-#pragma unroll
-    for (int u = 0; u < LOADS; ++u) {
-      const int q = q0 + NW * u;
-      if (q < h4) {
-        float* e = dst + 4 * q;
-        e[0] = v[u].x; e[1] = v[u].y; e[2] = v[u].z; e[3] = v[u].w;
-      }
-    }
-  }
-}
-
-template <int UPC, bool STORE_GATES>
+template <int UPC, bool STORE_GATES, bool LEGACY>
 __global__ void __launch_bounds__(NT) lstm2_train_fwd_kernel(
     const float* __restrict__ ih0,    // (T, B, 4H)
     const float* __restrict__ keep,   // (T, B, H)
@@ -96,18 +78,18 @@ __global__ void __launch_bounds__(NT) lstm2_train_fwd_kernel(
     const float* __restrict__ w_ih1,  // (H, 4H)
     const float* __restrict__ b1,     // (4H)
     const float* __restrict__ w_hh1,  // (H, 4H)
-    float* packed,                    // (T, B, 10H or 2H) out
+    float* packed,                    // (T, B, 10H or 2H; legacy: res 12H) out
     float* h0p,                       // (T, B, H) out, also the h0 exchange
     float* h1p,                       // (T, B, H) out, also the h1 exchange
     float* x1,                        // (T, B, H) out, also layer 1's input
-    float* __restrict__ finals,       // (4, B, H) out
+    float* __restrict__ finals,       // (4, B, H) out; legacy: h_final (B, H)
     int batch, int t_len, int hidden) {
   constexpr int G = 4 * UPC;  // gate columns a CTA owns
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
   const int H = hidden;
   const int H4 = 4 * H;
-  const int PW = (STORE_GATES ? 10 : 2) * H;  // packed row width
+  const int PW = (LEGACY ? 12 : STORE_GATES ? 10 : 2) * H;  // packed row width
   const int HP = H + 1;              // odd row stride: rows in distinct banks
   float* w0 = smem;                  // H * G
   float* wi1 = w0 + H * G;           // H * G
@@ -150,9 +132,19 @@ __global__ void __launch_bounds__(NT) lstm2_train_fwd_kernel(
     const bool do0 = p < t_len;  // layer 0 at step p
     const bool do1 = p >= 1;     // layer 1 at step s = p-1
     const int s = p - 1;
-    const float* src_a = (do0 && p >= 1) ? h0p + (size_t)p * BH : nullptr;
-    const float* src_x = do1 ? x1 + (size_t)s * BH : nullptr;
-    const float* src_b = p >= 2 ? h1p + (size_t)s * BH : nullptr;
+    const float* src_a;  // h0(p-1)
+    const float* src_x;  // x1(p-1), or in the legacy form keep[p-1]
+    const float* src_b;  // h1(p-2)
+    if constexpr (LEGACY) {
+      const size_t RW = (size_t)batch * PW;
+      src_a = p >= 1 ? packed + (size_t)(p - 1) * RW + 8 * H : nullptr;
+      src_x = do1 ? keep + (size_t)s * BH : nullptr;
+      src_b = p >= 2 ? packed + (size_t)(p - 2) * RW + 9 * H : nullptr;
+    } else {
+      src_a = (do0 && p >= 1) ? h0p + (size_t)p * BH : nullptr;
+      src_x = do1 ? x1 + (size_t)s * BH : nullptr;
+      src_b = p >= 2 ? h1p + (size_t)s * BH : nullptr;
+    }
 
     for (int bt0 = 0; bt0 < batch; bt0 += ROWS) {
       const int nb = min(ROWS, batch - bt0);
@@ -165,13 +157,14 @@ __global__ void __launch_bounds__(NT) lstm2_train_fwd_kernel(
         const float* src = ih0 + ((size_t)p * batch + cb) * H4 + j;
 #pragma unroll
         for (int g = 0; g < 4; ++g) ihv[g] = __ldg(src + g * H);
-        kv = __ldg(keep + (size_t)p * BH + o);
+        if (!LEGACY) kv = __ldg(keep + (size_t)p * BH + o);
       }
 
       __syncthreads();
-      load_tile(src_a, ta, bt0, nb, H, lane, warp);
-      load_tile(src_x, tx, bt0, nb, H, lane, warp);
-      load_tile(src_b, tb, bt0, nb, H, lane, warp);
+      const int rs = LEGACY ? PW : H;  // row stride of the h series
+      state_tile::load_rows<NW, LOADS>(src_a, ta, bt0, nb, H, rs, lane, warp);
+      state_tile::load_rows<NW, LOADS>(src_x, tx, bt0, nb, H, H, lane, warp);
+      state_tile::load_rows<NW, LOADS>(src_b, tb, bt0, nb, H, rs, lane, warp);
       __syncthreads();
 
       float a0[G], a1[G], a2[G];
@@ -183,7 +176,8 @@ __global__ void __launch_bounds__(NT) lstm2_train_fwd_kernel(
         const float* rb = tb + lane * HP;
         for (int k = warp; k < H; k += NW) {
           const float va_ = ra[k];
-          const float vx_ = rx[k];
+          // x1 = h0 * keep, the same product the other forms store
+          const float vx_ = LEGACY ? va_ * rx[k] : rx[k];
           const float vb_ = rb[k];
           const float4* wa = reinterpret_cast<const float4*>(w0 + k * G);
           const float4* wb = reinterpret_cast<const float4*>(wi1 + k * G);
@@ -224,20 +218,27 @@ __global__ void __launch_bounds__(NT) lstm2_train_fwd_kernel(
         const float h = sigmoidf(g4[3]) * tanhf(c);
         c0s[cb * UPC + cu] = c;
         float* pk = packed + ((size_t)p * batch + cb) * PW + j;
-        if (STORE_GATES) {
+        if constexpr (LEGACY) {
 #pragma unroll
           for (int g = 0; g < 4; ++g) pk[g * H] = g4[g];
-          pk[8 * H] = c_prev;
+          pk[8 * H] = h;
+          pk[10 * H] = c;
         } else {
-          pk[0] = c_prev;
-        }
-        x1[(size_t)p * BH + o] = h * kv;
-        if (p == 0) h0p[o] = 0.0f;
-        if (p + 1 < t_len) {
-          h0p[(size_t)(p + 1) * BH + o] = h;
-        } else {
-          finals[o] = h;
-          finals[BH + o] = c;
+          if (STORE_GATES) {
+#pragma unroll
+            for (int g = 0; g < 4; ++g) pk[g * H] = g4[g];
+            pk[8 * H] = c_prev;
+          } else {
+            pk[0] = c_prev;
+          }
+          x1[(size_t)p * BH + o] = h * kv;
+          if (p == 0) h0p[o] = 0.0f;
+          if (p + 1 < t_len) {
+            h0p[(size_t)(p + 1) * BH + o] = h;
+          } else {
+            finals[o] = h;
+            finals[BH + o] = c;
+          }
         }
       }
       if (cell && cl == 1 && do1) {
@@ -258,19 +259,27 @@ __global__ void __launch_bounds__(NT) lstm2_train_fwd_kernel(
         const float h = sigmoidf(g4[3]) * tanhf(c);
         c1s[cb * UPC + cu] = c;
         float* pk = packed + ((size_t)s * batch + cb) * PW + j;
-        if (STORE_GATES) {
+        if constexpr (LEGACY) {
 #pragma unroll
           for (int g = 0; g < 4; ++g) pk[(4 + g) * H] = g4[g];
-          pk[9 * H] = c_prev;
+          pk[9 * H] = h;
+          pk[11 * H] = c;
+          if (s + 1 == t_len) finals[o] = h;
         } else {
-          pk[H] = c_prev;
-        }
-        if (s == 0) h1p[o] = 0.0f;
-        if (s + 1 < t_len) {
-          h1p[(size_t)(s + 1) * BH + o] = h;
-        } else {
-          finals[2 * BH + o] = h;
-          finals[3 * BH + o] = c;
+          if (STORE_GATES) {
+#pragma unroll
+            for (int g = 0; g < 4; ++g) pk[(4 + g) * H] = g4[g];
+            pk[9 * H] = c_prev;
+          } else {
+            pk[H] = c_prev;
+          }
+          if (s == 0) h1p[o] = 0.0f;
+          if (s + 1 < t_len) {
+            h1p[(size_t)(s + 1) * BH + o] = h;
+          } else {
+            finals[2 * BH + o] = h;
+            finals[3 * BH + o] = c;
+          }
         }
       }
     }
@@ -278,7 +287,7 @@ __global__ void __launch_bounds__(NT) lstm2_train_fwd_kernel(
   }
 }
 
-template <int UPC, bool STORE_GATES>
+template <int UPC, bool STORE_GATES, bool LEGACY>
 int launch(const float* ih0, const float* keep, const float* w_hh0,
            const float* w_ih1, const float* b1, const float* w_hh1,
            float* packed, float* h0p, float* h1p, float* x1, float* finals,
@@ -290,7 +299,7 @@ int launch(const float* ih0, const float* keep, const float* w_hh0,
                2 * batch * UPC) * sizeof(float);
   if (smem > (size_t)max_smem) return kUnsupported;
   const void* fn =
-      reinterpret_cast<const void*>(&lstm2_train_fwd_kernel<UPC, STORE_GATES>);
+      reinterpret_cast<const void*>(&lstm2_train_fwd_kernel<UPC, STORE_GATES, LEGACY>);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -310,7 +319,7 @@ int launch(const float* ih0, const float* keep, const float* w_hh0,
 // Units per CTA: the fewest that keep the grid within one CTA per SM, as in
 // lstm2_infer.cu.  UPC 1 and 2 cover H up to twice the SM count (264 on the
 // H100); larger H is refused as unsupported.
-template <bool STORE_GATES>
+template <bool STORE_GATES, bool LEGACY>
 int dispatch(const float* ih0, const float* keep, const float* w_hh0,
              const float* w_ih1, const float* b1, const float* w_hh1,
              float* packed, float* h0p, float* h1p, float* x1, float* finals,
@@ -329,9 +338,9 @@ int dispatch(const float* ih0, const float* keep, const float* w_hh0,
   const cudaStream_t s = (cudaStream_t)stream;
 #define LSTM2_TRY(U)                                                          \
   if (hidden % (U) == 0 && hidden / (U) <= sms)                               \
-    return launch<U, STORE_GATES>(ih0, keep, w_hh0, w_ih1, b1, w_hh1, packed, \
-                                  h0p, h1p, x1, finals, batch, t_len, hidden, \
-                                  max_smem, s);
+    return launch<U, STORE_GATES, LEGACY>(ih0, keep, w_hh0, w_ih1, b1, w_hh1, \
+                                          packed, h0p, h1p, x1, finals, batch, \
+                                          t_len, hidden, max_smem, s);
   LSTM2_TRY(1)
   LSTM2_TRY(2)
 #undef LSTM2_TRY
@@ -345,8 +354,8 @@ extern "C" int lstm2_train_fwd_launch(
     const float* w_ih1, const float* b1, const float* w_hh1, float* packed,
     float* h0p, float* h1p, float* x1, float* finals, int batch, int t_len,
     int hidden, void* stream) {
-  return dispatch<true>(ih0, keep, w_hh0, w_ih1, b1, w_hh1, packed, h0p, h1p,
-                        x1, finals, batch, t_len, hidden, stream);
+  return dispatch<true, false>(ih0, keep, w_hh0, w_ih1, b1, w_hh1, packed, h0p,
+                               h1p, x1, finals, batch, t_len, hidden, stream);
 }
 
 // packed (T, B, 2H) = [c0_prev | c1_prev]: no gates
@@ -355,8 +364,19 @@ extern "C" int lstm2_train_fwd_nogates_launch(
     const float* w_ih1, const float* b1, const float* w_hh1, float* packed,
     float* h0p, float* h1p, float* x1, float* finals, int batch, int t_len,
     int hidden, void* stream) {
-  return dispatch<false>(ih0, keep, w_hh0, w_ih1, b1, w_hh1, packed, h0p, h1p,
-                         x1, finals, batch, t_len, hidden, stream);
+  return dispatch<false, false>(ih0, keep, w_hh0, w_ih1, b1, w_hh1, packed, h0p,
+                                h1p, x1, finals, batch, t_len, hidden, stream);
+}
+
+// the legacy form: res (T, B, 12H) = [g0 | g1 | h0 | h1 | c0 | c1] after
+// each step, h_final (B, H)
+extern "C" int lstm2_train_fwd_legacy_launch(
+    const float* ih0, const float* keep, const float* w_hh0,
+    const float* w_ih1, const float* b1, const float* w_hh1, float* res,
+    float* h_final, int batch, int t_len, int hidden, void* stream) {
+  return dispatch<true, true>(ih0, keep, w_hh0, w_ih1, b1, w_hh1, res, nullptr,
+                              nullptr, nullptr, h_final, batch, t_len, hidden,
+                              stream);
 }
 
 extern "C" const char* lstm2_train_fwd_error_string(int err) {

@@ -23,6 +23,16 @@ Two layers in one launch (H up to twice the SM count):
   (``csrc/lstm2_bwd_chain_remat.cu``) recomputes each step's gate
   pre-activations from the streamed x, h_prev and x1 series.
 
+The legacy-layout twins of the pair (the routes of the JAX package's
+``set_res2_mode("off")``; the same sources, their legacy forms):
+
+* ``lstm2_train_fwd_legacy``: the training forward in the older layout,
+  ``res`` (T, B, 12H) = ``[g0 | g1 | h0 | h1 | c0 | c1]`` with the states
+  AFTER each step, and ``h_final`` (B, H);
+* ``lstm2_bwd_chain_legacy``: both layers' reverse chain over that
+  layout's separate g / c_prev series, with an optional ``dys`` stream,
+  into ``dg`` (T, B, 8H) = ``[dg0 | dg1]``.
+
 One layer per launch, any depth (H up to at least 1024):
 
 * ``lstm1_train_fwd``: one layer's training forward over its hoisted
@@ -47,6 +57,15 @@ the 2-layer LSTM kernels:
   (``csrc/gru2_train_fwd.cu``);
 * ``gru2_bwd_chain``: the reverse chain of both layers, emitting ``dih``
   and only the ``dhn`` lane of ``dhh`` (``csrc/gru2_bwd_chain.cu``).
+
+The GRU legacy-layout twins (``set_res2_mode("off")``; the same sources,
+their legacy forms): ``gru2_train_fwd_legacy`` (``res`` (T, B, 10H) =
+``[r0 | z0 | n0 | hn0 | h0 | r1 | z1 | n1 | hn1 | h1]``, h after each
+step, and ``h_final``) and ``gru2_bwd_chain_legacy`` (over the per-layer
+``[h_prev | r | z | n | hn]`` rows, with an optional ``dys``, into (T, B,
+12H) = ``[dih0 | dhh0 | dih1 | dhh1]`` with the full ``dhh``).  Whether
+the legacy GRU backward takes it or two layered chains is
+``lstm_vjp.GRU_BWD2_ENABLED``'s choice, as in the JAX package.
 
 The GRU residual layout is the JAX package's too: ``packed`` (T, B, 8H) =
 ``[r0 | z0 | n0 | hn0 | r1 | z1 | n1 | hn1]`` (gate activations, and
@@ -243,16 +262,19 @@ def lstm2_bwd_chain_reference(packed: torch.Tensor, keep_tm: torch.Tensor,
 
 
 def _lstm2_chain(t_len: int, step, keep_tm: torch.Tensor, dh_final: torch.Tensor,
-                 w_hh0: torch.Tensor, w_hh1: torch.Tensor, w_ih1: torch.Tensor):
-    """The reverse walk both chains share; ``step(t)`` gives step t's
-    ``(g0, g1, c0_prev, c1_prev)``."""
+                 w_hh0: torch.Tensor, w_hh1: torch.Tensor, w_ih1: torch.Tensor,
+                 dys=None):
+    """The reverse walk the chains share; ``step(t)`` gives step t's
+    ``(g0, g1, c0_prev, c1_prev)``; ``dys`` (T, B, H), where given, adds to
+    layer 1's dh before its cell backward."""
     keep = keep_tm.to(torch.float32)
     dh1 = dh_final.to(torch.float32)
     dc1 = dh0 = dc0 = torch.zeros_like(dh1)
     dg0s, dg1s = [], []
     for t in reversed(range(t_len)):
         g0, g1, c0p, c1p = step(t)
-        dg1, dc1 = _cell_bwd(g1, c1p, dh1, dc1)
+        dh1_t = dh1 if dys is None else dh1 + dys[t].to(torch.float32)
+        dg1, dc1 = _cell_bwd(g1, c1p, dh1_t, dc1)
         dh1 = dg1 @ w_hh1.T
         dx1 = dg1 @ w_ih1.T
         dg0, dc0 = _cell_bwd(g0, c0p, dh0 + dx1 * keep[t], dc0)
@@ -318,6 +340,30 @@ def _check_shapes(name: str, **shaped) -> None:
                 f"{name}: {arg} has shape {tuple(t.shape)}, expected {tuple(shape)}")
 
 
+def _lstm2_fwd_inputs(name: str, x_tm: torch.Tensor, keep_tm: torch.Tensor,
+                      layer0: Params, layer1: Params):
+    """``(ih0, keep, w_hh0, w_ih1, b1, w_hh1)`` of a 2-layer training
+    forward, contiguous and shape-checked, and ``(T, B, H)``."""
+    t_len, batch, _ = x_tm.shape
+    h_dim = layer0["w_hh"].shape[0]
+    if t_len < 1 or batch < 1:
+        raise ValueError(f"{name}: empty input of shape {tuple(x_tm.shape)}")
+    ih0 = _input_projection(x_tm, layer0).contiguous()
+    keep = keep_tm.to(torch.float32).contiguous()
+    w_hh0 = layer0["w_hh"].contiguous()
+    w_ih1 = layer1["w_ih"].contiguous()
+    b1 = layer1["b"].contiguous()
+    w_hh1 = layer1["w_hh"].contiguous()
+    square = (h_dim, 4 * h_dim)
+    _check_shapes(name, keep=(keep, (t_len, batch, h_dim)),
+                  w_hh0=(w_hh0, square), w_ih1=(w_ih1, square),
+                  b1=(b1, (4 * h_dim,)), w_hh1=(w_hh1, square))
+    tensors = (ih0, keep, w_hh0, w_ih1, b1, w_hh1)
+    check_cuda_f32(name, **dict(zip(("ih0", "keep", "w_hh0", "w_ih1", "b1",
+                                     "w_hh1"), tensors)))
+    return tensors, (t_len, batch, h_dim)
+
+
 def lstm2_train_fwd_residuals(x_tm: torch.Tensor, keep_tm: torch.Tensor,
                               layer0: Params, layer1: Params,
                               store_gates: bool = True):
@@ -334,30 +380,15 @@ def lstm2_train_fwd_residuals(x_tm: torch.Tensor, keep_tm: torch.Tensor,
     if x_tm.device.type == "cpu":
         return lstm2_train_fwd_reference(x_tm, keep_tm, layer0, layer1,
                                          store_gates=store_gates)
-    t_len, batch, _ = x_tm.shape
-    h_dim = layer0["w_hh"].shape[0]
-    if t_len < 1 or batch < 1:
-        raise ValueError(f"lstm2_train_fwd: empty input of shape {tuple(x_tm.shape)}")
-    ih0 = _input_projection(x_tm, layer0).contiguous()
-    keep = keep_tm.to(torch.float32).contiguous()
-    w_hh0 = layer0["w_hh"].contiguous()
-    w_ih1 = layer1["w_ih"].contiguous()
-    b1 = layer1["b"].contiguous()
-    w_hh1 = layer1["w_hh"].contiguous()
-    square = (h_dim, 4 * h_dim)
-    _check_shapes("lstm2_train_fwd", keep=(keep, (t_len, batch, h_dim)),
-                  w_hh0=(w_hh0, square), w_ih1=(w_ih1, square),
-                  b1=(b1, (4 * h_dim,)), w_hh1=(w_hh1, square))
+    tensors, (t_len, batch, h_dim) = _lstm2_fwd_inputs(
+        "lstm2_train_fwd", x_tm, keep_tm, layer0, layer1)
     new = dict(dtype=torch.float32, device=x_tm.device)
     width = RES2_W if store_gates else RES3_W
     packed = torch.empty((t_len, batch, width * h_dim), **new)
     h0p, h1p, x1 = (torch.empty((t_len, batch, h_dim), **new) for _ in range(3))
     finals = torch.empty((4, batch, h_dim), **new)
-    check_cuda_f32("lstm2_train_fwd", ih0=ih0, keep=keep, w_hh0=w_hh0,
-                   w_ih1=w_ih1, b1=b1, w_hh1=w_hh1)
     (LSTM2_TRAIN_FWD if store_gates else LSTM2_TRAIN_FWD_NOGATES)(
-        ih0.data_ptr(), keep.data_ptr(), w_hh0.data_ptr(), w_ih1.data_ptr(),
-        b1.data_ptr(), w_hh1.data_ptr(), packed.data_ptr(), h0p.data_ptr(),
+        *(t.data_ptr() for t in tensors), packed.data_ptr(), h0p.data_ptr(),
         h1p.data_ptr(), x1.data_ptr(), finals.data_ptr(), batch, t_len,
         h_dim, stream_of(x_tm),
     )
@@ -455,6 +486,134 @@ def lstm2_bwd_chain_remat(packed: torch.Tensor, keep_tm: torch.Tensor,
         d_in, stream_of(packed),
     )
     return dg0, dg1
+
+
+# ---------------------------------------------------------------------------
+# The 2-layer LSTM pair in the legacy layout (``set_res2_mode("off")``)
+# ---------------------------------------------------------------------------
+
+
+def lstm2_train_fwd_legacy_reference(x_tm: torch.Tensor, keep_tm: torch.Tensor,
+                                     layer0: Params, layer1: Params):
+    """Plain version of the legacy-layout training forward.
+
+    x_tm (T, B, D) time-major, keep_tm (T, B, H) the layer-0 -> 1 keep
+    mask -> ``(ys, h_final, g0, g1, h0_new, c0_new, c1_new)``, the JAX
+    kernel's 7-tuple: the gate pre-activations (T, B, 4H) and the states
+    AFTER each step (T, B, H), ``ys`` being h1's, ``h_final`` (B, H) the
+    last.  Differentiable, so autograd through it is a plain reference for
+    the legacy route's gradients.
+    """
+    ih0 = _input_projection(x_tm, layer0)
+    keep = keep_tm.to(torch.float32)
+    batch, h_dim = x_tm.shape[1], layer0["w_hh"].shape[0]
+    h0 = c0 = h1 = c1 = ih0.new_zeros((batch, h_dim))
+    series = ([], [], [], [], [], [])  # g0, g1, h0, h1, c0, c1
+    for t in range(x_tm.shape[0]):
+        g0 = ih0[t] + h0 @ layer0["w_hh"]
+        h0, c0 = _cell(c0, g0)
+        g1 = ((h0 * keep[t]) @ layer1["w_ih"] + layer1["b"]) + h1 @ layer1["w_hh"]
+        h1, c1 = _cell(c1, g1)
+        for out, val in zip(series, (g0, g1, h0, h1, c0, c1)):
+            out.append(val)
+    g0s, g1s, h0s, ys, c0s, c1s = (torch.stack(s) for s in series)
+    return ys, h1, g0s, g1s, h0s, c0s, c1s
+
+
+def lstm2_bwd_chain_legacy_reference(g0: torch.Tensor, g1: torch.Tensor,
+                                     cp0: torch.Tensor, cp1: torch.Tensor, dys,
+                                     keep_tm: torch.Tensor, dh_final: torch.Tensor,
+                                     w_hh0: torch.Tensor, w_hh1: torch.Tensor,
+                                     w_ih1: torch.Tensor):
+    """Plain version of the legacy reverse chain: ``(dg0, dg1)``, each
+    (T, B, 4H), over the separate gate (T, B, 4H) and c_prev (T, B, H)
+    series; the walk of ``lstm2_bwd_chain_reference``, with ``dys`` (T, B,
+    H, or ``None``: zeros) added to layer 1's dh at each step."""
+    return _lstm2_chain(g0.shape[0], lambda t: (g0[t], g1[t], cp0[t], cp1[t]),
+                        keep_tm, dh_final, w_hh0, w_hh1, w_ih1, dys)
+
+
+LSTM2_TRAIN_FWD_LEGACY = CudaKernel(
+    "lstm2_train_fwd", "lstm2_train_fwd_legacy_launch",
+    [_P] * 8 + [_I, _I, _I, _P],
+)
+LSTM2_BWD_CHAIN_LEGACY = CudaKernel(
+    "lstm2_bwd_chain", "lstm2_bwd_chain_legacy_launch",
+    [_P] * 11 + [_I, _I, _I, _P],
+)
+
+
+def lstm2_train_fwd_legacy(x_tm: torch.Tensor, keep_tm: torch.Tensor,
+                           layer0: Params, layer1: Params):
+    """Legacy-layout training forward: x_tm (T, B, D), keep_tm (T, B, H)
+    -> ``(ys, h_final, g0, g1, h0_new, c0_new, c1_new)``, float32; on the
+    card the series are views of the kernel's one ``res`` (T, B, 12H).
+
+    On a CUDA tensor this launches ``csrc/lstm2_train_fwd.cu``'s legacy
+    form (one cooperative launch) and counts it in
+    ``LSTM2_TRAIN_FWD_LEGACY.launches``; on a CPU tensor it runs
+    ``lstm2_train_fwd_legacy_reference``.
+    """
+    if x_tm.device.type == "cpu":
+        return lstm2_train_fwd_legacy_reference(x_tm, keep_tm, layer0, layer1)
+    tensors, (t_len, batch, h_dim) = _lstm2_fwd_inputs(
+        "lstm2_train_fwd_legacy", x_tm, keep_tm, layer0, layer1)
+    new = dict(dtype=torch.float32, device=x_tm.device)
+    res = torch.empty((t_len, batch, 12 * h_dim), **new)
+    h_final = torch.empty((batch, h_dim), **new)
+    LSTM2_TRAIN_FWD_LEGACY(*(t.data_ptr() for t in tensors), res.data_ptr(),
+                           h_final.data_ptr(), batch, t_len, h_dim,
+                           stream_of(x_tm))
+    g0, g1, h0, ys, c0, c1 = res.split([4 * h_dim, 4 * h_dim] + [h_dim] * 4, dim=-1)
+    return ys, h_final, g0, g1, h0, c0, c1
+
+
+def lstm2_bwd_chain_legacy(g0: torch.Tensor, g1: torch.Tensor, cp0: torch.Tensor,
+                           cp1: torch.Tensor, dys, keep_tm: torch.Tensor,
+                           dh_final: torch.Tensor, w_hh0: torch.Tensor,
+                           w_hh1: torch.Tensor, w_ih1: torch.Tensor):
+    """Legacy reverse chain: ``(dg0, dg1)``, each (T, B, 4H) float32; on
+    the card views of the kernel's one ``dg`` (T, B, 8H).  ``dys`` (T, B,
+    H) is the sequence output's cotangent, or ``None``, and then the kernel
+    reads no stream.
+
+    On a CUDA tensor this launches ``csrc/lstm2_bwd_chain.cu``'s legacy
+    form (one cooperative launch) and counts it in
+    ``LSTM2_BWD_CHAIN_LEGACY.launches``; on a CPU tensor it runs
+    ``lstm2_bwd_chain_legacy_reference``.
+    """
+    if g0.device.type == "cpu":
+        return lstm2_bwd_chain_legacy_reference(g0, g1, cp0, cp1, dys, keep_tm,
+                                                dh_final, w_hh0, w_hh1, w_ih1)
+    if g0.dim() != 3:
+        raise ValueError(f"lstm2_bwd_chain_legacy: g0 has shape {tuple(g0.shape)}, "
+                         "expected (T, B, 4H)")
+    t_len, batch, _ = g0.shape
+    h_dim = w_hh0.shape[0]
+    series, gates, square = (t_len, batch, h_dim), (t_len, batch, 4 * h_dim), (h_dim, 4 * h_dim)
+    tensors = dict(
+        g0=g0.contiguous(), g1=g1.contiguous(), cp0=cp0.contiguous(),
+        cp1=cp1.contiguous(), keep=keep_tm.to(torch.float32).contiguous(),
+        dh_final=dh_final.to(torch.float32).contiguous(), w_hh0=w_hh0.contiguous(),
+        w_hh1=w_hh1.contiguous(), w_ih1=w_ih1.contiguous())
+    shapes = dict(g0=gates, g1=gates, cp0=series, cp1=series, keep=series,
+                  dh_final=(batch, h_dim), w_hh0=square, w_hh1=square, w_ih1=square)
+    if dys is not None:
+        tensors["dys"] = dys.to(torch.float32).contiguous()
+        shapes["dys"] = series
+    _check_shapes("lstm2_bwd_chain_legacy",
+                  **{k: (tensors[k], shapes[k]) for k in tensors})
+    if t_len < 1 or batch < 1:
+        raise ValueError(f"lstm2_bwd_chain_legacy: empty residuals {tuple(g0.shape)}")
+    dg = torch.empty((t_len, batch, 8 * h_dim), dtype=torch.float32, device=g0.device)
+    check_cuda_f32("lstm2_bwd_chain_legacy", **tensors)
+    ptr = {k: t.data_ptr() for k, t in tensors.items()}
+    LSTM2_BWD_CHAIN_LEGACY(
+        ptr["g0"], ptr["g1"], ptr["cp0"], ptr["cp1"], ptr.get("dys"), ptr["keep"],
+        ptr["dh_final"], ptr["w_hh0"], ptr["w_hh1"], ptr["w_ih1"], dg.data_ptr(),
+        batch, t_len, h_dim, stream_of(g0),
+    )
+    return dg[..., :4 * h_dim], dg[..., 4 * h_dim:]
 
 
 # ---------------------------------------------------------------------------
@@ -730,16 +889,34 @@ def gru2_bwd_chain_reference(packed: torch.Tensor, h0p: torch.Tensor,
     """
     _refuse_dys(dys, "GRU", 6)
     h_dim = w_hh0.shape[0]
+
+    def step(t):
+        r0, z0, n0, hn0, r1, z1, n1, hn1 = packed[t].split(h_dim, dim=-1)
+        return (h0p[t], r0, z0, n0, hn0), (h1p[t], r1, z1, n1, hn1)
+
+    return _gru2_chain(packed.shape[0], step, keep_tm, dh_final, w_hh0, w_hh1,
+                       w_ih1)
+
+
+def _gru2_chain(t_len: int, step, keep_tm: torch.Tensor, dh_final: torch.Tensor,
+                w_hh0: torch.Tensor, w_hh1: torch.Tensor, w_ih1: torch.Tensor,
+                dys=None):
+    """The reverse walk both GRU chains share: ``(dih0, dhn0, dih1,
+    dhn1)``; ``step(t)`` gives step t's ``(h_prev, r, z, n, hn)`` of each
+    layer; ``dys`` (T, B, H), where given, adds to layer 1's dh before its
+    cell backward."""
+    h_dim = w_hh0.shape[0]
     keep = keep_tm.to(torch.float32)
     dh1 = dh_final.to(torch.float32)
     dh0 = torch.zeros_like(dh1)
     outs = ([], [], [], [])
-    for t in reversed(range(packed.shape[0])):
-        r0, z0, n0, hn0, r1, z1, n1, hn1 = packed[t].split(h_dim, dim=-1)
-        dih1, dhn1, dd1 = _gru_cell_bwd(dh1, h1p[t], r1, z1, n1, hn1)
+    for t in reversed(range(t_len)):
+        res0, res1 = step(t)
+        dh1_t = dh1 if dys is None else dh1 + dys[t].to(torch.float32)
+        dih1, dhn1, dd1 = _gru_cell_bwd(dh1_t, *res1)
         dh1 = dd1 + torch.cat([dih1[:, :2 * h_dim], dhn1], dim=-1) @ w_hh1.T
         dx1 = dih1 @ w_ih1.T
-        dih0, dhn0, dd0 = _gru_cell_bwd(dh0 + dx1 * keep[t], h0p[t], r0, z0, n0, hn0)
+        dih0, dhn0, dd0 = _gru_cell_bwd(dh0 + dx1 * keep[t], *res0)
         dh0 = dd0 + torch.cat([dih0[:, :2 * h_dim], dhn0], dim=-1) @ w_hh0.T
         for out, val in zip(outs, (dih0, dhn0, dih1, dhn1)):
             out.append(val)
@@ -878,6 +1055,150 @@ def gru2_bwd_chain(packed: torch.Tensor, h0p: torch.Tensor, h1p: torch.Tensor,
         batch, t_len, h_dim, stream_of(packed),
     )
     return dih0, dhn0, dih1, dhn1
+
+
+# ---------------------------------------------------------------------------
+# The 2-layer GRU pair in the legacy layout (``set_res2_mode("off")``)
+# ---------------------------------------------------------------------------
+
+
+def gru2_train_fwd_legacy_reference(x_tm: torch.Tensor, keep_tm: torch.Tensor,
+                                    layer0: Params, layer1: Params):
+    """Plain version of the legacy-layout GRU training forward.
+
+    x_tm (T, B, D), keep_tm (T, B, H) -> ``(ys, h_final, ((r0, z0, n0, hn0,
+    h0_new), (r1, z1, n1, hn1, h1_new)))``, the JAX kernel's structure: each
+    (T, B, H), the gate activations, ``hn = h_prev w_hn + b_hn`` and the
+    state AFTER each step; ``ys`` is ``h1_new``, ``h_final`` (B, H) its
+    last.  Differentiable, so autograd through it is a plain reference for
+    the legacy route's gradients.
+    """
+    ih0 = _gru_input_projection(x_tm, layer0)
+    keep = keep_tm.to(torch.float32)
+    batch, h_dim = x_tm.shape[1], layer0["w_hh"].shape[0]
+    h0 = h1 = ih0.new_zeros((batch, h_dim))
+    series = tuple([] for _ in range(10))
+    for t in range(x_tm.shape[0]):
+        h0, r0, z0, n0, hn0 = _gru_step(h0, ih0[t], layer0["w_hh"], layer0["b_hh"])
+        ih1 = (h0 * keep[t]) @ layer1["w_ih"] + layer1["b_ih"]
+        h1, r1, z1, n1, hn1 = _gru_step(h1, ih1, layer1["w_hh"], layer1["b_hh"])
+        for out, val in zip(series, (r0, z0, n0, hn0, h0, r1, z1, n1, hn1, h1)):
+            out.append(val)
+    stacked = [torch.stack(s) for s in series]
+    return stacked[9], h1, (tuple(stacked[:5]), tuple(stacked[5:]))
+
+
+def gru2_bwd_chain_legacy_reference(res0, res1, dys, keep_tm: torch.Tensor,
+                                    dh_final: torch.Tensor, w_hh0: torch.Tensor,
+                                    w_hh1: torch.Tensor, w_ih1: torch.Tensor):
+    """Plain version of the legacy GRU reverse chain: ``((dih0, dhh0),
+    (dih1, dhh1))``, each (T, B, 3H), over ``res0``, ``res1`` the layers'
+    ``(h_prev, r, z, n, hn)`` series (T, B, H); the walk of
+    ``gru2_bwd_chain_reference`` with ``dys`` (T, B, H, or ``None``: zeros)
+    added to layer 1's dh, and the full ``dhh = [dih[:, :2H] | dhn]``."""
+    h_dim = w_hh0.shape[0]
+    dih0, dhn0, dih1, dhn1 = _gru2_chain(
+        res0[0].shape[0], lambda t: ([a[t] for a in res0], [a[t] for a in res1]),
+        keep_tm, dh_final, w_hh0, w_hh1, w_ih1, dys)
+    return ((dih0, torch.cat([dih0[..., :2 * h_dim], dhn0], dim=-1)),
+            (dih1, torch.cat([dih1[..., :2 * h_dim], dhn1], dim=-1)))
+
+
+GRU2_TRAIN_FWD_LEGACY = CudaKernel(
+    "gru2_train_fwd", "gru2_train_fwd_legacy_launch",
+    [_P] * 10 + [_I, _I, _I, _P],
+)
+GRU2_BWD_CHAIN_LEGACY = CudaKernel(
+    "gru2_bwd_chain", "gru2_bwd_chain_legacy_launch",
+    [_P] * 9 + [_I, _I, _I, _P],
+)
+
+
+def gru2_train_fwd_legacy(x_tm: torch.Tensor, keep_tm: torch.Tensor,
+                          layer0: Params, layer1: Params):
+    """Legacy-layout GRU training forward: x_tm (T, B, D), keep_tm (T, B,
+    H) -> ``(ys, h_final, ((r0, z0, n0, hn0, h0_new), (r1, z1, n1, hn1,
+    h1_new)))``, float32; on the card the series are views of the kernel's
+    one ``res`` (T, B, 10H).
+
+    On a CUDA tensor this launches ``csrc/gru2_train_fwd.cu``'s legacy form
+    (one cooperative launch) and counts it in
+    ``GRU2_TRAIN_FWD_LEGACY.launches``; on a CPU tensor it runs
+    ``gru2_train_fwd_legacy_reference``.
+    """
+    if x_tm.device.type == "cpu":
+        return gru2_train_fwd_legacy_reference(x_tm, keep_tm, layer0, layer1)
+    t_len, batch, _ = x_tm.shape
+    h_dim = layer0["w_hh"].shape[0]
+    if t_len < 1 or batch < 1:
+        raise ValueError(f"gru2_train_fwd_legacy: empty input of shape {tuple(x_tm.shape)}")
+    ih0 = _gru_input_projection(x_tm, layer0).contiguous()
+    keep = keep_tm.to(torch.float32).contiguous()
+    w = _gru_weights("gru2_train_fwd_legacy", h_dim, layer0, layer1)
+    _check_shapes("gru2_train_fwd_legacy", keep=(keep, (t_len, batch, h_dim)))
+    new = dict(dtype=torch.float32, device=x_tm.device)
+    res = torch.empty((t_len, batch, 10 * h_dim), **new)
+    h_final = torch.empty((batch, h_dim), **new)
+    check_cuda_f32("gru2_train_fwd_legacy", ih0=ih0, keep=keep, w_hh0=w[0],
+                   b_hh0=w[1], w_ih1=w[2], b_ih1=w[3], w_hh1=w[4], b_hh1=w[5])
+    GRU2_TRAIN_FWD_LEGACY(
+        ih0.data_ptr(), keep.data_ptr(), *(t.data_ptr() for t in w),
+        res.data_ptr(), h_final.data_ptr(), batch, t_len, h_dim, stream_of(x_tm),
+    )
+    lanes = res.split(h_dim, dim=-1)
+    return lanes[9], h_final, (lanes[:5], lanes[5:])
+
+
+def gru2_bwd_chain_legacy(res0, res1, dys, keep_tm: torch.Tensor,
+                          dh_final: torch.Tensor, w_hh0: torch.Tensor,
+                          w_hh1: torch.Tensor, w_ih1: torch.Tensor):
+    """Legacy GRU reverse chain: ``((dih0, dhh0), (dih1, dhh1))``, each
+    (T, B, 3H) float32; on the card views of the kernel's one output (T, B,
+    12H).  ``res0`` / ``res1`` are the layers' ``(h_prev, r, z, n, hn)``
+    series, packed here into (T, B, 5H) rows as the JAX wrapper packs them;
+    ``dys`` (T, B, H) is the sequence output's cotangent, or ``None``, and
+    then the kernel reads no stream.
+
+    On a CUDA tensor this launches ``csrc/gru2_bwd_chain.cu``'s legacy form
+    (one cooperative launch) and counts it in
+    ``GRU2_BWD_CHAIN_LEGACY.launches``; on a CPU tensor it runs
+    ``gru2_bwd_chain_legacy_reference``.
+    """
+    if res0[0].device.type == "cpu":
+        return gru2_bwd_chain_legacy_reference(res0, res1, dys, keep_tm, dh_final,
+                                               w_hh0, w_hh1, w_ih1)
+    if len(res0) != 5 or len(res1) != 5 or res0[0].dim() != 3:
+        raise ValueError("gru2_bwd_chain_legacy: res0 and res1 are 5-tuples of "
+                         "(T, B, H) series")
+    t_len, batch, h_dim = res0[0].shape
+    series, square = (t_len, batch, h_dim), (h_dim, 3 * h_dim)
+    tensors = dict(
+        res0=torch.cat([a.to(torch.float32) for a in res0], dim=-1),
+        res1=torch.cat([a.to(torch.float32) for a in res1], dim=-1),
+        keep=keep_tm.to(torch.float32).contiguous(),
+        dh_final=dh_final.to(torch.float32).contiguous(), w_hh0=w_hh0.contiguous(),
+        w_hh1=w_hh1.contiguous(), w_ih1=w_ih1.contiguous())
+    shapes = dict(res0=(t_len, batch, 5 * h_dim), res1=(t_len, batch, 5 * h_dim),
+                  keep=series, dh_final=(batch, h_dim), w_hh0=square,
+                  w_hh1=square, w_ih1=square)
+    if dys is not None:
+        tensors["dys"] = dys.to(torch.float32).contiguous()
+        shapes["dys"] = series
+    _check_shapes("gru2_bwd_chain_legacy",
+                  **{k: (tensors[k], shapes[k]) for k in tensors})
+    if t_len < 1 or batch < 1:
+        raise ValueError(f"gru2_bwd_chain_legacy: empty residuals {series}")
+    out = torch.empty((t_len, batch, 12 * h_dim), dtype=torch.float32,
+                      device=res0[0].device)
+    check_cuda_f32("gru2_bwd_chain_legacy", **tensors)
+    ptr = {k: t.data_ptr() for k, t in tensors.items()}
+    GRU2_BWD_CHAIN_LEGACY(
+        ptr["res0"], ptr["res1"], ptr.get("dys"), ptr["keep"], ptr["dh_final"],
+        ptr["w_hh0"], ptr["w_hh1"], ptr["w_ih1"], out.data_ptr(), batch, t_len,
+        h_dim, stream_of(out),
+    )
+    d = out.split(3 * h_dim, dim=-1)
+    return (d[0], d[1]), (d[2], d[3])
 
 
 # ---------------------------------------------------------------------------

@@ -37,6 +37,17 @@ keep_{l-1}``.  Their chains emit ``dih`` and only the ``dhn`` lane of
     dW_ih_l = x_l^T dih_l    dW_hh_l = h_prev_l^T [dih_l[:, :2H] | dhn_l]
     db_ih_l = sum dih_l      db_hh_l = [sum dih_l[:, :2H] | sum dhn_l]
 
+``set_res2_mode("off")`` (the JAX package's switch of the same name, a
+module global there as here) sends the pair route, and only it, through
+the legacy-layout twins: ``LegacyLSTMFinal`` (``lstm2_train_fwd_legacy``,
+then ``lstm2_bwd_chain_legacy`` over the shifted h / c series the JAX
+package builds from it) and ``LegacyGRUFinal`` (``gru2_train_fwd_legacy``,
+then ``gru2_bwd_chain_legacy`` where ``GRU_BWD2_ENABLED`` is set, else two
+``gru_bwd_chain`` launches and the hop between them).  They compute the
+same function as the residual-native pair; ``remat_gates`` is not read
+there, as in the JAX package, whose remat route needs the residual-native
+one.
+
 On the card the recurrences are hand-written kernels; on the CPU the same
 Functions run their plain versions.  The keep masks are dropout draws and
 get no gradient.
@@ -52,18 +63,43 @@ from multimodal_emotion_detection_tpu_torch.ops.lstm_kernel import (
     Params,
     gru1_train_fwd,
     gru2_bwd_chain,
+    gru2_bwd_chain_legacy,
+    gru2_train_fwd_legacy,
     gru2_train_fwd_residuals,
     gru_bwd_chain,
     h_series,
     lstm1_train_fwd,
     lstm2_bwd_chain,
+    lstm2_bwd_chain_legacy,
     lstm2_bwd_chain_remat,
+    lstm2_train_fwd_legacy,
     lstm2_train_fwd_residuals,
     lstm_bwd_chain,
 )
 
 # the card the CPU mirrors when it picks a route: an H100's SM count
 H100_SMS = 132
+
+_RES2_MODE = "auto"  # "auto" | "off": set_res2_mode
+
+# The JAX package's module flag, with its default: the legacy GRU backward
+# runs the fused 2-layer chain (``gru2_bwd_chain_legacy``) only where it is
+# set, else two layered chains (``gru_bwd_chain``) over the same residuals,
+# which are faster on the H100 as on the TPU.  It exists to drive the fused
+# chain on a training path; whoever sets it restores it.
+GRU_BWD2_ENABLED = False
+
+
+def set_res2_mode(mode: str) -> str:
+    """Set the pair route's residual layout and return the previous mode:
+    ``"auto"`` the residual-native pair, ``"off"`` the legacy-layout one.
+    A module global, as in the JAX package, which has no config key for it:
+    whoever sets it restores it."""
+    global _RES2_MODE
+    if mode not in ("auto", "off"):
+        raise ValueError(f"set_res2_mode: {mode!r} is neither 'auto' nor 'off'")
+    prev, _RES2_MODE = _RES2_MODE, mode
+    return prev
 
 
 def _flat(a: torch.Tensor) -> torch.Tensor:
@@ -168,15 +204,57 @@ class LayeredLSTMFinal(torch.autograd.Function):
         return (dx, None, *grads)
 
 
+def _shift(a: torch.Tensor) -> torch.Tensor:
+    """The series before each step from the series after it: zero, then
+    all but the last (the JAX package's ``shift``)."""
+    return torch.cat([torch.zeros_like(a[:1]), a[:-1]])
+
+
+class LegacyLSTMFinal(torch.autograd.Function):
+    """(x (B, T, D), keep (T, B, H), w_ih0, w_hh0, b0, w_ih1, w_hh1, b1) ->
+    final hidden state of layer 1 (B, H), over the legacy layout."""
+
+    @staticmethod
+    def forward(ctx, x, keep, w_ih0, w_hh0, b0, w_ih1, w_hh1, b1):
+        x_tm = x.to(torch.float32).transpose(0, 1).contiguous()
+        ys, h_final, g0, g1, h0n, c0n, c1n = lstm2_train_fwd_legacy(
+            x_tm, keep, {"w_ih": w_ih0, "w_hh": w_hh0, "b": b0},
+            {"w_ih": w_ih1, "w_hh": w_hh1, "b": b1})
+        # the JAX package's residual structure: the states before each
+        # step, and layer 1's input series
+        x1 = h0n * keep.to(torch.float32)
+        ctx.save_for_backward(x_tm, keep, g0, g1, _shift(c0n), _shift(c1n),
+                              _shift(h0n), _shift(ys), x1, w_ih0, w_hh0, w_ih1,
+                              w_hh1)
+        return h_final
+
+    @staticmethod
+    def backward(ctx, dh_final):
+        (x_tm, keep, g0, g1, c0p, c1p, h0p, h1p, x1,
+         w_ih0, w_hh0, w_ih1, w_hh1) = ctx.saved_tensors
+        dg0, dg1 = lstm2_bwd_chain_legacy(g0, g1, c0p, c1p, None, keep, dh_final,
+                                          w_hh0, w_hh1, w_ih1)
+        dg0f, dg1f = _flat(dg0), _flat(dg1)
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = (dg0 @ w_ih0.T).transpose(0, 1)
+        return (dx, None,
+                _flat(x_tm).T @ dg0f, _flat(h0p).T @ dg0f, dg0f.sum(0),
+                _flat(x1).T @ dg1f, _flat(h1p).T @ dg1f, dg1f.sum(0))
+
+
 def fused_lstm_final(x: torch.Tensor, keep: torch.Tensor,
                      layers: Sequence[Params], remat_gates: bool = False) -> torch.Tensor:
     """x (B, T, D), keep (T, L-1, B, H) the inter-layer keep masks ->
     the top layer's final hidden state (B, H), differentiable in x and
-    every layer's parameters.  The route is ``lstm_route``'s; only the
-    pair route reads ``remat_gates``, as in the JAX package."""
+    every layer's parameters.  The route is ``lstm_route``'s; on the pair
+    route ``set_res2_mode("off")`` takes the legacy layout, and only the
+    residual-native pair reads ``remat_gates``, as in the JAX package."""
     weights = [p[name] for p in layers for name in ("w_ih", "w_hh", "b")]
     h_dim = layers[0]["w_hh"].shape[0]
     if lstm_route(len(layers), h_dim, sm_count(x.device)) == "pair":
+        if _RES2_MODE == "off":
+            return LegacyLSTMFinal.apply(x, keep[:, 0], *weights)
         return FusedLSTMFinal.apply(x, keep[:, 0], bool(remat_gates), *weights)
     return LayeredLSTMFinal.apply(x, keep, *weights)
 
@@ -274,16 +352,81 @@ class LayeredGRUFinal(torch.autograd.Function):
         return (dx, None, *grads)
 
 
+class LegacyGRUFinal(torch.autograd.Function):
+    """(x (B, T, D), keep (T, B, H), w_ih0, w_hh0, b_ih0, b_hh0, w_ih1,
+    w_hh1, b_ih1, b_hh1) -> final hidden state of layer 1 (B, H), over the
+    legacy layout."""
+
+    @staticmethod
+    def forward(ctx, x, keep, w_ih0, w_hh0, b_ih0, b_hh0, w_ih1, w_hh1, b_ih1, b_hh1):
+        x_tm = x.to(torch.float32).transpose(0, 1).contiguous()
+        _, h_final, (layer0, layer1) = gru2_train_fwd_legacy(
+            x_tm, keep, {"w_ih": w_ih0, "w_hh": w_hh0, "b_ih": b_ih0, "b_hh": b_hh0},
+            {"w_ih": w_ih1, "w_hh": w_hh1, "b_ih": b_ih1, "b_hh": b_hh1})
+        # the JAX package's residual structure: (h_prev, r, z, n, hn) per
+        # layer, and layer 1's input series
+        x1 = layer0[4] * keep.to(torch.float32)
+        ctx.save_for_backward(x_tm, keep, x1, _shift(layer0[4]), *layer0[:4],
+                              _shift(layer1[4]), *layer1[:4], w_ih0, w_hh0,
+                              w_ih1, w_hh1)
+        return h_final
+
+    @staticmethod
+    def backward(ctx, dh_final):
+        x_tm, keep, x1, *saved = ctx.saved_tensors
+        res0, res1 = saved[:5], saved[5:10]
+        w_ih0, w_hh0, w_ih1, w_hh1 = saved[10:]
+        chain = (gru2_bwd_chain_legacy if GRU_BWD2_ENABLED
+                 else gru_bwd_layered_legacy)
+        (dih0, dhh0), (dih1, dhh1) = chain(res0, res1, None, keep, dh_final,
+                                           w_hh0, w_hh1, w_ih1)
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = (dih0 @ w_ih0.T).transpose(0, 1)
+        grads = []
+        for x_l, h_prev, dih, dhh in ((x_tm, res0[0], dih0, dhh0),
+                                      (x1, res1[0], dih1, dhh1)):
+            dih_f, dhh_f = _flat(dih), _flat(dhh)
+            grads += [_flat(x_l).T @ dih_f, _flat(h_prev).T @ dhh_f,
+                      dih_f.sum(0), dhh_f.sum(0)]
+        return (dx, None, *grads)
+
+
+def gru_bwd_layered_legacy(res0, res1, dys, keep_tm: torch.Tensor,
+                           dh_final: torch.Tensor, w_hh0: torch.Tensor,
+                           w_hh1: torch.Tensor, w_ih1: torch.Tensor):
+    """The legacy GRU backward without the fused chain, the JAX
+    package's ``_gru_bwd_layered_pallas``: layer 1's ``gru_bwd_chain``, the
+    hop ``(dih1 w_ih1^T) * keep`` into layer 0 as one matmul, layer 0's
+    chain.  Takes and returns what ``gru2_bwd_chain_legacy`` does: ``res0``
+    / ``res1`` the layers' ``(h_prev, r, z, n, hn)`` series -> ``((dih0,
+    dhh0), (dih1, dhh1))`` with the full ``dhh = [dih[..., :2H] | dhn]``."""
+    h_dim = w_hh0.shape[0]
+    dh_final = dh_final.to(torch.float32).contiguous()
+
+    def layer(res, dh_series, dhf, w_hh):
+        dih, dhn = gru_bwd_chain(torch.cat(res[1:], dim=-1), res[0], dh_series,
+                                 dhf, w_hh)
+        return dih, torch.cat([dih[..., :2 * h_dim], dhn], dim=-1)
+
+    dih1, dhh1 = layer(res1, dys, dh_final, w_hh1)
+    hop = torch.matmul(dih1, w_ih1.T) * keep_tm.to(torch.float32)
+    return layer(res0, hop, torch.zeros_like(dh_final), w_hh0), (dih1, dhh1)
+
+
 def fused_gru_final(x: torch.Tensor, keep: torch.Tensor,
                     layers: Sequence[Params]) -> torch.Tensor:
     """x (B, T, D), keep (T, L-1, B, H) the inter-layer keep masks -> the
     top layer's final hidden state (B, H), differentiable in x and every
-    layer's parameters.  The route is ``gru_route``'s; a width that
+    layer's parameters.  The route is ``gru_route``'s, on the pair route
+    ``set_res2_mode("off")`` takes the legacy layout; a width that
     ``check_gru_stack`` refuses raises, on the CPU as on the card."""
     h_dim = layers[0]["w_hh"].shape[0]
     sms = sm_count(x.device)
     check_gru_stack(h_dim, sms)
     weights = [p[name] for p in layers for name in ("w_ih", "w_hh", "b_ih", "b_hh")]
     if gru_route(len(layers), h_dim, sms) == "pair":
+        if _RES2_MODE == "off":
+            return LegacyGRUFinal.apply(x, keep[:, 0], *weights)
         return FusedGRUFinal.apply(x, keep[:, 0], *weights)
     return LayeredGRUFinal.apply(x, keep, *weights)

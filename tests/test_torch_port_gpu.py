@@ -620,6 +620,169 @@ def test_layered_gru_trains_one_step_and_serves_on_the_card(num_layers):
         torch.testing.assert_close(served, cpu.eval()(x), rtol=1e-4, atol=1e-4)
 
 
+
+LEGACY_SHAPES = [(32, 372, 64, 256),                  # the flagship and GRU config
+                 (32, 1, 64, 256), (32, 2, 64, 256),  # the wavefront's ends
+                 (1, 5, 6, 64), (33, 5, 5, 128),      # one row; a ragged second pass
+                 (3, 9, 64, 264)]                     # the widest pair, 2 x 132 SMs
+
+
+def _close_to_largest(out, ref, msg):
+    scale = float(ref.abs().max())
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-6 * max(scale, 1e-30), msg=msg)
+
+
+@pytest.mark.parametrize("b,t,d,h", LEGACY_SHAPES)
+def test_lstm2_legacy_kernels_match_plain(b, t, d, h):
+    dev = _card()
+    x_tm, keep, l0, l1 = _lstm_case(dev, b, t, d, h, seed=b * 1000 + t + 11)
+    before = lstm_kernel.LSTM2_TRAIN_FWD_LEGACY.launches
+    outs = lstm_kernel.lstm2_train_fwd_legacy(x_tm, keep, l0, l1)
+    torch.cuda.synchronize()
+    assert lstm_kernel.LSTM2_TRAIN_FWD_LEGACY.launches == before + 1
+    refs = lstm_kernel.lstm2_train_fwd_legacy_reference(x_tm, keep, l0, l1)
+    names = ("ys", "h_final", "g0", "g1", "h0_new", "c0_new", "c1_new")
+    # float32 sums in another order than cuBLAS, carried through T steps
+    for name, out, ref in zip(names, outs, refs):
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4, msg=name)
+    # the residual-native form on the same inputs: the same arithmetic
+    packed, h0p, h1p, _, finals = lstm_kernel.lstm2_train_fwd_residuals(x_tm, keep, l0, l1)
+    ys, h_final, g0, g1, h0, c0, c1 = outs
+    zero = torch.zeros_like(h0[:1])
+    for name, out, ref in (("g0", g0, packed[..., :4 * h]), ("g1", g1, packed[..., 4 * h:8 * h]),
+                           ("c0_prev", torch.cat([zero, c0[:-1]]), packed[..., 8 * h:9 * h]),
+                           ("c1_prev", torch.cat([zero, c1[:-1]]), packed[..., 9 * h:]),
+                           ("h0_prev", torch.cat([zero, h0[:-1]]), h0p),
+                           ("h1_prev", torch.cat([zero, ys[:-1]]), h1p),
+                           ("h_final", h_final, finals[2])):
+        _close_to_largest(out, ref, f"legacy vs residual {name}")
+
+    rng = np.random.RandomState(t)
+    dh = torch.from_numpy(rng.randn(b, h).astype(np.float32)).to(dev)
+    dys = torch.from_numpy(rng.randn(t, b, h).astype(np.float32)).to(dev)
+    cp0, cp1 = (torch.cat([zero, c[:-1]]) for c in refs[5:7])
+    for stream in (None, dys):
+        args = (refs[2], refs[3], cp0, cp1, stream, keep, dh, l0["w_hh"], l1["w_hh"],
+                l1["w_ih"])
+        before = lstm_kernel.LSTM2_BWD_CHAIN_LEGACY.launches
+        dgs = lstm_kernel.lstm2_bwd_chain_legacy(*args)
+        torch.cuda.synchronize()
+        assert lstm_kernel.LSTM2_BWD_CHAIN_LEGACY.launches == before + 1
+        for name, out, ref in zip(("dg0", "dg1"), dgs,
+                                  lstm_kernel.lstm2_bwd_chain_legacy_reference(*args)):
+            torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4,
+                                       msg=f"{name}, dys {stream is not None}")
+    dgs_res = lstm_kernel.lstm2_bwd_chain(
+        torch.cat([refs[2], refs[3], cp0, cp1], dim=-1), keep, dh, l0["w_hh"],
+        l1["w_hh"], l1["w_ih"])
+    dgs = lstm_kernel.lstm2_bwd_chain_legacy(refs[2], refs[3], cp0, cp1, None, keep, dh,
+                                             l0["w_hh"], l1["w_hh"], l1["w_ih"])
+    for name, out, ref in zip(("dg0", "dg1"), dgs, dgs_res):
+        _close_to_largest(out, ref, f"legacy vs residual chain {name}")
+
+
+@pytest.mark.parametrize("b,t,d,h", LEGACY_SHAPES)
+def test_gru2_legacy_kernels_match_plain(b, t, d, h):
+    dev = _card()
+    x_tm, keep, l0, l1 = _gru_case(dev, b, t, d, h, seed=b * 1000 + t + 13)
+    before = lstm_kernel.GRU2_TRAIN_FWD_LEGACY.launches
+    ys, h_final, layers = lstm_kernel.gru2_train_fwd_legacy(x_tm, keep, l0, l1)
+    torch.cuda.synchronize()
+    assert lstm_kernel.GRU2_TRAIN_FWD_LEGACY.launches == before + 1
+    r_ys, r_hf, r_layers = lstm_kernel.gru2_train_fwd_legacy_reference(x_tm, keep, l0, l1)
+    torch.testing.assert_close(ys, r_ys, rtol=1e-4, atol=1e-4, msg="ys")
+    torch.testing.assert_close(h_final, r_hf, rtol=1e-4, atol=1e-4, msg="h_final")
+    for i in range(2):
+        for j, name in enumerate(("r", "z", "n", "hn", "h_new")):
+            torch.testing.assert_close(layers[i][j], r_layers[i][j], rtol=1e-4,
+                                       atol=1e-4, msg=f"layer_{i}.{name}")
+    # the residual-native form on the same inputs: the same arithmetic
+    packed, h0p, h1p, _, finals = lstm_kernel.gru2_train_fwd_residuals(x_tm, keep, l0, l1)
+    zero = torch.zeros_like(ys[:1])
+    for i, hp in enumerate((h0p, h1p)):
+        _close_to_largest(torch.cat(layers[i][:4], dim=-1),
+                          packed[..., 4 * h * i:4 * h * (i + 1)], f"layer_{i} gates")
+        _close_to_largest(torch.cat([zero, layers[i][4][:-1]]), hp, f"layer_{i} h_prev")
+    _close_to_largest(h_final, finals[1], "h_final")
+
+    rng = np.random.RandomState(t)
+    dh = torch.from_numpy(rng.randn(b, h).astype(np.float32)).to(dev)
+    dys = torch.from_numpy(rng.randn(t, b, h).astype(np.float32)).to(dev)
+    res0, res1 = ((torch.cat([zero, lay[4][:-1]]),) + tuple(lay[:4]) for lay in r_layers)
+    w = (l0["w_hh"], l1["w_hh"], l1["w_ih"])
+    for stream in (None, dys):
+        args = (res0, res1, stream, keep, dh, *w)
+        before = lstm_kernel.GRU2_BWD_CHAIN_LEGACY.launches
+        outs = lstm_kernel.gru2_bwd_chain_legacy(*args)
+        torch.cuda.synchronize()
+        assert lstm_kernel.GRU2_BWD_CHAIN_LEGACY.launches == before + 1
+        refs = lstm_kernel.gru2_bwd_chain_legacy_reference(*args)
+        for i in range(2):
+            for j, name in enumerate(("dih", "dhh")):
+                torch.testing.assert_close(outs[i][j], refs[i][j], rtol=1e-4, atol=1e-4,
+                                           msg=f"{name}{i}, dys {stream is not None}")
+            # dhh's r and z lanes are copies of dih's
+            assert torch.equal(outs[i][1][..., :2 * h], outs[i][0][..., :2 * h])
+    dih0, dhn0, dih1, dhn1 = lstm_kernel.gru2_bwd_chain(
+        torch.cat([*res0[1:], *res1[1:]], dim=-1), res0[0], res1[0], keep, dh, *w)
+    outs = lstm_kernel.gru2_bwd_chain_legacy(res0, res1, None, keep, dh, *w)
+    for i, (dih, dhn) in enumerate(((dih0, dhn0), (dih1, dhn1))):
+        _close_to_largest(outs[i][0], dih, f"legacy vs residual chain dih{i}")
+        _close_to_largest(outs[i][1][..., 2 * h:], dhn, f"legacy vs residual chain dhn{i}")
+
+
+@pytest.mark.parametrize("route", ["lstm", "gru_fused", "gru_layered"])
+@pytest.mark.parametrize("b,t,d,h", [(3, 40, 6, 128), (32, 372, 64, 256)])
+def test_legacy_routes_launch_their_kernels_and_match_plain_autograd(route, b, t, d, h):
+    from multimodal_emotion_detection_tpu_torch.ops import lstm_vjp
+
+    dev = _card()
+    cell = route[:3] if route != "lstm" else "lstm"
+    case = _lstm_case if cell == "lstm" else _gru_case
+    x_tm, keep, l0, l1 = case(dev, b, t, d, h, seed=23 + b)
+    weight = torch.from_numpy(
+        np.random.RandomState(b).randn(b, h).astype(np.float32)).to(dev)
+
+    def grads(fn):
+        x = x_tm.transpose(0, 1).contiguous().requires_grad_()
+        p0 = {k: v.clone().requires_grad_() for k, v in l0.items()}
+        p1 = {k: v.clone().requires_grad_() for k, v in l1.items()}
+        (fn(x, p0, p1) * weight).sum().backward()
+        return [x.grad] + [p.grad for p in (*p0.values(), *p1.values())]
+
+    k = lstm_kernel
+    counters = {"lstm": (k.LSTM2_TRAIN_FWD_LEGACY, k.LSTM2_BWD_CHAIN_LEGACY,
+                         k.LSTM2_TRAIN_FWD, k.LSTM2_BWD_CHAIN),
+                "gru_fused": (k.GRU2_TRAIN_FWD_LEGACY, k.GRU2_BWD_CHAIN_LEGACY,
+                              k.GRU2_TRAIN_FWD, k.GRU2_BWD_CHAIN, k.GRU_BWD_CHAIN),
+                "gru_layered": (k.GRU2_TRAIN_FWD_LEGACY, k.GRU_BWD_CHAIN,
+                                k.GRU2_BWD_CHAIN_LEGACY, k.GRU2_TRAIN_FWD,
+                                k.GRU2_BWD_CHAIN)}[route]
+    expected = {"lstm": [1, 1, 0, 0], "gru_fused": [1, 1, 0, 0, 0],
+                "gru_layered": [1, 2, 0, 0, 0]}[route]
+    fused = lstm_vjp.fused_lstm_final if cell == "lstm" else lstm_vjp.fused_gru_final
+    before = [c.launches for c in counters]
+    prev_mode, prev_bwd2 = lstm_vjp.set_res2_mode("off"), lstm_vjp.GRU_BWD2_ENABLED
+    lstm_vjp.GRU_BWD2_ENABLED = route == "gru_fused"
+    try:
+        ours = grads(lambda x, p0, p1: fused(x, keep[:, None], (p0, p1)))
+    finally:
+        lstm_vjp.set_res2_mode(prev_mode)
+        lstm_vjp.GRU_BWD2_ENABLED = prev_bwd2
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == expected
+    if cell == "lstm":
+        plain = grads(lambda x, p0, p1: k.lstm2_train_fwd_legacy_reference(
+            x.transpose(0, 1), keep, p0, p1)[1])
+    else:
+        plain = grads(lambda x, p0, p1: k.gru2_train_fwd_legacy_reference(
+            x.transpose(0, 1), keep, p0, p1)[1])
+    for i, (g, r) in enumerate(zip(ours, plain)):
+        # weight gradients sum T*B terms: relative 1e-4 of the largest
+        scale = float(r.abs().max())
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4 * max(scale, 1.0),
+                                   msg=f"gradient {i}")
+
 def _flash_case(dev, b, h, tq, tk, d, masked, seed):
     rng = np.random.RandomState(seed)
     q = torch.from_numpy(rng.randn(b, h, tq, d).astype(np.float32)).to(dev)

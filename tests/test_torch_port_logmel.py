@@ -16,6 +16,16 @@ from multimodal_emotion_detection_tpu_torch.ops import logmel as port_logmel
 GOLDEN = Path(__file__).parent / "golden"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    # the suite runs several test workers on the same cores; at these tiny
+    # shapes a multi-threaded torch only spins idle threads that slow them all
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def _full_f32():
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -36,6 +36,16 @@ NARROW = [
 B, SAMPLES, FRAMES, FRAME_DIM = 8, 40 * 128, 4, 16
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    # the suite runs several test workers on the same cores; at these tiny
+    # shapes a multi-threaded torch only spins idle threads that slow them all
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(seed=0):
     rng = np.random.RandomState(seed)
     return {

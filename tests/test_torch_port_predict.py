@@ -38,6 +38,16 @@ NARROW = [
 ROWS = 12  # 2 batches of 8: the second is wrap-padded
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    # the suite runs several test workers on the same cores; at these tiny
+    # shapes a multi-threaded torch only spins idle threads that slow them all
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _write_split(root: Path, split: str, seed: int) -> None:
     rng = np.random.RandomState(seed)
     d = root / split
