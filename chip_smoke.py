@@ -101,7 +101,11 @@
    ``scaled_dot_product_attention``; ``[flash_long]`` runs
    ``flash_attention`` forward + backward at (2, 4, 5000, 64), past the
    fused form's 4,096 keys, so the two-pass kernels run (once each, the
-   fused one never), against the plain versions, and times them.
+   fused one never), against the plain versions, and times them.  The
+   q-major kernels (the forward, the two-pass dQ pass) run 3xTF32 on the
+   tensor cores: both print their bound on the float32 rate and in 3xTF32
+   on the TF32 rate (``bound_fp32_ms``, ``bound_3xtf32_ms``; their
+   ``bound_ms`` is the latter).
    ``[train_tf]`` trains it as in 6 (two flash forwards per train step and
    per eval batch, two fused backwards per step, log-mel once per split
    chunk, no recurrent kernel), card step against the CPU step with the
@@ -133,6 +137,7 @@ WORK = ROOT / "build" / "chip_smoke"
 
 # H100 SXM published peaks (NVIDIA data sheet), at its 700 W power limit
 FP32_FLOPS = 67e12  # float32 outside the tensor cores
+TF32_FLOPS = 495e12  # dense TF32 on the tensor cores
 HBM_BYTES = 3.35e12  # bytes/s
 
 
@@ -144,10 +149,17 @@ def nvidia_smi() -> str:
     return out.stdout.strip()
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES
+def bound(flops: float, nbytes: float, rate: float = FP32_FLOPS):
+    t_ops, t_bytes = flops / rate, nbytes / HBM_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def tc_bounds(flops: float, nbytes: float):
+    """Both bounds of a kernel that runs float32 products as 3xTF32 on the
+    tensor cores: on the CUDA cores' float32 rate, and as 3 TF32 products
+    at the tensor cores' rate (the kernel's own arithmetic, its bound_ms)."""
+    return bound(flops, nbytes), bound(3 * flops, nbytes, TF32_FLOPS)
 
 
 class L2Flush:
@@ -1762,15 +1774,17 @@ def phase_flash(fa, flush):
     pairs = b * h * t * t
     # q, k, v read, O and LSE written; for the backward q, k, v, dO, LSE and
     # Delta read, dQ, dK, dV written (the fused form's partials not counted)
-    fwd_bound = bound(4 * pairs * d, 4 * (4 * b * h * t * d + b * h * t))
+    fwd_fp32, fwd_bound = tc_bounds(4 * pairs * d, 4 * (4 * b * h * t * d + b * h * t))
     bwd_bound = bound(10 * pairs * d, 4 * (7 * b * h * t * d + 2 * b * h * t))
     n_spans = fa.kv_spans(t)[0]
     print(f"[flash_fwd] B={b} H={h} T={t} D={d}: kernel {ms:.4f} ms at rate 0.1 "
           f"({eval_ms:.4f} ms at rate 0), plain {plain_ms:.4f} ms, "
           f"scaled_dot_product_attention (no dropout; max abs err {lib_err:.3e} vs "
-          f"plain) {library_ms:.4f} ms, bound {fwd_bound[0]:.4f} ms ({fwd_bound[1]}: "
-          f"{4 * pairs * d / 1e9:.3f} GFLOP; the Philox mask's integer work not "
-          "counted)")
+          f"plain) {library_ms:.4f} ms, bound {fwd_bound[0]:.4f} ms in 3xTF32 "
+          f"({fwd_bound[1]}: 3 x {4 * pairs * d / 1e9:.3f} GFLOP at "
+          f"{TF32_FLOPS / 1e12:.0f} TFLOP/s), {fwd_fp32[0]:.4f} ms in float32 "
+          f"({fwd_fp32[1]}: at {FP32_FLOPS / 1e12:.0f} TFLOP/s; the Philox mask's "
+          "integer work not counted)")
     print(f"[flash_bwd] fused kernel {bwd_ms:.4f} ms at rate 0.1 ({n_spans} kv spans, "
           f"partials summed in it), plain {bwd_plain_ms:.4f} ms, SDPA backward "
           f"(autograd.grad, no dropout) {bwd_library_ms:.4f} ms, bound "
@@ -1782,6 +1796,7 @@ def phase_flash(fa, flush):
            "replaces": "multimodal_emotion_detection_tpu/ops/flash_attention.py:159",
            "max_abs_err": max(fwd_errs.values()), "ms": ms, "plain_ms": plain_ms,
            "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
+           "bound_fp32_ms": fwd_fp32[0], "bound_3xtf32_ms": fwd_bound[0],
            "library_ms": library_ms}
     bwd = {"name": "flash_bwd_fused", "route": "cuda", "source": src + "flash_bwd.cu",
            "replaces": "multimodal_emotion_detection_tpu/ops/flash_attention.py:266",
@@ -1838,23 +1853,29 @@ def phase_flash_long(fa, counters, flush):
         flush, reps=5)
     pairs = b * h * t * t
     dkv_bound = bound(8 * pairs * d, 4 * (6 * b * h * t * d + 2 * b * h * t + b * t))
-    dq_bound = bound(6 * pairs * d, 4 * (5 * b * h * t * d + 2 * b * h * t + b * t))
+    dq_fp32, dq_bound = tc_bounds(6 * pairs * d,
+                                  4 * (5 * b * h * t * d + 2 * b * h * t + b * t))
     print(f"[flash_long] dkv kernel {dkv_ms:.4f} ms (bound {dkv_bound[0]:.4f} ms, "
           f"{dkv_bound[1]}: {8 * pairs * d / 1e9:.3f} GFLOP), dq kernel {dq_ms:.4f} "
-          f"ms (bound {dq_bound[0]:.4f} ms, {dq_bound[1]}: {6 * pairs * d / 1e9:.3f} "
-          f"GFLOP); plain backward (dQ, dK, dV at once) {plain_ms:.4f} ms; SDPA "
-          f"backward (dQ, dK, dV at once, no dropout) {library_ms:.4f} ms")
-    src = "multimodal_emotion_detection_tpu_torch/csrc/flash_bwd.cu"
-    common = {"route": "cuda", "source": src,
+          f"ms (bound {dq_bound[0]:.4f} ms in 3xTF32, {dq_bound[1]}: 3 x "
+          f"{6 * pairs * d / 1e9:.3f} GFLOP at {TF32_FLOPS / 1e12:.0f} TFLOP/s; "
+          f"{dq_fp32[0]:.4f} ms in float32); plain backward (dQ, dK, dV at once) "
+          f"{plain_ms:.4f} ms; SDPA backward (dQ, dK, dV at once, no dropout) "
+          f"{library_ms:.4f} ms")
+    src = "multimodal_emotion_detection_tpu_torch/csrc/"
+    common = {"route": "cuda",
               "max_abs_err": max(errs[n] for n in ("dQ", "dK", "dV")),
               "plain_ms": plain_ms, "library_ms": library_ms}
     return launches, [
-        {"name": "flash_bwd_dkv", **common, "ms": dkv_ms,
+        {"name": "flash_bwd_dkv", **common, "source": src + "flash_bwd.cu",
+         "ms": dkv_ms,
          "replaces": "multimodal_emotion_detection_tpu/ops/flash_attention.py:255",
          "bound_ms": dkv_bound[0], "bound_by": dkv_bound[1]},
-        {"name": "flash_bwd_dq", **common, "ms": dq_ms,
+        {"name": "flash_bwd_dq", **common, "source": src + "flash_bwd_dq.cu",
+         "ms": dq_ms,
          "replaces": "multimodal_emotion_detection_tpu/ops/flash_attention.py:212",
-         "bound_ms": dq_bound[0], "bound_by": dq_bound[1]}]
+         "bound_ms": dq_bound[0], "bound_by": dq_bound[1],
+         "bound_fp32_ms": dq_fp32[0], "bound_3xtf32_ms": dq_bound[0]}]
 
 
 def _write_split(root: Path, split: str, n: int, seed: int) -> None:
@@ -2123,7 +2144,8 @@ def main() -> None:
                             "lstm2_bwd_chain", "lstm2_bwd_chain_remat",
                             "lstm1_fwd", "lstm_bwd_chain",
                             "gru2_infer", "gru2_train_fwd", "gru2_bwd_chain",
-                            "gru1_fwd", "gru_bwd_chain", "flash_fwd", "flash_bwd"])
+                            "gru1_fwd", "gru_bwd_chain", "flash_fwd", "flash_bwd",
+                            "flash_bwd_dq"])
     print(f"[build] {time.perf_counter() - t0:.1f} s for {sorted(reports) or 'nothing (cached)'}")
     for src, log in reports.items():
         for line in log.splitlines():
@@ -2274,8 +2296,11 @@ def main() -> None:
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "launches_by_path"]
-    print(json.dumps({"kernels": [{k: kern[k] for k in order}
-                                  for kern in kernels.values()]}))
+    # the tensor-core kernels give both bounds beside bound_ms
+    extra = ["bound_fp32_ms", "bound_3xtf32_ms"]
+    print(json.dumps({"kernels": [
+        {**{k: kern[k] for k in order}, **{k: kern[k] for k in extra if k in kern}}
+        for kern in kernels.values()]}))
     print(nvidia_smi())  # the card's name and power limit, as nvidia-smi says
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card_name, "count": torch.cuda.device_count()}}))

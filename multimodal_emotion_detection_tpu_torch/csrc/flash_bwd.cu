@@ -1,11 +1,12 @@
-// Flash-attention backward for Hopper (sm_90a): three entry points.
+// Flash-attention backward for Hopper (sm_90a): the kv-major kernel, two
+// entry points.
 //
 // Replaces: multimodal_emotion_detection_tpu/ops/flash_attention.py::
 // _flash_bwd_call, i.e. the kernel bodies
 //   * _bwd_fused_kernel over _bwd_kv_major (fused form, Tk <= 4096)
 //     -> flash_bwd_fused_launch;
-//   * _bwd_dkv_kernel (two-pass form, dK and dV)  -> flash_bwd_dkv_launch;
-//   * _bwd_dq_kernel  (two-pass form, dQ)          -> flash_bwd_dq_launch.
+//   * _bwd_dkv_kernel (two-pass form, dK and dV)  -> flash_bwd_dkv_launch.
+// The two-pass form's dQ pass (_bwd_dq_kernel) is csrc/flash_bwd_dq.cu.
 // Same function as the plain PyTorch version ops/flash_attention.py::
 // flash_bwd_reference: with P = exp(S - LSE) recomputed from the forward's
 // logsumexp and M the forward's keep mask (1 / (1 - rate) where kept),
@@ -16,8 +17,8 @@
 // What bounds it on the H100: arithmetic.  The fused form does 5 products
 // per (query, key) pair, 10 B H Tq Tk D = 11.3 GFLOP at the transformer
 // encoder's shape (B=32, H=4, T=372, D=64): 0.17 ms at the 67 TFLOP/s
-// float32 rate against ~0.05 ms for its bytes; the two-pass forms do 4 and
-// 3 products.  Float32 FFMA throughout, as the forward.
+// float32 rate against ~0.05 ms for its bytes; the dK / dV form does 4.
+// Float32 FFMA on the CUDA cores.
 //
 // Design.  kv-major kernel (template on the fused form): one CTA of 256
 // threads per (kv span, head, batch row); a span is `per_span` 64-key
@@ -31,10 +32,9 @@
 // also forms this tile's dQ contribution dS K and writes it to the span's
 // own slot of an (n_spans, B, H, Tq, D) buffer (the first key tile of the
 // span stores, later ones add; one CTA owns the slot), which the wrapper
-// sums: no atomics, so the result is deterministic.  The q-major dq kernel
-// (two-pass form) keeps a 64-row dQ tile in registers and walks the key
-// tiles with the same recompute.  Rows past Tq get LSE = +inf (so P = 0)
-// and Delta = 0; keys past Tk get a bias of -inf.
+// sums: no atomics, so the result is deterministic.  Rows past Tq get
+// LSE = +inf (so P = 0) and Delta = 0; keys past Tk get a bias of -inf
+// (flash_common.cuh::load_key_bias).
 
 #include "flash_common.cuh"
 #include "philox.cuh"
@@ -177,49 +177,6 @@ __global__ void __launch_bounds__(NT, DP == 64 ? 2 : 1)
   }
 }
 
-template <int DP>
-__global__ void __launch_bounds__(NT, DP == 64 ? 2 : 1)
-    flash_bwd_dq_kernel(const Args a) {
-  constexpr int RS = DP + 4;
-  constexpr int DC = DP / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;              // [64][RS]
-  float* dos = qs + 64 * RS;     // [64][RS]
-  float* ks = dos + 64 * RS;     // [64][RS]
-  float* vs = ks + 64 * RS;      // [64][RS]
-  float* dss = vs + 64 * RS;     // [TQ][SS]: dS
-  float* ls = dss + 64 * SS;     // [TQ]
-  float* dls = ls + TQ;          // [TQ]
-  float* kb = dls + TQ;          // [TK]
-
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int q0 = blockIdx.x * TQ, h = blockIdx.y, b = blockIdx.z;
-  const size_t bh = (size_t)b * a.heads + h;
-  const size_t qoff = bh * a.tq * a.d, koff = bh * a.tk * a.d;
-  const uint2 key = a.seed != nullptr ? philox_key(a.seed) : make_uint2(0u, 0u);
-  load_tile<DP>(qs, a.q + qoff, q0, a.tq, a.d);
-  load_tile<DP>(dos, a.dout + qoff, q0, a.tq, a.d);
-  load_row_stats(ls, dls, a, bh, q0);
-
-  float dq[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) dq[i][c] = 0.0f;
-  for (int k0 = 0; k0 < a.tk; k0 += TK) {
-    __syncthreads();  // the previous key tile's reads are done
-    load_tile<DP>(ks, a.k + koff, k0, a.tk, a.d);
-    load_tile<DP>(vs, a.v + koff, k0, a.tk, a.d);
-    load_key_bias(kb, a.bias, b, k0, a.tk);
-    __syncthreads();
-    probs_and_ds<DP>(qs, dos, ks, vs, kb, ls, dls, nullptr, dss, a, key, q0,
-                     k0, h, b);
-    __syncthreads();
-    tile_nn<DP>(dss, ks, tx, ty, dq);
-  }
-  store_rows<DP>(a.dq + qoff, dq, q0, a.tq, a.d, tx, ty, false);
-}
-
 template <typename Kernel>
 cudaError_t run(Kernel kernel, size_t smem, dim3 grid, const Args& a,
                 cudaStream_t stream) {
@@ -230,7 +187,7 @@ cudaError_t run(Kernel kernel, size_t smem, dim3 grid, const Args& a,
   return cudaGetLastError();
 }
 
-enum Form { kFused, kDkv, kDq };
+enum Form { kFused, kDkv };
 
 int launch(Form form, const float* q, const float* k, const float* v,
            const float* bias, const unsigned long long* seed,
@@ -239,9 +196,8 @@ int launch(Form form, const float* q, const float* k, const float* v,
            int per_span, float scale, unsigned drop_thr, float drop_scale,
            void* stream) {
   if (batch < 1 || heads < 1 || tq < 1 || tk < 1 || d < 1 || d > 128 ||
-      batch > 65535 || heads > 65535 || (form != kDq && per_span < 1) ||
-      (form != kDkv && dq == nullptr) ||
-      (form != kDq && (dk == nullptr || dv == nullptr))) {
+      batch > 65535 || heads > 65535 || per_span < 1 ||
+      (form == kFused && dq == nullptr) || dk == nullptr || dv == nullptr) {
     return cudaErrorInvalidValue;
   }
   const Args a{q,     k,  v,  bias,  seed,  dout,     lse,      delta,
@@ -249,15 +205,6 @@ int launch(Form form, const float* q, const float* k, const float* v,
                per_span, scale, drop_thr, drop_scale};
   const cudaStream_t s = (cudaStream_t)stream;
   const int k_tiles = (tk + TK - 1) / TK;
-  if (form == kDq) {
-    const dim3 grid((tq + TQ - 1) / TQ, heads, batch);
-    // the dq kernel has no P M tile
-    return d <= 64
-               ? run(flash_bwd_dq_kernel<64>, bwd_smem_bytes<64>() - 4 * 64 * SS,
-                     grid, a, s)
-               : run(flash_bwd_dq_kernel<128>,
-                     bwd_smem_bytes<128>() - 4 * 64 * SS, grid, a, s);
-  }
   const dim3 grid((k_tiles + per_span - 1) / per_span, heads, batch);
   if (form == kFused)
     return d <= 64 ? run(flash_bwd_kv_kernel<64, true>, bwd_smem_bytes<64>(),
@@ -287,7 +234,6 @@ int launch(Form form, const float* q, const float* k, const float* v,
 
 FLASH_BWD_ENTRY(flash_bwd_fused_launch, kFused)
 FLASH_BWD_ENTRY(flash_bwd_dkv_launch, kDkv)
-FLASH_BWD_ENTRY(flash_bwd_dq_launch, kDq)
 
 extern "C" const char* flash_bwd_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

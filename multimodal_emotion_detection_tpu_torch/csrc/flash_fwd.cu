@@ -1,4 +1,4 @@
-// Flash-attention forward for Hopper (sm_90a).
+// Flash-attention forward for Hopper (sm_90a), on the tensor cores.
 //
 // Replaces: multimodal_emotion_detection_tpu/ops/flash_attention.py::
 // _flash_fwd_call (kernel body _fwd_kernel).  Same function as the plain
@@ -13,153 +13,194 @@
 // (torch's dropout-after-softmax, as the JAX kernel).
 //
 // What bounds it on the H100: arithmetic.  At the transformer encoder's
-// shape (B=32, H=4, T=372, D=64) it does 4 B H T^2 D = 4.5 GFLOP (0.068 ms
-// at the 67 TFLOP/s float32 rate) against 49 MB of q, k, v, o and lse
-// (0.015 ms at 3.35 TB/s).  The products stay float32 on the CUDA cores, as
-// the reference computes them (TF32 keeps 3 digits).
+// shape (B=32, H=4, T=372, D=64) it does 4 B H T^2 D = 4.535 GFLOP against
+// 49 MB of q, k, v, o and lse (0.015 ms at 3.35 TB/s).  On the CUDA cores'
+// float32 rate (67 TFLOP/s) that is 0.068 ms; this kernel runs the products
+// on the tensor cores in 3xTF32 (flash_mma.cuh), three TF32 MMAs per
+// product at 495 TFLOP/s: 0.0275 ms, with float32 accuracy kept.
 //
-// Design: one CTA of 256 threads per (64-row query tile, head, batch row),
-// grid (ceil(Tq/64), H, B): 768 CTAs at the encoder's shape.  The query
-// tile stays in shared memory; the CTA walks the key tiles, staging K and V
-// (dynamic shared memory, 69 KB at D 64, 118 KB at D 128) and keeping the
-// running max m, sum l and the output accumulator in registers (online
-// softmax): scores and probabilities never leave the SM.  A thread computes
-// a 4 x 4 block of scores (its 4 query rows, keys tx + 16c) from float4
-// reads, reduces row maxima and sums across its half-warp with shuffles,
-// writes its dropped probabilities key-major into shared memory, and after
-// one barrier accumulates its 4 rows x 4 (or 8) head-dim columns of P V.
-// The dropout mask is one Philox call per (4-row group, key) (philox.cuh),
-// a pure function of the coordinates, so the tiling does not change it.
+// Design: one CTA of 4 warps per (64-row query tile, head, batch row), grid
+// (ceil(Tq/64), H, B): 768 CTAs at the encoder's shape, 3 resident per SM.
+// The query tile is staged once and split into TF32 halves held in
+// registers (D <= 64; at D 128 in shared memory).  The CTA walks the key
+// tiles of 32: K, V and the key biases staged by cp.async in a ring of two
+// (tile t + 1 loads while tile t is multiplied), each K / V value split once
+// as it lands.  A warp forms its 16 x 32 scores with m16n8k8 MMAs, keeps the
+// running max m, sum l and its 16 x D output accumulator in registers
+// (online softmax, row reductions across a quad), and multiplies its
+// probabilities by V straight from the accumulator registers
+// (flash_mma.cuh::mma_pb).  The dropout mask is one Philox call per (4-row
+// group, key), 32 per warp and 8-key tile, computed ahead of the products and
+// shared by shuffle (flash_mma.cuh::keep_bits / keep_scales), so it is the
+// plain version's whatever the tiling; the kernel is compiled with and
+// without it.  mma.sync does not reach the 495 TFLOP/s that wgmma does
+// (PERF.md, scripts/flash_ab.py --mma-rate).
 
-#include "flash_common.cuh"
-#include "philox.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
-using namespace flash;
+using namespace flash_mma;
 
-template <int DP>
+constexpr int NW = 4;   // warps per CTA: 64 query rows
+constexpr int TK = 32;  // keys per tile
+
+template <int DP, int MODE>
 constexpr size_t fwd_smem_bytes() {
-  // q, k tiles (64 x (DP + 4)), v tile (64 x (DP + 4)), P^T (64 x SS),
-  // key biases (TK)
-  return sizeof(float) * (3 * 64 * (DP + 4) + 64 * SS + TK);
+  constexpr int ring = STAGES * Stage<DP, TK>::FLOATS;
+  constexpr int a = a_floats<DP, MODE, NW>(1);
+  // kRegs: the staged Q is dead before the ring fills, so they share
+  return sizeof(float) * (MODE == kRegs ? (a > ring ? a : ring) : a + ring);
 }
 
-template <int DP>
-__global__ void __launch_bounds__(NT, 2) flash_fwd_kernel(
+// 3 CTAs an SM: at most 168 registers (ptxas: 168 at D 64, no spill), and
+// 70 KB of shared memory at D 64
+template <int DP, int MODE, bool DROP>
+__global__ void __launch_bounds__(32 * NW, 3) flash_fwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ bias,
     const unsigned long long* __restrict__ seed, float* __restrict__ o,
     float* __restrict__ lse, int heads, int tq, int tk, int d, float scale,
-    uint32_t drop_thr, float drop_scale) {
-  constexpr int RS = DP + 4;
-  constexpr int DC = DP / 16;
+    uint32_t drop_thr, float drop_scale, bool vec) {
+  using St = Stage<DP, TK>;
+  constexpr int NJ = TK / 8;
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;               // [64][RS]
-  float* ks = qs + 64 * RS;       // [64][RS]
-  float* vs = ks + 64 * RS;       // [64][RS]
-  float* pt = vs + 64 * RS;       // [TK][SS]: dropped P, key-major
-  float* kb = pt + 64 * SS;       // [TK]
+  float* ring = MODE == kRegs ? smem : smem + a_floats<DP, MODE, NW>(1);
 
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  constexpr int NT = 32 * NW, TQ = 16 * NW;
   const int q0 = blockIdx.x * TQ, h = blockIdx.y, b = blockIdx.z;
   const size_t bh = (size_t)b * heads + h;
   const float* kg = k + bh * tk * d;
   const float* vg = v + bh * tk * d;
-  load_tile<DP>(qs, q + bh * tq * d, q0, tq, d);
+  const float* bg = bias ? bias + (size_t)b * tk : nullptr;
 
-  const bool drop = seed != nullptr;
-  const uint2 key = drop ? philox_key(seed) : make_uint2(0u, 0u);
-  float m[4], l[4], acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.0f;
-  }
+  load_tile<DP, TQ, NT>(smem, q + bh * tq * d, q0, tq, d, vec);
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
+  AFrags<DP, MODE, NW> qa;
+  qa.init(smem);
+  __syncthreads();
 
-  for (int k0 = 0; k0 < tk; k0 += TK) {
-    __syncthreads();  // the previous tile's reads of ks, vs, pt, kb are done
-    load_tile<DP>(ks, kg, k0, tk, d);
-    load_tile<DP>(vs, vg, k0, tk, d);
-    load_key_bias(kb, bias, b, k0, tk);
-    __syncthreads();
+  const int n_tiles = (tk + TK - 1) / TK;
+  auto fetch = [&](int tile) {
+    if (tile < n_tiles) {
+      float* st = ring + (tile % STAGES) * St::FLOATS;
+      load_tile<DP, TK, NT>(st, kg, tile * TK, tk, d, vec);
+      load_tile<DP, TK, NT>(st + St::V, vg, tile * TK, tk, d, vec);
+      if (bg) load_bias<NT>(st + St::BIAS, bg, tile * TK, TK, tk);
+    }
+    cp_commit();  // an empty group past the end keeps the count uniform
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES; ++s) fetch(s);
 
-    float s[4][4];
-    tile_dot<DP>(qs, ks, tx, ty, s);
-    float alpha[4];
+  const uint2 key = DROP ? flash::philox_key(seed) : make_uint2(0u, 0u);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  float acc[DP / 8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
+  for (int n = 0; n < DP / 8; ++n)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[i][c] = s[i][c] * scale + kb[tx + 16 * c];
-        mx = fmaxf(mx, s[i][c]);
-      }
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    cp_wait<STAGES - 1>();
+    float* st = ring + (tile % STAGES) * St::FLOATS;
+    // this thread's own copies have landed: split them
+    split_tile<DP, TK, NT>(st, d, vec);
+    split_tile<DP, TK, NT>(st + St::V, d, vec);
+    __syncthreads();  // tile's K, V and biases are in for every thread
+    const float* kb = st + St::BIAS;
+    const int k0 = tile * TK;
+
+    uint32_t kbits[NJ];  // the mask's Philox work, ahead of the products
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      kbits[j] = DROP ? keep_bits(key, q0 + 16 * w, k0 + 8 * j, h, b, drop_thr) : 0u;
+    float sc[1][NJ][4];
+    mma_abt<DP, NJ, St::MAT, 1>({&qa}, {st}, sc);
+    float (&s)[NJ][4] = sc[0];
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int c = 8 * j + 2 * t;
+      const float2 bj = bg ? *reinterpret_cast<const float2*>(kb + c)
+                           : make_float2(0.0f, 0.0f);
+      const float b0 = k0 + c < tk ? bj.x : -INFINITY;
+      const float b1 = k0 + c + 1 < tk ? bj.y : -INFINITY;
+      s[j][0] = s[j][0] * scale + b0;
+      s[j][1] = s[j][1] * scale + b1;
+      s[j][2] = s[j][2] * scale + b0;
+      s[j][3] = s[j][3] * scale + b1;
+      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+    }
+    float alpha[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
       // every key tile holds a key inside the sequence: m_new is finite
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
-      alpha[i] = expf(m[i] - m_new);
-      float sum = 0.0f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[i][c] = expf(s[i][c] - m_new);
-        sum += s[i][c];
-      }
-      l[i] = l[i] * alpha[i] + half_warp_sum(sum);
-      m[i] = m_new;
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      alpha[r] = expf(m[r] - m_new);
+      m[r] = m_new;
     }
-    if (drop) {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = expf(s[j][e] - m[e >> 1]);
+        sum[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(sum[r]);
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+    if (DROP) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
         float keep[4];
-        keep_scales(key, q0 + 4 * ty, k0 + tx + 16 * c, h, b, drop_thr,
-                    drop_scale, keep);
+        keep_scales(kbits[j], drop_scale, keep);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) s[i][c] *= keep[i];
+        for (int e = 0; e < 4; ++e) s[j][e] *= keep[e];
       }
     }
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      *reinterpret_cast<float4*>(pt + (tx + 16 * c) * SS + 4 * ty) =
-          make_float4(s[0][c], s[1][c], s[2][c], s[3][c]);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha[i];
-    __syncthreads();
-    tile_tn<DP>(pt, vs, tx, ty, acc);
+    mma_pb<DP, NJ, St::MAT>(s, st + St::V, acc);
+    __syncthreads();  // every warp is done with this stage
+    fetch(tile + STAGES);
   }
+  cp_wait<0>();
 
+  const int r = q0 + 16 * w + g;
+  const float inv[2] = {1.0f / l[0], 1.0f / l[1]};
+  store_rows<DP>(o + bh * tq * d, acc, r, tq, d, inv, vec);
+  if (t == 0) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] /= l[i];
-  store_rows<DP>(o + bh * tq * d, acc, q0, tq, d, tx, ty, false);
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = q0 + 4 * ty + i;
-      if (r < tq) lse[bh * tq + r] = m[i] + logf(l[i]);
-    }
+    for (int hf = 0; hf < 2; ++hf)
+      if (r + 8 * hf < tq) lse[bh * tq + r + 8 * hf] = m[hf] + logf(l[hf]);
   }
 }
 
-template <int DP>
+template <int DP, int MODE>
 cudaError_t launch(const float* q, const float* k, const float* v,
                    const float* bias, const unsigned long long* seed,
                    float* o, float* lse, int batch, int heads, int tq, int tk,
                    int d, float scale, uint32_t drop_thr, float drop_scale,
                    cudaStream_t stream) {
-  const size_t smem = fwd_smem_bytes<DP>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  const size_t smem = fwd_smem_bytes<DP, MODE>();
+  auto kernel = seed ? flash_fwd_kernel<DP, MODE, true>
+                     : flash_fwd_kernel<DP, MODE, false>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((tq + TQ - 1) / TQ, heads, batch);
-  flash_fwd_kernel<DP><<<grid, NT, smem, stream>>>(
-      q, k, v, bias, seed, o, lse, heads, tq, tk, d, scale, drop_thr,
-      drop_scale);
+  const bool vec = d % 4 == 0 && aligned16(q) && aligned16(k) &&
+                   aligned16(v) && aligned16(o);
+  const dim3 grid((tq + 16 * NW - 1) / (16 * NW), heads, batch);
+  kernel<<<grid, 32 * NW, smem, stream>>>(q, k, v, bias, seed, o, lse, heads,
+                                          tq, tk, d, scale, drop_thr,
+                                          drop_scale, vec);
   return cudaGetLastError();
 }
 
@@ -176,10 +217,12 @@ extern "C" int flash_fwd_launch(const float* q, const float* k,
     return cudaErrorInvalidValue;
   }
   const cudaStream_t s = (cudaStream_t)stream;
-  return d <= 64 ? launch<64>(q, k, v, bias, seed, o, lse, batch, heads, tq,
-                              tk, d, scale, drop_thr, drop_scale, s)
-                 : launch<128>(q, k, v, bias, seed, o, lse, batch, heads, tq,
-                               tk, d, scale, drop_thr, drop_scale, s);
+  // Q's split halves in registers at D <= 64, in shared memory at D 128
+  return d <= 64
+             ? launch<64, kRegs>(q, k, v, bias, seed, o, lse, batch, heads, tq,
+                                 tk, d, scale, drop_thr, drop_scale, s)
+             : launch<128, kShared>(q, k, v, bias, seed, o, lse, batch, heads,
+                                    tq, tk, d, scale, drop_thr, drop_scale, s);
 }
 
 extern "C" const char* flash_fwd_error_string(int err) {

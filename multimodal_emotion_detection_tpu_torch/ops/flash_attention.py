@@ -14,8 +14,15 @@ Four kernels, each behind a wrapper with its launch counter:
   recomputes the probabilities from LSE, accumulates dK and dV on chip and
   writes each kv span's dQ partial to its own slot; the wrapper sums the
   slots (no atomics, so the result is deterministic);
-* ``flash_bwd_dkv`` and ``flash_bwd_dq`` (same source): the two-pass
-  backward for long key sequences, dK and dV kv-major, dQ q-major.
+* ``flash_bwd_dkv`` (same source) and ``flash_bwd_dq``
+  (``csrc/flash_bwd_dq.cu``): the two-pass backward for long key sequences,
+  dK and dV kv-major, dQ q-major.
+
+The two q-major kernels (``flash_fwd``, ``flash_bwd_dq``) run their products
+on the tensor cores in 3xTF32 (``csrc/flash_mma.cuh``): each float32
+operand is split into two TF32 values and a product is three TF32 MMAs,
+which keeps float32 accuracy.  ``tf32_round`` and ``matmul_3xtf32`` emulate
+that arithmetic on the CPU for the tests; no path of the port calls them.
 
 ``FlashAttention`` (an ``autograd.Function``) saves (q, k, v, bias, seed,
 O, LSE); its backward forms Delta = rowsum(dO * O) and takes the fused or
@@ -165,6 +172,24 @@ def flash_bwd_reference(q, k, v, bias, seed, rate: float, do, lse, delta):
     return torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q), dv
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (10 mantissa bits), ties away from
+    zero, as ``cvt.rna.tf32.f32``: the low 13 bits of the magnitude rounded
+    half up (finite inputs)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the q-major kernels form it (``csrc/flash_mma.cuh``): each
+    operand split into big = tf32(x) and small = tf32(x - big), the product
+    small·big + big·small + big·big (small·small dropped), float32 sums."""
+    a_big, b_big = tf32_round(a), tf32_round(b)
+    a_small, b_small = tf32_round(a - a_big), tf32_round(b - b_big)
+    return (torch.matmul(a_small, b_big) + torch.matmul(a_big, b_small)
+            + torch.matmul(a_big, b_big))
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -178,7 +203,7 @@ FLASH_FWD = CudaKernel(
 _BWD_ARGS = [_P] * 11 + [_I] * 6 + [_F, _U, _F, _P]
 FLASH_BWD_FUSED = CudaKernel("flash_bwd", "flash_bwd_fused_launch", _BWD_ARGS)
 FLASH_BWD_DKV = CudaKernel("flash_bwd", "flash_bwd_dkv_launch", _BWD_ARGS)
-FLASH_BWD_DQ = CudaKernel("flash_bwd", "flash_bwd_dq_launch", _BWD_ARGS)
+FLASH_BWD_DQ = CudaKernel("flash_bwd_dq", "flash_bwd_dq_launch", _BWD_ARGS)
 
 
 def bwd_route(tk: int) -> str:
@@ -297,8 +322,8 @@ def flash_bwd_dkv(q, k, v, bias, seed, rate: float, do, lse, delta):
 def flash_bwd_dq(q, k, v, bias, seed, rate: float, do, lse, delta):
     """Two-pass backward, second pass -> dQ, float32.
 
-    On a CUDA tensor this launches ``csrc/flash_bwd.cu``'s q-major kernel
-    and counts it in ``FLASH_BWD_DQ.launches``; on a CPU tensor it runs
+    On a CUDA tensor this launches ``csrc/flash_bwd_dq.cu`` and counts it
+    in ``FLASH_BWD_DQ.launches``; on a CPU tensor it runs
     ``flash_bwd_reference``.
     """
     if q.device.type == "cpu":

@@ -1,0 +1,238 @@
+"""Time the PyTorch port's flash-attention kernels of two trees on one card.
+
+    python3 scripts/flash_ab.py --parent DIR   # DIR: another checkout
+
+Runs the timing child on DIR, on this checkout, on this checkout again and
+on DIR (parent, change, change, parent), each in its own process that
+imports ``multimodal_emotion_detection_tpu_torch`` from its tree and builds
+that tree's kernels into its own ``build/torch_kernels/``.  Each child
+prints one JSON line of median device times (CUDA events around each call,
+L2 flushed before each, 20 calls after 3 warm-ups):
+
+* ``flash_fwd`` at the transformer encoder's (32, 4, 372, 64), rates 0 and
+  0.1, and SDPA's forward on the same inputs (no dropout);
+* ``flash_bwd_fused`` there at rate 0.1, and SDPA's backward;
+* ``flash_bwd_dkv`` and ``flash_bwd_dq`` at (2, 4, 5000, 64) with a key
+  bias at rate 0.1, and SDPA's backward there.
+
+The inputs are ``chip_smoke.py``'s.  ``--child ROOT`` runs one child.
+After the four children, two measurements of this checkout alone:
+
+* ``--mma-rate`` (also run after the children): the card's mma.sync TF32
+  rate, from ``scripts/mma_rate.cu``, independent m16n8k8 MMAs from
+  registers at 1 to 8 CTAs of 4 warps per SM;
+* ``--dq-timers`` (also run after the children): ``flash_bwd_dq`` built
+  with ``-DFLASH_DQ_TIMERS=1`` at (2, 4, 5000, 64), rates 0.1 and 0: each
+  phase's share of the warps' clock64() time in the key walk.
+
+Needs a CUDA card; exits non-zero without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+
+def _timed(fn, flush, reps=20, warmup=3):
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        flush()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def child(root: Path) -> dict:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("flash_ab: torch sees no CUDA card")
+    sys.path.insert(0, str(root))
+    from multimodal_emotion_detection_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    buf = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=dev)
+    flush = buf.zero_
+
+    def inputs(b, h, t, d, seed, valid=None):
+        rng = np.random.RandomState(seed)
+        q, k, v = (torch.from_numpy(rng.randn(b, h, t, d).astype(np.float32)).to(dev)
+                   for _ in range(3))
+        do = torch.from_numpy(rng.randn(b, h, t, d).astype(np.float32)).to(dev)
+        bias = None if valid is None else torch.from_numpy(
+            np.where(valid, 0.0, -1e9).astype(np.float32)).to(dev)
+        return q, k, v, bias, do
+
+    def sdpa_bwd(q, k, v, bias, do):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        mask = None if bias is None else bias[:, None, None, :]
+        out = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=mask)
+        return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+    res = {"root": str(root), "card": torch.cuda.get_device_name(0)}
+    seed = torch.tensor([0x5EED_0F_F1A5], dtype=torch.int64, device=dev)
+    q, k, v, _, do = inputs(32, 4, 372, 64, 5)
+    o, lse = fa.flash_fwd_reference(q, k, v, None, seed, 0.1)
+    args = (q, k, v, None, seed, 0.1, do, lse, (do * o).sum(-1))
+    res["flash_fwd_rate0_ms"] = _timed(lambda: fa.flash_fwd(q, k, v, None, seed, 0.0), flush)
+    res["flash_fwd_rate01_ms"] = _timed(lambda: fa.flash_fwd(q, k, v, None, seed, 0.1), flush)
+    res["sdpa_fwd_ms"] = _timed(
+        lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), flush)
+    res["flash_bwd_fused_ms"] = _timed(lambda: fa.flash_bwd_fused(*args), flush)
+    res["sdpa_bwd_ms"] = _timed(sdpa_bwd(q, k, v, None, do), flush)
+
+    rng = np.random.RandomState(31)
+    valid = rng.rand(2, 5000) > 0.1
+    valid[:, 0] = True
+    q, k, v, bias, do = inputs(2, 4, 5000, 64, 32, valid)
+    seed = torch.tensor([0xA77E5710], dtype=torch.int64, device=dev)
+    o, lse = fa.flash_fwd_reference(q, k, v, bias, seed, 0.1)
+    args = (q, k, v, bias, seed, 0.1, do, lse, (do * o).sum(-1))
+    res["long_flash_fwd_ms"] = _timed(lambda: fa.flash_fwd(q, k, v, bias, seed, 0.1), flush)
+    res["long_dkv_ms"] = _timed(lambda: fa.flash_bwd_dkv(*args), flush)
+    res["long_dq_ms"] = _timed(lambda: fa.flash_bwd_dq(*args), flush)
+    res["long_sdpa_bwd_ms"] = _timed(sdpa_bwd(q, k, v, bias, do), flush)
+    return res
+
+
+def _nvcc_lib(root: Path, src: Path, name: str, flags) -> Path:
+    sys.path.insert(0, str(root))
+    from multimodal_emotion_detection_tpu_torch.ops import _build
+
+    out = root / "build" / "flash_ab" / f"lib{name}.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(out), str(src)]
+    log = subprocess.run(cmd, capture_output=True, text=True)
+    if log.returncode != 0:
+        sys.exit(f"flash_ab: nvcc failed for {src}:\n{log.stdout}{log.stderr}")
+    return out
+
+
+def mma_rate(root: Path) -> None:
+    import ctypes
+
+    import torch
+
+    csrc = root / "multimodal_emotion_detection_tpu_torch" / "csrc"
+    lib = ctypes.CDLL(str(_nvcc_lib(root, root / "scripts" / "mma_rate.cu",
+                                    "mma_rate", ["-I", str(csrc)])))
+    fn = lib.mma_rate_launch
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_void_p]
+    out = torch.zeros(1024, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    iters = 2000
+    for per_sm in (1, 2, 3, 4, 8):
+        for chain in (1, 3):
+            blocks = per_sm * sms
+            fn(blocks, 128, iters, chain, out.data_ptr(), stream)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            if fn(blocks, 128, iters, chain, out.data_ptr(), stream) != 0:
+                sys.exit("flash_ab: mma_rate_launch failed")
+            end.record()
+            end.synchronize()
+            flops = blocks * 4 * iters * 8 * chain * 2 * 16 * 8 * 8
+            print(f"[mma_rate] {per_sm} CTAs of 4 warps per SM, chain {chain}: "
+                  f"{flops / start.elapsed_time(end) / 1e9:.1f} TFLOP/s of "
+                  "m16n8k8 TF32 mma.sync")
+
+
+def dq_timers(root: Path) -> None:
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(root))
+    from multimodal_emotion_detection_tpu_torch.ops import _build
+    from multimodal_emotion_detection_tpu_torch.ops import flash_attention as fa
+
+    csrc = root / "multimodal_emotion_detection_tpu_torch" / "csrc"
+    path = _nvcc_lib(root, csrc / "flash_bwd_dq.cu", "flash_bwd_dq_timers",
+                     ["-DFLASH_DQ_TIMERS=1"])
+    lib = ctypes.CDLL(str(path))
+    kern = _build.CudaKernel("flash_bwd_dq", "flash_bwd_dq_launch",
+                             fa.FLASH_BWD_DQ.argtypes)
+    kern._fn = lib.flash_bwd_dq_launch
+    kern._fn.argtypes, kern._fn.restype = kern.argtypes, ctypes.c_int
+    kern._err_str = lib.flash_bwd_dq_error_string
+    kern._err_str.argtypes, kern._err_str.restype = [ctypes.c_int], ctypes.c_char_p
+    timers = lib.flash_bwd_dq_timers
+    timers.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    fa.FLASH_BWD_DQ = kern
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(32)
+    q, k, v, do = (torch.from_numpy(rng.randn(2, 4, 5000, 64).astype(np.float32)).to(dev)
+                   for _ in range(4))
+    valid = rng.rand(2, 5000) > 0.1
+    valid[:, 0] = True
+    bias = torch.from_numpy(np.where(valid, 0.0, -1e9).astype(np.float32)).to(dev)
+    seed = torch.tensor([0xA77E5710], dtype=torch.int64, device=dev)
+    names = ["wait", "split + barrier", "S = Q K^T and dP = dO V^T", "dS (P, mask)",
+             "dQ += dS K", "barrier", "next tile's copies"]
+    buf = (ctypes.c_ulonglong * 7)()
+    for rate in (0.1, 0.0):
+        o, lse = fa.flash_fwd_reference(q, k, v, bias, seed, rate)
+        args = (q, k, v, bias, seed, rate, do, lse, (do * o).sum(-1))
+        fa.flash_bwd_dq(*args)
+        torch.cuda.synchronize()
+        timers(ctypes.addressof(buf), 1)
+        fa.flash_bwd_dq(*args)
+        torch.cuda.synchronize()
+        timers(ctypes.addressof(buf), 1)
+        total = sum(buf)
+        print(f"[dq_timers] (2, 4, 5000, 64) rate {rate}: " + ", ".join(
+            f"{n} {100 * x / total:.1f}%" for n, x in zip(names, buf)))
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    group = ap.add_mutually_exclusive_group(required=True)
+    group.add_argument("--parent", type=Path, help="the other checkout")
+    group.add_argument("--child", type=Path, help="time this tree alone")
+    group.add_argument("--mma-rate", action="store_true", help="mma.sync TF32 rate")
+    group.add_argument("--dq-timers", action="store_true", help="dq phase shares")
+    opts = ap.parse_args()
+    here = Path(__file__).resolve().parents[1]
+    if opts.child is not None:
+        print(json.dumps(child(opts.child.resolve())))
+        return
+    if opts.mma_rate or opts.dq_timers:
+        (mma_rate if opts.mma_rate else dq_timers)(here)
+        return
+    parent = opts.parent.resolve()
+    runs = []
+    for tag, root in (("parent", parent), ("change", here), ("change", here),
+                      ("parent", parent)):
+        out = subprocess.run([sys.executable, __file__, "--child", str(root)],
+                             capture_output=True, text=True, check=True)
+        runs.append((tag, json.loads(out.stdout.strip().splitlines()[-1])))
+        print(f"[flash_ab] {tag}: {out.stdout.strip().splitlines()[-1]}")
+    keys = [k for k in runs[0][1] if k.endswith("_ms")]
+    for key in keys:
+        print(f"[flash_ab] {key}: " + ", ".join(
+            f"{tag} {r[key]:.4f}" for tag, r in runs))
+    for flag in ("--mma-rate", "--dq-timers"):
+        subprocess.run([sys.executable, __file__, flag], check=True)
+
+
+if __name__ == "__main__":
+    main()

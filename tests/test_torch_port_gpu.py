@@ -806,22 +806,26 @@ FLASH_SHAPES = [
     (32, 4, 372, 372, 64, False, 0.1),   # the encoder's shape
     (3, 4, 512, 512, 64, True, 0.1),     # blockwise-fold blocks
     (1, 2, 70, 1100, 32, True, 0.1),     # several key tiles per span
+    (2, 2, 65, 65, 64, False, 0.1),      # one row past a 64-row query tile
+    (2, 2, 100, 100, 96, True, 0.1),     # head dim 96, padded to 128
+    (2, 2, 70, 130, 8, False, 0.1),      # head dim 8, padded to 64
+    (1, 2, 64, 5000, 64, True, 0.1),     # dq's ragged last key tile (8 keys)
 ]
 
 
-@pytest.mark.parametrize("b,h,tq,tk,d,masked,rate", FLASH_SHAPES)
-def test_flash_kernels_match_plain(b, h, tq, tk, d, masked, rate):
+def _check_flash_kernels(b, h, tq, tk, d, masked, rate, q_scale=1.0):
     from multimodal_emotion_detection_tpu_torch.ops import flash_attention as fa
 
     dev = _card()
     q, k, v, bias, do = _flash_case(dev, b, h, tq, tk, d, masked, seed=tq + tk + d)
+    q = q * q_scale
     seed = torch.tensor([tq * 1000 + tk], dtype=torch.int64, device=dev)
     before = fa.FLASH_FWD.launches
     o, lse = fa.flash_fwd(q, k, v, bias, seed, rate)
     torch.cuda.synchronize()
     assert fa.FLASH_FWD.launches == before + 1
     o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, bias, seed, rate)
-    # float32 sums in another order than cuBLAS
+    # float32 sums in another order than cuBLAS (3xTF32 on the tensor cores)
     torch.testing.assert_close(o, o_ref, rtol=1e-4, atol=1e-4, msg="O")
     torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-5, msg="LSE")
 
@@ -840,6 +844,17 @@ def test_flash_kernels_match_plain(b, h, tq, tk, d, masked, rate):
             scale = float(r.abs().max())
             torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4 * max(scale, 1.0),
                                        msg=f"{form} {name}")
+
+
+@pytest.mark.parametrize("b,h,tq,tk,d,masked,rate", FLASH_SHAPES)
+def test_flash_kernels_match_plain(b, h, tq, tk, d, masked, rate):
+    _check_flash_kernels(b, h, tq, tk, d, masked, rate)
+
+
+def test_flash_kernels_match_plain_at_large_logits():
+    # q scaled by 6: scores up to ~30, where an error in the TF32 split of
+    # the operands would show in LSE and through exp in O and dQ
+    _check_flash_kernels(2, 4, 200, 200, 64, True, 0.1, q_scale=6.0)
 
 
 def test_flash_attention_on_the_card_matches_the_cpu_with_one_seed():
