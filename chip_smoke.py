@@ -44,8 +44,10 @@
 7. The big sweep config (LSTM 3x512, output 256, head 512, video 512,
    log-mel cached per split; ``BIG``): holds the single-layer training
    forward, its eval form and the single-layer reverse chain against their
-   plain versions at B=32, T=372, H=512 and times them beside cuDNN, and
-   the whole 3-layer recurrence gradient beside cuDNN's.
+   plain versions at B=32, T=372, H=512 and times them beside cuDNN (the
+   chain with its launch plan: units per CTA, cluster size, row groups,
+   shared memory), and the whole 3-layer recurrence gradient beside
+   cuDNN's.
 8. Trains the big config as in 6 (``[train_big]``): 3 training forwards and
    3 reverse chains per step, 3 eval-form launches per eval batch, log-mel
    once per split, and no launch of the 2-layer kernels; the card step
@@ -66,7 +68,8 @@
 10. The big sweep config with the GRU encoder (GRU 3x512, log-mel cached
    per split; ``BIG_GRU``): ``[gru1_train_fwd]`` / ``[gru1_infer]`` hold
    the one-layer GRU training forward and its eval form, ``[gru_bwd_chain]``
-   the one-layer GRU reverse chain (with and without ``dh_series``), against
+   the one-layer GRU reverse chain (with and without ``dh_series``; its
+   launch plan printed), against
    their plain versions at B=32, T=372, H=512, with the whole 3-layer
    gradient against autograd through the plain forward, and time them
    beside cuDNN's GRU.  ``[train_big_gru]`` trains it as in 6 (3 training
@@ -987,6 +990,16 @@ def phase_lstm1_train_fwd(lstm_kernel, flush):
     return train_kern, eval_kern, (inputs, w_hh)
 
 
+def _chain_plan_text(lstm_kernel, source, width, h, b):
+    """The launch plan of a one-layer reverse chain (csrc/rnn_bwd_chain.cuh)
+    on this card."""
+    plan = lstm_kernel.chain_plan_on(source, width, h, b, torch.device("cuda"))
+    return (f"launch plan at B={b} H={h}: UPC {plan.upc}, {plan.grid} CTAs in "
+            f"clusters of {plan.ncl}, {plan.rgroups} row groups "
+            f"({plan.rgroups * plan.upc} units a CTA), {plan.smem} bytes of shared "
+            f"memory per CTA, chunks of {plan.kc} float4 columns of a {plan.width}H row")
+
+
 def phase_lstm_bwd_chain(lstm_kernel, lstm_vjp, flush, layer_inputs):
     inputs, w_hh = layer_inputs
     x, w_ih, bias = inputs["D=512"]
@@ -1027,8 +1040,9 @@ def phase_lstm_bwd_chain(lstm_kernel, lstm_vjp, flush, layer_inputs):
     # g, c_prev, dh_series, dh_final and w_hh read; dgates written
     nbytes = 4 * (2 * t * b * 4 * h + 2 * t * b * h + b * h + h * 4 * h)
     bound_ms, bound_by = bound(flops, nbytes)
+    print(f"[lstm_bwd_chain] {_chain_plan_text(lstm_kernel, 'lstm_bwd_chain', 4, h, b)}")
     print(f"[lstm_bwd_chain] kernel {ms:.4f} ms with dh_series, {top_ms:.4f} ms "
-          f"without (one cooperative launch, {t} grid barriers, "
+          f"without (one cooperative cluster launch, {t} split grid barriers, "
           f"{1e3 * ms / t:.3f} us per step), plain {plain_ms:.4f} ms, cuDNN "
           f"backward of h_n for nn.LSTM({h}, {h}) {library_ms:.4f} ms (it also "
           f"forms the weight gradients), bound {bound_ms:.4f} ms ({bound_by}: "
@@ -1572,8 +1586,9 @@ def phase_gru_bwd_chain(lstm_kernel, lstm_vjp, flush, layer_inputs):
     # dhn written
     nbytes = 4 * (t * b * (4 * h + h + h + 3 * h + h) + b * h + h * 3 * h)
     bound_ms, bound_by = bound(flops, nbytes)
+    print(f"[gru_bwd_chain] {_chain_plan_text(lstm_kernel, 'gru_bwd_chain', 3, h, b)}")
     print(f"[gru_bwd_chain] kernel {ms:.4f} ms with dh_series, {top_ms:.4f} ms "
-          f"without (one cooperative launch, {t} grid barriers, "
+          f"without (one cooperative cluster launch, {t} split grid barriers, "
           f"{1e3 * ms / t:.3f} us per step), plain {plain_ms:.4f} ms, cuDNN "
           f"backward of h_n for nn.GRU({h}, {h}) {library_ms:.4f} ms (it also "
           f"forms the weight gradients), bound {bound_ms:.4f} ms ({bound_by}: "

@@ -38,11 +38,14 @@
 // (KC = H where it fits), loaded by coalesced float4 rows; warp w sums
 // k = w, w+8, .. of each chunk for one batch row per lane into the CTA's
 // 4*UPC columns, and the warps' partial sums meet in shared memory.
-// Exactly T steps run; any B >= 1.
+// Exactly T steps run; any B >= 1.  Built with -DRNN_CHAIN_TIMERS=1
+// (rnn_timers.cuh) each warp splits its step into the timer buckets.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "rnn_timers.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -127,6 +130,7 @@ __global__ void __launch_bounds__(NT) lstm1_fwd_kernel(
   const int cr = tid % ROWS;
   const int cu = tid / ROWS;
   const int j = j0 + cu;
+  rnn_timer::Timer tm;
 
   for (int t = 0; t < t_len; ++t) {
     // the state before step t, and where this step's h goes
@@ -161,6 +165,7 @@ __global__ void __launch_bounds__(NT) lstm1_fwd_kernel(
           __syncthreads();  // the tile's previous chunk has been read
           load_tile(src, tile, bt0, nb, H, k0, kn, ld, tid);
           __syncthreads();
+          tm.mark(rnn_timer::kExchange);
           if (lane < nb) {
             const float* row = tile + lane * ld;
             for (int k = warp; k < kn; k += NW) {
@@ -174,12 +179,14 @@ __global__ void __launch_bounds__(NT) lstm1_fwd_kernel(
               }
             }
           }
+          tm.mark(rnn_timer::kProducts);
         }
       }
       // red[(w*G + col)*ROWS + row]: lanes write consecutive words
 #pragma unroll
       for (int col = 0; col < G; ++col) red[(warp * G + col) * ROWS + lane] = a[col];
       __syncthreads();
+      tm.mark(rnn_timer::kReduce);
 
       if (cell) {
         float g4[4];
@@ -213,9 +220,12 @@ __global__ void __launch_bounds__(NT) lstm1_fwd_kernel(
         }
       }
       __syncthreads();  // red is rewritten by the next pass
+      tm.mark(rnn_timer::kCell);
     }
     grid.sync();
+    tm.mark(rnn_timer::kBarrier);
   }
+  tm.flush();
 }
 
 size_t smem_bytes(int upc, int hidden, int kc, int batch) {
@@ -301,6 +311,8 @@ extern "C" int lstm1_fwd_infer_launch(const float* ih, const float* w_hh,
   return dispatch<false>(ih, w_hh, nullptr, h_out, nullptr, nullptr, batch,
                          t_len, hidden, series, stream);
 }
+
+RNN_TIMERS_EXPORT(lstm1_fwd)
 
 extern "C" const char* lstm1_fwd_error_string(int err) {
   if (err == kUnsupported) return "shape not supported by lstm1_fwd";

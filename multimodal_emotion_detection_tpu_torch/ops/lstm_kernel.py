@@ -39,7 +39,8 @@ One layer per launch, any depth (H up to at least 1024):
   input projection, with its residuals; ``lstm1_infer`` the same kernel
   source's eval form (``csrc/lstm1_fwd.cu``);
 * ``lstm_bwd_chain``: one layer's reverse dgates chain
-  (``csrc/lstm_bwd_chain.cu``).
+  (``csrc/lstm_bwd_chain.cu`` on the core ``csrc/rnn_bwd_chain.cuh``, split
+  by ``chain_plan``).
 
 The 2-layer residual layout is the JAX package's: ``packed`` (T, B, 10H) =
 ``[g0 | g1 | c0_prev | c1_prev]`` at the ``RES2_*`` offsets (units of H),
@@ -82,19 +83,21 @@ twins of the one-layer LSTM kernels:
   hn]`` and ``h_prev`` (T, B, H); ``gru1_infer`` the same kernel source's
   eval form (``csrc/gru1_fwd.cu``);
 * ``gru_bwd_chain``: one layer's reverse chain, emitting ``dih`` and the
-  ``dhn`` lane of ``dhh`` (``csrc/gru_bwd_chain.cu``).
+  ``dhn`` lane of ``dhh`` (``csrc/gru_bwd_chain.cu``, the same core).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from dataclasses import dataclass
+from typing import Callable, Dict, Tuple
 
 import torch
 
 from multimodal_emotion_detection_tpu_torch.ops._build import (
     CudaKernel,
     check_cuda_f32,
+    load,
     stream_of,
 )
 
@@ -688,8 +691,178 @@ LSTM1_INFER = CudaKernel(
 )
 LSTM_BWD_CHAIN = CudaKernel(
     "lstm_bwd_chain", "lstm_bwd_chain_launch",
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 )
+
+
+# The one-layer reverse chains' launch plan (csrc/rnn_bwd_chain.cuh, which
+# re-checks it against the card); the constants are the core's.
+CHAIN_NT = 256   # threads per CTA
+CHAIN_PH = 8     # batch rows per pass
+CHAIN_NU_MAX = 64  # units per cluster the kernel is built for
+CHAIN_FLAGS = 4 * 256  # barrier flags: 256 words for each of <= 4 row groups
+
+
+@dataclass(frozen=True)
+class ChainPlan:
+    """How one layer's reverse chain is split on the card.
+
+    ``grid = hidden / upc`` CTAs, one per SM, in clusters of ``ncl``.
+    Cluster ``k = c // ncl`` serves row group ``k % rgroups`` (``rows``: a
+    contiguous ``ceil(B / rgroups)`` of the batch, in passes of
+    ``CHAIN_PH``) and unit block ``k // rgroups`` (``cluster_units``,
+    ``ncl * rgroups * upc`` units).  CTA ``c`` runs the cell of ``units(c)``
+    and forms the partial products of the cluster's units over
+    ``share(c % ncl)``, its float4 columns of the exchanged row (``width *
+    hidden`` floats), loaded in chunks of ``kc`` float4 columns; ``smem``
+    bytes of shared memory per CTA."""
+
+    hidden: int
+    width: int
+    upc: int
+    ncl: int
+    rgroups: int
+    kc: int
+    smem: int
+
+    @property
+    def grid(self) -> int:
+        return self.hidden // self.upc
+
+    @property
+    def cluster_width(self) -> int:
+        return self.ncl * self.rgroups * self.upc
+
+    def share(self, rank: int) -> range:
+        n4 = self.width * self.hidden // 4
+        return range(rank * n4 // self.ncl, (rank + 1) * n4 // self.ncl)
+
+    def rows(self, cta: int, batch: int) -> range:
+        bg = _ceil(batch, self.rgroups)
+        b0 = min(batch, cta // self.ncl % self.rgroups * bg)
+        return range(b0, min(batch, b0 + bg))
+
+    def cluster_units(self, cta: int) -> range:
+        nu = self.cluster_width
+        return range(cta // self.ncl // self.rgroups * nu,
+                     (cta // self.ncl // self.rgroups + 1) * nu)
+
+    def units(self, cta: int) -> range:
+        per_cta = self.rgroups * self.upc
+        u0 = self.cluster_units(cta).start + cta % self.ncl * per_cta
+        return range(u0, u0 + per_cta)
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _column_slices(nu: int) -> int:
+    """The products' float4 column slices for a cluster of ``nu`` units:
+    8 warps of 32 lanes over ``nu / min(nu, 8)`` unit groups."""
+    return CHAIN_NT // (nu // min(nu, 8))
+
+
+def chain_smem_floats(width: int, hidden: int, upc: int, ncl: int, rgroups: int,
+                      kc: int) -> int:
+    """Shared memory of a plan in floats, as ``rnn_bwd::smem_floats``: the
+    weights, the chunk slots, the warps' and the cluster's partial sums."""
+    nu = upc * ncl * rgroups
+    cs4 = _ceil(width * hidden // 4, ncl)
+    chunks = _ceil(cs4, kc)
+    slots = chunks if chunks <= 8 else 2
+    ldw = _ceil(4 * cs4, 32) * 32 + 4
+    ldx = _ceil(4 * kc, 32) * 32 + 4
+    return nu * ldw + slots * CHAIN_PH * ldx + 64 * min(nu, 8) + 2 * CHAIN_PH * nu
+
+
+def chain_plan(hidden: int, width: int, batch: int, sms: int, max_smem: int,
+               active_clusters: Callable[[int, int, int, int], int]) -> ChainPlan:
+    """The launch plan of one layer's reverse chain (``width`` 4: LSTM, 3:
+    GRU) on a card of ``sms`` SMs and ``max_smem`` bytes of shared memory
+    per block; ``active_clusters(upc, ncl, rgroups, kc)`` is how many
+    clusters of that plan's kernel the card holds at once.
+
+    UPC is the fewest units per CTA (1, 2, 4, 8) that keep the grid within
+    one CTA per SM.  The cluster size is the largest of 8, 4, 2, 1 that
+    divides the grid and for which some row-group count fits; the row
+    groups the most of 4, 2, 1 that divide the clusters' grid and whose
+    weights fit beside a chunk of the share, at most 64 units a cluster,
+    with the whole grid resident at once.  The chunk is the largest
+    multiple of the products' column slices that fits (the whole share
+    where it fits: on the H100, one chunk beat four, ``chain_ab.py
+    --sweep``), else a ring of two chunks of a ninth of the share or less.  Shared memory is padded
+    past half an SM's, so one CTA fits an SM.  Raises ``ValueError`` for a
+    shape no plan takes.
+    """
+    if batch < 1 or hidden < 4 or hidden % 4:
+        raise ValueError(f"chain_plan: no plan for B={batch}, H={hidden} (H % 4 == 0)")
+    upc = next((u for u in (1, 2, 4, 8) if hidden % u == 0 and hidden // u <= sms), None)
+    if upc is None:
+        raise ValueError(f"chain_plan: H={hidden} needs more than 8 units per CTA "
+                         f"on {sms} SMs")
+    grid = hidden // upc
+    for ncl in (8, 4, 2, 1):
+        for rgroups in (4, 2, 1):
+            nu = ncl * rgroups * upc
+            if grid % (ncl * rgroups) or nu > CHAIN_NU_MAX:
+                continue
+            cs4 = _ceil(width * hidden // 4, ncl)
+            ks = _column_slices(nu)
+            blocks = _ceil(cs4, ks)
+            # whole column slices per chunk where they fit, else a ring of
+            # two chunks of any width
+            widths = [min(cs4, ks * _ceil(blocks, m)) for m in range(1, blocks + 1)]
+            widths += [_ceil(cs4, m) for m in range(9, cs4 + 1)]
+            fits = (kc for kc in dict.fromkeys(widths)
+                    if 4 * chain_smem_floats(width, hidden, upc, ncl, rgroups, kc)
+                    <= max_smem)
+            kc = next(fits, None)
+            if kc is None or active_clusters(upc, ncl, rgroups, kc) * ncl < grid:
+                continue
+            need = 4 * chain_smem_floats(width, hidden, upc, ncl, rgroups, kc)
+            return ChainPlan(hidden, width, upc, ncl, rgroups, kc,
+                             max(need, max_smem // 2 + 2048))
+    raise ValueError(f"chain_plan: no cluster size fits H={hidden} on this card")
+
+
+_CHAIN_PLANS: Dict[Tuple[int, str, int], ChainPlan] = {}
+
+
+def chain_plan_on(source: str, width: int, hidden: int, batch: int,
+                  device: torch.device) -> ChainPlan:
+    """``chain_plan`` for ``csrc/<source>.cu``'s kernel on ``device``, its
+    SM count, shared memory and resident cluster counts read from the CUDA
+    runtime through the library; cached per card, source and H."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    key = (index, source, hidden)
+    plan = _CHAIN_PLANS.get(key)
+    if plan is None:
+        lib = load(source)
+        with torch.cuda.device(index):
+            sms, smem = ctypes.c_int(0), ctypes.c_int(0)
+            card = getattr(lib, f"{source}_card")
+            card.argtypes = [_P, _P]
+            _chain_check(lib, source, card(ctypes.byref(sms), ctypes.byref(smem)))
+            fn = getattr(lib, f"{source}_max_clusters")
+            fn.argtypes = [_I, _I, _I, _I, _I, _P]
+
+            def active(upc: int, ncl: int, rgroups: int, kc: int) -> int:
+                count = ctypes.c_int(0)
+                _chain_check(lib, source,
+                             fn(hidden, upc, ncl, rgroups, kc, ctypes.byref(count)))
+                return count.value
+
+            plan = chain_plan(hidden, width, batch, sms.value, smem.value, active)
+        _CHAIN_PLANS[key] = plan
+    return plan
+
+
+def _chain_check(lib, source: str, err: int) -> None:
+    if err != 0:
+        msg = getattr(lib, f"{source}_error_string")
+        msg.argtypes, msg.restype = [_I], ctypes.c_char_p
+        raise RuntimeError(f"{source}: {msg(err).decode()} (code {err})")
 
 
 def _layer_shapes(name: str, ih: torch.Tensor, w_hh: torch.Tensor, gates: int = 4):
@@ -763,9 +936,9 @@ def lstm_bwd_chain(g: torch.Tensor, c_prev: torch.Tensor, dh_series,
     residuals, ``dh_series`` (T, B, H) the per-step cotangent from the
     layer above (``None``: zeros, and the kernel reads nothing),
     ``dh_final`` (B, H) the final hidden state's.  On a CUDA tensor this
-    launches ``csrc/lstm_bwd_chain.cu`` (one cooperative launch) and counts
-    it in ``LSTM_BWD_CHAIN.launches``; on a CPU tensor it runs
-    ``lstm_bwd_chain_reference``.
+    launches ``csrc/lstm_bwd_chain.cu`` (one cooperative cluster launch on
+    ``chain_plan_on``'s plan) and counts it in ``LSTM_BWD_CHAIN.launches``;
+    on a CPU tensor it runs ``lstm_bwd_chain_reference``.
     """
     if g.device.type == "cpu":
         return lstm_bwd_chain_reference(g, c_prev, dh_series, dh_final, w_hh)
@@ -788,11 +961,16 @@ def lstm_bwd_chain(g: torch.Tensor, c_prev: torch.Tensor, dh_series,
         raise ValueError(f"lstm_bwd_chain: empty residuals {tuple(g.shape)}")
     dg = torch.empty((t_len, batch, 4 * h_dim), dtype=torch.float32, device=g.device)
     check_cuda_f32("lstm_bwd_chain", **tensors)
+    plan = chain_plan_on("lstm_bwd_chain", 4, h_dim, batch, g.device)
+    # the dc carry, and the row groups' barrier flags
+    carry = torch.zeros((batch, h_dim), dtype=torch.float32, device=g.device)
+    flags = torch.zeros(CHAIN_FLAGS, dtype=torch.int32, device=g.device)
     LSTM_BWD_CHAIN(
         g.data_ptr(), c_prev.data_ptr(),
         dh_series.data_ptr() if dh_series is not None else None,
-        dh.data_ptr(), w_hh.data_ptr(), dg.data_ptr(), batch, t_len, h_dim,
-        stream_of(g),
+        dh.data_ptr(), w_hh.data_ptr(), dg.data_ptr(), carry.data_ptr(),
+        flags.data_ptr(), batch, t_len, h_dim, plan.upc, plan.ncl,
+        plan.rgroups, plan.kc, stream_of(g),
     )
     return dg
 
@@ -1270,7 +1448,7 @@ GRU1_INFER = CudaKernel(
 )
 GRU_BWD_CHAIN = CudaKernel(
     "gru_bwd_chain", "gru_bwd_chain_launch",
-    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 )
 
 
@@ -1337,9 +1515,9 @@ def gru_bwd_chain(gates: torch.Tensor, h_prev: torch.Tensor, dh_series,
     residuals, ``dh_series`` (T, B, H) the per-step cotangent from the layer
     above (``None``: zeros, and the kernel reads nothing), ``dh_final``
     (B, H) the final hidden state's.  On a CUDA tensor this launches
-    ``csrc/gru_bwd_chain.cu`` (one cooperative launch) and counts it in
-    ``GRU_BWD_CHAIN.launches``; on a CPU tensor it runs
-    ``gru_bwd_chain_reference``.
+    ``csrc/gru_bwd_chain.cu`` (one cooperative cluster launch on
+    ``chain_plan_on``'s plan) and counts it in ``GRU_BWD_CHAIN.launches``;
+    on a CPU tensor it runs ``gru_bwd_chain_reference``.
     """
     if gates.device.type == "cpu":
         return gru_bwd_chain_reference(gates, h_prev, dh_series, dh_final, w_hh)
@@ -1365,10 +1543,15 @@ def gru_bwd_chain(gates: torch.Tensor, h_prev: torch.Tensor, dh_series,
     dih = torch.empty((t_len, batch, 3 * h_dim), **new)
     dhn = torch.empty(series, **new)
     check_cuda_f32("gru_bwd_chain", **tensors)
+    plan = chain_plan_on("gru_bwd_chain", 3, h_dim, batch, gates.device)
+    # the direct part's carry starts as dh_final; the barrier flags
+    carry = dh.clone()
+    flags = torch.zeros(CHAIN_FLAGS, dtype=torch.int32, device=gates.device)
     GRU_BWD_CHAIN(
         gates.data_ptr(), h_prev.data_ptr(),
         dh_series.data_ptr() if dh_series is not None else None,
         dh.data_ptr(), w_hh.data_ptr(), dih.data_ptr(), dhn.data_ptr(),
-        batch, t_len, h_dim, stream_of(gates),
+        carry.data_ptr(), flags.data_ptr(), batch, t_len, h_dim,
+        plan.upc, plan.ncl, plan.rgroups, plan.kc, stream_of(gates),
     )
     return dih, dhn

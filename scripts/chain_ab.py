@@ -1,0 +1,517 @@
+"""Time the PyTorch port's one-layer reverse chains of two trees on one card.
+
+    python3 scripts/chain_ab.py --parent DIR [--steps] [--timers] [--timers-parent TDIR]
+    python3 scripts/chain_ab.py --probe | --sweep
+
+Runs the timing child on DIR, on this checkout, on this checkout again and
+on DIR (parent, change, change, parent), each in its own process that
+imports ``multimodal_emotion_detection_tpu_torch`` from its tree and builds
+that tree's kernels into its own ``build/torch_kernels/``.  Each child
+prints one JSON line of median device times (CUDA events around each call,
+L2 flushed before each, 20 calls after 3 warm-ups), on ``chip_smoke.py``'s
+inputs:
+
+* ``lstm_bwd_chain`` (row 4) at (B, T, H) = (32, 372, 512) with and
+  without ``dh_series``, and cuDNN's backward of ``h_n`` on the same layer;
+* ``gru_bwd_chain`` (row 7) there, and at (32, 372, 256), the layered
+  legacy GRU backward's width, and cuDNN's backward of ``h_n``;
+* ``lstm1_train_fwd`` (row 6) at (32, 372, 512), a control whose code
+  neither tree changes.
+
+``--timers`` then builds rows 4, 7 and 6 of both trees with
+``-DRNN_CHAIN_TIMERS=1`` (``csrc/rnn_timers.cuh``) and prints, for each at
+(32, 372, 512) with ``dh_series``, each phase's share of the warps'
+``clock64()`` time and the cycles per step and warp.  A tree whose sources
+predate the timers has no timed build: ``--timers-parent TDIR`` names a
+copy of the parent with the timer marks added, used for its timed run
+only.  ``--probe`` builds ``scripts/chain_probe.cu`` and prints the card's
+grid-barrier costs, shared-L2 and distributed-shared-memory read rates and
+resident cluster counts, and the exchange alone (write, barrier, read);
+``--sweep`` times rows 4 and 7 of this checkout on variants of the launch
+plan (chunk, cluster size, row groups).  ``--steps`` (with ``--parent``)
+adds ``[train_big]`` / ``[train_big_gru]``'s b32 train-step p50 / p90 with
+each tree's package, parent / change / change / parent.  ``--child ROOT``, ``--timers-of
+ROOT``, ``--steps-of ROOT``, ``--probe`` and ``--sweep`` alone run one
+part.
+
+Needs a CUDA card; exits non-zero without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+BUCKETS = ["barrier", "exchange", "products", "reduce", "cell", "cluster", "sync"]
+
+
+def _smi() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    return out.stdout.strip()
+
+
+def _card():
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("chain_ab: torch sees no CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch
+
+
+def _smoke():
+    """This checkout's chip_smoke.py, for its inputs, flush and timing."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _port(root: Path):
+    sys.path.insert(0, str(root))
+    from multimodal_emotion_detection_tpu_torch.ops import _build, lstm_kernel
+
+    return _build, lstm_kernel
+
+
+def _cases(torch, smoke, lk):
+    """Rows 4, 7 (H 512 and 256) and 6 with their inputs: name -> (run
+    with dh_series, run without, cuDNN's backward of h_n or None)."""
+    import numpy as np
+
+    cases = {}
+    inputs, w_hh = smoke._big_layer_inputs(5)
+    x, w_ih, bias = inputs["D=512"]
+    ih = torch.matmul(x, w_ih) + bias
+    g, _, c_prev, _ = lk.lstm1_train_fwd_reference(ih, w_hh)
+    t, b, h = c_prev.shape
+    rng = np.random.RandomState(6)
+    dhf = torch.from_numpy(rng.randn(b, h).astype(np.float32)).cuda()
+    dhs = torch.from_numpy(rng.randn(t, b, h).astype(np.float32)).cuda()
+    lib = smoke._cudnn_lstm({"w_ih": w_ih, "w_hh": w_hh, "b": bias}, batch_first=False)
+    cases["lstm_bwd_chain_h512"] = (
+        lambda: lk.lstm_bwd_chain(g, c_prev, dhs, dhf, w_hh),
+        lambda: lk.lstm_bwd_chain(g, c_prev, None, dhf, w_hh),
+        _lib_bwd(torch, lib, lib(x)[1][0][-1], dhf))
+    cases["lstm1_train_fwd_h512"] = (lambda: lk.lstm1_train_fwd(ih, w_hh), None, None)
+
+    for h_dim, seed in ((512, 11), (256, 21)):
+        rng = np.random.RandomState(seed)
+        k = 1.0 / np.sqrt(h_dim)
+
+        def u(*shape, lim=k):
+            return torch.from_numpy(rng.uniform(-lim, lim, shape).astype(np.float32)).cuda()
+
+        if h_dim == 512:
+            gin, gw_hh = smoke._big_layer_inputs(11, gates=3)
+            gx, gw_ih, gb_ih = gin["D=512"]
+            gb_hh = torch.from_numpy(np.random.RandomState(12).uniform(
+                -k, k, 3 * h_dim).astype(np.float32)).cuda()
+        else:
+            gx = u(t, b, h_dim, lim=1.0)
+            gw_ih, gw_hh, gb_ih, gb_hh = (u(h_dim, 3 * h_dim), u(h_dim, 3 * h_dim),
+                                         u(3 * h_dim), u(3 * h_dim))
+        gates, h_prev, _ = lk.gru1_train_fwd_reference(
+            torch.matmul(gx, gw_ih) + gb_ih, gw_hh, gb_hh)
+        rng = np.random.RandomState(seed + 2)
+        gdhf = torch.from_numpy(rng.randn(b, h_dim).astype(np.float32)).cuda()
+        gdhs = torch.from_numpy(rng.randn(t, b, h_dim).astype(np.float32)).cuda()
+        glib = smoke._cudnn_gru({"w_ih": gw_ih, "w_hh": gw_hh, "b_ih": gb_ih,
+                                 "b_hh": gb_hh}, batch_first=False)
+        cases[f"gru_bwd_chain_h{h_dim}"] = (
+            (lambda a=(gates, h_prev, gdhs, gdhf, gw_hh): lk.gru_bwd_chain(*a)),
+            (lambda a=(gates, h_prev, None, gdhf, gw_hh): lk.gru_bwd_chain(*a)),
+            _lib_bwd(torch, glib, glib(gx)[1][-1], gdhf))
+    return cases
+
+
+def _lib_bwd(torch, lib, h_n, dh):
+    params = list(lib.parameters())
+    return lambda: torch.autograd.grad(h_n, params, dh, retain_graph=True)
+
+
+def child(root: Path) -> dict:
+    torch = _card()
+    smoke = _smoke()
+    _, lk = _port(root)
+    flush = smoke.L2Flush()
+    res = {"root": str(root), "card": _smi()}
+    for name, (with_series, without, lib) in _cases(torch, smoke, lk).items():
+        res[f"{name}_ms"] = smoke.device_ms(with_series, flush)
+        if without is not None:
+            res[f"{name}_top_ms"] = smoke.device_ms(without, flush)
+        if lib is not None:
+            res[f"{name}_cudnn_ms"] = smoke.device_ms(lib, flush)
+    return res
+
+
+def steps_of(root: Path) -> dict:
+    """``[train_big]`` / ``[train_big_gru]``'s train-step latency with
+    ``root``'s package: b32 p50 and p90 of 60 steps (host clock around
+    ``synchronize``), ``chip_smoke.py``'s configuration and measurement on
+    synthetic 32-clip splits with log-mel cached."""
+    torch = _card()
+    smoke = _smoke()
+    _build, _ = _port(root)
+    import numpy as np
+
+    from multimodal_emotion_detection_tpu_torch.config import load_config
+    from multimodal_emotion_detection_tpu_torch.data.loader import create_dataloaders
+    from multimodal_emotion_detection_tpu_torch.models.classifier import (
+        classifier_from_config,
+        init_weights,
+        logmel_params_from_config,
+    )
+    from multimodal_emotion_detection_tpu_torch.models.noise import Noise
+    from multimodal_emotion_detection_tpu_torch.ops import logmel
+    from multimodal_emotion_detection_tpu_torch.training.optim import build_optimizer
+    from multimodal_emotion_detection_tpu_torch.training.steps import train_step
+
+    _build.build(["logmel", "lstm1_fwd", "lstm_bwd_chain", "gru1_fwd", "gru_bwd_chain"])
+    data = root / "build" / "chain_ab" / "data"
+    for seed, split in enumerate(("train", "val", "test")):
+        if not (data / split / "labels.npy").exists():
+            smoke._write_split(data, split, 32, 10 + seed)
+    dev = torch.device("cuda")
+    res = {"root": str(root), "card": _smi()}
+    for tag, overrides in (("train_big", smoke.BIG), ("train_big_gru", smoke.BIG_GRU)):
+        cfg = load_config(str(root / "configs" / "base.yaml"),
+                          [*overrides, f"dataset.data_dir={data}"])
+        model = init_weights(classifier_from_config(cfg),
+                             torch.Generator().manual_seed(0)).to(dev)
+        loader = create_dataloaders(cfg.dataset.name, cfg.dataset.data_dir,
+                                    cfg.dataset.modalities, batch_size=32,
+                                    seed=cfg.seed, device=dev)[0]
+        raw = torch.from_numpy(loader.arrays.features["audio"]).to(dev)
+        with torch.inference_mode():
+            feats = logmel.logmel_cuda(raw, logmel_params_from_config(cfg.model.frontend))
+        loader.replace_features("audio", feats.cpu().numpy())
+        feats, labels = loader.device_arrays()
+        opt, _ = build_optimizer(cfg.training, model.parameters(), len(loader))
+        idx = torch.from_numpy(loader.epoch_batch_indices(0).astype(np.int64)).to(dev)
+        valid = torch.from_numpy(loader.epoch_batch_valid()[0]).to(dev)
+        gen = torch.Generator(device=dev)
+        kw = dict(lr=cfg.training.learning_rate, clip_norm=cfg.training.gradient_clip_norm,
+                  modality_dropout=cfg.training.augmentation.modality_dropout)
+        state = {"step": 0}
+
+        def one_step():
+            s = state["step"]
+            gen.manual_seed(s)
+            train_step(model, opt, feats, labels, idx[s % idx.shape[0]], valid,
+                       noise=Noise(gen), **kw)
+            state["step"] = s + 1
+
+        res[f"{tag}_p50_ms"], res[f"{tag}_p90_ms"] = smoke.host_ms(one_step, reps=60)
+    return res
+
+
+def timers_of(root: Path) -> None:
+    """Rows 4, 7 and 6 of ``root`` built with -DRNN_CHAIN_TIMERS=1: each
+    bucket's share of the warps' clock time at (32, 372, 512)."""
+    torch = _card()
+    smoke = _smoke()
+    _build, lk = _port(root)
+    csrc = root / "multimodal_emotion_detection_tpu_torch" / "csrc"
+    kernels = {"lstm_bwd_chain_h512": ("lstm_bwd_chain", lk.LSTM_BWD_CHAIN),
+               "gru_bwd_chain_h512": ("gru_bwd_chain", lk.GRU_BWD_CHAIN),
+               "gru_bwd_chain_h256": ("gru_bwd_chain", lk.GRU_BWD_CHAIN),
+               "lstm1_train_fwd_h512": ("lstm1_fwd", lk.LSTM1_TRAIN_FWD)}
+    libs = {}
+    for source in {s for s, _ in kernels.values()}:
+        out = root / "build" / "chain_ab" / f"lib{source}_timers.so"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-DRNN_CHAIN_TIMERS=1", "-o",
+               str(out), str(csrc / f"{source}.cu")]
+        log = subprocess.run(cmd, capture_output=True, text=True)
+        if log.returncode != 0:
+            sys.exit(f"chain_ab: nvcc failed for {source}:\n{log.stdout}{log.stderr}")
+        for line in (log.stdout + log.stderr).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[timers:{source}] {line.strip()}")
+        libs[source] = ctypes.CDLL(str(out))
+    cases = _cases(torch, smoke, lk)
+    buf = (ctypes.c_ulonglong * (len(BUCKETS) + 1))()
+    for name, (source, kern) in kernels.items():
+        lib = libs[source]
+        if not hasattr(lib, f"{source}_timers"):
+            print(f"[timers] {root}: {source} has no timer marks")
+            continue
+        kern._fn = getattr(lib, kern.symbol)
+        kern._fn.argtypes, kern._fn.restype = kern.argtypes, ctypes.c_int
+        kern._err_str = getattr(lib, f"{source}_error_string")
+        kern._err_str.argtypes, kern._err_str.restype = [ctypes.c_int], ctypes.c_char_p
+        read = getattr(lib, f"{source}_timers")
+        read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        run = cases[name][0]
+        run()
+        if read(ctypes.addressof(buf), 1) != 0:
+            sys.exit(f"chain_ab: {source}_timers failed")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        if read(ctypes.addressof(buf), 1) != 0:
+            sys.exit(f"chain_ab: {source}_timers failed")
+        total, warps = sum(buf[:len(BUCKETS)]), buf[len(BUCKETS)]
+        if source != "lstm1_fwd" and hasattr(lk, "chain_plan_on"):
+            h = int(name[-3:])
+            plan = lk.chain_plan_on(source, 4 if source.startswith("lstm") else 3, h, 32,
+                                    torch.device("cuda"))
+            print(f"[timers] {name} plan: UPC {plan.upc}, clusters of {plan.ncl}, "
+                  f"{plan.rgroups} row groups, {plan.grid} CTAs, {plan.smem} bytes, "
+                  f"chunks of {plan.kc}")
+        steps = 372
+        ms = start.elapsed_time(end)
+        cyc = total / max(warps, 1) / steps
+        print(f"[timers] {root.name or root}: {name} {ms:.4f} ms ({1e3 * ms / steps:.3f} us "
+              f"per step), {warps} warps, {cyc:.0f} cycles per step and warp "
+              f"({cyc / (1e6 * ms / steps):.3f} GHz implied): " + ", ".join(
+                  f"{n} {100 * x / total:.1f}%" for n, x in zip(BUCKETS, buf)))
+
+
+def probe() -> None:
+    torch = _card()
+    _build, _ = _port(HERE)
+    out = HERE / "build" / "chain_ab" / "libchain_probe.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
+           str(HERE / "scripts" / "chain_probe.cu")]
+    log = subprocess.run(cmd, capture_output=True, text=True)
+    if log.returncode != 0:
+        sys.exit(f"chain_ab: nvcc failed for chain_probe.cu:\n{log.stdout}{log.stderr}")
+    lib = ctypes.CDLL(str(out))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.chain_probe_error_string.argtypes = [I]
+    lib.chain_probe_error_string.restype = ctypes.c_char_p
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def check(err, what):
+        if err != 0:
+            sys.exit(f"chain_ab: {what}: {lib.chain_probe_error_string(err).decode()}")
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    print(f"[probe] {torch.cuda.get_device_name(0)}, {sms} SMs, clocks {smi.stdout.strip()}")
+    lib.chain_probe_grid_sync.argtypes = [I, I, P]
+    lib.chain_probe_counter_sync.argtypes = [P, I, I, P]
+    iters = 4000
+    for ctas in (128, 132):
+        ms = timed(lambda: check(lib.chain_probe_grid_sync(ctas, iters, stream), "grid"))
+        ctr = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+        def counter():
+            ctr.zero_()
+            check(lib.chain_probe_counter_sync(ctr.data_ptr(), ctas, iters, stream), "ctr")
+
+        cms = timed(counter)
+        print(f"[probe] {ctas} CTAs of 256 threads: grid.sync() {1e3 * ms / iters:.3f} us, "
+              f"release/acquire counter barrier {1e3 * cms / iters:.3f} us per barrier")
+    lib.chain_probe_l2_read.argtypes = [P, I, I, I, P, P]
+    sink = torch.zeros(1024, device="cuda")
+    for kib in (32, 256):
+        n4 = kib * 1024 // 16
+        src = torch.ones(n4 * 4, device="cuda")
+        reps = 40
+        ms = timed(lambda: check(lib.chain_probe_l2_read(
+            src.data_ptr(), n4, 128, reps, sink.data_ptr(), stream), "l2"))
+        per_sm = kib * 1024 * reps / (ms * 1e-3)
+        print(f"[probe] 128 CTAs each reading the same {kib} KiB from L2 x{reps}: "
+              f"{per_sm / 1e9:.1f} GB/s per SM, {128 * per_sm / 1e12:.2f} TB/s in all")
+    lib.chain_probe_dsmem_read.argtypes = [I, I, I, I, P, P]
+    lib.chain_probe_max_clusters.argtypes = [I, I, P]
+    for cluster in (2, 4, 8, 16):
+        for smem in (64 * 1024, 160 * 1024, 227 * 1024):
+            count = ctypes.c_int(0)
+            err = lib.chain_probe_max_clusters(cluster, smem, ctypes.byref(count))
+            what = (f"{count.value} ({count.value * cluster} CTAs)" if err == 0
+                    else lib.chain_probe_error_string(err).decode())
+            print(f"[probe] clusters of {cluster} x 256 threads x {smem // 1024} KiB "
+                  f"resident at once: {what}")
+    for cluster in (2, 4, 8):
+        n4 = 32 * 1024 // 16
+        reps = 20
+        ctas = 128
+        err_box = []
+
+        def run():
+            err_box.append(lib.chain_probe_dsmem_read(cluster, ctas, n4, reps,
+                                                      sink.data_ptr(), stream))
+
+        ms = timed(run)
+        check(max(err_box, key=abs), f"dsmem {cluster}")
+        per_sm = (cluster - 1) * 32 * 1024 * reps / (ms * 1e-3)
+        print(f"[probe] clusters of {cluster}, 128 CTAs, each reading its {cluster - 1} "
+              f"peers' 32 KiB x{reps}: {per_sm / 1e9:.1f} GB/s per SM")
+    lib.chain_probe_coop_cluster.argtypes = [I, I, P]
+    for cluster in (2, 4, 8):
+        err = lib.chain_probe_coop_cluster(cluster, 128, stream)
+        torch.cuda.synchronize()
+        print(f"[probe] cooperative launch with a cluster dimension of {cluster}, 128 "
+              f"CTAs: {'taken' if err == 0 else lib.chain_probe_error_string(err).decode()}")
+
+
+def sweep() -> None:
+    """Rows 4 and 7 of this checkout at (32, 372, 512) on variants of the
+    launch plan: the chunk, the cluster size, the row groups (every
+    variant still re-checked by the launcher)."""
+    import dataclasses
+
+    torch = _card()
+    smoke = _smoke()
+    _, lk = _port(HERE)
+    flush = smoke.L2Flush()
+    cases = _cases(torch, smoke, lk)
+    for name, source, width in (("lstm_bwd_chain_h512", "lstm_bwd_chain", 4),
+                                ("gru_bwd_chain_h512", "gru_bwd_chain", 3)):
+        base = lk.chain_plan_on(source, width, 512, 32, torch.device("cuda"))
+        key = next(k for k in lk._CHAIN_PLANS if k[1] == source and k[2] == 512)
+        variants = [base]
+        for ncl, rgroups in ((2, 4), (1, 4), (2, 2), (1, 2)):
+            cs4 = -(-(width * 512 // 4) // ncl)
+            for chunks in (1, 2, 4, 8):
+                kc = -(-cs4 // chunks)
+                need = 4 * lk.chain_smem_floats(width, 512, base.upc, ncl, rgroups, kc)
+                if need > 232_448:
+                    continue
+                v = dataclasses.replace(base, ncl=ncl, rgroups=rgroups, kc=kc,
+                                        smem=max(need, 232_448 // 2 + 2048))
+                if v not in variants:
+                    variants.append(v)
+        for v in variants:
+            lk._CHAIN_PLANS[key] = v
+            ms = smoke.device_ms(cases[name][0], flush)
+            print(f"[sweep] {name}: clusters of {v.ncl}, {v.rgroups} row groups, "
+                  f"chunks of {v.kc} float4 columns: {ms:.4f} ms")
+        lk._CHAIN_PLANS[key] = base
+
+
+def exchange_probe() -> None:
+    """The exchange alone on 128 CTAs: write 2 KiB each, barrier, read
+    32 KiB (as row 4's plan at (32, 372, 512)), and its parts."""
+    import ctypes as C
+
+    torch = _card()
+    _build, _ = _port(HERE)
+    out = HERE / "build" / "chain_ab" / "libchain_probe.so"
+    lib = C.CDLL(str(out))
+    fn = lib.chain_probe_exchange
+    fn.argtypes = [C.c_void_p, C.c_void_p, C.c_int, C.c_int, C.c_int, C.c_int,
+                   C.c_int, C.c_void_p, C.c_void_p]
+    stream = torch.cuda.current_stream().cuda_stream
+    blk = torch.zeros(128 * 128 * 4, device="cuda")
+    sink = torch.zeros(1024, device="cuda")
+    steps = 1000
+    for write, read_kib in ((1, 32), (0, 32), (1, 0), (0, 0), (1, 8), (1, 128)):
+        ctr = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+        def run():
+            ctr.zero_()
+            if fn(blk.data_ptr(), ctr.data_ptr(), 128, steps, 128, read_kib * 64, write,
+                  sink.data_ptr(), stream) != 0:
+                sys.exit("chain_ab: chain_probe_exchange failed")
+
+        run()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        print(f"[probe] exchange step on 128 CTAs: write 2 KiB {bool(write)}, barrier, "
+              f"read {read_kib} KiB: {1e3 * start.elapsed_time(end) / steps:.3f} us")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", type=Path, help="the other checkout")
+    ap.add_argument("--child", type=Path, help="time this tree alone")
+    ap.add_argument("--timers", action="store_true", help="phase shares of both trees")
+    ap.add_argument("--timers-parent", type=Path,
+                    help="the parent with timer marks, for its timed run")
+    ap.add_argument("--timers-of", type=Path, help="phase shares of this tree alone")
+    ap.add_argument("--probe", action="store_true", help="barrier / L2 / cluster probes")
+    ap.add_argument("--sweep", action="store_true", help="rows 4 / 7 on plan variants")
+    ap.add_argument("--steps", action="store_true",
+                    help="[train_big] / [train_big_gru] step p50 of both trees")
+    ap.add_argument("--steps-of", type=Path, help="their step p50 with this tree")
+    opts = ap.parse_args()
+    _card()
+    if opts.child is None and opts.timers_of is None:
+        print(f"[chain_ab] card: {_smi()}", flush=True)
+    if opts.child is not None:
+        print(json.dumps(child(opts.child.resolve())))
+        return
+    if opts.timers_of is not None:
+        timers_of(opts.timers_of.resolve())
+        return
+    if opts.steps_of is not None:
+        print(json.dumps(steps_of(opts.steps_of.resolve())))
+        return
+    if opts.parent is not None:
+        parent = opts.parent.resolve()
+        runs = []
+        for tag, root in (("parent", parent), ("change", HERE), ("change", HERE),
+                          ("parent", parent)):
+            out = subprocess.run([sys.executable, __file__, "--child", str(root)],
+                                 capture_output=True, text=True)
+            if out.returncode != 0:
+                sys.exit(f"chain_ab: the {tag} child failed:\n{out.stdout}{out.stderr}")
+            line = out.stdout.strip().splitlines()[-1]
+            runs.append((tag, json.loads(line)))
+            print(f"[chain_ab] {tag}: {line}", flush=True)
+        for key in [k for k in runs[0][1] if k.endswith("_ms")]:
+            print(f"[chain_ab] {key}: " + ", ".join(
+                f"{tag} {r[key]:.4f}" for tag, r in runs))
+        if opts.steps:
+            steps = []
+            for tag, root in (("parent", parent), ("change", HERE), ("change", HERE),
+                              ("parent", parent)):
+                out = subprocess.run([sys.executable, __file__, "--steps-of", str(root)],
+                                     capture_output=True, text=True)
+                if out.returncode != 0:
+                    sys.exit(f"chain_ab: the {tag} step child failed:\n{out.stdout}{out.stderr}")
+                steps.append((tag, json.loads(out.stdout.strip().splitlines()[-1])))
+            for key in [k for k in steps[0][1] if k.endswith("_ms")]:
+                print(f"[chain_ab] {key}: " + ", ".join(
+                    f"{tag} {r[key]:.4f}" for tag, r in steps))
+        if opts.timers:
+            tparent = (opts.timers_parent or opts.parent).resolve()
+            for root in (tparent, HERE):
+                subprocess.run([sys.executable, __file__, "--timers-of", str(root)],
+                               check=True)
+    if opts.probe:
+        probe()
+        exchange_probe()
+    if opts.sweep:
+        sweep()
+    if opts.parent is None and not (opts.probe or opts.sweep):
+        ap.error("give --parent, --child, --timers-of, --probe or --sweep")
+
+
+if __name__ == "__main__":
+    main()

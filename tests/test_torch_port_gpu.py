@@ -217,6 +217,11 @@ def test_remat_lstm_final_grads_match_plain_autograd(b, t, d, h):
 
 LAYER_SHAPES = [(1, 5, 64), (37, 5, 128), (32, 5, 512),
                 (1, 372, 64), (37, 372, 128), (32, 372, 512)]
+# the reverse chains' launch plans beyond LAYER_SHAPES: two 32-row passes
+# (33, 64), T = 1, an odd grid (H 260: 130 CTAs), UPC 8 at the most CTAs
+# (H 1056), clusters of 4 (H 100) and of 1 (H 524: 131 CTAs)
+CHAIN_SHAPES = LAYER_SHAPES + [(33, 7, 256), (5, 3, 260), (2, 5, 1056), (32, 1, 512),
+                               (64, 9, 512), (3, 4, 100), (2, 3, 524)]
 
 
 def _layer_case(dev, b, t, h, seed):
@@ -250,7 +255,7 @@ def test_lstm1_fwd_kernels_match_plain(b, t, h):
                                    msg=f"eval form, series={series}")
 
 
-@pytest.mark.parametrize("b,t,h", LAYER_SHAPES)
+@pytest.mark.parametrize("b,t,h", CHAIN_SHAPES)
 def test_lstm_bwd_chain_kernel_matches_plain(b, t, h):
     dev = _card()
     ih, w_hh = _layer_case(dev, b, t, h, seed=b * 1000 + t + h + 1)
@@ -513,7 +518,7 @@ def test_gru1_fwd_kernels_match_plain(b, t, h):
                                    msg=f"eval form, series={series}")
 
 
-@pytest.mark.parametrize("b,t,h", LAYER_SHAPES)
+@pytest.mark.parametrize("b,t,h", CHAIN_SHAPES)
 def test_gru_bwd_chain_kernel_matches_plain(b, t, h):
     dev = _card()
     ih, w_hh, b_hh = _gru_layer_case(dev, b, t, h, seed=b * 1000 + t + h + 3)
@@ -530,6 +535,31 @@ def test_gru_bwd_chain_kernel_matches_plain(b, t, h):
         for name, out, ref in zip(("dih", "dhn"), outs, refs):
             torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4,
                                        msg=f"{name}, dh_series given: {series is not None}")
+
+
+def test_reverse_chains_raise_on_a_plan_that_does_not_fit():
+    """No fallback: a plan the launcher does not accept raises with its
+    error string, and the launch is not counted."""
+    dev = _card()
+    b, t, h = 2, 3, 64
+    ih, w_hh = _layer_case(dev, b, t, h, seed=7)
+    g, _, c_prev, _ = lstm_kernel.lstm1_train_fwd_reference(ih, w_hh)
+    dhf = torch.ones((b, h), device=dev)
+    plan = lstm_kernel.chain_plan_on("lstm_bwd_chain", 4, h, b, dev)
+    dg = torch.empty((t, b, 4 * h), device=dev)
+    carry = torch.zeros((b, h), device=dev)
+    flags = torch.zeros(lstm_kernel.CHAIN_FLAGS, dtype=torch.int32, device=dev)
+    for upc, ncl, rgroups, kc in ((plan.upc, 3, plan.rgroups, plan.kc),
+                                  (3, plan.ncl, plan.rgroups, plan.kc),
+                                  (plan.upc, plan.ncl, 3, plan.kc),
+                                  (plan.upc, plan.ncl, plan.rgroups, 0)):
+        before = lstm_kernel.LSTM_BWD_CHAIN.launches
+        with pytest.raises(RuntimeError, match="launch plan"):
+            lstm_kernel.LSTM_BWD_CHAIN(
+                g.data_ptr(), c_prev.data_ptr(), None, dhf.data_ptr(),
+                w_hh.data_ptr(), dg.data_ptr(), carry.data_ptr(), flags.data_ptr(),
+                b, t, h, upc, ncl, rgroups, kc, torch.cuda.current_stream().cuda_stream)
+        assert lstm_kernel.LSTM_BWD_CHAIN.launches == before
 
 
 @pytest.mark.parametrize("b,t,d,h", [(3, 40, 6, 64), (32, 372, 64, 512)])
