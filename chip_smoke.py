@@ -44,10 +44,10 @@
 7. The big sweep config (LSTM 3x512, output 256, head 512, video 512,
    log-mel cached per split; ``BIG``): holds the single-layer training
    forward, its eval form and the single-layer reverse chain against their
-   plain versions at B=32, T=372, H=512 and times them beside cuDNN (the
-   chain with its launch plan: units per CTA, cluster size, row groups,
-   shared memory), and the whole 3-layer recurrence gradient beside
-   cuDNN's.
+   plain versions at B=32, T=372, H=512 and times them beside cuDNN (each
+   with its launch plan: units per CTA, cluster size, row groups, shared
+   memory; the eval form's at B=1 too, and its B=1 time), and the whole
+   3-layer recurrence gradient beside cuDNN's.
 8. Trains the big config as in 6 (``[train_big]``): 3 training forwards and
    3 reverse chains per step, 3 eval-form launches per eval batch, log-mel
    once per split, and no launch of the 2-layer kernels; the card step
@@ -68,8 +68,8 @@
 10. The big sweep config with the GRU encoder (GRU 3x512, log-mel cached
    per split; ``BIG_GRU``): ``[gru1_train_fwd]`` / ``[gru1_infer]`` hold
    the one-layer GRU training forward and its eval form, ``[gru_bwd_chain]``
-   the one-layer GRU reverse chain (with and without ``dh_series``; its
-   launch plan printed), against
+   the one-layer GRU reverse chain (with and without ``dh_series``; the
+   launch plans printed), against
    their plain versions at B=32, T=372, H=512, with the whole 3-layer
    gradient against autograd through the plain forward, and time them
    beside cuDNN's GRU.  ``[train_big_gru]`` trains it as in 6 (3 training
@@ -115,7 +115,8 @@
    Philox seeds replayed, latency and profile; ``[serve_tf]`` serves its
    ``best.ckpt`` (log-mel once and the flash forward twice per batch),
    logits against the CPU forward, latency and profile.
-13. Prints one JSON line describing every kernel, nvidia-smi's name and
+13. Prints one JSON line describing every kernel (the one-layer cores'
+   entries name their shared header as ``core``), nvidia-smi's name and
    power limit of the card, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -137,6 +138,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
+CSRC = "multimodal_emotion_detection_tpu_torch/csrc/"
 
 # H100 SXM published peaks (NVIDIA data sheet), at its 700 W power limit
 FP32_FLOPS = 67e12  # float32 outside the tensor cores
@@ -959,6 +961,19 @@ def phase_lstm1_train_fwd(lstm_kernel, flush):
     eval_plain_ms = device_ms(
         lambda: lstm_kernel.lstm1_infer_reference(ih, w_hh, True), flush, reps=5)
     eval_library_ms = device_ms(run_lib_eval, flush)
+    # the b1 serving forward's eval forms: two row groups, one of them
+    # empty, a plan the B=32 checks above never run
+    ih1 = ih[:, :1].contiguous()
+    for series in (True, False):
+        out = lstm_kernel.lstm1_infer(ih1, w_hh, series)
+        torch.cuda.synchronize()
+        ref = lstm_kernel.lstm1_infer_reference(ih1, w_hh, series)
+        eval_errs[f"{'series' if series else 'final'} B=1"] = max_errs(out, ref)[0]
+        torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
+    print("[lstm1_infer] eval form at B=1 (D=512 input): max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in eval_errs.items() if "B=1" in k)
+          + " (bound 1e-4 abs)")
+    b1_ms = device_ms(lambda: lstm_kernel.lstm1_infer(ih1, w_hh, False), flush)
     flops = 2 * b * t * h * 4 * h
     # ih and w_hh read; g, h_prev, c_prev and finals written
     nbytes = 4 * (2 * t * b * 4 * h + h * 4 * h + 2 * t * b * h + 2 * b * h)
@@ -966,23 +981,28 @@ def phase_lstm1_train_fwd(lstm_kernel, flush):
     # ih and w_hh read; the h series written
     eval_bytes = 4 * (t * b * 4 * h + h * 4 * h + t * b * h)
     eval_bound_ms, eval_bound_by = bound(flops, eval_bytes)
-    print(f"[lstm1_train_fwd] kernel {ms:.4f} ms (one cooperative launch, {t} "
-          f"grid barriers, {1e3 * ms / t:.3f} us per step), plain {plain_ms:.4f} "
+    print(f"[lstm1_train_fwd] {_chain_plan_text(lstm_kernel, 'lstm1_fwd', 4, h, b, True)}")
+    print(f"[lstm1_infer] {_chain_plan_text(lstm_kernel, 'lstm1_fwd', 4, h, 1, True)}")
+    print(f"[lstm1_train_fwd] kernel {ms:.4f} ms (one cooperative cluster launch, {t} "
+          f"split grid barriers, {1e3 * ms / t:.3f} us per step), plain {plain_ms:.4f} "
           f"ms, cuDNN nn.LSTM({h}, {h}) training forward (input projection "
           f"included) {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
           f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB incl. the residual stores)")
     print(f"[lstm1_infer] kernel {eval_ms:.4f} ms with the h series out, "
           f"{eval_final_ms:.4f} ms final h only ({1e3 * eval_ms / t:.3f} us per "
-          f"step), plain {eval_plain_ms:.4f} ms, cuDNN nn.LSTM({h}, {h}) "
+          f"step), B=1 final h {b1_ms:.4f} ms, plain {eval_plain_ms:.4f} ms, "
+          f"cuDNN nn.LSTM({h}, {h}) "
           f"inference forward {eval_library_ms:.4f} ms, bound {eval_bound_ms:.4f} ms "
           f"({eval_bound_by}: {flops / 1e9:.3f} GFLOP, {eval_bytes / 1e6:.2f} MB)")
-    source = "multimodal_emotion_detection_tpu_torch/csrc/lstm1_fwd.cu"
+    source, core = CSRC + "lstm1_fwd.cu", CSRC + "rnn_fwd_chain.cuh"
     train_kern = {"name": "lstm1_train_fwd", "route": "cuda", "source": source,
+                  "core": core,
                   "replaces": "multimodal_emotion_detection_tpu/ops/lstm_kernel.py:1078",
                   "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
                   "bound_ms": bound_ms, "bound_by": bound_by,
                   "library_ms": library_ms}
     eval_kern = {"name": "lstm1_infer", "route": "cuda", "source": source,
+                 "core": core,
                  "replaces": "multimodal_emotion_detection_tpu/ops/lstm_kernel.py:1078",
                  "max_abs_err": max(eval_errs.values()), "ms": eval_ms,
                  "plain_ms": eval_plain_ms, "bound_ms": eval_bound_ms,
@@ -990,14 +1010,17 @@ def phase_lstm1_train_fwd(lstm_kernel, flush):
     return train_kern, eval_kern, (inputs, w_hh)
 
 
-def _chain_plan_text(lstm_kernel, source, width, h, b):
+def _chain_plan_text(lstm_kernel, source, width, h, b, forward=False):
     """The launch plan of a one-layer reverse chain (csrc/rnn_bwd_chain.cuh)
-    on this card."""
-    plan = lstm_kernel.chain_plan_on(source, width, h, b, torch.device("cuda"))
+    or forward (csrc/rnn_fwd_chain.cuh) on this card."""
+    plan = lstm_kernel.chain_plan_on(source, width, h, b, torch.device("cuda"), forward)
+    row = "H" if forward else f"{plan.width}H"
     return (f"launch plan at B={b} H={h}: UPC {plan.upc}, {plan.grid} CTAs in "
             f"clusters of {plan.ncl}, {plan.rgroups} row groups "
-            f"({plan.rgroups * plan.upc} units a CTA), {plan.smem} bytes of shared "
-            f"memory per CTA, chunks of {plan.kc} float4 columns of a {plan.width}H row")
+            f"({plan.rgroups * plan.upc} units a CTA, {plan.outputs} sums a cluster), "
+            f"{plan.smem} bytes of shared memory per CTA, chunks of {plan.kc} float4 "
+            f"columns of a {row} row")
+
 
 
 def phase_lstm_bwd_chain(lstm_kernel, lstm_vjp, flush, layer_inputs):
@@ -1083,7 +1106,7 @@ def phase_lstm_bwd_chain(lstm_kernel, lstm_vjp, flush, layer_inputs):
     if not grad_err < 1e-3:
         raise RuntimeError("the layered recurrence gradient disagrees with cuDNN's")
     return {"name": "lstm_bwd_chain", "route": "cuda",
-            "source": "multimodal_emotion_detection_tpu_torch/csrc/lstm_bwd_chain.cu",
+            "source": CSRC + "lstm_bwd_chain.cu", "core": CSRC + "rnn_bwd_chain.cuh",
             "replaces": "multimodal_emotion_detection_tpu/ops/lstm_kernel.py:514",
             "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
@@ -1507,6 +1530,19 @@ def phase_gru1_train_fwd(lstm_kernel, flush):
     eval_plain_ms = device_ms(
         lambda: lstm_kernel.gru1_infer_reference(ih, w_hh, b_hh, True), flush, reps=5)
     eval_library_ms = device_ms(run_lib_eval, flush)
+    # the b1 serving forward's eval forms: two row groups, one of them
+    # empty, a plan the B=32 checks above never run
+    ih1 = ih[:, :1].contiguous()
+    for series in (True, False):
+        out = lstm_kernel.gru1_infer(ih1, w_hh, b_hh, series)
+        torch.cuda.synchronize()
+        ref = lstm_kernel.gru1_infer_reference(ih1, w_hh, b_hh, series)
+        eval_errs[f"{'series' if series else 'final'} B=1"] = max_errs(out, ref)[0]
+        torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
+    print("[gru1_infer] eval form at B=1 (D=512 input): max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in eval_errs.items() if "B=1" in k)
+          + " (bound 1e-4 abs)")
+    b1_ms = device_ms(lambda: lstm_kernel.gru1_infer(ih1, w_hh, b_hh, False), flush)
     flops = 2 * b * t * h * 3 * h
     # ih, w_hh and b_hh read; gates (4H), h_prev and the final h written
     nbytes = 4 * (t * b * 3 * h + h * 3 * h + 3 * h + t * b * 5 * h + b * h)
@@ -1514,25 +1550,28 @@ def phase_gru1_train_fwd(lstm_kernel, flush):
     # ih, w_hh and b_hh read; the h series written
     eval_bytes = 4 * (t * b * 3 * h + h * 3 * h + 3 * h + t * b * h)
     eval_bound_ms, eval_bound_by = bound(flops, eval_bytes)
-    print(f"[gru1_train_fwd] kernel {ms:.4f} ms (one cooperative launch, {t} "
-          f"grid barriers, {1e3 * ms / t:.3f} us per step), plain {plain_ms:.4f} "
+    print(f"[gru1_train_fwd] {_chain_plan_text(lstm_kernel, 'gru1_fwd', 3, h, b, True)}")
+    print(f"[gru1_infer] {_chain_plan_text(lstm_kernel, 'gru1_fwd', 3, h, 1, True)}")
+    print(f"[gru1_train_fwd] kernel {ms:.4f} ms (one cooperative cluster launch, {t} "
+          f"split grid barriers, {1e3 * ms / t:.3f} us per step), plain {plain_ms:.4f} "
           f"ms, cuDNN nn.GRU({h}, {h}) training forward (input projection "
           f"included) {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
           f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB incl. the residual stores)")
     print(f"[gru1_infer] kernel {eval_ms:.4f} ms with the h series out, "
           f"{eval_final_ms:.4f} ms final h only ({1e3 * eval_ms / t:.3f} us per "
-          f"step), plain {eval_plain_ms:.4f} ms, cuDNN nn.GRU({h}, {h}) "
+          f"step), B=1 final h {b1_ms:.4f} ms, plain {eval_plain_ms:.4f} ms, "
+          f"cuDNN nn.GRU({h}, {h}) "
           f"inference forward {eval_library_ms:.4f} ms, bound {eval_bound_ms:.4f} ms "
           f"({eval_bound_by}: {flops / 1e9:.3f} GFLOP, {eval_bytes / 1e6:.2f} MB)")
-    source = "multimodal_emotion_detection_tpu_torch/csrc/gru1_fwd.cu"
+    source, core = CSRC + "gru1_fwd.cu", CSRC + "rnn_fwd_chain.cuh"
     # no TPU kernel: it replaces the XLA scan the JAX package runs there
     replaces = "multimodal_emotion_detection_tpu/ops/lstm_vjp.py:798"
     train_kern = {"name": "gru1_train_fwd", "route": "cuda", "source": source,
-                  "replaces": replaces, "max_abs_err": max(errs.values()), "ms": ms,
+                  "core": core, "replaces": replaces, "max_abs_err": max(errs.values()), "ms": ms,
                   "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                   "library_ms": library_ms}
     eval_kern = {"name": "gru1_infer", "route": "cuda", "source": source,
-                 "replaces": replaces, "max_abs_err": max(eval_errs.values()),
+                 "core": core, "replaces": replaces, "max_abs_err": max(eval_errs.values()),
                  "ms": eval_ms, "plain_ms": eval_plain_ms, "bound_ms": eval_bound_ms,
                  "bound_by": eval_bound_by, "library_ms": eval_library_ms}
     return train_kern, eval_kern, (inputs, w_hh, b_hh)
@@ -1656,7 +1695,7 @@ def phase_gru_bwd_chain(lstm_kernel, lstm_vjp, flush, layer_inputs):
     if not (rel_err < 1e-3 and bias_err < 1e-3):
         raise RuntimeError("the layered GRU gradient disagrees with cuDNN's")
     return {"name": "gru_bwd_chain", "route": "cuda",
-            "source": "multimodal_emotion_detection_tpu_torch/csrc/gru_bwd_chain.cu",
+            "source": CSRC + "gru_bwd_chain.cu", "core": CSRC + "rnn_bwd_chain.cuh",
             "replaces": "multimodal_emotion_detection_tpu/ops/lstm_kernel.py:1265",
             "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
@@ -2311,8 +2350,9 @@ def main() -> None:
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "launches_by_path"]
-    # the tensor-core kernels give both bounds beside bound_ms
-    extra = ["bound_fp32_ms", "bound_3xtf32_ms"]
+    # the header of a shared core beside its source; the tensor-core
+    # kernels give both bounds beside bound_ms
+    extra = ["core", "bound_fp32_ms", "bound_3xtf32_ms"]
     print(json.dumps({"kernels": [
         {**{k: kern[k] for k in order}, **{k: kern[k] for k in extra if k in kern}}
         for kern in kernels.values()]}))

@@ -25,7 +25,8 @@
 // memory is padded past half an SM's), and splits it three ways:
 //
 // * Row groups.  Row b of dh needs only row b of x, so R row groups
-//   (R = 4 where the weights fit) each take B / R of the batch: a CTA owns
+//   (the fewest passes of 8 rows a group, 2 first up to 16 rows, where
+//   the weights fit) each take B / R of the batch: a CTA owns
 //   R x UPC units for the rows of its group, in passes of 8 rows.
 // * Clusters split the columns.  NCL CTAs of one row group and unit block
 //   form a cluster; CTA `rank` loads from L2 only its share of the row
@@ -64,7 +65,8 @@
 //
 // Exactly T steps run; any B >= 1; H % 4 == 0 with H / UPC <= the SM
 // count.  Built with -DRNN_CHAIN_TIMERS=1 each warp splits its step into
-// the buckets of rnn_timers.cuh.
+// the buckets of rnn_timers.cuh.  The primitives this core shares with
+// the forward core (rnn_fwd_chain.cuh) are in rnn_chain_common.cuh.
 
 #pragma once
 
@@ -72,18 +74,13 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "rnn_chain_common.cuh"
 #include "rnn_timers.cuh"
 
 namespace rnn_bwd {
 
 namespace cg = cooperative_groups;
-
-constexpr int NT = 256;            // threads per CTA
-constexpr int PH = 8;              // batch rows per pass
-constexpr int kUnsupported = -1;   // shape the kernel does not take
-constexpr int kPlanMismatch = -2;  // plan not valid for this shape / card
-constexpr int kNotResident = -3;   // the clusters cannot all be resident
-constexpr int kFlagsPerGroup = 256;  // barrier flags of a row group (>= its CTAs)
+using namespace rnn_chain;
 
 struct Args {
   const float* res;        // LSTM g / GRU gates, (T, B, 4H)
@@ -97,8 +94,6 @@ struct Args {
   unsigned* flags;         // the barriers' flags, kFlagsPerGroup a row group (zero)
   int batch, t_len, hidden, upc, ncl, rgroups, kc;
 };
-
-__host__ __device__ constexpr int round32(int x) { return (x + 31) / 32 * 32; }
 
 // units per thread of the products, for NU units in a cluster
 __host__ __device__ constexpr int unit_block(int nu) { return nu < 8 ? nu : 8; }
@@ -116,81 +111,6 @@ __host__ __device__ inline int smem_floats(int width, int hidden, int upc,
   const int ldw = round32(4 * cs4) + 4;
   const int ldx = round32(4 * kc) + 4;
   return nu * ldw + slots * PH * ldx + 64 * unit_block(nu) + 2 * PH * nu;
-}
-
-// shared memory a launch asks for: the plan's, padded so one CTA fits an SM
-__host__ __device__ inline int smem_launch_bytes(int need_bytes, int max_smem) {
-  const int floor_bytes = max_smem / 2 + 2048;
-  return need_bytes > floor_bytes ? need_bytes : floor_bytes;
-}
-
-__device__ __forceinline__ float sigmoidf_(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-// wait until at most n groups are pending (n clamped to 0..7)
-__device__ __forceinline__ void cp_async_wait(int n) {
-  switch (n <= 0 ? 0 : n) {
-    case 0: asm volatile("cp.async.wait_group 0;" ::: "memory"); break;
-    case 1: asm volatile("cp.async.wait_group 1;" ::: "memory"); break;
-    case 2: asm volatile("cp.async.wait_group 2;" ::: "memory"); break;
-    case 3: asm volatile("cp.async.wait_group 3;" ::: "memory"); break;
-    case 4: asm volatile("cp.async.wait_group 4;" ::: "memory"); break;
-    case 5: asm volatile("cp.async.wait_group 5;" ::: "memory"); break;
-    case 6: asm volatile("cp.async.wait_group 6;" ::: "memory"); break;
-    default: asm volatile("cp.async.wait_group 7;" ::: "memory"); break;
-  }
-}
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
-  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
-}
-__device__ __forceinline__ void cluster_sync_() {
-  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
-}
-
-// One level of warp_reduce_scatter: the lanes hold N values each; with
-// N >= 2 each lane keeps one half (the upper where lane & O) and is sent
-// its partner's copy of it, else both add the one value.
-template <int N, int O>
-__device__ __forceinline__ void reduce_scatter_level(float* v, int lane) {
-  if constexpr (N >= 2) {
-    const bool up = (lane & O) != 0;
-#pragma unroll
-    for (int i = 0; i < N / 2; ++i) {
-      const float send = up ? v[i] : v[i + N / 2];
-      const float keep = up ? v[i + N / 2] : v[i];
-      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
-    }
-  } else {
-    v[0] += __shfl_xor_sync(0xffffffffu, v[0], O);
-  }
-}
-
-// The 32 lanes' N0 partial sums meet: afterwards, for N0 >= 32, lane L
-// holds the totals of values L * (N0 / 32) + [0, N0 / 32) in v[0 ..]; for
-// N0 < 32, v[0] holds the total of value L >> (5 - log2 N0) (in each of
-// the 32 / N0 lanes that share it).  N0 - 1 shuffles in all.
-template <int N0>
-__device__ __forceinline__ void warp_reduce_scatter(float (&v)[N0], int lane) {
-  reduce_scatter_level<N0, 16>(v, lane);
-  reduce_scatter_level<N0 / 2, 8>(v, lane);
-  reduce_scatter_level<N0 / 4, 4>(v, lane);
-  reduce_scatter_level<N0 / 8, 2>(v, lane);
-  reduce_scatter_level<N0 / 16, 1>(v, lane);
 }
 
 // One LSTM layer: residuals g (4 gate pre-activations) and c_prev; the
@@ -277,25 +197,13 @@ struct GruCell {
 
 // One chunk of the share into shared memory by cp.async, one commit group:
 // float4 columns [c0, c0 + kn) of rows [bt0, bt0 + nb) of step t's row
-// block; a thread walks (row, column) by increments, no division.
+// block.
 template <class Cell>
 __device__ __forceinline__ void issue_chunk(const Args& a, int t, int bt0, int nb,
                                             int c0, int kn, float* dst, int ldx,
                                             int tid) {
-  if (kn > 0) {
-    int r = tid / kn, c = tid % kn;
-    const int dr = NT / kn, dc = NT % kn;
-    while (r < nb) {
-      cp_async16(dst + r * ldx + 4 * c, Cell::src(a, t, bt0 + r, c0 + c));
-      r += dr;
-      c += dc;
-      if (c >= kn) {
-        c -= kn;
-        ++r;
-      }
-    }
-  }
-  cp_async_commit();
+  copy_rows([&](int r, int c) { return Cell::src(a, t, bt0 + r, c0 + c); }, nb, kn,
+            dst, ldx, tid);
 }
 
 template <class Cell, int NU>
@@ -370,16 +278,7 @@ __global__ void __launch_bounds__(NT, 1) chain_kernel(const Args a) {
     if (!first) {
       // every CTA of the row group has stored step t + 1: warp 0 polls
       // their flags, a lane each
-      if (warp == 0) {
-        const long long start = clock64();
-        for (int i = lane; i < per_group; i += 32) {
-          while (ld_acquire(flags + i) < (unsigned)q) {
-            // a CTA that never arrives is a fault: end the launch with an
-            // error after ~20 s rather than hold the card
-            if (clock64() - start > 40000000000ll) __trap();
-          }
-        }
-      }
+      if (warp == 0) wait_flags(flags, per_group, (unsigned)q, lane);
       __syncthreads();
       tm.mark(rnn_timer::kBarrier);
     }
@@ -500,38 +399,11 @@ template <class Cell>
 int configure(int hidden, int upc, int ncl, int rgroups, int kc,
               const void** fn, cudaLaunchConfig_t* cfg,
               cudaLaunchAttribute* attr) {
-  int dev = 0, sms = 0, max_smem = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  const bool pow2 = (upc == 1 || upc == 2 || upc == 4 || upc == 8) &&
-                    (ncl == 1 || ncl == 2 || ncl == 4 || ncl == 8) &&
-                    (rgroups == 1 || rgroups == 2 || rgroups == 4);
-  if (!pow2 || kc < 1 || hidden % upc != 0 || hidden / upc > sms ||
-      (hidden / upc) % (ncl * rgroups) != 0) {
-    return kPlanMismatch;
-  }
+  if (!plan_shape_ok(hidden, upc, ncl, rgroups, kc)) return kPlanMismatch;
   *fn = kernel_for<Cell>(upc * ncl * rgroups);
   const int need = (int)sizeof(float) *
                    smem_floats(Cell::kWidth, hidden, upc, ncl, rgroups, kc);
-  if (*fn == nullptr || need > max_smem) return kPlanMismatch;
-  const int smem = smem_launch_bytes(need, max_smem);
-  err = cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  *cfg = cudaLaunchConfig_t{};
-  cfg->gridDim = dim3(hidden / upc);
-  cfg->blockDim = dim3(NT);
-  cfg->dynamicSmemBytes = smem;
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = ncl;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg->attrs = attr;
-  cfg->numAttrs = 1;
-  return cudaSuccess;
+  return rnn_chain::configure(*fn, hidden / upc, ncl, need, cfg, attr);
 }
 
 // Re-check the plan against the shape and the card, then launch
@@ -544,20 +416,10 @@ int launch(const Args& a, cudaStream_t stream) {
   const void* fn = nullptr;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[2];
-  int err = configure<Cell>(a.hidden, a.upc, a.ncl, a.rgroups, a.kc, &fn, &cfg, attr);
+  const int err = configure<Cell>(a.hidden, a.upc, a.ncl, a.rgroups, a.kc, &fn, &cfg, attr);
   if (err != cudaSuccess) return err;
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
-  if (err != cudaSuccess) return err;
-  if ((long long)clusters * a.ncl < (long long)cfg.gridDim.x) return kNotResident;
-  cfg.stream = stream;
-  attr[1].id = cudaLaunchAttributeCooperative;
-  attr[1].val.cooperative = 1;
-  cfg.numAttrs = 2;
   void* args[] = {(void*)&a};
-  err = cudaLaunchKernelExC(&cfg, fn, args);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return launch_resident(fn, &cfg, attr, a.ncl, args, stream);
 }
 
 // How many clusters of a plan's kernel the card holds at once (the launch
@@ -574,21 +436,8 @@ int max_clusters(int hidden, int upc, int ncl, int rgroups, int kc, int* count) 
   return cudaOccupancyMaxActiveClusters(count, fn, &cfg);
 }
 
-// The card's SM count and shared memory per block (the plan's inputs).
-inline int card_limits(int* sms, int* max_smem) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  return cudaDeviceGetAttribute(max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-}
-
 inline const char* error_string(int err) {
-  if (err == kUnsupported) return "shape not supported by the reverse chain";
-  if (err == kPlanMismatch) return "launch plan does not fit this shape or card";
-  if (err == kNotResident) return "the grid's clusters cannot all be resident at once";
-  return cudaGetErrorString((cudaError_t)err);
+  return rnn_chain::error_string(err, "shape not supported by the reverse chain");
 }
 
 }  // namespace rnn_bwd

@@ -1,0 +1,238 @@
+// What the one-layer recurrent cores for Hopper (sm_90a) share:
+// rnn_bwd_chain.cuh (the reverse chains, rows 4 and 7) and
+// rnn_fwd_chain.cuh (the forwards, rows 6 and 7f with their eval forms).
+//
+// Both run one persistent cooperative launch of H / UPC CTAs, one per SM,
+// cut into row groups and clusters that split the exchanged row's columns
+// (the launch plan of ops/lstm_kernel.py::chain_plan, re-checked by each
+// core's launcher), and both walk T steps of
+//
+//   out[b][o] = sum_k x[b][k] W[o][k]
+//
+// over the row block x the previous step wrote.  Here: the constants of
+// the thread layout, the cp.async row copies, the flag barrier's
+// release / acquire, the cluster barrier, the warps' shuffle
+// reduce-scatter, the shared-memory padding rule and the launch checks.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace rnn_chain {
+
+constexpr int NT = 256;            // threads per CTA
+constexpr int PH = 8;              // batch rows per pass
+constexpr int kUnsupported = -1;   // shape the kernel does not take
+constexpr int kPlanMismatch = -2;  // plan not valid for this shape / card
+constexpr int kNotResident = -3;   // the clusters cannot all be resident
+constexpr int kFlagsPerGroup = 256;  // barrier flags of a row group (>= its CTAs)
+
+__host__ __device__ constexpr int round32(int x) { return (x + 31) / 32 * 32; }
+
+// shared memory a launch asks for: the plan's, padded past half an SM's so
+// one CTA fits an SM
+__host__ __device__ inline int smem_launch_bytes(int need_bytes, int max_smem) {
+  const int floor_bytes = max_smem / 2 + 2048;
+  return need_bytes > floor_bytes ? need_bytes : floor_bytes;
+}
+
+__device__ __forceinline__ float sigmoidf_(float x) {
+  return 1.0f / (1.0f + expf(-x));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// wait until at most n groups are pending (n clamped to 0..7)
+__device__ __forceinline__ void cp_async_wait(int n) {
+  switch (n <= 0 ? 0 : n) {
+    case 0: asm volatile("cp.async.wait_group 0;" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 5;" ::: "memory"); break;
+    case 6: asm volatile("cp.async.wait_group 6;" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 7;" ::: "memory"); break;
+  }
+}
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+__device__ __forceinline__ void cluster_sync_() {
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+}
+
+// The flag barrier's wait, by warp 0: every one of the n flags (a row
+// group's CTAs) has counted at least `done` steps; a lane polls each
+// flag.  A CTA that never arrives is a fault: end the launch with an
+// error after ~20 s rather than hold the card.
+__device__ __forceinline__ void wait_flags(const unsigned* flags, int n,
+                                           unsigned done, int lane) {
+  const long long start = clock64();
+  for (int i = lane; i < n; i += 32) {
+    while (ld_acquire(flags + i) < done) {
+      if (clock64() - start > 40000000000ll) __trap();
+    }
+  }
+}
+
+// One chunk of rows into shared memory by cp.async, one commit group:
+// float4 columns [0, kn) of rows [0, nb) from src(r, c) (a row's float4
+// column) to dst + r ldx + 4 c; a thread walks (row, column) by
+// increments, no division in the loop.
+template <class Src>
+__device__ __forceinline__ void copy_rows(const Src& src, int nb, int kn,
+                                          float* dst, int ldx, int tid) {
+  if (kn > 0) {
+    int r = tid / kn, c = tid % kn;
+    const int dr = NT / kn, dc = NT % kn;
+    while (r < nb) {
+      cp_async16(dst + r * ldx + 4 * c, src(r, c));
+      r += dr;
+      c += dc;
+      if (c >= kn) {
+        c -= kn;
+        ++r;
+      }
+    }
+  }
+  cp_async_commit();
+}
+
+// How many levels of warp_reduce_scatter<N0, L> halve the values: as many
+// as halve an even count, at most log2 L.
+__host__ __device__ constexpr int scatter_levels(int n0, int lanes) {
+  return lanes <= 1 || n0 % 2 != 0 ? 0 : 1 + scatter_levels(n0 / 2, lanes / 2);
+}
+
+// One level of warp_reduce_scatter: the lanes hold N values each; with N
+// even each lane keeps one half (the upper where lane & O) and is sent its
+// partner's copy of it, else both add all N values.
+template <int N, int O>
+__device__ __forceinline__ void reduce_scatter_level(float* v, int lane) {
+  if constexpr (N % 2 == 0) {
+    const bool up = (lane & O) != 0;
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const float send = up ? v[i] : v[i + N / 2];
+      const float keep = up ? v[i + N / 2] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], O);
+  }
+}
+
+template <int N, int O>
+__device__ __forceinline__ void reduce_scatter_from(float* v, int lane) {
+  if constexpr (O >= 1) {
+    reduce_scatter_level<N, O>(v, lane);
+    reduce_scatter_from<(N % 2 == 0 ? N / 2 : N), O / 2>(v, lane);
+  }
+}
+
+// The N0 partial sums of each aligned group of L lanes (L a power of two
+// up to 32) meet, unrolled at compile time.  With S = scatter_levels(N0,
+// L) and NF = N0 >> S, lane l of a group then holds the totals of values
+// NF (l >> (log2 L - S)) + [0, NF) in v[0 ..], the same in each of the
+// L >> S lanes that share the bits above.  For N0 a power of two and
+// L = 32: N0 >= 32 leaves lane l the values l (N0 / 32) + v; N0 < 32 the
+// value l >> (5 - log2 N0).  N0 - NF shuffles, plus NF for each level
+// past S.
+template <int N0, int L = 32>
+__device__ __forceinline__ void warp_reduce_scatter(float (&v)[N0], int lane) {
+  reduce_scatter_from<N0, L / 2>(v, lane);
+}
+
+// The launch configuration of a plan's kernel fn: grid CTAs in clusters of
+// ncl with need_bytes of shared memory; kPlanMismatch where it does not
+// fit the card.
+inline int configure(const void* fn, int grid, int ncl, int need_bytes,
+                     cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  int dev = 0, max_smem = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  if (fn == nullptr || need_bytes > max_smem) return kPlanMismatch;
+  const int smem = smem_launch_bytes(need_bytes, max_smem);
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(grid);
+  cfg->blockDim = dim3(NT);
+  cfg->dynamicSmemBytes = smem;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ncl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+// Launch a configured plan cooperatively with its cluster dimension,
+// after checking that all its clusters are resident at once (attr has
+// room for two attributes).
+inline int launch_resident(const void* fn, cudaLaunchConfig_t* cfg,
+                           cudaLaunchAttribute* attr, int ncl, void** args,
+                           cudaStream_t stream) {
+  int clusters = 0;
+  int err = cudaOccupancyMaxActiveClusters(&clusters, fn, cfg);
+  if (err != cudaSuccess) return err;
+  if ((long long)clusters * ncl < (long long)cfg->gridDim.x) return kNotResident;
+  cfg->stream = stream;
+  attr[1].id = cudaLaunchAttributeCooperative;
+  attr[1].val.cooperative = 1;
+  cfg->numAttrs = 2;
+  err = cudaLaunchKernelExC(cfg, fn, args);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The card's SM count and shared memory per block (the plan's inputs).
+inline int card_limits(int* sms, int* max_smem) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+}
+
+// Whether a plan's counts are ones the kernels are built for, and its
+// grid H / upc splits into whole clusters of whole row groups.
+inline bool plan_shape_ok(int hidden, int upc, int ncl, int rgroups, int kc) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+    return false;
+  }
+  const bool pow2 = (upc == 1 || upc == 2 || upc == 4 || upc == 8) &&
+                    (ncl == 1 || ncl == 2 || ncl == 4 || ncl == 8) &&
+                    (rgroups == 1 || rgroups == 2 || rgroups == 4);
+  return pow2 && kc >= 1 && hidden % upc == 0 && hidden / upc <= sms &&
+         (hidden / upc) % (ncl * rgroups) == 0;
+}
+
+inline const char* error_string(int err, const char* unsupported) {
+  if (err == kUnsupported) return unsupported;
+  if (err == kPlanMismatch) return "launch plan does not fit this shape or card";
+  if (err == kNotResident) return "the grid's clusters cannot all be resident at once";
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // namespace rnn_chain

@@ -1,5 +1,5 @@
-// In-kernel phase timers of the recurrent kernels (rnn_bwd_chain.cuh and
-// lstm1_fwd.cu).
+// In-kernel phase timers of the one-layer recurrent cores
+// (rnn_bwd_chain.cuh and rnn_fwd_chain.cuh).
 //
 // Built with -DRNN_CHAIN_TIMERS=1, each warp adds the clock64() time of
 // every phase of its step loop into seven buckets, and lane 0 of each warp
@@ -15,7 +15,7 @@
 // shared-memory reduction with its __syncthreads; the cell (residual wait,
 // math, stores); the cluster barrier and the partials read from the
 // cluster's other CTAs, and the block barriers between the chunks of the
-// exchange (waiting for the other warps; both rnn_bwd_chain.cuh only).
+// exchange (waiting for the other warps).
 
 #pragma once
 

@@ -37,7 +37,8 @@ One layer per launch, any depth (H up to at least 1024):
 
 * ``lstm1_train_fwd``: one layer's training forward over its hoisted
   input projection, with its residuals; ``lstm1_infer`` the same kernel
-  source's eval form (``csrc/lstm1_fwd.cu``);
+  source's eval form (``csrc/lstm1_fwd.cu`` on the forward core
+  ``csrc/rnn_fwd_chain.cuh``, split by ``chain_plan(forward=True)``);
 * ``lstm_bwd_chain``: one layer's reverse dgates chain
   (``csrc/lstm_bwd_chain.cu`` on the core ``csrc/rnn_bwd_chain.cuh``, split
   by ``chain_plan``).
@@ -81,7 +82,7 @@ twins of the one-layer LSTM kernels:
 * ``gru1_train_fwd``: one layer's training forward over its hoisted input
   projection, with its residuals ``gates`` (T, B, 4H) = ``[r | z | n |
   hn]`` and ``h_prev`` (T, B, H); ``gru1_infer`` the same kernel source's
-  eval form (``csrc/gru1_fwd.cu``);
+  eval form (``csrc/gru1_fwd.cu``, the same forward core);
 * ``gru_bwd_chain``: one layer's reverse chain, emitting ``dih`` and the
   ``dhn`` lane of ``dhh`` (``csrc/gru_bwd_chain.cu``, the same core).
 """
@@ -683,11 +684,11 @@ def lstm_bwd_chain_reference(g: torch.Tensor, c_prev: torch.Tensor,
 
 LSTM1_TRAIN_FWD = CudaKernel(
     "lstm1_fwd", "lstm1_fwd_train_launch",
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 )
 LSTM1_INFER = CudaKernel(
     "lstm1_fwd", "lstm1_fwd_infer_launch",
-    [_P, _P, _P, _I, _I, _I, _I, _P],
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 )
 LSTM_BWD_CHAIN = CudaKernel(
     "lstm_bwd_chain", "lstm_bwd_chain_launch",
@@ -695,27 +696,32 @@ LSTM_BWD_CHAIN = CudaKernel(
 )
 
 
-# The one-layer reverse chains' launch plan (csrc/rnn_bwd_chain.cuh, which
-# re-checks it against the card); the constants are the core's.
+# The one-layer recurrent cores' launch plan (csrc/rnn_bwd_chain.cuh for the
+# reverse chains, csrc/rnn_fwd_chain.cuh for the forwards, which re-check
+# it against the card); the constants are the cores'.
 CHAIN_NT = 256   # threads per CTA
 CHAIN_PH = 8     # batch rows per pass
-CHAIN_NU_MAX = 64  # units per cluster the kernel is built for
+CHAIN_NU_MAX = 64  # units per cluster the kernels are built for
 CHAIN_FLAGS = 4 * 256  # barrier flags: 256 words for each of <= 4 row groups
 
 
 @dataclass(frozen=True)
 class ChainPlan:
-    """How one layer's reverse chain is split on the card.
+    """How one layer's reverse chain (``forward`` false) or forward is
+    split on the card.
 
     ``grid = hidden / upc`` CTAs, one per SM, in clusters of ``ncl``.
     Cluster ``k = c // ncl`` serves row group ``k % rgroups`` (``rows``: a
     contiguous ``ceil(B / rgroups)`` of the batch, in passes of
     ``CHAIN_PH``) and unit block ``k // rgroups`` (``cluster_units``,
     ``ncl * rgroups * upc`` units).  CTA ``c`` runs the cell of ``units(c)``
-    and forms the partial products of the cluster's units over
-    ``share(c % ncl)``, its float4 columns of the exchanged row (``width *
-    hidden`` floats), loaded in chunks of ``kc`` float4 columns; ``smem``
-    bytes of shared memory per CTA."""
+    and forms the partial products of the cluster's ``outputs`` over
+    ``share(c % ncl)``, its float4 columns of the exchanged row, loaded in
+    chunks of ``kc`` float4 columns; ``smem`` bytes of shared memory per
+    CTA.  The product geometry: the reverse chain exchanges a ``width *
+    hidden`` row and forms one sum a unit (dh); the forward exchanges the
+    ``hidden`` row of h and forms ``width`` sums a unit (its gate
+    columns)."""
 
     hidden: int
     width: int
@@ -724,6 +730,7 @@ class ChainPlan:
     rgroups: int
     kc: int
     smem: int
+    forward: bool = False
 
     @property
     def grid(self) -> int:
@@ -733,8 +740,18 @@ class ChainPlan:
     def cluster_width(self) -> int:
         return self.ncl * self.rgroups * self.upc
 
+    @property
+    def outputs(self) -> int:
+        """The sums a cluster forms per row: its units', or their gate columns'."""
+        return self.cluster_width * (self.width if self.forward else 1)
+
+    @property
+    def exchanged(self) -> int:
+        """Floats of the row each step exchanges."""
+        return self.hidden if self.forward else self.width * self.hidden
+
     def share(self, rank: int) -> range:
-        n4 = self.width * self.hidden // 4
+        n4 = self.exchanged // 4
         return range(rank * n4 // self.ncl, (rank + 1) * n4 // self.ncl)
 
     def rows(self, cta: int, batch: int) -> range:
@@ -757,43 +774,67 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _column_slices(nu: int) -> int:
+def _unit_block(nu: int, forward: bool) -> int:
+    """Units per thread of the products: 8 in the reverse chain (one sum
+    each), 2 in the forward (``width`` gate columns each)."""
+    return min(nu, 2 if forward else 8)
+
+
+def _column_slices(nu: int, forward: bool = False) -> int:
     """The products' float4 column slices for a cluster of ``nu`` units:
-    8 warps of 32 lanes over ``nu / min(nu, 8)`` unit groups."""
-    return CHAIN_NT // (nu // min(nu, 8))
+    the threads of one column group, 256 over ``nu / unit block`` groups."""
+    return CHAIN_NT // (nu // _unit_block(nu, forward))
 
 
 def chain_smem_floats(width: int, hidden: int, upc: int, ncl: int, rgroups: int,
-                      kc: int) -> int:
-    """Shared memory of a plan in floats, as ``rnn_bwd::smem_floats``: the
-    weights, the chunk slots, the warps' and the cluster's partial sums."""
+                      kc: int, forward: bool = False) -> int:
+    """Shared memory of a plan in floats, as ``rnn_bwd::smem_floats`` and
+    ``rnn_fwd::smem_floats``: the weights, the chunk slots, the warps' and
+    the cluster's partial sums (the forward keeps no warps' partials where
+    a column group is one warp or less)."""
     nu = upc * ncl * rgroups
-    cs4 = _ceil(width * hidden // 4, ncl)
+    outputs, n4 = (width * nu, hidden // 4) if forward else (nu, width * hidden // 4)
+    cs4 = _ceil(n4, ncl)
     chunks = _ceil(cs4, kc)
     slots = chunks if chunks <= 8 else 2
     ldw = _ceil(4 * cs4, 32) * 32 + 4
     ldx = _ceil(4 * kc, 32) * 32 + 4
-    return nu * ldw + slots * CHAIN_PH * ldx + 64 * min(nu, 8) + 2 * CHAIN_PH * nu
+    warps = max(1, _column_slices(nu, forward) // 32)
+    part = warps * CHAIN_PH * outputs if warps > 1 or not forward else 0
+    return outputs * ldw + slots * CHAIN_PH * ldx + part + 2 * CHAIN_PH * outputs
+
+
+def _row_groups_order(batch: int) -> Tuple[int, ...]:
+    """The row-group counts a plan tries, best first.  A group takes its
+    rows in passes of ``CHAIN_PH``, so the fewest passes a group come
+    first; where two groups need no more passes than four (B <= 16), two
+    come first: on the H100 they beat four and one at B = 1..16 on rows
+    4, 7, 6 and 7f (``chain_ab.py --sweep``; a step's barrier spans half
+    the grid, and four groups of a few rows form products for empty
+    rows)."""
+    return (2, 4, 1) if batch <= 2 * CHAIN_PH else (4, 2, 1)
 
 
 def chain_plan(hidden: int, width: int, batch: int, sms: int, max_smem: int,
-               active_clusters: Callable[[int, int, int, int], int]) -> ChainPlan:
-    """The launch plan of one layer's reverse chain (``width`` 4: LSTM, 3:
-    GRU) on a card of ``sms`` SMs and ``max_smem`` bytes of shared memory
-    per block; ``active_clusters(upc, ncl, rgroups, kc)`` is how many
-    clusters of that plan's kernel the card holds at once.
+               active_clusters: Callable[[int, int, int, int], int],
+               forward: bool = False) -> ChainPlan:
+    """The launch plan of one layer's reverse chain (``forward`` false) or
+    forward (``width`` 4: LSTM, 3: GRU) on a card of ``sms`` SMs and
+    ``max_smem`` bytes of shared memory per block; ``active_clusters(upc,
+    ncl, rgroups, kc)`` is how many clusters of that plan's kernel the
+    card holds at once.
 
     UPC is the fewest units per CTA (1, 2, 4, 8) that keep the grid within
     one CTA per SM.  The cluster size is the largest of 8, 4, 2, 1 that
     divides the grid and for which some row-group count fits; the row
-    groups the most of 4, 2, 1 that divide the clusters' grid and whose
-    weights fit beside a chunk of the share, at most 64 units a cluster,
-    with the whole grid resident at once.  The chunk is the largest
-    multiple of the products' column slices that fits (the whole share
-    where it fits: on the H100, one chunk beat four, ``chain_ab.py
-    --sweep``), else a ring of two chunks of a ninth of the share or less.  Shared memory is padded
-    past half an SM's, so one CTA fits an SM.  Raises ``ValueError`` for a
-    shape no plan takes.
+    groups the first of ``_row_groups_order(batch)`` that divide the
+    clusters' grid and whose weights fit beside a chunk of the share, at
+    most 64 units a cluster, with the whole grid resident at once.  The chunk is the largest multiple of the
+    products' column slices that fits (the whole share where it fits: on
+    the H100, one chunk beat four, ``chain_ab.py --sweep``), else a ring
+    of two chunks of a ninth of the share or less.  Shared memory is
+    padded past half an SM's, so one CTA fits an SM.  Raises
+    ``ValueError`` for a shape no plan takes.
     """
     if batch < 1 or hidden < 4 or hidden % 4:
         raise ValueError(f"chain_plan: no plan for B={batch}, H={hidden} (H % 4 == 0)")
@@ -803,39 +844,40 @@ def chain_plan(hidden: int, width: int, batch: int, sms: int, max_smem: int,
                          f"on {sms} SMs")
     grid = hidden // upc
     for ncl in (8, 4, 2, 1):
-        for rgroups in (4, 2, 1):
+        for rgroups in _row_groups_order(batch):
             nu = ncl * rgroups * upc
             if grid % (ncl * rgroups) or nu > CHAIN_NU_MAX:
                 continue
-            cs4 = _ceil(width * hidden // 4, ncl)
-            ks = _column_slices(nu)
+            cs4 = _ceil((hidden if forward else width * hidden) // 4, ncl)
+            ks = _column_slices(nu, forward)
             blocks = _ceil(cs4, ks)
             # whole column slices per chunk where they fit, else a ring of
             # two chunks of any width
             widths = [min(cs4, ks * _ceil(blocks, m)) for m in range(1, blocks + 1)]
             widths += [_ceil(cs4, m) for m in range(9, cs4 + 1)]
-            fits = (kc for kc in dict.fromkeys(widths)
-                    if 4 * chain_smem_floats(width, hidden, upc, ncl, rgroups, kc)
-                    <= max_smem)
-            kc = next(fits, None)
+
+            def need(kc: int) -> int:
+                return 4 * chain_smem_floats(width, hidden, upc, ncl, rgroups, kc, forward)
+
+            kc = next((kc for kc in dict.fromkeys(widths) if need(kc) <= max_smem), None)
             if kc is None or active_clusters(upc, ncl, rgroups, kc) * ncl < grid:
                 continue
-            need = 4 * chain_smem_floats(width, hidden, upc, ncl, rgroups, kc)
             return ChainPlan(hidden, width, upc, ncl, rgroups, kc,
-                             max(need, max_smem // 2 + 2048))
+                             max(need(kc), max_smem // 2 + 2048), forward)
     raise ValueError(f"chain_plan: no cluster size fits H={hidden} on this card")
 
 
-_CHAIN_PLANS: Dict[Tuple[int, str, int], ChainPlan] = {}
+_CHAIN_PLANS: Dict[Tuple[int, str, int, Tuple[int, ...]], ChainPlan] = {}
 
 
 def chain_plan_on(source: str, width: int, hidden: int, batch: int,
-                  device: torch.device) -> ChainPlan:
+                  device: torch.device, forward: bool = False) -> ChainPlan:
     """``chain_plan`` for ``csrc/<source>.cu``'s kernel on ``device``, its
     SM count, shared memory and resident cluster counts read from the CUDA
-    runtime through the library; cached per card, source and H."""
+    runtime through the library; cached per card, source, H and the
+    batch's row-group order."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    key = (index, source, hidden)
+    key = (index, source, hidden, _row_groups_order(batch))
     plan = _CHAIN_PLANS.get(key)
     if plan is None:
         lib = load(source)
@@ -853,7 +895,8 @@ def chain_plan_on(source: str, width: int, hidden: int, batch: int,
                              fn(hidden, upc, ncl, rgroups, kc, ctypes.byref(count)))
                 return count.value
 
-            plan = chain_plan(hidden, width, batch, sms.value, smem.value, active)
+            plan = chain_plan(hidden, width, batch, sms.value, smem.value, active,
+                              forward)
         _CHAIN_PLANS[key] = plan
     return plan
 
@@ -878,14 +921,24 @@ def _layer_shapes(name: str, ih: torch.Tensor, w_hh: torch.Tensor, gates: int = 
     return t_len, batch, h_dim
 
 
+def _fwd_launch(source: str, width: int, batch: int, h_dim: int,
+                device: torch.device):
+    """A forward launch's plan, its carry (B, H) and the row groups'
+    barrier flags, both zeros -> ``(plan, carry, flags)``."""
+    plan = chain_plan_on(source, width, h_dim, batch, device, forward=True)
+    carry = torch.zeros((batch, h_dim), dtype=torch.float32, device=device)
+    flags = torch.zeros(CHAIN_FLAGS, dtype=torch.int32, device=device)
+    return plan, carry, flags
+
+
 def lstm1_train_fwd(ih: torch.Tensor, w_hh: torch.Tensor):
     """One layer's training forward: ih (T, B, 4H), w_hh (H, 4H) ->
     ``(g, h_prev, c_prev, finals)``, all float32.
 
     On a CUDA tensor this launches ``csrc/lstm1_fwd.cu`` (one cooperative
-    launch for the whole sequence) and counts it in
-    ``LSTM1_TRAIN_FWD.launches``; on a CPU tensor it runs
-    ``lstm1_train_fwd_reference``.
+    cluster launch for the whole sequence on ``chain_plan_on``'s forward
+    plan) and counts it in ``LSTM1_TRAIN_FWD.launches``; on a CPU tensor
+    it runs ``lstm1_train_fwd_reference``.
     """
     if ih.device.type == "cpu":
         return lstm1_train_fwd_reference(ih, w_hh)
@@ -897,9 +950,11 @@ def lstm1_train_fwd(ih: torch.Tensor, w_hh: torch.Tensor):
     c_prev = torch.empty((t_len, batch, h_dim), **new)
     finals = torch.empty((batch, 2 * h_dim), **new)
     check_cuda_f32("lstm1_train_fwd", ih=ih, w_hh=w_hh)
+    plan, carry, flags = _fwd_launch("lstm1_fwd", 4, batch, h_dim, ih.device)
     LSTM1_TRAIN_FWD(
         ih.data_ptr(), w_hh.data_ptr(), g.data_ptr(), h_prev.data_ptr(),
-        c_prev.data_ptr(), finals.data_ptr(), batch, t_len, h_dim, stream_of(ih),
+        c_prev.data_ptr(), finals.data_ptr(), carry.data_ptr(), flags.data_ptr(),
+        batch, t_len, h_dim, plan.upc, plan.ncl, plan.rgroups, plan.kc, stream_of(ih),
     )
     return g, h_prev, c_prev, finals
 
@@ -910,8 +965,8 @@ def lstm1_infer(ih: torch.Tensor, w_hh: torch.Tensor,
     (T, B, H) (the next layer's input) or, with ``want_series`` false, the
     final h (B, H).  It stores no gates and no cell states.
 
-    On a CUDA tensor this launches ``csrc/lstm1_fwd.cu``'s eval entry and
-    counts it in ``LSTM1_INFER.launches``; on a CPU tensor it runs
+    On a CUDA tensor this launches ``csrc/lstm1_fwd.cu``'s eval entry (on
+    the training form's plan) and counts it in ``LSTM1_INFER.launches``; on a CPU tensor it runs
     ``lstm1_infer_reference``.
     """
     if ih.device.type == "cpu":
@@ -923,8 +978,10 @@ def lstm1_infer(ih: torch.Tensor, w_hh: torch.Tensor,
     slots = t_len if want_series else 2
     out = torch.empty((slots, batch, h_dim), dtype=torch.float32, device=ih.device)
     check_cuda_f32("lstm1_infer", ih=ih, w_hh=w_hh)
-    LSTM1_INFER(ih.data_ptr(), w_hh.data_ptr(), out.data_ptr(), batch, t_len,
-                h_dim, int(want_series), stream_of(ih))
+    plan, carry, flags = _fwd_launch("lstm1_fwd", 4, batch, h_dim, ih.device)
+    LSTM1_INFER(ih.data_ptr(), w_hh.data_ptr(), out.data_ptr(), carry.data_ptr(),
+                flags.data_ptr(), batch, t_len, h_dim, int(want_series), plan.upc,
+                plan.ncl, plan.rgroups, plan.kc, stream_of(ih))
     return out if want_series else out[(t_len - 1) % 2]
 
 
@@ -1440,11 +1497,11 @@ def gru_bwd_chain_reference(gates: torch.Tensor, h_prev: torch.Tensor,
 
 GRU1_TRAIN_FWD = CudaKernel(
     "gru1_fwd", "gru1_fwd_train_launch",
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 )
 GRU1_INFER = CudaKernel(
     "gru1_fwd", "gru1_fwd_infer_launch",
-    [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 )
 GRU_BWD_CHAIN = CudaKernel(
     "gru_bwd_chain", "gru_bwd_chain_launch",
@@ -1464,9 +1521,9 @@ def gru1_train_fwd(ih: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor):
     (3H,) -> ``(gates, h_prev, h)``, all float32.
 
     On a CUDA tensor this launches ``csrc/gru1_fwd.cu`` (one cooperative
-    launch for the whole sequence) and counts it in
-    ``GRU1_TRAIN_FWD.launches``; on a CPU tensor it runs
-    ``gru1_train_fwd_reference``.
+    cluster launch for the whole sequence on ``chain_plan_on``'s forward
+    plan) and counts it in ``GRU1_TRAIN_FWD.launches``; on a CPU tensor it
+    runs ``gru1_train_fwd_reference``.
     """
     if ih.device.type == "cpu":
         return gru1_train_fwd_reference(ih, w_hh, b_hh)
@@ -1476,9 +1533,11 @@ def gru1_train_fwd(ih: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor):
     h_prev = torch.empty((t_len, batch, h_dim), **new)
     h = torch.empty((batch, h_dim), **new)
     check_cuda_f32("gru1_train_fwd", ih=ih, w_hh=w_hh, b_hh=b_hh)
+    plan, carry, flags = _fwd_launch("gru1_fwd", 3, batch, h_dim, ih.device)
     GRU1_TRAIN_FWD(
         ih.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), gates.data_ptr(),
-        h_prev.data_ptr(), h.data_ptr(), batch, t_len, h_dim, stream_of(ih),
+        h_prev.data_ptr(), h.data_ptr(), carry.data_ptr(), flags.data_ptr(), batch,
+        t_len, h_dim, plan.upc, plan.ncl, plan.rgroups, plan.kc, stream_of(ih),
     )
     return gates, h_prev, h
 
@@ -1489,8 +1548,8 @@ def gru1_infer(ih: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     (T, B, H) (the next layer's input) or, with ``want_series`` false, the
     final h (B, H).  It stores no gates.
 
-    On a CUDA tensor this launches ``csrc/gru1_fwd.cu``'s eval entry and
-    counts it in ``GRU1_INFER.launches``; on a CPU tensor it runs
+    On a CUDA tensor this launches ``csrc/gru1_fwd.cu``'s eval entry (on
+    the training form's plan) and counts it in ``GRU1_INFER.launches``; on a CPU tensor it runs
     ``gru1_infer_reference``.
     """
     if ih.device.type == "cpu":
@@ -1501,8 +1560,11 @@ def gru1_infer(ih: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     slots = t_len if want_series else 2
     out = torch.empty((slots, batch, h_dim), dtype=torch.float32, device=ih.device)
     check_cuda_f32("gru1_infer", ih=ih, w_hh=w_hh, b_hh=b_hh)
+    plan, carry, flags = _fwd_launch("gru1_fwd", 3, batch, h_dim, ih.device)
     GRU1_INFER(ih.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), out.data_ptr(),
-               batch, t_len, h_dim, int(want_series), stream_of(ih))
+               carry.data_ptr(), flags.data_ptr(), batch, t_len, h_dim,
+               int(want_series), plan.upc, plan.ncl, plan.rgroups, plan.kc,
+               stream_of(ih))
     return out if want_series else out[(t_len - 1) % 2]
 
 

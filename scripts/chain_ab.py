@@ -1,4 +1,4 @@
-"""Time the PyTorch port's one-layer reverse chains of two trees on one card.
+"""Time the PyTorch port's one-layer recurrent kernels of two trees on one card.
 
     python3 scripts/chain_ab.py --parent DIR [--steps] [--timers] [--timers-parent TDIR]
     python3 scripts/chain_ab.py --probe | --sweep
@@ -15,21 +15,30 @@ inputs:
   without ``dh_series``, and cuDNN's backward of ``h_n`` on the same layer;
 * ``gru_bwd_chain`` (row 7) there, and at (32, 372, 256), the layered
   legacy GRU backward's width, and cuDNN's backward of ``h_n``;
-* ``lstm1_train_fwd`` (row 6) at (32, 372, 512), a control whose code
-  neither tree changes.
+* rows 4 and 7 (with ``dh_series``) and the eval forms (final h) at B =
+  1, 4, 16 and 24, T 372, H 512, where the plan's row groups differ from
+  B=32's or their passes hold fewer rows;
+* the one-layer forwards at (32, 372, 512), with cuDNN's same function
+  beside each: ``lstm1_train_fwd`` (row 6) and ``gru1_train_fwd`` (row
+  7f), their eval forms ``lstm1_infer`` (6e) and ``gru1_infer`` (7e) with
+  the h series out and with the final h only (two slots), and the eval
+  forms at B=1 (the b1 serving forward's shape).
 
-``--timers`` then builds rows 4, 7 and 6 of both trees with
+``--timers`` then builds rows 4, 7, 6 and 7f of both trees with
 ``-DRNN_CHAIN_TIMERS=1`` (``csrc/rnn_timers.cuh``) and prints, for each at
-(32, 372, 512) with ``dh_series``, each phase's share of the warps'
-``clock64()`` time and the cycles per step and warp.  A tree whose sources
+(32, 372, 512) (the chains with ``dh_series``), each phase's share of the
+warps' ``clock64()`` time and the cycles per step and warp, with the
+launch plan where the tree has one.  A tree whose sources
 predate the timers has no timed build: ``--timers-parent TDIR`` names a
 copy of the parent with the timer marks added, used for its timed run
 only.  ``--probe`` builds ``scripts/chain_probe.cu`` and prints the card's
 grid-barrier costs, shared-L2 and distributed-shared-memory read rates and
 resident cluster counts, and the exchange alone (write, barrier, read);
-``--sweep`` times rows 4 and 7 of this checkout on variants of the launch
-plan (chunk, cluster size, row groups).  ``--steps`` (with ``--parent``)
-adds ``[train_big]`` / ``[train_big_gru]``'s b32 train-step p50 / p90 with
+``--sweep`` times rows 4, 7, 6 and 7f of this checkout on variants of the
+launch plan (chunk, cluster size, row groups; and at B 1..24 each row-group
+count).  ``--steps`` (with ``--parent``)
+adds ``[train_big]`` / ``[train_big_gru]``'s b32 train-step p50 / p90 and
+``[serve_big]`` / ``[serve_big_gru]``'s b32 and b1 forward p50 / p90 with
 each tree's package, parent / change / change / parent.  ``--child ROOT``, ``--timers-of
 ROOT``, ``--steps-of ROOT``, ``--probe`` and ``--sweep`` alone run one
 part.
@@ -49,6 +58,8 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
 BUCKETS = ["barrier", "exchange", "products", "reduce", "cell", "cluster", "sync"]
+# batches below the big configs' 32, timed for rows 4, 7 and the eval forms
+SMALL_B = (1, 4, 16, 24)
 
 
 def _smi() -> str:
@@ -84,8 +95,9 @@ def _port(root: Path):
 
 
 def _cases(torch, smoke, lk):
-    """Rows 4, 7 (H 512 and 256) and 6 with their inputs: name -> (run
-    with dh_series, run without, cuDNN's backward of h_n or None)."""
+    """Rows 4, 7 (H 512 and 256), 6, 6e, 7f and 7e with their inputs: name
+    -> (run with dh_series or the forward, run without dh_series or None,
+    cuDNN's backward of h_n or its same forward)."""
     import numpy as np
 
     cases = {}
@@ -102,7 +114,24 @@ def _cases(torch, smoke, lk):
         lambda: lk.lstm_bwd_chain(g, c_prev, dhs, dhf, w_hh),
         lambda: lk.lstm_bwd_chain(g, c_prev, None, dhf, w_hh),
         _lib_bwd(torch, lib, lib(x)[1][0][-1], dhf))
-    cases["lstm1_train_fwd_h512"] = (lambda: lk.lstm1_train_fwd(ih, w_hh), None, None)
+    # below B=32 the plan may take another row-group count (``chain_plan``)
+    for rows in SMALL_B:
+        a = tuple(v[:, :rows].contiguous() for v in (g, c_prev, dhs)) + (
+            dhf[:rows].contiguous(), w_hh)
+        cases[f"lstm_bwd_chain_b{rows}_h512"] = (
+            lambda a=a: lk.lstm_bwd_chain(*a), None, None)
+    ih1, lx1 = ih[:, :1].contiguous(), x[:, :1].contiguous()
+    cases["lstm1_train_fwd_h512"] = (lambda: lk.lstm1_train_fwd(ih, w_hh), None,
+                                     lambda: lib(x))
+    cases["lstm1_infer_series_h512"] = (lambda: lk.lstm1_infer(ih, w_hh, True), None,
+                                        _no_grad(torch, lambda: lib(x)))
+    cases["lstm1_infer_final_h512"] = (lambda: lk.lstm1_infer(ih, w_hh, False), None, None)
+    cases["lstm1_infer_b1_h512"] = (lambda: lk.lstm1_infer(ih1, w_hh, False), None,
+                                    _no_grad(torch, lambda: lib(lx1)))
+    for rows in SMALL_B[1:]:
+        a = ih[:, :rows].contiguous()
+        cases[f"lstm1_infer_b{rows}_h512"] = (
+            lambda a=a: lk.lstm1_infer(a, w_hh, False), None, None)
 
     for h_dim, seed in ((512, 11), (256, 21)):
         rng = np.random.RandomState(seed)
@@ -131,7 +160,38 @@ def _cases(torch, smoke, lk):
             (lambda a=(gates, h_prev, gdhs, gdhf, gw_hh): lk.gru_bwd_chain(*a)),
             (lambda a=(gates, h_prev, None, gdhf, gw_hh): lk.gru_bwd_chain(*a)),
             _lib_bwd(torch, glib, glib(gx)[1][-1], gdhf))
+        if h_dim == 512:
+            for rows in SMALL_B:
+                a = tuple(v[:, :rows].contiguous() for v in (gates, h_prev, gdhs)) + (
+                    gdhf[:rows].contiguous(), gw_hh)
+                cases[f"gru_bwd_chain_b{rows}_h512"] = (
+                    lambda a=a: lk.gru_bwd_chain(*a), None, None)
+            # bound now: the next pass of the loop rebinds the names
+            a = (torch.matmul(gx, gw_ih) + gb_ih, gw_hh, gb_hh)
+            a1 = (a[0][:, :1].contiguous(), gw_hh, gb_hh)
+            x1, glib512 = gx[:, :1].contiguous(), glib
+            cases["gru1_train_fwd_h512"] = (
+                lambda a=a: lk.gru1_train_fwd(*a), None, lambda x=gx: glib512(x))
+            cases["gru1_infer_series_h512"] = (
+                lambda a=a: lk.gru1_infer(*a, True), None,
+                _no_grad(torch, lambda x=gx: glib512(x)))
+            cases["gru1_infer_final_h512"] = (
+                lambda a=a: lk.gru1_infer(*a, False), None, None)
+            cases["gru1_infer_b1_h512"] = (
+                lambda a=a1: lk.gru1_infer(*a, False), None,
+                _no_grad(torch, lambda x=x1: glib512(x)))
+            for rows in SMALL_B[1:]:
+                ar = (a[0][:, :rows].contiguous(), gw_hh, gb_hh)
+                cases[f"gru1_infer_b{rows}_h512"] = (
+                    lambda a=ar: lk.gru1_infer(*a, False), None, None)
     return cases
+
+
+def _no_grad(torch, fn):
+    def run():
+        with torch.no_grad():
+            fn()
+    return run
 
 
 def _lib_bwd(torch, lib, h_n, dh):
@@ -152,6 +212,27 @@ def child(root: Path) -> dict:
         if lib is not None:
             res[f"{name}_cudnn_ms"] = smoke.device_ms(lib, flush)
     return res
+
+
+def _forward_latency(torch, smoke, cfg, overrides, root, raw, video, res, tag):
+    """``[serve_*]``'s b32 and b1 forward (raw waveform in, log-mel on the
+    card; seeded weights): p50 / p90 of the host clock around synchronize."""
+    from multimodal_emotion_detection_tpu_torch.config import load_config
+    from multimodal_emotion_detection_tpu_torch.models.classifier import (
+        classifier_from_config,
+        init_weights,
+    )
+    from multimodal_emotion_detection_tpu_torch.training.steps import forward
+
+    cfg = load_config(str(root / "configs" / "base.yaml"),
+                      [*overrides, "model.frontend.cache=false"])
+    model = init_weights(classifier_from_config(cfg),
+                         torch.Generator().manual_seed(0)).to(raw.device).eval()
+    b32 = {"audio": raw[:32], "video": video[:32]}
+    b1 = {k: v[:1].contiguous() for k, v in b32.items()}
+    for label, batch in (("b32", b32), ("b1", b1)):
+        res[f"{tag}_{label}_p50_ms"], res[f"{tag}_{label}_p90_ms"] = smoke.host_ms(
+            lambda: forward(model, batch))
 
 
 def steps_of(root: Path) -> dict:
@@ -192,6 +273,10 @@ def steps_of(root: Path) -> dict:
                                     cfg.dataset.modalities, batch_size=32,
                                     seed=cfg.seed, device=dev)[0]
         raw = torch.from_numpy(loader.arrays.features["audio"]).to(dev)
+        video = torch.from_numpy(loader.arrays.features["video"]).to(dev)
+        serve_tag = tag.replace("train", "serve")
+        _forward_latency(torch, smoke, cfg, [*overrides, f"dataset.data_dir={data}"],
+                         root, raw, video, res, serve_tag)
         with torch.inference_mode():
             feats = logmel.logmel_cuda(raw, logmel_params_from_config(cfg.model.frontend))
         loader.replace_features("audio", feats.cpu().numpy())
@@ -216,8 +301,8 @@ def steps_of(root: Path) -> dict:
 
 
 def timers_of(root: Path) -> None:
-    """Rows 4, 7 and 6 of ``root`` built with -DRNN_CHAIN_TIMERS=1: each
-    bucket's share of the warps' clock time at (32, 372, 512)."""
+    """Rows 4, 7, 6 and 7f of ``root`` built with -DRNN_CHAIN_TIMERS=1:
+    each bucket's share of the warps' clock time at (32, 372, 512)."""
     torch = _card()
     smoke = _smoke()
     _build, lk = _port(root)
@@ -225,7 +310,8 @@ def timers_of(root: Path) -> None:
     kernels = {"lstm_bwd_chain_h512": ("lstm_bwd_chain", lk.LSTM_BWD_CHAIN),
                "gru_bwd_chain_h512": ("gru_bwd_chain", lk.GRU_BWD_CHAIN),
                "gru_bwd_chain_h256": ("gru_bwd_chain", lk.GRU_BWD_CHAIN),
-               "lstm1_train_fwd_h512": ("lstm1_fwd", lk.LSTM1_TRAIN_FWD)}
+               "lstm1_train_fwd_h512": ("lstm1_fwd", lk.LSTM1_TRAIN_FWD),
+               "gru1_train_fwd_h512": ("gru1_fwd", lk.GRU1_TRAIN_FWD)}
     libs = {}
     for source in {s for s, _ in kernels.values()}:
         out = root / "build" / "chain_ab" / f"lib{source}_timers.so"
@@ -265,10 +351,8 @@ def timers_of(root: Path) -> None:
         if read(ctypes.addressof(buf), 1) != 0:
             sys.exit(f"chain_ab: {source}_timers failed")
         total, warps = sum(buf[:len(BUCKETS)]), buf[len(BUCKETS)]
-        if source != "lstm1_fwd" and hasattr(lk, "chain_plan_on"):
-            h = int(name[-3:])
-            plan = lk.chain_plan_on(source, 4 if source.startswith("lstm") else 3, h, 32,
-                                    torch.device("cuda"))
+        plan = _plan_of(lk, source, int(name[-3:]), torch.device("cuda"))
+        if plan is not None:
             print(f"[timers] {name} plan: UPC {plan.upc}, clusters of {plan.ncl}, "
                   f"{plan.rgroups} row groups, {plan.grid} CTAs, {plan.smem} bytes, "
                   f"chunks of {plan.kc}")
@@ -279,6 +363,19 @@ def timers_of(root: Path) -> None:
               f"per step), {warps} warps, {cyc:.0f} cycles per step and warp "
               f"({cyc / (1e6 * ms / steps):.3f} GHz implied): " + ", ".join(
                   f"{n} {100 * x / total:.1f}%" for n, x in zip(BUCKETS, buf)))
+
+
+def _plan_of(lk, source, h, device):
+    """The launch plan of ``source`` at B=32 in a tree that has one (an
+    older tree may predate the chains' or the forwards' plan)."""
+    width = 4 if source.startswith("lstm") else 3
+    if not hasattr(lk, "chain_plan_on"):
+        return None
+    if source.endswith("_fwd"):
+        if not hasattr(lk, "_fwd_launch"):
+            return None
+        return lk.chain_plan_on(source, width, h, 32, device, forward=True)
+    return lk.chain_plan_on(source, width, h, 32, device)
 
 
 def probe() -> None:
@@ -375,9 +472,10 @@ def probe() -> None:
 
 
 def sweep() -> None:
-    """Rows 4 and 7 of this checkout at (32, 372, 512) on variants of the
-    launch plan: the chunk, the cluster size, the row groups (every
-    variant still re-checked by the launcher)."""
+    """Rows 4, 7, 6 and 7f of this checkout at (32, 372, 512) on variants
+    of the launch plan: the chunk, the cluster size, the row groups (every
+    variant still re-checked by the launcher); then rows 4, 7, 6, 7f, 6e
+    and 7e at B 1..24 on 1, 2 and 4 row groups."""
     import dataclasses
 
     torch = _card()
@@ -385,16 +483,20 @@ def sweep() -> None:
     _, lk = _port(HERE)
     flush = smoke.L2Flush()
     cases = _cases(torch, smoke, lk)
-    for name, source, width in (("lstm_bwd_chain_h512", "lstm_bwd_chain", 4),
-                                ("gru_bwd_chain_h512", "gru_bwd_chain", 3)):
-        base = lk.chain_plan_on(source, width, 512, 32, torch.device("cuda"))
+    for name, source, width, forward in (
+            ("lstm_bwd_chain_h512", "lstm_bwd_chain", 4, False),
+            ("gru_bwd_chain_h512", "gru_bwd_chain", 3, False),
+            ("lstm1_train_fwd_h512", "lstm1_fwd", 4, True),
+            ("gru1_train_fwd_h512", "gru1_fwd", 3, True)):
+        base = lk.chain_plan_on(source, width, 512, 32, torch.device("cuda"), forward)
         key = next(k for k in lk._CHAIN_PLANS if k[1] == source and k[2] == 512)
         variants = [base]
         for ncl, rgroups in ((2, 4), (1, 4), (2, 2), (1, 2)):
-            cs4 = -(-(width * 512 // 4) // ncl)
+            cs4 = -(-((1 if forward else width) * 512 // 4) // ncl)
             for chunks in (1, 2, 4, 8):
                 kc = -(-cs4 // chunks)
-                need = 4 * lk.chain_smem_floats(width, 512, base.upc, ncl, rgroups, kc)
+                need = 4 * lk.chain_smem_floats(width, 512, base.upc, ncl, rgroups, kc,
+                                                forward)
                 if need > 232_448:
                     continue
                 v = dataclasses.replace(base, ncl=ncl, rgroups=rgroups, kc=kc,
@@ -407,6 +509,57 @@ def sweep() -> None:
             print(f"[sweep] {name}: clusters of {v.ncl}, {v.rgroups} row groups, "
                   f"chunks of {v.kc} float4 columns: {ms:.4f} ms")
         lk._CHAIN_PLANS[key] = base
+    # the row groups below B=32: the plan's count against the others
+    for rows in (1, 2, 4, 8, 12, 16, 24):
+        for name, (source, width, forward, run) in _row_runs(torch, smoke, lk,
+                                                              rows).items():
+            base = lk.chain_plan_on(source, width, 512, rows, torch.device("cuda"),
+                                    forward)
+            key = next(k for k, v in lk._CHAIN_PLANS.items() if v is base)
+            for rgroups in (1, 2, 4):
+                need = 4 * lk.chain_smem_floats(width, 512, base.upc, base.ncl, rgroups,
+                                                base.kc, forward)
+                if need > 232_448:
+                    continue
+                lk._CHAIN_PLANS[key] = dataclasses.replace(
+                    base, rgroups=rgroups, smem=max(need, 232_448 // 2 + 2048))
+                ms = smoke.device_ms(run, flush)
+                mark = " (the plan)" if rgroups == base.rgroups else ""
+                print(f"[sweep] {name} B={rows}: {rgroups} row groups{mark}: {ms:.4f} ms")
+            lk._CHAIN_PLANS[key] = base
+
+
+def _row_runs(torch, smoke, lk, rows):
+    """Rows 4, 7, 6, 7f and the eval forms 6e / 7e (final h) at (rows,
+    372, 512) on ``chip_smoke.py``'s inputs: name -> (source, width,
+    forward, run)."""
+    import numpy as np
+
+    inputs, w_hh = smoke._big_layer_inputs(5)
+    x, w_ih, bias = inputs["D=512"]
+    ih = (torch.matmul(x, w_ih) + bias)[:, :rows].contiguous()
+    g, _, c_prev, _ = lk.lstm1_train_fwd(ih, w_hh)
+    gin, gw_hh = smoke._big_layer_inputs(11, gates=3)
+    gx, gw_ih, gb_ih = gin["D=512"]
+    rng = np.random.RandomState(12)
+    gb_hh = torch.from_numpy(rng.uniform(-512 ** -0.5, 512 ** -0.5, 3 * 512)
+                             .astype(np.float32)).cuda()
+    gih = (torch.matmul(gx, gw_ih) + gb_ih)[:, :rows].contiguous()
+    gates, h_prev, _ = lk.gru1_train_fwd(gih, gw_hh, gb_hh)
+    dhs = torch.from_numpy(rng.randn(*h_prev.shape).astype(np.float32)).cuda()
+    dhf = dhs[-1].contiguous()
+    return {
+        "lstm_bwd_chain": ("lstm_bwd_chain", 4, False,
+                           lambda: lk.lstm_bwd_chain(g, c_prev, dhs, dhf, w_hh)),
+        "gru_bwd_chain": ("gru_bwd_chain", 3, False,
+                          lambda: lk.gru_bwd_chain(gates, h_prev, dhs, dhf, gw_hh)),
+        "lstm1_train_fwd": ("lstm1_fwd", 4, True, lambda: lk.lstm1_train_fwd(ih, w_hh)),
+        "lstm1_infer": ("lstm1_fwd", 4, True, lambda: lk.lstm1_infer(ih, w_hh, False)),
+        "gru1_train_fwd": ("gru1_fwd", 3, True,
+                           lambda: lk.gru1_train_fwd(gih, gw_hh, gb_hh)),
+        "gru1_infer": ("gru1_fwd", 3, True,
+                       lambda: lk.gru1_infer(gih, gw_hh, gb_hh, False)),
+    }
 
 
 def exchange_probe() -> None:

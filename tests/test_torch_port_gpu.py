@@ -222,6 +222,11 @@ LAYER_SHAPES = [(1, 5, 64), (37, 5, 128), (32, 5, 512),
 # (H 1056), clusters of 4 (H 100) and of 1 (H 524: 131 CTAs)
 CHAIN_SHAPES = LAYER_SHAPES + [(33, 7, 256), (5, 3, 260), (2, 5, 1056), (32, 1, 512),
                                (64, 9, 512), (3, 4, 100), (2, 3, 524)]
+# the forwards' eval form with two slots used in turn: a slot written at
+# step t is overwritten at t + 2, so T = 2 and 3 at the big shape, at
+# one row and at a ragged pass; and the b1 serving plan over many steps
+FWD_SHAPES = CHAIN_SHAPES + [(32, 2, 512), (32, 3, 512), (1, 2, 512), (1, 3, 512),
+                             (33, 3, 256), (9, 2, 64), (1, 40, 512)]
 
 
 def _layer_case(dev, b, t, h, seed):
@@ -233,7 +238,7 @@ def _layer_case(dev, b, t, h, seed):
     return torch.from_numpy(ih).to(dev), torch.from_numpy(w_hh).to(dev)
 
 
-@pytest.mark.parametrize("b,t,h", LAYER_SHAPES)
+@pytest.mark.parametrize("b,t,h", FWD_SHAPES)
 def test_lstm1_fwd_kernels_match_plain(b, t, h):
     dev = _card()
     ih, w_hh = _layer_case(dev, b, t, h, seed=b * 1000 + t + h)
@@ -496,7 +501,7 @@ def _gru_layer_case(dev, b, t, h, seed):
     return tuple(torch.from_numpy(a).to(dev) for a in (ih, w_hh, b_hh))
 
 
-@pytest.mark.parametrize("b,t,h", LAYER_SHAPES)
+@pytest.mark.parametrize("b,t,h", FWD_SHAPES)
 def test_gru1_fwd_kernels_match_plain(b, t, h):
     dev = _card()
     ih, w_hh, b_hh = _gru_layer_case(dev, b, t, h, seed=b * 1000 + t + h + 2)
@@ -560,6 +565,50 @@ def test_reverse_chains_raise_on_a_plan_that_does_not_fit():
                 w_hh.data_ptr(), dg.data_ptr(), carry.data_ptr(), flags.data_ptr(),
                 b, t, h, upc, ncl, rgroups, kc, torch.cuda.current_stream().cuda_stream)
         assert lstm_kernel.LSTM_BWD_CHAIN.launches == before
+
+
+def test_forwards_raise_on_a_plan_that_does_not_fit():
+    """No fallback: a forward plan the launcher does not accept raises with
+    its error string, and the launch is not counted (both sources, both
+    forms)."""
+    dev = _card()
+    b, t, h = 2, 3, 64
+    ih, w_hh = _layer_case(dev, b, t, h, seed=8)
+    gih, gw_hh, gb_hh = _gru_layer_case(dev, b, t, h, seed=9)
+    stream = torch.cuda.current_stream().cuda_stream
+    carry_t = torch.zeros((b, h), device=dev)
+    flags_t = torch.zeros(lstm_kernel.CHAIN_FLAGS, dtype=torch.int32, device=dev)
+    carry, flags = carry_t.data_ptr(), flags_t.data_ptr()
+    big = torch.empty((t, b, 4 * h), device=dev)
+    series = torch.empty((t, b, h), device=dev)
+    finals = torch.empty((b, 2 * h), device=dev)
+    for source, width in (("lstm1_fwd", 4), ("gru1_fwd", 3)):
+        plan = lstm_kernel.chain_plan_on(source, width, h, b, dev, forward=True)
+        for upc, ncl, rgroups, kc in ((plan.upc, 3, plan.rgroups, plan.kc),
+                                      (3, plan.ncl, plan.rgroups, plan.kc),
+                                      (plan.upc, plan.ncl, 3, plan.kc),
+                                      (plan.upc, plan.ncl, plan.rgroups, 0)):
+            if source == "lstm1_fwd":
+                calls = (
+                    (lstm_kernel.LSTM1_TRAIN_FWD,
+                     (ih.data_ptr(), w_hh.data_ptr(), big.data_ptr(), series.data_ptr(),
+                      series.data_ptr(), finals.data_ptr(), carry, flags, b, t, h)),
+                    (lstm_kernel.LSTM1_INFER,
+                     (ih.data_ptr(), w_hh.data_ptr(), series.data_ptr(), carry, flags,
+                      b, t, h, 1)))
+            else:
+                calls = (
+                    (lstm_kernel.GRU1_TRAIN_FWD,
+                     (gih.data_ptr(), gw_hh.data_ptr(), gb_hh.data_ptr(), big.data_ptr(),
+                      series.data_ptr(), finals.data_ptr(), carry, flags, b, t, h)),
+                    (lstm_kernel.GRU1_INFER,
+                     (gih.data_ptr(), gw_hh.data_ptr(), gb_hh.data_ptr(),
+                      series.data_ptr(), carry, flags, b, t, h, 1)))
+            for kern, args in calls:
+                before = kern.launches
+                with pytest.raises(RuntimeError, match="launch plan"):
+                    kern(*args, upc, ncl, rgroups, kc, stream)
+                assert kern.launches == before
 
 
 @pytest.mark.parametrize("b,t,d,h", [(3, 40, 6, 64), (32, 372, 64, 512)])
