@@ -58,8 +58,10 @@
 9. The GRU audio encoder config (GRU 2x256, log-mel cached per split;
    ``GRU``): holds the three 2-layer GRU kernels (eval form, training
    forward with residuals, reverse chain) against their plain versions at
-   B=32, T=372, D=64, H=256 and times them beside cuDNN's GRU, and the
-   whole recurrence gradient beside cuDNN's.  Trains it as in 6
+   B=32, T=372, D=64, H=256 (the eval form and the reverse chain, on the
+   2-layer cores, at B=1 too, the reverse chain at B=17, each with its
+   launch plan) and times them beside cuDNN's GRU, and the whole
+   recurrence gradient beside cuDNN's.  Trains it as in 6
    (``[train_gru]``: one training forward and one reverse chain per step,
    gru2_infer once per eval batch, log-mel once per split, no LSTM
    kernel), card step against the CPU step, latency and profile; serves
@@ -83,8 +85,10 @@
    ``[lstm2_bwd_chain_legacy]`` and ``[gru2_train_fwd_legacy]`` /
    ``[gru2_bwd_chain_legacy]`` hold its four kernels (rows 5, 9, 8 and 10
    of PERF.md's table; the chains with and without ``dys``) against their
-   plain versions at B=32, T=372, D=64, H=256, time them beside the
-   residual-native pair's on the same inputs, the plain versions and cuDNN,
+   plain versions at B=32, T=372, D=64, H=256 (the GRU chain is
+   ``csrc/gru2_bwd_chain_legacy.cu``, the first 2-layer design), time them
+   beside the residual-native pair's on the same inputs (the GRU chain's
+   outputs to 1e-5 of the largest), the plain versions and cuDNN,
    the fused GRU chain beside the layered one over the same residuals (1e-5
    of the largest), and hold the whole recurrence gradient of each legacy
    route (the GRU's fused and layered) to the residual-native route's (dx
@@ -115,8 +119,8 @@
    Philox seeds replayed, latency and profile; ``[serve_tf]`` serves its
    ``best.ckpt`` (log-mel once and the flash forward twice per batch),
    logits against the CPU forward, latency and profile.
-13. Prints one JSON line describing every kernel (the one-layer cores'
-   entries name their shared header as ``core``), nvidia-smi's name and
+13. Prints one JSON line describing every kernel (the one-layer and
+   2-layer cores' entries name their shared header as ``core``), nvidia-smi's name and
    power limit of the card, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -1010,16 +1014,20 @@ def phase_lstm1_train_fwd(lstm_kernel, flush):
     return train_kern, eval_kern, (inputs, w_hh)
 
 
-def _chain_plan_text(lstm_kernel, source, width, h, b, forward=False):
+def _chain_plan_text(lstm_kernel, source, width, h, b, forward=False, layers=1):
     """The launch plan of a one-layer reverse chain (csrc/rnn_bwd_chain.cuh)
-    or forward (csrc/rnn_fwd_chain.cuh) on this card."""
-    plan = lstm_kernel.chain_plan_on(source, width, h, b, torch.device("cuda"), forward)
+    or forward (csrc/rnn_fwd_chain.cuh), or of a 2-layer one
+    (csrc/rnn2_bwd_chain.cuh, csrc/rnn2_fwd_chain.cuh), on this card."""
+    plan = lstm_kernel.chain_plan_on(source, width, h, b, torch.device("cuda"), forward,
+                                     layers)
     row = "H" if forward else f"{plan.width}H"
-    return (f"launch plan at B={b} H={h}: UPC {plan.upc}, {plan.grid} CTAs in "
+    sets = (f"{plan.ctas} CTAs ({plan.grid} a layer: the lead set's row {row}, the "
+            f"follow set's [own {row} | feed {row}])" if layers == 2 else f"{plan.grid} CTAs")
+    return (f"launch plan at B={b} H={h}: UPC {plan.upc}, {sets} in "
             f"clusters of {plan.ncl}, {plan.rgroups} row groups "
             f"({plan.rgroups * plan.upc} units a CTA, {plan.outputs} sums a cluster), "
             f"{plan.smem} bytes of shared memory per CTA, chunks of {plan.kc} float4 "
-            f"columns of a {row} row")
+            f"columns")
 
 
 
@@ -1166,6 +1174,8 @@ def phase_gru2_infer(lstm_kernel, flush):
     a1, _ = max_errs(out1, ref1)
     print(f"[gru2_infer] B=1: max abs err {a1:.3e}")
     torch.testing.assert_close(out1, ref1, rtol=0, atol=1e-4)
+    for rows in (b, 1):
+        print(f"[gru2_infer] {_chain_plan_text(lstm_kernel, 'gru2_infer', 3, h, rows, True, 2)}")
 
     lib = _cudnn_gru(l0, l1)
     with torch.no_grad():
@@ -1186,7 +1196,7 @@ def phase_gru2_infer(lstm_kernel, flush):
     nbytes = 4 * (b * t * d + d * 3 * h + 3 * h * 3 * h + 4 * 3 * h + b * h)
     bound_ms, bound_by = bound(flops, nbytes)
     print(f"[gru2_infer] kernel {ms:.4f} ms (input projection + one cooperative "
-          f"launch, {t + 1} grid barriers, {1e3 * ms / (t + 1):.3f} us per phase), "
+          f"cluster launch, {t + 1} phases, {1e3 * ms / (t + 1):.3f} us per phase), "
           f"plain {plain_ms:.4f} ms, cuDNN nn.GRU inference forward {library_ms:.4f} "
           f"ms, bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP, "
           f"{nbytes / 1e6:.2f} MB; serial chain of {2 * t} layer-steps)")
@@ -1194,6 +1204,7 @@ def phase_gru2_infer(lstm_kernel, flush):
           "per barrier phase)")
     return {"name": "gru2_infer", "route": "cuda",
             "source": "multimodal_emotion_detection_tpu_torch/csrc/gru2_infer.cu",
+            "core": CSRC + "rnn2_fwd_chain.cuh",
             "replaces": "multimodal_emotion_detection_tpu/ops/lstm_kernel.py:204",
             "max_abs_err": max(abs_err, a1), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
@@ -1260,9 +1271,24 @@ def phase_gru2_bwd_chain(lstm_kernel, lstm_vjp, flush, inputs):
                               lstm_kernel.gru2_bwd_chain_reference(*args)):
         errs[name] = max_errs(out, ref)[0]
         torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4, msg=name)
+    # one row (the plan's two row groups, one empty) and 17 rows (a second
+    # pass of rows in a group)
+    for rows in (1, 17):
+        sub = (*(a[:, :rows].contiguous() for a in (*refs[:3], keep)),
+               dh[:rows].contiguous(), l0["w_hh"], l1["w_hh"], l1["w_ih"])
+        outs = lstm_kernel.gru2_bwd_chain(*sub)
+        torch.cuda.synchronize()
+        for name, out, ref in zip(("dih0", "dhn0", "dih1", "dhn1"), outs,
+                                  lstm_kernel.gru2_bwd_chain_reference(*sub)):
+            errs[f"{name} B={rows}"] = max_errs(out, ref)[0]
+            torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4,
+                                       msg=f"{name} B={rows}")
     print(f"[gru2_bwd_chain] B={b} T={t} H={h}: max abs err "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
           + " (bound 1e-4 abs + 1e-4 rel)")
+    for rows in (b, 17, 1):
+        print(f"[gru2_bwd_chain] "
+              f"{_chain_plan_text(lstm_kernel, 'gru2_bwd_chain', 3, h, rows, layers=2)}")
 
     lib = _cudnn_gru(l0, l1)
     x_bt = x_tm.transpose(0, 1).contiguous()
@@ -1281,8 +1307,8 @@ def phase_gru2_bwd_chain(lstm_kernel, lstm_vjp, flush, inputs):
     # dih0, dih1 (3H) and dhn0, dhn1 written
     nbytes = 4 * (t * b * (8 * h + 3 * h + 8 * h) + b * h + 3 * h * 3 * h)
     bound_ms, bound_by = bound(flops, nbytes)
-    print(f"[gru2_bwd_chain] kernel {ms:.4f} ms (one cooperative launch, "
-          f"{t + 1} grid barriers, {1e3 * ms / (t + 1):.3f} us per phase), plain "
+    print(f"[gru2_bwd_chain] kernel {ms:.4f} ms (one cooperative cluster launch, "
+          f"{t + 1} phases, {1e3 * ms / (t + 1):.3f} us per phase), plain "
           f"{plain_ms:.4f} ms, cuDNN backward of h_n at keep=1 {library_ms:.4f} ms "
           "(it also forms the weight gradients), bound "
           f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP, "
@@ -1317,6 +1343,7 @@ def phase_gru2_bwd_chain(lstm_kernel, lstm_vjp, flush, inputs):
         raise RuntimeError("the GRU recurrence gradient disagrees with cuDNN's")
     return {"name": "gru2_bwd_chain", "route": "cuda",
             "source": "multimodal_emotion_detection_tpu_torch/csrc/gru2_bwd_chain.cu",
+            "core": CSRC + "rnn2_bwd_chain.cuh",
             "replaces": "multimodal_emotion_detection_tpu/ops/lstm_kernel.py:3053",
             "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
@@ -1373,20 +1400,25 @@ def phase_gru2_legacy(lstm_kernel, lstm_vjp, flush):
     fused = lstm_kernel.gru2_bwd_chain_legacy(res0, res1, None, keep, dh, *w)
     res_args = (packed, h0p, h1p, keep, dh, *w)
     dih0, dhn0, dih1, dhn1 = lstm_kernel.gru2_bwd_chain(*res_args)
-    same_chain = (torch.equal(fused[0][0], dih0) and torch.equal(fused[0][1][..., 2 * h:], dhn0)
-                  and torch.equal(fused[1][0], dih1)
-                  and torch.equal(fused[1][1][..., 2 * h:], dhn1))
+    # the residual-native chain (row 15, the 2-layer core) sums in another
+    # order than the legacy form's first design
+    vs_res = {name: float((a - r).abs().max() / r.abs().max()) for name, a, r in
+              zip(("dih0", "dhn0", "dih1", "dhn1"), (fused[0][0], fused[0][1][..., 2 * h:], fused[1][0],
+                          fused[1][1][..., 2 * h:]), (dih0, dhn0, dih1, dhn1))}
     layered = lstm_vjp.gru_bwd_layered_legacy(res0, res1, None, keep, dh, *w)
     vs_layered = {name: float((a - r).abs().max() / r.abs().max()) for name, a, r in
                   zip(names, (*fused[0], *fused[1]), (*layered[0], *layered[1]))}
     print(f"[gru2_bwd_chain_legacy] B={b} T={t} H={h}: max abs err "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-          + f" (bound 1e-4 abs + 1e-4 rel); the residual-native chain's dih and dhn bit "
-          f"for bit: {same_chain}; against the layered backward over the same "
+          + " (bound 1e-4 abs + 1e-4 rel); against the residual-native chain's dih and "
+          "dhn, max abs diff relative to the largest "
+          + ", ".join(f"{k} {v:.3e}" for k, v in vs_res.items()) + " (bound 1e-5); "
+          "against the layered backward over the same "
           "residuals (2 x gru_bwd_chain + hop), max abs diff relative to the largest "
           + ", ".join(f"{k} {v:.3e}" for k, v in vs_layered.items()) + " (bound 1e-5)")
-    if max(vs_layered.values()) > 1e-5:
-        raise RuntimeError("the fused legacy GRU chain disagrees with the layered one")
+    if max(vs_layered.values()) > 1e-5 or max(vs_res.values()) > 1e-5:
+        raise RuntimeError("the fused legacy GRU chain disagrees with the layered one "
+                           "or the residual-native one")
 
     lib = _cudnn_gru(l0, l1)
     x_bt = x_tm.transpose(0, 1).contiguous()
@@ -1469,7 +1501,7 @@ def phase_gru2_legacy(lstm_kernel, lstm_vjp, flush):
              "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound_ms,
              "bound_by": fwd_bound_by, "library_ms": fwd_lib_ms},
             {"name": "gru2_bwd_chain_legacy", "route": "cuda",
-             "source": src + "gru2_bwd_chain.cu",
+             "source": src + "gru2_bwd_chain_legacy.cu",
              "replaces": "multimodal_emotion_detection_tpu/ops/lstm_kernel.py:1886",
              "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
@@ -2198,6 +2230,7 @@ def main() -> None:
                             "lstm2_bwd_chain", "lstm2_bwd_chain_remat",
                             "lstm1_fwd", "lstm_bwd_chain",
                             "gru2_infer", "gru2_train_fwd", "gru2_bwd_chain",
+                            "gru2_bwd_chain_legacy",
                             "gru1_fwd", "gru_bwd_chain", "flash_fwd", "flash_bwd",
                             "flash_bwd_dq"])
     print(f"[build] {time.perf_counter() - t0:.1f} s for {sorted(reports) or 'nothing (cached)'}")

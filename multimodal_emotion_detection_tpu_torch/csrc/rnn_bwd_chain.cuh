@@ -66,7 +66,9 @@
 // Exactly T steps run; any B >= 1; H % 4 == 0 with H / UPC <= the SM
 // count.  Built with -DRNN_CHAIN_TIMERS=1 each warp splits its step into
 // the buckets of rnn_timers.cuh.  The primitives this core shares with
-// the forward core (rnn_fwd_chain.cuh) are in rnn_chain_common.cuh.
+// the forward core (rnn_fwd_chain.cuh) are in rnn_chain_common.cuh; its
+// products (piece_products) are the 2-layer core's (rnn2_bwd_chain.cuh)
+// too.
 
 #pragma once
 
@@ -195,19 +197,21 @@ struct GruCell {
   }
 };
 
-// One chunk of the share into shared memory by cp.async, one commit group:
-// float4 columns [c0, c0 + kn) of rows [bt0, bt0 + nb) of step t's row
-// block.
-template <class Cell>
-__device__ __forceinline__ void issue_chunk(const Args& a, int t, int bt0, int nb,
-                                            int c0, int kn, float* dst, int ldx,
-                                            int tid) {
-  copy_rows([&](int r, int c) { return Cell::src(a, t, bt0 + r, c0 + c); }, nb, kn,
-            dst, ldx, tid);
-}
-
-template <class Cell, int NU>
-__global__ void __launch_bounds__(NT, 1) chain_kernel(const Args a) {
+// The CTA's partial sums of its cluster's NU units over one piece of a
+// row, len float4 columns: column c of row r < nb of the pass at src(r, c),
+// staged by cp.async in chunks of kc columns through `slots` slots of xs
+// (PH x ldx floats each), times the units' weights over the piece (NU rows
+// of ldw floats from wb).  A thread keeps 8 rows x UB units of accumulators
+// over every KS-th float4 column, the 32 lanes of a warp on consecutive
+// columns; the lanes' sums meet by the shuffle reduce-scatter, the warps'
+// through part (KW x PH x NU), into dst (PH x NU).  Every thread of the
+// CTA calls it; it ends with dst written and xs and part still in use by
+// other warps.
+template <int NU, class Src>
+__device__ __forceinline__ void piece_products(const Src& src, int nb, int len, int kc,
+                                               int slots, const float* wb, int ldw,
+                                               float* xs, int ldx, float* part, float* dst,
+                                               rnn_timer::Timer& tm) {
   constexpr int UB = unit_block(NU);  // units per thread
   constexpr int UG = NU / UB;         // unit groups: one per warp ...
   constexpr int KW = 8 / UG;          // ... times KW warps of columns
@@ -215,6 +219,80 @@ __global__ void __launch_bounds__(NT, 1) chain_kernel(const Args a) {
   constexpr int NV = PH * UB;         // a thread's accumulators
   constexpr int VPL = NV >= 32 ? NV / 32 : 1;
   static_assert(UG * KW == 8 && NT == 256, "thread tiling");
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  // units ug UB + k, all PH rows, float4 columns ks + KS s
+  const int ug = warp % UG, ks = lane + 32 * (warp / UG);
+  const int chunks = (len + kc - 1) / kc;
+  const auto stage = [&](int ch) {
+    const int c0 = ch * kc;
+    copy_rows([&](int r, int c) { return src(r, c0 + c); }, nb, min(kc, len - c0),
+              xs + (ch % slots) * PH * ldx, ldx, tid);
+  };
+  // the piece's first chunks at once
+  for (int ch = 0; ch < slots && ch < chunks; ++ch) stage(ch);
+  float acc[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) acc[i] = 0.0f;
+  for (int ch = 0; ch < chunks; ++ch) {
+    cp_async_wait(min(chunks, ch + slots) - ch - 1);
+    tm.mark(rnn_timer::kExchange);
+    __syncthreads();
+    tm.mark(rnn_timer::kSync);
+    const int kn = min(kc, len - ch * kc);
+    const float* xb = xs + (ch % slots) * PH * ldx;
+    const float* w0 = wb + ug * UB * ldw + 4 * ch * kc;
+    for (int c = ks; c < kn; c += KS) {
+      float4 w[UB];
+#pragma unroll
+      for (int k = 0; k < UB; ++k) {
+        w[k] = *reinterpret_cast<const float4*>(w0 + k * ldw + 4 * c);
+      }
+#pragma unroll
+      for (int i = 0; i < PH; ++i) {
+        const float4 x = *reinterpret_cast<const float4*>(xb + i * ldx + 4 * c);
+#pragma unroll
+        for (int k = 0; k < UB; ++k) {
+          float s = acc[i * UB + k];
+          s = fmaf(x.x, w[k].x, s);
+          s = fmaf(x.y, w[k].y, s);
+          s = fmaf(x.z, w[k].z, s);
+          acc[i * UB + k] = fmaf(x.w, w[k].w, s);
+        }
+      }
+    }
+    tm.mark(rnn_timer::kProducts);
+    if (ch + slots < chunks) {
+      __syncthreads();  // every warp is done with this slot
+      tm.mark(rnn_timer::kSync);
+      stage(ch + slots);
+    }
+  }
+  // the lanes' sums meet by shuffles, the warps' in shared memory
+  warp_reduce_scatter<NV>(acc, lane);
+  float* pw = part + (warp / UG) * PH * NU;
+  if (NV >= 32) {
+#pragma unroll
+    for (int v = 0; v < VPL; ++v) {
+      const int idx = lane * VPL + v;  // row idx / UB, unit idx % UB
+      pw[(idx / UB) * NU + ug * UB + idx % UB] = acc[v];
+    }
+  } else if ((lane & (32 / NV - 1)) == 0) {
+    const int idx = lane / (32 / NV);
+    pw[(idx / UB) * NU + ug * UB + idx % UB] = acc[0];
+  }
+  __syncthreads();
+  for (int o = tid; o < PH * NU; o += NT) {
+    float s = 0.0f;
+#pragma unroll
+    for (int k = 0; k < KW; ++k) s += part[k * PH * NU + o];
+    dst[o] = s;
+  }
+  tm.mark(rnn_timer::kReduce);
+}
+
+template <class Cell, int NU>
+__global__ void __launch_bounds__(NT, 1) chain_kernel(const Args a) {
+  constexpr int KW = 8 / (NU / unit_block(NU));  // warps of columns
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
 
@@ -231,7 +309,6 @@ __global__ void __launch_bounds__(NT, 1) chain_kernel(const Args a) {
   const int cs4max = (n4 + ncl - 1) / ncl;
   const int chunks_max = (cs4max + kc - 1) / kc;
   const int slots = chunks_max <= 8 ? chunks_max : 2;
-  const int chunks = (cs4 + kc - 1) / kc;
   const int ldw = round32(4 * cs4max) + 4;
   const int ldx = round32(4 * kc) + 4;
   float* wl = smem;                      // NU x ldw
@@ -257,8 +334,6 @@ __global__ void __launch_bounds__(NT, 1) chain_kernel(const Args a) {
     *reinterpret_cast<float4*>(wl + u * ldw + 4 * c) = v;
   }
 
-  // products: units ug UB + k, all PH rows, float4 columns ks + KS s
-  const int ug = warp % UG, ks = lane + 32 * (warp / UG);
   // the cell: unit cu of the CTA, row cr of the pass (neighbouring
   // threads store neighbouring units)
   const bool has_cell = tid < upc * PH;
@@ -288,73 +363,12 @@ __global__ void __launch_bounds__(NT, 1) chain_kernel(const Args a) {
       if (p > 0 && cell) Cell::load(a, t, bt0 + cr, j, first, res);
       float rec = 0.0f;
       if (!first) {
-        // issue the share's first chunks
-        for (int ch = 0; ch < slots && ch < chunks; ++ch) {
-          issue_chunk<Cell>(a, t + 1, bt0, nb, c_lo + ch * kc, min(kc, cs4 - ch * kc),
-                            xs + ch * PH * ldx, ldx, tid);
-        }
-        float acc[NV];
-#pragma unroll
-        for (int i = 0; i < NV; ++i) acc[i] = 0.0f;
-        for (int ch = 0; ch < chunks; ++ch) {
-          cp_async_wait(min(chunks, ch + slots) - ch - 1);
-          tm.mark(rnn_timer::kExchange);
-          __syncthreads();
-          tm.mark(rnn_timer::kSync);
-          const int kn = min(kc, cs4 - ch * kc);
-          const float* xb = xs + (ch % slots) * PH * ldx;
-          const float* wb = wl + ug * UB * ldw + 4 * ch * kc;
-          for (int c = ks; c < kn; c += KS) {
-            float4 w[UB];
-#pragma unroll
-            for (int k = 0; k < UB; ++k) {
-              w[k] = *reinterpret_cast<const float4*>(wb + k * ldw + 4 * c);
-            }
-#pragma unroll
-            for (int i = 0; i < PH; ++i) {
-              const float4 x = *reinterpret_cast<const float4*>(xb + i * ldx + 4 * c);
-#pragma unroll
-              for (int k = 0; k < UB; ++k) {
-                float s = acc[i * UB + k];
-                s = fmaf(x.x, w[k].x, s);
-                s = fmaf(x.y, w[k].y, s);
-                s = fmaf(x.z, w[k].z, s);
-                acc[i * UB + k] = fmaf(x.w, w[k].w, s);
-              }
-            }
-          }
-          tm.mark(rnn_timer::kProducts);
-          if (ch + slots < chunks) {
-            __syncthreads();  // every warp is done with this slot
-            tm.mark(rnn_timer::kSync);
-            const int nx = ch + slots;
-            issue_chunk<Cell>(a, t + 1, bt0, nb, c_lo + nx * kc, min(kc, cs4 - nx * kc),
-                              xs + (nx % slots) * PH * ldx, ldx, tid);
-          }
-        }
-        // the lanes' sums meet by shuffles, the warps' in shared memory,
-        // the cluster's CTAs' through distributed shared memory
-        warp_reduce_scatter<NV>(acc, lane);
-        float* pw = part + (warp / UG) * PH * NU;
-        if (NV >= 32) {
-#pragma unroll
-          for (int v = 0; v < VPL; ++v) {
-            const int idx = lane * VPL + v;  // row idx / UB, unit idx % UB
-            pw[(idx / UB) * NU + ug * UB + idx % UB] = acc[v];
-          }
-        } else if ((lane & (32 / NV - 1)) == 0) {
-          const int idx = lane / (32 / NV);
-          pw[(idx / UB) * NU + ug * UB + idx % UB] = acc[0];
-        }
-        __syncthreads();
+        // this CTA's partials over its share of step t + 1's row block; the
+        // cluster's CTAs' meet through distributed shared memory
         float* mine = xpart + xpar * PH * NU;
-        for (int o = tid; o < PH * NU; o += NT) {
-          float s = 0.0f;
-#pragma unroll
-          for (int k = 0; k < KW; ++k) s += part[k * PH * NU + o];
-          mine[o] = s;
-        }
-        tm.mark(rnn_timer::kReduce);
+        piece_products<NU>(
+            [&](int r, int c) { return Cell::src(a, t + 1, bt0 + r, c_lo + c); }, nb, cs4,
+            kc, slots, wl, ldw, xs, ldx, part, mine, tm);
         cluster_sync_();  // also a CTA barrier: xs and part are free again
         if (cell) {
           const int o = cr * NU + rank * upc + cu;

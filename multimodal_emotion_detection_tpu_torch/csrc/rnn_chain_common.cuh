@@ -1,8 +1,10 @@
-// What the one-layer recurrent cores for Hopper (sm_90a) share:
+// What the recurrent cores for Hopper (sm_90a) share: the one-layer
 // rnn_bwd_chain.cuh (the reverse chains, rows 4 and 7) and
-// rnn_fwd_chain.cuh (the forwards, rows 6 and 7f with their eval forms).
+// rnn_fwd_chain.cuh (the forwards, rows 6 and 7f with their eval forms),
+// and the 2-layer rnn2_bwd_chain.cuh (row 15) and rnn2_fwd_chain.cuh (row
+// 3), which run two such sets of CTAs, one per layer, in one launch.
 //
-// Both run one persistent cooperative launch of H / UPC CTAs, one per SM,
+// All run one persistent cooperative launch of H / UPC CTAs a set, one per SM,
 // cut into row groups and clusters that split the exchanged row's columns
 // (the launch plan of ops/lstm_kernel.py::chain_plan, re-checked by each
 // core's launcher), and both walk T steps of
@@ -83,6 +85,22 @@ __device__ __forceinline__ void wait_flags(const unsigned* flags, int n,
   const long long start = clock64();
   for (int i = lane; i < n; i += 32) {
     while (ld_acquire(flags + i) < done) {
+      if (clock64() - start > 40000000000ll) __trap();
+    }
+  }
+}
+
+// The same over two blocks of n flags at once (a 2-layer core's own set
+// and the other set): those at a have counted at least da steps, those at
+// b at least db; the lanes poll both blocks' flags together.
+__device__ __forceinline__ void wait_flags2(const unsigned* a, unsigned da,
+                                            const unsigned* b, unsigned db, int n,
+                                            int lane) {
+  const long long start = clock64();
+  for (int i = lane; i < 2 * n; i += 32) {
+    const unsigned* f = i < n ? a + i : b + (i - n);
+    const unsigned done = i < n ? da : db;
+    while (ld_acquire(f) < done) {
       if (clock64() - start > 40000000000ll) __trap();
     }
   }
@@ -226,6 +244,60 @@ inline bool plan_shape_ok(int hidden, int upc, int ncl, int rgroups, int kc) {
                     (rgroups == 1 || rgroups == 2 || rgroups == 4);
   return pow2 && kc >= 1 && hidden % upc == 0 && hidden / upc <= sms &&
          (hidden / upc) % (ncl * rgroups) == 0;
+}
+
+// A 2-layer core's flags: the lead set's kPairSetFlags words, then the
+// follow set's (each <= 4 row groups of kFlagsPerGroup).
+constexpr int kPairSetFlags = 4 * kFlagsPerGroup;
+
+// Layer l's pointer of a pair, by a select (a kernel parameter array
+// indexed at run time would be copied to local memory).
+template <class P>
+__device__ __forceinline__ P of_layer(P const (&v)[2], int layer) {
+  return layer != 0 ? v[1] : v[0];
+}
+
+// The float4 columns [*p0, *p1) of segment seg (0: the layer's own row, 1:
+// the feed) in the share [lo, hi) of a 2-layer core's row, whose own part
+// is own4 columns wide; the lead set's row has no feed.
+__device__ __forceinline__ void pair_piece(int seg, bool follow, int lo, int hi,
+                                           int own4, int* p0, int* p1) {
+  if (!follow) {
+    *p0 = seg == 0 ? lo : 0;
+    *p1 = seg == 0 ? hi : 0;
+  } else {
+    *p0 = seg == 0 ? lo : max(lo, own4);
+    *p1 = seg == 0 ? min(hi, own4) : hi;
+  }
+}
+
+// Bit r of has_seg[seg]: rank r of a cluster of ncl holds a piece of
+// segment seg of the set's row, n4 float4 columns split as share(r).
+__device__ __forceinline__ void pair_ranks(bool follow, int n4, int ncl, int own4,
+                                           unsigned (&has_seg)[2]) {
+  has_seg[0] = has_seg[1] = 0u;
+  for (int r = 0; r < ncl; ++r) {
+#pragma unroll
+    for (int seg = 0; seg < 2; ++seg) {
+      int p0, p1;
+      pair_piece(seg, follow, r * n4 / ncl, (r + 1) * n4 / ncl, own4, &p0, &p1);
+      if (p0 < p1) has_seg[seg] |= 1u << r;
+    }
+  }
+}
+
+// The same for a 2-layer plan (rnn2_bwd_chain.cuh, rnn2_fwd_chain.cuh):
+// two sets of H / upc CTAs, both within the card, each set's row groups
+// within their flag blocks.
+inline bool pair_plan_ok(int hidden, int upc, int ncl, int rgroups, int kc) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+    return false;
+  }
+  return upc >= 1 && hidden % upc == 0 && 2 * (hidden / upc) <= sms &&
+         hidden / upc / rgroups <= kFlagsPerGroup &&
+         plan_shape_ok(hidden, upc, ncl, rgroups, kc);
 }
 
 inline const char* error_string(int err, const char* unsupported) {

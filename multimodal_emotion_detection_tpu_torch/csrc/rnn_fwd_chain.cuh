@@ -62,7 +62,8 @@
 //
 // Exactly T steps run; any B >= 1; H % 4 == 0 with H / UPC <= the SM
 // count.  Built with -DRNN_CHAIN_TIMERS=1 each warp splits its step into
-// the buckets of rnn_timers.cuh.
+// the buckets of rnn_timers.cuh.  Its products (piece_products) are the
+// 2-layer forward core's (rnn2_fwd_chain.cuh) too.
 
 #pragma once
 
@@ -212,9 +213,22 @@ struct GruCell {
   }
 };
 
-template <class Cell, int NU, bool TRAIN>
-__global__ void __launch_bounds__(NT, 1) fwd_kernel(const Args a) {
-  constexpr int W = Cell::kWidth;
+// The CTA's partial sums of its cluster's W NU gate columns over one
+// piece of a row of h, len float4 columns: column c of row r < nb of the
+// pass at src(r, c), staged by cp.async in chunks of kc columns through
+// `slots` slots of xs (PH x ldx floats each), times the gate columns'
+// weights over the piece (W NU rows of ldw floats from wb).  A thread keeps
+// 8 rows x OB gate columns (UB units' W each) of accumulators over every
+// TPG-th float4 column, lanes on consecutive columns; the lanes of a
+// column group meet by the shuffle reduce-scatter, a group's warps (where
+// it spans several) through part (KW x PH x W NU), into dst (PH x W NU).
+// Every thread of the CTA calls it; it ends with dst written and xs and
+// part still in use by other warps.
+template <int W, int NU, class Src>
+__device__ __forceinline__ void piece_products(const Src& src, int nb, int len, int kc,
+                                               int slots, const float* wb, int ldw,
+                                               float* xs, int ldx, float* part, float* dst,
+                                               rnn_timer::Timer& tm) {
   constexpr int NO = W * NU;              // the cluster's gate columns
   constexpr int UB = unit_block(NU);      // units per thread ...
   constexpr int OB = W * UB;              // ... and their gate columns
@@ -227,6 +241,83 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(const Args a) {
   constexpr int NF = NV >> S;             // values a lane holds after the reduce
   constexpr int LS = L >> S;              // lanes that hold the same ones
   static_assert(OG * TPG == NT && L * KW == TPG, "thread tiling");
+  const int tid = threadIdx.x;
+  // gate columns og OB + [0, OB) of the cluster (units og UB + [0, UB), W
+  // each), all PH rows, float4 columns ks + TPG s
+  const int og = tid / TPG, ks = tid % TPG;
+  const int kw = ks / L, li = ks % L;
+  const int chunks = (len + kc - 1) / kc;
+  const auto stage = [&](int ch) {
+    const int c0 = ch * kc;
+    copy_rows([&](int r, int c) { return src(r, c0 + c); }, nb, min(kc, len - c0),
+              xs + (ch % slots) * PH * ldx, ldx, tid);
+  };
+  // the piece's first chunks at once
+  for (int ch = 0; ch < slots && ch < chunks; ++ch) stage(ch);
+  float acc[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) acc[i] = 0.0f;
+  for (int ch = 0; ch < chunks; ++ch) {
+    cp_async_wait(min(chunks, ch + slots) - ch - 1);
+    tm.mark(rnn_timer::kExchange);
+    __syncthreads();
+    tm.mark(rnn_timer::kSync);
+    const int kn = min(kc, len - ch * kc);
+    const float* xb = xs + (ch % slots) * PH * ldx;
+    const float* w0 = wb + og * OB * ldw + 4 * ch * kc;
+    for (int c = ks; c < kn; c += TPG) {
+      float4 w[OB];
+#pragma unroll
+      for (int k = 0; k < OB; ++k) {
+        w[k] = *reinterpret_cast<const float4*>(w0 + k * ldw + 4 * c);
+      }
+#pragma unroll
+      for (int i = 0; i < PH; ++i) {
+        const float4 x = *reinterpret_cast<const float4*>(xb + i * ldx + 4 * c);
+#pragma unroll
+        for (int k = 0; k < OB; ++k) {
+          float s = acc[i * OB + k];
+          s = fmaf(x.x, w[k].x, s);
+          s = fmaf(x.y, w[k].y, s);
+          s = fmaf(x.z, w[k].z, s);
+          acc[i * OB + k] = fmaf(x.w, w[k].w, s);
+        }
+      }
+    }
+    tm.mark(rnn_timer::kProducts);
+    if (ch + slots < chunks) {
+      __syncthreads();  // every warp is done with this slot
+      tm.mark(rnn_timer::kSync);
+      stage(ch + slots);
+    }
+  }
+  // the lanes' sums meet by shuffles, a group's warps' in shared memory
+  warp_reduce_scatter<NV, L>(acc, li);
+  float* pw = KW > 1 ? part + kw * PH * NO : dst;
+  if (li % LS == 0) {
+#pragma unroll
+    for (int v = 0; v < NF; ++v) {
+      const int idx = NF * (li / LS) + v;  // row idx / OB, column idx % OB
+      pw[(idx / OB) * NO + og * OB + idx % OB] = acc[v];
+    }
+  }
+  if constexpr (KW > 1) {
+    __syncthreads();
+    for (int o = tid; o < PH * NO; o += NT) {
+      float s = 0.0f;
+#pragma unroll
+      for (int k = 0; k < KW; ++k) s += part[k * PH * NO + o];
+      dst[o] = s;
+    }
+  }
+  tm.mark(rnn_timer::kReduce);
+}
+
+template <class Cell, int NU, bool TRAIN>
+__global__ void __launch_bounds__(NT, 1) fwd_kernel(const Args a) {
+  constexpr int W = Cell::kWidth;
+  constexpr int NO = W * NU;              // the cluster's gate columns
+  constexpr int KW = group_warps(NU);     // warps whose sums meet in shared memory
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
 
@@ -243,7 +334,6 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(const Args a) {
   const int cs4max = (n4 + ncl - 1) / ncl;
   const int chunks_max = (cs4max + kc - 1) / kc;
   const int slots = chunks_max <= 8 ? chunks_max : 2;
-  const int chunks = (cs4 + kc - 1) / kc;
   const int ldw = round32(4 * cs4max) + 4;
   const int ldx = round32(4 * kc) + 4;
   float* wl = smem;                      // NO x ldw
@@ -270,10 +360,6 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(const Args a) {
         __ldg(a.w_hh + (size_t)(4 * c_lo + k) * W * H + q * H + u0 + u);
   }
 
-  // products: gate columns og OB + [0, OB) of the cluster (units og UB +
-  // [0, UB), W each), all PH rows, float4 columns ks + TPG s
-  const int og = tid / TPG, ks = tid % TPG;
-  const int kw = ks / L, li = ks % L;
   // the cell: unit cu of the CTA, row cr of the pass (neighbouring
   // threads store neighbouring units)
   const bool has_cell = tid < upc * PH;
@@ -311,72 +397,12 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(const Args a) {
 #pragma unroll
       for (int i = 0; i < W; ++i) rec[i] = 0.0f;
       if (t > 0) {
-        // the share of the previous h, its first chunks at once
-        const auto stage = [&](int ch) {
-          const int c0 = c_lo + ch * kc;
-          copy_rows([&](int r, int c) { return h_src<TRAIN>(a, t, bt0 + r, c0 + c); },
-                    nb, min(kc, cs4 - ch * kc), xs + (ch % slots) * PH * ldx, ldx, tid);
-        };
-        for (int ch = 0; ch < slots && ch < chunks; ++ch) stage(ch);
-        float acc[NV];
-#pragma unroll
-        for (int i = 0; i < NV; ++i) acc[i] = 0.0f;
-        for (int ch = 0; ch < chunks; ++ch) {
-          cp_async_wait(min(chunks, ch + slots) - ch - 1);
-          tm.mark(rnn_timer::kExchange);
-          __syncthreads();
-          tm.mark(rnn_timer::kSync);
-          const int kn = min(kc, cs4 - ch * kc);
-          const float* xb = xs + (ch % slots) * PH * ldx;
-          const float* wb = wl + og * OB * ldw + 4 * ch * kc;
-          for (int c = ks; c < kn; c += TPG) {
-            float4 w[OB];
-#pragma unroll
-            for (int k = 0; k < OB; ++k) {
-              w[k] = *reinterpret_cast<const float4*>(wb + k * ldw + 4 * c);
-            }
-#pragma unroll
-            for (int i = 0; i < PH; ++i) {
-              const float4 x = *reinterpret_cast<const float4*>(xb + i * ldx + 4 * c);
-#pragma unroll
-              for (int k = 0; k < OB; ++k) {
-                float s = acc[i * OB + k];
-                s = fmaf(x.x, w[k].x, s);
-                s = fmaf(x.y, w[k].y, s);
-                s = fmaf(x.z, w[k].z, s);
-                acc[i * OB + k] = fmaf(x.w, w[k].w, s);
-              }
-            }
-          }
-          tm.mark(rnn_timer::kProducts);
-          if (ch + slots < chunks) {
-            __syncthreads();  // every warp is done with this slot
-            tm.mark(rnn_timer::kSync);
-            stage(ch + slots);
-          }
-        }
-        // the lanes' sums meet by shuffles, a group's warps' in shared
-        // memory, the cluster's CTAs' through distributed shared memory
-        warp_reduce_scatter<NV, L>(acc, li);
+        // this CTA's partials over its share of the previous h; the
+        // cluster's CTAs' meet through distributed shared memory
         float* mine = xpart + xpar * PH * NO;
-        float* pw = KW > 1 ? part + kw * PH * NO : mine;
-        if (li % LS == 0) {
-#pragma unroll
-          for (int v = 0; v < NF; ++v) {
-            const int idx = NF * (li / LS) + v;  // row idx / OB, column idx % OB
-            pw[(idx / OB) * NO + og * OB + idx % OB] = acc[v];
-          }
-        }
-        if constexpr (KW > 1) {
-          __syncthreads();
-          for (int o = tid; o < PH * NO; o += NT) {
-            float s = 0.0f;
-#pragma unroll
-            for (int k = 0; k < KW; ++k) s += part[k * PH * NO + o];
-            mine[o] = s;
-          }
-        }
-        tm.mark(rnn_timer::kReduce);
+        piece_products<W, NU>(
+            [&](int r, int c) { return h_src<TRAIN>(a, t, bt0 + r, c_lo + c); }, nb, cs4,
+            kc, slots, wl, ldw, xs, ldx, part, mine, tm);
         cluster_sync_();  // also a CTA barrier: xs and part are free again
         if (cell) {
           for (int r = 0; r < ncl; ++r) {

@@ -1,11 +1,13 @@
-// In-kernel phase timers of the one-layer recurrent cores
-// (rnn_bwd_chain.cuh and rnn_fwd_chain.cuh).
+// In-kernel phase timers of the recurrent cores (rnn_bwd_chain.cuh,
+// rnn_fwd_chain.cuh and the 2-layer rnn2_bwd_chain.cuh, rnn2_fwd_chain.cuh).
 //
 // Built with -DRNN_CHAIN_TIMERS=1, each warp adds the clock64() time of
 // every phase of its step loop into seven buckets, and lane 0 of each warp
 // adds its sums into rnn_timer::totals[] when the kernel ends, with a count
-// of the warps after them; the C entry <source>_timers(host, reset) copies
-// them out (and zeroes them).  The
+// of the warps after them, in the block of its CTA set (the one-layer
+// cores' only set, or a 2-layer core's lead set 0 and follow set 1); the C
+// entry <source>_timers(host, reset) copies both blocks out (and zeroes
+// them).  The
 // default build (RNN_CHAIN_TIMERS 0) compiles every call below away, so
 // the timed build is the real kernel with clock reads added.  Used by
 // scripts/chain_ab.py --timers.
@@ -31,8 +33,10 @@ enum Bucket {
   kBarrier = 0, kExchange, kProducts, kReduce, kCell, kCluster, kSync, kCount
 };
 
+constexpr int kSets = 2;  // a 2-layer core's lead and follow sets
+
 #if RNN_CHAIN_TIMERS
-__device__ unsigned long long totals[kCount + 1];  // + the warps
+__device__ unsigned long long totals[kSets * (kCount + 1)];  // per set: + the warps
 
 struct Timer {
   long long prev;
@@ -58,13 +62,14 @@ struct Timer {
   __device__ __forceinline__ void wait(float x) {
     asm volatile("add.f32 %0, %0, %1;" : "+f"(sink) : "f"(x) : "memory");
   }
-  __device__ __forceinline__ void flush() {
+  __device__ __forceinline__ void flush(int set = 0) {
+    unsigned long long* out = totals + set * (kCount + 1);
     if ((threadIdx.x & 31) == 0) {
 #pragma unroll
       for (int i = 0; i < kCount; ++i) {
-        atomicAdd(&totals[i], (unsigned long long)acc[i]);
+        atomicAdd(&out[i], (unsigned long long)acc[i]);
       }
-      atomicAdd(&totals[kCount], 1ull);
+      atomicAdd(&out[kCount], 1ull);
     }
     if (sink == 1.5e-38f) atomicAdd(&totals[0], 0ull);  // never true
   }
@@ -73,14 +78,14 @@ struct Timer {
 struct Timer {
   __device__ __forceinline__ void mark(int) {}
   __device__ __forceinline__ void wait(float) {}
-  __device__ __forceinline__ void flush() {}
+  __device__ __forceinline__ void flush(int = 0) {}
 };
 #endif
 
 }  // namespace rnn_timer
 
-// <name>_timers(host, reset): copy the seven buckets and the warp count
-// into host (unsigned long long[8]) and, if reset, zero them.  Only timed
+// <name>_timers(host, reset): copy each set's seven buckets and warp count
+// into host (unsigned long long[16]) and, if reset, zero them.  Only timed
 // builds have it.
 #if RNN_CHAIN_TIMERS
 #define RNN_TIMERS_EXPORT(name)                                               \
@@ -88,9 +93,9 @@ struct Timer {
     cudaError_t err = cudaDeviceSynchronize();                                \
     if (err != cudaSuccess) return err;                                       \
     err = cudaMemcpyFromSymbol(host, rnn_timer::totals,                       \
-                               sizeof(unsigned long long) * (rnn_timer::kCount + 1)); \
+                               sizeof(rnn_timer::totals));                    \
     if (err != cudaSuccess || !reset) return err;                             \
-    const unsigned long long zero[rnn_timer::kCount + 1] = {};                \
+    const unsigned long long zero[rnn_timer::kSets * (rnn_timer::kCount + 1)] = {}; \
     return cudaMemcpyToSymbol(rnn_timer::totals, zero, sizeof(zero));         \
   }
 #else

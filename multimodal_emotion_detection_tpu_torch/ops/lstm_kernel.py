@@ -54,18 +54,23 @@ Two GRU layers in one launch (H up to twice the SM count), the twins of
 the 2-layer LSTM kernels:
 
 * ``gru2_infer``: final hidden state (B, H) from zero state
-  (``csrc/gru2_infer.cu``);
+  (``csrc/gru2_infer.cu`` on the 2-layer forward core
+  ``csrc/rnn2_fwd_chain.cuh``, split by ``chain_plan(forward=True,
+  layers=2)``);
 * ``gru2_train_fwd_residuals``: the training forward with its residuals
   (``csrc/gru2_train_fwd.cu``);
 * ``gru2_bwd_chain``: the reverse chain of both layers, emitting ``dih``
-  and only the ``dhn`` lane of ``dhh`` (``csrc/gru2_bwd_chain.cu``).
+  and only the ``dhn`` lane of ``dhh`` (``csrc/gru2_bwd_chain.cu`` on the
+  2-layer reverse core ``csrc/rnn2_bwd_chain.cuh``, split by
+  ``chain_plan(layers=2)``).
 
-The GRU legacy-layout twins (``set_res2_mode("off")``; the same sources,
-their legacy forms): ``gru2_train_fwd_legacy`` (``res`` (T, B, 10H) =
-``[r0 | z0 | n0 | hn0 | h0 | r1 | z1 | n1 | hn1 | h1]``, h after each
-step, and ``h_final``) and ``gru2_bwd_chain_legacy`` (over the per-layer
-``[h_prev | r | z | n | hn]`` rows, with an optional ``dys``, into (T, B,
-12H) = ``[dih0 | dhh0 | dih1 | dhh1]`` with the full ``dhh``).  Whether
+The GRU legacy-layout twins (``set_res2_mode("off")``):
+``gru2_train_fwd_legacy`` (``csrc/gru2_train_fwd.cu``'s legacy form:
+``res`` (T, B, 10H) = ``[r0 | z0 | n0 | hn0 | h0 | r1 | z1 | n1 | hn1 |
+h1]``, h after each step, and ``h_final``) and ``gru2_bwd_chain_legacy``
+(``csrc/gru2_bwd_chain_legacy.cu``: over the per-layer ``[h_prev | r | z
+| n | hn]`` rows, with an optional ``dys``, into (T, B, 12H) = ``[dih0 |
+dhh0 | dih1 | dhh1]`` with the full ``dhh``).  Whether
 the legacy GRU backward takes it or two layered chains is
 ``lstm_vjp.GRU_BWD2_ENABLED``'s choice, as in the JAX package.
 
@@ -696,24 +701,25 @@ LSTM_BWD_CHAIN = CudaKernel(
 )
 
 
-# The one-layer recurrent cores' launch plan (csrc/rnn_bwd_chain.cuh for the
-# reverse chains, csrc/rnn_fwd_chain.cuh for the forwards, which re-check
-# it against the card); the constants are the cores'.
+# The recurrent cores' launch plan (csrc/rnn_bwd_chain.cuh for the one-layer
+# reverse chains, csrc/rnn_fwd_chain.cuh for the one-layer forwards,
+# csrc/rnn2_bwd_chain.cuh and csrc/rnn2_fwd_chain.cuh for the 2-layer ones,
+# which re-check it against the card); the constants are the cores'.
 CHAIN_NT = 256   # threads per CTA
 CHAIN_PH = 8     # batch rows per pass
 CHAIN_NU_MAX = 64  # units per cluster the kernels are built for
-CHAIN_FLAGS = 4 * 256  # barrier flags: 256 words for each of <= 4 row groups
+CHAIN_FLAGS = 4 * 256  # barrier flags of a CTA set: 256 words for each of <= 4 row groups
 
 
 @dataclass(frozen=True)
 class ChainPlan:
     """How one layer's reverse chain (``forward`` false) or forward is
-    split on the card.
+    split on the card, or with ``layers`` 2 both layers' in one launch.
 
-    ``grid = hidden / upc`` CTAs, one per SM, in clusters of ``ncl``.
-    Cluster ``k = c // ncl`` serves row group ``k % rgroups`` (``rows``: a
-    contiguous ``ceil(B / rgroups)`` of the batch, in passes of
-    ``CHAIN_PH``) and unit block ``k // rgroups`` (``cluster_units``,
+    ``grid = hidden / upc`` CTAs a layer, one per SM, in clusters of
+    ``ncl``.  Cluster ``k = c // ncl`` serves row group ``k % rgroups``
+    (``rows``: a contiguous ``ceil(B / rgroups)`` of the batch, in passes
+    of ``CHAIN_PH``) and unit block ``k // rgroups`` (``cluster_units``,
     ``ncl * rgroups * upc`` units).  CTA ``c`` runs the cell of ``units(c)``
     and forms the partial products of the cluster's ``outputs`` over
     ``share(c % ncl)``, its float4 columns of the exchanged row, loaded in
@@ -721,7 +727,14 @@ class ChainPlan:
     CTA.  The product geometry: the reverse chain exchanges a ``width *
     hidden`` row and forms one sum a unit (dh); the forward exchanges the
     ``hidden`` row of h and forms ``width`` sums a unit (its gate
-    columns)."""
+    columns).
+
+    A 2-layer plan launches ``ctas = 2 grid``: CTA ``c < grid`` is the
+    lead set's (the layer that needs no other: layer 1 of the reverse
+    chain, layer 0 of the forward), ``c >= grid`` the follow set's, whose
+    CTA ``c - grid`` has the lead's geometry over a row twice as wide: its
+    own row, then the feed (the other layer's), ``share(rank, follow=True)``;
+    a share's columns of each half form that half's sums."""
 
     hidden: int
     width: int
@@ -731,10 +744,16 @@ class ChainPlan:
     kc: int
     smem: int
     forward: bool = False
+    layers: int = 1
 
     @property
     def grid(self) -> int:
         return self.hidden // self.upc
+
+    @property
+    def ctas(self) -> int:
+        """CTAs of the launch: a set of ``grid`` a layer."""
+        return self.layers * self.grid
 
     @property
     def cluster_width(self) -> int:
@@ -750,19 +769,19 @@ class ChainPlan:
         """Floats of the row each step exchanges."""
         return self.hidden if self.forward else self.width * self.hidden
 
-    def share(self, rank: int) -> range:
-        n4 = self.exchanged // 4
+    def share(self, rank: int, follow: bool = False) -> range:
+        """Float4 columns of the row (the follow set's: own, then feed)."""
+        n4 = self.exchanged * (2 if follow else 1) // 4
         return range(rank * n4 // self.ncl, (rank + 1) * n4 // self.ncl)
 
     def rows(self, cta: int, batch: int) -> range:
         bg = _ceil(batch, self.rgroups)
-        b0 = min(batch, cta // self.ncl % self.rgroups * bg)
+        b0 = min(batch, cta % self.grid // self.ncl % self.rgroups * bg)
         return range(b0, min(batch, b0 + bg))
 
     def cluster_units(self, cta: int) -> range:
-        nu = self.cluster_width
-        return range(cta // self.ncl // self.rgroups * nu,
-                     (cta // self.ncl // self.rgroups + 1) * nu)
+        nu, k = self.cluster_width, cta % self.grid // self.ncl // self.rgroups
+        return range(k * nu, (k + 1) * nu)
 
     def units(self, cta: int) -> range:
         per_cta = self.rgroups * self.upc
@@ -787,21 +806,25 @@ def _column_slices(nu: int, forward: bool = False) -> int:
 
 
 def chain_smem_floats(width: int, hidden: int, upc: int, ncl: int, rgroups: int,
-                      kc: int, forward: bool = False) -> int:
-    """Shared memory of a plan in floats, as ``rnn_bwd::smem_floats`` and
-    ``rnn_fwd::smem_floats``: the weights, the chunk slots, the warps' and
+                      kc: int, forward: bool = False, layers: int = 1) -> int:
+    """Shared memory of a plan in floats, as ``rnn_bwd::smem_floats``,
+    ``rnn_fwd::smem_floats`` and, for ``layers`` 2, ``rnn2_bwd::`` /
+    ``rnn2_fwd::smem_floats``: the weights, the chunk slots, the warps' and
     the cluster's partial sums (the forward keeps no warps' partials where
-    a column group is one warp or less)."""
+    a column group is one warp or less).  A 2-layer plan's buffers are the
+    follow set's: a share of a row twice as wide, and the cluster's
+    partials of each half."""
     nu = upc * ncl * rgroups
     outputs, n4 = (width * nu, hidden // 4) if forward else (nu, width * hidden // 4)
-    cs4 = _ceil(n4, ncl)
+    cs4 = _ceil(layers * n4, ncl)
     chunks = _ceil(cs4, kc)
     slots = chunks if chunks <= 8 else 2
     ldw = _ceil(4 * cs4, 32) * 32 + 4
     ldx = _ceil(4 * kc, 32) * 32 + 4
     warps = max(1, _column_slices(nu, forward) // 32)
     part = warps * CHAIN_PH * outputs if warps > 1 or not forward else 0
-    return outputs * ldw + slots * CHAIN_PH * ldx + part + 2 * CHAIN_PH * outputs
+    return (outputs * ldw + slots * CHAIN_PH * ldx + part
+            + 2 * layers * CHAIN_PH * outputs)
 
 
 def _row_groups_order(batch: int) -> Tuple[int, ...]:
@@ -817,15 +840,16 @@ def _row_groups_order(batch: int) -> Tuple[int, ...]:
 
 def chain_plan(hidden: int, width: int, batch: int, sms: int, max_smem: int,
                active_clusters: Callable[[int, int, int, int], int],
-               forward: bool = False) -> ChainPlan:
+               forward: bool = False, layers: int = 1) -> ChainPlan:
     """The launch plan of one layer's reverse chain (``forward`` false) or
     forward (``width`` 4: LSTM, 3: GRU) on a card of ``sms`` SMs and
-    ``max_smem`` bytes of shared memory per block; ``active_clusters(upc,
+    ``max_smem`` bytes of shared memory per block, or with ``layers`` 2 of
+    both layers' in one launch (``ChainPlan``); ``active_clusters(upc,
     ncl, rgroups, kc)`` is how many clusters of that plan's kernel the
     card holds at once.
 
-    UPC is the fewest units per CTA (1, 2, 4, 8) that keep the grid within
-    one CTA per SM.  The cluster size is the largest of 8, 4, 2, 1 that
+    UPC is the fewest units per CTA (1, 2, 4, 8) that keep the grid (a set
+    of H / UPC CTAs a layer) within one CTA per SM.  The cluster size is the largest of 8, 4, 2, 1 that
     divides the grid and for which some row-group count fits; the row
     groups the first of ``_row_groups_order(batch)`` that divide the
     clusters' grid and whose weights fit beside a chunk of the share, at
@@ -836,19 +860,22 @@ def chain_plan(hidden: int, width: int, batch: int, sms: int, max_smem: int,
     padded past half an SM's, so one CTA fits an SM.  Raises
     ``ValueError`` for a shape no plan takes.
     """
-    if batch < 1 or hidden < 4 or hidden % 4:
-        raise ValueError(f"chain_plan: no plan for B={batch}, H={hidden} (H % 4 == 0)")
-    upc = next((u for u in (1, 2, 4, 8) if hidden % u == 0 and hidden // u <= sms), None)
+    if batch < 1 or hidden < 4 or hidden % 4 or layers not in (1, 2):
+        raise ValueError(f"chain_plan: no plan for B={batch}, H={hidden} (H % 4 == 0), "
+                         f"{layers} layers")
+    upc = next((u for u in (1, 2, 4, 8)
+                if hidden % u == 0 and layers * (hidden // u) <= sms), None)
     if upc is None:
-        raise ValueError(f"chain_plan: H={hidden} needs more than 8 units per CTA "
-                         f"on {sms} SMs")
+        raise ValueError(f"chain_plan: {layers} x H={hidden} needs more than 8 units "
+                         f"per CTA on {sms} SMs")
     grid = hidden // upc
     for ncl in (8, 4, 2, 1):
         for rgroups in _row_groups_order(batch):
             nu = ncl * rgroups * upc
             if grid % (ncl * rgroups) or nu > CHAIN_NU_MAX:
                 continue
-            cs4 = _ceil((hidden if forward else width * hidden) // 4, ncl)
+            # the widest share: a 2-layer plan's follow set's
+            cs4 = _ceil(layers * (hidden if forward else width * hidden) // 4, ncl)
             ks = _column_slices(nu, forward)
             blocks = _ceil(cs4, ks)
             # whole column slices per chunk where they fit, else a ring of
@@ -857,21 +884,23 @@ def chain_plan(hidden: int, width: int, batch: int, sms: int, max_smem: int,
             widths += [_ceil(cs4, m) for m in range(9, cs4 + 1)]
 
             def need(kc: int) -> int:
-                return 4 * chain_smem_floats(width, hidden, upc, ncl, rgroups, kc, forward)
+                return 4 * chain_smem_floats(width, hidden, upc, ncl, rgroups, kc,
+                                             forward, layers)
 
             kc = next((kc for kc in dict.fromkeys(widths) if need(kc) <= max_smem), None)
-            if kc is None or active_clusters(upc, ncl, rgroups, kc) * ncl < grid:
+            if kc is None or active_clusters(upc, ncl, rgroups, kc) * ncl < layers * grid:
                 continue
             return ChainPlan(hidden, width, upc, ncl, rgroups, kc,
-                             max(need(kc), max_smem // 2 + 2048), forward)
-    raise ValueError(f"chain_plan: no cluster size fits H={hidden} on this card")
+                             max(need(kc), max_smem // 2 + 2048), forward, layers)
+    raise ValueError(f"chain_plan: no cluster size fits {layers} x H={hidden} on this card")
 
 
 _CHAIN_PLANS: Dict[Tuple[int, str, int, Tuple[int, ...]], ChainPlan] = {}
 
 
 def chain_plan_on(source: str, width: int, hidden: int, batch: int,
-                  device: torch.device, forward: bool = False) -> ChainPlan:
+                  device: torch.device, forward: bool = False,
+                  layers: int = 1) -> ChainPlan:
     """``chain_plan`` for ``csrc/<source>.cu``'s kernel on ``device``, its
     SM count, shared memory and resident cluster counts read from the CUDA
     runtime through the library; cached per card, source, H and the
@@ -896,7 +925,7 @@ def chain_plan_on(source: str, width: int, hidden: int, batch: int,
                 return count.value
 
             plan = chain_plan(hidden, width, batch, sms.value, smem.value, active,
-                              forward)
+                              forward, layers)
         _CHAIN_PLANS[key] = plan
     return plan
 
@@ -1160,7 +1189,7 @@ def _gru2_chain(t_len: int, step, keep_tm: torch.Tensor, dh_final: torch.Tensor,
 
 GRU2_INFER = CudaKernel(
     "gru2_infer", "gru2_infer_launch",
-    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    [_P] * 11 + [_I] * 7 + [_P],
 )
 GRU2_TRAIN_FWD = CudaKernel(
     "gru2_train_fwd", "gru2_train_fwd_launch",
@@ -1168,7 +1197,7 @@ GRU2_TRAIN_FWD = CudaKernel(
 )
 GRU2_BWD_CHAIN = CudaKernel(
     "gru2_bwd_chain", "gru2_bwd_chain_launch",
-    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    [_P] * 13 + [_I] * 7 + [_P],
 )
 
 
@@ -1185,13 +1214,21 @@ def _gru_weights(name: str, h_dim: int, layer0: Params, layer1: Params):
     return w
 
 
+def _pair_launch(source: str, width: int, batch: int, h_dim: int,
+                 device: torch.device, forward: bool):
+    """A 2-layer launch's plan and the two sets' barrier flags (zeros) ->
+    ``(plan, flags)``."""
+    plan = chain_plan_on(source, width, h_dim, batch, device, forward, layers=2)
+    return plan, torch.zeros(2 * CHAIN_FLAGS, dtype=torch.int32, device=device)
+
+
 def gru2_infer(x: torch.Tensor, layer0: Params, layer1: Params) -> torch.Tensor:
     """x (B, T, D) -> final h of the 2-layer GRU's layer 1 (B, H), float32.
 
     On a CUDA tensor this launches ``csrc/gru2_infer.cu`` (one cooperative
-    launch for the whole sequence) and counts it in
-    ``GRU2_INFER.launches``; on a CPU tensor it runs
-    ``gru2_infer_reference``.
+    cluster launch for the whole sequence on ``chain_plan_on``'s 2-layer
+    forward plan) and counts it in ``GRU2_INFER.launches``; on a CPU tensor
+    it runs ``gru2_infer_reference``.
     """
     if x.device.type == "cpu":
         return gru2_infer_reference(x, layer0, layer1)
@@ -1201,17 +1238,22 @@ def gru2_infer(x: torch.Tensor, layer0: Params, layer1: Params) -> torch.Tensor:
         raise ValueError(f"gru2_infer: empty input of shape {tuple(x.shape)}")
     ih0 = _gru_input_projection(x, layer0).contiguous()
     w = _gru_weights("gru2_infer", h_dim, layer0, layer1)
-    # h state exchanged between the kernel's blocks, double-buffered per
-    # layer; the kernel reads slot 1 of each as the zero initial state
-    h_state = torch.zeros((2, 2, batch, h_dim), dtype=torch.float32, device=x.device)
-    out = torch.empty((batch, h_dim), dtype=torch.float32, device=x.device)
+    # the kernel's CTAs exchange h through these: layer 0's whole series
+    # (layer 1 reads it a step behind), layer 1's two slots used in turn;
+    # the carries (zeros)
+    new = dict(dtype=torch.float32, device=x.device)
+    h0 = torch.empty((t_len, batch, h_dim), **new)
+    h1 = torch.empty((2, batch, h_dim), **new)
+    carry = torch.zeros((2, batch, h_dim), **new)
     check_cuda_f32("gru2_infer", ih0=ih0, w_hh0=w[0], b_hh0=w[1], w_ih1=w[2],
                    b_ih1=w[3], w_hh1=w[4], b_hh1=w[5])
+    plan, flags = _pair_launch("gru2_infer", 3, batch, h_dim, x.device, forward=True)
     GRU2_INFER(
-        ih0.data_ptr(), *(t.data_ptr() for t in w), h_state[0].data_ptr(),
-        h_state[1].data_ptr(), out.data_ptr(), batch, t_len, h_dim, stream_of(x),
+        ih0.data_ptr(), *(t.data_ptr() for t in w), h0.data_ptr(), h1.data_ptr(),
+        carry.data_ptr(), flags.data_ptr(), batch, t_len, h_dim, plan.upc, plan.ncl,
+        plan.rgroups, plan.kc, stream_of(x),
     )
-    return out
+    return h1[(t_len - 1) % 2]
 
 
 def gru2_train_fwd_residuals(x_tm: torch.Tensor, keep_tm: torch.Tensor,
@@ -1256,9 +1298,10 @@ def gru2_bwd_chain(packed: torch.Tensor, h0p: torch.Tensor, h1p: torch.Tensor,
     (T, B, H) per layer, float32.
 
     On a CUDA tensor this launches ``csrc/gru2_bwd_chain.cu`` (one
-    cooperative launch) and counts it in ``GRU2_BWD_CHAIN.launches``; on a
-    CPU tensor it runs ``gru2_bwd_chain_reference``.  ``dys`` (a
-    sequence-output cotangent) is not taken: it raises.
+    cooperative cluster launch on ``chain_plan_on``'s 2-layer plan) and
+    counts it in ``GRU2_BWD_CHAIN.launches``; on a CPU tensor it runs
+    ``gru2_bwd_chain_reference``.  ``dys`` (a sequence-output cotangent) is
+    not taken: it raises.
     """
     _refuse_dys(dys, "GRU", 6)
     if packed.device.type == "cpu":
@@ -1283,11 +1326,17 @@ def gru2_bwd_chain(packed: torch.Tensor, h0p: torch.Tensor, h1p: torch.Tensor,
     dhn0, dhn1 = (torch.empty(series, **new) for _ in range(2))
     check_cuda_f32("gru2_bwd_chain", packed=packed, h0p=h0p, h1p=h1p, keep=keep,
                    dh_final=dh, w_hh0=w_hh0, w_hh1=w_hh1, w_ih1=w_ih1)
+    plan, flags = _pair_launch("gru2_bwd_chain", 3, batch, h_dim, packed.device,
+                               forward=False)
+    # the direct parts' carries: layer 0's starts at zero, layer 1's as
+    # dh_final
+    carry = torch.cat([torch.zeros_like(dh), dh]).contiguous()
     GRU2_BWD_CHAIN(
         packed.data_ptr(), h0p.data_ptr(), h1p.data_ptr(), keep.data_ptr(),
-        dh.data_ptr(), w_hh0.data_ptr(), w_hh1.data_ptr(), w_ih1.data_ptr(),
+        w_hh0.data_ptr(), w_hh1.data_ptr(), w_ih1.data_ptr(),
         dih0.data_ptr(), dhn0.data_ptr(), dih1.data_ptr(), dhn1.data_ptr(),
-        batch, t_len, h_dim, stream_of(packed),
+        carry.data_ptr(), flags.data_ptr(), batch, t_len, h_dim, plan.upc,
+        plan.ncl, plan.rgroups, plan.kc, stream_of(packed),
     )
     return dih0, dhn0, dih1, dhn1
 
@@ -1344,7 +1393,7 @@ GRU2_TRAIN_FWD_LEGACY = CudaKernel(
     [_P] * 10 + [_I, _I, _I, _P],
 )
 GRU2_BWD_CHAIN_LEGACY = CudaKernel(
-    "gru2_bwd_chain", "gru2_bwd_chain_legacy_launch",
+    "gru2_bwd_chain_legacy", "gru2_bwd_chain_legacy_launch",
     [_P] * 9 + [_I, _I, _I, _P],
 )
 
@@ -1394,8 +1443,8 @@ def gru2_bwd_chain_legacy(res0, res1, dys, keep_tm: torch.Tensor,
     ``dys`` (T, B, H) is the sequence output's cotangent, or ``None``, and
     then the kernel reads no stream.
 
-    On a CUDA tensor this launches ``csrc/gru2_bwd_chain.cu``'s legacy form
-    (one cooperative launch) and counts it in
+    On a CUDA tensor this launches ``csrc/gru2_bwd_chain_legacy.cu`` (one
+    cooperative launch) and counts it in
     ``GRU2_BWD_CHAIN_LEGACY.launches``; on a CPU tensor it runs
     ``gru2_bwd_chain_legacy_reference``.
     """

@@ -1,4 +1,4 @@
-"""Time the PyTorch port's one-layer recurrent kernels of two trees on one card.
+"""Time the PyTorch port's recurrent kernels of two trees on one card.
 
     python3 scripts/chain_ab.py --parent DIR [--steps] [--timers] [--timers-parent TDIR]
     python3 scripts/chain_ab.py --probe | --sweep
@@ -22,11 +22,20 @@ inputs:
   beside each: ``lstm1_train_fwd`` (row 6) and ``gru1_train_fwd`` (row
   7f), their eval forms ``lstm1_infer`` (6e) and ``gru1_infer`` (7e) with
   the h series out and with the final h only (two slots), and the eval
-  forms at B=1 (the b1 serving forward's shape).
+  forms at B=1 (the b1 serving forward's shape);
+* the GRU config's 2-layer kernels (GRU 2x256, ``chip_smoke.py``'s
+  ``[gru2_bwd_chain]`` / ``[gru2_infer]`` inputs): ``gru2_bwd_chain``
+  (row 15) at (32, 372, 256) over the config's own residuals, beside the
+  two-chain route over the same residuals (two ``gru_bwd_chain``
+  launches and the hop, ``ops/lstm_vjp.py::gru_bwd_layered_legacy``, the
+  layout's copies included) and cuDNN's backward of ``h_n``; and
+  ``gru2_infer`` (row 3, the input projection included) at B = 32, 24,
+  16, 4 and 1, beside cuDNN's 2-layer GRU inference forward at B 32 and 1.
 
-``--timers`` then builds rows 4, 7, 6 and 7f of both trees with
+``--timers`` then builds rows 4, 7, 6, 7f, 15 and 3 of both trees with
 ``-DRNN_CHAIN_TIMERS=1`` (``csrc/rnn_timers.cuh``) and prints, for each at
-(32, 372, 512) (the chains with ``dh_series``), each phase's share of the
+(32, 372, 512) (the chains with ``dh_series``; rows 15 and 3 at the GRU
+config's (32, 372, 256)), each phase's share of the
 warps' ``clock64()`` time and the cycles per step and warp, with the
 launch plan where the tree has one.  A tree whose sources
 predate the timers has no timed build: ``--timers-parent TDIR`` names a
@@ -37,9 +46,10 @@ resident cluster counts, and the exchange alone (write, barrier, read);
 ``--sweep`` times rows 4, 7, 6 and 7f of this checkout on variants of the
 launch plan (chunk, cluster size, row groups; and at B 1..24 each row-group
 count).  ``--steps`` (with ``--parent``)
-adds ``[train_big]`` / ``[train_big_gru]``'s b32 train-step p50 / p90 and
-``[serve_big]`` / ``[serve_big_gru]``'s b32 and b1 forward p50 / p90 with
-each tree's package, parent / change / change / parent.  ``--child ROOT``, ``--timers-of
+adds ``[train_big]`` / ``[train_big_gru]`` / ``[train_gru]``'s b32
+train-step p50 / p90 and ``[serve_big]`` / ``[serve_big_gru]`` /
+``[serve_gru]``'s b32 and b1 forward p50 / p90 with each tree's package,
+parent / change / change / parent.  ``--child ROOT``, ``--timers-of
 ROOT``, ``--steps-of ROOT``, ``--probe`` and ``--sweep`` alone run one
 part.
 
@@ -92,6 +102,48 @@ def _port(root: Path):
     from multimodal_emotion_detection_tpu_torch.ops import _build, lstm_kernel
 
     return _build, lstm_kernel
+
+
+# batches at which row 3 (the GRU config's eval forward) is timed
+GRU2_INFER_B = (32, 24, 16, 4, 1)
+
+
+def _gru2_cases(torch, smoke, lk):
+    """Rows 15 and 3 on the GRU config's inputs (``chip_smoke.py``'s
+    ``[gru2_bwd_chain]`` and ``[gru2_infer]``): name -> (run, None, cuDNN's
+    same function or None).  ``gru2_two_chains_h256`` is the yardstick
+    row 15 must beat: the legacy route's backward over the same residuals
+    (layer 1's ``gru_bwd_chain``, the hop as one matmul, layer 0's)."""
+    import numpy as np
+
+    from multimodal_emotion_detection_tpu_torch.ops import lstm_vjp
+
+    cases = {}
+    x_tm, keep, l0, l1 = smoke._gru_inputs(8)
+    t, b, _ = x_tm.shape
+    h = l0["w_hh"].shape[0]
+    packed, h0p, h1p, _, _ = lk.gru2_train_fwd_reference(x_tm, keep, l0, l1)
+    dh = torch.from_numpy(np.random.RandomState(9).randn(b, h).astype(np.float32)).cuda()
+    w = (l0["w_hh"], l1["w_hh"], l1["w_ih"])
+    args = (packed, h0p, h1p, keep, dh, *w)
+    lanes = packed.split(h, dim=-1)
+    res0, res1 = (h0p, *lanes[:4]), (h1p, *lanes[4:])
+    lib = smoke._cudnn_gru(l0, l1)
+    x_bt = x_tm.transpose(0, 1).contiguous()
+    cases["gru2_bwd_chain_h256"] = (lambda: lk.gru2_bwd_chain(*args), None,
+                                    _lib_bwd(torch, lib, lib(x_bt)[1][-1], dh))
+    cases["gru2_two_chains_h256"] = (
+        lambda: lstm_vjp.gru_bwd_layered_legacy(res0, res1, None, keep, dh, *w),
+        None, None)
+    x7, _, i0, i1 = smoke._gru_inputs(7)
+    x = x7.transpose(0, 1).contiguous()
+    ilib = smoke._cudnn_gru(i0, i1)
+    for rows in GRU2_INFER_B:
+        xr = x[:rows].contiguous()
+        cases[f"gru2_infer_b{rows}_h256"] = (
+            lambda xr=xr: lk.gru2_infer(xr, i0, i1), None,
+            _no_grad(torch, lambda xr=xr: ilib(xr)) if rows in (32, 1) else None)
+    return cases
 
 
 def _cases(torch, smoke, lk):
@@ -205,7 +257,8 @@ def child(root: Path) -> dict:
     _, lk = _port(root)
     flush = smoke.L2Flush()
     res = {"root": str(root), "card": _smi()}
-    for name, (with_series, without, lib) in _cases(torch, smoke, lk).items():
+    cases = {**_cases(torch, smoke, lk), **_gru2_cases(torch, smoke, lk)}
+    for name, (with_series, without, lib) in cases.items():
         res[f"{name}_ms"] = smoke.device_ms(with_series, flush)
         if without is not None:
             res[f"{name}_top_ms"] = smoke.device_ms(without, flush)
@@ -236,10 +289,11 @@ def _forward_latency(torch, smoke, cfg, overrides, root, raw, video, res, tag):
 
 
 def steps_of(root: Path) -> dict:
-    """``[train_big]`` / ``[train_big_gru]``'s train-step latency with
-    ``root``'s package: b32 p50 and p90 of 60 steps (host clock around
-    ``synchronize``), ``chip_smoke.py``'s configuration and measurement on
-    synthetic 32-clip splits with log-mel cached."""
+    """``[train_big]`` / ``[train_big_gru]`` / ``[train_gru]``'s
+    train-step latency with ``root``'s package: b32 p50 and p90 of 60 steps
+    (host clock around ``synchronize``), ``chip_smoke.py``'s configuration
+    and measurement on synthetic 32-clip splits with log-mel cached; and
+    the matching ``[serve_*]`` b32 and b1 forward."""
     torch = _card()
     smoke = _smoke()
     _build, _ = _port(root)
@@ -257,14 +311,16 @@ def steps_of(root: Path) -> dict:
     from multimodal_emotion_detection_tpu_torch.training.optim import build_optimizer
     from multimodal_emotion_detection_tpu_torch.training.steps import train_step
 
-    _build.build(["logmel", "lstm1_fwd", "lstm_bwd_chain", "gru1_fwd", "gru_bwd_chain"])
+    _build.build(["logmel", "lstm1_fwd", "lstm_bwd_chain", "gru1_fwd", "gru_bwd_chain",
+                  "gru2_infer", "gru2_train_fwd", "gru2_bwd_chain"])
     data = root / "build" / "chain_ab" / "data"
     for seed, split in enumerate(("train", "val", "test")):
         if not (data / split / "labels.npy").exists():
             smoke._write_split(data, split, 32, 10 + seed)
     dev = torch.device("cuda")
     res = {"root": str(root), "card": _smi()}
-    for tag, overrides in (("train_big", smoke.BIG), ("train_big_gru", smoke.BIG_GRU)):
+    for tag, overrides in (("train_big", smoke.BIG), ("train_big_gru", smoke.BIG_GRU),
+                           ("train_gru", smoke.GRU)):
         cfg = load_config(str(root / "configs" / "base.yaml"),
                           [*overrides, f"dataset.data_dir={data}"])
         model = init_weights(classifier_from_config(cfg),
@@ -301,8 +357,10 @@ def steps_of(root: Path) -> dict:
 
 
 def timers_of(root: Path) -> None:
-    """Rows 4, 7, 6 and 7f of ``root`` built with -DRNN_CHAIN_TIMERS=1:
-    each bucket's share of the warps' clock time at (32, 372, 512)."""
+    """Rows 4, 7, 6, 7f, 15 and 3 of ``root`` built with
+    -DRNN_CHAIN_TIMERS=1: each bucket's share of the warps' clock time at
+    (32, 372, 512) (rows 15 and 3 at (32, 372, 256)), per CTA set of the
+    2-layer cores."""
     torch = _card()
     smoke = _smoke()
     _build, lk = _port(root)
@@ -311,7 +369,9 @@ def timers_of(root: Path) -> None:
                "gru_bwd_chain_h512": ("gru_bwd_chain", lk.GRU_BWD_CHAIN),
                "gru_bwd_chain_h256": ("gru_bwd_chain", lk.GRU_BWD_CHAIN),
                "lstm1_train_fwd_h512": ("lstm1_fwd", lk.LSTM1_TRAIN_FWD),
-               "gru1_train_fwd_h512": ("gru1_fwd", lk.GRU1_TRAIN_FWD)}
+               "gru1_train_fwd_h512": ("gru1_fwd", lk.GRU1_TRAIN_FWD),
+               "gru2_bwd_chain_h256": ("gru2_bwd_chain", lk.GRU2_BWD_CHAIN),
+               "gru2_infer_b32_h256": ("gru2_infer", lk.GRU2_INFER)}
     libs = {}
     for source in {s for s, _ in kernels.values()}:
         out = root / "build" / "chain_ab" / f"lib{source}_timers.so"
@@ -325,8 +385,10 @@ def timers_of(root: Path) -> None:
             if "registers" in line or "spill" in line:
                 print(f"[timers:{source}] {line.strip()}")
         libs[source] = ctypes.CDLL(str(out))
-    cases = _cases(torch, smoke, lk)
-    buf = (ctypes.c_ulonglong * (len(BUCKETS) + 1))()
+    cases = {**_cases(torch, smoke, lk), **_gru2_cases(torch, smoke, lk)}
+    # two blocks (a 2-layer core's lead and follow sets); a tree whose
+    # timers predate them fills the first
+    buf = (ctypes.c_ulonglong * (2 * (len(BUCKETS) + 1)))()
     for name, (source, kern) in kernels.items():
         lib = libs[source]
         if not hasattr(lib, f"{source}_timers"):
@@ -350,27 +412,42 @@ def timers_of(root: Path) -> None:
         end.synchronize()
         if read(ctypes.addressof(buf), 1) != 0:
             sys.exit(f"chain_ab: {source}_timers failed")
-        total, warps = sum(buf[:len(BUCKETS)]), buf[len(BUCKETS)]
         plan = _plan_of(lk, source, int(name[-3:]), torch.device("cuda"))
         if plan is not None:
             print(f"[timers] {name} plan: UPC {plan.upc}, clusters of {plan.ncl}, "
-                  f"{plan.rgroups} row groups, {plan.grid} CTAs, {plan.smem} bytes, "
+                  f"{plan.rgroups} row groups, {getattr(plan, 'ctas', plan.grid)} CTAs, "
+                  f"{plan.smem} bytes, "
                   f"chunks of {plan.kc}")
-        steps = 372
+        # the 2-layer kernels' T + 1 phases
+        steps = 373 if source.startswith("gru2") else 372
         ms = start.elapsed_time(end)
-        cyc = total / max(warps, 1) / steps
-        print(f"[timers] {root.name or root}: {name} {ms:.4f} ms ({1e3 * ms / steps:.3f} us "
-              f"per step), {warps} warps, {cyc:.0f} cycles per step and warp "
-              f"({cyc / (1e6 * ms / steps):.3f} GHz implied): " + ", ".join(
-                  f"{n} {100 * x / total:.1f}%" for n, x in zip(BUCKETS, buf)))
+        n = len(BUCKETS) + 1
+        for k, label in enumerate(("", " follow set") if source.startswith("gru2") else ("",)):
+            block = buf[k * n:(k + 1) * n]
+            total, warps = sum(block[:-1]), block[-1]
+            if not warps:
+                continue
+            if k == 0 and source.startswith("gru2"):
+                label = " lead set"
+            cyc = total / warps / steps
+            print(f"[timers] {root.name or root}: {name}{label} {ms:.4f} ms "
+                  f"({1e3 * ms / steps:.3f} us per phase), {warps} warps, {cyc:.0f} cycles "
+                  f"per phase and warp ({cyc / (1e6 * ms / steps):.3f} GHz implied): "
+                  + ", ".join(f"{b} {100 * x / total:.1f}%" for b, x in zip(BUCKETS, block)))
 
 
 def _plan_of(lk, source, h, device):
     """The launch plan of ``source`` at B=32 in a tree that has one (an
-    older tree may predate the chains' or the forwards' plan)."""
+    older tree may predate the chains', the forwards' or the 2-layer
+    cores' plan)."""
     width = 4 if source.startswith("lstm") else 3
     if not hasattr(lk, "chain_plan_on"):
         return None
+    if source.startswith("gru2"):
+        if not hasattr(lk, "_pair_launch"):
+            return None
+        return lk.chain_plan_on(source, width, h, 32, device, source == "gru2_infer",
+                                layers=2)
     if source.endswith("_fwd"):
         if not hasattr(lk, "_fwd_launch"):
             return None
