@@ -7,8 +7,10 @@
    source, all at once) and prints ptxas's register / shared-memory /
    spill report.
 3. Holds each serving kernel against its plain PyTorch version on the card
-   at the shapes the serving path gives it, and times kernel, plain version
-   and, where one exists, the one PyTorch call computing the same function.
+   at the shapes the serving path gives it (``lstm2_infer``, on the 2-layer
+   forward core, at B=32 and 1, each with its launch plan), and times
+   kernel, plain version and, where one exists, the one PyTorch call
+   computing the same function.
 4. Serves: writes a 64-clip synthetic test split, builds the flagship
    (configs/base.yaml + model.frontend.audio=logmel) with seeded weights,
    saves a checkpoint and runs the port's predict CLI on it at batch 32.
@@ -21,7 +23,9 @@
    torch.profiler, its device time by kernel and the device's busy share.
 5. Holds the two training kernels (training forward with residuals,
    reverse dgates chain) against their plain versions at the flagship's
-   training shape (B=32, T=372, D=64, H=256, keep mask at dropout 0.1) and
+   training shape (B=32, T=372, D=64, H=256, keep mask at dropout 0.1; the
+   chain, on the 2-layer reverse core, at B 17 and 1 too, each with its
+   launch plan) and
    times them beside cuDNN's LSTM forward and backward, and the whole
    recurrence gradient beside cuDNN's forward + backward.  Then
    ``[lstm2_bwd_chain_remat]`` does the same for the gate-rematerialising
@@ -85,10 +89,11 @@
    ``[lstm2_bwd_chain_legacy]`` and ``[gru2_train_fwd_legacy]`` /
    ``[gru2_bwd_chain_legacy]`` hold its four kernels (rows 5, 9, 8 and 10
    of PERF.md's table; the chains with and without ``dys``) against their
-   plain versions at B=32, T=372, D=64, H=256 (the GRU chain is
-   ``csrc/gru2_bwd_chain_legacy.cu``, the first 2-layer design), time them
-   beside the residual-native pair's on the same inputs (the GRU chain's
-   outputs to 1e-5 of the largest), the plain versions and cuDNN,
+   plain versions at B=32, T=372, D=64, H=256 (the chains are
+   ``csrc/lstm2_bwd_chain_legacy.cu`` and ``csrc/gru2_bwd_chain_legacy.cu``,
+   the first 2-layer design), time them beside the residual-native pair's
+   on the same inputs (the chains' outputs to 1e-5 of the largest), the
+   plain versions and cuDNN,
    the fused GRU chain beside the layered one over the same residuals (1e-5
    of the largest), and hold the whole recurrence gradient of each legacy
    route (the GRU's fused and layered) to the residual-native route's (dx
@@ -298,6 +303,9 @@ def phase_lstm(lstm_kernel, flush):
     a1, _ = max_errs(out1, ref1)
     print(f"[lstm2_infer] B=1: max abs err {a1:.3e}")
     torch.testing.assert_close(out1, ref1, rtol=0, atol=1e-4)
+    for rows in (b, 1):
+        print(f"[lstm2_infer] "
+              f"{_chain_plan_text(lstm_kernel, 'lstm2_infer', 4, h, rows, True, 2)}")
 
     lib = _cudnn_lstm(l0, l1)
     with torch.no_grad():
@@ -318,15 +326,16 @@ def phase_lstm(lstm_kernel, flush):
     flops = 2 * b * t * (d * 4 * h + 3 * h * 4 * h)
     nbytes = 4 * (b * t * d + d * 4 * h + 3 * h * 4 * h + 2 * 4 * h + b * h)
     bound_ms, bound_by = bound(flops, nbytes)
-    print(f"[lstm2_infer] kernel {ms:.4f} ms (input projection + one "
-          f"cooperative launch, {t + 1} grid barriers), plain {plain_ms:.4f} ms, "
-          f"cuDNN {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-          f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; serial chain of "
+    print(f"[lstm2_infer] kernel {ms:.4f} ms (input projection + one cooperative "
+          f"cluster launch, {t + 1} phases, {1e3 * ms / (t + 1):.3f} us per phase), "
+          f"plain {plain_ms:.4f} ms, cuDNN {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; serial chain of "
           f"{2 * t} layer-steps)")
     print(f"[lstm2_infer] B=1 kernel {ms_b1:.4f} ms ({1e3 * ms_b1 / (t + 1):.3f} us "
-          "per barrier phase: the serial chain's floor)")
+          "per phase)")
     return {"name": "lstm2_infer", "route": "cuda",
             "source": "multimodal_emotion_detection_tpu_torch/csrc/lstm2_infer.cu",
+            "core": CSRC + "rnn2_fwd_chain.cuh",
             "replaces": "multimodal_emotion_detection_tpu/ops/lstm_kernel.py:40",
             "max_abs_err": max(abs_err, a1), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -534,8 +543,24 @@ def phase_lstm2_bwd_chain(lstm_kernel, lstm_vjp, flush, inputs):
     for name, out, ref in zip(("dg0", "dg1"), outs, refs):
         errs[name] = max_errs(out, ref)[0]
         torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4, msg=name)
-    print(f"[lstm2_bwd_chain] B={b} T={t} H={h}: max abs err dg0 {errs['dg0']:.3e}, "
-          f"dg1 {errs['dg1']:.3e} (bound 1e-4 abs + 1e-4 rel)")
+    # one row (the plan's two row groups, one empty) and 17 rows (a second
+    # pass of rows in a group)
+    for rows in (1, 17):
+        sub = (*(a[:, :rows].contiguous() for a in (packed, keep)), dh[:rows].contiguous(),
+               *args[3:])
+        outs = lstm_kernel.lstm2_bwd_chain(*sub)
+        torch.cuda.synchronize()
+        for name, out, ref in zip(("dg0", "dg1"), outs,
+                                  lstm_kernel.lstm2_bwd_chain_reference(*sub)):
+            errs[f"{name} B={rows}"] = max_errs(out, ref)[0]
+            torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4,
+                                       msg=f"{name} B={rows}")
+    print(f"[lstm2_bwd_chain] B={b} T={t} H={h}: max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + " (bound 1e-4 abs + 1e-4 rel)")
+    for rows in (b, 17, 1):
+        print(f"[lstm2_bwd_chain] "
+              f"{_chain_plan_text(lstm_kernel, 'lstm2_bwd_chain', 4, h, rows, layers=2)}")
 
     lib = _cudnn_lstm(l0, l1)
     x_bt = x_tm.transpose(0, 1).contiguous()
@@ -552,8 +577,8 @@ def phase_lstm2_bwd_chain(lstm_kernel, lstm_vjp, flush, inputs):
     flops = 2 * b * t * 3 * 4 * h * h
     nbytes = 4 * (t * b * (10 * h + h + 8 * h) + b * h + 3 * h * 4 * h)
     bound_ms, bound_by = bound(flops, nbytes)
-    print(f"[lstm2_bwd_chain] kernel {ms:.4f} ms (one cooperative launch, "
-          f"{t + 1} grid barriers, {1e3 * ms / (t + 1):.3f} us per phase), plain "
+    print(f"[lstm2_bwd_chain] kernel {ms:.4f} ms (one cooperative cluster launch, "
+          f"{t + 1} phases, {1e3 * ms / (t + 1):.3f} us per phase), plain "
           f"{plain_ms:.4f} ms, cuDNN backward of h_n at keep=1 {library_ms:.4f} ms "
           "(it also forms the weight gradients), bound "
           f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP, "
@@ -586,6 +611,7 @@ def phase_lstm2_bwd_chain(lstm_kernel, lstm_vjp, flush, inputs):
         raise RuntimeError("the recurrence gradient disagrees with cuDNN's")
     return {"name": "lstm2_bwd_chain", "route": "cuda",
             "source": "multimodal_emotion_detection_tpu_torch/csrc/lstm2_bwd_chain.cu",
+            "core": CSRC + "rnn2_bwd_chain.cuh",
             "replaces": "multimodal_emotion_detection_tpu/ops/lstm_kernel.py:2482",
             "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
@@ -816,13 +842,19 @@ def phase_lstm2_legacy(lstm_kernel, lstm_vjp, flush):
             errs[name + label] = max_errs(out, ref)[0]
             torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4, msg=name + label)
     res_args = (packed, keep, dh, *w)
-    same_chain = all(torch.equal(a, r) for a, r in zip(
+    # the residual-native chain (row 12, the 2-layer core) sums in another
+    # order than the legacy form's first design
+    vs_res = {name: float((a - r).abs().max() / r.abs().max()) for name, a, r in zip(
+        ("dg0", "dg1"),
         lstm_kernel.lstm2_bwd_chain_legacy(g0c, g1c, cp0, cp1, None, keep, dh, *w),
-        lstm_kernel.lstm2_bwd_chain(*res_args)))
+        lstm_kernel.lstm2_bwd_chain(*res_args))}
     print(f"[lstm2_bwd_chain_legacy] B={b} T={t} H={h}: max abs err "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-          + f" (bound 1e-4 abs + 1e-4 rel); the residual-native chain's dg bit for "
-          f"bit: {same_chain}")
+          + " (bound 1e-4 abs + 1e-4 rel); against the residual-native chain's dg, max "
+          "abs diff relative to the largest "
+          + ", ".join(f"{k} {v:.3e}" for k, v in vs_res.items()) + " (bound 1e-5)")
+    if max(vs_res.values()) > 1e-5:
+        raise RuntimeError("the legacy LSTM chain disagrees with the residual-native one")
 
     lib = _cudnn_lstm(l0, l1)
     x_bt = x_tm.transpose(0, 1).contiguous()
@@ -893,7 +925,7 @@ def phase_lstm2_legacy(lstm_kernel, lstm_vjp, flush):
              "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound_ms,
              "bound_by": fwd_bound_by, "library_ms": fwd_lib_ms},
             {"name": "lstm2_bwd_chain_legacy", "route": "cuda",
-             "source": src + "lstm2_bwd_chain.cu",
+             "source": src + "lstm2_bwd_chain_legacy.cu",
              "replaces": "multimodal_emotion_detection_tpu/ops/lstm_kernel.py:1685",
              "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
@@ -2227,7 +2259,8 @@ def main() -> None:
     t0 = time.perf_counter()
     # the legacy-layout kernels are template forms of the pair's sources
     reports = _build.build(["logmel", "lstm2_infer", "lstm2_train_fwd",
-                            "lstm2_bwd_chain", "lstm2_bwd_chain_remat",
+                            "lstm2_bwd_chain", "lstm2_bwd_chain_legacy",
+                            "lstm2_bwd_chain_remat",
                             "lstm1_fwd", "lstm_bwd_chain",
                             "gru2_infer", "gru2_train_fwd", "gru2_bwd_chain",
                             "gru2_bwd_chain_legacy",
@@ -2236,7 +2269,8 @@ def main() -> None:
     print(f"[build] {time.perf_counter() - t0:.1f} s for {sorted(reports) or 'nothing (cached)'}")
     for src, log in reports.items():
         for line in log.splitlines():
-            if "ptxas" in line:
+            # ptxas's spill counts come on lines of their own, without its name
+            if "ptxas" in line or "spill" in line:
                 print(f"[build:{src}] {line.strip()}")
 
     counters = {"logmel": logmel.LOGMEL, "lstm2_infer": lstm_kernel.LSTM2_INFER,

@@ -46,10 +46,9 @@ extern "C" int gru2_bwd_chain_launch(const float* packed, const float* h0p,
                                      float* dih1, float* dhn1, float* carry,
                                      unsigned* flags, int batch, int t_len, int hidden,
                                      int upc, int ncl, int rgroups, int kc, void* stream) {
-  const rnn2_bwd::Args a{packed,   {h0p, h1p},   keep,  {w_hh0, w_hh1}, w_ih1,
-                         {dih0, dih1}, {dhn0, dhn1}, carry, flags,      batch,
-                         t_len,    hidden,       upc,   ncl,            rgroups,
-                         kc};
+  const rnn2_bwd::Args a{packed, {h0p, h1p}, keep, nullptr, {w_hh0, w_hh1},
+                         w_ih1, {dih0, dih1}, {dhn0, dhn1}, carry, flags, batch,
+                         t_len, hidden, upc, ncl, rgroups, kc};
   return rnn2_bwd::launch<rnn2_bwd::GruCell>(a, (cudaStream_t)stream);
 }
 

@@ -32,8 +32,8 @@
 // the whole previous hidden state of all units, so T+1 device-wide
 // exchanges set the time.
 //
-// Design: gru2_infer.cu's, plus the residuals, as lstm2_train_fwd.cu is
-// lstm2_infer.cu's.  One persistent cooperative launch; CTA c owns hidden
+// Design: lstm2_train_fwd.cu's (the first 2-layer eval forward's, plus the
+// residuals) with the GRU cell.  One persistent cooperative launch; CTA c owns hidden
 // units [c*UPC, (c+1)*UPC) of both layers and keeps their gate columns of
 // w_hh0, w_ih1 and w_hh1 in shared memory.  The layers are wavefronted:
 // phase p runs layer 0 at step p and layer 1 at step p-1, one grid barrier

@@ -26,9 +26,10 @@
 // 174 MB (~0.05 ms), but each step needs the whole dgates row of the step
 // before, so T+1 device-wide exchanges set the time.
 //
-// Design: lstm2_bwd_chain.cu's, plus the recompute.  One cooperative launch;
-// CTA c owns hidden units [c*UPC, (c+1)*UPC), keeps ROWS j of w_hh1, w_ih1
-// and w_hh0 (for the chain's transposed products) in shared memory and reads
+// Design: the first 2-layer chain's (lstm2_bwd_chain_legacy.cu), plus the
+// recompute.  One cooperative launch; CTA c owns hidden units [c*UPC,
+// (c+1)*UPC), keeps ROWS j of w_hh1, w_ih1 and w_hh0 (for the chain's
+// transposed products) in shared memory and reads
 // the dg rows of the phase before as the exchange; the layers are
 // wavefronted in reverse (phase q runs layer 1 at step T-1-q and layer 0 at
 // step T-q), one grid barrier per phase, T+1 in all.  For the recompute the

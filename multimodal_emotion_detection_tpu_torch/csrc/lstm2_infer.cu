@@ -8,291 +8,47 @@
 //   g0 = ih0[:, t] + h0 @ w_hh0              ; (h0, c0) = cell(g0, c0)
 //   g1 = (h0 @ w_ih1 + b1) + h1 @ w_hh1      ; (h1, c1) = cell(g1, c1)
 //
-// for t = 0..T-1 from zero state and write the last h1 (B, H).  Gate order
-// i, f, g, o; cell: c = sig(f) c + sig(i) tanh(g), h = sig(o) tanh(c).
+// for t = 0..T-1 from zero state; the final h1 (B, H) is slot (T-1) % 2 of
+// h1.  Gate order i, f, g, o; cell: c = sig(f) c + sig(i) tanh(g),
+// h = sig(o) tanh(c).
 //
 // What bounds it on the H100: the serial chain.  At the flagship shape
-// (B=32, T=372, H=256) the three recurrent products are 18.7 GFLOP and the
-// ih0 stream 49 MB, ~0.28 ms at the 67 TFLOP/s float32 rate; but every
-// step of each layer needs the whole previous hidden state of all units,
-// so the work is 2 x 372 dependent steps whose latency (a device-wide
-// exchange of h per step) rather than arithmetic sets the time.
+// (B=32, T=372, D=64, H=256) the input projection and the three recurrent
+// products are 20.3 GFLOP (~0.30 ms at the 67 TFLOP/s float32 rate); but
+// every step of each layer needs the whole previous hidden state of all
+// units, so T+1 phases of device-wide exchanges set the time.
 //
-// Design: the TPU kernel keeps all three 1 MiB recurrent matrices in one
-// core's VMEM; an SM has 227 KB of shared memory, so here the weights are
-// split over the grid.  One persistent cooperative launch: CTA c owns the
-// hidden units j in [c*UPC, (c+1)*UPC) of both layers and keeps the four
-// gate columns {i,f,g,o}*H + j of w_hh0, w_ih1 and w_hh1 in shared memory
-// for the whole sequence (24 KB at H=256, UPC=2, 128 CTAs).  The cell
-// state c stays in the CTA; h travels through small double-buffered
-// global arrays, read through L2 (ld.cg) in float4 pieces, all of a
-// thread's pieces in flight at once: the copy's latency, not its 64 KB,
-// is what costs.  The layers are wavefronted: phase p runs layer 0 at
-// step p and layer 1 at step p-1, both of which read h0(p-1), so one grid
-// barrier per phase suffices: T+1 barriers in all instead of 2T.
-//
-// Inside a CTA, lane r of every warp holds batch row r and warp w one
-// strided slice k = w, w+8, ... of the H-long dot products, for all of the
-// CTA's gate columns.  A step of the slice then costs a lane two h loads
-// from distinct banks and three float4 weight loads that every lane of
-// the warp shares (one broadcast each), for 24 FMAs at UPC=2.  The 8
-// partial sums meet in shared memory, where one thread per (row, unit,
-// layer) adds them up and runs its cell update.  Exactly T steps run: no
-// padding of T, any B >= 1.
+// Design: the 2-layer forward core rnn2_fwd_chain.cuh with the LSTM cell:
+// layer 0's forward on one CTA set (storing the h0 series), layer 1's on
+// another over its own h and h0, in one launch.  The launch plan (UPC,
+// cluster size, row groups, chunk) comes from ops/lstm_kernel.py::
+// chain_plan (forward=True, layers=2) and is re-checked here.
 
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "rnn2_fwd_chain.cuh"
 
-namespace cg = cooperative_groups;
-
-namespace {
-
-constexpr int NT = 256;          // threads per CTA
-constexpr int NW = NT / 32;      // warps = slices of each dot product
-constexpr int ROWS = 32;         // batch rows per pass: one per lane
-constexpr int LOADS = 8;         // float4 loads in flight per thread and tile
-constexpr int kUnsupported = -1; // shape the kernel does not take
-
-__device__ __forceinline__ float sigmoidf(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-template <int UPC>
-__global__ void __launch_bounds__(NT) lstm2_infer_kernel(
-    const float* __restrict__ ih0,    // (B, T, 4H)
-    const float* __restrict__ w_hh0,  // (H, 4H)
-    const float* __restrict__ w_ih1,  // (H, 4H)
-    const float* __restrict__ b1,     // (4H)
-    const float* __restrict__ w_hh1,  // (H, 4H)
-    float* h0buf,                     // (2, B, H), slot 1 zero on entry
-    float* h1buf,                     // (2, B, H), slot 1 zero on entry
-    float* __restrict__ out,          // (B, H)
-    int batch, int t_len, int hidden) {
-  constexpr int G = 4 * UPC;  // gate columns a CTA owns
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ __align__(16) float smem[];
-  const int H = hidden;
-  const int H4 = 4 * H;
-  const int HP = H + 1;              // odd row stride: rows in distinct banks
-  float* w0 = smem;                  // H * G
-  float* wi1 = w0 + H * G;           // H * G
-  float* wh1 = wi1 + H * G;          // H * G
-  float* red = wh1 + H * G;          // NW * 3 * G * ROWS partial sums
-  float* ha = red + NW * 3 * G * ROWS;  // ROWS * HP : h0(p-1) tile
-  float* hb = ha + ROWS * HP;        // ROWS * HP : h1(p-2) tile
-  float* c0s = hb + ROWS * HP;       // batch * UPC
-  float* c1s = c0s + batch * UPC;    // batch * UPC
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int j0 = blockIdx.x * UPC;
-
-  // column col = g*UPC + u of the CTA <-> column g*H + j0 + u of W
-  for (int i = tid; i < H * G; i += NT) {
-    const int k = i / G, col = i % G;
-    const size_t src = (size_t)k * H4 + (col / UPC) * H + j0 + col % UPC;
-    w0[i] = w_hh0[src];
-    wi1[i] = w_ih1[src];
-    wh1[i] = w_hh1[src];
-  }
-  for (int i = tid; i < batch * UPC; i += NT) c0s[i] = c1s[i] = 0.0f;
-
-  // this thread's cell update, if any: row cr, unit cu, layer cl
-  const bool has_cell = tid < 2 * UPC * ROWS;
-  const int cr = tid % ROWS;
-  const int cu = (tid / ROWS) % UPC;
-  const int cl = tid / (ROWS * UPC);
-  float bias[4];
-#pragma unroll
-  for (int g = 0; g < 4; ++g)
-    bias[g] = (has_cell && cl == 1) ? b1[g * H + j0 + cu] : 0.0f;
-
-  for (int p = 0; p <= t_len; ++p) {
-    const bool do0 = p < t_len;  // layer 0 at step p
-    const bool do1 = p >= 1;     // layer 1 at step p-1
-    const float* h0prev = h0buf + (size_t)((p + 1) & 1) * batch * H;  // h0(p-1)
-    float* h0new = h0buf + (size_t)(p & 1) * batch * H;               // h0(p)
-    const float* h1prev = h1buf + (size_t)(p & 1) * batch * H;        // h1(p-2)
-    float* h1new = h1buf + (size_t)((p + 1) & 1) * batch * H;         // h1(p-1)
-
-    for (int bt0 = 0; bt0 < batch; bt0 += ROWS) {
-      const int nb = min(ROWS, batch - bt0);
-      const bool cell = has_cell && cr < nb;
-      const int cb = bt0 + cr;
-      // layer 0's ih0 values come from device memory: start them first
-      float ihv[4];
-      if (cell && cl == 0 && do0) {
-        const float* src = ih0 + ((size_t)cb * t_len + p) * H4 + j0 + cu;
-#pragma unroll
-        for (int g = 0; g < 4; ++g) ihv[g] = __ldg(src + g * H);
-      }
-
-      // lane = row, warp = strided float4 columns (H % 4 == 0)
-      __syncthreads();
-      if (lane < nb) {
-        const float4* r0 = reinterpret_cast<const float4*>(h0prev + (size_t)(bt0 + lane) * H);
-        const float4* r1 = reinterpret_cast<const float4*>(h1prev + (size_t)(bt0 + lane) * H);
-        float* d0 = ha + lane * HP;
-        float* d1 = hb + lane * HP;
-        const int h4 = H / 4;
-        for (int q0 = warp; q0 < h4; q0 += NW * LOADS) {
-          float4 v0[LOADS], v1[LOADS];
-#pragma unroll
-          for (int u = 0; u < LOADS; ++u) {
-            const int q = q0 + NW * u;
-            if (q < h4) {
-              v0[u] = __ldcg(r0 + q);
-              v1[u] = __ldcg(r1 + q);
-            }
-          }
-#pragma unroll
-          for (int u = 0; u < LOADS; ++u) {
-            const int q = q0 + NW * u;
-            if (q < h4) {
-              float* e0 = d0 + 4 * q;
-              float* e1 = d1 + 4 * q;
-              e0[0] = v0[u].x; e0[1] = v0[u].y; e0[2] = v0[u].z; e0[3] = v0[u].w;
-              e1[0] = v1[u].x; e1[1] = v1[u].y; e1[2] = v1[u].z; e1[3] = v1[u].w;
-            }
-          }
-        }
-      }
-      __syncthreads();
-
-      float a0[G], a1[G], a2[G];
-#pragma unroll
-      for (int col = 0; col < G; ++col) a0[col] = a1[col] = a2[col] = 0.0f;
-      if (lane < nb) {
-        const float* hr0 = ha + lane * HP;
-        const float* hr1 = hb + lane * HP;
-        for (int k = warp; k < H; k += NW) {
-          const float x = hr0[k];
-          const float y = hr1[k];
-          const float4* wa = reinterpret_cast<const float4*>(w0 + k * G);
-          const float4* wb = reinterpret_cast<const float4*>(wi1 + k * G);
-          const float4* wc = reinterpret_cast<const float4*>(wh1 + k * G);
-#pragma unroll
-          for (int q = 0; q < G / 4; ++q) {
-            const float4 va = wa[q], vb = wb[q], vc = wc[q];
-            a0[4 * q + 0] += x * va.x; a0[4 * q + 1] += x * va.y;
-            a0[4 * q + 2] += x * va.z; a0[4 * q + 3] += x * va.w;
-            a1[4 * q + 0] += x * vb.x; a1[4 * q + 1] += x * vb.y;
-            a1[4 * q + 2] += x * vb.z; a1[4 * q + 3] += x * vb.w;
-            a2[4 * q + 0] += y * vc.x; a2[4 * q + 1] += y * vc.y;
-            a2[4 * q + 2] += y * vc.z; a2[4 * q + 3] += y * vc.w;
-          }
-        }
-      }
-      // red[((w*3 + m)*G + col)*ROWS + row]: lanes write consecutive words
-#pragma unroll
-      for (int col = 0; col < G; ++col) {
-        red[((warp * 3 + 0) * G + col) * ROWS + lane] = a0[col];
-        red[((warp * 3 + 1) * G + col) * ROWS + lane] = a1[col];
-        red[((warp * 3 + 2) * G + col) * ROWS + lane] = a2[col];
-      }
-      __syncthreads();
-
-      if (cell && cl == 0 && do0) {
-        float g4[4];
-#pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          const int col = g * UPC + cu;
-          float s = 0.0f;
-#pragma unroll
-          for (int w = 0; w < NW; ++w) s += red[((w * 3 + 0) * G + col) * ROWS + cr];
-          g4[g] = ihv[g] + s;
-        }
-        const float c = sigmoidf(g4[1]) * c0s[cb * UPC + cu] + sigmoidf(g4[0]) * tanhf(g4[2]);
-        c0s[cb * UPC + cu] = c;
-        h0new[(size_t)cb * H + j0 + cu] = sigmoidf(g4[3]) * tanhf(c);
-      }
-      if (cell && cl == 1 && do1) {
-        float g4[4];
-#pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          const int col = g * UPC + cu;
-          float s1 = 0.0f, s2 = 0.0f;
-#pragma unroll
-          for (int w = 0; w < NW; ++w) {
-            s1 += red[((w * 3 + 1) * G + col) * ROWS + cr];
-            s2 += red[((w * 3 + 2) * G + col) * ROWS + cr];
-          }
-          g4[g] = (s1 + bias[g]) + s2;
-        }
-        const float c = sigmoidf(g4[1]) * c1s[cb * UPC + cu] + sigmoidf(g4[0]) * tanhf(g4[2]);
-        c1s[cb * UPC + cu] = c;
-        const float h = sigmoidf(g4[3]) * tanhf(c);
-        h1new[(size_t)cb * H + j0 + cu] = h;
-        if (p == t_len) out[(size_t)cb * H + j0 + cu] = h;
-      }
-    }
-    grid.sync();
-  }
-}
-
-template <int UPC>
-int launch(const float* ih0, const float* w_hh0, const float* w_ih1,
-           const float* b1, const float* w_hh1, float* h0buf, float* h1buf,
-           float* out, int batch, int t_len, int hidden, int max_smem,
-           cudaStream_t stream) {
-  constexpr int G = 4 * UPC;
-  const size_t smem =
-      (size_t)(3 * hidden * G + NW * 3 * G * ROWS + 2 * ROWS * (hidden + 1) +
-               2 * batch * UPC) * sizeof(float);
-  if (smem > (size_t)max_smem) return kUnsupported;
-  const void* fn = reinterpret_cast<const void*>(&lstm2_infer_kernel<UPC>);
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  void* args[] = {(void*)&ih0,   (void*)&w_hh0, (void*)&w_ih1,
-                  (void*)&b1,    (void*)&w_hh1, (void*)&h0buf,
-                  (void*)&h1buf, (void*)&out,   (void*)&batch,
-                  (void*)&t_len, (void*)&hidden};
-  // refuses (cudaErrorCooperativeLaunchTooLarge) a grid that cannot be
-  // resident all at once, so the grid barrier cannot deadlock
-  err = cudaLaunchCooperativeKernel(fn, dim3(hidden / UPC), dim3(NT), args,
-                                    smem, stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
-}  // namespace
-
-// Units per CTA: the fewest that keep the grid within one CTA per SM
-// (more CTAs would each re-read the whole h state every phase).  A thread
-// runs at most one cell update per pass: 2 * UPC * ROWS <= NT.  UPC 1 and
-// 2 cover H up to twice the SM count (264 on the H100); larger H is
-// refused as unsupported.
+// h0: (T, B, H) for layer 0's series; h1: (2, B, H) slots; carry: (2, B,
+// H) zeros (c); flags: 2,048 zeroed words (each set's row groups' barriers)
 extern "C" int lstm2_infer_launch(const float* ih0, const float* w_hh0,
                                   const float* w_ih1, const float* b1,
-                                  const float* w_hh1, float* h0buf,
-                                  float* h1buf, float* out, int batch,
-                                  int t_len, int hidden, void* stream) {
-  if (batch < 1 || t_len < 1 || hidden < 1 || hidden % 4 != 0) {
-    return kUnsupported;
-  }
-  int dev = 0, sms = 0, max_smem = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&max_smem,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  const cudaStream_t s = (cudaStream_t)stream;
-#define LSTM2_TRY(U)                                                        \
-  if (hidden % (U) == 0 && hidden / (U) <= sms)                             \
-    return launch<U>(ih0, w_hh0, w_ih1, b1, w_hh1, h0buf, h1buf, out,       \
-                     batch, t_len, hidden, max_smem, s);
-  LSTM2_TRY(1)
-  LSTM2_TRY(2)
-#undef LSTM2_TRY
-  return kUnsupported;
+                                  const float* w_hh1, float* h0, float* h1, float* carry,
+                                  unsigned* flags, int batch, int t_len, int hidden,
+                                  int upc, int ncl, int rgroups, int kc, void* stream) {
+  const rnn2_fwd::Args a{ih0, {w_hh0, w_hh1}, w_ih1, {nullptr, nullptr}, b1, h0, h1,
+                         carry, flags, batch, t_len, hidden, upc, ncl, rgroups, kc};
+  return rnn2_fwd::launch<rnn2_fwd::LstmCell>(a, (cudaStream_t)stream);
 }
 
+extern "C" int lstm2_infer_max_clusters(int hidden, int upc, int ncl, int rgroups, int kc,
+                                        int* count) {
+  return rnn2_fwd::max_clusters<rnn2_fwd::LstmCell>(hidden, upc, ncl, rgroups, kc, count);
+}
+
+extern "C" int lstm2_infer_card(int* sms, int* max_smem) {
+  return rnn_chain::card_limits(sms, max_smem);
+}
+
+RNN_TIMERS_EXPORT(lstm2_infer)
+
 extern "C" const char* lstm2_infer_error_string(int err) {
-  if (err == kUnsupported) return "shape not supported by lstm2_infer";
-  return cudaGetErrorString((cudaError_t)err);
+  return rnn_chain::error_string(err, "shape not supported by lstm2_infer");
 }

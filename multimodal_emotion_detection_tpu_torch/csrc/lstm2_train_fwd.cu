@@ -31,7 +31,8 @@
 // 3.35 TB/s), but every step needs the whole previous hidden state of all
 // units, so T+1 device-wide exchanges set the time.
 //
-// Design: lstm2_infer.cu's, plus the residuals.  One persistent cooperative
+// Design: the first 2-layer eval forward's (lstm2_infer.cu before the core
+// rnn2_fwd_chain.cuh), plus the residuals.  One persistent cooperative
 // launch; CTA c owns hidden units [c*UPC, (c+1)*UPC) of both layers, keeps
 // their gate columns of w_hh0, w_ih1 and w_hh1 in shared memory and their
 // cell state in the CTA.  The layers are wavefronted: phase p runs layer 0
@@ -317,7 +318,7 @@ int launch(const float* ih0, const float* keep, const float* w_hh0,
 }
 
 // Units per CTA: the fewest that keep the grid within one CTA per SM, as in
-// lstm2_infer.cu.  UPC 1 and 2 cover H up to twice the SM count (264 on the
+// the first 2-layer designs.  UPC 1 and 2 cover H up to twice the SM count (264 on the
 // H100); larger H is refused as unsupported.
 template <bool STORE_GATES, bool LEGACY>
 int dispatch(const float* ih0, const float* keep, const float* w_hh0,

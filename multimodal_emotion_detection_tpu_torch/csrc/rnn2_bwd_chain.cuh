@@ -1,6 +1,6 @@
 // The 2-layer reverse chain core for Hopper (sm_90a), built like the
 // one-layer core rnn_bwd_chain.cuh; gru2_bwd_chain.cu instantiates it with
-// GruCell.
+// GruCell, lstm2_bwd_chain.cu with LstmCell.
 //
 // Both layers' reverse chains walk t = T-1 .. 0.  Layer 1's step needs
 //
@@ -13,13 +13,17 @@
 //
 // over x0, the row layer 0 wrote at step t+1, and f, the row layer 1 wrote
 // at step t (the hop into the layer below).  GRU: x = [dih[:, :2H] | dhn],
-// f = dih1, all 3H wide.
+// f = dih1, all 3H wide, and carry_l the direct part dh z; LSTM: x = dg,
+// f = dg1, all 4H wide, and no carry term in dh (dh_final enters at layer
+// 1's first step; the cell carries dc).
 //
-// What bounded the first design (csrc/gru2_bwd_chain.cu before this core;
-// the legacy form gru2_bwd_chain_legacy.cu keeps it): every CTA owned
-// units of both layers and read, every phase, the whole exchanged rows of
-// both (dih1 | dhn1 | dih0 | dhn0, 2 x B x 3H floats) from L2, its 8 warps
-// one batch row each, and one grid.sync() a phase.
+// What bounded the first designs (csrc/gru2_bwd_chain.cu and
+// lstm2_bwd_chain.cu before this core; the legacy forms
+// gru2_bwd_chain_legacy.cu and lstm2_bwd_chain_legacy.cu keep them): every
+// CTA owned units of both layers and read, every phase, the whole
+// exchanged rows of both (dih1 | dhn1 | dih0 | dhn0, 2 x B x 3H floats;
+// dg1 | dg0, 2 x B x 4H) from L2, its 8 warps one batch row each, and one
+// grid.sync() a phase.
 //
 // Design.  The two layers run on disjoint CTA sets of one cooperative
 // launch, each a one-layer core as rnn_bwd_chain.cuh's:
@@ -27,13 +31,13 @@
 // * The lead set (blockIdx < H / UPC: layer 1) is the one-layer chain over
 //   x1 with w_hh1.  It waits only for itself, so it runs ahead.
 // * The follow set (the next H / UPC CTAs: layer 0) is the one-layer chain
-//   over the row [x0 | f] (6H wide for the GRU) with the weight row
-//   [w_hh0[j] | w_ih1[j]].  Its clusters split that row's columns as the
-//   one-layer core splits its own, so with an even cluster the first half
-//   of the ranks form the recurrent product and the second half the hop;
-//   a rank whose share spans both (a cluster of 1) forms them one after
-//   the other.  The partials meet per segment through distributed shared
-//   memory, and the cell adds keep[t] x the hop's.  Its step t waits for
+//   over the row [x0 | f] (6H wide for the GRU, 8H for the LSTM) with the
+//   weight row [w_hh0[j] | w_ih1[j]].  Its clusters split that row's
+//   columns as the one-layer core splits its own, so with an even cluster
+//   the first half of the ranks form the recurrent product and the second
+//   half the hop; a rank whose share spans both (a cluster of 1) forms them
+//   one after the other.  The partials meet per segment through
+//   distributed shared memory, and the cell adds keep[t] x the hop's.  Its step t waits for
 //   its own set's step t+1 and for the lead set's step t.
 // * Everything else is the one-layer core's, its products
 //   (rnn_bwd::piece_products) included: the launch plan
@@ -45,9 +49,10 @@
 //   reduce-scatter unrolled at compile time; cp.async-staged shares; a
 //   release / acquire flag per CTA, a flag block per set and row group,
 //   instead of grid.sync() (the follow set polls both blocks at once).
-// * The lead set's first step has no product (its carry is dh_final), the
-//   follow set's first step only the hop (its carry is zero); exactly T
-//   steps run in each set, T + 1 phases on the critical path.
+// * The lead set's first step has no product (dh_final enters through its
+//   carry for the GRU, through the cell's own load for the LSTM), the
+//   follow set's first step only the hop; exactly T steps run in each set,
+//   T + 1 phases on the critical path.
 //
 // Any B >= 1; H % 4 == 0 with 2 H / UPC <= the SM count.  Built with
 // -DRNN_CHAIN_TIMERS=1 each warp splits its steps into the buckets of
@@ -71,14 +76,17 @@ using rnn_bwd::piece_products;
 using rnn_bwd::unit_block;
 
 struct Args {
-  const float* res;      // GRU: packed (T, B, 8H), layer l's [r | z | n | hn] at 4H l
-  const float* prev[2];  // layer l's h_prev (T, B, H)
-  const float* keep;     // (T, B, H): the hop's mask
+  const float* res;       // GRU: packed (T, B, 8H), layer l's [r | z | n | hn] at 4H l;
+                          // LSTM: packed (T, B, 10H) = [g0 | g1 | c0_prev | c1_prev]
+  const float* prev[2];   // GRU: layer l's h_prev (T, B, H); LSTM unused
+  const float* keep;      // (T, B, H): the hop's mask
+  const float* dh_final;  // LSTM: (B, H), read at layer 1's first step; GRU unused
   const float* w_own[2];  // layer l's w_hh (H, G)
   const float* w_feed;    // w_ih1 (H, G): the hop
-  float* out[2];          // GRU: layer l's dih (T, B, 3H)
-  float* out_n[2];        // GRU: layer l's dhn (T, B, H)
-  float* carry;           // (2, B, H): layer l's at l B H (layer 1's starts as dh_final)
+  float* out[2];          // GRU: layer l's dih (T, B, 3H); LSTM: its dg (T, B, 4H)
+  float* out_n[2];        // GRU: layer l's dhn (T, B, H); LSTM unused
+  float* carry;           // (2, B, H): layer l's at l B H (GRU: layer 1's starts as
+                          // dh_final; LSTM: dc, zeros)
   unsigned* flags;        // 2 x kPairSetFlags (zero): the lead set's, then the follow set's
   int batch, t_len, hidden, upc, ncl, rgroups, kc;
 };
@@ -140,6 +148,46 @@ struct GruCell {
     if (seg == 1) return a.out[1] + row * 3 * H + 4 * c;
     return c < H / 2 ? of_layer(a.out, layer) + row * 3 * H + 4 * c
                      : of_layer(a.out_n, layer) + row * H + 4 * (c - H / 2);
+  }
+};
+
+// Two LSTM layers: residuals from the packed row [g0 | g1 | c0_prev |
+// c1_prev] (layer l's gates at 4H l, its c_prev at 8H + H l); the exchanged
+// row is dg (4H) and the feed layer 1's dg; the carry is dc.  dh_final
+// enters at layer 1's first step, loaded there, so no register holds it
+// across the products.
+struct LstmCell {
+  static constexpr int kWidth = 4;
+  struct Res {
+    float g[4], cp, keep, carry;
+  };
+  __device__ static void load(const Args& a, int layer, int t, int b, int j, Res& r) {
+    const int H = a.hidden;
+    const size_t BH = (size_t)a.batch * H, o = (size_t)b * H + j;
+    const float* p = a.res + ((size_t)t * a.batch + b) * 10 * H + j;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) r.g[i] = __ldg(p + 4 * H * layer + i * H);
+    r.cp = __ldg(p + 8 * H + H * layer);
+    r.keep = layer == 0 ? __ldg(a.keep + t * BH + o) : 0.0f;
+    r.carry = a.carry[layer * BH + o];
+  }
+  // own: the recurrent product's dh; feed: the hop's (layer 0)
+  __device__ static void step(const Args& a, int layer, int t, int b, int j,
+                              const Res& r, float own, float feed) {
+    const int H = a.hidden;
+    const size_t BH = (size_t)a.batch * H, o = (size_t)b * H + j;
+    float dh = own + r.keep * feed;
+    if (layer == 1 && t == a.t_len - 1) dh += __ldg(a.dh_final + o);
+    a.carry[layer * BH + o] = rnn_bwd::lstm_cell_bwd(
+        r.g, r.cp, dh, r.carry,
+        of_layer(a.out, layer) + ((size_t)t * a.batch + b) * 4 * H + j, H);
+  }
+  // float4 column c of row b of segment seg at step t: the layer's own dg,
+  // or (seg 1) layer 1's
+  __device__ static const float* src(const Args& a, int layer, int seg, int t, int b,
+                                     int c) {
+    const size_t row = (size_t)t * a.batch + b;
+    return (seg == 1 ? a.out[1] : of_layer(a.out, layer)) + row * 4 * a.hidden + 4 * c;
   }
 };
 

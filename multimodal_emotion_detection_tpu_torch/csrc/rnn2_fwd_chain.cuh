@@ -1,6 +1,6 @@
 // The 2-layer forward core for Hopper (sm_90a), built like the one-layer
 // forward core rnn_fwd_chain.cuh; gru2_infer.cu instantiates its eval
-// form with GruCell.
+// form with GruCell, lstm2_infer.cu with LstmCell.
 //
 // Both layers walk t = 0 .. T-1 from zero state.  Layer 0's step needs,
 // for each batch row b and each of its W H gate columns,
@@ -12,13 +12,14 @@
 //   rec1[b][q H + j] = sum_k h1(t-1)[b][k] w_hh1[k][q H + j]   and
 //   in1[b][q H + j]  = sum_k h0(t)[b][k]   w_ih1[k][q H + j]
 //
-// (GRU: W = 3, r, z, n; the input projection of layer 0, ih0 = x w_ih0 +
-// b_ih0, is one matrix product outside, batch-major (B, T, W H)).
+// (GRU: W = 3, r, z, n; LSTM: W = 4, i, f, g, o; the input projection of
+// layer 0, ih0 = x w_ih0 + b_ih0 (LSTM + b0), is one matrix product
+// outside, batch-major (B, T, W H)).
 //
-// What bounded the first design (csrc/gru2_infer.cu before this core):
-// every CTA owned units of both layers and read h0 and h1 whole from L2
-// every phase (64 KiB a CTA at (32, 372, 256)), its 8 warps' partial sums
-// met in shared memory, and one grid.sync() a phase.
+// What bounded the first designs (csrc/gru2_infer.cu and lstm2_infer.cu
+// before this core): every CTA owned units of both layers and read h0 and
+// h1 whole from L2 every phase (64 KiB a CTA at (32, 372, 256)), its 8
+// warps' partial sums met in shared memory, and one grid.sync() a phase.
 //
 // Design: rnn2_bwd_chain.cuh's, transposed.  The two layers run on
 // disjoint CTA sets of one cooperative launch, each a one-layer forward
@@ -33,9 +34,9 @@
 //   with an even cluster the first half of the ranks form the recurrent
 //   product and the second half the input one; a rank whose share spans
 //   both (a cluster of 1) forms them one after the other.  The partials
-//   meet per segment through distributed shared memory; the cell adds
+//   meet per segment through distributed shared memory; the GRU cell adds
 //   b_ih1 to the input's, b_hh1 to the recurrent's (its n third inside the
-//   reset product).  Its step t waits for its own set's step t-1 and the
+//   reset product), the LSTM cell its one bias b1.  Its step t waits for its own set's step t-1 and the
 //   lead set's step t.  It keeps h1 in two (B, H) slots used in turn, of
 //   which slot (T-1) % 2 holds the final h1; a CTA releases step t only
 //   after its cp.async reads of step t's sources have completed.
@@ -46,8 +47,8 @@
 //   register-blocked accumulators with the reduce-scatter unrolled at
 //   compile time, cp.async-staged shares, a release / acquire flag per
 //   CTA instead of grid.sync() (the follow set polls both blocks at
-//   once), the carry (h) in the cell thread's register where one pass
-//   covers the row group, else in a (2, B, H) buffer of zeros.
+//   once), the carry (GRU h, LSTM c) in the cell thread's register where
+//   one pass covers the row group, else in a (2, B, H) buffer of zeros.
 // * The lead set's first step has no product, the follow set's first step
 //   only the input one; exactly T steps run in each set, T + 1 phases on
 //   the critical path.
@@ -77,11 +78,11 @@ struct Args {
   const float* ih;        // (B, T, W H): layer 0's hoisted input projection
   const float* w_own[2];  // layer l's w_hh (H, W H)
   const float* w_feed;    // w_ih1 (H, W H)
-  const float* b_own[2];  // GRU: layer l's b_hh (W H)
-  const float* b_feed;    // GRU: b_ih1 (W H)
+  const float* b_own[2];  // GRU: layer l's b_hh (W H); LSTM unused
+  const float* b_feed;    // GRU: b_ih1 (W H); LSTM: layer 1's b1 (W H)
   float* h0;              // (T, B, H): layer 0's h series
   float* h1;              // (2, B, H): layer 1's h, two slots used in turn
-  float* carry;           // (2, B, H) zeros: layer l's at l B H
+  float* carry;           // (2, B, H) zeros: layer l's (GRU h, LSTM c) at l B H
   unsigned* flags;        // 2 x kPairSetFlags (zero): the lead set's, then the follow set's
   int batch, t_len, hidden, upc, ncl, rgroups, kc;
 };
@@ -100,6 +101,29 @@ __host__ __device__ inline int smem_floats(int width, int hidden, int upc,
   const int ldx = round32(4 * kc) + 4;
   const int kw = group_warps(nu);
   return no * ldw + slots * PH * ldx + (kw > 1 ? kw * PH * no : 0) + 4 * PH * no;
+}
+
+// a cell's h of step t: layer 0's into its series, layer 1's into slot t % 2
+__device__ __forceinline__ void put_h(const Args& a, int layer, int t, int b, int j,
+                                      float h) {
+  const size_t o = (size_t)b * a.hidden + j;
+  if (layer == 0) {
+    a.h0[(size_t)t * a.batch * a.hidden + o] = h;
+  } else {
+    a.h1[(size_t)(t & 1) * a.batch * a.hidden + o] = h;
+  }
+}
+
+// float4 column c of row b of segment seg read at step t: the layer's own
+// h of step t - 1, or (seg 1) h0 of step t
+__device__ __forceinline__ const float* h_src(const Args& a, int layer, int seg, int t,
+                                              int b, int c) {
+  const int H = a.hidden;
+  if (seg == 1 || layer == 0) {
+    const int step = seg == 1 ? t : t - 1;
+    return a.h0 + ((size_t)step * a.batch + b) * H + 4 * c;
+  }
+  return a.h1 + ((size_t)((t - 1) & 1) * a.batch + b) * H + 4 * c;
 }
 
 // Two GRU layers, eval form: gates r, z, n with b_hh beside the recurrent
@@ -127,29 +151,50 @@ struct GruCell {
   __device__ static float step(const Args& a, int layer, int t, int b, int j,
                                const In& in, const float (&own)[3],
                                const float (&feed)[3], float hp) {
-    const int H = a.hidden;
     const float r = sigmoidf_(in.x[0] + feed[0] + own[0] + in.bh[0]);
     const float z = sigmoidf_(in.x[1] + feed[1] + own[1] + in.bh[1]);
     const float n = tanhf(in.x[2] + feed[2] + r * (own[2] + in.bh[2]));
     const float h = (1.0f - z) * n + z * hp;
-    const size_t o = (size_t)b * H + j;
-    if (layer == 0) {
-      a.h0[(size_t)t * a.batch * H + o] = h;
-    } else {
-      a.h1[(size_t)(t & 1) * a.batch * H + o] = h;
-    }
+    put_h(a, layer, t, b, j, h);
     return h;
   }
-  // float4 column c of row b of segment seg read at step t: the layer's
-  // own h of step t - 1, or (seg 1) h0 of step t
   __device__ static const float* src(const Args& a, int layer, int seg, int t, int b,
                                      int c) {
+    return h_src(a, layer, seg, t, b, c);
+  }
+};
+
+// Two LSTM layers, eval form: gates i, f, g, o; the input part is layer
+// 0's ih0 (b0 inside it), or layer 1's product with h0 plus b1.  The carry
+// is c; h goes out through the h0 series or h1's slots.
+struct LstmCell {
+  static constexpr int kWidth = 4;
+  struct In {
+    float x[4];  // ih0 (layer 0) or b1 (layer 1)
+  };
+  __device__ static void load(const Args& a, int layer, int t, int b, int j, In& in) {
     const int H = a.hidden;
-    if (seg == 1 || layer == 0) {
-      const int step = seg == 1 ? t : t - 1;
-      return a.h0 + ((size_t)step * a.batch + b) * H + 4 * c;
-    }
-    return a.h1 + ((size_t)((t - 1) & 1) * a.batch + b) * H + 4 * c;
+    const float* x = layer == 0 ? a.ih + ((size_t)b * a.t_len + t) * 4 * H : a.b_feed;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) in.x[i] = __ldg(x + i * H + j);
+  }
+  // own: the recurrent products of the unit's 4 gate columns; feed: the
+  // input products (layer 1; zero for layer 0); cp: the carry c before the
+  // step; returns c after it
+  __device__ static float step(const Args& a, int layer, int t, int b, int j,
+                               const In& in, const float (&own)[4],
+                               const float (&feed)[4], float cp) {
+    float g[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) g[i] = in.x[i] + feed[i] + own[i];
+    const float c = sigmoidf_(g[1]) * cp + sigmoidf_(g[0]) * tanhf(g[2]);
+    const float h = sigmoidf_(g[3]) * tanhf(c);
+    put_h(a, layer, t, b, j, h);
+    return c;
+  }
+  __device__ static const float* src(const Args& a, int layer, int seg, int t, int b,
+                                     int c) {
+    return h_src(a, layer, seg, t, b, c);
   }
 };
 

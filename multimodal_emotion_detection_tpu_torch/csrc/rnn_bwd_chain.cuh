@@ -115,6 +115,21 @@ __host__ __device__ inline int smem_floats(int width, int hidden, int upc,
   return nu * ldw + slots * PH * ldx + 64 * unit_block(nu) + 2 * PH * nu;
 }
 
+// One LSTM step backward for one (row, unit): gate pre-activations g (i,
+// f, g, o), c_prev, dh, dc -> the 4 dgates at out[q H]; returns dc_prev
+__device__ __forceinline__ float lstm_cell_bwd(const float (&g)[4], float cp, float dh,
+                                               float dc, float* out, int H) {
+  const float si = sigmoidf_(g[0]), sf = sigmoidf_(g[1]);
+  const float so = sigmoidf_(g[3]), tg = tanhf(g[2]);
+  const float tc = tanhf(sf * cp + si * tg);
+  const float dcs = dc + dh * so * (1.0f - tc * tc);
+  out[0] = dcs * tg * si * (1.0f - si);
+  out[H] = dcs * cp * sf * (1.0f - sf);
+  out[2 * H] = dcs * si * (1.0f - tg * tg);
+  out[3 * H] = dh * tc * so * (1.0f - so);
+  return dcs * sf;
+}
+
 // One LSTM layer: residuals g (4 gate pre-activations) and c_prev; the
 // exchanged row is dg (4H); the carry dc.
 struct LstmCell {
@@ -139,16 +154,8 @@ struct LstmCell {
                               const Res& r, float rec) {
     const int H = a.hidden;
     const float dh = (first ? r.dhf : rec) + r.dhs;
-    const float si = sigmoidf_(r.g[0]), sf = sigmoidf_(r.g[1]);
-    const float so = sigmoidf_(r.g[3]), tg = tanhf(r.g[2]);
-    const float tc = tanhf(sf * r.cp + si * tg);
-    const float dcs = r.carry + dh * so * (1.0f - tc * tc);
-    float* out = a.out + ((size_t)t * a.batch + b) * 4 * H + j;
-    out[0] = dcs * tg * si * (1.0f - si);
-    out[H] = dcs * r.cp * sf * (1.0f - sf);
-    out[2 * H] = dcs * si * (1.0f - tg * tg);
-    out[3 * H] = dh * tc * so * (1.0f - so);
-    a.carry[(size_t)b * H + j] = dcs * sf;
+    a.carry[(size_t)b * H + j] = lstm_cell_bwd(
+        r.g, r.cp, dh, r.carry, a.out + ((size_t)t * a.batch + b) * 4 * H + j, H);
   }
   // float4 column c of row b of step t's exchanged row
   __device__ static const float* src(const Args& a, int t, int b, int c) {

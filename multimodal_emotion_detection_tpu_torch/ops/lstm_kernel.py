@@ -11,11 +11,14 @@ plain version on the CPU.
 Two layers in one launch (H up to twice the SM count):
 
 * ``lstm2_infer``: final hidden state (B, H) from zero state
-  (``csrc/lstm2_infer.cu``);
+  (``csrc/lstm2_infer.cu`` on the 2-layer forward core
+  ``csrc/rnn2_fwd_chain.cuh``, split by ``chain_plan(forward=True,
+  layers=2)``);
 * ``lstm2_train_fwd_residuals``: the training forward, time-major, with
   the residuals the backward consumes (``csrc/lstm2_train_fwd.cu``);
 * ``lstm2_bwd_chain``: the reverse dgates chain of both layers over those
-  residuals (``csrc/lstm2_bwd_chain.cu``);
+  residuals (``csrc/lstm2_bwd_chain.cu`` on the 2-layer reverse core
+  ``csrc/rnn2_bwd_chain.cuh``, split by ``chain_plan(layers=2)``);
 * ``lstm2_train_fwd_residuals(store_gates=False)`` and
   ``lstm2_bwd_chain_remat``: the gate-rematerialising pair
   (``runtime.lstm_remat_gates``).  The forward (the same source, its
@@ -24,14 +27,16 @@ Two layers in one launch (H up to twice the SM count):
   pre-activations from the streamed x, h_prev and x1 series.
 
 The legacy-layout twins of the pair (the routes of the JAX package's
-``set_res2_mode("off")``; the same sources, their legacy forms):
+``set_res2_mode("off")``):
 
-* ``lstm2_train_fwd_legacy``: the training forward in the older layout,
-  ``res`` (T, B, 12H) = ``[g0 | g1 | h0 | h1 | c0 | c1]`` with the states
-  AFTER each step, and ``h_final`` (B, H);
+* ``lstm2_train_fwd_legacy``: the training forward in the older layout
+  (``csrc/lstm2_train_fwd.cu``'s legacy form), ``res`` (T, B, 12H) =
+  ``[g0 | g1 | h0 | h1 | c0 | c1]`` with the states AFTER each step, and
+  ``h_final`` (B, H);
 * ``lstm2_bwd_chain_legacy``: both layers' reverse chain over that
   layout's separate g / c_prev series, with an optional ``dys`` stream,
-  into ``dg`` (T, B, 8H) = ``[dg0 | dg1]``.
+  into ``dg`` (T, B, 8H) = ``[dg0 | dg1]`` (``csrc/lstm2_bwd_chain_legacy.cu``,
+  the first 2-layer design).
 
 One layer per launch, any depth (H up to at least 1024):
 
@@ -137,7 +142,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 LSTM2_INFER = CudaKernel(
     "lstm2_infer", "lstm2_infer_launch",
-    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    [_P] * 9 + [_I] * 7 + [_P],
 )
 
 
@@ -145,18 +150,17 @@ def lstm2_infer(x: torch.Tensor, layer0: Params, layer1: Params) -> torch.Tensor
     """x (B, T, D) -> final h of layer 1 (B, H), float32.
 
     On a CUDA tensor this launches ``csrc/lstm2_infer.cu`` (one cooperative
-    launch for the whole sequence) and counts it in
-    ``LSTM2_INFER.launches``; on a CPU tensor it runs
+    cluster launch for the whole sequence on ``chain_plan_on``'s 2-layer
+    forward plan: layer 0 on one CTA set, layer 1 on another) and counts it
+    in ``LSTM2_INFER.launches``; on a CPU tensor it runs
     ``lstm2_infer_reference``.  Any other device raises.
     """
     if x.device.type == "cpu":
         return lstm2_infer_reference(x, layer0, layer1)
     batch, t_len, _ = x.shape
     h_dim = layer0["w_hh"].shape[0]
-    if t_len < 1:
-        raise ValueError("lstm2_infer: the sequence has no steps")
-    if h_dim % 4:
-        raise ValueError(f"lstm2_infer: hidden size {h_dim} is not a multiple of 4")
+    if t_len < 1 or batch < 1:
+        raise ValueError(f"lstm2_infer: empty input of shape {tuple(x.shape)}")
     ih0 = _input_projection(x, layer0).contiguous()
     w_hh0 = layer0["w_hh"].contiguous()
     w_ih1 = layer1["w_ih"].contiguous()
@@ -165,18 +169,23 @@ def lstm2_infer(x: torch.Tensor, layer0: Params, layer1: Params) -> torch.Tensor
     square = (h_dim, 4 * h_dim)
     _check_shapes("lstm2_infer", w_hh0=(w_hh0, square), w_ih1=(w_ih1, square),
                   b1=(b1, (4 * h_dim,)), w_hh1=(w_hh1, square))
-    # h state exchanged between the kernel's blocks, double-buffered per
-    # layer; the kernel reads slot 1 of each as the zero initial state
-    h_state = torch.zeros((2, 2, batch, h_dim), dtype=torch.float32, device=x.device)
-    out = torch.empty((batch, h_dim), dtype=torch.float32, device=x.device)
+    # the kernel's CTAs exchange h through these: layer 0's whole series
+    # (layer 1 reads it a step behind), layer 1's two slots used in turn;
+    # the carries c (zeros)
+    new = dict(dtype=torch.float32, device=x.device)
+    h0 = torch.empty((t_len, batch, h_dim), **new)
+    h1 = torch.empty((2, batch, h_dim), **new)
+    carry = torch.zeros((2, batch, h_dim), **new)
     check_cuda_f32("lstm2_infer", ih0=ih0, w_hh0=w_hh0, w_ih1=w_ih1, b1=b1,
-                   w_hh1=w_hh1, h_state=h_state, out=out)
+                   w_hh1=w_hh1)
+    plan, flags = _pair_launch("lstm2_infer", 4, batch, h_dim, x.device, forward=True)
     LSTM2_INFER(
         ih0.data_ptr(), w_hh0.data_ptr(), w_ih1.data_ptr(), b1.data_ptr(),
-        w_hh1.data_ptr(), h_state[0].data_ptr(), h_state[1].data_ptr(),
-        out.data_ptr(), batch, t_len, h_dim, stream_of(x),
+        w_hh1.data_ptr(), h0.data_ptr(), h1.data_ptr(), carry.data_ptr(),
+        flags.data_ptr(), batch, t_len, h_dim, plan.upc, plan.ncl, plan.rgroups,
+        plan.kc, stream_of(x),
     )
-    return out
+    return h1[(t_len - 1) % 2]
 
 
 # ---------------------------------------------------------------------------
@@ -334,7 +343,7 @@ LSTM2_TRAIN_FWD_NOGATES = CudaKernel(
 )
 LSTM2_BWD_CHAIN = CudaKernel(
     "lstm2_bwd_chain", "lstm2_bwd_chain_launch",
-    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    [_P] * 10 + [_I] * 7 + [_P],
 )
 LSTM2_BWD_CHAIN_REMAT = CudaKernel(
     "lstm2_bwd_chain_remat", "lstm2_bwd_chain_remat_launch",
@@ -410,9 +419,11 @@ def lstm2_bwd_chain(packed: torch.Tensor, keep_tm: torch.Tensor,
     """Reverse dgates chain: ``(dg0, dg1)``, each (T, B, 4H) float32.
 
     On a CUDA tensor this launches ``csrc/lstm2_bwd_chain.cu`` (one
-    cooperative launch) and counts it in ``LSTM2_BWD_CHAIN.launches``; on a
-    CPU tensor it runs ``lstm2_bwd_chain_reference``.  ``dys`` (a
-    sequence-output cotangent) is not taken: it raises.
+    cooperative cluster launch on ``chain_plan_on``'s 2-layer plan: layer 1
+    on one CTA set, layer 0 on another) and counts it in
+    ``LSTM2_BWD_CHAIN.launches``; on a CPU tensor it runs
+    ``lstm2_bwd_chain_reference``.  ``dys`` (a sequence-output cotangent)
+    is not taken: it raises.
     """
     _refuse_dys(dys)
     if packed.device.type == "cpu":
@@ -435,10 +446,15 @@ def lstm2_bwd_chain(packed: torch.Tensor, keep_tm: torch.Tensor,
     dg1 = torch.empty((t_len, batch, 4 * h_dim), **new)
     check_cuda_f32("lstm2_bwd_chain", packed=packed, keep=keep, dh_final=dh,
                    w_hh0=w_hh0, w_hh1=w_hh1, w_ih1=w_ih1)
+    plan, flags = _pair_launch("lstm2_bwd_chain", 4, batch, h_dim, packed.device,
+                               forward=False)
+    # the dc carries, zeros; dh_final enters at layer 1's first step
+    carry = torch.zeros((2, batch, h_dim), **new)
     LSTM2_BWD_CHAIN(
         packed.data_ptr(), keep.data_ptr(), dh.data_ptr(), w_hh0.data_ptr(),
         w_hh1.data_ptr(), w_ih1.data_ptr(), dg0.data_ptr(), dg1.data_ptr(),
-        batch, t_len, h_dim, stream_of(packed),
+        carry.data_ptr(), flags.data_ptr(), batch, t_len, h_dim, plan.upc,
+        plan.ncl, plan.rgroups, plan.kc, stream_of(packed),
     )
     return dg0, dg1
 
@@ -547,7 +563,7 @@ LSTM2_TRAIN_FWD_LEGACY = CudaKernel(
     [_P] * 8 + [_I, _I, _I, _P],
 )
 LSTM2_BWD_CHAIN_LEGACY = CudaKernel(
-    "lstm2_bwd_chain", "lstm2_bwd_chain_legacy_launch",
+    "lstm2_bwd_chain_legacy", "lstm2_bwd_chain_legacy_launch",
     [_P] * 11 + [_I, _I, _I, _P],
 )
 
@@ -586,8 +602,8 @@ def lstm2_bwd_chain_legacy(g0: torch.Tensor, g1: torch.Tensor, cp0: torch.Tensor
     H) is the sequence output's cotangent, or ``None``, and then the kernel
     reads no stream.
 
-    On a CUDA tensor this launches ``csrc/lstm2_bwd_chain.cu``'s legacy
-    form (one cooperative launch) and counts it in
+    On a CUDA tensor this launches ``csrc/lstm2_bwd_chain_legacy.cu`` (the
+    first 2-layer design, one cooperative launch) and counts it in
     ``LSTM2_BWD_CHAIN_LEGACY.launches``; on a CPU tensor it runs
     ``lstm2_bwd_chain_legacy_reference``.
     """

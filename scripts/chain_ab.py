@@ -23,6 +23,12 @@ inputs:
   7f), their eval forms ``lstm1_infer`` (6e) and ``gru1_infer`` (7e) with
   the h series out and with the final h only (two slots), and the eval
   forms at B=1 (the b1 serving forward's shape);
+* the flagship's 2-layer kernels (LSTM 2x256, ``chip_smoke.py``'s
+  ``[lstm2_bwd_chain]`` / ``[lstm2_infer]`` inputs): ``lstm2_bwd_chain``
+  (row 12) at (32, 372, 256) over the flagship's own residuals, beside
+  cuDNN's backward of ``h_n``; and ``lstm2_infer`` (row 2, the input
+  projection included) at B = 32, 24, 16, 4 and 1, beside cuDNN's 2-layer
+  LSTM inference forward at B 32 and 1;
 * the GRU config's 2-layer kernels (GRU 2x256, ``chip_smoke.py``'s
   ``[gru2_bwd_chain]`` / ``[gru2_infer]`` inputs): ``gru2_bwd_chain``
   (row 15) at (32, 372, 256) over the config's own residuals, beside the
@@ -32,10 +38,11 @@ inputs:
   ``gru2_infer`` (row 3, the input projection included) at B = 32, 24,
   16, 4 and 1, beside cuDNN's 2-layer GRU inference forward at B 32 and 1.
 
-``--timers`` then builds rows 4, 7, 6, 7f, 15 and 3 of both trees with
-``-DRNN_CHAIN_TIMERS=1`` (``csrc/rnn_timers.cuh``) and prints, for each at
-(32, 372, 512) (the chains with ``dh_series``; rows 15 and 3 at the GRU
-config's (32, 372, 256)), each phase's share of the
+``--timers`` then builds rows 4, 7, 6, 7f, 12, 2, 15 and 3 of both trees
+with ``-DRNN_CHAIN_TIMERS=1`` (``csrc/rnn_timers.cuh``) and prints, for
+each at (32, 372, 512) (the chains with ``dh_series``; the 2-layer rows
+12, 2, 15 and 3 at (32, 372, 256), one block per CTA set), each phase's
+share of the
 warps' ``clock64()`` time and the cycles per step and warp, with the
 launch plan where the tree has one.  A tree whose sources
 predate the timers has no timed build: ``--timers-parent TDIR`` names a
@@ -46,10 +53,10 @@ resident cluster counts, and the exchange alone (write, barrier, read);
 ``--sweep`` times rows 4, 7, 6 and 7f of this checkout on variants of the
 launch plan (chunk, cluster size, row groups; and at B 1..24 each row-group
 count).  ``--steps`` (with ``--parent``)
-adds ``[train_big]`` / ``[train_big_gru]`` / ``[train_gru]``'s b32
-train-step p50 / p90 and ``[serve_big]`` / ``[serve_big_gru]`` /
-``[serve_gru]``'s b32 and b1 forward p50 / p90 with each tree's package,
-parent / change / change / parent.  ``--child ROOT``, ``--timers-of
+adds ``[train]`` / ``[train_big]`` / ``[train_big_gru]`` / ``[train_gru]``'s
+b32 train-step p50 / p90 and ``[serve]`` / ``[serve_big]`` /
+``[serve_big_gru]`` / ``[serve_gru]``'s b32 and b1 forward p50 / p90 with
+each tree's package, parent / change / change / parent.  ``--child ROOT``, ``--timers-of
 ROOT``, ``--steps-of ROOT``, ``--probe`` and ``--sweep`` alone run one
 part.
 
@@ -104,8 +111,35 @@ def _port(root: Path):
     return _build, lstm_kernel
 
 
-# batches at which row 3 (the GRU config's eval forward) is timed
+# batches at which rows 2 and 3 (the 2-layer eval forwards) are timed
 GRU2_INFER_B = (32, 24, 16, 4, 1)
+# the 2-layer kernels' sources: two CTA sets, T + 1 phases
+PAIR_SOURCES = ("lstm2_bwd_chain", "lstm2_infer", "gru2_bwd_chain", "gru2_infer")
+
+
+def _lstm2_cases(torch, smoke, lk):
+    """Rows 12 and 2 on the flagship's inputs (``chip_smoke.py``'s
+    ``[lstm2_bwd_chain]`` and ``[lstm2_infer]``): name -> (run, None,
+    cuDNN's same function or None)."""
+    import numpy as np
+
+    cases = {}
+    x_tm, keep, l0, l1 = smoke._lstm_train_inputs(3)
+    t, b, _ = x_tm.shape
+    h = l0["w_hh"].shape[0]
+    packed = lk.lstm2_train_fwd_reference(x_tm, keep, l0, l1)[0]
+    dh = torch.from_numpy(np.random.RandomState(4).randn(b, h).astype(np.float32)).cuda()
+    args = (packed, keep, dh, l0["w_hh"], l1["w_hh"], l1["w_ih"])
+    lib = smoke._cudnn_lstm(l0, l1)
+    x = x_tm.transpose(0, 1).contiguous()
+    cases["lstm2_bwd_chain_h256"] = (lambda: lk.lstm2_bwd_chain(*args), None,
+                                     _lib_bwd(torch, lib, lib(x)[1][0][-1], dh))
+    for rows in GRU2_INFER_B:
+        xr = x[:rows].contiguous()
+        cases[f"lstm2_infer_b{rows}_h256"] = (
+            lambda xr=xr: lk.lstm2_infer(xr, l0, l1), None,
+            _no_grad(torch, lambda xr=xr: lib(xr)) if rows in (32, 1) else None)
+    return cases
 
 
 def _gru2_cases(torch, smoke, lk):
@@ -257,7 +291,8 @@ def child(root: Path) -> dict:
     _, lk = _port(root)
     flush = smoke.L2Flush()
     res = {"root": str(root), "card": _smi()}
-    cases = {**_cases(torch, smoke, lk), **_gru2_cases(torch, smoke, lk)}
+    cases = {**_cases(torch, smoke, lk), **_lstm2_cases(torch, smoke, lk),
+             **_gru2_cases(torch, smoke, lk)}
     for name, (with_series, without, lib) in cases.items():
         res[f"{name}_ms"] = smoke.device_ms(with_series, flush)
         if without is not None:
@@ -289,11 +324,12 @@ def _forward_latency(torch, smoke, cfg, overrides, root, raw, video, res, tag):
 
 
 def steps_of(root: Path) -> dict:
-    """``[train_big]`` / ``[train_big_gru]`` / ``[train_gru]``'s
+    """``[train]`` / ``[train_big]`` / ``[train_big_gru]`` / ``[train_gru]``'s
     train-step latency with ``root``'s package: b32 p50 and p90 of 60 steps
     (host clock around ``synchronize``), ``chip_smoke.py``'s configuration
-    and measurement on synthetic 32-clip splits with log-mel cached; and
-    the matching ``[serve_*]`` b32 and b1 forward."""
+    and measurement on synthetic 32-clip splits (log-mel cached where the
+    configuration caches it; the flagship runs it inside every step); and
+    the matching ``[serve*]`` b32 and b1 forward."""
     torch = _card()
     smoke = _smoke()
     _build, _ = _port(root)
@@ -311,7 +347,8 @@ def steps_of(root: Path) -> dict:
     from multimodal_emotion_detection_tpu_torch.training.optim import build_optimizer
     from multimodal_emotion_detection_tpu_torch.training.steps import train_step
 
-    _build.build(["logmel", "lstm1_fwd", "lstm_bwd_chain", "gru1_fwd", "gru_bwd_chain",
+    _build.build(["logmel", "lstm2_infer", "lstm2_train_fwd", "lstm2_bwd_chain",
+                  "lstm1_fwd", "lstm_bwd_chain", "gru1_fwd", "gru_bwd_chain",
                   "gru2_infer", "gru2_train_fwd", "gru2_bwd_chain"])
     data = root / "build" / "chain_ab" / "data"
     for seed, split in enumerate(("train", "val", "test")):
@@ -319,7 +356,8 @@ def steps_of(root: Path) -> dict:
             smoke._write_split(data, split, 32, 10 + seed)
     dev = torch.device("cuda")
     res = {"root": str(root), "card": _smi()}
-    for tag, overrides in (("train_big", smoke.BIG), ("train_big_gru", smoke.BIG_GRU),
+    for tag, overrides in (("train", ["model.frontend.audio=logmel"]),
+                           ("train_big", smoke.BIG), ("train_big_gru", smoke.BIG_GRU),
                            ("train_gru", smoke.GRU)):
         cfg = load_config(str(root / "configs" / "base.yaml"),
                           [*overrides, f"dataset.data_dir={data}"])
@@ -333,9 +371,10 @@ def steps_of(root: Path) -> dict:
         serve_tag = tag.replace("train", "serve")
         _forward_latency(torch, smoke, cfg, [*overrides, f"dataset.data_dir={data}"],
                          root, raw, video, res, serve_tag)
-        with torch.inference_mode():
-            feats = logmel.logmel_cuda(raw, logmel_params_from_config(cfg.model.frontend))
-        loader.replace_features("audio", feats.cpu().numpy())
+        if cfg.model.frontend.cache:
+            with torch.inference_mode():
+                feats = logmel.logmel_cuda(raw, logmel_params_from_config(cfg.model.frontend))
+            loader.replace_features("audio", feats.cpu().numpy())
         feats, labels = loader.device_arrays()
         opt, _ = build_optimizer(cfg.training, model.parameters(), len(loader))
         idx = torch.from_numpy(loader.epoch_batch_indices(0).astype(np.int64)).to(dev)
@@ -357,10 +396,10 @@ def steps_of(root: Path) -> dict:
 
 
 def timers_of(root: Path) -> None:
-    """Rows 4, 7, 6, 7f, 15 and 3 of ``root`` built with
+    """Rows 4, 7, 6, 7f, 12, 2, 15 and 3 of ``root`` built with
     -DRNN_CHAIN_TIMERS=1: each bucket's share of the warps' clock time at
-    (32, 372, 512) (rows 15 and 3 at (32, 372, 256)), per CTA set of the
-    2-layer cores."""
+    (32, 372, 512) (rows 12, 2, 15 and 3 at (32, 372, 256)), per CTA set of
+    the 2-layer cores."""
     torch = _card()
     smoke = _smoke()
     _build, lk = _port(root)
@@ -370,6 +409,8 @@ def timers_of(root: Path) -> None:
                "gru_bwd_chain_h256": ("gru_bwd_chain", lk.GRU_BWD_CHAIN),
                "lstm1_train_fwd_h512": ("lstm1_fwd", lk.LSTM1_TRAIN_FWD),
                "gru1_train_fwd_h512": ("gru1_fwd", lk.GRU1_TRAIN_FWD),
+               "lstm2_bwd_chain_h256": ("lstm2_bwd_chain", lk.LSTM2_BWD_CHAIN),
+               "lstm2_infer_b32_h256": ("lstm2_infer", lk.LSTM2_INFER),
                "gru2_bwd_chain_h256": ("gru2_bwd_chain", lk.GRU2_BWD_CHAIN),
                "gru2_infer_b32_h256": ("gru2_infer", lk.GRU2_INFER)}
     libs = {}
@@ -385,7 +426,8 @@ def timers_of(root: Path) -> None:
             if "registers" in line or "spill" in line:
                 print(f"[timers:{source}] {line.strip()}")
         libs[source] = ctypes.CDLL(str(out))
-    cases = {**_cases(torch, smoke, lk), **_gru2_cases(torch, smoke, lk)}
+    cases = {**_cases(torch, smoke, lk), **_lstm2_cases(torch, smoke, lk),
+             **_gru2_cases(torch, smoke, lk)}
     # two blocks (a 2-layer core's lead and follow sets); a tree whose
     # timers predate them fills the first
     buf = (ctypes.c_ulonglong * (2 * (len(BUCKETS) + 1)))()
@@ -419,15 +461,16 @@ def timers_of(root: Path) -> None:
                   f"{plan.smem} bytes, "
                   f"chunks of {plan.kc}")
         # the 2-layer kernels' T + 1 phases
-        steps = 373 if source.startswith("gru2") else 372
+        pair = source in PAIR_SOURCES
+        steps = 373 if pair else 372
         ms = start.elapsed_time(end)
         n = len(BUCKETS) + 1
-        for k, label in enumerate(("", " follow set") if source.startswith("gru2") else ("",)):
+        for k, label in enumerate(("", " follow set") if pair else ("",)):
             block = buf[k * n:(k + 1) * n]
             total, warps = sum(block[:-1]), block[-1]
             if not warps:
                 continue
-            if k == 0 and source.startswith("gru2"):
+            if k == 0 and pair:
                 label = " lead set"
             cyc = total / warps / steps
             print(f"[timers] {root.name or root}: {name}{label} {ms:.4f} ms "
@@ -443,10 +486,10 @@ def _plan_of(lk, source, h, device):
     width = 4 if source.startswith("lstm") else 3
     if not hasattr(lk, "chain_plan_on"):
         return None
-    if source.startswith("gru2"):
+    if source in PAIR_SOURCES:
         if not hasattr(lk, "_pair_launch"):
             return None
-        return lk.chain_plan_on(source, width, h, 32, device, source == "gru2_infer",
+        return lk.chain_plan_on(source, width, h, 32, device, source.endswith("_infer"),
                                 layers=2)
     if source.endswith("_fwd"):
         if not hasattr(lk, "_fwd_launch"):
@@ -687,7 +730,7 @@ def main() -> None:
     ap.add_argument("--probe", action="store_true", help="barrier / L2 / cluster probes")
     ap.add_argument("--sweep", action="store_true", help="rows 4 / 7 on plan variants")
     ap.add_argument("--steps", action="store_true",
-                    help="[train_big] / [train_big_gru] step p50 of both trees")
+                    help="[train*] step and [serve*] forward p50s of both trees")
     ap.add_argument("--steps-of", type=Path, help="their step p50 with this tree")
     opts = ap.parse_args()
     _card()

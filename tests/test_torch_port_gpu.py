@@ -455,40 +455,84 @@ def test_gru2_pair_kernels_match_plain(b, t, d, h):
         torch.testing.assert_close(o, r, rtol=1e-4, atol=1e-4, msg=name)
 
 
+# the LSTM pair on the same cores: PAIR_SHAPES, and H 260 (clusters of 1)
+# at B 32, 17 and 1 as the flagship's shape takes them at H 256
+LSTM_PAIR_SHAPES = PAIR_SHAPES + [(32, 40, 6, 260), (17, 40, 6, 260), (1, 40, 6, 260)]
+
+
+@pytest.mark.parametrize("b,t,d,h", LSTM_PAIR_SHAPES)
+def test_lstm2_pair_kernels_match_plain(b, t, d, h):
+    dev = _card()
+    x_tm, keep, l0, l1 = _lstm_case(dev, b, t, d, h, seed=b * 100 + t + h + 1)
+    x = x_tm.transpose(0, 1).contiguous()
+    before = lstm_kernel.LSTM2_INFER.launches
+    out = lstm_kernel.lstm2_infer(x, l0, l1)
+    torch.cuda.synchronize()
+    assert lstm_kernel.LSTM2_INFER.launches == before + 1
+    # float32 sums in another order than cuBLAS, carried through T steps
+    torch.testing.assert_close(out, lstm_kernel.lstm2_infer_reference(x, l0, l1),
+                               rtol=1e-4, atol=1e-4, msg="lstm2_infer")
+    packed = lstm_kernel.lstm2_train_fwd_reference(x_tm, keep, l0, l1)[0]
+    dh = torch.from_numpy(
+        np.random.RandomState(t + b).randn(b, h).astype(np.float32)).to(dev)
+    args = (packed, keep, dh, l0["w_hh"], l1["w_hh"], l1["w_ih"])
+    before = lstm_kernel.LSTM2_BWD_CHAIN.launches
+    outs = lstm_kernel.lstm2_bwd_chain(*args)
+    torch.cuda.synchronize()
+    assert lstm_kernel.LSTM2_BWD_CHAIN.launches == before + 1
+    for name, o, r in zip(("dg0", "dg1"), outs,
+                          lstm_kernel.lstm2_bwd_chain_reference(*args)):
+        torch.testing.assert_close(o, r, rtol=1e-4, atol=1e-4, msg=name)
+
+
 def test_pair_kernels_raise_on_a_plan_that_does_not_fit():
-    """No fallback: a 2-layer plan the launchers do not accept (a cluster
-    of 3, 3 units a CTA, 3 row groups, an empty chunk, or a grid of two sets
-    past the card) raises with its error string, and the launch is not
-    counted."""
+    """No fallback: a 2-layer plan the launchers of either cell do not
+    accept (a cluster of 3, 3 units a CTA, 3 row groups, an empty chunk, or
+    a grid of two sets past the card) raises with its error string, and the
+    launch is not counted."""
     dev = _card()
     b, t, d, h = 2, 3, 6, 128
     x_tm, keep, l0, l1 = _gru_case(dev, b, t, d, h, seed=5)
     ih0 = (x_tm.transpose(0, 1) @ l0["w_ih"] + l0["b_ih"]).contiguous()
     stream = torch.cuda.current_stream().cuda_stream
     new = dict(dtype=torch.float32, device=dev)
-    h0, big = torch.empty((t, b, h), **new), torch.empty((t, b, 8 * h), **new)
+    h0, big = torch.empty((t, b, h), **new), torch.empty((t, b, 10 * h), **new)
     h1, carry = torch.empty((2, b, h), **new), torch.zeros((2, b, h), **new)
     dih, dhn = torch.empty((t, b, 3 * h), **new), torch.empty((t, b, h), **new)
     flags = torch.zeros(2 * lstm_kernel.CHAIN_FLAGS, dtype=torch.int32, device=dev)
     w = [p.data_ptr() for p in (l0["w_hh"], l0["b_hh"], l1["w_ih"], l1["b_ih"],
                                 l1["w_hh"], l1["b_hh"])]
+    lw = [p.data_ptr() for p in _lstm_case(dev, b, t, d, h, seed=6)[2:]
+          for p in (p["w_hh"], p["w_ih"], p["b"])]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for source, forward in (("gru2_infer", True), ("gru2_bwd_chain", False)):
-        plan = lstm_kernel.chain_plan_on(source, 3, h, b, dev, forward, layers=2)
+    for source, forward in (("gru2_infer", True), ("gru2_bwd_chain", False),
+                            ("lstm2_infer", True), ("lstm2_bwd_chain", False)):
+        width = 4 if source.startswith("lstm") else 3
+        plan = lstm_kernel.chain_plan_on(source, width, h, b, dev, forward, layers=2)
         bad = [(plan.upc, 3, plan.rgroups, plan.kc), (3, plan.ncl, plan.rgroups, plan.kc),
                (plan.upc, plan.ncl, 3, plan.kc), (plan.upc, plan.ncl, plan.rgroups, 0)]
         if h <= sms < 2 * h:
             bad.append((1, 1, 1, plan.kc))  # one set fits the card, two do not
         for upc, ncl, rgroups, kc in bad:
-            if forward:
+            if source == "gru2_infer":
                 kern, args = lstm_kernel.GRU2_INFER, (
                     ih0.data_ptr(), *w, h0.data_ptr(), h1.data_ptr(), carry.data_ptr(),
                     flags.data_ptr(), b, t, h)
-            else:
+            elif source == "gru2_bwd_chain":
                 kern, args = lstm_kernel.GRU2_BWD_CHAIN, (
                     big.data_ptr(), h0.data_ptr(), h0.data_ptr(), keep.data_ptr(),
                     w[0], w[4], w[2], dih.data_ptr(), dhn.data_ptr(), dih.data_ptr(),
                     dhn.data_ptr(), carry.data_ptr(), flags.data_ptr(), b, t, h)
+            elif source == "lstm2_infer":
+                # (w_hh0, w_ih1, b1, w_hh1): ih0 is wide enough for 4H rows
+                kern, args = lstm_kernel.LSTM2_INFER, (
+                    big.data_ptr(), lw[0], lw[4], lw[5], lw[3], h0.data_ptr(),
+                    h1.data_ptr(), carry.data_ptr(), flags.data_ptr(), b, t, h)
+            else:
+                kern, args = lstm_kernel.LSTM2_BWD_CHAIN, (
+                    big.data_ptr(), keep.data_ptr(), h1.data_ptr(), lw[0], lw[3], lw[4],
+                    big.data_ptr(), big.data_ptr(), carry.data_ptr(), flags.data_ptr(),
+                    b, t, h)
             before = kern.launches
             with pytest.raises(RuntimeError, match="launch plan"):
                 kern(*args, upc, ncl, rgroups, kc, stream)

@@ -1,8 +1,8 @@
 """PyTorch port, the 2-layer cores' launch plan and step order
 (``ops/lstm_kernel.py::chain_plan(layers=2)``, the split that
-``csrc/rnn2_bwd_chain.cuh`` (row 15, ``gru2_bwd_chain``) and
-``csrc/rnn2_fwd_chain.cuh`` (row 3, ``gru2_infer``) run and re-check on
-the card).
+``csrc/rnn2_bwd_chain.cuh`` (rows 15 and 12, ``gru2_bwd_chain`` /
+``lstm2_bwd_chain``) and ``csrc/rnn2_fwd_chain.cuh`` (rows 3 and 2,
+``gru2_infer`` / ``lstm2_infer``) run and re-check on the card).
 
 A 2-layer plan launches two sets of H / UPC CTAs: the lead set (the layer
 that needs no other: layer 1 of the reverse chain, layer 0 of the forward)
@@ -20,19 +20,23 @@ measured counts, and a card that holds every cluster), the plan must:
 * take every shape the first design took (2 layers, H % 4 == 0, H <= 2 x
   SMs) and refuse what no card runs.
 
-A numpy model of each core (clusters of a set stepping in any order the
-flag barriers allow, each rank's share cut at the [own | feed] boundary
-into pieces, the partials summed per piece over the cluster, buffers the
-kernel has not written yet read as NaN) is held to
-``gru2_bwd_chain_reference`` / ``gru2_infer_reference`` at T = 1, 2 and 5
-(1e-6), on plans with clusters of 8, 4, 2 and 1 (an odd grid, where each
-CTA of the follow set forms both pieces), row groups of ragged passes and
-an empty one; in one case each CTA's partials come from a model of its
-threads (the register tiles, the shuffle reduce-scatter and the kernel's
-write rule).  At the JAX kernels' shapes (H 128, B 8) the model is held to
-``gru2_infer_pallas`` and ``gru2_bwd_chain_res_padded`` in interpret mode
-(1e-5, as ``tests/test_torch_port_gru.py`` holds the plain versions).  CPU
-only: nothing here launches a kernel.
+A numpy model of each core with either cell (clusters of a set stepping
+in any order the flag barriers allow, each rank's share cut at the [own |
+feed] boundary into pieces, the partials summed per piece over the
+cluster, buffers the kernel has not written yet read as NaN; the LSTM's
+packed 10H residuals, dc / c carries and dh_final at the lead set's first
+step) is held to ``gru2_bwd_chain_reference`` / ``gru2_infer_reference``
+and ``lstm2_bwd_chain_reference`` / ``lstm2_infer_reference`` at T = 1, 2
+and 5 (1e-6), on plans with clusters of 8, 4, 2 and 1 (an odd grid, where
+each CTA of the follow set forms both pieces), row groups of ragged
+passes and an empty one; in some cases each CTA's partials come from a
+model of its threads (the register tiles, the shuffle reduce-scatter and
+the kernel's write rule).  At the JAX kernels' shapes (H 128, B 8) the
+model is held to ``gru2_infer_pallas`` / ``gru2_bwd_chain_res_padded`` and
+``lstm2_infer_pallas`` / ``lstm2_bwd_chain_padded`` in interpret mode
+(1e-5, as ``tests/test_torch_port_gru.py`` and ``_lstm_train.py`` hold the
+plain versions).  The flagship's plan (B=32, H=256, width 4) is pinned.
+CPU only: nothing here launches a kernel.
 """
 
 import jax
@@ -45,6 +49,9 @@ from multimodal_emotion_detection_tpu.ops.lstm_kernel import (
     gru2_bwd_chain_res_padded,
     gru2_infer_pallas,
     gru2_train_fwd_residuals as jax_train_fwd,
+    lstm2_bwd_chain_padded,
+    lstm2_infer_pallas,
+    lstm2_train_fwd_residuals as jax_lstm_train_fwd,
 )
 from multimodal_emotion_detection_tpu_torch.ops import lstm_kernel as lk
 
@@ -159,6 +166,25 @@ def test_pair_plan_at_the_gru_configs_shape():
         assert PH * plan.outputs * 4 * share == 196_608
         one = lk.chain_plan(256, 3, 1, 132, MAX_SMEM, active, forward, layers=2)
         assert (one.ncl, one.rgroups) == (2, 2)
+
+
+@pytest.mark.parametrize("forward", [False, True])
+def test_pair_plan_at_the_flagship_shape(forward):
+    """The flagship's LSTM 2x256 at B=32 on the H100: 4 units a CTA, 64 + 64
+    CTAs in clusters of 2, 4 row groups of one pass, the whole share in one
+    chunk (256 float4 columns of the reverse follow set's 8H row, 64 of the
+    forward's 2H), 170,624 / 157,824 bytes of shared memory: the follow
+    set's CTA forms 262,144 FMA a step, rows 4's and 6e's at H=512.  One
+    row (the b1 serving forward) takes two row groups."""
+    active = _measured(132)
+    plan = lk.chain_plan(256, 4, 32, 132, MAX_SMEM, active, forward, layers=2)
+    assert (plan.upc, plan.grid, plan.ctas, plan.ncl, plan.rgroups) == (4, 64, 128, 2, 4)
+    assert plan.cluster_width == 32 and plan.kc == (64 if forward else 256)
+    assert 4 * lk.chain_smem_floats(4, 256, 4, 2, 4, plan.kc, forward, layers=2) == (
+        157_824 if forward else 170_624)
+    assert PH * plan.outputs * 4 * plan.kc == 262_144
+    one = lk.chain_plan(256, 4, 1, 132, MAX_SMEM, active, forward, layers=2)
+    assert (one.ncl, one.rgroups) == (2, 2)
 
 
 def test_pair_plan_refuses_what_no_card_runs():
@@ -325,20 +351,54 @@ def _sig(x):
     return 1.0 / (1.0 + np.exp(-x))
 
 
-def _model_bwd(plan, packed, h0p, h1p, keep, dh, w_hh0, w_hh1, w_ih1, seed, exact):
-    """``pair_kernel`` of csrc/rnn2_bwd_chain.cuh: the lead set layer 1's
-    chain over its own row, the follow set layer 0's over [own | layer
-    1's dih]."""
-    t_len, batch, hidden = h0p.shape
+def _model_bwd(plan, cell, packed, prev, keep, dh, w_hh0, w_hh1, w_ih1, seed, exact):
+    """``pair_kernel`` of csrc/rnn2_bwd_chain.cuh with ``cell`` "gru" or
+    "lstm": the lead set layer 1's chain over its own row, the follow set
+    layer 0's over [own | layer 1's dih or dg].  ``prev``: the GRU's
+    (h0_prev, h1_prev); the LSTM's c_prev is inside ``packed``."""
+    t_len, batch, hidden = keep.shape
+    lstm = cell == "lstm"
     nan = np.full
-    dih = [nan((t_len, batch, 3 * hidden), np.nan) for _ in range(2)]
+    # GRU dih (3H) and dhn; LSTM dg (4H)
+    out = [nan((t_len, batch, plan.width * hidden), np.nan) for _ in range(2)]
     dhn = [nan((t_len, batch, hidden), np.nan) for _ in range(2)]
-    carry = [np.zeros((batch, hidden)), dh.astype(np.float64)]
+    # GRU: the direct part dh z, layer 1's starting as dh_final; LSTM: dc
+    carry = [np.zeros((batch, hidden)),
+             np.zeros((batch, hidden)) if lstm else dh.astype(np.float64)]
     w_own = (w_hh0, w_hh1)
 
     def x_row(layer, step, rows):
-        return np.concatenate([dih[layer][step][rows, :2 * hidden],
+        if lstm:
+            return out[layer][step][rows]
+        return np.concatenate([out[layer][step][rows, :2 * hidden],
                                dhn[layer][step][rows]], axis=1)
+
+    def gru_cell(layer, t, rows, j, d):
+        r, z, n, hn = (packed[t][rows, 4 * hidden * layer + i * hidden + j]
+                       for i in range(4))
+        hp = prev[layer][t][rows, j]
+        d = carry[layer][rows, j] + d
+        dn = d * (1 - z) * (1 - n * n)
+        out[layer][t][rows, j] = dn * hn * r * (1 - r)
+        out[layer][t][rows, hidden + j] = d * (hp - n) * z * (1 - z)
+        out[layer][t][rows, 2 * hidden + j] = dn
+        dhn[layer][t][rows, j] = dn * r
+        carry[layer][rows, j] = d * z
+
+    def lstm_cell(layer, t, rows, j, d):
+        gi, gf, gg, go = (packed[t][rows, 4 * hidden * layer + i * hidden + j]
+                          for i in range(4))
+        cp = packed[t][rows, 8 * hidden + hidden * layer + j]
+        if layer == 1 and t == t_len - 1:
+            d = d + dh[rows, j]
+        si, sf, so, tg = _sig(gi), _sig(gf), _sig(go), np.tanh(gg)
+        tc = np.tanh(sf * cp + si * tg)
+        dcs = carry[layer][rows, j] + d * so * (1 - tc * tc)
+        out[layer][t][rows, j] = dcs * tg * si * (1 - si)
+        out[layer][t][rows, hidden + j] = dcs * cp * sf * (1 - sf)
+        out[layer][t][rows, 2 * hidden + j] = dcs * si * (1 - tg * tg)
+        out[layer][t][rows, 3 * hidden + j] = d * tc * so * (1 - so)
+        carry[layer][rows, j] = dcs * sf
 
     def cluster_step(follow, c0, s):
         layer, t = (0 if follow else 1), t_len - 1 - s
@@ -346,7 +406,7 @@ def _model_bwd(plan, packed, h0p, h1p, keep, dh, w_hh0, w_hh1, w_ih1, seed, exac
         grows = plan.rows(c0, batch)
 
         def source(seg, rows):
-            return x_row(layer, t + 1, rows) if seg == 0 else dih[1][t][rows]
+            return x_row(layer, t + 1, rows) if seg == 0 else out[1][t][rows]
 
         def weight(seg, c):
             return (w_own[layer] if seg == 0 else w_ih1)[units.start:units.stop]
@@ -359,37 +419,44 @@ def _model_bwd(plan, packed, h0p, h1p, keep, dh, w_hh0, w_hh1, w_ih1, seed, exac
                     col = j - units.start
                     own = _sums(parts, plan.ncl, 0, rows, col)
                     feed = _sums(parts, plan.ncl, 1, rows, col)
-                    r, z, n, hn = (packed[t][rows, 4 * hidden * layer + i * hidden + j]
-                                   for i in range(4))
-                    hp = (h0p if layer == 0 else h1p)[t][rows, j]
                     kv = keep[t][rows, j] if layer == 0 else 0.0
-                    d = carry[layer][rows, j] + own + kv * feed
-                    dn = d * (1 - z) * (1 - n * n)
-                    dih[layer][t][rows, j] = dn * hn * r * (1 - r)
-                    dih[layer][t][rows, hidden + j] = d * (hp - n) * z * (1 - z)
-                    dih[layer][t][rows, 2 * hidden + j] = dn
-                    dhn[layer][t][rows, j] = dn * r
-                    carry[layer][rows, j] = d * z
+                    (lstm_cell if lstm else gru_cell)(layer, t, rows, j, own + kv * feed)
 
     _schedule(plan, t_len, np.random.RandomState(seed), cluster_step)
-    return dih[0], dhn[0], dih[1], dhn[1]
+    return (out[0], out[1]) if lstm else (out[0], dhn[0], out[1], dhn[1])
 
 
-def _model_fwd(plan, ih0, w_hh0, b_hh0, w_ih1, b_ih1, w_hh1, b_hh1, seed, exact):
-    """``pair_kernel`` of csrc/rnn2_fwd_chain.cuh (eval form): the lead set
-    layer 0 over its own h (storing the h0 series), the follow set layer 1
-    over [own h | h0], its h in two slots."""
+def _model_fwd(plan, cell, ih0, l0, l1, seed, exact):
+    """``pair_kernel`` of csrc/rnn2_fwd_chain.cuh (eval form) with ``cell``
+    "gru" or "lstm": the lead set layer 0 over its own h (storing the h0
+    series), the follow set layer 1 over [own h | h0], its h in two
+    slots; the carry h (GRU) or c (LSTM)."""
     batch, t_len, _ = ih0.shape
-    hidden = w_hh0.shape[0]
+    hidden, width = l0["w_hh"].shape[0], plan.width
     h0 = np.full((t_len, batch, hidden), np.nan)
     h1 = np.full((2, batch, hidden), np.nan)
     carry = [np.zeros((batch, hidden)), np.zeros((batch, hidden))]
+
+    # a cell: (layer, input part x, gate columns, own and fed products,
+    # carry before) -> (h, carry after)
+    def gru_cell(layer, x, gate, own, fed, cp):
+        bh = (l0 if layer == 0 else l1)["b_hh"][gate]
+        r = _sig(x[0] + fed[0] + own[0] + bh[0])
+        z = _sig(x[1] + fed[1] + own[1] + bh[1])
+        n = np.tanh(x[2] + fed[2] + r * (own[2] + bh[2]))
+        h = (1 - z) * n + z * cp
+        return h, h
+
+    def lstm_cell(layer, x, gate, own, fed, cp):
+        g = [x[q] + fed[q] + own[q] for q in range(4)]
+        c = _sig(g[1]) * cp + _sig(g[0]) * np.tanh(g[2])
+        return _sig(g[3]) * np.tanh(c), c
 
     def cluster_step(follow, c0, t):
         layer = 1 if follow else 0
         units = plan.cluster_units(c0)
         grows = plan.rows(c0, batch)
-        cols = [q * hidden + u for u in units for q in range(3)]
+        cols = [q * hidden + u for u in units for q in range(width)]
 
         def source(seg, rows):
             if seg == 1 or layer == 0:
@@ -397,7 +464,7 @@ def _model_fwd(plan, ih0, w_hh0, b_hh0, w_ih1, b_ih1, w_hh1, b_hh1, seed, exact)
             return h1[(t - 1) % 2][rows]
 
         def weight(seg, c):
-            w = (w_hh1 if layer == 1 else w_hh0) if seg == 0 else w_ih1
+            w = (l1 if layer == 1 else l0)["w_hh"] if seg == 0 else l1["w_ih"]
             return w[:, cols].T
 
         for p0 in range(grows.start, grows.stop, PH):
@@ -405,17 +472,15 @@ def _model_fwd(plan, ih0, w_hh0, b_hh0, w_ih1, b_ih1, w_hh1, b_hh1, seed, exact)
             parts = _cluster_partials(plan, follow, c0, t, rows, source, weight, exact)
             for rank in range(plan.ncl):
                 for j in plan.units(c0 + rank):
-                    oc = 3 * (j - units.start)
-                    own = [_sums(parts, plan.ncl, 0, rows, oc + q) for q in range(3)]
-                    fed = [_sums(parts, plan.ncl, 1, rows, oc + q) for q in range(3)]
-                    bh = (b_hh0 if layer == 0 else b_hh1)[[j, hidden + j, 2 * hidden + j]]
-                    x = (ih0[rows, t][:, [j, hidden + j, 2 * hidden + j]].T if layer == 0
-                         else b_ih1[[j, hidden + j, 2 * hidden + j]][:, None])
-                    r = _sig(x[0] + fed[0] + own[0] + bh[0])
-                    z = _sig(x[1] + fed[1] + own[1] + bh[1])
-                    n = np.tanh(x[2] + fed[2] + r * (own[2] + bh[2]))
-                    h = (1 - z) * n + z * carry[layer][rows, j]
-                    carry[layer][rows, j] = h
+                    oc = width * (j - units.start)
+                    gate = [q * hidden + j for q in range(width)]
+                    own = [_sums(parts, plan.ncl, 0, rows, oc + q) for q in range(width)]
+                    fed = [_sums(parts, plan.ncl, 1, rows, oc + q) for q in range(width)]
+                    # the input part: layer 0's ih0, or layer 1's bias (b_ih1 / b1)
+                    x = (ih0[rows, t][:, gate].T if layer == 0
+                         else l1["b_ih" if cell == "gru" else "b"][gate][:, None])
+                    h, carry[layer][rows, j] = (lstm_cell if cell == "lstm" else gru_cell)(
+                        layer, x, gate, own, fed, carry[layer][rows, j])
                     if layer == 0:
                         h0[t][rows, j] = h
                     else:
@@ -438,30 +503,55 @@ def _gru_layers(rng, d, h):
     return layer(d), layer(h)
 
 
-def _check_model(plan, batch, t_len, d, hidden, seed, exact):
+def _lstm_layers(rng, d, h):
+    k = 1.0 / np.sqrt(h)
+
+    def layer(d_in):
+        return {name: rng.uniform(-k, k, shape).astype(np.float32)
+                for name, shape in (("w_ih", (d_in, 4 * h)), ("w_hh", (h, 4 * h)),
+                                    ("b", (4 * h,)))}
+
+    return layer(d), layer(h)
+
+
+def _case(cell, batch, t_len, d, hidden, seed):
+    """The same draws for the model and the JAX kernels: layers, x (B, T,
+    D), keep (T, B, H), dh_final (B, H)."""
     rng = np.random.RandomState(seed)
-    l0, l1 = _gru_layers(rng, d, hidden)
+    l0, l1 = (_lstm_layers if cell == "lstm" else _gru_layers)(rng, d, hidden)
     x = rng.randn(batch, t_len, d).astype(np.float32)
     keep = ((rng.rand(t_len, batch, hidden) < 0.9) / 0.9).astype(np.float32)
     dh = rng.randn(batch, hidden).astype(np.float32)
+    return l0, l1, x, keep, dh
+
+
+def _check_model(plan, batch, t_len, d, hidden, seed, exact, cell="gru"):
+    l0, l1, x, keep, dh = _case(cell, batch, t_len, d, hidden, seed)
     tl0 = {k: torch.from_numpy(v) for k, v in l0.items()}
     tl1 = {k: torch.from_numpy(v) for k, v in l1.items()}
     xt = torch.from_numpy(x)
+    lstm = cell == "lstm"
     if plan.forward:
-        ih0 = (x.astype(np.float64) @ l0["w_ih"] + l0["b_ih"])
-        got = _model_fwd(plan, ih0, l0["w_hh"], l0["b_hh"], l1["w_ih"], l1["b_ih"],
-                         l1["w_hh"], l1["b_hh"], seed, exact)
-        want = lk.gru2_infer_reference(xt, tl0, tl1).numpy()
+        ih0 = x.astype(np.float64) @ l0["w_ih"] + l0["b" if lstm else "b_ih"]
+        got = _model_fwd(plan, cell, ih0, l0, l1, seed, exact)
+        want = (lk.lstm2_infer_reference if lstm else lk.gru2_infer_reference)(
+            xt, tl0, tl1).numpy()
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
         return got
-    packed, h0p, h1p, _, _ = (a.numpy() for a in lk.gru2_train_fwd_reference(
+    fwd = lk.lstm2_train_fwd_reference if lstm else lk.gru2_train_fwd_reference
+    packed, h0p, h1p, _, _ = (a.numpy() for a in fwd(
         xt.transpose(0, 1), torch.from_numpy(keep), tl0, tl1))
-    got = _model_bwd(plan, packed, h0p, h1p, keep, dh, l0["w_hh"], l1["w_hh"],
-                     l1["w_ih"], seed, exact)
-    want = lk.gru2_bwd_chain_reference(
-        *(torch.from_numpy(a) for a in (packed, h0p, h1p, keep, dh, l0["w_hh"],
-                                          l1["w_hh"], l1["w_ih"])))
-    for name, g, w in zip(("dih0", "dhn0", "dih1", "dhn1"), got, want):
+    w = (l0["w_hh"], l1["w_hh"], l1["w_ih"])
+    got = _model_bwd(plan, cell, packed, (h0p, h1p), keep, dh, *w, seed, exact)
+    if lstm:
+        names = ("dg0", "dg1")
+        want = lk.lstm2_bwd_chain_reference(
+            *(torch.from_numpy(a) for a in (packed, keep, dh, *w)))
+    else:
+        names = ("dih0", "dhn0", "dih1", "dhn1")
+        want = lk.gru2_bwd_chain_reference(
+            *(torch.from_numpy(a) for a in (packed, h0p, h1p, keep, dh, *w)))
+    for name, g, w in zip(names, got, want):
         assert not np.isnan(g).any(), f"{name}: a read before the write"
         np.testing.assert_allclose(g, w.numpy(), rtol=0, atol=1e-6, err_msg=name)
     return got
@@ -503,11 +593,7 @@ def test_pair_core_model_matches_the_jax_kernels(forward):
                          layers=2)
     assert (plan.upc, plan.ctas, plan.ncl, plan.rgroups) == (2, 128, 2, 2)
     got = _check_model(plan, batch, t_len, d, hidden, seed, exact=False)
-    rng = np.random.RandomState(seed)
-    l0, l1 = _gru_layers(rng, d, hidden)
-    x = rng.randn(batch, t_len, d).astype(np.float32)
-    keep = ((rng.rand(t_len, batch, hidden) < 0.9) / 0.9).astype(np.float32)
-    dh = rng.randn(batch, hidden).astype(np.float32)
+    l0, l1, x, keep, dh = _case("gru", batch, t_len, d, hidden, seed)
     with jax.default_matmul_precision("highest"):
         if forward:
             want = np.asarray(gru2_infer_pallas(jnp.asarray(x), l0, l1, interpret=True))
@@ -519,5 +605,47 @@ def test_pair_core_model_matches_the_jax_kernels(forward):
                                          l0["w_hh"], l1["w_hh"], l1["w_ih"], t_len,
                                          interpret=True)
     for name, g, w in zip(("dih0", "dhn0", "dih1", "dhn1"), got, want):
+        np.testing.assert_allclose(g, np.asarray(w)[:t_len], rtol=0, atol=1e-5,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("forward", [False, True])
+@pytest.mark.parametrize("batch,t_len,hidden,sms,stub,split,exact", MODEL_CASES)
+def test_lstm_pair_core_model_matches_plain(forward, batch, t_len, hidden, sms, stub,
+                                            split, exact):
+    """The cores with the LSTM cell (rows 12 and 2): the carries dc and c,
+    the packed 10H residuals, dh_final at the lead set's first step, 4 gate
+    sums a unit in the forward, against ``lstm2_bwd_chain_reference`` /
+    ``lstm2_infer_reference`` on the GRU cases' plans."""
+    active = (_measured if stub == "measured" else _every)(sms)
+    plan = lk.chain_plan(hidden, 4, batch, sms, MAX_SMEM, active, forward, layers=2)
+    assert (plan.ncl, plan.rgroups) == split, plan
+    _check_model(plan, batch, t_len, 5, hidden, seed=batch * 10 + t_len + hidden + 1,
+                 exact=exact, cell="lstm")
+
+
+@pytest.mark.parametrize("forward", [False, True])
+def test_lstm_pair_core_model_matches_the_jax_kernels(forward):
+    """The LSTM cell at the JAX kernels' shapes (H 128, B 8, T 5): the model
+    on the H100's plan against ``lstm2_infer_pallas`` and
+    ``lstm2_bwd_chain_padded`` over ``lstm2_train_fwd_residuals``'
+    residuals, in interpret mode, matmul precision "highest"."""
+    batch, t_len, d, hidden, seed = 8, 5, 12, 128, 4
+    plan = lk.chain_plan(hidden, 4, batch, 132, MAX_SMEM, _measured(132), forward,
+                         layers=2)
+    assert (plan.upc, plan.ctas, plan.ncl, plan.rgroups) == (2, 128, 2, 2)
+    got = _check_model(plan, batch, t_len, d, hidden, seed, exact=False, cell="lstm")
+    l0, l1, x, keep, dh = _case("lstm", batch, t_len, d, hidden, seed)
+    with jax.default_matmul_precision("highest"):
+        if forward:
+            want = np.asarray(lstm2_infer_pallas(jnp.asarray(x), l0, l1, chunk=8,
+                                                 interpret=True))
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+            return
+        packed, _, _, _, keep_pad, _, _ = jax_lstm_train_fwd(
+            jnp.asarray(x.transpose(1, 0, 2)), jnp.asarray(keep), l0, l1, interpret=True)
+        want = lstm2_bwd_chain_padded(packed, keep_pad, None, jnp.asarray(dh), l0["w_hh"],
+                                      l1["w_hh"], l1["w_ih"], t_len, interpret=True)
+    for name, g, w in zip(("dg0", "dg1"), got, want):
         np.testing.assert_allclose(g, np.asarray(w)[:t_len], rtol=0, atol=1e-5,
                                    err_msg=name)
