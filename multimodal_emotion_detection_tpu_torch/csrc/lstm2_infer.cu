@@ -35,12 +35,13 @@ extern "C" int lstm2_infer_launch(const float* ih0, const float* w_hh0,
                                   int upc, int ncl, int rgroups, int kc, void* stream) {
   const rnn2_fwd::Args a{ih0, {w_hh0, w_hh1}, w_ih1, {nullptr, nullptr}, b1, h0, h1,
                          carry, flags, batch, t_len, hidden, upc, ncl, rgroups, kc};
-  return rnn2_fwd::launch<rnn2_fwd::LstmCell>(a, (cudaStream_t)stream);
+  return rnn2_fwd::launch<rnn2_fwd::LstmCell, false>(a, (cudaStream_t)stream);
 }
 
 extern "C" int lstm2_infer_max_clusters(int hidden, int upc, int ncl, int rgroups, int kc,
                                         int* count) {
-  return rnn2_fwd::max_clusters<rnn2_fwd::LstmCell>(hidden, upc, ncl, rgroups, kc, count);
+  return rnn2_fwd::max_clusters<rnn2_fwd::LstmCell, false>(hidden, upc, ncl, rgroups, kc,
+                                                          count);
 }
 
 extern "C" int lstm2_infer_card(int* sms, int* max_smem) {

@@ -1,6 +1,9 @@
 // The 2-layer forward core for Hopper (sm_90a), built like the one-layer
-// forward core rnn_fwd_chain.cuh; gru2_infer.cu instantiates its eval
-// form with GruCell, lstm2_infer.cu with LstmCell.
+// forward core rnn_fwd_chain.cuh.  Its eval form (the final h) is
+// instantiated by gru2_infer.cu with GruCell and lstm2_infer.cu with
+// LstmCell; its training form (TRAIN: the residuals the reverse chains
+// read) by gru2_train_fwd.cu with GruCell and lstm2_train_fwd.cu with
+// LstmCell and, without the gates, LstmNoGatesCell.
 //
 // Both layers walk t = 0 .. T-1 from zero state.  Layer 0's step needs,
 // for each batch row b and each of its W H gate columns,
@@ -14,12 +17,15 @@
 //
 // (GRU: W = 3, r, z, n; LSTM: W = 4, i, f, g, o; the input projection of
 // layer 0, ih0 = x w_ih0 + b_ih0 (LSTM + b0), is one matrix product
-// outside, batch-major (B, T, W H)).
+// outside, batch-major (B, T, W H) in the eval form, time-major (T, B, W H)
+// in the training form).
 //
-// What bounded the first designs (csrc/gru2_infer.cu and lstm2_infer.cu
-// before this core): every CTA owned units of both layers and read h0 and
-// h1 whole from L2 every phase (64 KiB a CTA at (32, 372, 256)), its 8
-// warps' partial sums met in shared memory, and one grid.sync() a phase.
+// What bounded the first designs (the four sources before this core; the
+// training forwards' is kept for the legacy layout in
+// csrc/*_train_fwd_legacy.cu): every CTA owned units of both layers and
+// read h0 and h1 (training: and x1) whole from L2 every phase (64 KiB a CTA
+// at (32, 372, 256), training 96), its 8 warps' partial sums met in shared
+// memory, and one grid.sync() a phase.
 //
 // Design: rnn2_bwd_chain.cuh's, transposed.  The two layers run on
 // disjoint CTA sets of one cooperative launch, each a one-layer forward
@@ -53,6 +59,19 @@
 //   only the input one; exactly T steps run in each set, T + 1 phases on
 //   the critical path.
 //
+// The training form (TRAIN) keeps the products, plan, flags, clusters and
+// carries; only the sources and the stores differ.  Layer 1's input is
+// x1 = h0(t) keep[t] (the layer-0 -> 1 keep mask), not h0(t).  The
+// exchange is the residual series themselves, each (T, B, H) and never
+// overwritten: the lead set reads its h of step t - 1 from h0p[t], the
+// follow set its own from h1p[t] and its feed from x1[t], which the lead
+// set's cells store.  The cells store, in the JAX package's layout,
+// packed[t] (LSTM [g0 | g1 | c0_prev | c1_prev], 10H, or without the gates
+// [c0_prev | c1_prev], 2H; GRU [r0 | z0 | n0 | hn0 | r1 | z1 | n1 | hn1],
+// 8H, hn = h_prev w_hn + b_hn before r), h0p / h1p (the state before each
+// step, row 0 zero), x1, and after step T - 1 the finals (LSTM [h0, c0, h1,
+// c1], GRU [h0, h1], each (B, H)).
+//
 // Any B >= 1; H % 4 == 0 with 2 H / UPC <= the SM count.  Built with
 // -DRNN_CHAIN_TIMERS=1 each warp splits its steps into the buckets of
 // rnn_timers.cuh.
@@ -75,16 +94,23 @@ using rnn_fwd::group_warps;
 using rnn_fwd::piece_products;
 
 struct Args {
-  const float* ih;        // (B, T, W H): layer 0's hoisted input projection
+  const float* ih;        // layer 0's hoisted input projection: eval (B, T, W H),
+                          // training (T, B, W H)
   const float* w_own[2];  // layer l's w_hh (H, W H)
   const float* w_feed;    // w_ih1 (H, W H)
   const float* b_own[2];  // GRU: layer l's b_hh (W H); LSTM unused
   const float* b_feed;    // GRU: b_ih1 (W H); LSTM: layer 1's b1 (W H)
-  float* h0;              // (T, B, H): layer 0's h series
-  float* h1;              // (2, B, H): layer 1's h, two slots used in turn
+  float* h0;              // eval: (T, B, H), layer 0's h series
+  float* h1;              // eval: (2, B, H), layer 1's h, two slots used in turn
   float* carry;           // (2, B, H) zeros: layer l's (GRU h, LSTM c) at l B H
   unsigned* flags;        // 2 x kPairSetFlags (zero): the lead set's, then the follow set's
   int batch, t_len, hidden, upc, ncl, rgroups, kc;
+  // the training form's
+  const float* keep;      // (T, B, H): the layer-0 -> 1 keep mask
+  float* hp[2];           // (T, B, H): layer l's h before each step
+  float* x1;              // (T, B, H): layer 1's input h0 keep
+  float* packed;          // (T, B, 10H, 2H or 8H): the cells' residuals
+  float* finals;          // LSTM (4, B, H) [h0, c0, h1, c1]; GRU (2, B, H) [h0, h1]
 };
 
 // shared memory of a plan, in floats: the weights W NU x ldw over the
@@ -114,11 +140,32 @@ __device__ __forceinline__ void put_h(const Args& a, int layer, int t, int b, in
   }
 }
 
+// a training cell's h of step t, and layer 0's x1 = h keep: into layer l's
+// h_prev series at row t + 1, or after the last step into row fh of the
+// finals
+__device__ __forceinline__ void put_train(const Args& a, int layer, int t, int b, int j,
+                                          float h, float k, int fh) {
+  const size_t BH = (size_t)a.batch * a.hidden, o = (size_t)b * a.hidden + j;
+  float* hp = of_layer(a.hp, layer);
+  if (layer == 0) a.x1[t * BH + o] = h * k;
+  if (t == 0) hp[o] = 0.0f;
+  if (t + 1 < a.t_len) {
+    hp[(t + 1) * BH + o] = h;
+  } else {
+    a.finals[fh * BH + o] = h;
+  }
+}
+
 // float4 column c of row b of segment seg read at step t: the layer's own
-// h of step t - 1, or (seg 1) h0 of step t
+// h of step t - 1, or (seg 1) the feed, h0 of step t (training: x1[t])
+template <bool TRAIN>
 __device__ __forceinline__ const float* h_src(const Args& a, int layer, int seg, int t,
                                               int b, int c) {
   const int H = a.hidden;
+  if constexpr (TRAIN) {
+    const float* s = seg == 1 ? a.x1 : of_layer(a.hp, layer);
+    return s + ((size_t)t * a.batch + b) * H + 4 * c;
+  }
   if (seg == 1 || layer == 0) {
     const int step = seg == 1 ? t : t - 1;
     return a.h0 + ((size_t)step * a.batch + b) * H + 4 * c;
@@ -126,61 +173,81 @@ __device__ __forceinline__ const float* h_src(const Args& a, int layer, int seg,
   return a.h1 + ((size_t)((t - 1) & 1) * a.batch + b) * H + 4 * c;
 }
 
-// Two GRU layers, eval form: gates r, z, n with b_hh beside the recurrent
-// product (its n third inside the reset product: hn = h w_hn + b_hn); the
-// input part is layer 0's ih0, or layer 1's product with h0 plus b_ih1.
+// Two GRU layers: gates r, z, n with b_hh beside the recurrent product
+// (its n third inside the reset product: hn = h w_hn + b_hn); the input
+// part is layer 0's ih0, or layer 1's product with its feed plus b_ih1.
 // The carry is h.
 struct GruCell {
   static constexpr int kWidth = 3;
   struct In {
     float x[3], bh[3];  // x: ih0 (layer 0) or b_ih1 (layer 1)
+    float k;            // training, layer 0: keep
   };
+  template <bool TRAIN>
   __device__ static void load(const Args& a, int layer, int t, int b, int j, In& in) {
     const int H = a.hidden;
+    const size_t row = TRAIN ? (size_t)t * a.batch + b : (size_t)b * a.t_len + t;
     const float* bh = of_layer(a.b_own, layer);
-    const float* x = layer == 0 ? a.ih + ((size_t)b * a.t_len + t) * 3 * H : a.b_feed;
+    const float* x = layer == 0 ? a.ih + row * 3 * H : a.b_feed;
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
       in.x[i] = __ldg(x + i * H + j);
       in.bh[i] = __ldg(bh + i * H + j);
     }
+    if (TRAIN && layer == 0) in.k = __ldg(a.keep + row * H + j);
   }
   // own: the recurrent products of the unit's 3 gate columns; feed: the
   // input products (layer 1; zero for layer 0); hp: the carry h before the
   // step; returns h after it
+  template <bool TRAIN>
   __device__ static float step(const Args& a, int layer, int t, int b, int j,
                                const In& in, const float (&own)[3],
                                const float (&feed)[3], float hp) {
+    const float hn = own[2] + in.bh[2];
     const float r = sigmoidf_(in.x[0] + feed[0] + own[0] + in.bh[0]);
     const float z = sigmoidf_(in.x[1] + feed[1] + own[1] + in.bh[1]);
-    const float n = tanhf(in.x[2] + feed[2] + r * (own[2] + in.bh[2]));
+    const float n = tanhf(in.x[2] + feed[2] + r * hn);
     const float h = (1.0f - z) * n + z * hp;
-    put_h(a, layer, t, b, j, h);
+    if constexpr (TRAIN) {
+      const int H = a.hidden;
+      float* pk = a.packed + ((size_t)t * a.batch + b) * 8 * H + 4 * H * layer + j;
+      pk[0] = r;
+      pk[H] = z;
+      pk[2 * H] = n;
+      pk[3 * H] = hn;
+      put_train(a, layer, t, b, j, h, in.k, layer);
+    } else {
+      put_h(a, layer, t, b, j, h);
+    }
     return h;
-  }
-  __device__ static const float* src(const Args& a, int layer, int seg, int t, int b,
-                                     int c) {
-    return h_src(a, layer, seg, t, b, c);
   }
 };
 
-// Two LSTM layers, eval form: gates i, f, g, o; the input part is layer
-// 0's ih0 (b0 inside it), or layer 1's product with h0 plus b1.  The carry
-// is c; h goes out through the h0 series or h1's slots.
-struct LstmCell {
+// Two LSTM layers: gates i, f, g, o; the input part is layer 0's ih0 (b0
+// inside it), or layer 1's product with its feed plus b1.  The carry is c;
+// h goes out through the h0 series or h1's slots (training: the h_prev
+// series).  The training form stores the gates and c_prev, or with
+// kStoreGates false only c_prev.
+template <bool kStoreGates>
+struct LstmCellT {
   static constexpr int kWidth = 4;
   struct In {
     float x[4];  // ih0 (layer 0) or b1 (layer 1)
+    float k;     // training, layer 0: keep
   };
+  template <bool TRAIN>
   __device__ static void load(const Args& a, int layer, int t, int b, int j, In& in) {
     const int H = a.hidden;
-    const float* x = layer == 0 ? a.ih + ((size_t)b * a.t_len + t) * 4 * H : a.b_feed;
+    const size_t row = TRAIN ? (size_t)t * a.batch + b : (size_t)b * a.t_len + t;
+    const float* x = layer == 0 ? a.ih + row * 4 * H : a.b_feed;
 #pragma unroll
     for (int i = 0; i < 4; ++i) in.x[i] = __ldg(x + i * H + j);
+    if (TRAIN && layer == 0) in.k = __ldg(a.keep + row * H + j);
   }
   // own: the recurrent products of the unit's 4 gate columns; feed: the
   // input products (layer 1; zero for layer 0); cp: the carry c before the
   // step; returns c after it
+  template <bool TRAIN>
   __device__ static float step(const Args& a, int layer, int t, int b, int j,
                                const In& in, const float (&own)[4],
                                const float (&feed)[4], float cp) {
@@ -189,16 +256,31 @@ struct LstmCell {
     for (int i = 0; i < 4; ++i) g[i] = in.x[i] + feed[i] + own[i];
     const float c = sigmoidf_(g[1]) * cp + sigmoidf_(g[0]) * tanhf(g[2]);
     const float h = sigmoidf_(g[3]) * tanhf(c);
-    put_h(a, layer, t, b, j, h);
+    if constexpr (TRAIN) {
+      const int H = a.hidden;
+      const size_t row = (size_t)t * a.batch + b;
+      if constexpr (kStoreGates) {
+        float* pk = a.packed + row * 10 * H + j;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) pk[(4 * layer + i) * H] = g[i];
+        pk[(8 + layer) * H] = cp;
+      } else {
+        a.packed[row * 2 * H + layer * H + j] = cp;
+      }
+      put_train(a, layer, t, b, j, h, in.k, 2 * layer);
+      if (t + 1 == a.t_len) {
+        a.finals[(size_t)(2 * layer + 1) * a.batch * H + (size_t)b * H + j] = c;
+      }
+    } else {
+      put_h(a, layer, t, b, j, h);
+    }
     return c;
   }
-  __device__ static const float* src(const Args& a, int layer, int seg, int t, int b,
-                                     int c) {
-    return h_src(a, layer, seg, t, b, c);
-  }
 };
+using LstmCell = LstmCellT<true>;
+using LstmNoGatesCell = LstmCellT<false>;
 
-template <class Cell, int NU>
+template <class Cell, int NU, bool TRAIN>
 __global__ void __launch_bounds__(NT, 1) pair_kernel(const Args a) {
   constexpr int W = Cell::kWidth;
   constexpr int NO = W * NU;           // the cluster's gate columns
@@ -267,7 +349,7 @@ __global__ void __launch_bounds__(NT, 1) pair_kernel(const Args a) {
   typename Cell::In in;
   float carry = 0.0f;
   const auto prefetch = [&](int t, int b) {
-    Cell::load(a, layer, t, b, j, in);
+    Cell::template load<TRAIN>(a, layer, t, b, j, in);
     if (npass > 1) carry = carry_buf[(size_t)b * H + j];
   };
   int xpar = 0;
@@ -307,7 +389,7 @@ __global__ void __launch_bounds__(NT, 1) pair_kernel(const Args a) {
           if (p0 >= p1 || (seg == 0 && t == 0)) continue;
           const int c0 = p0 - (seg == 0 ? 0 : own4);
           piece_products<W, NU>(
-              [&](int r, int c) { return Cell::src(a, layer, seg, t, bt0 + r, c0 + c); },
+              [&](int r, int c) { return h_src<TRAIN>(a, layer, seg, t, bt0 + r, c0 + c); },
               nb, p1 - p0, kc, slots, wl + 4 * (p0 - c_lo), ldw, xs, ldx, part,
               mine + seg * PH * NO, tm);
         }
@@ -332,7 +414,7 @@ __global__ void __launch_bounds__(NT, 1) pair_kernel(const Args a) {
         tm.mark(rnn_timer::kCluster);
       }
       if (cell) {
-        carry = Cell::step(a, layer, t, bt0 + cr, j, in, rec, fed, carry);
+        carry = Cell::template step<TRAIN>(a, layer, t, bt0 + cr, j, in, rec, fed, carry);
         if (npass > 1) carry_buf[(size_t)(bt0 + cr) * H + j] = carry;
       }
       tm.mark(rnn_timer::kCell);
@@ -348,16 +430,16 @@ __global__ void __launch_bounds__(NT, 1) pair_kernel(const Args a) {
   tm.flush(follow ? 1 : 0);
 }
 
-template <class Cell>
+template <class Cell, bool TRAIN>
 const void* kernel_for(int nu) {
   switch (nu) {
-    case 1: return (const void*)&pair_kernel<Cell, 1>;
-    case 2: return (const void*)&pair_kernel<Cell, 2>;
-    case 4: return (const void*)&pair_kernel<Cell, 4>;
-    case 8: return (const void*)&pair_kernel<Cell, 8>;
-    case 16: return (const void*)&pair_kernel<Cell, 16>;
-    case 32: return (const void*)&pair_kernel<Cell, 32>;
-    case 64: return (const void*)&pair_kernel<Cell, 64>;
+    case 1: return (const void*)&pair_kernel<Cell, 1, TRAIN>;
+    case 2: return (const void*)&pair_kernel<Cell, 2, TRAIN>;
+    case 4: return (const void*)&pair_kernel<Cell, 4, TRAIN>;
+    case 8: return (const void*)&pair_kernel<Cell, 8, TRAIN>;
+    case 16: return (const void*)&pair_kernel<Cell, 16, TRAIN>;
+    case 32: return (const void*)&pair_kernel<Cell, 32, TRAIN>;
+    case 64: return (const void*)&pair_kernel<Cell, 64, TRAIN>;
     default: return nullptr;
   }
 }
@@ -365,12 +447,12 @@ const void* kernel_for(int nu) {
 // The launch configuration of a plan: kernel, grid (both sets), cluster,
 // shared memory; kPlanMismatch where the plan does not fit the shape or
 // the card.
-template <class Cell>
+template <class Cell, bool TRAIN>
 int configure(int hidden, int upc, int ncl, int rgroups, int kc,
               const void** fn, cudaLaunchConfig_t* cfg,
               cudaLaunchAttribute* attr) {
   if (!pair_plan_ok(hidden, upc, ncl, rgroups, kc)) return kPlanMismatch;
-  *fn = kernel_for<Cell>(upc * ncl * rgroups);
+  *fn = kernel_for<Cell, TRAIN>(upc * ncl * rgroups);
   const int need = (int)sizeof(float) *
                    smem_floats(Cell::kWidth, hidden, upc, ncl, rgroups, kc);
   return rnn_chain::configure(*fn, 2 * hidden / upc, ncl, need, cfg, attr);
@@ -378,7 +460,7 @@ int configure(int hidden, int upc, int ncl, int rgroups, int kc,
 
 // Re-check the plan against the shape and the card, then launch
 // cooperatively with the cluster dimension.
-template <class Cell>
+template <class Cell, bool TRAIN>
 int launch(const Args& a, cudaStream_t stream) {
   if (a.batch < 1 || a.t_len < 1 || a.hidden < 4 || a.hidden % 4 != 0) {
     return kUnsupported;
@@ -386,7 +468,8 @@ int launch(const Args& a, cudaStream_t stream) {
   const void* fn = nullptr;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[2];
-  const int err = configure<Cell>(a.hidden, a.upc, a.ncl, a.rgroups, a.kc, &fn, &cfg, attr);
+  const int err =
+      configure<Cell, TRAIN>(a.hidden, a.upc, a.ncl, a.rgroups, a.kc, &fn, &cfg, attr);
   if (err != cudaSuccess) return err;
   void* args[] = {(void*)&a};
   return launch_resident(fn, &cfg, attr, a.ncl, args, stream);
@@ -394,13 +477,13 @@ int launch(const Args& a, cudaStream_t stream) {
 
 // How many clusters of a plan's kernel the card holds at once, into
 // *count; 0 where the plan does not fit.
-template <class Cell>
+template <class Cell, bool TRAIN>
 int max_clusters(int hidden, int upc, int ncl, int rgroups, int kc, int* count) {
   const void* fn = nullptr;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   *count = 0;
-  const int err = configure<Cell>(hidden, upc, ncl, rgroups, kc, &fn, &cfg, attr);
+  const int err = configure<Cell, TRAIN>(hidden, upc, ncl, rgroups, kc, &fn, &cfg, attr);
   if (err == kPlanMismatch) return cudaSuccess;
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveClusters(count, fn, &cfg);

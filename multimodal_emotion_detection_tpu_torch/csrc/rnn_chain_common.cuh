@@ -1,8 +1,9 @@
 // What the recurrent cores for Hopper (sm_90a) share: the one-layer
 // rnn_bwd_chain.cuh (the reverse chains, rows 4 and 7) and
 // rnn_fwd_chain.cuh (the forwards, rows 6 and 7f with their eval forms),
-// and the 2-layer rnn2_bwd_chain.cuh (row 15) and rnn2_fwd_chain.cuh (row
-// 3), which run two such sets of CTAs, one per layer, in one launch.
+// and the 2-layer rnn2_bwd_chain.cuh (rows 15 and 12) and rnn2_fwd_chain.cuh
+// (rows 3 and 2, with their training forms 14 and 11), which run two such
+// sets of CTAs, one per layer, in one launch.
 //
 // All run one persistent cooperative launch of H / UPC CTAs a set, one per SM,
 // cut into row groups and clusters that split the exchanged row's columns

@@ -1,15 +1,15 @@
-// The state tile loader shared by the 2-layer training forwards
-// (lstm2_train_fwd.cu, gru2_train_fwd.cu).
+// The state tile loader shared by the 2-layer training forwards in the
+// legacy layout (lstm2_train_fwd_legacy.cu, gru2_train_fwd_legacy.cu).
 //
 // A CTA of NW warps copies rows [bt0, bt0 + nb) (nb <= 32) of a state
 // series into a (32, H + 1) tile in shared memory; the odd row stride puts
 // the 32 rows of one column in distinct banks.  The lanes of a warp take
 // consecutive float4 columns of one row and warp w takes rows w, w + NW, ..,
 // so each load reads 512 contiguous bytes whatever the row stride: H for the
-// residual forms' (B, H) series, 10H or 12H for the h lanes of the legacy
-// forms' packed rows.  On the H100 this took the legacy LSTM forward's phase
-// from 15.5 us (a row per lane, 16-byte loads 4H bytes or more apart) to
-// 10.0 us.  H must be a multiple of 4; src == nullptr loads the zero state.
+// (B, H) keep mask, 10H or 12H for the h lanes of the packed rows.  On the
+// H100 this took the legacy LSTM forward's phase from 15.5 us (a row per
+// lane, 16-byte loads 4H bytes or more apart) to 10.0 us.  H must be a
+// multiple of 4; src == nullptr loads the zero state.
 
 #pragma once
 

@@ -15,7 +15,8 @@ Two layers in one launch (H up to twice the SM count):
   ``csrc/rnn2_fwd_chain.cuh``, split by ``chain_plan(forward=True,
   layers=2)``);
 * ``lstm2_train_fwd_residuals``: the training forward, time-major, with
-  the residuals the backward consumes (``csrc/lstm2_train_fwd.cu``);
+  the residuals the backward consumes (``csrc/lstm2_train_fwd.cu``, the
+  training form of the same 2-layer forward core, on the same plan);
 * ``lstm2_bwd_chain``: the reverse dgates chain of both layers over those
   residuals (``csrc/lstm2_bwd_chain.cu`` on the 2-layer reverse core
   ``csrc/rnn2_bwd_chain.cuh``, split by ``chain_plan(layers=2)``);
@@ -30,9 +31,9 @@ The legacy-layout twins of the pair (the routes of the JAX package's
 ``set_res2_mode("off")``):
 
 * ``lstm2_train_fwd_legacy``: the training forward in the older layout
-  (``csrc/lstm2_train_fwd.cu``'s legacy form), ``res`` (T, B, 12H) =
-  ``[g0 | g1 | h0 | h1 | c0 | c1]`` with the states AFTER each step, and
-  ``h_final`` (B, H);
+  (``csrc/lstm2_train_fwd_legacy.cu``, the first 2-layer design), ``res``
+  (T, B, 12H) = ``[g0 | g1 | h0 | h1 | c0 | c1]`` with the states AFTER
+  each step, and ``h_final`` (B, H);
 * ``lstm2_bwd_chain_legacy``: both layers' reverse chain over that
   layout's separate g / c_prev series, with an optional ``dys`` stream,
   into ``dg`` (T, B, 8H) = ``[dg0 | dg1]`` (``csrc/lstm2_bwd_chain_legacy.cu``,
@@ -63,21 +64,21 @@ the 2-layer LSTM kernels:
   ``csrc/rnn2_fwd_chain.cuh``, split by ``chain_plan(forward=True,
   layers=2)``);
 * ``gru2_train_fwd_residuals``: the training forward with its residuals
-  (``csrc/gru2_train_fwd.cu``);
+  (``csrc/gru2_train_fwd.cu``, the core's training form);
 * ``gru2_bwd_chain``: the reverse chain of both layers, emitting ``dih``
   and only the ``dhn`` lane of ``dhh`` (``csrc/gru2_bwd_chain.cu`` on the
   2-layer reverse core ``csrc/rnn2_bwd_chain.cuh``, split by
   ``chain_plan(layers=2)``).
 
 The GRU legacy-layout twins (``set_res2_mode("off")``):
-``gru2_train_fwd_legacy`` (``csrc/gru2_train_fwd.cu``'s legacy form:
-``res`` (T, B, 10H) = ``[r0 | z0 | n0 | hn0 | h0 | r1 | z1 | n1 | hn1 |
-h1]``, h after each step, and ``h_final``) and ``gru2_bwd_chain_legacy``
-(``csrc/gru2_bwd_chain_legacy.cu``: over the per-layer ``[h_prev | r | z
-| n | hn]`` rows, with an optional ``dys``, into (T, B, 12H) = ``[dih0 |
-dhh0 | dih1 | dhh1]`` with the full ``dhh``).  Whether
-the legacy GRU backward takes it or two layered chains is
-``lstm_vjp.GRU_BWD2_ENABLED``'s choice, as in the JAX package.
+``gru2_train_fwd_legacy`` (``csrc/gru2_train_fwd_legacy.cu``, the first
+2-layer design: ``res`` (T, B, 10H) = ``[r0 | z0 | n0 | hn0 | h0 | r1 | z1
+| n1 | hn1 | h1]``, h after each step, and ``h_final``) and
+``gru2_bwd_chain_legacy`` (``csrc/gru2_bwd_chain_legacy.cu``: over the
+per-layer ``[h_prev | r | z | n | hn]`` rows, with an optional ``dys``,
+into (T, B, 12H) = ``[dih0 | dhh0 | dih1 | dhh1]`` with the full
+``dhh``).  Whether the legacy GRU backward takes it or two layered chains
+is ``lstm_vjp.GRU_BWD2_ENABLED``'s choice, as in the JAX package.
 
 The GRU residual layout is the JAX package's too: ``packed`` (T, B, 8H) =
 ``[r0 | z0 | n0 | hn0 | r1 | z1 | n1 | hn1]`` (gate activations, and
@@ -334,12 +335,12 @@ def lstm2_bwd_chain_remat_reference(packed: torch.Tensor, keep_tm: torch.Tensor,
 
 LSTM2_TRAIN_FWD = CudaKernel(
     "lstm2_train_fwd", "lstm2_train_fwd_launch",
-    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    [_P] * 13 + [_I] * 7 + [_P],
 )
 # the same source's no-gates form, counted apart
 LSTM2_TRAIN_FWD_NOGATES = CudaKernel(
     "lstm2_train_fwd", "lstm2_train_fwd_nogates_launch",
-    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    [_P] * 13 + [_I] * 7 + [_P],
 )
 LSTM2_BWD_CHAIN = CudaKernel(
     "lstm2_bwd_chain", "lstm2_bwd_chain_launch",
@@ -390,8 +391,9 @@ def lstm2_train_fwd_residuals(x_tm: torch.Tensor, keep_tm: torch.Tensor,
     (T, B, 10H), or (T, B, 2H) without the gates.
 
     On a CUDA tensor this launches ``csrc/lstm2_train_fwd.cu`` (one
-    cooperative launch for the whole sequence) and counts it in
-    ``LSTM2_TRAIN_FWD.launches``, its no-gates form in
+    cooperative cluster launch for the whole sequence on ``chain_plan_on``'s
+    2-layer forward plan: layer 0 on one CTA set, layer 1 on another) and
+    counts it in ``LSTM2_TRAIN_FWD.launches``, its no-gates form in
     ``LSTM2_TRAIN_FWD_NOGATES.launches``; on a CPU tensor it runs
     ``lstm2_train_fwd_reference``.
     """
@@ -403,12 +405,17 @@ def lstm2_train_fwd_residuals(x_tm: torch.Tensor, keep_tm: torch.Tensor,
     new = dict(dtype=torch.float32, device=x_tm.device)
     width = RES2_W if store_gates else RES3_W
     packed = torch.empty((t_len, batch, width * h_dim), **new)
+    # the kernel's CTAs exchange h through the h0p, h1p and x1 series
     h0p, h1p, x1 = (torch.empty((t_len, batch, h_dim), **new) for _ in range(3))
     finals = torch.empty((4, batch, h_dim), **new)
+    carry = torch.zeros((2, batch, h_dim), **new)
+    plan, flags = _pair_launch("lstm2_train_fwd", 4, batch, h_dim, x_tm.device,
+                               forward=True)
     (LSTM2_TRAIN_FWD if store_gates else LSTM2_TRAIN_FWD_NOGATES)(
         *(t.data_ptr() for t in tensors), packed.data_ptr(), h0p.data_ptr(),
-        h1p.data_ptr(), x1.data_ptr(), finals.data_ptr(), batch, t_len,
-        h_dim, stream_of(x_tm),
+        h1p.data_ptr(), x1.data_ptr(), finals.data_ptr(), carry.data_ptr(),
+        flags.data_ptr(), batch, t_len, h_dim, plan.upc, plan.ncl, plan.rgroups,
+        plan.kc, stream_of(x_tm),
     )
     return packed, h0p, h1p, x1, finals
 
@@ -559,7 +566,7 @@ def lstm2_bwd_chain_legacy_reference(g0: torch.Tensor, g1: torch.Tensor,
 
 
 LSTM2_TRAIN_FWD_LEGACY = CudaKernel(
-    "lstm2_train_fwd", "lstm2_train_fwd_legacy_launch",
+    "lstm2_train_fwd_legacy", "lstm2_train_fwd_legacy_launch",
     [_P] * 8 + [_I, _I, _I, _P],
 )
 LSTM2_BWD_CHAIN_LEGACY = CudaKernel(
@@ -574,8 +581,8 @@ def lstm2_train_fwd_legacy(x_tm: torch.Tensor, keep_tm: torch.Tensor,
     -> ``(ys, h_final, g0, g1, h0_new, c0_new, c1_new)``, float32; on the
     card the series are views of the kernel's one ``res`` (T, B, 12H).
 
-    On a CUDA tensor this launches ``csrc/lstm2_train_fwd.cu``'s legacy
-    form (one cooperative launch) and counts it in
+    On a CUDA tensor this launches ``csrc/lstm2_train_fwd_legacy.cu`` (the
+    first 2-layer design, one cooperative launch) and counts it in
     ``LSTM2_TRAIN_FWD_LEGACY.launches``; on a CPU tensor it runs
     ``lstm2_train_fwd_legacy_reference``.
     """
@@ -1209,7 +1216,7 @@ GRU2_INFER = CudaKernel(
 )
 GRU2_TRAIN_FWD = CudaKernel(
     "gru2_train_fwd", "gru2_train_fwd_launch",
-    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    [_P] * 15 + [_I] * 7 + [_P],
 )
 GRU2_BWD_CHAIN = CudaKernel(
     "gru2_bwd_chain", "gru2_bwd_chain_launch",
@@ -1278,8 +1285,9 @@ def gru2_train_fwd_residuals(x_tm: torch.Tensor, keep_tm: torch.Tensor,
     ``(packed, h0_prev, h1_prev, x1, finals)``, all float32.
 
     On a CUDA tensor this launches ``csrc/gru2_train_fwd.cu`` (one
-    cooperative launch for the whole sequence) and counts it in
-    ``GRU2_TRAIN_FWD.launches``; on a CPU tensor it runs
+    cooperative cluster launch for the whole sequence on ``chain_plan_on``'s
+    2-layer forward plan: layer 0 on one CTA set, layer 1 on another) and
+    counts it in ``GRU2_TRAIN_FWD.launches``; on a CPU tensor it runs
     ``gru2_train_fwd_reference``.
     """
     if x_tm.device.type == "cpu":
@@ -1294,14 +1302,19 @@ def gru2_train_fwd_residuals(x_tm: torch.Tensor, keep_tm: torch.Tensor,
     _check_shapes("gru2_train_fwd", keep=(keep, (t_len, batch, h_dim)))
     new = dict(dtype=torch.float32, device=x_tm.device)
     packed = torch.empty((t_len, batch, GRU_RES2_W * h_dim), **new)
+    # the kernel's CTAs exchange h through the h0p, h1p and x1 series
     h0p, h1p, x1 = (torch.empty((t_len, batch, h_dim), **new) for _ in range(3))
     finals = torch.empty((2, batch, h_dim), **new)
+    carry = torch.zeros((2, batch, h_dim), **new)
     check_cuda_f32("gru2_train_fwd", ih0=ih0, keep=keep, w_hh0=w[0], b_hh0=w[1],
                    w_ih1=w[2], b_ih1=w[3], w_hh1=w[4], b_hh1=w[5])
+    plan, flags = _pair_launch("gru2_train_fwd", 3, batch, h_dim, x_tm.device,
+                               forward=True)
     GRU2_TRAIN_FWD(
         ih0.data_ptr(), keep.data_ptr(), *(t.data_ptr() for t in w),
         packed.data_ptr(), h0p.data_ptr(), h1p.data_ptr(), x1.data_ptr(),
-        finals.data_ptr(), batch, t_len, h_dim, stream_of(x_tm),
+        finals.data_ptr(), carry.data_ptr(), flags.data_ptr(), batch, t_len, h_dim,
+        plan.upc, plan.ncl, plan.rgroups, plan.kc, stream_of(x_tm),
     )
     return packed, h0p, h1p, x1, finals
 
@@ -1405,7 +1418,7 @@ def gru2_bwd_chain_legacy_reference(res0, res1, dys, keep_tm: torch.Tensor,
 
 
 GRU2_TRAIN_FWD_LEGACY = CudaKernel(
-    "gru2_train_fwd", "gru2_train_fwd_legacy_launch",
+    "gru2_train_fwd_legacy", "gru2_train_fwd_legacy_launch",
     [_P] * 10 + [_I, _I, _I, _P],
 )
 GRU2_BWD_CHAIN_LEGACY = CudaKernel(
@@ -1421,8 +1434,8 @@ def gru2_train_fwd_legacy(x_tm: torch.Tensor, keep_tm: torch.Tensor,
     h1_new)))``, float32; on the card the series are views of the kernel's
     one ``res`` (T, B, 10H).
 
-    On a CUDA tensor this launches ``csrc/gru2_train_fwd.cu``'s legacy form
-    (one cooperative launch) and counts it in
+    On a CUDA tensor this launches ``csrc/gru2_train_fwd_legacy.cu`` (the
+    first 2-layer design, one cooperative launch) and counts it in
     ``GRU2_TRAIN_FWD_LEGACY.launches``; on a CPU tensor it runs
     ``gru2_train_fwd_legacy_reference``.
     """

@@ -26,23 +26,28 @@ inputs:
 * the flagship's 2-layer kernels (LSTM 2x256, ``chip_smoke.py``'s
   ``[lstm2_bwd_chain]`` / ``[lstm2_infer]`` inputs): ``lstm2_bwd_chain``
   (row 12) at (32, 372, 256) over the flagship's own residuals, beside
-  cuDNN's backward of ``h_n``; and ``lstm2_infer`` (row 2, the input
+  cuDNN's backward of ``h_n``; ``lstm2_infer`` (row 2, the input
   projection included) at B = 32, 24, 16, 4 and 1, beside cuDNN's 2-layer
-  LSTM inference forward at B 32 and 1;
+  LSTM inference forward at B 32 and 1; and the training forward
+  ``lstm2_train_fwd_residuals`` with the gates (row 11) and without them
+  (11n), the input projection included, keep at p = 0.1, at B = 32, 17
+  and 1, beside cuDNN's 2-layer LSTM training forward (keep = 1);
 * the GRU config's 2-layer kernels (GRU 2x256, ``chip_smoke.py``'s
   ``[gru2_bwd_chain]`` / ``[gru2_infer]`` inputs): ``gru2_bwd_chain``
   (row 15) at (32, 372, 256) over the config's own residuals, beside the
   two-chain route over the same residuals (two ``gru_bwd_chain``
   launches and the hop, ``ops/lstm_vjp.py::gru_bwd_layered_legacy``, the
-  layout's copies included) and cuDNN's backward of ``h_n``; and
+  layout's copies included) and cuDNN's backward of ``h_n``;
   ``gru2_infer`` (row 3, the input projection included) at B = 32, 24,
-  16, 4 and 1, beside cuDNN's 2-layer GRU inference forward at B 32 and 1.
+  16, 4 and 1, beside cuDNN's 2-layer GRU inference forward at B 32 and 1;
+  and ``gru2_train_fwd_residuals`` (row 14) at B = 32, 17 and 1 beside
+  cuDNN's 2-layer GRU training forward (keep = 1).
 
-``--timers`` then builds rows 4, 7, 6, 7f, 12, 2, 15 and 3 of both trees
-with ``-DRNN_CHAIN_TIMERS=1`` (``csrc/rnn_timers.cuh``) and prints, for
-each at (32, 372, 512) (the chains with ``dh_series``; the 2-layer rows
-12, 2, 15 and 3 at (32, 372, 256), one block per CTA set), each phase's
-share of the
+``--timers`` then builds rows 4, 7, 6, 7f, 12, 2, 11, 15, 3 and 14 of both
+trees with ``-DRNN_CHAIN_TIMERS=1`` (``csrc/rnn_timers.cuh``) and prints,
+for each at (32, 372, 512) (the chains with ``dh_series``; the 2-layer rows
+12, 2, 11, 15, 3 and 14 at (32, 372, 256), one block per CTA set), each
+phase's share of the
 warps' ``clock64()`` time and the cycles per step and warp, with the
 launch plan where the tree has one.  A tree whose sources
 predate the timers has no timed build: ``--timers-parent TDIR`` names a
@@ -53,8 +58,8 @@ resident cluster counts, and the exchange alone (write, barrier, read);
 ``--sweep`` times rows 4, 7, 6 and 7f of this checkout on variants of the
 launch plan (chunk, cluster size, row groups; and at B 1..24 each row-group
 count).  ``--steps`` (with ``--parent``)
-adds ``[train]`` / ``[train_big]`` / ``[train_big_gru]`` / ``[train_gru]``'s
-b32 train-step p50 / p90 and ``[serve]`` / ``[serve_big]`` /
+adds ``[train]`` / ``[train_remat]`` / ``[train_big]`` / ``[train_big_gru]`` /
+``[train_gru]``'s b32 train-step p50 / p90 and ``[serve]`` / ``[serve_big]`` /
 ``[serve_big_gru]`` / ``[serve_gru]``'s b32 and b1 forward p50 / p90 with
 each tree's package, parent / change / change / parent.  ``--child ROOT``, ``--timers-of
 ROOT``, ``--steps-of ROOT``, ``--probe`` and ``--sweep`` alone run one
@@ -113,14 +118,17 @@ def _port(root: Path):
 
 # batches at which rows 2 and 3 (the 2-layer eval forwards) are timed
 GRU2_INFER_B = (32, 24, 16, 4, 1)
+# and rows 11, 11n and 14 (the 2-layer training forwards)
+TRAIN2_B = (32, 17, 1)
 # the 2-layer kernels' sources: two CTA sets, T + 1 phases
-PAIR_SOURCES = ("lstm2_bwd_chain", "lstm2_infer", "gru2_bwd_chain", "gru2_infer")
+PAIR_SOURCES = ("lstm2_bwd_chain", "lstm2_infer", "lstm2_train_fwd", "gru2_bwd_chain",
+                "gru2_infer", "gru2_train_fwd")
 
 
 def _lstm2_cases(torch, smoke, lk):
-    """Rows 12 and 2 on the flagship's inputs (``chip_smoke.py``'s
-    ``[lstm2_bwd_chain]`` and ``[lstm2_infer]``): name -> (run, None,
-    cuDNN's same function or None)."""
+    """Rows 12, 2, 11 and 11n on the flagship's inputs (``chip_smoke.py``'s
+    ``[lstm2_bwd_chain]``, ``[lstm2_infer]`` and ``[lstm2_train_fwd]``):
+    name -> (run, None, cuDNN's same function or None)."""
     import numpy as np
 
     cases = {}
@@ -139,13 +147,21 @@ def _lstm2_cases(torch, smoke, lk):
         cases[f"lstm2_infer_b{rows}_h256"] = (
             lambda xr=xr: lk.lstm2_infer(xr, l0, l1), None,
             _no_grad(torch, lambda xr=xr: lib(xr)) if rows in (32, 1) else None)
+    for rows in TRAIN2_B:
+        a = (x_tm[:, :rows].contiguous(), keep[:, :rows].contiguous(), l0, l1)
+        # cuDNN's training forward saves what its backward needs
+        xr = x[:rows].contiguous()
+        cases[f"lstm2_train_fwd_b{rows}_h256"] = (
+            lambda a=a: lk.lstm2_train_fwd_residuals(*a), None, lambda xr=xr: lib(xr))
+        cases[f"lstm2_train_fwd_nogates_b{rows}_h256"] = (
+            lambda a=a: lk.lstm2_train_fwd_residuals(*a, store_gates=False), None, None)
     return cases
 
 
 def _gru2_cases(torch, smoke, lk):
-    """Rows 15 and 3 on the GRU config's inputs (``chip_smoke.py``'s
-    ``[gru2_bwd_chain]`` and ``[gru2_infer]``): name -> (run, None, cuDNN's
-    same function or None).  ``gru2_two_chains_h256`` is the yardstick
+    """Rows 15, 3 and 14 on the GRU config's inputs (``chip_smoke.py``'s
+    ``[gru2_bwd_chain]``, ``[gru2_infer]`` and ``[gru2_train_fwd]``): name
+    -> (run, None, cuDNN's same function or None).  ``gru2_two_chains_h256`` is the yardstick
     row 15 must beat: the legacy route's backward over the same residuals
     (layer 1's ``gru_bwd_chain``, the hop as one matmul, layer 0's)."""
     import numpy as np
@@ -177,6 +193,11 @@ def _gru2_cases(torch, smoke, lk):
         cases[f"gru2_infer_b{rows}_h256"] = (
             lambda xr=xr: lk.gru2_infer(xr, i0, i1), None,
             _no_grad(torch, lambda xr=xr: ilib(xr)) if rows in (32, 1) else None)
+    for rows in TRAIN2_B:
+        a = (x_tm[:, :rows].contiguous(), keep[:, :rows].contiguous(), l0, l1)
+        xr = x_bt[:rows].contiguous()
+        cases[f"gru2_train_fwd_b{rows}_h256"] = (
+            lambda a=a: lk.gru2_train_fwd_residuals(*a), None, lambda xr=xr: lib(xr))
     return cases
 
 
@@ -348,8 +369,8 @@ def steps_of(root: Path) -> dict:
     from multimodal_emotion_detection_tpu_torch.training.steps import train_step
 
     _build.build(["logmel", "lstm2_infer", "lstm2_train_fwd", "lstm2_bwd_chain",
-                  "lstm1_fwd", "lstm_bwd_chain", "gru1_fwd", "gru_bwd_chain",
-                  "gru2_infer", "gru2_train_fwd", "gru2_bwd_chain"])
+                  "lstm2_bwd_chain_remat", "lstm1_fwd", "lstm_bwd_chain", "gru1_fwd",
+                  "gru_bwd_chain", "gru2_infer", "gru2_train_fwd", "gru2_bwd_chain"])
     data = root / "build" / "chain_ab" / "data"
     for seed, split in enumerate(("train", "val", "test")):
         if not (data / split / "labels.npy").exists():
@@ -357,6 +378,8 @@ def steps_of(root: Path) -> dict:
     dev = torch.device("cuda")
     res = {"root": str(root), "card": _smi()}
     for tag, overrides in (("train", ["model.frontend.audio=logmel"]),
+                           ("train_remat", ["model.frontend.audio=logmel",
+                                            "runtime.lstm_remat_gates=true"]),
                            ("train_big", smoke.BIG), ("train_big_gru", smoke.BIG_GRU),
                            ("train_gru", smoke.GRU)):
         cfg = load_config(str(root / "configs" / "base.yaml"),
@@ -368,9 +391,9 @@ def steps_of(root: Path) -> dict:
                                     seed=cfg.seed, device=dev)[0]
         raw = torch.from_numpy(loader.arrays.features["audio"]).to(dev)
         video = torch.from_numpy(loader.arrays.features["video"]).to(dev)
-        serve_tag = tag.replace("train", "serve")
-        _forward_latency(torch, smoke, cfg, [*overrides, f"dataset.data_dir={data}"],
-                         root, raw, video, res, serve_tag)
+        if tag != "train_remat":  # [serve]'s forward: the flag is inert at eval
+            _forward_latency(torch, smoke, cfg, [*overrides, f"dataset.data_dir={data}"],
+                             root, raw, video, res, tag.replace("train", "serve"))
         if cfg.model.frontend.cache:
             with torch.inference_mode():
                 feats = logmel.logmel_cuda(raw, logmel_params_from_config(cfg.model.frontend))
@@ -396,10 +419,10 @@ def steps_of(root: Path) -> dict:
 
 
 def timers_of(root: Path) -> None:
-    """Rows 4, 7, 6, 7f, 12, 2, 15 and 3 of ``root`` built with
+    """Rows 4, 7, 6, 7f, 12, 2, 11, 15, 3 and 14 of ``root`` built with
     -DRNN_CHAIN_TIMERS=1: each bucket's share of the warps' clock time at
-    (32, 372, 512) (rows 12, 2, 15 and 3 at (32, 372, 256)), per CTA set of
-    the 2-layer cores."""
+    (32, 372, 512) (rows 12, 2, 11, 15, 3 and 14 at (32, 372, 256)), per CTA
+    set of the 2-layer cores."""
     torch = _card()
     smoke = _smoke()
     _build, lk = _port(root)
@@ -411,8 +434,10 @@ def timers_of(root: Path) -> None:
                "gru1_train_fwd_h512": ("gru1_fwd", lk.GRU1_TRAIN_FWD),
                "lstm2_bwd_chain_h256": ("lstm2_bwd_chain", lk.LSTM2_BWD_CHAIN),
                "lstm2_infer_b32_h256": ("lstm2_infer", lk.LSTM2_INFER),
+               "lstm2_train_fwd_b32_h256": ("lstm2_train_fwd", lk.LSTM2_TRAIN_FWD),
                "gru2_bwd_chain_h256": ("gru2_bwd_chain", lk.GRU2_BWD_CHAIN),
-               "gru2_infer_b32_h256": ("gru2_infer", lk.GRU2_INFER)}
+               "gru2_infer_b32_h256": ("gru2_infer", lk.GRU2_INFER),
+               "gru2_train_fwd_b32_h256": ("gru2_train_fwd", lk.GRU2_TRAIN_FWD)}
     libs = {}
     for source in {s for s, _ in kernels.values()}:
         out = root / "build" / "chain_ab" / f"lib{source}_timers.so"
@@ -489,8 +514,8 @@ def _plan_of(lk, source, h, device):
     if source in PAIR_SOURCES:
         if not hasattr(lk, "_pair_launch"):
             return None
-        return lk.chain_plan_on(source, width, h, 32, device, source.endswith("_infer"),
-                                layers=2)
+        return lk.chain_plan_on(source, width, h, 32, device,
+                                not source.endswith("_chain"), layers=2)
     if source.endswith("_fwd"):
         if not hasattr(lk, "_fwd_launch"):
             return None

@@ -485,11 +485,58 @@ def test_lstm2_pair_kernels_match_plain(b, t, d, h):
         torch.testing.assert_close(o, r, rtol=1e-4, atol=1e-4, msg=name)
 
 
+@pytest.mark.parametrize("b,t,d,h", PAIR_SHAPES)
+def test_gru2_train_fwd_pair_matches_plain(b, t, d, h):
+    """Row 14, the forward core's training form, on the 2-layer shapes: its
+    residuals and finals against the plain version, keep at p = 0.1."""
+    dev = _card()
+    x_tm, keep, l0, l1 = _gru_case(dev, b, t, d, h, seed=b * 100 + t + h + 2)
+    before = lstm_kernel.GRU2_TRAIN_FWD.launches
+    outs = lstm_kernel.gru2_train_fwd_residuals(x_tm, keep, l0, l1)
+    torch.cuda.synchronize()
+    assert lstm_kernel.GRU2_TRAIN_FWD.launches == before + 1
+    refs = lstm_kernel.gru2_train_fwd_reference(x_tm, keep, l0, l1)
+    # float32 sums in another order than cuBLAS, carried through T steps
+    for name, o, r in zip(("packed", "h0_prev", "h1_prev", "x1", "finals"), outs, refs):
+        torch.testing.assert_close(o, r, rtol=1e-4, atol=1e-4, msg=name)
+
+
+@pytest.mark.parametrize("b,t,d,h", LSTM_PAIR_SHAPES)
+def test_lstm2_train_fwd_pair_forms_match_plain(b, t, d, h):
+    """Rows 11 and 11n, the forward core's training form with and without
+    the gates: each against the plain version, and the no-gates form's
+    residuals equal to the stored form's c_prev lanes and series bit for
+    bit."""
+    dev = _card()
+    x_tm, keep, l0, l1 = _lstm_case(dev, b, t, d, h, seed=b * 100 + t + h + 3)
+    runs = {}
+    for store_gates, kern in ((True, lstm_kernel.LSTM2_TRAIN_FWD),
+                              (False, lstm_kernel.LSTM2_TRAIN_FWD_NOGATES)):
+        before = kern.launches
+        outs = lstm_kernel.lstm2_train_fwd_residuals(x_tm, keep, l0, l1,
+                                                     store_gates=store_gates)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1
+        refs = lstm_kernel.lstm2_train_fwd_reference(x_tm, keep, l0, l1,
+                                                     store_gates=store_gates)
+        # float32 sums in another order than cuBLAS, carried through T steps
+        for name, o, r in zip(("packed", "h0_prev", "h1_prev", "x1", "finals"), outs,
+                              refs):
+            torch.testing.assert_close(o, r, rtol=1e-4, atol=1e-4,
+                                       msg=f"{name}, store_gates {store_gates}")
+        runs[store_gates] = outs
+    stored, bare = runs[True], runs[False]
+    assert torch.equal(bare[0], stored[0][..., 8 * h:])
+    for o, s in zip(bare[1:], stored[1:]):
+        assert torch.equal(o, s)
+
+
 def test_pair_kernels_raise_on_a_plan_that_does_not_fit():
     """No fallback: a 2-layer plan the launchers of either cell do not
     accept (a cluster of 3, 3 units a CTA, 3 row groups, an empty chunk, or
     a grid of two sets past the card) raises with its error string, and the
-    launch is not counted."""
+    launch is not counted: the eval forms, the reverse chains and the
+    training forwards (the LSTM's with and without the gates)."""
     dev = _card()
     b, t, d, h = 2, 3, 6, 128
     x_tm, keep, l0, l1 = _gru_case(dev, b, t, d, h, seed=5)
@@ -505,10 +552,15 @@ def test_pair_kernels_raise_on_a_plan_that_does_not_fit():
     lw = [p.data_ptr() for p in _lstm_case(dev, b, t, d, h, seed=6)[2:]
           for p in (p["w_hh"], p["w_ih"], p["b"])]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    series = [torch.empty((t, b, h), **new) for _ in range(3)]
+    finals = torch.empty((4, b, h), **new)
     for source, forward in (("gru2_infer", True), ("gru2_bwd_chain", False),
-                            ("lstm2_infer", True), ("lstm2_bwd_chain", False)):
+                            ("lstm2_infer", True), ("lstm2_bwd_chain", False),
+                            ("gru2_train_fwd", True), ("lstm2_train_fwd", True),
+                            ("lstm2_train_fwd_nogates", True)):
         width = 4 if source.startswith("lstm") else 3
-        plan = lstm_kernel.chain_plan_on(source, width, h, b, dev, forward, layers=2)
+        plan = lstm_kernel.chain_plan_on(source.replace("_nogates", ""), width, h, b, dev,
+                                         forward, layers=2)
         bad = [(plan.upc, 3, plan.rgroups, plan.kc), (3, plan.ncl, plan.rgroups, plan.kc),
                (plan.upc, plan.ncl, 3, plan.kc), (plan.upc, plan.ncl, plan.rgroups, 0)]
         if h <= sms < 2 * h:
@@ -528,11 +580,23 @@ def test_pair_kernels_raise_on_a_plan_that_does_not_fit():
                 kern, args = lstm_kernel.LSTM2_INFER, (
                     big.data_ptr(), lw[0], lw[4], lw[5], lw[3], h0.data_ptr(),
                     h1.data_ptr(), carry.data_ptr(), flags.data_ptr(), b, t, h)
-            else:
+            elif source == "lstm2_bwd_chain":
                 kern, args = lstm_kernel.LSTM2_BWD_CHAIN, (
                     big.data_ptr(), keep.data_ptr(), h1.data_ptr(), lw[0], lw[3], lw[4],
                     big.data_ptr(), big.data_ptr(), carry.data_ptr(), flags.data_ptr(),
                     b, t, h)
+            elif source == "gru2_train_fwd":
+                kern, args = lstm_kernel.GRU2_TRAIN_FWD, (
+                    ih0.data_ptr(), keep.data_ptr(), *w, big.data_ptr(),
+                    *(a.data_ptr() for a in series), finals.data_ptr(), carry.data_ptr(),
+                    flags.data_ptr(), b, t, h)
+            else:
+                # ih0 from big: wide enough for 4H rows
+                kern = (lstm_kernel.LSTM2_TRAIN_FWD if source == "lstm2_train_fwd"
+                        else lstm_kernel.LSTM2_TRAIN_FWD_NOGATES)
+                args = (big.data_ptr(), keep.data_ptr(), lw[0], lw[4], lw[5], lw[3],
+                        big.data_ptr(), *(a.data_ptr() for a in series),
+                        finals.data_ptr(), carry.data_ptr(), flags.data_ptr(), b, t, h)
             before = kern.launches
             with pytest.raises(RuntimeError, match="launch plan"):
                 kern(*args, upc, ncl, rgroups, kc, stream)

@@ -380,15 +380,19 @@ def test_module_defaults_at_import():
 
 @pytest.mark.parametrize("source", ["lstm2_train_fwd.cu", "gru2_train_fwd.cu"])
 def test_train_forwards_share_one_state_tile_loader(source):
-    # every form of the 2-layer training forwards (residual-native, no-gates,
-    # legacy) loads its state tiles through the one header, and editing it
-    # rebuilds them
+    # the legacy form of each 2-layer training forward (its own source, the
+    # first design) loads its state tiles through the one header, and
+    # editing it rebuilds them; the residual-native forms are the 2-layer
+    # forward core's training form and load no state tiles
     from multimodal_emotion_detection_tpu_torch.ops import _build
 
-    names = [p.name for p in _build._sources(_build.CSRC / source, [])]
-    assert names == [source, "state_tile.cuh"]
-    text = (_build.CSRC / source).read_text()
+    legacy = source.replace(".cu", "_legacy.cu")
+    names = [p.name for p in _build._sources(_build.CSRC / legacy, [])]
+    assert names == [legacy, "state_tile.cuh"]
+    text = (_build.CSRC / legacy).read_text()
     assert "state_tile::load_rows" in text and "load_tile" not in text
+    core = [p.name for p in _build._sources(_build.CSRC / source, [])]
+    assert "rnn2_fwd_chain.cuh" in core and "state_tile.cuh" not in core
 
 
 def test_cpu_wrappers_are_the_plain_versions():

@@ -426,31 +426,52 @@ def _model_bwd(plan, cell, packed, prev, keep, dh, w_hh0, w_hh1, w_ih1, seed, ex
     return (out[0], out[1]) if lstm else (out[0], dhn[0], out[1], dhn[1])
 
 
-def _model_fwd(plan, cell, ih0, l0, l1, seed, exact):
-    """``pair_kernel`` of csrc/rnn2_fwd_chain.cuh (eval form) with ``cell``
-    "gru" or "lstm": the lead set layer 0 over its own h (storing the h0
-    series), the follow set layer 1 over [own h | h0], its h in two
-    slots; the carry h (GRU) or c (LSTM)."""
-    batch, t_len, _ = ih0.shape
+def _model_fwd(plan, cell, ih0, l0, l1, seed, exact, keep=None, store_gates=True):
+    """``pair_kernel`` of csrc/rnn2_fwd_chain.cuh with ``cell`` "gru" or
+    "lstm": the lead set layer 0 over its own h, the follow set layer 1
+    over [own h | feed]; the carry h (GRU) or c (LSTM).
+
+    The eval form (``keep`` None): ih0 (B, T, W H), the feed h0, the lead
+    set storing the h0 series, the follow set its h in two slots -> the
+    final h1.  The training form: ih0 (T, B, W H), ``keep`` (T, B, H), the
+    feed x1 = h0 keep, both sets reading and storing the whole h0p / h1p /
+    x1 series and storing the packed rows (the LSTM's without the gates
+    unless ``store_gates``) and the finals -> ``(packed, h0p, h1p, x1,
+    finals)``.  Every buffer starts NaN, so a read before its write shows."""
+    train = keep is not None
+    t_len, batch = (ih0.shape[0], ih0.shape[1]) if train else (ih0.shape[1], ih0.shape[0])
     hidden, width = l0["w_hh"].shape[0], plan.width
-    h0 = np.full((t_len, batch, hidden), np.nan)
-    h1 = np.full((2, batch, hidden), np.nan)
+    lstm = cell == "lstm"
+    nan = np.full
+    if train:
+        pw = (10 if store_gates else 2) * hidden if lstm else 8 * hidden
+        packed = nan((t_len, batch, pw), np.nan)
+        hp = [nan((t_len, batch, hidden), np.nan) for _ in range(2)]
+        x1 = nan((t_len, batch, hidden), np.nan)
+        finals = nan((4 if lstm else 2, batch, hidden), np.nan)
+    else:
+        h0 = nan((t_len, batch, hidden), np.nan)
+        h1 = nan((2, batch, hidden), np.nan)
     carry = [np.zeros((batch, hidden)), np.zeros((batch, hidden))]
 
     # a cell: (layer, input part x, gate columns, own and fed products,
-    # carry before) -> (h, carry after)
+    # carry before) -> (h, carry after, what the training form stores in
+    # the layer's lanes of packed, a lane a row)
     def gru_cell(layer, x, gate, own, fed, cp):
         bh = (l0 if layer == 0 else l1)["b_hh"][gate]
+        hn = own[2] + bh[2]
         r = _sig(x[0] + fed[0] + own[0] + bh[0])
         z = _sig(x[1] + fed[1] + own[1] + bh[1])
-        n = np.tanh(x[2] + fed[2] + r * (own[2] + bh[2]))
+        n = np.tanh(x[2] + fed[2] + r * hn)
         h = (1 - z) * n + z * cp
-        return h, h
+        return h, h, {4 * layer + i: v for i, v in enumerate((r, z, n, hn))}
 
     def lstm_cell(layer, x, gate, own, fed, cp):
         g = [x[q] + fed[q] + own[q] for q in range(4)]
         c = _sig(g[1]) * cp + _sig(g[0]) * np.tanh(g[2])
-        return _sig(g[3]) * np.tanh(c), c
+        lanes = {4 * layer + q: g[q] for q in range(4)}
+        lanes[8 + layer] = cp
+        return _sig(g[3]) * np.tanh(c), c, lanes if store_gates else {layer: cp}
 
     def cluster_step(follow, c0, t):
         layer = 1 if follow else 0
@@ -459,6 +480,8 @@ def _model_fwd(plan, cell, ih0, l0, l1, seed, exact):
         cols = [q * hidden + u for u in units for q in range(width)]
 
         def source(seg, rows):
+            if train:
+                return (x1 if seg == 1 else hp[layer])[t][rows]
             if seg == 1 or layer == 0:
                 return h0[t if seg == 1 else t - 1][rows]
             return h1[(t - 1) % 2][rows]
@@ -477,16 +500,35 @@ def _model_fwd(plan, cell, ih0, l0, l1, seed, exact):
                     own = [_sums(parts, plan.ncl, 0, rows, oc + q) for q in range(width)]
                     fed = [_sums(parts, plan.ncl, 1, rows, oc + q) for q in range(width)]
                     # the input part: layer 0's ih0, or layer 1's bias (b_ih1 / b1)
-                    x = (ih0[rows, t][:, gate].T if layer == 0
-                         else l1["b_ih" if cell == "gru" else "b"][gate][:, None])
-                    h, carry[layer][rows, j] = (lstm_cell if cell == "lstm" else gru_cell)(
-                        layer, x, gate, own, fed, carry[layer][rows, j])
-                    if layer == 0:
-                        h0[t][rows, j] = h
+                    if layer == 1:
+                        x = l1["b" if lstm else "b_ih"][gate][:, None]
                     else:
-                        h1[t % 2][rows, j] = h
+                        x = (ih0[t][rows] if train else ih0[rows, t])[:, gate].T
+                    h, carry[layer][rows, j], lanes = (lstm_cell if lstm else gru_cell)(
+                        layer, x, gate, own, fed, carry[layer][rows, j])
+                    if not train:
+                        if layer == 0:
+                            h0[t][rows, j] = h
+                        else:
+                            h1[t % 2][rows, j] = h
+                        continue
+                    for lane, v in lanes.items():
+                        packed[t][rows, lane * hidden + j] = v
+                    if layer == 0:
+                        x1[t][rows, j] = h * keep[t][rows, j]
+                    if t == 0:
+                        hp[layer][0][rows, j] = 0.0
+                    if t + 1 < t_len:
+                        hp[layer][t + 1][rows, j] = h
+                    else:
+                        fh = 2 * layer if lstm else layer
+                        finals[fh][rows, j] = h
+                        if lstm:
+                            finals[fh + 1][rows, j] = carry[layer][rows, j]
 
     _schedule(plan, t_len, np.random.RandomState(seed), cluster_step)
+    if train:
+        return packed, hp[0], hp[1], x1, finals
     return h1[(t_len - 1) % 2]
 
 
@@ -555,6 +597,33 @@ def _check_model(plan, batch, t_len, d, hidden, seed, exact, cell="gru"):
         assert not np.isnan(g).any(), f"{name}: a read before the write"
         np.testing.assert_allclose(g, w.numpy(), rtol=0, atol=1e-6, err_msg=name)
     return got
+
+
+TRAIN_NAMES = ("packed", "h0_prev", "h1_prev", "x1", "finals")
+# the training forms: the cell and, for the LSTM, whether it stores the gates
+TRAIN_FORMS = [("lstm", True), ("lstm", False), ("gru", True)]
+
+
+def _check_train_model(plan, batch, t_len, d, hidden, seed, exact, cell, store_gates):
+    """The training form of the forward core's model against
+    ``lstm2_train_fwd_reference`` (``store_gates`` either way) or
+    ``gru2_train_fwd_reference`` (1e-6); keep has zeros (p = 0.1)."""
+    l0, l1, x, keep, _ = _case(cell, batch, t_len, d, hidden, seed)
+    lstm = cell == "lstm"
+    x_tm = x.transpose(1, 0, 2)
+    ih0 = x_tm.astype(np.float64) @ l0["w_ih"] + l0["b" if lstm else "b_ih"]
+    got = _model_fwd(plan, cell, ih0, l0, l1, seed, exact, keep=keep,
+                     store_gates=store_gates)
+    args = [torch.from_numpy(a) for a in (x_tm, keep)] + [
+        {k: torch.from_numpy(v) for k, v in layer.items()} for layer in (l0, l1)]
+    if lstm:
+        want = lk.lstm2_train_fwd_reference(*args, store_gates=store_gates)
+    else:
+        want = lk.gru2_train_fwd_reference(*args)
+    for name, g, w in zip(TRAIN_NAMES, got, want):
+        assert not np.isnan(g).any(), f"{name}: a read before the write, or unwritten"
+        np.testing.assert_allclose(g, w.numpy(), rtol=0, atol=1e-6, err_msg=name)
+    return got, (l0, l1, x_tm, keep)
 
 
 # (B, T, H, SMs, stub, (cluster size, row groups)) and whether each CTA's
@@ -649,3 +718,49 @@ def test_lstm_pair_core_model_matches_the_jax_kernels(forward):
     for name, g, w in zip(("dg0", "dg1"), got, want):
         np.testing.assert_allclose(g, np.asarray(w)[:t_len], rtol=0, atol=1e-5,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("cell,store_gates", TRAIN_FORMS)
+@pytest.mark.parametrize("batch,t_len,hidden,sms,stub,split,exact", MODEL_CASES)
+def test_pair_core_train_model_matches_plain(cell, store_gates, batch, t_len, hidden,
+                                             sms, stub, split, exact):
+    """The forward core's training form (rows 11, 11n and 14): time-major
+    ih0, the feed x1 = h0 keep with keep zeros in it, the whole h0p / h1p /
+    x1 series as the exchange (NaN until written), the packed rows and the
+    finals of each cell, against ``lstm2_train_fwd_reference`` /
+    ``gru2_train_fwd_reference`` on the eval form's plans."""
+    width = 4 if cell == "lstm" else 3
+    active = (_measured if stub == "measured" else _every)(sms)
+    plan = lk.chain_plan(hidden, width, batch, sms, MAX_SMEM, active, True, layers=2)
+    assert (plan.ncl, plan.rgroups) == split, plan
+    _check_train_model(plan, batch, t_len, 5, hidden,
+                       seed=batch * 10 + t_len + hidden + 2 + store_gates, exact=exact,
+                       cell=cell, store_gates=store_gates)
+
+
+@pytest.mark.parametrize("cell,store_gates", TRAIN_FORMS)
+def test_pair_core_train_model_matches_the_jax_kernels(cell, store_gates):
+    """The training form at the JAX kernels' shapes (H 128, B 8, T 5): the
+    model on the H100's plan against ``lstm2_train_fwd_residuals`` (both
+    forms) and ``gru2_train_fwd_residuals`` in interpret mode, matmul
+    precision "highest", over the first T rows of their padded series."""
+    batch, t_len, d, hidden, seed = 8, 5, 12, 128, 5
+    width = 4 if cell == "lstm" else 3
+    plan = lk.chain_plan(hidden, width, batch, 132, MAX_SMEM, _measured(132), True,
+                         layers=2)
+    assert (plan.upc, plan.ctas, plan.ncl, plan.rgroups) == (2, 128, 2, 2)
+    got, (l0, l1, x_tm, keep) = _check_train_model(
+        plan, batch, t_len, d, hidden, seed, exact=False, cell=cell,
+        store_gates=store_gates)
+    with jax.default_matmul_precision("highest"):
+        if cell == "lstm":
+            want = jax_lstm_train_fwd(jnp.asarray(x_tm), jnp.asarray(keep), l0, l1,
+                                      interpret=True, store_gates=store_gates)
+        else:
+            want = jax_train_fwd(jnp.asarray(x_tm), jnp.asarray(keep), l0, l1,
+                                 interpret=True)
+    packed, h0p, h1p, x1, _, finals, _ = want
+    for name, g, w in zip(TRAIN_NAMES, got, (packed, h0p, h1p, x1, finals)):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g, w if name == "finals" else w[:t_len], rtol=0,
+                                   atol=1e-5, err_msg=name)
