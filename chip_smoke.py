@@ -30,9 +30,13 @@
    recurrence gradient beside cuDNN's forward + backward.  Then
    ``[lstm2_bwd_chain_remat]`` does the same for the gate-rematerialising
    pair (``runtime.lstm_remat_gates``: the forward's no-gates form, the
-   reverse chain that recomputes the gates), holds it against the
-   stored-gates pair on the same inputs, and times and measures the peak
-   memory of the whole recurrence gradient on both routes.
+   reverse chain that recomputes the gates, the 2-layer reverse core's
+   remat cell, its chain at B 17 and 1 too, and at B=512, past the rows
+   whose gate blocks fit one launch, in slices of the batch, each with its
+   launch plan),
+   holds it against the stored-gates pair on the same inputs, and times
+   and measures the peak memory of the whole recurrence gradient on both
+   routes (the remat route's must be the lower).
 6. Trains: writes synthetic train / val / test splits of 96 / 64 / 64
    full-width clips and runs the port's train CLI for 2 epochs at batch 32
    with seeded weights.  The launch counts are zeroed just before and read
@@ -89,8 +93,10 @@
    ``[lstm2_bwd_chain_legacy]`` and ``[gru2_train_fwd_legacy]`` /
    ``[gru2_bwd_chain_legacy]`` hold its four kernels (rows 5, 9, 8 and 10
    of PERF.md's table; the chains with and without ``dys``) against their
-   plain versions at B=32, T=372, D=64, H=256 (all four are the first
-   2-layer design, ``csrc/*_legacy.cu``), time them beside the
+   plain versions at B=32, T=372, D=64, H=256 (the forwards are the first
+   2-layer design on ``csrc/state_tile.cuh``, the LSTM chain the first
+   design, the GRU chain the 2-layer reverse core's legacy cell, printed
+   with its launch plan), time them beside the
    residual-native pair's
    on the same inputs (the chains' outputs to 1e-5 of the largest), the
    plain versions and cuDNN,
@@ -449,11 +455,12 @@ def phase_serve(counters):
                       ckpt, overrides, audio, video, WORK / "predictions")
 
 
-def _lstm_train_inputs(seed: int):
-    """The flagship's training shape (log-mel 64, LSTM 2x256, batch 32):
-    time-major x, keep mask at dropout 0.1, both layers' weights."""
+def _lstm_train_inputs(seed: int, b: int = 32, t: int = 372):
+    """The flagship's training shape (log-mel 64, LSTM 2x256, batch 32;
+    or b rows over t steps): time-major x, keep mask at dropout 0.1, both
+    layers' weights."""
     dev = torch.device("cuda")
-    b, t, d, h = 32, 372, 64, 256
+    d, h = 64, 256
     rng = np.random.RandomState(seed)
     k = 1.0 / np.sqrt(h)
 
@@ -666,15 +673,48 @@ def phase_lstm2_remat(lstm_kernel, lstm_vjp, flush):
                               lstm_kernel.lstm2_bwd_chain_remat_reference(*args)):
         errs[name] = max_errs(out, ref)[0]
         torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4, msg=name)
+    # one row (two row groups, one empty) and 17 rows (5 a group)
+    for rows in (1, 17):
+        sub = (*(a[:, :rows].contiguous() for a in (packed, keep, x_tm, x1, h0p, h1p)),
+               dh[:rows].contiguous(), l0, l1)
+        outs_b = lstm_kernel.lstm2_bwd_chain_remat(*sub)
+        torch.cuda.synchronize()
+        for name, out, ref in zip(("dg0", "dg1"), outs_b,
+                                  lstm_kernel.lstm2_bwd_chain_remat_reference(*sub)):
+            errs[f"{name} B={rows}"] = max_errs(out, ref)[0]
+            torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4,
+                                       msg=f"{name} B={rows}")
+    # past the rows whose gate blocks fit one launch: one launch a slice of
+    # the batch (the plan's batch_slice), B=512 over 16 steps
+    xw, keepw, w0, w1 = _lstm_train_inputs(12, b=512, t=16)
+    resw = lstm_kernel.lstm2_train_fwd_residuals(xw, keepw, w0, w1, store_gates=False)
+    dhw = torch.from_numpy(np.random.RandomState(13).randn(512, h).astype(np.float32)).cuda()
+    wide = (resw[0], keepw, xw, resw[3], resw[1], resw[2], dhw, w0, w1)
+    before = lstm_kernel.LSTM2_BWD_CHAIN_REMAT.launches
+    outs_w = lstm_kernel.lstm2_bwd_chain_remat(*wide)
+    torch.cuda.synchronize()
+    slices = lstm_kernel.LSTM2_BWD_CHAIN_REMAT.launches - before
+    for name, out, ref in zip(("dg0", "dg1"), outs_w,
+                              lstm_kernel.lstm2_bwd_chain_remat_reference(*wide)):
+        errs[f"{name} B=512"] = max_errs(out, ref)[0]
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4, msg=f"{name} B=512")
     stored_args = (stored[0], keep, dh, l0["w_hh"], l1["w_hh"], l1["w_ih"])
     dgs_stored = lstm_kernel.lstm2_bwd_chain(*stored_args)
     vs_stored = {name: float((a - s).abs().max() / s.abs().max())
                  for name, a, s in zip(("dg0", "dg1"), dgs, dgs_stored)}
-    print(f"[lstm2_bwd_chain_remat] B={b} T={t} D={d} H={h}: max abs err dg0 "
-          f"{errs['dg0']:.3e}, dg1 {errs['dg1']:.3e} (bound 1e-4 abs + 1e-4 rel); "
+    print(f"[lstm2_bwd_chain_remat] B={b} T={t} D={d} H={h}: max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + " (bound 1e-4 abs + 1e-4 rel); "
           "against the stored-gates chain on the same forward (the recompute's "
           "rounding, carried by the chain): max abs diff relative to the largest "
           + ", ".join(f"{k} {v:.3e}" for k, v in vs_stored.items()))
+    if max(vs_stored.values()) > 1e-3:
+        raise RuntimeError("the remat chain disagrees with the stored-gates chain")
+    print(f"[lstm2_bwd_chain_remat] B=512 T=16: {slices} launches (slices of the batch)")
+    d4 = -(-d // 4) * 4
+    for rows in (b, 17, 1, 512):
+        print("[lstm2_bwd_chain_remat] " + _chain_plan_text(
+            lstm_kernel, "lstm2_bwd_chain_remat", 4, h, rows, layers=2, remat_d=d4))
 
     lib = _cudnn_lstm(l0, l1)
     x_bt = x_tm.transpose(0, 1).contiguous()
@@ -713,8 +753,8 @@ def phase_lstm2_remat(lstm_kernel, lstm_vjp, flush):
           f"{fwd_plain_ms:.4f} ms, cuDNN nn.LSTM training forward at keep=1 "
           f"{fwd_lib_ms:.4f} ms, bound {fwd_bound_ms:.4f} ms ({fwd_bound_by}: "
           f"{fwd_flops / 1e9:.3f} GFLOP, {fwd_bytes / 1e6:.2f} MB incl. the residual stores)")
-    print(f"[lstm2_bwd_chain_remat] kernel {ms:.4f} ms (one cooperative launch, "
-          f"{t + 1} grid barriers, {per:.3f} us per phase; the stored-gates chain "
+    print(f"[lstm2_bwd_chain_remat] kernel {ms:.4f} ms (one cooperative cluster "
+          f"launch, {t + 1} phases, {per:.3f} us per phase; the stored-gates chain "
           f"{stored_ms:.4f} ms, {per_stored:.3f} us per phase: the recompute costs "
           f"{per - per_stored:.3f} us per phase), plain {plain_ms:.4f} ms, cuDNN "
           f"backward of h_n at keep=1 {library_ms:.4f} ms (it also forms the weight "
@@ -749,6 +789,10 @@ def phase_lstm2_remat(lstm_kernel, lstm_vjp, flush):
           f"gradients differ by {grad_diff:.3e} of each tensor's largest")
     if not grad_diff < 1e-3:
         raise RuntimeError("the remat route's gradient disagrees with the stored-gates route's")
+    # the route exists to keep less: its residuals and the chain's blocks
+    # (no buffer that grows with T beyond the outputs) below the gates'
+    if not whole[True][1] < whole[False][1]:
+        raise RuntimeError("the remat route's peak memory is not below the stored-gates route's")
     src = "multimodal_emotion_detection_tpu_torch/csrc/"
     return ({"name": "lstm2_train_fwd_nogates", "route": "cuda",
              "source": src + "lstm2_train_fwd.cu", "core": src + "rnn2_fwd_chain.cuh",
@@ -757,7 +801,7 @@ def phase_lstm2_remat(lstm_kernel, lstm_vjp, flush):
              "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound_ms,
              "bound_by": fwd_bound_by, "library_ms": fwd_lib_ms},
             {"name": "lstm2_bwd_chain_remat", "route": "cuda",
-             "source": src + "lstm2_bwd_chain_remat.cu",
+             "source": src + "lstm2_bwd_chain_remat.cu", "core": src + "rnn2_bwd_chain.cuh",
              "replaces": "multimodal_emotion_detection_tpu/ops/lstm_kernel.py:2687",
              "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
@@ -1058,12 +1102,14 @@ def phase_lstm1_train_fwd(lstm_kernel, flush):
     return train_kern, eval_kern, (inputs, w_hh)
 
 
-def _chain_plan_text(lstm_kernel, source, width, h, b, forward=False, layers=1):
+def _chain_plan_text(lstm_kernel, source, width, h, b, forward=False, layers=1,
+                     remat_d=0):
     """The launch plan of a one-layer reverse chain (csrc/rnn_bwd_chain.cuh)
     or forward (csrc/rnn_fwd_chain.cuh), or of a 2-layer one
-    (csrc/rnn2_bwd_chain.cuh, csrc/rnn2_fwd_chain.cuh), on this card."""
+    (csrc/rnn2_bwd_chain.cuh, csrc/rnn2_fwd_chain.cuh; ``remat_d`` the
+    remat chain's padded D), on this card."""
     plan = lstm_kernel.chain_plan_on(source, width, h, b, torch.device("cuda"), forward,
-                                     layers)
+                                     layers, remat_d)
     row = "H" if forward else f"{plan.width}H"
     sets = (f"{plan.ctas} CTAs ({plan.grid} a layer: the lead set's row {row}, the "
             f"follow set's [own {row} | feed {row}])" if layers == 2 else f"{plan.grid} CTAs")
@@ -1071,7 +1117,9 @@ def _chain_plan_text(lstm_kernel, source, width, h, b, forward=False, layers=1):
             f"clusters of {plan.ncl}, {plan.rgroups} row groups "
             f"({plan.rgroups * plan.upc} units a CTA, {plan.outputs} sums a cluster), "
             f"{plan.smem} bytes of shared memory per CTA, chunks of {plan.kc} float4 "
-            f"columns")
+            f"columns" + (f", gate blocks of {plan.rk} steps" if plan.rk else "")
+            + (f", one launch a slice of {plan.batch_slice} rows" if plan.batch_slice
+               else ""))
 
 
 
@@ -1448,8 +1496,7 @@ def phase_gru2_legacy(lstm_kernel, lstm_vjp, flush):
     fused = lstm_kernel.gru2_bwd_chain_legacy(res0, res1, None, keep, dh, *w)
     res_args = (packed, h0p, h1p, keep, dh, *w)
     dih0, dhn0, dih1, dhn1 = lstm_kernel.gru2_bwd_chain(*res_args)
-    # the residual-native chain (row 15, the 2-layer core) sums in another
-    # order than the legacy form's first design
+    # the residual-native chain (row 15): the same core, over another layout
     vs_res = {name: float((a - r).abs().max() / r.abs().max()) for name, a, r in
               zip(("dih0", "dhn0", "dih1", "dhn1"), (fused[0][0], fused[0][1][..., 2 * h:], fused[1][0],
                           fused[1][1][..., 2 * h:]), (dih0, dhn0, dih1, dhn1))}
@@ -1467,6 +1514,9 @@ def phase_gru2_legacy(lstm_kernel, lstm_vjp, flush):
     if max(vs_layered.values()) > 1e-5 or max(vs_res.values()) > 1e-5:
         raise RuntimeError("the fused legacy GRU chain disagrees with the layered one "
                            "or the residual-native one")
+    for rows in (b, 17, 1):
+        print("[gru2_bwd_chain_legacy] " + _chain_plan_text(
+            lstm_kernel, "gru2_bwd_chain_legacy", 3, h, rows, layers=2))
 
     lib = _cudnn_gru(l0, l1)
     x_bt = x_tm.transpose(0, 1).contiguous()
@@ -1499,9 +1549,8 @@ def phase_gru2_legacy(lstm_kernel, lstm_vjp, flush):
     fwd_bytes = 4 * (t * b * (d + h + 10 * h) + d * 3 * h + 3 * h * 3 * h
                      + 4 * 3 * h + b * h)
     fwd_bound_ms, fwd_bound_by = bound(fwd_flops, fwd_bytes)
-    # the chain without dys (the wrapper packs res0 and res1 first; counted
-    # as the kernel reads them): res0, res1 (5H each), keep, dh_final and
-    # three weights read, out (12H) written
+    # the chain without dys: res0, res1 (5H each), keep, dh_final and three
+    # weights read, out (12H) written
     flops = 2 * b * t * 3 * 3 * h * h
     nbytes = 4 * (t * b * (10 * h + h + 12 * h) + b * h + 3 * h * 3 * h)
     bound_ms, bound_by = bound(flops, nbytes)
@@ -1511,8 +1560,9 @@ def phase_gru2_legacy(lstm_kernel, lstm_vjp, flush):
           f"{fwd_plain_ms:.4f} ms, cuDNN nn.GRU training forward at keep=1 "
           f"{fwd_lib_ms:.4f} ms, bound {fwd_bound_ms:.4f} ms ({fwd_bound_by}: "
           f"{fwd_flops / 1e9:.3f} GFLOP, {fwd_bytes / 1e6:.2f} MB incl. the 10H stores)")
-    print(f"[gru2_bwd_chain_legacy] kernel {ms:.4f} ms (packing res0 / res1 + one "
-          f"cooperative launch, {1e3 * ms / (t + 1):.3f} us per phase; {ms_dys:.4f} ms "
+    print(f"[gru2_bwd_chain_legacy] kernel {ms:.4f} ms (the gate series' pack and one "
+          f"cooperative cluster launch, {1e3 * ms / (t + 1):.3f} us per phase; "
+          f"{ms_dys:.4f} ms "
           f"with dys; the residual-native chain {res_ms:.4f} ms and the layered backward "
           f"over the same residuals {layered_ms:.4f} ms in this phase), plain "
           f"{plain_ms:.4f} ms, cuDNN backward of h_n at keep=1 {library_ms:.4f} ms (it "
@@ -1549,7 +1599,7 @@ def phase_gru2_legacy(lstm_kernel, lstm_vjp, flush):
              "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound_ms,
              "bound_by": fwd_bound_by, "library_ms": fwd_lib_ms},
             {"name": "gru2_bwd_chain_legacy", "route": "cuda",
-             "source": src + "gru2_bwd_chain_legacy.cu",
+             "source": src + "gru2_bwd_chain_legacy.cu", "core": src + "rnn2_bwd_chain.cuh",
              "replaces": "multimodal_emotion_detection_tpu/ops/lstm_kernel.py:1886",
              "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})

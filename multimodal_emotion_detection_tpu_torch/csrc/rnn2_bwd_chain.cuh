@@ -1,6 +1,9 @@
 // The 2-layer reverse chain core for Hopper (sm_90a), built like the
 // one-layer core rnn_bwd_chain.cuh; gru2_bwd_chain.cu instantiates it with
-// GruCell, lstm2_bwd_chain.cu with LstmCell.
+// GruCell, lstm2_bwd_chain.cu with LstmCell, gru2_bwd_chain_legacy.cu with
+// GruLegacyCell (the legacy layout's rows, dys, the full dhh) and
+// lstm2_bwd_chain_remat.cu with LstmRematCell (the gates recomputed ahead
+// of the chain in blocks of steps, GateBlocks).
 //
 // Both layers' reverse chains walk t = T-1 .. 0.  Layer 1's step needs
 //
@@ -18,8 +21,8 @@
 // 1's first step; the cell carries dc).
 //
 // What bounded the first designs (csrc/gru2_bwd_chain.cu and
-// lstm2_bwd_chain.cu before this core; the legacy forms
-// gru2_bwd_chain_legacy.cu and lstm2_bwd_chain_legacy.cu keep them): every
+// lstm2_bwd_chain.cu before this core; the LSTM's legacy form
+// lstm2_bwd_chain_legacy.cu keeps it): every
 // CTA owned units of both layers and read, every phase, the whole
 // exchanged rows of both (dih1 | dhn1 | dih0 | dhn0, 2 x B x 3H floats;
 // dg1 | dg0, 2 x B x 4H) from L2, its 8 warps one batch row each, and one
@@ -64,6 +67,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 #include "rnn_bwd_chain.cuh"
 #include "rnn_chain_common.cuh"
 #include "rnn_timers.cuh"
@@ -89,6 +94,21 @@ struct Args {
                           // dh_final; LSTM: dc, zeros)
   unsigned* flags;        // 2 x kPairSetFlags (zero): the lead set's, then the follow set's
   int batch, t_len, hidden, upc, ncl, rgroups, kc;
+  // LstmRematCell: layer l's gate inputs xin[l] (T, B, din) = x (din =
+  // d_in, a multiple of 4) / x1 (din = H) and hin[l] (T, B, H) = h0p /
+  // h1p, its gate columns [w_ih; w_hh] packed a CTA's unit block at a time
+  // wg[l] (H / U, din + H, 4U: column q U + u is gate q of unit u), its
+  // bias bg[l] (4H); rk steps a gate block; ld rows a step apart in its
+  // series, residuals and outputs (the whole batch, of which a launch takes
+  // the batch rows its pointers start at; carry and dh_final are the
+  // launch's own)
+  const float* xin[2];
+  const float* hin[2];
+  const float* wg[2];
+  const float* bg[2];
+  int d_in, rk, ld;
+  // GruLegacyCell: the sequence output's cotangent (T, B, H), or null
+  const float* dys;
 };
 
 // shared memory of a plan, in floats: the weights NU x ldw over the follow
@@ -106,11 +126,203 @@ __host__ __device__ inline int smem_floats(int width, int hidden, int upc,
   return nu * ldw + slots * PH * ldx + 64 * unit_block(nu) + 4 * PH * nu;
 }
 
+// The remat cell's gate blocks, in floats: a CTA's U = upc x rgroups
+// units, 4U gate columns, over the rows of its row group padded to whole
+// passes (bgp) for rk steps, M = rk bgp rows, twice (the block in use and
+// the one being formed); a piece of kin = din + H deep products (kp deep,
+// a multiple of 4): its M input rows (stride ldi = 4 mod 8, so the four
+// rows of a thread's tile fall in distinct banks) and kp weight rows; and
+// the copies' transaction barrier (4 floats, 8-byte aligned).
+struct GateGeom {
+  int n, bgp, m, kin, kp, ldi, pieces;
+  __host__ __device__ GateGeom(int hidden, int upc, int rgroups, int batch, int din,
+                               int rk) {
+    n = 4 * upc * rgroups;
+    const int bg = (batch + rgroups - 1) / rgroups;
+    bgp = (bg + PH - 1) / PH * PH;
+    m = rk * bgp;
+    kin = din + hidden;
+    kp = ((kin + rk - 1) / rk + 3) / 4 * 4;
+    ldi = (kp + 7) / 8 * 8 + 4;
+    pieces = (kin + kp - 1) / kp;
+  }
+  __host__ __device__ int floats() const { return 2 * m * n + m * ldi + kp * n + 4; }
+};
+
+// Shared memory of the remat cell's plan, in floats: each set's own
+// buffers (the lead set's weights over its own share, half the follow
+// set's) and its layer's gate blocks (layer 0 din = d_in, layer 1 H), the
+// larger of the two sets.
+__host__ __device__ inline int remat_smem_floats(int hidden, int upc, int ncl,
+                                                 int rgroups, int kc, int batch,
+                                                 int d_in, int rk) {
+  const int nu = upc * ncl * rgroups;
+  const int own4 = 4 * hidden / 4;
+  const int follow = smem_floats(4, hidden, upc, ncl, rgroups, kc);
+  const int lead = follow - nu * (round32(4 * ((2 * own4 + ncl - 1) / ncl)) -
+                                  round32(4 * ((own4 + ncl - 1) / ncl)));
+  const int g0 = GateGeom(hidden, upc, rgroups, batch, d_in, rk).floats();
+  const int g1 = GateGeom(hidden, upc, rgroups, batch, hidden, rk).floats();
+  return max(follow + g0, lead + g1);
+}
+
+// The remat cell's gate pre-activations g = [x | h_prev] [w_ih; w_hh] for
+// the CTA's cells, formed ahead of the chain that needs them.  The gates
+// depend only on the forward's series, so step s's come from a block of
+// rk steps (block s / rk) formed before it: the prologue forms block 0,
+// and in step s of block b the CTA adds piece s % rk (kp rows of the
+// product's depth) of block b + 1 into the other buffer while the step's
+// exchange is on its way (piece_products' hook).  The copies of the next
+// step's piece start at the end of the step, issued by warps 1-7 while
+// warp 0 polls the flag barrier, and land behind the barrier and the next
+// exchange's issue.  They travel by bulk copies (TMA, one a row of the
+// piece, the weights as one block) on a transaction barrier of their own:
+// many 16-byte cp.async copies stalled the threads that issued them for
+// ~2,000 cycles a step, and the chain's exchange waits on cp.async
+// groups; the issue of bulk copies grows with the copies a warp starts,
+// so they are spread over warps, and copies landing during the products
+// slowed them.  Each
+// weight row is read once a block, not once a step, and the block never
+// grows with T.  A thread forms 4 rows x 4 gate columns a tile, the
+// warp's lanes on neighbouring columns; the bias starts each block's
+// sums.
+struct GateBlocks {
+  GateGeom geo;
+  float* buf;         // 2 x m x n: block b at (b & 1)
+  float* in;          // m x ldi: a piece's input rows
+  float* w;           // kp x n: a piece's weight rows
+  unsigned long long* bar;  // the copies' transaction barrier
+  const float* x;     // (T, ld, din)
+  const float* h;     // (T, ld, H)
+  const float* wg;    // this CTA's unit block: kin x n
+  const float* bias;  // (4H)
+  int din, hidden, ld, t_len, rk, gb0, gb1, units, j0;
+
+  __device__ GateBlocks(const Args& a, int layer, float* base, int j0, int gb0_,
+                        int gb1_)
+      : geo(a.hidden, a.upc, a.rgroups, a.batch, layer == 0 ? a.d_in : a.hidden, a.rk) {
+    const int U = a.upc * a.rgroups;
+    buf = base;
+    in = buf + 2 * geo.m * geo.n;
+    w = in + geo.m * geo.ldi;
+    bar = reinterpret_cast<unsigned long long*>(
+        (reinterpret_cast<size_t>(w + geo.kp * geo.n) + 7) & ~(size_t)7);
+    x = of_layer(a.xin, layer);
+    h = of_layer(a.hin, layer);
+    wg = of_layer(a.wg, layer) + (size_t)(j0 / U) * geo.kin * geo.n;
+    bias = of_layer(a.bg, layer);
+    din = geo.kin - a.hidden;
+    hidden = a.hidden;
+    ld = a.ld;
+    t_len = a.t_len;
+    rk = a.rk;
+    gb0 = gb0_;
+    gb1 = gb1_;
+    units = U;
+    this->j0 = j0;
+  }
+  // whether block blk holds a step
+  __device__ bool live(int blk) const { return blk * rk < t_len; }
+  // start copying piece p of block blk's inputs and weights (p <
+  // pieces, so not empty) on the barrier's next phase: copy 0 the weights
+  // (its thread arms the phase), copy 1 + i row i of inputs (its x and h
+  // segments), copy c by warp first_warp + c % nw, lane c / nw.  Called
+  // after a CTA barrier that ends the slot's reads.
+  __device__ void stage(int p, int blk, int first_warp) const {
+    const int k0 = p * geo.kp, kn = min(geo.kp, geo.kin - k0);
+    const int rows = gb1 - gb0, steps = min(rk, t_len - blk * rk);
+    const int nw = NT / 32 - first_warp, wi = (int)threadIdx.x / 32 - first_warp;
+    if (wi < 0) return;
+    const int lane = threadIdx.x % 32;
+    if (wi == 0 && lane == 0) {
+      mbar_expect(bar, 4u * kn * (geo.n + steps * rows));
+      bulk_copy(w, wg + (size_t)k0 * geo.n, 4u * kn * geo.n, bar);
+    }
+    for (int c = wi + nw * lane; c < 1 + steps * rows; c += nw * 32) {
+      if (c == 0) continue;
+      const int si = (c - 1) / rows, r = (c - 1) % rows;
+      const size_t row = (size_t)(t_len - 1 - blk * rk - si) * ld + gb0 + r;
+      float* dst = in + (si * geo.bgp + r) * geo.ldi;
+      const int kx = min(k0 + kn, din) - k0;  // the x segment's floats
+      if (kx > 0) bulk_copy(dst, x + row * din + k0, 4u * kx, bar);
+      if (kx < kn) {
+        const int kh = max(0, kx);
+        bulk_copy(dst + kh, h + row * hidden + (k0 + kh - din), 4u * (kn - kh), bar);
+      }
+    }
+  }
+  // add piece p (staged, visible to the CTA) into block blk's gates; piece
+  // 0 writes them, from the bias
+  __device__ void form(int p, int blk) const {
+    const int k0 = p * geo.kp, kn = min(geo.kp, geo.kin - k0);
+    if (kn <= 0) return;
+    float* g = buf + (blk & 1) * geo.m * geo.n;
+    const int nct = geo.n / 4, tiles = geo.m / 4 * nct;
+    for (int i = threadIdx.x; i < tiles; i += NT) {
+      const int rt = i / nct, ct = i % nct;
+      // a tile's rows share a step; rows past the group's are skipped
+      if (blk * rk + 4 * rt / geo.bgp >= t_len || gb0 + 4 * rt % geo.bgp >= gb1) continue;
+      float acc[4][4] = {};
+      if (p == 0) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int col = 4 * ct + c;
+          const float b = __ldg(bias + col / units * hidden + j0 + col % units);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[r][c] = b;
+        }
+      }
+      const float* xr = in + 4 * rt * geo.ldi;
+      const float* wc = w + 4 * ct;
+      for (int k = 0; k < kn; k += 4) {
+        float4 xv[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) xv[r] = *reinterpret_cast<const float4*>(xr + r * geo.ldi + k);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float4 wv = *reinterpret_cast<const float4*>(wc + (k + kk) * geo.n);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float xs = kk == 0 ? xv[r].x : kk == 1 ? xv[r].y : kk == 2 ? xv[r].z : xv[r].w;
+            acc[r][0] = fmaf(xs, wv.x, acc[r][0]);
+            acc[r][1] = fmaf(xs, wv.y, acc[r][1]);
+            acc[r][2] = fmaf(xs, wv.z, acc[r][2]);
+            acc[r][3] = fmaf(xs, wv.w, acc[r][3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        float4* d = reinterpret_cast<float4*>(g + (4 * rt + r) * geo.n + 4 * ct);
+        float4 v = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+        if (p > 0) {
+          const float4 o = *d;
+          v = make_float4(o.x + v.x, o.y + v.y, o.z + v.z, o.w + v.w);
+        }
+        *d = v;
+      }
+    }
+  }
+  // the gate pre-activations of cell unit cu of row b at step s
+  __device__ void gates(int s, int b, int cu, float (&g)[4]) const {
+    const float* p = buf + ((s / rk) & 1) * geo.m * geo.n +
+                     ((s % rk) * geo.bgp + b - gb0) * geo.n + cu;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) g[q] = p[q * units];
+  }
+};
+
+// what the other cells keep of GateBlocks: nothing
+struct NoGates {
+  __device__ NoGates(const Args&, int, float*, int, int, int) {}
+};
+
 // Two GRU layers: residuals [r | z | n | hn] and h_prev; the exchanged row
 // is [dr_pre | dz_pre | dhn] = [dih[:, :2H] | dhn] (3H) and the feed
 // layer 1's dih; the carry is the direct part dh_t z.
 struct GruCell {
   static constexpr int kWidth = 3;
+  static constexpr bool kRemat = false;
   struct Res {
     float act[4], hp, keep, carry;
   };
@@ -158,6 +370,7 @@ struct GruCell {
 // across the products.
 struct LstmCell {
   static constexpr int kWidth = 4;
+  static constexpr bool kRemat = false;
   struct Res {
     float g[4], cp, keep, carry;
   };
@@ -191,6 +404,78 @@ struct LstmCell {
   }
 };
 
+// LstmCell over the no-gates residuals: packed (T, B, 2H) = [c0_prev |
+// c1_prev]; the gates are not read but recomputed (GateBlocks, which the
+// core fills into Res::g after load).  Rows of the series are ld apart, so
+// a launch may take a slice of the batch (the wrapper's, where the gate
+// blocks of the whole batch do not fit).
+struct LstmRematCell : LstmCell {
+  static constexpr bool kRemat = true;
+  __device__ static void load(const Args& a, int layer, int t, int b, int j, Res& r) {
+    const int H = a.hidden;
+    const size_t row = (size_t)t * a.ld + b;
+    r.cp = __ldg(a.res + row * 2 * H + H * layer + j);
+    r.keep = layer == 0 ? __ldg(a.keep + row * H + j) : 0.0f;
+    r.carry = a.carry[((size_t)layer * a.batch + b) * H + j];
+  }
+  __device__ static void step(const Args& a, int layer, int t, int b, int j,
+                              const Res& r, float own, float feed) {
+    const int H = a.hidden;
+    const size_t o = ((size_t)layer * a.batch + b) * H + j;
+    float dh = own + r.keep * feed;
+    if (layer == 1 && t == a.t_len - 1) dh += __ldg(a.dh_final + (size_t)b * H + j);
+    a.carry[o] = rnn_bwd::lstm_cell_bwd(
+        r.g, r.cp, dh, r.carry, of_layer(a.out, layer) + ((size_t)t * a.ld + b) * 4 * H + j,
+        H);
+  }
+  __device__ static const float* src(const Args& a, int layer, int seg, int t, int b,
+                                     int c) {
+    const size_t row = (size_t)t * a.ld + b;
+    return (seg == 1 ? a.out[1] : of_layer(a.out, layer)) + row * 4 * a.hidden + 4 * c;
+  }
+};
+
+// GruCell over the legacy layout: the wrapper packs layer l's [r | z | n |
+// hn] series into res as GruCell reads them, h_prev is prev[l]; out[l]
+// points at layer l's lanes of the (T, B, 12H) rows [dih0 | dhh0 | dih1 |
+// dhh1], each cell writing dih and the full dhh = [dr_pre | dz_pre | dhn];
+// the exchanged row is the layer's dhh (3H), the feed layer 1's dih; dys,
+// where given, adds to layer 1's dh.
+struct GruLegacyCell : GruCell {
+  struct Res : GruCell::Res {
+    float dys;
+  };
+  __device__ static void load(const Args& a, int layer, int t, int b, int j, Res& r) {
+    GruCell::load(a, layer, t, b, j, r);
+    r.dys = layer == 1 && a.dys != nullptr
+                ? __ldg(a.dys + ((size_t)t * a.batch + b) * a.hidden + j)
+                : 0.0f;
+  }
+  __device__ static void step(const Args& a, int layer, int t, int b, int j,
+                              const Res& res, float own, float feed) {
+    const int H = a.hidden;
+    const float dh = res.carry + own + res.keep * feed + res.dys;
+    const float r = res.act[0], z = res.act[1], n = res.act[2], hn = res.act[3];
+    const float dn_pre = dh * (1.0f - z) * (1.0f - n * n);
+    const float dr = dn_pre * hn * r * (1.0f - r);
+    const float dz = dh * (res.hp - n) * z * (1.0f - z);
+    float* out = of_layer(a.out, layer) + ((size_t)t * a.batch + b) * 12 * H + j;
+    out[0] = out[3 * H] = dr;
+    out[H] = out[4 * H] = dz;
+    out[2 * H] = dn_pre;
+    out[5 * H] = dn_pre * r;
+    a.carry[layer * (size_t)a.batch * H + (size_t)b * H + j] = dh * z;
+  }
+  // float4 column c of row b of segment seg at step t: the layer's dhh, or
+  // (seg 1) layer 1's dih
+  __device__ static const float* src(const Args& a, int layer, int seg, int t, int b,
+                                     int c) {
+    const size_t row = (size_t)t * a.batch + b;
+    return (seg == 1 ? a.out[1] : of_layer(a.out, layer) + 3 * a.hidden) +
+           row * 12 * a.hidden + 4 * c;
+  }
+};
+
 template <class Cell, int NU>
 __global__ void __launch_bounds__(NT, 1) pair_kernel(const Args a) {
   constexpr int KW = 8 / (NU / unit_block(NU));  // warps of columns
@@ -211,11 +496,14 @@ __global__ void __launch_bounds__(NT, 1) pair_kernel(const Args a) {
   const int u0 = (cid / R) * NU;
   const int c_lo = (int)((long long)rank * n4 / ncl);
   const int cs4 = (int)((long long)(rank + 1) * n4 / ncl) - c_lo;
-  // the buffers are the follow set's, whose share is the wider
+  // the buffers are the follow set's, whose share is the wider (the
+  // remat cell's lead set keeps its weights over its own share, leaving
+  // room for its deeper gate blocks)
   const int cs4max = (2 * own4 + ncl - 1) / ncl;
   const int chunks_max = (cs4max + kc - 1) / kc;
   const int slots = chunks_max <= 8 ? chunks_max : 2;
-  const int ldw = round32(4 * cs4max) + 4;
+  const int ldw =
+      round32(4 * (Cell::kRemat && !follow ? (own4 + ncl - 1) / ncl : cs4max)) + 4;
   const int ldx = round32(4 * kc) + 4;
   float* wl = smem;                      // NU x ldw
   float* xs = wl + NU * ldw;             // slots x PH x ldx
@@ -253,11 +541,46 @@ __global__ void __launch_bounds__(NT, 1) pair_kernel(const Args a) {
   int xpar = 0;
   rnn_timer::Timer tm;
 
-  if (has_cell && gb0 + cr < gb1) Cell::load(a, layer, T - 1, gb0 + cr, j, res);
+  // the remat cell's gate blocks, after the set's own buffers: block 0
+  // whole before the first step, and block 1's first piece on its way
+  const std::conditional_t<Cell::kRemat, GateBlocks, NoGates> gates(
+      a, layer, xpart + 4 * PH * NU, u0 + rank * upc, gb0, gb1);
+  [[maybe_unused]] unsigned gphase = 0;  // the transaction barrier's phases done
+  if constexpr (Cell::kRemat) {
+    if (tid == 0) mbar_init(gates.bar);
+    __syncthreads();
+    for (int p = 0; p < gates.geo.pieces; ++p) {
+      gates.stage(p, 0, 0);
+      mbar_wait(gates.bar, gphase++ & 1);
+      gates.form(p, 0);
+      __syncthreads();
+    }
+    if (gates.live(1)) gates.stage(0, 1, 0);
+  }
+  const auto load = [&](int t, int b) {
+    Cell::load(a, layer, t, b, j, res);
+    if constexpr (Cell::kRemat) gates.gates(T - 1 - t, b, cu, res.g);
+  };
+
+  if (has_cell && gb0 + cr < gb1) load(T - 1, gb0 + cr);
   __syncthreads();
 
   for (int s = 0; s < T; ++s) {
     const int t = T - 1 - s;
+    // the remat cell's piece s % rk of block s / rk + 1, once a step: while
+    // the step's first exchange is on its way, or on its own where the CTA
+    // forms no products this step
+    [[maybe_unused]] bool formed = false;
+    const auto form = [&]() {
+      if constexpr (Cell::kRemat) {
+        const int p = s % a.rk, blk = s / a.rk + 1;
+        if (!formed && p < gates.geo.pieces && gates.live(blk)) {
+          mbar_wait(gates.bar, gphase++ & 1);
+          gates.form(p, blk);
+        }
+        formed = true;
+      }
+    };
     // the own set's step t + 1 and, for the follow set, the lead set's step
     // t: warp 0 polls the flags, a lane each
     if (s > 0 || follow) {
@@ -274,7 +597,7 @@ __global__ void __launch_bounds__(NT, 1) pair_kernel(const Args a) {
     for (int p = 0; p < npass; ++p) {
       const int bt0 = gb0 + p * PH, nb = max(0, min(PH, gb1 - bt0));
       const bool cell = has_cell && cr < nb;
-      if (p > 0 && cell) Cell::load(a, layer, t, bt0 + cr, j, res);
+      if (p > 0 && cell) load(t, bt0 + cr);
       float rec[2] = {0.0f, 0.0f};
       if (s > 0 || follow) {
         float* mine = xpart + xpar * 2 * PH * NU;
@@ -288,7 +611,7 @@ __global__ void __launch_bounds__(NT, 1) pair_kernel(const Args a) {
           piece_products<NU>(
               [&](int r, int c) { return Cell::src(a, layer, seg, step, bt0 + r, c0 + c); },
               nb, p1 - p0, kc, slots, wl + 4 * (p0 - c_lo), ldw, xs, ldx, part,
-              mine + seg * PH * NU, tm);
+              mine + seg * PH * NU, tm, form);
         }
         // the cluster's CTAs' partials, per segment, through distributed
         // shared memory (also a CTA barrier: xs and part are free again)
@@ -307,12 +630,16 @@ __global__ void __launch_bounds__(NT, 1) pair_kernel(const Args a) {
       if (cell) Cell::step(a, layer, t, bt0 + cr, j, res, rec[0], rec[1]);
       tm.mark(rnn_timer::kCell);
     }
+    form();
     // arrive: this step's stores are made; load the next step's residuals
+    // and start the next step's gate piece (warps 1-7, while warp 0 polls)
     // before waiting for the others
     __syncthreads();
     if (tid == 0) st_release(my_flag, (unsigned)s + 1);
-    if (s + 1 < T && has_cell && gb0 + cr < gb1) {
-      Cell::load(a, layer, t - 1, gb0 + cr, j, res);
+    if (s + 1 < T && has_cell && gb0 + cr < gb1) load(t - 1, gb0 + cr);
+    if constexpr (Cell::kRemat) {
+      const int p = (s + 1) % a.rk, blk = (s + 1) / a.rk + 1;
+      if (s + 1 < T && p < gates.geo.pieces && gates.live(blk)) gates.stage(p, blk, 1);
     }
     tm.mark(rnn_timer::kCell);
   }
@@ -337,14 +664,19 @@ const void* kernel_for(int nu) {
 // The launch configuration of a plan: kernel, grid (both sets),
 // cluster, shared memory; kPlanMismatch where the plan does not fit the
 // shape or the card.
+// With a launch's Args, the remat cell's shared memory includes its gate
+// blocks (remat_smem_floats).
 template <class Cell>
 int configure(int hidden, int upc, int ncl, int rgroups, int kc,
               const void** fn, cudaLaunchConfig_t* cfg,
-              cudaLaunchAttribute* attr) {
+              cudaLaunchAttribute* attr, const Args* a = nullptr) {
   if (!pair_plan_ok(hidden, upc, ncl, rgroups, kc)) return kPlanMismatch;
   *fn = kernel_for<Cell>(upc * ncl * rgroups);
-  const int need = (int)sizeof(float) *
-                   smem_floats(Cell::kWidth, hidden, upc, ncl, rgroups, kc);
+  const int need =
+      (int)sizeof(float) *
+      (Cell::kRemat && a != nullptr
+           ? remat_smem_floats(hidden, upc, ncl, rgroups, kc, a->batch, a->d_in, a->rk)
+           : smem_floats(Cell::kWidth, hidden, upc, ncl, rgroups, kc));
   return rnn_chain::configure(*fn, 2 * hidden / upc, ncl, need, cfg, attr);
 }
 
@@ -355,17 +687,24 @@ int launch(const Args& a, cudaStream_t stream) {
   if (a.batch < 1 || a.t_len < 1 || a.hidden < 4 || a.hidden % 4 != 0) {
     return kUnsupported;
   }
+  if (Cell::kRemat && (a.rk < 1 || a.d_in < 4 || a.d_in % 4 != 0 || a.ld < a.batch)) {
+    return kUnsupported;
+  }
   const void* fn = nullptr;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[2];
-  const int err = configure<Cell>(a.hidden, a.upc, a.ncl, a.rgroups, a.kc, &fn, &cfg, attr);
+  const int err =
+      configure<Cell>(a.hidden, a.upc, a.ncl, a.rgroups, a.kc, &fn, &cfg, attr, &a);
   if (err != cudaSuccess) return err;
   void* args[] = {(void*)&a};
   return launch_resident(fn, &cfg, attr, a.ncl, args, stream);
 }
 
 // How many clusters of a plan's kernel the card holds at once, into
-// *count; 0 where the plan does not fit.
+// *count; 0 where the plan does not fit.  For the remat cell this is the
+// count at the chain's own buffers: any plan past half an SM's shared
+// memory holds one CTA an SM, and whether its gate blocks fit is
+// remat_smem_floats', which the launch checks.
 template <class Cell>
 int max_clusters(int hidden, int upc, int ncl, int rgroups, int kc, int* count) {
   const void* fn = nullptr;

@@ -213,12 +213,19 @@ struct GruCell {
 // columns; the lanes' sums meet by the shuffle reduce-scatter, the warps'
 // through part (KW x PH x NU), into dst (PH x NU).  Every thread of the
 // CTA calls it; it ends with dst written and xs and part still in use by
-// other warps.
-template <int NU, class Src>
+// other warps.  hook() runs once the piece's first chunks are on their
+// way: work that fills the exchange's latency (the 2-layer core's gate
+// recompute).
+struct NoHook {
+  __device__ __forceinline__ void operator()() const {}
+};
+
+template <int NU, class Src, class Hook = NoHook>
 __device__ __forceinline__ void piece_products(const Src& src, int nb, int len, int kc,
                                                int slots, const float* wb, int ldw,
                                                float* xs, int ldx, float* part, float* dst,
-                                               rnn_timer::Timer& tm) {
+                                               rnn_timer::Timer& tm,
+                                               const Hook& hook = Hook()) {
   constexpr int UB = unit_block(NU);  // units per thread
   constexpr int UG = NU / UB;         // unit groups: one per warp ...
   constexpr int KW = 8 / UG;          // ... times KW warps of columns
@@ -237,6 +244,7 @@ __device__ __forceinline__ void piece_products(const Src& src, int nb, int len, 
   };
   // the piece's first chunks at once
   for (int ch = 0; ch < slots && ch < chunks; ++ch) stage(ch);
+  hook();
   float acc[NV];
 #pragma unroll
   for (int i = 0; i < NV; ++i) acc[i] = 0.0f;

@@ -72,6 +72,45 @@ __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
 __device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
   asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }
+// A CTA's transaction barrier (mbarrier) in shared memory and the bulk
+// copies (TMA, cp.async.bulk) that complete on it: one thread arms a phase
+// with the bytes it expects, any threads start copies of 16-byte multiples
+// that count them off, and every thread waits for the phase's parity.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_addr(bar)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];" ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+// (a phase that never completes is a fault: end the launch with an error
+// after ~20 s, as the flag barrier does)
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  const long long start = clock64();
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (!done && clock64() - start > 40000000000ll) __trap();
+  }
+}
 __device__ __forceinline__ void cluster_sync_() {
   asm volatile("barrier.cluster.arrive.release;" ::: "memory");
   asm volatile("barrier.cluster.wait.acquire;" ::: "memory");

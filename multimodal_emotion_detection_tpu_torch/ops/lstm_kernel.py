@@ -24,8 +24,10 @@ Two layers in one launch (H up to twice the SM count):
   ``lstm2_bwd_chain_remat``: the gate-rematerialising pair
   (``runtime.lstm_remat_gates``).  The forward (the same source, its
   no-gates form) stores only the cell states; the reverse chain
-  (``csrc/lstm2_bwd_chain_remat.cu``) recomputes each step's gate
-  pre-activations from the streamed x, h_prev and x1 series.
+  (``csrc/lstm2_bwd_chain_remat.cu``, the same reverse core with the remat
+  cell, on the same plan with its gate blocks' shared memory) recomputes
+  each step's gate pre-activations from the streamed x, h_prev and x1
+  series, ``REMAT_KS`` steps a block.
 
 The legacy-layout twins of the pair (the routes of the JAX package's
 ``set_res2_mode("off")``):
@@ -74,9 +76,10 @@ The GRU legacy-layout twins (``set_res2_mode("off")``):
 ``gru2_train_fwd_legacy`` (``csrc/gru2_train_fwd_legacy.cu``, the first
 2-layer design: ``res`` (T, B, 10H) = ``[r0 | z0 | n0 | hn0 | h0 | r1 | z1
 | n1 | hn1 | h1]``, h after each step, and ``h_final``) and
-``gru2_bwd_chain_legacy`` (``csrc/gru2_bwd_chain_legacy.cu``: over the
-per-layer ``[h_prev | r | z | n | hn]`` rows, with an optional ``dys``,
-into (T, B, 12H) = ``[dih0 | dhh0 | dih1 | dhh1]`` with the full
+``gru2_bwd_chain_legacy`` (``csrc/gru2_bwd_chain_legacy.cu``, the 2-layer
+reverse core with the legacy GRU cell, on ``gru2_bwd_chain``'s plan: over
+the per-layer ``[h_prev | r | z | n | hn]`` rows, with an optional
+``dys``, into (T, B, 12H) = ``[dih0 | dhh0 | dih1 | dhh1]`` with the full
 ``dhh``).  Whether the legacy GRU backward takes it or two layered chains
 is ``lstm_vjp.GRU_BWD2_ENABLED``'s choice, as in the JAX package.
 
@@ -101,7 +104,7 @@ twins of the one-layer LSTM kernels:
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Callable, Dict, Tuple
 
 import torch
@@ -348,7 +351,7 @@ LSTM2_BWD_CHAIN = CudaKernel(
 )
 LSTM2_BWD_CHAIN_REMAT = CudaKernel(
     "lstm2_bwd_chain_remat", "lstm2_bwd_chain_remat_launch",
-    [_P] * 15 + [_I, _I, _I, _I, _P],
+    [_P] * 18 + [_I] * 10 + [_P],
 )
 
 
@@ -476,9 +479,12 @@ def lstm2_bwd_chain_remat(packed: torch.Tensor, keep_tm: torch.Tensor,
     (T, B, D).
 
     On a CUDA tensor this launches ``csrc/lstm2_bwd_chain_remat.cu`` (one
-    cooperative launch) and counts it in ``LSTM2_BWD_CHAIN_REMAT.launches``;
-    on a CPU tensor it runs ``lstm2_bwd_chain_remat_reference``.  ``dys``
-    is not taken: it raises.
+    cooperative cluster launch on ``chain_plan_on``'s 2-layer plan with the
+    gate blocks' shared memory, ``remat_d`` the padded D; the gate columns
+    packed by ``gate_columns``; one launch a ``batch_slice`` of the batch
+    where the plan has one) and counts each in
+    ``LSTM2_BWD_CHAIN_REMAT.launches``; on a CPU tensor it runs
+    ``lstm2_bwd_chain_remat_reference``.  ``dys`` is not taken: it raises.
     """
     _refuse_dys(dys)
     if packed.device.type == "cpu":
@@ -489,7 +495,6 @@ def lstm2_bwd_chain_remat(packed: torch.Tensor, keep_tm: torch.Tensor,
     d_in = x_tm.shape[-1]
     keep = keep_tm.to(torch.float32).contiguous()
     dh = dh_final.to(torch.float32).contiguous()
-    x = x_tm.to(torch.float32).contiguous()
     x1, h0p, h1p = (a.contiguous() for a in (x1, h0p, h1p))
     w_ih0, b0, w_hh0 = (layer0[k].contiguous() for k in ("w_ih", "b", "w_hh"))
     w_ih1, b1, w_hh1 = (layer1[k].contiguous() for k in ("w_ih", "b", "w_hh"))
@@ -497,27 +502,64 @@ def lstm2_bwd_chain_remat(packed: torch.Tensor, keep_tm: torch.Tensor,
     square = (h_dim, 4 * h_dim)
     _check_shapes("lstm2_bwd_chain_remat",
                   packed=(packed, (t_len, batch, RES3_W * h_dim)),
-                  keep=(keep, series), x=(x, (t_len, batch, d_in)), x1=(x1, series),
+                  keep=(keep, series), x=(x_tm, (t_len, batch, d_in)), x1=(x1, series),
                   h0p=(h0p, series), h1p=(h1p, series), dh_final=(dh, (batch, h_dim)),
                   w_ih0=(w_ih0, (d_in, 4 * h_dim)), b0=(b0, (4 * h_dim,)),
                   w_hh0=(w_hh0, square), w_ih1=(w_ih1, square),
                   b1=(b1, (4 * h_dim,)), w_hh1=(w_hh1, square))
     if t_len < 1 or batch < 1:
         raise ValueError(f"lstm2_bwd_chain_remat: empty residuals {tuple(packed.shape)}")
-    new = dict(dtype=torch.float32, device=packed.device)
-    dg0 = torch.empty((t_len, batch, 4 * h_dim), **new)
-    dg1 = torch.empty((t_len, batch, 4 * h_dim), **new)
+    # the kernel copies 16-byte pieces of each input row: D padded to a
+    # multiple of 4 with zero columns of x and zero rows of w_ih0
+    d4 = _ceil(d_in, 4) * 4
+    x, w_x0 = x_tm.to(torch.float32), w_ih0
+    if d4 != d_in:
+        x = torch.nn.functional.pad(x, (0, d4 - d_in))
+        w_x0 = torch.nn.functional.pad(w_ih0, (0, 0, 0, d4 - d_in))
+    x = x.contiguous()
     check_cuda_f32("lstm2_bwd_chain_remat", packed=packed, keep=keep, x=x, x1=x1,
                    h0p=h0p, h1p=h1p, dh_final=dh, w_ih0=w_ih0, b0=b0,
                    w_hh0=w_hh0, w_ih1=w_ih1, b1=b1, w_hh1=w_hh1)
-    LSTM2_BWD_CHAIN_REMAT(
-        packed.data_ptr(), keep.data_ptr(), x.data_ptr(), x1.data_ptr(),
-        h0p.data_ptr(), h1p.data_ptr(), dh.data_ptr(), w_ih0.data_ptr(),
-        b0.data_ptr(), w_hh0.data_ptr(), w_ih1.data_ptr(), b1.data_ptr(),
-        w_hh1.data_ptr(), dg0.data_ptr(), dg1.data_ptr(), batch, t_len, h_dim,
-        d_in, stream_of(packed),
-    )
+    plan, flags = _pair_launch("lstm2_bwd_chain_remat", 4, batch, h_dim, packed.device,
+                               forward=False, remat_d=d4)
+    units = plan.upc * plan.rgroups
+    wg0 = gate_columns(torch.cat([w_x0, w_hh0]), units)
+    wg1 = gate_columns(torch.cat([w_ih1, w_hh1]), units)
+    new = dict(dtype=torch.float32, device=packed.device)
+    dg0 = torch.empty((t_len, batch, 4 * h_dim), **new)
+    dg1 = torch.empty((t_len, batch, 4 * h_dim), **new)
+    # one launch a slice of the batch (the whole batch where its gate
+    # blocks fit), each over its rows of the series, batch rows apart
+    rows = plan.batch_slice or batch
+    for r0 in range(0, batch, rows):
+        nb = min(rows, batch - r0)
+        if r0:
+            flags.zero_()
+        # the dc carries, zeros; dh_final enters at layer 1's first step
+        carry = torch.zeros((2, nb, h_dim), **new)
+
+        def at(a: torch.Tensor) -> int:
+            return a.data_ptr() + 4 * r0 * a.shape[-1]
+
+        LSTM2_BWD_CHAIN_REMAT(
+            at(packed), at(keep), at(dh), w_hh0.data_ptr(), w_hh1.data_ptr(),
+            w_ih1.data_ptr(), at(x), at(x1), at(h0p), at(h1p), wg0.data_ptr(),
+            wg1.data_ptr(), b0.data_ptr(), b1.data_ptr(), at(dg0), at(dg1),
+            carry.data_ptr(), flags.data_ptr(), nb, batch, t_len, h_dim, d4, plan.upc,
+            plan.ncl, plan.rgroups, plan.kc, plan.rk, stream_of(packed),
+        )
     return dg0, dg1
+
+
+def gate_columns(w: torch.Tensor, units: int) -> torch.Tensor:
+    """An LSTM layer's stacked input and recurrent weights w (K, 4H) in
+    the remat kernel's order: (H / units, K, 4 units), block k holding
+    the gate columns q H + k units + u at q units + u, so each CTA's unit
+    block is one contiguous (K, 4 units) matrix."""
+    k_in, four_h = w.shape
+    h_dim = four_h // 4
+    return (w.reshape(k_in, 4, h_dim // units, units).permute(2, 0, 1, 3)
+            .reshape(h_dim // units, k_in, 4 * units).contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -757,7 +799,13 @@ class ChainPlan:
     chain, layer 0 of the forward), ``c >= grid`` the follow set's, whose
     CTA ``c - grid`` has the lead's geometry over a row twice as wide: its
     own row, then the feed (the other layer's), ``share(rank, follow=True)``;
-    a share's columns of each half form that half's sums."""
+    a share's columns of each half form that half's sums.
+
+    The remat chain's plan (``remat_d`` given to ``chain_plan``) also sets
+    ``rk``, the steps of a gate block (``REMAT_KS``), with the blocks in
+    ``smem``, and, where the blocks of the whole batch do not fit,
+    ``batch_slice``: the rows a launch takes (the wrapper launches on
+    slices of the batch, each an independent chain)."""
 
     hidden: int
     width: int
@@ -768,6 +816,8 @@ class ChainPlan:
     smem: int
     forward: bool = False
     layers: int = 1
+    rk: int = 0
+    batch_slice: int = 0
 
     @property
     def grid(self) -> int:
@@ -828,15 +878,39 @@ def _column_slices(nu: int, forward: bool = False) -> int:
     return CHAIN_NT // (nu // _unit_block(nu, forward))
 
 
+def remat_gate_floats(hidden: int, upc: int, rgroups: int, batch: int, din: int,
+                      rk: int) -> int:
+    """Shared memory of one set's gate blocks in the remat chain, in floats,
+    as ``rnn2_bwd::GateGeom``: a CTA's ``4 upc rgroups`` gate columns over
+    its row group's rows padded to whole passes for ``rk`` steps, twice
+    (the block in use and the one being formed), and one piece of the
+    ``din + hidden`` deep product (``kp``, a multiple of 4, deep): its
+    input rows (stride 4 mod 8) and weight rows; and 4 floats for the bulk
+    copies' transaction barrier."""
+    n = 4 * upc * rgroups
+    bgp = _ceil(_ceil(batch, rgroups), CHAIN_PH) * CHAIN_PH
+    m = rk * bgp
+    kp = _ceil(_ceil(din + hidden, rk), 4) * 4
+    ldi = _ceil(kp, 8) * 8 + 4
+    return 2 * m * n + m * ldi + kp * n + 4
+
+
 def chain_smem_floats(width: int, hidden: int, upc: int, ncl: int, rgroups: int,
-                      kc: int, forward: bool = False, layers: int = 1) -> int:
+                      kc: int, forward: bool = False, layers: int = 1,
+                      remat=None) -> int:
     """Shared memory of a plan in floats, as ``rnn_bwd::smem_floats``,
     ``rnn_fwd::smem_floats`` and, for ``layers`` 2, ``rnn2_bwd::`` /
     ``rnn2_fwd::smem_floats``: the weights, the chunk slots, the warps' and
     the cluster's partial sums (the forward keeps no warps' partials where
     a column group is one warp or less).  A 2-layer plan's buffers are the
     follow set's: a share of a row twice as wide, and the cluster's
-    partials of each half."""
+    partials of each half.
+
+    ``remat = (batch, d_in, rk)``: the remat chain's rule
+    (``rnn2_bwd::remat_smem_floats``), the larger of the follow set's
+    buffers with layer 0's gate blocks (``d_in`` deep inputs) and the lead
+    set's, whose weights cover only its own share, with layer 1's (H
+    deep)."""
     nu = upc * ncl * rgroups
     outputs, n4 = (width * nu, hidden // 4) if forward else (nu, width * hidden // 4)
     cs4 = _ceil(layers * n4, ncl)
@@ -846,8 +920,14 @@ def chain_smem_floats(width: int, hidden: int, upc: int, ncl: int, rgroups: int,
     ldx = _ceil(4 * kc, 32) * 32 + 4
     warps = max(1, _column_slices(nu, forward) // 32)
     part = warps * CHAIN_PH * outputs if warps > 1 or not forward else 0
-    return (outputs * ldw + slots * CHAIN_PH * ldx + part
-            + 2 * layers * CHAIN_PH * outputs)
+    total = (outputs * ldw + slots * CHAIN_PH * ldx + part
+             + 2 * layers * CHAIN_PH * outputs)
+    if remat is None:
+        return total
+    batch, d_in, rk = remat
+    lead = total - outputs * (ldw - (_ceil(4 * _ceil(n4, ncl), 32) * 32 + 4))
+    return max(total + remat_gate_floats(hidden, upc, rgroups, batch, d_in, rk),
+               lead + remat_gate_floats(hidden, upc, rgroups, batch, hidden, rk))
 
 
 def _row_groups_order(batch: int) -> Tuple[int, ...]:
@@ -861,9 +941,13 @@ def _row_groups_order(batch: int) -> Tuple[int, ...]:
     return (2, 4, 1) if batch <= 2 * CHAIN_PH else (4, 2, 1)
 
 
+# the remat chain's steps a gate block, the first that fits taken
+REMAT_KS = (8, 4, 2)
+
+
 def chain_plan(hidden: int, width: int, batch: int, sms: int, max_smem: int,
                active_clusters: Callable[[int, int, int, int], int],
-               forward: bool = False, layers: int = 1) -> ChainPlan:
+               forward: bool = False, layers: int = 1, remat_d: int = 0) -> ChainPlan:
     """The launch plan of one layer's reverse chain (``forward`` false) or
     forward (``width`` 4: LSTM, 3: GRU) on a card of ``sms`` SMs and
     ``max_smem`` bytes of shared memory per block, or with ``layers`` 2 of
@@ -880,42 +964,91 @@ def chain_plan(hidden: int, width: int, batch: int, sms: int, max_smem: int,
     products' column slices that fits (the whole share where it fits: on
     the H100, one chunk beat four, ``chain_ab.py --sweep``), else a ring
     of two chunks of a ninth of the share or less.  Shared memory is
-    padded past half an SM's, so one CTA fits an SM.  Raises
+    padded past half an SM's, so one CTA fits an SM.  With ``remat_d``
+    (the remat chain's padded input width: 2 layers, reverse, width 4) the
+    plan is the stored-gates chain's with the gate blocks
+    (``chain_smem_floats``' ``remat``) of the first of ``REMAT_KS`` steps
+    that fits beside it (any plan whose blocks fit, where none fit beside
+    it even for one row); the blocks grow with the batch, so where they do
+    not fit for the whole batch, the plan is that of the batch's fewest
+    equal slices that fit (``batch_slice``, one launch each).  Raises
     ``ValueError`` for a shape no plan takes.
     """
-    if batch < 1 or hidden < 4 or hidden % 4 or layers not in (1, 2):
+    if (batch < 1 or hidden < 4 or hidden % 4 or layers not in (1, 2)
+            or (remat_d and (layers != 2 or forward or width != 4 or remat_d % 4))):
         raise ValueError(f"chain_plan: no plan for B={batch}, H={hidden} (H % 4 == 0), "
-                         f"{layers} layers")
+                         f"{layers} layers" + (f", remat D={remat_d}" if remat_d else ""))
     upc = next((u for u in (1, 2, 4, 8)
                 if hidden % u == 0 and layers * (hidden // u) <= sms), None)
     if upc is None:
         raise ValueError(f"chain_plan: {layers} x H={hidden} needs more than 8 units "
                          f"per CTA on {sms} SMs")
     grid = hidden // upc
-    for ncl in (8, 4, 2, 1):
-        for rgroups in _row_groups_order(batch):
-            nu = ncl * rgroups * upc
-            if grid % (ncl * rgroups) or nu > CHAIN_NU_MAX:
-                continue
-            # the widest share: a 2-layer plan's follow set's
-            cs4 = _ceil(layers * (hidden if forward else width * hidden) // 4, ncl)
-            ks = _column_slices(nu, forward)
-            blocks = _ceil(cs4, ks)
-            # whole column slices per chunk where they fit, else a ring of
-            # two chunks of any width
-            widths = [min(cs4, ks * _ceil(blocks, m)) for m in range(1, blocks + 1)]
-            widths += [_ceil(cs4, m) for m in range(9, cs4 + 1)]
 
-            def need(kc: int) -> int:
-                return 4 * chain_smem_floats(width, hidden, upc, ncl, rgroups, kc,
-                                             forward, layers)
+    def need(ncl: int, rgroups: int, kc: int, rows: int, rk: int) -> int:
+        remat = (rows, remat_d, rk) if rk else None
+        return 4 * chain_smem_floats(width, hidden, upc, ncl, rgroups, kc, forward, layers,
+                                     remat)
 
-            kc = next((kc for kc in dict.fromkeys(widths) if need(kc) <= max_smem), None)
-            if kc is None or active_clusters(upc, ncl, rgroups, kc) * ncl < layers * grid:
-                continue
-            return ChainPlan(hidden, width, upc, ncl, rgroups, kc,
-                             max(need(kc), max_smem // 2 + 2048), forward, layers)
-    raise ValueError(f"chain_plan: no cluster size fits {layers} x H={hidden} on this card")
+    def search(rows: int, ks: Tuple[int, ...]):
+        """The first plan for ``rows`` whose buffers fit with gate blocks
+        of one of ``ks`` steps (0: none)."""
+        for ncl in (8, 4, 2, 1):
+            for rgroups in _row_groups_order(rows):
+                nu = ncl * rgroups * upc
+                if grid % (ncl * rgroups) or nu > CHAIN_NU_MAX:
+                    continue
+                # the widest share: a 2-layer plan's follow set's
+                cs4 = _ceil(layers * (hidden if forward else width * hidden) // 4, ncl)
+                ks4 = _column_slices(nu, forward)
+                blocks = _ceil(cs4, ks4)
+                # whole column slices per chunk where they fit, else a ring of
+                # two chunks of any width
+                widths = [min(cs4, ks4 * _ceil(blocks, m)) for m in range(1, blocks + 1)]
+                widths += [_ceil(cs4, m) for m in range(9, cs4 + 1)]
+                fits = ((kc, rk) for kc in dict.fromkeys(widths) for rk in ks
+                        if need(ncl, rgroups, kc, rows, rk) <= max_smem)
+                kc, rk = next(fits, (None, 0))
+                if kc is None or active_clusters(upc, ncl, rgroups, kc) * ncl < layers * grid:
+                    continue
+                return ChainPlan(hidden, width, upc, ncl, rgroups, kc,
+                                 max(need(ncl, rgroups, kc, rows, rk), max_smem // 2 + 2048),
+                                 forward, layers, rk)
+        return None
+
+    if not remat_d:
+        plan = search(batch, (0,))
+    else:
+        def kept(rows: int):
+            """The stored-gates chain's plan for ``rows`` with the first
+            gate blocks that fit beside it."""
+            p = search(rows, (0,))
+            rk = next((k for k in REMAT_KS if p is not None
+                       and need(p.ncl, p.rgroups, p.kc, rows, k) <= max_smem), 0)
+            return None if not rk else replace(
+                p, rk=rk, smem=max(need(p.ncl, p.rgroups, p.kc, rows, rk),
+                                   max_smem // 2 + 2048))
+
+        # the remat chain keeps the stored-gates chain's plan: on the H100
+        # a second pass or a ring of chunks to make room for the blocks cost
+        # more than another launch (chain_ab.py --sweep); only where no
+        # blocks fit beside it even for one row, any plan whose blocks fit
+        fit = kept if kept(1) is not None else (lambda rows: search(rows, REMAT_KS))
+        plan = fit(batch)
+        if plan is None and batch > 1 and fit(1) is not None:
+            # the blocks grow with a row group's rows: the most rows that
+            # fit (fewer always do), and the batch in equal slices of at
+            # most that many, one launch each
+            lo, hi = 1, batch - 1
+            while lo < hi:
+                mid = (lo + hi + 1) // 2
+                lo, hi = (mid, hi) if fit(mid) is not None else (lo, mid - 1)
+            rows = _ceil(batch, _ceil(batch, lo))
+            plan = replace(fit(rows), batch_slice=rows)
+    if plan is None:
+        raise ValueError(f"chain_plan: no cluster size fits {layers} x H={hidden} on "
+                         "this card")
+    return plan
 
 
 _CHAIN_PLANS: Dict[Tuple[int, str, int, Tuple[int, ...]], ChainPlan] = {}
@@ -923,13 +1056,15 @@ _CHAIN_PLANS: Dict[Tuple[int, str, int, Tuple[int, ...]], ChainPlan] = {}
 
 def chain_plan_on(source: str, width: int, hidden: int, batch: int,
                   device: torch.device, forward: bool = False,
-                  layers: int = 1) -> ChainPlan:
+                  layers: int = 1, remat_d: int = 0) -> ChainPlan:
     """``chain_plan`` for ``csrc/<source>.cu``'s kernel on ``device``, its
     SM count, shared memory and resident cluster counts read from the CUDA
     runtime through the library; cached per card, source, H and the
-    batch's row-group order."""
+    batch's row-group order (the remat chain's, whose gate blocks grow
+    with the rows, per batch and ``remat_d``)."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    key = (index, source, hidden, _row_groups_order(batch))
+    key = (index, source, hidden,
+           (batch, remat_d) if remat_d else _row_groups_order(batch))
     plan = _CHAIN_PLANS.get(key)
     if plan is None:
         lib = load(source)
@@ -948,7 +1083,7 @@ def chain_plan_on(source: str, width: int, hidden: int, batch: int,
                 return count.value
 
             plan = chain_plan(hidden, width, batch, sms.value, smem.value, active,
-                              forward, layers)
+                              forward, layers, remat_d)
         _CHAIN_PLANS[key] = plan
     return plan
 
@@ -1238,10 +1373,11 @@ def _gru_weights(name: str, h_dim: int, layer0: Params, layer1: Params):
 
 
 def _pair_launch(source: str, width: int, batch: int, h_dim: int,
-                 device: torch.device, forward: bool):
+                 device: torch.device, forward: bool, remat_d: int = 0):
     """A 2-layer launch's plan and the two sets' barrier flags (zeros) ->
     ``(plan, flags)``."""
-    plan = chain_plan_on(source, width, h_dim, batch, device, forward, layers=2)
+    plan = chain_plan_on(source, width, h_dim, batch, device, forward, layers=2,
+                         remat_d=remat_d)
     return plan, torch.zeros(2 * CHAIN_FLAGS, dtype=torch.int32, device=device)
 
 
@@ -1423,7 +1559,7 @@ GRU2_TRAIN_FWD_LEGACY = CudaKernel(
 )
 GRU2_BWD_CHAIN_LEGACY = CudaKernel(
     "gru2_bwd_chain_legacy", "gru2_bwd_chain_legacy_launch",
-    [_P] * 9 + [_I, _I, _I, _P],
+    [_P] * 11 + [_I] * 7 + [_P],
 )
 
 
@@ -1468,14 +1604,15 @@ def gru2_bwd_chain_legacy(res0, res1, dys, keep_tm: torch.Tensor,
     """Legacy GRU reverse chain: ``((dih0, dhh0), (dih1, dhh1))``, each
     (T, B, 3H) float32; on the card views of the kernel's one output (T, B,
     12H).  ``res0`` / ``res1`` are the layers' ``(h_prev, r, z, n, hn)``
-    series, packed here into (T, B, 5H) rows as the JAX wrapper packs them;
-    ``dys`` (T, B, H) is the sequence output's cotangent, or ``None``, and
-    then the kernel reads no stream.
+    series (T, B, H); on the card both layers' r, z, n, hn are packed into
+    one (T, B, 8H) as ``gru2_bwd_chain`` reads them; ``dys`` (T, B, H) is
+    the sequence output's cotangent, or ``None``, and then the kernel reads
+    no stream.
 
     On a CUDA tensor this launches ``csrc/gru2_bwd_chain_legacy.cu`` (one
-    cooperative launch) and counts it in
-    ``GRU2_BWD_CHAIN_LEGACY.launches``; on a CPU tensor it runs
-    ``gru2_bwd_chain_legacy_reference``.
+    cooperative cluster launch on ``chain_plan_on``'s 2-layer plan) and
+    counts it in ``GRU2_BWD_CHAIN_LEGACY.launches``; on a CPU tensor it
+    runs ``gru2_bwd_chain_legacy_reference``.
     """
     if res0[0].device.type == "cpu":
         return gru2_bwd_chain_legacy_reference(res0, res1, dys, keep_tm, dh_final,
@@ -1486,29 +1623,38 @@ def gru2_bwd_chain_legacy(res0, res1, dys, keep_tm: torch.Tensor,
     t_len, batch, h_dim = res0[0].shape
     series, square = (t_len, batch, h_dim), (h_dim, 3 * h_dim)
     tensors = dict(
-        res0=torch.cat([a.to(torch.float32) for a in res0], dim=-1),
-        res1=torch.cat([a.to(torch.float32) for a in res1], dim=-1),
+        h0p=res0[0].to(torch.float32).contiguous(),
+        h1p=res1[0].to(torch.float32).contiguous(),
         keep=keep_tm.to(torch.float32).contiguous(),
         dh_final=dh_final.to(torch.float32).contiguous(), w_hh0=w_hh0.contiguous(),
         w_hh1=w_hh1.contiguous(), w_ih1=w_ih1.contiguous())
-    shapes = dict(res0=(t_len, batch, 5 * h_dim), res1=(t_len, batch, 5 * h_dim),
-                  keep=series, dh_final=(batch, h_dim), w_hh0=square,
-                  w_hh1=square, w_ih1=square)
+    shapes = dict(h0p=series, h1p=series, keep=series, dh_final=(batch, h_dim),
+                  w_hh0=square, w_hh1=square, w_ih1=square)
     if dys is not None:
         tensors["dys"] = dys.to(torch.float32).contiguous()
         shapes["dys"] = series
     _check_shapes("gru2_bwd_chain_legacy",
-                  **{k: (tensors[k], shapes[k]) for k in tensors})
+                  **{k: (tensors[k], shapes[k]) for k in tensors},
+                  **{f"res{i}[{j}]": (res[j], series) for i, res in enumerate((res0, res1))
+                     for j in range(1, 5)})
     if t_len < 1 or batch < 1:
         raise ValueError(f"gru2_bwd_chain_legacy: empty residuals {series}")
-    out = torch.empty((t_len, batch, 12 * h_dim), dtype=torch.float32,
-                      device=res0[0].device)
+    tensors["res"] = torch.cat([a.to(torch.float32) for a in (*res0[1:], *res1[1:])],
+                               dim=-1)
+    device = res0[0].device
+    out = torch.empty((t_len, batch, 12 * h_dim), dtype=torch.float32, device=device)
     check_cuda_f32("gru2_bwd_chain_legacy", **tensors)
     ptr = {k: t.data_ptr() for k, t in tensors.items()}
+    plan, flags = _pair_launch("gru2_bwd_chain_legacy", 3, batch, h_dim, device,
+                               forward=False)
+    # the direct parts' carries: layer 0's starts at zero, layer 1's as
+    # dh_final
+    dh = tensors["dh_final"]
+    carry = torch.cat([torch.zeros_like(dh), dh]).contiguous()
     GRU2_BWD_CHAIN_LEGACY(
-        ptr["res0"], ptr["res1"], ptr.get("dys"), ptr["keep"], ptr["dh_final"],
-        ptr["w_hh0"], ptr["w_hh1"], ptr["w_ih1"], out.data_ptr(), batch, t_len,
-        h_dim, stream_of(out),
+        ptr["h0p"], ptr["h1p"], ptr["res"], ptr.get("dys"), ptr["keep"], ptr["w_hh0"],
+        ptr["w_hh1"], ptr["w_ih1"], out.data_ptr(), carry.data_ptr(), flags.data_ptr(),
+        batch, t_len, h_dim, plan.upc, plan.ncl, plan.rgroups, plan.kc, stream_of(out),
     )
     d = out.split(3 * h_dim, dim=-1)
     return (d[0], d[1]), (d[2], d[3])

@@ -1,6 +1,7 @@
 """Time the PyTorch port's recurrent kernels of two trees on one card.
 
     python3 scripts/chain_ab.py --parent DIR [--steps] [--timers] [--timers-parent TDIR]
+                                [--rows REGEX]
     python3 scripts/chain_ab.py --probe | --sweep
 
 Runs the timing child on DIR, on this checkout, on this checkout again and
@@ -31,7 +32,10 @@ inputs:
   LSTM inference forward at B 32 and 1; and the training forward
   ``lstm2_train_fwd_residuals`` with the gates (row 11) and without them
   (11n), the input projection included, keep at p = 0.1, at B = 32, 17
-  and 1, beside cuDNN's 2-layer LSTM training forward (keep = 1);
+  and 1, beside cuDNN's 2-layer LSTM training forward (keep = 1); the
+  gate-rematerialising chain ``lstm2_bwd_chain_remat`` (row 13) at (32,
+  372, 256) over the no-gates forward's residuals (D = 64), and at B 128
+  and 512, past the rows whose gate blocks fit one launch;
 * the GRU config's 2-layer kernels (GRU 2x256, ``chip_smoke.py``'s
   ``[gru2_bwd_chain]`` / ``[gru2_infer]`` inputs): ``gru2_bwd_chain``
   (row 15) at (32, 372, 256) over the config's own residuals, beside the
@@ -40,10 +44,16 @@ inputs:
   layout's copies included) and cuDNN's backward of ``h_n``;
   ``gru2_infer`` (row 3, the input projection included) at B = 32, 24,
   16, 4 and 1, beside cuDNN's 2-layer GRU inference forward at B 32 and 1;
-  and ``gru2_train_fwd_residuals`` (row 14) at B = 32, 17 and 1 beside
-  cuDNN's 2-layer GRU training forward (keep = 1).
+  ``gru2_train_fwd_residuals`` (row 14) at B = 32, 17 and 1 beside
+  cuDNN's 2-layer GRU training forward (keep = 1); and the legacy-layout
+  chain ``gru2_bwd_chain_legacy`` (row 10) over the same residuals with
+  and without ``dys`` (its gate series views of one tensor, as the legacy
+  forward's are).
 
-``--timers`` then builds rows 4, 7, 6, 7f, 12, 2, 11, 15, 3 and 14 of both
+``--rows REGEX`` keeps only the cases (and ``--timers`` kernels, and
+``--steps`` tags) whose names match.
+
+``--timers`` then builds rows 4, 7, 6, 7f, 12, 13, 2, 11, 15, 10, 3 and 14 of both
 trees with ``-DRNN_CHAIN_TIMERS=1`` (``csrc/rnn_timers.cuh``) and prints,
 for each at (32, 372, 512) (the chains with ``dh_series``; the 2-layer rows
 12, 2, 11, 15, 3 and 14 at (32, 372, 256), one block per CTA set), each
@@ -57,9 +67,11 @@ grid-barrier costs, shared-L2 and distributed-shared-memory read rates and
 resident cluster counts, and the exchange alone (write, barrier, read);
 ``--sweep`` times rows 4, 7, 6 and 7f of this checkout on variants of the
 launch plan (chunk, cluster size, row groups; and at B 1..24 each row-group
-count).  ``--steps`` (with ``--parent``)
+count), and row 13 at B 48, 64, 96, 128 and 512 on slices of the batch of
+16 to 64 rows and in one launch beside the plan's.  ``--steps`` (with ``--parent``)
 adds ``[train]`` / ``[train_remat]`` / ``[train_big]`` / ``[train_big_gru]`` /
-``[train_gru]``'s b32 train-step p50 / p90 and ``[serve]`` / ``[serve_big]`` /
+``[train_gru]`` / ``[train_gru_legacy]`` (``set_res2_mode("off")`` with
+``GRU_BWD2_ENABLED`` set)'s b32 train-step p50 / p90 and ``[serve]`` / ``[serve_big]`` /
 ``[serve_big_gru]`` / ``[serve_gru]``'s b32 and b1 forward p50 / p90 with
 each tree's package, parent / change / change / parent.  ``--child ROOT``, ``--timers-of
 ROOT``, ``--steps-of ROOT``, ``--probe`` and ``--sweep`` alone run one
@@ -74,6 +86,8 @@ import argparse
 import ctypes
 import importlib.util
 import json
+import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -120,9 +134,18 @@ def _port(root: Path):
 GRU2_INFER_B = (32, 24, 16, 4, 1)
 # and rows 11, 11n and 14 (the 2-layer training forwards)
 TRAIN2_B = (32, 17, 1)
+# and row 13 past the rows its gate blocks hold in one launch
+REMAT_WIDE_B = (128, 512)
 # the 2-layer kernels' sources: two CTA sets, T + 1 phases
 PAIR_SOURCES = ("lstm2_bwd_chain", "lstm2_infer", "lstm2_train_fwd", "gru2_bwd_chain",
-                "gru2_infer", "gru2_train_fwd")
+                "gru2_infer", "gru2_train_fwd", "lstm2_bwd_chain_remat",
+                "gru2_bwd_chain_legacy")
+
+
+def _keep(name: str) -> bool:
+    """Whether ``--rows`` (passed to the children as CHAIN_AB_ROWS) keeps
+    a case, a timed kernel or a step tag."""
+    return re.search(os.environ.get("CHAIN_AB_ROWS", ""), name) is not None
 
 
 def _lstm2_cases(torch, smoke, lk):
@@ -155,7 +178,28 @@ def _lstm2_cases(torch, smoke, lk):
             lambda a=a: lk.lstm2_train_fwd_residuals(*a), None, lambda xr=xr: lib(xr))
         cases[f"lstm2_train_fwd_nogates_b{rows}_h256"] = (
             lambda a=a: lk.lstm2_train_fwd_residuals(*a, store_gates=False), None, None)
+    # row 13 over the no-gates forward's residuals (chip_smoke.py's
+    # [lstm2_bwd_chain_remat] inputs)
+    cases["lstm2_bwd_chain_remat_h256"] = (_remat_run(torch, smoke, lk, 32), None, None)
+    # and past the rows whose gate blocks fit one launch, which the change
+    # takes in slices of the batch
+    for rows in REMAT_WIDE_B:
+        cases[f"lstm2_bwd_chain_remat_b{rows}_h256"] = (
+            _remat_run(torch, smoke, lk, rows), None, None)
     return cases
+
+
+def _remat_run(torch, smoke, lk, rows):
+    """Row 13 at (rows, 372, 64, 256) over the no-gates forward's residuals
+    (``chip_smoke.py``'s ``[lstm2_bwd_chain_remat]`` inputs at B=32)."""
+    import numpy as np
+
+    rx, rkeep, r0, r1 = smoke._lstm_train_inputs(8, b=rows)
+    pk, h0p, h1p, x1, _ = lk.lstm2_train_fwd_reference(rx, rkeep, r0, r1, store_gates=False)
+    h = r0["w_hh"].shape[0]
+    rdh = torch.from_numpy(np.random.RandomState(9).randn(rows, h).astype(np.float32)).cuda()
+    rargs = (pk, rkeep, rx, x1, h0p, h1p, rdh, r0, r1)
+    return lambda: lk.lstm2_bwd_chain_remat(*rargs)
 
 
 def _gru2_cases(torch, smoke, lk):
@@ -185,6 +229,12 @@ def _gru2_cases(torch, smoke, lk):
     cases["gru2_two_chains_h256"] = (
         lambda: lstm_vjp.gru_bwd_layered_legacy(res0, res1, None, keep, dh, *w),
         None, None)
+    # row 10 over the same residuals (the gate series views of one packed
+    # tensor, as the legacy forward's are), with and without dys
+    dys = torch.from_numpy(np.random.RandomState(10).randn(t, b, h).astype(np.float32)).cuda()
+    cases["gru2_bwd_chain_legacy_h256"] = (
+        lambda: lk.gru2_bwd_chain_legacy(res0, res1, None, keep, dh, *w),
+        lambda: lk.gru2_bwd_chain_legacy(res0, res1, dys, keep, dh, *w), None)
     x7, _, i0, i1 = smoke._gru_inputs(7)
     x = x7.transpose(0, 1).contiguous()
     ilib = smoke._cudnn_gru(i0, i1)
@@ -315,6 +365,8 @@ def child(root: Path) -> dict:
     cases = {**_cases(torch, smoke, lk), **_lstm2_cases(torch, smoke, lk),
              **_gru2_cases(torch, smoke, lk)}
     for name, (with_series, without, lib) in cases.items():
+        if not _keep(name):
+            continue
         res[f"{name}_ms"] = smoke.device_ms(with_series, flush)
         if without is not None:
             res[f"{name}_top_ms"] = smoke.device_ms(without, flush)
@@ -368,9 +420,12 @@ def steps_of(root: Path) -> dict:
     from multimodal_emotion_detection_tpu_torch.training.optim import build_optimizer
     from multimodal_emotion_detection_tpu_torch.training.steps import train_step
 
+    from multimodal_emotion_detection_tpu_torch.ops import lstm_vjp
+
     _build.build(["logmel", "lstm2_infer", "lstm2_train_fwd", "lstm2_bwd_chain",
                   "lstm2_bwd_chain_remat", "lstm1_fwd", "lstm_bwd_chain", "gru1_fwd",
-                  "gru_bwd_chain", "gru2_infer", "gru2_train_fwd", "gru2_bwd_chain"])
+                  "gru_bwd_chain", "gru2_infer", "gru2_train_fwd", "gru2_bwd_chain",
+                  "gru2_train_fwd_legacy", "gru2_bwd_chain_legacy"])
     data = root / "build" / "chain_ab" / "data"
     for seed, split in enumerate(("train", "val", "test")):
         if not (data / split / "labels.npy").exists():
@@ -381,7 +436,14 @@ def steps_of(root: Path) -> dict:
                            ("train_remat", ["model.frontend.audio=logmel",
                                             "runtime.lstm_remat_gates=true"]),
                            ("train_big", smoke.BIG), ("train_big_gru", smoke.BIG_GRU),
-                           ("train_gru", smoke.GRU)):
+                           ("train_gru", smoke.GRU), ("train_gru_legacy", smoke.GRU)):
+        if not _keep(tag):
+            continue
+        # [train_gru_legacy]: the legacy layout, its GRU chain on (the
+        # switch lives as long as this process: restored below)
+        legacy = tag == "train_gru_legacy"
+        prev = lstm_vjp.set_res2_mode("off" if legacy else "auto")
+        prev_bwd2, lstm_vjp.GRU_BWD2_ENABLED = lstm_vjp.GRU_BWD2_ENABLED, legacy
         cfg = load_config(str(root / "configs" / "base.yaml"),
                           [*overrides, f"dataset.data_dir={data}"])
         model = init_weights(classifier_from_config(cfg),
@@ -391,7 +453,8 @@ def steps_of(root: Path) -> dict:
                                     seed=cfg.seed, device=dev)[0]
         raw = torch.from_numpy(loader.arrays.features["audio"]).to(dev)
         video = torch.from_numpy(loader.arrays.features["video"]).to(dev)
-        if tag != "train_remat":  # [serve]'s forward: the flag is inert at eval
+        # [serve]'s forward: the flags are inert at eval
+        if tag not in ("train_remat", "train_gru_legacy"):
             _forward_latency(torch, smoke, cfg, [*overrides, f"dataset.data_dir={data}"],
                              root, raw, video, res, tag.replace("train", "serve"))
         if cfg.model.frontend.cache:
@@ -415,14 +478,16 @@ def steps_of(root: Path) -> dict:
             state["step"] = s + 1
 
         res[f"{tag}_p50_ms"], res[f"{tag}_p90_ms"] = smoke.host_ms(one_step, reps=60)
+        lstm_vjp.set_res2_mode(prev)
+        lstm_vjp.GRU_BWD2_ENABLED = prev_bwd2
     return res
 
 
 def timers_of(root: Path) -> None:
-    """Rows 4, 7, 6, 7f, 12, 2, 11, 15, 3 and 14 of ``root`` built with
-    -DRNN_CHAIN_TIMERS=1: each bucket's share of the warps' clock time at
-    (32, 372, 512) (rows 12, 2, 11, 15, 3 and 14 at (32, 372, 256)), per CTA
-    set of the 2-layer cores."""
+    """Rows 4, 7, 6, 7f, 12, 13, 2, 11, 15, 10, 3 and 14 of ``root`` built
+    with -DRNN_CHAIN_TIMERS=1: each bucket's share of the warps' clock time
+    at (32, 372, 512) (the 2-layer rows at (32, 372, 256)), per CTA set of
+    the 2-layer cores."""
     torch = _card()
     smoke = _smoke()
     _build, lk = _port(root)
@@ -437,7 +502,12 @@ def timers_of(root: Path) -> None:
                "lstm2_train_fwd_b32_h256": ("lstm2_train_fwd", lk.LSTM2_TRAIN_FWD),
                "gru2_bwd_chain_h256": ("gru2_bwd_chain", lk.GRU2_BWD_CHAIN),
                "gru2_infer_b32_h256": ("gru2_infer", lk.GRU2_INFER),
-               "gru2_train_fwd_b32_h256": ("gru2_train_fwd", lk.GRU2_TRAIN_FWD)}
+               "gru2_train_fwd_b32_h256": ("gru2_train_fwd", lk.GRU2_TRAIN_FWD),
+               "lstm2_bwd_chain_remat_h256": ("lstm2_bwd_chain_remat",
+                                              lk.LSTM2_BWD_CHAIN_REMAT),
+               "gru2_bwd_chain_legacy_h256": ("gru2_bwd_chain_legacy",
+                                              lk.GRU2_BWD_CHAIN_LEGACY)}
+    kernels = {k: v for k, v in kernels.items() if _keep(k)}
     libs = {}
     for source in {s for s, _ in kernels.values()}:
         out = root / "build" / "chain_ab" / f"lib{source}_timers.so"
@@ -484,7 +554,8 @@ def timers_of(root: Path) -> None:
             print(f"[timers] {name} plan: UPC {plan.upc}, clusters of {plan.ncl}, "
                   f"{plan.rgroups} row groups, {getattr(plan, 'ctas', plan.grid)} CTAs, "
                   f"{plan.smem} bytes, "
-                  f"chunks of {plan.kc}")
+                  f"chunks of {plan.kc}"
+                  + (f", gate blocks of {plan.rk} steps" if getattr(plan, "rk", 0) else ""))
         # the 2-layer kernels' T + 1 phases
         pair = source in PAIR_SOURCES
         steps = 373 if pair else 372
@@ -511,6 +582,11 @@ def _plan_of(lk, source, h, device):
     width = 4 if source.startswith("lstm") else 3
     if not hasattr(lk, "chain_plan_on"):
         return None
+    if source in ("lstm2_bwd_chain_remat", "gru2_bwd_chain_legacy"):
+        if not hasattr(lk, "REMAT_KS"):
+            return None  # the first design: no plan
+        return lk.chain_plan_on(source, width, h, 32, device, layers=2,
+                                remat_d=64 if source.endswith("remat") else 0)
     if source in PAIR_SOURCES:
         if not hasattr(lk, "_pair_launch"):
             return None
@@ -633,6 +709,8 @@ def sweep() -> None:
             ("gru_bwd_chain_h512", "gru_bwd_chain", 3, False),
             ("lstm1_train_fwd_h512", "lstm1_fwd", 4, True),
             ("gru1_train_fwd_h512", "gru1_fwd", 3, True)):
+        if not _keep(name):
+            continue
         base = lk.chain_plan_on(source, width, 512, 32, torch.device("cuda"), forward)
         key = next(k for k in lk._CHAIN_PLANS if k[1] == source and k[2] == 512)
         variants = [base]
@@ -658,6 +736,8 @@ def sweep() -> None:
     for rows in (1, 2, 4, 8, 12, 16, 24):
         for name, (source, width, forward, run) in _row_runs(torch, smoke, lk,
                                                               rows).items():
+            if not _keep(name):
+                continue
             base = lk.chain_plan_on(source, width, 512, rows, torch.device("cuda"),
                                     forward)
             key = next(k for k, v in lk._CHAIN_PLANS.items() if v is base)
@@ -672,6 +752,58 @@ def sweep() -> None:
                 mark = " (the plan)" if rgroups == base.rgroups else ""
                 print(f"[sweep] {name} B={rows}: {rgroups} row groups{mark}: {ms:.4f} ms")
             lk._CHAIN_PLANS[key] = base
+    # row 13 on slices of the batch: the plan's (the stored-gates chain's
+    # plan, the batch in slices where the gate blocks do not fit beside
+    # it) beside launches of 16..64 rows and of the whole batch, each on
+    # its rows' plan or, where the blocks do not fit beside that, on the
+    # first plan whose blocks fit (a second pass, a ring of chunks)
+    dev = torch.device("cuda")
+    for batch in (48, 64, 96, *REMAT_WIDE_B):
+        name = f"lstm2_bwd_chain_remat_b{batch}_h256"
+        if not _keep(name):
+            continue
+        run = _remat_run(torch, smoke, lk, batch)
+        base = lk.chain_plan_on("lstm2_bwd_chain_remat", 4, 256, batch, dev, layers=2,
+                                remat_d=64)
+        key = next(k for k, v in lk._CHAIN_PLANS.items() if v is base)
+        variants = [base]
+        for rows in (16, 32, 48, 64, batch):
+            plan = lk.chain_plan_on("lstm2_bwd_chain_remat", 4, 256, rows, dev, layers=2,
+                                    remat_d=64)
+            if plan.batch_slice:
+                plan = _remat_fit(lk, plan, rows)
+            if plan is not None and rows <= batch:
+                plan = dataclasses.replace(plan, batch_slice=rows if rows < batch else 0)
+                if plan not in variants:
+                    variants.append(plan)
+        for plan in variants:
+            lk._CHAIN_PLANS[key] = plan
+            ms = smoke.device_ms(run, flush)
+            n = -(-batch // (plan.batch_slice or batch))
+            mark = " (the plan)" if plan is base else ""
+            print(f"[sweep] {name}: {n} launches of {plan.batch_slice or batch} rows, "
+                  f"{plan.rgroups} row groups, chunks of {plan.kc}, gate blocks of "
+                  f"{plan.rk} steps{mark}: {ms:.4f} ms")
+        lk._CHAIN_PLANS[key] = base
+
+
+def _remat_fit(lk, plan, rows):
+    """Row 13's first plan for ``rows`` (the flagship's geometry: clusters
+    of 2) whose gate blocks fit an H100's 232,448 bytes: 4 then 2 row
+    groups, the whole share in one chunk then rings of two, blocks of 8,
+    4, 2 steps; None where none does."""
+    import dataclasses
+
+    for rgroups in (4, 2):
+        for kc in (256, *(-(-256 // m) for m in range(9, 257))):
+            for rk in lk.REMAT_KS:
+                need = 4 * lk.chain_smem_floats(4, 256, plan.upc, plan.ncl, rgroups, kc,
+                                                layers=2, remat=(rows, 64, rk))
+                if need <= 232_448:
+                    return dataclasses.replace(plan, rgroups=rgroups, kc=kc, rk=rk,
+                                               smem=max(need, 232_448 // 2 + 2048),
+                                               batch_slice=0)
+    return None
 
 
 def _row_runs(torch, smoke, lk, rows):
@@ -757,7 +889,11 @@ def main() -> None:
     ap.add_argument("--steps", action="store_true",
                     help="[train*] step and [serve*] forward p50s of both trees")
     ap.add_argument("--steps-of", type=Path, help="their step p50 with this tree")
+    ap.add_argument("--rows", default="", help="only the cases, timed kernels and step "
+                    "tags whose names match this regular expression")
     opts = ap.parse_args()
+    if opts.rows:
+        os.environ["CHAIN_AB_ROWS"] = opts.rows
     _card()
     if opts.child is None and opts.timers_of is None:
         print(f"[chain_ab] card: {_smi()}", flush=True)
@@ -782,9 +918,10 @@ def main() -> None:
             line = out.stdout.strip().splitlines()[-1]
             runs.append((tag, json.loads(line)))
             print(f"[chain_ab] {tag}: {line}", flush=True)
-        for key in [k for k in runs[0][1] if k.endswith("_ms")]:
+        keys = dict.fromkeys(k for _, r in runs for k in r if k.endswith("_ms"))
+        for key in keys:
             print(f"[chain_ab] {key}: " + ", ".join(
-                f"{tag} {r[key]:.4f}" for tag, r in runs))
+                f"{tag} {r[key]:.4f}" if key in r else f"{tag} -" for tag, r in runs))
         if opts.steps:
             steps = []
             for tag, root in (("parent", parent), ("change", HERE), ("change", HERE),

@@ -149,9 +149,10 @@ def test_fused_lstm_final_grads_match_plain_autograd(b, t, d, h):
 RES_NAMES = ("packed", "h0_prev", "h1_prev", "x1", "finals")
 REMAT_SHAPES = [(32, 372, 64, 256),                  # the flagship
                 (32, 1, 64, 256), (32, 2, 64, 256),  # the wavefront's ends
-                (1, 5, 64, 256), (33, 5, 64, 256),   # one row; a ragged second pass
+                (1, 5, 64, 256), (33, 5, 64, 256),   # one row; two slices of the batch
                 (33, 7, 5, 128),                     # one unit per block, odd D
-                (3, 9, 64, 264)]                     # the widest pair, 2 x 132 SMs
+                (3, 9, 64, 264),                     # the widest pair, 2 x 132 SMs
+                (32, 11, 64, 256), (17, 13, 7, 260)]  # T not a multiple of a gate block
 
 
 @pytest.mark.parametrize("b,t,d,h", REMAT_SHAPES)
@@ -175,13 +176,142 @@ def test_lstm2_remat_kernels_match_plain(b, t, d, h):
     dh = torch.from_numpy(
         np.random.RandomState(t).randn(b, h).astype(np.float32)).to(dev)
     args = (outs[0], keep, x_tm, outs[3], outs[1], outs[2], dh, l0, l1)
+    # one launch a slice of the batch where the gate blocks of the whole
+    # batch do not fit beside the plan
+    plan = lstm_kernel.chain_plan_on("lstm2_bwd_chain_remat", 4, h, b, dev, layers=2,
+                                     remat_d=-(-d // 4) * 4)
     before = lstm_kernel.LSTM2_BWD_CHAIN_REMAT.launches
     dgs = lstm_kernel.lstm2_bwd_chain_remat(*args)
     torch.cuda.synchronize()
-    assert lstm_kernel.LSTM2_BWD_CHAIN_REMAT.launches == before + 1
+    assert (lstm_kernel.LSTM2_BWD_CHAIN_REMAT.launches
+            == before + -(-b // (plan.batch_slice or b)))
     for name, out, ref in zip(("dg0", "dg1"), dgs,
                               lstm_kernel.lstm2_bwd_chain_remat_reference(*args)):
         torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4, msg=name)
+
+
+@pytest.mark.parametrize("b,t", [(113, 5), (128, 7), (512, 3)])
+def test_lstm2_remat_chain_takes_batches_past_its_gate_blocks(b, t):
+    """Past the rows whose gate blocks fit beside the plan (32 at D=64,
+    H=256 on an H100) the remat chain launches on slices of the batch
+    (``ChainPlan.batch_slice``), one counted launch each, against the plain
+    version at 1e-4 over the no-gates forward's residuals; the parent took
+    these batches in one launch of its first design."""
+    dev = _card()
+    d, h = 64, 256
+    x_tm, keep, l0, l1 = _lstm_case(dev, b, t, d, h, seed=b + t)
+    outs = lstm_kernel.lstm2_train_fwd_residuals(x_tm, keep, l0, l1, store_gates=False)
+    dh = torch.from_numpy(
+        np.random.RandomState(b).randn(b, h).astype(np.float32)).to(dev)
+    args = (outs[0], keep, x_tm, outs[3], outs[1], outs[2], dh, l0, l1)
+    plan = lstm_kernel.chain_plan_on("lstm2_bwd_chain_remat", 4, h, b, dev, layers=2,
+                                     remat_d=d)
+    assert 0 < plan.batch_slice < b, plan
+    before = lstm_kernel.LSTM2_BWD_CHAIN_REMAT.launches
+    dgs = lstm_kernel.lstm2_bwd_chain_remat(*args)
+    torch.cuda.synchronize()
+    assert (lstm_kernel.LSTM2_BWD_CHAIN_REMAT.launches
+            == before + -(-b // plan.batch_slice))
+    for name, out, ref in zip(("dg0", "dg1"), dgs,
+                              lstm_kernel.lstm2_bwd_chain_remat_reference(*args)):
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4, msg=name)
+
+
+def test_redesigned_chains_raise_on_a_plan_that_does_not_fit():
+    """No fallback in the remat chain and the legacy GRU chain either: a
+    plan their launchers do not accept (a cluster of 3, 3 units a CTA, 3
+    row groups, an empty chunk; for the remat chain a gate block of no
+    steps, an input width that is not a multiple of 4 or series rows
+    fewer than the launch's batch) raises with its error string, and the
+    launch is not counted."""
+    dev = _card()
+    b, t, d, h = 2, 3, 8, 128
+    new = dict(dtype=torch.float32, device=dev)
+    big = torch.zeros((t, b, 12 * h), **new)
+    ser = torch.zeros((t, b, h), **new)
+    w = torch.zeros((2 * h, 4 * h), **new)
+    carry = torch.zeros((2, b, h), **new)
+    flags = torch.zeros(2 * lstm_kernel.CHAIN_FLAGS, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    remat = lstm_kernel.chain_plan_on("lstm2_bwd_chain_remat", 4, h, b, dev, layers=2,
+                                      remat_d=d)
+    legacy = lstm_kernel.chain_plan_on("gru2_bwd_chain_legacy", 3, h, b, dev, layers=2)
+    assert remat.rk in lstm_kernel.REMAT_KS
+
+    def remat_args(upc, ncl, rgroups, kc, d_in, rk, ld=b):
+        return (big.data_ptr(), ser.data_ptr(), carry.data_ptr(), *(w.data_ptr(),) * 3,
+                big.data_ptr(), *(ser.data_ptr(),) * 3, *(w.data_ptr(),) * 4,
+                big.data_ptr(), big.data_ptr(), carry.data_ptr(), flags.data_ptr(), b, ld,
+                t, h, d_in, upc, ncl, rgroups, kc, rk, stream)
+
+    def legacy_args(upc, ncl, rgroups, kc):
+        return (ser.data_ptr(), ser.data_ptr(), big.data_ptr(), None, ser.data_ptr(),
+                *(w.data_ptr(),) * 3, big.data_ptr(), carry.data_ptr(), flags.data_ptr(),
+                b, t, h, upc, ncl, rgroups, kc, stream)
+
+    for plan, kern in ((remat, lstm_kernel.LSTM2_BWD_CHAIN_REMAT),
+                       (legacy, lstm_kernel.GRU2_BWD_CHAIN_LEGACY)):
+        bad = [(plan.upc, 3, plan.rgroups, plan.kc), (3, plan.ncl, plan.rgroups, plan.kc),
+               (plan.upc, plan.ncl, 3, plan.kc), (plan.upc, plan.ncl, plan.rgroups, 0)]
+        for upc, ncl, rgroups, kc in bad:
+            if kern is lstm_kernel.GRU2_BWD_CHAIN_LEGACY:
+                args = legacy_args(upc, ncl, rgroups, kc)
+            else:
+                args = remat_args(upc, ncl, rgroups, kc, d, plan.rk)
+            before = kern.launches
+            with pytest.raises(RuntimeError, match="launch plan"):
+                kern(*args)
+            assert kern.launches == before
+    for d_in, rk, ld in ((d, 0, b), (d - 2, remat.rk, b), (d, remat.rk, b - 1)):
+        before = lstm_kernel.LSTM2_BWD_CHAIN_REMAT.launches
+        with pytest.raises(RuntimeError, match="not supported"):
+            lstm_kernel.LSTM2_BWD_CHAIN_REMAT(*remat_args(
+                remat.upc, remat.ncl, remat.rgroups, remat.kc, d_in, rk, ld))
+        assert lstm_kernel.LSTM2_BWD_CHAIN_REMAT.launches == before
+
+
+@pytest.mark.parametrize("b", [32, 17, 1])
+@pytest.mark.parametrize("h", [256, 260, 264])
+def test_gru2_legacy_chain_matches_plain_at_odd_shapes(b, h):
+    """The legacy GRU chain (row 10, the reverse core's legacy cell) at B 32
+    / 17 / 1 and H 256 / 260 / 264, T 1-3, with and without dys, over
+    residuals drawn directly (r, z in (0, 1), n in (-1, 1); the gate series
+    views of one tensor, as the legacy forward's are, or at T=2 separate
+    ones; the wrapper packs either), against the plain version at 1e-4;
+    dhh's r and z lanes equal dih's."""
+    dev = _card()
+    rng = np.random.RandomState(b * 1000 + h)
+    k = 1.0 / np.sqrt(h)
+
+    def t_(a):
+        return torch.from_numpy(np.asarray(a, dtype=np.float32)).to(dev)
+
+    w = [t_(rng.uniform(-k, k, (h, 3 * h))) for _ in range(3)]
+    for t in (1, 2, 3):
+        def layer():
+            return (t_(rng.randn(t, b, h)), t_(rng.uniform(0.05, 0.95, (t, b, h))),
+                    t_(rng.uniform(0.05, 0.95, (t, b, h))),
+                    t_(rng.uniform(-0.95, 0.95, (t, b, h))), t_(rng.randn(t, b, h)))
+
+        res0, res1 = layer(), layer()
+        if t != 2:  # the gate series as views of one tensor
+            res0, res1 = ((r[0], *torch.cat(r[1:], dim=-1).split(h, dim=-1))
+                          for r in (res0, res1))
+        keep = t_((rng.rand(t, b, h) < 0.9) / 0.9)
+        dh = t_(rng.randn(b, h))
+        for dys in (None, t_(rng.randn(t, b, h))):
+            args = (res0, res1, dys, keep, dh, *w)
+            before = lstm_kernel.GRU2_BWD_CHAIN_LEGACY.launches
+            outs = lstm_kernel.gru2_bwd_chain_legacy(*args)
+            torch.cuda.synchronize()
+            assert lstm_kernel.GRU2_BWD_CHAIN_LEGACY.launches == before + 1
+            refs = lstm_kernel.gru2_bwd_chain_legacy_reference(*args)
+            for i in range(2):
+                for j, name in enumerate(("dih", "dhh")):
+                    torch.testing.assert_close(
+                        outs[i][j], refs[i][j], rtol=1e-4, atol=1e-4,
+                        msg=f"{name}{i}, T={t}, dys {dys is not None}")
+                assert torch.equal(outs[i][1][..., :2 * h], outs[i][0][..., :2 * h])
 
 
 @pytest.mark.parametrize("b,t,d,h", [(3, 40, 6, 64), (32, 372, 64, 256)])

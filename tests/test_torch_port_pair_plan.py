@@ -39,6 +39,8 @@ plain versions).  The flagship's plan (B=32, H=256, width 4) is pinned.
 CPU only: nothing here launches a kernel.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -46,10 +48,12 @@ import pytest
 import torch
 
 from multimodal_emotion_detection_tpu.ops.lstm_kernel import (
+    gru2_bwd_chain_pallas,
     gru2_bwd_chain_res_padded,
     gru2_infer_pallas,
     gru2_train_fwd_residuals as jax_train_fwd,
     lstm2_bwd_chain_padded,
+    lstm2_bwd_chain_remat as jax_bwd_chain_remat,
     lstm2_infer_pallas,
     lstm2_train_fwd_residuals as jax_lstm_train_fwd,
 )
@@ -351,27 +355,134 @@ def _sig(x):
     return 1.0 / (1.0 + np.exp(-x))
 
 
-def _model_bwd(plan, cell, packed, prev, keep, dh, w_hh0, w_hh1, w_ih1, seed, exact):
-    """``pair_kernel`` of csrc/rnn2_bwd_chain.cuh with ``cell`` "gru" or
-    "lstm": the lead set layer 1's chain over its own row, the follow set
-    layer 0's over [own | layer 1's dih or dg].  ``prev``: the GRU's
-    (h0_prev, h1_prev); the LSTM's c_prev is inside ``packed``."""
+def _gate_geom(plan, batch, din):
+    """``rnn2_bwd::GateGeom``: (n, bgp, m, kin, kp, pieces) of one set's
+    gate blocks."""
+    n = 4 * plan.upc * plan.rgroups
+    bgp = -(-(-(-batch // plan.rgroups)) // PH) * PH
+    kin = din + plan.hidden
+    kp = -(-(-(-kin // plan.rk)) // 4) * 4
+    return n, bgp, plan.rk * bgp, kin, kp, -(-kin // kp)
+
+
+class _GateBlocks:
+    """``rnn2_bwd::GateBlocks`` of one CTA: its cells' gate pre-activations
+    [x | h_prev] [w_ih; w_hh], formed ahead of the chain in blocks of
+    ``plan.rk`` steps (the whole of block 0 before the first step, piece s
+    % rk of block s / rk + 1 in step s), each piece over kp rows of the
+    product's depth from the packed weights (``lk.gate_columns``) and the
+    input rows staged for it, the bias starting each block's sums; rows the
+    kernel does not stage are NaN, and so are the blocks before they are
+    formed."""
+
+    def __init__(self, plan, cta, batch, xin, hin, wcat, bias):
+        self.plan, self.t_len, self.bias = plan, xin.shape[0], bias
+        self.rows = plan.rows(cta, batch)
+        self.units = plan.units(cta)
+        self.n, self.bgp, self.m, self.kin, self.kp, self.pieces = _gate_geom(
+            plan, batch, xin.shape[2])
+        assert 4 * (2 * self.m * self.n + self.m * (-(-self.kp // 8) * 8 + 4)
+                    + self.kp * self.n + 4) == 4 * lk.remat_gate_floats(
+                        plan.hidden, plan.upc, plan.rgroups, batch, xin.shape[2], plan.rk)
+        u = plan.upc * plan.rgroups
+        blk = self.units.start // u
+        self.w = lk.gate_columns(torch.from_numpy(wcat), u)[blk].numpy()
+        self.inputs = np.concatenate([xin, hin], axis=2)
+        self.buf = [np.full((self.m, self.n), np.nan) for _ in range(2)]
+
+    def live(self, blk):
+        return blk * self.plan.rk < self.t_len
+
+    def form(self, p, blk):
+        k0 = p * self.kp
+        kn = min(self.kp, self.kin - k0)
+        if kn <= 0:
+            return
+        staged = np.full((self.m, kn), np.nan)
+        for m in range(self.m):
+            s, b = blk * self.plan.rk + m // self.bgp, self.rows.start + m % self.bgp
+            if s < self.t_len and b < self.rows.stop:
+                staged[m] = self.inputs[self.t_len - 1 - s, b, k0:k0 + kn]
+        part = staged @ self.w[k0:k0 + kn].astype(np.float64)
+        if p == 0:
+            u, h = self.plan.upc * self.plan.rgroups, self.plan.hidden
+            cols = [q * h + j for q in range(4) for j in self.units]
+            assert len(cols) == self.n and self.units.start % u == 0
+            self.buf[blk & 1] = part + self.bias[cols]
+        else:
+            self.buf[blk & 1] = self.buf[blk & 1] + part
+
+    def step(self, s):
+        """Step s's hook: the whole of block 0 first, then its piece."""
+        rk = self.plan.rk
+        if s == 0:
+            for p in range(self.pieces):
+                self.form(p, 0)
+        if s % rk < self.pieces and self.live(s // rk + 1):
+            self.form(s % rk, s // rk + 1)
+
+    def gates(self, s, rows, j):
+        rk, u = self.plan.rk, self.plan.upc * self.plan.rgroups
+        g = self.buf[(s // rk) & 1][(s % rk) * self.bgp + rows - self.rows.start]
+        cu = j - self.units.start
+        return [g[:, q * u + cu] for q in range(4)]
+
+
+def _model_bwd(plan, cell, packed, prev, keep, dh, w_hh0, w_hh1, w_ih1, seed, exact,
+               dys=None, remat=None):
+    """``pair_kernel`` of csrc/rnn2_bwd_chain.cuh with ``cell`` "gru",
+    "lstm", "remat" (``LstmRematCell``) or "gru_legacy" (``GruLegacyCell``):
+    the lead set layer 1's chain over its own row, the follow set layer 0's
+    over [own | layer 1's dih or dg].  ``prev``: the GRU's (h0_prev,
+    h1_prev), the legacy GRU's rows (res0, res1) (T, B, 5H) = [h_prev | r |
+    z | n | hn]; the LSTM's c_prev is inside ``packed`` (the remat cell's
+    (T, B, 2H) = [c0_prev | c1_prev]).  The legacy GRU writes (T, B, 12H)
+    rows [dih0 | dhh0 | dih1 | dhh1], exchanges each layer's dhh lanes and
+    adds ``dys`` to layer 1's dh -> ((dih0, dhh0), (dih1, dhh1)).  The
+    remat cell's ``remat`` = (x (T, B, D), x1, h0p, h1p, [w_ih0; w_hh0],
+    [w_ih1; w_hh1], b0, b1): its gates come from ``_GateBlocks``."""
     t_len, batch, hidden = keep.shape
-    lstm = cell == "lstm"
+    lstm = cell in ("lstm", "remat")
+    legacy = cell == "gru_legacy"
     nan = np.full
-    # GRU dih (3H) and dhn; LSTM dg (4H)
+    # GRU dih (3H) and dhn; LSTM dg (4H); the legacy GRU's 12H rows
     out = [nan((t_len, batch, plan.width * hidden), np.nan) for _ in range(2)]
     dhn = [nan((t_len, batch, hidden), np.nan) for _ in range(2)]
+    rows12 = nan((t_len, batch, 12 * hidden), np.nan)
     # GRU: the direct part dh z, layer 1's starting as dh_final; LSTM: dc
     carry = [np.zeros((batch, hidden)),
              np.zeros((batch, hidden)) if lstm else dh.astype(np.float64)]
     w_own = (w_hh0, w_hh1)
+    blocks = {}
+    if cell == "remat":
+        x, x1, h0p, h1p, wcat0, wcat1, b0, b1 = remat
+        for cta in range(plan.ctas):
+            layer = 0 if cta >= plan.grid else 1
+            blocks[cta] = _GateBlocks(plan, cta, batch, (x, x1)[layer], (h0p, h1p)[layer],
+                                      (wcat0, wcat1)[layer], (b0, b1)[layer])
 
     def x_row(layer, step, rows):
         if lstm:
             return out[layer][step][rows]
+        if legacy:
+            return rows12[step][rows, 6 * hidden * layer + 3 * hidden:6 * hidden * (layer + 1)]
         return np.concatenate([out[layer][step][rows, :2 * hidden],
                                dhn[layer][step][rows]], axis=1)
+
+    def legacy_cell(layer, t, rows, j, d):
+        hp, r, z, n, hn = (prev[layer][t][rows, i * hidden + j] for i in range(5))
+        d = carry[layer][rows, j] + d
+        if layer == 1 and dys is not None:
+            d = d + dys[t][rows, j]
+        dn = d * (1 - z) * (1 - n * n)
+        base = 6 * hidden * layer + j
+        for lane, v in ((0, dn * hn * r * (1 - r)), (1, d * (hp - n) * z * (1 - z)),
+                        (2, dn)):
+            rows12[t][rows, base + lane * hidden] = v
+            if lane < 2:
+                rows12[t][rows, base + (3 + lane) * hidden] = v
+        rows12[t][rows, base + 5 * hidden] = dn * r
+        carry[layer][rows, j] = d * z
 
     def gru_cell(layer, t, rows, j, d):
         r, z, n, hn = (packed[t][rows, 4 * hidden * layer + i * hidden + j]
@@ -385,10 +496,14 @@ def _model_bwd(plan, cell, packed, prev, keep, dh, w_hh0, w_hh1, w_ih1, seed, ex
         dhn[layer][t][rows, j] = dn * r
         carry[layer][rows, j] = d * z
 
-    def lstm_cell(layer, t, rows, j, d):
-        gi, gf, gg, go = (packed[t][rows, 4 * hidden * layer + i * hidden + j]
-                          for i in range(4))
-        cp = packed[t][rows, 8 * hidden + hidden * layer + j]
+    def lstm_cell(layer, t, rows, j, d, cta=None):
+        if cell == "remat":
+            gi, gf, gg, go = blocks[cta].gates(t_len - 1 - t, rows, j)
+            cp = packed[t][rows, hidden * layer + j]
+        else:
+            gi, gf, gg, go = (packed[t][rows, 4 * hidden * layer + i * hidden + j]
+                              for i in range(4))
+            cp = packed[t][rows, 8 * hidden + hidden * layer + j]
         if layer == 1 and t == t_len - 1:
             d = d + dh[rows, j]
         si, sf, so, tg = _sig(gi), _sig(gf), _sig(go), np.tanh(gg)
@@ -404,9 +519,15 @@ def _model_bwd(plan, cell, packed, prev, keep, dh, w_hh0, w_hh1, w_ih1, seed, ex
         layer, t = (0 if follow else 1), t_len - 1 - s
         units = plan.cluster_units(c0)
         grows = plan.rows(c0, batch)
+        cta0 = c0 + (plan.grid if follow else 0)
+        for rank in range(plan.ncl):
+            if cta0 + rank in blocks:
+                blocks[cta0 + rank].step(s)
 
         def source(seg, rows):
-            return x_row(layer, t + 1, rows) if seg == 0 else out[1][t][rows]
+            if seg == 0:
+                return x_row(layer, t + 1, rows)
+            return rows12[t][rows, 6 * hidden:9 * hidden] if legacy else out[1][t][rows]
 
         def weight(seg, c):
             return (w_own[layer] if seg == 0 else w_ih1)[units.start:units.stop]
@@ -420,9 +541,16 @@ def _model_bwd(plan, cell, packed, prev, keep, dh, w_hh0, w_hh1, w_ih1, seed, ex
                     own = _sums(parts, plan.ncl, 0, rows, col)
                     feed = _sums(parts, plan.ncl, 1, rows, col)
                     kv = keep[t][rows, j] if layer == 0 else 0.0
-                    (lstm_cell if lstm else gru_cell)(layer, t, rows, j, own + kv * feed)
+                    if lstm:
+                        lstm_cell(layer, t, rows, j, own + kv * feed, cta0 + rank)
+                    else:
+                        (legacy_cell if legacy else gru_cell)(layer, t, rows, j,
+                                                              own + kv * feed)
 
     _schedule(plan, t_len, np.random.RandomState(seed), cluster_step)
+    if legacy:
+        d = np.split(rows12, 4, axis=2)
+        return (d[0], d[1]), (d[2], d[3])
     return (out[0], out[1]) if lstm else (out[0], dhn[0], out[1], dhn[1])
 
 
@@ -599,6 +727,83 @@ def _check_model(plan, batch, t_len, d, hidden, seed, exact, cell="gru"):
     return got
 
 
+def _check_remat_model(plan, batch, t_len, d, hidden, seed, exact):
+    """The reverse core with the remat cell (row 13) over the no-gates
+    forward's residuals, D padded to a multiple of 4 as the wrapper pads
+    it, one launch a ``plan.batch_slice`` of the batch where the plan has
+    one (each over its slice's rows), against
+    ``lstm2_bwd_chain_remat_reference`` of the whole batch (1e-6)."""
+    l0, l1, x, keep, dh = _case("lstm", batch, t_len, d, hidden, seed)
+    x_tm = np.ascontiguousarray(x.transpose(1, 0, 2))
+    tl0 = {k: torch.from_numpy(v) for k, v in l0.items()}
+    tl1 = {k: torch.from_numpy(v) for k, v in l1.items()}
+    packed, h0p, h1p, x1, _ = (a.numpy() for a in lk.lstm2_train_fwd_reference(
+        torch.from_numpy(x_tm), torch.from_numpy(keep), tl0, tl1, store_gates=False))
+    d4 = -(-d // 4) * 4
+    wcat0 = np.concatenate([np.pad(l0["w_ih"], ((0, d4 - d), (0, 0))), l0["w_hh"]])
+    wcat1 = np.concatenate([l1["w_ih"], l1["w_hh"]])
+    xp = np.pad(x_tm, ((0, 0), (0, 0), (0, d4 - d)))
+    rows = plan.batch_slice or batch
+    got = [[], []]
+    for r0 in range(0, batch, rows):
+        sl = slice(r0, min(batch, r0 + rows))
+        remat = (xp[:, sl], x1[:, sl], h0p[:, sl], h1p[:, sl], wcat0, wcat1, l0["b"],
+                 l1["b"])
+        for i, g in enumerate(_model_bwd(plan, "remat", packed[:, sl], None, keep[:, sl],
+                                         dh[sl], l0["w_hh"], l1["w_hh"], l1["w_ih"],
+                                         seed + r0, exact, remat=remat)):
+            got[i].append(g)
+    got = [np.concatenate(g, axis=1) for g in got]
+    want = lk.lstm2_bwd_chain_remat_reference(
+        *(torch.from_numpy(a) for a in (packed, keep, x_tm, x1, h0p, h1p, dh)), tl0, tl1)
+    for name, g, w in zip(("dg0", "dg1"), got, want):
+        assert not np.isnan(g).any(), f"{name}: a read before the write"
+        np.testing.assert_allclose(g, w.numpy(), rtol=0, atol=1e-6, err_msg=name)
+    return got, (l0, l1, x_tm, keep, dh, packed, h0p, h1p, x1)
+
+
+def _legacy_rows(x_tm, keep, tl0, tl1):
+    """The legacy GRU chain's residuals as the legacy route builds them:
+    each layer's (h_prev, r, z, n, hn) series (T, B, H)."""
+    _, _, layers = lk.gru2_train_fwd_legacy_reference(
+        torch.from_numpy(x_tm), torch.from_numpy(keep), tl0, tl1)
+    out = []
+    for lay in layers:
+        h = lay[4].numpy()
+        out.append((np.concatenate([np.zeros_like(h[:1]), h[:-1]]),
+                    *(a.numpy() for a in lay[:4])))
+    return out
+
+
+def _check_legacy_model(plan, batch, t_len, d, hidden, seed, exact, with_dys):
+    """The reverse core with the legacy GRU cell (row 10) over the legacy
+    forward's residuals packed as (T, B, 5H) rows, with or without dys,
+    against ``gru2_bwd_chain_legacy_reference`` (1e-6)."""
+    l0, l1, x, keep, dh = _case("gru", batch, t_len, d, hidden, seed)
+    x_tm = np.ascontiguousarray(x.transpose(1, 0, 2))
+    tl0 = {k: torch.from_numpy(v) for k, v in l0.items()}
+    tl1 = {k: torch.from_numpy(v) for k, v in l1.items()}
+    res0, res1 = _legacy_rows(x_tm, keep, tl0, tl1)
+    dys = (np.random.RandomState(seed + 1).randn(t_len, batch, hidden).astype(np.float32)
+           if with_dys else None)
+    w = (l0["w_hh"], l1["w_hh"], l1["w_ih"])
+    got = _model_bwd(plan, "gru_legacy", None, tuple(np.concatenate(r, axis=2)
+                                                     for r in (res0, res1)),
+                     keep, dh, *w, seed, exact, dys=dys)
+    want = lk.gru2_bwd_chain_legacy_reference(
+        [torch.from_numpy(a) for a in res0], [torch.from_numpy(a) for a in res1],
+        None if dys is None else torch.from_numpy(dys), torch.from_numpy(keep),
+        torch.from_numpy(dh), *(torch.from_numpy(a) for a in w))
+    for i in range(2):
+        for j, name in enumerate(("dih", "dhh")):
+            g = got[i][j]
+            assert not np.isnan(g).any(), f"{name}{i}: a read before the write"
+            np.testing.assert_allclose(g, want[i][j].numpy(), rtol=0, atol=1e-6,
+                                       err_msg=f"{name}{i}")
+        np.testing.assert_array_equal(got[i][1][..., :2 * hidden], got[i][0][..., :2 * hidden])
+    return got, (l0, l1, keep, dh, res0, res1, dys)
+
+
 TRAIN_NAMES = ("packed", "h0_prev", "h1_prev", "x1", "finals")
 # the training forms: the cell and, for the LSTM, whether it stores the gates
 TRAIN_FORMS = [("lstm", True), ("lstm", False), ("gru", True)]
@@ -764,3 +969,191 @@ def test_pair_core_train_model_matches_the_jax_kernels(cell, store_gates):
         w = np.asarray(w)
         np.testing.assert_allclose(g, w if name == "finals" else w[:t_len], rtol=0,
                                    atol=1e-5, err_msg=name)
+
+
+# the remat cases: MODEL_CASES' plans, T past a gate block (not a multiple
+# of it) and T 1-3, the block's steps rk the plan's or fewer
+REMAT_CASES = [
+    (3, 13, 16, 132, "every", (8, 2), False, 4),     # 4 blocks, the last of one step
+    (17, 2, 8, 132, "measured", (8, 1), False, 8),   # 3 passes; fewer pieces than steps
+    (17, 9, 64, 132, "measured", (2, 4), False, 8),  # block 1 of one step
+    (5, 7, 12, 132, "every", (4, 1), False, 2),      # clusters of 4, 4 blocks
+    (2, 3, 20, 10, "every", (1, 1), False, 8),       # an odd grid, T 3
+    (1, 10, 16, 132, "measured", (8, 2), False, 3),  # an empty row group, blocks of 3
+    (9, 1, 16, 132, "every", (8, 2), False, 8),      # one step
+    (3, 6, 16, 132, "every", (8, 2), True, 2),       # the threads' tiles and shuffles
+    (10, 5, 12, 6, "every", (1, 1), True, 4),        # the threads, both pieces in a CTA
+]
+
+
+@pytest.mark.parametrize("batch,t_len,hidden,sms,stub,split,exact,rk", REMAT_CASES)
+def test_pair_core_remat_model_matches_plain(batch, t_len, hidden, sms, stub, split, exact,
+                                             rk):
+    """The reverse core with the remat cell (row 13): gates formed per CTA
+    in blocks of rk steps by the kernel's schedule (NaN until formed, rows
+    it does not stage NaN), c_prev from the (T, B, 2H) residuals, D = 5
+    padded to 8, against ``lstm2_bwd_chain_remat_reference``."""
+    active = (_measured if stub == "measured" else _every)(sms)
+    plan = lk.chain_plan(hidden, 4, batch, sms, MAX_SMEM, active, layers=2, remat_d=8)
+    assert (plan.ncl, plan.rgroups, plan.rk) == (*split, 8), plan
+    plan = dataclasses.replace(plan, rk=rk)
+    _check_remat_model(plan, batch, t_len, 5, hidden,
+                       seed=batch * 10 + t_len + hidden + 7, exact=exact)
+
+
+@pytest.mark.parametrize("with_dys", [False, True], ids=["no_dys", "dys"])
+@pytest.mark.parametrize("batch,t_len,hidden,sms,stub,split,exact", MODEL_CASES)
+def test_pair_core_legacy_gru_model_matches_plain(batch, t_len, hidden, sms, stub, split,
+                                                  exact, with_dys):
+    """The reverse core with the legacy GRU cell (row 10): the [h_prev | r |
+    z | n | hn] rows, 12H rows written with the full dhh and its lanes
+    exchanged, dys into layer 1's dh, on row 15's plans, against
+    ``gru2_bwd_chain_legacy_reference``."""
+    active = (_measured if stub == "measured" else _every)(sms)
+    plan = lk.chain_plan(hidden, 3, batch, sms, MAX_SMEM, active, layers=2)
+    assert (plan.ncl, plan.rgroups) == split, plan
+    _check_legacy_model(plan, batch, t_len, 5, hidden,
+                        seed=batch * 10 + t_len + hidden + 8 + with_dys, exact=exact,
+                        with_dys=with_dys)
+
+
+def test_remat_core_model_matches_the_jax_kernel():
+    """The remat cell at the JAX remat kernel's test shape (B 8, T 21, D
+    12, H 128: three gate blocks of 8, the last of 5) on the H100's plan
+    against ``lstm2_bwd_chain_remat`` in interpret mode over its own
+    no-gates forward, matmul precision "highest" (1e-5 of the largest)."""
+    batch, t_len, d, hidden, seed = 8, 21, 12, 128, 6
+    plan = lk.chain_plan(hidden, 4, batch, 132, MAX_SMEM, _measured(132), layers=2,
+                         remat_d=d)
+    assert (plan.upc, plan.ctas, plan.ncl, plan.rgroups, plan.rk) == (2, 128, 2, 2, 8)
+    got, (l0, l1, x_tm, keep, dh, *_) = _check_remat_model(
+        plan, batch, t_len, d, hidden, seed, exact=False)
+    with jax.default_matmul_precision("highest"):
+        packed, h0p, h1p, x1, keep_pad, _, t_pad = jax_lstm_train_fwd(
+            jnp.asarray(x_tm), jnp.asarray(keep), l0, l1, interpret=True, store_gates=False)
+        x_pad = jnp.pad(jnp.asarray(x_tm), ((0, t_pad - t_len), (0, 0), (0, 0)))
+        want = jax_bwd_chain_remat(packed, keep_pad, x_pad, x1, h0p, h1p, None,
+                                   jnp.asarray(dh), l0, l1, t_len, interpret=True)
+    for name, g, w in zip(("dg0", "dg1"), got, want):
+        w = np.asarray(w)[:t_len]
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-5 * float(np.abs(w).max()),
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("with_dys", [False, True], ids=["no_dys", "dys"])
+def test_legacy_gru_core_model_matches_the_jax_kernel(with_dys):
+    """The legacy GRU cell at the JAX kernels' shapes (H 128, B 8, T 5) on
+    the H100's plan against ``gru2_bwd_chain_pallas`` in interpret mode
+    (dys zeros where none), matmul precision "highest" (1e-5)."""
+    batch, t_len, d, hidden, seed = 8, 5, 12, 128, 7
+    plan = lk.chain_plan(hidden, 3, batch, 132, MAX_SMEM, _measured(132), layers=2)
+    got, (l0, l1, keep, dh, res0, res1, dys) = _check_legacy_model(
+        plan, batch, t_len, d, hidden, seed, exact=False, with_dys=with_dys)
+    jdys = np.zeros((t_len, batch, hidden), np.float32) if dys is None else dys
+    with jax.default_matmul_precision("highest"):
+        want = gru2_bwd_chain_pallas(
+            tuple(map(jnp.asarray, res0)), tuple(map(jnp.asarray, res1)),
+            jnp.asarray(jdys), jnp.asarray(keep), jnp.asarray(dh), l0["w_hh"],
+            l1["w_hh"], l1["w_ih"], interpret=True)
+    for i in range(2):
+        for j, name in enumerate(("dih", "dhh")):
+            np.testing.assert_allclose(got[i][j], np.asarray(want[i][j]), rtol=0, atol=1e-5,
+                                       err_msg=f"{name}{i}")
+
+
+def test_remat_plan_at_the_flagship_shape():
+    """The remat chain at the flagship (B=32, D=64, H=256) on an H100 of 132
+    SMs and 232,448 bytes: row 12's plan (UPC 4, 64 + 64 CTAs in clusters
+    of 2, 4 row groups, the whole share in one chunk) with gate blocks of 8
+    steps: 224,912 bytes, the follow set's (170,624 + layer 0's blocks
+    54,288) above the lead set's (its weights over its own half, 105,088,
+    + layer 1's 66,576).  A block of 16 steps does not fit; the first of
+    REMAT_KS that fits is taken; a batch whose blocks do not fit beside
+    that plan is taken in slices."""
+    active = _measured(132)
+    plan = lk.chain_plan(256, 4, 32, 132, MAX_SMEM, active, layers=2, remat_d=64)
+    stored = lk.chain_plan(256, 4, 32, 132, MAX_SMEM, active, layers=2)
+    assert (plan.upc, plan.ctas, plan.ncl, plan.rgroups, plan.kc) == (
+        stored.upc, stored.ctas, stored.ncl, stored.rgroups, stored.kc) == (4, 128, 2, 4, 256)
+    assert plan.rk == 8 and plan.smem == 224_912 <= MAX_SMEM
+    assert 4 * lk.remat_gate_floats(256, 4, 4, 32, 64, 8) == 54_288
+    assert 4 * lk.remat_gate_floats(256, 4, 4, 32, 256, 8) == 66_576
+    assert 4 * lk.chain_smem_floats(4, 256, 4, 2, 4, 256, layers=2,
+                                    remat=(32, 64, 8)) == 224_912
+    assert 4 * lk.chain_smem_floats(4, 256, 4, 2, 4, 256, layers=2,
+                                    remat=(32, 64, 16)) > MAX_SMEM
+    # below the blocks of 8, the plan takes 4
+    small = lk.chain_plan(256, 4, 32, 132, 224_000, active, layers=2, remat_d=64)
+    assert small.rk == 4 and small.smem <= 224_000
+    # 33 rows: row 12's plan holds blocks for one pass a group, so two
+    # launches of 17 rows
+    two = lk.chain_plan(256, 4, 33, 132, MAX_SMEM, active, layers=2, remat_d=64)
+    assert (two.kc, two.rk, two.batch_slice) == (256, 8, 17) and two.smem <= MAX_SMEM
+    # a batch whose blocks no plan holds is taken in slices (the fewest
+    # equal ones that fit), one launch each
+    for batch in (128, 512, 2048):
+        sliced = lk.chain_plan(256, 4, batch, 132, MAX_SMEM, active, layers=2, remat_d=64)
+        assert sliced.batch_slice == 32 and sliced.smem <= MAX_SMEM, sliced
+    for kw in (dict(remat_d=6), dict(remat_d=64, forward=True)):
+        with pytest.raises(ValueError):
+            lk.chain_plan(256, 4, 32, 132, MAX_SMEM, active, layers=2, **kw)
+    with pytest.raises(ValueError):
+        lk.chain_plan(256, 3, 32, 132, MAX_SMEM, active, layers=2, remat_d=64)
+
+
+@pytest.mark.parametrize("batch", [32, 33, 64, 100, 128, 512, 2048])
+def test_remat_plan_slices_a_batch_its_blocks_outgrow(batch):
+    """The remat chain keeps the stored-gates chain's plan and its gate
+    blocks grow with a row group's rows: at the flagship's (D=64, H=256)
+    on an H100 that plan (4 row groups, the whole share in one chunk)
+    holds blocks of 8 steps for up to 32 rows, one pass a group; past that
+    the plan takes the fewest equal slices that fit, each on its rows'
+    stored-gates plan (the last, of fewer rows, fits it too), and one slice
+    fewer would not fit."""
+    active = _measured(132)
+
+    def plan_of(rows, remat_d=64):
+        return lk.chain_plan(256, 4, rows, 132, MAX_SMEM, active, layers=2,
+                             remat_d=remat_d)
+
+    plan = plan_of(batch)
+    rows = plan.batch_slice or batch
+    stored = plan_of(rows, 0)
+    assert (plan.upc, plan.ncl, plan.rgroups, plan.kc) == (
+        stored.upc, stored.ncl, stored.rgroups, stored.kc)
+    assert plan.rk == 8 and plan.smem <= MAX_SMEM
+    if batch <= 32:
+        assert plan.batch_slice == 0
+        return
+    n = -(-batch // rows)
+    assert 0 < rows <= 32 and rows == -(-batch // n)
+    assert dataclasses.replace(plan_of(rows), batch_slice=rows) == plan
+    assert plan_of(-(-batch // (n - 1))).batch_slice > 0
+    for last in (rows, batch - (n - 1) * rows):
+        need = 4 * lk.chain_smem_floats(4, 256, plan.upc, plan.ncl, plan.rgroups, plan.kc,
+                                        layers=2, remat=(last, 64, plan.rk))
+        assert need <= plan.smem
+
+
+# batch, T, H, SMs, shared memory a CTA, the slices, threads' tiles: cards
+# too small for the whole batch's gate blocks
+# (the first three hold no blocks beside the stored-gates plan even for
+# one row, so they take any plan whose blocks fit)
+REMAT_SLICE_CASES = [
+    (17, 5, 16, 132, 8_000, 9, False),   # two slices, the last of 8 rows
+    (24, 3, 16, 132, 8_000, 12, True),   # two equal slices, the threads' tiles
+    (13, 9, 12, 6, 10_000, 7, False),    # one cluster a set, blocks past T
+    (40, 4, 32, 132, 16_000, 14, False),  # the stored-gates plan of 14 rows
+]
+
+
+@pytest.mark.parametrize("batch,t_len,hidden,sms,smem,rows,exact", REMAT_SLICE_CASES)
+def test_pair_core_remat_model_over_batch_slices(batch, t_len, hidden, sms, smem, rows,
+                                                 exact):
+    """The remat cell where the plan slices the batch: the model of each
+    slice's launch, over its rows, against the plain version of the whole
+    batch."""
+    plan = lk.chain_plan(hidden, 4, batch, sms, smem, _every(sms), layers=2, remat_d=8)
+    assert plan.batch_slice == rows, plan
+    _check_remat_model(plan, batch, t_len, 5, hidden, seed=batch + t_len + hidden,
+                       exact=exact)
