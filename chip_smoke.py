@@ -93,12 +93,12 @@
    ``[lstm2_bwd_chain_legacy]`` and ``[gru2_train_fwd_legacy]`` /
    ``[gru2_bwd_chain_legacy]`` hold its four kernels (rows 5, 9, 8 and 10
    of PERF.md's table; the chains with and without ``dys``) against their
-   plain versions at B=32, T=372, D=64, H=256 (the forwards are the first
-   2-layer design on ``csrc/state_tile.cuh``, the LSTM chain the first
-   design, the GRU chain the 2-layer reverse core's legacy cell, printed
-   with its launch plan), time them beside the
-   residual-native pair's
-   on the same inputs (the chains' outputs to 1e-5 of the largest), the
+   plain versions at B=32, T=372, D=64, H=256 (the LSTM pair also at B 17
+   and 1; the GRU forward is the first 2-layer design on
+   ``csrc/state_tile.cuh``, the other three the 2-layer cores' legacy
+   cells, printed with their launch plans), time them beside the
+   residual-native pair's on the same inputs in the same phase (µs per
+   phase of each; the chains' outputs to 1e-5 of the largest), the
    plain versions and cuDNN,
    the fused GRU chain beside the layered one over the same residuals (1e-5
    of the largest), and hold the whole recurrence gradient of each legacy
@@ -851,12 +851,14 @@ def _routes_agree(tag, names, legacy, residual, dx_bound=1e-6, dw_bound=1e-5):
 
 def phase_lstm2_legacy(lstm_kernel, lstm_vjp, flush):
     """``[lstm2_train_fwd_legacy]`` / ``[lstm2_bwd_chain_legacy]``: rows 5 and
-    9, the legacy-layout pair (``set_res2_mode("off")``), at the flagship's
-    training shape (B=32, T=372, D=64, H=256, keep p=0.1).  Each kernel
-    against its plain version (the chain with and without ``dys``); times
-    beside the residual-native pair's (rows 11 and 12) on the same inputs,
-    the plain versions' and cuDNN's; the whole recurrence gradient on both
-    routes, held to each other, and timed."""
+    9, the legacy-layout pair (``set_res2_mode("off")``, the 2-layer cores'
+    legacy LSTM cells), at the flagship's training shape (B=32, T=372, D=64,
+    H=256, keep p=0.1).  Each kernel against its plain version (the chain
+    with and without ``dys``) at B 32, 17 and 1; against the residual-native
+    pair (rows 11 and 12) on the same inputs; times and µs per phase
+    beside theirs in the same phase, the plain versions' and cuDNN's; the
+    whole recurrence gradient on both routes, held to each other, and
+    timed."""
     x_tm, keep, l0, l1 = _lstm_train_inputs(12)
     t, b, d = x_tm.shape
     h = l0["w_hh"].shape[0]
@@ -870,8 +872,7 @@ def phase_lstm2_legacy(lstm_kernel, lstm_vjp, flush):
         torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4, msg=name)
     packed, h0p, h1p, _, finals = lstm_kernel.lstm2_train_fwd_residuals(x_tm, keep, l0, l1)
     ys, h_final, g0, g1, h0, c0, c1 = outs
-    # the residual-native form (the forward core's training form) sums in
-    # another order
+    # the residual-native form: the same core and plan, another store layout
     diff = _largest_diff(
         (g0, g1, _shifted(c0), _shifted(c1), _shifted(h0), _shifted(ys), h_final),
         (packed[..., :4 * h], packed[..., 4 * h:8 * h], packed[..., 8 * h:9 * h],
@@ -884,25 +885,47 @@ def phase_lstm2_legacy(lstm_kernel, lstm_vjp, flush):
     rng = np.random.RandomState(13)
     dh = torch.from_numpy(rng.randn(b, h).astype(np.float32)).cuda()
     dys = torch.from_numpy(rng.randn(t, b, h).astype(np.float32)).cuda()
-    # the chain's inputs as the legacy route builds them: contiguous gate
-    # series and the shifted c series
-    g0c, g1c, cp0, cp1 = g0.contiguous(), g1.contiguous(), _shifted(c0), _shifted(c1)
+    # the chain's inputs as the legacy route builds them: the gate series
+    # (views of the forward's 12H rows) and the shifted c series
+    cp0, cp1 = _shifted(c0), _shifted(c1)
     w = (l0["w_hh"], l1["w_hh"], l1["w_ih"])
     errs = {}
     for label, stream in (("", None), (" with dys", dys)):
-        args = (g0c, g1c, cp0, cp1, stream, keep, dh, *w)
+        args = (g0, g1, cp0, cp1, stream, keep, dh, *w)
         dgs = lstm_kernel.lstm2_bwd_chain_legacy(*args)
         torch.cuda.synchronize()
         for name, out, ref in zip(("dg0", "dg1"), dgs,
                                   lstm_kernel.lstm2_bwd_chain_legacy_reference(*args)):
             errs[name + label] = max_errs(out, ref)[0]
             torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4, msg=name + label)
+    # one row (two row groups, one empty) and 17 rows (5 a group): both
+    # kernels, the chain with dys, on the first rows of the same inputs
+    for rows in (17, 1):
+        sub = (x_tm[:, :rows].contiguous(), keep[:, :rows].contiguous(), l0, l1)
+        outs_b = lstm_kernel.lstm2_train_fwd_legacy(*sub)
+        torch.cuda.synchronize()
+        refs_b = lstm_kernel.lstm2_train_fwd_legacy_reference(*sub)
+        for name, out, ref in zip(("ys", "h_final", "g0", "g1", "h0_new", "c0_new",
+                                   "c1_new"), outs_b, refs_b):
+            fwd_errs[f"{name} B={rows}"] = max_errs(out, ref)[0]
+            torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4,
+                                       msg=f"{name} B={rows}")
+        args = (outs_b[2], outs_b[3], _shifted(outs_b[5]), _shifted(outs_b[6]),
+                dys[:, :rows].contiguous(), sub[1], dh[:rows].contiguous(), *w)
+        for name, out, ref in zip(("dg0", "dg1"), lstm_kernel.lstm2_bwd_chain_legacy(*args),
+                                  lstm_kernel.lstm2_bwd_chain_legacy_reference(*args)):
+            errs[f"{name} with dys B={rows}"] = max_errs(out, ref)[0]
+            torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4,
+                                       msg=f"{name} with dys B={rows}")
+    print(f"[lstm2_train_fwd_legacy] B 17 and 1: max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in fwd_errs.items() if "B=" in k)
+          + " (bound 1e-4 abs + 1e-4 rel)")
     res_args = (packed, keep, dh, *w)
-    # the residual-native chain (row 12, the 2-layer core) sums in another
-    # order than the legacy form's first design
+    # the residual-native chain (row 12): the same core and plan over
+    # another layout
     vs_res = {name: float((a - r).abs().max() / r.abs().max()) for name, a, r in zip(
         ("dg0", "dg1"),
-        lstm_kernel.lstm2_bwd_chain_legacy(g0c, g1c, cp0, cp1, None, keep, dh, *w),
+        lstm_kernel.lstm2_bwd_chain_legacy(g0, g1, cp0, cp1, None, keep, dh, *w),
         lstm_kernel.lstm2_bwd_chain(*res_args))}
     print(f"[lstm2_bwd_chain_legacy] B={b} T={t} H={h}: max abs err "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
@@ -911,6 +934,11 @@ def phase_lstm2_legacy(lstm_kernel, lstm_vjp, flush):
           + ", ".join(f"{k} {v:.3e}" for k, v in vs_res.items()) + " (bound 1e-5)")
     if max(vs_res.values()) > 1e-5:
         raise RuntimeError("the legacy LSTM chain disagrees with the residual-native one")
+    for rows in (b, 17, 1):
+        print("[lstm2_train_fwd_legacy] " + _chain_plan_text(
+            lstm_kernel, "lstm2_train_fwd_legacy", 4, h, rows, True, 2))
+        print("[lstm2_bwd_chain_legacy] " + _chain_plan_text(
+            lstm_kernel, "lstm2_bwd_chain_legacy", 4, h, rows, layers=2))
 
     lib = _cudnn_lstm(l0, l1)
     x_bt = x_tm.transpose(0, 1).contiguous()
@@ -927,7 +955,7 @@ def phase_lstm2_legacy(lstm_kernel, lstm_vjp, flush):
         lambda: lstm_kernel.lstm2_train_fwd_legacy_reference(x_tm, keep, l0, l1),
         flush, reps=5)
     fwd_lib_ms = device_ms(lambda: lib(x_bt), flush)
-    chain = (g0c, g1c, cp0, cp1)
+    chain = (g0, g1, cp0, cp1)
     ms = device_ms(lambda: lstm_kernel.lstm2_bwd_chain_legacy(*chain, None, keep, dh, *w),
                    flush)
     ms_dys = device_ms(lambda: lstm_kernel.lstm2_bwd_chain_legacy(*chain, dys, keep, dh, *w),
@@ -948,14 +976,17 @@ def phase_lstm2_legacy(lstm_kernel, lstm_vjp, flush):
     nbytes = 4 * (t * b * (8 * h + 2 * h + h + 8 * h) + b * h + 3 * h * 4 * h)
     bound_ms, bound_by = bound(flops, nbytes)
     print(f"[lstm2_train_fwd_legacy] kernel {fwd_ms:.4f} ms (input projection + one "
-          f"cooperative launch, {1e3 * fwd_ms / (t + 1):.3f} us per phase; the "
-          f"residual-native form {fwd_res_ms:.4f} ms in this phase), plain "
+          f"cooperative cluster launch, {1e3 * fwd_ms / (t + 1):.3f} us per phase; the "
+          f"residual-native form (row 11) {fwd_res_ms:.4f} ms, "
+          f"{1e3 * fwd_res_ms / (t + 1):.3f} us per phase, in this phase), plain "
           f"{fwd_plain_ms:.4f} ms, cuDNN nn.LSTM training forward at keep=1 "
           f"{fwd_lib_ms:.4f} ms, bound {fwd_bound_ms:.4f} ms ({fwd_bound_by}: "
           f"{fwd_flops / 1e9:.3f} GFLOP, {fwd_bytes / 1e6:.2f} MB incl. the 12H stores)")
-    print(f"[lstm2_bwd_chain_legacy] kernel {ms:.4f} ms ({1e3 * ms / (t + 1):.3f} us per "
-          f"phase; {ms_dys:.4f} ms with dys; the residual-native chain {res_ms:.4f} ms "
-          f"in this phase), plain {plain_ms:.4f} ms, cuDNN backward of h_n at keep=1 "
+    print(f"[lstm2_bwd_chain_legacy] kernel {ms:.4f} ms (the series' pack and one "
+          f"cooperative cluster launch, {1e3 * ms / (t + 1):.3f} us per phase; "
+          f"{ms_dys:.4f} ms with dys; the residual-native chain (row 12) {res_ms:.4f} ms, "
+          f"{1e3 * res_ms / (t + 1):.3f} us per phase, in this phase), plain "
+          f"{plain_ms:.4f} ms, cuDNN backward of h_n at keep=1 "
           f"{library_ms:.4f} ms (it also forms the weight gradients), bound "
           f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
 
@@ -975,13 +1006,13 @@ def phase_lstm2_legacy(lstm_kernel, lstm_vjp, flush):
           f"{whole['auto'][1]:.4f} ms")
     src = "multimodal_emotion_detection_tpu_torch/csrc/"
     return ({"name": "lstm2_train_fwd_legacy", "route": "cuda",
-             "source": src + "lstm2_train_fwd_legacy.cu",
+             "source": src + "lstm2_train_fwd_legacy.cu", "core": src + "rnn2_fwd_chain.cuh",
              "replaces": "multimodal_emotion_detection_tpu/ops/lstm_kernel.py:669",
              "max_abs_err": max(fwd_errs.values()), "ms": fwd_ms,
              "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound_ms,
              "bound_by": fwd_bound_by, "library_ms": fwd_lib_ms},
             {"name": "lstm2_bwd_chain_legacy", "route": "cuda",
-             "source": src + "lstm2_bwd_chain_legacy.cu",
+             "source": src + "lstm2_bwd_chain_legacy.cu", "core": src + "rnn2_bwd_chain.cuh",
              "replaces": "multimodal_emotion_detection_tpu/ops/lstm_kernel.py:1685",
              "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})

@@ -28,7 +28,7 @@
 // the whole previous hidden state of all units, so T+1 device-wide
 // exchanges set the time.
 //
-// Design: lstm2_train_fwd_legacy.cu's with the GRU cell.  One persistent
+// Design: the first 2-layer design, with the GRU cell.  One persistent
 // cooperative launch; CTA c owns hidden units [c*UPC, (c+1)*UPC) of both
 // layers and keeps their gate columns of w_hh0, w_ih1 and w_hh1 in shared
 // memory.  The layers are wavefronted: phase p runs layer 0 at step p and

@@ -16,7 +16,8 @@
 //
 // and write dg0[t], dg1[t] (T, B, 4H each).  The hoisted weight gradients
 // are plain matrix products outside (ops/lstm_vjp.py).  The legacy
-// layout's chain (row 9) is lstm2_bwd_chain_legacy.cu.
+// layout's chain (row 9) is lstm2_bwd_chain_legacy.cu, the same core with
+// the legacy cell.
 //
 // What bounds it on the H100: the serial chain.  At the flagship shape
 // (B=32, T=372, H=256) the three products per step are 18.7 GFLOP and the

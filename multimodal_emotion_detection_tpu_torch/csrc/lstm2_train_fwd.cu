@@ -20,7 +20,7 @@
 //   h0p[t], h1p[t] (B, H) = the state BEFORE step t;  x1[t] (B, H)
 //   finals (4, B, H) = [h0, c0, h1, c1] after step T-1.
 // The older layout (the JAX package's lstm2_train_fwd_pallas) is
-// lstm2_train_fwd_legacy.cu.
+// lstm2_train_fwd_legacy.cu, the same core with the legacy cell.
 //
 // What bounds it on the H100: the serial chain, as for lstm2_infer.  At the
 // flagship shape (B=32, T=372, H=256) the recurrent products are 18.7 GFLOP

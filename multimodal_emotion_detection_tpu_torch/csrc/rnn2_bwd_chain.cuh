@@ -1,9 +1,10 @@
 // The 2-layer reverse chain core for Hopper (sm_90a), built like the
 // one-layer core rnn_bwd_chain.cuh; gru2_bwd_chain.cu instantiates it with
 // GruCell, lstm2_bwd_chain.cu with LstmCell, gru2_bwd_chain_legacy.cu with
-// GruLegacyCell (the legacy layout's rows, dys, the full dhh) and
-// lstm2_bwd_chain_remat.cu with LstmRematCell (the gates recomputed ahead
-// of the chain in blocks of steps, GateBlocks).
+// GruLegacyCell (the legacy layout's rows, dys, the full dhh),
+// lstm2_bwd_chain_legacy.cu with LstmLegacyCell (dys, the 8H rows [dg0 |
+// dg1]) and lstm2_bwd_chain_remat.cu with LstmRematCell (the gates
+// recomputed ahead of the chain in blocks of steps, GateBlocks).
 //
 // Both layers' reverse chains walk t = T-1 .. 0.  Layer 1's step needs
 //
@@ -20,9 +21,8 @@
 // f = dg1, all 4H wide, and no carry term in dh (dh_final enters at layer
 // 1's first step; the cell carries dc).
 //
-// What bounded the first designs (csrc/gru2_bwd_chain.cu and
-// lstm2_bwd_chain.cu before this core; the LSTM's legacy form
-// lstm2_bwd_chain_legacy.cu keeps it): every
+// What bounded the first designs (csrc/gru2_bwd_chain.cu,
+// lstm2_bwd_chain.cu and their legacy forms before this core): every
 // CTA owned units of both layers and read, every phase, the whole
 // exchanged rows of both (dih1 | dhn1 | dih0 | dhn0, 2 x B x 3H floats;
 // dg1 | dg0, 2 x B x 4H) from L2, its 8 warps one batch row each, and one
@@ -88,7 +88,8 @@ struct Args {
   const float* dh_final;  // LSTM: (B, H), read at layer 1's first step; GRU unused
   const float* w_own[2];  // layer l's w_hh (H, G)
   const float* w_feed;    // w_ih1 (H, G): the hop
-  float* out[2];          // GRU: layer l's dih (T, B, 3H); LSTM: its dg (T, B, 4H)
+  float* out[2];          // GRU: layer l's dih (T, B, 3H); LSTM: its dg (T, B, 4H;
+                          // legacy: rows 8H apart)
   float* out_n[2];        // GRU: layer l's dhn (T, B, H); LSTM unused
   float* carry;           // (2, B, H): layer l's at l B H (GRU: layer 1's starts as
                           // dh_final; LSTM: dc, zeros)
@@ -107,7 +108,8 @@ struct Args {
   const float* wg[2];
   const float* bg[2];
   int d_in, rk, ld;
-  // GruLegacyCell: the sequence output's cotangent (T, B, H), or null
+  // GruLegacyCell, LstmLegacyCell: the sequence output's cotangent (T, B,
+  // H), or null
   const float* dys;
 };
 
@@ -432,6 +434,40 @@ struct LstmRematCell : LstmCell {
                                      int c) {
     const size_t row = (size_t)t * a.ld + b;
     return (seg == 1 ? a.out[1] : of_layer(a.out, layer)) + row * 4 * a.hidden + 4 * c;
+  }
+};
+
+// LstmCell over the legacy layout: the wrapper packs the legacy series
+// [g0 | g1 | c0_prev | c1_prev] into row 12's (T, B, 10H) rows, which the
+// cell reads as LstmCell does; out[l] points at layer l's lanes of the
+// (T, B, 8H) rows [dg0 | dg1]; the exchanged row is the layer's dg (4H),
+// the feed layer 1's; dys, where given, adds to layer 1's dh.
+struct LstmLegacyCell : LstmCell {
+  struct Res : LstmCell::Res {
+    float dys;
+  };
+  __device__ static void load(const Args& a, int layer, int t, int b, int j, Res& r) {
+    LstmCell::load(a, layer, t, b, j, r);
+    r.dys = layer == 1 && a.dys != nullptr
+                ? __ldg(a.dys + ((size_t)t * a.batch + b) * a.hidden + j)
+                : 0.0f;
+  }
+  __device__ static void step(const Args& a, int layer, int t, int b, int j,
+                              const Res& r, float own, float feed) {
+    const int H = a.hidden;
+    const size_t o = (size_t)b * H + j;
+    float dh = own + r.keep * feed + r.dys;
+    if (layer == 1 && t == a.t_len - 1) dh += __ldg(a.dh_final + o);
+    a.carry[layer * (size_t)a.batch * H + o] = rnn_bwd::lstm_cell_bwd(
+        r.g, r.cp, dh, r.carry,
+        of_layer(a.out, layer) + ((size_t)t * a.batch + b) * 8 * H + j, H);
+  }
+  // float4 column c of row b of segment seg at step t: the layer's own dg,
+  // or (seg 1) layer 1's, in the 8H rows
+  __device__ static const float* src(const Args& a, int layer, int seg, int t, int b,
+                                     int c) {
+    const size_t row = (size_t)t * a.batch + b;
+    return (seg == 1 ? a.out[1] : of_layer(a.out, layer)) + row * 8 * a.hidden + 4 * c;
   }
 };
 

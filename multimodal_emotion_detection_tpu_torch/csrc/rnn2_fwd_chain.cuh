@@ -2,8 +2,10 @@
 // forward core rnn_fwd_chain.cuh.  Its eval form (the final h) is
 // instantiated by gru2_infer.cu with GruCell and lstm2_infer.cu with
 // LstmCell; its training form (TRAIN: the residuals the reverse chains
-// read) by gru2_train_fwd.cu with GruCell and lstm2_train_fwd.cu with
-// LstmCell and, without the gates, LstmNoGatesCell.
+// read) by gru2_train_fwd.cu with GruCell, lstm2_train_fwd.cu with
+// LstmCell and, without the gates, LstmNoGatesCell, and
+// lstm2_train_fwd_legacy.cu with LstmLegacyCell (the legacy layout's 12H
+// rows).
 //
 // Both layers walk t = 0 .. T-1 from zero state.  Layer 0's step needs,
 // for each batch row b and each of its W H gate columns,
@@ -20,9 +22,9 @@
 // outside, batch-major (B, T, W H) in the eval form, time-major (T, B, W H)
 // in the training form).
 //
-// What bounded the first designs (the four sources before this core; the
-// training forwards' is kept for the legacy layout in
-// csrc/*_train_fwd_legacy.cu): every CTA owned units of both layers and
+// What bounded the first designs (the five sources before this core; the
+// GRU's legacy training forward, gru2_train_fwd_legacy.cu, keeps it):
+// every CTA owned units of both layers and
 // read h0 and h1 (training: and x1) whole from L2 every phase (64 KiB a CTA
 // at (32, 372, 256), training 96), its 8 warps' partial sums met in shared
 // memory, and one grid.sync() a phase.
@@ -70,7 +72,11 @@
 // [c0_prev | c1_prev], 2H; GRU [r0 | z0 | n0 | hn0 | r1 | z1 | n1 | hn1],
 // 8H, hn = h_prev w_hn + b_hn before r), h0p / h1p (the state before each
 // step, row 0 zero), x1, and after step T - 1 the finals (LSTM [h0, c0, h1,
-// c1], GRU [h0, h1], each (B, H)).
+// c1], GRU [h0, h1], each (B, H)).  The legacy LSTM cell stores instead
+// res[t] (12H) = [g0 | g1 | h0 | h1 | c0 | c1] with the states AFTER the
+// step, and after step T - 1 h1 alone (finals (B, H)); its h0p / h1p / x1
+// are the exchange only (scratch the caller allocates; row 0 of h0p / h1p
+// is neither written nor read).
 //
 // Any B >= 1; H % 4 == 0 with 2 H / UPC <= the SM count.  Built with
 // -DRNN_CHAIN_TIMERS=1 each warp splits its steps into the buckets of
@@ -109,8 +115,9 @@ struct Args {
   const float* keep;      // (T, B, H): the layer-0 -> 1 keep mask
   float* hp[2];           // (T, B, H): layer l's h before each step
   float* x1;              // (T, B, H): layer 1's input h0 keep
-  float* packed;          // (T, B, 10H, 2H or 8H): the cells' residuals
-  float* finals;          // LSTM (4, B, H) [h0, c0, h1, c1]; GRU (2, B, H) [h0, h1]
+  float* packed;          // (T, B, 10H, 2H or 8H; legacy LSTM 12H): the cells' residuals
+  float* finals;          // LSTM (4, B, H) [h0, c0, h1, c1]; GRU (2, B, H) [h0, h1];
+                          // legacy LSTM (B, H) h1
 };
 
 // shared memory of a plan, in floats: the weights W NU x ldw over the
@@ -244,18 +251,24 @@ struct LstmCellT {
     for (int i = 0; i < 4; ++i) in.x[i] = __ldg(x + i * H + j);
     if (TRAIN && layer == 0) in.k = __ldg(a.keep + row * H + j);
   }
-  // own: the recurrent products of the unit's 4 gate columns; feed: the
-  // input products (layer 1; zero for layer 0); cp: the carry c before the
-  // step; returns c after it
+  // the gate pre-activations g and h of the step from its products (own:
+  // the recurrent ones of the unit's 4 gate columns; feed: the input ones,
+  // layer 1; zero for layer 0) and the carry c before it; returns c after
+  __device__ static float gates(const In& in, const float (&own)[4],
+                                const float (&feed)[4], float cp, float (&g)[4],
+                                float& h) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) g[i] = in.x[i] + feed[i] + own[i];
+    const float c = sigmoidf_(g[1]) * cp + sigmoidf_(g[0]) * tanhf(g[2]);
+    h = sigmoidf_(g[3]) * tanhf(c);
+    return c;
+  }
   template <bool TRAIN>
   __device__ static float step(const Args& a, int layer, int t, int b, int j,
                                const In& in, const float (&own)[4],
                                const float (&feed)[4], float cp) {
-    float g[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) g[i] = in.x[i] + feed[i] + own[i];
-    const float c = sigmoidf_(g[1]) * cp + sigmoidf_(g[0]) * tanhf(g[2]);
-    const float h = sigmoidf_(g[3]) * tanhf(c);
+    float g[4], h;
+    const float c = gates(in, own, feed, cp, g, h);
     if constexpr (TRAIN) {
       const int H = a.hidden;
       const size_t row = (size_t)t * a.batch + b;
@@ -279,6 +292,37 @@ struct LstmCellT {
 };
 using LstmCell = LstmCellT<true>;
 using LstmNoGatesCell = LstmCellT<false>;
+
+// LstmCell's training form in the legacy layout: the cell stores res[t]
+// (12H) = [g0 | g1 | h0 | h1 | c0 | c1], the gates at 4H layer and h and c
+// AFTER the step at (8 + layer) H and (10 + layer) H, a CTA's units of a
+// lane as one contiguous run; the exchange (h into its h_prev series at
+// row t + 1, layer 0's x1 = h keep) is the core's; after step T - 1 layer
+// 1's h into finals (B, H).
+struct LstmLegacyCell : LstmCell {
+  template <bool TRAIN>
+  __device__ static float step(const Args& a, int layer, int t, int b, int j,
+                               const In& in, const float (&own)[4],
+                               const float (&feed)[4], float cp) {
+    static_assert(TRAIN, "the legacy layout is a training form");
+    float g[4], h;
+    const float c = gates(in, own, feed, cp, g, h);
+    const int H = a.hidden;
+    const size_t BH = (size_t)a.batch * H, o = (size_t)b * H + j;
+    float* r = a.packed + ((size_t)t * a.batch + b) * 12 * H + j;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) r[(4 * layer + i) * H] = g[i];
+    r[(8 + layer) * H] = h;
+    r[(10 + layer) * H] = c;
+    if (layer == 0) a.x1[t * BH + o] = h * in.k;
+    if (t + 1 < a.t_len) {
+      of_layer(a.hp, layer)[(t + 1) * BH + o] = h;
+    } else if (layer == 1) {
+      a.finals[o] = h;
+    }
+    return c;
+  }
+};
 
 template <class Cell, int NU, bool TRAIN>
 __global__ void __launch_bounds__(NT, 1) pair_kernel(const Args a) {

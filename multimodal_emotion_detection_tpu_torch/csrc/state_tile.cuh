@@ -1,5 +1,5 @@
-// The state tile loader shared by the 2-layer training forwards in the
-// legacy layout (lstm2_train_fwd_legacy.cu, gru2_train_fwd_legacy.cu).
+// The state tile loader of the first 2-layer training forward design,
+// which the GRU's legacy form (gru2_train_fwd_legacy.cu) keeps.
 //
 // A CTA of NW warps copies rows [bt0, bt0 + nb) (nb <= 32) of a state
 // series into a (32, H + 1) tile in shared memory; the odd row stride puts

@@ -33,13 +33,15 @@ The legacy-layout twins of the pair (the routes of the JAX package's
 ``set_res2_mode("off")``):
 
 * ``lstm2_train_fwd_legacy``: the training forward in the older layout
-  (``csrc/lstm2_train_fwd_legacy.cu``, the first 2-layer design), ``res``
-  (T, B, 12H) = ``[g0 | g1 | h0 | h1 | c0 | c1]`` with the states AFTER
-  each step, and ``h_final`` (B, H);
+  (``csrc/lstm2_train_fwd_legacy.cu``, the 2-layer forward core's training
+  form with the legacy cell, on ``lstm2_train_fwd_residuals``' plan),
+  ``res`` (T, B, 12H) = ``[g0 | g1 | h0 | h1 | c0 | c1]`` with the states
+  AFTER each step, and ``h_final`` (B, H);
 * ``lstm2_bwd_chain_legacy``: both layers' reverse chain over that
-  layout's separate g / c_prev series, with an optional ``dys`` stream,
-  into ``dg`` (T, B, 8H) = ``[dg0 | dg1]`` (``csrc/lstm2_bwd_chain_legacy.cu``,
-  the first 2-layer design).
+  layout's separate g / c_prev series, packed into ``lstm2_bwd_chain``'s
+  rows, with an optional ``dys`` stream, into ``dg`` (T, B, 8H) = ``[dg0 |
+  dg1]`` (``csrc/lstm2_bwd_chain_legacy.cu``, the 2-layer reverse core
+  with the legacy cell, on ``lstm2_bwd_chain``'s plan).
 
 One layer per launch, any depth (H up to at least 1024):
 
@@ -609,11 +611,11 @@ def lstm2_bwd_chain_legacy_reference(g0: torch.Tensor, g1: torch.Tensor,
 
 LSTM2_TRAIN_FWD_LEGACY = CudaKernel(
     "lstm2_train_fwd_legacy", "lstm2_train_fwd_legacy_launch",
-    [_P] * 8 + [_I, _I, _I, _P],
+    [_P] * 13 + [_I] * 7 + [_P],
 )
 LSTM2_BWD_CHAIN_LEGACY = CudaKernel(
     "lstm2_bwd_chain_legacy", "lstm2_bwd_chain_legacy_launch",
-    [_P] * 11 + [_I, _I, _I, _P],
+    [_P] * 10 + [_I] * 7 + [_P],
 )
 
 
@@ -623,10 +625,11 @@ def lstm2_train_fwd_legacy(x_tm: torch.Tensor, keep_tm: torch.Tensor,
     -> ``(ys, h_final, g0, g1, h0_new, c0_new, c1_new)``, float32; on the
     card the series are views of the kernel's one ``res`` (T, B, 12H).
 
-    On a CUDA tensor this launches ``csrc/lstm2_train_fwd_legacy.cu`` (the
-    first 2-layer design, one cooperative launch) and counts it in
-    ``LSTM2_TRAIN_FWD_LEGACY.launches``; on a CPU tensor it runs
-    ``lstm2_train_fwd_legacy_reference``.
+    On a CUDA tensor this launches ``csrc/lstm2_train_fwd_legacy.cu`` (one
+    cooperative cluster launch for the whole sequence on ``chain_plan_on``'s
+    2-layer forward plan: layer 0 on one CTA set, layer 1 on another) and
+    counts it in ``LSTM2_TRAIN_FWD_LEGACY.launches``; on a CPU tensor it
+    runs ``lstm2_train_fwd_legacy_reference``.
     """
     if x_tm.device.type == "cpu":
         return lstm2_train_fwd_legacy_reference(x_tm, keep_tm, layer0, layer1)
@@ -635,9 +638,18 @@ def lstm2_train_fwd_legacy(x_tm: torch.Tensor, keep_tm: torch.Tensor,
     new = dict(dtype=torch.float32, device=x_tm.device)
     res = torch.empty((t_len, batch, 12 * h_dim), **new)
     h_final = torch.empty((batch, h_dim), **new)
-    LSTM2_TRAIN_FWD_LEGACY(*(t.data_ptr() for t in tensors), res.data_ptr(),
-                           h_final.data_ptr(), batch, t_len, h_dim,
-                           stream_of(x_tm))
+    # the layout holds no state before a step and no x1: the kernel's CTAs
+    # exchange h through these scratch series
+    h0p, h1p, x1 = (torch.empty((t_len, batch, h_dim), **new) for _ in range(3))
+    carry = torch.zeros((2, batch, h_dim), **new)
+    plan, flags = _pair_launch("lstm2_train_fwd_legacy", 4, batch, h_dim, x_tm.device,
+                               forward=True)
+    LSTM2_TRAIN_FWD_LEGACY(
+        *(t.data_ptr() for t in tensors), res.data_ptr(), h_final.data_ptr(),
+        h0p.data_ptr(), h1p.data_ptr(), x1.data_ptr(), carry.data_ptr(),
+        flags.data_ptr(), batch, t_len, h_dim, plan.upc, plan.ncl, plan.rgroups,
+        plan.kc, stream_of(x_tm),
+    )
     g0, g1, h0, ys, c0, c1 = res.split([4 * h_dim, 4 * h_dim] + [h_dim] * 4, dim=-1)
     return ys, h_final, g0, g1, h0, c0, c1
 
@@ -649,10 +661,13 @@ def lstm2_bwd_chain_legacy(g0: torch.Tensor, g1: torch.Tensor, cp0: torch.Tensor
     """Legacy reverse chain: ``(dg0, dg1)``, each (T, B, 4H) float32; on
     the card views of the kernel's one ``dg`` (T, B, 8H).  ``dys`` (T, B,
     H) is the sequence output's cotangent, or ``None``, and then the kernel
-    reads no stream.
+    reads no stream.  On the card the gate and c_prev series are packed
+    into one (T, B, 10H) ``[g0 | g1 | c0_prev | c1_prev]`` as
+    ``lstm2_bwd_chain`` reads it.
 
-    On a CUDA tensor this launches ``csrc/lstm2_bwd_chain_legacy.cu`` (the
-    first 2-layer design, one cooperative launch) and counts it in
+    On a CUDA tensor this launches ``csrc/lstm2_bwd_chain_legacy.cu`` (one
+    cooperative cluster launch on ``chain_plan_on``'s 2-layer plan: layer 1
+    on one CTA set, layer 0 on another) and counts it in
     ``LSTM2_BWD_CHAIN_LEGACY.launches``; on a CPU tensor it runs
     ``lstm2_bwd_chain_legacy_reference``.
     """
@@ -666,26 +681,33 @@ def lstm2_bwd_chain_legacy(g0: torch.Tensor, g1: torch.Tensor, cp0: torch.Tensor
     h_dim = w_hh0.shape[0]
     series, gates, square = (t_len, batch, h_dim), (t_len, batch, 4 * h_dim), (h_dim, 4 * h_dim)
     tensors = dict(
-        g0=g0.contiguous(), g1=g1.contiguous(), cp0=cp0.contiguous(),
-        cp1=cp1.contiguous(), keep=keep_tm.to(torch.float32).contiguous(),
+        keep=keep_tm.to(torch.float32).contiguous(),
         dh_final=dh_final.to(torch.float32).contiguous(), w_hh0=w_hh0.contiguous(),
         w_hh1=w_hh1.contiguous(), w_ih1=w_ih1.contiguous())
-    shapes = dict(g0=gates, g1=gates, cp0=series, cp1=series, keep=series,
-                  dh_final=(batch, h_dim), w_hh0=square, w_hh1=square, w_ih1=square)
+    shapes = dict(keep=series, dh_final=(batch, h_dim), w_hh0=square, w_hh1=square,
+                  w_ih1=square)
     if dys is not None:
         tensors["dys"] = dys.to(torch.float32).contiguous()
         shapes["dys"] = series
-    _check_shapes("lstm2_bwd_chain_legacy",
+    _check_shapes("lstm2_bwd_chain_legacy", g0=(g0, gates), g1=(g1, gates),
+                  cp0=(cp0, series), cp1=(cp1, series),
                   **{k: (tensors[k], shapes[k]) for k in tensors})
     if t_len < 1 or batch < 1:
         raise ValueError(f"lstm2_bwd_chain_legacy: empty residuals {tuple(g0.shape)}")
-    dg = torch.empty((t_len, batch, 8 * h_dim), dtype=torch.float32, device=g0.device)
+    tensors["packed"] = torch.cat([a.to(torch.float32) for a in (g0, g1, cp0, cp1)],
+                                  dim=-1)
+    device = g0.device
+    dg = torch.empty((t_len, batch, 8 * h_dim), dtype=torch.float32, device=device)
     check_cuda_f32("lstm2_bwd_chain_legacy", **tensors)
     ptr = {k: t.data_ptr() for k, t in tensors.items()}
+    plan, flags = _pair_launch("lstm2_bwd_chain_legacy", 4, batch, h_dim, device,
+                               forward=False)
+    # the dc carries, zeros; dh_final enters at layer 1's first step
+    carry = torch.zeros((2, batch, h_dim), dtype=torch.float32, device=device)
     LSTM2_BWD_CHAIN_LEGACY(
-        ptr["g0"], ptr["g1"], ptr["cp0"], ptr["cp1"], ptr.get("dys"), ptr["keep"],
-        ptr["dh_final"], ptr["w_hh0"], ptr["w_hh1"], ptr["w_ih1"], dg.data_ptr(),
-        batch, t_len, h_dim, stream_of(g0),
+        ptr["packed"], ptr.get("dys"), ptr["keep"], ptr["dh_final"], ptr["w_hh0"],
+        ptr["w_hh1"], ptr["w_ih1"], dg.data_ptr(), carry.data_ptr(), flags.data_ptr(),
+        batch, t_len, h_dim, plan.upc, plan.ncl, plan.rgroups, plan.kc, stream_of(dg),
     )
     return dg[..., :4 * h_dim], dg[..., 4 * h_dim:]
 

@@ -35,7 +35,12 @@ inputs:
   and 1, beside cuDNN's 2-layer LSTM training forward (keep = 1); the
   gate-rematerialising chain ``lstm2_bwd_chain_remat`` (row 13) at (32,
   372, 256) over the no-gates forward's residuals (D = 64), and at B 128
-  and 512, past the rows whose gate blocks fit one launch;
+  and 512, past the rows whose gate blocks fit one launch; and the legacy
+  pair (``chip_smoke.py``'s ``[lstm2_train_fwd_legacy]`` inputs): the
+  training forward ``lstm2_train_fwd_legacy`` (row 5) at B = 32, 17 and 1,
+  and the chain ``lstm2_bwd_chain_legacy`` (row 9) at B 32 and 1 over the
+  legacy forward's own series (the gate series views of one 12H row, as
+  the route passes them), with and without ``dys``;
 * the GRU config's 2-layer kernels (GRU 2x256, ``chip_smoke.py``'s
   ``[gru2_bwd_chain]`` / ``[gru2_infer]`` inputs): ``gru2_bwd_chain``
   (row 15) at (32, 372, 256) over the config's own residuals, beside the
@@ -53,10 +58,10 @@ inputs:
 ``--rows REGEX`` keeps only the cases (and ``--timers`` kernels, and
 ``--steps`` tags) whose names match.
 
-``--timers`` then builds rows 4, 7, 6, 7f, 12, 13, 2, 11, 15, 10, 3 and 14 of both
-trees with ``-DRNN_CHAIN_TIMERS=1`` (``csrc/rnn_timers.cuh``) and prints,
-for each at (32, 372, 512) (the chains with ``dh_series``; the 2-layer rows
-12, 2, 11, 15, 3 and 14 at (32, 372, 256), one block per CTA set), each
+``--timers`` then builds rows 4, 7, 6, 7f, 12, 13, 2, 11, 15, 10, 3, 14, 5 and 9
+of both trees with ``-DRNN_CHAIN_TIMERS=1`` (``csrc/rnn_timers.cuh``) and
+prints, for each at (32, 372, 512) (the chains with ``dh_series``; the
+2-layer rows at (32, 372, 256), one block per CTA set), each
 phase's share of the
 warps' ``clock64()`` time and the cycles per step and warp, with the
 launch plan where the tree has one.  A tree whose sources
@@ -67,11 +72,14 @@ grid-barrier costs, shared-L2 and distributed-shared-memory read rates and
 resident cluster counts, and the exchange alone (write, barrier, read);
 ``--sweep`` times rows 4, 7, 6 and 7f of this checkout on variants of the
 launch plan (chunk, cluster size, row groups; and at B 1..24 each row-group
-count), and row 13 at B 48, 64, 96, 128 and 512 on slices of the batch of
-16 to 64 rows and in one launch beside the plan's.  ``--steps`` (with ``--parent``)
-adds ``[train]`` / ``[train_remat]`` / ``[train_big]`` / ``[train_big_gru]`` /
-``[train_gru]`` / ``[train_gru_legacy]`` (``set_res2_mode("off")`` with
-``GRU_BWD2_ENABLED`` set)'s b32 train-step p50 / p90 and ``[serve]`` / ``[serve_big]`` /
+count), rows 12, 9, 11 and 5 at B=1 on every 2-layer plan the card may
+hold (UPC, cluster size, row groups), and row 13 at B 48, 64, 96, 128 and
+512 on slices of the batch of 16 to 64 rows and in one launch beside the
+plan's.  ``--steps`` (with ``--parent``)
+adds ``[train]`` / ``[train_remat]`` / ``[train_legacy]`` (``set_res2_mode("off")``)
+/ ``[train_big]`` / ``[train_big_gru]`` / ``[train_gru]`` / ``[train_gru_legacy]``
+(``set_res2_mode("off")`` with ``GRU_BWD2_ENABLED`` set)'s b32 train-step p50 / p90
+and ``[serve]`` / ``[serve_big]`` /
 ``[serve_big_gru]`` / ``[serve_gru]``'s b32 and b1 forward p50 / p90 with
 each tree's package, parent / change / change / parent.  ``--child ROOT``, ``--timers-of
 ROOT``, ``--steps-of ROOT``, ``--probe`` and ``--sweep`` alone run one
@@ -139,7 +147,9 @@ REMAT_WIDE_B = (128, 512)
 # the 2-layer kernels' sources: two CTA sets, T + 1 phases
 PAIR_SOURCES = ("lstm2_bwd_chain", "lstm2_infer", "lstm2_train_fwd", "gru2_bwd_chain",
                 "gru2_infer", "gru2_train_fwd", "lstm2_bwd_chain_remat",
-                "gru2_bwd_chain_legacy")
+                "gru2_bwd_chain_legacy", "lstm2_train_fwd_legacy", "lstm2_bwd_chain_legacy")
+# batches at which row 9 (the legacy LSTM chain) is timed
+LEGACY_CHAIN_B = (32, 1)
 
 
 def _keep(name: str) -> bool:
@@ -149,9 +159,11 @@ def _keep(name: str) -> bool:
 
 
 def _lstm2_cases(torch, smoke, lk):
-    """Rows 12, 2, 11 and 11n on the flagship's inputs (``chip_smoke.py``'s
-    ``[lstm2_bwd_chain]``, ``[lstm2_infer]`` and ``[lstm2_train_fwd]``):
-    name -> (run, None, cuDNN's same function or None)."""
+    """Rows 12, 2, 11, 11n, 13, 5 and 9 on the flagship's inputs
+    (``chip_smoke.py``'s ``[lstm2_bwd_chain]``, ``[lstm2_infer]``,
+    ``[lstm2_train_fwd]``, ``[lstm2_bwd_chain_remat]`` and
+    ``[lstm2_train_fwd_legacy]``): name -> (run, the chain with ``dys`` or
+    None, cuDNN's same function or None)."""
     import numpy as np
 
     cases = {}
@@ -186,6 +198,33 @@ def _lstm2_cases(torch, smoke, lk):
     for rows in REMAT_WIDE_B:
         cases[f"lstm2_bwd_chain_remat_b{rows}_h256"] = (
             _remat_run(torch, smoke, lk, rows), None, None)
+    # rows 5 and 9, the legacy pair; the chain over the plain legacy
+    # forward's series laid out as the route passes them: the gate series
+    # views of one (T, B, 12H) row, the shifted c series contiguous
+    lx, lkeep, m0, m1 = smoke._lstm_train_inputs(12)
+    for rows in TRAIN2_B:
+        a = (lx[:, :rows].contiguous(), lkeep[:, :rows].contiguous(), m0, m1)
+        cases[f"lstm2_train_fwd_legacy_b{rows}_h256"] = (
+            lambda a=a: lk.lstm2_train_fwd_legacy(*a), None, None)
+    ys, _, g0, g1, h0, c0, c1 = lk.lstm2_train_fwd_legacy_reference(lx, lkeep, m0, m1)
+    res = torch.cat([g0, g1, h0, ys, c0, c1], dim=-1)
+    rng = np.random.RandomState(13)
+    ldh = torch.from_numpy(rng.randn(b, h).astype(np.float32)).cuda()
+    ldys = torch.from_numpy(rng.randn(t, b, h).astype(np.float32)).cuda()
+    # row 12 at B=1 beside row 9's
+    pk1 = packed[:, :1].contiguous()
+    args1 = (pk1, keep[:, :1].contiguous(), dh[:1].contiguous(), *args[3:])
+    cases["lstm2_bwd_chain_b1_h256"] = (lambda: lk.lstm2_bwd_chain(*args1), None, None)
+    for rows in LEGACY_CHAIN_B:
+        r = res[:, :rows].contiguous()
+        gates = (r[..., :4 * h], r[..., 4 * h:8 * h])
+        cps = tuple(smoke._shifted(r[..., k * h:(k + 1) * h]) for k in (10, 11))
+        tail = (lkeep[:, :rows].contiguous(), ldh[:rows].contiguous(), m0["w_hh"],
+                m1["w_hh"], m1["w_ih"])
+        dys = ldys[:, :rows].contiguous()
+        cases[f"lstm2_bwd_chain_legacy_b{rows}_h256"] = (
+            lambda a=(*gates, *cps, None, *tail): lk.lstm2_bwd_chain_legacy(*a),
+            lambda a=(*gates, *cps, dys, *tail): lk.lstm2_bwd_chain_legacy(*a), None)
     return cases
 
 
@@ -423,7 +462,8 @@ def steps_of(root: Path) -> dict:
     from multimodal_emotion_detection_tpu_torch.ops import lstm_vjp
 
     _build.build(["logmel", "lstm2_infer", "lstm2_train_fwd", "lstm2_bwd_chain",
-                  "lstm2_bwd_chain_remat", "lstm1_fwd", "lstm_bwd_chain", "gru1_fwd",
+                  "lstm2_bwd_chain_remat", "lstm2_train_fwd_legacy",
+                  "lstm2_bwd_chain_legacy", "lstm1_fwd", "lstm_bwd_chain", "gru1_fwd",
                   "gru_bwd_chain", "gru2_infer", "gru2_train_fwd", "gru2_bwd_chain",
                   "gru2_train_fwd_legacy", "gru2_bwd_chain_legacy"])
     data = root / "build" / "chain_ab" / "data"
@@ -435,15 +475,18 @@ def steps_of(root: Path) -> dict:
     for tag, overrides in (("train", ["model.frontend.audio=logmel"]),
                            ("train_remat", ["model.frontend.audio=logmel",
                                             "runtime.lstm_remat_gates=true"]),
+                           ("train_legacy", ["model.frontend.audio=logmel"]),
                            ("train_big", smoke.BIG), ("train_big_gru", smoke.BIG_GRU),
                            ("train_gru", smoke.GRU), ("train_gru_legacy", smoke.GRU)):
         if not _keep(tag):
             continue
-        # [train_gru_legacy]: the legacy layout, its GRU chain on (the
-        # switch lives as long as this process: restored below)
-        legacy = tag == "train_gru_legacy"
+        # [train_legacy] / [train_gru_legacy]: the legacy layout, the GRU's
+        # with its 2-layer chain on (the switches live as long as this
+        # process: restored below)
+        legacy = tag.endswith("_legacy")
         prev = lstm_vjp.set_res2_mode("off" if legacy else "auto")
-        prev_bwd2, lstm_vjp.GRU_BWD2_ENABLED = lstm_vjp.GRU_BWD2_ENABLED, legacy
+        prev_bwd2 = lstm_vjp.GRU_BWD2_ENABLED
+        lstm_vjp.GRU_BWD2_ENABLED = tag == "train_gru_legacy"
         cfg = load_config(str(root / "configs" / "base.yaml"),
                           [*overrides, f"dataset.data_dir={data}"])
         model = init_weights(classifier_from_config(cfg),
@@ -454,7 +497,7 @@ def steps_of(root: Path) -> dict:
         raw = torch.from_numpy(loader.arrays.features["audio"]).to(dev)
         video = torch.from_numpy(loader.arrays.features["video"]).to(dev)
         # [serve]'s forward: the flags are inert at eval
-        if tag not in ("train_remat", "train_gru_legacy"):
+        if tag not in ("train_remat", "train_legacy", "train_gru_legacy"):
             _forward_latency(torch, smoke, cfg, [*overrides, f"dataset.data_dir={data}"],
                              root, raw, video, res, tag.replace("train", "serve"))
         if cfg.model.frontend.cache:
@@ -484,7 +527,7 @@ def steps_of(root: Path) -> dict:
 
 
 def timers_of(root: Path) -> None:
-    """Rows 4, 7, 6, 7f, 12, 13, 2, 11, 15, 10, 3 and 14 of ``root`` built
+    """Rows 4, 7, 6, 7f, 12, 13, 2, 11, 15, 10, 3, 14, 5 and 9 of ``root`` built
     with -DRNN_CHAIN_TIMERS=1: each bucket's share of the warps' clock time
     at (32, 372, 512) (the 2-layer rows at (32, 372, 256)), per CTA set of
     the 2-layer cores."""
@@ -506,7 +549,11 @@ def timers_of(root: Path) -> None:
                "lstm2_bwd_chain_remat_h256": ("lstm2_bwd_chain_remat",
                                               lk.LSTM2_BWD_CHAIN_REMAT),
                "gru2_bwd_chain_legacy_h256": ("gru2_bwd_chain_legacy",
-                                              lk.GRU2_BWD_CHAIN_LEGACY)}
+                                              lk.GRU2_BWD_CHAIN_LEGACY),
+               "lstm2_train_fwd_legacy_b32_h256": ("lstm2_train_fwd_legacy",
+                                                   lk.LSTM2_TRAIN_FWD_LEGACY),
+               "lstm2_bwd_chain_legacy_b32_h256": ("lstm2_bwd_chain_legacy",
+                                                   lk.LSTM2_BWD_CHAIN_LEGACY)}
     kernels = {k: v for k, v in kernels.items() if _keep(k)}
     libs = {}
     for source in {s for s, _ in kernels.values()}:
@@ -590,8 +637,8 @@ def _plan_of(lk, source, h, device):
     if source in PAIR_SOURCES:
         if not hasattr(lk, "_pair_launch"):
             return None
-        return lk.chain_plan_on(source, width, h, 32, device,
-                                not source.endswith("_chain"), layers=2)
+        return lk.chain_plan_on(source, width, h, 32, device, "bwd" not in source,
+                                layers=2)
     if source.endswith("_fwd"):
         if not hasattr(lk, "_fwd_launch"):
             return None
@@ -752,12 +799,34 @@ def sweep() -> None:
                 mark = " (the plan)" if rgroups == base.rgroups else ""
                 print(f"[sweep] {name} B={rows}: {rgroups} row groups{mark}: {ms:.4f} ms")
             lk._CHAIN_PLANS[key] = base
+    # the 2-layer LSTM kernels at B=1 (rows 12, 9, 11 and 5) on every plan
+    # the card may hold
+    dev = torch.device("cuda")
+    pair = _lstm2_cases(torch, smoke, lk)
+    for name, source, forward in (
+            ("lstm2_bwd_chain_b1_h256", "lstm2_bwd_chain", False),
+            ("lstm2_bwd_chain_legacy_b1_h256", "lstm2_bwd_chain_legacy", False),
+            ("lstm2_train_fwd_b1_h256", "lstm2_train_fwd", True),
+            ("lstm2_train_fwd_legacy_b1_h256", "lstm2_train_fwd_legacy", True)):
+        if not _keep(name):
+            continue
+        base = lk.chain_plan_on(source, 4, 256, 1, dev, forward, layers=2)
+        key = next(k for k, v in lk._CHAIN_PLANS.items() if v is base)
+        for v in _pair_variants(lk, base):
+            lk._CHAIN_PLANS[key] = v
+            mark = " (the plan)" if v == base else ""
+            what = (f"[sweep] {name}: UPC {v.upc}, clusters of {v.ncl}, {v.rgroups} row "
+                    f"groups, chunks of {v.kc}{mark}")
+            try:
+                print(f"{what}: {smoke.device_ms(pair[name][0], flush):.4f} ms")
+            except RuntimeError as err:  # the launcher's refusal, e.g. not resident
+                print(f"{what}: refused ({err})")
+        lk._CHAIN_PLANS[key] = base
     # row 13 on slices of the batch: the plan's (the stored-gates chain's
     # plan, the batch in slices where the gate blocks do not fit beside
     # it) beside launches of 16..64 rows and of the whole batch, each on
     # its rows' plan or, where the blocks do not fit beside that, on the
     # first plan whose blocks fit (a second pass, a ring of chunks)
-    dev = torch.device("cuda")
     for batch in (48, 64, 96, *REMAT_WIDE_B):
         name = f"lstm2_bwd_chain_remat_b{batch}_h256"
         if not _keep(name):
@@ -785,6 +854,31 @@ def sweep() -> None:
                   f"{plan.rgroups} row groups, chunks of {plan.kc}, gate blocks of "
                   f"{plan.rk} steps{mark}: {ms:.4f} ms")
         lk._CHAIN_PLANS[key] = base
+
+
+def _pair_variants(lk, base, hidden=256):
+    """The 2-layer plans of ``base``'s kernel at ``hidden`` an H100 may
+    hold: UPC 4 or 8, clusters of 1, 2, 4 or 8, 1, 2 or 4 row groups, the
+    whole share in one chunk where it fits 232,448 bytes (the launcher
+    re-checks each and refuses one whose clusters are not all resident);
+    the plan first."""
+    import dataclasses
+
+    out = [base]
+    for upc in (4, 8):
+        grid = hidden // upc
+        for ncl in (1, 2, 4, 8):
+            for rgroups in (1, 2, 4):
+                if grid % (ncl * rgroups) or upc * ncl * rgroups > lk.CHAIN_NU_MAX:
+                    continue
+                kc = -(-2 * base.exchanged // 4 // ncl)
+                need = 4 * lk.chain_smem_floats(base.width, hidden, upc, ncl, rgroups, kc,
+                                                base.forward, layers=2)
+                v = dataclasses.replace(base, upc=upc, ncl=ncl, rgroups=rgroups, kc=kc,
+                                        smem=max(need, 232_448 // 2 + 2048))
+                if need <= 232_448 and v not in out:
+                    out.append(v)
+    return out
 
 
 def _remat_fit(lk, plan, rows):

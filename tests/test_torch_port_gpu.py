@@ -218,12 +218,12 @@ def test_lstm2_remat_chain_takes_batches_past_its_gate_blocks(b, t):
 
 
 def test_redesigned_chains_raise_on_a_plan_that_does_not_fit():
-    """No fallback in the remat chain and the legacy GRU chain either: a
-    plan their launchers do not accept (a cluster of 3, 3 units a CTA, 3
-    row groups, an empty chunk; for the remat chain a gate block of no
-    steps, an input width that is not a multiple of 4 or series rows
-    fewer than the launch's batch) raises with its error string, and the
-    launch is not counted."""
+    """No fallback in the remat chain, the legacy GRU chain and the legacy
+    LSTM pair either: a plan their launchers do not accept (a cluster of 3,
+    3 units a CTA, 3 row groups, an empty chunk; for the remat chain a gate
+    block of no steps, an input width that is not a multiple of 4 or
+    series rows fewer than the launch's batch) raises with its error
+    string, and the launch is not counted."""
     dev = _card()
     b, t, d, h = 2, 3, 8, 128
     new = dict(dtype=torch.float32, device=dev)
@@ -236,6 +236,9 @@ def test_redesigned_chains_raise_on_a_plan_that_does_not_fit():
     remat = lstm_kernel.chain_plan_on("lstm2_bwd_chain_remat", 4, h, b, dev, layers=2,
                                       remat_d=d)
     legacy = lstm_kernel.chain_plan_on("gru2_bwd_chain_legacy", 3, h, b, dev, layers=2)
+    lstm_fwd = lstm_kernel.chain_plan_on("lstm2_train_fwd_legacy", 4, h, b, dev, True,
+                                         layers=2)
+    lstm_bwd = lstm_kernel.chain_plan_on("lstm2_bwd_chain_legacy", 4, h, b, dev, layers=2)
     assert remat.rk in lstm_kernel.REMAT_KS
 
     def remat_args(upc, ncl, rgroups, kc, d_in, rk, ld=b):
@@ -249,15 +252,26 @@ def test_redesigned_chains_raise_on_a_plan_that_does_not_fit():
                 *(w.data_ptr(),) * 3, big.data_ptr(), carry.data_ptr(), flags.data_ptr(),
                 b, t, h, upc, ncl, rgroups, kc, stream)
 
-    for plan, kern in ((remat, lstm_kernel.LSTM2_BWD_CHAIN_REMAT),
-                       (legacy, lstm_kernel.GRU2_BWD_CHAIN_LEGACY)):
+    def lstm_fwd_args(upc, ncl, rgroups, kc):
+        return (big.data_ptr(), ser.data_ptr(), *(w.data_ptr(),) * 4, big.data_ptr(),
+                ser.data_ptr(), *(ser.data_ptr(),) * 3, carry.data_ptr(), flags.data_ptr(),
+                b, t, h, upc, ncl, rgroups, kc, stream)
+
+    def lstm_bwd_args(upc, ncl, rgroups, kc):
+        return (big.data_ptr(), None, ser.data_ptr(), ser.data_ptr(),
+                *(w.data_ptr(),) * 3, big.data_ptr(), carry.data_ptr(), flags.data_ptr(),
+                b, t, h, upc, ncl, rgroups, kc, stream)
+
+    for plan, kern, args_of in (
+            (remat, lstm_kernel.LSTM2_BWD_CHAIN_REMAT,
+             lambda *p: remat_args(*p, d, remat.rk)),
+            (legacy, lstm_kernel.GRU2_BWD_CHAIN_LEGACY, legacy_args),
+            (lstm_fwd, lstm_kernel.LSTM2_TRAIN_FWD_LEGACY, lstm_fwd_args),
+            (lstm_bwd, lstm_kernel.LSTM2_BWD_CHAIN_LEGACY, lstm_bwd_args)):
         bad = [(plan.upc, 3, plan.rgroups, plan.kc), (3, plan.ncl, plan.rgroups, plan.kc),
                (plan.upc, plan.ncl, 3, plan.kc), (plan.upc, plan.ncl, plan.rgroups, 0)]
         for upc, ncl, rgroups, kc in bad:
-            if kern is lstm_kernel.GRU2_BWD_CHAIN_LEGACY:
-                args = legacy_args(upc, ncl, rgroups, kc)
-            else:
-                args = remat_args(upc, ncl, rgroups, kc, d, plan.rk)
+            args = args_of(upc, ncl, rgroups, kc)
             before = kern.launches
             with pytest.raises(RuntimeError, match="launch plan"):
                 kern(*args)
@@ -1024,8 +1038,17 @@ def _close_to_largest(out, ref, msg):
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-6 * max(scale, 1e-30), msg=msg)
 
 
-@pytest.mark.parametrize("b,t,d,h", LEGACY_SHAPES)
+# and the LSTM pair's at B 17 and an odd H / 4 (an odd grid: clusters of 1)
+LSTM_LEGACY_SHAPES = LEGACY_SHAPES + [(17, 3, 64, 256), (32, 3, 64, 260),
+                                      (17, 4, 5, 260), (1, 3, 64, 260)]
+
+
+@pytest.mark.parametrize("b,t,d,h", LSTM_LEGACY_SHAPES)
 def test_lstm2_legacy_kernels_match_plain(b, t, d, h):
+    """Rows 5 and 9 (the 2-layer cores' legacy LSTM cells) against their
+    plain versions at 1e-4, the chain with and without dys, each one
+    counted launch; and against the residual-native pair (rows 11 and 12)
+    on the same inputs to 1e-6 of the largest."""
     dev = _card()
     x_tm, keep, l0, l1 = _lstm_case(dev, b, t, d, h, seed=b * 1000 + t + 11)
     before = lstm_kernel.LSTM2_TRAIN_FWD_LEGACY.launches
@@ -1071,6 +1094,56 @@ def test_lstm2_legacy_kernels_match_plain(b, t, d, h):
                                              l0["w_hh"], l1["w_hh"], l1["w_ih"])
     for name, out, ref in zip(("dg0", "dg1"), dgs, dgs_res):
         _close_to_largest(out, ref, f"legacy vs residual chain {name}")
+
+
+def test_lstm2_legacy_pair_takes_every_shape_the_route_sends():
+    """Every (B, H) that ``lstm_route`` sends to the pair, which
+    ``set_res2_mode("off")`` runs on rows 5 and 9 (2 layers, H % 4 == 0, H
+    <= 2 x SMs; any B, as the first designs took them), launches both: H 4
+    .. 2 x SMs at B 1, 33 and 300, T 2, against the plain versions at 1e-4
+    (the chain with dys).  A wider H has no plan: the wrappers raise and
+    launch nothing."""
+    from multimodal_emotion_detection_tpu_torch.ops.lstm_vjp import lstm_route
+
+    dev = _card()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    fwd_k, bwd_k = lstm_kernel.LSTM2_TRAIN_FWD_LEGACY, lstm_kernel.LSTM2_BWD_CHAIN_LEGACY
+    for h in range(4, 2 * sms + 1, 4):
+        assert lstm_route(2, h, sms) == "pair"
+        for b in (1, 33, 300):
+            x_tm, keep, l0, l1 = _lstm_case(dev, b, 2, 3, h, seed=h * 10 + b)
+            before = fwd_k.launches
+            outs = lstm_kernel.lstm2_train_fwd_legacy(x_tm, keep, l0, l1)
+            torch.cuda.synchronize()
+            assert fwd_k.launches == before + 1, (b, h)
+            refs = lstm_kernel.lstm2_train_fwd_legacy_reference(x_tm, keep, l0, l1)
+            for i, (out, ref) in enumerate(zip(outs, refs)):
+                torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4,
+                                           msg=f"B={b} H={h} forward output {i}")
+            zero = torch.zeros_like(refs[5][:1])
+            dys = torch.ones_like(refs[0])
+            args = (refs[2], refs[3], torch.cat([zero, refs[5][:-1]]),
+                    torch.cat([zero, refs[6][:-1]]), dys, keep, dys[0], l0["w_hh"],
+                    l1["w_hh"], l1["w_ih"])
+            before = bwd_k.launches
+            dgs = lstm_kernel.lstm2_bwd_chain_legacy(*args)
+            torch.cuda.synchronize()
+            assert bwd_k.launches == before + 1, (b, h)
+            for name, out, ref in zip(("dg0", "dg1"), dgs,
+                                      lstm_kernel.lstm2_bwd_chain_legacy_reference(*args)):
+                torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4,
+                                           msg=f"B={b} H={h} {name}")
+    h = 2 * sms + 4
+    assert lstm_route(2, h, sms) == "layered"
+    x_tm, keep, l0, l1 = _lstm_case(dev, 2, 2, 3, h, seed=1)
+    w = torch.zeros((h, 4 * h), device=dev)
+    g, c = torch.zeros((2, 2, 4 * h), device=dev), torch.zeros((2, 2, h), device=dev)
+    before = (fwd_k.launches, bwd_k.launches)
+    with pytest.raises(ValueError, match="chain_plan"):
+        lstm_kernel.lstm2_train_fwd_legacy(x_tm, keep, l0, l1)
+    with pytest.raises(ValueError, match="chain_plan"):
+        lstm_kernel.lstm2_bwd_chain_legacy(g, g, c, c, None, keep, c[0], w, w, w)
+    assert (fwd_k.launches, bwd_k.launches) == before
 
 
 @pytest.mark.parametrize("b,t,d,h", LEGACY_SHAPES)

@@ -380,17 +380,22 @@ def test_module_defaults_at_import():
 
 @pytest.mark.parametrize("source", ["lstm2_train_fwd.cu", "gru2_train_fwd.cu"])
 def test_train_forwards_share_one_state_tile_loader(source):
-    # the legacy form of each 2-layer training forward (its own source, the
-    # first design) loads its state tiles through the one header, and
-    # editing it rebuilds them; the residual-native forms are the 2-layer
-    # forward core's training form and load no state tiles
+    # the GRU's legacy training forward (its own source, the first design)
+    # loads its state tiles through the one header, and editing it rebuilds
+    # it; the residual-native forms and the LSTM's legacy form (its legacy
+    # cell) are the 2-layer forward core's training form and load no state
+    # tiles
     from multimodal_emotion_detection_tpu_torch.ops import _build
 
     legacy = source.replace(".cu", "_legacy.cu")
     names = [p.name for p in _build._sources(_build.CSRC / legacy, [])]
-    assert names == [legacy, "state_tile.cuh"]
     text = (_build.CSRC / legacy).read_text()
-    assert "state_tile::load_rows" in text and "load_tile" not in text
+    if source.startswith("gru"):
+        assert names == [legacy, "state_tile.cuh"]
+        assert "state_tile::load_rows" in text and "load_tile" not in text
+    else:
+        assert "rnn2_fwd_chain.cuh" in names and "state_tile.cuh" not in names
+        assert "rnn2_fwd::LstmLegacyCell" in text
     core = [p.name for p in _build._sources(_build.CSRC / source, [])]
     assert "rnn2_fwd_chain.cuh" in core and "state_tile.cuh" not in core
 

@@ -36,6 +36,10 @@ model is held to ``gru2_infer_pallas`` / ``gru2_bwd_chain_res_padded`` and
 ``lstm2_infer_pallas`` / ``lstm2_bwd_chain_padded`` in interpret mode
 (1e-5, as ``tests/test_torch_port_gru.py`` and ``_lstm_train.py`` hold the
 plain versions).  The flagship's plan (B=32, H=256, width 4) is pinned.
+The same models with the legacy cells (rows 5 and 9, 10 and the remat
+chain 13) are held to their plain versions and, at the JAX legacy
+kernels' test shape, to ``lstm2_train_fwd_pallas`` /
+``lstm2_bwd_chain_pallas`` (1e-5 of the largest).
 CPU only: nothing here launches a kernel.
 """
 
@@ -53,8 +57,10 @@ from multimodal_emotion_detection_tpu.ops.lstm_kernel import (
     gru2_infer_pallas,
     gru2_train_fwd_residuals as jax_train_fwd,
     lstm2_bwd_chain_padded,
+    lstm2_bwd_chain_pallas,
     lstm2_bwd_chain_remat as jax_bwd_chain_remat,
     lstm2_infer_pallas,
+    lstm2_train_fwd_pallas,
     lstm2_train_fwd_residuals as jax_lstm_train_fwd,
 )
 from multimodal_emotion_detection_tpu_torch.ops import lstm_kernel as lk
@@ -147,13 +153,21 @@ def test_pair_plan_owns_covers_and_fits(batch, stub, width, forward):
 @pytest.mark.parametrize("forward", [False, True])
 def test_pair_plan_takes_every_shape_the_first_design_took(forward):
     """The first design took 2 layers of any H % 4 == 0 up to 2 x SMs (UPC
-    1 or 2 units of both layers a CTA), any B."""
+    1 or 2 units of both layers a CTA), any B (the LSTM's legacy forward,
+    row 5, up to the c state its shared memory held, thousands of rows):
+    both widths (the LSTM's plans are rows 5 and 9's too) have a plan at B
+    1, 33 and 5,000, within the card, whose row groups take the whole
+    batch."""
     active = _measured(132)
-    for hidden in range(4, 265, 4):
-        for batch in (1, 33):
-            plan = lk.chain_plan(hidden, 3, batch, 132, MAX_SMEM, active, forward,
-                                 layers=2)
-            assert plan.ctas <= 132 and plan.grid * plan.upc == hidden
+    for width in (3, 4):
+        for hidden in range(4, 265, 4):
+            for batch in (1, 33, 5000):
+                plan = lk.chain_plan(hidden, width, batch, 132, MAX_SMEM, active, forward,
+                                     layers=2)
+                assert plan.ctas <= 132 and plan.grid * plan.upc == hidden
+                assert plan.smem <= MAX_SMEM
+                ends = {plan.rows(c, batch).stop for c in range(0, plan.grid, plan.ncl)}
+                assert max(ends) == batch
 
 
 def test_pair_plan_at_the_gru_configs_shape():
@@ -174,7 +188,8 @@ def test_pair_plan_at_the_gru_configs_shape():
 
 @pytest.mark.parametrize("forward", [False, True])
 def test_pair_plan_at_the_flagship_shape(forward):
-    """The flagship's LSTM 2x256 at B=32 on the H100: 4 units a CTA, 64 + 64
+    """The flagship's LSTM 2x256 at B=32 on the H100 (rows 12 and 11, and
+    their legacy twins 9 and 5): 4 units a CTA, 64 + 64
     CTAs in clusters of 2, 4 row groups of one pass, the whole share in one
     chunk (256 float4 columns of the reverse follow set's 8H row, 64 of the
     forward's 2H), 170,624 / 157,824 bytes of shared memory: the follow
@@ -431,22 +446,28 @@ class _GateBlocks:
 def _model_bwd(plan, cell, packed, prev, keep, dh, w_hh0, w_hh1, w_ih1, seed, exact,
                dys=None, remat=None):
     """``pair_kernel`` of csrc/rnn2_bwd_chain.cuh with ``cell`` "gru",
-    "lstm", "remat" (``LstmRematCell``) or "gru_legacy" (``GruLegacyCell``):
-    the lead set layer 1's chain over its own row, the follow set layer 0's
-    over [own | layer 1's dih or dg].  ``prev``: the GRU's (h0_prev,
-    h1_prev), the legacy GRU's rows (res0, res1) (T, B, 5H) = [h_prev | r |
-    z | n | hn]; the LSTM's c_prev is inside ``packed`` (the remat cell's
-    (T, B, 2H) = [c0_prev | c1_prev]).  The legacy GRU writes (T, B, 12H)
-    rows [dih0 | dhh0 | dih1 | dhh1], exchanges each layer's dhh lanes and
-    adds ``dys`` to layer 1's dh -> ((dih0, dhh0), (dih1, dhh1)).  The
+    "lstm", "remat" (``LstmRematCell``), "gru_legacy" (``GruLegacyCell``) or
+    "lstm_legacy" (``LstmLegacyCell``): the lead set layer 1's chain over
+    its own row, the follow set layer 0's over [own | layer 1's dih or dg].
+    ``prev``: the GRU's (h0_prev, h1_prev), the legacy GRU's rows (res0,
+    res1) (T, B, 5H) = [h_prev | r | z | n | hn]; the LSTM's c_prev is
+    inside ``packed`` (the remat cell's (T, B, 2H) = [c0_prev | c1_prev]).
+    The legacy GRU writes (T, B, 12H) rows [dih0 | dhh0 | dih1 | dhh1],
+    exchanges each layer's dhh lanes and adds ``dys`` to layer 1's dh ->
+    ((dih0, dhh0), (dih1, dhh1)); the legacy LSTM writes and exchanges the
+    (T, B, 8H) rows [dg0 | dg1] and adds ``dys`` to layer 1's dh.  The
     remat cell's ``remat`` = (x (T, B, D), x1, h0p, h1p, [w_ih0; w_hh0],
     [w_ih1; w_hh1], b0, b1): its gates come from ``_GateBlocks``."""
     t_len, batch, hidden = keep.shape
-    lstm = cell in ("lstm", "remat")
+    lstm = cell in ("lstm", "remat", "lstm_legacy")
     legacy = cell == "gru_legacy"
     nan = np.full
-    # GRU dih (3H) and dhn; LSTM dg (4H); the legacy GRU's 12H rows
+    # GRU dih (3H) and dhn; LSTM dg (4H), the legacy LSTM's the lanes of
+    # its 8H rows; the legacy GRU's 12H rows
     out = [nan((t_len, batch, plan.width * hidden), np.nan) for _ in range(2)]
+    if cell == "lstm_legacy":
+        rows8 = nan((t_len, batch, 8 * hidden), np.nan)
+        out = [rows8[..., :4 * hidden], rows8[..., 4 * hidden:]]
     dhn = [nan((t_len, batch, hidden), np.nan) for _ in range(2)]
     rows12 = nan((t_len, batch, 12 * hidden), np.nan)
     # GRU: the direct part dh z, layer 1's starting as dh_final; LSTM: dc
@@ -504,6 +525,8 @@ def _model_bwd(plan, cell, packed, prev, keep, dh, w_hh0, w_hh1, w_ih1, seed, ex
             gi, gf, gg, go = (packed[t][rows, 4 * hidden * layer + i * hidden + j]
                               for i in range(4))
             cp = packed[t][rows, 8 * hidden + hidden * layer + j]
+        if layer == 1 and dys is not None:
+            d = d + dys[t][rows, j]
         if layer == 1 and t == t_len - 1:
             d = d + dh[rows, j]
         si, sf, so, tg = _sig(gi), _sig(gf), _sig(go), np.tanh(gg)
@@ -555,9 +578,10 @@ def _model_bwd(plan, cell, packed, prev, keep, dh, w_hh0, w_hh1, w_ih1, seed, ex
 
 
 def _model_fwd(plan, cell, ih0, l0, l1, seed, exact, keep=None, store_gates=True):
-    """``pair_kernel`` of csrc/rnn2_fwd_chain.cuh with ``cell`` "gru" or
-    "lstm": the lead set layer 0 over its own h, the follow set layer 1
-    over [own h | feed]; the carry h (GRU) or c (LSTM).
+    """``pair_kernel`` of csrc/rnn2_fwd_chain.cuh with ``cell`` "gru",
+    "lstm" or (training form only) "lstm_legacy" (``LstmLegacyCell``): the
+    lead set layer 0 over its own h, the follow set layer 1 over [own h |
+    feed]; the carry h (GRU) or c (LSTM).
 
     The eval form (``keep`` None): ih0 (B, T, W H), the feed h0, the lead
     set storing the h0 series, the follow set its h in two slots -> the
@@ -565,18 +589,23 @@ def _model_fwd(plan, cell, ih0, l0, l1, seed, exact, keep=None, store_gates=True
     feed x1 = h0 keep, both sets reading and storing the whole h0p / h1p /
     x1 series and storing the packed rows (the LSTM's without the gates
     unless ``store_gates``) and the finals -> ``(packed, h0p, h1p, x1,
-    finals)``.  Every buffer starts NaN, so a read before its write shows."""
+    finals)``.  The legacy LSTM stores the (T, B, 12H) rows [g0 | g1 | h0 |
+    h1 | c0 | c1] (the states after each step), h0p / h1p / x1 as the
+    exchange only (row 0 of h0p / h1p never written) and layer 1's final h
+    alone -> ``(res, h_final)``.  Every buffer starts NaN, so a read before
+    its write shows."""
     train = keep is not None
     t_len, batch = (ih0.shape[0], ih0.shape[1]) if train else (ih0.shape[1], ih0.shape[0])
     hidden, width = l0["w_hh"].shape[0], plan.width
-    lstm = cell == "lstm"
+    legacy = cell == "lstm_legacy"
+    lstm = cell == "lstm" or legacy
     nan = np.full
     if train:
         pw = (10 if store_gates else 2) * hidden if lstm else 8 * hidden
-        packed = nan((t_len, batch, pw), np.nan)
+        packed = nan((t_len, batch, 12 * hidden if legacy else pw), np.nan)
         hp = [nan((t_len, batch, hidden), np.nan) for _ in range(2)]
         x1 = nan((t_len, batch, hidden), np.nan)
-        finals = nan((4 if lstm else 2, batch, hidden), np.nan)
+        finals = nan((1 if legacy else 4 if lstm else 2, batch, hidden), np.nan)
     else:
         h0 = nan((t_len, batch, hidden), np.nan)
         h1 = nan((2, batch, hidden), np.nan)
@@ -597,9 +626,13 @@ def _model_fwd(plan, cell, ih0, l0, l1, seed, exact, keep=None, store_gates=True
     def lstm_cell(layer, x, gate, own, fed, cp):
         g = [x[q] + fed[q] + own[q] for q in range(4)]
         c = _sig(g[1]) * cp + _sig(g[0]) * np.tanh(g[2])
+        h = _sig(g[3]) * np.tanh(c)
         lanes = {4 * layer + q: g[q] for q in range(4)}
-        lanes[8 + layer] = cp
-        return _sig(g[3]) * np.tanh(c), c, lanes if store_gates else {layer: cp}
+        if legacy:
+            lanes.update({8 + layer: h, 10 + layer: c})
+        else:
+            lanes[8 + layer] = cp
+        return h, c, lanes if store_gates or legacy else {layer: cp}
 
     def cluster_step(follow, c0, t):
         layer = 1 if follow else 0
@@ -644,10 +677,13 @@ def _model_fwd(plan, cell, ih0, l0, l1, seed, exact, keep=None, store_gates=True
                         packed[t][rows, lane * hidden + j] = v
                     if layer == 0:
                         x1[t][rows, j] = h * keep[t][rows, j]
-                    if t == 0:
+                    if t == 0 and not legacy:
                         hp[layer][0][rows, j] = 0.0
                     if t + 1 < t_len:
                         hp[layer][t + 1][rows, j] = h
+                    elif legacy:
+                        if layer == 1:
+                            finals[0][rows, j] = h
                     else:
                         fh = 2 * layer if lstm else layer
                         finals[fh][rows, j] = h
@@ -655,6 +691,8 @@ def _model_fwd(plan, cell, ih0, l0, l1, seed, exact, keep=None, store_gates=True
                             finals[fh + 1][rows, j] = carry[layer][rows, j]
 
     _schedule(plan, t_len, np.random.RandomState(seed), cluster_step)
+    if legacy:
+        return packed, finals[0]
     if train:
         return packed, hp[0], hp[1], x1, finals
     return h1[(t_len - 1) % 2]
@@ -802,6 +840,60 @@ def _check_legacy_model(plan, batch, t_len, d, hidden, seed, exact, with_dys):
                                        err_msg=f"{name}{i}")
         np.testing.assert_array_equal(got[i][1][..., :2 * hidden], got[i][0][..., :2 * hidden])
     return got, (l0, l1, keep, dh, res0, res1, dys)
+
+
+def _shift(a):
+    """The series before each step from the series after it."""
+    return np.concatenate([np.zeros_like(a[:1]), a[:-1]])
+
+
+LEGACY_LSTM_NAMES = ("ys", "h_final", "g0", "g1", "h0_new", "c0_new", "c1_new")
+
+
+def _check_legacy_lstm_fwd_model(plan, batch, t_len, d, hidden, seed, exact):
+    """The forward core's training form with the legacy LSTM cell (row 5):
+    the 12H rows [g0 | g1 | h0 | h1 | c0 | c1] and h_final, read as the
+    wrapper's 7-tuple, against ``lstm2_train_fwd_legacy_reference``
+    (1e-6); keep has zeros (p = 0.1)."""
+    l0, l1, x, keep, _ = _case("lstm", batch, t_len, d, hidden, seed)
+    x_tm = np.ascontiguousarray(x.transpose(1, 0, 2))
+    ih0 = x_tm.astype(np.float64) @ l0["w_ih"] + l0["b"]
+    res, h_final = _model_fwd(plan, "lstm_legacy", ih0, l0, l1, seed, exact, keep=keep)
+    g0, g1, h0, ys, c0, c1 = np.split(res, np.cumsum([4, 4, 1, 1, 1])[:] * hidden, axis=2)
+    got = (ys, h_final, g0, g1, h0, c0, c1)
+    want = lk.lstm2_train_fwd_legacy_reference(
+        torch.from_numpy(x_tm), torch.from_numpy(keep),
+        *({k: torch.from_numpy(v) for k, v in layer.items()} for layer in (l0, l1)))
+    for name, g, w in zip(LEGACY_LSTM_NAMES, got, want):
+        assert not np.isnan(g).any(), f"{name}: a read before the write, or unwritten"
+        np.testing.assert_allclose(g, w.numpy(), rtol=0, atol=1e-6, err_msg=name)
+    return got, (l0, l1, x_tm, keep)
+
+
+def _check_legacy_lstm_model(plan, batch, t_len, d, hidden, seed, exact, with_dys):
+    """The reverse core with the legacy LSTM cell (row 9) over the plain
+    legacy forward's gate and shifted c series, packed into (T, B, 10H) as
+    the wrapper packs them, the 8H rows [dg0 | dg1] written and exchanged,
+    with or without dys, against ``lstm2_bwd_chain_legacy_reference``
+    (1e-6)."""
+    l0, l1, x, keep, dh = _case("lstm", batch, t_len, d, hidden, seed)
+    x_tm = np.ascontiguousarray(x.transpose(1, 0, 2))
+    _, _, g0, g1, _, c0, c1 = (a.numpy() for a in lk.lstm2_train_fwd_legacy_reference(
+        torch.from_numpy(x_tm), torch.from_numpy(keep),
+        *({k: torch.from_numpy(v) for k, v in layer.items()} for layer in (l0, l1))))
+    cp0, cp1 = _shift(c0), _shift(c1)
+    dys = (np.random.RandomState(seed + 1).randn(t_len, batch, hidden).astype(np.float32)
+           if with_dys else None)
+    w = (l0["w_hh"], l1["w_hh"], l1["w_ih"])
+    packed = np.concatenate([g0, g1, cp0, cp1], axis=2)
+    got = _model_bwd(plan, "lstm_legacy", packed, None, keep, dh, *w, seed, exact, dys=dys)
+    args = (g0, g1, cp0, cp1, dys, keep, dh, *w)
+    want = lk.lstm2_bwd_chain_legacy_reference(
+        *(None if a is None else torch.from_numpy(a) for a in args))
+    for name, g, v in zip(("dg0", "dg1"), got, want):
+        assert not np.isnan(g).any(), f"{name}: a read before the write"
+        np.testing.assert_allclose(g, v.numpy(), rtol=0, atol=1e-6, err_msg=name)
+    return got, args
 
 
 TRAIN_NAMES = ("packed", "h0_prev", "h1_prev", "x1", "finals")
@@ -1015,6 +1107,80 @@ def test_pair_core_legacy_gru_model_matches_plain(batch, t_len, hidden, sms, stu
     _check_legacy_model(plan, batch, t_len, 5, hidden,
                         seed=batch * 10 + t_len + hidden + 8 + with_dys, exact=exact,
                         with_dys=with_dys)
+
+
+@pytest.mark.parametrize("batch,t_len,hidden,sms,stub,split,exact", MODEL_CASES)
+def test_pair_core_legacy_lstm_fwd_model_matches_plain(batch, t_len, hidden, sms, stub,
+                                                       split, exact):
+    """The forward core's training form with the legacy LSTM cell (row 5):
+    the legacy 12H rows stored with the states after each step, the h0p /
+    h1p / x1 exchange (row 0 of h0p / h1p never written), h_final from layer
+    1 alone, on row 11's plans, against
+    ``lstm2_train_fwd_legacy_reference``."""
+    active = (_measured if stub == "measured" else _every)(sms)
+    plan = lk.chain_plan(hidden, 4, batch, sms, MAX_SMEM, active, True, layers=2)
+    assert (plan.ncl, plan.rgroups) == split, plan
+    _check_legacy_lstm_fwd_model(plan, batch, t_len, 5, hidden,
+                                 seed=batch * 10 + t_len + hidden + 9, exact=exact)
+
+
+@pytest.mark.parametrize("with_dys", [False, True], ids=["no_dys", "dys"])
+@pytest.mark.parametrize("batch,t_len,hidden,sms,stub,split,exact", MODEL_CASES)
+def test_pair_core_legacy_lstm_model_matches_plain(batch, t_len, hidden, sms, stub, split,
+                                                   exact, with_dys):
+    """The reverse core with the legacy LSTM cell (row 9): the legacy series
+    packed into row 12's 10H rows, the 8H rows [dg0 | dg1] written and their
+    lanes exchanged, dys into layer 1's dh, on row 12's plans, against
+    ``lstm2_bwd_chain_legacy_reference``."""
+    active = (_measured if stub == "measured" else _every)(sms)
+    plan = lk.chain_plan(hidden, 4, batch, sms, MAX_SMEM, active, layers=2)
+    assert (plan.ncl, plan.rgroups) == split, plan
+    _check_legacy_lstm_model(plan, batch, t_len, 5, hidden,
+                             seed=batch * 10 + t_len + hidden + 10 + with_dys, exact=exact,
+                             with_dys=with_dys)
+
+
+# the JAX legacy kernels' own test shape (tests/test_torch_port_legacy.py)
+LEGACY_JAX_SHAPE = dict(batch=8, t_len=21, d=12, hidden=128)
+
+
+def test_legacy_lstm_fwd_core_model_matches_the_jax_kernel():
+    """The legacy LSTM forward cell at the JAX legacy kernel's test shape (B
+    8, T 21, D 12, H 128) on the H100's plan against
+    ``lstm2_train_fwd_pallas`` in interpret mode, matmul precision
+    "highest" (1e-5 of the largest)."""
+    plan = lk.chain_plan(128, 4, 8, 132, MAX_SMEM, _measured(132), True, layers=2)
+    assert (plan.upc, plan.ctas, plan.ncl, plan.rgroups) == (2, 128, 2, 2)
+    got, (l0, l1, x_tm, keep) = _check_legacy_lstm_fwd_model(
+        plan, seed=11, exact=False, **LEGACY_JAX_SHAPE)
+    with jax.default_matmul_precision("highest"):
+        want = lstm2_train_fwd_pallas(jnp.asarray(x_tm), jnp.asarray(keep), l0, l1,
+                                      interpret=True)
+    for name, g, w in zip(LEGACY_LSTM_NAMES, got, want):
+        w = np.asarray(w)
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-5 * float(np.abs(w).max()),
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("with_dys", [False, True], ids=["no_dys", "dys"])
+def test_legacy_lstm_core_model_matches_the_jax_kernel(with_dys):
+    """The legacy LSTM chain cell at the JAX legacy kernel's test shape (B
+    8, T 21, D 12, H 128) on the H100's plan against
+    ``lstm2_bwd_chain_pallas`` in interpret mode over the same series,
+    with and without dys, matmul precision "highest" (1e-5 of the
+    largest)."""
+    plan = lk.chain_plan(128, 4, 8, 132, MAX_SMEM, _measured(132), layers=2)
+    assert (plan.upc, plan.ctas, plan.ncl, plan.rgroups) == (2, 128, 2, 2)
+    got, args = _check_legacy_lstm_model(plan, seed=12, exact=False, with_dys=with_dys,
+                                         **LEGACY_JAX_SHAPE)
+    with jax.default_matmul_precision("highest"):
+        want = lstm2_bwd_chain_pallas(*(None if a is None else jnp.asarray(a) for a in args),
+                                      interpret=True)
+    for name, g, w in zip(("dg0", "dg1"), got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-5 * float(np.abs(w).max()),
+                                   err_msg=name)
 
 
 def test_remat_core_model_matches_the_jax_kernel():
