@@ -93,13 +93,12 @@
    ``[lstm2_bwd_chain_legacy]`` and ``[gru2_train_fwd_legacy]`` /
    ``[gru2_bwd_chain_legacy]`` hold its four kernels (rows 5, 9, 8 and 10
    of PERF.md's table; the chains with and without ``dys``) against their
-   plain versions at B=32, T=372, D=64, H=256 (the LSTM pair also at B 17
-   and 1; the GRU forward is the first 2-layer design on
-   ``csrc/state_tile.cuh``, the other three the 2-layer cores' legacy
-   cells, printed with their launch plans), time them beside the
-   residual-native pair's on the same inputs in the same phase (µs per
-   phase of each; the chains' outputs to 1e-5 of the largest), the
-   plain versions and cuDNN,
+   plain versions at B=32, T=372, D=64, H=256 (the forwards and the LSTM
+   chain also at B 17 and 1; all four the 2-layer cores' legacy cells,
+   printed with their launch plans), time them beside the residual-native
+   pair's on the same inputs in the same phase (µs per phase of each; the
+   forwards' shared lanes bit for bit, the chains' outputs to 1e-5 of the
+   largest), the plain versions and cuDNN,
    the fused GRU chain beside the layered one over the same residuals (1e-5
    of the largest), and hold the whole recurrence gradient of each legacy
    route (the GRU's fused and layered) to the residual-native route's (dx
@@ -113,15 +112,15 @@
    blocks h256, 4 heads, log-mel cached per split): ``[flash_fwd]`` /
    ``[flash_bwd]`` hold the flash forward and fused backward against their
    plain versions at the encoder's (32, 4, 372, 64) (dropout 0 and 0.1,
-   one seed), at (4, 4, 1000, 64) with a key-padding bias and at the
-   blockwise fold of one raw clip (94, 4, 512, 64), check the dropout
-   mask's kept fraction, and time them beside
-   ``scaled_dot_product_attention``; ``[flash_long]`` runs
+   one seed), at (4, 4, 1000, 64) with a key-padding bias, at the
+   blockwise fold of one raw clip (94, 4, 512, 64) and at head dims 128
+   and 40 with T off the tiles, check the dropout mask's kept fraction,
+   and time them beside ``scaled_dot_product_attention``; ``[flash_long]`` runs
    ``flash_attention`` forward + backward at (2, 4, 5000, 64), past the
    fused form's 4,096 keys, so the two-pass kernels run (once each, the
    fused one never), against the plain versions, and times them.  The
-   q-major kernels (the forward, the two-pass dQ pass) run 3xTF32 on the
-   tensor cores: both print their bound on the float32 rate and in 3xTF32
+   forward, the fused backward and the two-pass dQ pass run 3xTF32 on the
+   tensor cores: each prints its bound on the float32 rate and in 3xTF32
    on the TF32 rate (``bound_fp32_ms``, ``bound_3xtf32_ms``; their
    ``bound_ms`` is the latter).
    ``[train_tf]`` trains it as in 6 (two flash forwards per train step and
@@ -1476,38 +1475,64 @@ def phase_gru2_bwd_chain(lstm_kernel, lstm_vjp, flush, inputs):
 
 
 
+def _gru_legacy_fwd_checked(lstm_kernel, sub, errs, tag=""):
+    """Row 8 on ``sub`` = (x_tm, keep, l0, l1) against its plain version
+    (1e-4 abs + 1e-4 rel, the errors into ``errs``) and bit for bit against
+    row 14 on the same inputs on r, z, n, hn and h (one cell arithmetic,
+    one plan); returns row 8's result."""
+    out = lstm_kernel.gru2_train_fwd_legacy(*sub)
+    torch.cuda.synchronize()
+    ref = lstm_kernel.gru2_train_fwd_legacy_reference(*sub)
+    names = ("ys", "h_final") + tuple(f"{n}{i}" for i in range(2)
+                                      for n in ("r", "z", "n", "hn", "h"))
+    for name, o, r in zip(names, (*out[:2], *out[2][0], *out[2][1]),
+                          (*ref[:2], *ref[2][0], *ref[2][1])):
+        errs[name + tag] = max_errs(o, r)[0]
+        torch.testing.assert_close(o, r, rtol=1e-4, atol=1e-4, msg=name + tag)
+    h = out[1].shape[-1]
+    packed, h0p, h1p, _, finals = lstm_kernel.gru2_train_fwd_residuals(*sub)
+    layers = out[2]
+    same = all(torch.equal(a, r) for a, r in zip(
+        [torch.cat(layers[i][:4], dim=-1) for i in range(2)]
+        + [_shifted(layers[i][4]) for i in range(2)] + [out[1]],
+        [packed[..., 4 * h * i:4 * h * (i + 1)] for i in range(2)] + [h0p, h1p, finals[1]]))
+    if not same:
+        raise RuntimeError(f"row 8 differs from row 14 on the same inputs{tag}")
+    return out
+
+
 def phase_gru2_legacy(lstm_kernel, lstm_vjp, flush):
     """``[gru2_train_fwd_legacy]`` / ``[gru2_bwd_chain_legacy]``: rows 8 and
-    10, the legacy-layout GRU pair, at the GRU config's training shape
-    (B=32, T=372, D=64, H=256, keep p=0.1).  Each kernel against its plain
-    version (the chain with and without ``dys``); times beside the
-    residual-native pair's (rows 14 and 15) on the same inputs, the plain
-    versions' and cuDNN's; row 10 against the layered backward over the
-    same residuals (two row-7 launches and the hop: ``GRU_BWD2_ENABLED``
-    off, the JAX package's default) in value and time; the whole recurrence
-    gradient on the legacy routes against the residual-native one."""
+    10, the legacy-layout GRU pair (the 2-layer cores' legacy GRU cells), at
+    the GRU config's training shape (B=32, T=372, D=64, H=256, keep p=0.1).
+    Each kernel against its plain version (the chain with and without
+    ``dys``; the forward at B 32, 17 and 1, there bit for bit against row
+    14 on the shared lanes); the plans; times and µs per phase beside the
+    residual-native pair's (rows 14 and 15) on the same inputs in the same
+    phase, the plain versions' and cuDNN's; row 10 against the layered
+    backward over the same residuals (two row-7 launches and the hop:
+    ``GRU_BWD2_ENABLED`` off, the JAX package's default) in value and time;
+    the whole recurrence gradient on the legacy routes against the
+    residual-native one."""
     x_tm, keep, l0, l1 = _gru_inputs(14)
     t, b, d = x_tm.shape
     h = l0["w_hh"].shape[0]
-    ys, h_final, layers = lstm_kernel.gru2_train_fwd_legacy(x_tm, keep, l0, l1)
-    torch.cuda.synchronize()
-    r_ys, r_hf, r_layers = lstm_kernel.gru2_train_fwd_legacy_reference(x_tm, keep, l0, l1)
-    pairs = [("ys", ys, r_ys), ("h_final", h_final, r_hf)] + [
-        (f"{n}{i}", layers[i][j], r_layers[i][j])
-        for i in range(2) for j, n in enumerate(("r", "z", "n", "hn", "h"))]
     fwd_errs = {}
-    for name, out, ref in pairs:
-        fwd_errs[name] = max_errs(out, ref)[0]
-        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4, msg=name)
+    ys, h_final, layers = _gru_legacy_fwd_checked(lstm_kernel, (x_tm, keep, l0, l1),
+                                                  fwd_errs)
+    # 17 rows (5 a row group) and one row (two row groups, one empty)
+    for rows in (17, 1):
+        _gru_legacy_fwd_checked(lstm_kernel, (x_tm[:, :rows].contiguous(),
+                                              keep[:, :rows].contiguous(), l0, l1),
+                                fwd_errs, f" B={rows}")
+    print(f"[gru2_train_fwd_legacy] B={b} T={t} D={d} H={h}, keep p=0.1, and B 17 and 1: "
+          "max abs err " + ", ".join(f"{k} {v:.3e}" for k, v in fwd_errs.items())
+          + " (bound 1e-4 abs + 1e-4 rel); r, z, n, hn, the shifted h series and h_final "
+          "bit for bit the residual-native form's (row 14) on the same inputs")
+    for rows in (b, 17, 1):
+        print("[gru2_train_fwd_legacy] " + _chain_plan_text(
+            lstm_kernel, "gru2_train_fwd_legacy", 3, h, rows, True, 2))
     packed, h0p, h1p, _, finals = lstm_kernel.gru2_train_fwd_residuals(x_tm, keep, l0, l1)
-    diff = _largest_diff(
-        [torch.cat(layers[i][:4], dim=-1) for i in range(2)]
-        + [_shifted(layers[i][4]) for i in range(2)] + [h_final],
-        [packed[..., 4 * h * i:4 * h * (i + 1)] for i in range(2)] + [h0p, h1p, finals[1]])
-    print(f"[gru2_train_fwd_legacy] B={b} T={t} D={d} H={h}, keep p=0.1: max abs err "
-          + ", ".join(f"{k} {v:.3e}" for k, v in fwd_errs.items())
-          + " (bound 1e-4 abs + 1e-4 rel); against the residual-native form's "
-          f"activations and shifted series, max abs diff relative to the largest {diff:.3e}")
 
     rng = np.random.RandomState(15)
     dh = torch.from_numpy(rng.randn(b, h).astype(np.float32)).cuda()
@@ -1586,8 +1611,9 @@ def phase_gru2_legacy(lstm_kernel, lstm_vjp, flush):
     nbytes = 4 * (t * b * (10 * h + h + 12 * h) + b * h + 3 * h * 3 * h)
     bound_ms, bound_by = bound(flops, nbytes)
     print(f"[gru2_train_fwd_legacy] kernel {fwd_ms:.4f} ms (input projection + one "
-          f"cooperative launch, {1e3 * fwd_ms / (t + 1):.3f} us per phase; the "
-          f"residual-native form {fwd_res_ms:.4f} ms in this phase), plain "
+          f"cooperative cluster launch, {1e3 * fwd_ms / (t + 1):.3f} us per phase; the "
+          f"residual-native form (row 14) {fwd_res_ms:.4f} ms, "
+          f"{1e3 * fwd_res_ms / (t + 1):.3f} us per phase, in this phase), plain "
           f"{fwd_plain_ms:.4f} ms, cuDNN nn.GRU training forward at keep=1 "
           f"{fwd_lib_ms:.4f} ms, bound {fwd_bound_ms:.4f} ms ({fwd_bound_by}: "
           f"{fwd_flops / 1e9:.3f} GFLOP, {fwd_bytes / 1e6:.2f} MB incl. the 10H stores)")
@@ -1624,7 +1650,7 @@ def phase_gru2_legacy(lstm_kernel, lstm_vjp, flush):
           f"{whole['residual'][1]:.4f} ms")
     src = "multimodal_emotion_detection_tpu_torch/csrc/"
     return ({"name": "gru2_train_fwd_legacy", "route": "cuda",
-             "source": src + "gru2_train_fwd_legacy.cu",
+             "source": src + "gru2_train_fwd_legacy.cu", "core": src + "rnn2_fwd_chain.cuh",
              "replaces": "multimodal_emotion_detection_tpu/ops/lstm_kernel.py:1354",
              "max_abs_err": max(fwd_errs.values()), "ms": fwd_ms,
              "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound_ms,
@@ -1883,19 +1909,26 @@ def _flash_cases():
     dropout rate of each: the slice's (32 clips, 4 heads, 372 frames, 64)
     without a bias at rates 0 (eval) and 0.1 (training, one seed for both
     calls); (4, 4, 1000, 64), many key tiles and a ragged edge, with a
-    random key-padding bias; and the blockwise fold of one raw clip, 94
-    blocks of 512 with the last one padded past 48,000 samples."""
+    random key-padding bias; the blockwise fold of one raw clip, 94
+    blocks of 512 with the last one padded past 48,000 samples; and the
+    kernels' other head-dim paths, 128 (with a key bias) and 40, at T off
+    the tiles."""
     rng = np.random.RandomState(21)
     pad_mask = rng.rand(4, 1000) > 0.2
     pad_mask[:, 0] = True
     fold = np.ones((94, 512), bool)
     fold[-1, 48000 - 93 * 512:] = False
+    wide_mask = rng.rand(8, 300) > 0.2
+    wide_mask[:, 0] = True
     return [("(32, 4, 372, 64) rate 0", (32, 4, 372, 372, 64), None, 0.0),
             ("(32, 4, 372, 64) rate 0.1", (32, 4, 372, 372, 64), None, 0.1),
             ("(4, 4, 1000, 64) key bias, rate 0.1", (4, 4, 1000, 1000, 64),
              pad_mask, 0.1),
             ("(94, 4, 512, 64) blockwise fold, rate 0.1", (94, 4, 512, 512, 64),
-             fold, 0.1)]
+             fold, 0.1),
+            ("(8, 4, 300, 128) key bias, rate 0.1", (8, 4, 300, 300, 128),
+             wide_mask, 0.1),
+            ("(8, 4, 77, 40) rate 0", (8, 4, 77, 77, 40), None, 0.0)]
 
 
 def _grad_close(name, outs, refs, labels):
@@ -1990,7 +2023,7 @@ def phase_flash(fa, flush):
     # q, k, v read, O and LSE written; for the backward q, k, v, dO, LSE and
     # Delta read, dQ, dK, dV written (the fused form's partials not counted)
     fwd_fp32, fwd_bound = tc_bounds(4 * pairs * d, 4 * (4 * b * h * t * d + b * h * t))
-    bwd_bound = bound(10 * pairs * d, 4 * (7 * b * h * t * d + 2 * b * h * t))
+    bwd_fp32, bwd_bound = tc_bounds(10 * pairs * d, 4 * (7 * b * h * t * d + 2 * b * h * t))
     n_spans = fa.kv_spans(t)[0]
     print(f"[flash_fwd] B={b} H={h} T={t} D={d}: kernel {ms:.4f} ms at rate 0.1 "
           f"({eval_ms:.4f} ms at rate 0), plain {plain_ms:.4f} ms, "
@@ -2003,7 +2036,10 @@ def phase_flash(fa, flush):
     print(f"[flash_bwd] fused kernel {bwd_ms:.4f} ms at rate 0.1 ({n_spans} kv spans, "
           f"partials summed in it), plain {bwd_plain_ms:.4f} ms, SDPA backward "
           f"(autograd.grad, no dropout) {bwd_library_ms:.4f} ms, bound "
-          f"{bwd_bound[0]:.4f} ms ({bwd_bound[1]}: {10 * pairs * d / 1e9:.3f} GFLOP)")
+          f"{bwd_bound[0]:.4f} ms in 3xTF32 ({bwd_bound[1]}: 3 x "
+          f"{10 * pairs * d / 1e9:.3f} GFLOP at {TF32_FLOPS / 1e12:.0f} TFLOP/s), "
+          f"{bwd_fp32[0]:.4f} ms in float32 ({bwd_fp32[1]}: at "
+          f"{FP32_FLOPS / 1e12:.0f} TFLOP/s)")
     print(f"[flash_bwd] forward + backward through flash_attention {train_ms:.4f} ms "
           f"vs SDPA forward + backward {lib_train_ms:.4f} ms")
     src = "multimodal_emotion_detection_tpu_torch/csrc/"
@@ -2013,11 +2049,13 @@ def phase_flash(fa, flush):
            "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
            "bound_fp32_ms": fwd_fp32[0], "bound_3xtf32_ms": fwd_bound[0],
            "library_ms": library_ms}
-    bwd = {"name": "flash_bwd_fused", "route": "cuda", "source": src + "flash_bwd.cu",
+    bwd = {"name": "flash_bwd_fused", "route": "cuda",
+           "source": src + "flash_bwd_fused.cu",
            "replaces": "multimodal_emotion_detection_tpu/ops/flash_attention.py:266",
            "max_abs_err": max(bwd_errs.values()), "ms": bwd_ms,
            "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound[0],
-           "bound_by": bwd_bound[1], "library_ms": bwd_library_ms}
+           "bound_by": bwd_bound[1], "bound_fp32_ms": bwd_fp32[0],
+           "bound_3xtf32_ms": bwd_bound[0], "library_ms": bwd_library_ms}
     return fwd, bwd
 
 
@@ -2361,7 +2399,7 @@ def main() -> None:
                             "gru2_infer", "gru2_train_fwd", "gru2_train_fwd_legacy",
                             "gru2_bwd_chain", "gru2_bwd_chain_legacy",
                             "gru1_fwd", "gru_bwd_chain", "flash_fwd", "flash_bwd",
-                            "flash_bwd_dq"])
+                            "flash_bwd_dq", "flash_bwd_fused"])
     print(f"[build] {time.perf_counter() - t0:.1f} s for {sorted(reports) or 'nothing (cached)'}")
     for src, log in reports.items():
         for line in log.splitlines():

@@ -160,7 +160,7 @@ __global__ void __launch_bounds__(32 * NW, 3) flash_bwd_dq_kernel(const Args a) 
       kbits[j] = DROP ? keep_bits(key, q0 + 16 * w, k0 + 8 * j, h, b, a.drop_thr) : 0u;
     // S = Q K^T and dP = dO V^T in one walk
     float sd[2][NJ][4];
-    mma_abt<DP, NJ, St::MAT, 2>({&qa, &da}, {st, st + St::V}, sd);
+    mma_abt<DP, NJ, St::MAT>(sd, {st, st + St::V}, qa, da);
     PHASE(2)
     auto& s = sd[0];
     auto& dp = sd[1];

@@ -1,4 +1,5 @@
-// Tiles shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu).
+// Float32 tiles of the kv-major dK / dV pass (flash_bwd.cu), the one flash
+// kernel still on the CUDA cores.
 //
 // A CTA of 256 threads works on 64 x 64 tiles of (query row, key).  Thread
 // (tx, ty) = (tid % 16, tid / 16) owns query rows 4ty .. 4ty + 3 of a
@@ -89,39 +90,12 @@ __device__ __forceinline__ void tile_tn(const float* __restrict__ w,
   }
 }
 
-// acc[i][4g + e] += sum over 64 keys j of w[4ty + i][j] * x[j][4tx + 64g + e]:
-// w a (64, SS) score tile read along its rows
-template <int DP>
-__device__ __forceinline__ void tile_nn(const float* __restrict__ w,
-                                        const float* __restrict__ x, int tx,
-                                        int ty, float (&acc)[4][DP / 16]) {
-  constexpr int RS = DP + 4;
-#pragma unroll 4
-  for (int j = 0; j < 64; ++j) {
-    float wr[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) wr[i] = w[(4 * ty + i) * SS + j];
-#pragma unroll
-    for (int g = 0; g < DP / 64; ++g) {
-      const float4 xv =
-          *reinterpret_cast<const float4*>(x + j * RS + 4 * tx + 64 * g);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        acc[i][4 * g + 0] += wr[i] * xv.x;
-        acc[i][4 * g + 1] += wr[i] * xv.y;
-        acc[i][4 * g + 2] += wr[i] * xv.z;
-        acc[i][4 * g + 3] += wr[i] * xv.w;
-      }
-    }
-  }
-}
-
 // rows 4ty + i of a (n, d) output from acc, columns 4tx + 64g + e < d
 template <int DP>
 __device__ __forceinline__ void store_rows(float* __restrict__ dst,
                                            const float (&acc)[4][DP / 16],
                                            int r0, int n, int d, int tx,
-                                           int ty, bool add) {
+                                           int ty) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = r0 + 4 * ty + i;
@@ -132,22 +106,9 @@ __device__ __forceinline__ void store_rows(float* __restrict__ dst,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = 4 * tx + 64 * g + e;
-        if (c < d) row[c] = add ? row[c] + acc[i][4 * g + e] : acc[i][4 * g + e];
+        if (c < d) row[c] = acc[i][4 * g + e];
       }
   }
-}
-
-// sum (or max) over the 16 lanes of a half-warp that share ty
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
 }
 
 // the (TK) key biases of keys [k0, k0 + TK): bias[b][k], 0 without a bias,

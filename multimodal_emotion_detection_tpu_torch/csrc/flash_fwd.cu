@@ -120,7 +120,7 @@ __global__ void __launch_bounds__(32 * NW, 3) flash_fwd_kernel(
     for (int j = 0; j < NJ; ++j)
       kbits[j] = DROP ? keep_bits(key, q0 + 16 * w, k0 + 8 * j, h, b, drop_thr) : 0u;
     float sc[1][NJ][4];
-    mma_abt<DP, NJ, St::MAT, 1>({&qa}, {st}, sc);
+    mma_abt<DP, NJ, St::MAT>(sc, {st}, qa);
     float (&s)[NJ][4] = sc[0];
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll

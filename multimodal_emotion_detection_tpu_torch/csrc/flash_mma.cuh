@@ -1,5 +1,8 @@
-// Tensor-core tile core of the q-major flash kernels (flash_fwd.cu,
-// flash_bwd_dq.cu): 3xTF32 products on mma.sync, cp.async-staged key tiles.
+// Tensor-core tile core of the flash kernels on mma.sync: the q-major pair
+// (flash_fwd.cu, flash_bwd_dq.cu) and the kv-major fused backward
+// (flash_bwd_fused.cu, whose warps own keys instead of query rows and
+// stage query tiles instead of key tiles; its own index maps are the _kv
+// and _cols variants below).  3xTF32 products, cp.async-staged tiles.
 //
 // A CTA of NW warps takes 16 NW query rows; warp w owns rows 16w .. 16w + 15,
 // so a row's statistics (max, sum, LSE, Delta) stay inside the warp: lane
@@ -285,48 +288,56 @@ __host__ __device__ constexpr int a_floats(int tiles) {
   return (MODE == kShared ? 2 : 1) * tiles * 16 * NW * (DP + 4);
 }
 
-// s[i][j] = a[i] x (rows 8j .. 8j + 7 of the split (8 NJ, DP) tile bt[i])^T
-// for each of NP products at once: the products' accumulators are
-// independent chains, so two products in one walk (S and dP) keep more
-// MMAs in flight than one after the other
-template <int DP, int NJ, int MAT, int NP, class A>
-__device__ __forceinline__ void mma_abt(const A* const (&a)[NP],
-                                        const float* const (&bt)[NP],
-                                        float (&s)[NP][NJ][4]) {
+// one k-step of s[j] = a x (rows 8j .. 8j + 7 of the split (8 NJ, DP) tile
+// bt)^T: ldmatrix matrices big columns 8ks .. + 3 and + 4 .. + 7, then
+// small's, from the lane's offset lo (mma_abt's)
+template <int DP, int NJ, int MAT, class A>
+__device__ __forceinline__ void abt_step(const A& a, const float* bt, int ks, int lo,
+                                         float (&s)[NJ][4]) {
   constexpr int RS = DP + 4;
-  const int lane = threadIdx.x & 31;
+  uint32_t ab[4], as[4];
+  a.get(ks, ab, as);
 #pragma unroll
-  for (int i = 0; i < NP; ++i)
+  for (int j = 0; j < NJ; ++j) {
+    uint32_t f[4];
+    ldsm_x4(f, reinterpret_cast<const uint32_t*>(bt) + lo + 8 * j * RS + 8 * ks);
+    const uint32_t bb[2] = {f[0], f[1]}, bs[2] = {f[2], f[3]};
+    mma3(s[j], ab, as, bb, bs);
+  }
+}
+
+// s[i][j] = a_i x (rows 8j .. 8j + 7 of the split (8 NJ, DP) tile bt[i])^T
+// for each of the products at once (a_i of any AFrags kind: the kv-major
+// kernel's K in shared memory and V in registers): the products'
+// accumulators are independent chains, so two products in one walk (S and
+// dP) keep more MMAs in flight than one after the other
+template <int DP, int NJ, int MAT, class... A>
+__device__ __forceinline__ void mma_abt(float (&s)[sizeof...(A)][NJ][4],
+                                        const float* const (&bt)[sizeof...(A)],
+                                        const A&... a) {
+#pragma unroll
+  for (int i = 0; i < (int)sizeof...(A); ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[i][j][e] = 0.0f;
-  // ldmatrix matrices: big columns 8ks .. + 3 and + 4 .. + 7, then small's
-  const int lo = (lane & 7) * RS + 4 * ((lane >> 3) & 1) + (lane >> 4) * MAT;
+  const int lane = threadIdx.x & 31;
+  const int lo = (lane & 7) * (DP + 4) + 4 * ((lane >> 3) & 1) + (lane >> 4) * MAT;
 #pragma unroll
-  for (int ks = 0; ks < DP / 8; ++ks)
-#pragma unroll
-    for (int i = 0; i < NP; ++i) {
-      uint32_t ab[4], as[4];
-      a[i]->get(ks, ab, as);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        uint32_t f[4];
-        ldsm_x4(f, reinterpret_cast<const uint32_t*>(bt[i]) + lo + 8 * j * RS +
-                       8 * ks);
-        const uint32_t bb[2] = {f[0], f[1]}, bs[2] = {f[2], f[3]};
-        mma3(s[i][j], ab, as, bb, bs);
-      }
-    }
+  for (int ks = 0; ks < DP / 8; ++ks) {
+    int i = 0;
+    ((abt_step<DP, NJ, MAT>(a, bt[i], ks, lo, s[i]), ++i), ...);
+  }
 }
 
-// acc += P x (the split (8 NJ, DP) tile x), P (16 x 8 NJ) in accumulator
-// layout: p[j] = rows g, g + 8 at keys 8j + 2t, 8j + 2t + 1.  Output tile
-// 4m + e, n column c is head dim 32m + 4c + e.
-template <int DP, int NJ, int MAT>
-__device__ __forceinline__ void mma_pb(const float (&p)[NJ][4],
-                                       const float* __restrict__ x,
-                                       float (&acc)[DP / 8][4]) {
+// acc += P x over MN of the head dim's 32-wide blocks from block m0 (the
+// split (8 NJ, DP) tile x), P (16 x 8 NJ) in accumulator layout: p[j] =
+// rows g, g + 8 at keys 8j + 2t, 8j + 2t + 1.  Output tile 4 mm + e, n
+// column c is head dim 32 (m0 + mm) + 4c + e.
+template <int DP, int NJ, int MAT, int MN>
+__device__ __forceinline__ void mma_pb_cols(const float (&p)[NJ][4],
+                                            const float* __restrict__ x, int m0,
+                                            float (&acc)[4 * MN][4]) {
   constexpr int RS = DP + 4;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const uint32_t* u = reinterpret_cast<const uint32_t*>(x);
@@ -337,56 +348,84 @@ __device__ __forceinline__ void mma_pb(const float (&p)[NJ][4],
     split(p[j][2], ab[1], as[1]);
     split(p[j][1], ab[2], as[2]);
     split(p[j][3], ab[3], as[3]);
-    const int o = (8 * j + 2 * t) * RS + 4 * g;
+    const int o = (8 * j + 2 * t) * RS + 4 * g + 32 * m0;
 #pragma unroll
-    for (int m = 0; m < DP / 32; ++m) {
+    for (int mm = 0; mm < MN; ++mm) {
       // keys 8j + 2t (r = 0) and 8j + 2t + 1 (r = 1), dims 32m + 4g .. + 3
       uint4 b[2], s[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        b[r] = *reinterpret_cast<const uint4*>(u + o + r * RS + 32 * m);
-        s[r] = *reinterpret_cast<const uint4*>(u + MAT + o + r * RS + 32 * m);
+        b[r] = *reinterpret_cast<const uint4*>(u + o + r * RS + 32 * mm);
+        s[r] = *reinterpret_cast<const uint4*>(u + MAT + o + r * RS + 32 * mm);
       }
       const uint32_t bb[4][2] = {{b[0].x, b[1].x}, {b[0].y, b[1].y},
                                  {b[0].z, b[1].z}, {b[0].w, b[1].w}};
       const uint32_t bs[4][2] = {{s[0].x, s[1].x}, {s[0].y, s[1].y},
                                  {s[0].z, s[1].z}, {s[0].w, s[1].w}};
 #pragma unroll
-      for (int e = 0; e < 4; ++e) mma3(acc[4 * m + e], ab, as, bb[e], bs[e]);
+      for (int e = 0; e < 4; ++e) mma3(acc[4 * mm + e], ab, as, bb[e], bs[e]);
     }
   }
 }
 
-// rows r (the lane's row g) and r + 8 of a (n, d) output from mma_pb's acc,
-// each times its factor: tile 4m + e gives dims 32m + 8t + e (and + 4);
-// vec: d % 4 == 0 and dst 16-byte aligned
-template <int DP>
-__device__ __forceinline__ void store_rows(float* __restrict__ dst,
-                                           const float (&acc)[DP / 8][4],
-                                           int r, int n, int d,
-                                           const float (&f)[2], bool vec) {
+// acc += P x over the whole head dim.  Output tile 4m + e, n column c is
+// head dim 32m + 4c + e.
+template <int DP, int NJ, int MAT>
+__device__ __forceinline__ void mma_pb(const float (&p)[NJ][4],
+                                       const float* __restrict__ x,
+                                       float (&acc)[DP / 8][4]) {
+  mma_pb_cols<DP, NJ, MAT, DP / 32>(p, x, 0, acc);
+}
+
+// rows r (the lane's row g) and r + 8 of a (n, d) output from
+// mma_pb_cols's acc over MN blocks from m0, each times its factor, stored
+// or, with add, added to what is there: tile 4 mm + e gives dims
+// 32 (m0 + mm) + 8t + e (and + 4); vec: d % 4 == 0 and dst 16-byte aligned
+template <int MN>
+__device__ __forceinline__ void store_rows_cols(float* __restrict__ dst,
+                                                const float (&acc)[4 * MN][4], int r,
+                                                int n, int d, int m0, const float (&f)[2],
+                                                bool vec, bool add) {
   const int t = threadIdx.x & 3;
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     if (r + 8 * hf >= n) continue;
     float* row = dst + (size_t)(r + 8 * hf) * d;
 #pragma unroll
-    for (int m = 0; m < DP / 32; ++m)
+    for (int mm = 0; mm < MN; ++mm)
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const int c = 32 * m + 8 * t + 4 * half;
+        const int c = 32 * (m0 + mm) + 8 * t + 4 * half;
         float x[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) x[e] = acc[4 * m + e][2 * hf + half] * f[hf];
+        for (int e = 0; e < 4; ++e) x[e] = acc[4 * mm + e][2 * hf + half] * f[hf];
         if (vec && c < d) {
-          *reinterpret_cast<float4*>(row + c) = make_float4(x[0], x[1], x[2], x[3]);
+          float4* o = reinterpret_cast<float4*>(row + c);
+          if (add) {
+            const float4 y = *o;
+            x[0] += y.x;
+            x[1] += y.y;
+            x[2] += y.z;
+            x[3] += y.w;
+          }
+          *o = make_float4(x[0], x[1], x[2], x[3]);
         } else {
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            if (c + e < d) row[c + e] = x[e];
+            if (c + e < d) row[c + e] = add ? row[c + e] + x[e] : x[e];
         }
       }
   }
+}
+
+// rows r and r + 8 of a (n, d) output from mma_pb's acc, each times its
+// factor: tile 4m + e gives dims 32m + 8t + e (and + 4)
+template <int DP>
+__device__ __forceinline__ void store_rows(float* __restrict__ dst,
+                                           const float (&acc)[DP / 8][4],
+                                           int r, int n, int d,
+                                           const float (&f)[2], bool vec) {
+  store_rows_cols<DP / 32>(dst, acc, r, n, d, 0, f, vec, false);
 }
 
 // ---------------------------------------------------------------- rows
@@ -432,6 +471,36 @@ __device__ __forceinline__ void keep_scales(uint32_t bits, float sc,
   m[1] = (k01 >> e & 1u) ? sc : 0.0f;
   m[2] = (k10 >> e & 1u) ? sc : 0.0f;
   m[3] = (k11 >> e & 1u) ? sc : 0.0f;
+}
+
+// The kv-major form of the two (flash_bwd_fused.cu), where an accumulator
+// fragment holds keys (rows g, g + 8 of the warp's 16 from j0) by queries
+// (n columns 2t, 2t + 1 of an 8-query tile from i0, a multiple of 4):
+// keep_bits_kv: the warp makes the tile's 32 Philox calls (16 keys x 2
+// four-query groups), lane L the call of key j0 + L % 16 and group i0 / 4 +
+// L / 16, and packs its 4 keep bits; keep_scales_kv hands lane (g, t) the
+// bits of its two keys in its group t / 2, words 2 (t % 2) and + 1, as
+// m = {(g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)}.
+__device__ __forceinline__ uint32_t keep_bits_kv(uint2 key, int i0, int j0, int h,
+                                                 int b, uint32_t thr) {
+  const int lane = threadIdx.x & 31;
+  const uint4 w = flash::philox4x32_10(
+      make_uint4((uint32_t)(j0 + (lane & 15)), (uint32_t)((i0 >> 2) + (lane >> 4)),
+                 (uint32_t)h, (uint32_t)b),
+      key);
+  return (uint32_t)(w.x >= thr) | (uint32_t)(w.y >= thr) << 1 |
+         (uint32_t)(w.z >= thr) << 2 | (uint32_t)(w.w >= thr) << 3;
+}
+
+__device__ __forceinline__ void keep_scales_kv(uint32_t bits, float sc, float (&m)[4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int src = 16 * (t >> 1) + g, e = 2 * (t & 1);
+  const uint32_t k0 = __shfl_sync(0xffffffffu, bits, src);      // key g
+  const uint32_t k1 = __shfl_sync(0xffffffffu, bits, src + 8);  // key g + 8
+  m[0] = (k0 >> e & 1u) ? sc : 0.0f;
+  m[1] = (k0 >> (e + 1) & 1u) ? sc : 0.0f;
+  m[2] = (k1 >> e & 1u) ? sc : 0.0f;
+  m[3] = (k1 >> (e + 1) & 1u) ? sc : 0.0f;
 }
 
 // 16-byte alignment of a pointer (a null one passes)

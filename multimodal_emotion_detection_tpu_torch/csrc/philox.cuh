@@ -1,7 +1,8 @@
 // Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1,
 // 2, 3", SC 2011; the Random123 constants) and the attention-dropout keep
-// test built on it.  Included by flash_fwd.cu and flash_bwd.cu, so the
-// forward and both backward forms regenerate one mask.  The plain PyTorch
+// test built on it.  Included by every flash kernel (flash_bwd.cu directly,
+// the others through flash_mma.cuh), so the forward and both backward forms
+// regenerate one mask.  The plain PyTorch
 // twin is ops/flash_attention.py::philox4x32 / attn_keep_mask.
 //
 // Keep mask of one attention call: key = (seed low word, seed high word),

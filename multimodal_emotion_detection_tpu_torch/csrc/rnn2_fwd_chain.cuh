@@ -3,9 +3,9 @@
 // instantiated by gru2_infer.cu with GruCell and lstm2_infer.cu with
 // LstmCell; its training form (TRAIN: the residuals the reverse chains
 // read) by gru2_train_fwd.cu with GruCell, lstm2_train_fwd.cu with
-// LstmCell and, without the gates, LstmNoGatesCell, and
-// lstm2_train_fwd_legacy.cu with LstmLegacyCell (the legacy layout's 12H
-// rows).
+// LstmCell and, without the gates, LstmNoGatesCell, and by the legacy
+// layout's two, lstm2_train_fwd_legacy.cu with LstmLegacyCell (12H rows)
+// and gru2_train_fwd_legacy.cu with GruLegacyCell (10H rows).
 //
 // Both layers walk t = 0 .. T-1 from zero state.  Layer 0's step needs,
 // for each batch row b and each of its W H gate columns,
@@ -22,8 +22,7 @@
 // outside, batch-major (B, T, W H) in the eval form, time-major (T, B, W H)
 // in the training form).
 //
-// What bounded the first designs (the five sources before this core; the
-// GRU's legacy training forward, gru2_train_fwd_legacy.cu, keeps it):
+// What bounded the first designs (every source's before this core):
 // every CTA owned units of both layers and
 // read h0 and h1 (training: and x1) whole from L2 every phase (64 KiB a CTA
 // at (32, 372, 256), training 96), its 8 warps' partial sums met in shared
@@ -72,11 +71,12 @@
 // [c0_prev | c1_prev], 2H; GRU [r0 | z0 | n0 | hn0 | r1 | z1 | n1 | hn1],
 // 8H, hn = h_prev w_hn + b_hn before r), h0p / h1p (the state before each
 // step, row 0 zero), x1, and after step T - 1 the finals (LSTM [h0, c0, h1,
-// c1], GRU [h0, h1], each (B, H)).  The legacy LSTM cell stores instead
-// res[t] (12H) = [g0 | g1 | h0 | h1 | c0 | c1] with the states AFTER the
-// step, and after step T - 1 h1 alone (finals (B, H)); its h0p / h1p / x1
-// are the exchange only (scratch the caller allocates; row 0 of h0p / h1p
-// is neither written nor read).
+// c1], GRU [h0, h1], each (B, H)).  The legacy cells store instead
+// res[t], the LSTM's (12H) = [g0 | g1 | h0 | h1 | c0 | c1], the GRU's (10H)
+// = [r0 | z0 | n0 | hn0 | h0 | r1 | z1 | n1 | hn1 | h1], with the states
+// AFTER the step, and after step T - 1 h1 alone (finals (B, H)); their
+// h0p / h1p / x1 are the exchange only (scratch the caller allocates; row
+// 0 of h0p / h1p is neither written nor read).
 //
 // Any B >= 1; H % 4 == 0 with 2 H / UPC <= the SM count.  Built with
 // -DRNN_CHAIN_TIMERS=1 each warp splits its steps into the buckets of
@@ -115,9 +115,10 @@ struct Args {
   const float* keep;      // (T, B, H): the layer-0 -> 1 keep mask
   float* hp[2];           // (T, B, H): layer l's h before each step
   float* x1;              // (T, B, H): layer 1's input h0 keep
-  float* packed;          // (T, B, 10H, 2H or 8H; legacy LSTM 12H): the cells' residuals
+  float* packed;          // (T, B, 10H, 2H or 8H; legacy LSTM 12H, GRU 10H): the
+                          // cells' residuals
   float* finals;          // LSTM (4, B, H) [h0, c0, h1, c1]; GRU (2, B, H) [h0, h1];
-                          // legacy LSTM (B, H) h1
+                          // legacy cells (B, H) h1
 };
 
 // shared memory of a plan, in floats: the weights W NU x ldw over the
@@ -163,6 +164,21 @@ __device__ __forceinline__ void put_train(const Args& a, int layer, int t, int b
   }
 }
 
+// a legacy cell's h of step t: the exchange only (into layer l's h_prev
+// series at row t + 1, layer 0's x1 = h keep; row 0 of the h_prev series is
+// neither written nor read), and after the last step layer 1's h into
+// finals (B, H)
+__device__ __forceinline__ void put_legacy(const Args& a, int layer, int t, int b, int j,
+                                           float h, float k) {
+  const size_t BH = (size_t)a.batch * a.hidden, o = (size_t)b * a.hidden + j;
+  if (layer == 0) a.x1[t * BH + o] = h * k;
+  if (t + 1 < a.t_len) {
+    of_layer(a.hp, layer)[(t + 1) * BH + o] = h;
+  } else if (layer == 1) {
+    a.finals[o] = h;
+  }
+}
+
 // float4 column c of row b of segment seg read at step t: the layer's own
 // h of step t - 1, or (seg 1) the feed, h0 of step t (training: x1[t])
 template <bool TRAIN>
@@ -203,25 +219,33 @@ struct GruCell {
     }
     if (TRAIN && layer == 0) in.k = __ldg(a.keep + row * H + j);
   }
-  // own: the recurrent products of the unit's 3 gate columns; feed: the
-  // input products (layer 1; zero for layer 0); hp: the carry h before the
-  // step; returns h after it
-  template <bool TRAIN>
-  __device__ static float step(const Args& a, int layer, int t, int b, int j,
-                               const In& in, const float (&own)[3],
-                               const float (&feed)[3], float hp) {
+  // the activations g = [r, z, n, hn] (hn = h_prev w_hn + b_hn, before r)
+  // from the products (own: the recurrent ones of the unit's 3 gate
+  // columns; feed: the input ones, layer 1; zero for layer 0) and the
+  // carry h before the step; returns h after it
+  __device__ static float gates(const In& in, const float (&own)[3],
+                                const float (&feed)[3], float hp, float (&g)[4]) {
     const float hn = own[2] + in.bh[2];
     const float r = sigmoidf_(in.x[0] + feed[0] + own[0] + in.bh[0]);
     const float z = sigmoidf_(in.x[1] + feed[1] + own[1] + in.bh[1]);
     const float n = tanhf(in.x[2] + feed[2] + r * hn);
-    const float h = (1.0f - z) * n + z * hp;
+    g[0] = r;
+    g[1] = z;
+    g[2] = n;
+    g[3] = hn;
+    return (1.0f - z) * n + z * hp;
+  }
+  template <bool TRAIN>
+  __device__ static float step(const Args& a, int layer, int t, int b, int j,
+                               const In& in, const float (&own)[3],
+                               const float (&feed)[3], float hp) {
+    float g[4];
+    const float h = gates(in, own, feed, hp, g);
     if constexpr (TRAIN) {
       const int H = a.hidden;
       float* pk = a.packed + ((size_t)t * a.batch + b) * 8 * H + 4 * H * layer + j;
-      pk[0] = r;
-      pk[H] = z;
-      pk[2 * H] = n;
-      pk[3 * H] = hn;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pk[i * H] = g[i];
       put_train(a, layer, t, b, j, h, in.k, layer);
     } else {
       put_h(a, layer, t, b, j, h);
@@ -296,9 +320,7 @@ using LstmNoGatesCell = LstmCellT<false>;
 // LstmCell's training form in the legacy layout: the cell stores res[t]
 // (12H) = [g0 | g1 | h0 | h1 | c0 | c1], the gates at 4H layer and h and c
 // AFTER the step at (8 + layer) H and (10 + layer) H, a CTA's units of a
-// lane as one contiguous run; the exchange (h into its h_prev series at
-// row t + 1, layer 0's x1 = h keep) is the core's; after step T - 1 layer
-// 1's h into finals (B, H).
+// lane as one contiguous run; the exchange and h_final are put_legacy's.
 struct LstmLegacyCell : LstmCell {
   template <bool TRAIN>
   __device__ static float step(const Args& a, int layer, int t, int b, int j,
@@ -308,19 +330,37 @@ struct LstmLegacyCell : LstmCell {
     float g[4], h;
     const float c = gates(in, own, feed, cp, g, h);
     const int H = a.hidden;
-    const size_t BH = (size_t)a.batch * H, o = (size_t)b * H + j;
     float* r = a.packed + ((size_t)t * a.batch + b) * 12 * H + j;
 #pragma unroll
     for (int i = 0; i < 4; ++i) r[(4 * layer + i) * H] = g[i];
     r[(8 + layer) * H] = h;
     r[(10 + layer) * H] = c;
-    if (layer == 0) a.x1[t * BH + o] = h * in.k;
-    if (t + 1 < a.t_len) {
-      of_layer(a.hp, layer)[(t + 1) * BH + o] = h;
-    } else if (layer == 1) {
-      a.finals[o] = h;
-    }
+    put_legacy(a, layer, t, b, j, h, in.k);
     return c;
+  }
+};
+
+// GruCell's training form in the legacy layout: the cell stores res[t]
+// (10H) = [r0 | z0 | n0 | hn0 | h0 | r1 | z1 | n1 | hn1 | h1], layer l's
+// activations at 5 l H and its h AFTER the step at (5 l + 4) H, a CTA's
+// units of a lane as one contiguous run, through GruCell's own arithmetic
+// (gates), so it agrees with the residual-native form bit for bit; the
+// exchange is put_legacy's.
+struct GruLegacyCell : GruCell {
+  template <bool TRAIN>
+  __device__ static float step(const Args& a, int layer, int t, int b, int j,
+                               const In& in, const float (&own)[3],
+                               const float (&feed)[3], float hp) {
+    static_assert(TRAIN, "the legacy layout is a training form");
+    float g[4];
+    const float h = gates(in, own, feed, hp, g);
+    const int H = a.hidden;
+    float* r = a.packed + ((size_t)t * a.batch + b) * 10 * H + 5 * H * layer + j;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) r[i * H] = g[i];
+    r[4 * H] = h;
+    put_legacy(a, layer, t, b, j, h, in.k);
+    return h;
   }
 };
 

@@ -10,19 +10,20 @@ Four kernels, each behind a wrapper with its launch counter:
 
 * ``flash_fwd`` (``csrc/flash_fwd.cu``): online-softmax attention, writes O
   and the per-row logsumexp LSE (B, H, Tq);
-* ``flash_bwd_fused`` (``csrc/flash_bwd.cu``): the kv-major backward that
-  recomputes the probabilities from LSE, accumulates dK and dV on chip and
-  writes each kv span's dQ partial to its own slot; the wrapper sums the
-  slots (no atomics, so the result is deterministic);
-* ``flash_bwd_dkv`` (same source) and ``flash_bwd_dq``
+* ``flash_bwd_fused`` (``csrc/flash_bwd_fused.cu``): the kv-major
+  backward that recomputes the probabilities from LSE, accumulates dK and
+  dV on chip and writes each kv span's dQ partial to its own slot; the
+  wrapper sums the slots (no atomics, so the result is deterministic);
+* ``flash_bwd_dkv`` (``csrc/flash_bwd.cu``) and ``flash_bwd_dq``
   (``csrc/flash_bwd_dq.cu``): the two-pass backward for long key sequences,
   dK and dV kv-major, dQ q-major.
 
-The two q-major kernels (``flash_fwd``, ``flash_bwd_dq``) run their products
-on the tensor cores in 3xTF32 (``csrc/flash_mma.cuh``): each float32
-operand is split into two TF32 values and a product is three TF32 MMAs,
-which keeps float32 accuracy.  ``tf32_round`` and ``matmul_3xtf32`` emulate
-that arithmetic on the CPU for the tests; no path of the port calls them.
+Three of them (``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_fused``) run
+their products on the tensor cores in 3xTF32 (``csrc/flash_mma.cuh``): each
+float32 operand is split into two TF32 values and a product is three TF32
+MMAs, which keeps float32 accuracy; ``flash_bwd_dkv`` runs float32 FFMA.
+``tf32_round`` and ``matmul_3xtf32`` emulate that arithmetic on the CPU for
+the tests; no path of the port calls them.
 
 ``FlashAttention`` (an ``autograd.Function``) saves (q, k, v, bias, seed,
 O, LSE); its backward forms Delta = rowsum(dO * O) and takes the fused or
@@ -181,7 +182,7 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
 
 
 def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b as the q-major kernels form it (``csrc/flash_mma.cuh``): each
+    """a @ b as the tensor-core kernels form it (``csrc/flash_mma.cuh``): each
     operand split into big = tf32(x) and small = tf32(x - big), the product
     small·big + big·small + big·big (small·small dropped), float32 sums."""
     a_big, b_big = tf32_round(a), tf32_round(b)
@@ -201,7 +202,7 @@ FLASH_FWD = CudaKernel(
     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _U, _F, _P],
 )
 _BWD_ARGS = [_P] * 11 + [_I] * 6 + [_F, _U, _F, _P]
-FLASH_BWD_FUSED = CudaKernel("flash_bwd", "flash_bwd_fused_launch", _BWD_ARGS)
+FLASH_BWD_FUSED = CudaKernel("flash_bwd_fused", "flash_bwd_fused_launch", _BWD_ARGS)
 FLASH_BWD_DKV = CudaKernel("flash_bwd", "flash_bwd_dkv_launch", _BWD_ARGS)
 FLASH_BWD_DQ = CudaKernel("flash_bwd_dq", "flash_bwd_dq_launch", _BWD_ARGS)
 
@@ -288,10 +289,10 @@ def _bwd_launch(kernel, name, q, k, v, bias, seed, rate, do, lse, delta,
 def flash_bwd_fused(q, k, v, bias, seed, rate: float, do, lse, delta):
     """Fused backward -> (dQ, dK, dV), float32.
 
-    On a CUDA tensor this launches ``csrc/flash_bwd.cu``'s kv-major kernel
-    in its fused form (one CTA per kv span, head and batch row; each span's
-    dQ partial in its own slot, summed here) and counts it in
-    ``FLASH_BWD_FUSED.launches``; on a CPU tensor it runs
+    On a CUDA tensor this launches ``csrc/flash_bwd_fused.cu``'s kv-major
+    kernel (3xTF32 on the tensor cores; one CTA per kv span, head and batch
+    row; each span's dQ partial in its own slot, summed here) and counts it
+    in ``FLASH_BWD_FUSED.launches``; on a CPU tensor it runs
     ``flash_bwd_reference``.
     """
     if q.device.type == "cpu":
@@ -308,8 +309,9 @@ def flash_bwd_dkv(q, k, v, bias, seed, rate: float, do, lse, delta):
     """Two-pass backward, first pass -> (dK, dV), float32.
 
     On a CUDA tensor this launches ``csrc/flash_bwd.cu``'s kv-major kernel
-    in its dK/dV-only form and counts it in ``FLASH_BWD_DKV.launches``; on
-    a CPU tensor it runs ``flash_bwd_reference``.
+    (float32 FFMA, one CTA per 64-key tile, head and batch row) and counts
+    it in ``FLASH_BWD_DKV.launches``; on a CPU tensor it runs
+    ``flash_bwd_reference``.
     """
     if q.device.type == "cpu":
         return flash_bwd_reference(q, k, v, bias, seed, rate, do, lse, delta)[1:]

@@ -75,9 +75,10 @@ the 2-layer LSTM kernels:
   ``chain_plan(layers=2)``).
 
 The GRU legacy-layout twins (``set_res2_mode("off")``):
-``gru2_train_fwd_legacy`` (``csrc/gru2_train_fwd_legacy.cu``, the first
-2-layer design: ``res`` (T, B, 10H) = ``[r0 | z0 | n0 | hn0 | h0 | r1 | z1
-| n1 | hn1 | h1]``, h after each step, and ``h_final``) and
+``gru2_train_fwd_legacy`` (``csrc/gru2_train_fwd_legacy.cu``, the 2-layer
+forward core's training form with the legacy GRU cell, on
+``gru2_train_fwd_residuals``' plan: ``res`` (T, B, 10H) = ``[r0 | z0 | n0 |
+hn0 | h0 | r1 | z1 | n1 | hn1 | h1]``, h after each step, and ``h_final``) and
 ``gru2_bwd_chain_legacy`` (``csrc/gru2_bwd_chain_legacy.cu``, the 2-layer
 reverse core with the legacy GRU cell, on ``gru2_bwd_chain``'s plan: over
 the per-layer ``[h_prev | r | z | n | hn]`` rows, with an optional
@@ -1577,7 +1578,7 @@ def gru2_bwd_chain_legacy_reference(res0, res1, dys, keep_tm: torch.Tensor,
 
 GRU2_TRAIN_FWD_LEGACY = CudaKernel(
     "gru2_train_fwd_legacy", "gru2_train_fwd_legacy_launch",
-    [_P] * 10 + [_I, _I, _I, _P],
+    [_P] * 15 + [_I] * 7 + [_P],
 )
 GRU2_BWD_CHAIN_LEGACY = CudaKernel(
     "gru2_bwd_chain_legacy", "gru2_bwd_chain_legacy_launch",
@@ -1585,17 +1586,26 @@ GRU2_BWD_CHAIN_LEGACY = CudaKernel(
 )
 
 
+def gru2_train_fwd_legacy_views(res: torch.Tensor, h_final: torch.Tensor):
+    """The legacy GRU forward's result from its one (T, B, 10H) ``res`` and
+    ``h_final`` (B, H): ``(ys, h_final, ((r0, z0, n0, hn0, h0_new), (r1, z1,
+    n1, hn1, h1_new)))``, the lanes as views of ``res``."""
+    lanes = res.split(res.shape[-1] // 10, dim=-1)
+    return lanes[9], h_final, (lanes[:5], lanes[5:])
+
+
 def gru2_train_fwd_legacy(x_tm: torch.Tensor, keep_tm: torch.Tensor,
                           layer0: Params, layer1: Params):
     """Legacy-layout GRU training forward: x_tm (T, B, D), keep_tm (T, B,
     H) -> ``(ys, h_final, ((r0, z0, n0, hn0, h0_new), (r1, z1, n1, hn1,
     h1_new)))``, float32; on the card the series are views of the kernel's
-    one ``res`` (T, B, 10H).
+    one ``res`` (T, B, 10H) (``gru2_train_fwd_legacy_views``).
 
-    On a CUDA tensor this launches ``csrc/gru2_train_fwd_legacy.cu`` (the
-    first 2-layer design, one cooperative launch) and counts it in
-    ``GRU2_TRAIN_FWD_LEGACY.launches``; on a CPU tensor it runs
-    ``gru2_train_fwd_legacy_reference``.
+    On a CUDA tensor this launches ``csrc/gru2_train_fwd_legacy.cu`` (one
+    cooperative cluster launch for the whole sequence on ``chain_plan_on``'s
+    2-layer forward plan: layer 0 on one CTA set, layer 1 on another) and
+    counts it in ``GRU2_TRAIN_FWD_LEGACY.launches``; on a CPU tensor it
+    runs ``gru2_train_fwd_legacy_reference``.
     """
     if x_tm.device.type == "cpu":
         return gru2_train_fwd_legacy_reference(x_tm, keep_tm, layer0, layer1)
@@ -1610,14 +1620,21 @@ def gru2_train_fwd_legacy(x_tm: torch.Tensor, keep_tm: torch.Tensor,
     new = dict(dtype=torch.float32, device=x_tm.device)
     res = torch.empty((t_len, batch, 10 * h_dim), **new)
     h_final = torch.empty((batch, h_dim), **new)
+    # the layout holds no state before a step and no x1: the kernel's CTAs
+    # exchange h through these scratch series
+    h0p, h1p, x1 = (torch.empty((t_len, batch, h_dim), **new) for _ in range(3))
+    carry = torch.zeros((2, batch, h_dim), **new)
     check_cuda_f32("gru2_train_fwd_legacy", ih0=ih0, keep=keep, w_hh0=w[0],
                    b_hh0=w[1], w_ih1=w[2], b_ih1=w[3], w_hh1=w[4], b_hh1=w[5])
+    plan, flags = _pair_launch("gru2_train_fwd_legacy", 3, batch, h_dim, x_tm.device,
+                               forward=True)
     GRU2_TRAIN_FWD_LEGACY(
         ih0.data_ptr(), keep.data_ptr(), *(t.data_ptr() for t in w),
-        res.data_ptr(), h_final.data_ptr(), batch, t_len, h_dim, stream_of(x_tm),
+        res.data_ptr(), h_final.data_ptr(), h0p.data_ptr(), h1p.data_ptr(),
+        x1.data_ptr(), carry.data_ptr(), flags.data_ptr(), batch, t_len, h_dim,
+        plan.upc, plan.ncl, plan.rgroups, plan.kc, stream_of(x_tm),
     )
-    lanes = res.split(h_dim, dim=-1)
-    return lanes[9], h_final, (lanes[:5], lanes[5:])
+    return gru2_train_fwd_legacy_views(res, h_final)
 
 
 def gru2_bwd_chain_legacy(res0, res1, dys, keep_tm: torch.Tensor,

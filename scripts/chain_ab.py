@@ -50,16 +50,17 @@ inputs:
   ``gru2_infer`` (row 3, the input projection included) at B = 32, 24,
   16, 4 and 1, beside cuDNN's 2-layer GRU inference forward at B 32 and 1;
   ``gru2_train_fwd_residuals`` (row 14) at B = 32, 17 and 1 beside
-  cuDNN's 2-layer GRU training forward (keep = 1); and the legacy-layout
-  chain ``gru2_bwd_chain_legacy`` (row 10) over the same residuals with
-  and without ``dys`` (its gate series views of one tensor, as the legacy
-  forward's are).
+  cuDNN's 2-layer GRU training forward (keep = 1), with the legacy-layout
+  forward ``gru2_train_fwd_legacy`` (row 8) on the same inputs beside it;
+  and the legacy-layout chain ``gru2_bwd_chain_legacy`` (row 10) over the
+  same residuals with and without ``dys`` (its gate series views of one
+  tensor, as the legacy forward's are).
 
 ``--rows REGEX`` keeps only the cases (and ``--timers`` kernels, and
 ``--steps`` tags) whose names match.
 
-``--timers`` then builds rows 4, 7, 6, 7f, 12, 13, 2, 11, 15, 10, 3, 14, 5 and 9
-of both trees with ``-DRNN_CHAIN_TIMERS=1`` (``csrc/rnn_timers.cuh``) and
+``--timers`` then builds rows 4, 7, 6, 7f, 12, 13, 2, 11, 15, 10, 3, 14, 5, 9
+and 8 of both trees with ``-DRNN_CHAIN_TIMERS=1`` (``csrc/rnn_timers.cuh``) and
 prints, for each at (32, 372, 512) (the chains with ``dh_series``; the
 2-layer rows at (32, 372, 256), one block per CTA set), each
 phase's share of the
@@ -78,9 +79,9 @@ hold (UPC, cluster size, row groups), and row 13 at B 48, 64, 96, 128 and
 plan's.  ``--steps`` (with ``--parent``)
 adds ``[train]`` / ``[train_remat]`` / ``[train_legacy]`` (``set_res2_mode("off")``)
 / ``[train_big]`` / ``[train_big_gru]`` / ``[train_gru]`` / ``[train_gru_legacy]``
-(``set_res2_mode("off")`` with ``GRU_BWD2_ENABLED`` set)'s b32 train-step p50 / p90
-and ``[serve]`` / ``[serve_big]`` /
-``[serve_big_gru]`` / ``[serve_gru]``'s b32 and b1 forward p50 / p90 with
+(``set_res2_mode("off")`` with ``GRU_BWD2_ENABLED`` set) / ``[train_tf]``'s b32
+train-step p50 / p90 and ``[serve]`` / ``[serve_big]`` /
+``[serve_big_gru]`` / ``[serve_gru]`` / ``[serve_tf]``'s b32 and b1 forward p50 / p90 with
 each tree's package, parent / change / change / parent.  ``--child ROOT``, ``--timers-of
 ROOT``, ``--steps-of ROOT``, ``--probe`` and ``--sweep`` alone run one
 part.
@@ -147,7 +148,8 @@ REMAT_WIDE_B = (128, 512)
 # the 2-layer kernels' sources: two CTA sets, T + 1 phases
 PAIR_SOURCES = ("lstm2_bwd_chain", "lstm2_infer", "lstm2_train_fwd", "gru2_bwd_chain",
                 "gru2_infer", "gru2_train_fwd", "lstm2_bwd_chain_remat",
-                "gru2_bwd_chain_legacy", "lstm2_train_fwd_legacy", "lstm2_bwd_chain_legacy")
+                "gru2_bwd_chain_legacy", "lstm2_train_fwd_legacy", "lstm2_bwd_chain_legacy",
+                "gru2_train_fwd_legacy")
 # batches at which row 9 (the legacy LSTM chain) is timed
 LEGACY_CHAIN_B = (32, 1)
 
@@ -242,8 +244,9 @@ def _remat_run(torch, smoke, lk, rows):
 
 
 def _gru2_cases(torch, smoke, lk):
-    """Rows 15, 3 and 14 on the GRU config's inputs (``chip_smoke.py``'s
-    ``[gru2_bwd_chain]``, ``[gru2_infer]`` and ``[gru2_train_fwd]``): name
+    """Rows 15, 3, 14, 8 and 10 on the GRU config's inputs
+    (``chip_smoke.py``'s ``[gru2_bwd_chain]``, ``[gru2_infer]`` and
+    ``[gru2_train_fwd]``): name
     -> (run, None, cuDNN's same function or None).  ``gru2_two_chains_h256`` is the yardstick
     row 15 must beat: the legacy route's backward over the same residuals
     (layer 1's ``gru_bwd_chain``, the hop as one matmul, layer 0's)."""
@@ -287,6 +290,9 @@ def _gru2_cases(torch, smoke, lk):
         xr = x_bt[:rows].contiguous()
         cases[f"gru2_train_fwd_b{rows}_h256"] = (
             lambda a=a: lk.gru2_train_fwd_residuals(*a), None, lambda xr=xr: lib(xr))
+        # row 8, the legacy layout's forward, on the same inputs
+        cases[f"gru2_train_fwd_legacy_b{rows}_h256"] = (
+            lambda a=a: lk.gru2_train_fwd_legacy(*a), None, None)
     return cases
 
 
@@ -436,7 +442,8 @@ def _forward_latency(torch, smoke, cfg, overrides, root, raw, video, res, tag):
 
 
 def steps_of(root: Path) -> dict:
-    """``[train]`` / ``[train_big]`` / ``[train_big_gru]`` / ``[train_gru]``'s
+    """``[train]`` / ``[train_big]`` / ``[train_big_gru]`` / ``[train_gru]`` /
+    ``[train_tf]``'s (and the legacy and remat forms')
     train-step latency with ``root``'s package: b32 p50 and p90 of 60 steps
     (host clock around ``synchronize``), ``chip_smoke.py``'s configuration
     and measurement on synthetic 32-clip splits (log-mel cached where the
@@ -461,11 +468,8 @@ def steps_of(root: Path) -> dict:
 
     from multimodal_emotion_detection_tpu_torch.ops import lstm_vjp
 
-    _build.build(["logmel", "lstm2_infer", "lstm2_train_fwd", "lstm2_bwd_chain",
-                  "lstm2_bwd_chain_remat", "lstm2_train_fwd_legacy",
-                  "lstm2_bwd_chain_legacy", "lstm1_fwd", "lstm_bwd_chain", "gru1_fwd",
-                  "gru_bwd_chain", "gru2_infer", "gru2_train_fwd", "gru2_bwd_chain",
-                  "gru2_train_fwd_legacy", "gru2_bwd_chain_legacy"])
+    # every kernel source of the tree (an older tree lacks the newer ones)
+    _build.build(sorted(src.stem for src in _build.CSRC.glob("*.cu")))
     data = root / "build" / "chain_ab" / "data"
     for seed, split in enumerate(("train", "val", "test")):
         if not (data / split / "labels.npy").exists():
@@ -477,7 +481,8 @@ def steps_of(root: Path) -> dict:
                                             "runtime.lstm_remat_gates=true"]),
                            ("train_legacy", ["model.frontend.audio=logmel"]),
                            ("train_big", smoke.BIG), ("train_big_gru", smoke.BIG_GRU),
-                           ("train_gru", smoke.GRU), ("train_gru_legacy", smoke.GRU)):
+                           ("train_gru", smoke.GRU), ("train_gru_legacy", smoke.GRU),
+                           ("train_tf", smoke.TRANSFORMER)):
         if not _keep(tag):
             continue
         # [train_legacy] / [train_gru_legacy]: the legacy layout, the GRU's
@@ -527,7 +532,7 @@ def steps_of(root: Path) -> dict:
 
 
 def timers_of(root: Path) -> None:
-    """Rows 4, 7, 6, 7f, 12, 13, 2, 11, 15, 10, 3, 14, 5 and 9 of ``root`` built
+    """Rows 4, 7, 6, 7f, 12, 13, 2, 11, 15, 10, 3, 14, 5, 9 and 8 of ``root`` built
     with -DRNN_CHAIN_TIMERS=1: each bucket's share of the warps' clock time
     at (32, 372, 512) (the 2-layer rows at (32, 372, 256)), per CTA set of
     the 2-layer cores."""
@@ -553,7 +558,9 @@ def timers_of(root: Path) -> None:
                "lstm2_train_fwd_legacy_b32_h256": ("lstm2_train_fwd_legacy",
                                                    lk.LSTM2_TRAIN_FWD_LEGACY),
                "lstm2_bwd_chain_legacy_b32_h256": ("lstm2_bwd_chain_legacy",
-                                                   lk.LSTM2_BWD_CHAIN_LEGACY)}
+                                                   lk.LSTM2_BWD_CHAIN_LEGACY),
+               "gru2_train_fwd_legacy_b32_h256": ("gru2_train_fwd_legacy",
+                                                  lk.GRU2_TRAIN_FWD_LEGACY)}
     kernels = {k: v for k, v in kernels.items() if _keep(k)}
     libs = {}
     for source in {s for s, _ in kernels.values()}:

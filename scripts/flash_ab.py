@@ -11,7 +11,7 @@ L2 flushed before each, 20 calls after 3 warm-ups):
 
 * ``flash_fwd`` at the transformer encoder's (32, 4, 372, 64), rates 0 and
   0.1, and SDPA's forward on the same inputs (no dropout);
-* ``flash_bwd_fused`` there at rate 0.1, and SDPA's backward;
+* ``flash_bwd_fused`` there at rates 0.1 and 0, and SDPA's backward;
 * ``flash_bwd_dkv`` and ``flash_bwd_dq`` at (2, 4, 5000, 64) with a key
   bias at rate 0.1, and SDPA's backward there.
 
@@ -23,7 +23,12 @@ After the four children, two measurements of this checkout alone:
   registers at 1 to 8 CTAs of 4 warps per SM;
 * ``--dq-timers`` (also run after the children): ``flash_bwd_dq`` built
   with ``-DFLASH_DQ_TIMERS=1`` at (2, 4, 5000, 64), rates 0.1 and 0: each
-  phase's share of the warps' clock64() time in the key walk.
+  phase's share of the warps' clock64() time in the key walk;
+* ``--fused-timers`` (also run after the children): ``flash_bwd_fused``
+  built with ``-DFLASH_BWD_TIMERS=1`` at (32, 4, 372, 64), rates 0.1 and
+  0: each phase's share of the warps' clock64() time in the query walk
+  (the products, P / mask / dS, the dS transpose, dQ), and the cycles a
+  warp spends per query tile.
 
 Needs a CUDA card; exits non-zero without one.
 """
@@ -95,6 +100,8 @@ def child(root: Path) -> dict:
     res["sdpa_fwd_ms"] = _timed(
         lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), flush)
     res["flash_bwd_fused_ms"] = _timed(lambda: fa.flash_bwd_fused(*args), flush)
+    args0 = (q, k, v, None, seed, 0.0, do, lse, (do * o).sum(-1))
+    res["flash_bwd_fused_rate0_ms"] = _timed(lambda: fa.flash_bwd_fused(*args0), flush)
     res["sdpa_bwd_ms"] = _timed(sdpa_bwd(q, k, v, None, do), flush)
 
     rng = np.random.RandomState(31)
@@ -165,16 +172,9 @@ def dq_timers(root: Path) -> None:
     from multimodal_emotion_detection_tpu_torch.ops import _build
     from multimodal_emotion_detection_tpu_torch.ops import flash_attention as fa
 
-    csrc = root / "multimodal_emotion_detection_tpu_torch" / "csrc"
-    path = _nvcc_lib(root, csrc / "flash_bwd_dq.cu", "flash_bwd_dq_timers",
-                     ["-DFLASH_DQ_TIMERS=1"])
-    lib = ctypes.CDLL(str(path))
     kern = _build.CudaKernel("flash_bwd_dq", "flash_bwd_dq_launch",
                              fa.FLASH_BWD_DQ.argtypes)
-    kern._fn = lib.flash_bwd_dq_launch
-    kern._fn.argtypes, kern._fn.restype = kern.argtypes, ctypes.c_int
-    kern._err_str = lib.flash_bwd_dq_error_string
-    kern._err_str.argtypes, kern._err_str.restype = [ctypes.c_int], ctypes.c_char_p
+    lib = _timed_lib(root, "flash_bwd_dq", "-DFLASH_DQ_TIMERS=1", kern)
     timers = lib.flash_bwd_dq_timers
     timers.argtypes = [ctypes.c_void_p, ctypes.c_int]
     fa.FLASH_BWD_DQ = kern
@@ -203,6 +203,62 @@ def dq_timers(root: Path) -> None:
             f"{n} {100 * x / total:.1f}%" for n, x in zip(names, buf)))
 
 
+def _timed_lib(root: Path, src: str, flag: str, kern):
+    """``src`` built with ``flag`` into its own library and bound to
+    ``kern`` (a ``CudaKernel``) in place of the default build; returns the
+    library."""
+    import ctypes
+
+    csrc = root / "multimodal_emotion_detection_tpu_torch" / "csrc"
+    lib = ctypes.CDLL(str(_nvcc_lib(root, csrc / f"{src}.cu", f"{src}_timers", [flag])))
+    kern._fn = getattr(lib, kern.symbol)
+    kern._fn.argtypes, kern._fn.restype = kern.argtypes, ctypes.c_int
+    kern._err_str = getattr(lib, f"{src}_error_string")
+    kern._err_str.argtypes, kern._err_str.restype = [ctypes.c_int], ctypes.c_char_p
+    return lib
+
+
+def fused_timers(root: Path) -> None:
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(root))
+    from multimodal_emotion_detection_tpu_torch.ops import flash_attention as fa
+
+    lib = _timed_lib(root, "flash_bwd_fused", "-DFLASH_BWD_TIMERS=1", fa.FLASH_BWD_FUSED)
+    timers = lib.flash_bwd_fused_timers
+    timers.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(5)
+    b, h, t, d = 32, 4, 372, 64
+    q, k, v, do = (torch.from_numpy(rng.randn(b, h, t, d).astype(np.float32)).to(dev)
+                   for _ in range(4))
+    seed = torch.tensor([0x5EED_0F_F1A5], dtype=torch.int64, device=dev)
+    names = ["wait", "split + barrier", "S^T = K Q^T and dP^T = V dO^T",
+             "P, mask, dS", "dV += (P M)^T dO and dK += dS^T Q",
+             "dS transpose + barrier", "dQ = dS K"]
+    buf = (ctypes.c_ulonglong * len(names))()
+    n_spans, per_span = fa.kv_spans(t)
+    # every thread adds its clock: threads x query tiles of 32 walked by
+    # every CTA (each span's key tiles), 32 a warp
+    walks = n_spans * per_span * h * b * 128 * -(-t // 32)
+    for rate in (0.1, 0.0):
+        o, lse = fa.flash_fwd_reference(q, k, v, None, seed, rate)
+        args = (q, k, v, None, seed, rate, do, lse, (do * o).sum(-1))
+        fa.flash_bwd_fused(*args)
+        torch.cuda.synchronize()
+        timers(ctypes.addressof(buf), 1)
+        fa.flash_bwd_fused(*args)
+        torch.cuda.synchronize()
+        timers(ctypes.addressof(buf), 1)
+        total = sum(buf)
+        print(f"[fused_timers] ({b}, {h}, {t}, {d}) rate {rate}: "
+              f"{total / walks:.0f} cycles a warp and query tile; " + ", ".join(
+                  f"{n} {100 * x / total:.1f}%" for n, x in zip(names, buf)))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     group = ap.add_mutually_exclusive_group(required=True)
@@ -210,13 +266,15 @@ def main() -> None:
     group.add_argument("--child", type=Path, help="time this tree alone")
     group.add_argument("--mma-rate", action="store_true", help="mma.sync TF32 rate")
     group.add_argument("--dq-timers", action="store_true", help="dq phase shares")
+    group.add_argument("--fused-timers", action="store_true",
+                       help="the fused backward's phase shares")
     opts = ap.parse_args()
     here = Path(__file__).resolve().parents[1]
     if opts.child is not None:
         print(json.dumps(child(opts.child.resolve())))
         return
-    if opts.mma_rate or opts.dq_timers:
-        (mma_rate if opts.mma_rate else dq_timers)(here)
+    if opts.mma_rate or opts.dq_timers or opts.fused_timers:
+        (mma_rate if opts.mma_rate else dq_timers if opts.dq_timers else fused_timers)(here)
         return
     parent = opts.parent.resolve()
     runs = []
@@ -230,7 +288,7 @@ def main() -> None:
     for key in keys:
         print(f"[flash_ab] {key}: " + ", ".join(
             f"{tag} {r[key]:.4f}" for tag, r in runs))
-    for flag in ("--mma-rate", "--dq-timers"):
+    for flag in ("--mma-rate", "--dq-timers", "--fused-timers"):
         subprocess.run([sys.executable, __file__, flag], check=True)
 
 

@@ -1,17 +1,23 @@
-"""PyTorch port, the 3xTF32 arithmetic of the q-major flash kernels
-(``csrc/flash_mma.cuh``: ``flash_fwd`` and ``flash_bwd_dq``) on the CPU.
+"""PyTorch port, the 3xTF32 arithmetic of the tensor-core flash kernels
+(``csrc/flash_mma.cuh``: ``flash_fwd`` and ``flash_bwd_dq``, q-major, and
+``flash_bwd_fused``, kv-major) on the CPU.
 
 ``ops/flash_attention.py::tf32_round`` / ``matmul_3xtf32`` emulate the
 kernels' products (each operand split into two TF32 values, three TF32
-products, small x small dropped).  The forward and the dQ formula run
-through that emulation are held against the plain versions and against the
-JAX package's ``flash_attention(interpret=True)`` at the transformer
-encoder's (2, 4, 372, 64) and at a long-key (1, 2, 64, 5000, 64), rate 0,
-under the kernels' own bounds (O and LSE 1e-4 abs + 1e-4 rel, dQ 1e-4 of
-its largest entry).  A numpy model of the m16n8k8 fragments checks the
-kernels' index tricks: P multiplied straight from the accumulator
-registers (permuted k order), the four-tile output order, and the Philox
-words shared by shuffle.
+products, small x small dropped).  The forward, the dQ formula and the
+fused backward (its products in the kernel's kv-major order: S^T = K Q^T,
+dP^T = V dO^T, dV = (P M)^T dO, dK = dS^T Q, dQ = dS K) run through that
+emulation are held against the plain versions and against the JAX
+package's ``flash_attention(interpret=True)`` (its gradients by
+``jax.grad``) at the transformer encoder's (2, 4, 372, 64) and at a
+long-key (1, 2, 64, 5000, 64), rate 0, under the kernels' own bounds (O and
+LSE 1e-4 abs + 1e-4 rel, a gradient 1e-4 of its largest entry); the fused
+backward also at rate 0.1 against the plain version, and one TF32 pass
+shown to miss that bound.  A numpy model of the m16n8k8 fragments checks
+the kernels' index tricks: P multiplied straight from the accumulator
+registers (permuted k order), the four-tile output order, the Philox words
+shared by shuffle in both layouts, and the fused backward's dS transpose
+through shared memory into dQ.
 
     python tests/test_torch_port_flash_tc.py   # prints the errors of
                                                # 3xTF32 and of one TF32 pass
@@ -71,6 +77,26 @@ def dq_emulated(q, k, v, bias, do, lse, delta, mm=fa.matmul_3xtf32):
     p = torch.exp(s - lse[..., None])
     ds = p * (mm(do, v.transpose(-1, -2)) - delta[..., None]) * scale
     return mm(ds, k)
+
+
+def fused_bwd_emulated(q, k, v, bias, seed, rate, do, lse, delta, mm=fa.matmul_3xtf32):
+    """flash_bwd_fused.cu with its products as ``mm``, each with the
+    kernel's A and B operands: kv-major scores S^T = K Q^T and dP^T = V dO^T
+    (keys as rows), P^T with the key bias per row and LSE and Delta per
+    column, the mask transposed, then dV = (P M)^T dO, dK = dS^T Q and dQ =
+    dS K -> (dQ, dK, dV)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    st = mm(k, q.transpose(-1, -2)) * scale
+    if bias is not None:
+        st = st + bias[:, None, :, None]
+    pt = torch.exp(st - lse[..., None, :])
+    dpt = mm(v, do.transpose(-1, -2))
+    mt = 1.0
+    if rate > 0.0:
+        b, h, tq, _ = q.shape
+        mt = fa.attn_keep_mask(seed, rate, (b, h, tq, k.shape[2])).transpose(-1, -2)
+    dst = pt * (dpt * mt - delta[..., None, :]) * scale
+    return mm(dst.transpose(-1, -2), k), mm(dst, q), mm(pt * mt, do)
 
 
 SHAPES = {
@@ -135,6 +161,55 @@ def test_dq_in_3xtf32_matches_plain_and_jax(name):
         # a gradient sums up to Tk terms: 1e-4 of its largest entry
         scale = max(float(np.abs(want).max()), 1.0)
         np.testing.assert_allclose(dq.numpy(), want, rtol=1e-4, atol=1e-4 * scale)
+
+
+def _close_to_largest(got, want, what):
+    # a gradient sums up to T terms: 1e-4 of its largest entry
+    scale = max(float(np.abs(want).max()), 1.0)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * scale, err_msg=what)
+
+
+@pytest.mark.parametrize("name", list(SHAPES))
+def test_fused_bwd_in_3xtf32_matches_plain_and_jax(name):
+    arrays, (q, k, v, bias, do), _, lse_ref, delta = _case(name)
+    got = fused_bwd_emulated(q, k, v, bias, None, 0.0, do, lse_ref, delta)
+    plain = fa.flash_bwd_reference(q, k, v, bias, None, 0.0, do, lse_ref, delta)
+    jq, jk, jv = (jnp.asarray(a) for a in arrays[:3])
+    jbias = None if arrays[3] is None else jnp.asarray(arrays[3])
+    cot = jnp.asarray(arrays[4])
+
+    def loss(q_, k_, v_):
+        return jnp.sum(jax_flash_attention(q_, k_, v_, jbias, interpret=True) * cot)
+
+    with jax.default_matmul_precision("highest"):
+        want_jax = jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)
+    for label, g, p, j in zip(("dQ", "dK", "dV"), got, plain, want_jax):
+        _close_to_largest(g.numpy(), p.numpy(), f"{label} vs plain")
+        _close_to_largest(g.numpy(), np.asarray(j), f"{label} vs JAX")
+
+
+def test_fused_bwd_in_3xtf32_with_dropout_matches_plain():
+    # rate 0.1 (the transformer config's training rate): the mask enters
+    # transposed, one Philox word per (key, query)
+    _, (q, k, v, bias, do), _, _, _ = _case("encoder-2x4x372x64")
+    seed = torch.tensor([0x5EED_0F_F1A5], dtype=torch.int64)
+    o, lse = fa.flash_fwd_reference(q, k, v, bias, seed, 0.1)
+    args = (q, k, v, bias, seed, 0.1, do, lse, (do * o).sum(-1))
+    for label, g, p in zip(("dQ", "dK", "dV"), fused_bwd_emulated(*args),
+                           fa.flash_bwd_reference(*args)):
+        _close_to_largest(g.numpy(), p.numpy(), label)
+
+
+def test_one_tf32_pass_misses_the_fused_bound():
+    # the three passes are needed: one TF32 product per product misses the
+    # kernels' 1e-4 of the largest entry
+    _, (q, k, v, bias, do), _, lse_ref, delta = _case("encoder-2x4x372x64")
+    args = (q, k, v, bias, None, 0.0, do, lse_ref, delta)
+    plain = fa.flash_bwd_reference(*args)
+    once = fused_bwd_emulated(*args, mm=_tf32_once)
+    errs = [float((g - p).abs().max() / max(float(p.abs().max()), 1.0))
+            for g, p in zip(once, plain)]
+    assert max(errs) > 1e-4, errs
 
 
 # ---------------------------------------------------------------------------
@@ -274,6 +349,99 @@ def test_keep_bits_shuffles_give_the_plain_mask():
             assert got == [int(w) for w in want], (i0, j0, lane)
 
 
+def test_keep_bits_kv_shuffles_give_the_plain_mask():
+    # flash_mma.cuh::keep_bits_kv / keep_scales_kv: lane L makes the Philox
+    # call of key j0 + L % 16 and four-query group i0 / 4 + L / 16; lane (g,
+    # t) takes words 2 (t % 2) and + 1 of lanes 16 (t / 2) + g (key g) and +
+    # 8 (key g + 8), for queries i0 + 2t and + 1
+    seed = torch.tensor([0x5EED_0F_F1A5], dtype=torch.int64)
+    rate, b, h = 0.1, 1, 3
+    shape = (b + 1, h + 1, 48, 80)
+    mask = fa.attn_keep_mask(seed, rate, shape)[b, h] > 0
+    s = int(seed)
+    key = (torch.tensor(s & 0xFFFFFFFF), torch.tensor((s >> 32) & 0xFFFFFFFF))
+    thr = fa.drop_threshold(rate)
+    for i0, j0 in ((0, 0), (8, 16), (40, 64)):
+        lanes = torch.arange(32)
+        words = fa.philox4x32(((j0 + lanes % 16), (i0 // 4 + lanes // 16),
+                               torch.full((32,), h), torch.full((32,), b)), key)
+        bits = sum((w >= thr).long() << e for e, w in enumerate(words))
+        for lane in range(32):
+            g, t = lane // 4, lane % 4
+            src, e = 16 * (t // 2) + g, 2 * (t % 2)
+            got = [(int(bits[src]) >> e) & 1, (int(bits[src]) >> (e + 1)) & 1,
+                   (int(bits[src + 8]) >> e) & 1, (int(bits[src + 8]) >> (e + 1)) & 1]
+            want = [mask[i0 + 2 * t, j0 + g], mask[i0 + 2 * t + 1, j0 + g],
+                    mask[i0 + 2 * t, j0 + g + 8], mask[i0 + 2 * t + 1, j0 + g + 8]]
+            assert got == [int(w) for w in want], (i0, j0, lane)
+
+
+def test_ds_transpose_through_shared_memory_gives_dq():
+    # flash_bwd_fused.cu: warp w's dS^T fragments (keys 16w + g (+ 8),
+    # queries 8j + 2t (+ 1)) written at (query) * SD + key; warp w of the
+    # dQ product reads rows 16 (w % 2) + g (+ 8), keys 8j + 2t (+ 1) as its
+    # A fragment and multiplies by K over head-dim half w / 2
+    # (mma_pb_cols), which gives dS K
+    rng = np.random.default_rng(13)
+    tq, tk, dp, sd = 32, 64, 64, 72
+    ds = rng.standard_normal((tq, tk))
+    kt = rng.standard_normal((tk, dp))
+    smem = np.full(tq * sd, np.nan)
+    for w in range(4):
+        for lane in range(32):
+            g, t = lane // 4, lane % 4
+            for j in range(tq // 8):
+                for e in range(4):
+                    q_, key = 8 * j + 2 * t + (e & 1), 16 * w + g + 8 * (e >> 1)
+                    smem[q_ * sd + key] = ds[q_, key]
+    out = np.full((tq, dp), np.nan)
+    for w in range(4):
+        rq0, m0 = 16 * (w % 2), w // 2
+        acc = {}
+        for jk in range(tk // 8):
+            acc_p = []
+            for lane in range(32):
+                g, t = lane // 4, lane % 4
+                r = (rq0 + g) * sd + 8 * jk + 2 * t
+                acc_p.append((smem[r], smem[r + 1], smem[r + 8 * sd], smem[r + 8 * sd + 1]))
+            afrag = [(c[0], c[2], c[1], c[3]) for c in acc_p]
+            for e in range(4):
+                bfrag = []
+                for lane in range(32):
+                    g, t = lane // 4, lane % 4
+                    dim = 32 * m0 + 4 * g + e
+                    bfrag.append((kt[8 * jk + 2 * t, dim], kt[8 * jk + 2 * t + 1, dim]))
+                d = np.array(_mma_m16n8k8(afrag, bfrag))
+                acc[e] = acc.get(e, 0) + d
+        for e in range(4):
+            for lane in range(32):
+                g, t = lane // 4, lane % 4
+                for hf in range(2):
+                    for half in range(2):
+                        out[rq0 + g + 8 * hf, 32 * m0 + 8 * t + 4 * half + e] = \
+                            acc[e][lane][2 * hf + half]
+    assert not np.isnan(smem).reshape(tq, sd)[:, :tk].any()
+    np.testing.assert_allclose(out, ds @ kt, rtol=1e-12, atol=1e-12)
+
+
+def test_fused_backward_source_reaches_the_tile_core():
+    # the fused backward is the tensor-core kv-major kernel; flash_bwd.cu
+    # keeps only the two-pass form's dK / dV entry, on the float32 tiles
+    names = [p.name for p in _build._sources(_build.CSRC / "flash_bwd_fused.cu", [])]
+    assert names == ["flash_bwd_fused.cu", "flash_mma.cuh", "philox.cuh"]
+    assert fa.FLASH_BWD_FUSED.source == "flash_bwd_fused"
+    text = (_build.CSRC / "flash_bwd_fused.cu").read_text()
+    # K and V as the A operands of the score products; the kv-major mask
+    for call in ("mma_abt<", ", ka, va);", "keep_bits_kv(", "mma_pb_cols<"):
+        assert call in text, call
+    dkv = (_build.CSRC / "flash_bwd.cu").read_text()
+    assert "flash_bwd_dkv_launch" in dkv and "flash_bwd_fused_launch" not in dkv
+    assert "FUSED" not in dkv
+    assert fa.FLASH_BWD_DKV.source == "flash_bwd"
+    names = [p.name for p in _build._sources(_build.CSRC / "flash_bwd.cu", [])]
+    assert names == ["flash_bwd.cu", "flash_common.cuh", "philox.cuh"]
+
+
 def test_q_major_sources_reach_the_tile_core():
     for src in ("flash_fwd.cu", "flash_bwd_dq.cu"):
         names = [p.name for p in _build._sources(_build.CSRC / src, [])]
@@ -283,23 +451,31 @@ def test_q_major_sources_reach_the_tile_core():
 
 
 def _errors():
-    """Max abs errors of O, LSE and dQ (dQ relative to its largest entry)
-    against the plain versions, in 3xTF32 and in one TF32 pass."""
+    """Max abs errors of O, LSE, dQ and of the fused backward's dQ, dK and
+    dV (each gradient relative to its largest entry) against the plain
+    versions, in 3xTF32 and in one TF32 pass."""
     out = {}
     for name in SHAPES:
         _, (q, k, v, bias, do), o_ref, lse_ref, delta = _case(name)
-        dq_ref = fa.flash_bwd_reference(q, k, v, bias, None, 0.0, do, lse_ref, delta)[0]
+        args = (q, k, v, bias, None, 0.0, do, lse_ref, delta)
+        refs = fa.flash_bwd_reference(*args)
+
+        def rel(g, r):
+            return float((g - r).abs().max() / r.abs().max())
+
         for label, mm in (("3xTF32", fa.matmul_3xtf32), ("1xTF32", _tf32_once)):
             o, lse = fwd_emulated(q, k, v, bias, mm)
             dq = dq_emulated(q, k, v, bias, do, lse_ref, delta, mm)
+            fused = fused_bwd_emulated(*args, mm=mm)
             out[(name, label)] = (float((o - o_ref).abs().max()),
-                                  float((lse - lse_ref).abs().max()),
-                                  float((dq - dq_ref).abs().max() / dq_ref.abs().max()))
+                                  float((lse - lse_ref).abs().max()), rel(dq, refs[0]),
+                                  *(rel(g, r) for g, r in zip(fused, refs)))
     return out
 
 
 if __name__ == "__main__":
     torch.set_num_threads(1)
-    for (name, label), (eo, el, edq) in _errors().items():
+    for (name, label), (eo, el, edq, fq, fk, fv) in _errors().items():
         print(f"{name} {label}: O max abs err {eo:.3e}, LSE {el:.3e}, "
-              f"dQ {edq:.3e} of its largest entry (bounds 1e-4)")
+              f"dQ {edq:.3e}; fused backward dQ {fq:.3e}, dK {fk:.3e}, dV {fv:.3e} "
+              "of the largest entry (bounds 1e-4)")

@@ -218,7 +218,7 @@ def test_lstm2_remat_chain_takes_batches_past_its_gate_blocks(b, t):
 
 
 def test_redesigned_chains_raise_on_a_plan_that_does_not_fit():
-    """No fallback in the remat chain, the legacy GRU chain and the legacy
+    """No fallback in the remat chain, the legacy GRU pair and the legacy
     LSTM pair either: a plan their launchers do not accept (a cluster of 3,
     3 units a CTA, 3 row groups, an empty chunk; for the remat chain a gate
     block of no steps, an input width that is not a multiple of 4 or
@@ -239,6 +239,8 @@ def test_redesigned_chains_raise_on_a_plan_that_does_not_fit():
     lstm_fwd = lstm_kernel.chain_plan_on("lstm2_train_fwd_legacy", 4, h, b, dev, True,
                                          layers=2)
     lstm_bwd = lstm_kernel.chain_plan_on("lstm2_bwd_chain_legacy", 4, h, b, dev, layers=2)
+    gru_fwd = lstm_kernel.chain_plan_on("gru2_train_fwd_legacy", 3, h, b, dev, True,
+                                        layers=2)
     assert remat.rk in lstm_kernel.REMAT_KS
 
     def remat_args(upc, ncl, rgroups, kc, d_in, rk, ld=b):
@@ -257,6 +259,11 @@ def test_redesigned_chains_raise_on_a_plan_that_does_not_fit():
                 ser.data_ptr(), *(ser.data_ptr(),) * 3, carry.data_ptr(), flags.data_ptr(),
                 b, t, h, upc, ncl, rgroups, kc, stream)
 
+    def gru_fwd_args(upc, ncl, rgroups, kc):
+        return (big.data_ptr(), ser.data_ptr(), *(w.data_ptr(),) * 6, big.data_ptr(),
+                ser.data_ptr(), *(ser.data_ptr(),) * 3, carry.data_ptr(), flags.data_ptr(),
+                b, t, h, upc, ncl, rgroups, kc, stream)
+
     def lstm_bwd_args(upc, ncl, rgroups, kc):
         return (big.data_ptr(), None, ser.data_ptr(), ser.data_ptr(),
                 *(w.data_ptr(),) * 3, big.data_ptr(), carry.data_ptr(), flags.data_ptr(),
@@ -267,7 +274,8 @@ def test_redesigned_chains_raise_on_a_plan_that_does_not_fit():
              lambda *p: remat_args(*p, d, remat.rk)),
             (legacy, lstm_kernel.GRU2_BWD_CHAIN_LEGACY, legacy_args),
             (lstm_fwd, lstm_kernel.LSTM2_TRAIN_FWD_LEGACY, lstm_fwd_args),
-            (lstm_bwd, lstm_kernel.LSTM2_BWD_CHAIN_LEGACY, lstm_bwd_args)):
+            (lstm_bwd, lstm_kernel.LSTM2_BWD_CHAIN_LEGACY, lstm_bwd_args),
+            (gru_fwd, lstm_kernel.GRU2_TRAIN_FWD_LEGACY, gru_fwd_args)):
         bad = [(plan.upc, 3, plan.rgroups, plan.kc), (3, plan.ncl, plan.rgroups, plan.kc),
                (plan.upc, plan.ncl, 3, plan.kc), (plan.upc, plan.ncl, plan.rgroups, 0)]
         for upc, ncl, rgroups, kc in bad:
@@ -1146,8 +1154,18 @@ def test_lstm2_legacy_pair_takes_every_shape_the_route_sends():
     assert (fwd_k.launches, bwd_k.launches) == before
 
 
-@pytest.mark.parametrize("b,t,d,h", LEGACY_SHAPES)
+# and the GRU pair's at B 17 and an odd H / 4, as the LSTM's
+GRU_LEGACY_SHAPES = LEGACY_SHAPES + [(17, 3, 64, 256), (32, 3, 64, 260),
+                                    (17, 4, 5, 260), (1, 3, 64, 260)]
+
+
+@pytest.mark.parametrize("b,t,d,h", GRU_LEGACY_SHAPES)
 def test_gru2_legacy_kernels_match_plain(b, t, d, h):
+    """Rows 8 and 10 (the 2-layer cores' legacy GRU cells) against their
+    plain versions at 1e-4, the chain with and without dys, each one
+    counted launch; row 8 against the residual-native forward (row 14) on
+    the same inputs bit for bit on r, z, n, hn and h (one cell arithmetic,
+    one plan), row 10 against row 15 to 1e-6 of the largest."""
     dev = _card()
     x_tm, keep, l0, l1 = _gru_case(dev, b, t, d, h, seed=b * 1000 + t + 13)
     before = lstm_kernel.GRU2_TRAIN_FWD_LEGACY.launches
@@ -1161,14 +1179,15 @@ def test_gru2_legacy_kernels_match_plain(b, t, d, h):
         for j, name in enumerate(("r", "z", "n", "hn", "h_new")):
             torch.testing.assert_close(layers[i][j], r_layers[i][j], rtol=1e-4,
                                        atol=1e-4, msg=f"layer_{i}.{name}")
-    # the residual-native form on the same inputs: the same arithmetic
+    # the residual-native form on the same inputs: the same cell arithmetic
+    # and plan, so the same bits
     packed, h0p, h1p, _, finals = lstm_kernel.gru2_train_fwd_residuals(x_tm, keep, l0, l1)
     zero = torch.zeros_like(ys[:1])
     for i, hp in enumerate((h0p, h1p)):
-        _close_to_largest(torch.cat(layers[i][:4], dim=-1),
-                          packed[..., 4 * h * i:4 * h * (i + 1)], f"layer_{i} gates")
-        _close_to_largest(torch.cat([zero, layers[i][4][:-1]]), hp, f"layer_{i} h_prev")
-    _close_to_largest(h_final, finals[1], "h_final")
+        assert torch.equal(torch.cat(layers[i][:4], dim=-1),
+                           packed[..., 4 * h * i:4 * h * (i + 1)]), f"layer_{i} gates"
+        assert torch.equal(torch.cat([zero, layers[i][4][:-1]]), hp), f"layer_{i} h_prev"
+    assert torch.equal(h_final, finals[1]), "h_final"
 
     rng = np.random.RandomState(t)
     dh = torch.from_numpy(rng.randn(b, h).astype(np.float32)).to(dev)
@@ -1194,6 +1213,41 @@ def test_gru2_legacy_kernels_match_plain(b, t, d, h):
     for i, (dih, dhn) in enumerate(((dih0, dhn0), (dih1, dhn1))):
         _close_to_largest(outs[i][0], dih, f"legacy vs residual chain dih{i}")
         _close_to_largest(outs[i][1][..., 2 * h:], dhn, f"legacy vs residual chain dhn{i}")
+
+
+def test_gru2_legacy_train_fwd_takes_every_shape_the_route_sends():
+    """Every (B, H) that ``gru_route`` sends to the pair, which
+    ``set_res2_mode("off")`` runs on row 8 (2 layers, H % 4 == 0, H <= 2 x
+    SMs; any B, as the first design took them), launches it: H 4 .. 2 x
+    SMs at B 1, 33 and 300, T 2, against the plain version at 1e-4.  A
+    wider H has no plan: the wrapper raises and launches nothing."""
+    from multimodal_emotion_detection_tpu_torch.ops.lstm_vjp import gru_route
+
+    dev = _card()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    kern = lstm_kernel.GRU2_TRAIN_FWD_LEGACY
+    for h in range(4, 2 * sms + 1, 4):
+        assert gru_route(2, h, sms) == "pair"
+        for b in (1, 33, 300):
+            x_tm, keep, l0, l1 = _gru_case(dev, b, 2, 3, h, seed=h * 10 + b)
+            before = kern.launches
+            ys, h_final, layers = lstm_kernel.gru2_train_fwd_legacy(x_tm, keep, l0, l1)
+            torch.cuda.synchronize()
+            assert kern.launches == before + 1, (b, h)
+            r_ys, r_hf, r_layers = lstm_kernel.gru2_train_fwd_legacy_reference(
+                x_tm, keep, l0, l1)
+            outs = (ys, h_final, *layers[0], *layers[1])
+            refs = (r_ys, r_hf, *r_layers[0], *r_layers[1])
+            for i, (out, ref) in enumerate(zip(outs, refs)):
+                torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4,
+                                           msg=f"B={b} H={h} output {i}")
+    h = 2 * sms + 4
+    assert gru_route(2, h, sms) == "layered"
+    x_tm, keep, l0, l1 = _gru_case(dev, 2, 2, 3, h, seed=1)
+    before = kern.launches
+    with pytest.raises(ValueError, match="chain_plan"):
+        lstm_kernel.gru2_train_fwd_legacy(x_tm, keep, l0, l1)
+    assert kern.launches == before
 
 
 @pytest.mark.parametrize("route", ["lstm", "gru_fused", "gru_layered"])
@@ -1275,6 +1329,11 @@ FLASH_SHAPES = [
     (2, 2, 100, 100, 96, True, 0.1),     # head dim 96, padded to 128
     (2, 2, 70, 130, 8, False, 0.1),      # head dim 8, padded to 64
     (1, 2, 64, 5000, 64, True, 0.1),     # dq's ragged last key tile (8 keys)
+    (2, 3, 45, 150, 13, True, 0.1),      # head dim 13: the 4-byte copies
+    (3, 2, 33, 700, 128, True, 0.0),     # head dim 128, two key tiles a span
+    (2, 2, 90, 90, 72, True, 0.1),       # head dim 72, padded to 128
+    (3, 65535, 2, 2, 4, False, 0.1),     # the most heads a launch takes
+    (65535, 2, 2, 2, 4, True, 0.1),      # the most batch rows
 ]
 
 

@@ -379,25 +379,25 @@ def test_module_defaults_at_import():
 
 
 @pytest.mark.parametrize("source", ["lstm2_train_fwd.cu", "gru2_train_fwd.cu"])
-def test_train_forwards_share_one_state_tile_loader(source):
-    # the GRU's legacy training forward (its own source, the first design)
-    # loads its state tiles through the one header, and editing it rebuilds
-    # it; the residual-native forms and the LSTM's legacy form (its legacy
-    # cell) are the 2-layer forward core's training form and load no state
-    # tiles
+def test_train_forwards_legacy_and_native_share_the_forward_core(source):
+    # each 2-layer training forward's legacy form (its own source) is the
+    # 2-layer forward core's training form with its legacy cell, as the
+    # residual-native form is with its own; no source reaches the first
+    # design's state-tile loader, which is gone, and editing the core
+    # rebuilds both
     from multimodal_emotion_detection_tpu_torch.ops import _build
 
     legacy = source.replace(".cu", "_legacy.cu")
     names = [p.name for p in _build._sources(_build.CSRC / legacy, [])]
     text = (_build.CSRC / legacy).read_text()
-    if source.startswith("gru"):
-        assert names == [legacy, "state_tile.cuh"]
-        assert "state_tile::load_rows" in text and "load_tile" not in text
-    else:
-        assert "rnn2_fwd_chain.cuh" in names and "state_tile.cuh" not in names
-        assert "rnn2_fwd::LstmLegacyCell" in text
+    cell = "GruLegacyCell" if source.startswith("gru") else "LstmLegacyCell"
+    assert names[:2] == [legacy, "rnn2_fwd_chain.cuh"]
+    assert f"rnn2_fwd::launch<rnn2_fwd::{cell}, true>" in text
+    assert "grid.sync" not in text and "__global__" not in text
     core = [p.name for p in _build._sources(_build.CSRC / source, [])]
-    assert "rnn2_fwd_chain.cuh" in core and "state_tile.cuh" not in core
+    assert names[1:] == core[1:]
+    assert not (_build.CSRC / "state_tile.cuh").exists()
+    assert all("state_tile" not in p.read_text() for p in _build.CSRC.iterdir())
 
 
 def test_cpu_wrappers_are_the_plain_versions():

@@ -55,6 +55,7 @@ from multimodal_emotion_detection_tpu.ops.lstm_kernel import (
     gru2_bwd_chain_pallas,
     gru2_bwd_chain_res_padded,
     gru2_infer_pallas,
+    gru2_train_fwd_pallas,
     gru2_train_fwd_residuals as jax_train_fwd,
     lstm2_bwd_chain_padded,
     lstm2_bwd_chain_pallas,
@@ -204,6 +205,54 @@ def test_pair_plan_at_the_flagship_shape(forward):
     assert PH * plan.outputs * 4 * plan.kc == 262_144
     one = lk.chain_plan(256, 4, 1, 132, MAX_SMEM, active, forward, layers=2)
     assert (one.ncl, one.rgroups) == (2, 2)
+
+
+class _PlanLib:
+    """The plan entries of a kernel library as ``chain_plan_on`` calls them
+    through ctypes: the card (132 SMs, ``MAX_SMEM``) and each plan's
+    resident clusters as ``_measured``; records the sources asked."""
+
+    def __init__(self, asked):
+        self.asked = asked
+
+    def load(self, source):
+        def card(sms, smem):
+            sms._obj.value, smem._obj.value = 132, MAX_SMEM
+            return 0
+
+        def max_clusters(hidden, upc, ncl, rgroups, kc, count):
+            self.asked.append(source)
+            count._obj.value = _measured(132)(upc, ncl, rgroups, kc)
+            return 0
+
+        return type("Lib", (), {f"{source}_card": staticmethod(card),
+                                f"{source}_max_clusters": staticmethod(max_clusters)})()
+
+
+@pytest.mark.parametrize("legacy,native,width", [
+    ("gru2_train_fwd_legacy", "gru2_train_fwd", 3),     # row 8 on row 14's plan
+    ("lstm2_train_fwd_legacy", "lstm2_train_fwd", 4)])  # row 5 on row 11's
+def test_legacy_forward_plans_are_the_residual_native_ones(monkeypatch, legacy, native,
+                                                            width):
+    """``chain_plan_on`` for each legacy training forward (the forward core
+    with a legacy cell: the same products, buffers and shared memory) asks
+    its own library and gets the residual-native form's plan, at every
+    (H, B) of the pair's model cases."""
+    import contextlib
+
+    asked = []
+    monkeypatch.setattr(lk, "load", _PlanLib(asked).load)
+    monkeypatch.setattr(lk, "_CHAIN_PLANS", {})
+    monkeypatch.setattr(torch.cuda, "device", lambda index: contextlib.nullcontext())
+    dev = torch.device("cuda", 0)
+    for hidden in (64, 132, 256, 260, 264):
+        for batch in (1, 3, 16, 17, 32, 300):
+            plans = [lk.chain_plan_on(src, width, hidden, batch, dev, True, layers=2)
+                     for src in (legacy, native)]
+            assert plans[0] == plans[1], (hidden, batch)
+            assert plans[0] == lk.chain_plan(hidden, width, batch, 132, MAX_SMEM,
+                                             _measured(132), True, layers=2)
+    assert set(asked) == {legacy, native}
 
 
 def test_pair_plan_refuses_what_no_card_runs():
@@ -579,9 +628,10 @@ def _model_bwd(plan, cell, packed, prev, keep, dh, w_hh0, w_hh1, w_ih1, seed, ex
 
 def _model_fwd(plan, cell, ih0, l0, l1, seed, exact, keep=None, store_gates=True):
     """``pair_kernel`` of csrc/rnn2_fwd_chain.cuh with ``cell`` "gru",
-    "lstm" or (training form only) "lstm_legacy" (``LstmLegacyCell``): the
-    lead set layer 0 over its own h, the follow set layer 1 over [own h |
-    feed]; the carry h (GRU) or c (LSTM).
+    "lstm" or (training form only) "lstm_legacy" (``LstmLegacyCell``) or
+    "gru_legacy" (``GruLegacyCell``): the lead set layer 0 over its own h,
+    the follow set layer 1 over [own h | feed]; the carry h (GRU) or c
+    (LSTM).
 
     The eval form (``keep`` None): ih0 (B, T, W H), the feed h0, the lead
     set storing the h0 series, the follow set its h in two slots -> the
@@ -590,19 +640,22 @@ def _model_fwd(plan, cell, ih0, l0, l1, seed, exact, keep=None, store_gates=True
     x1 series and storing the packed rows (the LSTM's without the gates
     unless ``store_gates``) and the finals -> ``(packed, h0p, h1p, x1,
     finals)``.  The legacy LSTM stores the (T, B, 12H) rows [g0 | g1 | h0 |
-    h1 | c0 | c1] (the states after each step), h0p / h1p / x1 as the
-    exchange only (row 0 of h0p / h1p never written) and layer 1's final h
-    alone -> ``(res, h_final)``.  Every buffer starts NaN, so a read before
-    its write shows."""
+    h1 | c0 | c1] (the states after each step), the legacy GRU the (T, B,
+    10H) rows [r0 | z0 | n0 | hn0 | h0 | r1 | z1 | n1 | hn1 | h1], both
+    h0p / h1p / x1 as the exchange only (row 0 of h0p / h1p never written)
+    and layer 1's final h alone -> ``(res, h_final)``.  Every buffer starts
+    NaN, so a read before its write shows."""
     train = keep is not None
     t_len, batch = (ih0.shape[0], ih0.shape[1]) if train else (ih0.shape[1], ih0.shape[0])
     hidden, width = l0["w_hh"].shape[0], plan.width
-    legacy = cell == "lstm_legacy"
-    lstm = cell == "lstm" or legacy
+    legacy = cell in ("lstm_legacy", "gru_legacy")
+    lstm = cell in ("lstm", "lstm_legacy")
     nan = np.full
     if train:
         pw = (10 if store_gates else 2) * hidden if lstm else 8 * hidden
-        packed = nan((t_len, batch, 12 * hidden if legacy else pw), np.nan)
+        if legacy:
+            pw = (12 if lstm else 10) * hidden
+        packed = nan((t_len, batch, pw), np.nan)
         hp = [nan((t_len, batch, hidden), np.nan) for _ in range(2)]
         x1 = nan((t_len, batch, hidden), np.nan)
         finals = nan((1 if legacy else 4 if lstm else 2, batch, hidden), np.nan)
@@ -621,6 +674,8 @@ def _model_fwd(plan, cell, ih0, l0, l1, seed, exact, keep=None, store_gates=True
         z = _sig(x[1] + fed[1] + own[1] + bh[1])
         n = np.tanh(x[2] + fed[2] + r * hn)
         h = (1 - z) * n + z * cp
+        if legacy:
+            return h, h, {5 * layer + i: v for i, v in enumerate((r, z, n, hn, h))}
         return h, h, {4 * layer + i: v for i, v in enumerate((r, z, n, hn))}
 
     def lstm_cell(layer, x, gate, own, fed, cp):
@@ -865,6 +920,38 @@ def _check_legacy_lstm_fwd_model(plan, batch, t_len, d, hidden, seed, exact):
         torch.from_numpy(x_tm), torch.from_numpy(keep),
         *({k: torch.from_numpy(v) for k, v in layer.items()} for layer in (l0, l1)))
     for name, g, w in zip(LEGACY_LSTM_NAMES, got, want):
+        assert not np.isnan(g).any(), f"{name}: a read before the write, or unwritten"
+        np.testing.assert_allclose(g, w.numpy(), rtol=0, atol=1e-6, err_msg=name)
+    return got, (l0, l1, x_tm, keep)
+
+
+LEGACY_GRU_NAMES = ("ys", "h_final") + tuple(
+    f"{n}{i}" for i in range(2) for n in ("r", "z", "n", "hn", "h_new"))
+
+
+def _flat_legacy_gru(out):
+    """``(ys, h_final, ((r0, .., h0_new), (r1, .., h1_new)))`` as one tuple
+    in ``LEGACY_GRU_NAMES`` order."""
+    ys, h_final, layers = out
+    return (ys, h_final, *layers[0], *layers[1])
+
+
+def _check_legacy_gru_fwd_model(plan, batch, t_len, d, hidden, seed, exact):
+    """The forward core's training form with the legacy GRU cell (row 8):
+    the 10H rows [r0 | z0 | n0 | hn0 | h0 | r1 | z1 | n1 | hn1 | h1] and
+    h_final, cut into the wrapper's structure by
+    ``gru2_train_fwd_legacy_views``, against
+    ``gru2_train_fwd_legacy_reference`` (1e-6); keep has zeros (p = 0.1)."""
+    l0, l1, x, keep, _ = _case("gru", batch, t_len, d, hidden, seed)
+    x_tm = np.ascontiguousarray(x.transpose(1, 0, 2))
+    ih0 = x_tm.astype(np.float64) @ l0["w_ih"] + l0["b_ih"]
+    res, h_final = _model_fwd(plan, "gru_legacy", ih0, l0, l1, seed, exact, keep=keep)
+    views = lk.gru2_train_fwd_legacy_views(torch.from_numpy(res), torch.from_numpy(h_final))
+    got = tuple(v.numpy() for v in _flat_legacy_gru(views))
+    want = _flat_legacy_gru(lk.gru2_train_fwd_legacy_reference(
+        torch.from_numpy(x_tm), torch.from_numpy(keep),
+        *({k: torch.from_numpy(v) for k, v in layer.items()} for layer in (l0, l1))))
+    for name, g, w in zip(LEGACY_GRU_NAMES, got, want):
         assert not np.isnan(g).any(), f"{name}: a read before the write, or unwritten"
         np.testing.assert_allclose(g, w.numpy(), rtol=0, atol=1e-6, err_msg=name)
     return got, (l0, l1, x_tm, keep)
@@ -1124,6 +1211,21 @@ def test_pair_core_legacy_lstm_fwd_model_matches_plain(batch, t_len, hidden, sms
                                  seed=batch * 10 + t_len + hidden + 9, exact=exact)
 
 
+@pytest.mark.parametrize("batch,t_len,hidden,sms,stub,split,exact", MODEL_CASES)
+def test_pair_core_legacy_gru_fwd_model_matches_plain(batch, t_len, hidden, sms, stub,
+                                                      split, exact):
+    """The forward core's training form with the legacy GRU cell (row 8):
+    the legacy 10H rows stored with the states after each step, the h0p /
+    h1p / x1 exchange (row 0 of h0p / h1p never written), h_final from layer
+    1 alone, on row 14's plans, cut by the wrapper's lane split, against
+    ``gru2_train_fwd_legacy_reference``."""
+    active = (_measured if stub == "measured" else _every)(sms)
+    plan = lk.chain_plan(hidden, 3, batch, sms, MAX_SMEM, active, True, layers=2)
+    assert (plan.ncl, plan.rgroups) == split, plan
+    _check_legacy_gru_fwd_model(plan, batch, t_len, 5, hidden,
+                                seed=batch * 10 + t_len + hidden + 11, exact=exact)
+
+
 @pytest.mark.parametrize("with_dys", [False, True], ids=["no_dys", "dys"])
 @pytest.mark.parametrize("batch,t_len,hidden,sms,stub,split,exact", MODEL_CASES)
 def test_pair_core_legacy_lstm_model_matches_plain(batch, t_len, hidden, sms, stub, split,
@@ -1157,6 +1259,25 @@ def test_legacy_lstm_fwd_core_model_matches_the_jax_kernel():
         want = lstm2_train_fwd_pallas(jnp.asarray(x_tm), jnp.asarray(keep), l0, l1,
                                       interpret=True)
     for name, g, w in zip(LEGACY_LSTM_NAMES, got, want):
+        w = np.asarray(w)
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-5 * float(np.abs(w).max()),
+                                   err_msg=name)
+
+
+def test_legacy_gru_fwd_core_model_matches_the_jax_kernel():
+    """The legacy GRU forward cell at the JAX legacy kernels' test shape (B
+    8, T 21, D 12, H 128) on the H100's plan (row 14's) against
+    ``gru2_train_fwd_pallas`` in interpret mode, matmul precision "highest"
+    (1e-5 of the largest)."""
+    plan = lk.chain_plan(128, 3, 8, 132, MAX_SMEM, _measured(132), True, layers=2)
+    assert (plan.upc, plan.ctas, plan.ncl, plan.rgroups) == (2, 128, 2, 2)
+    got, (l0, l1, x_tm, keep) = _check_legacy_gru_fwd_model(
+        plan, seed=13, exact=False, **LEGACY_JAX_SHAPE)
+    with jax.default_matmul_precision("highest"):
+        want = _flat_legacy_gru(gru2_train_fwd_pallas(jnp.asarray(x_tm), jnp.asarray(keep),
+                                                      l0, l1, interpret=True))
+    for name, g, w in zip(LEGACY_GRU_NAMES, got, want):
         w = np.asarray(w)
         assert g.shape == w.shape, name
         np.testing.assert_allclose(g, w, rtol=0, atol=1e-5 * float(np.abs(w).max()),
