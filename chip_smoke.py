@@ -7,7 +7,8 @@
    source, all at once) and prints ptxas's register / shared-memory /
    spill report.
 3. Holds each serving kernel against its plain PyTorch version on the card
-   at the shapes the serving path gives it (``lstm2_infer``, on the 2-layer
+   at the shapes the serving path gives it (log-mel, one FFT a frame, at
+   B=32 with hops 128 and 160 and at B=1; ``lstm2_infer``, on the 2-layer
    forward core, at B=32 and 1, each with its launch plan), and times
    kernel, plain version and, where one exists, the one PyTorch call
    computing the same function.
@@ -118,11 +119,11 @@
    and time them beside ``scaled_dot_product_attention``; ``[flash_long]`` runs
    ``flash_attention`` forward + backward at (2, 4, 5000, 64), past the
    fused form's 4,096 keys, so the two-pass kernels run (once each, the
-   fused one never), against the plain versions, and times them.  The
-   forward, the fused backward and the two-pass dQ pass run 3xTF32 on the
-   tensor cores: each prints its bound on the float32 rate and in 3xTF32
-   on the TF32 rate (``bound_fp32_ms``, ``bound_3xtf32_ms``; their
-   ``bound_ms`` is the latter).
+   fused one never), against the plain versions, and times them.  Every
+   flash kernel (the forward, the fused backward, its dK / dV form and the
+   two-pass dQ pass) runs 3xTF32 on the tensor cores: each prints its bound
+   on the float32 rate and in 3xTF32 on the TF32 rate (``bound_fp32_ms``,
+   ``bound_3xtf32_ms``; their ``bound_ms`` is the latter).
    ``[train_tf]`` trains it as in 6 (two flash forwards per train step and
    per eval batch, two fused backwards per step, log-mel once per split
    chunk, no recurrent kernel), card step against the CPU step with the
@@ -252,34 +253,47 @@ def phase_logmel(logmel, flush):
           f"max abs err {a160:.3e}, max rel err {r160:.3e}")
     torch.testing.assert_close(out160, ref160, rtol=1e-4, atol=1e-4)
 
+    one = wave[:1].contiguous()
+    out1 = logmel.logmel_cuda(one, p)
+    a1 = max_errs(out1, logmel.logmel_frames(one, p))[0]
+    torch.testing.assert_close(out1, logmel.logmel_frames(one, p), rtol=1e-4, atol=1e-4)
+
     ms = device_ms(lambda: logmel.logmel_cuda(wave, p), flush)
     plain_ms = device_ms(lambda: logmel.logmel_frames(wave, p), flush)
+    ms1 = device_ms(lambda: logmel.logmel_cuda(one, p), flush)
+    plain_ms1 = device_ms(lambda: logmel.logmel_frames(one, p), flush)
     b, t = wave.shape
     f, nb, nm = out.shape[1], p.n_bins, p.n_mels
-    # the function as the reference defines it: products with the
-    # window-folded DFT basis, whose rows outside the window are zero
+    # the kernel's formulation: a real n_fft-point FFT at 2.5 n log2 n flops
+    # a frame, the split and power (~3 a bin) and the filterbank's
+    # non-zeros; bytes: the waveform in, the features out, its tables
+    # (twiddles, window, runs, weights)
+    runs, weights = logmel.mel_runs_np(p)
+    fft_flops = b * f * (2.5 * p.n_fft * np.log2(p.n_fft) + 3 * nb + 2 * weights.size)
+    fft_bytes = 4 * (b * t + b * f * nm + 3 * p.n_fft + runs.size + weights.size)
+    bound_ms, bound_by = bound(fft_flops, fft_bytes)
+    # the products' formulation the plain version uses: the window-folded
+    # DFT basis over the window's non-zero taps, the dense filterbank
     lo, hi = logmel.nonzero_taps(p.n_fft, p.win_length)
     taps = hi - lo
-    flops = b * f * (4 * taps * nb + 2 * nb * nm)
-    nbytes = 4 * (b * t + b * f * nm + 2 * taps * nb + nb * nm)
-    bound_ms, bound_by = bound(flops, nbytes)
-    print(f"[logmel] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP over the "
-          f"{taps} non-zero taps, {nbytes / 1e6:.2f} MB); no single PyTorch "
-          "call computes it")
-    # an FFT computes the same spectrum in other roundings: a real n_fft-point
-    # FFT at 2.5 n log2 n flops, the power, and the filterbank's non-zeros
-    mel_nnz = int(np.count_nonzero(logmel.mel_filterbank(p)))
-    fft_flops = b * f * (2.5 * p.n_fft * np.log2(p.n_fft) + 3 * nb + 2 * mel_nnz)
-    fft_ms, fft_by = bound(fft_flops, nbytes)
-    print(f"[logmel] an FFT + sparse filterbank formulation would need "
-          f"{fft_flops / 1e9:.3f} GFLOP ({mel_nnz} filterbank non-zeros): "
-          f"floor {fft_ms:.4f} ms ({fft_by})")
+    dft_flops = b * f * (4 * taps * nb + 2 * nb * nm)
+    dft_bytes = 4 * (b * t + b * f * nm + 2 * taps * nb + nb * nm)
+    dft_ms, dft_by = bound(dft_flops, dft_bytes)
+    print(f"[logmel] B=32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms as FFT + sparse filterbank ({bound_by}: "
+          f"{fft_flops / 1e9:.3f} GFLOP, {weights.size} filterbank non-zeros, "
+          f"{fft_bytes / 1e6:.2f} MB); as products over the {taps} non-zero taps "
+          f"{dft_ms:.4f} ms ({dft_by}: {dft_flops / 1e9:.3f} GFLOP); no single "
+          "PyTorch call computes it")
+    bound1 = bound(fft_flops / b, fft_bytes - 4 * (b - 1) * (t + f * nm))[0]
+    print(f"[logmel] B=1 -> {tuple(out1.shape)}: max abs err {a1:.3e}; kernel "
+          f"{ms1:.4f} ms, plain {plain_ms1:.4f} ms, bound {bound1:.4f} ms")
     return {"name": "logmel", "route": "cuda",
             "source": "multimodal_emotion_detection_tpu_torch/csrc/logmel.cu",
             "replaces": "multimodal_emotion_detection_tpu/ops/logmel.py:160",
-            "max_abs_err": max(abs_err, a160), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "max_abs_err": max(abs_err, a160, a1), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "b1_ms": ms1, "b1_plain_ms": plain_ms1, "bound_products_ms": dft_ms}
 
 
 def phase_lstm(lstm_kernel, flush):
@@ -2105,25 +2119,28 @@ def phase_flash_long(fa, counters, flush):
         lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True),
         flush, reps=5)
     pairs = b * h * t * t
-    dkv_bound = bound(8 * pairs * d, 4 * (6 * b * h * t * d + 2 * b * h * t + b * t))
+    dkv_fp32, dkv_bound = tc_bounds(8 * pairs * d,
+                                    4 * (6 * b * h * t * d + 2 * b * h * t + b * t))
     dq_fp32, dq_bound = tc_bounds(6 * pairs * d,
                                   4 * (5 * b * h * t * d + 2 * b * h * t + b * t))
-    print(f"[flash_long] dkv kernel {dkv_ms:.4f} ms (bound {dkv_bound[0]:.4f} ms, "
-          f"{dkv_bound[1]}: {8 * pairs * d / 1e9:.3f} GFLOP), dq kernel {dq_ms:.4f} "
-          f"ms (bound {dq_bound[0]:.4f} ms in 3xTF32, {dq_bound[1]}: 3 x "
-          f"{6 * pairs * d / 1e9:.3f} GFLOP at {TF32_FLOPS / 1e12:.0f} TFLOP/s; "
-          f"{dq_fp32[0]:.4f} ms in float32); plain backward (dQ, dK, dV at once) "
-          f"{plain_ms:.4f} ms; SDPA backward (dQ, dK, dV at once, no dropout) "
-          f"{library_ms:.4f} ms")
+    print(f"[flash_long] dkv kernel {dkv_ms:.4f} ms (bound {dkv_bound[0]:.4f} ms in "
+          f"3xTF32, {dkv_bound[1]}: 3 x {8 * pairs * d / 1e9:.3f} GFLOP at "
+          f"{TF32_FLOPS / 1e12:.0f} TFLOP/s; {dkv_fp32[0]:.4f} ms in float32), dq "
+          f"kernel {dq_ms:.4f} ms (bound {dq_bound[0]:.4f} ms in 3xTF32, "
+          f"{dq_bound[1]}: 3 x {6 * pairs * d / 1e9:.3f} GFLOP; {dq_fp32[0]:.4f} ms "
+          f"in float32); dkv + dq {dkv_ms + dq_ms:.4f} ms; plain backward (dQ, dK, "
+          f"dV at once) {plain_ms:.4f} ms; SDPA backward (dQ, dK, dV at once, no "
+          f"dropout) {library_ms:.4f} ms")
     src = "multimodal_emotion_detection_tpu_torch/csrc/"
     common = {"route": "cuda",
               "max_abs_err": max(errs[n] for n in ("dQ", "dK", "dV")),
               "plain_ms": plain_ms, "library_ms": library_ms}
     return launches, [
-        {"name": "flash_bwd_dkv", **common, "source": src + "flash_bwd.cu",
+        {"name": "flash_bwd_dkv", **common, "source": src + "flash_bwd_fused.cu",
          "ms": dkv_ms,
          "replaces": "multimodal_emotion_detection_tpu/ops/flash_attention.py:255",
-         "bound_ms": dkv_bound[0], "bound_by": dkv_bound[1]},
+         "bound_ms": dkv_bound[0], "bound_by": dkv_bound[1],
+         "bound_fp32_ms": dkv_fp32[0], "bound_3xtf32_ms": dkv_bound[0]},
         {"name": "flash_bwd_dq", **common, "source": src + "flash_bwd_dq.cu",
          "ms": dq_ms,
          "replaces": "multimodal_emotion_detection_tpu/ops/flash_attention.py:212",
@@ -2398,8 +2415,8 @@ def main() -> None:
                             "lstm1_fwd", "lstm_bwd_chain",
                             "gru2_infer", "gru2_train_fwd", "gru2_train_fwd_legacy",
                             "gru2_bwd_chain", "gru2_bwd_chain_legacy",
-                            "gru1_fwd", "gru_bwd_chain", "flash_fwd", "flash_bwd",
-                            "flash_bwd_dq", "flash_bwd_fused"])
+                            "gru1_fwd", "gru_bwd_chain", "flash_fwd", "flash_bwd_dq",
+                            "flash_bwd_fused"])
     print(f"[build] {time.perf_counter() - t0:.1f} s for {sorted(reports) or 'nothing (cached)'}")
     for src, log in reports.items():
         for line in log.splitlines():
@@ -2552,8 +2569,10 @@ def main() -> None:
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "launches_by_path"]
     # the header of a shared core beside its source; the tensor-core
-    # kernels give both bounds beside bound_ms
-    extra = ["core", "bound_fp32_ms", "bound_3xtf32_ms"]
+    # kernels give both bounds beside bound_ms; log-mel its B=1 times and
+    # the products' bound
+    extra = ["core", "bound_fp32_ms", "bound_3xtf32_ms", "b1_ms", "b1_plain_ms",
+             "bound_products_ms"]
     print(json.dumps({"kernels": [
         {**{k: kern[k] for k in order}, **{k: kern[k] for k in extra if k in kern}}
         for kern in kernels.values()]}))

@@ -3,7 +3,8 @@
 //
 // Replaces: multimodal_emotion_detection_tpu/ops/flash_attention.py::
 // _flash_bwd_call's q-major pass (kernel body _bwd_dq_kernel), which runs
-// past 8 key blocks beside the kv-major dK / dV pass (csrc/flash_bwd.cu).
+// past 8 key blocks beside the kv-major dK / dV pass (csrc/flash_bwd_fused.cu's
+// dK / dV form).
 // Same function as flash_bwd_reference(...)[0] in ops/flash_attention.py:
 // with P = exp(S - LSE) recomputed from the forward's logsumexp and M the
 // forward's keep mask (1 / (1 - rate) where kept),

@@ -1,9 +1,13 @@
-// Flash-attention backward, fused form, for Hopper (sm_90a), on the tensor
-// cores.
+// Flash-attention backward, kv-major, for Hopper (sm_90a), on the tensor
+// cores: the fused form and the two-pass form's dK / dV pass.
 //
 // Replaces: multimodal_emotion_detection_tpu/ops/flash_attention.py::
 // _flash_bwd_call in its fused form (Tk <= 4096), kernel body
-// _bwd_fused_kernel over _bwd_kv_major.  Same function as the plain PyTorch
+// _bwd_fused_kernel over _bwd_kv_major -> flash_bwd_fused_launch, and the
+// two-pass form's kv-major pass (Tk > 4096), kernel body _bwd_dkv_kernel
+// (_bwd_kv_major with dq_ref=None) -> flash_bwd_dkv_launch, the same
+// kernel compiled without its dQ phase (DQ = false).  The two-pass form's
+// dQ pass is csrc/flash_bwd_dq.cu.  Same function as the plain PyTorch
 // version ops/flash_attention.py::flash_bwd_reference: with P = exp(S -
 // LSE) recomputed from the forward's logsumexp and M the forward's keep
 // mask (1 / (1 - rate) where kept),
@@ -17,7 +21,10 @@
 // 3xTF32 on the tensor cores (flash_mma.cuh) 3 x 11.34 GFLOP at 495
 // TFLOP/s, 0.069 ms.  Its bytes (q, k, v, dO, LSE, Delta read, dQ, dK, dV
 // written) take 0.02 ms at 3.35 TB/s; the dQ partials (one slot a kv span,
-// summed by the wrapper) add 6 x 12.2 MB written and read there.
+// summed by the wrapper) add 6 x 12.2 MB written and read there.  The dK /
+// dV form: four products a pair, 8 B H Tq Tk D = 102.4 GFLOP at the long
+// sequence's (2, 4, 5000, 64): 1.53 ms at the float32 rate, 0.62 ms in
+// 3xTF32.
 //
 // Design: kv-major, on the q-major kernels' tile core turned round.  One
 // CTA of 4 warps per (kv span, head, batch row); a span is `per_span`
@@ -49,6 +56,14 @@
 // the result is deterministic.  Rows past Tq get LSE = +inf (so P = 0) and
 // Delta = 0; keys past Tk a bias of -inf.  Shared memory: 114,176 bytes at
 // D <= 64 (two CTAs an SM), 212,224 at D 128.
+//
+// The dK / dV form (DQ = false) walks one 64-key tile a CTA and drops the
+// dS^T transpose, its barrier, the dS tile (104,960 bytes at D <= 64) and
+// the dQ product; its dK and dV are the fused form's bit for bit (the same
+// products in the same order).  With two ring stages the next query tile's
+// copies start right after a tile's first barrier, into the stage every
+// warp finished in the tile before; with one (D 128) after a barrier at the
+// tile's end.
 //
 // Built with -DFLASH_BWD_TIMERS=1 (scripts/flash_ab.py --fused-timers) each
 // warp adds clock64() time per phase of the query walk into fb_timers, read
@@ -117,14 +132,14 @@ struct QStage {
   static constexpr int FLOATS = DELTA + TQ;
 };
 
-// Shared memory in floats: K's halves, V's (kShared), the ring, dS
-template <int DP, int VMODE, int STAGES>
+// Shared memory in floats: K's halves, V's (kShared), the ring, dS (DQ)
+template <int DP, int VMODE, int STAGES, bool DQ>
 struct Smem {
   static constexpr int KMAT = TK * (DP + 4);
   static constexpr int V = 2 * KMAT;
   static constexpr int RING = V + (VMODE == kShared ? 2 * KMAT : 0);
   static constexpr int DS = RING + STAGES * QStage<DP>::FLOATS;
-  static constexpr int FLOATS = DS + TQ * SD;
+  static constexpr int FLOATS = DS + (DQ ? TQ * SD : 0);
   static_assert(VMODE == kShared || (STAGES > 1 && KMAT <= QStage<DP>::FLOATS),
                 "V in registers is staged through the ring's second stage");
 };
@@ -145,11 +160,14 @@ __device__ __forceinline__ void fetch_queries(float* st, const Args& a, size_t q
   }
 }
 
-template <int DP, int VMODE, int STAGES, bool DROP>
+template <int DP, int VMODE, int STAGES, bool DROP, bool DQ>
 __global__ void __launch_bounds__(NT, DP == 64 ? 2 : 1)
     flash_bwd_fused_kernel(const Args a) {
   using St = QStage<DP>;
-  using Sm = Smem<DP, VMODE, STAGES>;
+  using Sm = Smem<DP, VMODE, STAGES, DQ>;
+  // the dK / dV form refills a ring stage right after a tile's first
+  // barrier, one tile ahead, where it has a second stage
+  constexpr bool EARLY = !DQ && STAGES > 1;
   constexpr int MW = DP / 64;  // 32-wide head-dim blocks of a warp's dQ
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;
@@ -166,7 +184,8 @@ __global__ void __launch_bounds__(NT, DP == 64 ? 2 : 1)
   const size_t qoff = bh * a.tq * a.d, koff = bh * a.tk * a.d;
   const uint2 key = DROP ? flash::philox_key(a.seed) : make_uint2(0u, 0u);
   // this span's dQ partial slot
-  float* dqp = a.dq + ((size_t)blockIdx.x * a.batch * a.heads + bh) * a.tq * a.d;
+  float* dqp = DQ ? a.dq + ((size_t)blockIdx.x * a.batch * a.heads + bh) * a.tq * a.d
+                  : nullptr;
   const int t_first = blockIdx.x * a.per_span;
   const int t_end = min(t_first + a.per_span, (a.tk + TK - 1) / TK);
   const int n_q = (a.tq + TQ - 1) / TQ;
@@ -197,7 +216,7 @@ __global__ void __launch_bounds__(NT, DP == 64 ? 2 : 1)
     va.init(vst);
     __syncthreads();  // K's and V's halves are in; V's staged floats are read
 #pragma unroll
-    for (int s = 1; s < STAGES; ++s) fetch(s);
+    for (int s = 1; s < (EARLY ? STAGES - 1 : STAGES); ++s) fetch(s);
     // the key biases of the lane's keys g, g + 8: -inf past Tk
     float kb[2];
 #pragma unroll
@@ -213,14 +232,16 @@ __global__ void __launch_bounds__(NT, DP == 64 ? 2 : 1)
 
     for (int i = 0; i < n_q; ++i) {
       const int q0 = TQ * i;
-      cp_wait<STAGES - 1>();
+      cp_wait<EARLY ? STAGES - 2 : STAGES - 1>();
       PHASE(0)
       float* st = ring + (i % STAGES) * St::FLOATS;
       // this thread's own copies have landed: split them
       split_tile<DP, TQ, NT>(st, a.d, a.vec);
       split_tile<DP, TQ, NT>(st + St::DO, a.d, a.vec);
-      // every thread's halves are in; every warp is done reading dS
+      // every thread's halves are in; every warp is done reading dS and
+      // the previous tile's stage
       __syncthreads();
+      if (EARLY) fetch(i + STAGES - 1);
       PHASE(1)
 
       uint32_t kbits[NJ];  // the mask's Philox work, ahead of the products
@@ -255,34 +276,42 @@ __global__ void __launch_bounds__(NT, DP == 64 ? 2 : 1)
       mma_pb<DP, NJ, St::MAT>(pm, st + St::DO, dv);
       mma_pb<DP, NJ, St::MAT>(ds, st, dk);
       PHASE(4)
-      // dS^T into the (TQ, TK) tile, queries as rows
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          dss[(8 * j + 2 * t + (e & 1)) * SD + 16 * w + g + 8 * (e >> 1)] = ds[j][e];
-      __syncthreads();  // dS is whole; every warp is done with this stage
-      fetch(i + STAGES);
-      PHASE(5)
-      // dQ = dS K for the warp's rows and head-dim blocks, over the tile's
-      // 64 keys: the A fragments read from dS in accumulator layout
-      float pq[TK / 8][4];
-#pragma unroll
-      for (int j = 0; j < TK / 8; ++j)
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const float2 x = *reinterpret_cast<const float2*>(dss + (rq + 8 * hf) * SD + 8 * j + 2 * t);
-          pq[j][2 * hf] = x.x;
-          pq[j][2 * hf + 1] = x.y;
+      if constexpr (!DQ) {
+        if (!EARLY) {
+          __syncthreads();  // every warp is done with the one stage
+          fetch(i + STAGES);
         }
-      float dq[4 * MW][4];
+      } else {
+        // dS^T into the (TQ, TK) tile, queries as rows
 #pragma unroll
-      for (int n = 0; n < 4 * MW; ++n)
+        for (int j = 0; j < NJ; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) dq[n][e] = 0.0f;
-      mma_pb_cols<DP, TK / 8, Sm::KMAT, MW>(pq, ks, m0, dq);
-      store_rows_cols<MW>(dqp, dq, q0 + rq, a.tq, a.d, m0, one, a.vec, kt != t_first);
-      PHASE(6)
+          for (int e = 0; e < 4; ++e)
+            dss[(8 * j + 2 * t + (e & 1)) * SD + 16 * w + g + 8 * (e >> 1)] = ds[j][e];
+        __syncthreads();  // dS is whole; every warp is done with this stage
+        fetch(i + STAGES);
+        PHASE(5)
+        // dQ = dS K for the warp's rows and head-dim blocks, over the tile's
+        // 64 keys: the A fragments read from dS in accumulator layout
+        float pq[TK / 8][4];
+#pragma unroll
+        for (int j = 0; j < TK / 8; ++j)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const float2 x =
+                *reinterpret_cast<const float2*>(dss + (rq + 8 * hf) * SD + 8 * j + 2 * t);
+            pq[j][2 * hf] = x.x;
+            pq[j][2 * hf + 1] = x.y;
+          }
+        float dq[4 * MW][4];
+#pragma unroll
+        for (int n = 0; n < 4 * MW; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dq[n][e] = 0.0f;
+        mma_pb_cols<DP, TK / 8, Sm::KMAT, MW>(pq, ks, m0, dq);
+        store_rows_cols<MW>(dqp, dq, q0 + rq, a.tq, a.d, m0, one, a.vec, kt != t_first);
+        PHASE(6)
+      }
     }
     cp_wait<0>();
     store_rows<DP>(a.dk + koff, dk, k0 + 16 * w + g, a.tk, a.d, one, a.vec);
@@ -293,11 +322,11 @@ __global__ void __launch_bounds__(NT, DP == 64 ? 2 : 1)
 #endif
 }
 
-template <int DP, int VMODE, int STAGES>
+template <int DP, int VMODE, int STAGES, bool DQ>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  constexpr size_t smem = sizeof(float) * Smem<DP, VMODE, STAGES>::FLOATS;
-  auto kernel = a.seed ? flash_bwd_fused_kernel<DP, VMODE, STAGES, true>
-                       : flash_bwd_fused_kernel<DP, VMODE, STAGES, false>;
+  constexpr size_t smem = sizeof(float) * Smem<DP, VMODE, STAGES, DQ>::FLOATS;
+  auto kernel = a.seed ? flash_bwd_fused_kernel<DP, VMODE, STAGES, true, DQ>
+                       : flash_bwd_fused_kernel<DP, VMODE, STAGES, false, DQ>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -305,6 +334,28 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   const dim3 grid((k_tiles + a.per_span - 1) / a.per_span, a.heads, a.batch);
   kernel<<<grid, NT, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <bool DQ>
+cudaError_t run(const float* q, const float* k, const float* v, const float* bias,
+                const unsigned long long* seed, const float* dout, const float* lse,
+                const float* delta, float* dq, float* dk, float* dv, int batch,
+                int heads, int tq, int tk, int d, int per_span, float scale,
+                unsigned drop_thr, float drop_scale, void* stream) {
+  if (batch < 1 || heads < 1 || tq < 1 || tk < 1 || d < 1 || d > 128 ||
+      batch > 65535 || heads > 65535 || per_span < 1 || (DQ && dq == nullptr) ||
+      dk == nullptr || dv == nullptr) {
+    return cudaErrorInvalidValue;
+  }
+  const bool vec = d % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
+                   aligned16(dout) && aligned16(dq) && aligned16(dk) && aligned16(dv);
+  const Args a{q,     k,     v,  bias, seed, dout,     lse,      delta,      dq,  dk,
+               dv,    batch, heads, tq, tk, d,        per_span, scale, drop_thr,
+               drop_scale, vec};
+  const cudaStream_t s = (cudaStream_t)stream;
+  // D <= 64: V's halves in registers, two stages, two CTAs an SM; D 128:
+  // V's halves in shared memory, one stage
+  return d <= 64 ? launch<64, kRegs, 2, DQ>(a, s) : launch<128, kShared, 1, DQ>(a, s);
 }
 
 }  // namespace
@@ -318,20 +369,22 @@ extern "C" int flash_bwd_fused_launch(const float* q, const float* k, const floa
                                       int batch, int heads, int tq, int tk, int d,
                                       int per_span, float scale, unsigned drop_thr,
                                       float drop_scale, void* stream) {
-  if (batch < 1 || heads < 1 || tq < 1 || tk < 1 || d < 1 || d > 128 ||
-      batch > 65535 || heads > 65535 || per_span < 1 || dq == nullptr ||
-      dk == nullptr || dv == nullptr) {
-    return cudaErrorInvalidValue;
-  }
-  const bool vec = d % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
-                   aligned16(dout) && aligned16(dq) && aligned16(dk) && aligned16(dv);
-  const Args a{q,     k,     v,  bias, seed, dout,     lse,      delta,      dq,  dk,
-               dv,    batch, heads, tq, tk, d,        per_span, scale, drop_thr,
-               drop_scale, vec};
-  const cudaStream_t s = (cudaStream_t)stream;
-  // D <= 64: V's halves in registers, two stages, two CTAs an SM; D 128:
-  // V's halves in shared memory, one stage
-  return d <= 64 ? launch<64, kRegs, 2>(a, s) : launch<128, kShared, 1>(a, s);
+  return run<true>(q, k, v, bias, seed, dout, lse, delta, dq, dk, dv, batch, heads, tq,
+                   tk, d, per_span, scale, drop_thr, drop_scale, stream);
+}
+
+// The dK / dV form, one 64-key tile a CTA; dq and per_span are not read.
+extern "C" int flash_bwd_dkv_launch(const float* q, const float* k, const float* v,
+                                    const float* bias, const unsigned long long* seed,
+                                    const float* dout, const float* lse,
+                                    const float* delta, float* dq, float* dk, float* dv,
+                                    int batch, int heads, int tq, int tk, int d,
+                                    int per_span, float scale, unsigned drop_thr,
+                                    float drop_scale, void* stream) {
+  (void)dq;
+  (void)per_span;
+  return run<false>(q, k, v, bias, seed, dout, lse, delta, nullptr, dk, dv, batch, heads,
+                    tq, tk, d, 1, scale, drop_thr, drop_scale, stream);
 }
 
 #if FLASH_BWD_TIMERS

@@ -1,234 +1,264 @@
-// Fused log-mel spectrogram for Hopper (sm_90a).
+// Log-mel spectrogram for Hopper (sm_90a), by a shared-memory FFT.
 //
 // Replaces: multimodal_emotion_detection_tpu/ops/logmel.py::logmel_pallas
 // (kernel body _logmel_kernel).  Same function as the plain PyTorch
 // version ops/logmel.py::logmel_frames:
 //
-//   frames = wave[b, f*hop : f*hop + n_fft]             (framing)
-//   re, im = frames @ cos_basis, frames @ sin_basis     (Hann folded in)
-//   out    = log((re^2 + im^2) @ mel + eps)
+//   frame  = wave[b, f*hop : f*hop + n_fft] * window     (Hann, centre-padded)
+//   X      = rfft(frame)                                 (bins 0 .. n_fft / 2)
+//   out    = log(|X|^2 @ mel + eps)
 //
-// What bounds it on the H100: arithmetic.  At the flagship shape
-// (B=32, 48,000 samples, n_fft 512, hop 128, 257 bins, 64 mels -> 372
-// frames) the DFT over the window's 399 non-zero taps is 4.9 GFLOP and the
-// mel product 0.4 GFLOP, while the bytes that must move are ~10 MB
-// (waveform in, features out, constants): ~0.08 ms at the 67 TFLOP/s
-// float32 rate against ~3 us at 3.35 TB/s.  The products stay in float32
-// on the CUDA cores (no TF32 tensor cores): the reference computes them at
-// full float32 precision.
+// What bounds it on the H100: bytes.  At the flagship shape (B=32, 48,000
+// samples, n_fft 512, hop 128, 257 bins, 64 mels -> 372 frames) an FFT
+// needs ~0.14 GFLOP (2.5 N log2 N a frame) and the filterbank's non-zeros
+// ~0.01, while the waveform in and the features out are ~9 MB: ~2.8 us at
+// 3.35 TB/s against ~2 us at the 67 TFLOP/s float32 rate.  The products'
+// formulation the plain version uses (frames times the window-folded DFT
+// basis) needs ~5.3 GFLOP, 0.079 ms at that rate.
 //
-// Design: one CTA per (clip, tile of TF frames).  The CTA copies the
-// waveform span its frames cover into shared memory once and frames from
-// there, so any hop works and the (B, F, n_fft) frame matrix never exists
-// in device memory.  It walks the bins in tiles of BK: per tile it stages
-// TK taps of the cos/sin bases in shared memory (the next chunk's float4
-// loads are in flight while the current one is used) and accumulates
-// re/im in registers, forms the power tile in shared memory and adds
-// power_tile @ mel[bins, :] into per-thread mel accumulators that live
-// across all bin tiles.  The spectrum never leaves the SM either.
-//
-// The window is centre-padded into n_fft (400 of 512 taps at the
-// flagship), so the basis rows outside [t_lo, t_hi) are all zero: the
-// caller passes that range, aligned to TK, and the DFT walks only it.
-//
-// The DFT's inner loop is bound by shared-memory loads, so the layout
-// minimises them per FMA: a warp owns FT frames and its 32 lanes own 4
-// bins each, so a tap costs a lane FT waveform loads that are broadcasts
-// (all lanes read one address) and 2 float4 basis loads, for 8*FT FMAs.
-// The bins past the last full tile (the Nyquist bin at n_fft 512) go
-// through a narrow pass instead of a tile that would be almost all
-// padding.
+// Design: a warp owns a frame, a CTA takes NW consecutive frames of the
+// flattened (clip, frame) index, so the grid spreads any batch (b1's 372
+// frames are 93 CTAs); the kernel is compiled for each n_fft it takes, so
+// its stage loops unroll.  The n_fft real samples are packed as n_fft / 2
+// complex points z[n] = x[2n] + i x[2n+1], each sample times the window as
+// it is read from device memory; points outside the window's non-zero
+// taps [p_lo, p_hi) are zero and not read.  Z = FFT(z) runs as Stockham
+// autosort stages (radix 4, a last radix-2 stage where log2(n_fft / 2) is
+// odd), natural order in and out, each butterfly in registers and each
+// stage's exchange through two shared-memory buffers of the warp (one
+// float2 of padding every 16, which keeps the strided stores of the first
+// stages to ~1.4x the conflict-free wavefronts), __syncwarp() between
+// stages.  The twiddles come from a table W_N^k = exp(-2 pi i k / N) the
+// wrapper rounds from float64 (no sincos in the kernel).  The real split
+// X[k] = E[k] + W_N^k O[k], E = (Z[k] + conj Z[M - k]) / 2, O = (Z[k] -
+// conj Z[M - k]) / 2i gives bins 0 .. M; the power goes to shared memory
+// and each lane sums the non-zero runs of a low and a high band of the
+// filterbank (first bin, count, offset into the packed weights) in bin
+// order: the dense product's terms without its zeros.  Neither the frames nor the spectrum
+// reach device memory.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int NT = 128;   // threads per CTA: 4 warps
-constexpr int FT = 8;     // frames per warp: w + 4*i
-constexpr int TF = (NT / 32) * FT;  // frames per CTA (32)
-constexpr int BK = 128;   // bins per tile: 4 per lane
-constexpr int TK = 16;    // taps per staged basis chunk
-constexpr int MB = 2;     // mel bands per lane: lane + 32*j
-constexpr int MAXM = 32 * MB;
-constexpr int Q = TK * BK / 4 / NT;  // float4 of one basis chunk per thread
-constexpr int PS = BK + 1;           // pow_s row stride
+constexpr int NW = 4;   // warps per CTA: one frame each
+constexpr int NT = 32 * NW;
+constexpr int MAXM = 64;  // mel bands: two a lane
+constexpr int JC = 4;     // the most butterflies (or bins) a lane holds at once
 
+// a frame buffer's float2 slot of point i: one pad slot every 16
+__device__ __forceinline__ int slot(int i) { return i + (i >> 4); }
+
+__host__ __device__ constexpr int buffer_slots(int m) { return m + m / 16; }
+
+__device__ __forceinline__ float2 cmul(float2 a, float2 w) {
+  return make_float2(a.x * w.x - a.y * w.y, a.x * w.y + a.y * w.x);
+}
+
+// the 4-point DFT in place (W_4 = -i)
+__device__ __forceinline__ void dft4(float2 (&v)[4]) {
+  const float2 s0 = make_float2(v[0].x + v[2].x, v[0].y + v[2].y);
+  const float2 d0 = make_float2(v[0].x - v[2].x, v[0].y - v[2].y);
+  const float2 s1 = make_float2(v[1].x + v[3].x, v[1].y + v[3].y);
+  const float2 d1 = make_float2(v[1].x - v[3].x, v[1].y - v[3].y);
+  v[0] = make_float2(s0.x + s1.x, s0.y + s1.y);
+  v[1] = make_float2(d0.x + d1.y, d0.y - d1.x);
+  v[2] = make_float2(s0.x - s1.x, s0.y - s1.y);
+  v[3] = make_float2(d0.x - d1.y, d0.y + d1.x);
+}
+
+__host__ __device__ constexpr int log2i(int n) { return n > 1 ? 1 + log2i(n / 2) : 0; }
+
+// M = n_fft / 2 complex points, a power of two in 32 .. 2048: the stage
+// loops unroll, and a lane's JC butterflies of a stage are read into
+// registers before any is written (the two buffers may alias as far as
+// the compiler knows), so their loads are in flight together
+template <int M>
 __global__ void __launch_bounds__(NT) logmel_kernel(
-    const float* __restrict__ wave,   // (B, T)
-    const float* __restrict__ cosb,   // (n_fft, ldb), columns >= n_bins zero
-    const float* __restrict__ sinb,   // (n_fft, ldb)
-    const float* __restrict__ mel,    // (n_bins, n_mels)
-    float* __restrict__ out,          // (B, F, n_mels)
-    int t_len, int frames, int n_fft, int t_lo, int t_hi, int hop,
-    int n_bins, int ldb, int n_mels, int span_alloc, float eps) {
-  extern __shared__ __align__(16) float smem[];
-  float* cos_s = smem;                // TK * BK
-  float* sin_s = cos_s + TK * BK;     // TK * BK
-  float* pow_s = sin_s + TK * BK;     // TF * PS
-  float* wav_s = pow_s + TF * PS;     // span_alloc
+    const float* __restrict__ wave,  // (B, T)
+    const float2* __restrict__ tw,   // (n_fft,): W_N^k
+    const float2* __restrict__ win,  // (n_fft / 2,): window taps 2n, 2n + 1
+    const int4* __restrict__ runs,   // (n_mels,): first bin, count, offset
+    const float* __restrict__ melw,  // the runs' weights, packed
+    float* __restrict__ out,         // (B, F, n_mels)
+    int t_len, int frames, int total, int p_lo, int p_hi, int hop, int n_mels,
+    float eps) {
+  constexpr int N = 2 * M, Q = M / 4, H = M / 2;
+  constexpr int R4 = log2i(M) / 2;  // radix-4 stages; + one radix-2 if log2(M) odd
+  // a lane's butterflies a radix-4 stage, a radix-2 stage, and bins of the
+  // split (M = 32: lanes past Q and H idle), each taken C at a time
+  constexpr int J4 = Q < 32 ? 1 : Q / 32, C4 = J4 < JC ? J4 : JC;
+  constexpr int J2 = H < 32 ? 1 : H / 32, C2 = J2 < JC ? J2 : JC;
+  constexpr int JS = M / 32, CS = JS < JC ? JS : JC;
+  extern __shared__ float2 smem[];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gf = blockIdx.x * NW + w;  // the frame over (B, F)
+  if (gf >= total) return;             // the warp's own frame only: no CTA barrier
+  const int b = gf / frames, f = gf - b * frames;
+  float2* src = smem + (size_t)w * 2 * buffer_slots(M);
+  float2* dst = src + buffer_slots(M);
+  const float* xs = wave + (size_t)b * t_len + (size_t)f * hop;
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int b = blockIdx.x;
-  const int f0 = blockIdx.y * TF;
-  const int nf = min(TF, frames - f0);
-
-  // the frames' waveform span; beyond it zeros, so the rows of frames
-  // past the last one read defined values (their results are dropped)
-  const int span = (nf - 1) * hop + n_fft;
-  const float* w = wave + (size_t)b * t_len + (size_t)f0 * hop;
-  for (int i = tid; i < span_alloc; i += NT) wav_s[i] = i < span ? w[i] : 0.0f;
-
-  float acc[FT][MB];
+  // radix-4 stage s (Ns = 4^s): butterfly j reads points j + r Q, the
+  // first stage straight from the waveform, windowed (twiddles all 1),
+  // and writes (j / Ns) 4 Ns + j % Ns + r Ns
 #pragma unroll
-  for (int i = 0; i < FT; ++i)
+  for (int s = 0; s < R4; ++s) {
+    const int ns = 1 << (2 * s);
+    const int ts = N / (4 * ns);  // W_{4 Ns}^{r k} = W_N^{r k ts}
+#pragma unroll 1
+    for (int c = 0; c < J4; c += C4) {
+      float2 v[C4][4];
 #pragma unroll
-    for (int j = 0; j < MB; ++j) acc[i][j] = 0.0f;
-
-  // frames warp + 4*i, bands lane + 32*j
-  auto mel_accumulate = [&](int k0, int width) {
-    for (int kk = 0; kk < width; ++kk) {
-      const float* mrow = mel + (size_t)(k0 + kk) * n_mels;
-      float mw[MB];
+      for (int u = 0; u < C4; ++u) {
+        const int j = lane + 32 * (c + u);
 #pragma unroll
-      for (int j = 0; j < MB; ++j) {
-        const int m = lane + 32 * j;
-        mw[j] = m < n_mels ? __ldg(mrow + m) : 0.0f;
-      }
-#pragma unroll
-      for (int i = 0; i < FT; ++i) {
-        const float pw = pow_s[(warp + 4 * i) * PS + kk];
-#pragma unroll
-        for (int j = 0; j < MB; ++j) acc[i][j] += pw * mw[j];
-      }
-    }
-  };
-
-  const int nfull = n_bins / BK;
-  float4 pc[Q], ps[Q];
-  auto fetch = [&](int k0, int t0) {
-#pragma unroll
-    for (int q = 0; q < Q; ++q) {
-      const int e = tid + q * NT;
-      const size_t off =
-          (size_t)(t0 + e / (BK / 4)) * ldb + k0 + 4 * (e % (BK / 4));
-      pc[q] = __ldg(reinterpret_cast<const float4*>(cosb + off));
-      ps[q] = __ldg(reinterpret_cast<const float4*>(sinb + off));
-    }
-  };
-  if (nfull > 0) fetch(0, t_lo);
-
-  for (int tile = 0; tile < nfull; ++tile) {
-    const int k0 = tile * BK;
-    float re[FT][4], im[FT][4];
-#pragma unroll
-    for (int i = 0; i < FT; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) re[i][j] = im[i][j] = 0.0f;
-
-    for (int t0 = t_lo; t0 < t_hi; t0 += TK) {
-      __syncthreads();
-#pragma unroll
-      for (int q = 0; q < Q; ++q) {
-        const int e = tid + q * NT;
-        reinterpret_cast<float4*>(cos_s)[e] = pc[q];
-        reinterpret_cast<float4*>(sin_s)[e] = ps[q];
-      }
-      __syncthreads();
-      // the next chunk (of this tile or the next one) while this one runs
-      if (t0 + TK < t_hi) {
-        fetch(k0, t0 + TK);
-      } else if (tile + 1 < nfull) {
-        fetch(k0 + BK, t_lo);
-      }
-      const float* xp = wav_s + warp * hop + t0;
-#pragma unroll 2
-      for (int tt = 0; tt < TK; ++tt) {
-        const float4 c = *reinterpret_cast<const float4*>(cos_s + tt * BK + 4 * lane);
-        const float4 s = *reinterpret_cast<const float4*>(sin_s + tt * BK + 4 * lane);
-#pragma unroll
-        for (int i = 0; i < FT; ++i) {
-          const float x = xp[4 * i * hop + tt];  // one address per warp
-          re[i][0] += x * c.x; re[i][1] += x * c.y;
-          re[i][2] += x * c.z; re[i][3] += x * c.w;
-          im[i][0] += x * s.x; im[i][1] += x * s.y;
-          im[i][2] += x * s.z; im[i][3] += x * s.w;
+        for (int r = 0; r < 4; ++r) {
+          const int p = j + r * Q;
+          if (Q < 32 && j >= Q) {
+            v[u][r] = make_float2(0.0f, 0.0f);
+          } else if (s > 0) {
+            v[u][r] = src[slot(p)];
+          } else if (p >= p_lo && p < p_hi) {
+            const float2 wn = __ldg(win + p);
+            v[u][r] = make_float2(__ldg(xs + 2 * p) * wn.x, __ldg(xs + 2 * p + 1) * wn.y);
+          } else {
+            v[u][r] = make_float2(0.0f, 0.0f);
+          }
         }
       }
-    }
-
-    // the t-loop's first __syncthreads() ordered the previous tile's
-    // pow_s reads before these writes
 #pragma unroll
-    for (int i = 0; i < FT; ++i)
+      for (int u = 0; u < C4; ++u) {
+        const int j = lane + 32 * (c + u);
+        if (Q < 32 && j >= Q) continue;
+        const int k = j & (ns - 1);
+        if (s > 0) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        pow_s[(warp + 4 * i) * PS + 4 * lane + j] =
-            re[i][j] * re[i][j] + im[i][j] * im[i][j];
-    __syncthreads();
-    mel_accumulate(k0, BK);
-  }
-
-  // bins past the last full tile: one (frame, bin) output per thread
-  const int k0 = nfull * BK;
-  const int rest = n_bins - k0;
-  if (rest > 0) {
-    __syncthreads();
-    for (int e = tid; e < TF * rest; e += NT) {
-      const int f = e / rest, kk = e % rest;
-      const float* xf = wav_s + f * hop;
-      float re = 0.0f, im = 0.0f;
-      for (int t = t_lo; t < t_hi; ++t) {
-        const float x = xf[t];
-        re += x * __ldg(cosb + (size_t)t * ldb + k0 + kk);
-        im += x * __ldg(sinb + (size_t)t * ldb + k0 + kk);
+          for (int r = 1; r < 4; ++r) v[u][r] = cmul(v[u][r], __ldg(tw + r * k * ts));
+        }
+        dft4(v[u]);
+        const int d = 4 * (j - k) + k;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) dst[slot(d + r * ns)] = v[u][r];
       }
-      // row f of pow_s holds frame f: warp + 4*i with warp = f % 4
-      pow_s[f * PS + kk] = re * re + im * im;
     }
-    __syncthreads();
-    mel_accumulate(k0, rest);
+    __syncwarp();
+    float2* t = src;
+    src = dst;
+    dst = t;
+  }
+  if constexpr ((log2i(M) & 1) != 0) {  // the radix-2 stage, Ns = M / 2
+#pragma unroll 1
+    for (int c = 0; c < J2; c += C2) {
+      float2 a[C2], e[C2];
+#pragma unroll
+      for (int u = 0; u < C2; ++u) {
+        const int j = lane + 32 * (c + u);
+        if (H >= 32 || j < H) {
+          a[u] = src[slot(j)];
+          e[u] = src[slot(j + H)];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < C2; ++u) {
+        const int j = lane + 32 * (c + u);
+        if (H < 32 && j >= H) continue;
+        const float2 x = cmul(e[u], __ldg(tw + 2 * j));
+        dst[slot(j)] = make_float2(a[u].x + x.x, a[u].y + x.y);
+        dst[slot(j + H)] = make_float2(a[u].x - x.x, a[u].y - x.y);
+      }
+    }
+    __syncwarp();
+    float2* t = src;
+    src = dst;
+    dst = t;
   }
 
+  // the real split and the power of bins 0 .. M (lane 0 also takes M),
+  // into the other buffer (its last reads were the last stage's, before
+  // the __syncwarp)
+  float* pw = reinterpret_cast<float*>(dst);
+  auto power = [&](int k, float2 a, float2 c) {
+    const float2 e = make_float2(0.5f * (a.x + c.x), 0.5f * (a.y - c.y));
+    const float2 o = make_float2(0.5f * (a.y + c.y), 0.5f * (c.x - a.x));
+    const float2 t = cmul(o, __ldg(tw + k));
+    const float xr = e.x + t.x, xi = e.y + t.y;
+    pw[k] = xr * xr + xi * xi;
+  };
+#pragma unroll 1
+  for (int c = 0; c < JS; c += CS) {
+    float2 a[CS], z[CS];
 #pragma unroll
-  for (int i = 0; i < FT; ++i) {
-    const int f = warp + 4 * i;
-    if (f >= nf) continue;
-    float* orow = out + ((size_t)b * frames + f0 + f) * n_mels;
-#pragma unroll
-    for (int j = 0; j < MB; ++j) {
-      const int m = lane + 32 * j;
-      if (m < n_mels) orow[m] = logf(acc[i][j] + eps);
+    for (int u = 0; u < CS; ++u) {
+      const int k = lane + 32 * (c + u);
+      a[u] = src[slot(k)];
+      z[u] = src[slot((M - k) & (M - 1))];
     }
+#pragma unroll
+    for (int u = 0; u < CS; ++u) power(lane + 32 * (c + u), a[u], z[u]);
   }
+  if (lane == 0) power(M, src[0], src[0]);
+  __syncwarp();
+
+  // lane L sums bands L and n_mels - 1 - L of the lower and upper half (a
+  // low band's short run beside a high band's long one), each run in bin
+  // order
+  float* orow = out + (size_t)gf * n_mels;
+  const int half = (n_mels + 1) / 2;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int band = h == 0 ? lane : n_mels - 1 - lane;
+    if (h == 0 ? band >= half : band < half) continue;
+    const int4 run = __ldg(runs + band);
+    float acc = 0.0f;
+    for (int i = 0; i < run.y; ++i) acc += pw[run.x + i] * __ldg(melw + run.z + i);
+    orow[band] = logf(acc + eps);
+  }
+}
+
+template <int M>
+cudaError_t launch(const float* wave, const float* tw, const float* win, const int* runs,
+                   const float* melw, float* out, int t_len, int frames, int total,
+                   int p_lo, int p_hi, int hop, int n_mels, float eps, cudaStream_t stream) {
+  const size_t smem = (size_t)NW * 2 * buffer_slots(M) * sizeof(float2);
+  const cudaError_t err = cudaFuncSetAttribute(
+      logmel_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const unsigned grid = (unsigned)((total + NW - 1) / NW);
+  logmel_kernel<M><<<grid, NT, smem, stream>>>(
+      wave, reinterpret_cast<const float2*>(tw), reinterpret_cast<const float2*>(win),
+      reinterpret_cast<const int4*>(runs), melw, out, t_len, frames, total, p_lo, p_hi,
+      hop, n_mels, eps);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int logmel_launch(const float* wave, const float* cosb,
-                             const float* sinb, const float* mel, float* out,
-                             int batch, int t_len, int frames, int n_fft,
-                             int t_lo, int t_hi, int hop, int n_bins,
-                             int ldb, int n_mels, float eps, void* stream) {
-  if (batch < 1 || frames < 1 || n_fft % TK != 0 || n_mels > MAXM ||
-      ldb % 4 != 0 || ldb < n_bins || (frames - 1) * hop + n_fft > t_len ||
-      t_lo < 0 || t_lo % TK != 0 || t_hi <= t_lo || t_hi % TK != 0 ||
-      t_hi > n_fft) {
+extern "C" int logmel_launch(const float* wave, const float* tw, const float* win,
+                             const int* runs, const float* melw, float* out,
+                             int batch, int t_len, int frames, int n_fft, int p_lo,
+                             int p_hi, int hop, int n_mels, float eps, void* stream) {
+  const long long total = (long long)batch * frames;
+  if (batch < 1 || frames < 1 || n_mels < 1 || n_mels > MAXM || hop < 1 ||
+      (long long)(frames - 1) * hop + n_fft > t_len || p_lo < 0 || p_hi <= p_lo ||
+      p_hi > n_fft / 2 || total > 0x7fffffffLL - NW) {
     return cudaErrorInvalidValue;
   }
-  const int span_alloc = (TF - 1) * hop + n_fft;
-  const size_t smem =
-      (size_t)(2 * TK * BK + TF * PS + span_alloc) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      logmel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(batch, (frames + TF - 1) / TF);
-  logmel_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
-      wave, cosb, sinb, mel, out, t_len, frames, n_fft, t_lo, t_hi, hop,
-      n_bins, ldb, n_mels, span_alloc, eps);
-  return cudaGetLastError();
+  // n_fft a power of two in 64 .. 4096: the kernel for its M = n_fft / 2
+  decltype(&launch<32>) run = nullptr;
+  switch (n_fft) {
+    case 64: run = launch<32>; break;
+    case 128: run = launch<64>; break;
+    case 256: run = launch<128>; break;
+    case 512: run = launch<256>; break;
+    case 1024: run = launch<512>; break;
+    case 2048: run = launch<1024>; break;
+    case 4096: run = launch<2048>; break;
+    default: return cudaErrorInvalidValue;
+  }
+  return run(wave, tw, win, runs, melw, out, t_len, frames, (int)total, p_lo, p_hi, hop,
+             n_mels, eps, (cudaStream_t)stream);
 }
 
 extern "C" const char* logmel_error_string(int err) {

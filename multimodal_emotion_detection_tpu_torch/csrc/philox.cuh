@@ -1,16 +1,15 @@
 // Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1,
-// 2, 3", SC 2011; the Random123 constants) and the attention-dropout keep
-// test built on it.  Included by every flash kernel (flash_bwd.cu directly,
-// the others through flash_mma.cuh), so the forward and both backward forms
-// regenerate one mask.  The plain PyTorch
-// twin is ops/flash_attention.py::philox4x32 / attn_keep_mask.
+// 2, 3", SC 2011; the Random123 constants) for the attention-dropout keep
+// mask.  Included by every flash kernel through flash_mma.cuh (whose
+// keep_bits / keep_bits_kv make the calls), so the forward and every
+// backward form regenerate one mask.  The plain PyTorch twin is
+// ops/flash_attention.py::philox4x32 / attn_keep_mask.
 //
 // Keep mask of one attention call: key = (seed low word, seed high word),
 // counter = (key index j, query index i / 4, head, batch row), output word
 // i % 4; an element is kept iff that word >= the threshold
-// min(floor(rate * 2^32), 2^32 - 1).  A thread that owns 4 consecutive
-// query rows starting at a multiple of 4 gets all 4 words of a key column
-// from one call.
+// min(floor(rate * 2^32), 2^32 - 1).  One call gives all 4 words of a
+// key column for 4 consecutive query rows starting at a multiple of 4.
 
 #pragma once
 
@@ -37,20 +36,6 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
 __device__ __forceinline__ uint2 philox_key(const unsigned long long* seed) {
   const unsigned long long s = *seed;
   return make_uint2((uint32_t)s, (uint32_t)(s >> 32));
-}
-
-// The keep scales (0 or 1 / (1 - rate)) of query rows i0 .. i0 + 3 (i0 a
-// multiple of 4) at key j.
-__device__ __forceinline__ void keep_scales(uint2 key, int i0, int j, int h,
-                                            int b, uint32_t thr, float scale,
-                                            float (&m)[4]) {
-  const uint4 w = philox4x32_10(
-      make_uint4((uint32_t)j, (uint32_t)(i0 >> 2), (uint32_t)h, (uint32_t)b),
-      key);
-  m[0] = w.x >= thr ? scale : 0.0f;
-  m[1] = w.y >= thr ? scale : 0.0f;
-  m[2] = w.z >= thr ? scale : 0.0f;
-  m[3] = w.w >= thr ? scale : 0.0f;
 }
 
 }  // namespace flash

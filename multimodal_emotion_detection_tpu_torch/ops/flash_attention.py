@@ -14,14 +14,13 @@ Four kernels, each behind a wrapper with its launch counter:
   backward that recomputes the probabilities from LSE, accumulates dK and
   dV on chip and writes each kv span's dQ partial to its own slot; the
   wrapper sums the slots (no atomics, so the result is deterministic);
-* ``flash_bwd_dkv`` (``csrc/flash_bwd.cu``) and ``flash_bwd_dq``
-  (``csrc/flash_bwd_dq.cu``): the two-pass backward for long key sequences,
-  dK and dV kv-major, dQ q-major.
+* ``flash_bwd_dkv`` (``csrc/flash_bwd_fused.cu``'s dK/dV form, without the
+  dQ phase) and ``flash_bwd_dq`` (``csrc/flash_bwd_dq.cu``): the two-pass
+  backward for long key sequences, dK and dV kv-major, dQ q-major.
 
-Three of them (``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_fused``) run
-their products on the tensor cores in 3xTF32 (``csrc/flash_mma.cuh``): each
-float32 operand is split into two TF32 values and a product is three TF32
-MMAs, which keeps float32 accuracy; ``flash_bwd_dkv`` runs float32 FFMA.
+All four run their products on the tensor cores in 3xTF32
+(``csrc/flash_mma.cuh``): each float32 operand is split into two TF32
+values and a product is three TF32 MMAs, which keeps float32 accuracy.
 ``tf32_round`` and ``matmul_3xtf32`` emulate that arithmetic on the CPU for
 the tests; no path of the port calls them.
 
@@ -203,7 +202,7 @@ FLASH_FWD = CudaKernel(
 )
 _BWD_ARGS = [_P] * 11 + [_I] * 6 + [_F, _U, _F, _P]
 FLASH_BWD_FUSED = CudaKernel("flash_bwd_fused", "flash_bwd_fused_launch", _BWD_ARGS)
-FLASH_BWD_DKV = CudaKernel("flash_bwd", "flash_bwd_dkv_launch", _BWD_ARGS)
+FLASH_BWD_DKV = CudaKernel("flash_bwd_fused", "flash_bwd_dkv_launch", _BWD_ARGS)
 FLASH_BWD_DQ = CudaKernel("flash_bwd_dq", "flash_bwd_dq_launch", _BWD_ARGS)
 
 
@@ -308,10 +307,11 @@ def flash_bwd_fused(q, k, v, bias, seed, rate: float, do, lse, delta):
 def flash_bwd_dkv(q, k, v, bias, seed, rate: float, do, lse, delta):
     """Two-pass backward, first pass -> (dK, dV), float32.
 
-    On a CUDA tensor this launches ``csrc/flash_bwd.cu``'s kv-major kernel
-    (float32 FFMA, one CTA per 64-key tile, head and batch row) and counts
-    it in ``FLASH_BWD_DKV.launches``; on a CPU tensor it runs
-    ``flash_bwd_reference``.
+    On a CUDA tensor this launches ``csrc/flash_bwd_fused.cu``'s kv-major
+    kernel in its dK/dV form (3xTF32 on the tensor cores, no dQ phase; one
+    CTA per 64-key tile, head and batch row; dK and dV bit for bit the
+    fused form's) and counts it in ``FLASH_BWD_DKV.launches``; on a CPU
+    tensor it runs ``flash_bwd_reference``.
     """
     if q.device.type == "cpu":
         return flash_bwd_reference(q, k, v, bias, seed, rate, do, lse, delta)[1:]

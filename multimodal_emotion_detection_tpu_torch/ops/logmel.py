@@ -5,11 +5,13 @@
     mel    = (re^2 + im^2) @ mel_filterbank
     out    = log(mel + eps)
 
-``logmel_cuda`` launches the fused kernel (``csrc/logmel.cu``) on a CUDA
-tensor, where the frame matrix and the spectrum never reach device memory,
-and runs ``logmel_frames`` on a CPU tensor.  The basis and filterbank are
-built exactly as the JAX package builds them, so both packages use
-bit-identical float32 constants.
+``logmel_cuda`` launches the fused kernel (``csrc/logmel.cu``: one FFT a
+frame, the filterbank as its non-zero runs) on a CUDA tensor, where the
+frame matrix and the spectrum never reach device memory, and runs
+``logmel_frames`` on a CPU tensor.  The basis and filterbank are built
+exactly as the JAX package builds them, so both packages use
+bit-identical float32 constants; the kernel's twiddle and window tables
+are rounded to float32 from float64 the same way.
 """
 
 from __future__ import annotations
@@ -88,16 +90,22 @@ def mel_filterbank(params: LogMelParams) -> np.ndarray:
     )
 
 
-@functools.lru_cache(maxsize=8)
-def _dft_basis_np(n_fft: int, win_length: int) -> Tuple[np.ndarray, np.ndarray]:
-    """Window-folded real-DFT basis: (n_fft, n_bins) cos and -sin matrices."""
-    n_bins = n_fft // 2 + 1
-    # Periodic Hann of win_length, centre-padded to n_fft (librosa convention)
+def _window_np(n_fft: int, win_length: int) -> np.ndarray:
+    """Periodic Hann of win_length centre-padded to n_fft (librosa
+    convention), float64."""
     n = np.arange(win_length)
     win = 0.5 * (1.0 - np.cos(2.0 * np.pi * n / win_length))
     pad_left = (n_fft - win_length) // 2
     window = np.zeros(n_fft)
     window[pad_left:pad_left + win_length] = win
+    return window
+
+
+@functools.lru_cache(maxsize=8)
+def _dft_basis_np(n_fft: int, win_length: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Window-folded real-DFT basis: (n_fft, n_bins) cos and -sin matrices."""
+    n_bins = n_fft // 2 + 1
+    window = _window_np(n_fft, win_length)
     t = np.arange(n_fft)[:, None]
     k = np.arange(n_bins)[None, :]
     angle = 2.0 * np.pi * t * k / n_fft
@@ -158,46 +166,78 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 LOGMEL = CudaKernel(
     "logmel", "logmel_launch",
-    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-     ctypes.c_float, _P],
+    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
 )
 _MAX_MELS = 64  # the kernel's thread layout covers 64 bands
-_TAP_CHUNK = 16  # the kernel stages n_fft taps in chunks of 16
+FFT_SIZES = tuple(2 ** e for e in range(6, 13))  # the kernel's n_fft: 64 .. 4096
 
 
 @functools.lru_cache(maxsize=8)
 def nonzero_taps(n_fft: int, win_length: int) -> Tuple[int, int]:
-    """[lo, hi): the rows of the DFT basis that are not all zero.  The
-    window is centre-padded into n_fft, so the taps outside it (and the
-    Hann window's zero first tap) contribute nothing to any bin."""
-    cos_b, sin_b = _dft_basis_np(n_fft, win_length)
-    rows = np.flatnonzero(np.any(cos_b != 0, axis=1) | np.any(sin_b != 0, axis=1))
-    return (int(rows[0]), int(rows[-1]) + 1) if rows.size else (0, 0)
+    """[lo, hi): the taps where the window is not zero.  The window is
+    centre-padded into n_fft, so the taps outside it (and the Hann
+    window's zero first tap) contribute nothing to any bin."""
+    taps = np.flatnonzero(_window_np(n_fft, win_length).astype(np.float32))
+    return (int(taps[0]), int(taps[-1]) + 1) if taps.size else (0, 0)
 
 
 def _kernel_taps(params: LogMelParams) -> Tuple[int, int]:
-    """The non-zero taps widened to whole chunks of the kernel's stage."""
+    """The non-zero taps widened to whole pairs (2n, 2n + 1): the kernel
+    packs the frame as complex points x[2n] + i x[2n + 1] and reads the
+    points [lo / 2, hi / 2)."""
     lo, hi = nonzero_taps(params.n_fft, params.win_length)
-    lo = lo // _TAP_CHUNK * _TAP_CHUNK
-    return lo, max(-(-hi // _TAP_CHUNK) * _TAP_CHUNK, lo + _TAP_CHUNK)
+    return lo // 2 * 2, max(-(-hi // 2) * 2, lo // 2 * 2 + 2)
+
+
+@functools.lru_cache(maxsize=8)
+def fft_tables_np(n_fft: int, win_length: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The kernel's FFT tables, float32 rounded from float64: twiddles
+    (n_fft, 2) W_N^k = (cos 2 pi k / N, -sin 2 pi k / N) and the window
+    (n_fft,)."""
+    angle = 2.0 * np.pi * np.arange(n_fft) / n_fft
+    tw = np.stack([np.cos(angle), -np.sin(angle)], axis=-1).astype(np.float32)
+    return tw, _window_np(n_fft, win_length).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def mel_runs_np(params: LogMelParams) -> Tuple[np.ndarray, np.ndarray]:
+    """The filterbank as non-zero runs: (n_mels, 4) int32 rows (first bin,
+    count, offset into the weights, 0) and the runs' weights packed
+    (float32).  A band's run spans its first to its last non-zero bin (a
+    triangle's are contiguous; an empty band has count 0), so summing it
+    in bin order adds the dense product's terms without its zeros."""
+    fb = mel_filterbank(params)
+    runs = np.zeros((params.n_mels, 4), np.int32)
+    weights = []
+    off = 0
+    for m in range(params.n_mels):
+        nz = np.flatnonzero(fb[:, m])
+        if nz.size:
+            first, count = int(nz[0]), int(nz[-1]) + 1 - int(nz[0])
+            runs[m, :3] = first, count, off
+            weights.append(fb[first:first + count, m])
+            off += count
+        else:
+            runs[m, 2] = off
+    packed = np.concatenate(weights) if weights else np.zeros(1, np.float32)
+    return runs, packed.astype(np.float32)
 
 
 @functools.lru_cache(maxsize=8)
 def _kernel_constants(params: LogMelParams, device: torch.device):
-    """(cos, sin, mel) for the kernel: the bases' rows zero-padded to a
-    multiple of 4 columns, so the kernel loads them as aligned float4."""
-    cos_b, sin_b, melw = _constants(params, device)
-    ldb = -(-params.n_bins // 4) * 4
-    pad = (0, ldb - params.n_bins)
-    return (torch.nn.functional.pad(cos_b, pad).contiguous(),
-            torch.nn.functional.pad(sin_b, pad).contiguous(), melw)
+    """(twiddles, window, runs, weights) for the kernel, on ``device``
+    once per device."""
+    tw, win = fft_tables_np(params.n_fft, params.win_length)
+    runs, weights = mel_runs_np(params)
+    return tuple(torch.from_numpy(a).to(device) for a in (tw, win, runs, weights))
 
 
 def logmel_cuda(wave: torch.Tensor, params: LogMelParams) -> torch.Tensor:
     """Fused log-mel: wave (B, T) or (B, T, 1) -> (B, F, n_mels) float32.
 
-    On a CUDA tensor this launches ``csrc/logmel.cu`` (any hop) and counts
-    the launch in ``LOGMEL.launches``; on a CPU tensor it runs
+    On a CUDA tensor this launches ``csrc/logmel.cu`` (an FFT a frame; any
+    hop, n_fft a power of two in 64 .. 4096, n_mels <= 64) and counts the
+    launch in ``LOGMEL.launches``; on a CPU tensor it runs
     ``logmel_frames``.  Any other device raises.
     """
     wave = _as_2d(wave)
@@ -206,22 +246,23 @@ def logmel_cuda(wave: torch.Tensor, params: LogMelParams) -> torch.Tensor:
     wave = wave.to(torch.float32).contiguous()
     b, t = wave.shape
     f = _check_frames(params, t)
-    if params.n_mels > _MAX_MELS or params.n_fft % _TAP_CHUNK:
+    if params.n_mels > _MAX_MELS or params.n_fft not in FFT_SIZES:
         raise ValueError(
-            f"logmel_cuda: needs n_mels <= {_MAX_MELS} and n_fft % "
-            f"{_TAP_CHUNK} == 0; got n_mels={params.n_mels}, "
+            f"logmel_cuda: needs n_mels <= {_MAX_MELS} and n_fft a power of two "
+            f"in {FFT_SIZES[0]} .. {FFT_SIZES[-1]} (other sizes: ROADMAP.md "
+            f"Queue 1, 'log-mel at any n_fft'); got n_mels={params.n_mels}, "
             f"n_fft={params.n_fft}"
         )
-    cos_b, sin_b, melw = _kernel_constants(params, wave.device)
-    t_lo, t_hi = _kernel_taps(params)
+    tw, win, runs, weights = _kernel_constants(params, wave.device)
+    lo, hi = _kernel_taps(params)
     out = torch.empty((b, f, params.n_mels), dtype=torch.float32,
                       device=wave.device)
-    check_cuda_f32("logmel_cuda", wave=wave, cos=cos_b, sin=sin_b, mel=melw,
-                   out=out)
+    check_cuda_f32("logmel_cuda", wave=wave, twiddles=tw, window=win,
+                   weights=weights, out=out)
     LOGMEL(
-        wave.data_ptr(), cos_b.data_ptr(), sin_b.data_ptr(), melw.data_ptr(),
-        out.data_ptr(), b, t, f, params.n_fft, t_lo, t_hi, params.hop_length,
-        params.n_bins, cos_b.shape[1], params.n_mels, params.log_epsilon,
+        wave.data_ptr(), tw.data_ptr(), win.data_ptr(), runs.data_ptr(),
+        weights.data_ptr(), out.data_ptr(), b, t, f, params.n_fft, lo // 2,
+        hi // 2, params.hop_length, params.n_mels, params.log_epsilon,
         stream_of(wave),
     )
     return out

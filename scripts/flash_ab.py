@@ -13,7 +13,10 @@ L2 flushed before each, 20 calls after 3 warm-ups):
   0.1, and SDPA's forward on the same inputs (no dropout);
 * ``flash_bwd_fused`` there at rates 0.1 and 0, and SDPA's backward;
 * ``flash_bwd_dkv`` and ``flash_bwd_dq`` at (2, 4, 5000, 64) with a key
-  bias at rate 0.1, and SDPA's backward there.
+  bias at rate 0.1, and SDPA's backward there; ``flash_bwd_dkv`` also with
+  the first 4,224 keys only (66 key tiles x 8 = 528 CTAs, two whole waves
+  at two CTAs an SM, against 632 in 2.4 waves), which shows what the last
+  wave's tail costs.
 
 The inputs are ``chip_smoke.py``'s.  ``--child ROOT`` runs one child.
 After the four children, two measurements of this checkout alone:
@@ -28,7 +31,8 @@ After the four children, two measurements of this checkout alone:
   built with ``-DFLASH_BWD_TIMERS=1`` at (32, 4, 372, 64), rates 0.1 and
   0: each phase's share of the warps' clock64() time in the query walk
   (the products, P / mask / dS, the dS transpose, dQ), and the cycles a
-  warp spends per query tile.
+  warp spends per query tile; then its dK / dV form (``flash_bwd_dkv``,
+  the same build) at (2, 4, 5000, 64) with a key bias, rates 0.1 and 0.
 
 Needs a CUDA card; exits non-zero without one.
 """
@@ -113,6 +117,10 @@ def child(root: Path) -> dict:
     args = (q, k, v, bias, seed, 0.1, do, lse, (do * o).sum(-1))
     res["long_flash_fwd_ms"] = _timed(lambda: fa.flash_fwd(q, k, v, bias, seed, 0.1), flush)
     res["long_dkv_ms"] = _timed(lambda: fa.flash_bwd_dkv(*args), flush)
+    kv = 66 * 64  # whole waves: 66 key tiles x 8 (head, batch) = 528 CTAs
+    args_kv = (q, k[:, :, :kv].contiguous(), v[:, :, :kv].contiguous(),
+               bias[:, :kv].contiguous(), seed, 0.1, do, lse, (do * o).sum(-1))
+    res["long_dkv_tk4224_ms"] = _timed(lambda: fa.flash_bwd_dkv(*args_kv), flush)
     res["long_dq_ms"] = _timed(lambda: fa.flash_bwd_dq(*args), flush)
     res["long_sdpa_bwd_ms"] = _timed(sdpa_bwd(q, k, v, bias, do), flush)
     return res
@@ -203,18 +211,19 @@ def dq_timers(root: Path) -> None:
             f"{n} {100 * x / total:.1f}%" for n, x in zip(names, buf)))
 
 
-def _timed_lib(root: Path, src: str, flag: str, kern):
-    """``src`` built with ``flag`` into its own library and bound to
-    ``kern`` (a ``CudaKernel``) in place of the default build; returns the
-    library."""
+def _timed_lib(root: Path, src: str, flag: str, *kerns):
+    """``src`` built with ``flag`` into its own library and bound to each
+    of ``kerns`` (``CudaKernel``s of that source) in place of the default
+    build; returns the library."""
     import ctypes
 
     csrc = root / "multimodal_emotion_detection_tpu_torch" / "csrc"
     lib = ctypes.CDLL(str(_nvcc_lib(root, csrc / f"{src}.cu", f"{src}_timers", [flag])))
-    kern._fn = getattr(lib, kern.symbol)
-    kern._fn.argtypes, kern._fn.restype = kern.argtypes, ctypes.c_int
-    kern._err_str = getattr(lib, f"{src}_error_string")
-    kern._err_str.argtypes, kern._err_str.restype = [ctypes.c_int], ctypes.c_char_p
+    for kern in kerns:
+        kern._fn = getattr(lib, kern.symbol)
+        kern._fn.argtypes, kern._fn.restype = kern.argtypes, ctypes.c_int
+        kern._err_str = getattr(lib, f"{src}_error_string")
+        kern._err_str.argtypes, kern._err_str.restype = [ctypes.c_int], ctypes.c_char_p
     return lib
 
 
@@ -227,7 +236,8 @@ def fused_timers(root: Path) -> None:
     sys.path.insert(0, str(root))
     from multimodal_emotion_detection_tpu_torch.ops import flash_attention as fa
 
-    lib = _timed_lib(root, "flash_bwd_fused", "-DFLASH_BWD_TIMERS=1", fa.FLASH_BWD_FUSED)
+    lib = _timed_lib(root, "flash_bwd_fused", "-DFLASH_BWD_TIMERS=1", fa.FLASH_BWD_FUSED,
+                     fa.FLASH_BWD_DKV)
     timers = lib.flash_bwd_fused_timers
     timers.argtypes = [ctypes.c_void_p, ctypes.c_int]
     dev = torch.device("cuda")
@@ -257,6 +267,27 @@ def fused_timers(root: Path) -> None:
         print(f"[fused_timers] ({b}, {h}, {t}, {d}) rate {rate}: "
               f"{total / walks:.0f} cycles a warp and query tile; " + ", ".join(
                   f"{n} {100 * x / total:.1f}%" for n, x in zip(names, buf)))
+    # the dK / dV form at the long sequence: one key tile a CTA, no dQ phases
+    b, t = 2, 5000
+    q, k, v, do = (torch.from_numpy(rng.randn(b, h, t, d).astype(np.float32)).to(dev)
+                   for _ in range(4))
+    valid = rng.rand(b, t) > 0.1
+    valid[:, 0] = True
+    bias = torch.from_numpy(np.where(valid, 0.0, -1e9).astype(np.float32)).to(dev)
+    walks = -(-t // 64) * h * b * 128 * -(-t // 32)
+    for rate in (0.1, 0.0):
+        o, lse = fa.flash_fwd_reference(q, k, v, bias, seed, rate)
+        args = (q, k, v, bias, seed, rate, do, lse, (do * o).sum(-1))
+        fa.flash_bwd_dkv(*args)
+        torch.cuda.synchronize()
+        timers(ctypes.addressof(buf), 1)
+        fa.flash_bwd_dkv(*args)
+        torch.cuda.synchronize()
+        timers(ctypes.addressof(buf), 1)
+        total = sum(buf)
+        print(f"[dkv_timers] ({b}, {h}, {t}, {d}) rate {rate}: "
+              f"{total / walks:.0f} cycles a warp and query tile; " + ", ".join(
+                  f"{n} {100 * x / total:.1f}%" for n, x in zip(names[:5], buf)))
 
 
 def main() -> None:

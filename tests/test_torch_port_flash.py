@@ -221,5 +221,5 @@ def test_library_path_hashes_the_included_headers(tmp_path, monkeypatch):
     assert _build.library_path("kern") not in (first, second)
     # the repository's flash sources reach both headers
     monkeypatch.undo()
-    names = [p.name for p in _build._sources(_build.CSRC / "flash_bwd.cu", [])]
-    assert names == ["flash_bwd.cu", "flash_common.cuh", "philox.cuh"]
+    names = [p.name for p in _build._sources(_build.CSRC / "flash_bwd_fused.cu", [])]
+    assert names == ["flash_bwd_fused.cu", "flash_mma.cuh", "philox.cuh"]

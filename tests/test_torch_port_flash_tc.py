@@ -13,7 +13,9 @@ package's ``flash_attention(interpret=True)`` (its gradients by
 long-key (1, 2, 64, 5000, 64), rate 0, under the kernels' own bounds (O and
 LSE 1e-4 abs + 1e-4 rel, a gradient 1e-4 of its largest entry); the fused
 backward also at rate 0.1 against the plain version, and one TF32 pass
-shown to miss that bound.  A numpy model of the m16n8k8 fragments checks
+shown to miss that bound; its dK / dV form (the kernel without the dQ
+phase, ``flash_bwd_dkv``) against the JAX package's two-pass route
+(``_bwd_dkv_kernel``, past ``_FUSE_MAX_NK`` key blocks).  A numpy model of the m16n8k8 fragments checks
 the kernels' index tricks: P multiplied straight from the accumulator
 registers (permuted k order), the four-tile output order, the Philox words
 shared by shuffle in both layouts, and the fused backward's dS transpose
@@ -23,6 +25,7 @@ through shared memory into dQ.
                                                # 3xTF32 and of one TF32 pass
 """
 
+import importlib
 import math
 
 import jax
@@ -36,6 +39,9 @@ from multimodal_emotion_detection_tpu.ops.flash_attention import (
 )
 from multimodal_emotion_detection_tpu_torch.ops import _build
 from multimodal_emotion_detection_tpu_torch.ops import flash_attention as fa
+
+# the module (the package's ops namespace exports its function by the same name)
+jax_fa = importlib.import_module("multimodal_emotion_detection_tpu.ops.flash_attention")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -79,12 +85,14 @@ def dq_emulated(q, k, v, bias, do, lse, delta, mm=fa.matmul_3xtf32):
     return mm(ds, k)
 
 
-def fused_bwd_emulated(q, k, v, bias, seed, rate, do, lse, delta, mm=fa.matmul_3xtf32):
+def fused_bwd_emulated(q, k, v, bias, seed, rate, do, lse, delta, mm=fa.matmul_3xtf32,
+                       dq=True):
     """flash_bwd_fused.cu with its products as ``mm``, each with the
     kernel's A and B operands: kv-major scores S^T = K Q^T and dP^T = V dO^T
     (keys as rows), P^T with the key bias per row and LSE and Delta per
     column, the mask transposed, then dV = (P M)^T dO, dK = dS^T Q and dQ =
-    dS K -> (dQ, dK, dV)."""
+    dS K -> (dQ, dK, dV); its dK / dV form (``dq=False``, the kernel
+    compiled without the dQ phase) -> (dK, dV)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     st = mm(k, q.transpose(-1, -2)) * scale
     if bias is not None:
@@ -96,7 +104,8 @@ def fused_bwd_emulated(q, k, v, bias, seed, rate, do, lse, delta, mm=fa.matmul_3
         b, h, tq, _ = q.shape
         mt = fa.attn_keep_mask(seed, rate, (b, h, tq, k.shape[2])).transpose(-1, -2)
     dst = pt * (dpt * mt - delta[..., None, :]) * scale
-    return mm(dst.transpose(-1, -2), k), mm(dst, q), mm(pt * mt, do)
+    dkv = (mm(dst, q), mm(pt * mt, do))
+    return (mm(dst.transpose(-1, -2), k), *dkv) if dq else dkv
 
 
 SHAPES = {
@@ -198,6 +207,40 @@ def test_fused_bwd_in_3xtf32_with_dropout_matches_plain():
     for label, g, p in zip(("dQ", "dK", "dV"), fused_bwd_emulated(*args),
                            fa.flash_bwd_reference(*args)):
         _close_to_largest(g.numpy(), p.numpy(), label)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_dkv_form_in_3xtf32_matches_jax_two_pass_and_plain(masked):
+    # the two-pass route of the JAX package: 160 keys in blocks of 16 are 10
+    # key blocks, past its _FUSE_MAX_NK, so jax.grad runs _bwd_dkv_kernel
+    # (and _bwd_dq_kernel) in interpret mode; the port's dK / dV form
+    # against its dK and dV and against the plain version
+    b, h, tq, tk, d = 1, 2, 48, 160, 64
+    assert tk // 16 > jax_fa._FUSE_MAX_NK
+    q, k, v, bias, do = _inputs(b, h, tq, tk, d, masked, seed=11)
+    tq_, tk_, tv_, tb_, tdo_ = map(_t, (q, k, v, bias, do))
+    o, lse = fa.flash_fwd_reference(tq_, tk_, tv_, tb_, None, 0.0)
+    args = (tq_, tk_, tv_, tb_, None, 0.0, tdo_, lse, (tdo_ * o).sum(-1))
+    got = fused_bwd_emulated(*args, dq=False)
+    assert len(got) == 2
+    jbias = None if bias is None else jnp.asarray(bias)
+    cot = jnp.asarray(do)
+
+    def loss(k_, v_):
+        out = jax_flash_attention(jnp.asarray(q), k_, v_, jbias, block_q=16,
+                                  block_k=16, interpret=True)
+        return jnp.sum(out * cot)
+
+    with jax.default_matmul_precision("highest"):
+        want_jax = jax.grad(loss, argnums=(0, 1))(jnp.asarray(k), jnp.asarray(v))
+    for label, g, p, j in zip(("dK", "dV"), got, fa.flash_bwd_reference(*args)[1:],
+                              want_jax):
+        _close_to_largest(g.numpy(), p.numpy(), f"{label} vs plain")
+        _close_to_largest(g.numpy(), np.asarray(j), f"{label} vs JAX two-pass")
+    # the same products as the fused form's: its dK and dV exactly
+    full = fused_bwd_emulated(*args)
+    for g, f in zip(got, full[1:]):
+        assert torch.equal(g, f)
 
 
 def test_one_tf32_pass_misses_the_fused_bound():
@@ -425,8 +468,10 @@ def test_ds_transpose_through_shared_memory_gives_dq():
 
 
 def test_fused_backward_source_reaches_the_tile_core():
-    # the fused backward is the tensor-core kv-major kernel; flash_bwd.cu
-    # keeps only the two-pass form's dK / dV entry, on the float32 tiles
+    # the fused backward is the tensor-core kv-major kernel, and the two-pass
+    # form's dK / dV entry is the same kernel without its dQ phase: both
+    # entries in one source on the tile core, the float32 dK / dV kernel
+    # and its tiles gone
     names = [p.name for p in _build._sources(_build.CSRC / "flash_bwd_fused.cu", [])]
     assert names == ["flash_bwd_fused.cu", "flash_mma.cuh", "philox.cuh"]
     assert fa.FLASH_BWD_FUSED.source == "flash_bwd_fused"
@@ -434,12 +479,11 @@ def test_fused_backward_source_reaches_the_tile_core():
     # K and V as the A operands of the score products; the kv-major mask
     for call in ("mma_abt<", ", ka, va);", "keep_bits_kv(", "mma_pb_cols<"):
         assert call in text, call
-    dkv = (_build.CSRC / "flash_bwd.cu").read_text()
-    assert "flash_bwd_dkv_launch" in dkv and "flash_bwd_fused_launch" not in dkv
-    assert "FUSED" not in dkv
-    assert fa.FLASH_BWD_DKV.source == "flash_bwd"
-    names = [p.name for p in _build._sources(_build.CSRC / "flash_bwd.cu", [])]
-    assert names == ["flash_bwd.cu", "flash_common.cuh", "philox.cuh"]
+    assert "flash_bwd_dkv_launch" in text and "flash_bwd_fused_launch" in text
+    assert "run<false>" in text and "run<true>" in text
+    assert fa.FLASH_BWD_DKV.source == "flash_bwd_fused"
+    for gone in ("flash_bwd.cu", "flash_common.cuh"):
+        assert not (_build.CSRC / gone).exists(), gone
 
 
 def test_q_major_sources_reach_the_tile_core():

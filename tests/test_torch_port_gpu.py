@@ -28,7 +28,16 @@ def _card():
     (2, 16000, logmel.LogMelParams(hop_length=160)),        # non-128 hop
     (2, 3000, logmel.LogMelParams(n_fft=256, win_length=200, hop_length=80,
                                   n_mels=40)),              # masked bands
-    (2, 4000, logmel.LogMelParams(win_length=512)),         # every tap chunk
+    (2, 4000, logmel.LogMelParams(win_length=512)),         # every tap
+    (1, 48000, logmel.LogMelParams()),                      # B=1, the b1 grid
+    (2, 9000, logmel.LogMelParams(n_fft=1024, win_length=1024,
+                                  hop_length=256)),         # radix-2 last stage
+    (1, 12000, logmel.LogMelParams(n_fft=2048, win_length=1600,
+                                   hop_length=333)),        # 2048, odd hop
+    (2, 3000, logmel.LogMelParams(n_fft=64, win_length=64, hop_length=32,
+                                  n_mels=16)),              # the smallest size
+    (1, 20000, logmel.LogMelParams(n_fft=4096, win_length=4096,
+                                   hop_length=1024)),       # the largest size
 ])
 def test_logmel_kernel_matches_plain(b, t, params):
     dev = _card()
@@ -43,6 +52,32 @@ def test_logmel_kernel_matches_plain(b, t, params):
     # float32 sums in another order than cuBLAS: ~1e-6 relative on the
     # spectrum, through the log
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_logmel_kernel_matches_plain_at_low_amplitude():
+    # a quiet clip (amplitude 1e-3): the power is ~1e-6 of a loud one's,
+    # near eps, where the log magnifies relative error
+    dev = _card()
+    params = logmel.LogMelParams()
+    wave = torch.from_numpy(
+        (1e-3 * np.random.RandomState(5).randn(2, 16000)).astype(np.float32)).to(dev)
+    out = logmel.logmel_cuda(wave, params)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, logmel.logmel_frames(wave, params),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("n_fft", [400, 96, 8192])
+def test_logmel_kernel_refuses_other_fft_sizes(n_fft):
+    # the FFT takes powers of two from 64 to 4096; other sizes raise on the
+    # card and launch nothing (no fallback to the plain version)
+    dev = _card()
+    params = logmel.LogMelParams(n_fft=n_fft, win_length=min(400, n_fft))
+    wave = torch.zeros(1, 3 * n_fft, device=dev)
+    before = logmel.LOGMEL.launches
+    with pytest.raises(ValueError, match="power of two"):
+        logmel.logmel_cuda(wave, params)
+    assert logmel.LOGMEL.launches == before
 
 
 @pytest.mark.parametrize("b,t,d,h", [
@@ -1398,3 +1433,36 @@ def test_flash_attention_on_the_card_matches_the_cpu_with_one_seed():
     # the same Philox mask on both sides: the results agree to round-off
     for name, g, r in zip(("O", "dQ", "dK", "dV"), card, run(cpu, seed)):
         torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4, msg=name)
+
+
+@pytest.mark.parametrize("b,h,tq,tk,d,masked,rate", [
+    (2, 4, 77, 130, 40, True, 0.1),      # head dim 40, ragged key tile
+    (2, 2, 300, 1000, 64, False, 0.0),   # rate 0, no bias
+    (2, 2, 300, 1000, 64, True, 0.1),    # key bias, dropout
+    (1, 2, 100, 260, 128, True, 0.1),    # head dim 128: one ring stage
+    (1, 2, 100, 4096, 64, True, 0.1),    # the fused form's 8 tiles a span
+    (1, 2, 65, 4000, 128, False, 0.0),   # head dim 128, Tk off the tiles
+])
+def test_flash_bwd_dkv_form_matches_plain_and_the_fused_form(b, h, tq, tk, d, masked, rate):
+    # the dK / dV form is flash_bwd_fused.cu without its dQ phase: the same
+    # products in the same order, so its dK and dV are the fused form's bit
+    # for bit (at Tk <= 4,096, where the fused form runs), and within 1e-4
+    # of the largest entry of the plain version's
+    from multimodal_emotion_detection_tpu_torch.ops import flash_attention as fa
+
+    dev = _card()
+    q, k, v, bias, do = _flash_case(dev, b, h, tq, tk, d, masked, seed=tq + tk + d)
+    seed = torch.tensor([tq * 1000 + tk], dtype=torch.int64, device=dev)
+    o, lse = fa.flash_fwd_reference(q, k, v, bias, seed, rate)
+    args = (q, k, v, bias, seed, rate, do, lse, (do * o).sum(-1))
+    before = (fa.FLASH_BWD_DKV.launches, fa.FLASH_BWD_FUSED.launches)
+    dk, dv = fa.flash_bwd_dkv(*args)
+    _, dk_fused, dv_fused = fa.flash_bwd_fused(*args)
+    torch.cuda.synchronize()
+    assert (fa.FLASH_BWD_DKV.launches - before[0],
+            fa.FLASH_BWD_FUSED.launches - before[1]) == (1, 1)
+    assert torch.equal(dk, dk_fused) and torch.equal(dv, dv_fused)
+    for name, g, r in zip(("dK", "dV"), (dk, dv), fa.flash_bwd_reference(*args)[1:]):
+        scale = float(r.abs().max())
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4 * max(scale, 1.0),
+                                   msg=name)
