@@ -130,7 +130,22 @@
    Philox seeds replayed, latency and profile; ``[serve_tf]`` serves its
    ``best.ckpt`` (log-mel once and the flash forward twice per batch),
    logits against the CPU forward, latency and profile.
-13. Prints one JSON line describing every kernel (the one-layer and
+13. ``configs/base.yaml`` as written (``frontend.audio: "raw"``: the
+   (B, 48000, 1) waveform into the LSTM 2x256, 96,000 serial layer-steps a
+   forward): ``[lstm_raw]`` / ``[gru_raw]`` hold the 2-layer pairs'
+   training forward, reverse chain and eval form (rows 11, 12, 2 and 14,
+   15, 3) against their plain versions at B=32, T=48,000, D=1, H=256, and
+   ``[lstm1_raw]`` the one-layer forward and chain (rows 6, 4; the cores of
+   the GRU's 7f, 7) at H=512, each series' error printed per run of steps
+   cut where its offsets pass 2^29 and 2^31 elements, bound 1e-4 of the
+   largest entry; their times go into the kernels line as ``raw_*``.  The
+   big config on raw (LSTM 3x512, b32), whose full-length residuals exceed
+   the card, must be refused before it allocates them.  ``[train_raw]`` /
+   ``[serve_raw]`` train the file unmodified and serve its ``best.ckpt`` as
+   in 6 (the pair once per step, the eval form per eval or served batch,
+   no log-mel), ``[train_raw_gru]`` / ``[serve_raw_gru]`` with the GRU; the
+   card-vs-CPU step and the served logits are checked on 4 clips.
+14. Prints one JSON line describing every kernel (the one-layer and
    2-layer cores' entries name their shared header as ``core``), nvidia-smi's name and
    power limit of the card, and as the last line
    ``{"ok": true, "device": {...}}``.
@@ -180,6 +195,39 @@ def tc_bounds(flops: float, nbytes: float):
     tensor cores: on the CUDA cores' float32 rate, and as 3 TF32 products
     at the tensor cores' rate (the kernel's own arithmetic, its bound_ms)."""
     return bound(flops, nbytes), bound(3 * flops, nbytes, TF32_FLOPS)
+
+
+def _work(name: str, b: int, t: int, d: int, h: int):
+    """``(flops, bytes)`` of one call of a recurrent kernel at (B, T, D, H):
+    its products, each input read once, each output written once (the
+    one-layer kernels take the hoisted projection: D unused)."""
+    if name == "lstm2_infer":
+        return (2 * b * t * (d * 4 * h + 3 * h * 4 * h),
+                4 * (b * t * d + d * 4 * h + 3 * h * 4 * h + 2 * 4 * h + b * h))
+    if name == "lstm2_train_fwd":
+        return (2 * b * t * (d * 4 * h + 3 * h * 4 * h),
+                4 * (t * b * (d + h + 13 * h) + d * 4 * h + 3 * h * 4 * h
+                     + 2 * 4 * h + 4 * b * h))
+    if name == "lstm2_bwd_chain":
+        return (2 * b * t * 3 * 4 * h * h,
+                4 * (t * b * (10 * h + h + 8 * h) + b * h + 3 * h * 4 * h))
+    if name == "gru2_infer":
+        return (2 * b * t * (d * 3 * h + 3 * h * 3 * h),
+                4 * (b * t * d + d * 3 * h + 3 * h * 3 * h + 4 * 3 * h + b * h))
+    if name == "gru2_train_fwd":
+        return (2 * b * t * (d * 3 * h + 3 * h * 3 * h),
+                4 * (t * b * (d + h + 11 * h) + d * 3 * h + 3 * h * 3 * h
+                     + 4 * 3 * h + 2 * b * h))
+    if name == "gru2_bwd_chain":
+        return (2 * b * t * 3 * 3 * h * h,
+                4 * (t * b * (8 * h + 3 * h + 8 * h) + b * h + 3 * h * 3 * h))
+    if name == "lstm1_train_fwd":
+        return (2 * b * t * h * 4 * h,
+                4 * (2 * t * b * 4 * h + h * 4 * h + 2 * t * b * h + 2 * b * h))
+    if name == "lstm_bwd_chain":  # with dh_series
+        return (2 * b * t * 4 * h * h,
+                4 * (2 * t * b * 4 * h + 2 * t * b * h + b * h + h * 4 * h))
+    raise KeyError(name)
 
 
 class L2Flush:
@@ -342,8 +390,7 @@ def phase_lstm(lstm_kernel, flush):
     library_ms = device_ms(run_lib, flush)
     x1 = x[:1].contiguous()
     ms_b1 = device_ms(lambda: lstm_kernel.lstm2_infer(x1, l0, l1), flush)
-    flops = 2 * b * t * (d * 4 * h + 3 * h * 4 * h)
-    nbytes = 4 * (b * t * d + d * 4 * h + 3 * h * 4 * h + 2 * 4 * h + b * h)
+    flops, nbytes = _work("lstm2_infer", b, t, d, h)
     bound_ms, bound_by = bound(flops, nbytes)
     print(f"[lstm2_infer] kernel {ms:.4f} ms (input projection + one cooperative "
           f"cluster launch, {t + 1} phases, {1e3 * ms / (t + 1):.3f} us per phase), "
@@ -379,12 +426,15 @@ def run_counted(counters, expected, path: str, fn):
 
 
 def serve_path(tag: str, counters, expected, ckpt: Path, overrides,
-               audio: np.ndarray, video: np.ndarray, out_dir: Path):
+               audio: np.ndarray, video: np.ndarray, out_dir: Path,
+               check_clips: int = 0, reps: int = 110, profile_reps: int = 20):
     """The predict CLI on ``ckpt`` over the test split (``audio``,
     ``video``) at batch 32 with the launch counts checked; the logits
-    against the model's own forward on the CPU, where every kernel wrapper
-    runs its plain version (each kernel was held against it on the card);
-    then the forward's latency and profile at batch 32 and 1."""
+    (of the first ``check_clips``, where given) against the model's own
+    forward on the CPU, where every kernel wrapper runs its plain version
+    (each kernel was held against it on the card); then the forward's
+    latency over ``reps`` requests and its profile over ``profile_reps`` at
+    batch 32 and 1."""
     from multimodal_emotion_detection_tpu_torch.config import load_config
     from multimodal_emotion_detection_tpu_torch.tools import predict
     from multimodal_emotion_detection_tpu_torch.tools._restore import (
@@ -410,16 +460,17 @@ def serve_path(tag: str, counters, expected, ckpt: Path, overrides,
     cfg = load_config(config_path, overrides)
     cfg.model.frontend.cache = False  # as predict: raw features in
     model, _, _ = restore_for_eval(cfg, ckpt, "test", torch.device("cpu"))
+    rows = check_clips or n
     with torch.no_grad():
         ref = torch.cat([
-            forward(model, {"audio": torch.from_numpy(audio[i:i + 32]),
-                            "video": torch.from_numpy(video[i:i + 32])})
-            for i in range(0, n, 32)]).numpy()
-    err = float(np.abs(logits - ref).max())
-    agree = int((logits.argmax(-1) == ref.argmax(-1)).sum())
+            forward(model, {"audio": torch.from_numpy(audio[i:min(i + 32, rows)]),
+                            "video": torch.from_numpy(video[i:min(i + 32, rows)])})
+            for i in range(0, rows, 32)]).numpy()
+    err = float(np.abs(logits[:rows] - ref).max())
+    agree = int((logits[:rows].argmax(-1) == ref.argmax(-1)).sum())
     print(f"[{tag}] logits vs the plain-version forward on the CPU: max abs "
-          f"err {err:.3e} (bound 1e-3), argmax agreement {agree}/{n}")
-    if err > 1e-3 or agree != n:
+          f"err {err:.3e} (bound 1e-3), argmax agreement {agree}/{rows}")
+    if err > 1e-3 or agree != rows:
         raise RuntimeError("served logits disagree with the plain forward")
 
     dev = torch.device("cuda")
@@ -428,11 +479,12 @@ def serve_path(tag: str, counters, expected, ckpt: Path, overrides,
            "video": torch.from_numpy(video[:32]).to(dev)}
     b1 = {k: v[:1].contiguous() for k, v in b32.items()}
     for label, batch in (("b32", b32), ("b1", b1)):
-        p50, p90 = host_ms(lambda: forward(model, batch))
+        p50, p90 = host_ms(lambda: forward(model, batch), reps=reps)
         print(f"[{tag}] forward latency {label} (host clock around "
-              f"synchronize, 110 requests, inputs on the card): "
+              f"synchronize, {reps} requests, inputs on the card): "
               f"p50 {p50:.4f} ms, p90 {p90:.4f} ms")
-        profile_forward(f"{tag} {label}", lambda: forward(model, batch))
+        profile_forward(f"{tag} {label}", lambda: forward(model, batch),
+                        reps=profile_reps)
     return launches
 
 
@@ -534,9 +586,7 @@ def phase_lstm2_train_fwd(lstm_kernel, flush):
         lambda: lstm_kernel.lstm2_train_fwd_reference(x_tm, keep, l0, l1),
         flush, reps=5)
     library_ms = device_ms(run_lib, flush)
-    flops = 2 * b * t * (d * 4 * h + 3 * h * 4 * h)
-    nbytes = 4 * (t * b * (d + h + 13 * h) + d * 4 * h + 3 * h * 4 * h
-                  + 2 * 4 * h + 4 * b * h)
+    flops, nbytes = _work("lstm2_train_fwd", b, t, d, h)
     bound_ms, bound_by = bound(flops, nbytes)
     print(f"[lstm2_train_fwd] kernel {ms:.4f} ms (input projection + one "
           f"cooperative cluster launch, {t + 1} phases, "
@@ -597,8 +647,7 @@ def phase_lstm2_bwd_chain(lstm_kernel, lstm_vjp, flush, inputs):
     plain_ms = device_ms(lambda: lstm_kernel.lstm2_bwd_chain_reference(*args),
                          flush, reps=5)
     library_ms = device_ms(run_lib_bwd, flush)
-    flops = 2 * b * t * 3 * 4 * h * h
-    nbytes = 4 * (t * b * (10 * h + h + 8 * h) + b * h + 3 * h * 4 * h)
+    flops, nbytes = _work("lstm2_bwd_chain", b, t, d, h)
     bound_ms, bound_by = bound(flops, nbytes)
     print(f"[lstm2_bwd_chain] kernel {ms:.4f} ms (one cooperative cluster launch, "
           f"{t + 1} phases, {1e3 * ms / (t + 1):.3f} us per phase), plain "
@@ -1110,9 +1159,8 @@ def phase_lstm1_train_fwd(lstm_kernel, flush):
           + ", ".join(f"{k} {v:.3e}" for k, v in eval_errs.items() if "B=1" in k)
           + " (bound 1e-4 abs)")
     b1_ms = device_ms(lambda: lstm_kernel.lstm1_infer(ih1, w_hh, False), flush)
-    flops = 2 * b * t * h * 4 * h
     # ih and w_hh read; g, h_prev, c_prev and finals written
-    nbytes = 4 * (2 * t * b * 4 * h + h * 4 * h + 2 * t * b * h + 2 * b * h)
+    flops, nbytes = _work("lstm1_train_fwd", b, t, 0, h)
     bound_ms, bound_by = bound(flops, nbytes)
     # ih and w_hh read; the h series written
     eval_bytes = 4 * (t * b * 4 * h + h * 4 * h + t * b * h)
@@ -1203,9 +1251,8 @@ def phase_lstm_bwd_chain(lstm_kernel, lstm_vjp, flush, layer_inputs):
         lambda: lstm_kernel.lstm_bwd_chain_reference(g, c_prev, dhs, dhf, w_hh),
         flush, reps=5)
     library_ms = device_ms(run_lib_bwd, flush)
-    flops = 2 * b * t * 4 * h * h
     # g, c_prev, dh_series, dh_final and w_hh read; dgates written
-    nbytes = 4 * (2 * t * b * 4 * h + 2 * t * b * h + b * h + h * 4 * h)
+    flops, nbytes = _work("lstm_bwd_chain", b, t, 0, h)
     bound_ms, bound_by = bound(flops, nbytes)
     print(f"[lstm_bwd_chain] {_chain_plan_text(lstm_kernel, 'lstm_bwd_chain', 4, h, b)}")
     print(f"[lstm_bwd_chain] kernel {ms:.4f} ms with dh_series, {top_ms:.4f} ms "
@@ -1327,9 +1374,8 @@ def phase_gru2_infer(lstm_kernel, flush):
                          flush, reps=5)
     library_ms = device_ms(run_lib, flush)
     ms_b1 = device_ms(lambda: lstm_kernel.gru2_infer(x1, l0, l1), flush)
-    flops = 2 * b * t * (d * 3 * h + 3 * h * 3 * h)
     # x, the four weight matrices and four biases read; h1 written
-    nbytes = 4 * (b * t * d + d * 3 * h + 3 * h * 3 * h + 4 * 3 * h + b * h)
+    flops, nbytes = _work("gru2_infer", b, t, d, h)
     bound_ms, bound_by = bound(flops, nbytes)
     print(f"[gru2_infer] kernel {ms:.4f} ms (input projection + one cooperative "
           f"cluster launch, {t + 1} phases, {1e3 * ms / (t + 1):.3f} us per phase), "
@@ -1376,11 +1422,9 @@ def phase_gru2_train_fwd(lstm_kernel, flush):
         lambda: lstm_kernel.gru2_train_fwd_reference(x_tm, keep, l0, l1),
         flush, reps=5)
     library_ms = device_ms(run_lib, flush)
-    flops = 2 * b * t * (d * 3 * h + 3 * h * 3 * h)
     # x, keep, weights and biases read; packed (8H), h0_prev, h1_prev, x1
     # and finals written
-    nbytes = 4 * (t * b * (d + h + 11 * h) + d * 3 * h + 3 * h * 3 * h
-                  + 4 * 3 * h + 2 * b * h)
+    flops, nbytes = _work("gru2_train_fwd", b, t, d, h)
     bound_ms, bound_by = bound(flops, nbytes)
     print(f"[gru2_train_fwd] kernel {ms:.4f} ms (input projection + one "
           f"cooperative cluster launch, {t + 1} phases, "
@@ -1441,10 +1485,9 @@ def phase_gru2_bwd_chain(lstm_kernel, lstm_vjp, flush, inputs):
     plain_ms = device_ms(lambda: lstm_kernel.gru2_bwd_chain_reference(*args),
                          flush, reps=5)
     library_ms = device_ms(run_lib_bwd, flush)
-    flops = 2 * b * t * 3 * 3 * h * h
     # packed (8H), h0_prev, h1_prev, keep, dh_final and three weights read;
     # dih0, dih1 (3H) and dhn0, dhn1 written
-    nbytes = 4 * (t * b * (8 * h + 3 * h + 8 * h) + b * h + 3 * h * 3 * h)
+    flops, nbytes = _work("gru2_bwd_chain", b, t, d, h)
     bound_ms, bound_by = bound(flops, nbytes)
     print(f"[gru2_bwd_chain] kernel {ms:.4f} ms (one cooperative cluster launch, "
           f"{t + 1} phases, {1e3 * ms / (t + 1):.3f} us per phase), plain "
@@ -2148,6 +2191,230 @@ def phase_flash_long(fa, counters, flush):
          "bound_fp32_ms": dq_fp32[0], "bound_3xtf32_ms": dq_bound[0]}]
 
 
+# ---------------------------------------------------------------------------
+# configs/base.yaml as written: the raw waveform, 48,000 steps
+# ---------------------------------------------------------------------------
+
+RAW_T = 48000  # base.yaml's raw waveform: 3 s at 16 kHz, audio input_dim 1
+
+
+def timed_ms(fn):
+    """``fn()`` once, and its device time in ms (CUDA events around it)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def split_errs(out: torch.Tensor, ref: torch.Tensor, chunk: int = 2048):
+    """A time-major series (T, B, ...) against its plain version: the max
+    abs error over each run of steps, cut where the series' offsets pass
+    2^29 and 2^31 elements (a 32-bit byte offset, a 32-bit element
+    offset), and the largest |ref|; chunked over T, so no temporary is as
+    large as the series."""
+    t, row = out.shape[0], out[0].numel()
+    cuts = sorted({c for c in (2**29 // row, 2**31 // row) if 0 < c < t})
+    step_err = torch.empty(t, device=out.device)
+    largest = 0.0
+    for t0 in range(0, t, chunk):
+        o, r = out[t0:t0 + chunk], ref[t0:t0 + chunk]
+        step_err[t0:t0 + chunk] = (o - r).abs().flatten(1).amax(1)
+        largest = max(largest, float(r.abs().max()))
+    ends = [0, *cuts, t]
+    return [(lo, hi, float(step_err[lo:hi].max())) for lo, hi in zip(ends, ends[1:])], largest
+
+
+def _raw_check(tag: str, names, outs, refs) -> float:
+    """Hold each output to 1e-4 of its plain version's largest entry,
+    printing each series' errors per run of steps (``split_errs``);
+    returns the largest error."""
+    worst = 0.0
+    for name, out, ref in zip(names, outs, refs):
+        if out.dim() == 3 and out.shape[0] == RAW_T:
+            segs, largest = split_errs(out, ref)
+            text = ", ".join(f"steps [{lo}, {hi}) {e:.3e}" for lo, hi, e in segs)
+            err = max(e for *_, e in segs)
+        else:
+            err, largest = float((out - ref).abs().max()), float(ref.abs().max())
+            text = f"{err:.3e}"
+        print(f"[{tag}] {name} {tuple(out.shape)}: max abs err {text}; largest "
+              f"|plain| {largest:.3e} (bound 1e-4 of it)")
+        if not err <= 1e-4 * largest:
+            raise RuntimeError(f"[{tag}] {name} disagrees with its plain version")
+        worst = max(worst, err)
+    return worst
+
+
+def _raw_record(kernels, name: str, tag: str, err: float, ms: float,
+                plain_ms: float, b: int, t: int, d: int, h: int, layers: int) -> None:
+    """Print a kernel's time at the raw shape beside its bound and add the
+    ``raw_*`` numbers to its entry of the kernels line."""
+    flops, nbytes = _work(name, b, t, d, h)
+    bound_ms, bound_by = bound(flops, nbytes)
+    phases = t + 1 if layers == 2 else t
+    print(f"[{tag}] {name} B={b} T={t} D={d} H={h}: kernel {ms:.4f} ms "
+          f"({1e3 * ms / phases:.3f} us per {'phase' if layers == 2 else 'step'}), "
+          f"plain {plain_ms:.4f} ms (the checked call), bound {bound_ms:.4f} ms "
+          f"({bound_by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB) + a serial "
+          f"chain of {layers * t} layer-steps")
+    kernels[name].update(raw_max_abs_err=err, raw_ms=ms, raw_plain_ms=plain_ms,
+                         raw_bound_ms=bound_ms, raw_bound_by=bound_by)
+
+
+def _raw_pair_inputs(seed: int, gates: int):
+    """base.yaml's recurrent training shape on the raw waveform (B=32,
+    T=48,000, D=1, 2 layers of H=256; ``gates`` 4 for the LSTM, 3 for the
+    GRU): time-major x, keep mask at dropout 0.1, both layers' weights."""
+    dev = torch.device("cuda")
+    b, t, d, h = 32, RAW_T, 1, 256
+    rng = np.random.RandomState(seed)
+    k = 1.0 / np.sqrt(h)
+    names = ("w_ih", "w_hh", "b") if gates == 4 else ("w_ih", "w_hh", "b_ih", "b_hh")
+
+    def layer(d_in):
+        shapes = {"w_ih": (d_in, gates * h), "w_hh": (h, gates * h)}
+        return {n: torch.from_numpy(rng.uniform(
+            -k, k, shapes.get(n, (gates * h,))).astype(np.float32)).to(dev)
+            for n in names}
+
+    l0, l1 = layer(d), layer(h)
+    x_tm = torch.from_numpy(rng.randn(t, b, d).astype(np.float32)).to(dev)
+    # 393M draws: made on the card from the same seed
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    keep = (torch.rand((t, b, h), generator=gen, device=dev) < 0.9).float() / 0.9
+    return x_tm, keep, l0, l1
+
+
+def phase_pair_raw(lstm_kernel, flush, kernels, cell: str) -> None:
+    """``[lstm_raw]`` / ``[gru_raw]``: the 2-layer pair of base.yaml (or
+    base.yaml + GRU) on the raw waveform at B=32, T=48,000, D=1, H=256,
+    keep p=0.1: the training forward, then the reverse chain over its
+    residuals, then the eval forward, each against its plain version on
+    the card (the plain version first, so the two never hold their largest
+    temporaries at once) and timed (median of 5, L2 flushed)."""
+    lstm = cell == "lstm"
+    tag = f"{cell}_raw"
+    x_tm, keep, l0, l1 = _raw_pair_inputs(40 if lstm else 41, 4 if lstm else 3)
+    t, b, d = x_tm.shape
+    h = l0["w_hh"].shape[0]
+    fwd, fwd_ref, bwd, bwd_ref, inf, inf_ref = (
+        (lstm_kernel.lstm2_train_fwd_residuals, lstm_kernel.lstm2_train_fwd_reference,
+         lstm_kernel.lstm2_bwd_chain, lstm_kernel.lstm2_bwd_chain_reference,
+         lstm_kernel.lstm2_infer, lstm_kernel.lstm2_infer_reference) if lstm else
+        (lstm_kernel.gru2_train_fwd_residuals, lstm_kernel.gru2_train_fwd_reference,
+         lstm_kernel.gru2_bwd_chain, lstm_kernel.gru2_bwd_chain_reference,
+         lstm_kernel.gru2_infer, lstm_kernel.gru2_infer_reference))
+    names = [f"{cell}2_train_fwd", f"{cell}2_bwd_chain", f"{cell}2_infer"]
+    print(f"[{tag}] B={b} T={t} D={d} H={h}, keep p=0.1: the packed rows pass 2^31 "
+          f"elements from step {2**31 // (b * (10 if lstm else 8) * h)}")
+
+    refs, plain_ms = timed_ms(lambda: fwd_ref(x_tm, keep, l0, l1))
+    outs = fwd(x_tm, keep, l0, l1)
+    torch.cuda.synchronize()
+    err = _raw_check(tag, ("packed", "h0_prev", "h1_prev", "x1", "finals"), outs, refs)
+    del refs
+    series = outs[:3]  # packed, h0_prev, h1_prev: the chain's residuals
+    del outs
+    ms = device_ms(lambda: fwd(x_tm, keep, l0, l1), flush, reps=5, warmup=1)
+    _raw_record(kernels, names[0], tag, err, ms, plain_ms, b, t, d, h, 2)
+
+    dh = torch.from_numpy(np.random.RandomState(42).randn(b, h).astype(np.float32)).cuda()
+    if lstm:
+        args = (series[0], keep, dh, l0["w_hh"], l1["w_hh"], l1["w_ih"])
+        out_names = ("dg0", "dg1")
+    else:
+        args = (*series, keep, dh, l0["w_hh"], l1["w_hh"], l1["w_ih"])
+        out_names = ("dih0", "dhn0", "dih1", "dhn1")
+    del series
+    refs, plain_ms = timed_ms(lambda: bwd_ref(*args))
+    outs = bwd(*args)
+    torch.cuda.synchronize()
+    err = _raw_check(tag, out_names, outs, refs)
+    del refs, outs
+    ms = device_ms(lambda: bwd(*args), flush, reps=5, warmup=1)
+    _raw_record(kernels, names[1], tag, err, ms, plain_ms, b, t, d, h, 2)
+    del args
+
+    x_bt = x_tm.transpose(0, 1).contiguous()
+    ref, plain_ms = timed_ms(lambda: inf_ref(x_bt, l0, l1))
+    out = inf(x_bt, l0, l1)
+    torch.cuda.synchronize()
+    err = _raw_check(tag, ("final h1 (eval form)",), (out,), (ref,))
+    ms = device_ms(lambda: inf(x_bt, l0, l1), flush, reps=5, warmup=1)
+    _raw_record(kernels, names[2], tag, err, ms, plain_ms, b, t, d, h, 2)
+    torch.cuda.empty_cache()
+
+
+def phase_lstm1_raw(lstm_kernel, lstm_vjp, flush, kernels) -> None:
+    """``[lstm1_raw]``: one layer of the layered route on the raw waveform
+    (B=32, T=48,000, H=512, layer 0's input D=1): the training forward
+    (row 6), then the reverse chain over its residuals with a dh series
+    (row 4), each against its plain version on the card and timed; the
+    one-layer cores are the GRU's too (rows 7f / 7), so this covers their
+    addressing.  Then the big sweep config on raw (LSTM 3x512, b32), whose
+    full-length residuals exceed the card, must be refused before it
+    allocates them."""
+    dev = torch.device("cuda")
+    tag, b, t, d, h = "lstm1_raw", 32, RAW_T, 1, 512
+    rng = np.random.RandomState(43)
+    k = 1.0 / np.sqrt(h)
+    x = torch.from_numpy(rng.randn(t, b, d).astype(np.float32)).to(dev)
+    w_ih, w_hh, bias = (torch.from_numpy(rng.uniform(-k, k, s).astype(np.float32)).to(dev)
+                        for s in ((d, 4 * h), (h, 4 * h), (4 * h,)))
+    ih = torch.matmul(x, w_ih) + bias
+    print(f"[{tag}] B={b} T={t} D={d} H={h}: g (T, B, 4H) passes 2^31 elements "
+          f"from step {2**31 // (b * 4 * h)}")
+    refs, plain_ms = timed_ms(lambda: lstm_kernel.lstm1_train_fwd_reference(ih, w_hh))
+    outs = lstm_kernel.lstm1_train_fwd(ih, w_hh)
+    torch.cuda.synchronize()
+    err = _raw_check(tag, ("g", "h_prev", "c_prev", "finals"), outs, refs)
+    del refs
+    g, c_prev = outs[0], outs[2]
+    del outs
+    ms = device_ms(lambda: lstm_kernel.lstm1_train_fwd(ih, w_hh), flush, reps=5, warmup=1)
+    _raw_record(kernels, "lstm1_train_fwd", tag, err, ms, plain_ms, b, t, d, h, 1)
+    del ih
+
+    dhf = torch.from_numpy(rng.randn(b, h).astype(np.float32)).to(dev)
+    dhs = torch.from_numpy(rng.randn(t, b, h).astype(np.float32)).to(dev)
+    args = (g, c_prev, dhs, dhf, w_hh)
+    ref, plain_ms = timed_ms(lambda: lstm_kernel.lstm_bwd_chain_reference(*args))
+    out = lstm_kernel.lstm_bwd_chain(*args)
+    torch.cuda.synchronize()
+    err = _raw_check(tag, ("dg",), (out,), (ref,))
+    del ref, out
+    ms = device_ms(lambda: lstm_kernel.lstm_bwd_chain(*args), flush, reps=5, warmup=1)
+    _raw_record(kernels, "lstm_bwd_chain", tag, err, ms, plain_ms, b, t, d, h, 1)
+    del args, g, c_prev, dhs
+    torch.cuda.empty_cache()
+
+    # the big sweep config's stack on raw: the budget refuses it before any
+    # residual is allocated
+    layers = [{n: torch.zeros(s, device=dev, requires_grad=True)
+               for n, s in (("w_ih", (d if i == 0 else h, 4 * h)), ("w_hh", (h, 4 * h)),
+                            ("b", (4 * h,)))} for i in range(3)]
+    x_bt = torch.zeros(b, t, d, device=dev)
+    keep = torch.ones(t, 2, b, h, device=dev)
+    before = torch.cuda.memory_allocated()
+    need = lstm_vjp.stack_residual_bytes("lstm", 3, h, d, b, t, "layered")
+    try:
+        lstm_vjp.fused_lstm_final(x_bt, keep, layers)
+    except NotImplementedError as e:
+        if "item 17" not in str(e):
+            raise
+        print(f"[{tag}] the big config on raw (LSTM 3x{h}, B={b}, T={t}): "
+              f"{need / 1e9:.2f} GB of residuals, refused: {e}")
+    else:
+        raise RuntimeError("the big config on raw was not refused")
+    if torch.cuda.memory_allocated() != before:
+        raise RuntimeError("the refused stack allocated device memory")
+    del layers, x_bt, keep
+    torch.cuda.empty_cache()
+
+
 def _write_split(root: Path, split: str, n: int, seed: int) -> None:
     d = root / split
     d.mkdir(parents=True, exist_ok=True)
@@ -2157,11 +2424,14 @@ def _write_split(root: Path, split: str, n: int, seed: int) -> None:
     np.save(d / "labels.npy", rng.randint(0, 8, n).astype(np.int32))
 
 
-def phase_train(counters, tag: str, model_overrides, expected_fn):
+def phase_train(counters, tag: str, model_overrides, expected_fn,
+                check_clips: int = 0, reps: int = 60, profile_reps: int = 10):
     """The train CLI for 2 epochs on synthetic 96 / 64 / 64 clip splits at
     batch 32 with the launch counts checked (``expected_fn(steps,
-    eval_batches)``); one card step against the CPU step; the train step's
-    latency and profile.  Returns ``(launches, run directory, overrides)``."""
+    eval_batches)``); one card step against the CPU step (on the first
+    ``check_clips`` clips of the batch, where given, on both sides); the
+    train step's latency over ``reps`` steps and its profile over
+    ``profile_reps``.  Returns ``(launches, run directory, overrides)``."""
     import copy
     import csv
 
@@ -2231,6 +2501,12 @@ def phase_train(counters, tag: str, model_overrides, expected_fn):
     idx = torch.from_numpy(train_loader.epoch_batch_indices(0)[0].astype(np.int64))
     valid = torch.from_numpy(train_loader.epoch_batch_valid()[0])
     feats, labels = train_loader.device_arrays()
+    rows = check_clips or bsz
+    if check_clips:
+        print(f"[{tag}] the card step against the CPU step on the first {rows} "
+              f"clips of the batch: the CPU's plain versions would hold the b{bsz} "
+              "residuals in host memory; the kernels' b32 addressing is held by "
+              "their own raw-length phases")
     step_kw = dict(lr=cfg.training.learning_rate,
                    clip_norm=cfg.training.gradient_clip_norm,
                    modality_dropout=cfg.training.augmentation.modality_dropout)
@@ -2243,10 +2519,10 @@ def phase_train(counters, tag: str, model_overrides, expected_fn):
             f, lab = feats, labels
         else:
             noise = Noise(replay=sides["card"]["noise"].drawn)
-            f = {k: v[idx.to(dev)].cpu() for k, v in feats.items()}
-            lab = labels[idx.to(dev)].cpu()
-        i = idx.to(device) if side == "card" else torch.arange(bsz)
-        metrics = train_step(m, opt, f, lab, i, valid.to(device), noise=noise,
+            f = {k: v[idx[:rows].to(dev)].cpu() for k, v in feats.items()}
+            lab = labels[idx[:rows].to(dev)].cpu()
+        i = idx[:rows].to(device) if side == "card" else torch.arange(rows)
+        metrics = train_step(m, opt, f, lab, i, valid[:rows].to(device), noise=noise,
                              **step_kw)
         sides[side] = {"noise": noise, "loss": float(metrics["loss"]),
                        "grads": {k: p.grad.detach().cpu() for k, p in m.named_parameters()},
@@ -2278,8 +2554,8 @@ def phase_train(counters, tag: str, model_overrides, expected_fn):
                     for k, p in cpu["params"].items())
     param_any = max(float((card["params"][k] - p).abs().max())
                     for k, p in cpu["params"].items())
-    print(f"[{tag}] one step on the card vs the CPU (plain versions, same batch and "
-          f"masks): loss {card['loss']:.6f} vs {cpu['loss']:.6f}, abs err "
+    print(f"[{tag}] one step on the card vs the CPU (plain versions, same "
+          f"{rows} clips and masks): loss {card['loss']:.6f} vs {cpu['loss']:.6f}, abs err "
           f"{loss_err:.3e} (bound 1e-4); gradients max abs err {grad_abs[worst]:.3e} "
           f"({worst}) = {grad_err:.3e} of the largest gradient {g_max:.3e} "
           f"(bound 1e-4; card = {fit:.7f} x CPU fits them to {residual:.3e} of "
@@ -2306,11 +2582,13 @@ def phase_train(counters, tag: str, model_overrides, expected_fn):
                    valid_dev, noise=Noise(gen), **step_kw)
         state["step"] = s + 1
 
-    p50, p90 = host_ms(one_step, reps=60)
-    print(f"[{tag}] train-step latency b32 (host clock around synchronize, 60 "
+    torch.cuda.reset_peak_memory_stats()
+    p50, p90 = host_ms(one_step, reps=reps)
+    print(f"[{tag}] train-step latency b32 (host clock around synchronize, {reps} "
           f"steps, split on the card): p50 {p50:.4f} ms, p90 {p90:.4f} ms = "
-          f"{32e3 / p50:.1f} clips/s at p50")
-    profile_forward(f"{tag} b32", one_step, reps=10, what="train step")
+          f"{32e3 / p50:.1f} clips/s at p50; peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    profile_forward(f"{tag} b32", one_step, reps=profile_reps, what="train step")
     return launches, run_dir, overrides
 
 
@@ -2476,6 +2754,11 @@ def main() -> None:
     kernels["flash_fwd"], kernels["flash_bwd_fused"] = phase_flash(fa, flush)
     by_path["flash_long"], (kernels["flash_bwd_dkv"], kernels["flash_bwd_dq"]) = (
         phase_flash_long(fa, counters, flush))
+    # configs/base.yaml as written: the raw waveform's 48,000 steps through
+    # the pairs and the one-layer cores
+    phase_pair_raw(lstm_kernel, flush, kernels, "lstm")
+    phase_pair_raw(lstm_kernel, flush, kernels, "gru")
+    phase_lstm1_raw(lstm_kernel, lstm_vjp, flush, kernels)
     del flush
 
     by_path["train"] = phase_train(
@@ -2557,6 +2840,22 @@ def main() -> None:
         "serve_tf", counters, {"logmel": batches, "flash_fwd": 2 * batches},
         tf_run / "best.ckpt", tf_overrides, np.load(test / "audio.npy"),
         np.load(test / "video.npy"), WORK / "predictions_tf")
+    # configs/base.yaml as written (raw waveform, LSTM 2x256) and with the
+    # GRU: the pair once per step, its eval form once per eval or served
+    # batch, no log-mel; a step takes ~0.6 s, so fewer timed reps, and the
+    # CPU side of each check takes 4 clips
+    raw = dict(check_clips=4, reps=10, profile_reps=3)
+    for cell, suffix, overrides in (("lstm", "", []),
+                                    ("gru", "_gru", ["model.encoders.audio.encoder_type=gru"])):
+        by_path[f"train_raw{suffix}"], raw_run, raw_overrides = phase_train(
+            counters, f"train_raw{suffix}", overrides,
+            lambda steps, evals, c=cell: {f"{c}2_train_fwd": steps,
+                                          f"{c}2_bwd_chain": steps, f"{c}2_infer": evals},
+            **raw)
+        by_path[f"serve_raw{suffix}"] = serve_path(
+            f"serve_raw{suffix}", counters, {f"{cell}2_infer": batches},
+            raw_run / "best.ckpt", raw_overrides, np.load(test / "audio.npy"),
+            np.load(test / "video.npy"), WORK / f"predictions_raw{suffix}", **raw)
 
     # launches: the run of the path that MAIN_PATH names; launches_by_path:
     # every path's own run, the counts zeroed just before it
@@ -2570,9 +2869,11 @@ def main() -> None:
              "launches_by_path"]
     # the header of a shared core beside its source; the tensor-core
     # kernels give both bounds beside bound_ms; log-mel its B=1 times and
-    # the products' bound
+    # the products' bound; the recurrent kernels of base.yaml's raw path
+    # their error, times and bound at T=48,000
     extra = ["core", "bound_fp32_ms", "bound_3xtf32_ms", "b1_ms", "b1_plain_ms",
-             "bound_products_ms"]
+             "bound_products_ms", "raw_max_abs_err", "raw_ms", "raw_plain_ms",
+             "raw_bound_ms", "raw_bound_by"]
     print(json.dumps({"kernels": [
         {**{k: kern[k] for k in order}, **{k: kern[k] for k in extra if k in kern}}
         for kern in kernels.values()]}))

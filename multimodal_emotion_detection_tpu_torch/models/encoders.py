@@ -132,12 +132,13 @@ class TransformerBlock(nn.Module):
 class SequenceEncoder(nn.Module):
     """Time series (B, T, D) -> L-layer LSTM or GRU final hidden, or L
     post-LN transformer blocks mean-pooled over time (``encoder_type``) ->
-    Linear.  Up to ``MAX_FUSED_LEN`` steps the JAX package's fused and
-    layerwise recurrent modules (``fused``, depth 1) compute the same
-    function on the same parameter tree, so both run the same kernels."""
-
-    # past this length the JAX package switches to the layerwise scan
-    MAX_FUSED_LEN = 2048
+    Linear.  The JAX package's fused recurrent module and its layerwise
+    ``StackedRNN`` (``fused: false``, depth 1, and every T past 2,048
+    steps, e.g. the raw waveform's 48,000, in remat'd chunks of 512) compute
+    the same function on the same parameter tree, so every T runs the same
+    kernels here, over the whole sequence at once; a training forward whose
+    residuals the card cannot hold is refused
+    (``ops.lstm_vjp.check_residual_budget``)."""
 
     def __init__(self, input_dim: int, hidden_dim: int, output_dim: int,
                  num_layers: int = 2, dropout: float = 0.1,
@@ -192,13 +193,6 @@ class SequenceEncoder(nn.Module):
                 noise: Optional[Noise] = None) -> torch.Tensor:
         if self.encoder_type == "transformer":
             return self.projection(self._transformer(sequence.to(torch.float32), noise))
-        if sequence.shape[1] > self.MAX_FUSED_LEN:
-            raise NotImplementedError(
-                f"sequence of {sequence.shape[1]} steps: the layerwise "
-                f"chunked-remat {self.rnn.cell_type.upper()} (StackedRNN, e.g. "
-                "model.frontend.audio=raw) is not ported yet (ROADMAP.md "
-                "Queue 1 item 3)"
-            )
         return self.projection(self.rnn(sequence.to(torch.float32), noise))
 
 

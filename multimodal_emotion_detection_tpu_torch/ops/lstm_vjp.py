@@ -51,6 +51,15 @@ one.
 On the card the recurrences are hand-written kernels; on the CPU the same
 Functions run their plain versions.  The keep masks are dropout draws and
 get no gradient.
+
+Every route runs the whole sequence at once, at any T: past ``LONG_T``
+steps, where the JAX package's layerwise scan recomputes 512-step chunks
+in its backward, the port keeps every step's residuals instead.  So past
+``LONG_T`` a training forward on the card first checks that the card can
+still give what the route holds at its peak (``stack_residual_bytes``,
+``check_residual_budget``) and refuses, before it allocates anything, a
+stack whose residuals do not fit (chunked recompute is ROADMAP.md Queue 1
+item 17).
 """
 
 from __future__ import annotations
@@ -100,6 +109,99 @@ def set_res2_mode(mode: str) -> str:
         raise ValueError(f"set_res2_mode: {mode!r} is neither 'auto' nor 'off'")
     prev, _RES2_MODE = _RES2_MODE, mode
     return prev
+
+
+# past this many steps the JAX package runs a stack as its layerwise scan in
+# remat'd chunks; here the residual budget is checked first
+LONG_T = 2048
+
+
+def stack_residual_bytes(cell: str, layers: int, hidden: int, d_in: int,
+                         batch: int, t_len: int, route: str,
+                         remat_gates: bool = False) -> int:
+    """The most bytes one training forward + backward of a stack holds on
+    the card at once: the residuals it saves, the keep mask, the forward's
+    input projection while it runs and the backward's chain outputs, all
+    float32 series of (T, B, .), counted from the shapes the Functions of
+    this module allocate.  ``cell`` is ``"lstm"`` or ``"gru"``, ``route``
+    ``"pair"`` (the residual-native pair, the LSTM's with ``remat_gates``),
+    ``"legacy"`` (the pair under ``set_res2_mode("off")``) or ``"layered"``;
+    the weights and the weight gradients, a few MB, are not counted.
+
+    In units of ``T B`` floats, with D the input width: the LSTM pair holds
+    x D, keep H, packed 10H (2H without the gates), h0p / h1p / x1 3H, then
+    dg0 / dg1 8H (the forward's ih0, 4H, is gone by then); the GRU pair x D,
+    keep H, packed 8H, 3H, then dih / dhn of both layers 8H.  The legacy
+    pairs hold the 12H (GRU 10H) rows, the shifted state series and x1, and
+    their chains repack the rows before writing (LSTM 10H + 8H, GRU 8H +
+    12H).  The layered route holds each layer's input (D, then H), its
+    residuals (LSTM g, h_prev, c_prev 6H; GRU gates, h_prev 5H) and the
+    L - 1 keep masks, and its backward two layers' chain outputs and the
+    hop (9H) at once."""
+    if cell not in ("lstm", "gru") or route not in ("pair", "legacy", "layered"):
+        raise ValueError(f"stack_residual_bytes: no {route!r} route of a {cell!r} stack")
+    h, d = hidden, d_in
+    gates = 4 if cell == "lstm" else 3
+    if route == "layered":
+        saved = 6 * h if cell == "lstm" else 5 * h
+        live = d + (layers - 1) * h  # the input and the keep masks
+        peak = 0
+        for layer in range(layers):
+            # the projection's product and sum, then ih beside the kernel's
+            # outputs; between layers the h series and its masked copy
+            peak = max(peak, live + max(2 * gates * h, gates * h + saved))
+            live += saved
+            if layer < layers - 1:
+                peak = max(peak, live + 2 * h)
+                live += h
+        floats = max(peak, live + (9 * h if layers > 1 else 4 * h))
+    elif route == "pair":
+        packed = (2 if remat_gates else 10) * h if cell == "lstm" else 8 * h
+        held = d + h + packed + 3 * h
+        # the remat chain reads x padded to whole float4 columns
+        pad = -(-d // 4) * 4 if cell == "lstm" and remat_gates and d % 4 else 0
+        floats = max(held + gates * h, held + 8 * h + pad)
+    else:
+        rows = 12 * h if cell == "lstm" else 10 * h
+        fwd = d + h + gates * h + rows + 3 * h  # + ih0 and the scratch exchange
+        held = d + h + rows + (5 * h if cell == "lstm" else 3 * h)
+        floats = max(fwd, held + (18 * h if cell == "lstm" else 20 * h))
+    return 4 * floats * batch * t_len
+
+
+def card_free_bytes(device: torch.device) -> int:
+    """What the card can still give this process: the CUDA runtime's free bytes
+    and the allocator's reserved but unallocated ones."""
+    free, _ = torch.cuda.mem_get_info(device)
+    return free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+
+
+def check_residual_budget(cell: str, layers: int, hidden: int, d_in: int, batch: int,
+                          t_len: int, route: str, free_bytes: int,
+                          remat_gates: bool = False, held: int = 0) -> None:
+    """Raise ``NotImplementedError`` where the stack's training residuals
+    (``stack_residual_bytes``, less the ``held`` bytes of its inputs the
+    caller already holds) exceed ``free_bytes``."""
+    need = stack_residual_bytes(cell, layers, hidden, d_in, batch, t_len, route,
+                                remat_gates) - held
+    if need > free_bytes:
+        raise NotImplementedError(
+            f"a {layers}-layer {cell.upper()} of {hidden} units over {t_len} steps at "
+            f"batch {batch} ({route} route) holds {need / 1e9:.2f} GB of residuals, "
+            f"more than the card can still give ({free_bytes / 1e9:.2f} GB): chunked "
+            "recompute is not ported yet (ROADMAP.md Queue 1 item 17)"
+        )
+
+
+def _check_long(cell: str, x: torch.Tensor, keep: torch.Tensor, layers: int,
+                hidden: int, route: str, remat_gates: bool = False) -> None:
+    """A training forward on the card past ``LONG_T`` steps checks its
+    residual budget before it allocates anything."""
+    if x.device.type != "cuda" or x.shape[1] <= LONG_T:
+        return
+    check_residual_budget(cell, layers, hidden, x.shape[2], x.shape[0], x.shape[1],
+                          route, card_free_bytes(x.device), remat_gates,
+                          held=keep.numel() * keep.element_size())
 
 
 def _flat(a: torch.Tensor) -> torch.Tensor:
@@ -249,12 +351,18 @@ def fused_lstm_final(x: torch.Tensor, keep: torch.Tensor,
     the top layer's final hidden state (B, H), differentiable in x and
     every layer's parameters.  The route is ``lstm_route``'s; on the pair
     route ``set_res2_mode("off")`` takes the legacy layout, and only the
-    residual-native pair reads ``remat_gates``, as in the JAX package."""
+    residual-native pair reads ``remat_gates``, as in the JAX package.  On
+    the card past ``LONG_T`` steps a stack whose residuals do not fit raises
+    (``check_residual_budget``)."""
     weights = [p[name] for p in layers for name in ("w_ih", "w_hh", "b")]
     h_dim = layers[0]["w_hh"].shape[0]
-    if lstm_route(len(layers), h_dim, sm_count(x.device)) == "pair":
-        if _RES2_MODE == "off":
-            return LegacyLSTMFinal.apply(x, keep[:, 0], *weights)
+    route = lstm_route(len(layers), h_dim, sm_count(x.device))
+    if route == "pair" and _RES2_MODE == "off":
+        route = "legacy"
+    _check_long("lstm", x, keep, len(layers), h_dim, route, bool(remat_gates))
+    if route == "legacy":
+        return LegacyLSTMFinal.apply(x, keep[:, 0], *weights)
+    if route == "pair":
         return FusedLSTMFinal.apply(x, keep[:, 0], bool(remat_gates), *weights)
     return LayeredLSTMFinal.apply(x, keep, *weights)
 
@@ -420,13 +528,19 @@ def fused_gru_final(x: torch.Tensor, keep: torch.Tensor,
     top layer's final hidden state (B, H), differentiable in x and every
     layer's parameters.  The route is ``gru_route``'s, on the pair route
     ``set_res2_mode("off")`` takes the legacy layout; a width that
-    ``check_gru_stack`` refuses raises, on the CPU as on the card."""
+    ``check_gru_stack`` refuses raises, on the CPU as on the card, and on
+    the card past ``LONG_T`` steps a stack whose residuals do not fit
+    (``check_residual_budget``)."""
     h_dim = layers[0]["w_hh"].shape[0]
     sms = sm_count(x.device)
     check_gru_stack(h_dim, sms)
     weights = [p[name] for p in layers for name in ("w_ih", "w_hh", "b_ih", "b_hh")]
-    if gru_route(len(layers), h_dim, sms) == "pair":
-        if _RES2_MODE == "off":
-            return LegacyGRUFinal.apply(x, keep[:, 0], *weights)
+    route = gru_route(len(layers), h_dim, sms)
+    if route == "pair" and _RES2_MODE == "off":
+        route = "legacy"
+    _check_long("gru", x, keep, len(layers), h_dim, route)
+    if route == "legacy":
+        return LegacyGRUFinal.apply(x, keep[:, 0], *weights)
+    if route == "pair":
         return FusedGRUFinal.apply(x, keep[:, 0], *weights)
     return LayeredGRUFinal.apply(x, keep, *weights)

@@ -222,12 +222,3 @@ def test_train_cli_then_predict_on_its_best_ckpt(tmp_path):
     assert logits.shape == (sizes["test"], 8) and np.isfinite(logits).all()
     assert metrics["split"] == "test"
     assert [c.launches for c in COUNTERS] == [0] * len(COUNTERS)  # CPU tensors
-
-
-def test_raw_waveform_gru_past_fused_length_raises():
-    """The GRU on the raw waveform is the long-sequence route of item 3."""
-    cfg = load_config(CONFIG, BIG_GRU_NARROW[1:])  # frontend raw
-    model = classifier_from_config(cfg)
-    feats = {k: torch.from_numpy(v) for k, v in _split(2, 5)[0].items()}
-    with pytest.raises(NotImplementedError, match="item 3"):
-        forward(model, feats)

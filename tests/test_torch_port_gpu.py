@@ -1466,3 +1466,83 @@ def test_flash_bwd_dkv_form_matches_plain_and_the_fused_form(b, h, tq, tk, d, ma
         scale = float(r.abs().max())
         torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4 * max(scale, 1.0),
                                    msg=name)
+
+
+# configs/base.yaml as written: the raw waveform, 48,000 steps at b32.  The
+# LSTM pair's packed rows (10H) pass 2^31 elements from step 26,214, the
+# GRU pair's (8H) and one H=512 layer's gates (4H) from step 32,768: any
+# 32-bit offset left in a core shows past there
+RAW_T = 48000
+
+
+def _close_in_chunks(out, ref, msg, chunk=2048):
+    """``out`` within 1e-4 of ``ref``'s largest entry, compared a few
+    thousand steps at a time (a whole raw-length series is ~16 GB)."""
+    assert out.shape == ref.shape, msg
+    largest = max(float(ref[t:t + chunk].abs().max()) for t in range(0, ref.shape[0], chunk))
+    for t in range(0, ref.shape[0], chunk):
+        err = float((out[t:t + chunk] - ref[t:t + chunk]).abs().max())
+        assert err <= 1e-4 * largest, f"{msg}: steps from {t}: {err:.3e} of {largest:.3e}"
+
+
+def test_lstm2_pair_matches_plain_at_raw_length():
+    dev = _card()
+    x_tm, keep, l0, l1 = _lstm_case(dev, 32, RAW_T, 1, 256, seed=48)
+    refs = lstm_kernel.lstm2_train_fwd_reference(x_tm, keep, l0, l1)
+    outs = lstm_kernel.lstm2_train_fwd_residuals(x_tm, keep, l0, l1)
+    torch.cuda.synchronize()
+    for name, o, r in zip(("packed", "h0p", "h1p", "x1", "finals"), outs, refs):
+        _close_in_chunks(o, r, name)
+    packed = outs[0]
+    del refs, outs
+    dh = torch.from_numpy(np.random.RandomState(48).randn(32, 256).astype(np.float32)).to(dev)
+    args = (packed, keep, dh, l0["w_hh"], l1["w_hh"], l1["w_ih"])
+    refs = lstm_kernel.lstm2_bwd_chain_reference(*args)
+    outs = lstm_kernel.lstm2_bwd_chain(*args)
+    torch.cuda.synchronize()
+    for name, o, r in zip(("dg0", "dg1"), outs, refs):
+        _close_in_chunks(o, r, name)
+
+
+def test_gru2_pair_matches_plain_at_raw_length():
+    dev = _card()
+    x_tm, keep, l0, l1 = _gru_case(dev, 32, RAW_T, 1, 256, seed=49)
+    refs = lstm_kernel.gru2_train_fwd_reference(x_tm, keep, l0, l1)
+    outs = lstm_kernel.gru2_train_fwd_residuals(x_tm, keep, l0, l1)
+    torch.cuda.synchronize()
+    for name, o, r in zip(("packed", "h0p", "h1p", "x1", "finals"), outs, refs):
+        _close_in_chunks(o, r, name)
+    series = outs[:3]
+    del refs, outs
+    dh = torch.from_numpy(np.random.RandomState(49).randn(32, 256).astype(np.float32)).to(dev)
+    args = (*series, keep, dh, l0["w_hh"], l1["w_hh"], l1["w_ih"])
+    del series
+    refs = lstm_kernel.gru2_bwd_chain_reference(*args)
+    outs = lstm_kernel.gru2_bwd_chain(*args)
+    torch.cuda.synchronize()
+    for name, o, r in zip(("dih0", "dhn0", "dih1", "dhn1"), outs, refs):
+        _close_in_chunks(o, r, name)
+
+
+def test_lstm1_layer_matches_plain_at_raw_length():
+    dev = _card()
+    b, h = 32, 512
+    rng = np.random.RandomState(50)
+    k = 1.0 / np.sqrt(h)
+    x = torch.from_numpy(rng.randn(RAW_T, b, 1).astype(np.float32)).to(dev)
+    w_ih, w_hh, bias = (torch.from_numpy(rng.uniform(-k, k, s).astype(np.float32)).to(dev)
+                        for s in ((1, 4 * h), (h, 4 * h), (4 * h,)))
+    ih = torch.matmul(x, w_ih) + bias
+    refs = lstm_kernel.lstm1_train_fwd_reference(ih, w_hh)
+    outs = lstm_kernel.lstm1_train_fwd(ih, w_hh)
+    torch.cuda.synchronize()
+    for name, o, r in zip(("g", "h_prev", "c_prev", "finals"), outs, refs):
+        _close_in_chunks(o, r, name)
+    g, c_prev = outs[0], outs[2]
+    del refs, outs, ih
+    dhs = torch.from_numpy(rng.randn(RAW_T, b, h).astype(np.float32)).to(dev)
+    dhf = torch.from_numpy(rng.randn(b, h).astype(np.float32)).to(dev)
+    ref = lstm_kernel.lstm_bwd_chain_reference(g, c_prev, dhs, dhf, w_hh)
+    out = lstm_kernel.lstm_bwd_chain(g, c_prev, dhs, dhf, w_hh)
+    torch.cuda.synchronize()
+    _close_in_chunks(out, ref, "dg")

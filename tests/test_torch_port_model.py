@@ -102,11 +102,3 @@ def test_configs_outside_the_slice_raise(override, item):
     cfg = load_config("configs/base.yaml", NARROW + extra)
     with pytest.raises(NotImplementedError, match=item):
         classifier_from_config(cfg)
-
-
-def test_raw_waveform_past_fused_length_raises():
-    cfg = load_config("configs/base.yaml", NARROW[1:])  # frontend raw
-    model = classifier_from_config(cfg)
-    feats = {k: torch.from_numpy(v) for k, v in _inputs().items()}
-    with pytest.raises(NotImplementedError, match="item 3"):
-        forward(model, feats)
