@@ -145,10 +145,26 @@
    in 6 (the pair once per step, the eval form per eval or served batch,
    no log-mel), ``[train_raw_gru]`` / ``[serve_raw_gru]`` with the GRU; the
    card-vs-CPU step and the served logits are checked on 4 clips.
-14. Prints one JSON line describing every kernel (the one-layer and
-   2-layer cores' entries name their shared header as ``core``), nvidia-smi's name and
-   power limit of the card, and as the last line
-   ``{"ok": true, "device": {...}}``.
+14. The fusion library's configs as written, both on the flagship's audio
+   path: ``[lstm2_train_fwd]`` also holds row 11 at 320 rows (the MC
+   fold's 10 samples x batch 32) against its plain version, to 1e-4 of the
+   largest entry, with its launch plan.  ``[train_hybrid]`` /
+   ``[serve_hybrid]`` train ``configs/av_hybrid.yaml`` (hybrid
+   cross-modal attention fusion) and serve its ``best.ckpt`` as in 6, the
+   card-vs-CPU step on 4 clips; ``[train_unc]`` trains
+   ``configs/uncertainty.yaml`` (uncertainty-weighted late fusion), whose
+   calibration report (``uncertainty.json`` under an
+   ``outputs.experiments_dir`` in the work directory) takes the place of
+   ``best.ckpt`` and ``results.json``, and ``[serve_unc]`` serves the
+   trainer's best checkpoint; ``[mc_dropout]`` runs ``predict --mc-dropout
+   10`` on it (log-mel and row 11 once per batch, at 320 rows; no eval
+   form), checks ``uncertainty.npy``, repeats the first batch on the card
+   and on the CPU with the card's masks replayed (mean logits 1e-3,
+   uncertainty 1e-4), and times the b32 MC forward.
+15. Prints the script's wall time, one JSON line describing every kernel
+   (the one-layer and 2-layer cores' entries name their shared header as
+   ``core``), nvidia-smi's name and power limit of the card, and as the
+   last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no ok
 line.  Without a CUDA card it exits non-zero at once.
@@ -427,9 +443,10 @@ def run_counted(counters, expected, path: str, fn):
 
 def serve_path(tag: str, counters, expected, ckpt: Path, overrides,
                audio: np.ndarray, video: np.ndarray, out_dir: Path,
-               check_clips: int = 0, reps: int = 110, profile_reps: int = 20):
-    """The predict CLI on ``ckpt`` over the test split (``audio``,
-    ``video``) at batch 32 with the launch counts checked; the logits
+               check_clips: int = 0, reps: int = 110, profile_reps: int = 20,
+               config: str = "base.yaml"):
+    """The predict CLI on ``ckpt`` with ``configs/<config>`` over the test
+    split (``audio``, ``video``) at batch 32 with the launch counts checked; the logits
     (of the first ``check_clips``, where given) against the model's own
     forward on the CPU, where every kernel wrapper runs its plain version
     (each kernel was held against it on the card); then the forward's
@@ -442,7 +459,7 @@ def serve_path(tag: str, counters, expected, ckpt: Path, overrides,
     )
     from multimodal_emotion_detection_tpu_torch.training.steps import forward
 
-    config_path = str(ROOT / "configs" / "base.yaml")
+    config_path = str(ROOT / "configs" / config)
     n = audio.shape[0]
     metrics, predict_s, launches = run_counted(
         counters, expected, tag, lambda: predict.main([
@@ -2424,14 +2441,22 @@ def _write_split(root: Path, split: str, n: int, seed: int) -> None:
     np.save(d / "labels.npy", rng.randint(0, 8, n).astype(np.int32))
 
 
+TRAIN_ARTIFACTS = ("results.json", "best.ckpt", "checkpoints/last.ckpt",
+                   "confusion_matrix.npy", "csv_logs/version_0/metrics.csv")
+
+
 def phase_train(counters, tag: str, model_overrides, expected_fn,
-                check_clips: int = 0, reps: int = 60, profile_reps: int = 10):
-    """The train CLI for 2 epochs on synthetic 96 / 64 / 64 clip splits at
-    batch 32 with the launch counts checked (``expected_fn(steps,
-    eval_batches)``); one card step against the CPU step (on the first
-    ``check_clips`` clips of the batch, where given, on both sides); the
-    train step's latency over ``reps`` steps and its profile over
+                check_clips: int = 0, reps: int = 60, profile_reps: int = 10,
+                config: str = "base.yaml", artifacts=TRAIN_ARTIFACTS):
+    """The train CLI with ``configs/<config>`` for 2 epochs on synthetic 96
+    / 64 / 64 clip splits at batch 32, from the work directory (relative
+    outputs land there), with the launch counts checked
+    (``expected_fn(steps, eval_batches)``) and ``artifacts`` (paths in the
+    run directory) written; one card step against the CPU step (on the
+    first ``check_clips`` clips of the batch, where given, on both sides);
+    the train step's latency over ``reps`` steps and its profile over
     ``profile_reps``.  Returns ``(launches, run directory, overrides)``."""
+    import contextlib
     import copy
     import csv
 
@@ -2457,7 +2482,7 @@ def phase_train(counters, tag: str, model_overrides, expected_fn,
     if not (data / "test" / "labels.npy").exists():
         for seed, (split, n) in enumerate(sizes.items()):
             _write_split(data, split, n, 10 + seed)
-    config_path = str(ROOT / "configs" / "base.yaml")
+    config_path = str(ROOT / "configs" / config)
     overrides = [*model_overrides, "training.max_epochs=2",
                  f"dataset.data_dir={data}", f"experiment.save_dir={WORK}",
                  f"experiment.name={tag}_run"]
@@ -2465,15 +2490,15 @@ def phase_train(counters, tag: str, model_overrides, expected_fn,
     bsz = cfg.dataset.batch_size
     steps = 2 * sizes["train"] // bsz
     evals = 2 * sizes["val"] // bsz + sizes["test"] // bsz
-    results, train_s, launches = run_counted(
-        counters, expected_fn(steps, evals), tag,
-        lambda: train.main(["--config", config_path, *overrides]))
+    with contextlib.chdir(WORK):
+        results, train_s, launches = run_counted(
+            counters, expected_fn(steps, evals), tag,
+            lambda: train.main(["--config", config_path, *overrides]))
     print(f"[{tag}] train.main, 2 epochs of {sizes['train']} clips at batch "
           f"{bsz} ({steps} steps, {evals} eval batches): {train_s:.3f} s wall "
           f"(first call: data load and set-up included); launches {launches}")
     run_dir = WORK / f"{tag}_run"
-    for rel in ("results.json", "best.ckpt", "checkpoints/last.ckpt",
-                "confusion_matrix.npy", "csv_logs/version_0/metrics.csv"):
+    for rel in artifacts:
         if not (run_dir / rel).exists():
             raise RuntimeError(f"train.main did not write {rel}")
     if not all(np.isfinite(v) for v in results.values()):
@@ -2592,6 +2617,120 @@ def phase_train(counters, tag: str, model_overrides, expected_fn,
     return launches, run_dir, overrides
 
 
+def phase_lstm2_train_fwd_b320(lstm_kernel, flush, kern) -> None:
+    """Row 11 at the MC-dropout fold's 320 rows (10 samples x batch 32):
+    against its plain version, to 1e-4 of the largest entry, with its
+    launch plan; its error and time go into the kernel's entry as
+    ``b320_*``."""
+    x_tm, keep, l0, l1 = _lstm_train_inputs(6, b=320)
+    t, b, d = x_tm.shape
+    h = l0["w_hh"].shape[0]
+    refs = lstm_kernel.lstm2_train_fwd_reference(x_tm, keep, l0, l1)
+    outs = lstm_kernel.lstm2_train_fwd_residuals(x_tm, keep, l0, l1)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, out, ref in zip(("packed", "h0_prev", "h1_prev", "x1", "finals"),
+                              outs, refs):
+        errs[name] = max_errs(out, ref)[0] / float(ref.abs().max())
+    del outs, refs
+    print(f"[lstm2_train_fwd] B={b} T={t} D={d} H={h} (the MC-dropout fold): max abs "
+          "err / largest entry " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + " (bound 1e-4)")
+    print(f"[lstm2_train_fwd] "
+          f"{_chain_plan_text(lstm_kernel, 'lstm2_train_fwd', 4, h, b, True, 2)}")
+    if max(errs.values()) > 1e-4:
+        raise RuntimeError("lstm2_train_fwd disagrees with its plain version at B=320")
+    ms = device_ms(lambda: lstm_kernel.lstm2_train_fwd_residuals(x_tm, keep, l0, l1),
+                   flush, reps=5)
+    flops, nbytes = _work("lstm2_train_fwd", b, t, d, h)
+    bound_ms, bound_by = bound(flops, nbytes)
+    print(f"[lstm2_train_fwd] B={b}: kernel {ms:.4f} ms ({1e3 * ms / (t + 1):.3f} us "
+          f"per phase), bound {bound_ms:.4f} ms ({bound_by})")
+    kern.update({"b320_max_err_of_largest": max(errs.values()), "b320_ms": ms,
+                 "b320_bound_ms": bound_ms})
+    del x_tm, keep, l0, l1
+    torch.cuda.empty_cache()
+
+
+def phase_mc_dropout(counters, tag: str, ckpt: Path, overrides, samples: int,
+                     audio: np.ndarray, video: np.ndarray, out_dir: Path,
+                     config: str, reps: int = 20, profile_reps: int = 5):
+    """The predict CLI with ``--mc-dropout samples`` on ``ckpt`` over the
+    test split at batch 32, the launch counts checked: one log-mel (the
+    frontend runs inside the fold, on all S·B rows) and one training
+    forward (row 11) per batch, no eval form; ``uncertainty.npy`` finite,
+    >= 0 and not all 0.  Then the first batch again on the card with the
+    CLI's seed, which must give the CLI's numbers, and on the CPU with the
+    card's masks replayed (plain versions): mean logits 1e-3, uncertainty
+    1e-4 absolute.  The MC forward's latency at b32 and its profile."""
+    from multimodal_emotion_detection_tpu_torch.config import load_config
+    from multimodal_emotion_detection_tpu_torch.models.noise import Noise
+    from multimodal_emotion_detection_tpu_torch.tools import predict
+    from multimodal_emotion_detection_tpu_torch.tools._restore import (
+        restore_for_eval,
+    )
+    from multimodal_emotion_detection_tpu_torch.uncertainty.mc_dropout import (
+        mc_dropout_predict,
+    )
+
+    config_path = str(ROOT / "configs" / config)
+    n, batches = audio.shape[0], audio.shape[0] // 32
+    metrics, predict_s, launches = run_counted(
+        counters, {"logmel": batches, "lstm2_train_fwd": batches}, tag,
+        lambda: predict.main([
+            "--checkpoint", str(ckpt), "--config", config_path, "--split", "test",
+            "--mc-dropout", str(samples), "--out", str(out_dir), *overrides]))
+    print(f"[{tag}] predict --mc-dropout {samples} over {n} clips at batch 32 "
+          f"({samples * 32} rows a forward): {predict_s:.3f} s wall (first call, data "
+          f"load included); launches {launches}")
+    logits = np.load(out_dir / "logits.npy")
+    unc = np.load(out_dir / "uncertainty.npy")
+    if logits.shape != (n, 8) or not np.isfinite(logits).all():
+        raise RuntimeError(f"bad MC logits: shape {logits.shape}")
+    if unc.shape != (n,) or not np.isfinite(unc).all() or unc.min() < 0 or unc.max() <= 0:
+        raise RuntimeError(f"bad uncertainty.npy: shape {unc.shape}, "
+                           f"range [{unc.min()}, {unc.max()}]")
+    print(f"[{tag}] uncertainty over {n} clips: min {unc.min():.4e}, median "
+          f"{np.median(unc):.4e}, max {unc.max():.4e}; metrics {json.dumps(metrics)}")
+
+    cfg = load_config(config_path, overrides)
+    cfg.model.frontend.cache = False  # as predict: raw features in
+    dev = torch.device("cuda")
+    model, _, _ = restore_for_eval(cfg, ckpt, "test", dev)
+    b32 = {"audio": torch.from_numpy(audio[:32]).to(dev),
+           "video": torch.from_numpy(video[:32]).to(dev)}
+    noise = Noise(torch.Generator(device=dev).manual_seed(cfg.seed))
+    mean, u = mc_dropout_predict(model, b32, samples, noise=noise)
+    again = max(float(np.abs(mean.cpu().numpy() - logits[:32]).max()),
+                float(np.abs(u.cpu().numpy() - unc[:32]).max()))
+    cpu_model, _, _ = restore_for_eval(cfg, ckpt, "test", torch.device("cpu"))
+    cpu_mean, cpu_u = mc_dropout_predict(
+        cpu_model, {k: v.cpu() for k, v in b32.items()}, samples,
+        noise=Noise(replay=[m.cpu() for m in noise.drawn]))
+    mean_err = float((mean.cpu() - cpu_mean).abs().max())
+    unc_err = float((u.cpu() - cpu_u).abs().max())
+    print(f"[{tag}] the first batch's 32 clips ({samples * 32} rows) again on the card "
+          f"with the CLI's seed: max abs diff from the CLI {again:.3e} (bound 1e-6); on "
+          f"the CPU with the card's {len(noise.drawn)} masks replayed: mean logits max "
+          f"abs err {mean_err:.3e} (bound 1e-3), uncertainty {unc_err:.3e} (bound "
+          f"1e-4; largest {float(cpu_u.max()):.3e})")
+    if again > 1e-6 or mean_err > 1e-3 or unc_err > 1e-4:
+        raise RuntimeError("MC dropout on the card disagrees with the CPU")
+
+    gen = torch.Generator(device=dev)
+
+    def mc():
+        gen.manual_seed(cfg.seed)
+        mc_dropout_predict(model, b32, samples, noise=Noise(gen))
+
+    p50, p90 = host_ms(mc, reps=reps)
+    print(f"[{tag}] MC forward latency b32 x {samples} samples (host clock around "
+          f"synchronize, {reps} requests, inputs on the card): p50 {p50:.4f} ms, p90 "
+          f"{p90:.4f} ms")
+    profile_forward(f"{tag} b32", mc, reps=profile_reps, what="MC forward")
+    return launches
+
+
 def profile_forward(label: str, fn, reps: int = 20, what: str = "forward") -> None:
     """Where a forward's (or train step's) time goes: device time by kernel
     over ``reps`` back-to-back calls under torch.profiler, and the device's
@@ -2668,6 +2807,7 @@ MAIN_PATH = {"logmel": "train", "lstm2_infer": "train", "lstm2_train_fwd": "trai
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch sees no CUDA card")
+    t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT))
     from multimodal_emotion_detection_tpu_torch.ops import (
         _build,
@@ -2730,6 +2870,7 @@ def main() -> None:
     kernels["lstm2_bwd_chain"] = phase_lstm2_bwd_chain(lstm_kernel, lstm_vjp, flush,
                                                        train_inputs)
     del train_inputs
+    phase_lstm2_train_fwd_b320(lstm_kernel, flush, kernels["lstm2_train_fwd"])
     kernels["lstm2_train_fwd_nogates"], kernels["lstm2_bwd_chain_remat"] = (
         phase_lstm2_remat(lstm_kernel, lstm_vjp, flush))
     kernels["lstm2_train_fwd_legacy"], kernels["lstm2_bwd_chain_legacy"] = (
@@ -2761,10 +2902,12 @@ def main() -> None:
     phase_lstm1_raw(lstm_kernel, lstm_vjp, flush, kernels)
     del flush
 
+    def flagship_counts(steps, evals):
+        return {"logmel": steps + evals, "lstm2_infer": evals,
+                "lstm2_train_fwd": steps, "lstm2_bwd_chain": steps}
+
     by_path["train"] = phase_train(
-        counters, "train", ["model.frontend.audio=logmel"],
-        lambda steps, evals: {"logmel": steps + evals, "lstm2_infer": evals,
-                              "lstm2_train_fwd": steps, "lstm2_bwd_chain": steps})[0]
+        counters, "train", ["model.frontend.audio=logmel"], flagship_counts)[0]
     # the flagship with its gates rematerialised: the no-gates forward and
     # the remat chain per step, the stored-gates pair never
     by_path["train_remat"] = phase_train(
@@ -2785,26 +2928,61 @@ def main() -> None:
                                   "lstm2_bwd_chain_legacy": steps})[0]
     finally:
         lstm_vjp.set_res2_mode(prev)
+    # the fusion library's configs as written, both on the flagship's audio
+    # path (log-mel inside every step, LSTM 2x256): the pair per step, the
+    # eval form per eval or served batch; the CPU side of each step check
+    # takes 4 clips
+    t_fusion = time.perf_counter()
+    test = WORK / "train_data" / "test"
+    test_audio, test_video = np.load(test / "audio.npy"), np.load(test / "video.npy")
+    batches = TRAIN_SPLITS["test"] // 32
+    served = {"logmel": batches, "lstm2_infer": batches}
+    fusion = dict(check_clips=4, reps=30, profile_reps=5)
+    by_path["train_hybrid"], hyb_run, hyb_overrides = phase_train(
+        counters, "train_hybrid", [], flagship_counts, config="av_hybrid.yaml", **fusion)
+    by_path["serve_hybrid"] = serve_path(
+        "serve_hybrid", counters, served, hyb_run / "best.ckpt", hyb_overrides,
+        test_audio, test_video, WORK / "predictions_hybrid", config="av_hybrid.yaml")
+    # uncertainty fusion: the calibration report in place of best.ckpt and
+    # results.json, so the trainer's best checkpoint is served
+    experiments = WORK / "unc_experiments"
+    by_path["train_unc"], unc_run, unc_overrides = phase_train(
+        counters, "train_unc", [f"outputs.experiments_dir={experiments}"],
+        flagship_counts, config="uncertainty.yaml",
+        artifacts=TRAIN_ARTIFACTS[2:], **fusion)
+    report = experiments / "uncertainty.json"
+    if (not report.exists() or (unc_run / "best.ckpt").exists()
+            or (unc_run / "results.json").exists()):
+        raise RuntimeError("train_unc: no uncertainty.json, or best.ckpt / results.json")
+    print(f"[train_unc] {report.relative_to(WORK)}: "
+          f"{json.dumps(json.loads(report.read_text()))}")
+    (unc_best,) = (unc_run / "checkpoints").glob("epoch=*-val_loss=*.ckpt")
+    by_path["serve_unc"] = serve_path(
+        "serve_unc", counters, served, unc_best, unc_overrides, test_audio,
+        test_video, WORK / "predictions_unc", config="uncertainty.yaml")
+    by_path["mc_dropout"] = phase_mc_dropout(
+        counters, "mc_dropout", unc_best, unc_overrides, 10, test_audio, test_video,
+        WORK / "predictions_mc", "uncertainty.yaml")
+    print(f"[time] train_hybrid, serve_hybrid, train_unc, serve_unc, mc_dropout: "
+          f"{time.perf_counter() - t_fusion:.1f} s")
     # the big config caches log-mel once per split, in chunks
     cached = sum(-(-n // FRONTEND_CHUNK) for n in TRAIN_SPLITS.values())
     by_path["train_big"], big_run, big_overrides = phase_train(
         counters, "train_big", BIG,
         lambda steps, evals: {"logmel": cached, "lstm1_train_fwd": 3 * steps,
                               "lstm_bwd_chain": 3 * steps, "lstm1_infer": 3 * evals})
-    test = WORK / "train_data" / "test"
-    batches = TRAIN_SPLITS["test"] // 32
     by_path["serve_big"] = serve_path(
         "serve_big", counters, {"logmel": batches, "lstm1_infer": 3 * batches},
-        big_run / "best.ckpt", big_overrides, np.load(test / "audio.npy"),
-        np.load(test / "video.npy"), WORK / "predictions_big")
+        big_run / "best.ckpt", big_overrides, test_audio,
+        test_video, WORK / "predictions_big")
     by_path["train_gru"], gru_run, gru_overrides = phase_train(
         counters, "train_gru", GRU,
         lambda steps, evals: {"logmel": cached, "gru2_train_fwd": steps,
                               "gru2_bwd_chain": steps, "gru2_infer": evals})
     by_path["serve_gru"] = serve_path(
         "serve_gru", counters, {"logmel": batches, "gru2_infer": batches},
-        gru_run / "best.ckpt", gru_overrides, np.load(test / "audio.npy"),
-        np.load(test / "video.npy"), WORK / "predictions_gru")
+        gru_run / "best.ckpt", gru_overrides, test_audio,
+        test_video, WORK / "predictions_gru")
     # the GRU config on the legacy-layout pair with the fused legacy chain
     # (the JAX package's GRU_BWD2_ENABLED, which its TPU default leaves off)
     prev = lstm_vjp.set_res2_mode("off")
@@ -2828,8 +3006,8 @@ def main() -> None:
                               "gru_bwd_chain": 3 * steps, "gru1_infer": 3 * evals})
     by_path["serve_big_gru"] = serve_path(
         "serve_big_gru", counters, {"logmel": batches, "gru1_infer": 3 * batches},
-        big_gru_run / "best.ckpt", big_gru_overrides, np.load(test / "audio.npy"),
-        np.load(test / "video.npy"), WORK / "predictions_big_gru")
+        big_gru_run / "best.ckpt", big_gru_overrides, test_audio,
+        test_video, WORK / "predictions_big_gru")
     # two blocks: one flash forward each per forward, one fused backward
     # each per train step
     by_path["train_tf"], tf_run, tf_overrides = phase_train(
@@ -2838,8 +3016,8 @@ def main() -> None:
                               "flash_bwd_fused": 2 * steps})
     by_path["serve_tf"] = serve_path(
         "serve_tf", counters, {"logmel": batches, "flash_fwd": 2 * batches},
-        tf_run / "best.ckpt", tf_overrides, np.load(test / "audio.npy"),
-        np.load(test / "video.npy"), WORK / "predictions_tf")
+        tf_run / "best.ckpt", tf_overrides, test_audio,
+        test_video, WORK / "predictions_tf")
     # configs/base.yaml as written (raw waveform, LSTM 2x256) and with the
     # GRU: the pair once per step, its eval form once per eval or served
     # batch, no log-mel; a step takes ~0.6 s, so fewer timed reps, and the
@@ -2854,8 +3032,8 @@ def main() -> None:
             **raw)
         by_path[f"serve_raw{suffix}"] = serve_path(
             f"serve_raw{suffix}", counters, {f"{cell}2_infer": batches},
-            raw_run / "best.ckpt", raw_overrides, np.load(test / "audio.npy"),
-            np.load(test / "video.npy"), WORK / f"predictions_raw{suffix}", **raw)
+            raw_run / "best.ckpt", raw_overrides, test_audio,
+            test_video, WORK / f"predictions_raw{suffix}", **raw)
 
     # launches: the run of the path that MAIN_PATH names; launches_by_path:
     # every path's own run, the counts zeroed just before it
@@ -2873,7 +3051,9 @@ def main() -> None:
     # their error, times and bound at T=48,000
     extra = ["core", "bound_fp32_ms", "bound_3xtf32_ms", "b1_ms", "b1_plain_ms",
              "bound_products_ms", "raw_max_abs_err", "raw_ms", "raw_plain_ms",
-             "raw_bound_ms", "raw_bound_by"]
+             "raw_bound_ms", "raw_bound_by", "b320_max_err_of_largest", "b320_ms",
+             "b320_bound_ms"]
+    print(f"[time] chip_smoke.py: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {**{k: kern[k] for k in order}, **{k: kern[k] for k in extra if k in kern}}
         for kern in kernels.values()]}))

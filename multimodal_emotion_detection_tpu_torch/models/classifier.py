@@ -1,13 +1,22 @@
-"""The end-to-end multimodal classifier: frontend -> encoders -> concat head.
+"""The end-to-end multimodal classifier: frontend -> encoders -> fusion.
 
-The forward of the JAX package's ``MultimodalClassifier`` with
-``train_fusion='concat'``: each modality's features go through its
-encoder (audio through the log-mel / MFCC frontend first), the embeddings
-are concatenated in config modality order, then Linear -> ReLU -> Linear.
+The forward of the JAX package's ``MultimodalClassifier``: each modality's
+features go through its encoder (audio through the log-mel / MFCC frontend
+first), then
+
+* ``train_fusion='concat'`` (the default): the embeddings concatenated in
+  config modality order, then Linear -> ReLU -> Linear;
+* ``train_fusion='library'``: the fusion ``build_fusion_model`` names by
+  ``fusion_type`` (early, late, hybrid or uncertainty-weighted late), given
+  the availability mask, or all ones where the mask is ignored.  A fusion
+  that returns ``(logits, aux)`` gives its logits; ``return_aux=True``
+  returns ``(logits, aux)`` with the embeddings under ``aux["encoded"]``.
+
 ``use_modality_mask=False`` (the default) ignores the availability mask,
 as the reference forward does; ``True`` zeroes a missing modality's
-features before its encoder.  In training mode the encoders' dropout masks
-come from the forward's ``noise``; the concat head has no dropout.
+features before its encoder and hands the mask to the fusion.  In training
+mode every dropout mask comes from the forward's ``noise``; the concat head
+has no dropout.
 """
 
 from __future__ import annotations
@@ -19,6 +28,7 @@ import torch
 from torch import nn
 
 from multimodal_emotion_detection_tpu_torch.models.encoders import build_encoder
+from multimodal_emotion_detection_tpu_torch.models.fusion import build_fusion_model
 from multimodal_emotion_detection_tpu_torch.models.noise import Noise
 from multimodal_emotion_detection_tpu_torch.models.recurrent import (
     FusedStackedRNN,
@@ -39,6 +49,10 @@ class MultimodalClassifier(nn.Module):
         num_classes: int = 8,
         output_dim: int = 128,
         hidden_dim: int = 256,
+        num_heads: int = 4,
+        dropout: float = 0.3,
+        fusion_type: str = "early",
+        train_fusion: str = "concat",  # 'concat' | 'library'
         use_modality_mask: bool = False,
         audio_frontend: Optional[LogMelParams] = None,  # None -> raw waveform
         frontend_kind: str = "logmel",  # 'logmel' | 'mfcc'
@@ -46,6 +60,7 @@ class MultimodalClassifier(nn.Module):
     ):
         super().__init__()
         self.modalities = tuple(modalities)
+        self.train_fusion = train_fusion
         self.use_modality_mask = use_modality_mask
         self.audio_frontend = audio_frontend
         self.frontend_kind = frontend_kind
@@ -68,8 +83,18 @@ class MultimodalClassifier(nn.Module):
                     encoder_config=cfg,
                 ),
             )
-        self.head_in = nn.Linear(output_dim * len(self.modalities), hidden_dim)
-        self.head_out = nn.Linear(hidden_dim, num_classes)
+        if train_fusion == "library":
+            self.fusion = build_fusion_model(
+                fusion_type,
+                modality_dims={m: output_dim for m in self.modalities},
+                num_classes=num_classes,
+                hidden_dim=hidden_dim,
+                num_heads=num_heads,
+                dropout=dropout,
+            )
+        else:
+            self.head_in = nn.Linear(output_dim * len(self.modalities), hidden_dim)
+            self.head_out = nn.Linear(hidden_dim, num_classes)
 
     def _apply_frontend(self, modality: str, features: torch.Tensor) -> torch.Tensor:
         if modality == "audio" and self.audio_frontend is not None:
@@ -102,13 +127,36 @@ class MultimodalClassifier(nn.Module):
         features: Dict[str, torch.Tensor],
         mask: Optional[torch.Tensor] = None,
         noise: Optional[Noise] = None,
-    ) -> torch.Tensor:
+        return_aux: bool = False,
+    ):
         encoded = self.encode(features, mask, noise)
-        ordered = [encoded[m] for m in self.modalities if m in encoded]
-        if not ordered:
-            raise ValueError("No modalities were encoded")
-        fused = torch.cat(ordered, dim=-1)
-        return self.head_out(torch.relu(self.head_in(fused)))
+        aux: Dict[str, Any] = {}
+        if self.train_fusion == "library":
+            if self.use_modality_mask and mask is not None:
+                fusion_mask = mask
+            else:
+                # the mask-ignoring mode: every modality is available (the
+                # uncertainty fusion needs a mask, so all ones, not None)
+                lead = next(iter(encoded.values()))
+                fusion_mask = torch.ones((lead.shape[0], len(self.modalities)),
+                                         dtype=torch.float32, device=lead.device)
+            output = self.fusion(encoded, fusion_mask, noise=noise)
+            if isinstance(output, tuple):
+                logits, fusion_aux = output
+                aux = (fusion_aux if isinstance(fusion_aux, dict)
+                       else {"per_modality_logits": fusion_aux})
+            else:
+                logits = output
+        else:
+            ordered = [encoded[m] for m in self.modalities if m in encoded]
+            if not ordered:
+                raise ValueError("No modalities were encoded")
+            fused = torch.cat(ordered, dim=-1)
+            logits = self.head_out(torch.relu(self.head_in(fused)))
+        if return_aux:
+            aux["encoded"] = encoded
+            return logits, aux
+        return logits
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
@@ -154,11 +202,6 @@ def classifier_from_config(config) -> MultimodalClassifier:
     nothing until a checkpoint or ``init_weights`` fills them."""
     model_cfg = config.model
     fe = model_cfg.frontend
-    if model_cfg.train_fusion != "concat":
-        raise NotImplementedError(
-            f"model.train_fusion={model_cfg.train_fusion!r}: the fusion "
-            "library is not ported yet (ROADMAP.md Queue 1 item 7)"
-        )
     if config.runtime.compute_dtype != "float32":
         raise NotImplementedError(
             f"runtime.compute_dtype={config.runtime.compute_dtype!r}: only "
@@ -187,6 +230,10 @@ def classifier_from_config(config) -> MultimodalClassifier:
         num_classes=config.dataset.num_classes,
         output_dim=model_cfg.output_dim,
         hidden_dim=model_cfg.hidden_dim,
+        num_heads=model_cfg.num_heads,
+        dropout=model_cfg.dropout,
+        fusion_type=model_cfg.fusion_type,
+        train_fusion=model_cfg.train_fusion,
         use_modality_mask=model_cfg.use_modality_mask,
         audio_frontend=frontend,
         frontend_kind=fe.audio if fe.audio != "raw" else "logmel",

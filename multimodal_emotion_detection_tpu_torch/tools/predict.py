@@ -2,7 +2,8 @@
 
     python -m multimodal_emotion_detection_tpu_torch.tools.predict \
         --checkpoint model.pt [--config configs/base.yaml] [--split test] \
-        [--missing keep_idx,keep_idx] [--out preds/] [overrides...]
+        [--missing keep_idx,keep_idx] [--mc-dropout S] [--out preds/] \
+        [overrides...]
 
 Loads a port checkpoint (``scripts/jax_ckpt_to_torch.py`` converts a JAX
 one), runs the inference forward over a split and writes ``logits.npy``,
@@ -10,6 +11,10 @@ one), runs the inference forward over a split and writes ``logits.npy``,
 package's predict does.  It runs on the CUDA card; ``runtime.platform=cpu``
 runs it on the CPU instead, and without a card and without that override
 it raises.  ``--missing i[,j]`` keeps only the listed modality indices.
+``--mc-dropout S`` runs S dropout samples per batch as one forward over S·B
+rows (``uncertainty.mc_dropout_predict``, every batch drawing from a
+generator seeded with ``seed``, as the JAX package reuses one key), writes
+their mean logits in place of the forward's and ``uncertainty.npy``.
 """
 
 from __future__ import annotations
@@ -41,9 +46,6 @@ def parse_args(argv=None):
 
 
 def _refuse_unported(args) -> None:
-    if args.mc_dropout > 0:
-        raise SystemExit(
-            "--mc-dropout is not ported yet (ROADMAP.md Queue 1 item 9)")
     if args.quantize_weights != "none" or args.quantized_artifact is not None:
         raise SystemExit(
             "--quantize-weights / --quantized-artifact are not ported yet "
@@ -54,16 +56,22 @@ def main(argv=None):
     args = parse_args(argv)
     _refuse_unported(args)
 
+    import torch
+
     from multimodal_emotion_detection_tpu_torch.config import load_config
     from multimodal_emotion_detection_tpu_torch.data.masking import (
         simulate_missing_modalities,
     )
+    from multimodal_emotion_detection_tpu_torch.models.noise import Noise
     from multimodal_emotion_detection_tpu_torch.tools._restore import (
         restore_for_eval,
     )
     from multimodal_emotion_detection_tpu_torch.training.steps import forward
     from multimodal_emotion_detection_tpu_torch.uncertainty.calibration import (
         compute_calibration_metrics,
+    )
+    from multimodal_emotion_detection_tpu_torch.uncertainty.mc_dropout import (
+        mc_dropout_predict,
     )
     from multimodal_emotion_detection_tpu_torch.utils.runtime import (
         device_from_config,
@@ -83,11 +91,17 @@ def main(argv=None):
         [int(i) for i in args.missing.split(",")]
         if args.missing is not None else None
     )
-    logits_list, labels_list = [], []
+    logits_list, labels_list, unc_list = [], [], []
     for features, labels, mask in loader:
         if keep is not None:
             features, mask = simulate_missing_modalities(features, mask, keep)
-        logits = forward(model, features, mask)
+        if args.mc_dropout > 0:
+            noise = Noise(torch.Generator(device=device).manual_seed(config.seed))
+            logits, unc = mc_dropout_predict(model, features, args.mc_dropout,
+                                             noise=noise, mask=mask)
+            unc_list.append(unc.cpu().numpy())
+        else:
+            logits = forward(model, features, mask)
         logits_list.append(logits.cpu().numpy())
         labels_list.append(labels.numpy())
 
@@ -100,6 +114,9 @@ def main(argv=None):
     np.save(out_dir / "logits.npy", logits)
     np.save(out_dir / "predictions.npy", preds)
     np.save(out_dir / "labels.npy", labels)
+    if unc_list:
+        np.save(out_dir / "uncertainty.npy",
+                np.concatenate(unc_list)[: loader.num_samples])
 
     metrics = compute_calibration_metrics(
         logits, labels, config.evaluation.num_calibration_bins

@@ -5,10 +5,13 @@
 
 The JAX package's training CLI: print the config, snapshot it, build the
 loaders and the model, fit (early stopping, top-k checkpoints, resume from
-``last.ckpt``), test the best checkpoint, then copy it to ``best.ckpt`` and
-write ``results.json`` and the confusion matrix, with a final test row in
-``metrics.csv``.  It runs on the CUDA card; ``runtime.platform=cpu`` runs
-it on the CPU instead, where every kernel wrapper runs its plain version.
+``last.ckpt``), test the best checkpoint, write the confusion matrix and a
+final test row in ``metrics.csv``; then, for an uncertainty fusion, the
+calibration report (``./analysis/calibration_diagram.png``, relative to
+the working directory, and ``<outputs.experiments_dir>/uncertainty.json``),
+else copy the best checkpoint to ``best.ckpt`` and write ``results.json``.
+It runs on the CUDA card; ``runtime.platform=cpu`` runs it on the CPU
+instead, where every kernel wrapper runs its plain version.
 Keys of the TPU build that choose a route (``runtime.lstm_kernels``,
 ``epoch_scan``, ``epoch_pregather``, ``donate_state``, the encoders'
 ``scan_unroll`` and ``inference_kernel``) are accepted and do not route.
@@ -20,6 +23,8 @@ import argparse
 import sys
 from pathlib import Path
 
+import numpy as np
+
 from multimodal_emotion_detection_tpu_torch.config import (
     Config,
     config_to_dict,
@@ -27,11 +32,6 @@ from multimodal_emotion_detection_tpu_torch.config import (
     load_config,
     snapshot_config,
 )
-
-_UNCERTAINTY_ALIASES = {
-    "uncertainty", "uwf", "uncertainty_weighted", "uncertainty_weighted_late",
-}
-
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(
@@ -46,14 +46,11 @@ def parse_args(argv=None):
 
 
 def run(config: Config, overrides=None, resume: bool = False) -> dict:
-    if config.model.fusion_type.lower() in _UNCERTAINTY_ALIASES:
-        raise NotImplementedError(
-            f"model.fusion_type={config.model.fusion_type!r}: the calibration "
-            "report of uncertainty fusion is not ported yet (ROADMAP.md "
-            "Queue 1 item 9)")
-
     from multimodal_emotion_detection_tpu_torch.data.loader import (
         create_dataloaders,
+    )
+    from multimodal_emotion_detection_tpu_torch.models.fusion import (
+        _UNCERTAINTY_ALIASES,
     )
     from multimodal_emotion_detection_tpu_torch.training.evaluate import (
         class_names_for,
@@ -61,8 +58,13 @@ def run(config: Config, overrides=None, resume: bool = False) -> dict:
         macro_f1,
         save_confusion_matrix,
         write_results_json,
+        write_uncertainty_json,
     )
     from multimodal_emotion_detection_tpu_torch.training.loop import Trainer
+    from multimodal_emotion_detection_tpu_torch.uncertainty.calibration import (
+        CalibrationMetrics,
+        per_bin_accuracy,
+    )
 
     print("=" * 80)
     print("Configuration:")
@@ -99,7 +101,7 @@ def run(config: Config, overrides=None, resume: bool = False) -> dict:
     best_model = trainer.load_best()
     best_path = trainer.checkpoints.best_model_path
     print(f"Loading best model from: {best_path}")
-    test_metrics, _, preds, labels = trainer.test(test_loader, model=best_model)
+    test_metrics, logits, preds, labels = trainer.test(test_loader, model=best_model)
     for name, value in test_metrics.items():
         print(f"{name}: {value:.4f}")
     # the reference's trainer.test logs a final test row into the same CSV
@@ -112,17 +114,37 @@ def run(config: Config, overrides=None, resume: bool = False) -> dict:
     print(f"Saved confusion matrix to {save_dir / 'confusion_matrix.npy'}")
     test_metrics["test/macro_f1"] = macro_f1(cm)
 
-    best_copy = trainer.checkpoints.copy_best(save_dir / "best.ckpt")
-    if best_copy:
-        print(f"Copied best checkpoint to: {best_copy}")
-    results_file = write_results_json(
-        save_dir, best_path, trainer.checkpoints.best_model_score,
-        config_to_dict(config))
-    print(f"\nTraining complete! Results saved to: {results_file}")
-    print(f"Best model: {best_path}")
-    print(f"Best validation loss: {trainer.checkpoints.best_model_score:.4f}")
-
     results = dict(test_metrics)
+    if config.model.fusion_type.lower() in _UNCERTAINTY_ALIASES:
+        print("\nComputing calibration metrics (uncertainty fusion detected)...")
+        num_bins = config.evaluation.num_calibration_bins
+        nll = CalibrationMetrics.negative_log_likelihood(logits, labels)
+        probs = np.exp(logits - logits.max(axis=-1, keepdims=True))
+        probs /= probs.sum(axis=-1, keepdims=True)
+        confs = probs.max(axis=-1)
+        ece = CalibrationMetrics.expected_calibration_error(
+            confs, preds, labels, num_bins=num_bins)
+        bins_list, acc_per_bin = per_bin_accuracy(confs, preds, labels, num_bins)
+        CalibrationMetrics.reliability_diagram(
+            confs, preds, labels, num_bins=num_bins,
+            save_path=str(Path("./analysis") / "calibration_diagram.png"))
+        print("Reliability diagram created")
+        out = write_uncertainty_json(
+            Path(config.outputs.experiments_dir), config.dataset.name,
+            ece, nll, bins_list, acc_per_bin)
+        print(f"Saved uncertainty report to: {out}")
+        results.update({"ece": ece, "nll": nll})
+    else:
+        best_copy = trainer.checkpoints.copy_best(save_dir / "best.ckpt")
+        if best_copy:
+            print(f"Copied best checkpoint to: {best_copy}")
+        results_file = write_results_json(
+            save_dir, best_path, trainer.checkpoints.best_model_score,
+            config_to_dict(config))
+        print(f"\nTraining complete! Results saved to: {results_file}")
+        print(f"Best model: {best_path}")
+        print(f"Best validation loss: {trainer.checkpoints.best_model_score:.4f}")
+
     results["best_val_loss"] = float(trainer.checkpoints.best_model_score)
     return results
 

@@ -3,7 +3,8 @@
 The JAX package's contract: ``confusion_matrix.npy`` always, and
 ``confusion_matrix.png`` where matplotlib is installed; ``results.json``
 with the best checkpoint's path, its validation loss and the resolved
-config.
+config; for uncertainty fusion ``uncertainty.json``, the calibration
+report.
 """
 
 from __future__ import annotations
@@ -87,4 +88,28 @@ def write_results_json(save_dir: Path, best_model_path: Optional[Path],
     }
     out = Path(save_dir) / "results.json"
     out.write_text(json.dumps(results, indent=2))
+    return out
+
+
+def write_uncertainty_json(
+    experiments_dir: Path,
+    dataset_name: str,
+    ece: float,
+    nll: float,
+    bins: List[float],
+    accuracy_per_bin: List[Optional[float]],
+) -> Path:
+    experiments_dir = Path(experiments_dir)
+    experiments_dir.mkdir(parents=True, exist_ok=True)
+    out_obj = {
+        "dataset": str(dataset_name),
+        "calibration_metrics": {
+            "ece": round(float(ece), 3),
+            "nll": round(float(nll), 3),
+            "bins": bins,
+            "accuracy_per_bin": accuracy_per_bin,
+        },
+    }
+    out = experiments_dir / "uncertainty.json"
+    out.write_text(json.dumps(out_obj, indent=2))
     return out

@@ -7,6 +7,10 @@
 * ``eval_sums``: exact per-batch metric sums (so epoch means over uneven,
   wrap-padded batches are exact) plus the logits;
 * ``forward``: the inference logits.
+
+A classifier with library fusion returns its logits here too (a fusion's
+auxiliary outputs come only with ``return_aux``), so the loss takes the
+logits alone, as in the JAX package.
 """
 
 from __future__ import annotations

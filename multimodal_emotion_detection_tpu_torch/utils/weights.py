@@ -18,7 +18,10 @@ GRU layer's ``w_ih`` (D, 3H), ``w_hh`` (H, 3H), ``b_ih`` and ``b_hh``, gates
 r, z, n.  So a JAX classifier with any ported encoder maps key for key
 (``tests/test_torch_port_gru_config.py`` and
 ``tests/test_torch_port_transformer_config.py`` load JAX classifiers' trees
-with ``strict=True``).
+with ``strict=True``), and so does one with library fusion: its 1-D
+parameters (``LateFusion``'s ``fusion_logits``, ``EarlyFusion``'s
+``missing_<m>``) keep name and layout, ``HybridFusion``'s one ``post_ln`` is
+one module in both trees (``tests/test_torch_port_fusion.py``).
 """
 
 from __future__ import annotations

@@ -132,7 +132,9 @@ def test_predict_without_cpu_override_raises_on_a_host_without_a_card(
     assert not (tmp / "never").exists()
 
 
-@pytest.mark.parametrize("flag", [["--mc-dropout", "4"],
+# the first case was --mc-dropout until MC dropout was ported; the case
+# keeps its id (flag0) and now holds the int8 serving artifact
+@pytest.mark.parametrize("flag", [["--quantized-artifact", "x"],
                                   ["--quantize-weights", "int8"]])
 def test_unported_options_exit_with_their_roadmap_item(served, flag):
     tmp, overrides, port_ckpt, _ = served
