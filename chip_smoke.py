@@ -161,7 +161,28 @@
    form), checks ``uncertainty.npy``, repeats the first batch on the card
    and on the CPU with the card's masks replayed (mean logits 1e-3,
    uncertainty 1e-4), and times the b32 MC forward.
-15. Prints the script's wall time, one JSON line describing every kernel
+15. The unimodal configs as written (``BASELINE.json`` configs 1 and 2),
+   which run no recurrent kernel: ``[train_audio_only]`` /
+   ``[serve_audio_only]`` train ``configs/audio_only.yaml`` (log-mel inside
+   every step -> Conv1d k5 -> BatchNorm -> ReLU -> Conv1d k3 -> BatchNorm
+   -> ReLU -> mean -> Dense, cuDNN convolutions) and serve its
+   ``best.ckpt`` as in 6 (log-mel once per step, eval batch and served
+   batch, every other kernel never); its gradient jumps at ReLU kinks past
+   the smooth models' bound, so its card step and the CPU's float32 step
+   are held to the CPU's float64 step on the same log-mel features
+   (``kinked_step_check``), BatchNorm's running statistics after it to 1e-5
+   of each buffer's largest entry; ``[train_video_only]`` /
+   ``[serve_video_only]`` the same as 6 for
+   ``configs/video_only.yaml`` (the frame encoder alone: no kernel
+   launches); ``[train_mlp]`` trains ``audio_only.yaml`` with
+   ``SimpleMLPEncoder`` (``model.encoders.audio.type=mlp``);
+   ``[mc_dropout_cnn]`` runs ``predict --mc-dropout 10`` on the CNN's
+   checkpoint (log-mel once per batch), checked as ``[mc_dropout]``, and the
+   running statistics must come out of every MC forward bit for bit.  The
+   raw-length phases of 13 also time cuDNN's LSTM / GRU at that shape
+   (``raw_library_ms``), and ``[lstm2_train_fwd]`` cuDNN's training forward
+   at 320 rows (``b320_library_ms``).
+16. Prints the script's wall time, one JSON line describing every kernel
    (the one-layer and 2-layer cores' entries name their shared header as
    ``core``), nvidia-smi's name and power limit of the card, and as the
    last line ``{"ok": true, "device": {...}}``.
@@ -476,12 +497,13 @@ def serve_path(tag: str, counters, expected, ckpt: Path, overrides,
 
     cfg = load_config(config_path, overrides)
     cfg.model.frontend.cache = False  # as predict: raw features in
+    clips = {m: {"audio": audio, "video": video}[m] for m in cfg.dataset.modalities}
     model, _, _ = restore_for_eval(cfg, ckpt, "test", torch.device("cpu"))
     rows = check_clips or n
     with torch.no_grad():
         ref = torch.cat([
-            forward(model, {"audio": torch.from_numpy(audio[i:min(i + 32, rows)]),
-                            "video": torch.from_numpy(video[i:min(i + 32, rows)])})
+            forward(model, {m: torch.from_numpy(a[i:min(i + 32, rows)])
+                            for m, a in clips.items()})
             for i in range(0, rows, 32)]).numpy()
     err = float(np.abs(logits[:rows] - ref).max())
     agree = int((logits[:rows].argmax(-1) == ref.argmax(-1)).sum())
@@ -492,8 +514,7 @@ def serve_path(tag: str, counters, expected, ckpt: Path, overrides,
 
     dev = torch.device("cuda")
     model = model.to(dev).eval()
-    b32 = {"audio": torch.from_numpy(audio[:32]).to(dev),
-           "video": torch.from_numpy(video[:32]).to(dev)}
+    b32 = {m: torch.from_numpy(a[:32]).to(dev) for m, a in clips.items()}
     b1 = {k: v[:1].contiguous() for k, v in b32.items()}
     for label, batch in (("b32", b32), ("b1", b1)):
         p50, p90 = host_ms(lambda: forward(model, batch), reps=reps)
@@ -2305,6 +2326,39 @@ def _raw_pair_inputs(seed: int, gates: int):
     return x_tm, keep, l0, l1
 
 
+def _raw_library(kernels, tag: str, lib, x_bt: torch.Tensor, dh: torch.Tensor,
+                 names) -> None:
+    """cuDNN at the raw shape, TF32 off, one call each after one warm call
+    (each takes seconds): the inference forward, the training forward
+    (autograd on, saving what the backward needs) and the backward of
+    ``h_n``, which also forms the weight gradients; into the entries of
+    ``names`` (eval form, training forward, reverse chain; None skips one)
+    as ``raw_library_ms``."""
+    params = list(lib.parameters())
+
+    def last_h():  # the top layer's final h (an LSTM's h_n is (h, c))
+        h_n = lib(x_bt)[1]
+        return (h_n[0] if isinstance(h_n, tuple) else h_n)[-1]
+
+    times = {}
+    with torch.no_grad():
+        lib(x_bt)
+        _, times["infer"] = timed_ms(lambda: lib(x_bt))
+    torch.autograd.grad(last_h(), params, dh)
+    h_last, times["train_fwd"] = timed_ms(last_h)
+    _, times["bwd"] = timed_ms(lambda: torch.autograd.grad(h_last, params, dh))
+    del h_last
+    torch.cuda.empty_cache()
+    b, t, d = x_bt.shape
+    print(f"[{tag}] cuDNN {type(lib).__name__}({d}, {lib.hidden_size}, num_layers="
+          f"{lib.num_layers}) at B={b} T={t}, TF32 off, one call after a warm one: "
+          f"inference forward {times['infer']:.4f} ms, training forward "
+          f"{times['train_fwd']:.4f} ms, backward of h_n {times['bwd']:.4f} ms")
+    for name, key in zip(names, ("infer", "train_fwd", "bwd")):
+        if name is not None:
+            kernels[name]["raw_library_ms"] = times[key]
+
+
 def phase_pair_raw(lstm_kernel, flush, kernels, cell: str) -> None:
     """``[lstm_raw]`` / ``[gru_raw]``: the 2-layer pair of base.yaml (or
     base.yaml + GRU) on the raw waveform at B=32, T=48,000, D=1, H=256,
@@ -2362,6 +2416,11 @@ def phase_pair_raw(lstm_kernel, flush, kernels, cell: str) -> None:
     err = _raw_check(tag, ("final h1 (eval form)",), (out,), (ref,))
     ms = device_ms(lambda: inf(x_bt, l0, l1), flush, reps=5, warmup=1)
     _raw_record(kernels, names[2], tag, err, ms, plain_ms, b, t, d, h, 2)
+    del ref, out, keep, x_tm
+    torch.cuda.empty_cache()
+    lib = _cudnn_lstm(l0, l1) if lstm else _cudnn_gru(l0, l1)
+    _raw_library(kernels, tag, lib, x_bt, dh, (names[2], names[0], names[1]))
+    del lib, x_bt
     torch.cuda.empty_cache()
 
 
@@ -2407,6 +2466,12 @@ def phase_lstm1_raw(lstm_kernel, lstm_vjp, flush, kernels) -> None:
     _raw_record(kernels, "lstm_bwd_chain", tag, err, ms, plain_ms, b, t, d, h, 1)
     del args, g, c_prev, dhs
     torch.cuda.empty_cache()
+    lib = _cudnn_lstm({"w_ih": w_ih, "w_hh": w_hh, "b": bias})
+    x_bt = x.transpose(0, 1).contiguous()
+    _raw_library(kernels, tag, lib, x_bt, dhf,
+                 (None, "lstm1_train_fwd", "lstm_bwd_chain"))
+    del lib, x_bt, x
+    torch.cuda.empty_cache()
 
     # the big sweep config's stack on raw: the budget refuses it before any
     # residual is allocated
@@ -2447,17 +2512,18 @@ TRAIN_ARTIFACTS = ("results.json", "best.ckpt", "checkpoints/last.ckpt",
 
 def phase_train(counters, tag: str, model_overrides, expected_fn,
                 check_clips: int = 0, reps: int = 60, profile_reps: int = 10,
-                config: str = "base.yaml", artifacts=TRAIN_ARTIFACTS):
+                config: str = "base.yaml", artifacts=TRAIN_ARTIFACTS,
+                kinked: bool = False):
     """The train CLI with ``configs/<config>`` for 2 epochs on synthetic 96
     / 64 / 64 clip splits at batch 32, from the work directory (relative
     outputs land there), with the launch counts checked
     (``expected_fn(steps, eval_batches)``) and ``artifacts`` (paths in the
     run directory) written; one card step against the CPU step (on the
-    first ``check_clips`` clips of the batch, where given, on both sides);
-    the train step's latency over ``reps`` steps and its profile over
-    ``profile_reps``.  Returns ``(launches, run directory, overrides)``."""
+    first ``check_clips`` clips of the batch, where given, on both sides;
+    ``kinked``: ``kinked_step_check`` instead); the train step's latency
+    over ``reps`` steps and its profile over ``profile_reps``.  Returns
+    ``(launches, run directory, overrides)``."""
     import contextlib
-    import copy
     import csv
 
     from multimodal_emotion_detection_tpu_torch import train
@@ -2468,10 +2534,8 @@ def phase_train(counters, tag: str, model_overrides, expected_fn,
     from multimodal_emotion_detection_tpu_torch.models.classifier import (
         classifier_from_config,
         init_weights,
-        logmel_params_from_config,
     )
     from multimodal_emotion_detection_tpu_torch.models.noise import Noise
-    from multimodal_emotion_detection_tpu_torch.ops import logmel
     from multimodal_emotion_detection_tpu_torch.training.optim import (
         build_optimizer,
     )
@@ -2510,6 +2574,12 @@ def phase_train(counters, tag: str, model_overrides, expected_fn,
           + ", ".join(f"epoch {r['epoch']} {float(r['train/clips_per_sec']):.2f}"
                       for r in rows))
 
+    step_kw = dict(lr=cfg.training.learning_rate,
+                   clip_norm=cfg.training.gradient_clip_norm,
+                   modality_dropout=cfg.training.augmentation.modality_dropout)
+    if kinked:
+        kinked_step_check(tag, cfg, step_kw)
+
     # one train step on the card against the same step on the CPU (plain
     # versions), same weights, batch and masks
     dev = torch.device("cuda")
@@ -2518,41 +2588,181 @@ def phase_train(counters, tag: str, model_overrides, expected_fn,
         cfg.dataset.name, cfg.dataset.data_dir, cfg.dataset.modalities,
         batch_size=bsz, seed=cfg.seed, device=dev)[0]
     if cfg.model.frontend.cache:
-        # as the Trainer caches it: the split's log-mel features, once
-        raw = torch.from_numpy(train_loader.arrays.features["audio"]).to(dev)
-        with torch.inference_mode():
-            feats = logmel.logmel_cuda(raw, logmel_params_from_config(cfg.model.frontend))
-        train_loader.replace_features("audio", feats.cpu().numpy())
-    idx = torch.from_numpy(train_loader.epoch_batch_indices(0)[0].astype(np.int64))
+        _cache_logmel(cfg, train_loader)
     valid = torch.from_numpy(train_loader.epoch_batch_valid()[0])
     feats, labels = train_loader.device_arrays()
-    rows = check_clips or bsz
-    if check_clips:
-        print(f"[{tag}] the card step against the CPU step on the first {rows} "
-              f"clips of the batch: the CPU's plain versions would hold the b{bsz} "
-              "residuals in host memory; the kernels' b32 addressing is held by "
-              "their own raw-length phases")
-    step_kw = dict(lr=cfg.training.learning_rate,
-                   clip_norm=cfg.training.gradient_clip_norm,
-                   modality_dropout=cfg.training.augmentation.modality_dropout)
+    if not kinked:
+        rows = check_clips or bsz
+        if check_clips:
+            print(f"[{tag}] the card step against the CPU step on the first {rows} "
+                  f"clips of the batch: the CPU's plain versions would hold the b{bsz} "
+                  "residuals in host memory; the kernels' b32 addressing is held by "
+                  "their own raw-length phases")
+        sides = _step_sides(cfg, model, train_loader, rows, step_kw)
+        _step_check(tag, cfg, sides["card"], sides["cpu"], rows)
+
+    # train-step latency at b32 on the resident split
+    model = model.to(dev)
+    opt, sched = build_optimizer(cfg.training, model.parameters(), len(train_loader))
+    gen = torch.Generator(device=dev)
+    idx_all = torch.from_numpy(
+        train_loader.epoch_batch_indices(0).astype(np.int64)).to(dev)
+    valid_dev = valid.to(dev)
+    state = {"step": 0}
+
+    def one_step():
+        s = state["step"]
+        gen.manual_seed(s)
+        train_step(model, opt, feats, labels, idx_all[s % idx_all.shape[0]],
+                   valid_dev, noise=Noise(gen), **step_kw)
+        state["step"] = s + 1
+
+    torch.cuda.reset_peak_memory_stats()
+    p50, p90 = host_ms(one_step, reps=reps)
+    print(f"[{tag}] train-step latency b32 (host clock around synchronize, {reps} "
+          f"steps, split on the card): p50 {p50:.4f} ms, p90 {p90:.4f} ms = "
+          f"{32e3 / p50:.1f} clips/s at p50; peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    profile_forward(f"{tag} b32", one_step, reps=profile_reps, what="train step")
+    return launches, run_dir, overrides
+
+
+def _cache_logmel(cfg, loader) -> None:
+    """As the Trainer caches it: the split's log-mel features, once, by
+    the kernel."""
+    from multimodal_emotion_detection_tpu_torch.models.classifier import (
+        logmel_params_from_config,
+    )
+    from multimodal_emotion_detection_tpu_torch.ops import logmel
+
+    raw = torch.from_numpy(loader.arrays.features["audio"]).cuda()
+    with torch.inference_mode():
+        feats = logmel.logmel_cuda(raw, logmel_params_from_config(cfg.model.frontend))
+    loader.replace_features("audio", feats.cpu().numpy())
+
+
+def _step_sides(cfg, model, loader, rows: int, step_kw, f64: bool = False):
+    """One ``train_step`` of a copy of ``model`` on the first ``rows`` clips
+    of ``loader``'s first batch: on the card, then on the CPU with the
+    card's masks replayed (plain versions), and with ``f64`` on the CPU in
+    float64 too (``cpu64``).  Returns ``{side: {noise, loss, grads, params,
+    buffers}}``, every tensor on the CPU."""
+    import copy
+
+    from multimodal_emotion_detection_tpu_torch.models.noise import Noise
+    from multimodal_emotion_detection_tpu_torch.training.optim import (
+        build_optimizer,
+    )
+    from multimodal_emotion_detection_tpu_torch.training.steps import train_step
+
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    idx = torch.from_numpy(loader.epoch_batch_indices(0)[0].astype(np.int64))
+    valid = torch.from_numpy(loader.epoch_batch_valid()[0])
+    feats, labels = loader.device_arrays()
+    plan = [("card", dev, torch.float32), ("cpu", cpu, torch.float32)]
     sides = {}
-    for side, device in (("card", dev), ("cpu", torch.device("cpu"))):
-        m = copy.deepcopy(model).to(device)
-        opt, _ = build_optimizer(cfg.training, m.parameters(), len(train_loader))
+    for side, device, dtype in plan + ([("cpu64", cpu, torch.float64)] if f64 else []):
+        m = copy.deepcopy(model).to(device, dtype)
+        opt, _ = build_optimizer(cfg.training, m.parameters(), len(loader))
         if side == "card":
             noise = Noise(torch.Generator(device=dev).manual_seed(0))
-            f, lab = feats, labels
+            f, lab, i = feats, labels, idx[:rows].to(dev)
         else:
             noise = Noise(replay=sides["card"]["noise"].drawn)
-            f = {k: v[idx[:rows].to(dev)].cpu() for k, v in feats.items()}
-            lab = labels[idx[:rows].to(dev)].cpu()
-        i = idx[:rows].to(device) if side == "card" else torch.arange(rows)
+            f = {k: v[idx[:rows].to(dev)].to(cpu, dtype) for k, v in feats.items()}
+            lab, i = labels[idx[:rows].to(dev)].cpu(), torch.arange(rows)
         metrics = train_step(m, opt, f, lab, i, valid[:rows].to(device), noise=noise,
                              **step_kw)
         sides[side] = {"noise": noise, "loss": float(metrics["loss"]),
                        "grads": {k: p.grad.detach().cpu() for k, p in m.named_parameters()},
-                       "params": {k: p.detach().cpu() for k, p in m.named_parameters()}}
-    card, cpu = sides["card"], sides["cpu"]
+                       "params": {k: p.detach().cpu() for k, p in m.named_parameters()},
+                       "buffers": {k: b.detach().cpu() for k, b in m.named_buffers()}}
+    return sides
+
+
+def kinked_step_check(tag: str, cfg, step_kw) -> None:
+    """The card step of a model whose gradient jumps at ReLU kinks that
+    every (clip, step) element reaches (audio_only.yaml's CNN and its MLP
+    form: ReLU after BatchNorm over (B, T, C)), held to the exact step.
+
+    There a float32 gradient is not a continuous function of its inputs at
+    round-off scale: a perturbation of 1e-7 of the log-mel's spread moves
+    the float64 gradient by ~2e-5 of its largest entry, the log-mel
+    kernel's FFT (within ~3e-5 of the plain DFT, its own phase) by ~2e-4,
+    so two float32 steps on different inputs or in different summation
+    orders disagree past the 1e-4 the smooth models are held to.  So both
+    sides take the same log-mel features (the kernel's, computed once as
+    ``frontend.cache`` does), and the card step and the CPU's float32 step
+    are each held to the CPU's float64 step (plain versions, the card's
+    masks replayed): the loss to 1e-4, the running statistics to 1e-5 of
+    each buffer's largest entry, the gradients to 1e-4 of the largest, or
+    to 4x the CPU float32 step's own distance where that is larger, and
+    the updated parameters to 1e-5 where |g| is 10x past the card's
+    gradient error (Adam's step is lr * sign there), 2.2 lr anywhere."""
+    import copy
+
+    from multimodal_emotion_detection_tpu_torch.data.loader import (
+        create_dataloaders,
+    )
+    from multimodal_emotion_detection_tpu_torch.models.classifier import (
+        classifier_from_config,
+        init_weights,
+    )
+
+    cfg = copy.deepcopy(cfg)
+    cfg.model.frontend.cache = True
+    model = init_weights(classifier_from_config(cfg), torch.Generator().manual_seed(0))
+    loader = create_dataloaders(
+        cfg.dataset.name, cfg.dataset.data_dir, cfg.dataset.modalities,
+        batch_size=cfg.dataset.batch_size, seed=cfg.seed, device=torch.device("cuda"))[0]
+    _cache_logmel(cfg, loader)
+    rows = cfg.dataset.batch_size
+    sides = _step_sides(cfg, model, loader, rows, step_kw, f64=True)
+    exact = sides["cpu64"]
+    g_max = max(float(g.abs().max()) for g in exact["grads"].values())
+
+    def grad_errs(side):
+        errs = {k: float((sides[side]["grads"][k].double() - g).abs().max())
+                for k, g in exact["grads"].items()}
+        worst = max(errs, key=errs.get)
+        return errs[worst], worst
+
+    card_abs, card_worst = grad_errs("card")
+    cpu_abs, cpu_worst = grad_errs("cpu")
+    pair = max(float((sides["card"]["grads"][k] - g).abs().max())
+               for k, g in sides["cpu"]["grads"].items())
+    grad_bound = max(1e-4, 4 * cpu_abs / g_max)
+    loss_err = abs(sides["card"]["loss"] - exact["loss"])
+    lr = cfg.training.learning_rate
+    floor = max(1e-6, 10 * card_abs)
+    param_err = max(float(((sides["card"]["params"][k].double() - p).abs()
+                           * (exact["grads"][k].abs() > floor)).max())
+                    for k, p in exact["params"].items())
+    param_any = max(float((sides["card"]["params"][k].double() - p).abs().max())
+                    for k, p in exact["params"].items())
+    buf_err = {k: float((sides["card"]["buffers"][k].double() - b).abs().max())
+               / float(b.abs().max()) for k, b in exact["buffers"].items()}
+    buf_cpu = max(float((sides["cpu"]["buffers"][k].double() - b).abs().max())
+                  / float(b.abs().max()) for k, b in exact["buffers"].items())
+    worst_buf = max(buf_err, key=buf_err.get)
+    print(f"[{tag}] one step on the same {rows} clips' log-mel features and masks, "
+          f"against the CPU's float64 step: loss card {sides['card']['loss']:.6f}, "
+          f"float64 {exact['loss']:.6f}, abs err {loss_err:.3e} (bound 1e-4); gradients "
+          f"max abs err card {card_abs / g_max:.3e} ({card_worst}), CPU float32 "
+          f"{cpu_abs / g_max:.3e} ({cpu_worst}), card vs CPU float32 {pair / g_max:.3e}, "
+          f"of the largest gradient {g_max:.3e} (bound for the card {grad_bound:.3e}); "
+          f"updated parameters max abs err {param_err:.3e} where |g| > {floor:.1e} "
+          f"(bound 1e-5), {param_any:.3e} anywhere (bound 2.2 lr = {2.2 * lr:.1e}); "
+          f"running statistics card {buf_err[worst_buf]:.3e} of the buffer's largest "
+          f"entry ({worst_buf}), CPU float32 {buf_cpu:.3e} (bound 1e-5)")
+    if not (loss_err < 1e-4 and card_abs / g_max <= grad_bound and param_err < 1e-5
+            and param_any < 2.2 * lr and buf_err[worst_buf] <= 1e-5):
+        raise RuntimeError("the card's train step disagrees with the exact step")
+
+
+def _step_check(tag: str, cfg, card, cpu, rows: int) -> None:
+    """The card step's loss, gradients, updated parameters and running
+    statistics against the CPU step's."""
     loss_err = abs(card["loss"] - cpu["loss"])
     # relative to the largest gradient entry: a tensor whose true gradient
     # is zero (the attention pool's score bias, which softmax over time does
@@ -2587,34 +2797,18 @@ def phase_train(counters, tag: str, model_overrides, expected_fn,
           f"the largest); updated parameters max "
           f"abs err {param_err:.3e} where |g| > 1e-6 (bound 1e-5), {param_any:.3e} "
           f"anywhere (bound 2.2 lr = {2.2 * lr:.1e})")
+    # BatchNorm's running statistics, moved by the step's forward: each
+    # buffer to 1e-5 of its largest entry
+    buf_err = {k: float((card["buffers"][k] - b).abs().max()) / float(b.abs().max())
+               for k, b in cpu["buffers"].items()}
+    if buf_err:
+        worst_buf = max(buf_err, key=buf_err.get)
+        print(f"[{tag}] running statistics after the step, card vs CPU: max abs err "
+              f"{buf_err[worst_buf]:.3e} of the buffer's largest entry ({worst_buf}; "
+              f"{len(buf_err)} buffers, bound 1e-5)")
     if not (loss_err < 1e-4 and grad_err < 1e-4 and param_err < 1e-5
-            and param_any < 2.2 * lr):
+            and param_any < 2.2 * lr and max(buf_err.values(), default=0.0) <= 1e-5):
         raise RuntimeError("the card's train step disagrees with the CPU's")
-
-    # train-step latency at b32 on the resident split
-    model = model.to(dev)
-    opt, sched = build_optimizer(cfg.training, model.parameters(), len(train_loader))
-    gen = torch.Generator(device=dev)
-    idx_all = torch.from_numpy(
-        train_loader.epoch_batch_indices(0).astype(np.int64)).to(dev)
-    valid_dev = valid.to(dev)
-    state = {"step": 0}
-
-    def one_step():
-        s = state["step"]
-        gen.manual_seed(s)
-        train_step(model, opt, feats, labels, idx_all[s % idx_all.shape[0]],
-                   valid_dev, noise=Noise(gen), **step_kw)
-        state["step"] = s + 1
-
-    torch.cuda.reset_peak_memory_stats()
-    p50, p90 = host_ms(one_step, reps=reps)
-    print(f"[{tag}] train-step latency b32 (host clock around synchronize, {reps} "
-          f"steps, split on the card): p50 {p50:.4f} ms, p90 {p90:.4f} ms = "
-          f"{32e3 / p50:.1f} clips/s at p50; peak allocated "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    profile_forward(f"{tag} b32", one_step, reps=profile_reps, what="train step")
-    return launches, run_dir, overrides
 
 
 def phase_lstm2_train_fwd_b320(lstm_kernel, flush, kern) -> None:
@@ -2646,23 +2840,32 @@ def phase_lstm2_train_fwd_b320(lstm_kernel, flush, kern) -> None:
     bound_ms, bound_by = bound(flops, nbytes)
     print(f"[lstm2_train_fwd] B={b}: kernel {ms:.4f} ms ({1e3 * ms / (t + 1):.3f} us "
           f"per phase), bound {bound_ms:.4f} ms ({bound_by})")
+    lib = _cudnn_lstm(l0, l1)
+    x_bt = x_tm.transpose(0, 1).contiguous()
+    library_ms = device_ms(lambda: lib(x_bt), flush, reps=5)
+    print(f"[lstm2_train_fwd] B={b}: cuDNN nn.LSTM({d}, {h}, num_layers=2) training "
+          f"forward at keep=1 {library_ms:.4f} ms")
     kern.update({"b320_max_err_of_largest": max(errs.values()), "b320_ms": ms,
-                 "b320_bound_ms": bound_ms})
+                 "b320_bound_ms": bound_ms, "b320_library_ms": library_ms})
+    del lib, x_bt
     del x_tm, keep, l0, l1
     torch.cuda.empty_cache()
 
 
 def phase_mc_dropout(counters, tag: str, ckpt: Path, overrides, samples: int,
                      audio: np.ndarray, video: np.ndarray, out_dir: Path,
-                     config: str, reps: int = 20, profile_reps: int = 5):
+                     config: str, reps: int = 20, profile_reps: int = 5,
+                     expected_per_batch=None):
     """The predict CLI with ``--mc-dropout samples`` on ``ckpt`` over the
-    test split at batch 32, the launch counts checked: one log-mel (the
-    frontend runs inside the fold, on all S·B rows) and one training
-    forward (row 11) per batch, no eval form; ``uncertainty.npy`` finite,
-    >= 0 and not all 0.  Then the first batch again on the card with the
-    CLI's seed, which must give the CLI's numbers, and on the CPU with the
-    card's masks replayed (plain versions): mean logits 1e-3, uncertainty
-    1e-4 absolute.  The MC forward's latency at b32 and its profile."""
+    test split at batch 32, the launch counts checked
+    (``expected_per_batch``, by default one log-mel (the frontend runs
+    inside the fold, on all S·B rows) and one training forward (row 11) per
+    batch, no eval form); ``uncertainty.npy`` finite, >= 0 and not all 0.
+    Then the first batch again on the card with the CLI's seed, which must
+    give the CLI's numbers, and on the CPU with the card's masks replayed
+    (plain versions): mean logits 1e-3, uncertainty 1e-4 absolute.  The MC
+    forward's latency at b32 and its profile.  A model with BatchNorm keeps
+    its running statistics bit for bit through every MC forward."""
     from multimodal_emotion_detection_tpu_torch.config import load_config
     from multimodal_emotion_detection_tpu_torch.models.noise import Noise
     from multimodal_emotion_detection_tpu_torch.tools import predict
@@ -2675,8 +2878,9 @@ def phase_mc_dropout(counters, tag: str, ckpt: Path, overrides, samples: int,
 
     config_path = str(ROOT / "configs" / config)
     n, batches = audio.shape[0], audio.shape[0] // 32
+    per_batch = expected_per_batch or {"logmel": 1, "lstm2_train_fwd": 1}
     metrics, predict_s, launches = run_counted(
-        counters, {"logmel": batches, "lstm2_train_fwd": batches}, tag,
+        counters, {k: v * batches for k, v in per_batch.items()}, tag,
         lambda: predict.main([
             "--checkpoint", str(ckpt), "--config", config_path, "--split", "test",
             "--mc-dropout", str(samples), "--out", str(out_dir), *overrides]))
@@ -2697,8 +2901,9 @@ def phase_mc_dropout(counters, tag: str, ckpt: Path, overrides, samples: int,
     cfg.model.frontend.cache = False  # as predict: raw features in
     dev = torch.device("cuda")
     model, _, _ = restore_for_eval(cfg, ckpt, "test", dev)
-    b32 = {"audio": torch.from_numpy(audio[:32]).to(dev),
-           "video": torch.from_numpy(video[:32]).to(dev)}
+    stats = {k: b.clone() for k, b in model.named_buffers()}
+    clips = {m: {"audio": audio, "video": video}[m] for m in cfg.dataset.modalities}
+    b32 = {m: torch.from_numpy(a[:32]).to(dev) for m, a in clips.items()}
     noise = Noise(torch.Generator(device=dev).manual_seed(cfg.seed))
     mean, u = mc_dropout_predict(model, b32, samples, noise=noise)
     again = max(float(np.abs(mean.cpu().numpy() - logits[:32]).max()),
@@ -2728,6 +2933,13 @@ def phase_mc_dropout(counters, tag: str, ckpt: Path, overrides, samples: int,
           f"synchronize, {reps} requests, inputs on the card): p50 {p50:.4f} ms, p90 "
           f"{p90:.4f} ms")
     profile_forward(f"{tag} b32", mc, reps=profile_reps, what="MC forward")
+    if stats:
+        moved = [k for k, b in model.named_buffers() if not torch.equal(b, stats[k])]
+        print(f"[{tag}] BatchNorm running statistics after {reps + profile_reps + 7} MC "
+              f"forwards on the card: {len(stats) - len(moved)} of {len(stats)} buffers "
+              "bit for bit unchanged")
+        if moved:
+            raise RuntimeError(f"MC dropout moved the running statistics: {moved}")
     return launches
 
 
@@ -2965,6 +3177,40 @@ def main() -> None:
         WORK / "predictions_mc", "uncertainty.yaml")
     print(f"[time] train_hybrid, serve_hybrid, train_unc, serve_unc, mc_dropout: "
           f"{time.perf_counter() - t_fusion:.1f} s")
+    # the unimodal configs as written (BASELINE.json configs 1 and 2):
+    # audio_only.yaml, log-mel inside every step -> the CNN with BatchNorm
+    # (cuDNN convolutions, no recurrent kernel), also with the MLP encoder;
+    # video_only.yaml, the frame encoder alone, which runs no kernel of the
+    # port; the card step is held to the CPU's on the whole batch, the
+    # audio configs' to the exact step (kinked_step_check)
+    t_uni = time.perf_counter()
+
+    def logmel_counts(steps, evals):
+        return {"logmel": steps + evals}
+
+    by_path["train_audio_only"], ao_run, ao_overrides = phase_train(
+        counters, "train_audio_only", [], logmel_counts, config="audio_only.yaml",
+        kinked=True)
+    by_path["serve_audio_only"] = serve_path(
+        "serve_audio_only", counters, {"logmel": batches}, ao_run / "best.ckpt",
+        ao_overrides, test_audio, test_video, WORK / "predictions_audio_only",
+        config="audio_only.yaml")
+    by_path["train_video_only"], vo_run, vo_overrides = phase_train(
+        counters, "train_video_only", [], lambda steps, evals: {},
+        config="video_only.yaml")
+    by_path["serve_video_only"] = serve_path(
+        "serve_video_only", counters, {}, vo_run / "best.ckpt", vo_overrides,
+        test_audio, test_video, WORK / "predictions_video_only", config="video_only.yaml")
+    by_path["train_mlp"] = phase_train(
+        counters, "train_mlp", ["model.encoders.audio.type=mlp"], logmel_counts,
+        config="audio_only.yaml", kinked=True)[0]
+    by_path["mc_dropout_cnn"] = phase_mc_dropout(
+        counters, "mc_dropout_cnn", ao_run / "best.ckpt", ao_overrides, 10, test_audio,
+        test_video, WORK / "predictions_mc_cnn", "audio_only.yaml",
+        expected_per_batch={"logmel": 1})
+    print(f"[time] train_audio_only, serve_audio_only, train_video_only, "
+          f"serve_video_only, train_mlp, mc_dropout_cnn: "
+          f"{time.perf_counter() - t_uni:.1f} s")
     # the big config caches log-mel once per split, in chunks
     cached = sum(-(-n // FRONTEND_CHUNK) for n in TRAIN_SPLITS.values())
     by_path["train_big"], big_run, big_overrides = phase_train(
@@ -3051,8 +3297,8 @@ def main() -> None:
     # their error, times and bound at T=48,000
     extra = ["core", "bound_fp32_ms", "bound_3xtf32_ms", "b1_ms", "b1_plain_ms",
              "bound_products_ms", "raw_max_abs_err", "raw_ms", "raw_plain_ms",
-             "raw_bound_ms", "raw_bound_by", "b320_max_err_of_largest", "b320_ms",
-             "b320_bound_ms"]
+             "raw_bound_ms", "raw_bound_by", "raw_library_ms", "b320_max_err_of_largest",
+             "b320_ms", "b320_bound_ms", "b320_library_ms"]
     print(f"[time] chip_smoke.py: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {**{k: kern[k] for k in order}, **{k: kern[k] for k in extra if k in kern}}

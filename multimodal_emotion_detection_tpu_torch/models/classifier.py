@@ -16,7 +16,9 @@ first), then
 as the reference forward does; ``True`` zeroes a missing modality's
 features before its encoder and hands the mask to the fusion.  In training
 mode every dropout mask comes from the forward's ``noise``; the concat head
-has no dropout.
+has no dropout.  ``bn_eval`` sets every BatchNorm's mode (see
+``models/encoders.py``): None follows the module's mode, True reads the
+running statistics in a training-mode forward (MC dropout).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from multimodal_emotion_detection_tpu_torch.models.batchnorm import BatchNorm
 from multimodal_emotion_detection_tpu_torch.models.encoders import build_encoder
 from multimodal_emotion_detection_tpu_torch.models.fusion import build_fusion_model
 from multimodal_emotion_detection_tpu_torch.models.noise import Noise
@@ -109,6 +112,7 @@ class MultimodalClassifier(nn.Module):
         features: Dict[str, torch.Tensor],
         mask: Optional[torch.Tensor] = None,
         noise: Optional[Noise] = None,
+        bn_eval: Optional[bool] = None,
     ) -> Dict[str, torch.Tensor]:
         """Per-modality embeddings (B, output_dim)."""
         encoded = {}
@@ -119,7 +123,8 @@ class MultimodalClassifier(nn.Module):
             if self.use_modality_mask and mask is not None:
                 m = mask[:, i].reshape((-1,) + (1,) * (x.ndim - 1))
                 x = x * m.to(x.dtype)
-            encoded[modality] = getattr(self, f"{modality}_encoder")(x, noise=noise)
+            encoded[modality] = getattr(self, f"{modality}_encoder")(
+                x, noise=noise, bn_eval=bn_eval)
         return encoded
 
     def forward(
@@ -128,8 +133,9 @@ class MultimodalClassifier(nn.Module):
         mask: Optional[torch.Tensor] = None,
         noise: Optional[Noise] = None,
         return_aux: bool = False,
+        bn_eval: Optional[bool] = None,
     ):
-        encoded = self.encode(features, mask, noise)
+        encoded = self.encode(features, mask, noise, bn_eval=bn_eval)
         aux: Dict[str, Any] = {}
         if self.train_fusion == "library":
             if self.use_modality_mask and mask is not None:
@@ -161,9 +167,11 @@ class MultimodalClassifier(nn.Module):
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random weights with the JAX package's initialisers: LSTM
-    tensors U(-1/sqrt(H), 1/sqrt(H)); Linear weights lecun-normal
-    (truncated at 2 sigma), biases zero; LayerNorm scale 1, bias 0;
-    Embedding rows normal with variance 1/width."""
+    tensors U(-1/sqrt(H), 1/sqrt(H)); Linear and Conv1d weights
+    lecun-normal over the fan-in (in, in x k for a convolution; truncated
+    at 2 sigma), biases zero; LayerNorm and BatchNorm scale 1, bias 0;
+    BatchNorm running mean 0, variance 1; Embedding rows normal with
+    variance 1/width."""
     with torch.no_grad():
         for module in model.modules():
             if isinstance(module, _CellParams):
@@ -172,11 +180,14 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 nn.init.normal_(module.weight, 0.0,
                                 1.0 / math.sqrt(module.embedding_dim),
                                 generator=generator)
-            elif isinstance(module, nn.Linear):
-                std = math.sqrt(1.0 / module.in_features) / 0.87962566103423978
+            elif isinstance(module, (nn.Linear, nn.Conv1d)):
+                fan_in = module.weight[0].numel()
+                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
                 nn.init.trunc_normal_(module.weight, 0.0, std, -2 * std,
                                       2 * std, generator=generator)
                 nn.init.zeros_(module.bias)
+            elif isinstance(module, BatchNorm):
+                module.reset_parameters()
             elif isinstance(module, nn.LayerNorm):
                 nn.init.ones_(module.weight)
                 nn.init.zeros_(module.bias)

@@ -1,21 +1,29 @@
 """Per-modality encoders of the ported slices (serving and training).
 
 * ``SequenceEncoder`` — the recurrent branch (an LSTM or a GRU of any
-  depth): final hidden state -> Linear projection; and the
-  transformer branch: Linear in-projection + learned positions -> post-LN
+  depth): final hidden state -> Linear projection; the transformer branch:
+  Linear in-projection + learned positions -> post-LN
   ``TransformerBlock`` s (attention through the flash kernels) -> mean over
-  time -> Linear projection;
+  time -> Linear projection; and the CNN branch: Conv1d k5 -> BatchNorm ->
+  ReLU -> Dropout -> Conv1d k3 -> BatchNorm -> ReLU -> mean over time ->
+  Dropout -> Linear projection;
 * ``FrameEncoder`` — per-frame Linear + ReLU, temporal pooling
   (attention / average / max), LayerNorm, Linear projection;
+* ``SimpleMLPEncoder`` — [Linear -> BatchNorm -> ReLU -> Dropout] x n ->
+  Linear, mean over time for a (B, T, D) input;
 * ``build_encoder`` — the factory, with the JAX package's config keys,
   defaults and modality-name heuristics.
 
 Module and parameter names follow the JAX package's parameter tree, so a
 converted JAX checkpoint loads key for key.  Dropout acts only in training
 mode, with masks (and the attention kernels' Philox seeds) drawn from the
-forward's ``Noise``; in eval mode it is the identity.  Encoder kinds
-outside the port raise ``NotImplementedError`` naming the ``ROADMAP.md``
-item that ports them.
+forward's ``Noise``; in eval mode it is the identity.  BatchNorm
+(``models/batchnorm.py``) normalises with the batch statistics in
+training mode and the running ones in eval mode, unless ``bn_eval`` says
+otherwise (``bn_eval=True``: running statistics in a training-mode
+forward, as MC dropout asks); every encoder takes ``bn_eval``, and those
+without BatchNorm ignore it.  Encoder kinds outside the port raise
+``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them.
 """
 
 from __future__ import annotations
@@ -26,6 +34,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multimodal_emotion_detection_tpu_torch.models.batchnorm import (
+    BatchNorm,
+    use_running_average,
+)
 from multimodal_emotion_detection_tpu_torch.models.noise import Noise, dropout
 from multimodal_emotion_detection_tpu_torch.models.recurrent import (
     FusedStackedRNN,
@@ -130,9 +142,11 @@ class TransformerBlock(nn.Module):
 
 
 class SequenceEncoder(nn.Module):
-    """Time series (B, T, D) -> L-layer LSTM or GRU final hidden, or L
-    post-LN transformer blocks mean-pooled over time (``encoder_type``) ->
-    Linear.  The JAX package's fused recurrent module and its layerwise
+    """Time series (B, T, D) -> L-layer LSTM or GRU final hidden, L
+    post-LN transformer blocks mean-pooled over time, or two convolutions
+    with BatchNorm mean-pooled over time (``encoder_type``) -> Linear.  The
+    CNN's convolutions pad as flax's ``"SAME"`` does ((2, 2) for k5, (1, 1)
+    for k3) and run in cuDNN, as the JAX package's run in XLA's conv.  The JAX package's fused recurrent module and its layerwise
     ``StackedRNN`` (``fused: false``, depth 1, and every T past 2,048
     steps, e.g. the raw waveform's 48,000, in remat'd chunks of 512) compute
     the same function on the same parameter tree, so every T runs the same
@@ -154,6 +168,12 @@ class SequenceEncoder(nn.Module):
             self.pos_embedding = nn.Embedding(max_len, hidden_dim)
             for i in range(num_layers):
                 self.add_module(f"block_{i}", TransformerBlock(hidden_dim, 4, dropout))
+        elif encoder_type == "cnn":
+            self.dropout = float(dropout)
+            self.conv1 = nn.Conv1d(input_dim, hidden_dim, 5, padding=2)
+            self.bn1 = BatchNorm(hidden_dim)
+            self.conv2 = nn.Conv1d(hidden_dim, hidden_dim, 3, padding=1)
+            self.bn2 = BatchNorm(hidden_dim)
         else:
             # the JAX package drops out between layers only
             self.rnn = FusedStackedRNN(input_dim, hidden_dim, num_layers,
@@ -189,11 +209,28 @@ class SequenceEncoder(nn.Module):
             h = h.reshape(batch, t, -1)
         return masked_mean(h, valid, dim=1)
 
-    def forward(self, sequence: torch.Tensor,
-                noise: Optional[Noise] = None) -> torch.Tensor:
+    def _cnn(self, x: torch.Tensor, noise: Optional[Noise],
+             bn_eval: Optional[bool]) -> torch.Tensor:
+        p = self.dropout if self.training else 0.0
+        running = use_running_average(self.training, bn_eval)
+        # the convolutions take (B, C, T); BatchNorm and the dropout masks
+        # see (B, T, C), the JAX layout
+        h = self.conv1(x.transpose(1, 2)).transpose(1, 2)
+        h = dropout(torch.relu(self.bn1(h, running)), p, noise)
+        h = self.conv2(h.transpose(1, 2)).transpose(1, 2)
+        h = torch.relu(self.bn2(h, running)).mean(dim=1)
+        return dropout(h, p, noise)
+
+    def forward(self, sequence: torch.Tensor, noise: Optional[Noise] = None,
+                bn_eval: Optional[bool] = None) -> torch.Tensor:
+        if self.encoder_type == "cnn":
+            # in the weights' dtype, as the JAX encoders cast to theirs
+            x = sequence.to(self.conv1.weight.dtype)
+            return self.projection(self._cnn(x, noise, bn_eval))
+        x = sequence.to(torch.float32)
         if self.encoder_type == "transformer":
-            return self.projection(self._transformer(sequence.to(torch.float32), noise))
-        return self.projection(self.rnn(sequence.to(torch.float32), noise))
+            return self.projection(self._transformer(x, noise))
+        return self.projection(self.rnn(x, noise))
 
 
 class FrameEncoder(nn.Module):
@@ -215,7 +252,9 @@ class FrameEncoder(nn.Module):
 
     def forward(self, frames: torch.Tensor,
                 mask: Optional[torch.Tensor] = None,
-                noise: Optional[Noise] = None) -> torch.Tensor:
+                noise: Optional[Noise] = None,
+                bn_eval: Optional[bool] = None) -> torch.Tensor:
+        del bn_eval  # no BatchNorm here; the encoders share one interface
         p = self.dropout if self.training else 0.0
         x = dropout(torch.relu(self.frame_mlp(frames.to(torch.float32))), p, noise)
         if self.temporal_pooling == "attention":
@@ -225,6 +264,39 @@ class FrameEncoder(nn.Module):
         else:
             pooled = masked_max(x, mask, dim=1)
         return self.projection(self.proj_ln(dropout(pooled, p, noise)))
+
+
+class SimpleMLPEncoder(nn.Module):
+    """[Linear -> BatchNorm -> ReLU -> Dropout] x ``num_layers`` -> Linear
+    ``out``; a (B, T, D) input is encoded per step, then mean-pooled over
+    time.  BatchNorm reduces over every axis but the features."""
+
+    def __init__(self, input_dim: int, hidden_dim: int, output_dim: int,
+                 num_layers: int = 2, dropout: float = 0.1,
+                 batch_norm: bool = True):
+        super().__init__()
+        self.num_layers = num_layers
+        self.batch_norm = batch_norm
+        self.dropout = float(dropout)
+        for i in range(num_layers):
+            self.add_module(f"dense_{i}",
+                            nn.Linear(input_dim if i == 0 else hidden_dim, hidden_dim))
+            if batch_norm:
+                self.add_module(f"bn_{i}", BatchNorm(hidden_dim))
+        self.out = nn.Linear(hidden_dim if num_layers else input_dim, output_dim)
+
+    def forward(self, features: torch.Tensor, noise: Optional[Noise] = None,
+                bn_eval: Optional[bool] = None) -> torch.Tensor:
+        p = self.dropout if self.training else 0.0
+        running = use_running_average(self.training, bn_eval)
+        x = features.to(self.out.weight.dtype)
+        for i in range(self.num_layers):
+            x = getattr(self, f"dense_{i}")(x)
+            if self.batch_norm:
+                x = getattr(self, f"bn_{i}")(x, running)
+            x = dropout(torch.relu(x), p, noise)
+        x = self.out(x)
+        return x.mean(dim=1) if features.ndim == 3 else x
 
 
 # ---------------------------------------------------------------------------
@@ -247,9 +319,11 @@ def build_encoder(
 
     Same keys, defaults and heuristics as the JAX factory ('video'/'frames'
     -> frame, audio/imu/... -> sequence, else mlp; hidden_dim defaults to
-    2*output_dim; dropout defaults to 0.1).  Route keys of the TPU build
-    (``scan_unroll``, ``fused``, ``inference_kernel``, ``use_flash``) are
-    accepted and do not route: the device does.
+    2*output_dim, max(output_dim, 64) for mlp; dropout defaults to 0.1).
+    Keys a branch does not read are ignored, as there (``type: mlp`` over
+    a dict that still names an ``encoder_type``).  Route keys of the TPU
+    build (``scan_unroll``, ``fused``, ``inference_kernel``, ``use_flash``)
+    are accepted and do not route: the device does.
     """
     cfg = dict(encoder_config or {})
     enc_type = cfg.pop("type", None)
@@ -271,7 +345,8 @@ def build_encoder(
             enc_type = "mlp"
 
     hidden = cfg.pop("hidden_dim", None)
-    hidden = hidden if hidden is not None else output_dim * 2
+    if hidden is None:
+        hidden = max(output_dim, 64) if enc_type == "mlp" else output_dim * 2
     rate = cfg.pop("dropout", 0.1)
     if enc_type == "frame":
         return FrameEncoder(
@@ -283,11 +358,8 @@ def build_encoder(
         )
     if enc_type == "sequence":
         kind = cfg.pop("encoder_type", "lstm")
-        if kind not in ("lstm", "gru", "transformer"):
-            raise NotImplementedError(
-                f"model.encoders.{modality}.encoder_type={kind!r} is not "
-                "ported yet (ROADMAP.md Queue 1 item 8)"
-            )
+        if kind not in ("lstm", "gru", "transformer", "cnn"):
+            raise ValueError(f"Unknown encoder type: {kind}")
         return SequenceEncoder(
             input_dim=in_dim,
             hidden_dim=hidden,
@@ -296,7 +368,16 @@ def build_encoder(
             dropout=rate,
             encoder_type=kind,
         )
-    if enc_type in ("mlp", "pretrained_cnn"):
+    if enc_type == "mlp":
+        return SimpleMLPEncoder(
+            input_dim=in_dim,
+            hidden_dim=hidden,
+            output_dim=output_dim,
+            num_layers=cfg.pop("num_layers", 2),
+            dropout=rate,
+            batch_norm=cfg.pop("batch_norm", True),
+        )
+    if enc_type == "pretrained_cnn":
         raise NotImplementedError(
             f"encoder type {enc_type!r} for modality '{modality}' is not "
             "ported yet (ROADMAP.md Queue 1 item 8)"

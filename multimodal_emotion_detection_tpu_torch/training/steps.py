@@ -8,6 +8,12 @@
   wrap-padded batches are exact) plus the logits;
 * ``forward``: the inference logits.
 
+A model with BatchNorm (the CNN and MLP encoders) normalises with the
+batch statistics in ``train_step``, whose forward also moves the running
+statistics (buffers: no gradient, no optimizer update, no clip), over
+every row of the gathered batch, wrap padding included, as the JAX step
+does; ``eval_sums`` and ``forward`` read them.
+
 A classifier with library fusion returns its logits here too (a fusion's
 auxiliary outputs come only with ``return_aux``), so the loss takes the
 logits alone, as in the JAX package.

@@ -9,9 +9,10 @@ the fold, on all S·B rows at once; it has no randomness, so its S copies
 are equal.
 
 The rule is the JAX package's (``deterministic=False, bn_eval=True``):
-dropout on, running statistics off.  The port has no BatchNorm yet; the
-module that brings one (``ROADMAP.md`` Queue 1 item 8) keeps it on its
-running statistics here.
+dropout on, and every BatchNorm normalises with its running statistics
+and leaves them as they were.  That is also what makes the fold legal:
+batch statistics over S·B rows would be another function than S forwards
+over B rows.
 """
 
 from __future__ import annotations
@@ -57,7 +58,7 @@ def mc_dropout_predict(
     try:
         with torch.no_grad():
             logits = model({k: fold(v) for k, v in features.items()}, fold(mask),
-                           noise=noise)
+                           noise=noise, bn_eval=True)
     finally:
         model.train(was_training)
     logits = logits.reshape(num_samples, b, -1)

@@ -9,8 +9,15 @@ name or layout on the way:
   attention's ``query`` / ``key`` / ``value`` kernel (D, H, Dh) a weight
   (H*Dh, D) and its bias (H, Dh) a bias (H*Dh,), the ``out`` kernel
   (H, Dh, D) a weight (D, H*Dh);
-* a LayerNorm ``scale`` becomes ``weight``, an Embed ``embedding``
-  ``weight``.
+* a Conv ``kernel`` (k, in, out) of a ``conv*`` module becomes a Conv1d
+  ``weight`` (out, in, k);
+* a LayerNorm or BatchNorm ``scale`` becomes ``weight``, an Embed
+  ``embedding`` ``weight``;
+* the ``batch_stats`` collection's BatchNorm ``mean`` and ``var`` become
+  the buffers ``running_mean`` and ``running_var``.
+
+A 3-D kernel is told apart by its module's name, not its shape: one of
+any other module raises.
 
 Recurrent tensors keep their JAX names and layout: an LSTM layer's
 ``w_ih`` (D, 4H), ``w_hh`` (H, 4H) and one fused ``b``, gates i, f, g, o; a
@@ -26,40 +33,64 @@ one module in both trees (``tests/test_torch_port_fusion.py``).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 
-def state_dict_from_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+_DENSE_GENERAL = ("query", "key", "value", "out")
+_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def _kernel(prefix: str, arr: np.ndarray) -> np.ndarray:
+    """A flax kernel at module path ``prefix`` as the torch weight."""
+    module = prefix.rstrip(".").rpartition(".")[2]
+    if arr.ndim == 2:
+        return arr.T
+    if arr.ndim == 3 and module in _DENSE_GENERAL:
+        # contract the heads of an output projection, split the heads of
+        # an input one
+        flat = (arr.reshape(-1, arr.shape[-1]) if module == "out"
+                else arr.reshape(arr.shape[0], -1))
+        return flat.T
+    if arr.ndim == 3 and module.startswith("conv"):
+        return arr.transpose(2, 1, 0)
+    raise ValueError(
+        f"{prefix}kernel has shape {arr.shape}; only 2-D Dense kernels, 3-D "
+        f"DenseGeneral kernels of {'/'.join(_DENSE_GENERAL)} and 3-D Conv "
+        "kernels of conv* modules are mapped")
+
+
+def state_dict_from_jax_params(
+    params: Mapping[str, Any],
+    batch_stats: Optional[Mapping[str, Any]] = None,
+) -> Dict[str, torch.Tensor]:
     """``params``: nested dicts of numpy arrays, e.g.
-    ``jax.tree.map(np.asarray, variables["params"])``."""
+    ``jax.tree.map(np.asarray, variables["params"])``; ``batch_stats``,
+    where the model has BatchNorm, the same of ``variables["batch_stats"]``."""
     out: Dict[str, torch.Tensor] = {}
 
-    def walk(node: Mapping[str, Any], prefix: str) -> None:
+    def walk(node: Mapping[str, Any], prefix: str, stats: bool) -> None:
         for key, value in node.items():
             if isinstance(value, Mapping):
-                walk(value, f"{prefix}{key}.")
+                walk(value, f"{prefix}{key}.", stats)
                 continue
             arr = np.asarray(value, dtype=np.float32)
-            if key == "kernel":
-                if arr.ndim == 3:
-                    # DenseGeneral: contract the heads of an output
-                    # projection, split the heads of an input one
-                    arr = (arr.reshape(-1, arr.shape[-1]) if prefix.endswith("out.")
-                           else arr.reshape(arr.shape[0], -1))
-                elif arr.ndim != 2:
-                    raise ValueError(
-                        f"{prefix}kernel has shape {arr.shape}; only 2-D "
-                        "Dense and 3-D DenseGeneral kernels are mapped"
-                    )
-                key, arr = "weight", arr.T
+            if stats:
+                if key not in _STATS:
+                    raise ValueError(f"{prefix}{key}: batch_stats holds only "
+                                     "BatchNorm mean and var")
+                key = _STATS[key]
+            elif key == "kernel":
+                key, arr = "weight", _kernel(prefix, arr)
             elif key == "bias" and arr.ndim == 2:
                 arr = arr.reshape(-1)
             elif key in ("scale", "embedding"):
                 key = "weight"
-            out[prefix + key] = torch.tensor(arr)
+            out[prefix + key] = torch.tensor(np.ascontiguousarray(arr))
 
-    walk(params, "")
+    walk(params, "", False)
+    if batch_stats is not None:
+        walk(batch_stats, "", True)
     return out

@@ -3,7 +3,8 @@
     python scripts/jax_ckpt_to_torch.py outputs/<run>/best.ckpt model.pt
 
 Reads the msgpack TrainState the JAX package saves, takes its ``params``
-and writes them in the port's format (``torch.save({"state_dict",
+and, for a model with BatchNorm, its ``model_state["batch_stats"]`` (the
+running statistics, as buffers), and writes them in the port's format (``torch.save({"state_dict",
 "meta"})``), with the JSON sidecar's meta (epoch, step, val_loss) when
 there is one.  The port's predict CLI then serves it:
 
@@ -48,7 +49,10 @@ def main(argv=None) -> Path:
 
     src = Path(args.jax_checkpoint)
     state = serialization.msgpack_restore(src.read_bytes())
-    state_dict = state_dict_from_jax_params(_to_numpy(state["params"]))
+    batch_stats = (state.get("model_state") or {}).get("batch_stats")
+    state_dict = state_dict_from_jax_params(
+        _to_numpy(state["params"]),
+        _to_numpy(batch_stats) if batch_stats else None)
     sidecar = src.with_suffix(src.suffix + ".json")
     meta = json.loads(sidecar.read_text()) if sidecar.exists() else {}
     meta["converted_from"] = src.name

@@ -1546,3 +1546,96 @@ def test_lstm1_layer_matches_plain_at_raw_length():
     out = lstm_kernel.lstm_bwd_chain(g, c_prev, dhs, dhf, w_hh)
     torch.cuda.synchronize()
     _close_in_chunks(out, ref, "dg")
+
+
+def _bn_encoder(kind):
+    from multimodal_emotion_detection_tpu_torch.models.classifier import init_weights
+    from multimodal_emotion_detection_tpu_torch.models.encoders import (
+        SequenceEncoder,
+        SimpleMLPEncoder,
+    )
+
+    enc = (SequenceEncoder(64, 256, 128, encoder_type="cnn", dropout=0.1)
+           if kind == "cnn" else SimpleMLPEncoder(64, 128, 128, dropout=0.1))
+    return init_weights(enc, torch.Generator().manual_seed(0))
+
+
+@pytest.mark.parametrize("kind", ["cnn", "mlp"])
+def test_batch_norm_encoders_train_one_step_and_serve_on_the_card(kind):
+    # audio_only.yaml's encoder (and its MLP form) at full width: one
+    # training forward + backward on the card against the CPU with the same
+    # masks, the running statistics it moved, then the eval forward on them
+    from multimodal_emotion_detection_tpu_torch.models.noise import Noise
+
+    dev = _card()
+    torch.backends.cudnn.allow_tf32 = False
+    enc = _bn_encoder(kind)
+    x = torch.from_numpy(np.random.RandomState(7).randn(32, 372, 64).astype(np.float32))
+    card = enc.to(dev).train()
+    noise = Noise(torch.Generator(device=dev).manual_seed(0))
+    card(x.to(dev), noise).square().sum().backward()
+    grads = {n: p.grad.cpu() for n, p in card.named_parameters()}
+    stats = {n: b.cpu() for n, b in card.named_buffers()}
+    card.eval()
+    with torch.no_grad():
+        served = card(x.to(dev)).cpu()
+        mc = card.train()(x.to(dev), Noise(torch.Generator(device=dev).manual_seed(1)),
+                          bn_eval=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(b.cpu(), stats[n]) for n, b in card.named_buffers())
+
+    cpu = _bn_encoder(kind).train()
+    cpu(x, Noise(replay=noise.drawn)).square().sum().backward()
+    g_max = max(float(p.grad.abs().max()) for p in cpu.parameters())
+    for n, p in cpu.named_parameters():
+        torch.testing.assert_close(grads[n], p.grad, rtol=0, atol=1e-4 * g_max, msg=n)
+    for n, b in cpu.named_buffers():
+        torch.testing.assert_close(stats[n], b, rtol=0,
+                                   atol=1e-5 * float(b.abs().max()), msg=n)
+    with torch.no_grad():
+        torch.testing.assert_close(served, cpu.eval()(x), rtol=1e-4, atol=1e-4)
+    assert mc.shape == served.shape and bool(torch.isfinite(mc).all())
+
+
+def test_audio_only_train_step_on_the_card_matches_the_cpu():
+    # configs/audio_only.yaml as written: log-mel (its kernel, once) -> CNN
+    # with BatchNorm -> head, one train_step against the CPU's
+    from multimodal_emotion_detection_tpu_torch.config import load_config
+    from multimodal_emotion_detection_tpu_torch.models.classifier import (
+        classifier_from_config,
+        init_weights,
+    )
+    from multimodal_emotion_detection_tpu_torch.models.noise import Noise
+    from multimodal_emotion_detection_tpu_torch.training.optim import build_optimizer
+    from multimodal_emotion_detection_tpu_torch.training.steps import train_step
+
+    dev = _card()
+    torch.backends.cudnn.allow_tf32 = False
+    from pathlib import Path
+
+    cfg = load_config(str(Path(__file__).resolve().parents[1] / "configs" / "audio_only.yaml"), [])
+    rng = np.random.RandomState(8)
+    feats = {"audio": torch.from_numpy(rng.randn(32, 48000, 1).astype(np.float32))}
+    labels = torch.from_numpy(rng.randint(0, 8, 32).astype(np.int64))
+    idx, valid = torch.arange(32), torch.ones(32)
+    valid[28:] = 0.0  # wrap padding: still in the batch statistics
+    out = {}
+    for side, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = init_weights(classifier_from_config(cfg),
+                             torch.Generator().manual_seed(0)).to(device)
+        opt, _ = build_optimizer(cfg.training, model.parameters(), 3)
+        noise = (Noise(torch.Generator(device=dev).manual_seed(0)) if side == "card"
+                 else Noise(replay=out["card"][2].drawn))
+        before = logmel.LOGMEL.launches
+        metrics = train_step(model, opt, {k: v.to(device) for k, v in feats.items()},
+                             labels.to(device), idx.to(device), valid.to(device),
+                             lr=1e-3, clip_norm=1.0, modality_dropout=0.0, noise=noise)
+        if side == "card":
+            torch.cuda.synchronize()
+            assert logmel.LOGMEL.launches == before + 1
+        out[side] = (float(metrics["loss"]),
+                     {n: b.cpu() for n, b in model.named_buffers()}, noise)
+    assert abs(out["card"][0] - out["cpu"][0]) < 1e-4
+    for n, b in out["cpu"][1].items():
+        torch.testing.assert_close(out["card"][1][n], b, rtol=0,
+                                   atol=1e-5 * float(b.abs().max()), msg=n)

@@ -86,17 +86,17 @@ def test_classifier_logits_match_jax(jax_kernels):
     pytest.param(["model.encoders.audio.encoder_type=gru",
                   "model.encoders.audio.hidden_dim=1064"], "shape ceilings",
                  id="model.encoders.audio.encoder_type=gru-item 6"),
-    # an encoder kind still outside the port; the id is the one this case
-    # had while the transformer was refused
-    pytest.param(["model.encoders.audio.encoder_type=cnn"], "item 8",
+    # an encoder kind still outside the port (the image CNN); the id is the
+    # one this case had while the transformer was refused
+    pytest.param(["model.encoders.video.type=pretrained_cnn"], "item 8",
                  id="model.encoders.audio.encoder_type=transformer-item 8"),
     # the on-device video resize; the id is the one this case had while
     # the one-layer LSTM was refused
     pytest.param("model.frontend.video=resize", "item 12",
                  id="model.encoders.audio.num_layers=1-item 3"),
-    # an encoder kind still outside the port; the id is the one this case
-    # had while the fusion library was refused
-    pytest.param(["model.encoders.audio.type=mlp"], "item 8",
+    # a per-encoder dtype outside the port; the id is the one this case had
+    # while the fusion library was refused
+    pytest.param(["model.encoders.audio.dtype=bfloat16"], "item 13",
                  id="model.train_fusion=library-item 7"),
     ("runtime.compute_dtype=bfloat16", "item 13"),
 ])

@@ -209,9 +209,9 @@ def test_frontend_cache_gives_the_same_trajectory(data_dir, tmp_path):
     ("model.encoders.video.weights_path=w.pth", "item 5"),
     ("dataset.name=synthetic", "item 5"),
     ("dataset.device_resident=false", "item 5"),
-    # an encoder kind still outside the port; the id is the one this case
-    # had while the calibration report was refused
-    pytest.param("model.encoders.audio.encoder_type=cnn", "item 8",
+    # an encoder kind still outside the port (the image CNN); the id is the
+    # one this case had while the calibration report was refused
+    pytest.param("model.encoders.audio.type=pretrained_cnn", "item 8",
                  id="model.fusion_type=uncertainty-item 9"),
 ])
 def test_training_configs_outside_the_slice_raise(data_dir, tmp_path, override,
