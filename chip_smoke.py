@@ -182,7 +182,26 @@
    raw-length phases of 13 also time cuDNN's LSTM / GRU at that shape
    (``raw_library_ms``), and ``[lstm2_train_fwd]`` cuDNN's training forward
    at 320 rows (``b320_library_ms``).
-16. Prints the script's wall time, one JSON line describing every kernel
+16. bf16 residual streams (``runtime.lstm_residual_dtype``,
+   configs/fast.yaml): ``[lstm2_res_bf16]`` (rows 11 and 12's bf16 forms at
+   B 32, 17 and 1), ``[gru2_res_bf16]`` (rows 14 and 15, B 32 and 1) and
+   ``[lstm1_res_bf16]`` (rows 6 and 4 at H 512): the forwards' finals bit
+   for bit the float32 forms', every stored bf16 series the float32 form's
+   rounded to bf16 on the card (bit for bit, or within one bf16 ulp with
+   the count printed), the chains over those bf16 residuals against the
+   float32 chains over them upcast (the same rule), each against its plain
+   version (bf16 outputs within one bf16 ulp + 1e-6 of the largest entry,
+   float32 within 1e-4 of it), both forms timed in the same phase beside
+   the plain version, cuDNN and the bound.  Then ``[train_fast]`` /
+   ``[serve_fast]`` (configs/fast.yaml as written: log-mel cached per
+   split, the pair's bf16 forms per step, its eval form per eval batch;
+   the card step to 1e-3 of the largest gradient of the CPU's, and apart
+   from the card's float32-stream step by more than 3x that gap; its p50,
+   busy share and peak memory beside ``[train_hybrid]``'s),
+   ``[train_gru_fast]`` (the GRU config) and ``[train_big_fast]`` (the big
+   config) with bf16 streams, and ``[lstm1_raw]`` prints the big config's
+   bf16 count on raw beside the card's free bytes.
+17. Prints the script's wall time, one JSON line describing every kernel
    (the one-layer and 2-layer cores' entries name their shared header as
    ``core``), nvidia-smi's name and power limit of the card, and as the
    last line ``{"ok": true, "device": {...}}``.
@@ -2247,6 +2266,14 @@ def timed_ms(fn):
     return out, start.elapsed_time(end)
 
 
+def plain_timed_ms(fn):
+    """``timed_ms`` of a plain version at the raw length, under
+    ``torch.inference_mode``: its 48,000-step loop is host-bound, and no
+    gradient is taken of it."""
+    with torch.inference_mode():
+        return timed_ms(fn)
+
+
 def split_errs(out: torch.Tensor, ref: torch.Tensor, chunk: int = 2048):
     """A time-major series (T, B, ...) against its plain version: the max
     abs error over each run of steps, cut where the series' offsets pass
@@ -2382,7 +2409,7 @@ def phase_pair_raw(lstm_kernel, flush, kernels, cell: str) -> None:
     print(f"[{tag}] B={b} T={t} D={d} H={h}, keep p=0.1: the packed rows pass 2^31 "
           f"elements from step {2**31 // (b * (10 if lstm else 8) * h)}")
 
-    refs, plain_ms = timed_ms(lambda: fwd_ref(x_tm, keep, l0, l1))
+    refs, plain_ms = plain_timed_ms(lambda: fwd_ref(x_tm, keep, l0, l1))
     outs = fwd(x_tm, keep, l0, l1)
     torch.cuda.synchronize()
     err = _raw_check(tag, ("packed", "h0_prev", "h1_prev", "x1", "finals"), outs, refs)
@@ -2400,7 +2427,7 @@ def phase_pair_raw(lstm_kernel, flush, kernels, cell: str) -> None:
         args = (*series, keep, dh, l0["w_hh"], l1["w_hh"], l1["w_ih"])
         out_names = ("dih0", "dhn0", "dih1", "dhn1")
     del series
-    refs, plain_ms = timed_ms(lambda: bwd_ref(*args))
+    refs, plain_ms = plain_timed_ms(lambda: bwd_ref(*args))
     outs = bwd(*args)
     torch.cuda.synchronize()
     err = _raw_check(tag, out_names, outs, refs)
@@ -2410,7 +2437,7 @@ def phase_pair_raw(lstm_kernel, flush, kernels, cell: str) -> None:
     del args
 
     x_bt = x_tm.transpose(0, 1).contiguous()
-    ref, plain_ms = timed_ms(lambda: inf_ref(x_bt, l0, l1))
+    ref, plain_ms = plain_timed_ms(lambda: inf_ref(x_bt, l0, l1))
     out = inf(x_bt, l0, l1)
     torch.cuda.synchronize()
     err = _raw_check(tag, ("final h1 (eval form)",), (out,), (ref,))
@@ -2443,7 +2470,7 @@ def phase_lstm1_raw(lstm_kernel, lstm_vjp, flush, kernels) -> None:
     ih = torch.matmul(x, w_ih) + bias
     print(f"[{tag}] B={b} T={t} D={d} H={h}: g (T, B, 4H) passes 2^31 elements "
           f"from step {2**31 // (b * 4 * h)}")
-    refs, plain_ms = timed_ms(lambda: lstm_kernel.lstm1_train_fwd_reference(ih, w_hh))
+    refs, plain_ms = plain_timed_ms(lambda: lstm_kernel.lstm1_train_fwd_reference(ih, w_hh))
     outs = lstm_kernel.lstm1_train_fwd(ih, w_hh)
     torch.cuda.synchronize()
     err = _raw_check(tag, ("g", "h_prev", "c_prev", "finals"), outs, refs)
@@ -2457,7 +2484,7 @@ def phase_lstm1_raw(lstm_kernel, lstm_vjp, flush, kernels) -> None:
     dhf = torch.from_numpy(rng.randn(b, h).astype(np.float32)).to(dev)
     dhs = torch.from_numpy(rng.randn(t, b, h).astype(np.float32)).to(dev)
     args = (g, c_prev, dhs, dhf, w_hh)
-    ref, plain_ms = timed_ms(lambda: lstm_kernel.lstm_bwd_chain_reference(*args))
+    ref, plain_ms = plain_timed_ms(lambda: lstm_kernel.lstm_bwd_chain_reference(*args))
     out = lstm_kernel.lstm_bwd_chain(*args)
     torch.cuda.synchronize()
     err = _raw_check(tag, ("dg",), (out,), (ref,))
@@ -2493,8 +2520,331 @@ def phase_lstm1_raw(lstm_kernel, lstm_vjp, flush, kernels) -> None:
         raise RuntimeError("the big config on raw was not refused")
     if torch.cuda.memory_allocated() != before:
         raise RuntimeError("the refused stack allocated device memory")
+    # what the same stack holds with bf16 residual streams, beside what the
+    # card can still give (not run: the float32 refusal above stands)
+    need16 = lstm_vjp.stack_residual_bytes("lstm", 3, h, d, b, t, "layered",
+                                           res_dtype="bfloat16")
+    free = lstm_vjp.card_free_bytes(dev)
+    print(f"[{tag}] the big config on raw with bf16 residual streams "
+          f"(runtime.lstm_residual_dtype): {need16 / 1e9:.2f} GB of residuals, the card "
+          f"can still give {free / 1e9:.2f} GB ({'fits' if need16 <= free else 'does not fit'}"
+          "; not run)")
     del layers, x_bt, keep
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# bf16 residual streams (runtime.lstm_residual_dtype, configs/fast.yaml)
+# ---------------------------------------------------------------------------
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise distance in bf16 ulps of two bf16 tensors: their bit
+    patterns on a monotonic integer line (-0 and +0 at one point)."""
+    def ordinal(t):
+        u = t.contiguous().view(torch.int16).to(torch.int32) & 0xFFFF
+        return torch.where(u >= 0x8000, 0x8000 - u, u)
+
+    return (ordinal(a) - ordinal(b)).abs()
+
+
+def half_err(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """The largest |out - ref| in units of one bf16 ulp of ref plus 1e-6 of
+    ref's largest entry: a bf16 output within one ulp of its plain version
+    (whose float32 value may sit on the other side of a rounding boundary)
+    is at most 1."""
+    o, r = out.to(torch.float32), ref.to(torch.float32)
+    _, e = torch.frexp(r)
+    ulp = torch.ldexp(torch.ones_like(r), e - 8)
+    return float(((o - r).abs() / (ulp + 1e-6 * r.abs().max())).max())
+
+
+def _half_work(name: str, b: int, t: int, d: int, h: int):
+    """``_work`` of a bf16 form: the same products, each bf16 series 2
+    bytes a value (the float32 inputs, finals and weights 4)."""
+    flops = _work(name, b, t, d, h)[0]
+    tb = t * b
+    if name == "lstm2_train_fwd":  # x, keep in; packed 10H, h0p, h1p, x1 out
+        nbytes = (4 * tb * (d + h) + 2 * tb * 13 * h
+                  + 4 * (d * 4 * h + 3 * h * 4 * h + 2 * 4 * h + 4 * b * h))
+    elif name == "lstm2_bwd_chain":  # packed 10H, keep in; dg0, dg1 out
+        nbytes = 2 * tb * 18 * h + 4 * (tb * h + b * h + 3 * h * 4 * h)
+    elif name == "gru2_train_fwd":  # x, keep in; packed 8H, h0p, h1p, x1 out
+        nbytes = (4 * tb * (d + h) + 2 * tb * 11 * h
+                  + 4 * (d * 3 * h + 3 * h * 3 * h + 4 * 3 * h + 2 * b * h))
+    elif name == "gru2_bwd_chain":  # packed 8H, h0p, h1p, keep in; dih, dhn out
+        nbytes = 2 * tb * 18 * h + 4 * (tb * h + b * h + 3 * h * 3 * h)
+    elif name == "lstm1_train_fwd":  # ih in; g, c_prev bf16, h_prev out
+        nbytes = (4 * tb * 4 * h + 2 * tb * 5 * h + 4 * tb * h
+                  + 4 * (h * 4 * h + 2 * b * h))
+    elif name == "lstm_bwd_chain":  # g, c_prev bf16, dh_series in; dg out
+        nbytes = (2 * tb * 5 * h + 4 * tb * h + 4 * tb * 4 * h
+                  + 4 * (b * h + h * 4 * h))
+    else:
+        raise KeyError(name)
+    return flops, nbytes
+
+
+def _same_rule(tag: str, what: str, out16: torch.Tensor, ref32: torch.Tensor,
+               facts: list) -> None:
+    """A bf16 form's output against the float32 form's rounded to bf16 on
+    the card: bit for bit, or within one bf16 ulp (where contraction
+    differs between the two instantiations), the count printed."""
+    ulps = bf16_ulps(out16, ref32.to(torch.bfloat16))
+    worst, differ = int(ulps.max()), int((ulps > 0).sum())
+    facts.append(f"{what} {'bit for bit' if not differ else f'{differ} of {ulps.numel()} differ, by <= {worst} ulp'}")
+    if worst > 1:
+        raise RuntimeError(f"{tag}: {what} is {worst} bf16 ulps from the float32 form's")
+
+
+def _check_half_vs_plain(tag: str, names, outs, refs, errs: dict) -> float:
+    """Each output against its plain version: float32 ones within 1e-4 of
+    the largest entry, bf16 ones within one bf16 ulp plus 1e-6 of it.
+    Returns the largest absolute difference."""
+    worst = 0.0
+    for name, out, ref in zip(names, outs, refs):
+        worst = max(worst, max_errs(out.to(torch.float32), ref.to(torch.float32))[0])
+        if out.dtype != ref.dtype:
+            raise RuntimeError(f"{tag}: {name} is {out.dtype}, its plain version {ref.dtype}")
+        if out.dtype == torch.bfloat16:
+            errs[f"{name} (bf16 ulps)"] = err = half_err(out, ref)
+            bad = err > 1.0
+        else:
+            errs[f"{name} (of largest)"] = err = (
+                max_errs(out, ref)[0] / max(float(ref.abs().max()), 1e-30))
+            bad = err > 1e-4
+        if bad:
+            raise RuntimeError(f"{tag}: {name} disagrees with its plain version ({err:.3e})")
+    return worst
+
+
+def _res_bf16_pair(tag, lstm_kernel, flush, cell, inputs, rows, lib_fwd, lib_bwd):
+    """Rows 11 and 12 (``cell`` "lstm") or 14 and 15 ("gru") in bf16: the
+    forward's finals bit for bit the float32 form's and its series the
+    float32 form's rounded (``_same_rule``), the chain over those bf16
+    residuals against the float32 chain over them upcast (the same rule),
+    both against their plain versions (``_check_half_vs_plain``) at each of
+    ``rows``; both forms timed at the first, beside the library's."""
+    x_tm, keep, l0, l1 = inputs
+    t, b, d = x_tm.shape
+    h = l0["w_hh"].shape[0]
+    bf16 = torch.bfloat16
+    fwd = getattr(lstm_kernel, f"{cell}2_train_fwd_residuals")
+    fwd_ref = getattr(lstm_kernel, f"{cell}2_train_fwd_reference")
+    chain = getattr(lstm_kernel, f"{cell}2_bwd_chain")
+    chain_ref = getattr(lstm_kernel, f"{cell}2_bwd_chain_reference")
+    series = ("packed", "h0_prev", "h1_prev", "x1")
+    outs_names = (("dg0", "dg1") if cell == "lstm" else ("dih0", "dhn0", "dih1", "dhn1"))
+    dh_all = torch.from_numpy(np.random.RandomState(7).randn(b, h).astype(np.float32)).cuda()
+    w_chain = ((l0["w_hh"], l1["w_hh"], l1["w_ih"]))
+
+    def chain_args(res, n, dh):
+        packed, h0p, h1p = res[0], res[1], res[2]
+        lead = (packed, keep_n(n)) if cell == "lstm" else (packed, h0p, h1p, keep_n(n))
+        return (*lead, dh, *w_chain)
+
+    def keep_n(n):
+        return keep[:, :n].contiguous()
+
+    facts, errs, abs_err = [], {}, {"fwd": 0.0, "chain": 0.0}
+    for n in rows:
+        sub = (x_tm[:, :n].contiguous(), keep_n(n), l0, l1)
+        outs32 = fwd(*sub)
+        outs16 = fwd(*sub, res_dtype=bf16)
+        torch.cuda.synchronize()
+        if not torch.equal(outs16[4], outs32[4]):
+            raise RuntimeError(f"{tag}: B={n}: the bf16 form's finals are not the "
+                               "float32 form's bit for bit")
+        facts.append(f"B={n}: finals bit for bit")
+        for name, o16, o32 in zip(series, outs16, outs32):
+            _same_rule(tag, f"B={n} {name}", o16, o32, facts)
+        abs_err["fwd"] = max(abs_err["fwd"], _check_half_vs_plain(
+            f"{tag} B={n}", (*series, "finals"), outs16, fwd_ref(*sub, res_dtype=bf16),
+            errs))
+        del outs32
+        dh = dh_all[:n].contiguous()
+        args16 = chain_args(outs16, n, dh)
+        args32 = tuple(a.to(torch.float32) if a.dtype == bf16 else a for a in args16)
+        d16, d32 = chain(*args16), chain(*args32)
+        torch.cuda.synchronize()
+        for name, o16, o32 in zip(outs_names, d16, d32):
+            _same_rule(tag, f"B={n} {name}", o16, o32, facts)
+        abs_err["chain"] = max(abs_err["chain"], _check_half_vs_plain(
+            f"{tag} B={n}", outs_names, d16, chain_ref(*args16), errs))
+        del outs16, d16, d32, args32
+    print(f"[{tag}] B={rows} T={t} D={d} H={h}: bf16 forms vs float32 forms on the "
+          f"card: {'; '.join(facts)}")
+    print(f"[{tag}] vs the plain versions (bf16 outputs within one bf16 ulp + 1e-6 "
+          "of the largest entry = 1, float32 within 1e-4 of the largest): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+
+    # both forms in one call, at the first shape: each bf16 form against
+    # the float32 form of the same source on the same inputs
+    res16 = fwd(x_tm, keep, l0, l1, res_dtype=bf16)
+    args16 = chain_args(res16, b, dh_all)
+    res32 = fwd(x_tm, keep, l0, l1)
+    args32 = chain_args(res32, b, dh_all)
+    times = {
+        "fwd_bf16": device_ms(lambda: fwd(x_tm, keep, l0, l1, res_dtype=bf16), flush),
+        "fwd_f32": device_ms(lambda: fwd(x_tm, keep, l0, l1), flush),
+        "chain_bf16": device_ms(lambda: chain(*args16), flush),
+        "chain_f32": device_ms(lambda: chain(*args32), flush),
+        "fwd_plain": device_ms(lambda: fwd_ref(x_tm, keep, l0, l1, res_dtype=bf16),
+                               flush, reps=3),
+        "chain_plain": device_ms(lambda: chain_ref(*args16), flush, reps=3),
+        "fwd_library": device_ms(lib_fwd, flush),
+        "chain_library": device_ms(lib_bwd, flush),
+    }
+    del res32, args32
+    kerns = []
+    for part, row_name in (("fwd", f"{cell}2_train_fwd"), ("chain", f"{cell}2_bwd_chain")):
+        flops, nbytes = _half_work(row_name, b, t, d, h)
+        bound_ms, bound_by = bound(flops, nbytes)
+        ms, f32_ms = times[f"{part}_bf16"], times[f"{part}_f32"]
+        print(f"[{tag}] {row_name} bf16 form {ms:.4f} ms, float32 form {f32_ms:.4f} ms "
+              f"({100 * (ms / f32_ms - 1):+.1f}%), {1e3 * ms / (t + 1):.3f} us per "
+              f"phase; plain {times[f'{part}_plain']:.4f} ms, library "
+              f"{times[f'{part}_library']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+        kerns.append({"name": f"{row_name}_bf16", "route": "cuda",
+                      "source": f"{CSRC}{row_name}.cu",
+                      "core": CSRC + ("rnn2_fwd_chain.cuh" if part == "fwd"
+                                      else "rnn2_bwd_chain.cuh"),
+                      "max_abs_err": abs_err[part],
+                      "ms": ms, "plain_ms": times[f"{part}_plain"], "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": times[f"{part}_library"],
+                      "f32_ms": f32_ms})
+    return kerns
+
+
+def phase_lstm2_res_bf16(lstm_kernel, flush):
+    """``[lstm2_res_bf16]``: rows 11 and 12's bf16 forms at the flagship's
+    B 32, T 372, D 64, H 256 and at B 17 and 1 (``_res_bf16_pair``)."""
+    x_tm, keep, l0, l1 = _lstm_train_inputs(21)
+    lib = _cudnn_lstm(l0, l1)
+    x_bt = x_tm.transpose(0, 1).contiguous()
+    lib_params = list(lib.parameters())
+    h_lib = lib(x_bt)[1][0][-1]
+    dh = torch.ones_like(h_lib)
+    kerns = _res_bf16_pair(
+        "lstm2_res_bf16", lstm_kernel, flush, "lstm", (x_tm, keep, l0, l1), (32, 17, 1),
+        lambda: lib(x_bt),
+        lambda: torch.autograd.grad(h_lib, lib_params, dh, retain_graph=True))
+    kerns[0]["replaces"] = "multimodal_emotion_detection_tpu/ops/lstm_kernel.py:2270"
+    kerns[1]["replaces"] = "multimodal_emotion_detection_tpu/ops/lstm_kernel.py:2482"
+    return kerns
+
+
+def phase_gru2_res_bf16(lstm_kernel, flush):
+    """``[gru2_res_bf16]``: rows 14 and 15's bf16 forms at the GRU config's
+    B 32, T 372, D 64, H 256 and at B 1 (``_res_bf16_pair``)."""
+    x_tm, keep, l0, l1 = _gru_inputs(22)
+    lib = _cudnn_gru(l0, l1)
+    x_bt = x_tm.transpose(0, 1).contiguous()
+    lib_params = list(lib.parameters())
+    h_lib = lib(x_bt)[1][-1]
+    dh = torch.ones_like(h_lib)
+    kerns = _res_bf16_pair(
+        "gru2_res_bf16", lstm_kernel, flush, "gru", (x_tm, keep, l0, l1), (32, 1),
+        lambda: lib(x_bt),
+        lambda: torch.autograd.grad(h_lib, lib_params, dh, retain_graph=True))
+    kerns[0]["replaces"] = "multimodal_emotion_detection_tpu/ops/lstm_kernel.py:2812"
+    kerns[1]["replaces"] = "multimodal_emotion_detection_tpu/ops/lstm_kernel.py:3053"
+    return kerns
+
+
+def phase_lstm1_res_bf16(lstm_kernel, flush):
+    """``[lstm1_res_bf16]``: rows 6 and 4's bf16 forms at the big config's
+    deeper layer (B 32, T 372, H 512): the forward's h_prev and finals bit
+    for bit the float32 form's, its g and c_prev the float32 form's
+    rounded; the chain (with a dh_series, as a lower layer's) over those
+    bf16 residuals against the float32 chain over them upcast, rounded to
+    bf16 (float32 outputs: the same rule); both against the plain
+    versions; both forms timed beside cuDNN's."""
+    tag, bf16 = "lstm1_res_bf16", torch.bfloat16
+    inputs, w_hh = _big_layer_inputs(23)
+    x, w_ih, bias = inputs["D=512"]
+    t, b, _ = x.shape
+    h = w_hh.shape[0]
+    ih = torch.matmul(x, w_ih) + bias
+    rng = np.random.RandomState(24)
+    dhf = torch.from_numpy(rng.randn(b, h).astype(np.float32)).cuda()
+    dhs = torch.from_numpy(rng.randn(t, b, h).astype(np.float32)).cuda()
+    names = ("g", "h_prev", "c_prev", "finals")
+    facts, errs, abs_err = [], {}, {"fwd": 0.0, "chain": 0.0}
+    for n in (32, 1):
+        ih_n, dhf_n, dhs_n = (a[:, :n].contiguous() if a.dim() == 3 else a[:n].contiguous()
+                              for a in (ih, dhf, dhs))
+        o32 = lstm_kernel.lstm1_train_fwd(ih_n, w_hh)
+        o16 = lstm_kernel.lstm1_train_fwd(ih_n, w_hh, bf16)
+        torch.cuda.synchronize()
+        for name, a16, a32 in zip(names, o16, o32):
+            if a16.dtype == bf16:
+                _same_rule(tag, f"B={n} {name}", a16, a32, facts)
+            elif not torch.equal(a16, a32):
+                raise RuntimeError(f"{tag}: B={n} {name} is not the float32 form's bit "
+                                   "for bit")
+            else:
+                facts.append(f"B={n} {name} bit for bit")
+        abs_err["fwd"] = max(abs_err["fwd"], _check_half_vs_plain(
+            f"{tag} B={n}", names, o16,
+            lstm_kernel.lstm1_train_fwd_reference(ih_n, w_hh, bf16), errs))
+        g16, c16 = o16[0], o16[2]
+        d16 = lstm_kernel.lstm_bwd_chain(g16, c16, dhs_n, dhf_n, w_hh)
+        d32 = lstm_kernel.lstm_bwd_chain(g16.float(), c16.float(), dhs_n, dhf_n, w_hh)
+        torch.cuda.synchronize()
+        if torch.equal(d16, d32):
+            facts.append(f"B={n} dg bit for bit")
+        else:
+            _same_rule(tag, f"B={n} dg", d16.to(bf16), d32, facts)
+        abs_err["chain"] = max(abs_err["chain"], _check_half_vs_plain(
+            f"{tag} B={n}", ("dg",), (d16,),
+            (lstm_kernel.lstm_bwd_chain_reference(g16, c16, dhs_n, dhf_n, w_hh),), errs))
+    print(f"[{tag}] B=(32, 1) T={t} H={h}: bf16 forms vs float32 forms on the card: "
+          f"{'; '.join(facts)}")
+    print(f"[{tag}] vs the plain versions (bf16 outputs within one bf16 ulp + 1e-6 "
+          "of the largest entry = 1, float32 within 1e-4 of the largest): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    lib = _cudnn_lstm({"w_ih": w_ih, "w_hh": w_hh, "b": bias}, batch_first=False)
+    lib_params = list(lib.parameters())
+    h_lib = lib(x)[1][0][-1]
+    g16, _, c16, _ = lstm_kernel.lstm1_train_fwd(ih, w_hh, bf16)
+    g32, c32 = g16.float(), c16.float()
+    times = {
+        "fwd_bf16": device_ms(lambda: lstm_kernel.lstm1_train_fwd(ih, w_hh, bf16), flush),
+        "fwd_f32": device_ms(lambda: lstm_kernel.lstm1_train_fwd(ih, w_hh), flush),
+        "chain_bf16": device_ms(
+            lambda: lstm_kernel.lstm_bwd_chain(g16, c16, dhs, dhf, w_hh), flush),
+        "chain_f32": device_ms(
+            lambda: lstm_kernel.lstm_bwd_chain(g32, c32, dhs, dhf, w_hh), flush),
+        "fwd_plain": device_ms(
+            lambda: lstm_kernel.lstm1_train_fwd_reference(ih, w_hh, bf16), flush, reps=3),
+        "chain_plain": device_ms(
+            lambda: lstm_kernel.lstm_bwd_chain_reference(g16, c16, dhs, dhf, w_hh), flush,
+            reps=3),
+        "fwd_library": device_ms(lambda: lib(x), flush),
+        "chain_library": device_ms(
+            lambda: torch.autograd.grad(h_lib, lib_params, dhf, retain_graph=True), flush),
+    }
+    kerns = []
+    for part, row_name, source, core, line in (
+            ("fwd", "lstm1_train_fwd", "lstm1_fwd", "rnn_fwd_chain.cuh", 1078),
+            ("chain", "lstm_bwd_chain", "lstm_bwd_chain", "rnn_bwd_chain.cuh", 514)):
+        flops, nbytes = _half_work(row_name, b, t, 0, h)
+        bound_ms, bound_by = bound(flops, nbytes)
+        ms, f32_ms = times[f"{part}_bf16"], times[f"{part}_f32"]
+        print(f"[{tag}] {row_name} bf16 form {ms:.4f} ms, float32 form {f32_ms:.4f} ms "
+              f"({100 * (ms / f32_ms - 1):+.1f}%), {1e3 * ms / t:.3f} us per step; plain "
+              f"{times[f'{part}_plain']:.4f} ms, cuDNN nn.LSTM({h}, {h}) "
+              f"{times[f'{part}_library']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+        kerns.append({"name": f"{row_name}_bf16", "route": "cuda",
+                      "source": f"{CSRC}{source}.cu", "core": CSRC + core,
+                      "replaces": f"multimodal_emotion_detection_tpu/ops/lstm_kernel.py:{line}",
+                      "max_abs_err": abs_err[part], "ms": ms, "plain_ms": times[f"{part}_plain"], "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": times[f"{part}_library"],
+                      "f32_ms": f32_ms})
+    return kerns
 
 
 def _write_split(root: Path, split: str, n: int, seed: int) -> None:
@@ -2510,19 +2860,29 @@ TRAIN_ARTIFACTS = ("results.json", "best.ckpt", "checkpoints/last.ckpt",
                    "confusion_matrix.npy", "csv_logs/version_0/metrics.csv")
 
 
+# each phase_train path's train step: p50 (ms), device busy share, peak
+# allocated (GB)
+STEPS = {}
+
+
 def phase_train(counters, tag: str, model_overrides, expected_fn,
                 check_clips: int = 0, reps: int = 60, profile_reps: int = 10,
                 config: str = "base.yaml", artifacts=TRAIN_ARTIFACTS,
-                kinked: bool = False):
+                kinked: bool = False, grad_bound: float = 1e-4,
+                contrast_f32: bool = False):
     """The train CLI with ``configs/<config>`` for 2 epochs on synthetic 96
     / 64 / 64 clip splits at batch 32, from the work directory (relative
     outputs land there), with the launch counts checked
     (``expected_fn(steps, eval_batches)``) and ``artifacts`` (paths in the
     run directory) written; one card step against the CPU step (on the
     first ``check_clips`` clips of the batch, where given, on both sides;
-    ``kinked``: ``kinked_step_check`` instead); the train step's latency
-    over ``reps`` steps and its profile over ``profile_reps``.  Returns
-    ``(launches, run directory, overrides)``."""
+    ``kinked``: ``kinked_step_check`` instead), its gradients to
+    ``grad_bound`` of the largest, and with ``contrast_f32`` (bf16 residual
+    streams) the card step with float32 streams on the same batch and masks
+    differing from it by more than three times that card-vs-CPU gap (the
+    rounding engaged); the train step's latency over ``reps`` steps and its
+    profile over ``profile_reps``.  Returns ``(launches, run directory,
+    overrides)``."""
     import contextlib
     import csv
 
@@ -2553,7 +2913,10 @@ def phase_train(counters, tag: str, model_overrides, expected_fn,
     cfg = load_config(config_path, overrides)
     bsz = cfg.dataset.batch_size
     steps = 2 * sizes["train"] // bsz
-    evals = 2 * sizes["val"] // bsz + sizes["test"] // bsz
+    # validation every val_every_n_epochs epochs and at the last
+    every = max(1, int(cfg.training.val_every_n_epochs))
+    validations = sum(1 for e in range(2) if (e + 1) % every == 0 or e == 1)
+    evals = validations * sizes["val"] // bsz + sizes["test"] // bsz
     with contextlib.chdir(WORK):
         results, train_s, launches = run_counted(
             counters, expected_fn(steps, evals), tag,
@@ -2599,7 +2962,9 @@ def phase_train(counters, tag: str, model_overrides, expected_fn,
                   "residuals in host memory; the kernels' b32 addressing is held by "
                   "their own raw-length phases")
         sides = _step_sides(cfg, model, train_loader, rows, step_kw)
-        _step_check(tag, cfg, sides["card"], sides["cpu"], rows)
+        gap = _step_check(tag, cfg, sides["card"], sides["cpu"], rows, grad_bound)
+        if contrast_f32:
+            _contrast_f32(tag, cfg, model, train_loader, rows, step_kw, sides, gap)
 
     # train-step latency at b32 on the resident split
     model = model.to(dev)
@@ -2619,11 +2984,12 @@ def phase_train(counters, tag: str, model_overrides, expected_fn,
 
     torch.cuda.reset_peak_memory_stats()
     p50, p90 = host_ms(one_step, reps=reps)
+    peak = torch.cuda.max_memory_allocated() / 1e9
     print(f"[{tag}] train-step latency b32 (host clock around synchronize, {reps} "
           f"steps, split on the card): p50 {p50:.4f} ms, p90 {p90:.4f} ms = "
-          f"{32e3 / p50:.1f} clips/s at p50; peak allocated "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    profile_forward(f"{tag} b32", one_step, reps=profile_reps, what="train step")
+          f"{32e3 / p50:.1f} clips/s at p50; peak allocated {peak:.4f} GB")
+    busy = profile_forward(f"{tag} b32", one_step, reps=profile_reps, what="train step")
+    STEPS[tag] = (p50, busy, peak)
     return launches, run_dir, overrides
 
 
@@ -2641,12 +3007,43 @@ def _cache_logmel(cfg, loader) -> None:
     loader.replace_features("audio", feats.cpu().numpy())
 
 
-def _step_sides(cfg, model, loader, rows: int, step_kw, f64: bool = False):
+def _contrast_f32(tag: str, cfg, model, loader, rows: int, step_kw, sides,
+                  gap: float) -> None:
+    """The card step of ``model`` with float32 residual streams on the
+    same batch and masks as ``sides``' card step (bf16 streams): their
+    gradients must differ by more than three times ``gap``, the card-vs-CPU
+    gradient error (of the largest gradient), or the rounding did not
+    engage."""
+    import copy
+
+    from multimodal_emotion_detection_tpu_torch.models.recurrent import FusedStackedRNN
+
+    model32 = copy.deepcopy(model)
+    for module in model32.modules():
+        if isinstance(module, FusedStackedRNN):
+            module.residual_dtype = torch.float32
+    card32 = _step_sides(cfg, model32, loader, rows, step_kw, with_cpu=False)["card"]
+    card, cpu = sides["card"], sides["cpu"]
+    g_max = max(float(g.abs().max()) for g in cpu["grads"].values())
+    diff = {k: float((card["grads"][k] - g).abs().max()) / g_max
+            for k, g in card32["grads"].items()}
+    worst = max(diff, key=diff.get)
+    print(f"[{tag}] the card step with float32 residual streams on the same batch and "
+          f"masks: loss {card32['loss']:.6f} vs {card['loss']:.6f}; gradients differ by "
+          f"{diff[worst]:.3e} of the largest ({worst}), {diff[worst] / gap:.1f}x the "
+          f"card-vs-CPU gap {gap:.3e} (must exceed 3x: the bf16 rounding engaged)")
+    if not diff[worst] > 3 * gap:
+        raise RuntimeError(f"{tag}: the bf16 step is not told apart from the float32 one")
+
+
+def _step_sides(cfg, model, loader, rows: int, step_kw, f64: bool = False,
+                with_cpu: bool = True):
     """One ``train_step`` of a copy of ``model`` on the first ``rows`` clips
     of ``loader``'s first batch: on the card, then on the CPU with the
     card's masks replayed (plain versions), and with ``f64`` on the CPU in
-    float64 too (``cpu64``).  Returns ``{side: {noise, loss, grads, params,
-    buffers}}``, every tensor on the CPU."""
+    float64 too (``cpu64``); without ``with_cpu`` the card's alone.  Returns
+    ``{side: {noise, loss, grads, params, buffers}}``, every tensor on the
+    CPU."""
     import copy
 
     from multimodal_emotion_detection_tpu_torch.models.noise import Noise
@@ -2659,7 +3056,8 @@ def _step_sides(cfg, model, loader, rows: int, step_kw, f64: bool = False):
     idx = torch.from_numpy(loader.epoch_batch_indices(0)[0].astype(np.int64))
     valid = torch.from_numpy(loader.epoch_batch_valid()[0])
     feats, labels = loader.device_arrays()
-    plan = [("card", dev, torch.float32), ("cpu", cpu, torch.float32)]
+    plan = [("card", dev, torch.float32)] + ([("cpu", cpu, torch.float32)] if with_cpu
+                                              else [])
     sides = {}
     for side, device, dtype in plan + ([("cpu64", cpu, torch.float64)] if f64 else []):
         m = copy.deepcopy(model).to(device, dtype)
@@ -2760,9 +3158,10 @@ def kinked_step_check(tag: str, cfg, step_kw) -> None:
         raise RuntimeError("the card's train step disagrees with the exact step")
 
 
-def _step_check(tag: str, cfg, card, cpu, rows: int) -> None:
-    """The card step's loss, gradients, updated parameters and running
-    statistics against the CPU step's."""
+def _step_check(tag: str, cfg, card, cpu, rows: int, grad_bound: float = 1e-4) -> float:
+    """The card step's loss, gradients (to ``grad_bound`` of the largest),
+    updated parameters and running statistics against the CPU step's;
+    returns the gradients' error, of the largest gradient."""
     loss_err = abs(card["loss"] - cpu["loss"])
     # relative to the largest gradient entry: a tensor whose true gradient
     # is zero (the attention pool's score bias, which softmax over time does
@@ -2793,7 +3192,7 @@ def _step_check(tag: str, cfg, card, cpu, rows: int) -> None:
           f"{rows} clips and masks): loss {card['loss']:.6f} vs {cpu['loss']:.6f}, abs err "
           f"{loss_err:.3e} (bound 1e-4); gradients max abs err {grad_abs[worst]:.3e} "
           f"({worst}) = {grad_err:.3e} of the largest gradient {g_max:.3e} "
-          f"(bound 1e-4; card = {fit:.7f} x CPU fits them to {residual:.3e} of "
+          f"(bound {grad_bound:.0e}; card = {fit:.7f} x CPU fits them to {residual:.3e} of "
           f"the largest); updated parameters max "
           f"abs err {param_err:.3e} where |g| > 1e-6 (bound 1e-5), {param_any:.3e} "
           f"anywhere (bound 2.2 lr = {2.2 * lr:.1e})")
@@ -2806,9 +3205,10 @@ def _step_check(tag: str, cfg, card, cpu, rows: int) -> None:
         print(f"[{tag}] running statistics after the step, card vs CPU: max abs err "
               f"{buf_err[worst_buf]:.3e} of the buffer's largest entry ({worst_buf}; "
               f"{len(buf_err)} buffers, bound 1e-5)")
-    if not (loss_err < 1e-4 and grad_err < 1e-4 and param_err < 1e-5
+    if not (loss_err < 1e-4 and grad_err < grad_bound and param_err < 1e-5
             and param_any < 2.2 * lr and max(buf_err.values(), default=0.0) <= 1e-5):
         raise RuntimeError("the card's train step disagrees with the CPU's")
+    return grad_err
 
 
 def phase_lstm2_train_fwd_b320(lstm_kernel, flush, kern) -> None:
@@ -2943,10 +3343,11 @@ def phase_mc_dropout(counters, tag: str, ckpt: Path, overrides, samples: int,
     return launches
 
 
-def profile_forward(label: str, fn, reps: int = 20, what: str = "forward") -> None:
+def profile_forward(label: str, fn, reps: int = 20, what: str = "forward"):
     """Where a forward's (or train step's) time goes: device time by kernel
     over ``reps`` back-to-back calls under torch.profiler, and the device's
-    busy share of the host-clock window they took."""
+    busy share of the host-clock window they took, which it returns (None
+    where the profiler saw no device activity)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2969,7 +3370,7 @@ def profile_forward(label: str, fn, reps: int = 20, what: str = "forward") -> No
     if not busy_us:
         print(f"[profile] {label}: device time not measured (the profiler "
               "recorded no device activity)")
-        return
+        return None
     print(f"[profile] {label}: {reps} {what}s in {window_us / 1e3:.4f} ms "
           f"(host clock, profiler on); device busy {busy_us / 1e3:.4f} ms = "
           f"{100 * busy_us / window_us:.1f}% of it, idle "
@@ -2977,6 +3378,7 @@ def profile_forward(label: str, fn, reps: int = 20, what: str = "forward") -> No
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"[profile] {label}:   {us / reps:9.2f} us/{what} "
               f"{100 * us / busy_us:5.1f}%  {name[:90]}")
+    return busy_us / window_us
 
 
 TRAIN_SPLITS = {"train": 96, "val": 64, "test": 64}
@@ -3013,7 +3415,11 @@ MAIN_PATH = {"logmel": "train", "lstm2_infer": "train", "lstm2_train_fwd": "trai
              "lstm2_train_fwd_legacy": "train_legacy",
              "lstm2_bwd_chain_legacy": "train_legacy",
              "gru2_train_fwd_legacy": "train_gru_legacy",
-             "gru2_bwd_chain_legacy": "train_gru_legacy"}
+             "gru2_bwd_chain_legacy": "train_gru_legacy",
+             "lstm2_train_fwd_bf16": "train_fast", "lstm2_bwd_chain_bf16": "train_fast",
+             "gru2_train_fwd_bf16": "train_gru_fast", "gru2_bwd_chain_bf16": "train_gru_fast",
+             "lstm1_train_fwd_bf16": "train_big_fast",
+             "lstm_bwd_chain_bf16": "train_big_fast"}
 
 
 def main() -> None:
@@ -3073,7 +3479,13 @@ def main() -> None:
                 "lstm2_train_fwd_legacy": lstm_kernel.LSTM2_TRAIN_FWD_LEGACY,
                 "lstm2_bwd_chain_legacy": lstm_kernel.LSTM2_BWD_CHAIN_LEGACY,
                 "gru2_train_fwd_legacy": lstm_kernel.GRU2_TRAIN_FWD_LEGACY,
-                "gru2_bwd_chain_legacy": lstm_kernel.GRU2_BWD_CHAIN_LEGACY}
+                "gru2_bwd_chain_legacy": lstm_kernel.GRU2_BWD_CHAIN_LEGACY,
+                "lstm2_train_fwd_bf16": lstm_kernel.LSTM2_TRAIN_FWD_BF16,
+                "lstm2_bwd_chain_bf16": lstm_kernel.LSTM2_BWD_CHAIN_BF16,
+                "gru2_train_fwd_bf16": lstm_kernel.GRU2_TRAIN_FWD_BF16,
+                "gru2_bwd_chain_bf16": lstm_kernel.GRU2_BWD_CHAIN_BF16,
+                "lstm1_train_fwd_bf16": lstm_kernel.LSTM1_TRAIN_FWD_BF16,
+                "lstm_bwd_chain_bf16": lstm_kernel.LSTM_BWD_CHAIN_BF16}
     flush = L2Flush()
     kernels = {"logmel": phase_logmel(logmel, flush),
                "lstm2_infer": phase_lstm(lstm_kernel, flush)}
@@ -3112,6 +3524,12 @@ def main() -> None:
     phase_pair_raw(lstm_kernel, flush, kernels, "lstm")
     phase_pair_raw(lstm_kernel, flush, kernels, "gru")
     phase_lstm1_raw(lstm_kernel, lstm_vjp, flush, kernels)
+    # the bf16 residual streams' forms of rows 11 / 12, 14 / 15 and 6 / 4
+    t_half = time.perf_counter()
+    for phase in (phase_lstm2_res_bf16, phase_gru2_res_bf16, phase_lstm1_res_bf16):
+        kernels.update({k["name"]: k for k in phase(lstm_kernel, flush)})
+    print(f"[time] lstm2_res_bf16, gru2_res_bf16, lstm1_res_bf16: "
+          f"{time.perf_counter() - t_half:.1f} s")
     del flush
 
     def flagship_counts(steps, evals):
@@ -3213,6 +3631,46 @@ def main() -> None:
           f"{time.perf_counter() - t_uni:.1f} s")
     # the big config caches log-mel once per split, in chunks
     cached = sum(-(-n // FRONTEND_CHUNK) for n in TRAIN_SPLITS.values())
+    # configs/fast.yaml as written (av_hybrid.yaml with log-mel cached per
+    # split and bf16 residual streams; it validates at the last of the 2
+    # epochs only): the pair's bf16 forms per step, its eval form per eval
+    # or served batch; then the GRU config and the big config with bf16
+    # streams.  Each card step is held to the CPU's to 1e-3 of the largest
+    # gradient (bf16 rounds float32 values that differ by ~1e-7 on the two
+    # sides to different ulps) and told apart from the float32-stream step
+    t_fast = time.perf_counter()
+    half = ["runtime.lstm_residual_dtype=bfloat16"]
+    by_path["train_fast"], fast_run, fast_overrides = phase_train(
+        counters, "train_fast", [],
+        lambda steps, evals: {"logmel": cached, "lstm2_infer": evals,
+                              "lstm2_train_fwd_bf16": steps, "lstm2_bwd_chain_bf16": steps},
+        config="fast.yaml", grad_bound=1e-3, contrast_f32=True, **fusion)
+    by_path["serve_fast"] = serve_path(
+        "serve_fast", counters, served, fast_run / "best.ckpt", fast_overrides,
+        test_audio, test_video, WORK / "predictions_fast", config="fast.yaml")
+    (p50, busy, peak), (p50_h, busy_h, peak_h) = STEPS["train_fast"], STEPS["train_hybrid"]
+    print(f"[train_fast] train step p50 {p50:.4f} ms, device busy "
+          f"{100 * busy if busy else float('nan'):.1f}%, peak allocated {peak:.4f} GB; "
+          f"[train_hybrid] (float32 streams, log-mel in the step) in the same call: p50 "
+          f"{p50_h:.4f} ms, busy {100 * busy_h if busy_h else float('nan'):.1f}%, peak "
+          f"{peak_h:.4f} GB")
+    # the whole batch on both sides: at 4 clips the GRU's card-vs-CPU gap
+    # (bf16 rounding the two sides' ~1e-7 apart float32 values to other
+    # ulps, averaged over 4 clips) reaches 1e-4 of the largest gradient,
+    # as far as the float32-stream step is from the bf16 one
+    half_paths = dict(grad_bound=1e-3, contrast_f32=True, reps=20, profile_reps=3)
+    by_path["train_gru_fast"] = phase_train(
+        counters, "train_gru_fast", GRU + half,
+        lambda steps, evals: {"logmel": cached, "gru2_infer": evals,
+                              "gru2_train_fwd_bf16": steps, "gru2_bwd_chain_bf16": steps},
+        **half_paths)[0]
+    by_path["train_big_fast"] = phase_train(
+        counters, "train_big_fast", BIG + half,
+        lambda steps, evals: {"logmel": cached, "lstm1_train_fwd_bf16": 3 * steps,
+                              "lstm_bwd_chain_bf16": 3 * steps, "lstm1_infer": 3 * evals},
+        **half_paths)[0]
+    print(f"[time] train_fast, serve_fast, train_gru_fast, train_big_fast: "
+          f"{time.perf_counter() - t_fast:.1f} s")
     by_path["train_big"], big_run, big_overrides = phase_train(
         counters, "train_big", BIG,
         lambda steps, evals: {"logmel": cached, "lstm1_train_fwd": 3 * steps,
@@ -3298,7 +3756,7 @@ def main() -> None:
     extra = ["core", "bound_fp32_ms", "bound_3xtf32_ms", "b1_ms", "b1_plain_ms",
              "bound_products_ms", "raw_max_abs_err", "raw_ms", "raw_plain_ms",
              "raw_bound_ms", "raw_bound_by", "raw_library_ms", "b320_max_err_of_largest",
-             "b320_ms", "b320_bound_ms", "b320_library_ms"]
+             "b320_ms", "b320_bound_ms", "b320_library_ms", "f32_ms"]
     print(f"[time] chip_smoke.py: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {**{k: kern[k] for k in order}, **{k: kern[k] for k in extra if k in kern}}

@@ -21,7 +21,11 @@
 // shares its first 2H lanes with dih, so only its n lane is stored.  The
 // hoisted weight gradients are plain matrix products outside
 // (ops/lstm_vjp.py).  The legacy layout's chain (row 10) is
-// gru2_bwd_chain_legacy.cu.
+// gru2_bwd_chain_legacy.cu.  Its bf16 form (gru2_bwd_chain_bf16_launch,
+// the JAX kernel over bf16 residuals) reads packed, h0p and h1p in bf16 and
+// writes dih0, dhn0, dih1 and dhn1 in bf16, each rounded from the float32
+// value, its CTAs exchanging the float32 series through scratch the
+// wrapper allocates.
 //
 // What bounds it on the H100: the serial chain.  At the GRU config's shape
 // (B=32, T=372, H=256) the three products per step are 14.0 GFLOP and the
@@ -52,9 +56,41 @@ extern "C" int gru2_bwd_chain_launch(const float* packed, const float* h0p,
   return rnn2_bwd::launch<rnn2_bwd::GruCell>(a, (cudaStream_t)stream);
 }
 
+// bf16 form: packed16 (T, B, 8H), h0p16, h1p16 (T, B, H) and dih0_16, dhn0_16,
+// dih1_16, dhn1_16 bf16; the float32 exchange (scratch): dih0 (2, B, 3H) and
+// dhn0 (2, B, H), two slots, dih1 (T, B, 3H) and dhn1 (T, B, H)
+extern "C" int gru2_bwd_chain_bf16_launch(
+    const rnn_chain::bf16* packed16, const rnn_chain::bf16* h0p16,
+    const rnn_chain::bf16* h1p16, const float* keep, const float* w_hh0,
+    const float* w_hh1, const float* w_ih1, rnn_chain::bf16* dih0_16,
+    rnn_chain::bf16* dhn0_16, rnn_chain::bf16* dih1_16, rnn_chain::bf16* dhn1_16,
+    float* dih0, float* dhn0, float* dih1, float* dhn1, float* carry, unsigned* flags,
+    int batch, int t_len, int hidden, int upc, int ncl, int rgroups, int kc,
+    void* stream) {
+  rnn2_bwd::Args a{nullptr, {nullptr, nullptr}, keep, nullptr, {w_hh0, w_hh1},
+                   w_ih1, {dih0, dih1}, {dhn0, dhn1}, carry, flags, batch,
+                   t_len, hidden, upc, ncl, rgroups, kc};
+  a.res16 = packed16;
+  a.prev16[0] = h0p16;
+  a.prev16[1] = h1p16;
+  a.out16[0] = dih0_16;
+  a.out16[1] = dih1_16;
+  a.out_n16[0] = dhn0_16;
+  a.out_n16[1] = dhn1_16;
+  return rnn2_bwd::launch<rnn2_bwd::GruCell16>(a, (cudaStream_t)stream);
+}
+
+// the plan is cached per source, so it answers for both forms: the fewer
+// clusters of the two
 extern "C" int gru2_bwd_chain_max_clusters(int hidden, int upc, int ncl, int rgroups,
                                            int kc, int* count) {
-  return rnn2_bwd::max_clusters<rnn2_bwd::GruCell>(hidden, upc, ncl, rgroups, kc, count);
+  int full = 0, half = 0;
+  int err = rnn2_bwd::max_clusters<rnn2_bwd::GruCell>(hidden, upc, ncl, rgroups, kc,
+                                                      &full);
+  if (err != cudaSuccess) return err;
+  err = rnn2_bwd::max_clusters<rnn2_bwd::GruCell16>(hidden, upc, ncl, rgroups, kc, &half);
+  *count = full < half ? full : half;
+  return err;
 }
 
 extern "C" int gru2_bwd_chain_card(int* sms, int* max_smem) {

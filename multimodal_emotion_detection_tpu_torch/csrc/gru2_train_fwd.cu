@@ -17,6 +17,11 @@
 //                        (activations; hn = h_prev @ W_hn + b_hn, before r)
 //   h0p[t], h1p[t] (B, H) = the state BEFORE step t;  x1[t] (B, H)
 //   finals (2, B, H) = [h0, h1] after step T-1.
+// Its bf16 form (gru2_train_fwd_bf16_launch, the JAX kernel's res_dtype
+// bfloat16) stores packed, h0p, h1p and x1 in bf16, each rounded to nearest
+// even from the float32 value above, and keeps finals float32; its CTAs
+// exchange h through float32 h0p / h1p / x1 scratch the wrapper allocates
+// beside them, so its finals are the float32 form's bit for bit.
 // The older layout (the JAX package's gru2_train_fwd_pallas) is
 // gru2_train_fwd_legacy.cu.
 //
@@ -54,10 +59,35 @@ extern "C" int gru2_train_fwd_launch(const float* ih0, const float* keep,
   return rnn2_fwd::launch<rnn2_fwd::GruCell, true>(a, (cudaStream_t)stream);
 }
 
+// bf16 form: packed16 (T, B, 8H), h0p16, h1p16, x116 (T, B, H) bf16; the
+// float32 exchange (scratch): h0p, h1p (2, B, H), two slots, x1 (T, B, H)
+extern "C" int gru2_train_fwd_bf16_launch(
+    const float* ih0, const float* keep, const float* w_hh0, const float* b_hh0,
+    const float* w_ih1, const float* b_ih1, const float* w_hh1, const float* b_hh1,
+    rnn_chain::bf16* packed16, rnn_chain::bf16* h0p16, rnn_chain::bf16* h1p16,
+    rnn_chain::bf16* x116, float* h0p, float* h1p, float* x1, float* finals,
+    float* carry, unsigned* flags, int batch, int t_len, int hidden, int upc, int ncl,
+    int rgroups, int kc, void* stream) {
+  const rnn2_fwd::Args a{ih0,     {w_hh0, w_hh1}, w_ih1, {b_hh0, b_hh1}, b_ih1,
+                         nullptr, nullptr,        carry, flags,          batch,
+                         t_len,   hidden,         upc,   ncl,            rgroups,
+                         kc,      keep,           {h0p, h1p}, x1,        nullptr,
+                         finals,  packed16,       {h0p16, h1p16}, x116};
+  return rnn2_fwd::launch<rnn2_fwd::GruCell16, true>(a, (cudaStream_t)stream);
+}
+
+// the plan is cached per source, so it answers for both forms: the fewer
+// clusters of the two
 extern "C" int gru2_train_fwd_max_clusters(int hidden, int upc, int ncl, int rgroups,
                                            int kc, int* count) {
-  return rnn2_fwd::max_clusters<rnn2_fwd::GruCell, true>(hidden, upc, ncl, rgroups, kc,
-                                                         count);
+  int full = 0, half = 0;
+  int err = rnn2_fwd::max_clusters<rnn2_fwd::GruCell, true>(hidden, upc, ncl, rgroups,
+                                                            kc, &full);
+  if (err != cudaSuccess) return err;
+  err = rnn2_fwd::max_clusters<rnn2_fwd::GruCell16, true>(hidden, upc, ncl, rgroups, kc,
+                                                          &half);
+  *count = full < half ? full : half;
+  return err;
 }
 
 extern "C" int gru2_train_fwd_card(int* sms, int* max_smem) {

@@ -15,7 +15,10 @@
 // Training form (lstm1_fwd_train_launch) stores what the backward
 // consumes, in the JAX package's layout: g[t] (B, 4H), h_prev[t] and
 // c_prev[t] (B, H), the state BEFORE step t, and finals (B, 2H) = [h | c]
-// after step T-1.  Eval form (lstm1_fwd_infer_launch) stores only h:
+// after step T-1; its bf16 form (lstm1_fwd_train_bf16_launch, the JAX
+// kernel's res_dtype bfloat16) stores g and c_prev in bf16, each rounded to
+// nearest even from the float32 value, and h_prev and finals float32 (h_prev
+// is also its exchange).  Eval form (lstm1_fwd_infer_launch) stores only h:
 // every step's (T, B, H) when the next layer needs the series, else two
 // (B, H) slots used in turn, of which slot (T-1) % 2 holds the final h.
 //
@@ -55,9 +58,31 @@ extern "C" int lstm1_fwd_infer_launch(const float* ih, const float* w_hh, float*
   return rnn_fwd::launch<rnn_fwd::LstmCell, false>(a, (cudaStream_t)stream);
 }
 
+// bf16 form: g16 (T, B, 4H) and c_prev16 (T, B, H) bf16; h_prev, finals
+// float32
+extern "C" int lstm1_fwd_train_bf16_launch(const float* ih, const float* w_hh,
+                                           rnn_chain::bf16* g16, float* h_prev,
+                                           rnn_chain::bf16* c_prev16, float* finals,
+                                           float* carry, unsigned* flags, int batch,
+                                           int t_len, int hidden, int upc, int ncl,
+                                           int rgroups, int kc, void* stream) {
+  const rnn_fwd::Args a{ih,    w_hh,  nullptr, nullptr, h_prev, nullptr, finals, carry,
+                        flags, batch, t_len,   hidden,  0,      upc,     ncl,    rgroups,
+                        kc,    g16,   c_prev16};
+  return rnn_fwd::launch<rnn_fwd::LstmCell16, true>(a, (cudaStream_t)stream);
+}
+
+// the plan is cached per source, so it answers for every form: the fewest
+// clusters of the three
 extern "C" int lstm1_fwd_max_clusters(int hidden, int upc, int ncl, int rgroups, int kc,
                                       int* count) {
-  return rnn_fwd::max_clusters<rnn_fwd::LstmCell>(hidden, upc, ncl, rgroups, kc, count);
+  int full = 0, half = 0;
+  int err = rnn_fwd::max_clusters<rnn_fwd::LstmCell>(hidden, upc, ncl, rgroups, kc, &full);
+  if (err != cudaSuccess) return err;
+  err = rnn_fwd::max_clusters<rnn_fwd::LstmCell16, false>(hidden, upc, ncl, rgroups, kc,
+                                                          &half);
+  *count = full < half ? full : half;
+  return err;
 }
 
 extern "C" int lstm1_fwd_card(int* sms, int* max_smem) {

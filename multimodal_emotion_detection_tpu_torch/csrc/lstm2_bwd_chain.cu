@@ -15,7 +15,11 @@
 //   dh0 = dg0 @ w_hh0^T
 //
 // and write dg0[t], dg1[t] (T, B, 4H each).  The hoisted weight gradients
-// are plain matrix products outside (ops/lstm_vjp.py).  The legacy
+// are plain matrix products outside (ops/lstm_vjp.py).  Its bf16 form
+// (lstm2_bwd_chain_bf16_launch, the JAX kernel over bf16 residuals, whose
+// dgates come out in the residuals' dtype) reads packed in bf16 and writes
+// dg0 / dg1 in bf16, each rounded from the float32 value, its CTAs
+// exchanging the float32 dg0 / dg1 through scratch the wrapper allocates.  The legacy
 // layout's chain (row 9) is lstm2_bwd_chain_legacy.cu, the same core with
 // the legacy cell.
 //
@@ -48,9 +52,34 @@ extern "C" int lstm2_bwd_chain_launch(const float* packed, const float* keep,
   return rnn2_bwd::launch<rnn2_bwd::LstmCell>(a, (cudaStream_t)stream);
 }
 
+// bf16 form: packed16 (T, B, 10H) and dg0_16, dg1_16 (T, B, 4H) bf16; the
+// float32 exchange (scratch): dg0 (2, B, 4H), two slots, dg1 (T, B, 4H)
+extern "C" int lstm2_bwd_chain_bf16_launch(
+    const rnn_chain::bf16* packed16, const float* keep, const float* dh_final,
+    const float* w_hh0, const float* w_hh1, const float* w_ih1, rnn_chain::bf16* dg0_16,
+    rnn_chain::bf16* dg1_16, float* dg0, float* dg1, float* carry, unsigned* flags,
+    int batch, int t_len, int hidden, int upc, int ncl, int rgroups, int kc,
+    void* stream) {
+  rnn2_bwd::Args a{nullptr, {nullptr, nullptr}, keep, dh_final, {w_hh0, w_hh1},
+                   w_ih1, {dg0, dg1}, {nullptr, nullptr}, carry, flags, batch,
+                   t_len, hidden, upc, ncl, rgroups, kc};
+  a.res16 = packed16;
+  a.out16[0] = dg0_16;
+  a.out16[1] = dg1_16;
+  return rnn2_bwd::launch<rnn2_bwd::LstmCell16>(a, (cudaStream_t)stream);
+}
+
+// the plan is cached per source, so it answers for both forms: the fewer
+// clusters of the two
 extern "C" int lstm2_bwd_chain_max_clusters(int hidden, int upc, int ncl, int rgroups,
                                             int kc, int* count) {
-  return rnn2_bwd::max_clusters<rnn2_bwd::LstmCell>(hidden, upc, ncl, rgroups, kc, count);
+  int full = 0, half = 0;
+  int err = rnn2_bwd::max_clusters<rnn2_bwd::LstmCell>(hidden, upc, ncl, rgroups, kc,
+                                                       &full);
+  if (err != cudaSuccess) return err;
+  err = rnn2_bwd::max_clusters<rnn2_bwd::LstmCell16>(hidden, upc, ncl, rgroups, kc, &half);
+  *count = full < half ? full : half;
+  return err;
 }
 
 extern "C" int lstm2_bwd_chain_card(int* sms, int* max_smem) {

@@ -19,6 +19,12 @@
 //              (B, 2H) = [c0_prev | c1_prev]
 //   h0p[t], h1p[t] (B, H) = the state BEFORE step t;  x1[t] (B, H)
 //   finals (4, B, H) = [h0, c0, h1, c1] after step T-1.
+// Its bf16 form (lstm2_train_fwd_bf16_launch, the JAX kernel's res_dtype
+// bfloat16, ops/lstm_kernel.py::lstm2_train_fwd_residuals with res_dtype
+// torch.bfloat16) stores packed, h0p, h1p and x1 in bf16, each rounded to
+// nearest even from the float32 value above, and keeps finals float32;
+// its CTAs exchange h through float32 h0p / h1p / x1 scratch the wrapper
+// allocates beside them, so its finals are the float32 form's bit for bit.
 // The older layout (the JAX package's lstm2_train_fwd_pallas) is
 // lstm2_train_fwd_legacy.cu, the same core with the legacy cell.
 //
@@ -45,12 +51,14 @@ int launch_form(const float* ih0, const float* keep, const float* w_hh0,
                 const float* w_ih1, const float* b1, const float* w_hh1, float* packed,
                 float* h0p, float* h1p, float* x1, float* finals, float* carry,
                 unsigned* flags, int batch, int t_len, int hidden, int upc, int ncl,
-                int rgroups, int kc, void* stream) {
+                int rgroups, int kc, void* stream, rnn_chain::bf16* packed16 = nullptr,
+                rnn_chain::bf16* h0p16 = nullptr, rnn_chain::bf16* h1p16 = nullptr,
+                rnn_chain::bf16* x116 = nullptr) {
   const rnn2_fwd::Args a{ih0,    {w_hh0, w_hh1}, w_ih1,  {nullptr, nullptr}, b1,
                          nullptr, nullptr,       carry,  flags,              batch,
                          t_len,  hidden,         upc,    ncl,                rgroups,
                          kc,     keep,           {h0p, h1p}, x1,             packed,
-                         finals};
+                         finals, packed16,       {h0p16, h1p16}, x116};
   return rnn2_fwd::launch<Cell, true>(a, (cudaStream_t)stream);
 }
 
@@ -86,17 +94,35 @@ extern "C" int lstm2_train_fwd_nogates_launch(const float* ih0, const float* kee
                                                 rgroups, kc, stream);
 }
 
-// the plan is cached per source, so it answers for both forms: the fewer
-// clusters of the two
+// bf16 form: packed16 (T, B, 10H), h0p16, h1p16, x116 (T, B, H) bf16; the
+// float32 exchange (scratch): h0p, h1p (2, B, H), two slots, x1 (T, B, H)
+extern "C" int lstm2_train_fwd_bf16_launch(
+    const float* ih0, const float* keep, const float* w_hh0, const float* w_ih1,
+    const float* b1, const float* w_hh1, rnn_chain::bf16* packed16,
+    rnn_chain::bf16* h0p16, rnn_chain::bf16* h1p16, rnn_chain::bf16* x116, float* h0p,
+    float* h1p, float* x1, float* finals, float* carry, unsigned* flags, int batch,
+    int t_len, int hidden, int upc, int ncl, int rgroups, int kc, void* stream) {
+  return launch_form<rnn2_fwd::LstmCell16>(ih0, keep, w_hh0, w_ih1, b1, w_hh1, nullptr,
+                                           h0p, h1p, x1, finals, carry, flags, batch,
+                                           t_len, hidden, upc, ncl, rgroups, kc, stream,
+                                           packed16, h0p16, h1p16, x116);
+}
+
+// the plan is cached per source, so it answers for every form: the fewest
+// clusters of the three
 extern "C" int lstm2_train_fwd_max_clusters(int hidden, int upc, int ncl, int rgroups,
                                             int kc, int* count) {
-  int stored = 0, nogates = 0;
+  int stored = 0, nogates = 0, half = 0;
   int err = rnn2_fwd::max_clusters<rnn2_fwd::LstmCell, true>(hidden, upc, ncl, rgroups,
                                                              kc, &stored);
   if (err != cudaSuccess) return err;
   err = rnn2_fwd::max_clusters<rnn2_fwd::LstmNoGatesCell, true>(hidden, upc, ncl,
                                                                 rgroups, kc, &nogates);
+  if (err != cudaSuccess) return err;
+  err = rnn2_fwd::max_clusters<rnn2_fwd::LstmCell16, true>(hidden, upc, ncl, rgroups,
+                                                           kc, &half);
   *count = stored < nogates ? stored : nogates;
+  *count = half < *count ? half : *count;
   return err;
 }
 

@@ -14,6 +14,9 @@
 //
 // and write dg (T, B, 4H).  The hop into the layer below and the hoisted
 // weight gradients are plain matrix products outside (ops/lstm_vjp.py).
+// Its bf16 form (lstm_bwd_chain_bf16_launch) reads g and c_prev stored in
+// bf16 by lstm1_fwd.cu's bf16 form (the JAX kernel reads them in their
+// stored dtype) and writes float32 dg, as JAX does.
 //
 // What bounds it on the H100: the serial chain.  At the big sweep config's
 // shape (B=32, T=372, H=512) the products are 24.96 GFLOP per layer
@@ -43,9 +46,31 @@ extern "C" int lstm_bwd_chain_launch(const float* g, const float* c_prev,
   return rnn_bwd::launch<rnn_bwd::LstmCell>(a, (cudaStream_t)stream);
 }
 
+// bf16 form: g16 (T, B, 4H) and c_prev16 (T, B, H) stored in bf16; dg
+// float32
+extern "C" int lstm_bwd_chain_bf16_launch(const rnn_chain::bf16* g16,
+                                          const rnn_chain::bf16* c_prev16,
+                                          const float* dh_series, const float* dh_final,
+                                          const float* w_hh, float* dg, float* carry,
+                                          unsigned* flags, int batch, int t_len,
+                                          int hidden, int upc, int ncl, int rgroups,
+                                          int kc, void* stream) {
+  const rnn_bwd::Args a{nullptr, nullptr, dh_series, dh_final, w_hh, dg, nullptr, carry,
+                        flags,   batch,   t_len,     hidden,   upc,  ncl, rgroups, kc,
+                        g16,     c_prev16};
+  return rnn_bwd::launch<rnn_bwd::LstmCell16>(a, (cudaStream_t)stream);
+}
+
+// the plan is cached per source, so it answers for both forms: the fewer
+// clusters of the two
 extern "C" int lstm_bwd_chain_max_clusters(int hidden, int upc, int ncl, int rgroups,
                                            int kc, int* count) {
-  return rnn_bwd::max_clusters<rnn_bwd::LstmCell>(hidden, upc, ncl, rgroups, kc, count);
+  int full = 0, half = 0;
+  int err = rnn_bwd::max_clusters<rnn_bwd::LstmCell>(hidden, upc, ncl, rgroups, kc, &full);
+  if (err != cudaSuccess) return err;
+  err = rnn_bwd::max_clusters<rnn_bwd::LstmCell16>(hidden, upc, ncl, rgroups, kc, &half);
+  *count = full < half ? full : half;
+  return err;
 }
 
 extern "C" int lstm_bwd_chain_card(int* sms, int* max_smem) {

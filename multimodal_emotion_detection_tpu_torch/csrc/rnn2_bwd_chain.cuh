@@ -57,6 +57,17 @@
 //   follow set's first step only the hop; exactly T steps run in each set,
 //   T + 1 phases on the critical path.
 //
+// The bf16 forms (a cell of storage type bf16, rnn_chain_common.cuh:
+// lstm2_bwd_chain.cu's LstmCell16, gru2_bwd_chain.cu's GruCell16) read the
+// residuals stored in bf16 (res16, the GRU's prev16) into float32 and write
+// the chain outputs in bf16 too (out16, the GRU's out_n16), each rounded
+// from the float32 value the float32 form writes.  Their exchange stays
+// float32, in scratch the caller allocates: layer 1's row (the hop into
+// layer 0, which runs behind) a whole series, layer 0's own in two (B, .)
+// slots used in turn (rows t & 1 of out[0] / out_n[0], which only the
+// follow set reads, a step behind its writes); so the chain is the float32
+// form's over the same inputs.
+//
 // Any B >= 1; H % 4 == 0 with 2 H / UPC <= the SM count.  Built with
 // -DRNN_CHAIN_TIMERS=1 each warp splits its steps into the buckets of
 // rnn_timers.cuh.
@@ -111,7 +122,20 @@ struct Args {
   // GruLegacyCell, LstmLegacyCell: the sequence output's cotangent (T, B,
   // H), or null
   const float* dys;
+  // the bf16 forms': the residuals in place of res and prev, and the chain
+  // outputs beside the float32 exchange out / out_n
+  const bf16* res16;
+  const bf16* prev16[2];
+  bf16* out16[2];
+  bf16* out_n16[2];
 };
+
+// the row of layer l's exchanged series that holds step t's: the series'
+// own, or in the bf16 forms layer 0's in one of two slots
+template <class S>
+__device__ __forceinline__ size_t ex_row(int layer, int t) {
+  return kHalfStore<S> && layer == 0 ? (size_t)(t & 1) : (size_t)t;
+}
 
 // shared memory of a plan, in floats: the weights NU x ldw over the follow
 // set's share (the wider), the chunk slots x PH x ldx, the warps' partials
@@ -319,10 +343,11 @@ struct NoGates {
   __device__ NoGates(const Args&, int, float*, int, int, int) {}
 };
 
-// Two GRU layers: residuals [r | z | n | hn] and h_prev; the exchanged row
-// is [dr_pre | dz_pre | dhn] = [dih[:, :2H] | dhn] (3H) and the feed
-// layer 1's dih; the carry is the direct part dh_t z.
-struct GruCell {
+// Two GRU layers: residuals [r | z | n | hn] and h_prev, stored in S; the
+// exchanged row is [dr_pre | dz_pre | dhn] = [dih[:, :2H] | dhn] (3H) and
+// the feed layer 1's dih; the carry is the direct part dh_t z.
+template <class S>
+struct GruCellT {
   static constexpr int kWidth = 3;
   static constexpr bool kRemat = false;
   struct Res {
@@ -331,10 +356,11 @@ struct GruCell {
   __device__ static void load(const Args& a, int layer, int t, int b, int j, Res& r) {
     const int H = a.hidden;
     const size_t BH = (size_t)a.batch * H, o = (size_t)b * H + j;
-    const float* p = a.res + ((size_t)t * a.batch + b) * 8 * H + 4 * H * layer + j;
+    const S* p = res_of<S>(a.res, a.res16) + ((size_t)t * a.batch + b) * 8 * H +
+                 4 * H * layer + j;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) r.act[i] = __ldg(p + i * H);
-    r.hp = __ldg(of_layer(a.prev, layer) + t * BH + o);
+    for (int i = 0; i < 4; ++i) r.act[i] = ld_res(p + i * H);
+    r.hp = ld_res(res_of<S>(of_layer(a.prev, layer), of_layer(a.prev16, layer)) + t * BH + o);
     r.keep = layer == 0 ? __ldg(a.keep + t * BH + o) : 0.0f;
     r.carry = a.carry[layer * BH + o];
   }
@@ -346,11 +372,19 @@ struct GruCell {
     const float dh = res.carry + own + res.keep * feed;
     const float r = res.act[0], z = res.act[1], n = res.act[2], hn = res.act[3];
     const float dn_pre = dh * (1.0f - z) * (1.0f - n * n);
-    float* out = of_layer(a.out, layer) + ((size_t)t * a.batch + b) * 3 * H + j;
-    out[0] = dn_pre * hn * r * (1.0f - r);
-    out[H] = dh * (res.hp - n) * z * (1.0f - z);
-    out[2 * H] = dn_pre;
-    of_layer(a.out_n, layer)[t * BH + o] = dn_pre * r;
+    const float d[4] = {dn_pre * hn * r * (1.0f - r), dh * (res.hp - n) * z * (1.0f - z),
+                        dn_pre, dn_pre * r};
+    const size_t row = (size_t)t * a.batch + b, ex = ex_row<S>(layer, t) * a.batch + b;
+    float* out = of_layer(a.out, layer) + ex * 3 * H + j;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) out[i * H] = d[i];
+    of_layer(a.out_n, layer)[ex * H + j] = d[3];
+    if constexpr (kHalfStore<S>) {
+      bf16* out16 = of_layer(a.out16, layer) + row * 3 * H + j;
+#pragma unroll
+      for (int i = 0; i < 3; ++i) st_res(out16 + i * H, d[i]);
+      st_res(of_layer(a.out_n16, layer) + t * BH + o, d[3]);
+    }
     a.carry[layer * BH + o] = dh * z;
   }
   // float4 column c of row b of segment seg at step t: the layer's own
@@ -358,19 +392,23 @@ struct GruCell {
   __device__ static const float* src(const Args& a, int layer, int seg, int t, int b,
                                      int c) {
     const int H = a.hidden;
-    const size_t row = (size_t)t * a.batch + b;
-    if (seg == 1) return a.out[1] + row * 3 * H + 4 * c;
+    if (seg == 1) return a.out[1] + ((size_t)t * a.batch + b) * 3 * H + 4 * c;
+    const size_t row = ex_row<S>(layer, t) * a.batch + b;
     return c < H / 2 ? of_layer(a.out, layer) + row * 3 * H + 4 * c
                      : of_layer(a.out_n, layer) + row * H + 4 * (c - H / 2);
   }
 };
 
+using GruCell = GruCellT<float>;
+using GruCell16 = GruCellT<bf16>;
+
 // Two LSTM layers: residuals from the packed row [g0 | g1 | c0_prev |
-// c1_prev] (layer l's gates at 4H l, its c_prev at 8H + H l); the exchanged
-// row is dg (4H) and the feed layer 1's dg; the carry is dc.  dh_final
-// enters at layer 1's first step, loaded there, so no register holds it
-// across the products.
-struct LstmCell {
+// c1_prev] (layer l's gates at 4H l, its c_prev at 8H + H l), stored in S;
+// the exchanged row is dg (4H) and the feed layer 1's dg; the carry is dc.
+// dh_final enters at layer 1's first step, loaded there, so no register
+// holds it across the products.
+template <class S>
+struct LstmCellT {
   static constexpr int kWidth = 4;
   static constexpr bool kRemat = false;
   struct Res {
@@ -379,10 +417,10 @@ struct LstmCell {
   __device__ static void load(const Args& a, int layer, int t, int b, int j, Res& r) {
     const int H = a.hidden;
     const size_t BH = (size_t)a.batch * H, o = (size_t)b * H + j;
-    const float* p = a.res + ((size_t)t * a.batch + b) * 10 * H + j;
+    const S* p = res_of<S>(a.res, a.res16) + ((size_t)t * a.batch + b) * 10 * H + j;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) r.g[i] = __ldg(p + 4 * H * layer + i * H);
-    r.cp = __ldg(p + 8 * H + H * layer);
+    for (int i = 0; i < 4; ++i) r.g[i] = ld_res(p + 4 * H * layer + i * H);
+    r.cp = ld_res(p + 8 * H + H * layer);
     r.keep = layer == 0 ? __ldg(a.keep + t * BH + o) : 0.0f;
     r.carry = a.carry[layer * BH + o];
   }
@@ -393,18 +431,28 @@ struct LstmCell {
     const size_t BH = (size_t)a.batch * H, o = (size_t)b * H + j;
     float dh = own + r.keep * feed;
     if (layer == 1 && t == a.t_len - 1) dh += __ldg(a.dh_final + o);
-    a.carry[layer * BH + o] = rnn_bwd::lstm_cell_bwd(
-        r.g, r.cp, dh, r.carry,
-        of_layer(a.out, layer) + ((size_t)t * a.batch + b) * 4 * H + j, H);
+    float d[4];
+    a.carry[layer * BH + o] = rnn_bwd::lstm_cell_bwd(r.g, r.cp, dh, r.carry, d);
+    float* out = of_layer(a.out, layer) + (ex_row<S>(layer, t) * a.batch + b) * 4 * H + j;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) out[i * H] = d[i];
+    if constexpr (kHalfStore<S>) {
+      bf16* out16 = of_layer(a.out16, layer) + ((size_t)t * a.batch + b) * 4 * H + j;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) st_res(out16 + i * H, d[i]);
+    }
   }
   // float4 column c of row b of segment seg at step t: the layer's own dg,
   // or (seg 1) layer 1's
   __device__ static const float* src(const Args& a, int layer, int seg, int t, int b,
                                      int c) {
-    const size_t row = (size_t)t * a.batch + b;
-    return (seg == 1 ? a.out[1] : of_layer(a.out, layer)) + row * 4 * a.hidden + 4 * c;
+    const int l = seg == 1 ? 1 : layer;
+    return of_layer(a.out, l) + (ex_row<S>(l, t) * a.batch + b) * 4 * a.hidden + 4 * c;
   }
 };
+
+using LstmCell = LstmCellT<float>;
+using LstmCell16 = LstmCellT<bf16>;
 
 // LstmCell over the no-gates residuals: packed (T, B, 2H) = [c0_prev |
 // c1_prev]; the gates are not read but recomputed (GateBlocks, which the

@@ -78,6 +78,16 @@
 // h0p / h1p / x1 are the exchange only (scratch the caller allocates; row
 // 0 of h0p / h1p is neither written nor read).
 //
+// The training form's bf16 form (a cell of storage type bf16,
+// rnn_chain_common.cuh: lstm2_train_fwd.cu's LstmCell16, gru2_train_fwd.cu's
+// GruCell16) stores packed, h0p, h1p and x1 in bf16 (packed16, hp16, x116),
+// each rounded from the float32 value the float32 form stores; the finals
+// stay float32.  Its exchange stays float32, in scratch the caller
+// allocates: the x1 series whole (the lead set runs ahead of the follow
+// set), each layer's own h in two (B, H) slots used in turn (rows t & 1 of
+// hp, which only its own set reads, a step behind its writes); so the
+// forward's value is the float32 form's bit for bit.
+//
 // Any B >= 1; H % 4 == 0 with 2 H / UPC <= the SM count.  Built with
 // -DRNN_CHAIN_TIMERS=1 each warp splits its steps into the buckets of
 // rnn_timers.cuh.
@@ -119,7 +129,18 @@ struct Args {
                           // cells' residuals
   float* finals;          // LSTM (4, B, H) [h0, c0, h1, c1]; GRU (2, B, H) [h0, h1];
                           // legacy cells (B, H) h1
+  // the bf16 form's stored series, beside the float32 exchange hp / x1
+  bf16* packed16;         // in place of packed
+  bf16* hp16[2];          // (T, B, H): layer l's h before each step
+  bf16* x116;             // (T, B, H): layer 1's input h0 keep
 };
+
+// the row of a layer's own exchanged h (hp) that holds step t's: the
+// series' own in the float32 form, one of two slots in the bf16 form
+template <class S>
+__device__ __forceinline__ size_t hp_row(int t) {
+  return kHalfStore<S> ? (size_t)(t & 1) : (size_t)t;
+}
 
 // shared memory of a plan, in floats: the weights W NU x ldw over the
 // follow set's share (the wider), the chunk slots x PH x ldx, the warps'
@@ -150,15 +171,25 @@ __device__ __forceinline__ void put_h(const Args& a, int layer, int t, int b, in
 
 // a training cell's h of step t, and layer 0's x1 = h keep: into layer l's
 // h_prev series at row t + 1, or after the last step into row fh of the
-// finals
+// finals; the bf16 form (S = bf16) also into its bf16 series
+template <class S>
 __device__ __forceinline__ void put_train(const Args& a, int layer, int t, int b, int j,
                                           float h, float k, int fh) {
   const size_t BH = (size_t)a.batch * a.hidden, o = (size_t)b * a.hidden + j;
   float* hp = of_layer(a.hp, layer);
-  if (layer == 0) a.x1[t * BH + o] = h * k;
-  if (t == 0) hp[o] = 0.0f;
+  [[maybe_unused]] bf16* hp16 = of_layer(a.hp16, layer);
+  if (layer == 0) {
+    const float x = h * k;
+    a.x1[t * BH + o] = x;
+    if constexpr (kHalfStore<S>) st_res(a.x116 + t * BH + o, x);
+  }
+  if (t == 0) {
+    hp[o] = 0.0f;
+    if constexpr (kHalfStore<S>) st_res(hp16 + o, 0.0f);
+  }
   if (t + 1 < a.t_len) {
-    hp[(t + 1) * BH + o] = h;
+    hp[hp_row<S>(t + 1) * BH + o] = h;
+    if constexpr (kHalfStore<S>) st_res(hp16 + (t + 1) * BH + o, h);
   } else {
     a.finals[fh * BH + o] = h;
   }
@@ -180,14 +211,15 @@ __device__ __forceinline__ void put_legacy(const Args& a, int layer, int t, int 
 }
 
 // float4 column c of row b of segment seg read at step t: the layer's own
-// h of step t - 1, or (seg 1) the feed, h0 of step t (training: x1[t])
-template <bool TRAIN>
+// h of step t - 1, or (seg 1) the feed, h0 of step t (training: x1[t];
+// the training cell's residuals stored in S)
+template <bool TRAIN, class S>
 __device__ __forceinline__ const float* h_src(const Args& a, int layer, int seg, int t,
                                               int b, int c) {
   const int H = a.hidden;
   if constexpr (TRAIN) {
-    const float* s = seg == 1 ? a.x1 : of_layer(a.hp, layer);
-    return s + ((size_t)t * a.batch + b) * H + 4 * c;
+    if (seg == 1) return a.x1 + ((size_t)t * a.batch + b) * H + 4 * c;
+    return of_layer(a.hp, layer) + (hp_row<S>(t) * a.batch + b) * H + 4 * c;
   }
   if (seg == 1 || layer == 0) {
     const int step = seg == 1 ? t : t - 1;
@@ -199,8 +231,10 @@ __device__ __forceinline__ const float* h_src(const Args& a, int layer, int seg,
 // Two GRU layers: gates r, z, n with b_hh beside the recurrent product
 // (its n third inside the reset product: hn = h w_hn + b_hn); the input
 // part is layer 0's ih0, or layer 1's product with its feed plus b_ih1.
-// The carry is h.
-struct GruCell {
+// The carry is h.  The training form stores its residuals in S.
+template <class S>
+struct GruCellT {
+  using Store = S;
   static constexpr int kWidth = 3;
   struct In {
     float x[3], bh[3];  // x: ih0 (layer 0) or b_ih1 (layer 1)
@@ -243,10 +277,11 @@ struct GruCell {
     const float h = gates(in, own, feed, hp, g);
     if constexpr (TRAIN) {
       const int H = a.hidden;
-      float* pk = a.packed + ((size_t)t * a.batch + b) * 8 * H + 4 * H * layer + j;
+      S* pk = res_of<S>(a.packed, a.packed16) + ((size_t)t * a.batch + b) * 8 * H +
+              4 * H * layer + j;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pk[i * H] = g[i];
-      put_train(a, layer, t, b, j, h, in.k, layer);
+      for (int i = 0; i < 4; ++i) st_res(pk + i * H, g[i]);
+      put_train<S>(a, layer, t, b, j, h, in.k, layer);
     } else {
       put_h(a, layer, t, b, j, h);
     }
@@ -254,13 +289,17 @@ struct GruCell {
   }
 };
 
+using GruCell = GruCellT<float>;
+using GruCell16 = GruCellT<bf16>;
+
 // Two LSTM layers: gates i, f, g, o; the input part is layer 0's ih0 (b0
 // inside it), or layer 1's product with its feed plus b1.  The carry is c;
 // h goes out through the h0 series or h1's slots (training: the h_prev
 // series).  The training form stores the gates and c_prev, or with
-// kStoreGates false only c_prev.
-template <bool kStoreGates>
+// kStoreGates false only c_prev, in S.
+template <bool kStoreGates, class S = float>
 struct LstmCellT {
+  using Store = S;
   static constexpr int kWidth = 4;
   struct In {
     float x[4];  // ih0 (layer 0) or b1 (layer 1)
@@ -296,15 +335,16 @@ struct LstmCellT {
     if constexpr (TRAIN) {
       const int H = a.hidden;
       const size_t row = (size_t)t * a.batch + b;
+      S* packed = res_of<S>(a.packed, a.packed16);
       if constexpr (kStoreGates) {
-        float* pk = a.packed + row * 10 * H + j;
+        S* pk = packed + row * 10 * H + j;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) pk[(4 * layer + i) * H] = g[i];
-        pk[(8 + layer) * H] = cp;
+        for (int i = 0; i < 4; ++i) st_res(pk + (4 * layer + i) * H, g[i]);
+        st_res(pk + (8 + layer) * H, cp);
       } else {
-        a.packed[row * 2 * H + layer * H + j] = cp;
+        st_res(packed + row * 2 * H + layer * H + j, cp);
       }
-      put_train(a, layer, t, b, j, h, in.k, 2 * layer);
+      put_train<S>(a, layer, t, b, j, h, in.k, 2 * layer);
       if (t + 1 == a.t_len) {
         a.finals[(size_t)(2 * layer + 1) * a.batch * H + (size_t)b * H + j] = c;
       }
@@ -316,6 +356,7 @@ struct LstmCellT {
 };
 using LstmCell = LstmCellT<true>;
 using LstmNoGatesCell = LstmCellT<false>;
+using LstmCell16 = LstmCellT<true, bf16>;
 
 // LstmCell's training form in the legacy layout: the cell stores res[t]
 // (12H) = [g0 | g1 | h0 | h1 | c0 | c1], the gates at 4H layer and h and c
@@ -473,7 +514,9 @@ __global__ void __launch_bounds__(NT, 1) pair_kernel(const Args a) {
           if (p0 >= p1 || (seg == 0 && t == 0)) continue;
           const int c0 = p0 - (seg == 0 ? 0 : own4);
           piece_products<W, NU>(
-              [&](int r, int c) { return h_src<TRAIN>(a, layer, seg, t, bt0 + r, c0 + c); },
+              [&](int r, int c) {
+                return h_src<TRAIN, typename Cell::Store>(a, layer, seg, t, bt0 + r, c0 + c);
+              },
               nb, p1 - p0, kc, slots, wl + 4 * (p0 - c_lo), ldw, xs, ldx, part,
               mine + seg * PH * NO, tm);
         }

@@ -69,6 +69,11 @@
 // the forward core (rnn_fwd_chain.cuh) are in rnn_chain_common.cuh; its
 // products (piece_products) are the 2-layer core's (rnn2_bwd_chain.cuh)
 // too.
+//
+// The LSTM chain's bf16 form (LstmCell16, lstm_bwd_chain.cu's
+// lstm_bwd_chain_bf16_launch) reads g and c_prev stored in bf16
+// (res16, prev16: rnn_chain_common.cuh's storage) into float32 and writes
+// float32 dgates, which are also its exchange.
 
 #pragma once
 
@@ -95,6 +100,9 @@ struct Args {
   float* carry;            // (B, H): LSTM dc (zeros), GRU dh_t z (dh_final)
   unsigned* flags;         // the barriers' flags, kFlagsPerGroup a row group (zero)
   int batch, t_len, hidden, upc, ncl, rgroups, kc;
+  // the bf16 form's residuals, in place of res and prev
+  const bf16* res16;
+  const bf16* prev16;
 };
 
 // units per thread of the products, for NU units in a cluster
@@ -116,23 +124,34 @@ __host__ __device__ inline int smem_floats(int width, int hidden, int upc,
 }
 
 // One LSTM step backward for one (row, unit): gate pre-activations g (i,
-// f, g, o), c_prev, dh, dc -> the 4 dgates at out[q H]; returns dc_prev
+// f, g, o), c_prev, dh, dc -> the 4 dgates d; returns dc_prev
 __device__ __forceinline__ float lstm_cell_bwd(const float (&g)[4], float cp, float dh,
-                                               float dc, float* out, int H) {
+                                               float dc, float (&d)[4]) {
   const float si = sigmoidf_(g[0]), sf = sigmoidf_(g[1]);
   const float so = sigmoidf_(g[3]), tg = tanhf(g[2]);
   const float tc = tanhf(sf * cp + si * tg);
   const float dcs = dc + dh * so * (1.0f - tc * tc);
-  out[0] = dcs * tg * si * (1.0f - si);
-  out[H] = dcs * cp * sf * (1.0f - sf);
-  out[2 * H] = dcs * si * (1.0f - tg * tg);
-  out[3 * H] = dh * tc * so * (1.0f - so);
+  d[0] = dcs * tg * si * (1.0f - si);
+  d[1] = dcs * cp * sf * (1.0f - sf);
+  d[2] = dcs * si * (1.0f - tg * tg);
+  d[3] = dh * tc * so * (1.0f - so);
   return dcs * sf;
 }
 
-// One LSTM layer: residuals g (4 gate pre-activations) and c_prev; the
-// exchanged row is dg (4H); the carry dc.
-struct LstmCell {
+// the same, the 4 dgates to out[q H]
+__device__ __forceinline__ float lstm_cell_bwd(const float (&g)[4], float cp, float dh,
+                                               float dc, float* out, int H) {
+  float d[4];
+  const float dc_prev = lstm_cell_bwd(g, cp, dh, dc, d);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) out[i * H] = d[i];
+  return dc_prev;
+}
+
+// One LSTM layer: residuals g (4 gate pre-activations) and c_prev, stored
+// in S; the exchanged row is dg (4H); the carry dc.
+template <class S>
+struct LstmCellT {
   static constexpr int kWidth = 4;
   struct Res {
     float g[4], cp, dhs, dhf, carry;
@@ -141,10 +160,10 @@ struct LstmCell {
                               Res& r) {
     const int H = a.hidden;
     const size_t o = (size_t)b * H + j, BH = (size_t)a.batch * H;
-    const float* p = a.res + ((size_t)t * a.batch + b) * 4 * H + j;
+    const S* p = res_of<S>(a.res, a.res16) + ((size_t)t * a.batch + b) * 4 * H + j;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) r.g[i] = __ldg(p + i * H);
-    r.cp = __ldg(a.prev + t * BH + o);
+    for (int i = 0; i < 4; ++i) r.g[i] = ld_res(p + i * H);
+    r.cp = ld_res(res_of<S>(a.prev, a.prev16) + t * BH + o);
     r.dhs = a.dh_series != nullptr ? __ldg(a.dh_series + t * BH + o) : 0.0f;
     r.dhf = first ? __ldg(a.dh_final + o) : 0.0f;
     r.carry = a.carry[o];
@@ -162,6 +181,8 @@ struct LstmCell {
     return a.out + ((size_t)t * a.batch + b) * 4 * a.hidden + 4 * c;
   }
 };
+using LstmCell = LstmCellT<float>;
+using LstmCell16 = LstmCellT<bf16>;
 
 // One GRU layer: residuals [r | z | n | hn] and h_prev; the exchanged row
 // is [dr_pre | dz_pre | dhn] = [dih[:, :2H] | dhn] (3H); the carry is the

@@ -19,7 +19,10 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace rnn_chain {
 
@@ -41,6 +44,43 @@ __host__ __device__ inline int smem_launch_bytes(int need_bytes, int max_smem) {
 
 __device__ __forceinline__ float sigmoidf_(float x) {
   return 1.0f / (1.0f + expf(-x));
+}
+
+// Residual storage.  Each core's training forms store, and its chains read,
+// the residual series in a storage type S: float, or bf16 (the JAX
+// package's runtime.lstm_residual_dtype "bfloat16"), each value rounded
+// once, to nearest even, from the float32 value the float32 form stores,
+// and read back into float32.  The cells' arithmetic, the carries, the
+// finals and the exchange between steps and layers stay float32 in both.
+using bf16 = __nv_bfloat16;
+
+template <class S>
+__device__ __forceinline__ void st_res(S* p, float v) {
+  if constexpr (std::is_same_v<S, float>) {
+    *p = v;
+  } else {
+    *p = __float2bfloat16_rn(v);
+  }
+}
+__device__ __forceinline__ float ld_res(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld_res(const bf16* p) {
+  return __uint_as_float(
+      (unsigned)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+
+// Whether S is the bf16 form's storage.
+template <class S>
+constexpr bool kHalfStore = !std::is_same_v<S, float>;
+
+// The series of storage type S of a pair of Args fields: the float32
+// form's, or the bf16 form's.
+template <class S, class P32, class P16>
+__device__ __forceinline__ auto res_of(P32 p32, P16 p16) {
+  if constexpr (std::is_same_v<S, float>) {
+    return p32;
+  } else {
+    return p16;
+  }
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {

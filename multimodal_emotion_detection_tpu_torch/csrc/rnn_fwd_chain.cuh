@@ -91,6 +91,10 @@ struct Args {
   float* carry;       // (B, H) zeros: LSTM c, GRU h
   unsigned* flags;    // the barriers' flags, kFlagsPerGroup a row group (zero)
   int batch, t_len, hidden, series, upc, ncl, rgroups, kc;
+  // the LSTM training form's bf16 form: g and c_prev in place of gates and
+  // c_prev
+  bf16* gates16;
+  bf16* c_prev16;
 };
 
 // units per thread of the products, for NU units in a cluster
@@ -123,8 +127,10 @@ __device__ __forceinline__ const float* h_src(const Args& a, int t, int b, int c
   return a.h_x + ((size_t)row * a.batch + b) * a.hidden + 4 * c;
 }
 
-// One LSTM layer: gates i, f, g, o; the carry c.
-struct LstmCell {
+// One LSTM layer: gates i, f, g, o; the carry c.  The training form stores
+// g and c_prev in S (h_prev, the exchange, and the finals stay float32).
+template <class S>
+struct LstmCellT {
   static constexpr int kWidth = 4;
   struct In {
     float ih[4];
@@ -148,10 +154,10 @@ struct LstmCell {
     const float h = sigmoidf_(g[3]) * tanhf(c);
     const size_t BH = (size_t)a.batch * H, o = (size_t)b * H + j;
     if constexpr (TRAIN) {
-      float* gp = a.gates + ((size_t)t * a.batch + b) * 4 * H + j;
+      S* gp = res_of<S>(a.gates, a.gates16) + ((size_t)t * a.batch + b) * 4 * H + j;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) gp[i * H] = g[i];
-      a.c_prev[t * BH + o] = cp;
+      for (int i = 0; i < 4; ++i) st_res(gp + i * H, g[i]);
+      st_res(res_of<S>(a.c_prev, a.c_prev16) + t * BH + o, cp);
       if (t == 0) a.h_x[o] = 0.0f;
       if (t + 1 < a.t_len) {
         a.h_x[(t + 1) * BH + o] = h;
@@ -165,6 +171,8 @@ struct LstmCell {
     return c;
   }
 };
+using LstmCell = LstmCellT<float>;
+using LstmCell16 = LstmCellT<bf16>;
 
 // One GRU layer: gates r, z, n with b_hh beside the product (its n third
 // inside the reset product: hn = h w_hn + b_hn); the carry h.
@@ -485,20 +493,21 @@ int launch(const Args& a, cudaStream_t stream) {
   return launch_resident(fn, &cfg, attr, a.ncl, args, stream);
 }
 
-// How many clusters of a plan's kernels (the training and the eval form;
-// the fewer) the card holds at once, into *count; 0 where the plan does
-// not fit.
-template <class Cell>
+// How many clusters of a plan's kernels (the training and, with kEval, the
+// eval form; the fewer) the card holds at once, into *count; 0 where the
+// plan does not fit.
+template <class Cell, bool kEval = true>
 int max_clusters(int hidden, int upc, int ncl, int rgroups, int kc, int* count) {
   *count = 0;
   int least = -1;
-  for (int form = 0; form < 2; ++form) {
+  for (int form = 0; form < (kEval ? 2 : 1); ++form) {
     const void* fn = nullptr;
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr[1];
-    int err = form == 0
-                  ? configure<Cell, true>(hidden, upc, ncl, rgroups, kc, &fn, &cfg, attr)
-                  : configure<Cell, false>(hidden, upc, ncl, rgroups, kc, &fn, &cfg, attr);
+    int err = configure<Cell, true>(hidden, upc, ncl, rgroups, kc, &fn, &cfg, attr);
+    if constexpr (kEval) {
+      if (form == 1) err = configure<Cell, false>(hidden, upc, ncl, rgroups, kc, &fn, &cfg, attr);
+    }
     if (err == kPlanMismatch) return cudaSuccess;
     if (err != cudaSuccess) return err;
     int n = 0;

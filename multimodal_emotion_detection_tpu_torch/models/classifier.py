@@ -42,6 +42,7 @@ from multimodal_emotion_detection_tpu_torch.ops.logmel import (
     log_mel_spectrogram,
     mfcc,
 )
+from multimodal_emotion_detection_tpu_torch.ops.lstm_kernel import residual_dtype
 
 
 class MultimodalClassifier(nn.Module):
@@ -250,7 +251,12 @@ def classifier_from_config(config) -> MultimodalClassifier:
         frontend_kind=fe.audio if fe.audio != "raw" else "logmel",
         frontend_n_mfcc=fe.n_mfcc,
     )
+    try:
+        res_dtype = residual_dtype(config.runtime.lstm_residual_dtype)
+    except ValueError as exc:
+        raise ValueError(f"runtime.lstm_residual_dtype: {exc}") from None
     for module in model.modules():
         if isinstance(module, FusedStackedRNN):
             module.remat_gates = bool(config.runtime.lstm_remat_gates)
+            module.residual_dtype = res_dtype
     return model

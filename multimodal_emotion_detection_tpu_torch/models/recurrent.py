@@ -80,6 +80,9 @@ class FusedStackedRNN(nn.Module):
     is built) makes the 2-layer LSTM pair's training route recompute its
     gates in the backward instead of storing them; the layered LSTM, the
     GRU and the eval forward ignore it, as in the JAX package.
+    ``residual_dtype`` (set from ``runtime.lstm_residual_dtype``, a torch
+    dtype) is the training routes' residual streams' (``fused_lstm_final``
+    says where bf16 engages); the eval forward stores none.
     """
 
     def __init__(self, in_dim: int, hidden_dim: int, num_layers: int = 2,
@@ -95,6 +98,7 @@ class FusedStackedRNN(nn.Module):
             check_gru_stack(hidden_dim, H100_SMS)
         self.cell_type = cell_type
         self.remat_gates = False
+        self.residual_dtype = torch.float32
         self.dropout = float(dropout) if num_layers > 1 else 0.0
         self.num_layers = num_layers
         for layer in range(num_layers):
@@ -125,5 +129,6 @@ class FusedStackedRNN(nn.Module):
         shape = (x.shape[1], self.num_layers - 1, x.shape[0], h_dim)
         keep = keep_mask(noise, shape, self.dropout, x.device)
         if gru:
-            return fused_gru_final(x, keep, layers)
-        return fused_lstm_final(x, keep, layers, remat_gates=self.remat_gates)
+            return fused_gru_final(x, keep, layers, res_dtype=self.residual_dtype)
+        return fused_lstm_final(x, keep, layers, remat_gates=self.remat_gates,
+                                res_dtype=self.residual_dtype)

@@ -149,12 +149,17 @@ def stream_of(tensor: torch.Tensor) -> int:
 
 def check_cuda_f32(name: str, **tensors: torch.Tensor) -> None:
     """Raise unless every tensor is float32, contiguous and on one card."""
+    check_cuda(name, torch.float32, tensors)
+
+
+def check_cuda(name: str, dtype: torch.dtype, tensors: Dict[str, torch.Tensor]) -> None:
+    """Raise unless every tensor is of ``dtype``, contiguous and on one card."""
     devices = set()
     for arg, t in tensors.items():
         if t.device.type != "cuda":
             raise ValueError(f"{name}: {arg} is on {t.device}, not a CUDA card")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name}: {arg} is {t.dtype}, expected float32")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: {arg} is {t.dtype}, expected {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} is not contiguous")
         devices.add(t.device)

@@ -102,6 +102,22 @@ twins of the one-layer LSTM kernels:
   eval form (``csrc/gru1_fwd.cu``, the same forward core);
 * ``gru_bwd_chain``: one layer's reverse chain, emitting ``dih`` and the
   ``dhn`` lane of ``dhh`` (``csrc/gru_bwd_chain.cu``, the same core).
+
+bf16 residual streams (the JAX package's ``runtime.lstm_residual_dtype``
+"bfloat16"): ``lstm2_train_fwd_residuals``, ``gru2_train_fwd_residuals``
+and ``lstm1_train_fwd`` take ``res_dtype=torch.bfloat16`` and then store
+their residual series in bf16, each value rounded once (to nearest even)
+from the float32 value the float32 form stores: the pairs' ``packed``,
+``h0_prev``, ``h1_prev`` and ``x1``, the one-layer forward's ``g`` and
+``c_prev`` (its ``h_prev`` stays float32).  The finals stay float32, and
+so does the exchange between steps and layers inside the kernels (the
+pairs' bf16 forms exchange through float32 series they allocate beside
+the bf16 ones), so the forward's value is the float32 form's.  The chains
+take bf16 residuals as they come and read them into float32:
+``lstm2_bwd_chain`` and ``gru2_bwd_chain`` then write their outputs in
+bf16 too (exchanging in float32 inside), ``lstm_bwd_chain`` float32, as
+the JAX kernels do.  Each bf16 form is an entry point of the same source,
+counted apart (``*_BF16``); the plain versions round at the same points.
 """
 
 from __future__ import annotations
@@ -114,6 +130,7 @@ import torch
 
 from multimodal_emotion_detection_tpu_torch.ops._build import (
     CudaKernel,
+    check_cuda,
     check_cuda_f32,
     load,
     stream_of,
@@ -203,6 +220,42 @@ RES2_G0, RES2_G1, RES2_C0P, RES2_C1P, RES2_W = 0, 4, 8, 9, 10
 # without the gates, which the remat chain recomputes
 RES3_C0P, RES3_C1P, RES3_W = 0, 1, 2
 
+# the residual streams' dtypes (runtime.lstm_residual_dtype)
+RES_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def residual_dtype(name) -> torch.dtype:
+    """``runtime.lstm_residual_dtype``'s torch dtype: "float32" or
+    "bfloat16" (or the dtype itself); anything else raises, as the JAX
+    package's ``set_res2_dtype`` does."""
+    if isinstance(name, torch.dtype) and name in RES_DTYPES.values():
+        return name
+    if name not in RES_DTYPES:
+        raise ValueError(f"residual dtype {name!r} is neither 'float32' nor 'bfloat16'")
+    return RES_DTYPES[name]
+
+
+def _stored(series: torch.Tensor, res_dtype: torch.dtype) -> torch.Tensor:
+    """A plain forward's series as its kernel stores it: rounded once to
+    bf16 in the bf16 form, else as computed."""
+    return series.to(torch.bfloat16) if res_dtype == torch.bfloat16 else series
+
+
+def _read(series: torch.Tensor) -> torch.Tensor:
+    """A plain chain's residual as its kernel reads it: bf16 into float32,
+    else as given."""
+    return series.to(torch.float32) if series.dtype == torch.bfloat16 else series
+
+
+def _half(name: str, *residuals: torch.Tensor) -> bool:
+    """Whether a chain's residuals are bf16 (its bf16 form) or float32,
+    all of one dtype."""
+    dtypes = {t.dtype for t in residuals}
+    if len(dtypes) != 1 or not dtypes <= set(RES_DTYPES.values()):
+        raise ValueError(f"{name}: residuals of dtypes {sorted(map(str, dtypes))}, "
+                         "expected all float32 or all bfloat16")
+    return dtypes == {torch.bfloat16}
+
 
 def _cell_bwd(g: torch.Tensor, c_prev: torch.Tensor, dh: torch.Tensor,
               dc: torch.Tensor):
@@ -223,12 +276,14 @@ def _cell_bwd(g: torch.Tensor, c_prev: torch.Tensor, dh: torch.Tensor,
 
 def lstm2_train_fwd_reference(x_tm: torch.Tensor, keep_tm: torch.Tensor,
                               layer0: Params, layer1: Params,
-                              store_gates: bool = True):
+                              store_gates: bool = True,
+                              res_dtype: torch.dtype = torch.float32):
     """Plain version of the training forward.
 
     x_tm (T, B, D) time-major, keep_tm (T, B, H) the layer-0 -> 1 keep
     mask -> ``(packed, h0_prev, h1_prev, x1, finals)`` in the module's
-    residual layout (``packed`` without the gates unless ``store_gates``).
+    residual layout (``packed`` without the gates unless ``store_gates``),
+    the series rounded to ``res_dtype``, the finals float32.
     Differentiable, so autograd through it is a plain reference for the
     kernel pair's gradients.
     """
@@ -249,8 +304,8 @@ def lstm2_train_fwd_reference(x_tm: torch.Tensor, keep_tm: torch.Tensor,
         h1p.append(h1)
         x1s.append(x1)
         h0, c0, h1, c1 = h0n, c0n, h1n, c1n
-    return (torch.stack(packed), torch.stack(h0p), torch.stack(h1p),
-            torch.stack(x1s), torch.stack([h0, c0, h1, c1]))
+    return (*(_stored(torch.stack(s), res_dtype) for s in (packed, h0p, h1p, x1s)),
+            torch.stack([h0, c0, h1, c1]))
 
 
 def _refuse_dys(dys, cell: str = "LSTM", item: int = 3) -> None:
@@ -265,7 +320,9 @@ def lstm2_bwd_chain_reference(packed: torch.Tensor, keep_tm: torch.Tensor,
                               dh_final: torch.Tensor, w_hh0: torch.Tensor,
                               w_hh1: torch.Tensor, w_ih1: torch.Tensor,
                               dys=None):
-    """Plain version of the reverse chain: ``(dg0, dg1)``, each (T, B, 4H).
+    """Plain version of the reverse chain: ``(dg0, dg1)``, each (T, B, 4H)
+    in ``packed``'s dtype (bf16 residuals read into float32, the chain
+    float32, its outputs rounded to bf16 once).
 
     Per reverse step t: layer 1's cell backward, ``dh1 <- dg1 w_hh1^T``,
     the hop ``dx1 = dg1 w_ih1^T`` times ``keep[t]`` into layer 0, layer 0's
@@ -276,14 +333,14 @@ def lstm2_bwd_chain_reference(packed: torch.Tensor, keep_tm: torch.Tensor,
     h_dim = w_hh0.shape[0]
 
     def step(t):
-        pk = packed[t]
+        pk = _read(packed[t])
         return (pk[:, RES2_G0 * h_dim:RES2_G1 * h_dim],
                 pk[:, RES2_G1 * h_dim:RES2_C0P * h_dim],
                 pk[:, RES2_C0P * h_dim:RES2_C1P * h_dim],
                 pk[:, RES2_C1P * h_dim:RES2_W * h_dim])
 
-    return _lstm2_chain(packed.shape[0], step, keep_tm, dh_final, w_hh0,
-                        w_hh1, w_ih1)
+    return tuple(dg.to(packed.dtype) for dg in _lstm2_chain(
+        packed.shape[0], step, keep_tm, dh_final, w_hh0, w_hh1, w_ih1))
 
 
 def _lstm2_chain(t_len: int, step, keep_tm: torch.Tensor, dh_final: torch.Tensor,
@@ -348,14 +405,33 @@ LSTM2_TRAIN_FWD_NOGATES = CudaKernel(
     "lstm2_train_fwd", "lstm2_train_fwd_nogates_launch",
     [_P] * 13 + [_I] * 7 + [_P],
 )
+# the bf16 forms of the same sources, counted apart
+LSTM2_TRAIN_FWD_BF16 = CudaKernel(
+    "lstm2_train_fwd", "lstm2_train_fwd_bf16_launch",
+    [_P] * 16 + [_I] * 7 + [_P],
+)
 LSTM2_BWD_CHAIN = CudaKernel(
     "lstm2_bwd_chain", "lstm2_bwd_chain_launch",
     [_P] * 10 + [_I] * 7 + [_P],
+)
+LSTM2_BWD_CHAIN_BF16 = CudaKernel(
+    "lstm2_bwd_chain", "lstm2_bwd_chain_bf16_launch",
+    [_P] * 12 + [_I] * 7 + [_P],
 )
 LSTM2_BWD_CHAIN_REMAT = CudaKernel(
     "lstm2_bwd_chain_remat", "lstm2_bwd_chain_remat_launch",
     [_P] * 18 + [_I] * 10 + [_P],
 )
+
+
+def _fwd_exchange(series: Tuple[int, int, int], device: torch.device):
+    """The float32 exchange of a 2-layer training forward's bf16 form
+    (scratch): each layer's own h in two (B, H) slots, layer 1's input x1 a
+    whole (T, B, H) series (layer 0 runs ahead of layer 1)."""
+    t_len, batch, h_dim = series
+    new = dict(dtype=torch.float32, device=device)
+    return (torch.empty((2, batch, h_dim), **new), torch.empty((2, batch, h_dim), **new),
+            torch.empty(series, **new))
 
 
 def _check_shapes(name: str, **shaped) -> None:
@@ -391,32 +467,55 @@ def _lstm2_fwd_inputs(name: str, x_tm: torch.Tensor, keep_tm: torch.Tensor,
 
 def lstm2_train_fwd_residuals(x_tm: torch.Tensor, keep_tm: torch.Tensor,
                               layer0: Params, layer1: Params,
-                              store_gates: bool = True):
+                              store_gates: bool = True,
+                              res_dtype: torch.dtype = torch.float32):
     """Training forward: x_tm (T, B, D), keep_tm (T, B, H) ->
-    ``(packed, h0_prev, h1_prev, x1, finals)``, all float32; ``packed`` is
-    (T, B, 10H), or (T, B, 2H) without the gates.
+    ``(packed, h0_prev, h1_prev, x1, finals)``; ``packed`` is (T, B, 10H),
+    or (T, B, 2H) without the gates; the series in ``res_dtype`` (float32
+    or bf16), the finals float32.
 
     On a CUDA tensor this launches ``csrc/lstm2_train_fwd.cu`` (one
     cooperative cluster launch for the whole sequence on ``chain_plan_on``'s
     2-layer forward plan: layer 0 on one CTA set, layer 1 on another) and
     counts it in ``LSTM2_TRAIN_FWD.launches``, its no-gates form in
-    ``LSTM2_TRAIN_FWD_NOGATES.launches``; on a CPU tensor it runs
-    ``lstm2_train_fwd_reference``.
+    ``LSTM2_TRAIN_FWD_NOGATES.launches``, its bf16 form in
+    ``LSTM2_TRAIN_FWD_BF16.launches``; on a CPU tensor it runs
+    ``lstm2_train_fwd_reference``.  The no-gates form has no bf16 form: it
+    raises.
     """
+    half = residual_dtype(res_dtype) == torch.bfloat16
+    if half and not store_gates:
+        raise NotImplementedError(
+            "bf16 residual streams with the gates rematerialised "
+            "(runtime.lstm_remat_gates) are not ported yet (ROADMAP.md Queue 1 "
+            "item 13)")
     if x_tm.device.type == "cpu":
         return lstm2_train_fwd_reference(x_tm, keep_tm, layer0, layer1,
-                                         store_gates=store_gates)
+                                         store_gates=store_gates, res_dtype=res_dtype)
     tensors, (t_len, batch, h_dim) = _lstm2_fwd_inputs(
         "lstm2_train_fwd", x_tm, keep_tm, layer0, layer1)
     new = dict(dtype=torch.float32, device=x_tm.device)
     width = RES2_W if store_gates else RES3_W
-    packed = torch.empty((t_len, batch, width * h_dim), **new)
-    # the kernel's CTAs exchange h through the h0p, h1p and x1 series
-    h0p, h1p, x1 = (torch.empty((t_len, batch, h_dim), **new) for _ in range(3))
+    series = (t_len, batch, h_dim)
     finals = torch.empty((4, batch, h_dim), **new)
     carry = torch.zeros((2, batch, h_dim), **new)
     plan, flags = _pair_launch("lstm2_train_fwd", 4, batch, h_dim, x_tm.device,
                                forward=True)
+    if half:
+        res = dict(dtype=torch.bfloat16, device=x_tm.device)
+        packed = torch.empty((t_len, batch, width * h_dim), **res)
+        stored = [torch.empty(series, **res) for _ in range(3)]
+        LSTM2_TRAIN_FWD_BF16(
+            *(t.data_ptr() for t in (*tensors, packed, *stored,
+                                     *_fwd_exchange(series, x_tm.device), finals,
+                                     carry, flags)),
+            batch, t_len, h_dim, plan.upc, plan.ncl, plan.rgroups, plan.kc,
+            stream_of(x_tm),
+        )
+        return (packed, *stored, finals)
+    packed = torch.empty((t_len, batch, width * h_dim), **new)
+    # the kernel's CTAs exchange h through the h0p, h1p and x1 series
+    h0p, h1p, x1 = (torch.empty(series, **new) for _ in range(3))
     (LSTM2_TRAIN_FWD if store_gates else LSTM2_TRAIN_FWD_NOGATES)(
         *(t.data_ptr() for t in tensors), packed.data_ptr(), h0p.data_ptr(),
         h1p.data_ptr(), x1.data_ptr(), finals.data_ptr(), carry.data_ptr(),
@@ -429,12 +528,15 @@ def lstm2_train_fwd_residuals(x_tm: torch.Tensor, keep_tm: torch.Tensor,
 def lstm2_bwd_chain(packed: torch.Tensor, keep_tm: torch.Tensor,
                     dh_final: torch.Tensor, w_hh0: torch.Tensor,
                     w_hh1: torch.Tensor, w_ih1: torch.Tensor, dys=None):
-    """Reverse dgates chain: ``(dg0, dg1)``, each (T, B, 4H) float32.
+    """Reverse dgates chain: ``(dg0, dg1)``, each (T, B, 4H) in
+    ``packed``'s dtype: float32, or bf16 over bf16 residuals (the bf16
+    form).
 
     On a CUDA tensor this launches ``csrc/lstm2_bwd_chain.cu`` (one
     cooperative cluster launch on ``chain_plan_on``'s 2-layer plan: layer 1
     on one CTA set, layer 0 on another) and counts it in
-    ``LSTM2_BWD_CHAIN.launches``; on a CPU tensor it runs
+    ``LSTM2_BWD_CHAIN.launches``, its bf16 form in
+    ``LSTM2_BWD_CHAIN_BF16.launches``; on a CPU tensor it runs
     ``lstm2_bwd_chain_reference``.  ``dys`` (a sequence-output cotangent)
     is not taken: it raises.
     """
@@ -442,6 +544,7 @@ def lstm2_bwd_chain(packed: torch.Tensor, keep_tm: torch.Tensor,
     if packed.device.type == "cpu":
         return lstm2_bwd_chain_reference(packed, keep_tm, dh_final, w_hh0,
                                          w_hh1, w_ih1)
+    half = _half("lstm2_bwd_chain", packed)
     t_len, batch, _ = packed.shape
     h_dim = w_hh0.shape[0]
     keep = keep_tm.to(torch.float32).contiguous()
@@ -455,14 +558,27 @@ def lstm2_bwd_chain(packed: torch.Tensor, keep_tm: torch.Tensor,
     if t_len < 1 or batch < 1:
         raise ValueError(f"lstm2_bwd_chain: empty residuals {tuple(packed.shape)}")
     new = dict(dtype=torch.float32, device=packed.device)
-    dg0 = torch.empty((t_len, batch, 4 * h_dim), **new)
+    # the kernel's CTAs exchange dg through these: the outputs, or in the
+    # bf16 form float32 scratch beside them, layer 0's own rows in two slots
+    # (layer 1's are the hop into layer 0, which runs behind)
+    dg0 = torch.empty((2 if half else t_len, batch, 4 * h_dim), **new)
     dg1 = torch.empty((t_len, batch, 4 * h_dim), **new)
-    check_cuda_f32("lstm2_bwd_chain", packed=packed, keep=keep, dh_final=dh,
-                   w_hh0=w_hh0, w_hh1=w_hh1, w_ih1=w_ih1)
+    check_cuda_f32("lstm2_bwd_chain", keep=keep, dh_final=dh, w_hh0=w_hh0,
+                   w_hh1=w_hh1, w_ih1=w_ih1)
+    check_cuda("lstm2_bwd_chain", packed.dtype, dict(packed=packed))
     plan, flags = _pair_launch("lstm2_bwd_chain", 4, batch, h_dim, packed.device,
                                forward=False)
     # the dc carries, zeros; dh_final enters at layer 1's first step
     carry = torch.zeros((2, batch, h_dim), **new)
+    if half:
+        out = [torch.empty_like(dg1, dtype=torch.bfloat16) for _ in range(2)]
+        LSTM2_BWD_CHAIN_BF16(
+            *(t.data_ptr() for t in (packed, keep, dh, w_hh0, w_hh1, w_ih1, *out, dg0,
+                                     dg1, carry, flags)),
+            batch, t_len, h_dim, plan.upc, plan.ncl, plan.rgroups, plan.kc,
+            stream_of(packed),
+        )
+        return tuple(out)
     LSTM2_BWD_CHAIN(
         packed.data_ptr(), keep.data_ptr(), dh.data_ptr(), w_hh0.data_ptr(),
         w_hh1.data_ptr(), w_ih1.data_ptr(), dg0.data_ptr(), dg1.data_ptr(),
@@ -718,14 +834,16 @@ def lstm2_bwd_chain_legacy(g0: torch.Tensor, g1: torch.Tensor, cp0: torch.Tensor
 # ---------------------------------------------------------------------------
 
 
-def lstm1_train_fwd_reference(ih: torch.Tensor, w_hh: torch.Tensor):
+def lstm1_train_fwd_reference(ih: torch.Tensor, w_hh: torch.Tensor,
+                              res_dtype: torch.dtype = torch.float32):
     """Plain version of one layer's training forward.
 
     ih (T, B, 4H) the hoisted input projection -> ``(g (T, B, 4H),
     h_prev (T, B, H), c_prev (T, B, H), finals (B, 2H) = [h | c])``: the
-    gate pre-activations and the state before each step, from zero state.
-    Differentiable, so autograd through it is a plain reference for the
-    layered gradient.
+    gate pre-activations and the state before each step, from zero state;
+    ``g`` and ``c_prev`` rounded to ``res_dtype``, ``h_prev`` and the finals
+    float32.  Differentiable, so autograd through it is a plain reference
+    for the layered gradient.
     """
     batch, h_dim = ih.shape[1], w_hh.shape[0]
     h = c = ih.new_zeros((batch, h_dim))
@@ -736,8 +854,8 @@ def lstm1_train_fwd_reference(ih: torch.Tensor, w_hh: torch.Tensor):
         hps.append(h)
         cps.append(c)
         h, c = _cell(c, g)
-    return (torch.stack(gs), torch.stack(hps), torch.stack(cps),
-            torch.cat([h, c], dim=-1))
+    return (_stored(torch.stack(gs), res_dtype), torch.stack(hps),
+            _stored(torch.stack(cps), res_dtype), torch.cat([h, c], dim=-1))
 
 
 def h_series(h_prev: torch.Tensor, finals: torch.Tensor) -> torch.Tensor:
@@ -757,7 +875,9 @@ def lstm1_infer_reference(ih: torch.Tensor, w_hh: torch.Tensor,
 def lstm_bwd_chain_reference(g: torch.Tensor, c_prev: torch.Tensor,
                              dh_series, dh_final: torch.Tensor,
                              w_hh: torch.Tensor) -> torch.Tensor:
-    """Plain version of one layer's reverse chain: dgates (T, B, 4H).
+    """Plain version of one layer's reverse chain: dgates (T, B, 4H)
+    float32, over ``g`` and ``c_prev`` in float32 or bf16 (read into
+    float32).
 
     Walks t = T-1 .. 0 with carries dh (``dh_final`` at the start) and dc
     (zero): ``(dg, dc) = cell_bwd(g[t], c_prev[t], dh + dh_series[t], dc)``,
@@ -769,7 +889,7 @@ def lstm_bwd_chain_reference(g: torch.Tensor, c_prev: torch.Tensor,
     dgs = []
     for t in reversed(range(g.shape[0])):
         dh_t = dh if dh_series is None else dh + dh_series[t]
-        dg, dc = _cell_bwd(g[t], c_prev[t], dh_t, dc)
+        dg, dc = _cell_bwd(_read(g[t]), _read(c_prev[t]), dh_t, dc)
         dh = dg @ w_hh.T
         dgs.append(dg)
     return torch.stack(dgs[::-1])
@@ -786,6 +906,13 @@ LSTM1_INFER = CudaKernel(
 LSTM_BWD_CHAIN = CudaKernel(
     "lstm_bwd_chain", "lstm_bwd_chain_launch",
     [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+)
+# the bf16 forms of the same sources, counted apart
+LSTM1_TRAIN_FWD_BF16 = CudaKernel(
+    "lstm1_fwd", "lstm1_fwd_train_bf16_launch", [_P] * 8 + [_I] * 7 + [_P],
+)
+LSTM_BWD_CHAIN_BF16 = CudaKernel(
+    "lstm_bwd_chain", "lstm_bwd_chain_bf16_launch", [_P] * 8 + [_I] * 7 + [_P],
 )
 
 
@@ -1141,27 +1268,32 @@ def _fwd_launch(source: str, width: int, batch: int, h_dim: int,
     return plan, carry, flags
 
 
-def lstm1_train_fwd(ih: torch.Tensor, w_hh: torch.Tensor):
+def lstm1_train_fwd(ih: torch.Tensor, w_hh: torch.Tensor,
+                    res_dtype: torch.dtype = torch.float32):
     """One layer's training forward: ih (T, B, 4H), w_hh (H, 4H) ->
-    ``(g, h_prev, c_prev, finals)``, all float32.
+    ``(g, h_prev, c_prev, finals)``: ``g`` and ``c_prev`` in ``res_dtype``
+    (float32 or bf16), ``h_prev`` and ``finals`` float32.
 
     On a CUDA tensor this launches ``csrc/lstm1_fwd.cu`` (one cooperative
     cluster launch for the whole sequence on ``chain_plan_on``'s forward
-    plan) and counts it in ``LSTM1_TRAIN_FWD.launches``; on a CPU tensor
-    it runs ``lstm1_train_fwd_reference``.
+    plan) and counts it in ``LSTM1_TRAIN_FWD.launches``, its bf16 form in
+    ``LSTM1_TRAIN_FWD_BF16.launches``; on a CPU tensor it runs
+    ``lstm1_train_fwd_reference``.
     """
+    half = residual_dtype(res_dtype) == torch.bfloat16
     if ih.device.type == "cpu":
-        return lstm1_train_fwd_reference(ih, w_hh)
+        return lstm1_train_fwd_reference(ih, w_hh, res_dtype)
     t_len, batch, h_dim = _layer_shapes("lstm1_train_fwd", ih, w_hh)
     ih, w_hh = ih.contiguous(), w_hh.contiguous()
     new = dict(dtype=torch.float32, device=ih.device)
-    g = torch.empty((t_len, batch, 4 * h_dim), **new)
+    res = dict(new, dtype=torch.bfloat16 if half else torch.float32)
+    g = torch.empty((t_len, batch, 4 * h_dim), **res)
     h_prev = torch.empty((t_len, batch, h_dim), **new)
-    c_prev = torch.empty((t_len, batch, h_dim), **new)
+    c_prev = torch.empty((t_len, batch, h_dim), **res)
     finals = torch.empty((batch, 2 * h_dim), **new)
     check_cuda_f32("lstm1_train_fwd", ih=ih, w_hh=w_hh)
     plan, carry, flags = _fwd_launch("lstm1_fwd", 4, batch, h_dim, ih.device)
-    LSTM1_TRAIN_FWD(
+    (LSTM1_TRAIN_FWD_BF16 if half else LSTM1_TRAIN_FWD)(
         ih.data_ptr(), w_hh.data_ptr(), g.data_ptr(), h_prev.data_ptr(),
         c_prev.data_ptr(), finals.data_ptr(), carry.data_ptr(), flags.data_ptr(),
         batch, t_len, h_dim, plan.upc, plan.ncl, plan.rgroups, plan.kc, stream_of(ih),
@@ -1200,15 +1332,18 @@ def lstm_bwd_chain(g: torch.Tensor, c_prev: torch.Tensor, dh_series,
     """One layer's reverse dgates chain: dgates (T, B, 4H) float32.
 
     ``g`` (T, B, 4H) and ``c_prev`` (T, B, H) are ``lstm1_train_fwd``'s
-    residuals, ``dh_series`` (T, B, H) the per-step cotangent from the
-    layer above (``None``: zeros, and the kernel reads nothing),
-    ``dh_final`` (B, H) the final hidden state's.  On a CUDA tensor this
-    launches ``csrc/lstm_bwd_chain.cu`` (one cooperative cluster launch on
-    ``chain_plan_on``'s plan) and counts it in ``LSTM_BWD_CHAIN.launches``;
-    on a CPU tensor it runs ``lstm_bwd_chain_reference``.
+    residuals, both float32 or both bf16 (the bf16 form), ``dh_series``
+    (T, B, H) the per-step cotangent from the layer above (``None``: zeros,
+    and the kernel reads nothing), ``dh_final`` (B, H) the final hidden
+    state's.  On a CUDA tensor this launches ``csrc/lstm_bwd_chain.cu`` (one
+    cooperative cluster launch on ``chain_plan_on``'s plan) and counts it in
+    ``LSTM_BWD_CHAIN.launches``, its bf16 form in
+    ``LSTM_BWD_CHAIN_BF16.launches``; on a CPU tensor it runs
+    ``lstm_bwd_chain_reference``.
     """
     if g.device.type == "cpu":
         return lstm_bwd_chain_reference(g, c_prev, dh_series, dh_final, w_hh)
+    half = _half("lstm_bwd_chain", g, c_prev)
     if g.dim() != 3:
         raise ValueError(f"lstm_bwd_chain: g has shape {tuple(g.shape)}, expected (T, B, 4H)")
     t_len, batch, _ = g.shape
@@ -1218,7 +1353,8 @@ def lstm_bwd_chain(g: torch.Tensor, c_prev: torch.Tensor, dh_series,
     g, c_prev, w_hh = g.contiguous(), c_prev.contiguous(), w_hh.contiguous()
     shaped = dict(g=(g, (t_len, batch, 4 * h_dim)), c_prev=(c_prev, series),
                   dh_final=(dh, (batch, h_dim)), w_hh=(w_hh, (h_dim, 4 * h_dim)))
-    tensors = dict(g=g, c_prev=c_prev, dh_final=dh, w_hh=w_hh)
+    tensors = dict(dh_final=dh, w_hh=w_hh)
+    check_cuda("lstm_bwd_chain", g.dtype, dict(g=g, c_prev=c_prev))
     if dh_series is not None:
         dh_series = dh_series.to(torch.float32).contiguous()
         shaped["dh_series"] = (dh_series, series)
@@ -1232,7 +1368,7 @@ def lstm_bwd_chain(g: torch.Tensor, c_prev: torch.Tensor, dh_series,
     # the dc carry, and the row groups' barrier flags
     carry = torch.zeros((batch, h_dim), dtype=torch.float32, device=g.device)
     flags = torch.zeros(CHAIN_FLAGS, dtype=torch.int32, device=g.device)
-    LSTM_BWD_CHAIN(
+    (LSTM_BWD_CHAIN_BF16 if half else LSTM_BWD_CHAIN)(
         g.data_ptr(), c_prev.data_ptr(),
         dh_series.data_ptr() if dh_series is not None else None,
         dh.data_ptr(), w_hh.data_ptr(), dg.data_ptr(), carry.data_ptr(),
@@ -1280,13 +1416,15 @@ def gru2_infer_reference(x: torch.Tensor, layer0: Params, layer1: Params) -> tor
 
 
 def gru2_train_fwd_reference(x_tm: torch.Tensor, keep_tm: torch.Tensor,
-                             layer0: Params, layer1: Params):
+                             layer0: Params, layer1: Params,
+                             res_dtype: torch.dtype = torch.float32):
     """Plain version of the GRU training forward.
 
     x_tm (T, B, D) time-major, keep_tm (T, B, H) the layer-0 -> 1 keep mask
     -> ``(packed, h0_prev, h1_prev, x1, finals)`` in the module's GRU
-    residual layout.  Differentiable, so autograd through it is a plain
-    reference for the kernel pair's gradients.
+    residual layout, the series rounded to ``res_dtype``, the finals
+    float32.  Differentiable, so autograd through it is a plain reference
+    for the kernel pair's gradients.
     """
     ih0 = _gru_input_projection(x_tm, layer0)
     keep = keep_tm.to(torch.float32)
@@ -1303,8 +1441,8 @@ def gru2_train_fwd_reference(x_tm: torch.Tensor, keep_tm: torch.Tensor,
         h1p.append(h1)
         x1s.append(x1)
         h0, h1 = h0n, h1n
-    return (torch.stack(packed), torch.stack(h0p), torch.stack(h1p),
-            torch.stack(x1s), torch.stack([h0, h1]))
+    return (*(_stored(torch.stack(s), res_dtype) for s in (packed, h0p, h1p, x1s)),
+            torch.stack([h0, h1]))
 
 
 def _gru_cell_bwd(dh: torch.Tensor, h_prev: torch.Tensor, r: torch.Tensor,
@@ -1324,7 +1462,9 @@ def gru2_bwd_chain_reference(packed: torch.Tensor, h0p: torch.Tensor,
                              w_hh1: torch.Tensor, w_ih1: torch.Tensor,
                              dys=None):
     """Plain version of the GRU reverse chain: ``(dih0, dhn0, dih1, dhn1)``,
-    (T, B, 3H) and (T, B, H) per layer.
+    (T, B, 3H) and (T, B, H) per layer, in the residuals' dtype (bf16
+    residuals read into float32, the chain float32, its outputs rounded to
+    bf16 once).
 
     Per reverse step t: layer 1's cell backward, ``dh1 <- dh1 z1 + [dih1[:,
     :2H] | dhn1] w_hh1^T``, the hop ``dx1 = dih1 w_ih1^T`` times ``keep[t]``
@@ -1336,11 +1476,11 @@ def gru2_bwd_chain_reference(packed: torch.Tensor, h0p: torch.Tensor,
     h_dim = w_hh0.shape[0]
 
     def step(t):
-        r0, z0, n0, hn0, r1, z1, n1, hn1 = packed[t].split(h_dim, dim=-1)
-        return (h0p[t], r0, z0, n0, hn0), (h1p[t], r1, z1, n1, hn1)
+        r0, z0, n0, hn0, r1, z1, n1, hn1 = _read(packed[t]).split(h_dim, dim=-1)
+        return (_read(h0p[t]), r0, z0, n0, hn0), (_read(h1p[t]), r1, z1, n1, hn1)
 
-    return _gru2_chain(packed.shape[0], step, keep_tm, dh_final, w_hh0, w_hh1,
-                       w_ih1)
+    return tuple(d.to(packed.dtype) for d in _gru2_chain(
+        packed.shape[0], step, keep_tm, dh_final, w_hh0, w_hh1, w_ih1))
 
 
 def _gru2_chain(t_len: int, step, keep_tm: torch.Tensor, dh_final: torch.Tensor,
@@ -1379,6 +1519,15 @@ GRU2_TRAIN_FWD = CudaKernel(
 GRU2_BWD_CHAIN = CudaKernel(
     "gru2_bwd_chain", "gru2_bwd_chain_launch",
     [_P] * 13 + [_I] * 7 + [_P],
+)
+# the bf16 forms of the same sources, counted apart
+GRU2_TRAIN_FWD_BF16 = CudaKernel(
+    "gru2_train_fwd", "gru2_train_fwd_bf16_launch",
+    [_P] * 18 + [_I] * 7 + [_P],
+)
+GRU2_BWD_CHAIN_BF16 = CudaKernel(
+    "gru2_bwd_chain", "gru2_bwd_chain_bf16_launch",
+    [_P] * 17 + [_I] * 7 + [_P],
 )
 
 
@@ -1439,18 +1588,22 @@ def gru2_infer(x: torch.Tensor, layer0: Params, layer1: Params) -> torch.Tensor:
 
 
 def gru2_train_fwd_residuals(x_tm: torch.Tensor, keep_tm: torch.Tensor,
-                             layer0: Params, layer1: Params):
+                             layer0: Params, layer1: Params,
+                             res_dtype: torch.dtype = torch.float32):
     """GRU training forward: x_tm (T, B, D), keep_tm (T, B, H) ->
-    ``(packed, h0_prev, h1_prev, x1, finals)``, all float32.
+    ``(packed, h0_prev, h1_prev, x1, finals)``, the series in ``res_dtype``
+    (float32 or bf16), the finals float32.
 
     On a CUDA tensor this launches ``csrc/gru2_train_fwd.cu`` (one
     cooperative cluster launch for the whole sequence on ``chain_plan_on``'s
     2-layer forward plan: layer 0 on one CTA set, layer 1 on another) and
-    counts it in ``GRU2_TRAIN_FWD.launches``; on a CPU tensor it runs
+    counts it in ``GRU2_TRAIN_FWD.launches``, its bf16 form in
+    ``GRU2_TRAIN_FWD_BF16.launches``; on a CPU tensor it runs
     ``gru2_train_fwd_reference``.
     """
+    half = residual_dtype(res_dtype) == torch.bfloat16
     if x_tm.device.type == "cpu":
-        return gru2_train_fwd_reference(x_tm, keep_tm, layer0, layer1)
+        return gru2_train_fwd_reference(x_tm, keep_tm, layer0, layer1, res_dtype)
     t_len, batch, _ = x_tm.shape
     h_dim = layer0["w_hh"].shape[0]
     if t_len < 1 or batch < 1:
@@ -1460,15 +1613,28 @@ def gru2_train_fwd_residuals(x_tm: torch.Tensor, keep_tm: torch.Tensor,
     w = _gru_weights("gru2_train_fwd", h_dim, layer0, layer1)
     _check_shapes("gru2_train_fwd", keep=(keep, (t_len, batch, h_dim)))
     new = dict(dtype=torch.float32, device=x_tm.device)
-    packed = torch.empty((t_len, batch, GRU_RES2_W * h_dim), **new)
-    # the kernel's CTAs exchange h through the h0p, h1p and x1 series
-    h0p, h1p, x1 = (torch.empty((t_len, batch, h_dim), **new) for _ in range(3))
+    series = (t_len, batch, h_dim)
     finals = torch.empty((2, batch, h_dim), **new)
     carry = torch.zeros((2, batch, h_dim), **new)
     check_cuda_f32("gru2_train_fwd", ih0=ih0, keep=keep, w_hh0=w[0], b_hh0=w[1],
                    w_ih1=w[2], b_ih1=w[3], w_hh1=w[4], b_hh1=w[5])
     plan, flags = _pair_launch("gru2_train_fwd", 3, batch, h_dim, x_tm.device,
                                forward=True)
+    if half:
+        res = dict(dtype=torch.bfloat16, device=x_tm.device)
+        packed = torch.empty((t_len, batch, GRU_RES2_W * h_dim), **res)
+        stored = [torch.empty(series, **res) for _ in range(3)]
+        GRU2_TRAIN_FWD_BF16(
+            *(t.data_ptr() for t in (ih0, keep, *w, packed, *stored,
+                                     *_fwd_exchange(series, x_tm.device), finals, carry,
+                                     flags)),
+            batch, t_len, h_dim, plan.upc, plan.ncl, plan.rgroups, plan.kc,
+            stream_of(x_tm),
+        )
+        return (packed, *stored, finals)
+    packed = torch.empty((t_len, batch, GRU_RES2_W * h_dim), **new)
+    # the kernel's CTAs exchange h through the h0p, h1p and x1 series
+    h0p, h1p, x1 = (torch.empty(series, **new) for _ in range(3))
     GRU2_TRAIN_FWD(
         ih0.data_ptr(), keep.data_ptr(), *(t.data_ptr() for t in w),
         packed.data_ptr(), h0p.data_ptr(), h1p.data_ptr(), x1.data_ptr(),
@@ -1483,11 +1649,13 @@ def gru2_bwd_chain(packed: torch.Tensor, h0p: torch.Tensor, h1p: torch.Tensor,
                    w_hh0: torch.Tensor, w_hh1: torch.Tensor, w_ih1: torch.Tensor,
                    dys=None):
     """GRU reverse chain: ``(dih0, dhn0, dih1, dhn1)``, (T, B, 3H) and
-    (T, B, H) per layer, float32.
+    (T, B, H) per layer, in the residuals' dtype: float32, or bf16 over
+    bf16 ``packed``, ``h0p`` and ``h1p`` (the bf16 form).
 
     On a CUDA tensor this launches ``csrc/gru2_bwd_chain.cu`` (one
     cooperative cluster launch on ``chain_plan_on``'s 2-layer plan) and
-    counts it in ``GRU2_BWD_CHAIN.launches``; on a CPU tensor it runs
+    counts it in ``GRU2_BWD_CHAIN.launches``, its bf16 form in
+    ``GRU2_BWD_CHAIN_BF16.launches``; on a CPU tensor it runs
     ``gru2_bwd_chain_reference``.  ``dys`` (a sequence-output cotangent) is
     not taken: it raises.
     """
@@ -1495,6 +1663,7 @@ def gru2_bwd_chain(packed: torch.Tensor, h0p: torch.Tensor, h1p: torch.Tensor,
     if packed.device.type == "cpu":
         return gru2_bwd_chain_reference(packed, h0p, h1p, keep_tm, dh_final,
                                         w_hh0, w_hh1, w_ih1)
+    half = _half("gru2_bwd_chain", packed, h0p, h1p)
     t_len, batch, _ = packed.shape
     h_dim = w_hh0.shape[0]
     keep = keep_tm.to(torch.float32).contiguous()
@@ -1510,15 +1679,32 @@ def gru2_bwd_chain(packed: torch.Tensor, h0p: torch.Tensor, h1p: torch.Tensor,
     if t_len < 1 or batch < 1:
         raise ValueError(f"gru2_bwd_chain: empty residuals {tuple(packed.shape)}")
     new = dict(dtype=torch.float32, device=packed.device)
-    dih0, dih1 = (torch.empty((t_len, batch, 3 * h_dim), **new) for _ in range(2))
-    dhn0, dhn1 = (torch.empty(series, **new) for _ in range(2))
-    check_cuda_f32("gru2_bwd_chain", packed=packed, h0p=h0p, h1p=h1p, keep=keep,
-                   dh_final=dh, w_hh0=w_hh0, w_hh1=w_hh1, w_ih1=w_ih1)
+    # the kernel's CTAs exchange [dih[:, :2H] | dhn] and dih through these:
+    # the outputs, or in the bf16 form float32 scratch beside them, layer
+    # 0's own rows in two slots (layer 1's dih is the hop into layer 0,
+    # which runs behind)
+    rows0 = 2 if half else t_len
+    dih0 = torch.empty((rows0, batch, 3 * h_dim), **new)
+    dhn0 = torch.empty((rows0, batch, h_dim), **new)
+    dih1 = torch.empty((t_len, batch, 3 * h_dim), **new)
+    dhn1 = torch.empty(series, **new)
+    check_cuda_f32("gru2_bwd_chain", keep=keep, dh_final=dh, w_hh0=w_hh0, w_hh1=w_hh1,
+                   w_ih1=w_ih1)
+    check_cuda("gru2_bwd_chain", packed.dtype, dict(packed=packed, h0p=h0p, h1p=h1p))
     plan, flags = _pair_launch("gru2_bwd_chain", 3, batch, h_dim, packed.device,
                                forward=False)
     # the direct parts' carries: layer 0's starts at zero, layer 1's as
     # dh_final
     carry = torch.cat([torch.zeros_like(dh), dh]).contiguous()
+    if half:
+        out = [torch.empty_like(d, dtype=torch.bfloat16) for d in (dih1, dhn1) * 2]
+        GRU2_BWD_CHAIN_BF16(
+            *(t.data_ptr() for t in (packed, h0p, h1p, keep, w_hh0, w_hh1, w_ih1, *out,
+                                     dih0, dhn0, dih1, dhn1, carry, flags)),
+            batch, t_len, h_dim, plan.upc, plan.ncl, plan.rgroups, plan.kc,
+            stream_of(packed),
+        )
+        return tuple(out)
     GRU2_BWD_CHAIN(
         packed.data_ptr(), h0p.data_ptr(), h1p.data_ptr(), keep.data_ptr(),
         w_hh0.data_ptr(), w_hh1.data_ptr(), w_ih1.data_ptr(),

@@ -48,6 +48,19 @@ same function as the residual-native pair; ``remat_gates`` is not read
 there, as in the JAX package, whose remat route needs the residual-native
 one.
 
+``res_dtype`` (``runtime.lstm_residual_dtype``; the JAX package's
+``set_res2_dtype``, here an argument) set to ``torch.bfloat16`` stores the
+residual streams in bf16 on the residual-native pairs and the layered
+LSTM, as the JAX package does: the pairs' ``packed``, h_prev and x1
+series and their chains' outputs, the layered LSTM's g and c_prev (its
+h_prev stays float32).  The forward's value stays the float32 one bit for
+bit.  The weight gradients are then products of bf16 series read into
+float32 (exact products, float32 sums: the JAX package's bf16 x bf16
+contraction with float32 accumulation), x rounded to bf16 for dW_ih0 as
+the JAX package rounds it.  The legacy routes and the layered GRU ignore
+it, as the JAX package does; the gate-rematerialising pair refuses it
+(ROADMAP.md Queue 1 item 13).
+
 On the card the recurrences are hand-written kernels; on the CPU the same
 Functions run their plain versions.  The keep masks are dropout draws and
 get no gradient.
@@ -84,6 +97,7 @@ from multimodal_emotion_detection_tpu_torch.ops.lstm_kernel import (
     lstm2_train_fwd_legacy,
     lstm2_train_fwd_residuals,
     lstm_bwd_chain,
+    residual_dtype,
 )
 
 # the card the CPU mirrors when it picks a route: an H100's SM count
@@ -118,7 +132,7 @@ LONG_T = 2048
 
 def stack_residual_bytes(cell: str, layers: int, hidden: int, d_in: int,
                          batch: int, t_len: int, route: str,
-                         remat_gates: bool = False) -> int:
+                         remat_gates: bool = False, res_dtype="float32") -> int:
     """The most bytes one training forward + backward of a stack holds on
     the card at once: the residuals it saves, the keep mask, the forward's
     input projection while it runs and the backward's chain outputs, all
@@ -127,6 +141,7 @@ def stack_residual_bytes(cell: str, layers: int, hidden: int, d_in: int,
     ``"pair"`` (the residual-native pair, the LSTM's with ``remat_gates``),
     ``"legacy"`` (the pair under ``set_res2_mode("off")``) or ``"layered"``;
     the weights and the weight gradients, a few MB, are not counted.
+    ``res_dtype`` "bfloat16" counts the bf16 streams (``_bf16_bytes``).
 
     In units of ``T B`` floats, with D the input width: the LSTM pair holds
     x D, keep H, packed 10H (2H without the gates), h0p / h1p / x1 3H, then
@@ -140,6 +155,9 @@ def stack_residual_bytes(cell: str, layers: int, hidden: int, d_in: int,
     hop (9H) at once."""
     if cell not in ("lstm", "gru") or route not in ("pair", "legacy", "layered"):
         raise ValueError(f"stack_residual_bytes: no {route!r} route of a {cell!r} stack")
+    if residual_dtype(res_dtype) == torch.bfloat16 and route != "legacy" and (
+            route == "pair" or cell == "lstm"):
+        return _bf16_bytes(cell, layers, hidden, d_in, route) * batch * t_len
     h, d = hidden, d_in
     gates = 4 if cell == "lstm" else 3
     if route == "layered":
@@ -169,6 +187,41 @@ def stack_residual_bytes(cell: str, layers: int, hidden: int, d_in: int,
     return 4 * floats * batch * t_len
 
 
+def _bf16_bytes(cell: str, layers: int, h: int, d: int, route: str) -> int:
+    """``stack_residual_bytes`` per (T B) with bf16 residual streams: 2
+    bytes a value of a bf16 series, 4 of a float32 one.
+
+    The pairs hold x rounded to bf16 (D), keep (H, float32), packed (LSTM
+    10H, GRU 8H) and h0p / h1p / x1 (3H) in bf16.  Their forward adds x's
+    float32 copy and ih0 (4D + 4 gates H, float32) and its float32
+    exchange, x1 (H; each layer's own h takes two (B, H) slots, not
+    counted); their chain the float32 exchange of layer 1 (LSTM dg1 4H, GRU
+    dih1 and dhn1 4H; layer 0's two slots not counted) beside the bf16
+    outputs of both layers (8H); then the weight gradients read a layer's
+    outputs and an h series into float32 (5H) beside those outputs.  The
+    layered LSTM holds g and c_prev (5H) in bf16, h_prev (H) float32, so a
+    layer's residuals take 14 bytes of the float32 route's 24 a unit."""
+    gates = 4 if cell == "lstm" else 3
+    if route == "layered":
+        saved = 14 * h
+        live = 4 * (d + (layers - 1) * h)  # the input and the keep masks
+        peak = 0
+        for layer in range(layers):
+            # the projection's product and sum, then ih beside the kernel's
+            # outputs; between layers the h series and its masked copy
+            peak = max(peak, live + max(8 * gates * h, 4 * gates * h + saved))
+            live += saved
+            if layer < layers - 1:
+                peak = max(peak, live + 8 * h)
+                live += 4 * h
+        return max(peak, live + (36 * h if layers > 1 else 16 * h))
+    packed = 10 * h if cell == "lstm" else 8 * h
+    held = 2 * d + 4 * h + 2 * (packed + 3 * h)
+    fwd = held + 4 * d + 4 * gates * h + 4 * h
+    chain = held + 4 * 4 * h + 2 * 8 * h
+    return max(fwd, chain, held + 2 * 8 * h + 4 * 5 * h)
+
+
 def card_free_bytes(device: torch.device) -> int:
     """What the card can still give this process: the CUDA runtime's free bytes
     and the allocator's reserved but unallocated ones."""
@@ -178,12 +231,13 @@ def card_free_bytes(device: torch.device) -> int:
 
 def check_residual_budget(cell: str, layers: int, hidden: int, d_in: int, batch: int,
                           t_len: int, route: str, free_bytes: int,
-                          remat_gates: bool = False, held: int = 0) -> None:
+                          remat_gates: bool = False, held: int = 0,
+                          res_dtype="float32") -> None:
     """Raise ``NotImplementedError`` where the stack's training residuals
     (``stack_residual_bytes``, less the ``held`` bytes of its inputs the
     caller already holds) exceed ``free_bytes``."""
     need = stack_residual_bytes(cell, layers, hidden, d_in, batch, t_len, route,
-                                remat_gates) - held
+                                remat_gates, res_dtype) - held
     if need > free_bytes:
         raise NotImplementedError(
             f"a {layers}-layer {cell.upper()} of {hidden} units over {t_len} steps at "
@@ -194,18 +248,34 @@ def check_residual_budget(cell: str, layers: int, hidden: int, d_in: int, batch:
 
 
 def _check_long(cell: str, x: torch.Tensor, keep: torch.Tensor, layers: int,
-                hidden: int, route: str, remat_gates: bool = False) -> None:
+                hidden: int, route: str, remat_gates: bool = False,
+                res_dtype=torch.float32) -> None:
     """A training forward on the card past ``LONG_T`` steps checks its
     residual budget before it allocates anything."""
     if x.device.type != "cuda" or x.shape[1] <= LONG_T:
         return
     check_residual_budget(cell, layers, hidden, x.shape[2], x.shape[0], x.shape[1],
                           route, card_free_bytes(x.device), remat_gates,
-                          held=keep.numel() * keep.element_size())
+                          held=keep.numel() * keep.element_size(), res_dtype=res_dtype)
 
 
 def _flat(a: torch.Tensor) -> torch.Tensor:
     return a.reshape(a.shape[0] * a.shape[1], -1)
+
+
+def _flat32(a: torch.Tensor) -> torch.Tensor:
+    """A (T, B, .) series flattened to (T*B, .) in float32: a bf16 series
+    read into float32, where products of bf16 values are exact, so the
+    weight gradients are the JAX package's bf16 x bf16 contractions
+    accumulating in float32, with a float32 result."""
+    return _flat(a).to(torch.float32)
+
+
+def _layer_grads(x_l, h_prev, dg):
+    """One LSTM layer's hoisted weight gradients ``(dW_ih, dW_hh, db)``
+    from its input series, its h_prev series and its chain's dgates."""
+    dgf = _flat32(dg)
+    return _flat32(x_l).T @ dgf, _flat32(h_prev).T @ dgf, dgf.sum(0)
 
 
 def lstm_route(num_layers: int, hidden: int, sm_count: int) -> str:
@@ -228,18 +298,21 @@ def sm_count(device: torch.device) -> int:
 
 
 class FusedLSTMFinal(torch.autograd.Function):
-    """(x (B, T, D), keep (T, B, H), remat_gates, w_ih0, w_hh0, b0, w_ih1,
-    w_hh1, b1) -> final hidden state of layer 1 (B, H)."""
+    """(x (B, T, D), keep (T, B, H), remat_gates, res_dtype, w_ih0, w_hh0,
+    b0, w_ih1, w_hh1, b1) -> final hidden state of layer 1 (B, H)."""
 
     @staticmethod
-    def forward(ctx, x, keep, remat_gates, w_ih0, w_hh0, b0, w_ih1, w_hh1, b1):
+    def forward(ctx, x, keep, remat_gates, res_dtype, w_ih0, w_hh0, b0, w_ih1, w_hh1,
+                b1):
         x_tm = x.to(torch.float32).transpose(0, 1).contiguous()
         layer0 = {"w_ih": w_ih0, "w_hh": w_hh0, "b": b0}
         layer1 = {"w_ih": w_ih1, "w_hh": w_hh1, "b": b1}
         packed, h0p, h1p, x1, finals = lstm2_train_fwd_residuals(
-            x_tm, keep, layer0, layer1, store_gates=not remat_gates)
+            x_tm, keep, layer0, layer1, store_gates=not remat_gates,
+            res_dtype=res_dtype)
         ctx.remat_gates = remat_gates
-        ctx.save_for_backward(x_tm, keep, packed, h0p, h1p, x1,
+        # x only forms dW_ih0, in the streams' dtype as the JAX package has it
+        ctx.save_for_backward(x_tm.to(res_dtype), keep, packed, h0p, h1p, x1,
                               w_ih0, w_hh0, b0, w_ih1, w_hh1, b1)
         return finals[2].clone()
 
@@ -254,28 +327,27 @@ class FusedLSTMFinal(torch.autograd.Function):
                 {"w_ih": w_ih1, "w_hh": w_hh1, "b": b1})
         else:
             dg0, dg1 = lstm2_bwd_chain(packed, keep, dh_final, w_hh0, w_hh1, w_ih1)
-        dg0f, dg1f = _flat(dg0), _flat(dg1)
         dx = None
         if ctx.needs_input_grad[0]:
-            dx = (dg0 @ w_ih0.T).transpose(0, 1)
-        return (dx, None, None,
-                _flat(x_tm).T @ dg0f, _flat(h0p).T @ dg0f, dg0f.sum(0),
-                _flat(x1).T @ dg1f, _flat(h1p).T @ dg1f, dg1f.sum(0))
+            dx = (dg0.to(torch.float32) @ w_ih0.T).transpose(0, 1)
+        return (dx, None, None, None, *_layer_grads(x_tm, h0p, dg0),
+                *_layer_grads(x1, h1p, dg1))
 
 
 class LayeredLSTMFinal(torch.autograd.Function):
-    """(x (B, T, D), keep (T, L-1, B, H), w_ih0, w_hh0, b0, ..., w_ih_{L-1},
-    w_hh_{L-1}, b_{L-1}) -> final hidden state of the top layer (B, H)."""
+    """(x (B, T, D), keep (T, L-1, B, H), res_dtype, w_ih0, w_hh0, b0, ...,
+    w_ih_{L-1}, w_hh_{L-1}, b_{L-1}) -> final hidden state of the top layer
+    (B, H)."""
 
     @staticmethod
-    def forward(ctx, x, keep, *weights):
+    def forward(ctx, x, keep, res_dtype, *weights):
         n_layers = len(weights) // 3
         x_l = x.to(torch.float32).transpose(0, 1).contiguous()
         residuals = []
         for layer in range(n_layers):
             w_ih, w_hh, b = weights[3 * layer:3 * layer + 3]
             g, h_prev, c_prev, finals = lstm1_train_fwd(
-                torch.matmul(x_l, w_ih) + b, w_hh)
+                torch.matmul(x_l, w_ih) + b, w_hh, res_dtype)
             residuals += [x_l, g, h_prev, c_prev]
             if layer < n_layers - 1:
                 x_l = h_series(h_prev, finals) * keep[:, layer]
@@ -295,15 +367,13 @@ class LayeredLSTMFinal(torch.autograd.Function):
             w_ih, w_hh = weights[3 * layer], weights[3 * layer + 1]
             dhf = dh_final if layer == n_layers - 1 else torch.zeros_like(dh_final)
             dg = lstm_bwd_chain(g, c_prev, dh_series, dhf, w_hh)
-            dgf = _flat(dg)
-            grads[3 * layer:3 * layer + 3] = [
-                _flat(x_l).T @ dgf, _flat(h_prev).T @ dgf, dgf.sum(0)]
+            grads[3 * layer:3 * layer + 3] = _layer_grads(x_l, h_prev, dg)
             if layer > 0:
                 dh_series = torch.matmul(dg, w_ih.T) * keep[:, layer - 1]
         dx = None
         if ctx.needs_input_grad[0]:
             dx = torch.matmul(dg, weights[0].T).transpose(0, 1)
-        return (dx, None, *grads)
+        return (dx, None, None, *grads)
 
 
 def _shift(a: torch.Tensor) -> torch.Tensor:
@@ -336,35 +406,45 @@ class LegacyLSTMFinal(torch.autograd.Function):
          w_ih0, w_hh0, w_ih1, w_hh1) = ctx.saved_tensors
         dg0, dg1 = lstm2_bwd_chain_legacy(g0, g1, c0p, c1p, None, keep, dh_final,
                                           w_hh0, w_hh1, w_ih1)
-        dg0f, dg1f = _flat(dg0), _flat(dg1)
         dx = None
         if ctx.needs_input_grad[0]:
             dx = (dg0 @ w_ih0.T).transpose(0, 1)
-        return (dx, None,
-                _flat(x_tm).T @ dg0f, _flat(h0p).T @ dg0f, dg0f.sum(0),
-                _flat(x1).T @ dg1f, _flat(h1p).T @ dg1f, dg1f.sum(0))
+        return (dx, None, *_layer_grads(x_tm, h0p, dg0), *_layer_grads(x1, h1p, dg1))
 
 
 def fused_lstm_final(x: torch.Tensor, keep: torch.Tensor,
-                     layers: Sequence[Params], remat_gates: bool = False) -> torch.Tensor:
+                     layers: Sequence[Params], remat_gates: bool = False,
+                     res_dtype=torch.float32) -> torch.Tensor:
     """x (B, T, D), keep (T, L-1, B, H) the inter-layer keep masks ->
     the top layer's final hidden state (B, H), differentiable in x and
     every layer's parameters.  The route is ``lstm_route``'s; on the pair
     route ``set_res2_mode("off")`` takes the legacy layout, and only the
-    residual-native pair reads ``remat_gates``, as in the JAX package.  On
-    the card past ``LONG_T`` steps a stack whose residuals do not fit raises
+    residual-native pair reads ``remat_gates``, as in the JAX package.
+    ``res_dtype`` (``residual_dtype``'s: "float32", "bfloat16" or the torch
+    dtype) is the residual streams' on the residual-native pair and the
+    layered route; the legacy route ignores it, and with ``remat_gates``
+    bf16 is refused (ROADMAP.md Queue 1 item 13).  On the card past
+    ``LONG_T`` steps a stack whose residuals do not fit raises
     (``check_residual_budget``)."""
+    res_dtype = residual_dtype(res_dtype)
     weights = [p[name] for p in layers for name in ("w_ih", "w_hh", "b")]
     h_dim = layers[0]["w_hh"].shape[0]
     route = lstm_route(len(layers), h_dim, sm_count(x.device))
     if route == "pair" and _RES2_MODE == "off":
         route = "legacy"
-    _check_long("lstm", x, keep, len(layers), h_dim, route, bool(remat_gates))
+    if route == "legacy":
+        res_dtype = torch.float32
+    if route == "pair" and remat_gates and res_dtype == torch.bfloat16:
+        raise NotImplementedError(
+            "bf16 residual streams (runtime.lstm_residual_dtype) with the gates "
+            "rematerialised (runtime.lstm_remat_gates) are not ported yet "
+            "(ROADMAP.md Queue 1 item 13)")
+    _check_long("lstm", x, keep, len(layers), h_dim, route, bool(remat_gates), res_dtype)
     if route == "legacy":
         return LegacyLSTMFinal.apply(x, keep[:, 0], *weights)
     if route == "pair":
-        return FusedLSTMFinal.apply(x, keep[:, 0], bool(remat_gates), *weights)
-    return LayeredLSTMFinal.apply(x, keep, *weights)
+        return FusedLSTMFinal.apply(x, keep[:, 0], bool(remat_gates), res_dtype, *weights)
+    return LayeredLSTMFinal.apply(x, keep, res_dtype, *weights)
 
 
 def check_gru_stack(hidden: int, sm_count: int) -> None:
@@ -382,27 +462,29 @@ def check_gru_stack(hidden: int, sm_count: int) -> None:
 def _gru_layer_grads(x_l, h_prev, dih, dhn):
     """One GRU layer's hoisted weight gradients ``(dW_ih, dW_hh, db_ih,
     db_hh)`` from its chain's ``dih`` and ``dhn`` (the shared-lane
-    assembly of ``dhh``)."""
+    assembly of ``dhh``), bf16 series read into float32 (``_flat32``)."""
     h_dim = dhn.shape[-1]
-    dih_f, dhn_f, hp_t = _flat(dih), _flat(dhn), _flat(h_prev).T
+    dih_f, dhn_f, hp_t = _flat32(dih), _flat32(dhn), _flat32(h_prev).T
     db_ih = dih_f.sum(0)
-    return (_flat(x_l).T @ dih_f,
+    return (_flat32(x_l).T @ dih_f,
             torch.cat([hp_t @ dih_f[:, :2 * h_dim], hp_t @ dhn_f], dim=1),
             db_ih, torch.cat([db_ih[:2 * h_dim], dhn_f.sum(0)]))
 
 
 class FusedGRUFinal(torch.autograd.Function):
-    """(x (B, T, D), keep (T, B, H), w_ih0, w_hh0, b_ih0, b_hh0, w_ih1,
-    w_hh1, b_ih1, b_hh1) -> final hidden state of layer 1 (B, H)."""
+    """(x (B, T, D), keep (T, B, H), res_dtype, w_ih0, w_hh0, b_ih0, b_hh0,
+    w_ih1, w_hh1, b_ih1, b_hh1) -> final hidden state of layer 1 (B, H)."""
 
     @staticmethod
-    def forward(ctx, x, keep, w_ih0, w_hh0, b_ih0, b_hh0, w_ih1, w_hh1, b_ih1, b_hh1):
+    def forward(ctx, x, keep, res_dtype, w_ih0, w_hh0, b_ih0, b_hh0, w_ih1, w_hh1, b_ih1,
+                b_hh1):
         x_tm = x.to(torch.float32).transpose(0, 1).contiguous()
         layer0 = {"w_ih": w_ih0, "w_hh": w_hh0, "b_ih": b_ih0, "b_hh": b_hh0}
         layer1 = {"w_ih": w_ih1, "w_hh": w_hh1, "b_ih": b_ih1, "b_hh": b_hh1}
         packed, h0p, h1p, x1, finals = gru2_train_fwd_residuals(
-            x_tm, keep, layer0, layer1)
-        ctx.save_for_backward(x_tm, keep, packed, h0p, h1p, x1,
+            x_tm, keep, layer0, layer1, res_dtype)
+        # x only forms dW_ih0, in the streams' dtype as the JAX package has it
+        ctx.save_for_backward(x_tm.to(res_dtype), keep, packed, h0p, h1p, x1,
                               w_ih0, w_hh0, w_ih1, w_hh1)
         return finals[1].clone()
 
@@ -414,8 +496,8 @@ class FusedGRUFinal(torch.autograd.Function):
                                                 w_hh0, w_hh1, w_ih1)
         dx = None
         if ctx.needs_input_grad[0]:
-            dx = (dih0 @ w_ih0.T).transpose(0, 1)
-        return (dx, None, *_gru_layer_grads(x_tm, h0p, dih0, dhn0),
+            dx = (dih0.to(torch.float32) @ w_ih0.T).transpose(0, 1)
+        return (dx, None, None, *_gru_layer_grads(x_tm, h0p, dih0, dhn0),
                 *_gru_layer_grads(x1, h1p, dih1, dhn1))
 
 
@@ -523,14 +605,16 @@ def gru_bwd_layered_legacy(res0, res1, dys, keep_tm: torch.Tensor,
 
 
 def fused_gru_final(x: torch.Tensor, keep: torch.Tensor,
-                    layers: Sequence[Params]) -> torch.Tensor:
+                    layers: Sequence[Params], res_dtype=torch.float32) -> torch.Tensor:
     """x (B, T, D), keep (T, L-1, B, H) the inter-layer keep masks -> the
     top layer's final hidden state (B, H), differentiable in x and every
     layer's parameters.  The route is ``gru_route``'s, on the pair route
-    ``set_res2_mode("off")`` takes the legacy layout; a width that
-    ``check_gru_stack`` refuses raises, on the CPU as on the card, and on
-    the card past ``LONG_T`` steps a stack whose residuals do not fit
-    (``check_residual_budget``)."""
+    ``set_res2_mode("off")`` takes the legacy layout; ``res_dtype`` is the
+    residual streams' on the residual-native pair, which alone reads it, as
+    in the JAX package.  A width that ``check_gru_stack`` refuses raises,
+    on the CPU as on the card, and on the card past ``LONG_T`` steps a
+    stack whose residuals do not fit (``check_residual_budget``)."""
+    res_dtype = residual_dtype(res_dtype)
     h_dim = layers[0]["w_hh"].shape[0]
     sms = sm_count(x.device)
     check_gru_stack(h_dim, sms)
@@ -538,9 +622,11 @@ def fused_gru_final(x: torch.Tensor, keep: torch.Tensor,
     route = gru_route(len(layers), h_dim, sms)
     if route == "pair" and _RES2_MODE == "off":
         route = "legacy"
-    _check_long("gru", x, keep, len(layers), h_dim, route)
+    if route != "pair":
+        res_dtype = torch.float32
+    _check_long("gru", x, keep, len(layers), h_dim, route, res_dtype=res_dtype)
     if route == "legacy":
         return LegacyGRUFinal.apply(x, keep[:, 0], *weights)
     if route == "pair":
-        return FusedGRUFinal.apply(x, keep[:, 0], *weights)
+        return FusedGRUFinal.apply(x, keep[:, 0], res_dtype, *weights)
     return LayeredGRUFinal.apply(x, keep, *weights)

@@ -60,10 +60,11 @@ def refuse_outside_slice(config) -> None:
     """Raise ``NotImplementedError`` naming the ``ROADMAP.md`` item for a
     training configuration the port does not run yet."""
     rt = config.runtime
-    if rt.lstm_residual_dtype != "float32":
+    if rt.lstm_residual_dtype == "bfloat16" and rt.lstm_remat_gates:
         raise NotImplementedError(
-            f"runtime.lstm_residual_dtype={rt.lstm_residual_dtype!r}: only "
-            "float32 residual streams are ported (ROADMAP.md Queue 1 item 13)")
+            "runtime.lstm_residual_dtype='bfloat16' with runtime.lstm_remat_gates: "
+            "the gate-rematerialising pair's bf16 form is not ported yet "
+            "(ROADMAP.md Queue 1 item 13)")
     if rt.profile_dir:
         raise NotImplementedError(
             "runtime.profile_dir is not ported yet (ROADMAP.md Queue 1 item 5)")

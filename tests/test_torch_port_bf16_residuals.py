@@ -1,0 +1,507 @@
+"""PyTorch port, bf16 residual streams (``runtime.lstm_residual_dtype:
+"bfloat16"``, ``configs/fast.yaml``): the plain versions of the six
+kernels' bf16 forms against the JAX package's Pallas kernels with
+``res_dtype=bfloat16`` (interpret mode), ``fused_lstm_final`` (the pair and
+the layered route at 3 layers) and ``fused_gru_final`` against ``jax.grad``
+under ``set_res2_dtype("bfloat16")``, a 5-step trajectory of fast.yaml's
+model against JAX ``make_train_step``, the train and predict CLIs on
+fast.yaml, the residual budget in bf16 and the refusals.
+
+Inputs, weights and keep masks come from numpy seeds; JAX runs at matmul
+precision "highest", at the shapes its kernels take (B 8, H 128).  The
+tolerances, and why:
+
+* a stored bf16 series is its float32 value rounded once; the port's and
+  JAX's float32 values differ by ~1e-7, which rounds to the other side of
+  a bf16 rounding boundary for a few elements, so a series is held to one
+  bf16 ulp per element (or, for a value near zero, where ~1e-7 spans
+  several ulps, 1e-6 of the series' largest entry), with the share of
+  elements off under 1%;
+* the finals (float32) to 1e-5, the float32 chain output (row 4) to 1e-5
+  of its largest entry, a bf16 chain output to one bf16 ulp + 1e-6 of the
+  largest entry;
+* gradients to 2e-3 of the largest entry: a residual a bf16 ulp off on
+  the two sides moves the chain by up to ~4e-3 relative in the elements it
+  feeds, and the weight-gradient sums average that down (measured 1e-6 ..
+  2e-4 here); the bf16 gradients must also differ from the port's own
+  float32 ones by more than their distance from JAX, or the rounding did
+  not engage;
+* the trajectory's losses to 1e-4 and parameters to 5e-4 of each tensor's
+  largest entry: Adam turns a gradient's bf16-level difference into a step
+  difference of up to the learning rate where the gradient is small.  A
+  tensor that starts at zero (a bias) holds only its first warm-up steps
+  (lr 1e-5 .. 5e-5), so its largest entry is floored at 1e-2 (5e-6, a
+  fraction of one such step; 7.8e-7 was measured where 5e-7 failed).
+"""
+
+import contextlib
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import multimodal_emotion_detection_tpu.ops.lstm_vjp as jax_lstm_vjp
+from multimodal_emotion_detection_tpu.config import load_config as jax_load_config
+from multimodal_emotion_detection_tpu.models.classifier import (
+    classifier_from_config as jax_classifier_from_config,
+)
+from multimodal_emotion_detection_tpu.ops.lstm_kernel import (
+    gru2_bwd_chain_res_padded,
+    gru2_train_fwd_residuals as jax_gru2_train_fwd,
+    lstm1_train_fwd_pallas,
+    lstm2_bwd_chain_padded,
+    lstm2_train_fwd_residuals as jax_lstm2_train_fwd,
+    lstm_bwd_chain_pallas,
+)
+from multimodal_emotion_detection_tpu.training import optim as jax_optim
+from multimodal_emotion_detection_tpu.training.steps import (
+    create_train_state,
+    make_train_step,
+)
+from multimodal_emotion_detection_tpu_torch import train as port_train
+from multimodal_emotion_detection_tpu_torch.config import load_config
+from multimodal_emotion_detection_tpu_torch.models.classifier import (
+    classifier_from_config,
+)
+from multimodal_emotion_detection_tpu_torch.models.noise import Noise
+from multimodal_emotion_detection_tpu_torch.models.recurrent import FusedStackedRNN
+from multimodal_emotion_detection_tpu_torch.ops import lstm_kernel, lstm_vjp
+from multimodal_emotion_detection_tpu_torch.tools.predict import main as port_predict
+from multimodal_emotion_detection_tpu_torch.training import optim
+from multimodal_emotion_detection_tpu_torch.training.loop import refuse_outside_slice
+from multimodal_emotion_detection_tpu_torch.training.steps import train_step
+from multimodal_emotion_detection_tpu_torch.utils.weights import (
+    state_dict_from_jax_params,
+)
+
+ROOT = Path(__file__).resolve().parents[1]
+FAST = str(ROOT / "configs" / "fast.yaml")
+B, T, D, H = 8, 21, 12, 128
+BF16 = torch.bfloat16
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    # the suite runs several test workers on the same cores; at these tiny
+    # shapes a multi-threaded torch only spins idle threads that slow them all
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@contextlib.contextmanager
+def _bf16_jax(dtype):
+    """The JAX package's residual dtype and its kernels in interpret mode,
+    restored in ``finally``: they are module globals."""
+    prev = jax_lstm_vjp.set_res2_dtype(dtype)
+    prev_f = jax_lstm_vjp.set_fwd_kernel_mode("interpret")
+    prev_b = jax_lstm_vjp.set_bwd_kernel_mode("interpret")
+    try:
+        yield
+    finally:
+        jax_lstm_vjp.set_res2_dtype(prev)
+        jax_lstm_vjp.set_fwd_kernel_mode(prev_f)
+        jax_lstm_vjp.set_bwd_kernel_mode(prev_b)
+
+
+def _layers(rng, cell, d, h, n):
+    k = 1.0 / np.sqrt(h)
+    g = (4 if cell == "lstm" else 3) * h
+    out = []
+    for i in range(n):
+        p = {"w_ih": rng.uniform(-k, k, (d if i == 0 else h, g)).astype(np.float32),
+             "w_hh": rng.uniform(-k, k, (h, g)).astype(np.float32)}
+        if cell == "lstm":
+            p["b"] = rng.uniform(-k, k, (g,)).astype(np.float32)
+        else:
+            p["b_ih"] = rng.uniform(-k, k, (g,)).astype(np.float32)
+            p["b_ih"][:h] = rng.uniform(-1.5, -0.5, (h,))  # r away from 1
+            p["b_hh"] = rng.uniform(-k, k, (g,)).astype(np.float32)
+        out.append(p)
+    return out
+
+
+def _case(cell, seed, n_layers=2, b=B, t=T, d=D, h=H):
+    """x (B, T, D), keep (B, T, L-1, H) Bernoulli(0.9)/0.9, the layers."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(b, t, d).astype(np.float32)
+    keep = ((rng.rand(b, t, n_layers - 1, h) < 0.9) / 0.9).astype(np.float32)
+    return x, keep, _layers(rng, cell, d, h, n_layers)
+
+
+def _tm(a):
+    return np.ascontiguousarray(np.swapaxes(a, 0, 1))
+
+
+def _torch(layer):
+    return {k: torch.from_numpy(v) for k, v in layer.items()}
+
+
+def _from_jax(a):
+    """A JAX array as a torch tensor of the same dtype (bf16 by its bits)."""
+    a = np.asarray(a)
+    if a.dtype == jnp.bfloat16:
+        return torch.from_numpy(a.view(np.int16).copy()).view(BF16)
+    return torch.from_numpy(np.array(a))
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise distance in bf16 ulps (bit patterns on a monotonic line)."""
+    def ordinal(t):
+        u = t.contiguous().view(torch.int16).to(torch.int32) & 0xFFFF
+        return torch.where(u >= 0x8000, 0x8000 - u, u)
+
+    return (ordinal(a) - ordinal(b)).abs()
+
+
+def _check_series(name, got, want):
+    """A stored bf16 series: each element within one bf16 ulp of JAX's, or
+    (a value near zero, where the two float32 values' ~1e-7 difference
+    spans several ulps) within 1e-6 of the series' largest entry; under 1%
+    of the elements off at all."""
+    assert got.dtype == want.dtype == BF16 and got.shape == want.shape, name
+    ulps = _ulps(got, want)
+    share = float((ulps > 0).float().mean())
+    near = (got.float() - want.float()).abs() <= 1e-6 * want.float().abs().max()
+    far = int(((ulps > 1) & ~near).sum())
+    print(f"{name}: {100 * share:.3f}% of {ulps.numel()} elements off, "
+          f"{int((ulps > 1).sum())} by more than one bf16 ulp ({far} of them past "
+          "1e-6 of the largest entry)")
+    assert far == 0, name
+    assert share < 0.01, name
+
+
+def _half_close(name, got, want):
+    """bf16 outputs within one bf16 ulp of want + 1e-6 of its largest entry."""
+    assert got.dtype == want.dtype == BF16, name
+    g, w = got.float(), want.float()
+    _, e = torch.frexp(w)
+    ulp = torch.ldexp(torch.ones_like(w), e - 8)
+    err = float(((g - w).abs() / (ulp + 1e-6 * w.abs().max())).max())
+    assert err <= 1.0, (name, err)
+
+
+# ------------------------------------------------------------ the six kernels
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_pair_forward_reference_bf16_matches_jax_kernel(cell):
+    """Rows 11 and 14: the plain forward with res_dtype bf16 against the
+    JAX kernel with res_dtype bfloat16."""
+    x, keep, (l0, l1) = _case(cell, 1 if cell == "lstm" else 2)
+    jax_fwd = jax_lstm2_train_fwd if cell == "lstm" else jax_gru2_train_fwd
+    port_ref = getattr(lstm_kernel, f"{cell}2_train_fwd_reference")
+    with jax.default_matmul_precision("highest"):
+        want = jax_fwd(jnp.asarray(_tm(x)), jnp.asarray(_tm(keep[:, :, 0])), l0, l1,
+                       interpret=True, res_dtype=jnp.bfloat16)
+    got = port_ref(torch.from_numpy(_tm(x)), torch.from_numpy(_tm(keep[:, :, 0])),
+                   _torch(l0), _torch(l1), res_dtype=BF16)
+    packed, h0p, h1p, x1, _, finals, _ = want
+    for name, g, w in zip(("packed", "h0_prev", "h1_prev", "x1"), got,
+                          (packed, h0p, h1p, x1)):
+        _check_series(f"{cell} {name}", g, _from_jax(w)[:T])
+    assert got[4].dtype == torch.float32
+    np.testing.assert_allclose(got[4].numpy(), np.asarray(finals), rtol=0, atol=1e-5)
+
+
+def test_lstm1_forward_reference_bf16_matches_jax_kernel():
+    """Row 6: g and c_prev rounded, h_prev and finals float32."""
+    rng = np.random.RandomState(3)
+    ih = rng.randn(T, B, 4 * H).astype(np.float32)
+    w_hh = rng.uniform(-0.1, 0.1, (H, 4 * H)).astype(np.float32)
+    with jax.default_matmul_precision("highest"):
+        want = lstm1_train_fwd_pallas(jnp.asarray(ih), jnp.asarray(w_hh), interpret=True,
+                                      res_dtype=jnp.bfloat16)
+    got = lstm_kernel.lstm1_train_fwd_reference(torch.from_numpy(ih),
+                                                torch.from_numpy(w_hh), BF16)
+    _check_series("g", got[0], _from_jax(want[0])[:T])
+    _check_series("c_prev", got[2], _from_jax(want[2])[:T])
+    for name, i in (("h_prev", 1), ("finals", 3)):
+        assert got[i].dtype == torch.float32, name
+        np.testing.assert_allclose(got[i].numpy(), np.asarray(want[i])[:got[i].shape[0]],
+                                   rtol=0, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_pair_chain_reference_bf16_matches_jax_kernel(cell):
+    """Rows 12 and 15, fed JAX's own bf16 residuals: bf16 outputs."""
+    x, keep, (l0, l1) = _case(cell, 4 if cell == "lstm" else 5)
+    dh = np.random.RandomState(6).randn(B, H).astype(np.float32)
+    jax_fwd = jax_lstm2_train_fwd if cell == "lstm" else jax_gru2_train_fwd
+    with jax.default_matmul_precision("highest"):
+        packed, h0p, h1p, _, keep_pad, _, _ = jax_fwd(
+            jnp.asarray(_tm(x)), jnp.asarray(_tm(keep[:, :, 0])), l0, l1, interpret=True,
+            res_dtype=jnp.bfloat16)
+        if cell == "lstm":
+            want = lstm2_bwd_chain_padded(packed, keep_pad, None, jnp.asarray(dh),
+                                          l0["w_hh"], l1["w_hh"], l1["w_ih"], T,
+                                          interpret=True)
+            names = ("dg0", "dg1")
+        else:
+            want = gru2_bwd_chain_res_padded(packed, h0p, h1p, keep_pad, None,
+                                             jnp.asarray(dh), l0["w_hh"], l1["w_hh"],
+                                             l1["w_ih"], T, interpret=True)
+            names = ("dih0", "dhn0", "dih1", "dhn1")
+    keep_t = torch.from_numpy(_tm(keep[:, :, 0]))
+    w = [torch.from_numpy(a) for a in (l0["w_hh"], l1["w_hh"], l1["w_ih"])]
+    res = [_from_jax(a)[:T] for a in (packed, h0p, h1p)]
+    if cell == "lstm":
+        got = lstm_kernel.lstm2_bwd_chain_reference(res[0], keep_t, torch.from_numpy(dh),
+                                                    *w)
+    else:
+        got = lstm_kernel.gru2_bwd_chain_reference(*res, keep_t, torch.from_numpy(dh), *w)
+    for name, g, wnt in zip(names, got, want):
+        _half_close(f"{cell} {name}", g, _from_jax(wnt)[:T])
+
+
+def test_lstm_bwd_chain_reference_bf16_matches_jax_kernel():
+    """Row 4 over JAX's bf16 g and c_prev: float32 dgates."""
+    rng = np.random.RandomState(7)
+    ih = rng.randn(T, B, 4 * H).astype(np.float32)
+    w_hh = rng.uniform(-0.1, 0.1, (H, 4 * H)).astype(np.float32)
+    dhs = rng.randn(T, B, H).astype(np.float32)
+    dhf = rng.randn(B, H).astype(np.float32)
+    with jax.default_matmul_precision("highest"):
+        g, _, c_prev, _ = lstm1_train_fwd_pallas(jnp.asarray(ih), jnp.asarray(w_hh),
+                                                 interpret=True, res_dtype=jnp.bfloat16)
+        want = np.asarray(lstm_bwd_chain_pallas(g, c_prev, jnp.asarray(dhs),
+                                                jnp.asarray(dhf), jnp.asarray(w_hh),
+                                                interpret=True))
+    got = lstm_kernel.lstm_bwd_chain_reference(
+        _from_jax(g)[:T], _from_jax(c_prev)[:T], torch.from_numpy(dhs),
+        torch.from_numpy(dhf), torch.from_numpy(w_hh))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want[:T], rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
+# ------------------------------------------------------ the Functions' gradients
+
+GRAD_CASES = {"lstm_pair": ("lstm", 2), "lstm_layered": ("lstm", 3), "gru_pair": ("gru", 2)}
+
+
+def _port_value_and_grads(cell, x, keep_bt, layers, weight, res_dtype):
+    xt = torch.from_numpy(x).requires_grad_()
+    params = [{k: v.requires_grad_() for k, v in _torch(p).items()} for p in layers]
+    keep = torch.from_numpy(np.ascontiguousarray(keep_bt.transpose(1, 2, 0, 3)))
+    final = lstm_vjp.fused_lstm_final if cell == "lstm" else lstm_vjp.fused_gru_final
+    h = final(xt, keep, params, res_dtype=res_dtype)
+    loss = (h * torch.from_numpy(weight)).sum()
+    loss.backward()
+    return float(loss.detach()), [xt.grad.numpy()] + [p[k].grad.numpy() for p in params
+                                             for k in sorted(p)]
+
+
+@pytest.mark.parametrize("case", list(GRAD_CASES))
+def test_fused_final_bf16_grads_match_jax(case):
+    cell, n_layers = GRAD_CASES[case]
+    x, keep, layers = _case(cell, 11 + n_layers, n_layers=n_layers, t=12)
+    weight = np.random.RandomState(9).randn(B, H).astype(np.float32)
+    jax_final = (jax_lstm_vjp.fused_lstm_final if cell == "lstm"
+                 else jax_lstm_vjp.fused_gru_final)
+
+    def loss(x, params):
+        return jnp.sum(jax_final(x, jnp.asarray(keep), params) * weight)
+
+    with _bf16_jax("bfloat16"), jax.default_matmul_precision("highest"):
+        _, (gx, gp) = jax.value_and_grad(loss, argnums=(0, 1))(jnp.asarray(x),
+                                                               tuple(layers))
+    want = [np.asarray(gx)] + [np.asarray(p[k]) for p in gp for k in sorted(p)]
+    v16, got16 = _port_value_and_grads(cell, x, keep, layers, weight, "bfloat16")
+    v32, got32 = _port_value_and_grads(cell, x, keep, layers, weight, "float32")
+    # the forward's value is the float32 one, bit for bit
+    assert v16 == v32
+    gap = max(np.abs(g - w).max() / np.abs(w).max() for g, w in zip(got16, want))
+    engaged = max(np.abs(a - b).max() / np.abs(b).max() for a, b in zip(got16, got32))
+    print(f"{case}: bf16 grads vs JAX {gap:.3e}, vs the port's float32 grads "
+          f"{engaged:.3e} of the largest entry")
+    for i, (g, w) in enumerate(zip(got16, want)):
+        np.testing.assert_allclose(g, w, rtol=0, atol=2e-3 * np.abs(w).max(),
+                                   err_msg=f"{case} gradient {i}")
+    assert engaged > gap, "bf16 residual streams did not engage"
+
+
+# ------------------------------------------------------- fast.yaml's model
+
+NARROW = [
+    "model.encoders.audio.hidden_dim=128",
+    "model.encoders.video.input_dim=16",
+    "model.encoders.video.hidden_dim=32",
+    "model.output_dim=16",
+    "model.hidden_dim=32",
+    "model.dropout=0.0",
+    "model.encoders.audio.dropout=0.0",
+    "model.encoders.video.dropout=0.0",
+    "training.augmentation.modality_dropout=0.0",
+]
+
+
+def test_fast_yaml_trajectory_matches_jax():
+    """5 updates of fast.yaml's model (log-mel features cached, LSTM 2x128
+    with bf16 residual streams, hybrid library fusion, warmup-cosine AdamW)
+    against JAX ``make_train_step`` with its Pallas pair in interpret mode
+    under ``set_res2_dtype("bfloat16")``."""
+    n, bsz, frames = 16, 8, 12
+    rng = np.random.RandomState(0)
+    feats = {"audio": rng.randn(n, frames, 64).astype(np.float32),
+             "video": rng.rand(n, 4, 16).astype(np.float32)}
+    labels = rng.randint(0, 8, n).astype(np.int32)
+    idx = [rng.randint(0, n, bsz).astype(np.int32) for _ in range(5)]
+    valid = [np.ones(bsz, np.float32)] * 4 + [np.array([1] * 5 + [0] * 3, np.float32)]
+
+    jcfg = jax_load_config(FAST, NARROW)
+    jmodel = jax_classifier_from_config(jcfg)
+    tx, _ = jax_optim.build_optimizer(jcfg.training, 3)
+    jfeats = {k: jnp.asarray(v) for k, v in feats.items()}
+    with _bf16_jax("bfloat16"), jax.default_matmul_precision("highest"):
+        state = create_train_state(jmodel, tx, {k: v[:bsz] for k, v in jfeats.items()},
+                                   jnp.ones((bsz, 2)), jax.random.PRNGKey(3))
+        params0 = jax.tree_util.tree_map(np.asarray, state.params)
+        step = make_train_step(jmodel, tx, num_modalities=2, donate=False)
+        want_loss, want_params = [], []
+        for s in range(5):
+            state, metrics = step(state, jfeats, jnp.asarray(labels), jnp.asarray(idx[s]),
+                                  jnp.asarray(valid[s]), jax.random.PRNGKey(0))
+            want_loss.append(float(metrics["loss"]))
+            want_params.append(state_dict_from_jax_params(
+                jax.tree_util.tree_map(np.asarray, state.params)))
+
+    cfg = load_config(FAST, NARROW)
+    model = classifier_from_config(cfg)
+    (rnn,) = [m for m in model.modules() if isinstance(m, FusedStackedRNN)]
+    assert rnn.residual_dtype == BF16
+    model.load_state_dict(state_dict_from_jax_params(params0))
+    opt, sched = optim.build_optimizer(cfg.training, model.parameters(), 3)
+    tfeats = {k: torch.from_numpy(v) for k, v in feats.items()}
+    tlabels = torch.from_numpy(labels.astype(np.int64))
+    for s in range(5):
+        metrics = train_step(
+            model, opt, tfeats, tlabels, torch.from_numpy(idx[s].astype(np.int64)),
+            torch.from_numpy(valid[s]), lr=sched(s), clip_norm=1.0, modality_dropout=0.0,
+            noise=Noise(torch.Generator().manual_seed(s)))
+        np.testing.assert_allclose(float(metrics["loss"]), want_loss[s], rtol=0,
+                                   atol=1e-4, err_msg=f"loss, step {s}")
+        got = model.state_dict()
+        for k, v in want_params[s].items():
+            w = v.numpy()
+            np.testing.assert_allclose(got[k].numpy(), w, rtol=0,
+                                       atol=5e-4 * max(np.abs(w).max(), 1e-2),
+                                       err_msg=f"{k}, step {s}")
+
+
+SIZES = {"train": 4, "val": 2, "test": 2}
+
+
+@pytest.fixture(scope="module")
+def fast_data(tmp_path_factory):
+    """Full-width clips: 48,000 raw samples (log-mel cached per split as
+    fast.yaml sets it) and 4 frames of 4,096 video features."""
+    root = tmp_path_factory.mktemp("port_fast_data")
+    for seed, (split, n) in enumerate(SIZES.items()):
+        rng = np.random.RandomState(seed)
+        d = root / split
+        d.mkdir()
+        np.save(d / "audio.npy", rng.randn(n, 48000, 1).astype(np.float32))
+        np.save(d / "video.npy", rng.rand(n, 4, 4096).astype(np.float32))
+        np.save(d / "labels.npy", rng.randint(0, 8, n).astype(np.int32))
+    return root
+
+
+def test_train_and_predict_fast_yaml_as_written(fast_data, tmp_path):
+    """fast.yaml unmodified but for the data paths, the epochs and the CPU:
+    it validates at epoch 10 and at the last (epochs 10, 20, ... and the
+    last, as the JAX trainer does), writes the artifacts, and predict
+    serves its best checkpoint."""
+    torch.set_num_threads(4)
+    overrides = ["training.max_epochs=12", "runtime.platform=cpu",
+                 f"dataset.data_dir={fast_data}", f"experiment.save_dir={tmp_path}",
+                 "experiment.name=run", f"outputs.experiments_dir={tmp_path / 'exp'}"]
+    results = port_train.main(["--config", FAST, *overrides])
+    run = tmp_path / "run"
+    for rel in ("best.ckpt", "results.json", "confusion_matrix.npy",
+                "checkpoints/last.ckpt", "csv_logs/version_0/metrics.csv"):
+        assert (run / rel).exists(), rel
+    assert np.isfinite(list(results.values())).all()
+    rows = (run / "csv_logs/version_0/metrics.csv").read_text().splitlines()
+    header = rows[0].split(",")
+    val_epochs = sorted({int(float(r.split(",")[header.index("epoch")])) for r in rows[1:]
+                         if r.split(",")[header.index("val/loss")]})
+    assert val_epochs == [9, 11]
+    metrics = port_predict(["--checkpoint", str(run / "best.ckpt"), "--config", FAST,
+                            "--out", str(tmp_path / "pred"), *overrides])
+    logits = np.load(tmp_path / "pred" / "logits.npy")
+    assert logits.shape == (SIZES["test"], 8) and np.isfinite(logits).all()
+    assert np.isfinite([metrics[k] for k in ("ece", "nll", "accuracy")]).all()
+
+
+# ----------------------------------------------------------- budget, refusals
+
+T48K = 48000
+GB = 1e9
+
+
+@pytest.mark.parametrize("cell,layers,hidden,route,f32_gb,bf16_gb", [
+    ("lstm", 2, 256, "pair", 34.61, 25.96),
+    ("gru", 2, 256, "pair", 31.46, 24.38),
+    ("lstm", 3, 512, "layered", 97.52, 73.93),
+    ("gru", 3, 512, "layered", 88.09, 88.09),  # the layered GRU ignores the key
+    ("lstm", 2, 256, "legacy", 56.63, 56.63),  # so does the legacy layout
+])
+def test_residual_bytes_in_bf16(cell, layers, hidden, route, f32_gb, bf16_gb):
+    f32 = lstm_vjp.stack_residual_bytes(cell, layers, hidden, 1, 32, T48K, route)
+    half = lstm_vjp.stack_residual_bytes(cell, layers, hidden, 1, 32, T48K, route,
+                                         res_dtype="bfloat16")
+    assert abs(f32 / GB - f32_gb) < 0.01 and abs(half / GB - bf16_gb) < 0.01
+    assert lstm_vjp.stack_residual_bytes(cell, layers, hidden, 1, 16, T48K // 2, route,
+                                         res_dtype="bfloat16") * 4 == half
+
+
+def test_bf16_with_remat_refused_naming_item_13():
+    cfg = load_config(FAST, ["runtime.lstm_remat_gates=true"])
+    with pytest.raises(NotImplementedError, match="item 13"):
+        refuse_outside_slice(cfg)
+    refuse_outside_slice(load_config(FAST))  # fast.yaml as written is taken
+    x, keep, layers = _case("lstm", 20, b=2, t=3, d=4, h=8)
+    params = [_torch(p) for p in layers]
+    keep_t = torch.from_numpy(np.ascontiguousarray(keep.transpose(1, 2, 0, 3)))
+    with pytest.raises(NotImplementedError, match="item 13"):
+        lstm_vjp.fused_lstm_final(torch.from_numpy(x), keep_t, params, remat_gates=True,
+                                  res_dtype="bfloat16")
+    with pytest.raises(NotImplementedError, match="item 13"):
+        lstm_kernel.lstm2_train_fwd_residuals(
+            torch.from_numpy(_tm(x)), keep_t[:, 0], *params, store_gates=False,
+            res_dtype=BF16)
+
+
+def test_other_residual_dtypes_rejected():
+    with pytest.raises(ValueError, match="lstm_residual_dtype"):
+        classifier_from_config(load_config(FAST, ["runtime.lstm_residual_dtype=float16"]))
+    with pytest.raises(ValueError, match="neither"):
+        lstm_kernel.residual_dtype("float16")
+
+
+def test_cpu_wrappers_are_the_plain_versions_and_launch_nothing():
+    counters = [getattr(lstm_kernel, n) for n in (
+        "LSTM2_TRAIN_FWD_BF16", "LSTM2_BWD_CHAIN_BF16", "GRU2_TRAIN_FWD_BF16",
+        "GRU2_BWD_CHAIN_BF16", "LSTM1_TRAIN_FWD_BF16", "LSTM_BWD_CHAIN_BF16")]
+    for c in counters:
+        c.launches = 0
+    for cell in ("lstm", "gru"):
+        x, keep, (l0, l1) = _case(cell, 30, b=2, t=4, d=3, h=8)
+        args = (torch.from_numpy(_tm(x)), torch.from_numpy(_tm(keep[:, :, 0])),
+                _torch(l0), _torch(l1))
+        outs = getattr(lstm_kernel, f"{cell}2_train_fwd_residuals")(*args, res_dtype=BF16)
+        refs = getattr(lstm_kernel, f"{cell}2_train_fwd_reference")(*args, res_dtype=BF16)
+        assert [o.dtype for o in outs] == [BF16] * 4 + [torch.float32]
+        for o, r in zip(outs, refs):
+            torch.testing.assert_close(o, r, rtol=0, atol=0)
+    ih = torch.randn(4, 2, 32)
+    g, h_prev, c_prev, _ = lstm_kernel.lstm1_train_fwd(ih, torch.randn(8, 32) * 0.1, BF16)
+    assert (g.dtype, h_prev.dtype, c_prev.dtype) == (BF16, torch.float32, BF16)
+    assert lstm_kernel.lstm_bwd_chain(g, c_prev, None, torch.ones(2, 8),
+                                      torch.zeros(8, 32)).dtype == torch.float32
+    assert all(c.launches == 0 for c in counters)

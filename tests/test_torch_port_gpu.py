@@ -1639,3 +1639,97 @@ def test_audio_only_train_step_on_the_card_matches_the_cpu():
     for n, b in out["cpu"][1].items():
         torch.testing.assert_close(out["card"][1][n], b, rtol=0,
                                    atol=1e-5 * float(b.abs().max()), msg=n)
+
+
+# --------------------------------------------- bf16 residual streams (fast.yaml)
+
+
+def _bf16_ulps(a, b):
+    """Elementwise distance in bf16 ulps of two bf16 tensors."""
+    def ordinal(t):
+        u = t.contiguous().view(torch.int16).to(torch.int32) & 0xFFFF
+        return torch.where(u >= 0x8000, 0x8000 - u, u)
+
+    return (ordinal(a) - ordinal(b)).abs()
+
+
+def _within_one_ulp(out, ref, msg):
+    """A bf16 output against its plain version: one bf16 ulp of ref plus
+    1e-6 of its largest entry (the float32 values it rounds differ by
+    ~1e-7, which can straddle a rounding boundary)."""
+    assert out.dtype == ref.dtype == torch.bfloat16, msg
+    o, r = out.float(), ref.float()
+    _, e = torch.frexp(r)
+    ulp = torch.ldexp(torch.ones_like(r), e - 8)
+    assert float(((o - r).abs() / (ulp + 1e-6 * r.abs().max())).max()) <= 1.0, msg
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("b,t,d,h", [(1, 40, 6, 64), (17, 40, 6, 128), (32, 372, 64, 256)])
+def test_pair_bf16_forms_match_the_float32_forms_and_plain(cell, b, t, d, h):
+    """Rows 11 / 12 and 14 / 15 in bf16: finals bit for bit the float32
+    form's, the stored series the float32 form's rounded (<= 1 ulp), the
+    chain over bf16 residuals the float32 chain over them upcast, rounded
+    (<= 1 ulp), each within one ulp of its plain version."""
+    dev = _card()
+    case = _lstm_case if cell == "lstm" else _gru_case
+    x_tm, keep, l0, l1 = case(dev, b, t, d, h, seed=b + t + h)
+    fwd = getattr(lstm_kernel, f"{cell}2_train_fwd_residuals")
+    fwd_ref = getattr(lstm_kernel, f"{cell}2_train_fwd_reference")
+    chain = getattr(lstm_kernel, f"{cell}2_bwd_chain")
+    chain_ref = getattr(lstm_kernel, f"{cell}2_bwd_chain_reference")
+    fwd16 = getattr(lstm_kernel, f"{cell.upper()}2_TRAIN_FWD_BF16")
+    chain16 = getattr(lstm_kernel, f"{cell.upper()}2_BWD_CHAIN_BF16")
+    before = fwd16.launches
+    o16 = fwd(x_tm, keep, l0, l1, res_dtype=torch.bfloat16)
+    o32 = fwd(x_tm, keep, l0, l1)
+    torch.cuda.synchronize()
+    assert fwd16.launches == before + 1
+    assert torch.equal(o16[4], o32[4])
+    refs = fwd_ref(x_tm, keep, l0, l1, res_dtype=torch.bfloat16)
+    for i, name in enumerate(("packed", "h0_prev", "h1_prev", "x1")):
+        assert int(_bf16_ulps(o16[i], o32[i].to(torch.bfloat16)).max()) <= 1, name
+        _within_one_ulp(o16[i], refs[i], name)
+    dh = torch.from_numpy(np.random.RandomState(t).randn(b, h).astype(np.float32)).to(dev)
+    w = (l0["w_hh"], l1["w_hh"], l1["w_ih"])
+    args = ((o16[0], keep, dh, *w) if cell == "lstm"
+            else (o16[0], o16[1], o16[2], keep, dh, *w))
+    before = chain16.launches
+    d16 = chain(*args)
+    d32 = chain(*(a.float() for a in args))
+    torch.cuda.synchronize()
+    assert chain16.launches == before + 1
+    for i, (a, r, p) in enumerate(zip(d16, d32, chain_ref(*args))):
+        assert int(_bf16_ulps(a, r.to(torch.bfloat16)).max()) <= 1, i
+        _within_one_ulp(a, p, f"chain output {i}")
+
+
+@pytest.mark.parametrize("b,t,h", [(1, 40, 64), (32, 372, 512)])
+def test_lstm1_bf16_forms_match_the_float32_forms_and_plain(b, t, h):
+    """Rows 6 and 4 in bf16: h_prev and finals bit for bit the float32
+    form's, g and c_prev the float32 form's rounded (<= 1 ulp); the chain
+    over them the float32 chain over them upcast."""
+    dev = _card()
+    ih, w_hh = _layer_case(dev, b, t, h, seed=t + h)
+    before = lstm_kernel.LSTM1_TRAIN_FWD_BF16.launches
+    o16 = lstm_kernel.lstm1_train_fwd(ih, w_hh, torch.bfloat16)
+    o32 = lstm_kernel.lstm1_train_fwd(ih, w_hh)
+    torch.cuda.synchronize()
+    assert lstm_kernel.LSTM1_TRAIN_FWD_BF16.launches == before + 1
+    assert torch.equal(o16[1], o32[1]) and torch.equal(o16[3], o32[3])
+    refs = lstm_kernel.lstm1_train_fwd_reference(ih, w_hh, torch.bfloat16)
+    for i in (0, 2):
+        assert int(_bf16_ulps(o16[i], o32[i].to(torch.bfloat16)).max()) <= 1, i
+        _within_one_ulp(o16[i], refs[i], f"output {i}")
+    rng = np.random.RandomState(t)
+    dhs = torch.from_numpy(rng.randn(t, b, h).astype(np.float32)).to(dev)
+    dhf = torch.from_numpy(rng.randn(b, h).astype(np.float32)).to(dev)
+    before = lstm_kernel.LSTM_BWD_CHAIN_BF16.launches
+    d16 = lstm_kernel.lstm_bwd_chain(o16[0], o16[2], dhs, dhf, w_hh)
+    d32 = lstm_kernel.lstm_bwd_chain(o16[0].float(), o16[2].float(), dhs, dhf, w_hh)
+    torch.cuda.synchronize()
+    assert lstm_kernel.LSTM_BWD_CHAIN_BF16.launches == before + 1
+    assert d16.dtype == torch.float32
+    assert int(_bf16_ulps(d16.to(torch.bfloat16), d32.to(torch.bfloat16)).max()) <= 1
+    ref = lstm_kernel.lstm_bwd_chain_reference(o16[0], o16[2], dhs, dhf, w_hh)
+    torch.testing.assert_close(d16, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))

@@ -493,7 +493,7 @@ class _GateBlocks:
 
 
 def _model_bwd(plan, cell, packed, prev, keep, dh, w_hh0, w_hh1, w_ih1, seed, exact,
-               dys=None, remat=None):
+               dys=None, remat=None, ring=False):
     """``pair_kernel`` of csrc/rnn2_bwd_chain.cuh with ``cell`` "gru",
     "lstm", "remat" (``LstmRematCell``), "gru_legacy" (``GruLegacyCell``) or
     "lstm_legacy" (``LstmLegacyCell``): the lead set layer 1's chain over
@@ -506,7 +506,9 @@ def _model_bwd(plan, cell, packed, prev, keep, dh, w_hh0, w_hh1, w_ih1, seed, ex
     ((dih0, dhh0), (dih1, dhh1)); the legacy LSTM writes and exchanges the
     (T, B, 8H) rows [dg0 | dg1] and adds ``dys`` to layer 1's dh.  The
     remat cell's ``remat`` = (x (T, B, D), x1, h0p, h1p, [w_ih0; w_hh0],
-    [w_ih1; w_hh1], b0, b1): its gates come from ``_GateBlocks``."""
+    [w_ih1; w_hh1], b0, b1): its gates come from ``_GateBlocks``.  With
+    ``ring`` (the bf16 forms' exchange, GRU and LSTM cells) layer 0 reads
+    its own row from two slots used in turn, written beside its series."""
     t_len, batch, hidden = keep.shape
     lstm = cell in ("lstm", "remat", "lstm_legacy")
     legacy = cell == "gru_legacy"
@@ -518,6 +520,8 @@ def _model_bwd(plan, cell, packed, prev, keep, dh, w_hh0, w_hh1, w_ih1, seed, ex
         rows8 = nan((t_len, batch, 8 * hidden), np.nan)
         out = [rows8[..., :4 * hidden], rows8[..., 4 * hidden:]]
     dhn = [nan((t_len, batch, hidden), np.nan) for _ in range(2)]
+    # the bf16 forms' exchange of layer 0: [out | dhn] rows t at t % 2
+    ex0 = nan((2, batch, (plan.width + 1) * hidden), np.nan)
     rows12 = nan((t_len, batch, 12 * hidden), np.nan)
     # GRU: the direct part dh z, layer 1's starting as dh_final; LSTM: dc
     carry = [np.zeros((batch, hidden)),
@@ -532,6 +536,10 @@ def _model_bwd(plan, cell, packed, prev, keep, dh, w_hh0, w_hh1, w_ih1, seed, ex
                                       (wcat0, wcat1)[layer], (b0, b1)[layer])
 
     def x_row(layer, step, rows):
+        if ring and layer == 0:
+            row = ex0[step % 2][rows]
+            return row[:, :4 * hidden] if lstm else np.concatenate(
+                [row[:, :2 * hidden], row[:, 3 * hidden:]], axis=1)
         if lstm:
             return out[layer][step][rows]
         if legacy:
@@ -560,10 +568,12 @@ def _model_bwd(plan, cell, packed, prev, keep, dh, w_hh0, w_hh1, w_ih1, seed, ex
         hp = prev[layer][t][rows, j]
         d = carry[layer][rows, j] + d
         dn = d * (1 - z) * (1 - n * n)
-        out[layer][t][rows, j] = dn * hn * r * (1 - r)
-        out[layer][t][rows, hidden + j] = d * (hp - n) * z * (1 - z)
-        out[layer][t][rows, 2 * hidden + j] = dn
-        dhn[layer][t][rows, j] = dn * r
+        for lane, v in enumerate((dn * hn * r * (1 - r), d * (hp - n) * z * (1 - z), dn,
+                                  dn * r)):
+            (dhn[layer][t] if lane == 3 else out[layer][t])[
+                rows, (lane % 3) * hidden + j] = v
+            if ring and layer == 0:
+                ex0[t % 2][rows, lane * hidden + j] = v
         carry[layer][rows, j] = d * z
 
     def lstm_cell(layer, t, rows, j, d, cta=None):
@@ -581,10 +591,11 @@ def _model_bwd(plan, cell, packed, prev, keep, dh, w_hh0, w_hh1, w_ih1, seed, ex
         si, sf, so, tg = _sig(gi), _sig(gf), _sig(go), np.tanh(gg)
         tc = np.tanh(sf * cp + si * tg)
         dcs = carry[layer][rows, j] + d * so * (1 - tc * tc)
-        out[layer][t][rows, j] = dcs * tg * si * (1 - si)
-        out[layer][t][rows, hidden + j] = dcs * cp * sf * (1 - sf)
-        out[layer][t][rows, 2 * hidden + j] = dcs * si * (1 - tg * tg)
-        out[layer][t][rows, 3 * hidden + j] = d * tc * so * (1 - so)
+        for lane, v in enumerate((dcs * tg * si * (1 - si), dcs * cp * sf * (1 - sf),
+                                  dcs * si * (1 - tg * tg), d * tc * so * (1 - so))):
+            out[layer][t][rows, lane * hidden + j] = v
+            if ring and layer == 0:
+                ex0[t % 2][rows, lane * hidden + j] = v
         carry[layer][rows, j] = dcs * sf
 
     def cluster_step(follow, c0, s):
@@ -626,7 +637,8 @@ def _model_bwd(plan, cell, packed, prev, keep, dh, w_hh0, w_hh1, w_ih1, seed, ex
     return (out[0], out[1]) if lstm else (out[0], dhn[0], out[1], dhn[1])
 
 
-def _model_fwd(plan, cell, ih0, l0, l1, seed, exact, keep=None, store_gates=True):
+def _model_fwd(plan, cell, ih0, l0, l1, seed, exact, keep=None, store_gates=True,
+               ring=False):
     """``pair_kernel`` of csrc/rnn2_fwd_chain.cuh with ``cell`` "gru",
     "lstm" or (training form only) "lstm_legacy" (``LstmLegacyCell``) or
     "gru_legacy" (``GruLegacyCell``): the lead set layer 0 over its own h,
@@ -643,8 +655,10 @@ def _model_fwd(plan, cell, ih0, l0, l1, seed, exact, keep=None, store_gates=True
     h1 | c0 | c1] (the states after each step), the legacy GRU the (T, B,
     10H) rows [r0 | z0 | n0 | hn0 | h0 | r1 | z1 | n1 | hn1 | h1], both
     h0p / h1p / x1 as the exchange only (row 0 of h0p / h1p never written)
-    and layer 1's final h alone -> ``(res, h_final)``.  Every buffer starts
-    NaN, so a read before its write shows."""
+    and layer 1's final h alone -> ``(res, h_final)``.  With ``ring`` (the
+    bf16 forms' exchange) each layer reads its own h from two slots used in
+    turn, written beside its h_prev series.  Every buffer starts NaN, so a
+    read before its write shows."""
     train = keep is not None
     t_len, batch = (ih0.shape[0], ih0.shape[1]) if train else (ih0.shape[1], ih0.shape[0])
     hidden, width = l0["w_hh"].shape[0], plan.width
@@ -658,6 +672,7 @@ def _model_fwd(plan, cell, ih0, l0, l1, seed, exact, keep=None, store_gates=True
         packed = nan((t_len, batch, pw), np.nan)
         hp = [nan((t_len, batch, hidden), np.nan) for _ in range(2)]
         x1 = nan((t_len, batch, hidden), np.nan)
+        ex = [nan((2, batch, hidden), np.nan) for _ in range(2)]  # ring: row t at t % 2
         finals = nan((1 if legacy else 4 if lstm else 2, batch, hidden), np.nan)
     else:
         h0 = nan((t_len, batch, hidden), np.nan)
@@ -697,6 +712,8 @@ def _model_fwd(plan, cell, ih0, l0, l1, seed, exact, keep=None, store_gates=True
 
         def source(seg, rows):
             if train:
+                if seg == 0 and ring:
+                    return ex[layer][t % 2][rows]
                 return (x1 if seg == 1 else hp[layer])[t][rows]
             if seg == 1 or layer == 0:
                 return h0[t if seg == 1 else t - 1][rows]
@@ -734,8 +751,10 @@ def _model_fwd(plan, cell, ih0, l0, l1, seed, exact, keep=None, store_gates=True
                         x1[t][rows, j] = h * keep[t][rows, j]
                     if t == 0 and not legacy:
                         hp[layer][0][rows, j] = 0.0
+                        ex[layer][0][rows, j] = 0.0
                     if t + 1 < t_len:
                         hp[layer][t + 1][rows, j] = h
+                        ex[layer][(t + 1) % 2][rows, j] = h
                     elif legacy:
                         if layer == 1:
                             finals[0][rows, j] = h
@@ -788,7 +807,7 @@ def _case(cell, batch, t_len, d, hidden, seed):
     return l0, l1, x, keep, dh
 
 
-def _check_model(plan, batch, t_len, d, hidden, seed, exact, cell="gru"):
+def _check_model(plan, batch, t_len, d, hidden, seed, exact, cell="gru", ring=False):
     l0, l1, x, keep, dh = _case(cell, batch, t_len, d, hidden, seed)
     tl0 = {k: torch.from_numpy(v) for k, v in l0.items()}
     tl1 = {k: torch.from_numpy(v) for k, v in l1.items()}
@@ -805,7 +824,8 @@ def _check_model(plan, batch, t_len, d, hidden, seed, exact, cell="gru"):
     packed, h0p, h1p, _, _ = (a.numpy() for a in fwd(
         xt.transpose(0, 1), torch.from_numpy(keep), tl0, tl1))
     w = (l0["w_hh"], l1["w_hh"], l1["w_ih"])
-    got = _model_bwd(plan, cell, packed, (h0p, h1p), keep, dh, *w, seed, exact)
+    got = _model_bwd(plan, cell, packed, (h0p, h1p), keep, dh, *w, seed, exact,
+                     ring=ring)
     if lstm:
         names = ("dg0", "dg1")
         want = lk.lstm2_bwd_chain_reference(
@@ -988,7 +1008,8 @@ TRAIN_NAMES = ("packed", "h0_prev", "h1_prev", "x1", "finals")
 TRAIN_FORMS = [("lstm", True), ("lstm", False), ("gru", True)]
 
 
-def _check_train_model(plan, batch, t_len, d, hidden, seed, exact, cell, store_gates):
+def _check_train_model(plan, batch, t_len, d, hidden, seed, exact, cell, store_gates,
+                       ring=False):
     """The training form of the forward core's model against
     ``lstm2_train_fwd_reference`` (``store_gates`` either way) or
     ``gru2_train_fwd_reference`` (1e-6); keep has zeros (p = 0.1)."""
@@ -997,7 +1018,7 @@ def _check_train_model(plan, batch, t_len, d, hidden, seed, exact, cell, store_g
     x_tm = x.transpose(1, 0, 2)
     ih0 = x_tm.astype(np.float64) @ l0["w_ih"] + l0["b" if lstm else "b_ih"]
     got = _model_fwd(plan, cell, ih0, l0, l1, seed, exact, keep=keep,
-                     store_gates=store_gates)
+                     store_gates=store_gates, ring=ring)
     args = [torch.from_numpy(a) for a in (x_tm, keep)] + [
         {k: torch.from_numpy(v) for k, v in layer.items()} for layer in (l0, l1)]
     if lstm:
@@ -1102,6 +1123,30 @@ def test_lstm_pair_core_model_matches_the_jax_kernels(forward):
     for name, g, w in zip(("dg0", "dg1"), got, want):
         np.testing.assert_allclose(g, np.asarray(w)[:t_len], rtol=0, atol=1e-5,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("forward", [False, True])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("batch,t_len,hidden,sms,stub,split,exact", MODEL_CASES)
+def test_pair_core_bf16_exchange_model_matches_plain(forward, cell, batch, t_len, hidden,
+                                                     sms, stub, split, exact):
+    """The bf16 forms' float32 exchange (rows 11b, 12b, 14b, 15b): each
+    layer's own rows in two slots used in turn (the forward's h, the
+    chain's layer 0), the hop a whole series; clusters stepping in any
+    order the flags allow never read a slot a step too late or too early
+    (NaN until written, stale values wrong), against the plain versions.
+    Values stay float64 here: the bf16 rounding of the stored series is
+    elementwise, and the exchange never reads it."""
+    width = 4 if cell == "lstm" else 3
+    active = (_measured if stub == "measured" else _every)(sms)
+    plan = lk.chain_plan(hidden, width, batch, sms, MAX_SMEM, active, forward, layers=2)
+    assert (plan.ncl, plan.rgroups) == split, plan
+    seed = batch * 10 + t_len + hidden + 5
+    if forward:
+        _check_train_model(plan, batch, t_len, 5, hidden, seed, exact, cell,
+                           store_gates=True, ring=True)
+    else:
+        _check_model(plan, batch, t_len, 5, hidden, seed, exact, cell=cell, ring=True)
 
 
 @pytest.mark.parametrize("cell,store_gates", TRAIN_FORMS)
