@@ -134,11 +134,16 @@
    (B, 48000, 1) waveform into the LSTM 2x256, 96,000 serial layer-steps a
    forward): ``[lstm_raw]`` / ``[gru_raw]`` hold the 2-layer pairs'
    training forward, reverse chain and eval form (rows 11, 12, 2 and 14,
-   15, 3) against their plain versions at B=32, T=48,000, D=1, H=256, and
-   ``[lstm1_raw]`` the one-layer forward and chain (rows 6, 4; the cores of
-   the GRU's 7f, 7) at H=512, each series' error printed per run of steps
-   cut where its offsets pass 2^29 and 2^31 elements, bound 1e-4 of the
-   largest entry; their times go into the kernels line as ``raw_*``.  The
+   15, 3) at B=32, T=48,000, D=1, H=256, and ``[lstm1_raw]`` the one-layer
+   forward and chain (rows 6, 4; the cores of the GRU's 7f, 7) at H=512,
+   each kernel over the whole batch, held on the first and the last row of
+   the batch (``RAW_ROWS``) against its plain version, which worker
+   processes run on the CPU over those rows while the card runs the other
+   phases (the chains over the plain forwards' residuals, which the card's
+   chains take in those rows); each series' error printed per run of steps
+   cut where the full series' offsets pass 2^29 and 2^31 elements, bound
+   1e-4 of the largest entry; their times go into the kernels line as
+   ``raw_*``.  The
    big config on raw (LSTM 3x512, b32), whose full-length residuals exceed
    the card, must be refused before it allocates them.  ``[train_raw]`` /
    ``[serve_raw]`` train the file unmodified and serve its ``best.ckpt`` as
@@ -201,7 +206,28 @@
    ``[train_gru_fast]`` (the GRU config) and ``[train_big_fast]`` (the big
    config) with bf16 streams, and ``[lstm1_raw]`` prints the big config's
    bf16 count on raw beside the card's free bytes.
-17. Prints the script's wall time, one JSON line describing every kernel
+17. Synthetic data, the host-streaming loader, the epoch trace and the
+   streaming monitor.  ``[stream]`` runs ``tools.stream`` on ``[serve]``'s
+   seeded flagship checkpoint over a 60 s stream (58 windows of 48,000
+   samples / 24 frames, 2 microbatches of 32: log-mel and row 2 twice),
+   holds its logits bit for bit to the card's ``forward`` on the same
+   windows in b32 batches and within 1e-3 to the stream on the CPU (every
+   label, ``timeline.csv`` apart from its probabilities and
+   ``summary.json`` equal), and runs ``--microbatch 1`` (row 2's B=1 plan).
+   ``[train_synthetic]`` trains the reference's synthetic fixture (three
+   sensors of D 32, T 100, 5 classes) through an LSTM 2x256 a sensor
+   (rows 11 and 12 three times a step, row 2 three times an eval batch),
+   card step against the CPU step, step latency and busy share;
+   ``[train_synthetic_stream]`` again with ``dataset.device_resident=false``
+   and ``runtime.profile_dir``: bit for bit the resident run, one trace of
+   epoch 1 naming rows 11 and 12 three times a step, and no more
+   synchronising calls a streamed epoch than a resident one
+   (``torch.cuda.set_sync_debug_mode``); ``[serve_synthetic]`` serves its
+   ``best.ckpt`` (row 2 three times a batch), logits against the CPU;
+   ``[debug]`` runs ``tools.debug`` on the same model (the overfit probe's
+   frozen-encoder steps run row 11 and no reverse chain).  Every phase's
+   wall seconds are printed as it ends.
+18. Prints the script's wall time, one JSON line describing every kernel
    (the one-layer and 2-layer cores' entries name their shared header as
    ``core``), nvidia-smi's name and power limit of the card, and as the
    last line ``{"ok": true, "device": {...}}``.
@@ -213,6 +239,7 @@ line.  Without a CUDA card it exits non-zero at once.
 from __future__ import annotations
 
 import json
+import multiprocessing
 import statistics
 import subprocess
 import sys
@@ -2266,75 +2293,39 @@ def timed_ms(fn):
     return out, start.elapsed_time(end)
 
 
-def plain_timed_ms(fn):
-    """``timed_ms`` of a plain version at the raw length, under
-    ``torch.inference_mode``: its 48,000-step loop is host-bound, and no
-    gradient is taken of it."""
-    with torch.inference_mode():
-        return timed_ms(fn)
+RAW_ROWS = (0, 31)  # the batch rows the raw phases' plain versions run on
+RAW_PLAIN = WORK / "raw_plain"
+# the plain versions of the raw phases, one worker process each: the
+# pair's training forward then its reverse chain (over the forward's
+# plain residuals), the pair's eval form, for the LSTM and the GRU; the
+# one-layer training forward then its chain
+RAW_JOBS = ("lstm_train", "lstm_eval", "gru_train", "gru_eval", "lstm1")
 
 
-def split_errs(out: torch.Tensor, ref: torch.Tensor, chunk: int = 2048):
-    """A time-major series (T, B, ...) against its plain version: the max
-    abs error over each run of steps, cut where the series' offsets pass
-    2^29 and 2^31 elements (a 32-bit byte offset, a 32-bit element
-    offset), and the largest |ref|; chunked over T, so no temporary is as
-    large as the series."""
-    t, row = out.shape[0], out[0].numel()
-    cuts = sorted({c for c in (2**29 // row, 2**31 // row) if 0 < c < t})
-    step_err = torch.empty(t, device=out.device)
-    largest = 0.0
-    for t0 in range(0, t, chunk):
-        o, r = out[t0:t0 + chunk], ref[t0:t0 + chunk]
-        step_err[t0:t0 + chunk] = (o - r).abs().flatten(1).amax(1)
-        largest = max(largest, float(r.abs().max()))
-    ends = [0, *cuts, t]
-    return [(lo, hi, float(step_err[lo:hi].max())) for lo, hi in zip(ends, ends[1:])], largest
+def _raw_rows_rand(seed: int, rows, shape, normal: bool = False) -> torch.Tensor:
+    """(shape[0], len(rows), *shape[1:]) on the CPU, each batch row drawn
+    from a generator of its own (seed, row), so a worker makes any rows
+    alone and the card's full batch holds the same values."""
+    draw = torch.randn if normal else torch.rand
+    return torch.stack([draw(shape, generator=torch.Generator().manual_seed(
+        seed * 1000 + r)) for r in rows], dim=1)
 
 
-def _raw_check(tag: str, names, outs, refs) -> float:
-    """Hold each output to 1e-4 of its plain version's largest entry,
-    printing each series' errors per run of steps (``split_errs``);
-    returns the largest error."""
-    worst = 0.0
-    for name, out, ref in zip(names, outs, refs):
-        if out.dim() == 3 and out.shape[0] == RAW_T:
-            segs, largest = split_errs(out, ref)
-            text = ", ".join(f"steps [{lo}, {hi}) {e:.3e}" for lo, hi, e in segs)
-            err = max(e for *_, e in segs)
-        else:
-            err, largest = float((out - ref).abs().max()), float(ref.abs().max())
-            text = f"{err:.3e}"
-        print(f"[{tag}] {name} {tuple(out.shape)}: max abs err {text}; largest "
-              f"|plain| {largest:.3e} (bound 1e-4 of it)")
-        if not err <= 1e-4 * largest:
-            raise RuntimeError(f"[{tag}] {name} disagrees with its plain version")
-        worst = max(worst, err)
-    return worst
+def _raw_keep(seed: int, rows, t: int, h: int) -> torch.Tensor:
+    """The layer-0 -> 1 keep mask at dropout 0.1, (T, len(rows), H)."""
+    return (_raw_rows_rand(seed, rows, (t, h)) < 0.9).float() / 0.9
 
 
-def _raw_record(kernels, name: str, tag: str, err: float, ms: float,
-                plain_ms: float, b: int, t: int, d: int, h: int, layers: int) -> None:
-    """Print a kernel's time at the raw shape beside its bound and add the
-    ``raw_*`` numbers to its entry of the kernels line."""
-    flops, nbytes = _work(name, b, t, d, h)
-    bound_ms, bound_by = bound(flops, nbytes)
-    phases = t + 1 if layers == 2 else t
-    print(f"[{tag}] {name} B={b} T={t} D={d} H={h}: kernel {ms:.4f} ms "
-          f"({1e3 * ms / phases:.3f} us per {'phase' if layers == 2 else 'step'}), "
-          f"plain {plain_ms:.4f} ms (the checked call), bound {bound_ms:.4f} ms "
-          f"({bound_by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB) + a serial "
-          f"chain of {layers * t} layer-steps")
-    kernels[name].update(raw_max_abs_err=err, raw_ms=ms, raw_plain_ms=plain_ms,
-                         raw_bound_ms=bound_ms, raw_bound_by=bound_by)
-
-
-def _raw_pair_inputs(seed: int, gates: int):
+def _raw_pair_inputs(seed: int, gates: int, rows=RAW_ROWS):
     """base.yaml's recurrent training shape on the raw waveform (B=32,
     T=48,000, D=1, 2 layers of H=256; ``gates`` 4 for the LSTM, 3 for the
-    GRU): time-major x, keep mask at dropout 0.1, both layers' weights."""
-    dev = torch.device("cuda")
+    GRU): time-major x, keep mask at dropout 0.1, both layers' weights and
+    the chain's dh_final.  ``rows`` (``RAW_ROWS``, on the CPU, for a
+    worker), or ``None``: the whole batch on the card, the keep mask drawn
+    there and its ``RAW_ROWS`` set to the CPU's (393M draws)."""
     b, t, d, h = 32, RAW_T, 1, 256
+    dev = torch.device("cuda") if rows is None else None
+    sel = list(range(b)) if rows is None else list(rows)
     rng = np.random.RandomState(seed)
     k = 1.0 / np.sqrt(h)
     names = ("w_ih", "w_hh", "b") if gates == 4 else ("w_ih", "w_hh", "b_ih", "b_hh")
@@ -2346,11 +2337,159 @@ def _raw_pair_inputs(seed: int, gates: int):
             for n in names}
 
     l0, l1 = layer(d), layer(h)
-    x_tm = torch.from_numpy(rng.randn(t, b, d).astype(np.float32)).to(dev)
-    # 393M draws: made on the card from the same seed
+    x_tm = torch.from_numpy(np.ascontiguousarray(
+        rng.randn(t, b, d).astype(np.float32)[:, sel])).to(dev)
+    dh = torch.from_numpy(np.random.RandomState(42).randn(b, h).astype(np.float32)[sel])
+    if rows is not None:
+        return x_tm, _raw_keep(seed, rows, t, h), l0, l1, dh
     gen = torch.Generator(device=dev).manual_seed(seed)
     keep = (torch.rand((t, b, h), generator=gen, device=dev) < 0.9).float() / 0.9
-    return x_tm, keep, l0, l1
+    _put_rows(keep, _raw_keep(seed, RAW_ROWS, t, h))
+    return x_tm, keep, l0, l1, dh.to(dev)
+
+
+def _raw_layer_inputs(rows=RAW_ROWS):
+    """``[lstm1_raw]``'s one layer (B=32, T=48,000, D=1, H=512): the input
+    x (T, B, 1), w_ih, w_hh, b and dh_final (B, H) whole, on the CPU, and
+    over the batch ``rows``: the input projection ih = x w_ih + b (on the
+    CPU, so the card's rows and a worker's agree bit for bit) and the
+    chain's dh series."""
+    b, t, d, h = 32, RAW_T, 1, 512
+    rng = np.random.RandomState(43)
+    k = 1.0 / np.sqrt(h)
+    x = torch.from_numpy(rng.randn(t, b, d).astype(np.float32))
+    w_ih, w_hh, bias = (torch.from_numpy(rng.uniform(-k, k, s).astype(np.float32))
+                        for s in ((d, 4 * h), (h, 4 * h), (4 * h,)))
+    return {"x": x, "w_ih": w_ih, "w_hh": w_hh, "b": bias,
+            "dhf": torch.from_numpy(rng.randn(b, h).astype(np.float32)),
+            "ih_rows": torch.matmul(x[:, list(rows)], w_ih) + bias,
+            "dhs_rows": _raw_rows_rand(44, rows, (t, h), normal=True)}
+
+
+def _raw_plain_job(job: str) -> dict:
+    """One of ``RAW_JOBS``: the plain versions on the CPU over ``RAW_ROWS``
+    of the batch, in a worker process of its own (one thread), while the
+    card runs the other phases.  Each output goes to ``RAW_PLAIN`` as
+    ``<job>_<name>.npy``; returns ``{name: seconds}`` of each plain call."""
+    torch.set_num_threads(1)
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    from multimodal_emotion_detection_tpu_torch.ops import lstm_kernel as lk
+
+    RAW_PLAIN.mkdir(parents=True, exist_ok=True)
+    secs = {}
+
+    def run(name, fn, outs):
+        t0 = time.perf_counter()
+        res = fn()
+        secs[name] = time.perf_counter() - t0
+        for out_name, out in zip(outs, res if isinstance(res, tuple) else (res,)):
+            np.save(RAW_PLAIN / f"{job}_{out_name}.npy", out.numpy())
+        return res
+
+    with torch.inference_mode():
+        if job == "lstm1":
+            inp = _raw_layer_inputs()
+            g, _, c_prev, _ = run("lstm1_train_fwd", lambda: lk.lstm1_train_fwd_reference(
+                inp["ih_rows"], inp["w_hh"]), ("g", "h_prev", "c_prev", "finals"))
+            run("lstm_bwd_chain", lambda: lk.lstm_bwd_chain_reference(
+                g, c_prev, inp["dhs_rows"], inp["dhf"][list(RAW_ROWS)], inp["w_hh"]),
+                ("dg",))
+            return secs
+        cell, part = job.split("_")
+        lstm = cell == "lstm"
+        x_tm, keep, l0, l1, dh = _raw_pair_inputs(40 if lstm else 41, 4 if lstm else 3)
+        if part == "eval":
+            inf_ref = lk.lstm2_infer_reference if lstm else lk.gru2_infer_reference
+            x_bt = x_tm.transpose(0, 1).contiguous()
+            run(f"{cell}2_infer", lambda: inf_ref(x_bt, l0, l1), ("h1",))
+            return secs
+        fwd_ref, bwd_ref = ((lk.lstm2_train_fwd_reference, lk.lstm2_bwd_chain_reference)
+                            if lstm else
+                            (lk.gru2_train_fwd_reference, lk.gru2_bwd_chain_reference))
+        outs = run(f"{cell}2_train_fwd", lambda: fwd_ref(x_tm, keep, l0, l1),
+                   ("packed", "h0_prev", "h1_prev", "x1", "finals"))
+        series = (outs[0],) if lstm else outs[:3]
+        run(f"{cell}2_bwd_chain", lambda: bwd_ref(
+            *series, keep, dh, l0["w_hh"], l1["w_hh"], l1["w_ih"]),
+            ("dg0", "dg1") if lstm else ("dih0", "dhn0", "dih1", "dhn1"))
+    return secs
+
+
+def _raw_plain(pending, job: str, names):
+    """Wait for ``job``'s worker: ``({name: plain output over RAW_ROWS, on
+    the CPU}, {kernel: plain seconds})``."""
+    secs = pending[job].get()
+    return {n: torch.from_numpy(np.load(RAW_PLAIN / f"{job}_{n}.npy")) for n in names}, secs
+
+
+def split_errs(out: torch.Tensor, ref: torch.Tensor, row: int, chunk: int = 2048):
+    """A time-major series (T, b, ...) against its plain version: the max
+    abs error over each run of steps, cut where the full series' offsets
+    (``row`` elements a step) pass 2^29 and 2^31 elements (a 32-bit byte
+    offset, a 32-bit element offset), and the largest |ref|; chunked over
+    T, so no temporary is as large as the series."""
+    t = out.shape[0]
+    cuts = sorted({c for c in (2**29 // row, 2**31 // row) if 0 < c < t})
+    step_err = torch.empty(t, device=out.device)
+    largest = 0.0
+    for t0 in range(0, t, chunk):
+        o, r = out[t0:t0 + chunk], ref[t0:t0 + chunk]
+        step_err[t0:t0 + chunk] = (o - r).abs().flatten(1).amax(1)
+        largest = max(largest, float(r.abs().max()))
+    ends = [0, *cuts, t]
+    return [(lo, hi, float(step_err[lo:hi].max())) for lo, hi in zip(ends, ends[1:])], largest
+
+
+def _raw_check(tag: str, outs, refs, axes) -> float:
+    """Hold ``RAW_ROWS`` of each kernel output in ``outs`` (``{name:
+    tensor}``, full batch on the card; the rows along ``axes[name]``) to
+    1e-4 of its plain version's largest entry (``refs``, over those rows),
+    printing each series' errors per run of steps cut where the full
+    series' offsets pass 2^29 and 2^31 elements; returns the largest
+    error."""
+    worst = 0.0
+    for name, out in outs.items():
+        sel = out.index_select(axes.get(name, 1), torch.tensor(RAW_ROWS, device=out.device))
+        ref = refs[name].to(out.device)
+        if out.dim() == 3 and out.shape[0] == RAW_T:
+            segs, largest = split_errs(sel, ref, out[0].numel())
+            text = ", ".join(f"steps [{lo}, {hi}) {e:.3e}" for lo, hi, e in segs)
+            err = max(e for *_, e in segs)
+        else:
+            err, largest = float((sel - ref).abs().max()), float(ref.abs().max())
+            text = f"{err:.3e}"
+        print(f"[{tag}] {name} {tuple(out.shape)}, rows {RAW_ROWS}: max abs err {text}; "
+              f"largest |plain| {largest:.3e} (bound 1e-4 of it)")
+        if not err <= 1e-4 * largest:
+            raise RuntimeError(f"[{tag}] {name} disagrees with its plain version")
+        worst = max(worst, err)
+        del sel, ref
+    return worst
+
+
+def _raw_record(kernels, name: str, tag: str, err: float, ms: float,
+                plain_s: float, b: int, t: int, d: int, h: int, layers: int) -> None:
+    """Print a kernel's time at the raw shape beside its bound and add the
+    ``raw_*`` numbers to its entry of the kernels line."""
+    flops, nbytes = _work(name, b, t, d, h)
+    bound_ms, bound_by = bound(flops, nbytes)
+    phases = t + 1 if layers == 2 else t
+    print(f"[{tag}] {name} B={b} T={t} D={d} H={h}: kernel {ms:.4f} ms "
+          f"({1e3 * ms / phases:.3f} us per {'phase' if layers == 2 else 'step'}), "
+          f"plain {1e3 * plain_s:.4f} ms (on the CPU over rows {RAW_ROWS}, one thread, "
+          f"beside the card), bound {bound_ms:.4f} ms "
+          f"({bound_by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB) + a serial "
+          f"chain of {layers * t} layer-steps")
+    kernels[name].update(raw_max_abs_err=err, raw_ms=ms, raw_plain_ms=1e3 * plain_s,
+                         raw_plain_rows=list(RAW_ROWS), raw_bound_ms=bound_ms,
+                         raw_bound_by=bound_by)
+
+
+def _put_rows(full: torch.Tensor, rows: torch.Tensor, axis: int = 1) -> None:
+    """Write ``rows`` (the plain version's, on the CPU) into ``RAW_ROWS`` of
+    the card tensor ``full`` along ``axis``."""
+    full.index_copy_(axis, torch.tensor(RAW_ROWS, device=full.device), rows.to(full.device))
 
 
 def _raw_library(kernels, tag: str, lib, x_bt: torch.Tensor, dh: torch.Tensor,
@@ -2386,64 +2525,63 @@ def _raw_library(kernels, tag: str, lib, x_bt: torch.Tensor, dh: torch.Tensor,
             kernels[name]["raw_library_ms"] = times[key]
 
 
-def phase_pair_raw(lstm_kernel, flush, kernels, cell: str) -> None:
+def phase_pair_raw(lstm_kernel, flush, kernels, cell: str, pending) -> None:
     """``[lstm_raw]`` / ``[gru_raw]``: the 2-layer pair of base.yaml (or
     base.yaml + GRU) on the raw waveform at B=32, T=48,000, D=1, H=256,
     keep p=0.1: the training forward, then the reverse chain over its
-    residuals, then the eval forward, each against its plain version on
-    the card (the plain version first, so the two never hold their largest
-    temporaries at once) and timed (median of 5, L2 flushed)."""
+    residuals, then the eval forward, each over the whole batch on the card
+    and held on ``RAW_ROWS`` against its plain version, which a worker ran
+    on the CPU over those rows (the chain over the plain forward's
+    residuals: the card's chain takes them in those rows); each timed
+    (median of 5, L2 flushed)."""
     lstm = cell == "lstm"
     tag = f"{cell}_raw"
-    x_tm, keep, l0, l1 = _raw_pair_inputs(40 if lstm else 41, 4 if lstm else 3)
+    x_tm, keep, l0, l1, dh = _raw_pair_inputs(40 if lstm else 41, 4 if lstm else 3,
+                                              rows=None)
     t, b, d = x_tm.shape
     h = l0["w_hh"].shape[0]
-    fwd, fwd_ref, bwd, bwd_ref, inf, inf_ref = (
-        (lstm_kernel.lstm2_train_fwd_residuals, lstm_kernel.lstm2_train_fwd_reference,
-         lstm_kernel.lstm2_bwd_chain, lstm_kernel.lstm2_bwd_chain_reference,
-         lstm_kernel.lstm2_infer, lstm_kernel.lstm2_infer_reference) if lstm else
-        (lstm_kernel.gru2_train_fwd_residuals, lstm_kernel.gru2_train_fwd_reference,
-         lstm_kernel.gru2_bwd_chain, lstm_kernel.gru2_bwd_chain_reference,
-         lstm_kernel.gru2_infer, lstm_kernel.gru2_infer_reference))
+    fwd, bwd, inf = (
+        (lstm_kernel.lstm2_train_fwd_residuals, lstm_kernel.lstm2_bwd_chain,
+         lstm_kernel.lstm2_infer) if lstm else
+        (lstm_kernel.gru2_train_fwd_residuals, lstm_kernel.gru2_bwd_chain,
+         lstm_kernel.gru2_infer))
     names = [f"{cell}2_train_fwd", f"{cell}2_bwd_chain", f"{cell}2_infer"]
     print(f"[{tag}] B={b} T={t} D={d} H={h}, keep p=0.1: the packed rows pass 2^31 "
           f"elements from step {2**31 // (b * (10 if lstm else 8) * h)}")
 
-    refs, plain_ms = plain_timed_ms(lambda: fwd_ref(x_tm, keep, l0, l1))
+    fwd_names = ("packed", "h0_prev", "h1_prev", "x1", "finals")
+    chain_names = ("dg0", "dg1") if lstm else ("dih0", "dhn0", "dih1", "dhn1")
+    refs, secs = _raw_plain(pending, f"{cell}_train", fwd_names + chain_names)
     outs = fwd(x_tm, keep, l0, l1)
     torch.cuda.synchronize()
-    err = _raw_check(tag, ("packed", "h0_prev", "h1_prev", "x1", "finals"), outs, refs)
-    del refs
-    series = outs[:3]  # packed, h0_prev, h1_prev: the chain's residuals
+    err = _raw_check(tag, dict(zip(fwd_names, outs)), refs, {})
+    series = list(outs[:1] if lstm else outs[:3])
     del outs
     ms = device_ms(lambda: fwd(x_tm, keep, l0, l1), flush, reps=5, warmup=1)
-    _raw_record(kernels, names[0], tag, err, ms, plain_ms, b, t, d, h, 2)
+    _raw_record(kernels, names[0], tag, err, ms, secs[names[0]], b, t, d, h, 2)
 
-    dh = torch.from_numpy(np.random.RandomState(42).randn(b, h).astype(np.float32)).cuda()
-    if lstm:
-        args = (series[0], keep, dh, l0["w_hh"], l1["w_hh"], l1["w_ih"])
-        out_names = ("dg0", "dg1")
-    else:
-        args = (*series, keep, dh, l0["w_hh"], l1["w_hh"], l1["w_ih"])
-        out_names = ("dih0", "dhn0", "dih1", "dhn1")
+    # the chain over the kernel's residuals, with the plain forward's in
+    # RAW_ROWS: those rows' dgates are then the plain chain's to hold to
+    for name, s in zip(fwd_names, series):
+        _put_rows(s, refs[name])
+    args = (*series, keep, dh, l0["w_hh"], l1["w_hh"], l1["w_ih"])
     del series
-    refs, plain_ms = plain_timed_ms(lambda: bwd_ref(*args))
     outs = bwd(*args)
     torch.cuda.synchronize()
-    err = _raw_check(tag, out_names, outs, refs)
-    del refs, outs
+    err = _raw_check(tag, dict(zip(chain_names, outs)), refs, {})
+    del outs, refs
     ms = device_ms(lambda: bwd(*args), flush, reps=5, warmup=1)
-    _raw_record(kernels, names[1], tag, err, ms, plain_ms, b, t, d, h, 2)
+    _raw_record(kernels, names[1], tag, err, ms, secs[names[1]], b, t, d, h, 2)
     del args
 
     x_bt = x_tm.transpose(0, 1).contiguous()
-    ref, plain_ms = plain_timed_ms(lambda: inf_ref(x_bt, l0, l1))
+    refs, secs = _raw_plain(pending, f"{cell}_eval", ("h1",))
     out = inf(x_bt, l0, l1)
     torch.cuda.synchronize()
-    err = _raw_check(tag, ("final h1 (eval form)",), (out,), (ref,))
+    err = _raw_check(tag, {"h1": out}, refs, {"h1": 0})
     ms = device_ms(lambda: inf(x_bt, l0, l1), flush, reps=5, warmup=1)
-    _raw_record(kernels, names[2], tag, err, ms, plain_ms, b, t, d, h, 2)
-    del ref, out, keep, x_tm
+    _raw_record(kernels, names[2], tag, err, ms, secs[names[2]], b, t, d, h, 2)
+    del out, keep, x_tm
     torch.cuda.empty_cache()
     lib = _cudnn_lstm(l0, l1) if lstm else _cudnn_gru(l0, l1)
     _raw_library(kernels, tag, lib, x_bt, dh, (names[2], names[0], names[1]))
@@ -2451,46 +2589,50 @@ def phase_pair_raw(lstm_kernel, flush, kernels, cell: str) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_lstm1_raw(lstm_kernel, lstm_vjp, flush, kernels) -> None:
+def phase_lstm1_raw(lstm_kernel, lstm_vjp, flush, kernels, pending) -> None:
     """``[lstm1_raw]``: one layer of the layered route on the raw waveform
     (B=32, T=48,000, H=512, layer 0's input D=1): the training forward
     (row 6), then the reverse chain over its residuals with a dh series
-    (row 4), each against its plain version on the card and timed; the
-    one-layer cores are the GRU's too (rows 7f / 7), so this covers their
-    addressing.  Then the big sweep config on raw (LSTM 3x512, b32), whose
-    full-length residuals exceed the card, must be refused before it
+    (row 4), each over the whole batch on the card, held on ``RAW_ROWS``
+    against its plain version from a worker (as ``[lstm_raw]``), and timed;
+    the one-layer cores are the GRU's too (rows 7f / 7), so this covers
+    their addressing.  Then the big sweep config on raw (LSTM 3x512, b32),
+    whose full-length residuals exceed the card, must be refused before it
     allocates them."""
     dev = torch.device("cuda")
     tag, b, t, d, h = "lstm1_raw", 32, RAW_T, 1, 512
-    rng = np.random.RandomState(43)
-    k = 1.0 / np.sqrt(h)
-    x = torch.from_numpy(rng.randn(t, b, d).astype(np.float32)).to(dev)
-    w_ih, w_hh, bias = (torch.from_numpy(rng.uniform(-k, k, s).astype(np.float32)).to(dev)
-                        for s in ((d, 4 * h), (h, 4 * h), (4 * h,)))
+    inp = _raw_layer_inputs()
+    x, w_ih, w_hh, bias = (inp[k].to(dev) for k in ("x", "w_ih", "w_hh", "b"))
     ih = torch.matmul(x, w_ih) + bias
+    _put_rows(ih, inp["ih_rows"])
     print(f"[{tag}] B={b} T={t} D={d} H={h}: g (T, B, 4H) passes 2^31 elements "
           f"from step {2**31 // (b * 4 * h)}")
-    refs, plain_ms = plain_timed_ms(lambda: lstm_kernel.lstm1_train_fwd_reference(ih, w_hh))
+    fwd_names = ("g", "h_prev", "c_prev", "finals")
+    refs, secs = _raw_plain(pending, "lstm1", fwd_names + ("dg",))
     outs = lstm_kernel.lstm1_train_fwd(ih, w_hh)
     torch.cuda.synchronize()
-    err = _raw_check(tag, ("g", "h_prev", "c_prev", "finals"), outs, refs)
-    del refs
+    err = _raw_check(tag, dict(zip(fwd_names, outs)), refs, {"finals": 0})
     g, c_prev = outs[0], outs[2]
     del outs
     ms = device_ms(lambda: lstm_kernel.lstm1_train_fwd(ih, w_hh), flush, reps=5, warmup=1)
-    _raw_record(kernels, "lstm1_train_fwd", tag, err, ms, plain_ms, b, t, d, h, 1)
+    _raw_record(kernels, "lstm1_train_fwd", tag, err, ms, secs["lstm1_train_fwd"],
+                b, t, d, h, 1)
     del ih
 
-    dhf = torch.from_numpy(rng.randn(b, h).astype(np.float32)).to(dev)
-    dhs = torch.from_numpy(rng.randn(t, b, h).astype(np.float32)).to(dev)
+    _put_rows(g, refs["g"])
+    _put_rows(c_prev, refs["c_prev"])
+    gen = torch.Generator(device=dev).manual_seed(44)
+    dhs = torch.randn((t, b, h), generator=gen, device=dev)
+    _put_rows(dhs, inp["dhs_rows"])
+    dhf = inp["dhf"].to(dev)
     args = (g, c_prev, dhs, dhf, w_hh)
-    ref, plain_ms = plain_timed_ms(lambda: lstm_kernel.lstm_bwd_chain_reference(*args))
     out = lstm_kernel.lstm_bwd_chain(*args)
     torch.cuda.synchronize()
-    err = _raw_check(tag, ("dg",), (out,), (ref,))
-    del ref, out
+    err = _raw_check(tag, {"dg": out}, refs, {})
+    del out, refs
     ms = device_ms(lambda: lstm_kernel.lstm_bwd_chain(*args), flush, reps=5, warmup=1)
-    _raw_record(kernels, "lstm_bwd_chain", tag, err, ms, plain_ms, b, t, d, h, 1)
+    _raw_record(kernels, "lstm_bwd_chain", tag, err, ms, secs["lstm_bwd_chain"],
+                b, t, d, h, 1)
     del args, g, c_prev, dhs
     torch.cuda.empty_cache()
     lib = _cudnn_lstm({"w_ih": w_ih, "w_hh": w_hh, "b": bias})
@@ -2895,11 +3037,6 @@ def phase_train(counters, tag: str, model_overrides, expected_fn,
         classifier_from_config,
         init_weights,
     )
-    from multimodal_emotion_detection_tpu_torch.models.noise import Noise
-    from multimodal_emotion_detection_tpu_torch.training.optim import (
-        build_optimizer,
-    )
-    from multimodal_emotion_detection_tpu_torch.training.steps import train_step
 
     sizes = TRAIN_SPLITS
     data = WORK / "train_data"
@@ -2952,8 +3089,6 @@ def phase_train(counters, tag: str, model_overrides, expected_fn,
         batch_size=bsz, seed=cfg.seed, device=dev)[0]
     if cfg.model.frontend.cache:
         _cache_logmel(cfg, train_loader)
-    valid = torch.from_numpy(train_loader.epoch_batch_valid()[0])
-    feats, labels = train_loader.device_arrays()
     if not kinked:
         rows = check_clips or bsz
         if check_clips:
@@ -2966,30 +3101,7 @@ def phase_train(counters, tag: str, model_overrides, expected_fn,
         if contrast_f32:
             _contrast_f32(tag, cfg, model, train_loader, rows, step_kw, sides, gap)
 
-    # train-step latency at b32 on the resident split
-    model = model.to(dev)
-    opt, sched = build_optimizer(cfg.training, model.parameters(), len(train_loader))
-    gen = torch.Generator(device=dev)
-    idx_all = torch.from_numpy(
-        train_loader.epoch_batch_indices(0).astype(np.int64)).to(dev)
-    valid_dev = valid.to(dev)
-    state = {"step": 0}
-
-    def one_step():
-        s = state["step"]
-        gen.manual_seed(s)
-        train_step(model, opt, feats, labels, idx_all[s % idx_all.shape[0]],
-                   valid_dev, noise=Noise(gen), **step_kw)
-        state["step"] = s + 1
-
-    torch.cuda.reset_peak_memory_stats()
-    p50, p90 = host_ms(one_step, reps=reps)
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    print(f"[{tag}] train-step latency b32 (host clock around synchronize, {reps} "
-          f"steps, split on the card): p50 {p50:.4f} ms, p90 {p90:.4f} ms = "
-          f"{32e3 / p50:.1f} clips/s at p50; peak allocated {peak:.4f} GB")
-    busy = profile_forward(f"{tag} b32", one_step, reps=profile_reps, what="train step")
-    STEPS[tag] = (p50, busy, peak)
+    _step_latency(tag, cfg, model, train_loader, step_kw, reps, profile_reps)
     return launches, run_dir, overrides
 
 
@@ -3037,11 +3149,13 @@ def _contrast_f32(tag: str, cfg, model, loader, rows: int, step_kw, sides,
 
 
 def _step_sides(cfg, model, loader, rows: int, step_kw, f64: bool = False,
-                with_cpu: bool = True):
+                with_cpu: bool = True, streamed: bool = False):
     """One ``train_step`` of a copy of ``model`` on the first ``rows`` clips
     of ``loader``'s first batch: on the card, then on the CPU with the
     card's masks replayed (plain versions), and with ``f64`` on the CPU in
-    float64 too (``cpu64``); without ``with_cpu`` the card's alone.  Returns
+    float64 too (``cpu64``); without ``with_cpu`` the card's alone; with
+    ``streamed`` the card takes the batch as ``loader.stream`` copies it and
+    gathers it by the identity, as the host-streaming trainer does.  Returns
     ``{side: {noise, loss, grads, params, buffers}}``, every tensor on the
     CPU."""
     import copy
@@ -3055,7 +3169,11 @@ def _step_sides(cfg, model, loader, rows: int, step_kw, f64: bool = False,
     dev, cpu = torch.device("cuda"), torch.device("cpu")
     idx = torch.from_numpy(loader.epoch_batch_indices(0)[0].astype(np.int64))
     valid = torch.from_numpy(loader.epoch_batch_valid()[0])
-    feats, labels = loader.device_arrays()
+    if streamed:
+        feats, labels = next(loader.stream(0))
+        idx = torch.arange(idx.shape[0])
+    else:
+        feats, labels = loader.device_arrays()
     plan = [("card", dev, torch.float32)] + ([("cpu", cpu, torch.float32)] if with_cpu
                                               else [])
     sides = {}
@@ -3381,6 +3499,450 @@ def profile_forward(label: str, fn, reps: int = 20, what: str = "forward"):
     return busy_us / window_us
 
 
+# ---------------------------------------------------------------------------
+# synthetic data, the host-streaming loader, the epoch trace, the debug
+# probes and the streaming monitor
+# ---------------------------------------------------------------------------
+
+SYNTH_ENC = ("{type: sequence, encoder_type: lstm, input_dim: 32, hidden_dim: 256, "
+             "num_layers: 2, output_dim: 128}")
+# the reference's synthetic fixture (three sensors of 32 features over 100
+# steps, 5 classes) at the flagship's recurrent width: each sensor through
+# an LSTM 2x256 -> Dense 128, the concat head 256; 96 train rows, val and
+# test num_samples_eval // 5 = 64 rows each
+SYNTHETIC = ["dataset.name=synthetic", "dataset.modalities=[sensor1,sensor2,sensor3]",
+             "dataset.num_samples=96", "dataset.num_samples_eval=320",
+             "dataset.num_classes=5",
+             "model.encoders={" + ", ".join(f"sensor{i}: {SYNTH_ENC}" for i in (1, 2, 3))
+             + "}"]
+# the kernels of rows 11, 12 and 2 as the profiler names them: the 2-layer
+# forward core with the stored-gates LSTM cell (float32 storage) in its
+# training and eval forms, and the 2-layer reverse core with the LSTM cell
+TRACE_KERNELS = {
+    "lstm2_train_fwd": r"rnn2_fwd::pair_kernel<rnn2_fwd::LstmCellT<true, float>, \d+, true>",
+    "lstm2_bwd_chain": r"rnn2_bwd::pair_kernel<rnn2_bwd::LstmCellT<float>, \d+>",
+    "lstm2_infer": r"rnn2_fwd::pair_kernel<rnn2_fwd::LstmCellT<true, float>, \d+, false>",
+}
+
+
+def synthetic_counts(steps: int, evals: int):
+    """The synthetic model's launches: each of the three sensors' LSTMs
+    takes rows 11 and 12 once a train step and row 2 once an eval batch."""
+    return {"lstm2_train_fwd": 3 * steps, "lstm2_bwd_chain": 3 * steps,
+            "lstm2_infer": 3 * evals}
+
+
+def _step_latency(tag: str, cfg, model, loader, step_kw, reps: int = 60,
+                  profile_reps: int = 10):
+    """The b32 train step's p50 / p90 (host clock around synchronize) and
+    device busy share on ``loader``: resident, each step gathering its batch
+    on the card; streamed, each step copying its batch from the host first,
+    as the trainer does.  Into ``STEPS[tag]``."""
+    from multimodal_emotion_detection_tpu_torch.models.noise import Noise
+    from multimodal_emotion_detection_tpu_torch.training.optim import build_optimizer
+    from multimodal_emotion_detection_tpu_torch.training.steps import train_step
+
+    dev = torch.device("cuda")
+    model = model.to(dev)
+    opt, _ = build_optimizer(cfg.training, model.parameters(), len(loader))
+    gen = torch.Generator(device=dev)
+    valid = torch.from_numpy(loader.epoch_batch_valid()[0]).to(dev)
+    if loader.device_resident:
+        feats, labels = loader.device_arrays()
+        idx = torch.from_numpy(loader.epoch_batch_indices(0).astype(np.int64)).to(dev)
+    identity = torch.arange(loader.batch_size, device=dev)
+    state = {"step": 0, "batches": iter(())}
+
+    def one_step():
+        s = state["step"]
+        gen.manual_seed(s)
+        if loader.device_resident:
+            f, lab, i = feats, labels, idx[s % idx.shape[0]]
+        else:
+            batch = next(state["batches"], None)
+            if batch is None:
+                state["batches"] = loader.stream(s)
+                batch = next(state["batches"])
+            (f, lab), i = batch, identity
+        train_step(model, opt, f, lab, i, valid, noise=Noise(gen), **step_kw)
+        state["step"] = s + 1
+
+    torch.cuda.reset_peak_memory_stats()
+    p50, p90 = host_ms(one_step, reps=reps)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    how = "split on the card" if loader.device_resident else "each batch copied from the host"
+    print(f"[{tag}] train-step latency b32 (host clock around synchronize, {reps} "
+          f"steps, {how}): p50 {p50:.4f} ms, p90 {p90:.4f} ms = {32e3 / p50:.1f} clips/s "
+          f"at p50; peak allocated {peak:.4f} GB")
+    busy = profile_forward(f"{tag} b32", one_step, reps=profile_reps, what="train step")
+    STEPS[tag] = (p50, busy, peak)
+    if not loader.device_resident:
+        # the same steps on an epoch's batches streamed and copied to the
+        # card beforehand: what the step costs apart from making its batch
+        ready = list(loader.stream(0))
+
+        def ready_step():
+            s = state["step"]
+            gen.manual_seed(s)
+            f, lab = ready[s % len(ready)]
+            train_step(model, opt, f, lab, identity, valid, noise=Noise(gen), **step_kw)
+            state["step"] = s + 1
+
+        q50, q90 = host_ms(ready_step, reps=reps)
+        print(f"[{tag}] the same steps on batches copied to the card beforehand: p50 "
+              f"{q50:.4f} ms, p90 {q90:.4f} ms")
+
+
+def phase_train_synthetic(counters, tag: str, extra=()):
+    """The train CLI with ``dataset.name=synthetic`` (``SYNTHETIC``) for 2
+    epochs at batch 32, from the work directory, with the launch counts
+    checked and the artifacts written; one card step against the CPU step
+    (``streamed``: on the batch as the host-streaming loader copies it);
+    the train step's latency and busy share.  Returns ``(launches, run
+    directory, overrides, results)``."""
+    import contextlib
+
+    from multimodal_emotion_detection_tpu_torch import train
+    from multimodal_emotion_detection_tpu_torch.config import load_config
+    from multimodal_emotion_detection_tpu_torch.data.loader import (
+        SYNTHETIC_KEYS,
+        create_dataloaders,
+    )
+    from multimodal_emotion_detection_tpu_torch.models.classifier import (
+        classifier_from_config,
+        init_weights,
+    )
+
+    config_path = str(ROOT / "configs" / "base.yaml")
+    overrides = [*SYNTHETIC, "training.max_epochs=2", f"experiment.save_dir={WORK}",
+                 f"experiment.name={tag}_run", *extra]
+    cfg = load_config(config_path, overrides)
+    steps, evals = 2 * 96 // 32, 2 * 64 // 32 + 64 // 32
+    with contextlib.chdir(WORK):
+        results, train_s, launches = run_counted(
+            counters, synthetic_counts(steps, evals), tag,
+            lambda: train.main(["--config", config_path, *overrides]))
+    print(f"[{tag}] train.main, 2 epochs of 96 synthetic rows (3 sensors, T 100, D 32) at "
+          f"batch 32 ({steps} steps, {evals} eval batches): {train_s:.3f} s wall; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    run_dir = WORK / f"{tag}_run"
+    for rel in TRAIN_ARTIFACTS:
+        if not (run_dir / rel).exists():
+            raise RuntimeError(f"train.main did not write {rel}")
+    if not all(np.isfinite(v) for v in results.values()):
+        raise RuntimeError(f"non-finite results: {results}")
+    print(f"[{tag}] results {json.dumps(results)}")
+
+    dev = torch.device("cuda")
+    streamed = not cfg.dataset.device_resident
+    model = init_weights(classifier_from_config(cfg), torch.Generator().manual_seed(0))
+    loader = create_dataloaders(
+        cfg.dataset.name, cfg.dataset.data_dir, cfg.dataset.modalities,
+        batch_size=32, seed=cfg.seed, device_resident=not streamed, device=dev,
+        **{k: getattr(cfg.dataset, k) for k in SYNTHETIC_KEYS})[0]
+    step_kw = dict(lr=cfg.training.learning_rate,
+                   clip_norm=cfg.training.gradient_clip_norm,
+                   modality_dropout=cfg.training.augmentation.modality_dropout)
+    sides = _step_sides(cfg, model, loader, 32, step_kw, streamed=streamed)
+    _step_check(tag, cfg, sides["card"], sides["cpu"], 32)
+    _step_latency(tag, cfg, model, loader, step_kw)
+    return launches, run_dir, overrides, results
+
+
+def _trace_kernels(path: Path):
+    """Kernel events of a Chrome trace by name."""
+    from collections import Counter
+
+    events = json.loads(path.read_text())["traceEvents"]
+    return Counter(e["name"] for e in events if e.get("cat") == "kernel")
+
+
+def phase_train_synthetic_stream(counters, resident_results, resident_dir):
+    """``[train_synthetic_stream]``: ``[train_synthetic]`` again with
+    ``dataset.device_resident=false`` (each batch copied to the card as its
+    step needs it) and ``runtime.profile_dir``: its losses, validation and
+    test metrics bit for bit the resident run's; the trace of epoch 1 alone
+    naming rows 11 and 12 three times a step of it and row 2 never; then one
+    streamed and one resident epoch under ``torch.cuda.set_sync_debug_mode``:
+    the streamed steps synchronise no more often than the resident ones."""
+    import csv
+    import re
+    import warnings
+
+    from multimodal_emotion_detection_tpu_torch.config import load_config
+    from multimodal_emotion_detection_tpu_torch.data.loader import (
+        SYNTHETIC_KEYS,
+        create_dataloaders,
+    )
+    from multimodal_emotion_detection_tpu_torch.training.loop import Trainer
+
+    tag = "train_synthetic_stream"
+    trace_dir = WORK / "synthetic_trace"
+    launches, run_dir, overrides, results = phase_train_synthetic(
+        counters, tag, ["dataset.device_resident=false", f"runtime.profile_dir={trace_dir}"])
+
+    def rows(d):
+        with open(d / "csv_logs/version_0/metrics.csv") as f:
+            return [{k: v for k, v in r.items() if k != "train/clips_per_sec"}
+                    for r in csv.DictReader(f)]
+
+    same_csv = rows(run_dir) == rows(resident_dir)
+    print(f"[{tag}] against [train_synthetic]: metrics.csv (every loss, accuracy, "
+          f"validation and test value, lr) {'bit for bit equal' if same_csv else 'DIFFERENT'}; "
+          f"results {'bit for bit equal' if results == resident_results else 'DIFFERENT'}")
+    if not same_csv or results != resident_results:
+        raise RuntimeError("the streamed run is not the resident run")
+
+    traces = sorted(trace_dir.iterdir())
+    if [p.name for p in traces] != ["trace_epoch1.json"]:
+        raise RuntimeError(f"{tag}: expected one trace of epoch 1, found {traces}")
+    kernels = _trace_kernels(traces[0])
+    per_row = {row: sum(n for name, n in kernels.items() if re.search(pat, name))
+               for row, pat in TRACE_KERNELS.items()}
+    print(f"[{tag}] {traces[0].name}: {traces[0].stat().st_size / 1e6:.1f} MB, "
+          f"{sum(kernels.values())} kernel events; rows 11 / 12 / 2 "
+          f"{per_row['lstm2_train_fwd']} / {per_row['lstm2_bwd_chain']} / "
+          f"{per_row['lstm2_infer']} (expected 9 / 9 / 0: 3 sensors x 3 steps, no eval)")
+    for name, n in kernels.most_common():
+        if "pair_kernel" in name:
+            print(f"[{tag}]   {n:4d}  {name[:100]}")
+    if per_row != {"lstm2_train_fwd": 9, "lstm2_bwd_chain": 9, "lstm2_infer": 0}:
+        raise RuntimeError(f"{tag}: the trace does not hold epoch 1's kernels")
+
+    # one epoch of each path under the sync debug mode, after a warm epoch
+    dev = torch.device("cuda")
+    cfg = load_config(str(ROOT / "configs" / "base.yaml"), overrides[:-1])
+    trainer = Trainer(cfg, save_dir=WORK / "sync_check")
+    gen = torch.Generator(device=dev)
+    syncs = {}
+    for resident in (True, False):
+        loader = create_dataloaders(
+            cfg.dataset.name, "", cfg.dataset.modalities, batch_size=32, seed=cfg.seed,
+            device_resident=resident, device=dev,
+            **{k: getattr(cfg.dataset, k) for k in SYNTHETIC_KEYS})[0]
+        trainer._build(loader)
+        trainer._train_epoch(loader, 0, *trainer._place(loader, 0)[1:], gen)
+        _, idx_dev, valid_dev = trainer._place(loader, 1)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                trainer._train_epoch(loader, 1, idx_dev, valid_dev, gen)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        syncs["resident" if resident else "streamed"] = [
+            f"{Path(w.filename).name}:{w.lineno}" for w in caught
+            if "synchroniz" in str(w.message)]
+    print(f"[{tag}] torch.cuda.set_sync_debug_mode over one epoch (3 steps) of each path: "
+          f"synchronising calls resident {len(syncs['resident'])} {syncs['resident']}, "
+          f"streamed {len(syncs['streamed'])} {syncs['streamed']}")
+    if len(syncs["streamed"]) > len(syncs["resident"]):
+        raise RuntimeError("the streamed steps synchronise more than the resident ones")
+    # the host's cost of one streamed batch alone: the loader is the last
+    # one the loop made, the streamed one
+    state = {"batches": iter(())}
+
+    def one_batch():
+        if next(state["batches"], None) is None:
+            state["batches"] = loader.stream(0)
+            next(state["batches"])
+
+    b50, b90 = host_ms(one_batch)
+    print(f"[{tag}] one streamed batch alone (3 x (32, 100, 32) float32 and the labels: "
+          f"gathered on the host, pinned, copied; host clock around synchronize, 110 "
+          f"batches): p50 {b50:.4f} ms, p90 {b90:.4f} ms")
+    (p50, busy, _), (p50_r, busy_r, _) = STEPS[tag], STEPS["train_synthetic"]
+    print(f"[{tag}] train step p50 {p50:.4f} ms, device busy "
+          f"{100 * busy if busy else float('nan'):.1f}%; [train_synthetic] (resident) p50 "
+          f"{p50_r:.4f} ms, busy {100 * busy_r if busy_r else float('nan'):.1f}%")
+    return launches
+
+
+def phase_serve_synthetic(counters, ckpt: Path, overrides):
+    """``[serve_synthetic]``: the predict CLI on ``[train_synthetic]``'s
+    ``best.ckpt`` over the synthetic test split (64 rows, 2 batches of 32):
+    row 2 three times a batch; the logits against the model's forward on
+    the CPU (plain versions) within 1e-3; the b32 forward's latency."""
+    from multimodal_emotion_detection_tpu_torch.config import load_config
+    from multimodal_emotion_detection_tpu_torch.tools import predict
+    from multimodal_emotion_detection_tpu_torch.tools._restore import restore_for_eval
+    from multimodal_emotion_detection_tpu_torch.training.steps import forward
+
+    tag = "serve_synthetic"
+    config_path = str(ROOT / "configs" / "base.yaml")
+    out_dir = WORK / "predictions_synthetic"
+    metrics, predict_s, launches = run_counted(
+        counters, {"lstm2_infer": 3 * 2}, tag, lambda: predict.main([
+            "--checkpoint", str(ckpt), "--config", config_path, "--split", "test",
+            "--out", str(out_dir), *overrides]))
+    logits = np.load(out_dir / "logits.npy")
+    if logits.shape != (64, 5) or not np.isfinite(logits).all():
+        raise RuntimeError(f"bad logits: shape {logits.shape}")
+    cfg = load_config(config_path, overrides)
+    model, _, loader = restore_for_eval(cfg, ckpt, "test", torch.device("cpu"))
+    ref = torch.cat([forward(model, f, m) for f, _, m in loader]).numpy()
+    err = float(np.abs(logits - ref).max())
+    agree = int((logits.argmax(-1) == ref.argmax(-1)).sum())
+    print(f"[{tag}] predict over 64 synthetic rows at batch 32: {predict_s:.3f} s wall; "
+          f"launches { {k: v for k, v in launches.items() if v} }; logits vs the "
+          f"plain-version forward on the CPU: max abs err {err:.3e} (bound 1e-3), argmax "
+          f"agreement {agree}/64; accuracy {metrics['accuracy']:.4f}")
+    if err > 1e-3 or agree != 64:
+        raise RuntimeError("served logits disagree with the plain forward")
+    dev = torch.device("cuda")
+    model = model.to(dev)
+    b32 = {k: v.to(dev) for k, v in next(iter(loader))[0].items()}
+    p50, p90 = host_ms(lambda: forward(model, b32))
+    print(f"[{tag}] forward latency b32 (host clock around synchronize, 110 requests): "
+          f"p50 {p50:.4f} ms, p90 {p90:.4f} ms")
+    return launches
+
+
+def phase_debug(counters):
+    """``[debug]``: the debug CLI on the synthetic model (full width, on
+    the card).  The overfit probe must PASS and the gradient statistics be
+    finite.  Launches, exactly: the probe's frozen-encoder steps run each
+    sensor's training-mode forward (row 11; dropout 0, as the JAX probe's
+    deterministic=False forward) and no reverse chain: the encoders'
+    parameters take no gradient, as optax's set_to_zero discards theirs
+    and XLA drops the chain that would form them.  So row 11 3 x the
+    probe's steps; then the activation statistics' eval forward (row 2 x
+    3) and the gradient statistics' one backward (rows 11 and 12 x 3)."""
+    import contextlib
+    import io
+    import re
+
+    from multimodal_emotion_detection_tpu_torch.tools import debug
+
+    for c in counters.values():
+        c.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        ok = debug.main(["--config", str(ROOT / "configs" / "base.yaml"), *SYNTHETIC])
+    wall = time.perf_counter() - t0
+    out = buf.getvalue()
+    print(out, end="")
+    launches = {name: c.launches for name, c in counters.items()}
+    steps = re.search(r"\[overfit\] PASS at step (\d+)", out)
+    if not ok or steps is None:
+        raise RuntimeError("[debug] the overfit probe did not pass")
+    k = int(steps.group(1))
+    expected = {"lstm2_train_fwd": 3 * k + 3, "lstm2_bwd_chain": 3, "lstm2_infer": 3}
+    for name, count in launches.items():
+        if count != expected.get(name, 0):
+            raise RuntimeError(f"{name} launched {count} times on the debug path, "
+                               f"expected {expected.get(name, 0)}")
+    norms = {m: float(v) for m, v in re.findall(r"\[grads\] (\S+): global_norm=(\S+)", out)}
+    print(f"[debug] tools.debug on the card: {wall:.3f} s wall; PASS at step {k}; launches "
+          f"{ {n: c for n, c in launches.items() if c} } (row 11: 3 x {k} frozen-encoder "
+          f"steps + 3, rows 12 and 2: 3); gradient norms {norms}")
+    # the three encoders, head_in and head_out
+    if len(norms) != 5 or not all(np.isfinite(v) and v > 0 for v in norms.values()):
+        raise RuntimeError(f"[debug] bad gradient statistics: {norms}")
+    return launches
+
+
+STREAM_WINDOWS = 58  # a 60 s stream in 3 s windows at a 1 s hop
+
+
+def phase_stream(counters, ckpt: Path):
+    """``[stream]``: ``tools.stream`` on the flagship's seeded checkpoint
+    (``[serve]``'s) over a 60 s stream (960,000 samples, 480 frames):
+    58 windows of 48,000 samples / 24 frames at hops 16,000 / 8, in 2
+    microbatches of 32 (the last padded with the last window), log-mel and
+    row 2 once each a microbatch; the same windows through the card's
+    ``forward`` in b32 batches bit for bit; against the stream on the CPU
+    (plain versions): logits within 1e-3, every label, ``timeline.csv``
+    apart from its probability columns and ``summary.json`` equal; then
+    ``--microbatch 1`` (row 2's B=1 plan): the same labels, probabilities
+    within 1e-5."""
+    from multimodal_emotion_detection_tpu_torch.config import load_config
+    from multimodal_emotion_detection_tpu_torch.tools import stream
+    from multimodal_emotion_detection_tpu_torch.tools._restore import restore_model
+    from multimodal_emotion_detection_tpu_torch.training.steps import (
+        forward,
+        make_batched_forward_fn,
+    )
+
+    tag = "stream"
+    rng = np.random.RandomState(23)
+    src = WORK / "stream_in"
+    src.mkdir(parents=True, exist_ok=True)
+    streams = {"audio": rng.randn(960000, 1).astype(np.float32),
+               "video": rng.rand(480, 4096).astype(np.float32)}
+    for m, a in streams.items():
+        np.save(src / f"{m}.npy", a)
+    config_path = str(ROOT / "configs" / "base.yaml")
+    overrides = ["model.frontend.audio=logmel"]
+    args = ["--checkpoint", str(ckpt), "--config", config_path,
+            "--input", f"audio={src / 'audio.npy'}", "--input", f"video={src / 'video.npy'}"]
+
+    def run(name, expected, *extra):
+        out = WORK / f"stream_{name}"
+        summary, wall, launches = run_counted(counters, expected, f"{tag} {name}", lambda: (
+            stream.main([*args, "--out", str(out), *extra, *overrides])))
+        print(f"[{tag}] {name}: tools.stream over {summary['windows']} windows "
+              f"{' '.join(extra)}: {wall:.3f} s wall (the whole call: load, restore, "
+              f"windows, forwards, files); launches "
+              f"{ {k: v for k, v in launches.items() if v} }")
+        return out, summary, launches
+
+    card, summary, launches = run("card", {"logmel": 2, "lstm2_infer": 2}, "--microbatch", "32")
+    if summary["windows"] != STREAM_WINDOWS:
+        raise RuntimeError(f"[{tag}] {summary['windows']} windows")
+    cpu, _, _ = run("cpu", {}, "--microbatch", "32", "runtime.platform=cpu")
+    one, _, _ = run("b1", {"logmel": STREAM_WINDOWS, "lstm2_infer": STREAM_WINDOWS},
+                    "--microbatch", "1")
+
+    # the windows as the CLI cuts and pads them
+    cut = {"audio": stream.sliding_windows(streams["audio"], 48000, 16000),
+           "video": stream.sliding_windows(streams["video"], 24, 8)}
+    stacked = {m: np.concatenate([c, np.repeat(c[-1:], 64 - len(c), axis=0)]).reshape(
+        (2, 32) + c.shape[1:]) for m, c in cut.items()}
+    cfg = load_config(config_path, overrides)
+    cfg.model.frontend.cache = False
+    dev = torch.device("cuda")
+    model, _ = restore_model(cfg, ckpt, dev)
+    on_card = {m: torch.from_numpy(a).to(dev) for m, a in stacked.items()}
+    many = make_batched_forward_fn(model)(on_card)
+    per_batch = torch.stack([forward(model, {m: a[i] for m, a in on_card.items()})
+                             for i in range(2)])
+    logits = many.reshape(64, -1)[:STREAM_WINDOWS].cpu().numpy()
+    probs = np.exp(logits - logits.max(-1, keepdims=True))
+    probs /= probs.sum(-1, keepdims=True)
+    same = torch.equal(many, per_batch) and np.array_equal(probs, np.load(card / "probs.npy"))
+    cpu_model, _ = restore_model(cfg, ckpt, torch.device("cpu"))
+    cpu_logits = make_batched_forward_fn(cpu_model)(
+        {m: torch.from_numpy(a) for m, a in stacked.items()}).reshape(64, -1)[:STREAM_WINDOWS]
+    err = float(np.abs(logits - cpu_logits.numpy()).max())
+    labels = {n: np.load(d / "predictions.npy") for n, d in (("card", card), ("cpu", cpu),
+                                                              ("b1", one))}
+    lines = {n: (d / "timeline.csv").read_text().splitlines() for n, d in
+             (("card", card), ("cpu", cpu))}
+    spans = {n: [r.split(",")[:6] for r in ls] for n, ls in lines.items()}
+    b1_err = float(np.abs(np.load(one / "probs.npy") - np.load(card / "probs.npy")).max())
+    same_summary = (json.loads((card / "summary.json").read_text())
+                    == json.loads((cpu / "summary.json").read_text()))
+    print(f"[{tag}] the card's stream logits vs the card's forward on the same windows in "
+          f"b32 batches: {'bit for bit equal' if same else 'DIFFERENT'}; vs the stream on "
+          f"the CPU (plain versions): logits max abs err {err:.3e} (bound 1e-3), labels "
+          f"{int((labels['card'] == labels['cpu']).sum())}/{STREAM_WINDOWS} equal, "
+          f"timeline.csv windows / spans / labels "
+          f"{'equal' if spans['card'] == spans['cpu'] else 'DIFFERENT'}, summary.json "
+          f"{'equal' if same_summary else 'DIFFERENT'}; --microbatch 1 (row 2 at B=1): "
+          f"labels {int((labels['b1'] == labels['card']).sum())}/{STREAM_WINDOWS} equal, "
+          f"probabilities max abs diff {b1_err:.3e} (bound 1e-5); {summary['label_changes']} "
+          "label changes")
+    if not (same and err <= 1e-3 and np.array_equal(labels["card"], labels["cpu"])
+            and spans["card"] == spans["cpu"] and same_summary
+            and np.array_equal(labels["b1"], labels["card"]) and b1_err <= 1e-5):
+        raise RuntimeError(f"[{tag}] the stream disagrees")
+    return launches
+
+
 TRAIN_SPLITS = {"train": 96, "val": 64, "test": 64}
 # the reference's big sweep config (bench.py's big=True legs), log-mel
 # cached per split as the bench's big-config leg runs it
@@ -3422,19 +3984,31 @@ MAIN_PATH = {"logmel": "train", "lstm2_infer": "train", "lstm2_train_fwd": "trai
              "lstm_bwd_chain_bf16": "train_big_fast"}
 
 
+# wall seconds of each phase
+PHASE_S = {}
+
+
+def timed(fn, *args, name=None, **kwargs):
+    """``fn(*args, **kwargs)``, its wall seconds printed and kept in
+    ``PHASE_S`` under ``name`` (by default the first string argument: the
+    path's tag)."""
+    if name is None:
+        name = next(a for a in args if isinstance(a, str))
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        PHASE_S[name] = time.perf_counter() - t0
+        print(f"[time] {name}: {PHASE_S[name]:.1f} s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch sees no CUDA card")
     t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT))
-    from multimodal_emotion_detection_tpu_torch.ops import (
-        _build,
-        logmel,
-        lstm_kernel,
-        lstm_vjp,
-    )
+    from multimodal_emotion_detection_tpu_torch.ops import _build, logmel, lstm_kernel
     from multimodal_emotion_detection_tpu_torch.ops import flash_attention as fa
-    from multimodal_emotion_detection_tpu_torch.training.loop import FRONTEND_CHUNK
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3486,48 +4060,70 @@ def main() -> None:
                 "gru2_bwd_chain_bf16": lstm_kernel.GRU2_BWD_CHAIN_BF16,
                 "lstm1_train_fwd_bf16": lstm_kernel.LSTM1_TRAIN_FWD_BF16,
                 "lstm_bwd_chain_bf16": lstm_kernel.LSTM_BWD_CHAIN_BF16}
+    # the raw phases' plain versions run on the CPU beside the card, one
+    # worker process a job (RAW_JOBS); every worker is stopped on the way out
+    pool = multiprocessing.get_context("spawn").Pool(len(RAW_JOBS))
+    try:
+        pending = {job: pool.apply_async(_raw_plain_job, (job,)) for job in RAW_JOBS}
+        _run_phases(counters, pending, card_name, t_start)
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+def _run_phases(counters, pending, card_name: str, t_start: float) -> None:
+    from multimodal_emotion_detection_tpu_torch.ops import logmel, lstm_kernel, lstm_vjp
+    from multimodal_emotion_detection_tpu_torch.ops import flash_attention as fa
+    from multimodal_emotion_detection_tpu_torch.training.loop import FRONTEND_CHUNK
+
     flush = L2Flush()
-    kernels = {"logmel": phase_logmel(logmel, flush),
-               "lstm2_infer": phase_lstm(lstm_kernel, flush)}
-    by_path = {"serve": phase_serve(counters)}
-    kernels["lstm2_train_fwd"], train_inputs = phase_lstm2_train_fwd(lstm_kernel, flush)
-    kernels["lstm2_bwd_chain"] = phase_lstm2_bwd_chain(lstm_kernel, lstm_vjp, flush,
-                                                       train_inputs)
+    kernels = {"logmel": timed(phase_logmel, logmel, flush, name="logmel"),
+               "lstm2_infer": timed(phase_lstm, lstm_kernel, flush, name="lstm2_infer")}
+    by_path = {"serve": timed(phase_serve, counters, name="serve")}
+    kernels["lstm2_train_fwd"], train_inputs = timed(phase_lstm2_train_fwd, lstm_kernel, flush,
+                                                             name="lstm2_train_fwd")
+    kernels["lstm2_bwd_chain"] = timed(phase_lstm2_bwd_chain, lstm_kernel, lstm_vjp, flush,
+                                      train_inputs, name="lstm2_bwd_chain")
     del train_inputs
-    phase_lstm2_train_fwd_b320(lstm_kernel, flush, kernels["lstm2_train_fwd"])
+    timed(phase_lstm2_train_fwd_b320, lstm_kernel, flush, kernels["lstm2_train_fwd"],
+          name="lstm2_train_fwd b320")
     kernels["lstm2_train_fwd_nogates"], kernels["lstm2_bwd_chain_remat"] = (
-        phase_lstm2_remat(lstm_kernel, lstm_vjp, flush))
+        timed(phase_lstm2_remat, lstm_kernel, lstm_vjp, flush, name="lstm2_remat"))
     kernels["lstm2_train_fwd_legacy"], kernels["lstm2_bwd_chain_legacy"] = (
-        phase_lstm2_legacy(lstm_kernel, lstm_vjp, flush))
+        timed(phase_lstm2_legacy, lstm_kernel, lstm_vjp, flush, name="lstm2_legacy"))
     (kernels["lstm1_train_fwd"], kernels["lstm1_infer"],
-     layer_inputs) = phase_lstm1_train_fwd(lstm_kernel, flush)
-    kernels["lstm_bwd_chain"] = phase_lstm_bwd_chain(lstm_kernel, lstm_vjp, flush,
-                                                     layer_inputs)
+     layer_inputs) = timed(phase_lstm1_train_fwd, lstm_kernel, flush,
+                            name="lstm1_train_fwd")
+    kernels["lstm_bwd_chain"] = timed(phase_lstm_bwd_chain, lstm_kernel, lstm_vjp, flush,
+                                     layer_inputs, name="lstm_bwd_chain")
     del layer_inputs
-    kernels["gru2_infer"] = phase_gru2_infer(lstm_kernel, flush)
-    kernels["gru2_train_fwd"], gru_inputs = phase_gru2_train_fwd(lstm_kernel, flush)
-    kernels["gru2_bwd_chain"] = phase_gru2_bwd_chain(lstm_kernel, lstm_vjp, flush,
-                                                     gru_inputs)
+    kernels["gru2_infer"] = timed(phase_gru2_infer, lstm_kernel, flush, name="gru2_infer")
+    kernels["gru2_train_fwd"], gru_inputs = timed(phase_gru2_train_fwd, lstm_kernel, flush,
+                                                         name="gru2_train_fwd")
+    kernels["gru2_bwd_chain"] = timed(phase_gru2_bwd_chain, lstm_kernel, lstm_vjp, flush,
+                                     gru_inputs, name="gru2_bwd_chain")
     del gru_inputs
     kernels["gru2_train_fwd_legacy"], kernels["gru2_bwd_chain_legacy"] = (
-        phase_gru2_legacy(lstm_kernel, lstm_vjp, flush))
+        timed(phase_gru2_legacy, lstm_kernel, lstm_vjp, flush, name="gru2_legacy"))
     (kernels["gru1_train_fwd"], kernels["gru1_infer"],
-     gru_layer_inputs) = phase_gru1_train_fwd(lstm_kernel, flush)
-    kernels["gru_bwd_chain"] = phase_gru_bwd_chain(lstm_kernel, lstm_vjp, flush,
-                                                   gru_layer_inputs)
+     gru_layer_inputs) = timed(phase_gru1_train_fwd, lstm_kernel, flush,
+                                name="gru1_train_fwd")
+    kernels["gru_bwd_chain"] = timed(phase_gru_bwd_chain, lstm_kernel, lstm_vjp, flush,
+                                   gru_layer_inputs, name="gru_bwd_chain")
     del gru_layer_inputs
-    kernels["flash_fwd"], kernels["flash_bwd_fused"] = phase_flash(fa, flush)
+    kernels["flash_fwd"], kernels["flash_bwd_fused"] = timed(phase_flash, fa, flush, name="flash")
     by_path["flash_long"], (kernels["flash_bwd_dkv"], kernels["flash_bwd_dq"]) = (
-        phase_flash_long(fa, counters, flush))
+        timed(phase_flash_long, fa, counters, flush, name="flash_long"))
     # configs/base.yaml as written: the raw waveform's 48,000 steps through
     # the pairs and the one-layer cores
-    phase_pair_raw(lstm_kernel, flush, kernels, "lstm")
-    phase_pair_raw(lstm_kernel, flush, kernels, "gru")
-    phase_lstm1_raw(lstm_kernel, lstm_vjp, flush, kernels)
+    timed(phase_pair_raw, lstm_kernel, flush, kernels, "lstm", pending, name="lstm_raw")
+    timed(phase_pair_raw, lstm_kernel, flush, kernels, "gru", pending, name="gru_raw")
+    timed(phase_lstm1_raw, lstm_kernel, lstm_vjp, flush, kernels, pending, name="lstm1_raw")
     # the bf16 residual streams' forms of rows 11 / 12, 14 / 15 and 6 / 4
     t_half = time.perf_counter()
     for phase in (phase_lstm2_res_bf16, phase_gru2_res_bf16, phase_lstm1_res_bf16):
-        kernels.update({k["name"]: k for k in phase(lstm_kernel, flush)})
+        kernels.update({k["name"]: k for k in timed(
+            phase, lstm_kernel, flush, name=phase.__name__[len("phase_"):])})
     print(f"[time] lstm2_res_bf16, gru2_res_bf16, lstm1_res_bf16: "
           f"{time.perf_counter() - t_half:.1f} s")
     del flush
@@ -3536,11 +4132,25 @@ def main() -> None:
         return {"logmel": steps + evals, "lstm2_infer": evals,
                 "lstm2_train_fwd": steps, "lstm2_bwd_chain": steps}
 
-    by_path["train"] = phase_train(
+    by_path["train"] = timed(phase_train,
         counters, "train", ["model.frontend.audio=logmel"], flagship_counts)[0]
+    # the streaming monitor on the flagship's seeded checkpoint ([serve]'s)
+    by_path["stream"] = timed(phase_stream, counters, WORK / "flagship_seed0.pt",
+                              name="stream")
+    # synthetic data at the flagship's recurrent width: trained resident,
+    # then host-streamed with the epoch trace, served and debugged
+    by_path["train_synthetic"], syn_run, syn_overrides, syn_results = timed(
+        phase_train_synthetic, counters, "train_synthetic")
+    by_path["train_synthetic_stream"] = timed(
+        phase_train_synthetic_stream, counters, syn_results, syn_run,
+        name="train_synthetic_stream")
+    by_path["serve_synthetic"] = timed(phase_serve_synthetic, counters,
+                                       syn_run / "best.ckpt", syn_overrides,
+                                       name="serve_synthetic")
+    by_path["debug"] = timed(phase_debug, counters, name="debug")
     # the flagship with its gates rematerialised: the no-gates forward and
     # the remat chain per step, the stored-gates pair never
-    by_path["train_remat"] = phase_train(
+    by_path["train_remat"] = timed(phase_train,
         counters, "train_remat", ["model.frontend.audio=logmel",
                                   "runtime.lstm_remat_gates=true"],
         lambda steps, evals: {"logmel": steps + evals, "lstm2_infer": evals,
@@ -3551,7 +4161,7 @@ def main() -> None:
     # kernels per step, the residual-native and remat pairs never
     prev = lstm_vjp.set_res2_mode("off")
     try:
-        by_path["train_legacy"] = phase_train(
+        by_path["train_legacy"] = timed(phase_train,
             counters, "train_legacy", ["model.frontend.audio=logmel"],
             lambda steps, evals: {"logmel": steps + evals, "lstm2_infer": evals,
                                   "lstm2_train_fwd_legacy": steps,
@@ -3568,15 +4178,15 @@ def main() -> None:
     batches = TRAIN_SPLITS["test"] // 32
     served = {"logmel": batches, "lstm2_infer": batches}
     fusion = dict(check_clips=4, reps=30, profile_reps=5)
-    by_path["train_hybrid"], hyb_run, hyb_overrides = phase_train(
+    by_path["train_hybrid"], hyb_run, hyb_overrides = timed(phase_train,
         counters, "train_hybrid", [], flagship_counts, config="av_hybrid.yaml", **fusion)
-    by_path["serve_hybrid"] = serve_path(
+    by_path["serve_hybrid"] = timed(serve_path,
         "serve_hybrid", counters, served, hyb_run / "best.ckpt", hyb_overrides,
         test_audio, test_video, WORK / "predictions_hybrid", config="av_hybrid.yaml")
     # uncertainty fusion: the calibration report in place of best.ckpt and
     # results.json, so the trainer's best checkpoint is served
     experiments = WORK / "unc_experiments"
-    by_path["train_unc"], unc_run, unc_overrides = phase_train(
+    by_path["train_unc"], unc_run, unc_overrides = timed(phase_train,
         counters, "train_unc", [f"outputs.experiments_dir={experiments}"],
         flagship_counts, config="uncertainty.yaml",
         artifacts=TRAIN_ARTIFACTS[2:], **fusion)
@@ -3587,10 +4197,10 @@ def main() -> None:
     print(f"[train_unc] {report.relative_to(WORK)}: "
           f"{json.dumps(json.loads(report.read_text()))}")
     (unc_best,) = (unc_run / "checkpoints").glob("epoch=*-val_loss=*.ckpt")
-    by_path["serve_unc"] = serve_path(
+    by_path["serve_unc"] = timed(serve_path,
         "serve_unc", counters, served, unc_best, unc_overrides, test_audio,
         test_video, WORK / "predictions_unc", config="uncertainty.yaml")
-    by_path["mc_dropout"] = phase_mc_dropout(
+    by_path["mc_dropout"] = timed(phase_mc_dropout,
         counters, "mc_dropout", unc_best, unc_overrides, 10, test_audio, test_video,
         WORK / "predictions_mc", "uncertainty.yaml")
     print(f"[time] train_hybrid, serve_hybrid, train_unc, serve_unc, mc_dropout: "
@@ -3606,23 +4216,23 @@ def main() -> None:
     def logmel_counts(steps, evals):
         return {"logmel": steps + evals}
 
-    by_path["train_audio_only"], ao_run, ao_overrides = phase_train(
+    by_path["train_audio_only"], ao_run, ao_overrides = timed(phase_train,
         counters, "train_audio_only", [], logmel_counts, config="audio_only.yaml",
         kinked=True)
-    by_path["serve_audio_only"] = serve_path(
+    by_path["serve_audio_only"] = timed(serve_path,
         "serve_audio_only", counters, {"logmel": batches}, ao_run / "best.ckpt",
         ao_overrides, test_audio, test_video, WORK / "predictions_audio_only",
         config="audio_only.yaml")
-    by_path["train_video_only"], vo_run, vo_overrides = phase_train(
+    by_path["train_video_only"], vo_run, vo_overrides = timed(phase_train,
         counters, "train_video_only", [], lambda steps, evals: {},
         config="video_only.yaml")
-    by_path["serve_video_only"] = serve_path(
+    by_path["serve_video_only"] = timed(serve_path,
         "serve_video_only", counters, {}, vo_run / "best.ckpt", vo_overrides,
         test_audio, test_video, WORK / "predictions_video_only", config="video_only.yaml")
-    by_path["train_mlp"] = phase_train(
+    by_path["train_mlp"] = timed(phase_train,
         counters, "train_mlp", ["model.encoders.audio.type=mlp"], logmel_counts,
         config="audio_only.yaml", kinked=True)[0]
-    by_path["mc_dropout_cnn"] = phase_mc_dropout(
+    by_path["mc_dropout_cnn"] = timed(phase_mc_dropout,
         counters, "mc_dropout_cnn", ao_run / "best.ckpt", ao_overrides, 10, test_audio,
         test_video, WORK / "predictions_mc_cnn", "audio_only.yaml",
         expected_per_batch={"logmel": 1})
@@ -3640,12 +4250,12 @@ def main() -> None:
     # sides to different ulps) and told apart from the float32-stream step
     t_fast = time.perf_counter()
     half = ["runtime.lstm_residual_dtype=bfloat16"]
-    by_path["train_fast"], fast_run, fast_overrides = phase_train(
+    by_path["train_fast"], fast_run, fast_overrides = timed(phase_train,
         counters, "train_fast", [],
         lambda steps, evals: {"logmel": cached, "lstm2_infer": evals,
                               "lstm2_train_fwd_bf16": steps, "lstm2_bwd_chain_bf16": steps},
         config="fast.yaml", grad_bound=1e-3, contrast_f32=True, **fusion)
-    by_path["serve_fast"] = serve_path(
+    by_path["serve_fast"] = timed(serve_path,
         "serve_fast", counters, served, fast_run / "best.ckpt", fast_overrides,
         test_audio, test_video, WORK / "predictions_fast", config="fast.yaml")
     (p50, busy, peak), (p50_h, busy_h, peak_h) = STEPS["train_fast"], STEPS["train_hybrid"]
@@ -3659,31 +4269,31 @@ def main() -> None:
     # ulps, averaged over 4 clips) reaches 1e-4 of the largest gradient,
     # as far as the float32-stream step is from the bf16 one
     half_paths = dict(grad_bound=1e-3, contrast_f32=True, reps=20, profile_reps=3)
-    by_path["train_gru_fast"] = phase_train(
+    by_path["train_gru_fast"] = timed(phase_train,
         counters, "train_gru_fast", GRU + half,
         lambda steps, evals: {"logmel": cached, "gru2_infer": evals,
                               "gru2_train_fwd_bf16": steps, "gru2_bwd_chain_bf16": steps},
         **half_paths)[0]
-    by_path["train_big_fast"] = phase_train(
+    by_path["train_big_fast"] = timed(phase_train,
         counters, "train_big_fast", BIG + half,
         lambda steps, evals: {"logmel": cached, "lstm1_train_fwd_bf16": 3 * steps,
                               "lstm_bwd_chain_bf16": 3 * steps, "lstm1_infer": 3 * evals},
         **half_paths)[0]
     print(f"[time] train_fast, serve_fast, train_gru_fast, train_big_fast: "
           f"{time.perf_counter() - t_fast:.1f} s")
-    by_path["train_big"], big_run, big_overrides = phase_train(
+    by_path["train_big"], big_run, big_overrides = timed(phase_train,
         counters, "train_big", BIG,
         lambda steps, evals: {"logmel": cached, "lstm1_train_fwd": 3 * steps,
                               "lstm_bwd_chain": 3 * steps, "lstm1_infer": 3 * evals})
-    by_path["serve_big"] = serve_path(
+    by_path["serve_big"] = timed(serve_path,
         "serve_big", counters, {"logmel": batches, "lstm1_infer": 3 * batches},
         big_run / "best.ckpt", big_overrides, test_audio,
         test_video, WORK / "predictions_big")
-    by_path["train_gru"], gru_run, gru_overrides = phase_train(
+    by_path["train_gru"], gru_run, gru_overrides = timed(phase_train,
         counters, "train_gru", GRU,
         lambda steps, evals: {"logmel": cached, "gru2_train_fwd": steps,
                               "gru2_bwd_chain": steps, "gru2_infer": evals})
-    by_path["serve_gru"] = serve_path(
+    by_path["serve_gru"] = timed(serve_path,
         "serve_gru", counters, {"logmel": batches, "gru2_infer": batches},
         gru_run / "best.ckpt", gru_overrides, test_audio,
         test_video, WORK / "predictions_gru")
@@ -3692,7 +4302,7 @@ def main() -> None:
     prev = lstm_vjp.set_res2_mode("off")
     prev_bwd2, lstm_vjp.GRU_BWD2_ENABLED = lstm_vjp.GRU_BWD2_ENABLED, True
     try:
-        by_path["train_gru_legacy"] = phase_train(
+        by_path["train_gru_legacy"] = timed(phase_train,
             counters, "train_gru_legacy", GRU,
             lambda steps, evals: {"logmel": cached, "gru2_infer": evals,
                                   "gru2_train_fwd_legacy": steps,
@@ -3704,21 +4314,21 @@ def main() -> None:
           "ignores the route, as the JAX package's does ([serve], [serve_gru])")
     # the big config's depth with the GRU: 3 one-layer GRU launches per
     # step, per eval batch and per served batch; the pair never
-    by_path["train_big_gru"], big_gru_run, big_gru_overrides = phase_train(
+    by_path["train_big_gru"], big_gru_run, big_gru_overrides = timed(phase_train,
         counters, "train_big_gru", BIG_GRU,
         lambda steps, evals: {"logmel": cached, "gru1_train_fwd": 3 * steps,
                               "gru_bwd_chain": 3 * steps, "gru1_infer": 3 * evals})
-    by_path["serve_big_gru"] = serve_path(
+    by_path["serve_big_gru"] = timed(serve_path,
         "serve_big_gru", counters, {"logmel": batches, "gru1_infer": 3 * batches},
         big_gru_run / "best.ckpt", big_gru_overrides, test_audio,
         test_video, WORK / "predictions_big_gru")
     # two blocks: one flash forward each per forward, one fused backward
     # each per train step
-    by_path["train_tf"], tf_run, tf_overrides = phase_train(
+    by_path["train_tf"], tf_run, tf_overrides = timed(phase_train,
         counters, "train_tf", TRANSFORMER,
         lambda steps, evals: {"logmel": cached, "flash_fwd": 2 * (steps + evals),
                               "flash_bwd_fused": 2 * steps})
-    by_path["serve_tf"] = serve_path(
+    by_path["serve_tf"] = timed(serve_path,
         "serve_tf", counters, {"logmel": batches, "flash_fwd": 2 * batches},
         tf_run / "best.ckpt", tf_overrides, test_audio,
         test_video, WORK / "predictions_tf")
@@ -3729,12 +4339,12 @@ def main() -> None:
     raw = dict(check_clips=4, reps=10, profile_reps=3)
     for cell, suffix, overrides in (("lstm", "", []),
                                     ("gru", "_gru", ["model.encoders.audio.encoder_type=gru"])):
-        by_path[f"train_raw{suffix}"], raw_run, raw_overrides = phase_train(
+        by_path[f"train_raw{suffix}"], raw_run, raw_overrides = timed(phase_train,
             counters, f"train_raw{suffix}", overrides,
             lambda steps, evals, c=cell: {f"{c}2_train_fwd": steps,
                                           f"{c}2_bwd_chain": steps, f"{c}2_infer": evals},
             **raw)
-        by_path[f"serve_raw{suffix}"] = serve_path(
+        by_path[f"serve_raw{suffix}"] = timed(serve_path,
             f"serve_raw{suffix}", counters, {f"{cell}2_infer": batches},
             raw_run / "best.ckpt", raw_overrides, test_audio,
             test_video, WORK / f"predictions_raw{suffix}", **raw)
@@ -3755,8 +4365,10 @@ def main() -> None:
     # their error, times and bound at T=48,000
     extra = ["core", "bound_fp32_ms", "bound_3xtf32_ms", "b1_ms", "b1_plain_ms",
              "bound_products_ms", "raw_max_abs_err", "raw_ms", "raw_plain_ms",
-             "raw_bound_ms", "raw_bound_by", "raw_library_ms", "b320_max_err_of_largest",
+             "raw_plain_rows", "raw_bound_ms", "raw_bound_by", "raw_library_ms", "b320_max_err_of_largest",
              "b320_ms", "b320_bound_ms", "b320_library_ms", "f32_ms"]
+    print(f"[time] every phase, longest first: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in sorted(PHASE_S.items(), key=lambda kv: -kv[1])))
     print(f"[time] chip_smoke.py: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {**{k: kern[k] for k in order}, **{k: kern[k] for k in extra if k in kern}}

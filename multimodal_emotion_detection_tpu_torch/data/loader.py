@@ -1,11 +1,15 @@
-"""Batches over on-disk splits: the device-resident training path and
-in-order evaluation.
+"""Batches over a split (on-disk or synthetic): the device-resident
+training path, the host-streaming one and in-order evaluation.
 
-* **Device-resident** (training and the Trainer's evaluation): the whole
+* **Device-resident** (``dataset.device_resident``, the default): the whole
   split is placed on the device once (``device_arrays``); each step gathers
   its batch there with ``index_select`` by a (B,) index row of
   ``epoch_batch_indices``, so steady-state training copies no features
   from the host.
+* **Host streaming** (``device_resident=false``, for splits larger than
+  the card): ``stream`` gathers each batch of an epoch on the host in the
+  same order and copies it to the device when it is asked for, from pinned
+  memory without waiting on the card; the split is never placed whole.
 * **Host iteration** (``__iter__``, the predict CLI): in-order batches,
   each copied to the device.
 
@@ -27,6 +31,7 @@ from multimodal_emotion_detection_tpu_torch.data.dataset import (
     ArrayDataset,
     MultimodalArrays,
 )
+from multimodal_emotion_detection_tpu_torch.data.synthetic import synthetic_split
 
 Batch = Tuple[Dict[str, torch.Tensor], torch.Tensor, torch.Tensor]
 
@@ -36,12 +41,14 @@ class MultimodalLoader:
 
     def __init__(self, arrays: MultimodalArrays, batch_size: int,
                  shuffle: bool = False, seed: int = 42,
-                 device: torch.device = torch.device("cpu")):
+                 device: torch.device = torch.device("cpu"),
+                 device_resident: bool = True):
         self.arrays = arrays
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
         self.seed = int(seed)
         self.device = torch.device(device)
+        self.device_resident = bool(device_resident)
         self.frontend_cached = False
         self._device_arrays: Optional[Tuple[Dict[str, torch.Tensor], torch.Tensor]] = None
 
@@ -95,6 +102,23 @@ class MultimodalLoader:
             valid[n:] = 0.0
         return valid.reshape(num_batches, self.batch_size)
 
+    def stream(self, epoch: int) -> Iterator[Tuple[Dict[str, torch.Tensor], torch.Tensor]]:
+        """``(features, labels)`` per batch of ``epoch``, in
+        ``epoch_batch_indices``' order (wrap-padded), each gathered on the
+        host and copied to ``device`` when it is asked for: features
+        float32, labels int64.  To a CUDA card the copy leaves from pinned
+        memory and does not wait for it (the pinned block is not reused
+        before its copy has run)."""
+        pin = self.device.type == "cuda"
+
+        def put(a: np.ndarray) -> torch.Tensor:
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            return t.pin_memory().to(self.device, non_blocking=True) if pin else t
+
+        for idx in self.epoch_batch_indices(epoch):
+            yield ({name: put(arr[idx]) for name, arr in self.arrays.features.items()},
+                   put(self.arrays.labels[idx].astype(np.int64)))
+
     def __iter__(self) -> Iterator[Batch]:
         """In-order ``(features, labels, mask)`` batches of epoch 0:
         features and mask on ``device``, labels on the CPU; the mask is 1
@@ -122,32 +146,42 @@ def create_eval_loader(data_dir: str, modalities: List[str], split: str,
     return MultimodalLoader(arrays, batch_size, device=device)
 
 
+SYNTHETIC_KEYS = ("num_samples", "num_samples_eval", "num_classes",
+                  "modality_dim", "sequence_length")
+
+
 def create_dataloaders(
     dataset_name: str,
     data_dir: str,
     modalities: List[str],
     batch_size: int = 32,
+    num_workers: int = 4,  # schema parity: no host worker processes
     seed: int = 42,
     device_resident: bool = True,
     mmap: bool = False,
     device: torch.device = torch.device("cpu"),
+    **synthetic,
 ) -> Tuple[MultimodalLoader, MultimodalLoader, MultimodalLoader]:
-    """Train (shuffled by ``seed`` and epoch), val and test loaders over the
-    on-disk ``.npy`` layout.  Modality dropout belongs to the train step."""
+    """Train (shuffled by ``seed`` and epoch), val and test loaders.
+
+    ``dataset_name == 'synthetic'`` makes the splits with
+    ``synthetic_split`` (``synthetic`` takes its ``SYNTHETIC_KEYS``);
+    anything else reads the on-disk ``.npy`` layout.  Modality dropout
+    belongs to the train step."""
+    if num_workers not in (0, 4):  # 4 == reference default (schema parity)
+        print(
+            f"[data] num_workers={num_workers} accepted for config-schema "
+            "parity but has no effect: batches are gathered on-device from "
+            "the HBM-resident split (no host worker processes)."
+        )
     if dataset_name == "synthetic":
-        raise NotImplementedError(
-            "dataset.name=synthetic is not ported yet (ROADMAP.md Queue 1 "
-            "item 5); point dataset.data_dir at an on-disk split"
-        )
-    if not device_resident:
-        raise NotImplementedError(
-            "dataset.device_resident=false (the host-streaming loader) is "
-            "not ported yet (ROADMAP.md Queue 1 item 5)"
-        )
-    splits = {split: ArrayDataset(data_dir, modalities, split, mmap=mmap).arrays
-              for split in ("train", "val", "test")}
-    train = MultimodalLoader(splits["train"], batch_size, shuffle=True,
-                             seed=seed, device=device)
-    val = MultimodalLoader(splits["val"], batch_size, device=device)
-    test = MultimodalLoader(splits["test"], batch_size, device=device)
+        splits = {split: synthetic_split(split, list(modalities), seed, **synthetic)
+                  for split in ("train", "val", "test")}
+    else:
+        splits = {split: ArrayDataset(data_dir, modalities, split, mmap=mmap).arrays
+                  for split in ("train", "val", "test")}
+    kw = dict(seed=seed, device=device, device_resident=device_resident)
+    train = MultimodalLoader(splits["train"], batch_size, shuffle=True, **kw)
+    val = MultimodalLoader(splits["val"], batch_size, **kw)
+    test = MultimodalLoader(splits["test"], batch_size, **kw)
     return train, val, test

@@ -9,9 +9,11 @@ import torch
 from torch import nn
 
 from multimodal_emotion_detection_tpu_torch.data.loader import (
+    SYNTHETIC_KEYS,
     MultimodalLoader,
     create_eval_loader,
 )
+from multimodal_emotion_detection_tpu_torch.data.synthetic import synthetic_split
 from multimodal_emotion_detection_tpu_torch.models.classifier import (
     classifier_from_config,
 )
@@ -20,23 +22,30 @@ from multimodal_emotion_detection_tpu_torch.training.checkpoints import (
 )
 
 
-def restore_for_eval(
-    config, checkpoint: Path, split: str, device: torch.device
-) -> Tuple[nn.Module, Dict[str, Any], MultimodalLoader]:
-    """-> ``(model, meta, loader)``: the model built from ``config`` with
-    the checkpoint's weights, on ``device`` in eval mode, and a loader over
-    ``split`` alone (the on-disk layout; synthetic data is not ported)."""
-    if config.dataset.name == "synthetic":
-        raise NotImplementedError(
-            "dataset.name=synthetic is not ported yet (ROADMAP.md Queue 1 "
-            "item 5); point dataset.data_dir at an on-disk split"
-        )
-    loader = create_eval_loader(
-        config.dataset.data_dir, list(config.dataset.modalities), split,
-        batch_size=config.dataset.batch_size, mmap=config.dataset.mmap,
-        device=device,
-    )
+def restore_model(config, checkpoint: Path, device: torch.device
+                  ) -> Tuple[nn.Module, Dict[str, Any]]:
+    """-> ``(model, meta)``: the model built from ``config`` with the
+    checkpoint's weights, on ``device`` in eval mode."""
     model = classifier_from_config(config)
     state_dict, meta = load_checkpoint(Path(checkpoint))
     model.load_state_dict(state_dict)
-    return model.to(device).eval(), meta, loader
+    return model.to(device).eval(), meta
+
+
+def restore_for_eval(
+    config, checkpoint: Path, split: str, device: torch.device
+) -> Tuple[nn.Module, Dict[str, Any], MultimodalLoader]:
+    """-> ``(model, meta, loader)``: ``restore_model``'s, and a loader over
+    ``split`` alone: the on-disk layout, or with ``dataset.name=synthetic``
+    the synthetic split the train CLI made from the same config."""
+    ds = config.dataset
+    if ds.name == "synthetic":
+        arrays = synthetic_split(split, list(ds.modalities), config.seed,
+                                 **{k: getattr(ds, k) for k in SYNTHETIC_KEYS})
+        loader = MultimodalLoader(arrays, ds.batch_size, device=device)
+    else:
+        loader = create_eval_loader(ds.data_dir, list(ds.modalities), split,
+                                    batch_size=ds.batch_size, mmap=ds.mmap,
+                                    device=device)
+    model, meta = restore_model(config, checkpoint, device)
+    return model, meta, loader

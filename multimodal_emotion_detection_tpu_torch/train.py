@@ -47,6 +47,7 @@ def parse_args(argv=None):
 
 def run(config: Config, overrides=None, resume: bool = False) -> dict:
     from multimodal_emotion_detection_tpu_torch.data.loader import (
+        SYNTHETIC_KEYS,
         create_dataloaders,
     )
     from multimodal_emotion_detection_tpu_torch.models.fusion import (
@@ -83,10 +84,12 @@ def run(config: Config, overrides=None, resume: bool = False) -> dict:
         data_dir=config.dataset.data_dir,
         modalities=config.dataset.modalities,
         batch_size=config.dataset.batch_size,
+        num_workers=config.dataset.num_workers,
         seed=config.seed,
         device_resident=config.dataset.device_resident,
         mmap=config.dataset.mmap,
         device=trainer.device,
+        **{k: getattr(config.dataset, k) for k in SYNTHETIC_KEYS},
     )
     print(f"Train batches: {len(train_loader)}")
     print(f"Val batches: {len(val_loader)}")

@@ -3,9 +3,17 @@
 The port of the JAX package's ``Trainer`` on its per-step path: the train
 split lives on the device, the host sends one (B,) index row per step, and
 metric values come back once per epoch, so the steps queue up on the card
-without a host round trip.  Validation follows the JAX cadence
-(``training.val_every_n_epochs``, the last epoch always validates); the CSV
-rows, checkpoint names and early-stopping rule are the JAX package's.
+without a host round trip.  With ``dataset.device_resident=false`` each
+batch is instead copied to the device as its step needs it
+(``MultimodalLoader.stream``: the same batches in the same order, gathered
+on the host, and an identity gather in the step), and the split is never
+placed whole; the steps still queue without a host round trip.
+Validation follows the JAX cadence (``training.val_every_n_epochs``, the
+last epoch always validates); the CSV rows, checkpoint names and
+early-stopping rule are the JAX package's.  ``runtime.profile_dir`` traces
+the training steps of epoch ``min(1, max_epochs - 1)`` with
+``torch.profiler`` (host and, on the card, device activity) and writes the
+trace there as ``trace_epoch<e>.json`` (Chrome trace format).
 
 Randomness: step ``s`` draws its modality and dropout masks from a
 generator on the device seeded with ``seed * 1_000_003 + s``, a pure
@@ -17,7 +25,7 @@ from __future__ import annotations
 
 import copy
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -65,14 +73,12 @@ def refuse_outside_slice(config) -> None:
             "runtime.lstm_residual_dtype='bfloat16' with runtime.lstm_remat_gates: "
             "the gate-rematerialising pair's bf16 form is not ported yet "
             "(ROADMAP.md Queue 1 item 13)")
-    if rt.profile_dir:
-        raise NotImplementedError(
-            "runtime.profile_dir is not ported yet (ROADMAP.md Queue 1 item 5)")
     for name, cfg in dict(config.model.encoders).items():
         if dict(cfg).get("weights_path"):
             raise NotImplementedError(
                 f"model.encoders.{name}.weights_path: pretrained encoder "
-                "weights are not ported yet (ROADMAP.md Queue 1 item 5)")
+                "weights, with the image CNN they load into, are not ported "
+                "yet (ROADMAP.md Queue 1 item 8)")
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -140,11 +146,64 @@ class Trainer:
         return sum(p.numel() for p in self.model.parameters())
 
     def _place(self, loader: MultimodalLoader, epoch: int
-               ) -> Tuple[np.ndarray, torch.Tensor, torch.Tensor]:
-        idx = loader.epoch_batch_indices(epoch)
+               ) -> Tuple[np.ndarray, Optional[torch.Tensor], torch.Tensor]:
+        """An epoch's valid rows, on the host and on the device, and its
+        index rows on the device (None for a streamed split)."""
         valid = loader.epoch_batch_valid()
-        return (valid, torch.from_numpy(idx.astype(np.int64)).to(self.device),
-                torch.from_numpy(valid).to(self.device))
+        idx = (torch.from_numpy(loader.epoch_batch_indices(epoch).astype(np.int64))
+               .to(self.device) if loader.device_resident else None)
+        return valid, idx, torch.from_numpy(valid).to(self.device)
+
+    def _batches(self, loader: MultimodalLoader, epoch: int,
+                 idx_dev: Optional[torch.Tensor]
+                 ) -> Iterator[Tuple[Dict[str, torch.Tensor], torch.Tensor, torch.Tensor]]:
+        """``(features, labels, idx)`` per batch of ``epoch``: the resident
+        split and the batch's index row, or the streamed batch and the
+        identity gather (as the JAX package's host-streaming path)."""
+        if loader.device_resident:
+            feats, labels = loader.device_arrays()
+            for b in range(idx_dev.shape[0]):
+                yield feats, labels, idx_dev[b]
+        else:
+            identity = torch.arange(loader.batch_size, device=self.device)
+            for feats, labels in loader.stream(epoch):
+                yield feats, labels, identity
+
+    def _train_epoch(self, loader: MultimodalLoader, epoch: int,
+                     idx_dev: Optional[torch.Tensor], valid_dev: torch.Tensor,
+                     generator: torch.Generator) -> List[Dict[str, torch.Tensor]]:
+        """The train steps of one epoch, queued without a host round trip;
+        their metrics stay on the device."""
+        cfg = self.config
+        per_step = []
+        for b, (feats, labels, idx) in enumerate(self._batches(loader, epoch, idx_dev)):
+            generator.manual_seed(step_seed(cfg.seed, self.step))
+            per_step.append(train_step(
+                self.model, self.optimizer, feats, labels, idx, valid_dev[b],
+                lr=self._schedule(self.step),
+                clip_norm=float(cfg.training.gradient_clip_norm),
+                modality_dropout=float(cfg.training.augmentation.modality_dropout),
+                noise=Noise(generator)))
+            self.step += 1
+        return per_step
+
+    def _start_trace(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_trace(self, prof, epoch: int) -> None:
+        prof.stop()
+        out = Path(self.config.runtime.profile_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        path = out / f"trace_epoch{epoch}.json"
+        prof.export_chrome_trace(str(path))
+        print(f"Wrote the epoch {epoch} trace to {path}")
 
     # ------------------------------------------------------------------
     def fit(self, train_loader: MultimodalLoader, val_loader: MultimodalLoader,
@@ -165,10 +224,10 @@ class Trainer:
                 start_epoch = int(blob["meta"]["epoch"]) + 1
                 print(f"Resumed from {last} at epoch {start_epoch}")
 
-        feats, labels = train_loader.device_arrays()
         generator = torch.Generator(device=self.device)
         val_every = max(1, int(cfg.training.val_every_n_epochs))
         log_n = int(cfg.experiment.log_every_n_steps or 0)
+        trace_epoch = min(1, cfg.training.max_epochs - 1)
 
         def is_val_e(e):
             # validation cadence anchored at start_epoch; the final epoch
@@ -180,19 +239,15 @@ class Trainer:
             valid_np, idx_dev, valid_dev = self._place(train_loader, epoch)
             epoch_start_step = self.step
             self.timer.start()
-            per_step = []
-            for b in range(idx_dev.shape[0]):
-                generator.manual_seed(step_seed(cfg.seed, self.step))
-                per_step.append(train_step(
-                    self.model, self.optimizer, feats, labels, idx_dev[b],
-                    valid_dev[b], lr=self._schedule(self.step),
-                    clip_norm=float(cfg.training.gradient_clip_norm),
-                    modality_dropout=float(cfg.training.augmentation.modality_dropout),
-                    noise=Noise(generator)))
-                self.step += 1
-            epoch_time = self.timer.stop()
+            prof = (self._start_trace()
+                    if cfg.runtime.profile_dir and epoch == trace_epoch else None)
+            per_step = self._train_epoch(train_loader, epoch, idx_dev, valid_dev,
+                                         generator)
             stacked = {k: torch.stack([m[k] for m in per_step]).cpu().numpy()
                        for k in per_step[0]}
+            if prof is not None:
+                self._stop_trace(prof, epoch)
+            epoch_time = self.timer.stop()
 
             # sample-weighted epoch means (wrap-padded batches)
             weights = np.maximum(stacked["count"], 1e-9)
@@ -275,13 +330,12 @@ class Trainer:
     def _run_eval(self, loader: MultimodalLoader, model=None, collect=False):
         model = model if model is not None else self.model
         self._maybe_cache_frontend(loader)
-        feats, labels = loader.device_arrays()
         valid_np, idx_dev, valid_dev = self._place(loader, 0)
         totals = None
         logits_list, labels_list = [], []
-        for b in range(idx_dev.shape[0]):
-            sums, logits, batch_labels = eval_sums(model, feats, labels,
-                                                   idx_dev[b], valid_dev[b])
+        for b, (feats, labels, idx) in enumerate(self._batches(loader, 0, idx_dev)):
+            sums, logits, batch_labels = eval_sums(model, feats, labels, idx,
+                                                   valid_dev[b])
             totals = sums if totals is None else {
                 k: totals[k] + v for k, v in sums.items()}
             if collect:

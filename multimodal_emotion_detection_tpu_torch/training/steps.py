@@ -6,7 +6,9 @@
   and the step's metrics, all without a host round trip;
 * ``eval_sums``: exact per-batch metric sums (so epoch means over uneven,
   wrap-padded batches are exact) plus the logits;
-* ``forward``: the inference logits.
+* ``forward``: the inference logits;
+* ``make_batched_forward_fn``: the throughput-serving forward over S
+  stacked microbatches.
 
 A model with BatchNorm (the CNN and MLP encoders) normalises with the
 batch statistics in ``train_step``, whose forward also moves the running
@@ -21,7 +23,7 @@ logits alone, as in the JAX package.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -154,3 +156,27 @@ def forward(
     model.eval()
     with torch.inference_mode():
         return model(features, mask)
+
+
+def make_batched_forward_fn(model: nn.Module) -> Callable:
+    """Throughput-serving forward over S microbatches.
+
+    ``forward_many(features[, mask]) -> (S, B, C)`` logits, where every
+    ``features`` value is stacked (S, B, ...) and ``mask`` (S, B, M)
+    defaults to every modality available.  Each microbatch takes one
+    deterministic ``forward`` under ``torch.inference_mode``, in order, so
+    activations peak at one microbatch's and each microbatch's logits are
+    ``forward``'s bit for bit (the JAX package scans the same body over the
+    stacked axis in one dispatch; capture of the loop is not ported).
+    """
+
+    def forward_many(features: Dict[str, torch.Tensor],
+                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        s = next(iter(features.values())).shape[0]
+        with torch.inference_mode():
+            return torch.stack([
+                forward(model, {m: f[i] for m, f in features.items()},
+                        None if mask is None else mask[i])
+                for i in range(s)])
+
+    return forward_many

@@ -1733,3 +1733,43 @@ def test_lstm1_bf16_forms_match_the_float32_forms_and_plain(b, t, h):
     assert int(_bf16_ulps(d16.to(torch.bfloat16), d32.to(torch.bfloat16)).max()) <= 1
     ref = lstm_kernel.lstm_bwd_chain_reference(o16[0], o16[2], dhs, dhf, w_hh)
     torch.testing.assert_close(d16, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("s,b", [(3, 32), (2, 7), (4, 1)])
+def test_batched_forward_equals_forward_on_the_card(s, b):
+    """``make_batched_forward_fn`` on the synthetic fixture's model at the
+    flagship's recurrent width (three sensors of D 32, T 100, each LSTM
+    2x256): each microbatch bit for bit ``forward``, row 2 three times a
+    microbatch, and the plain versions on the CPU within 1e-4."""
+    from multimodal_emotion_detection_tpu_torch.config import load_config
+    from multimodal_emotion_detection_tpu_torch.models.classifier import (
+        classifier_from_config,
+        init_weights,
+    )
+    from multimodal_emotion_detection_tpu_torch.training.steps import (
+        forward,
+        make_batched_forward_fn,
+    )
+
+    dev = _card()
+    enc = ("{type: sequence, encoder_type: lstm, input_dim: 32, hidden_dim: 256, "
+           "num_layers: 2, output_dim: 128}")
+    cfg = load_config(None, [
+        "dataset.name=synthetic", "dataset.modalities=[sensor1,sensor2,sensor3]",
+        "dataset.num_classes=5",
+        "model.encoders={" + ", ".join(f"sensor{i}: {enc}" for i in (1, 2, 3)) + "}"])
+    model = init_weights(classifier_from_config(cfg), torch.Generator().manual_seed(3))
+    rng = np.random.RandomState(s * b)
+    feats = {f"sensor{i}": torch.from_numpy(
+        rng.randn(s, b, 100, 32).astype(np.float32)) for i in (1, 2, 3)}
+    on_card = {k: v.to(dev) for k, v in feats.items()}
+    model = model.to(dev)
+    before = lstm_kernel.LSTM2_INFER.launches
+    got = make_batched_forward_fn(model)(on_card)
+    torch.cuda.synchronize()
+    assert lstm_kernel.LSTM2_INFER.launches == before + 3 * s
+    assert got.shape == (s, b, 5)
+    for i in range(s):
+        assert torch.equal(got[i], forward(model, {k: v[i] for k, v in on_card.items()}))
+    ref = make_batched_forward_fn(model.cpu())(feats)
+    torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-4)
