@@ -227,7 +227,26 @@
    ``[debug]`` runs ``tools.debug`` on the same model (the overfit probe's
    frozen-encoder steps run row 11 and no reverse chain).  Every phase's
    wall seconds are printed as it ends.
-18. Prints the script's wall time, one JSON line describing every kernel
+18. The serving and sweep tools.  ``[quantize]`` runs ``tools.quantize``
+   on ``[train]``'s flagship ``best.ckpt`` (int8 weight-only codes per
+   output channel), then the predict CLI over the test split in float32,
+   with ``--quantize-weights`` int8, int8-bf16 and bfloat16 and with
+   ``--quantized-artifact`` (log-mel and row 2 once per batch each): the
+   artifact's logits bit for bit the in-memory int8 round trip's, each
+   mode's first batch against the CPU's plain forward on the same rounded
+   weights (1e-3), every mode's accuracy and ECE beside float32's and the
+   artifact's bytes beside the checkpoint's.  ``[sweep]`` runs ``tools.sweep
+   --vmap-grid`` on the flagship for 1 epoch of the 96-clip train split:
+   the reference's 3x2x2 grid as 2 programs of 6 members, each member
+   stepping through rows 1, 11 and 12 and validating through rows 1 and 2
+   (counts exact: 12 x the steps), the (1e-3, 0, 0) member equal to a
+   standalone ``--vmap-lrs 1e-3`` run to the last bit; ``run_sweep`` over a
+   1x2x1 grid (two train.run calls) with its harvested artifacts; and a
+   6-member step's time per member beside ``[train]``'s step.
+   ``[visualize]`` runs ``tools.visualize`` on ``[train_hybrid]``'s
+   ``best.ckpt`` (log-mel and row 2 once) and holds the (M, M)
+   cross-attention matrix from the card to the CPU's (1e-5).
+19. Prints the script's wall time, one JSON line describing every kernel
    (the one-layer and 2-layer cores' entries name their shared header as
    ``core``), nvidia-smi's name and power limit of the card, and as the
    last line ``{"ok": true, "device": {...}}``.
@@ -3943,6 +3962,229 @@ def phase_stream(counters, ckpt: Path):
     return launches
 
 
+def phase_quantize(counters, ckpt: Path, overrides, audio: np.ndarray,
+                   video: np.ndarray):
+    """``[quantize]``: ``tools.quantize`` on ``ckpt`` ([train]'s flagship
+    ``best.ckpt``), then the predict CLI over the test split in float32, in
+    each ``--quantize-weights`` mode and on the artifact, each with log-mel
+    and row 2 once per batch.  The artifact's logits must equal the
+    in-memory int8 round trip's bit for bit, and each mode's first batch
+    the CPU's plain forward on the same rounded weights (1e-3, [serve]'s
+    bound).  Returns the artifact run's launches."""
+    from multimodal_emotion_detection_tpu_torch.config import load_config
+    from multimodal_emotion_detection_tpu_torch.tools import predict, quantize
+    from multimodal_emotion_detection_tpu_torch.tools._restore import restore_model
+    from multimodal_emotion_detection_tpu_torch.training.steps import forward
+    from multimodal_emotion_detection_tpu_torch.utils import quantize as q
+
+    config = str(ROOT / "configs" / "base.yaml")
+    out = WORK / "quantize"
+    out.mkdir(parents=True, exist_ok=True)
+    artifact = out / "model_int8.pt"
+    t0 = time.perf_counter()
+    stats = quantize.main(["--checkpoint", str(ckpt), "--config", config,
+                           "--out", str(artifact), *overrides])
+    print(f"[quantize] tools.quantize on {ckpt.relative_to(WORK)} "
+          f"({time.perf_counter() - t0:.3f} s wall): {json.dumps(stats)}; the artifact "
+          f"{artifact.stat().st_size} bytes on disk against the checkpoint's "
+          f"{ckpt.stat().st_size} (the checkpoint holds the weights alone, no optimizer "
+          "state)")
+    n = audio.shape[0]
+    batches = n // 32
+    expected = {"logmel": batches, "lstm2_infer": batches}
+    modes = {"float32": [], "int8": ["--quantize-weights", "int8"],
+             "int8-bf16": ["--quantize-weights", "int8-bf16"],
+             "bfloat16": ["--quantize-weights", "bfloat16"],
+             "int8-artifact": ["--quantized-artifact", str(artifact)]}
+    logits, metrics = {}, {}
+    for mode, flags in modes.items():
+        metrics[mode], wall, launches = run_counted(
+            counters, expected, f"quantize {mode}", lambda: predict.main([
+                "--checkpoint", str(ckpt), "--config", config, "--split", "test",
+                *flags, "--out", str(out / mode), *overrides]))
+        logits[mode] = np.load(out / mode / "logits.npy")
+        if logits[mode].shape != (n, 8) or not np.isfinite(logits[mode]).all():
+            raise RuntimeError(f"[quantize] {mode}: bad logits {logits[mode].shape}")
+        print(f"[quantize] predict {mode} over {n} clips: {wall:.3f} s wall; launches "
+              f"{ {k: v for k, v in launches.items() if v} }")
+    if not np.array_equal(logits["int8-artifact"], logits["int8"]):
+        raise RuntimeError("[quantize] the artifact's logits differ from the in-memory "
+                           "int8 round trip's")
+    cfg = load_config(config, overrides)
+    cfg.model.frontend.cache = False
+    clips = {"audio": torch.from_numpy(audio[:32]), "video": torch.from_numpy(video[:32])}
+    for mode in ("int8", "int8-bf16", "bfloat16"):
+        model, _ = restore_model(cfg, ckpt, torch.device("cpu"))
+        q.load_params(model, q.quantize_params_for_eval(q.model_params(model), mode))
+        ref = forward(model, clips).numpy()
+        err = float(np.abs(logits[mode][:32] - ref).max())
+        agree = int((logits[mode][:32].argmax(-1) == ref.argmax(-1)).sum())
+        print(f"[quantize] {mode}: logits vs the plain-version forward on the CPU on the "
+              f"same rounded weights, first 32 clips: max abs err {err:.3e} (bound 1e-3), "
+              f"argmax agreement {agree}/32; off the float32 logits by "
+              f"{float(np.abs(logits[mode] - logits['float32']).max()):.3e} at most")
+        if err > 1e-3 or agree != 32:
+            raise RuntimeError(f"[quantize] {mode}: the card disagrees with the CPU")
+    for mode, m in metrics.items():
+        print(f"[quantize] {mode}: accuracy {m['accuracy']:.4f}, ECE {m['ece']:.6f}, NLL "
+              f"{m['nll']:.6f} (float32: accuracy {metrics['float32']['accuracy']:.4f}, "
+              f"ECE {metrics['float32']['ece']:.6f}; random labels, seeded weights)")
+    return launches
+
+
+SWEEP_GRID_LRS = "1e-3,5e-4,2e-3"  # the reference's lr axis, 1e-3 first
+
+
+def phase_sweep(counters, train_p50: float):
+    """``[sweep]``: ``tools.sweep --vmap-grid`` on the flagship for 1 epoch
+    over [train]'s splits: the reference's 3x2x2 grid as 2 programs of 6
+    members, each member stepping through rows 1, 11 and 12 and validating
+    through rows 1 and 2; its lr axis listed with 1e-3 first, so the
+    (1e-3, drop 0, mDrop 0) member is member 0 of its program, whose init a
+    standalone ``--vmap-lrs 1e-3`` run repeats: its results must equal that
+    member's exactly.  Then ``run_sweep`` over a 1x2x1 grid (two train.run
+    calls) and its harvested artifacts, and the step time per member."""
+    import contextlib
+
+    from multimodal_emotion_detection_tpu_torch.config import load_config
+    from multimodal_emotion_detection_tpu_torch.data.loader import create_dataloaders
+    from multimodal_emotion_detection_tpu_torch.models.classifier import (
+        classifier_from_config,
+    )
+    from multimodal_emotion_detection_tpu_torch.parallel import vmap_sweep as vs
+    from multimodal_emotion_detection_tpu_torch.tools import sweep
+
+    config = str(ROOT / "configs" / "base.yaml")
+    data = WORK / "train_data"
+    out = WORK / "sweep"
+    base = ["model.frontend.audio=logmel", "training.max_epochs=1",
+            f"dataset.data_dir={data}", f"experiment.save_dir={out}",
+            "experiment.name=sweep"]
+    steps, evals = TRAIN_SPLITS["train"] // 32, TRAIN_SPLITS["val"] // 32
+    print(f"[sweep] cut to size: 1 epoch of [train]'s {TRAIN_SPLITS['train']}-clip train "
+          f"split ({steps} steps of 32 a member) and {TRAIN_SPLITS['val']}-clip val split "
+          f"({evals} batches); the flagship at full width, random labels")
+
+    def counts(members, steps, evals):
+        return {"logmel": members * (steps + evals), "lstm2_train_fwd": members * steps,
+                "lstm2_bwd_chain": members * steps, "lstm2_infer": members * evals}
+
+    grid, grid_s, launches = run_counted(
+        counters, counts(12, steps, evals), "sweep", lambda: sweep.main([
+            "--config", config, "--vmap-grid", "--vmap-lrs", SWEEP_GRID_LRS,
+            "--out", str(out / "grid"), *base]))
+    tags = [r["tag"] for r in grid]
+    if len(set(tags)) != 12 or not all(np.isfinite(r["best_val_loss"]) for r in grid):
+        raise RuntimeError(f"[sweep] bad grid results: {grid}")
+    print(f"[sweep] --vmap-grid: 12 members in 2 programs, {grid_s:.3f} s wall (data "
+          f"load and set-up included); launches {launches}")
+    for r in grid:
+        print(f"[sweep]   {r['tag']}: best_val_loss {r['best_val_loss']:.6f}, "
+              f"final_val_acc {r['final_val_acc']:.4f}")
+    solo, solo_s, _ = run_counted(
+        counters, counts(1, steps, evals), "sweep solo", lambda: sweep.main([
+            "--config", config, "--vmap-lrs", "1e-3", "--out", str(out / "solo"), *base,
+            "model.dropout=0.0", "training.augmentation.modality_dropout=0.0"]))
+    member = next(r for r in grid if r["tag"] == sweep.format_tag(1e-3, 0.0, 0.0))
+    same = all(member[k] == solo[0][k] for k in ("best_val_loss", "best_epoch",
+                                                   "final_val_acc"))
+    print(f"[sweep] --vmap-lrs 1e-3 alone ({solo_s:.3f} s wall): {solo[0]}; the grid's "
+          f"{member['tag']}: equal to the last bit: {same}")
+    if not same:
+        raise RuntimeError("[sweep] the grid member differs from the standalone run")
+
+    per_run = {"logmel": steps + evals + 2, "lstm2_train_fwd": steps,
+               "lstm2_bwd_chain": steps, "lstm2_infer": evals + 2}
+    cfg = load_config(config, base)
+    with contextlib.chdir(WORK):
+        results, seq_s, seq_launches = run_counted(
+            counters, {k: 2 * v for k, v in per_run.items()}, "sweep sequential",
+            lambda: sweep.run_sweep(cfg, learning_rates=[1e-3], dropouts=[0.0, 0.1],
+                                    modality_dropouts=[0.0], out_root=str(out / "seq"),
+                                    overrides=base))
+    try:
+        import matplotlib  # noqa: F401
+        png = True
+    except ImportError:
+        png = False
+    harvested = ["results.json", "confusion_matrix.npy", "best.ckpt", "metrics.csv",
+                 "hyperparams.txt"] + (["confusion_matrix.png"] if png else [])
+    for r in results:
+        missing = [a for a in harvested if not (out / "seq" / r["tag"] / a).exists()]
+        if missing or not np.isfinite(r["best_val_loss"]):
+            raise RuntimeError(f"[sweep] run_sweep {r['tag']}: missing {missing}")
+    summary = json.loads((out / "seq" / "sweep_summary.json").read_text())
+    if [r["tag"] for r in summary] != [r["tag"] for r in results]:
+        raise RuntimeError("[sweep] sweep_summary.json does not list the runs")
+    print(f"[sweep] run_sweep 1x2x1 ({seq_s:.3f} s wall, two train.run calls): "
+          f"{[r['tag'] for r in results]}, each harvested {harvested} "
+          f"(confusion_matrix.png needs matplotlib: {png}); launches "
+          f"{ {k: v for k, v in seq_launches.items() if v} }")
+
+    # the step time a member: one program's 6 members on [train]'s split
+    dev = torch.device("cuda")
+    train_loader = create_dataloaders(cfg.dataset.name, cfg.dataset.data_dir,
+                                      cfg.dataset.modalities, batch_size=32,
+                                      seed=cfg.seed, device=dev)[0]
+    feats, labels = train_loader.device_arrays()
+    idx = torch.from_numpy(train_loader.epoch_batch_indices(0).astype(np.int64)).to(dev)
+    valid = torch.from_numpy(train_loader.epoch_batch_valid()).to(dev)
+    lrs, mdrops = [1e-3] * 6, [0.0, 0.05] * 3
+    state = vs.init_sweep_state(classifier_from_config(cfg), lrs, cfg.seed,
+                                mdrops=mdrops, device=dev)
+    step = vs.make_vmapped_train_step(2, 0.0, 1.0, 1e-4)
+    k = {"s": 0}
+
+    def one_step():
+        s = k["s"] % idx.shape[0]
+        step(state, feats, labels, idx[s], valid[s], cfg.seed)
+        k["s"] += 1
+
+    p50, p90 = host_ms(one_step, reps=10, warmup=2)
+    print(f"[sweep] a 6-member grid step (host clock around synchronize, 10 steps): p50 "
+          f"{p50:.4f} ms, p90 {p90:.4f} ms = {p50 / 6:.4f} ms a member step; [train]'s "
+          f"b32 train step in the same call: p50 {train_p50:.4f} ms")
+    return launches
+
+
+def phase_visualize(counters, ckpt: Path, overrides, audio: np.ndarray,
+                    video: np.ndarray):
+    """``[visualize]``: ``tools.visualize`` on ``ckpt`` ([train_hybrid]'s
+    ``best.ckpt``) over the first test batch (log-mel and row 2 once); the
+    (M, M) cross-attention matrix from the card against the CPU's plain
+    forward on the same weights and clips (1e-5)."""
+    from multimodal_emotion_detection_tpu_torch.config import load_config
+    from multimodal_emotion_detection_tpu_torch.tools import visualize
+    from multimodal_emotion_detection_tpu_torch.tools._restore import restore_model
+
+    config = str(ROOT / "configs" / "av_hybrid.yaml")
+    png = WORK / "attention.png"
+    result, wall, launches = run_counted(
+        counters, {"logmel": 1, "lstm2_infer": 1}, "visualize", lambda: visualize.main([
+            "--checkpoint", str(ckpt), "--config", config, "--out", str(png), *overrides]))
+    if result != str(png):
+        raise RuntimeError(f"[visualize] no heatmap: {result}")
+    cfg = load_config(config, overrides)
+    cfg.model.frontend.cache = False
+    clips = {"audio": torch.from_numpy(audio[:32]), "video": torch.from_numpy(video[:32])}
+    mats = {}
+    for name, dev in (("card", torch.device("cuda")), ("cpu", torch.device("cpu"))):
+        model, _ = restore_model(cfg, ckpt, dev)
+        mats[name] = visualize.attention_matrix(
+            model, {k: v.to(dev) for k, v in clips.items()},
+            torch.ones((32, 2), device=dev), list(cfg.dataset.modalities))
+    err = float(np.abs(mats["card"] - mats["cpu"]).max())
+    print(f"[visualize] tools.visualize: {wall:.3f} s wall; launches "
+          f"{ {k: v for k, v in launches.items() if v} }; PNG written: {png.exists()} "
+          "(matplotlib is needed to draw it)")
+    print(f"[visualize] query x key modality attention {cfg.dataset.modalities}: "
+          f"{np.round(mats['card'], 6).tolist()}; against the CPU's: max abs err "
+          f"{err:.3e} (bound 1e-5)")
+    if mats["card"].shape != (2, 2) or err > 1e-5:
+        raise RuntimeError("[visualize] the card's matrix disagrees with the CPU's")
+    return launches
+
+
 TRAIN_SPLITS = {"train": 96, "val": 64, "test": 64}
 # the reference's big sweep config (bench.py's big=True legs), log-mel
 # cached per split as the bench's big-config leg runs it
@@ -4132,8 +4374,8 @@ def _run_phases(counters, pending, card_name: str, t_start: float) -> None:
         return {"logmel": steps + evals, "lstm2_infer": evals,
                 "lstm2_train_fwd": steps, "lstm2_bwd_chain": steps}
 
-    by_path["train"] = timed(phase_train,
-        counters, "train", ["model.frontend.audio=logmel"], flagship_counts)[0]
+    by_path["train"], train_run, train_overrides = timed(phase_train,
+        counters, "train", ["model.frontend.audio=logmel"], flagship_counts)
     # the streaming monitor on the flagship's seeded checkpoint ([serve]'s)
     by_path["stream"] = timed(phase_stream, counters, WORK / "flagship_seed0.pt",
                               name="stream")
@@ -4348,6 +4590,17 @@ def _run_phases(counters, pending, card_name: str, t_start: float) -> None:
             f"serve_raw{suffix}", counters, {f"{cell}2_infer": batches},
             raw_run / "best.ckpt", raw_overrides, test_audio,
             test_video, WORK / f"predictions_raw{suffix}", **raw)
+
+    # the serving and sweep tools: int8 serving artifacts and quantized
+    # predict on [train]'s flagship checkpoint, the step-major sweep of the
+    # flagship, the attention heatmap of [train_hybrid]'s checkpoint
+    t_tools = time.perf_counter()
+    by_path["quantize"] = timed(phase_quantize, counters, train_run / "best.ckpt",
+                                train_overrides, test_audio, test_video, name="quantize")
+    by_path["sweep"] = timed(phase_sweep, counters, STEPS["train"][0], name="sweep")
+    by_path["visualize"] = timed(phase_visualize, counters, hyb_run / "best.ckpt",
+                                 hyb_overrides, test_audio, test_video, name="visualize")
+    print(f"[time] quantize, sweep, visualize: {time.perf_counter() - t_tools:.1f} s")
 
     # launches: the run of the path that MAIN_PATH names; launches_by_path:
     # every path's own run, the counts zeroed just before it

@@ -27,6 +27,20 @@ def modality_dropout_mask(generator: torch.Generator, batch_size: int,
     return torch.where(all_dropped, fallback, keep).to(torch.float32)
 
 
+def modality_dropout_mask_from_uniforms(uniforms: torch.Tensor,
+                                        fallback_idx: torch.Tensor,
+                                        dropout_prob: float) -> torch.Tensor:
+    """``modality_dropout_mask``'s rule on draws already made: ``uniforms``
+    (B, M) in [0, 1) and ``fallback_idx`` (B,) in [0, M).  A modality is
+    kept where its uniform is >= ``dropout_prob``, so under the same draws
+    a higher probability drops a superset (the sweep's members share one
+    draw a step); at 0 every modality is kept."""
+    keep = uniforms >= dropout_prob
+    fallback = torch.nn.functional.one_hot(fallback_idx, uniforms.shape[-1]).bool()
+    all_dropped = ~keep.any(dim=-1, keepdim=True)
+    return torch.where(all_dropped, fallback, keep).to(torch.float32)
+
+
 def simulate_missing_modalities(
     features: Dict[str, torch.Tensor],
     mask: torch.Tensor,

@@ -17,7 +17,7 @@ not ported (``ROADMAP.md`` Queue 1 item 10).
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -226,3 +226,43 @@ class PairwiseModalityAttention(nn.Module):
             agg = self.out_ln(self_feat + msg_sum)
             attended[name] = agg * avail[name].to(agg.dtype)[:, None]
         return attended, attention_maps
+
+
+def visualize_attention(attention_weights, modality_names: Sequence[str],
+                        save_path: Optional[str] = None) -> None:
+    """Modality x modality heatmap of batch/head-averaged attention: every
+    leading axis of ``attention_weights`` is averaged away down to 2-D.
+    Returns without drawing where matplotlib is not installed."""
+    import numpy as np
+
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError:
+        return
+
+    attn = np.asarray(attention_weights)
+    while attn.ndim > 2:
+        attn = attn.mean(axis=0)
+    n = len(modality_names)
+    fig, ax = plt.subplots(figsize=(6, 5))
+    im = ax.imshow(attn, cmap="viridis")
+    fig.colorbar(im, ax=ax)
+    ax.set_xticks(range(n))
+    ax.set_yticks(range(min(n, attn.shape[0])))
+    ax.set_xticklabels(modality_names, rotation=45, ha="right")
+    ax.set_yticklabels(modality_names[: attn.shape[0]])
+    ax.set_xlabel("Key modality")
+    ax.set_ylabel("Query modality")
+    ax.set_title("Cross-modal attention")
+    if n <= 8:
+        for i in range(attn.shape[0]):
+            for j in range(attn.shape[1]):
+                ax.text(j, i, f"{attn[i, j]:.2f}", ha="center", va="center",
+                        color="white", fontsize=8)
+    fig.tight_layout()
+    if save_path:
+        fig.savefig(save_path, dpi=150)
+    plt.close(fig)

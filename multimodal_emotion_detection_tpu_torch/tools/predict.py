@@ -2,8 +2,9 @@
 
     python -m multimodal_emotion_detection_tpu_torch.tools.predict \
         --checkpoint model.pt [--config configs/base.yaml] [--split test] \
-        [--missing keep_idx,keep_idx] [--mc-dropout S] [--out preds/] \
-        [overrides...]
+        [--missing keep_idx,keep_idx] [--mc-dropout S] \
+        [--quantize-weights int8|int8-bf16|bfloat16 [--quantize-min-size N] |
+         --quantized-artifact model_int8.pt] [--out preds/] [overrides...]
 
 Loads a port checkpoint (``scripts/jax_ckpt_to_torch.py`` converts a JAX
 one), runs the inference forward over a split and writes ``logits.npy``,
@@ -15,6 +16,12 @@ it raises.  ``--missing i[,j]`` keeps only the listed modality indices.
 rows (``uncertainty.mc_dropout_predict``, every batch drawing from a
 generator seeded with ``seed``, as the JAX package reuses one key), writes
 their mean logits in place of the forward's and ``uncertainty.npy``.
+``--quantized-artifact`` serves the parameters of a ``tools.quantize``
+artifact with the checkpoint's buffers (BatchNorm's running statistics);
+``--quantize-weights`` round-trips the checkpoint's parameters through a
+serving representation in memory (``utils/quantize.py``).  Either way the
+model computes in float32 on the rounded weights, through the same
+kernels.
 """
 
 from __future__ import annotations
@@ -37,24 +44,21 @@ def parse_args(argv=None):
     parser.add_argument("--missing", default=None,
                         help="comma-separated modality indices to KEEP")
     parser.add_argument("--quantize-weights", default="none",
-                        choices=["none", "int8", "int8-bf16", "bfloat16"])
-    parser.add_argument("--quantize-min-size", type=int, default=None)
-    parser.add_argument("--quantized-artifact", default=None)
+                        choices=["none", "int8", "int8-bf16", "bfloat16"],
+                        help="round-trip params through the serving "
+                             "quantization before eval (accuracy A/B)")
+    parser.add_argument("--quantize-min-size", type=int, default=None,
+                        help="smallest leaf (elements) to quantize")
+    parser.add_argument("--quantized-artifact", default=None,
+                        help="load params from a tools.quantize artifact "
+                             "instead of the checkpoint's params")
     parser.add_argument("--out", default="./predictions")
     parser.add_argument("overrides", nargs="*")
     return parser.parse_args(argv)
 
 
-def _refuse_unported(args) -> None:
-    if args.quantize_weights != "none" or args.quantized_artifact is not None:
-        raise SystemExit(
-            "--quantize-weights / --quantized-artifact are not ported yet "
-            "(ROADMAP.md Queue 1 item 10)")
-
-
 def main(argv=None):
     args = parse_args(argv)
-    _refuse_unported(args)
 
     import torch
 
@@ -86,6 +90,30 @@ def main(argv=None):
     model, meta, loader = restore_for_eval(
         config, args.checkpoint, args.split, device)
     print(f"Restored {args.checkpoint} (meta: {meta}) on {device}")
+
+    if args.quantized_artifact is not None:
+        from multimodal_emotion_detection_tpu_torch.utils.quantize import (
+            load_params,
+            load_quantized,
+        )
+
+        qparams, qmeta = load_quantized(args.quantized_artifact)
+        load_params(model, qparams)
+        print(f"Loaded int8 serving artifact {args.quantized_artifact} "
+              f"(meta: {qmeta})")
+    elif args.quantize_weights != "none":
+        from multimodal_emotion_detection_tpu_torch.utils.quantize import (
+            DEFAULT_MIN_SIZE,
+            load_params,
+            model_params,
+            quantize_params_for_eval,
+        )
+
+        load_params(model, quantize_params_for_eval(
+            model_params(model), args.quantize_weights,
+            min_size=(DEFAULT_MIN_SIZE if args.quantize_min_size is None
+                      else args.quantize_min_size)))
+        print(f"Quantized weights in-memory: {args.quantize_weights}")
 
     keep = (
         [int(i) for i in args.missing.split(",")]
@@ -124,7 +152,10 @@ def main(argv=None):
     metrics["split"] = args.split
     metrics["missing_pattern"] = keep
     metrics["mc_dropout_samples"] = args.mc_dropout
-    metrics["quantize_weights"] = args.quantize_weights
+    metrics["quantize_weights"] = (
+        "int8-artifact" if args.quantized_artifact is not None
+        else args.quantize_weights
+    )
     (out_dir / "metrics.json").write_text(json.dumps(metrics, indent=2))
     print(json.dumps(metrics, indent=2))
     print(f"Wrote predictions to {out_dir}")

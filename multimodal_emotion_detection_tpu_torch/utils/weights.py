@@ -19,6 +19,11 @@ name or layout on the way:
 A 3-D kernel is told apart by its module's name, not its shape: one of
 any other module raises.
 
+``jax_params_from_state_dict`` maps the other way, for the parameters
+alone (the JAX layout is what ``utils/quantize.py`` quantizes in).  A
+flattened multi-head projection does not say how many heads it had, so
+it takes them by attention module (``attention_heads(model)``).
+
 Recurrent tensors keep their JAX names and layout: an LSTM layer's
 ``w_ih`` (D, 4H), ``w_hh`` (H, 4H) and one fused ``b``, gates i, f, g, o; a
 GRU layer's ``w_ih`` (D, 3H), ``w_hh`` (H, 3H), ``b_ih`` and ``b_hh``, gates
@@ -37,6 +42,7 @@ from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 
 _DENSE_GENERAL = ("query", "key", "value", "out")
@@ -93,4 +99,62 @@ def state_dict_from_jax_params(
     walk(params, "", False)
     if batch_stats is not None:
         walk(batch_stats, "", True)
+    return out
+
+
+def attention_heads(model: nn.Module) -> Dict[str, int]:
+    """``{module path: heads}`` of every attention in ``model`` whose
+    ``query`` / ``key`` / ``value`` / ``out`` are JAX DenseGenerals."""
+    return {name: module.num_heads for name, module in model.named_modules()
+            if hasattr(module, "query") and hasattr(module, "num_heads")}
+
+
+def _nest(tree: Dict[str, Any], path, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def jax_params_from_state_dict(
+    state_dict: Mapping[str, torch.Tensor],
+    heads: Optional[Mapping[str, int]] = None,
+) -> Dict[str, Any]:
+    """The inverse of ``state_dict_from_jax_params`` for the parameters:
+    the JAX ``params`` tree as nested dicts of float32 numpy arrays.
+    BatchNorm's running statistics are left out.  ``heads`` maps the path
+    of each DenseGeneral attention to its head count
+    (``attention_heads(model)``); a ``query`` / ``key`` / ``value`` /
+    ``out`` tensor under any other path raises."""
+    heads = dict(heads or {})
+    out: Dict[str, Any] = {}
+    for name, tensor in state_dict.items():
+        *modules, key = name.split(".")
+        if key in _STATS.values():
+            continue
+        arr = tensor.detach().to("cpu", torch.float32).numpy()
+        module = modules[-1] if modules else ""
+        parent = ".".join(modules[:-1])
+        general = module in _DENSE_GENERAL and parent in heads
+        if module in _DENSE_GENERAL and not general and arr.ndim == 2 and module != "out":
+            raise ValueError(f"{name}: a DenseGeneral projection needs its head "
+                             "count (heads=attention_heads(model))")
+        if key == "weight" and module.endswith("embedding"):
+            key = "embedding"
+        elif key == "weight" and arr.ndim == 1:
+            key = "scale"
+        elif key == "weight":
+            key = "kernel"
+            if general:
+                h = heads[parent]
+                arr = (arr.T.reshape(h, -1, arr.shape[0]) if module == "out"
+                       else arr.T.reshape(arr.shape[1], h, -1))
+            elif arr.ndim == 3 and module.startswith("conv"):
+                arr = arr.transpose(2, 1, 0)
+            elif arr.ndim == 2:
+                arr = arr.T
+            else:
+                raise ValueError(f"{name} has shape {arr.shape}: no JAX kernel maps to it")
+        elif key == "bias" and general and module != "out":
+            arr = arr.reshape(heads[parent], -1)
+        _nest(out, [*modules, key], np.ascontiguousarray(arr))
     return out

@@ -7,6 +7,8 @@ torch, numpy and the port, so it runs where JAX is not installed:
     python -m pytest --noconftest -m gpu tests/test_torch_port_gpu.py
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -1773,3 +1775,111 @@ def test_batched_forward_equals_forward_on_the_card(s, b):
         assert torch.equal(got[i], forward(model, {k: v[i] for k, v in on_card.items()}))
     ref = make_batched_forward_fn(model.cpu())(feats)
     torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-4)
+
+
+def _flagship(extra=(), config="base.yaml"):
+    from pathlib import Path
+
+    from multimodal_emotion_detection_tpu_torch.config import load_config
+    from multimodal_emotion_detection_tpu_torch.models.classifier import (
+        classifier_from_config,
+        init_weights,
+    )
+
+    root = Path(__file__).resolve().parents[1]
+    cfg = load_config(str(root / "configs" / config),
+                      (["model.frontend.audio=logmel"] if config == "base.yaml" else [])
+                      + list(extra))
+    return cfg, init_weights(classifier_from_config(cfg), torch.Generator().manual_seed(4))
+
+
+def _clips(b, seed=0):
+    rng = np.random.RandomState(seed)
+    return {"audio": torch.from_numpy(rng.randn(b, 48000, 1).astype(np.float32)),
+            "video": torch.from_numpy(rng.rand(b, 24, 4096).astype(np.float32))}
+
+
+@pytest.mark.parametrize("mode", ["int8", "int8-bf16", "bfloat16"])
+def test_quantized_flagship_serves_on_the_card_as_on_the_cpu(mode, tmp_path):
+    """The flagship's weights round-tripped through a serving mode: the
+    card's forward (log-mel and row 2 once) against the CPU's plain
+    versions on the same rounded weights; the int8 artifact serves the
+    in-memory int8 weights bit for bit."""
+    from multimodal_emotion_detection_tpu_torch.training.steps import forward
+    from multimodal_emotion_detection_tpu_torch.utils import quantize as q
+
+    dev = _card()
+    _, model = _flagship()
+    rounded = q.quantize_params_for_eval(q.model_params(model), mode)
+    q.load_params(model, rounded)
+    feats = _clips(32)
+    ref = forward(model, feats)
+    model = model.to(dev)
+    before = (logmel.LOGMEL.launches, lstm_kernel.LSTM2_INFER.launches)
+    got = forward(model, {k: v.to(dev) for k, v in feats.items()})
+    torch.cuda.synchronize()
+    assert (logmel.LOGMEL.launches, lstm_kernel.LSTM2_INFER.launches) == (
+        before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-3)
+    if mode == "int8":
+        _, fresh = _flagship()
+        q.save_quantized(tmp_path / "a.pt", q.model_params(fresh))
+        params, _ = q.load_quantized(tmp_path / "a.pt")
+        q.load_params(fresh, params)
+        fresh = fresh.to(dev)
+        again = forward(fresh, {k: v.to(dev) for k, v in feats.items()})
+        assert torch.equal(again, got)
+
+
+def test_sweep_step_of_two_members_runs_the_training_kernels():
+    """One step-major sweep step of two flagship members at batch 32: rows
+    1, 11 and 12 once per member; each member's loss against its CPU
+    forward; member 1 bit for bit a standalone ``member_ids=[1]`` run."""
+    from multimodal_emotion_detection_tpu_torch.parallel import vmap_sweep as vs
+    from multimodal_emotion_detection_tpu_torch.training.steps import cross_entropy
+
+    dev = _card()
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, model = _flagship(["model.dropout=0.0", "model.encoders.audio.dropout=0.0",
+                            "model.encoders.video.dropout=0.0"])
+    feats = {k: v.to(dev) for k, v in _clips(40, 1).items()}
+    labels = torch.from_numpy(np.random.RandomState(2).randint(0, 8, 40)).to(dev)
+    idx = torch.arange(32, device=dev)
+    valid = torch.ones(32, device=dev)
+    state = vs.init_sweep_state(model, [5e-4, 1e-3], 3, mdrops=[0.0, 0.05], device=dev)
+    cpu = copy.deepcopy(state.members[0]).cpu().train()
+    with torch.no_grad():
+        cpu_loss = float(cross_entropy(
+            cpu({k: v[:32].cpu() for k, v in feats.items()}, torch.ones(32, 2)),
+            labels[:32].cpu(), torch.ones(32)))
+    step = vs.make_vmapped_train_step(2, 0.0, 1.0, 1e-4)
+    counters = (logmel.LOGMEL, lstm_kernel.LSTM2_TRAIN_FWD, lstm_kernel.LSTM2_BWD_CHAIN)
+    before = [c.launches for c in counters]
+    metrics = step(state, feats, labels, idx, valid, 3)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [2, 2, 2]
+    # member 0 draws mDrop 0 (every modality kept): its loss is the CPU's
+    np.testing.assert_allclose(float(metrics["loss"][0]), cpu_loss, rtol=1e-4)
+    solo = vs.init_sweep_state(model, [1e-3], 3, mdrops=[0.05], member_ids=[1], device=dev)
+    step(solo, feats, labels, idx, valid, 3)
+    for k, v in vs.member_params(solo, 0).items():
+        assert torch.equal(v, vs.member_params(state, 1)[k]), k
+
+
+def test_visualize_matrix_on_the_card_matches_the_cpu():
+    """av_hybrid.yaml at full width: the (M, M) cross-attention matrix
+    from the card's forward (log-mel and row 2 once) against the CPU's."""
+    from multimodal_emotion_detection_tpu_torch.tools.visualize import attention_matrix
+
+    dev = _card()
+    _, model = _flagship(config="av_hybrid.yaml")
+    feats = _clips(32, 3)
+    ref = attention_matrix(model, feats, torch.ones(32, 2), ["audio", "video"])
+    model = model.to(dev)
+    before = (logmel.LOGMEL.launches, lstm_kernel.LSTM2_INFER.launches)
+    got = attention_matrix(model, {k: v.to(dev) for k, v in feats.items()},
+                           torch.ones(32, 2, device=dev), ["audio", "video"])
+    assert (logmel.LOGMEL.launches, lstm_kernel.LSTM2_INFER.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert got.shape == (2, 2)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)

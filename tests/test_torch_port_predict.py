@@ -132,13 +132,29 @@ def test_predict_without_cpu_override_raises_on_a_host_without_a_card(
     assert not (tmp / "never").exists()
 
 
-# the first case was --mc-dropout until MC dropout was ported; the case
-# keeps its id (flag0) and now holds the int8 serving artifact
-@pytest.mark.parametrize("flag", [["--quantized-artifact", "x"],
+# the first case was --mc-dropout until MC dropout was ported, then the
+# int8 serving artifact; both cases keep their ids (flag0, flag1) and now
+# hold that the serving-quantization options, once refused, run
+@pytest.mark.parametrize("flag", [["--quantized-artifact", "model_int8.pt"],
                                   ["--quantize-weights", "int8"]])
 def test_unported_options_exit_with_their_roadmap_item(served, flag):
+    from multimodal_emotion_detection_tpu_torch.tools.quantize import (
+        main as port_quantize,
+    )
+
     tmp, overrides, port_ckpt, _ = served
-    with pytest.raises(SystemExit, match="ROADMAP.md Queue 1 item"):
-        port_predict(["--checkpoint", str(port_ckpt), *flag,
-                      "--out", str(tmp / "never"), *overrides,
-                      "runtime.platform=cpu"])
+    config = ["--config", str(ROOT / "configs/base.yaml")]
+    if flag[0] == "--quantized-artifact":
+        flag = [flag[0], str(tmp / flag[1])]
+        port_quantize(["--checkpoint", str(port_ckpt), *config, "--out", flag[1],
+                       *overrides, "runtime.platform=cpu"])
+    out = tmp / f"quantized{flag[0]}"
+    metrics = port_predict(["--checkpoint", str(port_ckpt), *config, *flag,
+                            "--out", str(out), *overrides, "runtime.platform=cpu"])
+    assert metrics["quantize_weights"] == ("int8-artifact" if "artifact" in flag[0]
+                                           else "int8")
+    logits = np.load(out / "logits.npy")
+    assert logits.shape == (ROWS, 8) and np.isfinite(logits).all()
+    # int8 weights move the logits off the float32 ones, but not far
+    f32 = np.load(tmp / "port" / "logits.npy")
+    assert 0 < np.abs(logits - f32).max() < 0.05 * np.abs(f32).max()
