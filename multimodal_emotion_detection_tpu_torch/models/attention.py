@@ -10,8 +10,8 @@ weights load key for key through ``utils/weights.py``.
 Dropout acts only in training mode, with masks drawn from the forward's
 ``Noise``.  No kernel runs here: M is the number of modalities (2 in every
 shipped config), so the products and softmaxes are small stock ops, as they
-are plain XLA in the JAX package.  ``visualize_attention`` (plotting) is
-not ported (``ROADMAP.md`` Queue 1 item 10).
+are plain XLA in the JAX package.  ``visualize_attention`` draws the
+modality x modality heatmap that ``tools/visualize.py`` writes.
 """
 
 from __future__ import annotations

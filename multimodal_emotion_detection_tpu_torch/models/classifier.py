@@ -12,6 +12,10 @@ first), then
   that returns ``(logits, aux)`` gives its logits; ``return_aux=True``
   returns ``(logits, aux)`` with the embeddings under ``aux["encoded"]``.
 
+An encoder built with ``dtype: bfloat16`` computes in bf16 inside; its
+embedding is cast back to float32 before the fusion, so the head, the
+fusion and the parameters stay float32.
+
 ``use_modality_mask=False`` (the default) ignores the availability mask,
 as the reference forward does; ``True`` zeroes a missing modality's
 features before its encoder and hands the mask to the fusion.  In training
@@ -124,8 +128,10 @@ class MultimodalClassifier(nn.Module):
             if self.use_modality_mask and mask is not None:
                 m = mask[:, i].reshape((-1,) + (1,) * (x.ndim - 1))
                 x = x * m.to(x.dtype)
-            encoded[modality] = getattr(self, f"{modality}_encoder")(
-                x, noise=noise, bn_eval=bn_eval)
+            out = getattr(self, f"{modality}_encoder")(x, noise=noise, bn_eval=bn_eval)
+            # a per-encoder dtype (bf16) stays inside the encoder: its
+            # output rejoins the model's float32 here, as in the JAX package
+            encoded[modality] = out.float() if out.dtype == torch.bfloat16 else out
         return encoded
 
     def forward(
@@ -217,7 +223,10 @@ def classifier_from_config(config) -> MultimodalClassifier:
     if config.runtime.compute_dtype != "float32":
         raise NotImplementedError(
             f"runtime.compute_dtype={config.runtime.compute_dtype!r}: only "
-            "float32 is ported (ROADMAP.md Queue 1 item 13)"
+            "float32 is ported; the model-wide bf16 compute dtype is a later "
+            "slice of ROADMAP.md Queue 1 item 13 (per-encoder "
+            "model.encoders.<modality>.dtype=bfloat16 is ported for the "
+            "transformer and frame encoders)"
         )
     if fe.video != "none":
         raise NotImplementedError(

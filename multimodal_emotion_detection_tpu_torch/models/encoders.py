@@ -24,6 +24,21 @@ otherwise (``bn_eval=True``: running statistics in a training-mode
 forward, as MC dropout asks); every encoder takes ``bn_eval``, and those
 without BatchNorm ignore it.  Encoder kinds outside the port raise
 ``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them.
+
+A per-encoder ``dtype: bfloat16`` (the JAX factory's mixed-precision
+override) runs the transformer ``SequenceEncoder`` and the
+``FrameEncoder`` in bf16 with float32 parameters, as flax does with
+``dtype=bfloat16``: every Linear casts its input, weight and bias to bf16
+and returns bf16 (``dense``), the position table is cast before the
+lookup, LayerNorm takes its statistics and normalises in float32 and
+rounds the result to bf16 (``layer_norm``, flax's ``_compute_stats`` /
+``_normalize``), GELU, ReLU, softmax, dropout and the pooling act on bf16,
+and attention runs the flash kernels' bf16 forms.  Reductions sum in
+float32 and round once (``masked_mean``), as ``jnp.sum`` / ``jnp.mean`` do
+for bf16.  The classifier casts the encoder's output back to float32.  The
+recurrent, CNN and MLP encoders refuse bf16 (``ROADMAP.md`` Queue 1 item
+13): their JAX forms send bf16 into recurrent kernel forms or BatchNorm
+still to port.
 """
 
 from __future__ import annotations
@@ -48,12 +63,47 @@ from multimodal_emotion_detection_tpu_torch.ops.flash_attention import (
 )
 
 
+ENCODER_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def dense(linear: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``linear`` in ``x``'s dtype, as flax's Dense with ``dtype``: in bf16
+    the input, weight and bias are bf16, the product (float32 sums) is
+    rounded to bf16 and the bias added in bf16.  Any other dtype is
+    ``linear(x)``."""
+    if x.dtype != torch.bfloat16:
+        return linear(x)
+    return (torch.matmul(x, linear.weight.to(x.dtype).t())
+            + linear.bias.to(x.dtype))
+
+
+def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """``ln`` in ``x``'s dtype, as flax's LayerNorm with ``dtype``: in bf16
+    the statistics and the normalisation run in float32 on the upcast
+    input and the result is rounded to bf16 once (flax's ``_compute_stats``
+    / ``_normalize``; its E[x^2] - mean^2 variance and torch's two-pass one
+    differ by float32 round-off, under the bf16 rounding that follows).
+    Any other dtype is ``ln(x)``."""
+    if x.dtype != torch.bfloat16:
+        return ln(x)
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
+                        ln.eps).to(x.dtype)
+
+
 def masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor], dim: int = 1):
-    """Mean over ``dim`` honouring an optional (B, T) validity mask."""
+    """Mean over ``dim`` honouring an optional (B, T) validity mask.  On
+    bf16 the sums run in float32 and are rounded to bf16 once, as
+    ``jnp.mean`` (sum and divide in float32) and ``jnp.sum`` (float32 sum)
+    do; the masked mean divides its two rounded sums in bf16, as the JAX
+    function does."""
+    half = x.dtype == torch.bfloat16
     if mask is None:
-        return x.mean(dim=dim)
+        return x.float().mean(dim=dim).to(x.dtype) if half else x.mean(dim=dim)
     m = mask.to(x.dtype)[..., None]
-    return (x * m).sum(dim=dim) / m.sum(dim=dim).clamp(min=1.0)
+    if not half:
+        return (x * m).sum(dim=dim) / m.sum(dim=dim).clamp(min=1.0)
+    summed = (x * m).float().sum(dim=dim).to(x.dtype)
+    return summed / m.float().sum(dim=dim).clamp(min=1.0).to(x.dtype)
 
 
 def masked_max(x: torch.Tensor, mask: Optional[torch.Tensor], dim: int = 1):
@@ -72,7 +122,7 @@ class AttentionPool(nn.Module):
         self.attention = nn.Linear(dim, 1)
 
     def forward(self, frames: torch.Tensor, mask: Optional[torch.Tensor] = None):
-        scores = self.attention(frames)[..., 0]
+        scores = dense(self.attention, frames)[..., 0]
         if mask is not None:
             scores = torch.where(mask.to(torch.bool), scores,
                                  torch.full_like(scores, -1e9))
@@ -104,11 +154,11 @@ class SelfAttention(nn.Module):
         b, t, dim = x.shape
 
         def heads(proj):  # (B, T, H*Dh) -> (B, H, T, Dh)
-            return proj(x).view(b, t, self.num_heads, -1).transpose(1, 2)
+            return dense(proj, x).view(b, t, self.num_heads, -1).transpose(1, 2)
 
         o = flash_attention(heads(self.query), heads(self.key), heads(self.value),
                             bias, dropout_rate=rate, dropout_seed=seed)
-        return self.out(o.transpose(1, 2).reshape(b, t, dim))
+        return dense(self.out, o.transpose(1, 2).reshape(b, t, dim))
 
 
 class TransformerBlock(nn.Module):
@@ -117,7 +167,9 @@ class TransformerBlock(nn.Module):
     GELU the exact erf form, LayerNorm eps 1e-5.  In training mode the
     attention probabilities drop out inside the kernel (seeded from the
     forward's ``Noise``) and the feed-forward hidden layer takes a keep
-    mask; the residual branches have no dropout, as in the JAX block."""
+    mask; the residual branches have no dropout, as in the JAX block.  It
+    runs in its input's dtype: float32, or bf16 over float32 parameters
+    (``dense``, ``layer_norm``, the flash kernels' bf16 forms)."""
 
     def __init__(self, hidden_dim: int, num_heads: int = 4, dropout: float = 0.1):
         super().__init__()
@@ -136,9 +188,9 @@ class TransformerBlock(nn.Module):
             if noise is None:
                 raise ValueError("a training forward with dropout needs a Noise source")
             seed = noise.seed(x.device)
-        x = self.ln1(x + self.self_attn(x, bias, p, seed))
-        h = dropout(F.gelu(self.ffn_in(x), approximate="none"), p, noise)
-        return self.ln2(x + self.ffn_out(h))
+        x = layer_norm(self.ln1, x + self.self_attn(x, bias, p, seed))
+        h = dropout(F.gelu(dense(self.ffn_in, x), approximate="none"), p, noise)
+        return layer_norm(self.ln2, x + dense(self.ffn_out, h))
 
 
 class SequenceEncoder(nn.Module):
@@ -157,9 +209,14 @@ class SequenceEncoder(nn.Module):
     def __init__(self, input_dim: int, hidden_dim: int, output_dim: int,
                  num_layers: int = 2, dropout: float = 0.1,
                  encoder_type: str = "lstm", max_len: int = 4096,
-                 attention_block: int = 512):
+                 attention_block: int = 512, dtype: torch.dtype = torch.float32):
         super().__init__()
+        if dtype != torch.float32 and encoder_type != "transformer":
+            raise NotImplementedError(
+                f"a {encoder_type} SequenceEncoder in {dtype}: only the transformer "
+                "runs in bf16 (ROADMAP.md Queue 1 item 13)")
         self.encoder_type = encoder_type
+        self.compute_dtype = dtype
         if encoder_type == "transformer":
             self.max_len = max_len
             self.attention_block = attention_block
@@ -195,7 +252,9 @@ class SequenceEncoder(nn.Module):
             x = F.pad(x, (0, 0, 0, t - seq_len))
             valid = (torch.arange(t, device=x.device) < seq_len).expand(batch, t)
         positions = torch.arange(t, device=x.device).clamp(max=self.max_len - 1)
-        h = self.input_proj(x) + self.pos_embedding(positions)[None]
+        # the position table in x's dtype before the lookup, as flax's Embed
+        pos = self.pos_embedding.weight.to(x.dtype)[positions]
+        h = dense(self.input_proj, x) + pos[None]
         if blockwise:
             h = h.reshape(batch * (t // block), block, -1)
             block_valid = valid.reshape(-1, block).clone()
@@ -227,9 +286,9 @@ class SequenceEncoder(nn.Module):
             # in the weights' dtype, as the JAX encoders cast to theirs
             x = sequence.to(self.conv1.weight.dtype)
             return self.projection(self._cnn(x, noise, bn_eval))
-        x = sequence.to(torch.float32)
+        x = sequence.to(self.compute_dtype)
         if self.encoder_type == "transformer":
-            return self.projection(self._transformer(x, noise))
+            return dense(self.projection, self._transformer(x, noise))
         return self.projection(self.rnn(x, noise))
 
 
@@ -238,11 +297,13 @@ class FrameEncoder(nn.Module):
     projection."""
 
     def __init__(self, frame_dim: int, hidden_dim: int, output_dim: int,
-                 temporal_pooling: str = "attention", dropout: float = 0.1):
+                 temporal_pooling: str = "attention", dropout: float = 0.1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if temporal_pooling not in ("attention", "average", "max"):
             raise ValueError(f"Unknown pooling: {temporal_pooling}")
         self.temporal_pooling = temporal_pooling
+        self.compute_dtype = dtype
         self.dropout = float(dropout)
         self.frame_mlp = nn.Linear(frame_dim, hidden_dim)
         if temporal_pooling == "attention":
@@ -256,14 +317,15 @@ class FrameEncoder(nn.Module):
                 bn_eval: Optional[bool] = None) -> torch.Tensor:
         del bn_eval  # no BatchNorm here; the encoders share one interface
         p = self.dropout if self.training else 0.0
-        x = dropout(torch.relu(self.frame_mlp(frames.to(torch.float32))), p, noise)
+        x = dense(self.frame_mlp, frames.to(self.compute_dtype))
+        x = dropout(torch.relu(x), p, noise)
         if self.temporal_pooling == "attention":
             pooled = self.pool(x, mask)
         elif self.temporal_pooling == "average":
             pooled = masked_mean(x, mask, dim=1)
         else:
             pooled = masked_max(x, mask, dim=1)
-        return self.projection(self.proj_ln(dropout(pooled, p, noise)))
+        return dense(self.projection, layer_norm(self.proj_ln, dropout(pooled, p, noise)))
 
 
 class SimpleMLPEncoder(nn.Module):
@@ -329,11 +391,12 @@ def build_encoder(
     enc_type = cfg.pop("type", None)
     in_dim = cfg.pop("input_dim", input_dim)
     dt_over = cfg.pop("dtype", None)
-    if dt_over not in (None, "float32"):
-        raise NotImplementedError(
-            f"model.encoders.{modality}.dtype={dt_over!r}: only float32 "
-            "is ported (ROADMAP.md Queue 1 item 13)"
-        )
+    dtype = torch.float32
+    if dt_over is not None:
+        if dt_over not in ENCODER_DTYPES:
+            raise ValueError(f"model.encoders.{modality}.dtype={dt_over!r}: neither "
+                             f"of {sorted(ENCODER_DTYPES)}")
+        dtype = ENCODER_DTYPES[dt_over]
 
     if enc_type is None:
         mod = modality.lower()
@@ -348,6 +411,14 @@ def build_encoder(
     if hidden is None:
         hidden = max(output_dim, 64) if enc_type == "mlp" else output_dim * 2
     rate = cfg.pop("dropout", 0.1)
+    kind = cfg.pop("encoder_type", "lstm") if enc_type == "sequence" else enc_type
+    if dtype != torch.float32 and kind in ("lstm", "gru", "cnn", "mlp", "pretrained_cnn"):
+        raise NotImplementedError(
+            f"model.encoders.{modality}.dtype={dt_over!r} on the {kind} encoder: "
+            "bf16 is ported for the transformer and frame encoders only; the "
+            "recurrent, CNN, MLP and image encoders in bf16 are ROADMAP.md Queue 1 "
+            "item 13's later slices"
+        )
     if enc_type == "frame":
         return FrameEncoder(
             frame_dim=in_dim,
@@ -355,9 +426,9 @@ def build_encoder(
             output_dim=output_dim,
             temporal_pooling=cfg.pop("temporal_pooling", "attention"),
             dropout=rate,
+            dtype=dtype,
         )
     if enc_type == "sequence":
-        kind = cfg.pop("encoder_type", "lstm")
         if kind not in ("lstm", "gru", "transformer", "cnn"):
             raise ValueError(f"Unknown encoder type: {kind}")
         return SequenceEncoder(
@@ -367,6 +438,7 @@ def build_encoder(
             num_layers=cfg.pop("num_layers", 2),
             dropout=rate,
             encoder_type=kind,
+            dtype=dtype,
         )
     if enc_type == "mlp":
         return SimpleMLPEncoder(

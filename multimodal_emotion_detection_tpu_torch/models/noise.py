@@ -71,5 +71,13 @@ def keep_mask(noise: Optional[Noise], shape, p: float,
 
 def dropout(x: torch.Tensor, p: float, noise: Optional[Noise]) -> torch.Tensor:
     """Dropout at rate ``p`` with a mask from ``noise``; ``p == 0`` is the
-    identity."""
-    return x if p <= 0.0 else x * keep_mask(noise, x.shape, p, x.device)
+    identity.  A bf16 ``x`` stays bf16: its kept values are x / (1 - p)
+    with 1 - p rounded to bf16 first, as flax's ``inputs / keep_prob``
+    does with a bf16 input."""
+    if p <= 0.0:
+        return x
+    mask = keep_mask(noise, x.shape, p, x.device)
+    if x.dtype != torch.bfloat16:
+        return x * mask
+    keep = torch.tensor(1.0 - p, dtype=x.dtype, device=x.device)
+    return torch.where(mask > 0, x / keep, torch.zeros_like(x))

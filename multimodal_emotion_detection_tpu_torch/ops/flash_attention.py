@@ -2,11 +2,13 @@
 
 The JAX package's layout at the public function: ``flash_attention(q, k, v,
 bias=None, *, dropout_rate=0.0, dropout_seed=None)`` takes q (B, H, Tq, D),
-k and v (B, H, Tk, D), float32, and an optional (B, Tk) additive key bias
-(0 valid, -1e9 masked; a mask, so it gets no gradient).  Scale is 1/sqrt(D);
-any Tq, Tk >= 1 is taken.
+k and v (B, H, Tk, D), all float32 or all bfloat16, and an optional (B, Tk)
+additive key bias (0 valid, -1e9 masked; a mask, so it gets no gradient;
+float32 whatever the operands).  Scale is 1/sqrt(D); any Tq, Tk >= 1 is
+taken.  Other dtypes (float16) and mixed operands raise.
 
-Four kernels, each behind a wrapper with its launch counter:
+Four kernels, each in a float32 and a bf16 form, each form behind a wrapper
+with its own launch counter (``FLASH_FWD`` / ``FLASH_FWD_BF16`` and so on):
 
 * ``flash_fwd`` (``csrc/flash_fwd.cu``): online-softmax attention, writes O
   and the per-row logsumexp LSE (B, H, Tq);
@@ -18,16 +20,29 @@ Four kernels, each behind a wrapper with its launch counter:
   dQ phase) and ``flash_bwd_dq`` (``csrc/flash_bwd_dq.cu``): the two-pass
   backward for long key sequences, dK and dV kv-major, dQ q-major.
 
-All four run their products on the tensor cores in 3xTF32
+The float32 forms run their products on the tensor cores in 3xTF32
 (``csrc/flash_mma.cuh``): each float32 operand is split into two TF32
 values and a product is three TF32 MMAs, which keeps float32 accuracy.
 ``tf32_round`` and ``matmul_3xtf32`` emulate that arithmetic on the CPU for
 the tests; no path of the port calls them.
 
+The bf16 forms take bf16 q, k, v and dO as the JAX kernels take them: the
+products' operands stay bf16 (one bf16 MMA each) and accumulate in
+float32; S, the softmax statistics, LSE, Delta and dP are float32; P (times
+the keep mask) is rounded to bf16 before P V and P^T dO, dS before dS^T Q
+and dS K; O, dK and dV are rounded to bf16 once, dQ once after the fused
+form's partials are summed in float32.  O, dQ, dK and dV come out bf16, LSE
+float32.  Their plain versions (``flash_fwd_reference`` and
+``flash_bwd_reference`` on bf16 inputs) compute in float32 from the
+upcast operands and round at exactly those points, with P taken after the
+row's final max (the JAX kernel's one-block form, T <= 512); the kernels
+round P relative to the running max of their key tiles, which can put an
+element an ulp away.
+
 ``FlashAttention`` (an ``autograd.Function``) saves (q, k, v, bias, seed,
-O, LSE); its backward forms Delta = rowsum(dO * O) and takes the fused or
-the two-pass form by ``bwd_route(Tk)``, as the JAX package does past 8
-blocks of 512 keys.
+O, LSE); its backward forms Delta = rowsum(dO * O) in float32 and takes the
+fused or the two-pass form by ``bwd_route(Tk)``, as the JAX package does
+past 8 blocks of 512 keys.
 
 Attention-probability dropout follows torch's semantics, as the JAX
 kernel's: the softmax normaliser comes from the undropped probabilities,
@@ -50,7 +65,7 @@ import torch
 
 from multimodal_emotion_detection_tpu_torch.ops._build import (
     CudaKernel,
-    check_cuda_f32,
+    check_cuda,
     stream_of,
 )
 
@@ -147,29 +162,63 @@ def _probs(q, k, bias, lse=None):
     return torch.exp(s - lse[..., None]), lse, scale
 
 
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest bf16 value (ties to even), kept in float32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
 def flash_fwd_reference(q, k, v, bias, seed, rate: float):
-    """Plain version of the forward kernel -> (O, LSE (B, H, Tq))."""
-    p, lse, _ = _probs(q, k, bias)
+    """Plain version of the forward kernel -> (O (B, H, Tq, D) in the
+    operands' dtype, LSE (B, H, Tq) float32).
+
+    On bf16 operands: S from the upcast operands in float32, P = exp(S - m)
+    after the row's max m, l = rowsum(P) and LSE = m + log(l) in float32, P
+    (times the keep mask) rounded to bf16, O = (P V) / l rounded to bf16
+    once, the rounding points of the JAX kernel in one key block."""
+    if q.dtype != torch.bfloat16:
+        p, lse, _ = _probs(q, k, bias)
+        if rate > 0.0:
+            p = p * attn_keep_mask(seed, rate, p.shape)
+        return torch.matmul(p, v), lse
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias[:, None, None, :]
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l_sum = p.sum(dim=-1, keepdim=True)
+    lse = (m + torch.log(l_sum))[..., 0]
     if rate > 0.0:
         p = p * attn_keep_mask(seed, rate, p.shape)
-    return torch.matmul(p, v), lse
+    o = torch.matmul(_bf16(p), v.float()) / l_sum
+    return o.to(torch.bfloat16), lse
 
 
 def flash_bwd_reference(q, k, v, bias, seed, rate: float, do, lse, delta):
-    """Plain version of the backward kernels' contract -> (dQ, dK, dV).
+    """Plain version of the backward kernels' contract -> (dQ, dK, dV), in
+    the operands' dtype.
 
     P = exp(S - LSE); with M the keep mask (1/(1 - rate) where kept),
     dV = (P M)^T dO, dS = P (M (dO V^T) - Delta) / sqrt(D), dQ = dS K,
-    dK = dS^T Q; Delta = rowsum(dO O) is unchanged by dropout."""
+    dK = dS^T Q; Delta = rowsum(dO O) is unchanged by dropout.  On bf16
+    operands everything is float32 from the upcast operands except that P M
+    and dS are rounded to bf16 before they enter a product and dQ, dK, dV
+    are rounded to bf16 at the end."""
+    half = q.dtype == torch.bfloat16
+    if half:
+        q, k, v, do = (x.float() for x in (q, k, v, do))
     p, _, scale = _probs(q, k, bias, lse)
     dp = torch.matmul(do, v.transpose(-1, -2))
     p_drop = p
     if rate > 0.0:
         keep = attn_keep_mask(seed, rate, p.shape)
         p_drop, dp = p * keep, dp * keep
-    dv = torch.matmul(p_drop.transpose(-1, -2), do)
     ds = p * (dp - delta[..., None]) * scale
-    return torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q), dv
+    if half:
+        p_drop, ds = _bf16(p_drop), _bf16(ds)
+    grads = (torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q),
+             torch.matmul(p_drop.transpose(-1, -2), do))
+    return tuple(g.to(torch.bfloat16) for g in grads) if half else grads
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -196,14 +245,23 @@ def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _U, _F = ctypes.c_uint, ctypes.c_float
-FLASH_FWD = CudaKernel(
-    "flash_fwd", "flash_fwd_launch",
-    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _U, _F, _P],
-)
+_FWD_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _U, _F, _P]
+FLASH_FWD = CudaKernel("flash_fwd", "flash_fwd_launch", _FWD_ARGS)
 _BWD_ARGS = [_P] * 11 + [_I] * 6 + [_F, _U, _F, _P]
 FLASH_BWD_FUSED = CudaKernel("flash_bwd_fused", "flash_bwd_fused_launch", _BWD_ARGS)
 FLASH_BWD_DKV = CudaKernel("flash_bwd_fused", "flash_bwd_dkv_launch", _BWD_ARGS)
 FLASH_BWD_DQ = CudaKernel("flash_bwd_dq", "flash_bwd_dq_launch", _BWD_ARGS)
+# the bf16 forms of the same sources, counted apart
+FLASH_FWD_BF16 = CudaKernel("flash_fwd", "flash_fwd_bf16_launch", _FWD_ARGS)
+FLASH_BWD_FUSED_BF16 = CudaKernel("flash_bwd_fused", "flash_bwd_fused_bf16_launch",
+                                  _BWD_ARGS)
+FLASH_BWD_DKV_BF16 = CudaKernel("flash_bwd_fused", "flash_bwd_dkv_bf16_launch", _BWD_ARGS)
+FLASH_BWD_DQ_BF16 = CudaKernel("flash_bwd_dq", "flash_bwd_dq_bf16_launch", _BWD_ARGS)
+# operand dtype -> its kernel forms
+_FORMS = {torch.float32: dict(fwd=FLASH_FWD, fused=FLASH_BWD_FUSED, dkv=FLASH_BWD_DKV,
+                              dq=FLASH_BWD_DQ),
+          torch.bfloat16: dict(fwd=FLASH_FWD_BF16, fused=FLASH_BWD_FUSED_BF16,
+                               dkv=FLASH_BWD_DKV_BF16, dq=FLASH_BWD_DQ_BF16)}
 
 
 def bwd_route(tk: int) -> str:
@@ -220,8 +278,23 @@ def kv_spans(tk: int) -> Tuple[int, int]:
     return -(-tiles // per_span), per_span
 
 
-def _checked(name: str, q, k, v, bias, seed, rate: float, **more):
-    """Shape / type / device checks before a launch; returns the dims and
+def _operand_dtype(name: str, q, k, v, do=None) -> torch.dtype:
+    """The one dtype of q, k, v (and dO): float32 or bfloat16; float16,
+    any other dtype and mixed operands raise, on every device."""
+    dtypes = {t.dtype for t in (q, k, v, do) if t is not None}
+    if len(dtypes) != 1:
+        raise ValueError(f"{name}: q, k, v and dO must share one dtype, got "
+                         f"{sorted(str(t) for t in dtypes)}")
+    (dtype,) = dtypes
+    if dtype not in _FORMS:
+        raise ValueError(f"{name}: operands are {dtype}; the kernels take float32 "
+                         "or bfloat16")
+    return dtype
+
+
+def _checked(name: str, q, k, v, bias, seed, rate: float, do=None, **stats):
+    """Shape / type / device checks before a launch (q, k, v and dO of one
+    dtype, the bias and the row statistics float32); returns the dims and
     the seed pointer (None at rate 0)."""
     if q.dim() != 4:
         raise ValueError(f"{name}: q has shape {tuple(q.shape)}, expected (B, H, Tq, D)")
@@ -230,8 +303,10 @@ def _checked(name: str, q, k, v, bias, seed, rate: float, **more):
     shapes = dict(k=(k, (b, h, tk, d)), v=(v, (b, h, tk, d)))
     if bias is not None:
         shapes["bias"] = (bias, (b, tk))
-    for arg, t in more.items():
-        shapes[arg] = (t, (b, h, tq, d) if t.dim() == 4 else (b, h, tq))
+    if do is not None:
+        shapes["do"] = (do, (b, h, tq, d))
+    for arg, t in stats.items():
+        shapes[arg] = (t, (b, h, tq))
     for arg, (t, shape) in shapes.items():
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, expected {shape}")
@@ -239,10 +314,17 @@ def _checked(name: str, q, k, v, bias, seed, rate: float, **more):
         raise ValueError(f"{name}: empty dimension in q{tuple(q.shape)} / k{tuple(k.shape)}")
     if d > MAX_HEAD_DIM:
         raise ValueError(f"{name}: head dim {d} > {MAX_HEAD_DIM} is not supported")
-    tensors = dict(q=q, k=k, v=v, **more)
+    operands = dict(q=q, k=k, v=v)
+    if do is not None:
+        operands["do"] = do
+    check_cuda(name, q.dtype, operands)
+    f32 = dict(stats)
     if bias is not None:
-        tensors["bias"] = bias
-    check_cuda_f32(name, **tensors)
+        f32["bias"] = bias
+    check_cuda(name, torch.float32, f32)
+    for arg, t in f32.items():
+        if t.device != q.device:
+            raise ValueError(f"{name}: {arg} is on {t.device}, q on {q.device}")
     seed_ptr = None
     if rate > 0.0:
         if (seed.dtype != torch.int64 or seed.numel() != 1
@@ -257,81 +339,92 @@ def _drop_args(rate: float):
 
 
 def flash_fwd(q, k, v, bias, seed, rate: float):
-    """Attention forward -> (O (B, H, Tq, D), LSE (B, H, Tq)), float32.
+    """Attention forward -> (O (B, H, Tq, D) in the operands' dtype, LSE
+    (B, H, Tq) float32).
 
-    On a CUDA tensor this launches ``csrc/flash_fwd.cu`` and counts it in
-    ``FLASH_FWD.launches``; on a CPU tensor it runs ``flash_fwd_reference``.
+    On CUDA tensors this launches ``csrc/flash_fwd.cu``'s float32 form
+    (counted in ``FLASH_FWD.launches``) or, on bf16 operands, its bf16 form
+    (``FLASH_FWD_BF16.launches``); on CPU tensors it runs
+    ``flash_fwd_reference``.
     """
+    dtype = _operand_dtype("flash_fwd", q, k, v)
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, bias, seed, rate)
     b, h, tq, tk, d, seed_ptr = _checked("flash_fwd", q, k, v, bias, seed, rate)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    FLASH_FWD(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-              bias.data_ptr() if bias is not None else None, seed_ptr,
-              o.data_ptr(), lse.data_ptr(), b, h, tq, tk, d,
-              1.0 / math.sqrt(d), *_drop_args(rate), stream_of(q))
+    _FORMS[dtype]["fwd"](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     bias.data_ptr() if bias is not None else None, seed_ptr,
+                     o.data_ptr(), lse.data_ptr(), b, h, tq, tk, d,
+                     1.0 / math.sqrt(d), *_drop_args(rate), stream_of(q))
     return o, lse
 
 
-def _bwd_launch(kernel, name, q, k, v, bias, seed, rate, do, lse, delta,
+def _bwd_launch(form: str, q, k, v, bias, seed, rate, do, lse, delta,
                 dq_out, dk, dv, spans_arg):
-    b, h, tq, tk, d, seed_ptr = _checked(name, q, k, v, bias, seed, rate,
+    b, h, tq, tk, d, seed_ptr = _checked(f"flash_bwd_{form}", q, k, v, bias, seed, rate,
                                          do=do, lse=lse, delta=delta)
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
-    kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(bias), seed_ptr,
-           do.data_ptr(), lse.data_ptr(), delta.data_ptr(), ptr(dq_out),
-           ptr(dk), ptr(dv), b, h, tq, tk, d, spans_arg,
-           1.0 / math.sqrt(d), *_drop_args(rate), stream_of(q))
+    _FORMS[q.dtype][form](
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(bias), seed_ptr,
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), ptr(dq_out),
+        ptr(dk), ptr(dv), b, h, tq, tk, d, spans_arg,
+        1.0 / math.sqrt(d), *_drop_args(rate), stream_of(q))
 
 
 def flash_bwd_fused(q, k, v, bias, seed, rate: float, do, lse, delta):
-    """Fused backward -> (dQ, dK, dV), float32.
+    """Fused backward -> (dQ, dK, dV) in the operands' dtype.
 
-    On a CUDA tensor this launches ``csrc/flash_bwd_fused.cu``'s kv-major
-    kernel (3xTF32 on the tensor cores; one CTA per kv span, head and batch
-    row; each span's dQ partial in its own slot, summed here) and counts it
-    in ``FLASH_BWD_FUSED.launches``; on a CPU tensor it runs
+    On CUDA tensors this launches ``csrc/flash_bwd_fused.cu``'s kv-major
+    kernel (one CTA per kv span, head and batch row; each span's dQ partial
+    in its own float32 slot, summed here and, in the bf16 form, rounded to
+    bf16 once) and counts it in ``FLASH_BWD_FUSED.launches``, its bf16 form
+    in ``FLASH_BWD_FUSED_BF16.launches``; on CPU tensors it runs
     ``flash_bwd_reference``.
     """
+    _operand_dtype("flash_bwd_fused", q, k, v, do)
     if q.device.type == "cpu":
         return flash_bwd_reference(q, k, v, bias, seed, rate, do, lse, delta)
     n_spans, per_span = kv_spans(k.shape[2])
-    dqp = q.new_empty((n_spans,) + tuple(q.shape))
+    dqp = q.new_empty((n_spans,) + tuple(q.shape), dtype=torch.float32)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _bwd_launch(FLASH_BWD_FUSED, "flash_bwd_fused", q, k, v, bias, seed, rate,
+    _bwd_launch("fused", q, k, v, bias, seed, rate,
                 do, lse, delta, dqp, dk, dv, per_span)
-    return dqp.sum(dim=0), dk, dv
+    return dqp.sum(dim=0).to(q.dtype), dk, dv
 
 
 def flash_bwd_dkv(q, k, v, bias, seed, rate: float, do, lse, delta):
-    """Two-pass backward, first pass -> (dK, dV), float32.
+    """Two-pass backward, first pass -> (dK, dV) in the operands' dtype.
 
-    On a CUDA tensor this launches ``csrc/flash_bwd_fused.cu``'s kv-major
-    kernel in its dK/dV form (3xTF32 on the tensor cores, no dQ phase; one
-    CTA per 64-key tile, head and batch row; dK and dV bit for bit the
-    fused form's) and counts it in ``FLASH_BWD_DKV.launches``; on a CPU
-    tensor it runs ``flash_bwd_reference``.
+    On CUDA tensors this launches ``csrc/flash_bwd_fused.cu``'s kv-major
+    kernel in its dK/dV form (no dQ phase; one CTA per 64-key tile, head
+    and batch row; dK and dV bit for bit the fused form's) and counts it in
+    ``FLASH_BWD_DKV.launches``, its bf16 form in
+    ``FLASH_BWD_DKV_BF16.launches``; on CPU tensors it runs
+    ``flash_bwd_reference``.
     """
+    _operand_dtype("flash_bwd_dkv", q, k, v, do)
     if q.device.type == "cpu":
         return flash_bwd_reference(q, k, v, bias, seed, rate, do, lse, delta)[1:]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _bwd_launch(FLASH_BWD_DKV, "flash_bwd_dkv", q, k, v, bias, seed, rate,
+    _bwd_launch("dkv", q, k, v, bias, seed, rate,
                 do, lse, delta, None, dk, dv, 1)
     return dk, dv
 
 
 def flash_bwd_dq(q, k, v, bias, seed, rate: float, do, lse, delta):
-    """Two-pass backward, second pass -> dQ, float32.
+    """Two-pass backward, second pass -> dQ in the operands' dtype.
 
-    On a CUDA tensor this launches ``csrc/flash_bwd_dq.cu`` and counts it
-    in ``FLASH_BWD_DQ.launches``; on a CPU tensor it runs
+    On CUDA tensors this launches ``csrc/flash_bwd_dq.cu`` and counts it in
+    ``FLASH_BWD_DQ.launches``, its bf16 form in
+    ``FLASH_BWD_DQ_BF16.launches``; on CPU tensors it runs
     ``flash_bwd_reference``.
     """
+    _operand_dtype("flash_bwd_dq", q, k, v, do)
     if q.device.type == "cpu":
         return flash_bwd_reference(q, k, v, bias, seed, rate, do, lse, delta)[0]
     dq = torch.empty_like(q)
-    _bwd_launch(FLASH_BWD_DQ, "flash_bwd_dq", q, k, v, bias, seed, rate,
+    _bwd_launch("dq", q, k, v, bias, seed, rate,
                 do, lse, delta, dq, None, None, 0)
     return dq
 
@@ -351,7 +444,8 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, bias, seed, o, lse = ctx.saved_tensors
         do = do.contiguous()
-        delta = (do * o).sum(dim=-1)
+        # float32 whatever the operands, as the JAX package forms it
+        delta = (do.float() * o.float()).sum(dim=-1)
         args = (q, k, v, bias, seed, ctx.rate, do, lse, delta)
         if bwd_route(k.shape[2]) == "fused":
             dq, dk, dv = flash_bwd_fused(*args)
@@ -365,9 +459,12 @@ def flash_attention(q, k, v, bias: Optional[torch.Tensor] = None, *,
                     dropout_rate: float = 0.0,
                     dropout_seed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Differentiable attention through the flash kernels (the plain
-    versions on CPU tensors); q (B, H, Tq, D), k and v (B, H, Tk, D), bias
-    (B, Tk) additive on the keys; ``dropout_seed`` an int64 tensor of one
-    element, required when ``dropout_rate > 0``."""
+    versions on CPU tensors); q (B, H, Tq, D), k and v (B, H, Tk, D), all
+    float32 or all bfloat16 (the kernels' bf16 forms; O and the gradients
+    in bf16), bias (B, Tk) additive on the keys, taken in float32;
+    ``dropout_seed`` an int64 tensor of one element, required when
+    ``dropout_rate > 0``."""
+    _operand_dtype("flash_attention", q, k, v)
     batch, heads, tq, d = q.shape
     tk = k.shape[2]
     if min(batch, heads, tq, tk, d) < 1:

@@ -1470,6 +1470,135 @@ def test_flash_bwd_dkv_form_matches_plain_and_the_fused_form(b, h, tq, tk, d, ma
                                    msg=name)
 
 
+def _half_close(out, ref, msg, ulps=4):
+    """A bf16 kernel output against its plain version on the same inputs:
+    within ``ulps`` bf16 ulps of the largest entry (one ulp = 2^-8 of it)
+    plus 1e-6.  The two round at the same points from float32 values that
+    differ by sums in another order (and, in O, by P taken after the
+    running max), so an element may land an ulp or two away; where the
+    exact result is 0 (dQ with one key) only that round-off is left."""
+    assert out.dtype == ref.dtype == torch.bfloat16, msg
+    err = float((out.float() - ref.float()).abs().max())
+    bound = ulps * 2.0 ** -8 * float(ref.float().abs().max()) + 1e-6
+    assert err <= bound, f"{msg}: {err:.3e} > {bound:.3e}"
+
+
+def _check_flash_bf16_kernels(b, h, tq, tk, d, masked, rate):
+    from multimodal_emotion_detection_tpu_torch.ops import flash_attention as fa
+
+    dev = _card()
+    q, k, v, bias, do = _flash_case(dev, b, h, tq, tk, d, masked, seed=tq + tk + d)
+    q, k, v, do = (t.to(torch.bfloat16) for t in (q, k, v, do))
+    seed = torch.tensor([tq * 1000 + tk], dtype=torch.int64, device=dev)
+    f32 = (fa.FLASH_FWD, fa.FLASH_BWD_FUSED, fa.FLASH_BWD_DKV, fa.FLASH_BWD_DQ)
+    f32_before = [c.launches for c in f32]
+    before = fa.FLASH_FWD_BF16.launches
+    o, lse = fa.flash_fwd(q, k, v, bias, seed, rate)
+    torch.cuda.synchronize()
+    assert fa.FLASH_FWD_BF16.launches == before + 1
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, bias, seed, rate)
+    _half_close(o, o_ref, "O")
+    # float32 statistics from bf16 products summed in another order
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-5, msg="LSE")
+
+    delta = (do.float() * o_ref.float()).sum(-1)
+    args = (q, k, v, bias, seed, rate, do, lse_ref, delta)
+    refs = fa.flash_bwd_reference(*args)
+    counters = (fa.FLASH_BWD_FUSED_BF16, fa.FLASH_BWD_DKV_BF16, fa.FLASH_BWD_DQ_BF16)
+    before = [c.launches for c in counters]
+    fused = fa.flash_bwd_fused(*args)
+    two_pass = (fa.flash_bwd_dq(*args), *fa.flash_bwd_dkv(*args))
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [1, 1, 1]
+    assert [c.launches for c in f32] == f32_before  # no float32 form ran
+    for form, outs in (("fused", fused), ("two-pass", two_pass)):
+        for name, g, r in zip(("dQ", "dK", "dV"), outs, refs):
+            _half_close(g, r, f"{form} {name}")
+    # dK and dV of the dK / dV form are the fused form's bit for bit
+    assert torch.equal(two_pass[1], fused[1]) and torch.equal(two_pass[2], fused[2])
+
+
+@pytest.mark.parametrize("b,h,tq,tk,d,masked,rate", FLASH_SHAPES)
+def test_flash_bf16_kernels_match_plain(b, h, tq, tk, d, masked, rate):
+    _check_flash_bf16_kernels(b, h, tq, tk, d, masked, rate)
+
+
+def test_flash_attention_bf16_on_the_card_takes_the_bf16_forms():
+    # through the autograd Function on both backward routes: the bf16
+    # forms launch, the float32 forms never, and O and the gradients are
+    # bf16 within the kernels' bound of the CPU's plain versions
+    from multimodal_emotion_detection_tpu_torch.ops import flash_attention as fa
+
+    dev = _card()
+    for t in (300, 4200):
+        q, k, v, bias, do = _flash_case(torch.device("cpu"), 1, 2, t, t, 64, True, seed=t)
+        cpu = [q.bfloat16(), k.bfloat16(), v.bfloat16(), bias, do.bfloat16()]
+        seed = torch.tensor([2**40 + t], dtype=torch.int64)
+
+        def run(tensors, s):
+            q, k, v = (x.clone().requires_grad_() for x in tensors[:3])
+            out = fa.flash_attention(q, k, v, tensors[3], dropout_rate=0.1, dropout_seed=s)
+            out.backward(tensors[4])
+            return [out.detach().cpu()] + [x.grad.cpu() for x in (q, k, v)]
+
+        counters = (fa.FLASH_FWD, fa.FLASH_BWD_FUSED, fa.FLASH_BWD_DKV, fa.FLASH_BWD_DQ,
+                    fa.FLASH_FWD_BF16, fa.FLASH_BWD_FUSED_BF16, fa.FLASH_BWD_DKV_BF16,
+                    fa.FLASH_BWD_DQ_BF16)
+        before = [c.launches for c in counters]
+        card = run([x.to(dev) if x is not None else None for x in cpu], seed.to(dev))
+        torch.cuda.synchronize()
+        fused = fa.bwd_route(t) == "fused"
+        assert [c.launches - n for c, n in zip(counters, before)] == [
+            0, 0, 0, 0, 1, int(fused), int(not fused), int(not fused)]
+        for name, g, r in zip(("O", "dQ", "dK", "dV"), card, run(cpu, seed)):
+            _half_close(g, r, f"T {t} {name}")
+
+
+def test_bf16_transformer_encoder_trains_one_step_and_serves_on_the_card():
+    # the transformer config's encoder at full width in bf16: a training
+    # forward + backward launches the bf16 forward twice (two blocks) and
+    # the bf16 fused backward twice, an eval forward the bf16 forward
+    # twice, and no float32 form; the card against the CPU (plain
+    # versions) on the same weights and Philox seeds, bf16 on both sides:
+    # outputs within 4 bf16 ulps of the largest, gradients (float32
+    # parameters) within 2e-2 of the largest, as the bf16 step rule
+    from multimodal_emotion_detection_tpu_torch.models.classifier import init_weights
+    from multimodal_emotion_detection_tpu_torch.models.encoders import SequenceEncoder
+    from multimodal_emotion_detection_tpu_torch.models.noise import Noise
+    from multimodal_emotion_detection_tpu_torch.ops import flash_attention as fa
+
+    dev = _card()
+    enc = init_weights(SequenceEncoder(64, 256, 128, num_layers=2, dropout=0.1,
+                                       encoder_type="transformer", dtype=torch.bfloat16),
+                       torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.RandomState(7).randn(32, 372, 64).astype(np.float32))
+    w = torch.from_numpy(np.random.RandomState(8).randn(32, 128).astype(np.float32))
+    counters = (fa.FLASH_FWD, fa.FLASH_BWD_FUSED, fa.FLASH_FWD_BF16, fa.FLASH_BWD_FUSED_BF16)
+    before = [c.launches for c in counters]
+    card = copy.deepcopy(enc).to(dev).train()
+    noise = Noise(torch.Generator(device=dev).manual_seed(0))
+    out = card(x.to(dev), noise)
+    assert out.dtype == torch.bfloat16
+    (out.float() * w.to(dev)).sum().backward()
+    grads = {n: p.grad.cpu() for n, p in card.named_parameters()}
+    card.eval()
+    with torch.no_grad():
+        served = card(x.to(dev)).cpu()
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [0, 0, 4, 2]
+
+    cpu = enc.train()
+    want = cpu(x, Noise(replay=noise.drawn))
+    (want.float() * w).sum().backward()
+    _half_close(out.detach().cpu(), want.detach(), "training output")
+    g_max = max(float(p.grad.abs().max()) for p in cpu.parameters())
+    for n, p in cpu.named_parameters():
+        err = float((grads[n] - p.grad).abs().max())
+        assert err <= 2e-2 * g_max, f"{n}: {err:.3e} of {g_max:.3e}"
+    with torch.no_grad():
+        _half_close(served, cpu.eval()(x), "served output")
+
+
 # configs/base.yaml as written: the raw waveform, 48,000 steps at b32.  The
 # LSTM pair's packed rows (10H) pass 2^31 elements from step 26,214, the
 # GRU pair's (8H) and one H=512 layer's gates (4H) from step 32,768: any
