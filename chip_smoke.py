@@ -205,7 +205,18 @@
    busy share and peak memory beside ``[train_hybrid]``'s),
    ``[train_gru_fast]`` (the GRU config) and ``[train_big_fast]`` (the big
    config) with bf16 streams, and ``[lstm1_raw]`` prints the big config's
-   bf16 count on raw beside the card's free bytes.
+   bf16 count on raw beside the card's free bytes.  The remat pair in bf16
+   (``runtime.lstm_remat_gates=true`` with bf16 streams):
+   ``[lstm2_remat_bf16]`` holds rows 11n and 13's bf16 forms bit for bit
+   to the float32 forms rounded (11nb at B 32, 17 and 1; 13b over 11nb's
+   streams at B 32, 17, 1 and 128, in slices of the batch) and to their
+   plain versions, times both beside their float32 forms, row 12b and
+   cuDNN, and holds the whole recurrence gradient to the CPU's (2e-3) with
+   its peak memory beside the stored-gates and float32 routes' and
+   ``stack_residual_bytes``'; ``[train_fast_remat]`` / ``[serve_fast_remat]``
+   train fast.yaml with remat (11nb and 13b once a step, no other pair;
+   the card step as ``[train_fast]``'s, and apart from the stored-gates
+   step on the same batch) and serve its ``best.ckpt``.
 17. Synthetic data, the host-streaming loader, the epoch trace and the
    streaming monitor.  ``[stream]`` runs ``tools.stream`` on ``[serve]``'s
    seeded flagship checkpoint over a 60 s stream (58 windows of 48,000
@@ -2945,9 +2956,18 @@ def half_err(out: torch.Tensor, ref: torch.Tensor) -> float:
 
 def _half_work(name: str, b: int, t: int, d: int, h: int):
     """``_work`` of a bf16 form: the same products, each bf16 series 2
-    bytes a value (the float32 inputs, finals and weights 4)."""
-    flops = _work(name, b, t, d, h)[0]
+    bytes a value (the float32 inputs, finals and weights 4); the remat
+    pair's (rows 11n, 13: the chain's three products and the gates'
+    recompute, D + H and 2H deep) too."""
     tb = t * b
+    weights = 4 * (d * 4 * h + 3 * h * 4 * h + 2 * 4 * h)
+    if name == "lstm2_train_fwd_nogates":  # x, keep in; packed 2H, h0p, h1p, x1 out
+        return (2 * b * t * (d * 4 * h + 3 * h * 4 * h),
+                4 * tb * (d + h) + 2 * tb * 5 * h + weights + 4 * 4 * b * h)
+    if name == "lstm2_bwd_chain_remat":  # packed 2H, x, x1, h0p, h1p, keep in; dg out
+        return (2 * t * b * 4 * h * (3 * h + d + h + 2 * h),
+                2 * tb * (2 * h + d + 3 * h + 8 * h) + 4 * (tb * h + b * h) + weights)
+    flops = _work(name, b, t, d, h)[0]
     if name == "lstm2_train_fwd":  # x, keep in; packed 10H, h0p, h1p, x1 out
         nbytes = (4 * tb * (d + h) + 2 * tb * 13 * h
                   + 4 * (d * 4 * h + 3 * h * 4 * h + 2 * 4 * h + 4 * b * h))
@@ -2970,14 +2990,15 @@ def _half_work(name: str, b: int, t: int, d: int, h: int):
 
 
 def _same_rule(tag: str, what: str, out16: torch.Tensor, ref32: torch.Tensor,
-               facts: list) -> None:
+               facts: list, ulps_allowed: int = 1) -> None:
     """A bf16 form's output against the float32 form's rounded to bf16 on
-    the card: bit for bit, or within one bf16 ulp (where contraction
-    differs between the two instantiations), the count printed."""
+    the card: bit for bit, or within ``ulps_allowed`` bf16 ulps (one where
+    contraction differs between the two instantiations; none for the
+    remat pair's bf16 forms), the count printed."""
     ulps = bf16_ulps(out16, ref32.to(torch.bfloat16))
     worst, differ = int(ulps.max()), int((ulps > 0).sum())
     facts.append(f"{what} {'bit for bit' if not differ else f'{differ} of {ulps.numel()} differ, by <= {worst} ulp'}")
-    if worst > 1:
+    if worst > ulps_allowed:
         raise RuntimeError(f"{tag}: {what} is {worst} bf16 ulps from the float32 form's")
 
 
@@ -3231,6 +3252,206 @@ def phase_lstm1_res_bf16(lstm_kernel, flush):
     return kerns
 
 
+def phase_lstm2_remat_bf16(lstm_kernel, lstm_vjp, flush):
+    """``[lstm2_remat_bf16]``: rows 11n and 13's bf16 forms (the remat pair
+    with bf16 streams) at the flagship's training shape (B 32, T 372, D 64,
+    H 256, keep p 0.1).  The no-gates forward's finals bit for bit the
+    float32 no-gates form's and its series that form's rounded, bit for bit,
+    at B 32, 17 and 1; the remat chain over those streams (x cast to bf16)
+    against the float32 chain over them upcast, rounded, bit for bit, at B
+    32, 17, 1 and 128 (slices of the batch); both against their plain
+    versions (one bf16 ulp + 1e-6 of the largest entry); both timed beside
+    their float32 forms, row 12b (over row 11b's streams), cuDNN and the
+    plain versions; the whole recurrence gradient against the same route's
+    on the CPU, where the wrappers run the plain versions and round at the
+    same points (2e-3 of each largest entry, the bf16 streams' rule), and
+    further from the card's float32 remat gradient than that (the rounding
+    engaged); its peak memory beside the stored-gates bf16 route's, the
+    float32 remat route's and ``stack_residual_bytes``' figure."""
+    tag, bf16 = "lstm2_remat_bf16", torch.bfloat16
+    x_tm, keep, l0, l1 = _lstm_train_inputs(27)
+    t, b, d = x_tm.shape
+    h = l0["w_hh"].shape[0]
+    fwd, fwd_ref = lstm_kernel.lstm2_train_fwd_residuals, lstm_kernel.lstm2_train_fwd_reference
+    chain, chain_ref = lstm_kernel.lstm2_bwd_chain_remat, lstm_kernel.lstm2_bwd_chain_remat_reference
+    fwd16, chain16 = lstm_kernel.LSTM2_TRAIN_FWD_NOGATES_BF16, lstm_kernel.LSTM2_BWD_CHAIN_REMAT_BF16
+    series = ("packed", "h0_prev", "h1_prev", "x1")
+    facts, errs, abs_err = [], {}, {"fwd": 0.0, "chain": 0.0}
+
+    def chain_args(res, xs, ks, dh, w0, w1):
+        return (res[0], ks, xs.to(bf16), res[3], res[1], res[2], dh, w0, w1)
+
+    wide = _lstm_train_inputs(28, b=128)
+    for n in (32, 17, 1, 128):
+        xs, ks, w0, w1 = wide if n == 128 else (
+            x_tm[:, :n].contiguous(), keep[:, :n].contiguous(), l0, l1)
+        before = (fwd16.launches, chain16.launches)
+        o16 = fwd(xs, ks, w0, w1, store_gates=False, res_dtype=bf16)
+        o32 = fwd(xs, ks, w0, w1, store_gates=False)
+        torch.cuda.synchronize()
+        if not torch.equal(o16[4], o32[4]):
+            raise RuntimeError(f"{tag}: B={n}: the finals are not the float32 form's")
+        facts.append(f"B={n} finals bit for bit")
+        for name, a16, a32 in zip(series, o16, o32):
+            _same_rule(tag, f"B={n} {name}", a16, a32, facts, 0)
+        abs_err["fwd"] = max(abs_err["fwd"], _check_half_vs_plain(
+            f"{tag} B={n}", (*series, "finals"), o16,
+            fwd_ref(xs, ks, w0, w1, store_gates=False, res_dtype=bf16), errs))
+        del o32
+        dh = torch.from_numpy(np.random.RandomState(n).randn(n, h).astype(np.float32)).cuda()
+        args16 = chain_args(o16, xs, ks, dh, w0, w1)
+        d16 = chain(*args16)
+        torch.cuda.synchronize()
+        plan = lstm_kernel.chain_plan_on("lstm2_bwd_chain_remat", 4, h, n,
+                                         torch.device("cuda"), layers=2, remat_d=d)
+        launches = -(-n // (plan.batch_slice or n))
+        if (fwd16.launches - before[0], chain16.launches - before[1]) != (1, launches):
+            raise RuntimeError(f"{tag}: B={n}: the bf16 forms were not launched once "
+                               f"(the chain once a slice, {launches})")
+        d32 = chain(*(a.float() if torch.is_tensor(a) else a for a in args16))
+        for name, a16, a32 in zip(("dg0", "dg1"), d16, d32):
+            _same_rule(tag, f"B={n} {name}", a16, a32, facts, 0)
+        abs_err["chain"] = max(abs_err["chain"], _check_half_vs_plain(
+            f"{tag} B={n}", ("dg0", "dg1"), d16, chain_ref(*args16), errs))
+        if plan.batch_slice:
+            facts.append(f"B={n} the chain in {launches} launches of {plan.batch_slice} rows")
+        del o16, d16, d32, args16
+    del wide
+    print(f"[{tag}] T={t} D={d} H={h}: bf16 forms vs float32 forms on the card: "
+          f"{'; '.join(facts)}")
+    print(f"[{tag}] vs the plain versions (bf16 outputs within one bf16 ulp + 1e-6 "
+          "of the largest entry = 1, float32 within 1e-4 of the largest): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+
+    # each form in one call beside its float32 form, row 12b and cuDNN
+    dh = torch.from_numpy(np.random.RandomState(29).randn(b, h).astype(np.float32)).cuda()
+    res16 = fwd(x_tm, keep, l0, l1, store_gates=False, res_dtype=bf16)
+    args16 = chain_args(res16, x_tm, keep, dh, l0, l1)
+    args32 = tuple(a.float() if torch.is_tensor(a) else a for a in args16)
+    stored16 = fwd(x_tm, keep, l0, l1, res_dtype=bf16)
+    args12b = (stored16[0], keep, dh, l0["w_hh"], l1["w_hh"], l1["w_ih"])
+    lib = _cudnn_lstm(l0, l1)
+    x_bt = x_tm.transpose(0, 1).contiguous()
+    lib_params = list(lib.parameters())
+    h_lib = lib(x_bt)[1][0][-1]
+    times = {
+        "fwd_bf16": device_ms(lambda: fwd(x_tm, keep, l0, l1, store_gates=False,
+                                          res_dtype=bf16), flush),
+        "fwd_f32": device_ms(lambda: fwd(x_tm, keep, l0, l1, store_gates=False), flush),
+        "fwd_11b": device_ms(lambda: fwd(x_tm, keep, l0, l1, res_dtype=bf16), flush),
+        "chain_bf16": device_ms(lambda: chain(*args16), flush),
+        "chain_f32": device_ms(lambda: chain(*args32), flush),
+        "chain_12b": device_ms(lambda: lstm_kernel.lstm2_bwd_chain(*args12b), flush),
+        "fwd_plain": device_ms(lambda: fwd_ref(x_tm, keep, l0, l1, store_gates=False,
+                                               res_dtype=bf16), flush, reps=3),
+        "chain_plain": device_ms(lambda: chain_ref(*args16), flush, reps=3),
+        "fwd_library": device_ms(lambda: lib(x_bt), flush),
+        "chain_library": device_ms(
+            lambda: torch.autograd.grad(h_lib, lib_params, dh, retain_graph=True), flush),
+    }
+    del res16, args16, args32, stored16, args12b
+    kerns = []
+    for part, name, source, core, line, beside in (
+            ("fwd", "lstm2_train_fwd_nogates_bf16", "lstm2_train_fwd", "rnn2_fwd_chain.cuh",
+             2326, "11b"),
+            ("chain", "lstm2_bwd_chain_remat_bf16", "lstm2_bwd_chain_remat",
+             "rnn2_bwd_chain.cuh", 2751, "12b")):
+        flops, nbytes = _half_work(name.removesuffix("_bf16"), b, t, d, h)
+        bound_ms, bound_by = bound(flops, nbytes)
+        ms, f32_ms = times[f"{part}_bf16"], times[f"{part}_f32"]
+        other = times["fwd_11b" if part == "fwd" else "chain_12b"]
+        print(f"[{tag}] {name} {ms:.4f} ms, its float32 form {f32_ms:.4f} ms "
+              f"({100 * (ms / f32_ms - 1):+.1f}%), row {beside} {other:.4f} ms, "
+              f"{1e3 * ms / (t + 1):.3f} us per phase; plain {times[f'{part}_plain']:.4f} "
+              f"ms, cuDNN {'training forward' if part == 'fwd' else 'backward of h_n'} at "
+              f"keep=1 {times[f'{part}_library']:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+        kerns.append({"name": name, "route": "cuda", "source": f"{CSRC}{source}.cu",
+                      "core": CSRC + core,
+                      "replaces": f"multimodal_emotion_detection_tpu/ops/lstm_kernel.py:{line}",
+                      "max_abs_err": abs_err[part], "ms": ms,
+                      "plain_ms": times[f"{part}_plain"], "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": times[f"{part}_library"],
+                      "f32_ms": f32_ms})
+
+    # the whole recurrence gradient: fused_lstm_final with both overrides
+    # against autograd through the plain float32 forward, and its peak
+    # memory beside the routes it stands between
+    weight = torch.from_numpy(np.random.RandomState(30).randn(b, h).astype(np.float32)).cuda()
+
+    def grads(remat, dtype, device="cuda"):
+        dev = torch.device(device)
+        xg = x_bt.detach().clone().to(dev).requires_grad_()
+        p0, p1 = ({k: v.detach().clone().to(dev).requires_grad_() for k, v in p.items()}
+                  for p in (l0, l1))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        out = lstm_vjp.fused_lstm_final(xg, keep[:, None].to(dev), (p0, p1),
+                                        remat_gates=remat, res_dtype=dtype)
+        (out * weight.to(dev)).sum().backward()
+        peak = 0
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+        return (out.detach().cpu(),
+                [g.grad.cpu() for g in (xg, *p0.values(), *p1.values())], peak)
+
+    grads(True, "bfloat16")  # the first call's one-time allocations (cuBLAS's workspace)
+    before = {k: c.launches for k, c in (("fwd", fwd16), ("chain", chain16))}
+    h16, ours, peak16 = grads(True, "bfloat16")
+    if (fwd16.launches - before["fwd"], chain16.launches - before["chain"]) != (1, 1):
+        raise RuntimeError(f"{tag}: the whole gradient did not launch each bf16 form once")
+    h32, ours32, peak32 = grads(True, "float32")
+    _, _, peak_stored = grads(False, "bfloat16")
+    _, plain, _ = grads(True, "bfloat16", "cpu")
+
+    def dist(a, b):
+        return max(float((g - r).abs().max()) / float(r.abs().max()) for g, r in zip(a, b))
+
+    gap, engaged = dist(ours, plain), dist(ours, ours32)
+    keep_bytes = keep.numel() * keep.element_size()
+    figure = {k: lstm_vjp.stack_residual_bytes("lstm", 2, h, d, b, t, "pair", *k) - keep_bytes
+              for k in ((True, "bfloat16"), (False, "bfloat16"), (True, "float32"))}
+    print(f"[{tag}] whole recurrence gradient, remat + bf16 streams: forward value bit "
+          f"for bit the float32 remat route's: {torch.equal(h16, h32)}; gradients vs "
+          f"the CPU's (plain versions) {gap:.3e} of each largest entry (bound 2e-3), vs "
+          f"the card's float32 remat route {engaged:.3e} (must exceed the first); peak {peak16 / 1e6:.2f} MB above the inputs (the budget's "
+          f"figure {figure[(True, 'bfloat16')] / 1e6:.2f} MB, "
+          f"{peak16 / figure[(True, 'bfloat16')]:.3f}x), the stored-gates bf16 route "
+          f"{peak_stored / 1e6:.2f} MB (figure {figure[(False, 'bfloat16')] / 1e6:.2f}), "
+          f"the float32 remat route {peak32 / 1e6:.2f} MB (figure "
+          f"{figure[(True, 'float32')] / 1e6:.2f})")
+    # the bias gradients' row sums over the (T B, 4H) float32 dgates: the
+    # route's product with a ones row against torch's sum over the rows
+    dgf = torch.randn(t * b, 4 * h, device="cuda")
+    transient = {}
+    for name, fn in (("sum(0)", lambda: dgf.sum(0)), ("row_sums", lambda: lstm_vjp._row_sums(dgf))):
+        fn()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        transient[name] = torch.cuda.max_memory_allocated() - base
+    print(f"[{tag}] a bias gradient's row sums over ({t * b}, {4 * h}) float32 dgates "
+          f"({dgf.numel() * 4 / 1e6:.2f} MB): torch's sum(0) holds {transient['sum(0)'] / 1e6:.2f} "
+          f"MB above its input, the route's product with a ones row "
+          f"{transient['row_sums'] / 1e6:.2f} MB")
+    del dgf
+    if not torch.equal(h16, h32) or not gap < 2e-3 or not engaged > gap:
+        raise RuntimeError(f"{tag}: the whole gradient disagrees with the plain version")
+    # the route keeps the least of the three, as its figure says, and its
+    # figure (the long-sequence budget check's) under-counts by at most 15%
+    if not (peak16 < peak_stored and peak16 < peak32
+            and figure[(True, "bfloat16")] < min(figure[(False, "bfloat16")],
+                                                 figure[(True, "float32")])
+            and peak16 <= 1.15 * figure[(True, "bfloat16")]):
+        raise RuntimeError(f"{tag}: the peak memory does not order as the budget's figures")
+    return kerns
+
+
 def _write_split(root: Path, split: str, n: int, seed: int) -> None:
     d = root / split
     d.mkdir(parents=True, exist_ok=True)
@@ -3253,7 +3474,8 @@ def phase_train(counters, tag: str, model_overrides, expected_fn,
                 check_clips: int = 0, reps: int = 60, profile_reps: int = 10,
                 config: str = "base.yaml", artifacts=TRAIN_ARTIFACTS,
                 kinked: bool = False, grad_bound: float = 1e-4,
-                contrast_f32: bool = False, half_encoders: bool = False):
+                contrast_f32: bool = False, half_encoders: bool = False,
+                contrast_stored: bool = False):
     """The train CLI with ``configs/<config>`` for 2 epochs on synthetic 96
     / 64 / 64 clip splits at batch 32, from the work directory (relative
     outputs land there), with the launch counts checked
@@ -3264,7 +3486,9 @@ def phase_train(counters, tag: str, model_overrides, expected_fn,
     ``grad_bound`` of the largest, and with ``contrast_f32`` (bf16 residual
     streams) the card step with float32 streams on the same batch and masks
     differing from it by more than three times that card-vs-CPU gap (the
-    rounding engaged), and with ``half_encoders`` (bf16 encoders)
+    rounding engaged), with ``contrast_stored`` (the remat pair) the card
+    step with the gates stored on the same batch and masks further from it
+    than that gap (the recompute engaged), and with ``half_encoders`` (bf16 encoders)
     ``half_step_check`` instead of the float32 bound; the train step's
     latency over ``reps`` steps and its profile over ``profile_reps``.  Returns ``(launches, run directory,
     overrides)``."""
@@ -3345,6 +3569,8 @@ def phase_train(counters, tag: str, model_overrides, expected_fn,
         gap = _step_check(tag, cfg, sides["card"], sides["cpu"], rows, grad_bound)
         if contrast_f32:
             _contrast_f32(tag, cfg, model, train_loader, rows, step_kw, sides, gap)
+        if contrast_stored:
+            _contrast_stored(tag, cfg, model, train_loader, rows, step_kw, sides, gap)
 
     _step_latency(tag, cfg, model, train_loader, step_kw, reps, profile_reps)
     return launches, run_dir, overrides
@@ -3391,6 +3617,37 @@ def _contrast_f32(tag: str, cfg, model, loader, rows: int, step_kw, sides,
           f"card-vs-CPU gap {gap:.3e} (must exceed 3x: the bf16 rounding engaged)")
     if not diff[worst] > 3 * gap:
         raise RuntimeError(f"{tag}: the bf16 step is not told apart from the float32 one")
+
+
+def _contrast_stored(tag: str, cfg, model, loader, rows: int, step_kw, sides,
+                     gap: float) -> None:
+    """The card step of ``model`` with the gates stored (the pair route
+    without ``remat_gates``, as ``[train_fast]`` steps) on the same batch
+    and masks as ``sides``' card step (the remat route): the stored route's
+    bf16 gates against the recomputed float32 ones move the gradients by
+    more than ``gap``, the card-vs-CPU gradient error, or the recompute did
+    not engage."""
+    import copy
+
+    from multimodal_emotion_detection_tpu_torch.models.recurrent import FusedStackedRNN
+
+    stored = copy.deepcopy(model)
+    for module in stored.modules():
+        if isinstance(module, FusedStackedRNN):
+            module.remat_gates = False
+    card_s = _step_sides(cfg, stored, loader, rows, step_kw, with_cpu=False)["card"]
+    card, cpu = sides["card"], sides["cpu"]
+    g_max = max(float(g.abs().max()) for g in cpu["grads"].values())
+    diff = {k: float((card["grads"][k] - g).abs().max()) / g_max
+            for k, g in card_s["grads"].items()}
+    worst = max(diff, key=diff.get)
+    print(f"[{tag}] the card step with the gates stored ([train_fast]'s route) on the "
+          f"same batch and masks: loss {card_s['loss']:.6f} vs {card['loss']:.6f}; "
+          f"gradients differ by {diff[worst]:.3e} of the largest ({worst}), "
+          f"{diff[worst] / gap:.1f}x the card-vs-CPU gap {gap:.3e} (must exceed 1x: the "
+          "recompute engaged)")
+    if not diff[worst] > gap:
+        raise RuntimeError(f"{tag}: the remat step is not told apart from the stored one")
 
 
 def _step_sides(cfg, model, loader, rows: int, step_kw, f64: bool = False,
@@ -4514,6 +4771,8 @@ MAIN_PATH = {"logmel": "train", "lstm2_infer": "train", "lstm2_train_fwd": "trai
              "gru2_train_fwd_bf16": "train_gru_fast", "gru2_bwd_chain_bf16": "train_gru_fast",
              "lstm1_train_fwd_bf16": "train_big_fast",
              "lstm_bwd_chain_bf16": "train_big_fast",
+             "lstm2_train_fwd_nogates_bf16": "train_fast_remat",
+             "lstm2_bwd_chain_remat_bf16": "train_fast_remat",
              "flash_fwd_bf16": "train_tf_bf16", "flash_bwd_fused_bf16": "train_tf_bf16",
              "flash_bwd_dkv_bf16": "flash_long_bf16", "flash_bwd_dq_bf16": "flash_long_bf16"}
 
@@ -4594,6 +4853,8 @@ def main() -> None:
                 "gru2_bwd_chain_bf16": lstm_kernel.GRU2_BWD_CHAIN_BF16,
                 "lstm1_train_fwd_bf16": lstm_kernel.LSTM1_TRAIN_FWD_BF16,
                 "lstm_bwd_chain_bf16": lstm_kernel.LSTM_BWD_CHAIN_BF16,
+                "lstm2_train_fwd_nogates_bf16": lstm_kernel.LSTM2_TRAIN_FWD_NOGATES_BF16,
+                "lstm2_bwd_chain_remat_bf16": lstm_kernel.LSTM2_BWD_CHAIN_REMAT_BF16,
                 "flash_fwd_bf16": fa.FLASH_FWD_BF16,
                 "flash_bwd_fused_bf16": fa.FLASH_BWD_FUSED_BF16,
                 "flash_bwd_dkv_bf16": fa.FLASH_BWD_DKV_BF16,
@@ -4667,7 +4928,9 @@ def _run_phases(counters, pending, card_name: str, t_start: float) -> None:
     for phase in (phase_lstm2_res_bf16, phase_gru2_res_bf16, phase_lstm1_res_bf16):
         kernels.update({k["name"]: k for k in timed(
             phase, lstm_kernel, flush, name=phase.__name__[len("phase_"):])})
-    print(f"[time] lstm2_res_bf16, gru2_res_bf16, lstm1_res_bf16: "
+    kernels.update({k["name"]: k for k in timed(
+        phase_lstm2_remat_bf16, lstm_kernel, lstm_vjp, flush, name="lstm2_remat_bf16")})
+    print(f"[time] lstm2_res_bf16, gru2_res_bf16, lstm1_res_bf16, lstm2_remat_bf16: "
           f"{time.perf_counter() - t_half:.1f} s")
     del flush
 
@@ -4807,6 +5070,24 @@ def _run_phases(counters, pending, card_name: str, t_start: float) -> None:
           f"[train_hybrid] (float32 streams, log-mel in the step) in the same call: p50 "
           f"{p50_h:.4f} ms, busy {100 * busy_h if busy_h else float('nan'):.1f}%, peak "
           f"{peak_h:.4f} GB")
+    # the same with the gates rematerialised: the remat pair's bf16 forms
+    # per step and never a float32 or stored-gates pair; the card step also
+    # beside [train_fast]'s on the same batch and masks
+    by_path["train_fast_remat"], fast_remat_run, fast_remat_overrides = timed(phase_train,
+        counters, "train_fast_remat", ["runtime.lstm_remat_gates=true"],
+        lambda steps, evals: {"logmel": cached, "lstm2_infer": evals,
+                              "lstm2_train_fwd_nogates_bf16": steps,
+                              "lstm2_bwd_chain_remat_bf16": steps},
+        config="fast.yaml", grad_bound=1e-3, contrast_f32=True, contrast_stored=True,
+        **fusion)
+    by_path["serve_fast_remat"] = timed(serve_path,
+        "serve_fast_remat", counters, served, fast_remat_run / "best.ckpt",
+        fast_remat_overrides, test_audio, test_video, WORK / "predictions_fast_remat",
+        config="fast.yaml")
+    (p50_r, busy_r, peak_r) = STEPS["train_fast_remat"]
+    print(f"[train_fast_remat] train step p50 {p50_r:.4f} ms, device busy "
+          f"{100 * busy_r if busy_r else float('nan'):.1f}%, peak allocated {peak_r:.4f} GB "
+          f"([train_fast] {p50:.4f} ms, {peak:.4f} GB in the same call)")
     # the whole batch on both sides: at 4 clips the GRU's card-vs-CPU gap
     # (bf16 rounding the two sides' ~1e-7 apart float32 values to other
     # ulps, averaged over 4 clips) reaches 1e-4 of the largest gradient,
@@ -4822,7 +5103,8 @@ def _run_phases(counters, pending, card_name: str, t_start: float) -> None:
         lambda steps, evals: {"logmel": cached, "lstm1_train_fwd_bf16": 3 * steps,
                               "lstm_bwd_chain_bf16": 3 * steps, "lstm1_infer": 3 * evals},
         **half_paths)[0]
-    print(f"[time] train_fast, serve_fast, train_gru_fast, train_big_fast: "
+    print(f"[time] train_fast, serve_fast, train_fast_remat, serve_fast_remat, "
+          f"train_gru_fast, train_big_fast: "
           f"{time.perf_counter() - t_fast:.1f} s")
     by_path["train_big"], big_run, big_overrides = timed(phase_train,
         counters, "train_big", BIG,

@@ -19,12 +19,15 @@
 //              (B, 2H) = [c0_prev | c1_prev]
 //   h0p[t], h1p[t] (B, H) = the state BEFORE step t;  x1[t] (B, H)
 //   finals (4, B, H) = [h0, c0, h1, c1] after step T-1.
-// Its bf16 form (lstm2_train_fwd_bf16_launch, the JAX kernel's res_dtype
+// Its bf16 forms (lstm2_train_fwd_bf16_launch and, without the gates,
+// lstm2_train_fwd_nogates_bf16_launch: the JAX kernel's res_dtype
 // bfloat16, ops/lstm_kernel.py::lstm2_train_fwd_residuals with res_dtype
-// torch.bfloat16) stores packed, h0p, h1p and x1 in bf16, each rounded to
-// nearest even from the float32 value above, and keeps finals float32;
-// its CTAs exchange h through float32 h0p / h1p / x1 scratch the wrapper
-// allocates beside them, so its finals are the float32 form's bit for bit.
+// torch.bfloat16) store packed, h0p, h1p and x1 in bf16, each rounded to
+// nearest even from the float32 value above, and keep finals float32;
+// their CTAs exchange h through float32 h0p / h1p / x1 scratch the wrapper
+// allocates beside them, so their finals are the float32 forms' bit for
+// bit (the no-gates bf16 form, for the remat chain's bf16 form, stores ~49
+// MB at the flagship shape; its bound stays the float32 products').
 // The older layout (the JAX package's lstm2_train_fwd_pallas) is
 // lstm2_train_fwd_legacy.cu, the same core with the legacy cell.
 //
@@ -108,21 +111,38 @@ extern "C" int lstm2_train_fwd_bf16_launch(
                                            packed16, h0p16, h1p16, x116);
 }
 
+// bf16 form without the gates: packed16 (T, B, 2H) = [c0_prev | c1_prev],
+// h0p16, h1p16, x116 (T, B, H) bf16; the float32 exchange (scratch) as the
+// bf16 form's
+extern "C" int lstm2_train_fwd_nogates_bf16_launch(
+    const float* ih0, const float* keep, const float* w_hh0, const float* w_ih1,
+    const float* b1, const float* w_hh1, rnn_chain::bf16* packed16,
+    rnn_chain::bf16* h0p16, rnn_chain::bf16* h1p16, rnn_chain::bf16* x116, float* h0p,
+    float* h1p, float* x1, float* finals, float* carry, unsigned* flags, int batch,
+    int t_len, int hidden, int upc, int ncl, int rgroups, int kc, void* stream) {
+  return launch_form<rnn2_fwd::LstmNoGatesCell16>(
+      ih0, keep, w_hh0, w_ih1, b1, w_hh1, nullptr, h0p, h1p, x1, finals, carry, flags,
+      batch, t_len, hidden, upc, ncl, rgroups, kc, stream, packed16, h0p16, h1p16, x116);
+}
+
 // the plan is cached per source, so it answers for every form: the fewest
-// clusters of the three
+// clusters of the four
 extern "C" int lstm2_train_fwd_max_clusters(int hidden, int upc, int ncl, int rgroups,
                                             int kc, int* count) {
-  int stored = 0, nogates = 0, half = 0;
+  int forms[4] = {0, 0, 0, 0};
   int err = rnn2_fwd::max_clusters<rnn2_fwd::LstmCell, true>(hidden, upc, ncl, rgroups,
-                                                             kc, &stored);
+                                                             kc, &forms[0]);
   if (err != cudaSuccess) return err;
   err = rnn2_fwd::max_clusters<rnn2_fwd::LstmNoGatesCell, true>(hidden, upc, ncl,
-                                                                rgroups, kc, &nogates);
+                                                                rgroups, kc, &forms[1]);
   if (err != cudaSuccess) return err;
   err = rnn2_fwd::max_clusters<rnn2_fwd::LstmCell16, true>(hidden, upc, ncl, rgroups,
-                                                           kc, &half);
-  *count = stored < nogates ? stored : nogates;
-  *count = half < *count ? half : *count;
+                                                           kc, &forms[2]);
+  if (err != cudaSuccess) return err;
+  err = rnn2_fwd::max_clusters<rnn2_fwd::LstmNoGatesCell16, true>(hidden, upc, ncl,
+                                                                  rgroups, kc, &forms[3]);
+  *count = forms[0];
+  for (int i = 1; i < 4; ++i) *count = forms[i] < *count ? forms[i] : *count;
   return err;
 }
 

@@ -4,7 +4,7 @@
 // GruLegacyCell (the legacy layout's rows, dys, the full dhh),
 // lstm2_bwd_chain_legacy.cu with LstmLegacyCell (dys, the 8H rows [dg0 |
 // dg1]) and lstm2_bwd_chain_remat.cu with LstmRematCell (the gates
-// recomputed ahead of the chain in blocks of steps, GateBlocks).
+// recomputed ahead of the chain in blocks of steps, GateBlocksT).
 //
 // Both layers' reverse chains walk t = T-1 .. 0.  Layer 1's step needs
 //
@@ -58,7 +58,9 @@
 //   T + 1 phases on the critical path.
 //
 // The bf16 forms (a cell of storage type bf16, rnn_chain_common.cuh:
-// lstm2_bwd_chain.cu's LstmCell16, gru2_bwd_chain.cu's GruCell16) read the
+// lstm2_bwd_chain.cu's LstmCell16, gru2_bwd_chain.cu's GruCell16,
+// lstm2_bwd_chain_remat.cu's LstmRematCell16, which also stages its gate
+// inputs x, x1, h0p and h1p in bf16 and reads them into float32) read the
 // residuals stored in bf16 (res16, the GRU's prev16) into float32 and write
 // the chain outputs in bf16 too (out16, the GRU's out_n16), each rounded
 // from the float32 value the float32 form writes.  Their exchange stays
@@ -68,7 +70,8 @@
 // follow set reads, a step behind its writes); so the chain is the float32
 // form's over the same inputs.
 //
-// Any B >= 1; H % 4 == 0 with 2 H / UPC <= the SM count.  Built with
+// Any B >= 1; H % 4 == 0 (the remat cell's bf16 form H % 8 == 0) with
+// 2 H / UPC <= the SM count.  Built with
 // -DRNN_CHAIN_TIMERS=1 each warp splits its steps into the buckets of
 // rnn_timers.cuh.
 
@@ -128,6 +131,10 @@ struct Args {
   const bf16* prev16[2];
   bf16* out16[2];
   bf16* out_n16[2];
+  // LstmRematCell16: the gate inputs in bf16, in place of xin and hin (din
+  // a multiple of 8)
+  const bf16* xin16[2];
+  const bf16* hin16[2];
 };
 
 // the row of layer l's exchanged series that holds step t's: the series'
@@ -156,20 +163,24 @@ __host__ __device__ inline int smem_floats(int width, int hidden, int upc,
 // units, 4U gate columns, over the rows of its row group padded to whole
 // passes (bgp) for rk steps, M = rk bgp rows, twice (the block in use and
 // the one being formed); a piece of kin = din + H deep products (kp deep,
-// a multiple of 4): its M input rows (stride ldi = 4 mod 8, so the four
-// rows of a thread's tile fall in distinct banks) and kp weight rows; and
-// the copies' transaction barrier (4 floats, 8-byte aligned).
+// a whole number of 16-byte pieces of its inputs: a multiple of 4, in the
+// bf16 form (half) of 8): its M input rows (stride ldi floats = 4 mod 8,
+// so the four rows of a thread's tile fall in distinct banks; the bf16
+// form's rows take kp / 2 of them, so its blocks never need more than the
+// float32 form's where kp is the same) and kp weight rows; and the copies'
+// transaction barrier (4 floats, 8-byte aligned).
 struct GateGeom {
   int n, bgp, m, kin, kp, ldi, pieces;
   __host__ __device__ GateGeom(int hidden, int upc, int rgroups, int batch, int din,
-                               int rk) {
+                               int rk, bool half = false) {
+    const int vec = half ? 8 : 4;
     n = 4 * upc * rgroups;
     const int bg = (batch + rgroups - 1) / rgroups;
     bgp = (bg + PH - 1) / PH * PH;
     m = rk * bgp;
     kin = din + hidden;
-    kp = ((kin + rk - 1) / rk + 3) / 4 * 4;
-    ldi = (kp + 7) / 8 * 8 + 4;
+    kp = ((kin + rk - 1) / rk + vec - 1) / vec * vec;
+    ldi = ((half ? kp / 2 : kp) + 7) / 8 * 8 + 4;
     pieces = (kin + kp - 1) / kp;
   }
   __host__ __device__ int floats() const { return 2 * m * n + m * ldi + kp * n + 4; }
@@ -181,14 +192,14 @@ struct GateGeom {
 // larger of the two sets.
 __host__ __device__ inline int remat_smem_floats(int hidden, int upc, int ncl,
                                                  int rgroups, int kc, int batch,
-                                                 int d_in, int rk) {
+                                                 int d_in, int rk, bool half) {
   const int nu = upc * ncl * rgroups;
   const int own4 = 4 * hidden / 4;
   const int follow = smem_floats(4, hidden, upc, ncl, rgroups, kc);
   const int lead = follow - nu * (round32(4 * ((2 * own4 + ncl - 1) / ncl)) -
                                   round32(4 * ((own4 + ncl - 1) / ncl)));
-  const int g0 = GateGeom(hidden, upc, rgroups, batch, d_in, rk).floats();
-  const int g1 = GateGeom(hidden, upc, rgroups, batch, hidden, rk).floats();
+  const int g0 = GateGeom(hidden, upc, rgroups, batch, d_in, rk, half).floats();
+  const int g1 = GateGeom(hidden, upc, rgroups, batch, hidden, rk, half).floats();
   return max(follow + g0, lead + g1);
 }
 
@@ -212,29 +223,39 @@ __host__ __device__ inline int remat_smem_floats(int hidden, int upc, int ncl,
 // grows with T.  A thread forms 4 rows x 4 gate columns a tile, the
 // warp's lanes on neighbouring columns; the bias starts each block's
 // sums.
-struct GateBlocks {
+// The bf16 form (S = bf16, LstmRematCell16) stages the bf16 input rows
+// as they are stored, 8 values a 16-byte piece, and reads them into
+// float32 where it forms the products: the same float32 FMAs over the
+// float32 weights in the same order, so where both forms cut the depth
+// into the same pieces (kp a multiple of 8) its gates are the float32
+// form's over the same inputs upcast, bit for bit.
+template <class S>
+struct GateBlocksT {
+  static constexpr bool kHalf = kHalfStore<S>;
+  static constexpr int kVec = 16 / (int)sizeof(S);  // input values a 16-byte piece
   GateGeom geo;
   float* buf;         // 2 x m x n: block b at (b & 1)
-  float* in;          // m x ldi: a piece's input rows
+  S* in;              // m rows of ldi floats: a piece's input rows
   float* w;           // kp x n: a piece's weight rows
   unsigned long long* bar;  // the copies' transaction barrier
-  const float* x;     // (T, ld, din)
-  const float* h;     // (T, ld, H)
+  const S* x;         // (T, ld, din)
+  const S* h;         // (T, ld, H)
   const float* wg;    // this CTA's unit block: kin x n
   const float* bias;  // (4H)
-  int din, hidden, ld, t_len, rk, gb0, gb1, units, j0;
+  int din, hidden, ld, t_len, rk, gb0, gb1, units, j0, ldin;
 
-  __device__ GateBlocks(const Args& a, int layer, float* base, int j0, int gb0_,
-                        int gb1_)
-      : geo(a.hidden, a.upc, a.rgroups, a.batch, layer == 0 ? a.d_in : a.hidden, a.rk) {
+  __device__ GateBlocksT(const Args& a, int layer, float* base, int j0, int gb0_,
+                         int gb1_)
+      : geo(a.hidden, a.upc, a.rgroups, a.batch, layer == 0 ? a.d_in : a.hidden, a.rk,
+            kHalf) {
     const int U = a.upc * a.rgroups;
     buf = base;
-    in = buf + 2 * geo.m * geo.n;
-    w = in + geo.m * geo.ldi;
+    in = reinterpret_cast<S*>(buf + 2 * geo.m * geo.n);
+    w = buf + 2 * geo.m * geo.n + geo.m * geo.ldi;
     bar = reinterpret_cast<unsigned long long*>(
         (reinterpret_cast<size_t>(w + geo.kp * geo.n) + 7) & ~(size_t)7);
-    x = of_layer(a.xin, layer);
-    h = of_layer(a.hin, layer);
+    x = res_of<S>(of_layer(a.xin, layer), of_layer(a.xin16, layer));
+    h = res_of<S>(of_layer(a.hin, layer), of_layer(a.hin16, layer));
     wg = of_layer(a.wg, layer) + (size_t)(j0 / U) * geo.kin * geo.n;
     bias = of_layer(a.bg, layer);
     din = geo.kin - a.hidden;
@@ -246,6 +267,7 @@ struct GateBlocks {
     gb1 = gb1_;
     units = U;
     this->j0 = j0;
+    ldin = geo.ldi * (4 / (int)sizeof(S));  // a staged row's stride in values
   }
   // whether block blk holds a step
   __device__ bool live(int blk) const { return blk * rk < t_len; }
@@ -255,26 +277,45 @@ struct GateBlocks {
   // segments), copy c by warp first_warp + c % nw, lane c / nw.  Called
   // after a CTA barrier that ends the slot's reads.
   __device__ void stage(int p, int blk, int first_warp) const {
+    constexpr unsigned es = sizeof(S);
     const int k0 = p * geo.kp, kn = min(geo.kp, geo.kin - k0);
     const int rows = gb1 - gb0, steps = min(rk, t_len - blk * rk);
     const int nw = NT / 32 - first_warp, wi = (int)threadIdx.x / 32 - first_warp;
     if (wi < 0) return;
     const int lane = threadIdx.x % 32;
     if (wi == 0 && lane == 0) {
-      mbar_expect(bar, 4u * kn * (geo.n + steps * rows));
+      mbar_expect(bar, 4u * kn * geo.n + es * kn * steps * rows);
       bulk_copy(w, wg + (size_t)k0 * geo.n, 4u * kn * geo.n, bar);
     }
     for (int c = wi + nw * lane; c < 1 + steps * rows; c += nw * 32) {
       if (c == 0) continue;
       const int si = (c - 1) / rows, r = (c - 1) % rows;
       const size_t row = (size_t)(t_len - 1 - blk * rk - si) * ld + gb0 + r;
-      float* dst = in + (si * geo.bgp + r) * geo.ldi;
-      const int kx = min(k0 + kn, din) - k0;  // the x segment's floats
-      if (kx > 0) bulk_copy(dst, x + row * din + k0, 4u * kx, bar);
+      S* dst = in + (si * geo.bgp + r) * ldin;
+      const int kx = min(k0 + kn, din) - k0;  // the x segment's values
+      if (kx > 0) bulk_copy(dst, x + row * din + k0, es * kx, bar);
       if (kx < kn) {
         const int kh = max(0, kx);
-        bulk_copy(dst + kh, h + row * hidden + (k0 + kh - din), 4u * (kn - kh), bar);
+        bulk_copy(dst + kh, h + row * hidden + (k0 + kh - din), es * (kn - kh), bar);
       }
+    }
+  }
+  // input values k .. k + kVec - 1 of staged row xr, as float32
+  __device__ static void inputs(const S* xr, int k, float (&v)[kVec]) {
+    if constexpr (kHalf) {
+      const uint4 u = *reinterpret_cast<const uint4*>(xr + k);
+      const unsigned q[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        v[2 * i] = __uint_as_float(q[i] << 16);
+        v[2 * i + 1] = __uint_as_float(q[i] & 0xffff0000u);
+      }
+    } else {
+      const float4 f = *reinterpret_cast<const float4*>(xr + k);
+      v[0] = f.x;
+      v[1] = f.y;
+      v[2] = f.z;
+      v[3] = f.w;
     }
   }
   // add piece p (staged, visible to the CTA) into block blk's gates; piece
@@ -298,18 +339,18 @@ struct GateBlocks {
           for (int r = 0; r < 4; ++r) acc[r][c] = b;
         }
       }
-      const float* xr = in + 4 * rt * geo.ldi;
+      const S* xr = in + 4 * rt * ldin;
       const float* wc = w + 4 * ct;
-      for (int k = 0; k < kn; k += 4) {
-        float4 xv[4];
+      for (int k = 0; k < kn; k += kVec) {
+        float xv[4][kVec];
 #pragma unroll
-        for (int r = 0; r < 4; ++r) xv[r] = *reinterpret_cast<const float4*>(xr + r * geo.ldi + k);
+        for (int r = 0; r < 4; ++r) inputs(xr + r * ldin, k, xv[r]);
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
+        for (int kk = 0; kk < kVec; ++kk) {
           const float4 wv = *reinterpret_cast<const float4*>(wc + (k + kk) * geo.n);
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
-            const float xs = kk == 0 ? xv[r].x : kk == 1 ? xv[r].y : kk == 2 ? xv[r].z : xv[r].w;
+            const float xs = xv[r][kk];
             acc[r][0] = fmaf(xs, wv.x, acc[r][0]);
             acc[r][1] = fmaf(xs, wv.y, acc[r][1]);
             acc[r][2] = fmaf(xs, wv.z, acc[r][2]);
@@ -338,8 +379,9 @@ struct GateBlocks {
   }
 };
 
-// what the other cells keep of GateBlocks: nothing
+// what the other cells keep of the gate blocks: nothing
 struct NoGates {
+  static constexpr bool kHalf = false;
   __device__ NoGates(const Args&, int, float*, int, int, int) {}
 };
 
@@ -348,6 +390,7 @@ struct NoGates {
 // the feed layer 1's dih; the carry is the direct part dh_t z.
 template <class S>
 struct GruCellT {
+  using Gates = NoGates;
   static constexpr int kWidth = 3;
   static constexpr bool kRemat = false;
   struct Res {
@@ -409,6 +452,7 @@ using GruCell16 = GruCellT<bf16>;
 // holds it across the products.
 template <class S>
 struct LstmCellT {
+  using Gates = NoGates;
   static constexpr int kWidth = 4;
   static constexpr bool kRemat = false;
   struct Res {
@@ -455,16 +499,22 @@ using LstmCell = LstmCellT<float>;
 using LstmCell16 = LstmCellT<bf16>;
 
 // LstmCell over the no-gates residuals: packed (T, B, 2H) = [c0_prev |
-// c1_prev]; the gates are not read but recomputed (GateBlocks, which the
+// c1_prev]; the gates are not read but recomputed (GateBlocksT, which the
 // core fills into Res::g after load).  Rows of the series are ld apart, so
 // a launch may take a slice of the batch (the wrapper's, where the gate
-// blocks of the whole batch do not fit).
-struct LstmRematCell : LstmCell {
+// blocks of the whole batch do not fit).  The bf16 form (S = bf16,
+// LstmRematCell16) reads packed and the gate inputs in bf16 and writes dg
+// in bf16 (out16) beside the float32 exchange, layer 0's in two slots as
+// LstmCell16's, each slot and the outputs ld rows a step.
+template <class S>
+struct LstmRematCellT : LstmCellT<S> {
+  using Res = typename LstmCellT<S>::Res;
+  using Gates = GateBlocksT<S>;
   static constexpr bool kRemat = true;
   __device__ static void load(const Args& a, int layer, int t, int b, int j, Res& r) {
     const int H = a.hidden;
     const size_t row = (size_t)t * a.ld + b;
-    r.cp = __ldg(a.res + row * 2 * H + H * layer + j);
+    r.cp = ld_res(res_of<S>(a.res, a.res16) + row * 2 * H + H * layer + j);
     r.keep = layer == 0 ? __ldg(a.keep + row * H + j) : 0.0f;
     r.carry = a.carry[((size_t)layer * a.batch + b) * H + j];
   }
@@ -474,16 +524,26 @@ struct LstmRematCell : LstmCell {
     const size_t o = ((size_t)layer * a.batch + b) * H + j;
     float dh = own + r.keep * feed;
     if (layer == 1 && t == a.t_len - 1) dh += __ldg(a.dh_final + (size_t)b * H + j);
-    a.carry[o] = rnn_bwd::lstm_cell_bwd(
-        r.g, r.cp, dh, r.carry, of_layer(a.out, layer) + ((size_t)t * a.ld + b) * 4 * H + j,
-        H);
+    float d[4];
+    a.carry[o] = rnn_bwd::lstm_cell_bwd(r.g, r.cp, dh, r.carry, d);
+    float* out = of_layer(a.out, layer) + (ex_row<S>(layer, t) * a.ld + b) * 4 * H + j;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) out[i * H] = d[i];
+    if constexpr (kHalfStore<S>) {
+      bf16* out16 = of_layer(a.out16, layer) + ((size_t)t * a.ld + b) * 4 * H + j;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) st_res(out16 + i * H, d[i]);
+    }
   }
   __device__ static const float* src(const Args& a, int layer, int seg, int t, int b,
                                      int c) {
-    const size_t row = (size_t)t * a.ld + b;
-    return (seg == 1 ? a.out[1] : of_layer(a.out, layer)) + row * 4 * a.hidden + 4 * c;
+    const int l = seg == 1 ? 1 : layer;
+    return of_layer(a.out, l) + (ex_row<S>(l, t) * a.ld + b) * 4 * a.hidden + 4 * c;
   }
 };
+
+using LstmRematCell = LstmRematCellT<float>;
+using LstmRematCell16 = LstmRematCellT<bf16>;
 
 // LstmCell over the legacy layout: the wrapper packs the legacy series
 // [g0 | g1 | c0_prev | c1_prev] into row 12's (T, B, 10H) rows, which the
@@ -627,7 +687,7 @@ __global__ void __launch_bounds__(NT, 1) pair_kernel(const Args a) {
 
   // the remat cell's gate blocks, after the set's own buffers: block 0
   // whole before the first step, and block 1's first piece on its way
-  const std::conditional_t<Cell::kRemat, GateBlocks, NoGates> gates(
+  const typename Cell::Gates gates(
       a, layer, xpart + 4 * PH * NU, u0 + rank * upc, gb0, gb1);
   [[maybe_unused]] unsigned gphase = 0;  // the transaction barrier's phases done
   if constexpr (Cell::kRemat) {
@@ -759,7 +819,8 @@ int configure(int hidden, int upc, int ncl, int rgroups, int kc,
   const int need =
       (int)sizeof(float) *
       (Cell::kRemat && a != nullptr
-           ? remat_smem_floats(hidden, upc, ncl, rgroups, kc, a->batch, a->d_in, a->rk)
+           ? remat_smem_floats(hidden, upc, ncl, rgroups, kc, a->batch, a->d_in, a->rk,
+                               Cell::Gates::kHalf)
            : smem_floats(Cell::kWidth, hidden, upc, ncl, rgroups, kc));
   return rnn_chain::configure(*fn, 2 * hidden / upc, ncl, need, cfg, attr);
 }
@@ -771,7 +832,11 @@ int launch(const Args& a, cudaStream_t stream) {
   if (a.batch < 1 || a.t_len < 1 || a.hidden < 4 || a.hidden % 4 != 0) {
     return kUnsupported;
   }
-  if (Cell::kRemat && (a.rk < 1 || a.d_in < 4 || a.d_in % 4 != 0 || a.ld < a.batch)) {
+  // the remat cell's bulk copies move 16-byte pieces of the input rows: 4
+  // float32 values, 8 bf16 ones (so the bf16 form also needs H % 8 == 0)
+  constexpr int vec = Cell::Gates::kHalf ? 8 : 4;
+  if (Cell::kRemat && (a.rk < 1 || a.d_in < vec || a.d_in % vec != 0 ||
+                       a.hidden % vec != 0 || a.ld < a.batch)) {
     return kUnsupported;
   }
   const void* fn = nullptr;

@@ -79,8 +79,10 @@
 // 0 of h0p / h1p is neither written nor read).
 //
 // The training form's bf16 form (a cell of storage type bf16,
-// rnn_chain_common.cuh: lstm2_train_fwd.cu's LstmCell16, gru2_train_fwd.cu's
-// GruCell16) stores packed, h0p, h1p and x1 in bf16 (packed16, hp16, x116),
+// rnn_chain_common.cuh: lstm2_train_fwd.cu's LstmCell16 and, without the
+// gates, LstmNoGatesCell16, gru2_train_fwd.cu's GruCell16) stores packed
+// (LstmNoGatesCell16's 2H [c0_prev | c1_prev]), h0p, h1p and x1 in bf16
+// (packed16, hp16, x116),
 // each rounded from the float32 value the float32 form stores; the finals
 // stay float32.  Its exchange stays float32, in scratch the caller
 // allocates: the x1 series whole (the lead set runs ahead of the follow
@@ -357,6 +359,7 @@ struct LstmCellT {
 using LstmCell = LstmCellT<true>;
 using LstmNoGatesCell = LstmCellT<false>;
 using LstmCell16 = LstmCellT<true, bf16>;
+using LstmNoGatesCell16 = LstmCellT<false, bf16>;
 
 // LstmCell's training form in the legacy layout: the cell stores res[t]
 // (12H) = [g0 | g1 | h0 | h1 | c0 | c1], the gates at 4H layer and h and c

@@ -128,7 +128,7 @@ __device__ __forceinline__ void mbar_expect(unsigned long long* bar, unsigned by
                    smem_addr(bar)), "r"(bytes)
                : "memory");
 }
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src, unsigned bytes,
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
                                           unsigned long long* bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "

@@ -104,20 +104,23 @@ twins of the one-layer LSTM kernels:
   ``dhn`` lane of ``dhh`` (``csrc/gru_bwd_chain.cu``, the same core).
 
 bf16 residual streams (the JAX package's ``runtime.lstm_residual_dtype``
-"bfloat16"): ``lstm2_train_fwd_residuals``, ``gru2_train_fwd_residuals``
-and ``lstm1_train_fwd`` take ``res_dtype=torch.bfloat16`` and then store
-their residual series in bf16, each value rounded once (to nearest even)
-from the float32 value the float32 form stores: the pairs' ``packed``,
-``h0_prev``, ``h1_prev`` and ``x1``, the one-layer forward's ``g`` and
-``c_prev`` (its ``h_prev`` stays float32).  The finals stay float32, and
-so does the exchange between steps and layers inside the kernels (the
-pairs' bf16 forms exchange through float32 series they allocate beside
-the bf16 ones), so the forward's value is the float32 form's.  The chains
-take bf16 residuals as they come and read them into float32:
-``lstm2_bwd_chain`` and ``gru2_bwd_chain`` then write their outputs in
-bf16 too (exchanging in float32 inside), ``lstm_bwd_chain`` float32, as
-the JAX kernels do.  Each bf16 form is an entry point of the same source,
-counted apart (``*_BF16``); the plain versions round at the same points.
+"bfloat16"): ``lstm2_train_fwd_residuals`` (with and without the gates),
+``gru2_train_fwd_residuals`` and ``lstm1_train_fwd`` take
+``res_dtype=torch.bfloat16`` and then store their residual series in bf16,
+each value rounded once (to nearest even) from the float32 value the
+float32 form stores: the pairs' ``packed``, ``h0_prev``, ``h1_prev`` and
+``x1``, the one-layer forward's ``g`` and ``c_prev`` (its ``h_prev`` stays
+float32).  The finals stay float32, and so does the exchange between steps
+and layers inside the kernels (the pairs' bf16 forms exchange through
+float32 series they allocate beside the bf16 ones), so the forward's value
+is the float32 form's.  The chains take bf16 residuals as they come and
+read them into float32: ``lstm2_bwd_chain``, ``lstm2_bwd_chain_remat``
+(over bf16 ``x``, ``x1``, ``h0_prev`` and ``h1_prev`` too, its gates
+recomputed in float32 against the float32 weights) and ``gru2_bwd_chain``
+then write their outputs in bf16 too (exchanging in float32 inside),
+``lstm_bwd_chain`` float32, as the JAX kernels do.  Each bf16 form is an
+entry point of the same source, counted apart (``*_BF16``); the plain
+versions round at the same points.
 """
 
 from __future__ import annotations
@@ -372,28 +375,31 @@ def lstm2_bwd_chain_remat_reference(packed: torch.Tensor, keep_tm: torch.Tensor,
                                     dh_final: torch.Tensor, layer0: Params,
                                     layer1: Params, dys=None):
     """Plain version of the gate-rematerialising reverse chain: ``(dg0,
-    dg1)``, each (T, B, 4H), over ``packed`` (T, B, 2H) = ``[c0_prev |
-    c1_prev]``.
+    dg1)``, each (T, B, 4H) in ``packed``'s dtype, over ``packed`` (T, B,
+    2H) = ``[c0_prev | c1_prev]``.
 
     The chain of ``lstm2_bwd_chain_reference``, with each step's gate
     pre-activations recomputed from the streamed series as the JAX kernel
     forms them: ``g0 = (x w_ih0 + b0) + h0_prev w_hh0`` and ``g1 = [x1 |
-    h1_prev] [w_ih1; w_hh1] + b1``.
+    h1_prev] [w_ih1; w_hh1] + b1``.  bf16 series (the bf16 form's) are
+    read into float32 and the gates formed against the float32 weights;
+    the chain is float32, its outputs rounded to bf16 once.
     """
     _refuse_dys(dys)
     h_dim = layer0["w_hh"].shape[0]
     w_xh1 = torch.cat([layer1["w_ih"], layer1["w_hh"]], dim=0)
 
     def step(t):
-        pk = packed[t]
+        pk = _read(packed[t])
         g0 = (x_tm[t].to(torch.float32) @ layer0["w_ih"] + layer0["b"]) \
-            + h0p[t] @ layer0["w_hh"]
-        g1 = torch.cat([x1[t], h1p[t]], dim=-1) @ w_xh1 + layer1["b"]
+            + _read(h0p[t]) @ layer0["w_hh"]
+        g1 = torch.cat([_read(x1[t]), _read(h1p[t])], dim=-1) @ w_xh1 + layer1["b"]
         return (g0, g1, pk[:, RES3_C0P * h_dim:RES3_C1P * h_dim],
                 pk[:, RES3_C1P * h_dim:RES3_W * h_dim])
 
-    return _lstm2_chain(packed.shape[0], step, keep_tm, dh_final,
-                        layer0["w_hh"], layer1["w_hh"], layer1["w_ih"])
+    return tuple(dg.to(packed.dtype) for dg in _lstm2_chain(
+        packed.shape[0], step, keep_tm, dh_final, layer0["w_hh"], layer1["w_hh"],
+        layer1["w_ih"]))
 
 
 LSTM2_TRAIN_FWD = CudaKernel(
@@ -410,6 +416,10 @@ LSTM2_TRAIN_FWD_BF16 = CudaKernel(
     "lstm2_train_fwd", "lstm2_train_fwd_bf16_launch",
     [_P] * 16 + [_I] * 7 + [_P],
 )
+LSTM2_TRAIN_FWD_NOGATES_BF16 = CudaKernel(
+    "lstm2_train_fwd", "lstm2_train_fwd_nogates_bf16_launch",
+    [_P] * 16 + [_I] * 7 + [_P],
+)
 LSTM2_BWD_CHAIN = CudaKernel(
     "lstm2_bwd_chain", "lstm2_bwd_chain_launch",
     [_P] * 10 + [_I] * 7 + [_P],
@@ -421,6 +431,10 @@ LSTM2_BWD_CHAIN_BF16 = CudaKernel(
 LSTM2_BWD_CHAIN_REMAT = CudaKernel(
     "lstm2_bwd_chain_remat", "lstm2_bwd_chain_remat_launch",
     [_P] * 18 + [_I] * 10 + [_P],
+)
+LSTM2_BWD_CHAIN_REMAT_BF16 = CudaKernel(
+    "lstm2_bwd_chain_remat", "lstm2_bwd_chain_remat_bf16_launch",
+    [_P] * 20 + [_I] * 10 + [_P],
 )
 
 
@@ -478,17 +492,12 @@ def lstm2_train_fwd_residuals(x_tm: torch.Tensor, keep_tm: torch.Tensor,
     cooperative cluster launch for the whole sequence on ``chain_plan_on``'s
     2-layer forward plan: layer 0 on one CTA set, layer 1 on another) and
     counts it in ``LSTM2_TRAIN_FWD.launches``, its no-gates form in
-    ``LSTM2_TRAIN_FWD_NOGATES.launches``, its bf16 form in
-    ``LSTM2_TRAIN_FWD_BF16.launches``; on a CPU tensor it runs
-    ``lstm2_train_fwd_reference``.  The no-gates form has no bf16 form: it
-    raises.
+    ``LSTM2_TRAIN_FWD_NOGATES.launches``, their bf16 forms in
+    ``LSTM2_TRAIN_FWD_BF16.launches`` and
+    ``LSTM2_TRAIN_FWD_NOGATES_BF16.launches``; on a CPU tensor it runs
+    ``lstm2_train_fwd_reference``.
     """
     half = residual_dtype(res_dtype) == torch.bfloat16
-    if half and not store_gates:
-        raise NotImplementedError(
-            "bf16 residual streams with the gates rematerialised "
-            "(runtime.lstm_remat_gates) are not ported yet (ROADMAP.md Queue 1 "
-            "item 13)")
     if x_tm.device.type == "cpu":
         return lstm2_train_fwd_reference(x_tm, keep_tm, layer0, layer1,
                                          store_gates=store_gates, res_dtype=res_dtype)
@@ -505,7 +514,7 @@ def lstm2_train_fwd_residuals(x_tm: torch.Tensor, keep_tm: torch.Tensor,
         res = dict(dtype=torch.bfloat16, device=x_tm.device)
         packed = torch.empty((t_len, batch, width * h_dim), **res)
         stored = [torch.empty(series, **res) for _ in range(3)]
-        LSTM2_TRAIN_FWD_BF16(
+        (LSTM2_TRAIN_FWD_BF16 if store_gates else LSTM2_TRAIN_FWD_NOGATES_BF16)(
             *(t.data_ptr() for t in (*tensors, packed, *stored,
                                      *_fwd_exchange(series, x_tm.device), finals,
                                      carry, flags)),
@@ -593,25 +602,32 @@ def lstm2_bwd_chain_remat(packed: torch.Tensor, keep_tm: torch.Tensor,
                           h1p: torch.Tensor, dh_final: torch.Tensor,
                           layer0: Params, layer1: Params, dys=None):
     """Gate-rematerialising reverse chain: ``(dg0, dg1)``, each (T, B, 4H)
-    float32, over the no-gates forward's ``packed`` (T, B, 2H), its
-    ``x1`` / ``h0p`` / ``h1p`` (T, B, H) and the raw layer-0 input ``x_tm``
-    (T, B, D).
+    in ``packed``'s dtype, over the no-gates forward's ``packed`` (T, B,
+    2H), its ``x1`` / ``h0p`` / ``h1p`` (T, B, H) and the raw layer-0 input
+    ``x_tm`` (T, B, D): all float32, or all bf16 (the bf16 form, the JAX
+    kernel over bf16 streams and x cast to bf16).
 
     On a CUDA tensor this launches ``csrc/lstm2_bwd_chain_remat.cu`` (one
     cooperative cluster launch on ``chain_plan_on``'s 2-layer plan with the
     gate blocks' shared memory, ``remat_d`` the padded D; the gate columns
     packed by ``gate_columns``; one launch a ``batch_slice`` of the batch
     where the plan has one) and counts each in
-    ``LSTM2_BWD_CHAIN_REMAT.launches``; on a CPU tensor it runs
-    ``lstm2_bwd_chain_remat_reference``.  ``dys`` is not taken: it raises.
+    ``LSTM2_BWD_CHAIN_REMAT.launches``, its bf16 form in
+    ``LSTM2_BWD_CHAIN_REMAT_BF16.launches`` (H a multiple of 8: it raises
+    otherwise); on a CPU tensor it runs ``lstm2_bwd_chain_remat_reference``.
+    ``dys`` is not taken: it raises.
     """
     _refuse_dys(dys)
     if packed.device.type == "cpu":
         return lstm2_bwd_chain_remat_reference(packed, keep_tm, x_tm, x1, h0p,
                                                h1p, dh_final, layer0, layer1)
+    half = _half("lstm2_bwd_chain_remat", packed, x_tm, x1, h0p, h1p)
     t_len, batch, _ = packed.shape
     h_dim = layer0["w_hh"].shape[0]
     d_in = x_tm.shape[-1]
+    if half and h_dim % 8:
+        raise ValueError(f"lstm2_bwd_chain_remat: the bf16 form copies 16-byte pieces "
+                         f"of the h rows, so H % 8 == 0; H={h_dim}")
     keep = keep_tm.to(torch.float32).contiguous()
     dh = dh_final.to(torch.float32).contiguous()
     x1, h0p, h1p = (a.contiguous() for a in (x1, h0p, h1p))
@@ -628,25 +644,33 @@ def lstm2_bwd_chain_remat(packed: torch.Tensor, keep_tm: torch.Tensor,
                   b1=(b1, (4 * h_dim,)), w_hh1=(w_hh1, square))
     if t_len < 1 or batch < 1:
         raise ValueError(f"lstm2_bwd_chain_remat: empty residuals {tuple(packed.shape)}")
-    # the kernel copies 16-byte pieces of each input row: D padded to a
-    # multiple of 4 with zero columns of x and zero rows of w_ih0
-    d4 = _ceil(d_in, 4) * 4
-    x, w_x0 = x_tm.to(torch.float32), w_ih0
-    if d4 != d_in:
-        x = torch.nn.functional.pad(x, (0, d4 - d_in))
-        w_x0 = torch.nn.functional.pad(w_ih0, (0, 0, 0, d4 - d_in))
+    # the kernel copies 16-byte pieces of each input row (4 float32 values,
+    # 8 bf16 ones): D padded with zero columns of x and zero rows of w_ih0
+    vec = 8 if half else 4
+    d_pad = _ceil(d_in, vec) * vec
+    x, w_x0 = x_tm, w_ih0
+    if d_pad != d_in:
+        x = torch.nn.functional.pad(x, (0, d_pad - d_in))
+        w_x0 = torch.nn.functional.pad(w_ih0, (0, 0, 0, d_pad - d_in))
     x = x.contiguous()
-    check_cuda_f32("lstm2_bwd_chain_remat", packed=packed, keep=keep, x=x, x1=x1,
-                   h0p=h0p, h1p=h1p, dh_final=dh, w_ih0=w_ih0, b0=b0,
+    check_cuda_f32("lstm2_bwd_chain_remat", keep=keep, dh_final=dh, w_ih0=w_ih0, b0=b0,
                    w_hh0=w_hh0, w_ih1=w_ih1, b1=b1, w_hh1=w_hh1)
+    check_cuda("lstm2_bwd_chain_remat", packed.dtype,
+               dict(packed=packed, x=x, x1=x1, h0p=h0p, h1p=h1p))
     plan, flags = _pair_launch("lstm2_bwd_chain_remat", 4, batch, h_dim, packed.device,
-                               forward=False, remat_d=d4)
+                               forward=False, remat_d=d_pad)
     units = plan.upc * plan.rgroups
     wg0 = gate_columns(torch.cat([w_x0, w_hh0]), units)
     wg1 = gate_columns(torch.cat([w_ih1, w_hh1]), units)
     new = dict(dtype=torch.float32, device=packed.device)
-    dg0 = torch.empty((t_len, batch, 4 * h_dim), **new)
+    # the kernel's CTAs exchange dg through these: the outputs, or in the
+    # bf16 form float32 scratch beside them, layer 0's own rows in two slots
+    # (layer 1's are the hop into layer 0, which runs behind); batch rows
+    # apart, each launch from its first row
+    dg0 = torch.empty((2 if half else t_len, batch, 4 * h_dim), **new)
     dg1 = torch.empty((t_len, batch, 4 * h_dim), **new)
+    out = ([torch.empty_like(dg1, dtype=torch.bfloat16) for _ in range(2)]
+           if half else [dg0, dg1])
     # one launch a slice of the batch (the whole batch where its gate
     # blocks fit), each over its rows of the series, batch rows apart
     rows = plan.batch_slice or batch
@@ -658,16 +682,18 @@ def lstm2_bwd_chain_remat(packed: torch.Tensor, keep_tm: torch.Tensor,
         carry = torch.zeros((2, nb, h_dim), **new)
 
         def at(a: torch.Tensor) -> int:
-            return a.data_ptr() + 4 * r0 * a.shape[-1]
+            return a.data_ptr() + a.element_size() * r0 * a.shape[-1]
 
-        LSTM2_BWD_CHAIN_REMAT(
-            at(packed), at(keep), at(dh), w_hh0.data_ptr(), w_hh1.data_ptr(),
-            w_ih1.data_ptr(), at(x), at(x1), at(h0p), at(h1p), wg0.data_ptr(),
-            wg1.data_ptr(), b0.data_ptr(), b1.data_ptr(), at(dg0), at(dg1),
-            carry.data_ptr(), flags.data_ptr(), nb, batch, t_len, h_dim, d4, plan.upc,
-            plan.ncl, plan.rgroups, plan.kc, plan.rk, stream_of(packed),
+        ptrs = [at(packed), at(keep), at(dh), w_hh0.data_ptr(), w_hh1.data_ptr(),
+                w_ih1.data_ptr(), at(x), at(x1), at(h0p), at(h1p), wg0.data_ptr(),
+                wg1.data_ptr(), b0.data_ptr(), b1.data_ptr(), at(out[0]), at(out[1])]
+        if half:
+            ptrs += [at(dg0), at(dg1)]
+        (LSTM2_BWD_CHAIN_REMAT_BF16 if half else LSTM2_BWD_CHAIN_REMAT)(
+            *ptrs, carry.data_ptr(), flags.data_ptr(), nb, batch, t_len, h_dim, d_pad,
+            plan.upc, plan.ncl, plan.rgroups, plan.kc, plan.rk, stream_of(packed),
         )
-    return dg0, dg1
+    return tuple(out)
 
 
 def gate_columns(w: torch.Tensor, units: int) -> torch.Tensor:
@@ -1029,19 +1055,21 @@ def _column_slices(nu: int, forward: bool = False) -> int:
 
 
 def remat_gate_floats(hidden: int, upc: int, rgroups: int, batch: int, din: int,
-                      rk: int) -> int:
+                      rk: int, half: bool = False) -> int:
     """Shared memory of one set's gate blocks in the remat chain, in floats,
     as ``rnn2_bwd::GateGeom``: a CTA's ``4 upc rgroups`` gate columns over
     its row group's rows padded to whole passes for ``rk`` steps, twice
     (the block in use and the one being formed), and one piece of the
-    ``din + hidden`` deep product (``kp``, a multiple of 4, deep): its
-    input rows (stride 4 mod 8) and weight rows; and 4 floats for the bulk
-    copies' transaction barrier."""
+    ``din + hidden`` deep product (``kp`` deep: whole 16-byte pieces of its
+    inputs, a multiple of 4, or in the bf16 form (``half``) of 8): its
+    input rows (stride 4 mod 8 floats; a bf16 row takes ``kp / 2``) and
+    weight rows; and 4 floats for the bulk copies' transaction barrier."""
+    vec = 8 if half else 4
     n = 4 * upc * rgroups
     bgp = _ceil(_ceil(batch, rgroups), CHAIN_PH) * CHAIN_PH
     m = rk * bgp
-    kp = _ceil(_ceil(din + hidden, rk), 4) * 4
-    ldi = _ceil(kp, 8) * 8 + 4
+    kp = _ceil(_ceil(din + hidden, rk), vec) * vec
+    ldi = _ceil(kp // 2 if half else kp, 8) * 8 + 4
     return 2 * m * n + m * ldi + kp * n + 4
 
 
@@ -1060,7 +1088,9 @@ def chain_smem_floats(width: int, hidden: int, upc: int, ncl: int, rgroups: int,
     (``rnn2_bwd::remat_smem_floats``), the larger of the follow set's
     buffers with layer 0's gate blocks (``d_in`` deep inputs) and the lead
     set's, whose weights cover only its own share, with layer 1's (H
-    deep)."""
+    deep); the plan serves both forms of the source, so each set's blocks
+    are the larger of the float32 form's and the bf16 form's (at the
+    flagship's shape the float32 form's)."""
     nu = upc * ncl * rgroups
     outputs, n4 = (width * nu, hidden // 4) if forward else (nu, width * hidden // 4)
     cs4 = _ceil(layers * n4, ncl)
@@ -1076,8 +1106,12 @@ def chain_smem_floats(width: int, hidden: int, upc: int, ncl: int, rgroups: int,
         return total
     batch, d_in, rk = remat
     lead = total - outputs * (ldw - (_ceil(4 * _ceil(n4, ncl), 32) * 32 + 4))
-    return max(total + remat_gate_floats(hidden, upc, rgroups, batch, d_in, rk),
-               lead + remat_gate_floats(hidden, upc, rgroups, batch, hidden, rk))
+
+    def blocks(din: int) -> int:
+        return max(remat_gate_floats(hidden, upc, rgroups, batch, din, rk, half)
+                   for half in (False, True))
+
+    return max(total + blocks(d_in), lead + blocks(hidden))
 
 
 def _row_groups_order(batch: int) -> Tuple[int, ...]:

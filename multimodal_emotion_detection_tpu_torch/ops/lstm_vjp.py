@@ -12,7 +12,7 @@ it:
   ``lstm2_bwd_chain``, which emits every step's dgates of both layers.
   With ``remat_gates`` (``runtime.lstm_remat_gates``) the forward stores no
   gates and the backward is ``lstm2_bwd_chain_remat``, which recomputes
-  them from the saved input and state series;
+  them from the saved input and state series (in either residual dtype);
 * ``LayeredLSTMFinal`` (any depth and the wider layers), the layered
   route: per layer, the input projection ``x_l @ w_ih_l + b_l`` as one
   ``torch.matmul``, then ``lstm1_train_fwd``; backward top-down, per layer
@@ -57,9 +57,11 @@ h_prev stays float32).  The forward's value stays the float32 one bit for
 bit.  The weight gradients are then products of bf16 series read into
 float32 (exact products, float32 sums: the JAX package's bf16 x bf16
 contraction with float32 accumulation), x rounded to bf16 for dW_ih0 as
-the JAX package rounds it.  The legacy routes and the layered GRU ignore
-it, as the JAX package does; the gate-rematerialising pair refuses it
-(ROADMAP.md Queue 1 item 13).
+the JAX package rounds it.  The gate-rematerialising pair takes it too:
+its forward stores the cell states and the h_prev and x1 series in bf16,
+and its chain recomputes the gates from them and the bf16 x against the
+float32 weights, writing bf16 dgates.  The legacy routes and the layered
+GRU ignore it, as the JAX package does.
 
 On the card the recurrences are hand-written kernels; on the CPU the same
 Functions run their plain versions.  The keep masks are dropout draws and
@@ -157,7 +159,8 @@ def stack_residual_bytes(cell: str, layers: int, hidden: int, d_in: int,
         raise ValueError(f"stack_residual_bytes: no {route!r} route of a {cell!r} stack")
     if residual_dtype(res_dtype) == torch.bfloat16 and route != "legacy" and (
             route == "pair" or cell == "lstm"):
-        return _bf16_bytes(cell, layers, hidden, d_in, route) * batch * t_len
+        return (_bf16_bytes(cell, layers, hidden, d_in, route, remat_gates)
+                * batch * t_len)
     h, d = hidden, d_in
     gates = 4 if cell == "lstm" else 3
     if route == "layered":
@@ -187,20 +190,23 @@ def stack_residual_bytes(cell: str, layers: int, hidden: int, d_in: int,
     return 4 * floats * batch * t_len
 
 
-def _bf16_bytes(cell: str, layers: int, h: int, d: int, route: str) -> int:
+def _bf16_bytes(cell: str, layers: int, h: int, d: int, route: str,
+                remat_gates: bool = False) -> int:
     """``stack_residual_bytes`` per (T B) with bf16 residual streams: 2
     bytes a value of a bf16 series, 4 of a float32 one.
 
     The pairs hold x rounded to bf16 (D), keep (H, float32), packed (LSTM
-    10H, GRU 8H) and h0p / h1p / x1 (3H) in bf16.  Their forward adds x's
-    float32 copy and ih0 (4D + 4 gates H, float32) and its float32
-    exchange, x1 (H; each layer's own h takes two (B, H) slots, not
-    counted); their chain the float32 exchange of layer 1 (LSTM dg1 4H, GRU
-    dih1 and dhn1 4H; layer 0's two slots not counted) beside the bf16
-    outputs of both layers (8H); then the weight gradients read a layer's
-    outputs and an h series into float32 (5H) beside those outputs.  The
-    layered LSTM holds g and c_prev (5H) in bf16, h_prev (H) float32, so a
-    layer's residuals take 14 bytes of the float32 route's 24 a unit."""
+    10H, 2H with ``remat_gates``, GRU 8H) and h0p / h1p / x1 (3H) in bf16.
+    Their forward adds x's float32 copy and ih0 (4D + 4 gates H, float32)
+    and its float32 exchange, x1 (H; each layer's own h takes two (B, H)
+    slots, not counted); their chain the float32 exchange of layer 1 (LSTM
+    dg1 4H, GRU dih1 and dhn1 4H; layer 0's two slots not counted) beside
+    the bf16 outputs of both layers (8H), the remat chain also x padded to
+    whole 16-byte pieces of 8 bf16 values where D is not a multiple of 8;
+    then the weight gradients read a layer's outputs and an h series into
+    float32 (5H) beside those outputs.  The layered LSTM holds g and c_prev
+    (5H) in bf16, h_prev (H) float32, so a layer's residuals take 14 bytes
+    of the float32 route's 24 a unit."""
     gates = 4 if cell == "lstm" else 3
     if route == "layered":
         saved = 14 * h
@@ -215,10 +221,12 @@ def _bf16_bytes(cell: str, layers: int, h: int, d: int, route: str) -> int:
                 peak = max(peak, live + 8 * h)
                 live += 4 * h
         return max(peak, live + (36 * h if layers > 1 else 16 * h))
-    packed = 10 * h if cell == "lstm" else 8 * h
+    remat = cell == "lstm" and remat_gates
+    packed = 2 * h if remat else (10 * h if cell == "lstm" else 8 * h)
     held = 2 * d + 4 * h + 2 * (packed + 3 * h)
     fwd = held + 4 * d + 4 * gates * h + 4 * h
-    chain = held + 4 * 4 * h + 2 * 8 * h
+    pad = 2 * (-(-d // 8) * 8) if remat and d % 8 else 0
+    chain = held + 4 * 4 * h + 2 * 8 * h + pad
     return max(fwd, chain, held + 2 * 8 * h + 4 * 5 * h)
 
 
@@ -271,11 +279,19 @@ def _flat32(a: torch.Tensor) -> torch.Tensor:
     return _flat(a).to(torch.float32)
 
 
+def _row_sums(a: torch.Tensor) -> torch.Tensor:
+    """The sums over the rows of a flattened (T*B, C) series, a bias's
+    gradient, as one matrix-vector product: on the card ``a.sum(0)`` holds a
+    transient of twice the series (``chip_smoke.py`` ``[lstm2_remat_bf16]``
+    prints both), which ``stack_residual_bytes`` does not count."""
+    return (a.new_ones(1, a.shape[0]) @ a)[0]
+
+
 def _layer_grads(x_l, h_prev, dg):
     """One LSTM layer's hoisted weight gradients ``(dW_ih, dW_hh, db)``
     from its input series, its h_prev series and its chain's dgates."""
     dgf = _flat32(dg)
-    return _flat32(x_l).T @ dgf, _flat32(h_prev).T @ dgf, dgf.sum(0)
+    return _flat32(x_l).T @ dgf, _flat32(h_prev).T @ dgf, _row_sums(dgf)
 
 
 def lstm_route(num_layers: int, hidden: int, sm_count: int) -> str:
@@ -421,11 +437,10 @@ def fused_lstm_final(x: torch.Tensor, keep: torch.Tensor,
     route ``set_res2_mode("off")`` takes the legacy layout, and only the
     residual-native pair reads ``remat_gates``, as in the JAX package.
     ``res_dtype`` (``residual_dtype``'s: "float32", "bfloat16" or the torch
-    dtype) is the residual streams' on the residual-native pair and the
-    layered route; the legacy route ignores it, and with ``remat_gates``
-    bf16 is refused (ROADMAP.md Queue 1 item 13).  On the card past
-    ``LONG_T`` steps a stack whose residuals do not fit raises
-    (``check_residual_budget``)."""
+    dtype) is the residual streams' on the residual-native pair, with or
+    without ``remat_gates``, and on the layered route; the legacy route
+    ignores it.  On the card past ``LONG_T`` steps a stack whose residuals
+    do not fit raises (``check_residual_budget``)."""
     res_dtype = residual_dtype(res_dtype)
     weights = [p[name] for p in layers for name in ("w_ih", "w_hh", "b")]
     h_dim = layers[0]["w_hh"].shape[0]
@@ -434,11 +449,12 @@ def fused_lstm_final(x: torch.Tensor, keep: torch.Tensor,
         route = "legacy"
     if route == "legacy":
         res_dtype = torch.float32
-    if route == "pair" and remat_gates and res_dtype == torch.bfloat16:
+    if (route == "pair" and remat_gates and res_dtype == torch.bfloat16
+            and x.device.type == "cuda" and h_dim % 8):
         raise NotImplementedError(
-            "bf16 residual streams (runtime.lstm_residual_dtype) with the gates "
-            "rematerialised (runtime.lstm_remat_gates) are not ported yet "
-            "(ROADMAP.md Queue 1 item 13)")
+            f"the gate-rematerialising pair's bf16 form on the card copies 16-byte "
+            f"pieces of the h rows, so H % 8 == 0; H={h_dim} (ROADMAP.md Queue 2, "
+            "shape ceilings)")
     _check_long("lstm", x, keep, len(layers), h_dim, route, bool(remat_gates), res_dtype)
     if route == "legacy":
         return LegacyLSTMFinal.apply(x, keep[:, 0], *weights)
@@ -465,10 +481,10 @@ def _gru_layer_grads(x_l, h_prev, dih, dhn):
     assembly of ``dhh``), bf16 series read into float32 (``_flat32``)."""
     h_dim = dhn.shape[-1]
     dih_f, dhn_f, hp_t = _flat32(dih), _flat32(dhn), _flat32(h_prev).T
-    db_ih = dih_f.sum(0)
+    db_ih = _row_sums(dih_f)
     return (_flat32(x_l).T @ dih_f,
             torch.cat([hp_t @ dih_f[:, :2 * h_dim], hp_t @ dhn_f], dim=1),
-            db_ih, torch.cat([db_ih[:2 * h_dim], dhn_f.sum(0)]))
+            db_ih, torch.cat([db_ih[:2 * h_dim], _row_sums(dhn_f)]))
 
 
 class FusedGRUFinal(torch.autograd.Function):
@@ -578,7 +594,7 @@ class LegacyGRUFinal(torch.autograd.Function):
                                       (x1, res1[0], dih1, dhh1)):
             dih_f, dhh_f = _flat(dih), _flat(dhh)
             grads += [_flat(x_l).T @ dih_f, _flat(h_prev).T @ dhh_f,
-                      dih_f.sum(0), dhh_f.sum(0)]
+                      _row_sums(dih_f), _row_sums(dhh_f)]
         return (dx, None, *grads)
 
 

@@ -67,12 +67,6 @@ FRONTEND_CHUNK = 128  # clips per log-mel call when caching a split
 def refuse_outside_slice(config) -> None:
     """Raise ``NotImplementedError`` naming the ``ROADMAP.md`` item for a
     training configuration the port does not run yet."""
-    rt = config.runtime
-    if rt.lstm_residual_dtype == "bfloat16" and rt.lstm_remat_gates:
-        raise NotImplementedError(
-            "runtime.lstm_residual_dtype='bfloat16' with runtime.lstm_remat_gates: "
-            "the gate-rematerialising pair's bf16 form is not ported yet "
-            "(ROADMAP.md Queue 1 item 13)")
     for name, cfg in dict(config.model.encoders).items():
         if dict(cfg).get("weights_path"):
             raise NotImplementedError(

@@ -450,31 +450,48 @@ GB = 1e9
     ("lstm", 3, 512, "layered", 97.52, 73.93),
     ("gru", 3, 512, "layered", 88.09, 88.09),  # the layered GRU ignores the key
     ("lstm", 2, 256, "legacy", 56.63, 56.63),  # so does the legacy layout
+    # the LSTM pair with remat_gates at B 32, T 48,000, D 1, H 256, per
+    # (T B): float32 x 1 + keep 256 + packed 2H 512 + h0p / h1p / x1 768 =
+    # 1,537 floats held, then the chain's dg0 / dg1 2,048 and x padded to 4
+    # floats: 3,589 floats, 14,356 bytes, 22.05 GB; bf16 the bytes of
+    # x 2 + keep 1,024 + packed 1,024 + the three series 1,536 = 3,586
+    # held, then the weight gradients' bf16 dg0 / dg1 4,096 and float32
+    # reads 5,120: 12,802 bytes, 19.66 GB, below the stored-gates pair's
+    # 25.96
+    ("lstm", 2, 256, "pair+remat", 22.05, 19.66),
 ])
 def test_residual_bytes_in_bf16(cell, layers, hidden, route, f32_gb, bf16_gb):
-    f32 = lstm_vjp.stack_residual_bytes(cell, layers, hidden, 1, 32, T48K, route)
-    half = lstm_vjp.stack_residual_bytes(cell, layers, hidden, 1, 32, T48K, route,
-                                         res_dtype="bfloat16")
+    route, _, remat = route.partition("+")
+    args = (cell, layers, hidden, 1, 32, T48K, route, bool(remat))
+    f32 = lstm_vjp.stack_residual_bytes(*args)
+    half = lstm_vjp.stack_residual_bytes(*args, res_dtype="bfloat16")
     assert abs(f32 / GB - f32_gb) < 0.01 and abs(half / GB - bf16_gb) < 0.01
     assert lstm_vjp.stack_residual_bytes(cell, layers, hidden, 1, 16, T48K // 2, route,
-                                         res_dtype="bfloat16") * 4 == half
+                                         bool(remat), res_dtype="bfloat16") * 4 == half
 
 
 def test_bf16_with_remat_refused_naming_item_13():
+    """Since the remat pair's bf16 forms were ported, bf16 residual streams
+    with the gates rematerialised are taken everywhere the name's refusal
+    was: by the trainer's check, ``fused_lstm_final`` and the no-gates
+    forward; a residual dtype other than float32 and bf16 is still
+    refused."""
     cfg = load_config(FAST, ["runtime.lstm_remat_gates=true"])
-    with pytest.raises(NotImplementedError, match="item 13"):
-        refuse_outside_slice(cfg)
+    refuse_outside_slice(cfg)
     refuse_outside_slice(load_config(FAST))  # fast.yaml as written is taken
     x, keep, layers = _case("lstm", 20, b=2, t=3, d=4, h=8)
     params = [_torch(p) for p in layers]
     keep_t = torch.from_numpy(np.ascontiguousarray(keep.transpose(1, 2, 0, 3)))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        lstm_vjp.fused_lstm_final(torch.from_numpy(x), keep_t, params, remat_gates=True,
-                                  res_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        lstm_kernel.lstm2_train_fwd_residuals(
-            torch.from_numpy(_tm(x)), keep_t[:, 0], *params, store_gates=False,
-            res_dtype=BF16)
+    h = [lstm_vjp.fused_lstm_final(torch.from_numpy(x), keep_t, params, remat_gates=True,
+                                   res_dtype=dtype) for dtype in ("bfloat16", "float32")]
+    assert torch.equal(h[0], h[1])  # the forward's value is the float32 one
+    outs = lstm_kernel.lstm2_train_fwd_residuals(
+        torch.from_numpy(_tm(x)), keep_t[:, 0], *params, store_gates=False,
+        res_dtype=BF16)
+    assert outs[0].shape == (3, 2, 16) and outs[0].dtype == BF16
+    with pytest.raises(ValueError, match="lstm_residual_dtype"):
+        classifier_from_config(load_config(FAST, ["runtime.lstm_remat_gates=true",
+                                                  "runtime.lstm_residual_dtype=float16"]))
 
 
 def test_other_residual_dtypes_rejected():

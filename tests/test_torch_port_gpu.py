@@ -1866,6 +1866,119 @@ def test_lstm1_bf16_forms_match_the_float32_forms_and_plain(b, t, h):
     torch.testing.assert_close(d16, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
 
 
+@pytest.mark.parametrize("b,t", [(32, 372), (17, 40), (1, 40), (128, 7)])
+def test_lstm2_remat_bf16_forms_match_the_float32_forms_and_plain(b, t):
+    """Rows 11n and 13 in bf16 (the remat pair with bf16 streams) at D 64, H
+    256: the no-gates forward's finals bit for bit the float32 no-gates
+    form's and its series that form's rounded, bit for bit; the remat chain
+    over those bf16 streams (x cast to bf16) the float32 chain over them
+    upcast, rounded, bit for bit (at B 128 in slices of the batch, one
+    counted launch each); each within one bf16 ulp of its plain version;
+    neither float32 form counted."""
+    dev = _card()
+    d, h = 64, 256
+    x_tm, keep, l0, l1 = _lstm_case(dev, b, t, d, h, seed=b + t + 3)
+    fwd16 = lstm_kernel.LSTM2_TRAIN_FWD_NOGATES_BF16
+    chain16 = lstm_kernel.LSTM2_BWD_CHAIN_REMAT_BF16
+    f32_counts = (lstm_kernel.LSTM2_TRAIN_FWD_NOGATES.launches,
+                  lstm_kernel.LSTM2_BWD_CHAIN_REMAT.launches)
+    before = fwd16.launches
+    o16 = lstm_kernel.lstm2_train_fwd_residuals(x_tm, keep, l0, l1, store_gates=False,
+                                                res_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert fwd16.launches == before + 1
+    o32 = lstm_kernel.lstm2_train_fwd_residuals(x_tm, keep, l0, l1, store_gates=False)
+    assert o16[0].shape == (t, b, 2 * h) and torch.equal(o16[4], o32[4])
+    refs = lstm_kernel.lstm2_train_fwd_reference(x_tm, keep, l0, l1, store_gates=False,
+                                                 res_dtype=torch.bfloat16)
+    for i, name in enumerate(RES_NAMES[:4]):
+        assert torch.equal(o16[i], o32[i].to(torch.bfloat16)), name
+        _within_one_ulp(o16[i], refs[i], name)
+    dh = torch.from_numpy(np.random.RandomState(t).randn(b, h).astype(np.float32)).to(dev)
+    args = (o16[0], keep, x_tm.to(torch.bfloat16), o16[3], o16[1], o16[2], dh, l0, l1)
+    plan = lstm_kernel.chain_plan_on("lstm2_bwd_chain_remat", 4, h, b, dev, layers=2,
+                                     remat_d=d)
+    before = chain16.launches
+    d16 = lstm_kernel.lstm2_bwd_chain_remat(*args)
+    torch.cuda.synchronize()
+    assert chain16.launches == before + -(-b // (plan.batch_slice or b))
+    assert (b <= 32) == (plan.batch_slice == 0)
+    d32 = lstm_kernel.lstm2_bwd_chain_remat(
+        *(a.float() if torch.is_tensor(a) else a for a in args))
+    f32_counts = (f32_counts[0] + 1, f32_counts[1] + -(-b // (plan.batch_slice or b)))
+    assert (lstm_kernel.LSTM2_TRAIN_FWD_NOGATES.launches,
+            lstm_kernel.LSTM2_BWD_CHAIN_REMAT.launches) == f32_counts
+    for name, a, r, p in zip(("dg0", "dg1"), d16, d32,
+                             lstm_kernel.lstm2_bwd_chain_remat_reference(*args)):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, r.to(torch.bfloat16)), name
+        _within_one_ulp(a, p, name)
+
+
+@pytest.mark.parametrize("b,t,d,h", [(3, 40, 6, 64), (32, 372, 64, 256)])
+def test_remat_bf16_lstm_final_grads_match_the_cpu(b, t, d, h):
+    """``fused_lstm_final(remat_gates=True, res_dtype="bfloat16")`` on the
+    card: both bf16 forms once, no float32 or stored-gates form; the
+    forward's value the float32 one bit for bit; its gradients within 2e-3
+    of each largest entry of the same route's on the CPU, where the
+    wrappers run the plain versions and round at the same points (the bf16
+    rule of the CPU tests)."""
+    from multimodal_emotion_detection_tpu_torch.ops.lstm_vjp import fused_lstm_final
+
+    dev = _card()
+    x_tm, keep, l0, l1 = _lstm_case(dev, b, t, d, h, seed=11 + b)
+    weight = torch.from_numpy(np.random.RandomState(b).randn(b, h).astype(np.float32))
+    names = ("LSTM2_TRAIN_FWD_NOGATES_BF16", "LSTM2_BWD_CHAIN_REMAT_BF16",
+             "LSTM2_TRAIN_FWD_NOGATES", "LSTM2_BWD_CHAIN_REMAT", "LSTM2_TRAIN_FWD",
+             "LSTM2_TRAIN_FWD_BF16", "LSTM2_BWD_CHAIN", "LSTM2_BWD_CHAIN_BF16")
+
+    def grads(device, res_dtype="bfloat16"):
+        x = x_tm.transpose(0, 1).contiguous().to(device).requires_grad_()
+        p0, p1 = ({k: v.detach().clone().to(device).requires_grad_() for k, v in p.items()}
+                  for p in (l0, l1))
+        out = fused_lstm_final(x, keep[:, None].to(device), (p0, p1), remat_gates=True,
+                               res_dtype=res_dtype)
+        (out * weight.to(device)).sum().backward()
+        return out.detach().cpu(), [g.grad.cpu() for g in (x, *p0.values(), *p1.values())]
+
+    before = [getattr(lstm_kernel, n).launches for n in names]
+    h16, ours = grads(dev)
+    torch.cuda.synchronize()
+    assert [getattr(lstm_kernel, n).launches - c for n, c in zip(names, before)] == (
+        [1, 1] + [0] * 6)
+    h32, _ = grads(dev, "float32")
+    assert torch.equal(h16, h32)
+    _, cpu = grads(torch.device("cpu"))
+    for i, (g, r) in enumerate(zip(ours, cpu)):
+        torch.testing.assert_close(g, r, rtol=0, atol=2e-3 * float(r.abs().max()),
+                                   msg=f"gradient {i}")
+
+
+def test_remat_bf16_refuses_h_not_a_multiple_of_8_on_the_card():
+    """The bf16 remat chain copies 16-byte pieces of the bf16 h rows: at H
+    260 the route raises before its forward runs, and the chain's wrapper
+    raises too, launching nothing (the float32 remat route takes H 260)."""
+    from multimodal_emotion_detection_tpu_torch.ops.lstm_vjp import fused_lstm_final
+
+    dev = _card()
+    b, t, d, h = 3, 5, 8, 260
+    x_tm, keep, l0, l1 = _lstm_case(dev, b, t, d, h, seed=5)
+    counts = (lstm_kernel.LSTM2_TRAIN_FWD_NOGATES_BF16.launches,
+              lstm_kernel.LSTM2_BWD_CHAIN_REMAT_BF16.launches)
+    with pytest.raises(NotImplementedError, match="H % 8"):
+        fused_lstm_final(x_tm.transpose(0, 1), keep[:, None], (l0, l1), remat_gates=True,
+                         res_dtype="bfloat16")
+    res = lstm_kernel.lstm2_train_fwd_residuals(x_tm, keep, l0, l1, store_gates=False,
+                                                res_dtype=torch.bfloat16)
+    dh = torch.ones(b, h, device=dev)
+    with pytest.raises(ValueError, match="H % 8"):
+        lstm_kernel.lstm2_bwd_chain_remat(res[0], keep, x_tm.to(torch.bfloat16), res[3],
+                                          res[1], res[2], dh, l0, l1)
+    assert (lstm_kernel.LSTM2_TRAIN_FWD_NOGATES_BF16.launches,
+            lstm_kernel.LSTM2_BWD_CHAIN_REMAT_BF16.launches) == (counts[0] + 1, counts[1])
+    out = fused_lstm_final(x_tm.transpose(0, 1), keep[:, None], (l0, l1), remat_gates=True)
+    assert torch.isfinite(out).all()
+
+
 @pytest.mark.parametrize("s,b", [(3, 32), (2, 7), (4, 1)])
 def test_batched_forward_equals_forward_on_the_card(s, b):
     """``make_batched_forward_fn`` on the synthetic fixture's model at the
