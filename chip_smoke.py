@@ -262,9 +262,10 @@
    holds the bf16 forms of the flash forward and fused backward against
    their bf16 plain versions at ``[flash_fwd]``'s cases but the fold (O,
    dQ, dK, dV within ``FLASH_BF16_ULPS`` bf16 ulps of the largest entry,
-   LSE to 1e-5) and times each at (32, 4, 372, 64) beside the float32 form
-   on the same values and SDPA in bf16, with the bound at the bf16 tensor
-   rate and bf16 bytes; ``[flash_long_bf16]`` runs ``flash_attention`` on
+   LSE to 1e-5) and times each at (32, 4, 372, 64), at dropout rates 0 and
+   0.1 beside SDPA in bf16 at the same ``dropout_p`` and at 0.1 beside the
+   float32 form on the same values, with the bound at the bf16 tensor rate
+   and bf16 bytes; ``[flash_long_bf16]`` runs ``flash_attention`` on
    bf16 at (2, 4, 5000, 64) (the bf16 forward, dK / dV and dQ forms once
    each, no fused or float32 form) against the plain versions and times
    the two-pass forms beside their float32 forms.  ``[train_tf_bf16]``
@@ -376,12 +377,15 @@ class L2Flush:
 
 def device_ms(fn, flush: L2Flush, reps: int = 20, warmup: int = 3) -> float:
     """Median device time of ``fn`` in ms, CUDA events around each call,
-    the L2 flushed before each."""
+    the L2 flushed before each.  A ~0.5 ms spin of the card after the flush
+    lets the host enqueue the start event and the call before the card
+    reaches them, so a wrapper's host time is not counted."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         flush()
+        torch.cuda._sleep(1_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -2223,7 +2227,8 @@ def phase_flash(fa, flush):
     train_ms, lib_train_ms = device_ms(ours_train, flush), device_ms(lib_train, flush)
     pairs = b * h * t * t
     # q, k, v read, O and LSE written; for the backward q, k, v, dO, LSE and
-    # Delta read, dQ, dK, dV written (the fused form's partials not counted)
+    # Delta read, dQ, dK, dV written: the function's bytes (the float32 fused
+    # form also writes and reads back its dQ partials, one slot a kv span)
     fwd_fp32, fwd_bound = tc_bounds(4 * pairs * d, 4 * (4 * b * h * t * d + b * h * t))
     bwd_fp32, bwd_bound = tc_bounds(10 * pairs * d, 4 * (7 * b * h * t * d + 2 * b * h * t))
     n_spans = fa.kv_spans(t)[0]
@@ -2366,8 +2371,9 @@ def phase_flash_bf16(fa, flush):
     against their bf16 plain versions at the encoder's (32, 4, 372, 64)
     (rates 0 and 0.1), (4, 4, 1000, 64) with a key-padding bias and head
     dims 128 and 40 with T off the tiles (``_flash_cases`` but the fold);
-    then each timed at the encoder's shape beside the float32 form on the
-    same values and SDPA on the bf16 tensors, in this call."""
+    then each timed at the encoder's shape at dropout rates 0 and 0.1
+    beside SDPA on the bf16 tensors at the same ``dropout_p``, and at 0.1
+    beside the float32 form on the same values, in this call."""
     bf16 = torch.bfloat16
     seed = torch.tensor([0x5EED_0F_F1A5], dtype=torch.int64, device="cuda")
     fwd_errs, bwd_errs, worst = {}, {}, [0.0, 0.0]
@@ -2401,53 +2407,71 @@ def phase_flash_bf16(fa, flush):
     q, k, v, _, do = _flash_inputs(b, h, t, t, d, 5)
     q, k, v, do = (x.to(bf16) for x in (q, k, v, do))
     q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))  # the same values
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    times = {}
+    # like for like: each form and SDPA in bf16 at dropout rates 0 and 0.1
+    # (SDPA's dropout_p, its training mode; a yardstick the port never calls)
+    for rate in (0.0, 0.1):
+        o, lse = fa.flash_fwd_reference(q, k, v, None, seed, rate)
+        args = (q, k, v, None, seed, rate, do, lse, (do.float() * o.float()).sum(-1))
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        lib_out = sdpa(*leaves, dropout_p=rate)
+        times[rate] = dict(
+            fwd=device_ms(lambda: fa.flash_fwd(q, k, v, None, seed, rate), flush),
+            sdpa=device_ms(lambda: sdpa(q, k, v, dropout_p=rate), flush),
+            bwd=device_ms(lambda: fa.flash_bwd_fused(*args), flush),
+            sdpa_bwd=device_ms(
+                lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True), flush))
+        del leaves, lib_out
     o, lse = fa.flash_fwd_reference(q, k, v, None, seed, 0.1)
     delta = (do.float() * o.float()).sum(-1)
     args = (q, k, v, None, seed, 0.1, do, lse, delta)
     o32, lse32 = fa.flash_fwd_reference(q32, k32, v32, None, seed, 0.1)
     args32 = (q32, k32, v32, None, seed, 0.1, do32, lse32, (do32 * o32).sum(-1))
-    ms = device_ms(lambda: fa.flash_fwd(q, k, v, None, seed, 0.1), flush)
     f32_ms = device_ms(lambda: fa.flash_fwd(q32, k32, v32, None, seed, 0.1), flush)
     plain_ms = device_ms(lambda: fa.flash_fwd_reference(q, k, v, None, seed, 0.1),
                          flush, reps=5)
-    library_ms = device_ms(lambda: _sdpa(q, k, v, None), flush)
-    bwd_ms = device_ms(lambda: fa.flash_bwd_fused(*args), flush)
     bwd_f32_ms = device_ms(lambda: fa.flash_bwd_fused(*args32), flush)
     bwd_plain_ms = device_ms(lambda: fa.flash_bwd_reference(*args), flush, reps=5)
-    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-    lib_out = _sdpa(*leaves, None)
-    bwd_library_ms = device_ms(
-        lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True), flush)
     pairs = b * h * t * t
     # bf16 q, k, v read, bf16 O and float32 LSE written; the backward reads
-    # bf16 q, k, v, dO and float32 LSE, Delta and writes bf16 dQ, dK, dV
-    # (the fused form's float32 partials not counted)
+    # bf16 q, k, v, dO and float32 LSE, Delta and writes bf16 dQ, dK, dV: the
+    # function's bytes and its five products a pair (the bf16 kernel forms S
+    # and dP in each of its two roles, 7 products, and writes dQ once)
     fwd_bound = bound(4 * pairs * d, 2 * 4 * b * h * t * d + 4 * b * h * t, BF16_FLOPS)
     bwd_bound = bound(10 * pairs * d, 2 * 7 * b * h * t * d + 4 * 2 * b * h * t,
                       BF16_FLOPS)
-    print(f"[flash_bf16] B={b} H={h} T={t} D={d} rate 0.1: forward bf16 form "
-          f"{ms:.4f} ms, float32 form on the same values {f32_ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, SDPA in bf16 (no dropout) {library_ms:.4f} ms, bound "
-          f"{fwd_bound[0]:.4f} ms ({fwd_bound[1]}: {4 * pairs * d / 1e9:.3f} GFLOP at "
+    for rate, tm in times.items():
+        print(f"[flash_bf16] B={b} H={h} T={t} D={d} rate {rate}: forward bf16 form "
+              f"{tm['fwd']:.4f} ms, SDPA in bf16 at dropout_p={rate} {tm['sdpa']:.4f} ms "
+              f"({tm['fwd'] / tm['sdpa']:.2f}x); fused backward bf16 form "
+              f"{tm['bwd']:.4f} ms, SDPA backward in bf16 at dropout_p={rate} "
+              f"{tm['sdpa_bwd']:.4f} ms ({tm['bwd'] / tm['sdpa_bwd']:.2f}x)")
+    ms, library_ms = times[0.1]["fwd"], times[0.1]["sdpa"]
+    bwd_ms, bwd_library_ms = times[0.1]["bwd"], times[0.1]["sdpa_bwd"]
+    print(f"[flash_bf16] rate 0.1: forward bf16 form {ms:.4f} ms, float32 form on the same "
+          f"values {f32_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {fwd_bound[0]:.4f} ms "
+          f"({fwd_bound[1]}: {4 * pairs * d / 1e9:.3f} GFLOP at "
           f"{BF16_FLOPS / 1e12:.0f} TFLOP/s, {(2 * 4 * b * h * t * d + 4 * b * h * t) / 1e6:.2f}"
           f" MB at {HBM_BYTES / 1e12:.2f} TB/s)")
-    print(f"[flash_bf16] fused backward bf16 form {bwd_ms:.4f} ms, float32 form "
-          f"{bwd_f32_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms, SDPA backward in bf16 "
-          f"(autograd.grad, no dropout) {bwd_library_ms:.4f} ms, bound "
-          f"{bwd_bound[0]:.4f} ms ({bwd_bound[1]}: {10 * pairs * d / 1e9:.3f} GFLOP at "
+    print(f"[flash_bf16] rate 0.1: fused backward bf16 form {bwd_ms:.4f} ms, float32 form "
+          f"{bwd_f32_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms, bound {bwd_bound[0]:.4f} ms "
+          f"({bwd_bound[1]}: {10 * pairs * d / 1e9:.3f} GFLOP at "
           f"{BF16_FLOPS / 1e12:.0f} TFLOP/s)")
     src = CSRC
-    fwd = {"name": "flash_fwd_bf16", "route": "cuda", "source": src + "flash_fwd.cu",
+    fwd = {"name": "flash_fwd_bf16", "route": "cuda", "source": src + "flash_fwd_bf16.cu",
            "replaces": "multimodal_emotion_detection_tpu/ops/flash_attention.py:159",
            "max_abs_err": worst[0], "ms": ms, "plain_ms": plain_ms,
            "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1], "library_ms": library_ms,
-           "f32_ms": f32_ms}
+           "f32_ms": f32_ms, "rate0_ms": times[0.0]["fwd"],
+           "rate0_library_ms": times[0.0]["sdpa"]}
     bwd = {"name": "flash_bwd_fused_bf16", "route": "cuda",
-           "source": src + "flash_bwd_fused.cu",
+           "source": src + "flash_bwd_bf16.cu",
            "replaces": "multimodal_emotion_detection_tpu/ops/flash_attention.py:266",
            "max_abs_err": worst[1], "ms": bwd_ms, "plain_ms": bwd_plain_ms,
            "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
-           "library_ms": bwd_library_ms, "f32_ms": bwd_f32_ms}
+           "library_ms": bwd_library_ms, "f32_ms": bwd_f32_ms,
+           "rate0_ms": times[0.0]["bwd"], "rate0_library_ms": times[0.0]["sdpa_bwd"]}
     return fwd, bwd
 
 
@@ -2518,7 +2542,7 @@ def phase_flash_long_bf16(fa, counters, flush):
     common = {"route": "cuda", "max_abs_err": grad_err, "plain_ms": plain_ms,
               "library_ms": library_ms}
     return launches, [
-        {"name": "flash_bwd_dkv_bf16", **common, "source": CSRC + "flash_bwd_fused.cu",
+        {"name": "flash_bwd_dkv_bf16", **common, "source": CSRC + "flash_bwd_bf16.cu",
          "ms": dkv_ms, "f32_ms": dkv_f32_ms,
          "replaces": "multimodal_emotion_detection_tpu/ops/flash_attention.py:255",
          "bound_ms": dkv_bound[0], "bound_by": dkv_bound[1]},
@@ -4819,7 +4843,7 @@ def main() -> None:
                             "gru2_infer", "gru2_train_fwd", "gru2_train_fwd_legacy",
                             "gru2_bwd_chain", "gru2_bwd_chain_legacy",
                             "gru1_fwd", "gru_bwd_chain", "flash_fwd", "flash_bwd_dq",
-                            "flash_bwd_fused"])
+                            "flash_bwd_fused", "flash_fwd_bf16", "flash_bwd_bf16"])
     print(f"[build] {time.perf_counter() - t0:.1f} s for {sorted(reports) or 'nothing (cached)'}")
     for src, log in reports.items():
         for line in log.splitlines():
@@ -5215,11 +5239,14 @@ def _run_phases(counters, pending, card_name: str, t_start: float) -> None:
     # the header of a shared core beside its source; the tensor-core
     # kernels give both bounds beside bound_ms; log-mel its B=1 times and
     # the products' bound; the recurrent kernels of base.yaml's raw path
-    # their error, times and bound at T=48,000
+    # their error, times and bound at T=48,000; the bf16 flash forward and
+    # fused backward their time and SDPA's at dropout rate 0 (ms and
+    # library_ms are at 0.1)
     extra = ["core", "bound_fp32_ms", "bound_3xtf32_ms", "b1_ms", "b1_plain_ms",
              "bound_products_ms", "raw_max_abs_err", "raw_ms", "raw_plain_ms",
              "raw_plain_rows", "raw_bound_ms", "raw_bound_by", "raw_library_ms", "b320_max_err_of_largest",
-             "b320_ms", "b320_bound_ms", "b320_library_ms", "f32_ms"]
+             "b320_ms", "b320_bound_ms", "b320_library_ms", "f32_ms", "rate0_ms",
+             "rate0_library_ms"]
     print(f"[time] every phase, longest first: " + ", ".join(
         f"{k} {v:.1f}" for k, v in sorted(PHASE_S.items(), key=lambda kv: -kv[1])))
     print(f"[time] chip_smoke.py: {time.perf_counter() - t_start:.1f} s")

@@ -15,9 +15,8 @@
 //   dV = (P M)^T dO,  dS = P (M (dO V^T) - Delta) / sqrt(D),
 //   dK = dS^T Q,      dQ = dS K,          Delta = rowsum(dO O) (given).
 //
-// Both entries also have a bf16 form (flash_bwd_fused_bf16_launch,
-// flash_bwd_dkv_bf16_launch: bf16 operands, one bf16 MMA a product, at the
-// end of this file).
+// Float32 operands; the bf16 forms of both entries are
+// csrc/flash_bwd_bf16.cu.
 //
 // What bounds it on the H100: arithmetic.  Five products per (query, key)
 // pair, 10 B H Tq Tk D = 11.34 GFLOP at the transformer encoder's shape
@@ -362,279 +361,7 @@ cudaError_t run(const float* q, const float* k, const float* v, const float* bia
   return d <= 64 ? launch<64, kRegs, 2, DQ>(a, s) : launch<128, kShared, 1, DQ>(a, s);
 }
 
-// ---------------------------------------------------------------- bf16 form
-//
-// q, k, v, dO, dK and dV in bf16; LSE, Delta and the dQ partials float32
-// (flash_bwd_fused_bf16_launch, and flash_bwd_dkv_bf16_launch without the dQ
-// phase).  The same kv-major walk: one CTA of 4 warps per (kv span, head,
-// batch row), 64-key tiles (warp w owns keys 16w ..), 32-row query tiles in
-// a ring of two.  K and V are staged in bf16 once per key tile and read as
-// A fragments by ldmatrix at each k-step; Q and dO stay in the ring as the
-// B operands.  Per query tile a warp forms S^T = K Q^T and dP^T = V dO^T
-// (one m16n8k16 bf16 MMA per product, float32 accumulators), P^T = exp(S^T
-// / sqrt(D) + key bias - LSE) and dS^T in float32 (the same Philox mask
-// helpers as the float32 form), then dV += (P M)^T dO and dK += dS^T Q with
-// P M and dS rounded to bf16 as the A operands (the JAX kernel's
-// p_drop.astype(do.dtype) and ds.astype(q.dtype)).  For dQ each warp writes
-// its dS^T, rounded to bf16, transposed into a (32, 64) bf16 tile; after
-// one barrier warp w forms query rows 16 (w % 2) .. + 15 by head-dim half
-// w / 2 of dQ = dS K (dS by ldmatrix, K read transposed) in float32, stored
-// or added into the span's float32 slot, which the wrapper sums and rounds
-// to bf16 once.  dK and dV stay float32 in registers over the query walk
-// and are rounded to bf16 once.  Bounds: 11.34 GFLOP at the encoder's shape
-// at 989 TFLOP/s, 0.0115 ms; the dK / dV form at (2, 4, 5000, 64) 102.4
-// GFLOP, 0.104 ms.
-
-constexpr int SDH = TK + 8;  // row stride (halves) of the (TQ, TK) bf16 dS tile
-
-struct ArgsH {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const float* bias;
-  const unsigned long long* seed;
-  const bf16* dout;
-  const float* lse;
-  const float* delta;
-  float* dq;  // (n_spans, B, H, Tq, D) float32: each kv span's dQ partial
-  bf16* dk;
-  bf16* dv;
-  int batch, heads, tq, tk, d, per_span;
-  float scale;
-  uint32_t drop_thr;
-  float drop_scale;
-  bool vec;
-};
-
-// Shared memory in bytes: K and V (TK, RS) bf16, the ring of query stages
-// (Q and dO (TQ, RS) bf16, then TQ LSE and TQ Delta), the dS tile (DQ)
-template <int DP, bool DQ>
-struct SmemH {
-  static constexpr int RS = DP + 8;
-  static constexpr int V = 2 * TK * RS;
-  static constexpr int RING = 2 * V;
-  static constexpr int DO = 2 * TQ * RS;  // within a stage
-  static constexpr int LSE = 2 * DO;
-  static constexpr int DELTA = LSE + 4 * TQ;
-  static constexpr int STAGE = DELTA + 4 * TQ;
-  static constexpr int DS = RING + STAGES * STAGE;
-  static constexpr int BYTES = DS + (DQ ? 2 * TQ * SDH : 0);
-};
-
-template <int DP, bool DROP, bool DQ>
-__global__ void __launch_bounds__(NT, DP == 64 ? 2 : 1)
-    flash_bwd_fused_bf16_kernel(const ArgsH a) {
-  using Sm = SmemH<DP, DQ>;
-  constexpr int RS = Sm::RS;
-  constexpr int MW = DP / 32;  // 16-wide head-dim blocks of a warp's dQ half
-  extern __shared__ __align__(16) unsigned char smem_h[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_h);
-  bf16* vs = reinterpret_cast<bf16*>(smem_h + Sm::V);
-  unsigned char* ring = smem_h + Sm::RING;
-  bf16* dss = reinterpret_cast<bf16*>(smem_h + Sm::DS);
-
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const size_t bh = (size_t)b * a.heads + h;
-  const size_t qoff = bh * a.tq * a.d, koff = bh * a.tk * a.d;
-  const uint2 key = DROP ? flash::philox_key(a.seed) : make_uint2(0u, 0u);
-  float* dqp = DQ ? a.dq + ((size_t)blockIdx.x * a.batch * a.heads + bh) * a.tq * a.d
-                  : nullptr;
-  const int t_first = blockIdx.x * a.per_span;
-  const int t_end = min(t_first + a.per_span, (a.tk + TK - 1) / TK);
-  const int n_q = (a.tq + TQ - 1) / TQ;
-  const float one[2] = {1.0f, 1.0f};
-  auto fetch = [&](int i) {
-    if (i < n_q) {
-      unsigned char* st = ring + (i % STAGES) * Sm::STAGE;
-      const int q0 = TQ * i;
-      load_tile_h<DP, TQ, NT>(reinterpret_cast<bf16*>(st), a.q + qoff, q0, a.tq, a.d,
-                              a.vec);
-      load_tile_h<DP, TQ, NT>(reinterpret_cast<bf16*>(st + Sm::DO), a.dout + qoff, q0,
-                              a.tq, a.d, a.vec);
-      float* stats = reinterpret_cast<float*>(st + Sm::LSE);
-      for (int j = threadIdx.x; j < 2 * TQ; j += NT) {
-        const int r = q0 + j % TQ;
-        const bool in = r < a.tq;
-        const float* src = (j < TQ ? a.lse : a.delta) + bh * a.tq;
-        cp_async4(stats + j, in ? src + r : src, in);
-      }
-    }
-    cp_commit();  // an empty group past the end keeps the count uniform
-  };
-
-  for (int kt = t_first; kt < t_end; ++kt) {
-    const int k0 = kt * TK;
-    // the previous key tile's reads of K, V, the ring and dS are done
-    __syncthreads();
-    load_tile_h<DP, TK, NT>(ks, a.k + koff, k0, a.tk, a.d, a.vec);
-    load_tile_h<DP, TK, NT>(vs, a.v + koff, k0, a.tk, a.d, a.vec);
-#pragma unroll
-    for (int s = 0; s < STAGES; ++s) fetch(s);  // K and V land with stage 0
-    // the key biases of the lane's keys g, g + 8: -inf past Tk
-    float kb[2];
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int kk = k0 + 16 * w + g + 8 * hf;
-      kb[hf] = kk >= a.tk ? -INFINITY : (a.bias ? __ldg(a.bias + (size_t)b * a.tk + kk) : 0.0f);
-    }
-    float dk[DP / 8][4], dv[DP / 8][4];
-#pragma unroll
-    for (int n = 0; n < DP / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.0f;
-
-    for (int i = 0; i < n_q; ++i) {
-      const int q0 = TQ * i;
-      cp_wait<STAGES - 1>();
-      // every thread's copies are in; every warp is done reading dS
-      __syncthreads();
-      const unsigned char* st = ring + (i % STAGES) * Sm::STAGE;
-      const bf16* qt = reinterpret_cast<const bf16*>(st);
-      const bf16* dot = reinterpret_cast<const bf16*>(st + Sm::DO);
-      const float* lse_t = reinterpret_cast<const float*>(st + Sm::LSE);
-      const float* delta_t = reinterpret_cast<const float*>(st + Sm::DELTA);
-
-      uint32_t kbits[NJ];  // the mask's Philox work, ahead of the products
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-        kbits[j] = DROP ? keep_bits_kv(key, q0 + 8 * j, k0 + 16 * w, h, b, a.drop_thr) : 0u;
-      // S^T = K Q^T and dP^T = V dO^T, the warp's 16 keys by 32 queries
-      float pm[NJ][4], ds[NJ][4];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) pm[j][e] = ds[j][e] = 0.0f;
-      mma_abt_h<DP, NJ, RS>(pm, qt, [&](int kstep, uint32_t(&f)[4]) {
-        ld_a<RS>(f, ks, 16 * w, kstep);
-      });
-      mma_abt_h<DP, NJ, RS>(ds, dot, [&](int kstep, uint32_t(&f)[4]) {
-        ld_a<RS>(f, vs, 16 * w, kstep);
-      });
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int c = 8 * j + 2 * t;
-        const float lse[2] = {q0 + c < a.tq ? lse_t[c] : INFINITY,
-                              q0 + c + 1 < a.tq ? lse_t[c + 1] : INFINITY};
-        const float dl[2] = {delta_t[c], delta_t[c + 1]};  // zero past Tq
-        float keep[4] = {1.0f, 1.0f, 1.0f, 1.0f};
-        if (DROP) keep_scales_kv(kbits[j], a.drop_scale, keep);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = expf(pm[j][e] * a.scale + kb[e >> 1] - lse[e & 1]);
-          pm[j][e] = p * keep[e];
-          ds[j][e] = p * (ds[j][e] * keep[e] - dl[e & 1]) * a.scale;
-        }
-      }
-      // dV += (P M)^T dO, dK += dS^T Q: the accumulators rounded to bf16
-      // as the A operands, dO and Q read transposed from the stage
-      mma_pb_h<NJ, DP / 16, RS>(pm, dot, 0, dv);
-      mma_pb_h<NJ, DP / 16, RS>(ds, qt, 0, dk);
-      if constexpr (!DQ) {
-        __syncthreads();  // every warp is done with this stage
-        fetch(i + STAGES);
-      } else {
-        // dS^T, rounded to bf16, into the (TQ, TK) tile, queries as rows
-#pragma unroll
-        for (int j = 0; j < NJ; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            dss[(8 * j + 2 * t + (e & 1)) * SDH + 16 * w + g + 8 * (e >> 1)] =
-                __float2bfloat16(ds[j][e]);
-        __syncthreads();  // dS is whole; every warp is done with this stage
-        fetch(i + STAGES);
-        // dQ = dS K for query rows 16 (w % 2) .. + 15, head dims (w / 2) DP / 2 ..
-        float dq[2 * MW][4];
-#pragma unroll
-        for (int n = 0; n < 2 * MW; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) dq[n][e] = 0.0f;
-        const int c0 = (w >> 1) * (DP / 2);
-#pragma unroll
-        for (int kk = 0; kk < TK / 16; ++kk) {
-          uint32_t af[4];
-          ld_a<SDH>(af, dss, 16 * (w & 1), kk);
-#pragma unroll
-          for (int nn = 0; nn < MW; ++nn) {
-            uint32_t bf[4];
-            ld_b_kn<RS>(bf, ks, kk, c0 + 16 * nn);
-            mma_bf16(dq[2 * nn], af, bf[0], bf[1]);
-            mma_bf16(dq[2 * nn + 1], af, bf[2], bf[3]);
-          }
-        }
-        store_rows_f<2 * MW>(dqp, dq, q0 + 16 * (w & 1) + g, a.tq, a.d, c0, kt != t_first);
-      }
-    }
-    cp_wait<0>();
-    store_rows_h<DP / 8>(a.dk + koff, dk, k0 + 16 * w + g, a.tk, a.d, 0, one);
-    store_rows_h<DP / 8>(a.dv + koff, dv, k0 + 16 * w + g, a.tk, a.d, 0, one);
-  }
-}
-
-template <int DP, bool DQ>
-cudaError_t launch_bf16(const ArgsH& a, cudaStream_t stream) {
-  constexpr size_t smem = SmemH<DP, DQ>::BYTES;
-  auto kernel = a.seed ? flash_bwd_fused_bf16_kernel<DP, true, DQ>
-                       : flash_bwd_fused_bf16_kernel<DP, false, DQ>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int k_tiles = (a.tk + TK - 1) / TK;
-  const dim3 grid((k_tiles + a.per_span - 1) / a.per_span, a.heads, a.batch);
-  kernel<<<grid, NT, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-template <bool DQ>
-cudaError_t run_bf16(const void* q, const void* k, const void* v, const float* bias,
-                     const unsigned long long* seed, const void* dout, const float* lse,
-                     const float* delta, float* dq, void* dk, void* dv, int batch,
-                     int heads, int tq, int tk, int d, int per_span, float scale,
-                     unsigned drop_thr, float drop_scale, void* stream) {
-  if (batch < 1 || heads < 1 || tq < 1 || tk < 1 || d < 1 || d > 128 ||
-      batch > 65535 || heads > 65535 || per_span < 1 || (DQ && dq == nullptr) ||
-      dk == nullptr || dv == nullptr) {
-    return cudaErrorInvalidValue;
-  }
-  const bool vec = d % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
-                   aligned16(dout);
-  const ArgsH a{(const bf16*)q, (const bf16*)k, (const bf16*)v, bias, seed,
-                (const bf16*)dout, lse, delta, dq, (bf16*)dk, (bf16*)dv, batch, heads,
-                tq, tk, d, per_span, scale, drop_thr, drop_scale, vec};
-  const cudaStream_t s = (cudaStream_t)stream;
-  return d <= 64 ? launch_bf16<64, DQ>(a, s) : launch_bf16<128, DQ>(a, s);
-}
-
 }  // namespace
-
-// The bf16 forms, the float32 entries' signature: q, k, v, dout, dk and dv
-// bf16; bias, lse, delta and the dQ partials dq float32.
-extern "C" int flash_bwd_fused_bf16_launch(const void* q, const void* k, const void* v,
-                                           const float* bias,
-                                           const unsigned long long* seed,
-                                           const void* dout, const float* lse,
-                                           const float* delta, float* dq, void* dk,
-                                           void* dv, int batch, int heads, int tq, int tk,
-                                           int d, int per_span, float scale,
-                                           unsigned drop_thr, float drop_scale,
-                                           void* stream) {
-  return run_bf16<true>(q, k, v, bias, seed, dout, lse, delta, dq, dk, dv, batch, heads,
-                        tq, tk, d, per_span, scale, drop_thr, drop_scale, stream);
-}
-
-extern "C" int flash_bwd_dkv_bf16_launch(const void* q, const void* k, const void* v,
-                                         const float* bias, const unsigned long long* seed,
-                                         const void* dout, const float* lse,
-                                         const float* delta, float* dq, void* dk, void* dv,
-                                         int batch, int heads, int tq, int tk, int d,
-                                         int per_span, float scale, unsigned drop_thr,
-                                         float drop_scale, void* stream) {
-  (void)dq;
-  (void)per_span;
-  return run_bf16<false>(q, k, v, bias, seed, dout, lse, delta, nullptr, dk, dv, batch,
-                         heads, tq, tk, d, 1, scale, drop_thr, drop_scale, stream);
-}
 
 // The backward entries' common signature (ops/flash_attention.py's
 // _BWD_ARGS): dq is the (n_spans, B, H, Tq, D) partials buffer.

@@ -10,15 +10,19 @@ taken.  Other dtypes (float16) and mixed operands raise.
 Four kernels, each in a float32 and a bf16 form, each form behind a wrapper
 with its own launch counter (``FLASH_FWD`` / ``FLASH_FWD_BF16`` and so on):
 
-* ``flash_fwd`` (``csrc/flash_fwd.cu``): online-softmax attention, writes O
-  and the per-row logsumexp LSE (B, H, Tq);
-* ``flash_bwd_fused`` (``csrc/flash_bwd_fused.cu``): the kv-major
-  backward that recomputes the probabilities from LSE, accumulates dK and
-  dV on chip and writes each kv span's dQ partial to its own slot; the
-  wrapper sums the slots (no atomics, so the result is deterministic);
-* ``flash_bwd_dkv`` (``csrc/flash_bwd_fused.cu``'s dK/dV form, without the
-  dQ phase) and ``flash_bwd_dq`` (``csrc/flash_bwd_dq.cu``): the two-pass
-  backward for long key sequences, dK and dV kv-major, dQ q-major.
+* ``flash_fwd`` (``csrc/flash_fwd.cu``; bf16: ``csrc/flash_fwd_bf16.cu``):
+  online-softmax attention, writes O and the per-row logsumexp LSE (B, H,
+  Tq);
+* ``flash_bwd_fused``: the backward that recomputes the probabilities from
+  LSE in one launch.  The float32 form (``csrc/flash_bwd_fused.cu``) is
+  kv-major, accumulates dK and dV on chip and writes each kv span's dQ
+  partial to its own slot, which the wrapper sums (no atomics, so the
+  result is deterministic); the bf16 form (``csrc/flash_bwd_bf16.cu``)
+  runs a kv-major role for dK / dV and a q-major role that sums dQ over
+  every key on chip, so it writes dQ once, in bf16;
+* ``flash_bwd_dkv`` (the fused kernels' dK/dV form, without dQ) and
+  ``flash_bwd_dq`` (``csrc/flash_bwd_dq.cu``): the two-pass backward for
+  long key sequences, dK and dV kv-major, dQ q-major.
 
 The float32 forms run their products on the tensor cores in 3xTF32
 (``csrc/flash_mma.cuh``): each float32 operand is split into two TF32
@@ -30,14 +34,17 @@ The bf16 forms take bf16 q, k, v and dO as the JAX kernels take them: the
 products' operands stay bf16 (one bf16 MMA each) and accumulate in
 float32; S, the softmax statistics, LSE, Delta and dP are float32; P (times
 the keep mask) is rounded to bf16 before P V and P^T dO, dS before dS^T Q
-and dS K; O, dK and dV are rounded to bf16 once, dQ once after the fused
-form's partials are summed in float32.  O, dQ, dK and dV come out bf16, LSE
-float32.  Their plain versions (``flash_fwd_reference`` and
-``flash_bwd_reference`` on bf16 inputs) compute in float32 from the
-upcast operands and round at exactly those points, with P taken after the
-row's final max (the JAX kernel's one-block form, T <= 512); the kernels
-round P relative to the running max of their key tiles, which can put an
-element an ulp away.
+and dS K; O, dK, dV and dQ are rounded to bf16 once.  O, dQ, dK and dV
+come out bf16, LSE float32.  The forward and the fused backward's bf16
+forms run on Hopper's warpgroup MMAs over tiles that TMA loads
+(``csrc/flash_wgmma.cuh``); ``flash_bf16_plan`` is their launch plan, and
+TMA's 16-byte rows make the wrapper pad a head dim that is not a multiple
+of 8 with zero columns (``_tma_operand``).  Their plain versions
+(``flash_fwd_reference`` and ``flash_bwd_reference`` on bf16 inputs)
+compute in float32 from the upcast operands and round at exactly those
+points, with P taken after the row's final max (the JAX kernel's
+one-block form, T <= 512); the kernels round P relative to the running
+max of their key tiles, which can put an element an ulp away.
 
 ``FlashAttention`` (an ``autograd.Function``) saves (q, k, v, bias, seed,
 O, LSE); its backward forms Delta = rowsum(dO * O) in float32 and takes the
@@ -58,6 +65,7 @@ is the same, and the backward regenerates the forward's.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -70,13 +78,21 @@ from multimodal_emotion_detection_tpu_torch.ops._build import (
 )
 
 MASKED = -1e9  # additive bias of a masked key (the JAX package's convention)
-# past this many keys the fused backward's dQ partials (one slot per kv
-# span, at most MAX_SPANS) would outgrow what it saves: the two-pass form
-# takes over, as the JAX package's _FUSE_MAX_NK = 8 blocks of 512
+# past this many keys the two-pass form takes over, as the JAX package's
+# _FUSE_MAX_NK = 8 blocks of 512; below it the float32 fused backward's dQ
+# partials (one slot per kv span, at most MAX_SPANS) stay <= 8 x |dQ|
 FUSE_MAX_TK = 4096
 MAX_SPANS = 8
 KV_TILE = 64  # keys per tile of the kernels
 MAX_HEAD_DIM = 128
+# the bf16 kernels (csrc/flash_fwd_bf16.cu, csrc/flash_bwd_bf16.cu): 64-row
+# tiles, rings of two stages (the forward) and three (the backward), CTAs
+# of one warpgroup, 64-column TMA boxes of 128 bytes a row
+BF16_TILE = 64
+BF16_FWD_STAGES = 2
+BF16_BWD_STAGES = 3
+BF16_THREADS = 128
+SMEM_LIMIT = 232448  # shared memory a CTA may use on the H100
 
 # ---------------------------------------------------------------------------
 # Dropout mask: Philox4x32-10 in torch integer ops
@@ -251,11 +267,15 @@ _BWD_ARGS = [_P] * 11 + [_I] * 6 + [_F, _U, _F, _P]
 FLASH_BWD_FUSED = CudaKernel("flash_bwd_fused", "flash_bwd_fused_launch", _BWD_ARGS)
 FLASH_BWD_DKV = CudaKernel("flash_bwd_fused", "flash_bwd_dkv_launch", _BWD_ARGS)
 FLASH_BWD_DQ = CudaKernel("flash_bwd_dq", "flash_bwd_dq_launch", _BWD_ARGS)
-# the bf16 forms of the same sources, counted apart
-FLASH_FWD_BF16 = CudaKernel("flash_fwd", "flash_fwd_bf16_launch", _FWD_ARGS)
-FLASH_BWD_FUSED_BF16 = CudaKernel("flash_bwd_fused", "flash_bwd_fused_bf16_launch",
-                                  _BWD_ARGS)
-FLASH_BWD_DKV_BF16 = CudaKernel("flash_bwd_fused", "flash_bwd_dkv_bf16_launch", _BWD_ARGS)
+# the bf16 forms, counted apart: the forward and the fused backward (and its
+# dK / dV form) on wgmma and TMA, with the plan's numbers in their arguments
+_FWD_BF16_ARGS = [_P] * 7 + [_I] * 7 + [_F, _U, _F, _P]
+_BWD_BF16_ARGS = [_P] * 11 + [_I] * 8 + [_F, _U, _F, _P]
+FLASH_FWD_BF16 = CudaKernel("flash_fwd_bf16", "flash_fwd_bf16_launch", _FWD_BF16_ARGS)
+FLASH_BWD_FUSED_BF16 = CudaKernel("flash_bwd_bf16", "flash_bwd_fused_bf16_launch",
+                                  _BWD_BF16_ARGS)
+FLASH_BWD_DKV_BF16 = CudaKernel("flash_bwd_bf16", "flash_bwd_dkv_bf16_launch",
+                                _BWD_BF16_ARGS)
 FLASH_BWD_DQ_BF16 = CudaKernel("flash_bwd_dq", "flash_bwd_dq_bf16_launch", _BWD_ARGS)
 # operand dtype -> its kernel forms
 _FORMS = {torch.float32: dict(fwd=FLASH_FWD, fused=FLASH_BWD_FUSED, dkv=FLASH_BWD_DKV,
@@ -271,11 +291,88 @@ def bwd_route(tk: int) -> str:
 
 
 def kv_spans(tk: int) -> Tuple[int, int]:
-    """(number of kv spans, kv tiles per span) of the fused backward: at
-    most ``MAX_SPANS`` spans, so the dQ partials stay <= 8 x |dQ|."""
+    """(number of kv spans, kv tiles per span) of the float32 fused
+    backward: at most ``MAX_SPANS`` spans, so the dQ partials stay <= 8 x
+    |dQ|.  (The bf16 form writes no partials: ``flash_bf16_plan``.)"""
     tiles = -(-tk // KV_TILE)
     per_span = -(-tiles // MAX_SPANS)
     return -(-tiles // per_span), per_span
+
+
+@functools.lru_cache(maxsize=256)
+def flash_bf16_plan(kind: str, batch: int, heads: int, tq: int, tk: int, d: int) -> dict:
+    """The launch plan of a bf16 kernel: ``kind`` 'fwd' (the forward),
+    'fused' (the fused backward) or 'dkv' (its dK / dV form).
+
+    Returns ``dp``, the head dim the kernel sees (``d`` padded to a multiple
+    of 8: TMA moves rows of whole 16-byte chunks); ``regions``, its 64-column
+    boxes (1 up to 64, 2 up to 128); the grid (CTAs along x, heads, batch
+    rows) and its split into ``kv_ctas`` (a 64-key tile each) and
+    ``q_ctas`` (a 64-row query tile each; the forward's CTAs are all query
+    tiles); ``query_tile``, the rows of a kv-role query tile (64, or 32 at
+    a head dim past 64, where dK and dV take twice the registers);
+    ``threads`` a CTA; and ``smem``, its dynamic shared memory in bytes (the
+    kernel checks it against its own).  Raises for shapes the kernels
+    refuse, before any launch.  Cached: callers read the dict and must not
+    change it."""
+    if kind not in ("fwd", "fused", "dkv"):
+        raise ValueError(f"flash_bf16_plan: kind {kind!r} is not 'fwd', 'fused' or 'dkv'")
+    if min(batch, heads, tq, tk, d) < 1:
+        raise ValueError(f"flash_bf16_plan: empty dimension in ({batch}, {heads}, {tq}, "
+                         f"{tk}, {d})")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"flash_bf16_plan: head dim {d} > {MAX_HEAD_DIM} is not supported")
+    if batch > 65535 or heads > 65535:
+        raise ValueError(f"flash_bf16_plan: {batch} batch rows x {heads} heads: a grid "
+                         "dimension takes at most 65535")
+    dp = -(-d // 8) * 8
+    regions = 1 if dp <= 64 else 2
+    tile = BF16_TILE * 128 * regions  # bytes of a 64-row tile, every region
+    query_tile = BF16_TILE if regions == 1 else BF16_TILE // 2
+    n_q, n_k = -(-tq // BF16_TILE), -(-tk // BF16_TILE)
+    if kind == "fwd":
+        kv_ctas, q_ctas = 0, n_q
+        smem = (1 + 2 * BF16_FWD_STAGES) * tile  # Q, then K and V a stage
+    else:
+        kv_ctas, q_ctas = n_k, n_q if kind == "fused" else 0
+        # K and V, a stage's Q and dO, and each stage's LSE and Delta
+        kv_bytes = (2 * tile + BF16_BWD_STAGES * 2 * query_tile * 128 * regions
+                    + BF16_BWD_STAGES * 2 * query_tile * 4)
+        q_bytes = 2 * tile + BF16_BWD_STAGES * 2 * tile
+        smem = max(kv_bytes, q_bytes if q_ctas else 0)
+    smem += 1024  # slack that aligns the first tile to the swizzle's 1024 bytes
+    return dict(kind=kind, dp=dp, regions=regions, grid=(kv_ctas + q_ctas, heads, batch),
+                kv_ctas=kv_ctas, q_ctas=q_ctas, query_tile=query_tile,
+                threads=BF16_THREADS, smem=smem)
+
+
+def plan_items(plan: dict, tq: int, tk: int):
+    """Every CTA of ``plan``'s grid as the kernel reads its block index:
+    (role, first row, last row + 1, head, batch row), role 'kv' for a key
+    tile, 'q' for a query tile (rows clipped to the sequence)."""
+    n, heads, batch = plan["grid"]
+    for b in range(batch):
+        for h in range(heads):
+            for x in range(n):
+                if x < plan["kv_ctas"]:
+                    r0 = BF16_TILE * x
+                    yield "kv", r0, min(r0 + BF16_TILE, tk), h, b
+                else:
+                    r0 = BF16_TILE * (x - plan["kv_ctas"])
+                    yield "q", r0, min(r0 + BF16_TILE, tq), h, b
+
+
+def _tma_operand(t: torch.Tensor, dp: int) -> torch.Tensor:
+    """``t`` (B, H, T, d) bf16 as the kernels' tensor maps take it: the head
+    dim padded with zero columns to ``dp``, 16-byte aligned (a copy where
+    either is not already so)."""
+    if t.shape[-1] != dp:
+        return torch.nn.functional.pad(t, (0, dp - t.shape[-1]))
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _unpad(t: torch.Tensor, d: int) -> torch.Tensor:
+    return t if t.shape[-1] == d else t[..., :d].contiguous()
 
 
 def _operand_dtype(name: str, q, k, v, do=None) -> torch.dtype:
@@ -342,8 +439,8 @@ def flash_fwd(q, k, v, bias, seed, rate: float):
     """Attention forward -> (O (B, H, Tq, D) in the operands' dtype, LSE
     (B, H, Tq) float32).
 
-    On CUDA tensors this launches ``csrc/flash_fwd.cu``'s float32 form
-    (counted in ``FLASH_FWD.launches``) or, on bf16 operands, its bf16 form
+    On CUDA tensors this launches ``csrc/flash_fwd.cu`` (counted in
+    ``FLASH_FWD.launches``) or, on bf16 operands, ``csrc/flash_fwd_bf16.cu``
     (``FLASH_FWD_BF16.launches``); on CPU tensors it runs
     ``flash_fwd_reference``.
     """
@@ -351,8 +448,18 @@ def flash_fwd(q, k, v, bias, seed, rate: float):
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, bias, seed, rate)
     b, h, tq, tk, d, seed_ptr = _checked("flash_fwd", q, k, v, bias, seed, rate)
-    o = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    if dtype == torch.bfloat16:
+        plan = flash_bf16_plan("fwd", b, h, tq, tk, d)
+        dp = plan["dp"]
+        qp, kp, vp = (_tma_operand(t, dp) for t in (q, k, v))
+        o = q.new_empty((b, h, tq, dp))
+        FLASH_FWD_BF16(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                       bias.data_ptr() if bias is not None else None, seed_ptr,
+                       o.data_ptr(), lse.data_ptr(), b, h, tq, tk, dp, plan["grid"][0],
+                       plan["smem"], 1.0 / math.sqrt(d), *_drop_args(rate), stream_of(q))
+        return _unpad(o, d), lse
+    o = torch.empty_like(q)
     _FORMS[dtype]["fwd"](q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      bias.data_ptr() if bias is not None else None, seed_ptr,
                      o.data_ptr(), lse.data_ptr(), b, h, tq, tk, d,
@@ -372,40 +479,66 @@ def _bwd_launch(form: str, q, k, v, bias, seed, rate, do, lse, delta,
         1.0 / math.sqrt(d), *_drop_args(rate), stream_of(q))
 
 
+def _bwd_bf16_launch(kind: str, q, k, v, bias, seed, rate, do, lse, delta):
+    """The bf16 fused backward ('fused' -> dQ, dK, dV) or its dK / dV form
+    ('dkv' -> dK, dV) on the plan's grid."""
+    b, h, tq, tk, d, seed_ptr = _checked(f"flash_bwd_{kind}", q, k, v, bias, seed, rate,
+                                         do=do, lse=lse, delta=delta)
+    plan = flash_bf16_plan(kind, b, h, tq, tk, d)
+    dp = plan["dp"]
+    qp, kp, vp, dop = (_tma_operand(t, dp) for t in (q, k, v, do))
+    dq = q.new_empty((b, h, tq, dp)) if kind == "fused" else None
+    dk, dv = k.new_empty((b, h, tk, dp)), k.new_empty((b, h, tk, dp))
+    kernel = FLASH_BWD_FUSED_BF16 if kind == "fused" else FLASH_BWD_DKV_BF16
+    kernel(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+           bias.data_ptr() if bias is not None else None, seed_ptr, dop.data_ptr(),
+           lse.data_ptr(), delta.data_ptr(), dq.data_ptr() if dq is not None else None,
+           dk.data_ptr(), dv.data_ptr(), b, h, tq, tk, dp, plan["kv_ctas"], plan["q_ctas"],
+           plan["smem"], 1.0 / math.sqrt(d), *_drop_args(rate), stream_of(q))
+    grads = (dk, dv) if dq is None else (dq, dk, dv)
+    return tuple(_unpad(g, d) for g in grads)
+
+
 def flash_bwd_fused(q, k, v, bias, seed, rate: float, do, lse, delta):
     """Fused backward -> (dQ, dK, dV) in the operands' dtype.
 
     On CUDA tensors this launches ``csrc/flash_bwd_fused.cu``'s kv-major
     kernel (one CTA per kv span, head and batch row; each span's dQ partial
-    in its own float32 slot, summed here and, in the bf16 form, rounded to
-    bf16 once) and counts it in ``FLASH_BWD_FUSED.launches``, its bf16 form
-    in ``FLASH_BWD_FUSED_BF16.launches``; on CPU tensors it runs
+    in its own float32 slot, summed here) and counts it in
+    ``FLASH_BWD_FUSED.launches``; on bf16 operands ``csrc/flash_bwd_bf16.cu``
+    (a kv role for dK and dV, a q role for dQ, no partials), counted in
+    ``FLASH_BWD_FUSED_BF16.launches``; on CPU tensors it runs
     ``flash_bwd_reference``.
     """
-    _operand_dtype("flash_bwd_fused", q, k, v, do)
+    dtype = _operand_dtype("flash_bwd_fused", q, k, v, do)
     if q.device.type == "cpu":
         return flash_bwd_reference(q, k, v, bias, seed, rate, do, lse, delta)
+    if dtype == torch.bfloat16:
+        return _bwd_bf16_launch("fused", q, k, v, bias, seed, rate, do, lse, delta)
     n_spans, per_span = kv_spans(k.shape[2])
     dqp = q.new_empty((n_spans,) + tuple(q.shape), dtype=torch.float32)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _bwd_launch("fused", q, k, v, bias, seed, rate,
                 do, lse, delta, dqp, dk, dv, per_span)
-    return dqp.sum(dim=0).to(q.dtype), dk, dv
+    return dqp.sum(dim=0), dk, dv
 
 
 def flash_bwd_dkv(q, k, v, bias, seed, rate: float, do, lse, delta):
     """Two-pass backward, first pass -> (dK, dV) in the operands' dtype.
 
-    On CUDA tensors this launches ``csrc/flash_bwd_fused.cu``'s kv-major
-    kernel in its dK/dV form (no dQ phase; one CTA per 64-key tile, head
-    and batch row; dK and dV bit for bit the fused form's) and counts it in
-    ``FLASH_BWD_DKV.launches``, its bf16 form in
+    On CUDA tensors this launches the fused kernel in its dK/dV form (no
+    dQ; one CTA per 64-key tile, head and batch row; dK and dV bit for bit
+    the fused form's): ``csrc/flash_bwd_fused.cu``'s, counted in
+    ``FLASH_BWD_DKV.launches``, or on bf16 operands
+    ``csrc/flash_bwd_bf16.cu``'s kv role, counted in
     ``FLASH_BWD_DKV_BF16.launches``; on CPU tensors it runs
     ``flash_bwd_reference``.
     """
-    _operand_dtype("flash_bwd_dkv", q, k, v, do)
+    dtype = _operand_dtype("flash_bwd_dkv", q, k, v, do)
     if q.device.type == "cpu":
         return flash_bwd_reference(q, k, v, bias, seed, rate, do, lse, delta)[1:]
+    if dtype == torch.bfloat16:
+        return _bwd_bf16_launch("dkv", q, k, v, bias, seed, rate, do, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _bwd_launch("dkv", q, k, v, bias, seed, rate,
                 do, lse, delta, None, dk, dv, 1)

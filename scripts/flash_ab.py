@@ -16,7 +16,12 @@ L2 flushed before each, 20 calls after 3 warm-ups):
   bias at rate 0.1, and SDPA's backward there; ``flash_bwd_dkv`` also with
   the first 4,224 keys only (66 key tiles x 8 = 528 CTAs, two whole waves
   at two CTAs an SM, against 632 in 2.4 waves), which shows what the last
-  wave's tail costs.
+  wave's tail costs;
+* the bf16 forms: ``flash_fwd`` and ``flash_bwd_fused`` at (32, 4, 372, 64)
+  at rates 0 and 0.1, each beside SDPA in bf16 at the same ``dropout_p``
+  (forward, and backward by ``autograd.grad``), and ``flash_bwd_dkv`` /
+  ``flash_bwd_dq`` at (2, 4, 5000, 64) with a key bias at rate 0.1 beside
+  SDPA's bf16 backward.
 
 The inputs are ``chip_smoke.py``'s.  ``--child ROOT`` runs one child.
 After the four children, two measurements of this checkout alone:
@@ -32,9 +37,16 @@ After the four children, two measurements of this checkout alone:
   0: each phase's share of the warps' clock64() time in the query walk
   (the products, P / mask / dS, the dS transpose, dQ), and the cycles a
   warp spends per query tile; then its dK / dV form (``flash_bwd_dkv``,
-  the same build) at (2, 4, 5000, 64) with a key bias, rates 0.1 and 0.
+  the same build) at (2, 4, 5000, 64) with a key bias, rates 0.1 and 0;
+* ``--fwd-timers`` (also run after the children): the bf16 forward built
+  with ``-DFLASH_FWD_TIMERS=1`` at (32, 4, 372, 64), rates 0.1 and 0: each
+  phase's share of the consumer threads' clock64() time;
+* ``--bf16-fused-timers`` (also run after the children): the bf16 fused
+  backward built with ``-DFLASH_BWD_TIMERS=1`` there, rates 0.1 and 0: the
+  phases of its kv role and of its q role.
 
-Needs a CUDA card; exits non-zero without one.
+A timer build names its phases (``<source>_timer_names``).  Needs a CUDA
+card; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -48,6 +60,10 @@ from pathlib import Path
 
 
 def _timed(fn, flush, reps=20, warmup=3):
+    """Median device time of ``fn`` in ms, the L2 cache flushed before each
+    call; a ~0.5 ms spin of the card after the flush lets the host enqueue
+    the start event and the call before the card reaches them, so the
+    wrapper's own host time is not counted."""
     import torch
 
     for _ in range(warmup):
@@ -55,6 +71,7 @@ def _timed(fn, flush, reps=20, warmup=3):
     times = []
     for _ in range(reps):
         flush()
+        torch.cuda._sleep(1_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -65,7 +82,7 @@ def _timed(fn, flush, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def child(root: Path) -> dict:
+def child(root: Path, bf16_only: bool = False) -> dict:
     import numpy as np
     import torch
 
@@ -95,6 +112,9 @@ def child(root: Path) -> dict:
         return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
 
     res = {"root": str(root), "card": torch.cuda.get_device_name(0)}
+    if bf16_only:
+        res.update(_bf16_times(fa, inputs, sdpa_bwd, flush))
+        return res
     seed = torch.tensor([0x5EED_0F_F1A5], dtype=torch.int64, device=dev)
     q, k, v, _, do = inputs(32, 4, 372, 64, 5)
     o, lse = fa.flash_fwd_reference(q, k, v, None, seed, 0.1)
@@ -123,6 +143,68 @@ def child(root: Path) -> dict:
     res["long_dkv_tk4224_ms"] = _timed(lambda: fa.flash_bwd_dkv(*args_kv), flush)
     res["long_dq_ms"] = _timed(lambda: fa.flash_bwd_dq(*args), flush)
     res["long_sdpa_bwd_ms"] = _timed(sdpa_bwd(q, k, v, bias, do), flush)
+    res.update(_bf16_times(fa, inputs, sdpa_bwd, flush))
+    return res
+
+
+def _host_us(fn, reps=20) -> float:
+    """Median host time of one call of ``fn`` in µs, with the card kept
+    busy so that no call waits on it."""
+    import time
+
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(500_000)
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e6 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def _bf16_times(fa, inputs, sdpa_bwd, flush) -> dict:
+    """The bf16 forms (rows 16b, 17b at the encoder's shape, 18b and 19b at
+    (2, 4, 5000, 64)) beside SDPA in bf16, each at dropout rates 0 and 0.1
+    (SDPA's ``dropout_p``, its training mode); the host time of a forward
+    and a fused backward call."""
+    import numpy as np
+    import torch
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bf16 = torch.bfloat16
+    dev = torch.device("cuda")
+    res = {}
+    seed = torch.tensor([0x5EED_0F_F1A5], dtype=torch.int64, device=dev)
+    q, k, v, _, do = (x if x is None else x.to(bf16) for x in inputs(32, 4, 372, 64, 5))
+    for rate, tag in ((0.0, "rate0"), (0.1, "rate01")):
+        o, lse = fa.flash_fwd_reference(q, k, v, None, seed, rate)
+        args = (q, k, v, None, seed, rate, do, lse, (do.float() * o.float()).sum(-1))
+        res[f"bf16_fwd_{tag}_ms"] = _timed(
+            lambda: fa.flash_fwd(q, k, v, None, seed, rate), flush)
+        res[f"bf16_sdpa_fwd_{tag}_ms"] = _timed(
+            lambda: sdpa(q, k, v, dropout_p=rate), flush)
+        res[f"bf16_bwd_fused_{tag}_ms"] = _timed(lambda: fa.flash_bwd_fused(*args), flush)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = sdpa(*leaves, dropout_p=rate)
+        res[f"bf16_sdpa_bwd_{tag}_ms"] = _timed(
+            lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), flush)
+        if rate > 0.0:
+            res["bf16_fwd_host_us"] = _host_us(lambda: fa.flash_fwd(q, k, v, None, seed, rate))
+            res["bf16_bwd_fused_host_us"] = _host_us(lambda: fa.flash_bwd_fused(*args))
+
+    rng = np.random.RandomState(31)
+    valid = rng.rand(2, 5000) > 0.1
+    valid[:, 0] = True
+    q, k, v, bias, do = inputs(2, 4, 5000, 64, 32, valid)
+    q, k, v, do = (x.to(bf16) for x in (q, k, v, do))
+    seed = torch.tensor([0xA77E5710], dtype=torch.int64, device=dev)
+    o, lse = fa.flash_fwd_reference(q, k, v, bias, seed, 0.1)
+    args = (q, k, v, bias, seed, 0.1, do, lse, (do.float() * o.float()).sum(-1))
+    res["bf16_long_dkv_ms"] = _timed(lambda: fa.flash_bwd_dkv(*args), flush)
+    res["bf16_long_dq_ms"] = _timed(lambda: fa.flash_bwd_dq(*args), flush)
+    res["bf16_long_sdpa_bwd_ms"] = _timed(sdpa_bwd(q, k, v, bias.to(bf16), do), flush)
     return res
 
 
@@ -177,15 +259,11 @@ def dq_timers(root: Path) -> None:
     import torch
 
     sys.path.insert(0, str(root))
-    from multimodal_emotion_detection_tpu_torch.ops import _build
     from multimodal_emotion_detection_tpu_torch.ops import flash_attention as fa
 
-    kern = _build.CudaKernel("flash_bwd_dq", "flash_bwd_dq_launch",
-                             fa.FLASH_BWD_DQ.argtypes)
-    lib = _timed_lib(root, "flash_bwd_dq", "-DFLASH_DQ_TIMERS=1", kern)
+    lib = _timed_lib(root, "flash_bwd_dq", "-DFLASH_DQ_TIMERS=1", fa.FLASH_BWD_DQ)
     timers = lib.flash_bwd_dq_timers
     timers.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    fa.FLASH_BWD_DQ = kern
     dev = torch.device("cuda")
     rng = np.random.RandomState(32)
     q, k, v, do = (torch.from_numpy(rng.randn(2, 4, 5000, 64).astype(np.float32)).to(dev)
@@ -290,36 +368,147 @@ def fused_timers(root: Path) -> None:
                   f"{n} {100 * x / total:.1f}%" for n, x in zip(names[:5], buf)))
 
 
+def _phase_report(tag: str, names, buf) -> None:
+    total = sum(buf)
+    print(f"{tag}: {total / 1e9:.3f} G thread-cycles in all; " + ", ".join(
+        f"{n} {100 * x / total:.1f}%" for n, x in zip(names, buf)))
+
+
+def _run_timed(timers, buf, fn) -> None:
+    """``fn`` once to warm, then once with the timers zeroed before."""
+    import ctypes
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    timers(ctypes.addressof(buf), 1)
+    fn()
+    torch.cuda.synchronize()
+    timers(ctypes.addressof(buf), 1)
+
+
+def fwd_timers(root: Path) -> None:
+    """The bf16 forward (row 16b) built with -DFLASH_FWD_TIMERS=1 at the
+    encoder's (32, 4, 372, 64), rates 0.1 and 0: each phase's share of the
+    threads' clock64() time."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(root))
+    from multimodal_emotion_detection_tpu_torch.ops import flash_attention as fa
+
+    src = fa.FLASH_FWD_BF16.source
+    lib = _timed_lib(root, src, "-DFLASH_FWD_TIMERS=1", fa.FLASH_FWD_BF16)
+    timers = getattr(lib, f"{src}_timers")
+    timers.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    names = _timer_names(lib, src)
+    buf = (ctypes.c_ulonglong * len(names))()
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(5)
+    b, h, t, d = 32, 4, 372, 64
+    q, k, v = (torch.from_numpy(rng.randn(b, h, t, d).astype(np.float32)).to(dev)
+               .to(torch.bfloat16) for _ in range(3))
+    seed = torch.tensor([0x5EED_0F_F1A5], dtype=torch.int64, device=dev)
+    for rate in (0.1, 0.0):
+        _run_timed(timers, buf, lambda: fa.flash_fwd(q, k, v, None, seed, rate))
+        _phase_report(f"[fwd_timers] bf16 ({b}, {h}, {t}, {d}) rate {rate}", names, buf)
+
+
+def _timer_names(lib, src: str):
+    """The phase names a timer build reports (``<src>_timer_names``, a
+    comma-separated string)."""
+    import ctypes
+
+    fn = getattr(lib, f"{src}_timer_names")
+    fn.restype = ctypes.c_char_p
+    return fn().decode().split(",")
+
+
+def bf16_fused_timers(root: Path) -> None:
+    """The bf16 fused backward (row 17b) built with -DFLASH_BWD_TIMERS=1 at
+    (32, 4, 372, 64), rates 0.1 and 0; and the time of the sum the first
+    design's wrapper made of its float32 dQ partials (one a kv span of the
+    float32 form's ``kv_spans``) and its rounding to bf16, which this
+    design does not make."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(root))
+    from multimodal_emotion_detection_tpu_torch.ops import flash_attention as fa
+
+    src = fa.FLASH_BWD_FUSED_BF16.source
+    lib = _timed_lib(root, src, "-DFLASH_BWD_TIMERS=1", fa.FLASH_BWD_FUSED_BF16,
+                     fa.FLASH_BWD_DKV_BF16)
+    timers = getattr(lib, f"{src}_timers")
+    timers.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    names = _timer_names(lib, src)
+    buf = (ctypes.c_ulonglong * len(names))()
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(5)
+    b, h, t, d = 32, 4, 372, 64
+    q, k, v, do = (torch.from_numpy(rng.randn(b, h, t, d).astype(np.float32)).to(dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    seed = torch.tensor([0x5EED_0F_F1A5], dtype=torch.int64, device=dev)
+    for rate in (0.1, 0.0):
+        o, lse = fa.flash_fwd_reference(q, k, v, None, seed, rate)
+        args = (q, k, v, None, seed, rate, do, lse, (do.float() * o.float()).sum(-1))
+        _run_timed(timers, buf, lambda: fa.flash_bwd_fused(*args))
+        _phase_report(f"[fused_timers] bf16 ({b}, {h}, {t}, {d}) rate {rate}", names, buf)
+    n_spans = fa.kv_spans(t)[0]
+    parts = torch.randn((n_spans, b, h, t, d), device=dev)
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=dev).zero_
+    ms = _timed(lambda: parts.sum(dim=0).to(torch.bfloat16), flush)
+    print(f"[fused_timers] the first design's wrapper sum of {n_spans} float32 dQ "
+          f"partials and its rounding to bf16 (not made here): {ms:.4f} ms")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     group = ap.add_mutually_exclusive_group(required=True)
     group.add_argument("--parent", type=Path, help="the other checkout")
     group.add_argument("--child", type=Path, help="time this tree alone")
+    ap.add_argument("--bf16", action="store_true",
+                    help="the bf16 forms alone, and only their phase timers")
     group.add_argument("--mma-rate", action="store_true", help="mma.sync TF32 rate")
     group.add_argument("--dq-timers", action="store_true", help="dq phase shares")
     group.add_argument("--fused-timers", action="store_true",
                        help="the fused backward's phase shares")
+    group.add_argument("--fwd-timers", action="store_true",
+                       help="the bf16 forward's phase shares")
+    group.add_argument("--bf16-fused-timers", action="store_true",
+                       help="the bf16 fused backward's phase shares")
     opts = ap.parse_args()
     here = Path(__file__).resolve().parents[1]
     if opts.child is not None:
-        print(json.dumps(child(opts.child.resolve())))
+        print(json.dumps(child(opts.child.resolve(), opts.bf16)))
         return
-    if opts.mma_rate or opts.dq_timers or opts.fused_timers:
-        (mma_rate if opts.mma_rate else dq_timers if opts.dq_timers else fused_timers)(here)
-        return
+    modes = {"mma_rate": mma_rate, "dq_timers": dq_timers, "fused_timers": fused_timers,
+             "fwd_timers": fwd_timers, "bf16_fused_timers": bf16_fused_timers}
+    for mode, fn in modes.items():
+        if getattr(opts, mode):
+            fn(here)
+            return
     parent = opts.parent.resolve()
     runs = []
     for tag, root in (("parent", parent), ("change", here), ("change", here),
                       ("parent", parent)):
-        out = subprocess.run([sys.executable, __file__, "--child", str(root)],
+        out = subprocess.run([sys.executable, __file__, "--child", str(root)]
+                             + (["--bf16"] if opts.bf16 else []),
                              capture_output=True, text=True, check=True)
         runs.append((tag, json.loads(out.stdout.strip().splitlines()[-1])))
         print(f"[flash_ab] {tag}: {out.stdout.strip().splitlines()[-1]}")
-    keys = [k for k in runs[0][1] if k.endswith("_ms")]
+    keys = [k for k in runs[0][1] if k.endswith(("_ms", "_us"))]
     for key in keys:
         print(f"[flash_ab] {key}: " + ", ".join(
             f"{tag} {r[key]:.4f}" for tag, r in runs))
-    for flag in ("--mma-rate", "--dq-timers", "--fused-timers"):
+    flags = ("--mma-rate", "--dq-timers", "--fused-timers", "--fwd-timers",
+             "--bf16-fused-timers")
+    for flag in flags[3:] if opts.bf16 else flags:
         subprocess.run([sys.executable, __file__, flag], check=True)
 
 

@@ -1523,6 +1523,39 @@ def test_flash_bf16_kernels_match_plain(b, h, tq, tk, d, masked, rate):
     _check_flash_bf16_kernels(b, h, tq, tk, d, masked, rate)
 
 
+def test_flash_bf16_fused_backward_at_the_fused_routes_last_size():
+    # Tk 4,096, the most keys the fused route takes: the q role sums dQ over
+    # 64 key tiles on chip, every query row against its plain version
+    _check_flash_bf16_kernels(1, 2, 4096, 4096, 64, True, 0.1)
+
+
+@pytest.mark.parametrize("b,h,tq,tk,d,masked,rate", [
+    (32, 4, 372, 372, 64, False, 0.1),   # the encoder's shape
+    (2, 2, 300, 1000, 64, True, 0.0),    # many key tiles, no dropout
+    (1, 2, 50, 300, 128, True, 0.2),     # head dim 128
+    (2, 3, 45, 150, 13, True, 0.1),      # head dim 13: padded to 16
+])
+def test_flash_bf16_kernels_are_deterministic(b, h, tq, tk, d, masked, rate):
+    # no atomics and no partial sums: two runs on the same inputs give the
+    # same bits for O, LSE, dQ, dK and dV
+    from multimodal_emotion_detection_tpu_torch.ops import flash_attention as fa
+
+    dev = _card()
+    q, k, v, bias, do = _flash_case(dev, b, h, tq, tk, d, masked, seed=tq + tk + d)
+    q, k, v, do = (t.to(torch.bfloat16) for t in (q, k, v, do))
+    seed = torch.tensor([tq * 1000 + tk], dtype=torch.int64, device=dev)
+
+    def run():
+        o, lse = fa.flash_fwd(q, k, v, bias, seed, rate)
+        delta = (do.float() * o.float()).sum(-1)
+        return (o, lse, *fa.flash_bwd_fused(q, k, v, bias, seed, rate, do, lse, delta))
+
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    for name, x, y in zip(("O", "LSE", "dQ", "dK", "dV"), first, second):
+        assert torch.equal(x, y), name
+
+
 def test_flash_attention_bf16_on_the_card_takes_the_bf16_forms():
     # through the autograd Function on both backward routes: the bf16
     # forms launch, the float32 forms never, and O and the gradients are
