@@ -2149,11 +2149,13 @@ def _grad_close(name, outs, refs, labels):
     return errs
 
 
-def _sdpa(q, k, v, bias):
+def _sdpa(q, k, v, bias, rate=0.0):
     """Yardstick only, never called by the port: PyTorch's fused attention
-    on the same inputs (its own kernel choice, no dropout)."""
+    on the same inputs (its own kernel choice; dropout at ``rate``, none by
+    default)."""
     mask = None if bias is None else bias[:, None, None, :]
-    return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                            dropout_p=rate)
 
 
 def phase_flash(fa, flush):
@@ -2480,8 +2482,10 @@ def phase_flash_long_bf16(fa, counters, flush):
     q, k, v at (2, 4, 5000, 64) with a key bias and dropout 0.1: the bf16
     forward once, the two-pass bf16 kernels once each, the fused form and
     every float32 form never; O and the gradients against the bf16 plain
-    versions; then the two kernels timed beside their float32 forms on the
-    same values and SDPA's backward in bf16."""
+    versions, and the dQ form's dQ bit for bit across two runs; then the two
+    kernels timed at rates 0.1 and 0, each pair beside SDPA's backward in
+    bf16 at the same ``dropout_p``, and at 0.1 beside their float32 forms on
+    the same values."""
     bf16 = torch.bfloat16
     b, h, t, d = LONG
     rng = np.random.RandomState(31)
@@ -2501,30 +2505,38 @@ def phase_flash_long_bf16(fa, counters, flush):
     outs, _, launches = run_counted(
         counters, {"flash_fwd_bf16": 1, "flash_bwd_dkv_bf16": 1, "flash_bwd_dq_bf16": 1},
         "flash_long_bf16", run)
-    o_ref, lse = fa.flash_fwd_reference(q, k, v, bias, seed, 0.1)
-    delta = (do.float() * o_ref.float()).sum(-1)
-    args = (q, k, v, bias, seed, 0.1, do, lse, delta)
     errs, label = {}, "(2, 4, 5000, 64)"
-    _half_flash_check("flash_long_bf16", errs, label, outs[:1], (o_ref,), ("O",))
-    grad_err = _half_flash_check("flash_long_bf16", errs, label, outs[1:],
-                                 fa.flash_bwd_reference(*args), ("dQ", "dK", "dV"))
+    timing = {}
+    for rate in (0.1, 0.0):
+        o_ref, lse = fa.flash_fwd_reference(q, k, v, bias, seed, rate)
+        args = (q, k, v, bias, seed, rate, do, lse, (do.float() * o_ref.float()).sum(-1))
+        if rate > 0.0:
+            _half_flash_check("flash_long_bf16", errs, label, outs[:1], (o_ref,), ("O",))
+            grad_err = _half_flash_check("flash_long_bf16", errs, label, outs[1:],
+                                         fa.flash_bwd_reference(*args), ("dQ", "dK", "dV"))
+            dq_runs = [fa.flash_bwd_dq(*args) for _ in range(2)]
+            torch.cuda.synchronize()
+            if not torch.equal(*dq_runs):
+                raise AssertionError("flash_long_bf16: two runs of the dQ form differ")
+            plain_ms = device_ms(lambda: fa.flash_bwd_reference(*args), flush, reps=3)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        lib_out = _sdpa(*leaves, bias.to(bf16), rate)
+        timing[rate] = {
+            "dkv": device_ms(lambda: fa.flash_bwd_dkv(*args), flush, reps=5),
+            "dq": device_ms(lambda: fa.flash_bwd_dq(*args), flush, reps=5),
+            "sdpa": device_ms(
+                lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True),
+                flush, reps=5)}
     print(f"[flash_long_bf16] B={b} H={h} T={t} D={d}, key bias, rate 0.1: launches "
           f"{ {n: c for n, c in launches.items() if c} }; vs plain "
           + ", ".join(f"{k} {v:.3f}" for k, v in errs.items())
-          + f" (bound {FLASH_BF16_ULPS} bf16 ulps of the largest entry)")
+          + f" (bound {FLASH_BF16_ULPS} bf16 ulps of the largest entry); dQ form's dQ "
+          "bit for bit across two runs")
     q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
     o32, lse32 = fa.flash_fwd_reference(q32, k32, v32, bias, seed, 0.1)
     args32 = (q32, k32, v32, bias, seed, 0.1, do32, lse32, (do32 * o32).sum(-1))
-    dkv_ms = device_ms(lambda: fa.flash_bwd_dkv(*args), flush, reps=5)
-    dq_ms = device_ms(lambda: fa.flash_bwd_dq(*args), flush, reps=5)
     dkv_f32_ms = device_ms(lambda: fa.flash_bwd_dkv(*args32), flush, reps=5)
     dq_f32_ms = device_ms(lambda: fa.flash_bwd_dq(*args32), flush, reps=5)
-    plain_ms = device_ms(lambda: fa.flash_bwd_reference(*args), flush, reps=3)
-    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-    lib_out = _sdpa(*leaves, bias.to(bf16))
-    library_ms = device_ms(
-        lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True),
-        flush, reps=5)
     pairs = b * h * t * t
     # bf16 q, k, v, dO read and dK, dV written (dkv) or dQ written (dq);
     # float32 LSE, Delta and bias read
@@ -2532,22 +2544,27 @@ def phase_flash_long_bf16(fa, counters, flush):
                       BF16_FLOPS)
     dq_bound = bound(6 * pairs * d, 2 * 5 * b * h * t * d + 4 * (2 * b * h * t + b * t),
                      BF16_FLOPS)
-    print(f"[flash_long_bf16] dkv bf16 form {dkv_ms:.4f} ms (float32 form {dkv_f32_ms:.4f}"
-          f" ms; bound {dkv_bound[0]:.4f} ms, {dkv_bound[1]}: {8 * pairs * d / 1e9:.3f} "
-          f"GFLOP at {BF16_FLOPS / 1e12:.0f} TFLOP/s), dq bf16 form {dq_ms:.4f} ms "
-          f"(float32 form {dq_f32_ms:.4f} ms; bound {dq_bound[0]:.4f} ms, {dq_bound[1]}: "
-          f"{6 * pairs * d / 1e9:.3f} GFLOP); plain backward (dQ, dK, dV at once) "
-          f"{plain_ms:.4f} ms; SDPA backward in bf16 (dQ, dK, dV at once, no dropout) "
-          f"{library_ms:.4f} ms")
+    for rate in (0.1, 0.0):
+        tm = timing[rate]
+        pair = tm["dkv"] + tm["dq"]
+        print(f"[flash_long_bf16] rate {rate}: dkv bf16 form {tm['dkv']:.4f} ms, dq bf16 "
+              f"form {tm['dq']:.4f} ms, the pair {pair:.4f} ms against SDPA's backward in "
+              f"bf16 at dropout_p={rate} (dQ, dK, dV at once) {tm['sdpa']:.4f} ms "
+              f"({pair / tm['sdpa']:.2f}x)")
+    print(f"[flash_long_bf16] float32 forms at rate 0.1: dkv {dkv_f32_ms:.4f} ms, dq "
+          f"{dq_f32_ms:.4f} ms; bounds: dkv {dkv_bound[0]:.4f} ms, {dkv_bound[1]}: "
+          f"{8 * pairs * d / 1e9:.3f} GFLOP at {BF16_FLOPS / 1e12:.0f} TFLOP/s, dq "
+          f"{dq_bound[0]:.4f} ms, {dq_bound[1]}: {6 * pairs * d / 1e9:.3f} GFLOP; plain "
+          f"backward (dQ, dK, dV at once) {plain_ms:.4f} ms")
     common = {"route": "cuda", "max_abs_err": grad_err, "plain_ms": plain_ms,
-              "library_ms": library_ms}
+              "library_ms": timing[0.1]["sdpa"], "rate0_library_ms": timing[0.0]["sdpa"]}
     return launches, [
         {"name": "flash_bwd_dkv_bf16", **common, "source": CSRC + "flash_bwd_bf16.cu",
-         "ms": dkv_ms, "f32_ms": dkv_f32_ms,
+         "ms": timing[0.1]["dkv"], "rate0_ms": timing[0.0]["dkv"], "f32_ms": dkv_f32_ms,
          "replaces": "multimodal_emotion_detection_tpu/ops/flash_attention.py:255",
          "bound_ms": dkv_bound[0], "bound_by": dkv_bound[1]},
-        {"name": "flash_bwd_dq_bf16", **common, "source": CSRC + "flash_bwd_dq.cu",
-         "ms": dq_ms, "f32_ms": dq_f32_ms,
+        {"name": "flash_bwd_dq_bf16", **common, "source": CSRC + "flash_bwd_bf16.cu",
+         "ms": timing[0.1]["dq"], "rate0_ms": timing[0.0]["dq"], "f32_ms": dq_f32_ms,
          "replaces": "multimodal_emotion_detection_tpu/ops/flash_attention.py:212",
          "bound_ms": dq_bound[0], "bound_by": dq_bound[1]}]
 

@@ -1,14 +1,15 @@
 // Flash-attention backward on bf16 operands for Hopper (sm_90a): the fused
-// form (dQ, dK and dV in one launch) and the two-pass form's dK / dV pass,
-// on warpgroup MMAs over TMA-staged tiles.
+// form (dQ, dK and dV in one launch) and the two-pass form's dK / dV pass
+// and dQ pass, on warpgroup MMAs over TMA-staged tiles.
 //
 // Replaces: multimodal_emotion_detection_tpu/ops/flash_attention.py::
 // _flash_bwd_call on bf16 inputs, in its fused form (Tk <= 4096; kernel
 // body _bwd_fused_kernel over _bwd_kv_major) -> flash_bwd_fused_bf16_launch,
 // and the two-pass form's kv-major pass (Tk > 4096; _bwd_dkv_kernel) ->
 // flash_bwd_dkv_bf16_launch, the same kernel without its dQ role (DQ =
-// false).  The two-pass form's dQ pass is csrc/flash_bwd_dq.cu.  Same
-// function as ops/flash_attention.py::flash_bwd_reference on bf16 operands:
+// false), and its q-major pass (_bwd_dq_kernel) -> flash_bwd_dq_bf16_launch,
+// a kernel of its own (the dQ form, below).  Same function as
+// ops/flash_attention.py::flash_bwd_reference on bf16 operands:
 // with P = exp(S - LSE) recomputed from the forward's logsumexp and M the
 // forward's keep mask (1 / (1 - rate) where kept),
 //
@@ -24,7 +25,11 @@
 // LSE, Delta and writes bf16 dQ, dK, dV: 43.05 MB, 0.0128 ms at 3.35 TB/s;
 // its five products a (query, key) pair are 11.34 GFLOP, 0.0115 ms at 989
 // TFLOP/s.  This design forms S and dP twice (once in each role below): 7
-// products a pair, 15.9 GFLOP, 0.0161 ms at that rate.
+// products a pair, 15.9 GFLOP, 0.0161 ms at that rate.  The two-pass form
+// at (B=2, H=4, T=5000, D=64) is bound by operations: the dK / dV pass's
+// four products a pair 102.4 GFLOP (0.1035 ms), the dQ pass's three 76.8
+// GFLOP (0.0777 ms), against 31.1 MB and 26.0 MB moved (0.0093 / 0.0077
+// ms at 3.35 TB/s).
 //
 // Design (the second; the first, mma.sync from four warps over kv spans,
 // wrote a float32 dQ partial a span that the wrapper summed: 0.1831 ms
@@ -59,9 +64,12 @@
 // (seed, b, h, i, j) (flash_wgmma.cuh::mask_word / keep_words /
 // keep_block, keys as rows in the kv role).
 //
-// Built with -DFLASH_BWD_TIMERS=1 (scripts/flash_ab.py --bf16-fused-timers)
-// each thread adds clock64() time per phase into bwd_timers, read
-// back by flash_bwd_bf16_timers(); the default build has neither.
+// Built with -DFLASH_BWD_TIMERS=1 (scripts/flash_ab.py --bf16-fused-timers,
+// --bf16-dq-timers) each thread adds clock64() time per phase into
+// bwd_timers, read back by flash_bwd_bf16_timers(); the default build has
+// neither.
+
+#include <type_traits>
 
 #include "flash_wgmma.cuh"
 
@@ -78,7 +86,7 @@ constexpr int NT = 128;     // one warpgroup
 #define FLASH_BWD_TIMERS 0
 #endif
 #if FLASH_BWD_TIMERS
-constexpr int kPhases = 10;  // kv role 0-4, q role 5-9
+constexpr int kPhases = 15;  // kv role 0-4, q role 5-9, the dQ form 10-14
 __device__ unsigned long long bwd_timers[kPhases];
 #define PHASE(i)                      \
   {                                   \
@@ -403,6 +411,204 @@ __device__ __forceinline__ void q_role(const Params& p, unsigned char* base, con
   TIMERS_END
 }
 
+// ---------------------------------------------------------------- dQ form
+//
+// The two-pass form's dQ pass (flash_bwd_dq_bf16_launch): the q role's
+// function on a grid of query tiles alone, one warpgroup a CTA (Q and dO of
+// its 64-row tile staged once) walking every key tile through a K / V ring
+// of DQ_STAGES stages, three CTAs an SM at D <= 64.  It keeps the tensor
+// cores fed across the walk: with key tile j's dS in A registers, it starts
+// S and dP of tile j + 1 and then dQ += dS_j K_j, makes tile j + 1's mask
+// bits and key biases while both run, waits for S and dP alone and forms
+// dS_{j+1} (into the other A register set) while dQ's product still runs.
+// Whether a tile follows is known where the code is compiled: tested at run
+// time between the starts and the waits, it made ptxas serialize the
+// products (C7514).  The same values in the same order as the q role: dQ is
+// the fused form's bit for bit.  A warp arrives on its stage's empty
+// barrier once its products are done with the stage; thread 0 refills it
+// once all four have.
+constexpr int DQ_STAGES = 3;  // the K / V ring
+
+template <int DP>
+constexpr int dq_smem() {
+  return (1 + DQ_STAGES) * 2 * Geo<DP>::KT + 1024;
+}
+
+template <int DP, bool DROP, bool BIAS>
+__global__ void __launch_bounds__(NT, DP == 64 ? 3 : 1)
+    flash_bwd_dq_bf16_kernel(const __grid_constant__ Params p) {
+  using G = Geo<DP>;
+  constexpr int R = G::R, NJ = TKV / 8, NA = TKV / 16;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t fixed, full[DQ_STAGES], empty[DQ_STAGES];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int bh = b * p.heads + h;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * TQR;
+  unsigned char* qs = base;
+  unsigned char* dos = base + G::KT;
+  unsigned char* ring = base + 2 * G::KT;  // stage s: K at s * 2 KT, V KT on
+  const int n_k = (p.tk + TKV - 1) / TKV;
+  if (threadIdx.x == 0) {
+    mbar_init(&fixed, 1);
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);  // one arrival a warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  auto fetch = [&](int j) {  // thread 0: a key tile's K and V into its stage
+    const int s = j % DQ_STAGES;
+    unsigned char* st = ring + s * 2 * G::KT;
+    mbar_expect_tx(&full[s], 2 * G::KT);
+    tma_tile<TKV, R>(st, &p.mk, &full[s], j * TKV, bh);
+    tma_tile<TKV, R>(st + G::KT, &p.mv, &full[s], j * TKV, bh);
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(&fixed, 2 * G::KT);
+    tma_tile<TQR, R>(qs, &p.mq, &fixed, q0, bh);
+    tma_tile<TQR, R>(dos, &p.mdo, &fixed, q0, bh);
+    for (int j = 0; j < DQ_STAGES && j < n_k; ++j) fetch(j);
+  }
+
+  // warp w owns query rows q0 + 16 w ..; accumulators are (query, key)
+  // fragments, as the q role's
+  const uint2 key = DROP ? flash::philox_key(p.seed) : make_uint2(0u, 0u);
+  const float sl2 = p.scale * LOG2E;
+  TIMERS_START
+  float lse[2], dl[2];  // the lane's rows g, g + 8: LSE in log2 units; +inf / 0 past Tq
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = q0 + 16 * warp + g + 8 * hf;
+    lse[hf] = r < p.tq ? __ldg(p.lse + (size_t)bh * p.tq + r) * LOG2E : INFINITY;
+    dl[hf] = r < p.tq ? __ldg(p.delta + (size_t)bh * p.tq + r) : 0.0f;
+  }
+  const float* bg = BIAS ? p.bias + (size_t)b * p.tk : nullptr;
+  float dq[DP / 2], sacc[32], dpacc[32];
+  uint32_t da[2][NA][4];  // dS of two key tiles, rounded to bf16: A operands of dS K
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dq[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sacc[i] = dpacc[i] = 0.0f;
+  uint32_t kw[4];    // the lane's keep bits' source words for the next tile
+  float kb[2 * NJ];  // the lane's keys' biases in log2 units, -inf past Tk
+
+  // S = Q K^T and dP = dO V^T of key tile j, started
+  auto start_s = [&](int j) {
+    const int s = j % DQ_STAGES;
+    const unsigned char* kst = ring + s * 2 * G::KT;
+    mbar_wait(&full[s], (j / DQ_STAGES) & 1);
+    PHASE(10)
+    wg_fence();
+#pragma unroll
+    for (int kstep = 0; kstep < DP / 16; ++kstep)
+      wgmma_ss_n64(sacc, desc_k<TQR>(qs, kstep), desc_k<TKV>(kst, kstep), kstep > 0);
+#pragma unroll
+    for (int kstep = 0; kstep < DP / 16; ++kstep)
+      wgmma_ss_n64(dpacc, desc_k<TQR>(dos, kstep), desc_k<TKV>(kst + G::KT, kstep), kstep > 0);
+    wg_commit();
+  };
+  // key tile j's mask bits and key biases, made while products run (without
+  // a bias only the last tile has keys to mask)
+  auto mask_bias = [&](int j) {
+    const int k0 = j * TKV;
+    if (DROP)
+      keep_words<false>(mask_word<NJ, false>(key, q0 + 16 * warp, k0, h, b, p.drop_thr), kw);
+    const bool edge = k0 + TKV > p.tk;
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = k0 + 8 * jj + 2 * t + e;
+        kb[2 * jj + e] = BIAS || edge
+                             ? (c < p.tk ? (BIAS ? __ldg(bg + c) * LOG2E : 0.0f) : -INFINITY)
+                             : 0.0f;
+      }
+  };
+  // dS from S and dP in the accumulators, rounded to bf16 into a
+  auto form_ds = [&](uint32_t(&a)[NA][4]) {
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) {
+      float keep[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+      if (DROP) keep_block<false>(kw, jj, p.drop_scale, keep);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pr = ex2(fmaf(sacc[4 * jj + e], sl2, kb[2 * jj + (e & 1)]) - lse[e >> 1]);
+        dpacc[4 * jj + e] = pr * (dpacc[4 * jj + e] * keep[e] - dl[e >> 1]) * p.scale;
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < NA; ++kk) a_frag(a[kk], dpacc, kk);
+  };
+  // key tile j, its dS in a; where a tile follows (next), tile j + 1's dS
+  // into nxt
+  auto step = [&](auto next, int j, uint32_t(&a)[NA][4], uint32_t(&nxt)[NA][4]) {
+    if constexpr (decltype(next)::value) start_s(j + 1);
+    // dQ += dS_j K_j, K read transposed
+    const unsigned char* kst = ring + (j % DQ_STAGES) * 2 * G::KT;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < NA; ++kk) rs_product<DP>(dq, a[kk], desc_mn<TKV>(kst, kk));
+    wg_commit();
+    if constexpr (decltype(next)::value) {
+      mask_bias(j + 1);
+      PHASE(11)
+      wg_wait<1>();  // S and dP of tile j + 1; dQ's product may still run
+      reg_fence(sacc);
+      reg_fence(dpacc);
+      PHASE(12)
+      form_ds(nxt);
+      PHASE(13)
+    }
+    wg_wait<0>();
+    reg_fence(dq);
+    reg_fence(a);  // the A registers stay live until the product has read them
+    PHASE(14)
+    if (lane == 0) mbar_arrive(&empty[j % DQ_STAGES]);  // this warp is done with tile j
+    // once every warp is done with tile j, its stage takes tile j + DQ_STAGES
+    if (threadIdx.x == 0 && j + DQ_STAGES < n_k) {
+      mbar_wait(&empty[j % DQ_STAGES], (j / DQ_STAGES) & 1);
+      fetch(j + DQ_STAGES);
+    }
+    PHASE(10)
+  };
+
+  mbar_wait(&fixed, 0);
+  start_s(0);
+  mask_bias(0);
+  PHASE(11)
+  wg_wait<0>();
+  reg_fence(sacc);
+  reg_fence(dpacc);
+  PHASE(12)
+  form_ds(da[0]);
+  PHASE(13)
+  // two key tiles an iteration, so that each A register set keeps its
+  // name, and the last one or two apart, so that whether a tile follows is
+  // known where the code is compiled
+  constexpr std::true_type more{};
+  constexpr std::false_type last{};
+  int j = 0;
+  for (; j + 2 < n_k; j += 2) {
+    step(more, j, da[0], da[1]);
+    step(more, j + 1, da[1], da[0]);
+  }
+  if (j + 1 < n_k) {
+    step(more, j, da[0], da[1]);
+    step(last, j + 1, da[1], da[0]);
+  } else {
+    step(last, j, da[0], da[1]);
+  }
+
+  const float one[2] = {1.0f, 1.0f};
+  store_acc(p.dq + (size_t)bh * p.tq * p.dp, dq, q0 + 16 * warp + g, p.tq, p.dp, one);
+  TIMERS_END
+}
+
 // D <= 64: three CTAs an SM (registers); D 128: one
 template <int DP, bool DROP, bool DQ, bool BIAS>
 __global__ void __launch_bounds__(NT, DP == 64 ? 3 : 1)
@@ -454,7 +660,32 @@ cudaError_t launch(Params& p, const void* q, const void* k, const void* v, const
   return cudaGetLastError();
 }
 
-template <bool DQ>
+// the launch of the dQ form: only the tensor maps it reads
+template <int DP>
+cudaError_t launch_dq(Params& p, const void* q, const void* k, const void* v, const void* dout,
+                      int batch, int q_ctas, int smem, cudaStream_t stream) {
+  if (smem != dq_smem<DP>() || p.kv_ctas != 0 || q_ctas != (p.tq + TQR - 1) / TQR) {
+    return cudaErrorInvalidValue;
+  }
+  const int slabs = batch * p.heads;
+  cudaError_t err = make_map(&p.mq, q, slabs, p.tq, p.dp, TQR);
+  if (err == cudaSuccess) err = make_map(&p.mdo, dout, slabs, p.tq, p.dp, TQR);
+  if (err == cudaSuccess) err = make_map(&p.mk, k, slabs, p.tk, p.dp, TKV);
+  if (err == cudaSuccess) err = make_map(&p.mv, v, slabs, p.tk, p.dp, TKV);
+  if (err != cudaSuccess) return err;
+  auto kernel = p.seed ? (p.bias ? flash_bwd_dq_bf16_kernel<DP, true, true>
+                                 : flash_bwd_dq_bf16_kernel<DP, true, false>)
+                       : (p.bias ? flash_bwd_dq_bf16_kernel<DP, false, true>
+                                 : flash_bwd_dq_bf16_kernel<DP, false, false>);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(q_ctas, p.heads, batch), NT, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+enum Form { kFused, kDkv, kDq };
+
+template <Form F>
 cudaError_t run(const void* q, const void* k, const void* v, const float* bias,
                 const unsigned long long* seed, const void* dout, const float* lse,
                 const float* delta, void* dq, void* dk, void* dv, int batch, int heads, int tq,
@@ -463,8 +694,8 @@ cudaError_t run(const void* q, const void* k, const void* v, const float* bias,
   const uintptr_t addr = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout);
   if (batch < 1 || heads < 1 || tq < 1 || tk < 1 || dp < 8 || dp > 128 || dp % 8 != 0 ||
-      batch > 65535 || heads > 65535 || (addr & 15) != 0 || (DQ && dq == nullptr) ||
-      dk == nullptr || dv == nullptr) {
+      batch > 65535 || heads > 65535 || (addr & 15) != 0 || (F != kDkv && dq == nullptr) ||
+      (F != kDq && (dk == nullptr || dv == nullptr))) {
     return cudaErrorInvalidValue;
   }
   Params p{};
@@ -484,6 +715,10 @@ cudaError_t run(const void* q, const void* k, const void* v, const float* bias,
   p.drop_thr = drop_thr;
   p.drop_scale = drop_scale;
   const cudaStream_t s = (cudaStream_t)stream;
+  if constexpr (F == kDq)
+    return dp <= 64 ? launch_dq<64>(p, q, k, v, dout, batch, q_ctas, smem, s)
+                    : launch_dq<128>(p, q, k, v, dout, batch, q_ctas, smem, s);
+  constexpr bool DQ = F == kFused;
   return dp <= 64 ? launch<64, DQ>(p, q, k, v, dout, batch, q_ctas, smem, s)
                   : launch<128, DQ>(p, q, k, v, dout, batch, q_ctas, smem, s);
 }
@@ -501,7 +736,7 @@ extern "C" int flash_bwd_fused_bf16_launch(const void* q, const void* k, const v
                                            int batch, int heads, int tq, int tk, int dp,
                                            int kv_ctas, int q_ctas, int smem, float scale,
                                            unsigned drop_thr, float drop_scale, void* stream) {
-  return run<true>(q, k, v, bias, seed, dout, lse, delta, dq, dk, dv, batch, heads, tq, tk, dp,
+  return run<kFused>(q, k, v, bias, seed, dout, lse, delta, dq, dk, dv, batch, heads, tq, tk, dp,
                    kv_ctas, q_ctas, smem, scale, drop_thr, drop_scale, stream);
 }
 
@@ -514,8 +749,22 @@ extern "C" int flash_bwd_dkv_bf16_launch(const void* q, const void* k, const voi
                                          int smem, float scale, unsigned drop_thr,
                                          float drop_scale, void* stream) {
   (void)dq;
-  return run<false>(q, k, v, bias, seed, dout, lse, delta, nullptr, dk, dv, batch, heads, tq, tk,
-                    dp, kv_ctas, q_ctas, smem, scale, drop_thr, drop_scale, stream);
+  return run<kDkv>(q, k, v, bias, seed, dout, lse, delta, nullptr, dk, dv, batch, heads, tq, tk,
+                   dp, kv_ctas, q_ctas, smem, scale, drop_thr, drop_scale, stream);
+}
+
+// The dQ form: query tiles alone (kv_ctas 0; dk and dv are not read).
+extern "C" int flash_bwd_dq_bf16_launch(const void* q, const void* k, const void* v,
+                                        const float* bias, const unsigned long long* seed,
+                                        const void* dout, const float* lse, const float* delta,
+                                        void* dq, void* dk, void* dv, int batch, int heads,
+                                        int tq, int tk, int dp, int kv_ctas, int q_ctas,
+                                        int smem, float scale, unsigned drop_thr,
+                                        float drop_scale, void* stream) {
+  (void)dk;
+  (void)dv;
+  return run<kDq>(q, k, v, bias, seed, dout, lse, delta, dq, nullptr, nullptr, batch, heads, tq,
+                  tk, dp, kv_ctas, q_ctas, smem, scale, drop_thr, drop_scale, stream);
 }
 
 #if FLASH_BWD_TIMERS
@@ -533,7 +782,9 @@ extern "C" int flash_bwd_bf16_timers(unsigned long long* out, int reset) {
 extern "C" const char* flash_bwd_bf16_timer_names() {
   return "kv: wait for Q / dO,kv: mask bits + LSE / Delta,kv: S^T and dP^T (wait),"
          "kv: P / dS to bf16,kv: dV and dK,q: wait for K / V,q: mask bits + biases,"
-         "q: S and dP (wait),q: dS to bf16,q: dQ";
+         "q: S and dP (wait),q: dS to bf16,q: dQ,dq: wait for K / V + refill,"
+         "dq: start S / dP / dQ + mask bits + biases,dq: S and dP (wait),dq: dS to bf16,"
+         "dq: dQ (wait)";
 }
 #endif
 

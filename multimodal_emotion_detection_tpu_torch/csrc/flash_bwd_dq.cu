@@ -12,8 +12,8 @@
 //   dS = P (M (dO V^T) - Delta) / sqrt(D),   dQ = dS K,
 //   Delta = rowsum(dO O) (given).
 //
-// A bf16 form (flash_bwd_dq_bf16_launch: bf16 operands, one bf16 MMA a
-// product) is at the end of this file.
+// Float32 operands; the bf16 form is csrc/flash_bwd_bf16.cu's dQ form
+// (flash_bwd_dq_bf16_launch).
 //
 // What bounds it on the H100: arithmetic.  Three products per (query, key)
 // pair, 6 B H Tq Tk D = 76.8 GFLOP at (2, 4, 5000, 64): 1.146 ms at the
@@ -214,186 +214,7 @@ cudaError_t launch(const Args& a, int batch, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------- bf16 form
-//
-// q, k, v, dO and dQ in bf16, LSE and Delta float32 (flash_bwd_dq_bf16_launch).
-// The same CTA shape: the staged Q and dO tiles' A fragments are read once
-// by ldmatrix into registers; per key tile of 32 a warp forms S = Q K^T and
-// dP = dO V^T (one m16n8k16 bf16 MMA each, float32 accumulators), P =
-// exp(S / sqrt(D) + bias - LSE) and dS in float32, and dQ += dS K with dS
-// rounded to bf16 as the A operand (the JAX kernel's ds.astype(k.dtype)).
-// dQ stays float32 in registers over every key tile and is rounded to bf16
-// once at the end.  Bound at (2, 4, 5000, 64): 76.8 GFLOP at 989 TFLOP/s,
-// 0.078 ms.
-
-struct ArgsH {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const float* bias;
-  const unsigned long long* seed;
-  const bf16* dout;
-  const float* lse;
-  const float* delta;
-  bf16* dq;
-  int heads, tq, tk, d;
-  float scale;
-  uint32_t drop_thr;
-  float drop_scale;
-  bool vec;
-};
-
-template <int DP, int TK>
-constexpr size_t dq_bf16_smem_bytes() {
-  return 2 * 2 * 16 * NW * (DP + 8) + STAGES * (4 * TK * (DP + 8) + 4 * TK);
-}
-
-template <int DP, int TK, bool DROP>
-__global__ void __launch_bounds__(32 * NW, DP == 64 ? 3 : 2)
-    flash_bwd_dq_bf16_kernel(const ArgsH a) {
-  constexpr int NT = 32 * NW, TQ = 16 * NW, NJ = TK / 8, RS = DP + 8;
-  constexpr int MAT = TK * RS;             // halves of a K or V tile
-  constexpr int STAGE = 4 * MAT + 4 * TK;  // bytes: K, V, biases
-  extern __shared__ __align__(16) unsigned char smem_h[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_h);
-  bf16* dos = qs + TQ * RS;
-  unsigned char* ring = smem_h + 4 * TQ * RS;
-
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * TQ, h = blockIdx.y, b = blockIdx.z;
-  const size_t bh = (size_t)b * a.heads + h;
-  const size_t qoff = bh * a.tq * a.d, koff = bh * a.tk * a.d;
-  const float* bg = a.bias ? a.bias + (size_t)b * a.tk : nullptr;
-
-  load_tile_h<DP, TQ, NT>(qs, a.q + qoff, q0, a.tq, a.d, a.vec);
-  load_tile_h<DP, TQ, NT>(dos, a.dout + qoff, q0, a.tq, a.d, a.vec);
-  cp_commit();
-  const int r = q0 + 16 * w + g;
-  float ls[2], dl[2];
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const bool in = r + 8 * hf < a.tq;
-    ls[hf] = in ? __ldg(a.lse + bh * a.tq + r + 8 * hf) : INFINITY;
-    dl[hf] = in ? __ldg(a.delta + bh * a.tq + r + 8 * hf) : 0.0f;
-  }
-  cp_wait<0>();
-  __syncthreads();
-  uint32_t qa[DP / 16][4], da[DP / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < DP / 16; ++ks) {
-    ld_a<RS>(qa[ks], qs, 16 * w, ks);
-    ld_a<RS>(da[ks], dos, 16 * w, ks);
-  }
-
-  const int n_tiles = (a.tk + TK - 1) / TK;
-  auto fetch = [&](int tile) {
-    if (tile < n_tiles) {
-      bf16* st = reinterpret_cast<bf16*>(ring + (tile % STAGES) * STAGE);
-      load_tile_h<DP, TK, NT>(st, a.k + koff, tile * TK, a.tk, a.d, a.vec);
-      load_tile_h<DP, TK, NT>(st + MAT, a.v + koff, tile * TK, a.tk, a.d, a.vec);
-      if (bg) load_bias<NT>(reinterpret_cast<float*>(st + 2 * MAT), bg, tile * TK, TK, a.tk);
-    }
-    cp_commit();  // an empty group past the end keeps the count uniform
-  };
-#pragma unroll
-  for (int s = 0; s < STAGES; ++s) fetch(s);
-
-  const uint2 key = DROP ? flash::philox_key(a.seed) : make_uint2(0u, 0u);
-  float acc[DP / 8][4];
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
-
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    cp_wait<STAGES - 1>();
-    __syncthreads();  // tile's K, V and biases are in for every thread
-    const bf16* ks = reinterpret_cast<const bf16*>(ring + (tile % STAGES) * STAGE);
-    const bf16* vs = ks + MAT;
-    const float* kb = reinterpret_cast<const float*>(ks + 2 * MAT);
-    const int k0 = tile * TK;
-
-    uint32_t kbits[NJ];  // the mask's Philox work, ahead of the products
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      kbits[j] = DROP ? keep_bits(key, q0 + 16 * w, k0 + 8 * j, h, b, a.drop_thr) : 0u;
-    float s[NJ][4], dp[NJ][4];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
-    mma_abt_h<DP, NJ, RS>(s, ks, [&](int kstep, uint32_t(&f)[4]) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) f[i] = qa[kstep][i];
-    });
-    mma_abt_h<DP, NJ, RS>(dp, vs, [&](int kstep, uint32_t(&f)[4]) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) f[i] = da[kstep][i];
-    });
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = 8 * j + 2 * t;
-      const float2 bj = bg ? *reinterpret_cast<const float2*>(kb + c)
-                           : make_float2(0.0f, 0.0f);
-      const float kbias[2] = {k0 + c < a.tk ? bj.x : -INFINITY,
-                              k0 + c + 1 < a.tk ? bj.y : -INFINITY};
-      float keep[4] = {1.0f, 1.0f, 1.0f, 1.0f};
-      if (DROP) keep_scales(kbits[j], a.drop_scale, keep);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[j][e] * a.scale + kbias[e & 1] - ls[e >> 1]);
-        s[j][e] = p * (dp[j][e] * keep[e] - dl[e >> 1]) * a.scale;
-      }
-    }
-    mma_pb_h<NJ, DP / 16, RS>(s, ks, 0, acc);  // dS rounded to bf16 here
-    __syncthreads();  // every warp is done with this stage
-    fetch(tile + STAGES);
-  }
-  cp_wait<0>();
-
-  const float one[2] = {1.0f, 1.0f};
-  store_rows_h<DP / 8>(a.dq + qoff, acc, r, a.tq, a.d, 0, one);
-}
-
-template <int DP, int TK>
-cudaError_t launch_bf16(const ArgsH& a, int batch, cudaStream_t stream) {
-  const size_t smem = dq_bf16_smem_bytes<DP, TK>();
-  auto kernel = a.seed ? flash_bwd_dq_bf16_kernel<DP, TK, true>
-                       : flash_bwd_dq_bf16_kernel<DP, TK, false>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.tq + 16 * NW - 1) / (16 * NW), a.heads, batch);
-  kernel<<<grid, 32 * NW, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
 }  // namespace
-
-// The bf16 form: q, k, v, dout and dq bf16; bias, lse and delta float32.
-extern "C" int flash_bwd_dq_bf16_launch(const void* q, const void* k, const void* v,
-                                        const float* bias, const unsigned long long* seed,
-                                        const void* dout, const float* lse,
-                                        const float* delta, void* dq, void* dk, void* dv,
-                                        int batch, int heads, int tq, int tk, int d,
-                                        int per_span, float scale, unsigned drop_thr,
-                                        float drop_scale, void* stream) {
-  (void)dk;
-  (void)dv;
-  (void)per_span;
-  if (batch < 1 || heads < 1 || tq < 1 || tk < 1 || d < 1 || d > 128 ||
-      batch > 65535 || heads > 65535 || dq == nullptr) {
-    return cudaErrorInvalidValue;
-  }
-  const bool vec = d % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
-                   aligned16(dout);
-  const ArgsH a{(const bf16*)q, (const bf16*)k, (const bf16*)v, bias, seed,
-                (const bf16*)dout, lse, delta, (bf16*)dq, heads, tq, tk, d, scale,
-                drop_thr, drop_scale, vec};
-  const cudaStream_t s = (cudaStream_t)stream;
-  return d <= 64 ? launch_bf16<64, 32>(a, batch, s) : launch_bf16<128, 32>(a, batch, s);
-}
 
 // The backward entries' common signature (ops/flash_attention.py's
 // _BWD_ARGS); dk, dv and per_span are not read by this pass.

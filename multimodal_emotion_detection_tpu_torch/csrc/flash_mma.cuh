@@ -2,8 +2,9 @@
 // (flash_fwd.cu, flash_bwd_dq.cu) and the kv-major fused backward
 // (flash_bwd_fused.cu, whose warps own keys instead of query rows and
 // stage query tiles instead of key tiles; its own index maps are the _kv
-// and _cols variants below).  3xTF32 products, cp.async-staged tiles; the
-// bf16 forms' core (bf16 tiles, m16n8k16 bf16 MMAs) is the last section.
+// and _cols variants below).  3xTF32 products, cp.async-staged tiles.  The
+// bf16 forms run on flash_wgmma.cuh, which takes the quad reductions (and
+// philox.cuh) from here.
 //
 // A CTA of NW warps takes 16 NW query rows; warp w owns rows 16w .. 16w + 15,
 // so a row's statistics (max, sum, LSE, Delta) stay inside the warp: lane
@@ -40,7 +41,6 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -508,204 +508,6 @@ __device__ __forceinline__ void keep_scales_kv(uint32_t bits, float sc, float (&
 // 16-byte alignment of a pointer (a null one passes)
 __host__ __forceinline__ bool aligned16(const void* p) {
   return ((uintptr_t)p & 15u) == 0;
-}
-
-// ---------------------------------------------------------------- bf16
-//
-// The bf16 forms of the kernels: q, k, v and dO arrive in bf16 and feed the
-// tensor cores as they are, one mma.sync.m16n8k16 (bf16 x bf16 -> float32)
-// per product, as the JAX kernels keep the operands in the input dtype and
-// accumulate in float32.  Tiles are staged in bf16 with a row stride of
-// DP + 8 halves (DP the head dim padded to 64 or 128 with zeros, a multiple
-// of the MMA's k = 16): rows start 16 bytes apart modulo 128, so the eight
-// row addresses of an ldmatrix read fall in distinct bank groups.  Every
-// fragment comes from ldmatrix: A (rows x k) and B stored n-major (K for
-// S = Q K^T) plain, B stored k-major (V for O = P V) with .trans.  A
-// probability or dS tile in accumulator layout is already an A fragment
-// once two neighbouring 8-column n-tiles are packed to bf16 pairs
-// (a_from_acc); that packing is the one rounding to bf16 the JAX kernels
-// make before P V, P^T dO, dS^T Q and dS K.
-
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo: low half
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void cp_async16v(void* dst, const void* src, bool in) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(in ? 16 : 0)
-               : "memory");
-}
-
-// rows [r0, r0 + ROWS) of a (n, d) row-major bf16 matrix into a (ROWS, DP)
-// tile with row stride DP + 8, zeros past n rows and d columns.  vec (d % 8
-// == 0, src 16-byte aligned): 16-byte cp.async chunks; otherwise plain
-// loads and stores, seen by the other threads after the caller's barrier.
-template <int DP, int ROWS, int NT>
-__device__ __forceinline__ void load_tile_h(bf16* __restrict__ dst,
-                                            const bf16* __restrict__ src, int r0,
-                                            int n, int d, bool vec) {
-  constexpr int RS = DP + 8;
-  if (vec) {
-    constexpr int CH = DP / 8, RP = NT / CH;
-    static_assert(ROWS % RP == 0, "a tile is a whole number of passes");
-    const int r = threadIdx.x / CH, c = 8 * (threadIdx.x % CH);
-#pragma unroll
-    for (int i = 0; i < ROWS / RP; ++i) {
-      const int row = r + RP * i;
-      const bool in = c < d && r0 + row < n;
-      cp_async16v(dst + row * RS + c, in ? src + (size_t)(r0 + row) * d + c : src, in);
-    }
-  } else {
-    for (int e = threadIdx.x; e < ROWS * DP; e += NT) {
-      const int r = e / DP, c = e % DP;
-      dst[r * RS + c] = r0 + r < n && c < d ? src[(size_t)(r0 + r) * d + c]
-                                            : __float2bfloat16(0.0f);
-    }
-  }
-}
-
-// The A fragment of rows r0 .. r0 + 15, k-step ks (columns 16 ks ..) of a
-// bf16 tile with row stride RS: lane L addresses row r0 + L % 16 at column
-// 16 ks + 8 (L / 16), so the four matrices are {rows 0-7, 8-15} x {k 0-7,
-// 8-15} in the fragment's order.
-template <int RS>
-__device__ __forceinline__ void ld_a(uint32_t (&a)[4], const bf16* tile, int r0, int ks) {
-  const int lane = threadIdx.x & 31;
-  ldsm_x4(a, tile + (r0 + (lane & 15)) * RS + 16 * ks + 8 * (lane >> 4));
-}
-
-// The B fragments of two n-tiles (n0 .. n0 + 15) at k-step ks from a tile
-// stored n-major (rows n, columns k; K for Q K^T): {b0, b1} of n-tile n0 in
-// r[0], r[1], of n0 + 8 in r[2], r[3]
-template <int RS>
-__device__ __forceinline__ void ld_b_nk(uint32_t (&r)[4], const bf16* tile, int n0, int ks) {
-  const int lane = threadIdx.x & 31;
-  ldsm_x4(r, tile + (n0 + (lane & 7) + 8 * (lane >> 4)) * RS + 16 * ks +
-                 8 * ((lane >> 3) & 1));
-}
-
-// The same from a tile stored k-major (rows k, columns n; V for P V), read
-// transposed: k-step kk covers rows 16 kk .. + 15
-template <int RS>
-__device__ __forceinline__ void ld_b_kn(uint32_t (&r)[4], const bf16* tile, int kk, int n0) {
-  const int lane = threadIdx.x & 31;
-  ldsm_x4_t(r, tile + (16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * RS + n0 +
-                   8 * (lane >> 4));
-}
-
-// The A fragment of k-step kk from accumulators in score layout (n-tiles
-// 2 kk and 2 kk + 1: rows g, g + 8, columns 2t, 2t + 1), rounded to bf16
-template <int NJ>
-__device__ __forceinline__ void a_from_acc(uint32_t (&a)[4], const float (&s)[NJ][4],
-                                           int kk) {
-  a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-  a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-  a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-  a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-}
-
-// s[j] (+)= a x (rows 8j .. of the n-major tile)^T over DP / 16 k-steps, a
-// given per k-step by get(ks, a)
-template <int DP, int NJ, int RS, class GetA>
-__device__ __forceinline__ void mma_abt_h(float (&s)[NJ][4], const bf16* bt, GetA get) {
-#pragma unroll
-  for (int ks = 0; ks < DP / 16; ++ks) {
-    uint32_t a[4];
-    get(ks, a);
-#pragma unroll
-    for (int jj = 0; jj < NJ / 2; ++jj) {
-      uint32_t b[4];
-      ld_b_nk<RS>(b, bt, 16 * jj, ks);
-      mma_bf16(s[2 * jj], a, b[0], b[1]);
-      mma_bf16(s[2 * jj + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// acc (+)= P x over MN of the head dim's 16-wide blocks from column n0, P
-// (16 x 8 NJ) in accumulator layout, x k-major (rows the keys or queries
-// P's columns run over): acc[n] is n-tile n0 / 8 + n
-template <int NJ, int MN, int RS>
-__device__ __forceinline__ void mma_pb_h(const float (&p)[NJ][4], const bf16* x, int n0,
-                                         float (&acc)[2 * MN][4]) {
-#pragma unroll
-  for (int kk = 0; kk < NJ / 2; ++kk) {
-    uint32_t a[4];
-    a_from_acc<NJ>(a, p, kk);
-#pragma unroll
-    for (int nn = 0; nn < MN; ++nn) {
-      uint32_t b[4];
-      ld_b_kn<RS>(b, x, kk, n0 + 16 * nn);
-      mma_bf16(acc[2 * nn], a, b[0], b[1]);
-      mma_bf16(acc[2 * nn + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// rows r and r + 8 of a (n, d) bf16 output from accumulators acc[n] = the
-// n-tile of columns c0 + 8n .. (lane: 2t, 2t + 1), each times its factor,
-// rounded once; pairs as one 4-byte store where d is even
-template <int NN>
-__device__ __forceinline__ void store_rows_h(bf16* __restrict__ dst,
-                                             const float (&acc)[NN][4], int r, int n,
-                                             int d, int c0, const float (&f)[2]) {
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    if (r + 8 * hf >= n) continue;
-    bf16* row = dst + (size_t)(r + 8 * hf) * d;
-#pragma unroll
-    for (int j = 0; j < NN; ++j) {
-      const int c = c0 + 8 * j + 2 * t;
-      const float x0 = acc[j][2 * hf] * f[hf], x1 = acc[j][2 * hf + 1] * f[hf];
-      if (d % 2 == 0) {
-        if (c < d) *reinterpret_cast<uint32_t*>(row + c) = pack_bf16(x0, x1);
-      } else {
-        if (c < d) row[c] = __float2bfloat16(x0);
-        if (c + 1 < d) row[c + 1] = __float2bfloat16(x1);
-      }
-    }
-  }
-}
-
-// The same into float32 rows, stored or, with add, added to what is there
-template <int NN>
-__device__ __forceinline__ void store_rows_f(float* __restrict__ dst,
-                                             const float (&acc)[NN][4], int r, int n,
-                                             int d, int c0, bool add) {
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    if (r + 8 * hf >= n) continue;
-    float* row = dst + (size_t)(r + 8 * hf) * d;
-#pragma unroll
-    for (int j = 0; j < NN; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = c0 + 8 * j + 2 * t + e;
-        if (c < d) row[c] = add ? row[c] + acc[j][2 * hf + e] : acc[j][2 * hf + e];
-      }
-  }
 }
 
 }  // namespace flash_mma

@@ -253,6 +253,11 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
 
 // ---------------------------------------------------------------- math
 
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo: low half
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
 __device__ __forceinline__ float ex2(float x) {  // 2^x; -inf gives 0
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
@@ -362,7 +367,6 @@ __device__ __forceinline__ void keep_block(const uint32_t (&w)[4], int j, float 
 // rounded to bf16 pairs
 template <int R>
 __device__ __forceinline__ void a_frag(uint32_t (&a)[4], const float (&s)[R], int kk) {
-  using flash_mma::pack_bf16;
   a[0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
   a[1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
   a[2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
@@ -386,7 +390,7 @@ __device__ __forceinline__ void store_acc(bf16* __restrict__ dst, const float (&
       const int c = 8 * j + 2 * t;
       if (c < dp)
         *reinterpret_cast<uint32_t*>(row + c) =
-            flash_mma::pack_bf16(acc[4 * j + 2 * hf] * f[hf], acc[4 * j + 2 * hf + 1] * f[hf]);
+            pack_bf16(acc[4 * j + 2 * hf] * f[hf], acc[4 * j + 2 * hf + 1] * f[hf]);
     }
   }
 }
@@ -408,7 +412,7 @@ __device__ __forceinline__ void acc_to_tile(unsigned char* tile, const float (&a
       unsigned char* dst = tile + (j / 8) * 64 * ROW_BYTES + r * ROW_BYTES +
                            (((j % 8) ^ (r & 7)) << 4) + 4 * t;
       *reinterpret_cast<uint32_t*>(dst) =
-          flash_mma::pack_bf16(acc[4 * j + 2 * hf] * f[hf], acc[4 * j + 2 * hf + 1] * f[hf]);
+          pack_bf16(acc[4 * j + 2 * hf] * f[hf], acc[4 * j + 2 * hf + 1] * f[hf]);
     }
   }
 }

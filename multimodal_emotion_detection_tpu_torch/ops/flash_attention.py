@@ -21,8 +21,9 @@ with its own launch counter (``FLASH_FWD`` / ``FLASH_FWD_BF16`` and so on):
   runs a kv-major role for dK / dV and a q-major role that sums dQ over
   every key on chip, so it writes dQ once, in bf16;
 * ``flash_bwd_dkv`` (the fused kernels' dK/dV form, without dQ) and
-  ``flash_bwd_dq`` (``csrc/flash_bwd_dq.cu``): the two-pass backward for
-  long key sequences, dK and dV kv-major, dQ q-major.
+  ``flash_bwd_dq`` (``csrc/flash_bwd_dq.cu``; bf16: the dQ form of
+  ``csrc/flash_bwd_bf16.cu``): the two-pass backward for long key
+  sequences, dK and dV kv-major, dQ q-major.
 
 The float32 forms run their products on the tensor cores in 3xTF32
 (``csrc/flash_mma.cuh``): each float32 operand is split into two TF32
@@ -35,8 +36,8 @@ products' operands stay bf16 (one bf16 MMA each) and accumulate in
 float32; S, the softmax statistics, LSE, Delta and dP are float32; P (times
 the keep mask) is rounded to bf16 before P V and P^T dO, dS before dS^T Q
 and dS K; O, dK, dV and dQ are rounded to bf16 once.  O, dQ, dK and dV
-come out bf16, LSE float32.  The forward and the fused backward's bf16
-forms run on Hopper's warpgroup MMAs over tiles that TMA loads
+come out bf16, LSE float32.  The bf16 forms run on Hopper's warpgroup
+MMAs over tiles that TMA loads
 (``csrc/flash_wgmma.cuh``); ``flash_bf16_plan`` is their launch plan, and
 TMA's 16-byte rows make the wrapper pad a head dim that is not a multiple
 of 8 with zero columns (``_tma_operand``).  Their plain versions
@@ -86,11 +87,12 @@ MAX_SPANS = 8
 KV_TILE = 64  # keys per tile of the kernels
 MAX_HEAD_DIM = 128
 # the bf16 kernels (csrc/flash_fwd_bf16.cu, csrc/flash_bwd_bf16.cu): 64-row
-# tiles, rings of two stages (the forward) and three (the backward), CTAs
-# of one warpgroup, 64-column TMA boxes of 128 bytes a row
+# tiles, rings of two stages (the forward) and three (the backward and its
+# dQ form), CTAs of one warpgroup, 64-column TMA boxes of 128 bytes a row
 BF16_TILE = 64
 BF16_FWD_STAGES = 2
 BF16_BWD_STAGES = 3
+BF16_DQ_STAGES = 3
 BF16_THREADS = 128
 SMEM_LIMIT = 232448  # shared memory a CTA may use on the H100
 
@@ -268,7 +270,8 @@ FLASH_BWD_FUSED = CudaKernel("flash_bwd_fused", "flash_bwd_fused_launch", _BWD_A
 FLASH_BWD_DKV = CudaKernel("flash_bwd_fused", "flash_bwd_dkv_launch", _BWD_ARGS)
 FLASH_BWD_DQ = CudaKernel("flash_bwd_dq", "flash_bwd_dq_launch", _BWD_ARGS)
 # the bf16 forms, counted apart: the forward and the fused backward (and its
-# dK / dV form) on wgmma and TMA, with the plan's numbers in their arguments
+# dK / dV and dQ forms) on wgmma and TMA, with the plan's numbers in their
+# arguments
 _FWD_BF16_ARGS = [_P] * 7 + [_I] * 7 + [_F, _U, _F, _P]
 _BWD_BF16_ARGS = [_P] * 11 + [_I] * 8 + [_F, _U, _F, _P]
 FLASH_FWD_BF16 = CudaKernel("flash_fwd_bf16", "flash_fwd_bf16_launch", _FWD_BF16_ARGS)
@@ -276,7 +279,8 @@ FLASH_BWD_FUSED_BF16 = CudaKernel("flash_bwd_bf16", "flash_bwd_fused_bf16_launch
                                   _BWD_BF16_ARGS)
 FLASH_BWD_DKV_BF16 = CudaKernel("flash_bwd_bf16", "flash_bwd_dkv_bf16_launch",
                                 _BWD_BF16_ARGS)
-FLASH_BWD_DQ_BF16 = CudaKernel("flash_bwd_dq", "flash_bwd_dq_bf16_launch", _BWD_ARGS)
+FLASH_BWD_DQ_BF16 = CudaKernel("flash_bwd_bf16", "flash_bwd_dq_bf16_launch",
+                               _BWD_BF16_ARGS)
 # operand dtype -> its kernel forms
 _FORMS = {torch.float32: dict(fwd=FLASH_FWD, fused=FLASH_BWD_FUSED, dkv=FLASH_BWD_DKV,
                               dq=FLASH_BWD_DQ),
@@ -302,21 +306,23 @@ def kv_spans(tk: int) -> Tuple[int, int]:
 @functools.lru_cache(maxsize=256)
 def flash_bf16_plan(kind: str, batch: int, heads: int, tq: int, tk: int, d: int) -> dict:
     """The launch plan of a bf16 kernel: ``kind`` 'fwd' (the forward),
-    'fused' (the fused backward) or 'dkv' (its dK / dV form).
+    'fused' (the fused backward), 'dkv' (its dK / dV form) or 'dq' (its dQ
+    form).
 
     Returns ``dp``, the head dim the kernel sees (``d`` padded to a multiple
     of 8: TMA moves rows of whole 16-byte chunks); ``regions``, its 64-column
     boxes (1 up to 64, 2 up to 128); the grid (CTAs along x, heads, batch
     rows) and its split into ``kv_ctas`` (a 64-key tile each) and
-    ``q_ctas`` (a 64-row query tile each; the forward's CTAs are all query
-    tiles); ``query_tile``, the rows of a kv-role query tile (64, or 32 at
-    a head dim past 64, where dK and dV take twice the registers);
-    ``threads`` a CTA; and ``smem``, its dynamic shared memory in bytes (the
-    kernel checks it against its own).  Raises for shapes the kernels
-    refuse, before any launch.  Cached: callers read the dict and must not
-    change it."""
-    if kind not in ("fwd", "fused", "dkv"):
-        raise ValueError(f"flash_bf16_plan: kind {kind!r} is not 'fwd', 'fused' or 'dkv'")
+    ``q_ctas`` (a 64-row query tile each; the forward's and the dQ form's
+    CTAs are all query tiles); ``query_tile``, the rows of a kv-role query
+    tile (64, or 32 at a head dim past 64, where dK and dV take twice the
+    registers); ``threads`` a CTA; and ``smem``, its dynamic shared memory
+    in bytes (the kernel checks it against its own).  Raises for shapes the
+    kernels refuse, before any launch.  Cached: callers read the dict and
+    must not change it."""
+    if kind not in ("fwd", "fused", "dkv", "dq"):
+        raise ValueError(f"flash_bf16_plan: kind {kind!r} is not 'fwd', 'fused', 'dkv' "
+                         "or 'dq'")
     if min(batch, heads, tq, tk, d) < 1:
         raise ValueError(f"flash_bf16_plan: empty dimension in ({batch}, {heads}, {tq}, "
                          f"{tk}, {d})")
@@ -333,6 +339,9 @@ def flash_bf16_plan(kind: str, batch: int, heads: int, tq: int, tk: int, d: int)
     if kind == "fwd":
         kv_ctas, q_ctas = 0, n_q
         smem = (1 + 2 * BF16_FWD_STAGES) * tile  # Q, then K and V a stage
+    elif kind == "dq":
+        kv_ctas, q_ctas = 0, n_q
+        smem = (1 + BF16_DQ_STAGES) * 2 * tile  # Q and dO, then K and V a stage
     else:
         kv_ctas, q_ctas = n_k, n_q if kind == "fused" else 0
         # K and V, a stage's Q and dO, and each stage's LSE and Delta
@@ -480,23 +489,23 @@ def _bwd_launch(form: str, q, k, v, bias, seed, rate, do, lse, delta,
 
 
 def _bwd_bf16_launch(kind: str, q, k, v, bias, seed, rate, do, lse, delta):
-    """The bf16 fused backward ('fused' -> dQ, dK, dV) or its dK / dV form
-    ('dkv' -> dK, dV) on the plan's grid."""
+    """The bf16 fused backward ('fused' -> dQ, dK, dV), its dK / dV form
+    ('dkv' -> dK, dV) or its dQ form ('dq' -> (dQ,)) on the plan's grid."""
     b, h, tq, tk, d, seed_ptr = _checked(f"flash_bwd_{kind}", q, k, v, bias, seed, rate,
                                          do=do, lse=lse, delta=delta)
     plan = flash_bf16_plan(kind, b, h, tq, tk, d)
     dp = plan["dp"]
     qp, kp, vp, dop = (_tma_operand(t, dp) for t in (q, k, v, do))
-    dq = q.new_empty((b, h, tq, dp)) if kind == "fused" else None
-    dk, dv = k.new_empty((b, h, tk, dp)), k.new_empty((b, h, tk, dp))
-    kernel = FLASH_BWD_FUSED_BF16 if kind == "fused" else FLASH_BWD_DKV_BF16
-    kernel(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-           bias.data_ptr() if bias is not None else None, seed_ptr, dop.data_ptr(),
-           lse.data_ptr(), delta.data_ptr(), dq.data_ptr() if dq is not None else None,
-           dk.data_ptr(), dv.data_ptr(), b, h, tq, tk, dp, plan["kv_ctas"], plan["q_ctas"],
-           plan["smem"], 1.0 / math.sqrt(d), *_drop_args(rate), stream_of(q))
-    grads = (dk, dv) if dq is None else (dq, dk, dv)
-    return tuple(_unpad(g, d) for g in grads)
+    dq = q.new_empty((b, h, tq, dp)) if kind != "dkv" else None
+    dk, dv = ((k.new_empty((b, h, tk, dp)), k.new_empty((b, h, tk, dp))) if kind != "dq"
+              else (None, None))
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    _FORMS[torch.bfloat16][kind](
+        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), ptr(bias), seed_ptr, dop.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), ptr(dq), ptr(dk), ptr(dv), b, h, tq, tk, dp,
+        plan["kv_ctas"], plan["q_ctas"], plan["smem"], 1.0 / math.sqrt(d),
+        *_drop_args(rate), stream_of(q))
+    return tuple(_unpad(g, d) for g in (dq, dk, dv) if g is not None)
 
 
 def flash_bwd_fused(q, k, v, bias, seed, rate: float, do, lse, delta):
@@ -549,13 +558,16 @@ def flash_bwd_dq(q, k, v, bias, seed, rate: float, do, lse, delta):
     """Two-pass backward, second pass -> dQ in the operands' dtype.
 
     On CUDA tensors this launches ``csrc/flash_bwd_dq.cu`` and counts it in
-    ``FLASH_BWD_DQ.launches``, its bf16 form in
-    ``FLASH_BWD_DQ_BF16.launches``; on CPU tensors it runs
-    ``flash_bwd_reference``.
+    ``FLASH_BWD_DQ.launches``; on bf16 operands the dQ form of
+    ``csrc/flash_bwd_bf16.cu`` (query tiles alone, dQ summed over every key
+    on chip), counted in ``FLASH_BWD_DQ_BF16.launches``; on CPU tensors it
+    runs ``flash_bwd_reference``.
     """
-    _operand_dtype("flash_bwd_dq", q, k, v, do)
+    dtype = _operand_dtype("flash_bwd_dq", q, k, v, do)
     if q.device.type == "cpu":
         return flash_bwd_reference(q, k, v, bias, seed, rate, do, lse, delta)[0]
+    if dtype == torch.bfloat16:
+        return _bwd_bf16_launch("dq", q, k, v, bias, seed, rate, do, lse, delta)[0]
     dq = torch.empty_like(q)
     _bwd_launch("dq", q, k, v, bias, seed, rate,
                 do, lse, delta, dq, None, None, 0)

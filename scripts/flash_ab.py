@@ -20,8 +20,9 @@ L2 flushed before each, 20 calls after 3 warm-ups):
 * the bf16 forms: ``flash_fwd`` and ``flash_bwd_fused`` at (32, 4, 372, 64)
   at rates 0 and 0.1, each beside SDPA in bf16 at the same ``dropout_p``
   (forward, and backward by ``autograd.grad``), and ``flash_bwd_dkv`` /
-  ``flash_bwd_dq`` at (2, 4, 5000, 64) with a key bias at rate 0.1 beside
-  SDPA's bf16 backward.
+  ``flash_bwd_dq`` at (2, 4, 5000, 64) with a key bias at rates 0 and 0.1,
+  beside SDPA's bf16 backward at the same ``dropout_p`` (``bf16_long_*``),
+  and ``flash_bwd_dq`` over the first 3,136 query rows (one wave of CTAs).
 
 The inputs are ``chip_smoke.py``'s.  ``--child ROOT`` runs one child.
 After the four children, two measurements of this checkout alone:
@@ -43,7 +44,11 @@ After the four children, two measurements of this checkout alone:
   phase's share of the consumer threads' clock64() time;
 * ``--bf16-fused-timers`` (also run after the children): the bf16 fused
   backward built with ``-DFLASH_BWD_TIMERS=1`` there, rates 0.1 and 0: the
-  phases of its kv role and of its q role.
+  phases of its kv role and of its q role;
+* ``--bf16-dq-timers`` (also run after the children): the bf16 dQ form
+  (``flash_bwd_dq`` on bf16 operands) from the same build at (2, 4, 5000,
+  64) with a key bias, rates 0.1 and 0: its phases' shares and the
+  thread-cycles a key tile.
 
 A timer build names its phases (``<source>_timer_names``).  Needs a CUDA
 card; exits non-zero without one.
@@ -105,10 +110,11 @@ def child(root: Path, bf16_only: bool = False) -> dict:
             np.where(valid, 0.0, -1e9).astype(np.float32)).to(dev)
         return q, k, v, bias, do
 
-    def sdpa_bwd(q, k, v, bias, do):
+    def sdpa_bwd(q, k, v, bias, do, rate=0.0):
         leaves = [x.clone().requires_grad_() for x in (q, k, v)]
         mask = None if bias is None else bias[:, None, None, :]
-        out = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=mask)
+        out = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                                               dropout_p=rate)
         return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
 
     res = {"root": str(root), "card": torch.cuda.get_device_name(0)}
@@ -200,11 +206,20 @@ def _bf16_times(fa, inputs, sdpa_bwd, flush) -> dict:
     q, k, v, bias, do = inputs(2, 4, 5000, 64, 32, valid)
     q, k, v, do = (x.to(bf16) for x in (q, k, v, do))
     seed = torch.tensor([0xA77E5710], dtype=torch.int64, device=dev)
-    o, lse = fa.flash_fwd_reference(q, k, v, bias, seed, 0.1)
-    args = (q, k, v, bias, seed, 0.1, do, lse, (do.float() * o.float()).sum(-1))
-    res["bf16_long_dkv_ms"] = _timed(lambda: fa.flash_bwd_dkv(*args), flush)
-    res["bf16_long_dq_ms"] = _timed(lambda: fa.flash_bwd_dq(*args), flush)
-    res["bf16_long_sdpa_bwd_ms"] = _timed(sdpa_bwd(q, k, v, bias.to(bf16), do), flush)
+    for rate, tag in ((0.0, "rate0"), (0.1, "rate01")):
+        o, lse = fa.flash_fwd_reference(q, k, v, bias, seed, rate)
+        args = (q, k, v, bias, seed, rate, do, lse, (do.float() * o.float()).sum(-1))
+        res[f"bf16_long_dkv_{tag}_ms"] = _timed(lambda: fa.flash_bwd_dkv(*args), flush)
+        res[f"bf16_long_dq_{tag}_ms"] = _timed(lambda: fa.flash_bwd_dq(*args), flush)
+        res[f"bf16_long_sdpa_bwd_{tag}_ms"] = _timed(
+            sdpa_bwd(q, k, v, bias.to(bf16), do, rate), flush)
+    # the dQ form over the first 3,136 query rows: 49 query tiles x 8 (head,
+    # batch row) = 392 CTAs, one wave at 3 CTAs an SM on 132 SMs, against
+    # 632 in 1.6 waves: a query tile's time in each shows the tail's cost
+    rows = 49 * 64
+    q_w, do_w, lse_w, delta_w = (x[:, :, :rows].contiguous() for x in (q, do, lse, args[8]))
+    args_w = (q_w, k, v, bias, seed, 0.1, do_w, lse_w, delta_w)
+    res["bf16_long_dq_tq3136_rate01_ms"] = _timed(lambda: fa.flash_bwd_dq(*args_w), flush)
     return res
 
 
@@ -369,9 +384,11 @@ def fused_timers(root: Path) -> None:
 
 
 def _phase_report(tag: str, names, buf) -> None:
+    """Each phase's share of the thread-cycles; phases of a timer build that
+    the kernel run does not have (no cycles) are left out."""
     total = sum(buf)
     print(f"{tag}: {total / 1e9:.3f} G thread-cycles in all; " + ", ".join(
-        f"{n} {100 * x / total:.1f}%" for n, x in zip(names, buf)))
+        f"{n} {100 * x / total:.1f}%" for n, x in zip(names, buf) if x))
 
 
 def _run_timed(timers, buf, fn) -> None:
@@ -467,6 +484,46 @@ def bf16_fused_timers(root: Path) -> None:
           f"partials and its rounding to bf16 (not made here): {ms:.4f} ms")
 
 
+def bf16_dq_timers(root: Path) -> None:
+    """The bf16 dQ form (row 19b) built with -DFLASH_BWD_TIMERS=1 at (2, 4,
+    5000, 64) with a key bias, rates 0.1 and 0: each of its phases' share of
+    the threads' clock64() time, and the thread-cycles a query tile's
+    thread spends on a key tile."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(root))
+    from multimodal_emotion_detection_tpu_torch.ops import flash_attention as fa
+
+    src = fa.FLASH_BWD_DQ_BF16.source
+    lib = _timed_lib(root, src, "-DFLASH_BWD_TIMERS=1", fa.FLASH_BWD_DQ_BF16)
+    timers = getattr(lib, f"{src}_timers")
+    timers.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    names = _timer_names(lib, src)
+    buf = (ctypes.c_ulonglong * len(names))()
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(32)
+    b, h, t, d = 2, 4, 5000, 64
+    q, k, v, do = (torch.from_numpy(rng.randn(b, h, t, d).astype(np.float32)).to(dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    valid = rng.rand(b, t) > 0.1
+    valid[:, 0] = True
+    bias = torch.from_numpy(np.where(valid, 0.0, -1e9).astype(np.float32)).to(dev)
+    seed = torch.tensor([0xA77E5710], dtype=torch.int64, device=dev)
+    plan = fa.flash_bf16_plan("dq", b, h, t, t, d)
+    # every thread of every query tile walks every key tile
+    walks = plan["q_ctas"] * h * b * fa.BF16_THREADS * -(-t // 64)
+    for rate in (0.1, 0.0):
+        o, lse = fa.flash_fwd_reference(q, k, v, bias, seed, rate)
+        args = (q, k, v, bias, seed, rate, do, lse, (do.float() * o.float()).sum(-1))
+        _run_timed(timers, buf, lambda: fa.flash_bwd_dq(*args))
+        print(f"[dq_timers] bf16 ({b}, {h}, {t}, {d}) rate {rate}: "
+              f"{sum(buf) / walks:.0f} cycles a thread and key tile")
+        _phase_report(f"[dq_timers] bf16 ({b}, {h}, {t}, {d}) rate {rate}", names, buf)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     group = ap.add_mutually_exclusive_group(required=True)
@@ -482,13 +539,16 @@ def main() -> None:
                        help="the bf16 forward's phase shares")
     group.add_argument("--bf16-fused-timers", action="store_true",
                        help="the bf16 fused backward's phase shares")
+    group.add_argument("--bf16-dq-timers", action="store_true",
+                       help="the bf16 dQ form's phase shares")
     opts = ap.parse_args()
     here = Path(__file__).resolve().parents[1]
     if opts.child is not None:
         print(json.dumps(child(opts.child.resolve(), opts.bf16)))
         return
     modes = {"mma_rate": mma_rate, "dq_timers": dq_timers, "fused_timers": fused_timers,
-             "fwd_timers": fwd_timers, "bf16_fused_timers": bf16_fused_timers}
+             "fwd_timers": fwd_timers, "bf16_fused_timers": bf16_fused_timers,
+             "bf16_dq_timers": bf16_dq_timers}
     for mode, fn in modes.items():
         if getattr(opts, mode):
             fn(here)
@@ -507,7 +567,7 @@ def main() -> None:
         print(f"[flash_ab] {key}: " + ", ".join(
             f"{tag} {r[key]:.4f}" for tag, r in runs))
     flags = ("--mma-rate", "--dq-timers", "--fused-timers", "--fwd-timers",
-             "--bf16-fused-timers")
+             "--bf16-fused-timers", "--bf16-dq-timers")
     for flag in flags[3:] if opts.bf16 else flags:
         subprocess.run([sys.executable, __file__, flag], check=True)
 

@@ -3,8 +3,9 @@
 them, on the CPU:
 
 * every (query tile, head, batch row) of the forward and every key tile
-  and query tile of the fused backward is one CTA's, exactly once, and the
-  dK / dV form launches the key tiles alone;
+  and query tile of the fused backward is one CTA's, exactly once, the
+  dK / dV form launches the key tiles alone and the dQ form the query
+  tiles alone;
 * a CTA's shared memory stays within the H100's 232,448 bytes at every
   head dim, and equals the kernels' own figure; at D <= 64 four forward
   or three backward CTAs fit an SM;
@@ -72,7 +73,21 @@ def test_every_tile_is_one_ctas_exactly_once(shape):
     _rows_once(items, "kv", tk, heads, batch)
 
 
-@pytest.mark.parametrize("kind", ["fwd", "fused", "dkv"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_dq_form_takes_every_query_tile_once(shape):
+    # the two-pass form's dQ pass: query tiles alone, each one CTA's exactly
+    # once, the grid no larger than its tiles need
+    batch, heads, tq, tk, d = shape
+    dq = fa.flash_bf16_plan("dq", *shape)
+    assert dq["kv_ctas"] == 0 and dq["q_ctas"] == -(-tq // 64)
+    assert dq["grid"] == (dq["q_ctas"], heads, batch)
+    items = list(fa.plan_items(dq, tq, tk))
+    assert {r for r, *_ in items} == {"q"}
+    assert len(items) == dq["q_ctas"] * heads * batch
+    _rows_once(items, "q", tq, heads, batch)
+
+
+@pytest.mark.parametrize("kind", ["fwd", "fused", "dkv", "dq"])
 def test_shared_memory_fits_a_cta_at_every_head_dim(kind):
     for d in range(1, fa.MAX_HEAD_DIM + 1):
         plan = fa.flash_bf16_plan(kind, 2, 2, 300, 300, d)
@@ -93,10 +108,23 @@ def test_shared_memory_is_the_kernels_own_figure():
         assert fa.flash_bf16_plan(kind, 1, 1, 8, 8, d)["smem"] == smem, (kind, d)
 
 
+def test_dq_form_shared_memory_is_the_kernels_own_figure_at_every_head_dim():
+    # csrc/flash_bwd_bf16.cu::dq_smem, (1 + DQ_STAGES) x 2 tiles + 1 KB with
+    # a ring of three, written out: every head dim takes the figure of the
+    # kernel it pads to (64 or 128)
+    assert fa.BF16_DQ_STAGES == 3
+    want = {64: 66560, 128: 132096}
+    for d in range(1, fa.MAX_HEAD_DIM + 1):
+        plan = fa.flash_bf16_plan("dq", 2, 4, 5000, 5000, d)
+        assert plan["smem"] == want[64 if plan["dp"] <= 64 else 128], d
+    # three dQ CTAs an SM at D <= 64 (228 KB, 1 KB of it reserved a CTA)
+    assert 3 * (want[64] + 1024) <= 228 * 1024
+
+
 @pytest.mark.parametrize("shape", SHAPES + [(3, 65535, 2, 2, 4), (65535, 2, 2, 2, 4)])
 def test_grid_fits_a_launch(shape):
     batch, heads = shape[:2]
-    for kind in ("fwd", "fused", "dkv"):
+    for kind in ("fwd", "fused", "dkv", "dq"):
         plan = fa.flash_bf16_plan(kind, *shape)
         assert plan["grid"][1:] == (heads, batch) and max(plan["grid"][1:]) <= 65535
         assert plan["grid"][0] == plan["kv_ctas"] + plan["q_ctas"] >= 1
@@ -129,7 +157,7 @@ def test_refused_shapes_raise_before_a_launch():
     with pytest.raises(ValueError, match="empty"):
         fa.flash_bf16_plan("fwd", 1, 1, 0, 8, 64)
     with pytest.raises(ValueError, match="kind"):
-        fa.flash_bf16_plan("dq", 1, 1, 8, 8, 64)
+        fa.flash_bf16_plan("bwd", 1, 1, 8, 8, 64)
     # operands: mixed and float16 raise on every device, before the route
     q = torch.zeros(1, 1, 8, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="share one dtype"):

@@ -1514,8 +1514,12 @@ def _check_flash_bf16_kernels(b, h, tq, tk, d, masked, rate):
     for form, outs in (("fused", fused), ("two-pass", two_pass)):
         for name, g, r in zip(("dQ", "dK", "dV"), outs, refs):
             _half_close(g, r, f"{form} {name}")
-    # dK and dV of the dK / dV form are the fused form's bit for bit
+    # dK and dV of the dK / dV form are the fused form's bit for bit, and so
+    # is dQ of the dQ form (the q role's values in the q role's key order)
     assert torch.equal(two_pass[1], fused[1]) and torch.equal(two_pass[2], fused[2])
+    assert torch.equal(two_pass[0], fused[0])
+    # no atomics, no partial slots: a second run of the dQ form, the same bits
+    assert torch.equal(fa.flash_bwd_dq(*args), two_pass[0])
 
 
 @pytest.mark.parametrize("b,h,tq,tk,d,masked,rate", FLASH_SHAPES)
@@ -1527,6 +1531,31 @@ def test_flash_bf16_fused_backward_at_the_fused_routes_last_size():
     # Tk 4,096, the most keys the fused route takes: the q role sums dQ over
     # 64 key tiles on chip, every query row against its plain version
     _check_flash_bf16_kernels(1, 2, 4096, 4096, 64, True, 0.1)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_bf16_dq_form_at_5000_keys(rate):
+    # the two-pass route's dQ pass at (2, 4, 5000, 64) with a key bias: 79
+    # key tiles walked a query tile, against the plain version within 4 bf16
+    # ulps, two runs bit for bit, and no other flash form launched
+    from multimodal_emotion_detection_tpu_torch.ops import flash_attention as fa
+
+    dev = _card()
+    q, k, v, bias, do = _flash_case(dev, 2, 4, 5000, 5000, 64, True, seed=5064)
+    q, k, v, do = (t.to(torch.bfloat16) for t in (q, k, v, do))
+    seed = torch.tensor([0xA77E5710], dtype=torch.int64, device=dev)
+    o, lse = fa.flash_fwd_reference(q, k, v, bias, seed, rate)
+    args = (q, k, v, bias, seed, rate, do, lse, (do.float() * o.float()).sum(-1))
+    others = (fa.FLASH_FWD, fa.FLASH_BWD_FUSED, fa.FLASH_BWD_DKV, fa.FLASH_BWD_DQ,
+              fa.FLASH_FWD_BF16, fa.FLASH_BWD_FUSED_BF16, fa.FLASH_BWD_DKV_BF16)
+    others_before = [c.launches for c in others]
+    before = fa.FLASH_BWD_DQ_BF16.launches
+    first, second = fa.flash_bwd_dq(*args), fa.flash_bwd_dq(*args)
+    torch.cuda.synchronize()
+    assert fa.FLASH_BWD_DQ_BF16.launches == before + 2
+    assert [c.launches for c in others] == others_before
+    assert torch.equal(first, second)
+    _half_close(first, fa.flash_bwd_reference(*args)[0], f"dQ at rate {rate}")
 
 
 @pytest.mark.parametrize("b,h,tq,tk,d,masked,rate", [
