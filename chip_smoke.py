@@ -607,7 +607,7 @@ def serve_path(tag: str, counters, expected, ckpt: Path, overrides,
         ref = torch.cat([
             forward(model, {m: torch.from_numpy(a[i:min(i + 32, rows)])
                             for m, a in clips.items()})
-            for i in range(0, rows, 32)]).numpy()
+            for i in range(0, rows, 32)]).float().numpy()
     err = float(np.abs(logits[:rows] - ref).max())
     same = logits[:rows].argmax(-1) == ref.argmax(-1)
     agree = int(same.sum())
@@ -629,6 +629,7 @@ def serve_path(tag: str, counters, expected, ckpt: Path, overrides,
     b1 = {k: v[:1].contiguous() for k, v in b32.items()}
     for label, batch in (("b32", b32), ("b1", b1)):
         p50, p90 = host_ms(lambda: forward(model, batch), reps=reps)
+        SERVES.setdefault(tag, {})[label] = p50
         print(f"[{tag}] forward latency {label} (host clock around "
               f"synchronize, {reps} requests, inputs on the card): "
               f"p50 {p50:.4f} ms, p90 {p90:.4f} ms")
@@ -3509,6 +3510,8 @@ TRAIN_ARTIFACTS = ("results.json", "best.ckpt", "checkpoints/last.ckpt",
 # each phase_train path's train step: p50 (ms), device busy share, peak
 # allocated (GB)
 STEPS = {}
+# each serve_path path's forward p50 (ms) at b32 and b1
+SERVES = {}
 
 
 def phase_train(counters, tag: str, model_overrides, expected_fn,
@@ -3929,6 +3932,94 @@ def _step_check(tag: str, cfg, card, cpu, rows: int, grad_bound: float = 1e-4) -
             and param_any < 2.2 * lr and max(buf_err.values(), default=0.0) <= 1e-5):
         raise RuntimeError("the card's train step disagrees with the CPU's")
     return grad_err
+
+
+B256_SPLITS = {"train": 256, "val": 32, "test": 32}
+
+
+def phase_steps_b256(counters, tag: str, model_overrides, per_step, steps: int = 3,
+                     check_clips: int = 4):
+    """The JAX bench legs' b256 train step (``dataset.batch_size=256``) in
+    bf16 compute on synthetic 256-clip splits: ``half_step_check`` on the
+    first ``check_clips`` clips of the batch (both sides), then ``steps``
+    timed steps on the card (host clock around each step and synchronize,
+    one untimed step first) with their launches counted (``per_step(steps)``,
+    exactly), and the same steps of the float32 model on the same weights in
+    the same call (not counted).  Returns the counted launches."""
+    import copy
+
+    from multimodal_emotion_detection_tpu_torch.config import load_config
+    from multimodal_emotion_detection_tpu_torch.data.loader import create_dataloaders
+    from multimodal_emotion_detection_tpu_torch.models.classifier import (
+        classifier_from_config,
+        init_weights,
+    )
+    from multimodal_emotion_detection_tpu_torch.models.noise import Noise
+    from multimodal_emotion_detection_tpu_torch.training.optim import build_optimizer
+    from multimodal_emotion_detection_tpu_torch.training.steps import train_step
+
+    data = WORK / "train_data_b256"
+    if not (data / "test" / "labels.npy").exists():
+        for seed, (split, n) in enumerate(B256_SPLITS.items()):
+            _write_split(data, split, n, 30 + seed)
+    cfg = load_config(str(ROOT / "configs" / "base.yaml"),
+                      [*model_overrides, "dataset.batch_size=256", f"dataset.data_dir={data}"])
+    dev = torch.device("cuda")
+    model = init_weights(classifier_from_config(cfg), torch.Generator().manual_seed(0))
+    loader = create_dataloaders(cfg.dataset.name, cfg.dataset.data_dir,
+                                cfg.dataset.modalities, batch_size=256, seed=cfg.seed,
+                                device=dev)[0]
+    if cfg.model.frontend.cache:
+        _cache_logmel(cfg, loader)
+    step_kw = dict(lr=cfg.training.learning_rate, clip_norm=cfg.training.gradient_clip_norm,
+                   modality_dropout=cfg.training.augmentation.modality_dropout)
+    print(f"[{tag}] the card step against the CPU steps on the first {check_clips} clips "
+          "of the batch (the CPU's plain versions would hold the b256 residuals in host "
+          "memory); the timed steps run the whole batch of 256")
+    half_step_check(tag, cfg, model, loader, check_clips, step_kw)
+
+    feats, labels = loader.device_arrays()
+    idx = torch.from_numpy(loader.epoch_batch_indices(0)[0].astype(np.int64)).to(dev)
+    valid = torch.from_numpy(loader.epoch_batch_valid()[0]).to(dev)
+    model32 = copy.deepcopy(model)
+    for module in model32.modules():
+        if hasattr(module, "compute_dtype"):
+            module.compute_dtype = torch.float32
+    p50s = {}
+    launches = None
+    for label, m in (("bf16", model), ("float32", model32)):
+        m = m.to(dev)
+        opt, _ = build_optimizer(cfg.training, m.parameters(), len(loader))
+        gen = torch.Generator(device=dev)
+
+        def one_step(s):
+            gen.manual_seed(s)
+            train_step(m, opt, feats, labels, idx, valid, noise=Noise(gen), **step_kw)
+
+        one_step(0)
+        torch.cuda.synchronize()
+        times = []
+
+        def timed_steps():
+            for s in range(1, steps + 1):
+                t0 = time.perf_counter()
+                one_step(s)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+
+        if label == "bf16":
+            _, _, launches = run_counted(counters, per_step(steps), tag, timed_steps)
+        else:
+            timed_steps()
+        p50s[label] = statistics.median(times)
+        print(f"[{tag}] {label} compute: {steps} train steps at batch 256 (host clock "
+              f"around each step and synchronize): " + ", ".join(f"{t:.4f}" for t in times)
+              + f" ms; p50 {p50s[label]:.4f} ms = {256e3 / p50s[label]:.1f} clips/s")
+    print(f"[{tag}] train step p50 at b256: bf16 compute {p50s['bf16']:.4f} ms, float32 "
+          f"{p50s['float32']:.4f} ms in the same call ({p50s['float32'] / p50s['bf16']:.3f}x)"
+          f"; launches {launches}")
+    STEPS[tag] = (p50s["bf16"], None, torch.cuda.max_memory_allocated() / 1e9)
+    return launches
 
 
 def phase_lstm2_train_fwd_b320(lstm_kernel, flush, kern) -> None:
@@ -4792,6 +4883,12 @@ TRANSFORMER = ["model.frontend.audio=logmel", "model.frontend.cache=true",
 # bf16 forms and a bf16 frame MLP, the head float32
 TRANSFORMER_BF16 = TRANSFORMER + ["model.encoders.audio.dtype=bfloat16",
                                   "model.encoders.video.dtype=bfloat16"]
+# runtime.compute_dtype=bfloat16: the model's compute dtype, as the JAX
+# bench legs run it (bench.py's flagship at b256, the transformer leg at
+# b32, the big config at b256); every encoder, the fusion and the head in
+# bf16 over float32 parameters, the recurrent kernels on bf16-rounded
+# operands
+HALF_COMPUTE = ["runtime.compute_dtype=bfloat16"]
 # the path whose run gives each kernel's "launches": the training path of
 # the slice that ported it
 MAIN_PATH = {"logmel": "train", "lstm2_infer": "train", "lstm2_train_fwd": "train",
@@ -5215,6 +5312,58 @@ def _run_phases(counters, pending, card_name: str, t_start: float) -> None:
           f"{100 * busy if busy else float('nan'):.1f}%, peak allocated {peak:.4f} GB; "
           f"[train_tf] (float32) in the same call: p50 {p50_f:.4f} ms, busy "
           f"{100 * busy_f if busy_f else float('nan'):.1f}%, peak {peak_f:.4f} GB")
+    # the bf16 compute dtype (runtime.compute_dtype=bfloat16) on the
+    # flagship, the GRU, the transformer and audio_only.yaml's CNN (its
+    # per-encoder dtype: bfloat16) at b32, and the two b256 bench legs: the
+    # same kernels per step as each float32 path (fed bf16-rounded operands,
+    # or the flash kernels' bf16 forms), each card step held by the bf16
+    # step rule, the served logits to 4 bf16 ulps of the largest
+    t_compute = time.perf_counter()
+    by_path["train_bf16"], bf_run, bf_overrides = timed(phase_train,
+        counters, "train_bf16", ["model.frontend.audio=logmel", *HALF_COMPUTE],
+        flagship_counts, half_encoders=True, reps=30, profile_reps=5)
+    by_path["serve_bf16"] = timed(serve_path,
+        "serve_bf16", counters, served, bf_run / "best.ckpt", bf_overrides, test_audio,
+        test_video, WORK / "predictions_bf16", reps=50, profile_reps=5, logit_ulps=4)
+    by_path["train_gru_bf16"] = timed(phase_train,
+        counters, "train_gru_bf16", GRU + HALF_COMPUTE,
+        lambda steps, evals: {"logmel": cached, "gru2_train_fwd": steps,
+                              "gru2_bwd_chain": steps, "gru2_infer": evals},
+        half_encoders=True, reps=30, profile_reps=5)[0]
+    by_path["train_tf_compute_bf16"], tfc_run, tfc_overrides = timed(phase_train,
+        counters, "train_tf_compute_bf16", TRANSFORMER + HALF_COMPUTE,
+        lambda steps, evals: {"logmel": cached, "flash_fwd_bf16": 2 * (steps + evals),
+                              "flash_bwd_fused_bf16": 2 * steps},
+        half_encoders=True, reps=30, profile_reps=5)
+    by_path["serve_tf_compute_bf16"] = timed(serve_path,
+        "serve_tf_compute_bf16", counters, {"logmel": batches, "flash_fwd_bf16": 2 * batches},
+        tfc_run / "best.ckpt", tfc_overrides, test_audio, test_video,
+        WORK / "predictions_tf_compute_bf16", reps=50, profile_reps=5, logit_ulps=4)
+    by_path["train_audio_only_bf16"] = timed(phase_train,
+        counters, "train_audio_only_bf16", ["model.encoders.audio.dtype=bfloat16"],
+        logmel_counts, config="audio_only.yaml", half_encoders=True, reps=30,
+        profile_reps=5)[0]
+    by_path["train_bf16_b256"] = timed(phase_steps_b256,
+        counters, "train_bf16_b256", ["model.frontend.audio=logmel", *HALF_COMPUTE],
+        lambda steps: {"logmel": steps, "lstm2_train_fwd": steps, "lstm2_bwd_chain": steps})
+    by_path["train_big_bf16_b256"] = timed(phase_steps_b256,
+        counters, "train_big_bf16_b256", BIG + HALF_COMPUTE,
+        lambda steps: {"lstm1_train_fwd": 3 * steps, "lstm_bwd_chain": 3 * steps})
+    for tag, f32_tag in (("train_bf16", "train"), ("train_gru_bf16", "train_gru"),
+                         ("train_tf_compute_bf16", "train_tf"),
+                         ("train_audio_only_bf16", "train_audio_only")):
+        (p50, busy, peak), (p50_f, busy_f, peak_f) = STEPS[tag], STEPS[f32_tag]
+        print(f"[{tag}] train step p50 {p50:.4f} ms, device busy "
+              f"{100 * busy if busy else float('nan'):.1f}%, peak allocated {peak:.4f} GB; "
+              f"[{f32_tag}] (float32) in the same call: p50 {p50_f:.4f} ms, busy "
+              f"{100 * busy_f if busy_f else float('nan'):.1f}%, peak {peak_f:.4f} GB")
+    for tag, f32_tag in (("serve_bf16", "serve"), ("serve_tf_compute_bf16", "serve_tf")):
+        print(f"[{tag}] forward p50 b32 {SERVES[tag]['b32']:.4f} ms, b1 "
+              f"{SERVES[tag]['b1']:.4f} ms; [{f32_tag}] (float32) in the same call: b32 "
+              f"{SERVES[f32_tag]['b32']:.4f} ms, b1 {SERVES[f32_tag]['b1']:.4f} ms")
+    print(f"[time] train_bf16, serve_bf16, train_gru_bf16, train_tf_compute_bf16, "
+          f"serve_tf_compute_bf16, train_audio_only_bf16, train_bf16_b256, "
+          f"train_big_bf16_b256: {time.perf_counter() - t_compute:.1f} s")
     # configs/base.yaml as written (raw waveform, LSTM 2x256) and with the
     # GRU: the pair once per step, its eval form once per eval or served
     # batch, no log-mel; a step takes ~0.6 s, so fewer timed reps, and the

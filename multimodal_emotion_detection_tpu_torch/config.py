@@ -165,12 +165,17 @@ class ParallelConfig:
     shard_data_rows: bool = False
 
 
+# runtime.compute_dtype's values: the model's compute dtype, the parameters
+# float32 under either
+COMPUTE_DTYPES = ("float32", "bfloat16")
+
+
 @dataclass
 class RuntimeConfig:
     # None, 'gpu' or 'cuda' -> the CUDA card (an error if there is none);
     # 'cpu' -> the CPU (the plain PyTorch versions of the kernels)
     platform: Optional[str] = None
-    compute_dtype: str = "float32"  # 'float32' | 'bfloat16'
+    compute_dtype: str = "float32"  # COMPUTE_DTYPES
     matmul_precision: str = "default"
     deterministic: bool = True
     debug_nans: bool = False
@@ -318,6 +323,9 @@ def load_config(
         _merge_into_dataclass(config, data)
     if overrides:
         apply_overrides(config, overrides)
+    if config.runtime.compute_dtype not in COMPUTE_DTYPES:
+        raise ConfigError(f"runtime.compute_dtype={config.runtime.compute_dtype!r}: "
+                          f"neither of {COMPUTE_DTYPES}")
     return config
 
 

@@ -7,6 +7,12 @@ every availability pattern.  Module and parameter names follow the JAX
 tree (``q_in_ln``, ``q_proj``, ``{a}_to_{b}``, ...), so a JAX fusion's
 weights load key for key through ``utils/weights.py``.
 
+``CrossModalAttention`` takes the model's compute dtype (the hybrid
+fusion's): in bf16 its LayerNorms, projections, score products, softmax
+and dropout run in bf16 at flax's points (``models/encoders.py``'s
+``layer_norm`` and ``dense``; the 1/sqrt(head width) scale rounded to bf16
+first, as a weakly typed constant is).
+
 Dropout acts only in training mode, with masks drawn from the forward's
 ``Noise``.  No kernel runs here: M is the number of modalities (2 in every
 shipped config), so the products and softmaxes are small stock ops, as they
@@ -22,6 +28,11 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from multimodal_emotion_detection_tpu_torch.models.layers import (
+    bf16_scalar,
+    dense,
+    layer_norm,
+)
 from multimodal_emotion_detection_tpu_torch.models.noise import Noise, dropout
 
 NEG_LARGE = -1e4  # an fp16/bf16-safe "minus infinity"
@@ -56,8 +67,10 @@ class CrossModalAttention(nn.Module):
     """
 
     def __init__(self, query_dim: int, key_dim: int, hidden_dim: int,
-                 num_heads: int = 4, dropout: float = 0.1):
+                 num_heads: int = 4, dropout: float = 0.1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = dtype
         if hidden_dim % num_heads:
             raise ValueError(f"hidden_dim {hidden_dim} is not a multiple of "
                              f"num_heads {num_heads}")
@@ -83,14 +96,19 @@ class CrossModalAttention(nn.Module):
         b, t_q, _ = query.shape
         t_k = key.shape[1]
 
-        q = self.q_proj(self.q_in_ln(query.to(torch.float32)))
-        k = self.k_proj(self.k_in_ln(key.to(torch.float32)))
-        v = self.v_proj(self.v_in_ln(value.to(torch.float32)))
+        dt = self.compute_dtype
+        q = dense(self.q_proj, layer_norm(self.q_in_ln, query.to(dt)))
+        k = dense(self.k_proj, layer_norm(self.k_in_ln, key.to(dt)))
+        v = dense(self.v_proj, layer_norm(self.v_in_ln, value.to(dt)))
         q = q.reshape(b, t_q, heads, head_dim).transpose(1, 2)
         k = k.reshape(b, t_k, heads, head_dim).transpose(1, 2)
         v = v.reshape(b, t_k, heads, head_dim).transpose(1, 2)
 
-        scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(head_dim)
+        scores = torch.einsum("bhqd,bhkd->bhqk", q, k)
+        if dt == torch.bfloat16:
+            scores = scores * bf16_scalar(1.0 / math.sqrt(head_dim))
+        else:
+            scores = scores / math.sqrt(head_dim)
         invalid = None
         if mask is not None:
             invalid = normalize_key_mask(mask, b, t_k)
@@ -103,7 +121,7 @@ class CrossModalAttention(nn.Module):
         p = self.dropout if self.training else 0.0
         attn = dropout(attn, p, noise)
         context = torch.einsum("bhqk,bhkd->bhqd", attn, v)
-        out = self.out_proj(context.transpose(1, 2).reshape(b, t_q, self.hidden_dim))
+        out = dense(self.out_proj, context.transpose(1, 2).reshape(b, t_q, self.hidden_dim))
         if squeeze_out and t_q == 1:
             out = out[:, 0]
         return out, attn

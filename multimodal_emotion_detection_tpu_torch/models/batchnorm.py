@@ -20,6 +20,11 @@ of ``forward``, not ``self.training``: MC dropout runs a training-mode
 forward on the running statistics.  ``state_dict`` holds exactly
 ``weight``, ``bias``, ``running_mean`` and ``running_var`` (flax's
 ``scale``, ``bias`` and ``batch_stats``' ``mean`` and ``var``).
+
+A bf16 input takes flax's ``dtype=bfloat16`` form: the statistics come
+from the input read into float32 (``_compute_stats`` promotes), the
+normalisation runs in float32 against the float32 scale and bias, the
+result is rounded to bf16 once, and the running statistics stay float32.
 """
 
 from __future__ import annotations
@@ -52,6 +57,11 @@ class BatchNorm(nn.Module):
             self.running_var.fill_(1.0)
 
     def forward(self, x: torch.Tensor, use_running_average: bool) -> torch.Tensor:
+        if x.dtype == torch.bfloat16:
+            return self._normalise(x.to(torch.float32), use_running_average).to(x.dtype)
+        return self._normalise(x, use_running_average)
+
+    def _normalise(self, x: torch.Tensor, use_running_average: bool) -> torch.Tensor:
         if use_running_average:
             centred, var = x - self.running_mean, self.running_var
         else:

@@ -12,9 +12,13 @@ first), then
   that returns ``(logits, aux)`` gives its logits; ``return_aux=True``
   returns ``(logits, aux)`` with the embeddings under ``aux["encoded"]``.
 
-An encoder built with ``dtype: bfloat16`` computes in bf16 inside; its
-embedding is cast back to float32 before the fusion, so the head, the
-fusion and the parameters stay float32.
+``dtype`` is the model's compute dtype (``runtime.compute_dtype``),
+handed to every encoder, the fusion and the concat head, as the JAX
+package's ``MultimodalClassifier(dtype=...)``: in bf16 they compute in bf16
+over float32 parameters and the logits are bf16.  A per-encoder ``dtype``
+overrides it inside its encoder; each embedding is cast to the model's
+dtype before the fusion or the head (a float32 model's stays in its
+parameters' dtype, float64 in a float64 copy).
 
 ``use_modality_mask=False`` (the default) ignores the availability mask,
 as the reference forward does; ``True`` zeroes a missing modality's
@@ -34,8 +38,12 @@ import torch
 from torch import nn
 
 from multimodal_emotion_detection_tpu_torch.models.batchnorm import BatchNorm
-from multimodal_emotion_detection_tpu_torch.models.encoders import build_encoder
+from multimodal_emotion_detection_tpu_torch.models.encoders import (
+    ENCODER_DTYPES,
+    build_encoder,
+)
 from multimodal_emotion_detection_tpu_torch.models.fusion import build_fusion_model
+from multimodal_emotion_detection_tpu_torch.models.layers import dense
 from multimodal_emotion_detection_tpu_torch.models.noise import Noise
 from multimodal_emotion_detection_tpu_torch.models.recurrent import (
     FusedStackedRNN,
@@ -65,8 +73,10 @@ class MultimodalClassifier(nn.Module):
         audio_frontend: Optional[LogMelParams] = None,  # None -> raw waveform
         frontend_kind: str = "logmel",  # 'logmel' | 'mfcc'
         frontend_n_mfcc: int = 40,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        self.compute_dtype = dtype
         self.modalities = tuple(modalities)
         self.train_fusion = train_fusion
         self.use_modality_mask = use_modality_mask
@@ -89,6 +99,7 @@ class MultimodalClassifier(nn.Module):
                     input_dim=cfg.get("input_dim", 64),
                     output_dim=output_dim,
                     encoder_config=cfg,
+                    dtype=dtype,
                 ),
             )
         if train_fusion == "library":
@@ -99,6 +110,7 @@ class MultimodalClassifier(nn.Module):
                 hidden_dim=hidden_dim,
                 num_heads=num_heads,
                 dropout=dropout,
+                dtype=dtype,
             )
         else:
             self.head_in = nn.Linear(output_dim * len(self.modalities), hidden_dim)
@@ -129,9 +141,12 @@ class MultimodalClassifier(nn.Module):
                 m = mask[:, i].reshape((-1,) + (1,) * (x.ndim - 1))
                 x = x * m.to(x.dtype)
             out = getattr(self, f"{modality}_encoder")(x, noise=noise, bn_eval=bn_eval)
-            # a per-encoder dtype (bf16) stays inside the encoder: its
-            # output rejoins the model's float32 here, as in the JAX package
-            encoded[modality] = out.float() if out.dtype == torch.bfloat16 else out
+            # a per-encoder dtype stays inside the encoder: its output
+            # rejoins the model's dtype here, as in the JAX package
+            if self.compute_dtype == torch.bfloat16:
+                encoded[modality] = out.to(torch.bfloat16)
+            else:
+                encoded[modality] = out.float() if out.dtype == torch.bfloat16 else out
         return encoded
 
     def forward(
@@ -165,7 +180,7 @@ class MultimodalClassifier(nn.Module):
             if not ordered:
                 raise ValueError("No modalities were encoded")
             fused = torch.cat(ordered, dim=-1)
-            logits = self.head_out(torch.relu(self.head_in(fused)))
+            logits = dense(self.head_out, torch.relu(dense(self.head_in, fused)))
         if return_aux:
             aux["encoded"] = encoded
             return logits, aux
@@ -220,14 +235,6 @@ def classifier_from_config(config) -> MultimodalClassifier:
     nothing until a checkpoint or ``init_weights`` fills them."""
     model_cfg = config.model
     fe = model_cfg.frontend
-    if config.runtime.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"runtime.compute_dtype={config.runtime.compute_dtype!r}: only "
-            "float32 is ported; the model-wide bf16 compute dtype is a later "
-            "slice of ROADMAP.md Queue 1 item 13 (per-encoder "
-            "model.encoders.<modality>.dtype=bfloat16 is ported for the "
-            "transformer and frame encoders)"
-        )
     if fe.video != "none":
         raise NotImplementedError(
             f"model.frontend.video={fe.video!r}: the on-device resize is "
@@ -259,6 +266,7 @@ def classifier_from_config(config) -> MultimodalClassifier:
         audio_frontend=frontend,
         frontend_kind=fe.audio if fe.audio != "raw" else "logmel",
         frontend_n_mfcc=fe.n_mfcc,
+        dtype=ENCODER_DTYPES[config.runtime.compute_dtype],
     )
     try:
         res_dtype = residual_dtype(config.runtime.lstm_residual_dtype)

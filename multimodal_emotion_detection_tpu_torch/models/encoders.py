@@ -26,19 +26,22 @@ without BatchNorm ignore it.  Encoder kinds outside the port raise
 ``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them.
 
 A per-encoder ``dtype: bfloat16`` (the JAX factory's mixed-precision
-override) runs the transformer ``SequenceEncoder`` and the
-``FrameEncoder`` in bf16 with float32 parameters, as flax does with
+override), or the model's compute dtype it overrides
+(``runtime.compute_dtype``, handed in as ``build_encoder``'s ``dtype``),
+runs every encoder here in bf16 with float32 parameters, as flax does with
 ``dtype=bfloat16``: every Linear casts its input, weight and bias to bf16
 and returns bf16 (``dense``), the position table is cast before the
-lookup, LayerNorm takes its statistics and normalises in float32 and
-rounds the result to bf16 (``layer_norm``, flax's ``_compute_stats`` /
-``_normalize``), GELU, ReLU, softmax, dropout and the pooling act on bf16,
-and attention runs the flash kernels' bf16 forms.  Reductions sum in
-float32 and round once (``masked_mean``), as ``jnp.sum`` / ``jnp.mean`` do
-for bf16.  The classifier casts the encoder's output back to float32.  The
-recurrent, CNN and MLP encoders refuse bf16 (``ROADMAP.md`` Queue 1 item
-13): their JAX forms send bf16 into recurrent kernel forms or BatchNorm
-still to port.
+lookup, LayerNorm and BatchNorm take their statistics and normalise in
+float32 and round the result to bf16 once (``layer_norm``,
+``models/batchnorm.py``; flax's ``_compute_stats`` / ``_normalize``), the
+CNN's convolutions run on bf16 input, weight and bias (``conv``), GELU,
+ReLU, softmax, dropout and the pooling act on bf16, attention runs the
+flash kernels' bf16 forms, and the LSTM and GRU hand their recurrent
+kernels bf16-rounded operands (``models/recurrent.py``).  Reductions sum
+in float32 and round once (``masked_mean``), as ``jnp.sum`` / ``jnp.mean``
+do for bf16.  Each encoder returns its output in its own dtype; the
+classifier casts it to the model's.  The image encoder is refused, in
+either dtype (``ROADMAP.md`` Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -53,6 +56,12 @@ from multimodal_emotion_detection_tpu_torch.models.batchnorm import (
     BatchNorm,
     use_running_average,
 )
+from multimodal_emotion_detection_tpu_torch.models.layers import (
+    conv,
+    dense,
+    layer_norm,
+    masked_mean,
+)
 from multimodal_emotion_detection_tpu_torch.models.noise import Noise, dropout
 from multimodal_emotion_detection_tpu_torch.models.recurrent import (
     FusedStackedRNN,
@@ -64,46 +73,6 @@ from multimodal_emotion_detection_tpu_torch.ops.flash_attention import (
 
 
 ENCODER_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def dense(linear: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """``linear`` in ``x``'s dtype, as flax's Dense with ``dtype``: in bf16
-    the input, weight and bias are bf16, the product (float32 sums) is
-    rounded to bf16 and the bias added in bf16.  Any other dtype is
-    ``linear(x)``."""
-    if x.dtype != torch.bfloat16:
-        return linear(x)
-    return (torch.matmul(x, linear.weight.to(x.dtype).t())
-            + linear.bias.to(x.dtype))
-
-
-def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
-    """``ln`` in ``x``'s dtype, as flax's LayerNorm with ``dtype``: in bf16
-    the statistics and the normalisation run in float32 on the upcast
-    input and the result is rounded to bf16 once (flax's ``_compute_stats``
-    / ``_normalize``; its E[x^2] - mean^2 variance and torch's two-pass one
-    differ by float32 round-off, under the bf16 rounding that follows).
-    Any other dtype is ``ln(x)``."""
-    if x.dtype != torch.bfloat16:
-        return ln(x)
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
-                        ln.eps).to(x.dtype)
-
-
-def masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor], dim: int = 1):
-    """Mean over ``dim`` honouring an optional (B, T) validity mask.  On
-    bf16 the sums run in float32 and are rounded to bf16 once, as
-    ``jnp.mean`` (sum and divide in float32) and ``jnp.sum`` (float32 sum)
-    do; the masked mean divides its two rounded sums in bf16, as the JAX
-    function does."""
-    half = x.dtype == torch.bfloat16
-    if mask is None:
-        return x.float().mean(dim=dim).to(x.dtype) if half else x.mean(dim=dim)
-    m = mask.to(x.dtype)[..., None]
-    if not half:
-        return (x * m).sum(dim=dim) / m.sum(dim=dim).clamp(min=1.0)
-    summed = (x * m).float().sum(dim=dim).to(x.dtype)
-    return summed / m.float().sum(dim=dim).clamp(min=1.0).to(x.dtype)
 
 
 def masked_max(x: torch.Tensor, mask: Optional[torch.Tensor], dim: int = 1):
@@ -211,10 +180,6 @@ class SequenceEncoder(nn.Module):
                  encoder_type: str = "lstm", max_len: int = 4096,
                  attention_block: int = 512, dtype: torch.dtype = torch.float32):
         super().__init__()
-        if dtype != torch.float32 and encoder_type != "transformer":
-            raise NotImplementedError(
-                f"a {encoder_type} SequenceEncoder in {dtype}: only the transformer "
-                "runs in bf16 (ROADMAP.md Queue 1 item 13)")
         self.encoder_type = encoder_type
         self.compute_dtype = dtype
         if encoder_type == "transformer":
@@ -235,7 +200,7 @@ class SequenceEncoder(nn.Module):
             # the JAX package drops out between layers only
             self.rnn = FusedStackedRNN(input_dim, hidden_dim, num_layers,
                                        dropout=dropout if num_layers > 1 else 0.0,
-                                       cell_type=encoder_type)
+                                       cell_type=encoder_type, dtype=dtype)
         self.projection = nn.Linear(hidden_dim, output_dim)
 
     def _transformer(self, x: torch.Tensor, noise: Optional[Noise]) -> torch.Tensor:
@@ -274,22 +239,24 @@ class SequenceEncoder(nn.Module):
         running = use_running_average(self.training, bn_eval)
         # the convolutions take (B, C, T); BatchNorm and the dropout masks
         # see (B, T, C), the JAX layout
-        h = self.conv1(x.transpose(1, 2)).transpose(1, 2)
+        h = conv(self.conv1, x.transpose(1, 2)).transpose(1, 2)
         h = dropout(torch.relu(self.bn1(h, running)), p, noise)
-        h = self.conv2(h.transpose(1, 2)).transpose(1, 2)
-        h = torch.relu(self.bn2(h, running)).mean(dim=1)
+        h = conv(self.conv2, h.transpose(1, 2)).transpose(1, 2)
+        h = masked_mean(torch.relu(self.bn2(h, running)), None, dim=1)
         return dropout(h, p, noise)
 
     def forward(self, sequence: torch.Tensor, noise: Optional[Noise] = None,
                 bn_eval: Optional[bool] = None) -> torch.Tensor:
         if self.encoder_type == "cnn":
-            # in the weights' dtype, as the JAX encoders cast to theirs
-            x = sequence.to(self.conv1.weight.dtype)
-            return self.projection(self._cnn(x, noise, bn_eval))
+            # in the compute dtype, as the JAX encoders cast to theirs (the
+            # weights' dtype where that is float32: a float64 copy's)
+            x = sequence.to(self.compute_dtype if self.compute_dtype == torch.bfloat16
+                            else self.conv1.weight.dtype)
+            return dense(self.projection, self._cnn(x, noise, bn_eval))
         x = sequence.to(self.compute_dtype)
         if self.encoder_type == "transformer":
             return dense(self.projection, self._transformer(x, noise))
-        return self.projection(self.rnn(x, noise))
+        return dense(self.projection, self.rnn(x, noise))
 
 
 class FrameEncoder(nn.Module):
@@ -335,8 +302,9 @@ class SimpleMLPEncoder(nn.Module):
 
     def __init__(self, input_dim: int, hidden_dim: int, output_dim: int,
                  num_layers: int = 2, dropout: float = 0.1,
-                 batch_norm: bool = True):
+                 batch_norm: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = dtype
         self.num_layers = num_layers
         self.batch_norm = batch_norm
         self.dropout = float(dropout)
@@ -351,14 +319,17 @@ class SimpleMLPEncoder(nn.Module):
                 bn_eval: Optional[bool] = None) -> torch.Tensor:
         p = self.dropout if self.training else 0.0
         running = use_running_average(self.training, bn_eval)
-        x = features.to(self.out.weight.dtype)
+        # the weights' dtype where the compute dtype is float32 (a float64
+        # copy's)
+        x = features.to(self.compute_dtype if self.compute_dtype == torch.bfloat16
+                        else self.out.weight.dtype)
         for i in range(self.num_layers):
-            x = getattr(self, f"dense_{i}")(x)
+            x = dense(getattr(self, f"dense_{i}"), x)
             if self.batch_norm:
                 x = getattr(self, f"bn_{i}")(x, running)
             x = dropout(torch.relu(x), p, noise)
-        x = self.out(x)
-        return x.mean(dim=1) if features.ndim == 3 else x
+        x = dense(self.out, x)
+        return masked_mean(x, None, dim=1) if features.ndim == 3 else x
 
 
 # ---------------------------------------------------------------------------
@@ -376,6 +347,7 @@ def build_encoder(
     input_dim: int,
     output_dim: int,
     encoder_config: Optional[Dict[str, Any]] = None,
+    dtype: torch.dtype = torch.float32,
 ) -> nn.Module:
     """Route a per-modality config dict to an encoder module.
 
@@ -385,13 +357,13 @@ def build_encoder(
     Keys a branch does not read are ignored, as there (``type: mlp`` over
     a dict that still names an ``encoder_type``).  Route keys of the TPU
     build (``scan_unroll``, ``fused``, ``inference_kernel``, ``use_flash``)
-    are accepted and do not route: the device does.
+    are accepted and do not route: the device does.  ``dtype`` is the
+    model's compute dtype; the config's ``dtype`` key overrides it.
     """
     cfg = dict(encoder_config or {})
     enc_type = cfg.pop("type", None)
     in_dim = cfg.pop("input_dim", input_dim)
     dt_over = cfg.pop("dtype", None)
-    dtype = torch.float32
     if dt_over is not None:
         if dt_over not in ENCODER_DTYPES:
             raise ValueError(f"model.encoders.{modality}.dtype={dt_over!r}: neither "
@@ -412,13 +384,6 @@ def build_encoder(
         hidden = max(output_dim, 64) if enc_type == "mlp" else output_dim * 2
     rate = cfg.pop("dropout", 0.1)
     kind = cfg.pop("encoder_type", "lstm") if enc_type == "sequence" else enc_type
-    if dtype != torch.float32 and kind in ("lstm", "gru", "cnn", "mlp", "pretrained_cnn"):
-        raise NotImplementedError(
-            f"model.encoders.{modality}.dtype={dt_over!r} on the {kind} encoder: "
-            "bf16 is ported for the transformer and frame encoders only; the "
-            "recurrent, CNN, MLP and image encoders in bf16 are ROADMAP.md Queue 1 "
-            "item 13's later slices"
-        )
     if enc_type == "frame":
         return FrameEncoder(
             frame_dim=in_dim,
@@ -448,6 +413,7 @@ def build_encoder(
             num_layers=cfg.pop("num_layers", 2),
             dropout=rate,
             batch_norm=cfg.pop("batch_norm", True),
+            dtype=dtype,
         )
     if enc_type == "pretrained_cnn":
         raise NotImplementedError(

@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from multimodal_emotion_detection_tpu_torch.models.layers import bf16_scalar
 from multimodal_emotion_detection_tpu_torch.models.noise import Noise, keep_mask
 from multimodal_emotion_detection_tpu_torch.ops.lstm_kernel import (
     gru1_infer,
@@ -28,8 +29,31 @@ from multimodal_emotion_detection_tpu_torch.ops.lstm_vjp import (
     fused_gru_final,
     fused_lstm_final,
     lstm_route,
+    rounds_weight_grads,
     sm_count,
 )
+
+
+class _RoundBF16(torch.autograd.Function):
+    """A float32 tensor rounded to bf16 and held in float32; the gradient
+    passes through unrounded (the JAX pairs' float32 weight gradients reach
+    the float32 parameters as they are)."""
+
+    @staticmethod
+    def forward(ctx, w):
+        return w.to(torch.bfloat16).to(w.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad
+
+
+def round_bf16(w: torch.Tensor, exact_grad: bool = True) -> torch.Tensor:
+    """``w`` rounded to bf16 (to nearest even), in ``w``'s dtype; its
+    gradient unrounded, or without ``exact_grad`` rounded to bf16 too."""
+    if exact_grad:
+        return _RoundBF16.apply(w)
+    return w.to(torch.bfloat16).to(w.dtype)
 
 
 class _CellParams(nn.Module):
@@ -83,10 +107,24 @@ class FusedStackedRNN(nn.Module):
     ``residual_dtype`` (set from ``runtime.lstm_residual_dtype``, a torch
     dtype) is the training routes' residual streams' (``fused_lstm_final``
     says where bf16 engages); the eval forward stores none.
+
+    ``compute_dtype`` bf16 (``runtime.compute_dtype`` or the encoder's
+    ``dtype``) runs the JAX module's ``dtype=bfloat16``: every parameter is
+    rounded to bf16 at use (``round_bf16``: the float32 parameters stay;
+    their gradients are rounded to bf16 where the JAX package's custom VJPs
+    hand them back so, ``ops.lstm_vjp.rounds_weight_grads``), x is rounded
+    to bf16, the keep mask is made in bf16 (a kept element is bf16(1 /
+    bf16(1 - p)), 1.109375 at p = 0.1), and the final h is returned in
+    bf16.  The kernels read
+    those operands into float32 and compute in float32, as the JAX kernels
+    do, so every route runs the float32 kernels.  The eval forward is the
+    JAX package's ``inference_kernel=True`` numerics (its default bf16 eval
+    forward is an XLA scan in bf16 arithmetic, a few bf16 ulps away).
     """
 
     def __init__(self, in_dim: int, hidden_dim: int, num_layers: int = 2,
-                 dropout: float = 0.0, cell_type: str = "lstm"):
+                 dropout: float = 0.0, cell_type: str = "lstm",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if cell_type not in ("lstm", "gru"):
             raise ValueError(f"Unknown cell type {cell_type!r}")
@@ -99,6 +137,7 @@ class FusedStackedRNN(nn.Module):
         self.cell_type = cell_type
         self.remat_gates = False
         self.residual_dtype = torch.float32
+        self.compute_dtype = dtype
         self.dropout = float(dropout) if num_layers > 1 else 0.0
         self.num_layers = num_layers
         for layer in range(num_layers):
@@ -110,6 +149,16 @@ class FusedStackedRNN(nn.Module):
                   for i in range(self.num_layers)]
         h_dim = layers[0]["w_hh"].shape[0]
         gru = self.cell_type == "gru"
+        half = self.compute_dtype == torch.bfloat16
+        if half:
+            exact = not rounds_weight_grads(self.cell_type, self.num_layers, h_dim, x.device)
+            layers = [{k: round_bf16(v, exact) for k, v in p.items()} for p in layers]
+            x = x.to(torch.bfloat16)
+        h = self._run(x, layers, h_dim, gru, noise, half)
+        return h.to(torch.bfloat16) if half else h
+
+    def _run(self, x, layers, h_dim: int, gru: bool, noise: Optional[Noise],
+             half: bool) -> torch.Tensor:
         if not self.training:
             sms = sm_count(x.device)
             if gru:
@@ -128,6 +177,10 @@ class FusedStackedRNN(nn.Module):
             return x_l
         shape = (x.shape[1], self.num_layers - 1, x.shape[0], h_dim)
         keep = keep_mask(noise, shape, self.dropout, x.device)
+        if half and self.dropout > 0.0:
+            # flax's bf16 mask: 1 / bf16(1 - p), rounded to bf16
+            keep = torch.where(keep > 0, bf16_scalar(1.0 / bf16_scalar(1.0 - self.dropout)),
+                               0.0)
         if gru:
             return fused_gru_final(x, keep, layers, res_dtype=self.residual_dtype)
         return fused_lstm_final(x, keep, layers, remat_gates=self.remat_gates,

@@ -306,6 +306,21 @@ def lstm_route(num_layers: int, hidden: int, sm_count: int) -> str:
 gru_route = lstm_route
 
 
+def rounds_weight_grads(cell: str, num_layers: int, hidden: int,
+                        device: torch.device) -> bool:
+    """Whether, under a bf16 compute dtype, the JAX package hands a training
+    stack's weight gradients back rounded to the bf16 parameters' dtype:
+    its LSTM custom VJP casts them on every route but the residual-native
+    pair (the legacy pair under ``set_res2_mode("off")`` and the layered
+    route cast); its GRU one forms them in bf16 on its bf16 scan (deeper
+    than 2 layers: the port's layered route) and in float32 on both
+    pairs."""
+    route = lstm_route(num_layers, hidden, sm_count(device))
+    if cell == "gru":
+        return route != "pair"
+    return route != "pair" or _RES2_MODE == "off"
+
+
 def sm_count(device: torch.device) -> int:
     """The card's SM count, or the H100's for a CPU tensor."""
     if device.type == "cuda":

@@ -115,7 +115,7 @@ def activation_stats(config, train_loader, model: Optional[nn.Module] = None
         logits, aux = model(batch, return_aux=True)
     stats = {}
     for name, tensor in {**aux["encoded"], "logits": logits}.items():
-        arr = tensor.cpu().numpy()
+        arr = tensor.float().cpu().numpy()  # bf16 under bf16 compute
         stats[name] = {
             "mean": float(arr.mean()), "std": float(arr.std()),
             "min": float(arr.min()), "max": float(arr.max()),

@@ -130,7 +130,8 @@ def main(argv=None):
             unc_list.append(unc.cpu().numpy())
         else:
             logits = forward(model, features, mask)
-        logits_list.append(logits.cpu().numpy())
+        # float32, as the JAX tool writes them (bf16 logits under bf16 compute)
+        logits_list.append(logits.float().cpu().numpy())
         labels_list.append(labels.numpy())
 
     logits = np.concatenate(logits_list)[: loader.num_samples]

@@ -172,7 +172,7 @@ def main(argv=None):
             np.ascontiguousarray(c.reshape((n_pad // mb, mb) + c.shape[1:]))
         ).to(device)
     forward_many = make_batched_forward_fn(model)
-    logits = forward_many(feats).cpu().numpy().reshape(n_pad, -1)[:n_win]
+    logits = forward_many(feats).float().cpu().numpy().reshape(n_pad, -1)[:n_win]
 
     probs = np.exp(logits - logits.max(-1, keepdims=True))
     probs /= probs.sum(-1, keepdims=True)

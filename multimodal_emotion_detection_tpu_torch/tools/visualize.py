@@ -43,11 +43,12 @@ def attention_matrix(model: nn.Module, batch: Dict[str, torch.Tensor],
             _, info = model.fusion(aux["encoded"], mask, return_attention=True)
             rows = [info["per_modality_attention"][m].mean(dim=(0, 1, 2))
                     for m in modalities]
-            return torch.stack(rows).cpu().numpy()  # query x key modality
+            # query x key modality, float32 also under bf16 compute
+            return torch.stack(rows).float().cpu().numpy()
         weights = aux.get("fusion_weights")
         if weights is None:
             return None
-        return weights.mean(dim=0, keepdim=True).cpu().numpy()
+        return weights.mean(dim=0, keepdim=True).float().cpu().numpy()
 
 
 def main(argv=None):

@@ -339,7 +339,7 @@ class Trainer:
         if not collect:
             return totals, None
         keep = valid_np.reshape(-1).astype(bool)
-        return totals, (torch.cat(logits_list).cpu().numpy()[keep],
+        return totals, (torch.cat(logits_list).float().cpu().numpy()[keep],
                         torch.cat(labels_list).cpu().numpy()[keep])
 
     # ------------------------------------------------------------------

@@ -38,10 +38,27 @@ from multimodal_emotion_detection_tpu_torch.training.optim import (
 )
 
 
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-row cross-entropy (B,), in the logits' dtype, as the JAX step's
+    ``optax.softmax_cross_entropy_with_integer_labels``: logsumexp(logits)
+    - logits[label].  On float32 logits it is ``F.cross_entropy``.  On bf16
+    logits ``F.cross_entropy`` would take the log-softmax in float32 and
+    round once (on the CPU and on CUDA alike: both accumulate bf16 in
+    float32), where optax's logsumexp runs in bf16, each op rounded: the
+    max, exp(x - max), the sum (float32, rounded once, as ``jnp.sum``), the
+    log and the sums.  So bf16 takes optax's ops one by one."""
+    if logits.dtype != torch.bfloat16:
+        return F.cross_entropy(logits, labels, reduction="none")
+    top = logits.amax(dim=-1, keepdim=True).detach()
+    sumexp = torch.exp(logits - top).float().sum(dim=-1).to(logits.dtype)
+    return (torch.log(sumexp) + top[:, 0]) - logits.gather(-1, labels[:, None])[:, 0]
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   valid: torch.Tensor) -> torch.Tensor:
-    """sum(ce * valid) / max(sum(valid), 1): padding rows weigh nothing."""
-    ce = F.cross_entropy(logits, labels, reduction="none")
+    """sum(ce * valid) / max(sum(valid), 1): padding rows weigh nothing; a
+    bf16 ce is weighed in float32, as the JAX step's."""
+    ce = softmax_cross_entropy(logits, labels)
     return (ce * valid).sum() / valid.sum().clamp(min=1.0)
 
 
@@ -127,7 +144,7 @@ def eval_sums(
     model.eval()
     with torch.inference_mode():
         logits = model(batch, mask)
-        ce = F.cross_entropy(logits, batch_labels, reduction="none")
+        ce = softmax_cross_entropy(logits, batch_labels)
         probs = torch.softmax(logits.to(torch.float32), dim=-1)
         ent = -(probs * torch.log(probs.clamp(min=1e-12))).sum(dim=-1)
         sums = {
@@ -145,7 +162,8 @@ def forward(
     features: Dict[str, torch.Tensor],
     mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Inference logits (B, C): dropout off, no autograd graph.
+    """Inference logits (B, C), in the model's compute dtype: dropout off,
+    no autograd graph.
 
     ``mask`` (B, M) defaults to every modality available.
     """

@@ -197,7 +197,7 @@ def compute_calibration_metrics_over_loader(
         if isinstance(logits, tuple):
             logits = logits[0]
         valid = np.asarray(mask.cpu()).max(axis=1) > 0
-        logits_all.append(np.asarray(logits.cpu())[valid])
+        logits_all.append(np.asarray(logits.float().cpu())[valid])
         labels_all.append(np.asarray(labels)[valid])
     if not logits_all:
         return {"ece": 0.0, "mce": 0.0, "nll": 0.0, "accuracy": 0.0}

@@ -64,4 +64,5 @@ def mc_dropout_predict(
     logits = logits.reshape(num_samples, b, -1)
     probs = torch.softmax(logits.to(torch.float32), dim=-1)
     uncertainty = probs.var(dim=0, unbiased=False).mean(dim=-1)
-    return logits.mean(dim=0), uncertainty
+    # the mean over the samples sums in float32, as jnp.mean does for bf16
+    return logits.float().mean(dim=0).to(logits.dtype), uncertainty

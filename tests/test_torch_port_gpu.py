@@ -2187,3 +2187,86 @@ def test_visualize_matrix_on_the_card_matches_the_cpu():
         before[0] + 1, before[1] + 1)
     assert got.shape == (2, 2)
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+
+
+def _bf16_stack_step(device, rnn, x, keep, weight):
+    """One training forward + backward and one eval forward of the bf16
+    ``rnn`` copied to ``device``, the keep mask replayed: (train h,
+    gradients, eval h), on the CPU."""
+    from multimodal_emotion_detection_tpu_torch.models.noise import Noise
+
+    m = copy.deepcopy(rnn).to(device).train()
+    h = m(x.to(device), Noise(replay=[keep]))
+    (h.float() * weight.to(device)).sum().backward()
+    grads = [p.grad.cpu() for p in m.parameters()]
+    m.eval()
+    with torch.no_grad():
+        h_eval = m(x.to(device))
+    return h.detach().float().cpu(), grads, h_eval.float().cpu()
+
+
+def _bf16_stack_check(dev, rnn, b, t, d, h, counters, seed):
+    x = torch.from_numpy(np.random.RandomState(seed).randn(b, t, d).astype(np.float32))
+    keep = torch.bernoulli(torch.full((t, 1, b, h), 0.9),
+                           generator=torch.Generator().manual_seed(seed)) / 0.9
+    weight = torch.from_numpy(np.random.RandomState(seed + 1).randn(b, h).astype(np.float32))
+    weight = weight.to(torch.bfloat16).float()  # bf16-exact: h's rounding stays out
+    before = [c.launches for c in counters]
+    card = _bf16_stack_step(dev, rnn, x, keep, weight)
+    torch.cuda.synchronize()
+    launched = [c.launches - n for c, n in zip(counters, before)]
+    cpu = _bf16_stack_step(torch.device("cpu"), rnn, x, keep, weight)
+    for out, ref, what in ((card[0], cpu[0], "train h"), (card[2], cpu[2], "eval h")):
+        # float32 kernels on the same rounded operands, rounded once: 1 ulp
+        torch.testing.assert_close(out, ref, rtol=0, atol=2.0 ** -8 * float(ref.abs().max()),
+                                   msg=what)
+    g_max = max(float(g.abs().max()) for g in cpu[1])
+    for i, (g, r) in enumerate(zip(card[1], cpu[1])):
+        assert g.dtype == torch.float32
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-4 * g_max, msg=f"gradient {i}")
+    return launched
+
+
+@pytest.mark.parametrize("b", [32, 256])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_bf16_compute_pairs_match_the_cpu_on_the_card(cell, b):
+    """``FusedStackedRNN(dtype=bfloat16)`` at the flagship's widths (log-mel
+    64 -> 2 x 256, 372 steps) at batch 32 and the bench legs' 256: the
+    float32 pair kernels (rows 11 / 12, 14 / 15) once each a training step
+    and the eval kernel (row 2, the GRU's 3) once an eval forward, on
+    bf16-rounded operands, no bf16-residual form; h within 1 bf16 ulp and
+    the float32 gradients within 1e-4 of the largest of the CPU's plain
+    versions on the same operands."""
+    from multimodal_emotion_detection_tpu_torch.models.recurrent import FusedStackedRNN
+
+    dev = _card()
+    rnn = FusedStackedRNN(64, 256, 2, dropout=0.1, cell_type=cell, dtype=torch.bfloat16)
+    for p in rnn.parameters():
+        torch.nn.init.uniform_(p, -1 / 16, 1 / 16, generator=torch.Generator().manual_seed(b))
+    up = cell.upper()
+    counters = [getattr(lstm_kernel, f"{up}2_{n}") for n in
+                ("TRAIN_FWD", "BWD_CHAIN", "INFER", "TRAIN_FWD_BF16", "BWD_CHAIN_BF16")]
+    launched = _bf16_stack_check(dev, rnn, b, 372, 64, 256, counters, seed=b)
+    assert launched == [1, 1, 1, 0, 0]
+
+
+def test_bf16_compute_remat_pair_with_float32_streams_on_the_card():
+    """The gate-rematerialising pair under the bf16 compute dtype with
+    float32 residual streams: the float32 no-gates forward and remat chain
+    (row 13), x read into float32 before the chain as the JAX package casts
+    it to the streams' dtype, once each; no bf16 form, no stored-gates
+    pair; h and the gradients as the CPU's plain versions on the same
+    operands."""
+    from multimodal_emotion_detection_tpu_torch.models.recurrent import FusedStackedRNN
+
+    dev = _card()
+    rnn = FusedStackedRNN(64, 256, 2, dropout=0.1, dtype=torch.bfloat16)
+    rnn.remat_gates = True
+    for p in rnn.parameters():
+        torch.nn.init.uniform_(p, -1 / 16, 1 / 16, generator=torch.Generator().manual_seed(3))
+    counters = [getattr(lstm_kernel, n) for n in (
+        "LSTM2_TRAIN_FWD_NOGATES", "LSTM2_BWD_CHAIN_REMAT", "LSTM2_INFER",
+        "LSTM2_TRAIN_FWD_NOGATES_BF16", "LSTM2_BWD_CHAIN_REMAT_BF16", "LSTM2_TRAIN_FWD",
+        "LSTM2_BWD_CHAIN")]
+    launched = _bf16_stack_check(dev, rnn, 32, 372, 64, 256, counters, seed=5)
+    assert launched == [1, 1, 1, 0, 0, 0, 0]

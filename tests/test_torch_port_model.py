@@ -94,11 +94,15 @@ def test_classifier_logits_match_jax(jax_kernels):
     # the one-layer LSTM was refused
     pytest.param("model.frontend.video=resize", "item 12",
                  id="model.encoders.audio.num_layers=1-item 3"),
-    # a per-encoder dtype outside the port; the id is the one this case had
-    # while the fusion library was refused
-    pytest.param(["model.encoders.audio.dtype=bfloat16"], "item 13",
+    # the image encoder in bf16, still outside the port; the id is the one
+    # this case had while the fusion library was refused
+    pytest.param(["model.encoders.audio.dtype=bfloat16",
+                  "model.encoders.video.type=pretrained_cnn"], "item 8",
                  id="model.train_fusion=library-item 7"),
-    ("runtime.compute_dtype=bfloat16", "item 13"),
+    # the bf16 compute dtype is ported since: the case keeps its id and
+    # holds it beside the video resize, still outside the port
+    pytest.param(["runtime.compute_dtype=bfloat16", "model.frontend.video=resize"],
+                 "item 12", id="runtime.compute_dtype=bfloat16-item 13"),
 ])
 def test_configs_outside_the_slice_raise(override, item):
     extra = override if isinstance(override, list) else [override]

@@ -207,20 +207,25 @@ def test_frontend_cache_gives_the_same_trajectory(data_dir, tmp_path):
     # is the one this case had while bf16 residual streams were refused
     pytest.param("model.frontend.video=resize", "item 12",
                  id="runtime.lstm_residual_dtype=bfloat16-item 13"),
-    ("runtime.compute_dtype=bfloat16", "item 13"),
+    # the bf16 compute dtype is ported since: the case keeps its id and
+    # holds it beside the image encoder, still outside the port
+    pytest.param(["runtime.compute_dtype=bfloat16",
+                  "model.encoders.audio.type=pretrained_cnn"], "item 8",
+                 id="runtime.compute_dtype=bfloat16-item 13"),
     # three settings ported since (the epoch trace, synthetic data, the
     # host-streaming loader): each case keeps its id and holds another
     # setting still outside the port; pretrained weights moved to item 8
-    pytest.param("model.encoders.audio.dtype=bfloat16", "item 13",
-                 id="runtime.profile_dir=prof-item 5"),
+    pytest.param(["model.encoders.audio.dtype=bfloat16", "model.frontend.video=resize"],
+                 "item 12", id="runtime.profile_dir=prof-item 5"),
     pytest.param("model.encoders.video.weights_path=w.pth", "item 8",
                  id="model.encoders.video.weights_path=w.pth-item 5"),
     pytest.param("model.encoders.video.type=pretrained_cnn", "item 8",
                  id="dataset.name=synthetic-item 5"),
-    # bf16 on the frame encoder is ported since: the case keeps its id and
-    # holds bf16 on the MLP encoder (BatchNorm), still outside the port
-    pytest.param(["model.encoders.video.type=mlp", "model.encoders.video.dtype=bfloat16"],
-                 "item 13", id="dataset.device_resident=false-item 5"),
+    # bf16 on the frame and MLP encoders is ported since: the case keeps its
+    # id and holds bf16 on the image encoder, still outside the port
+    pytest.param(["model.encoders.video.type=pretrained_cnn",
+                  "model.encoders.video.dtype=bfloat16"],
+                 "item 8", id="dataset.device_resident=false-item 5"),
     # an encoder kind still outside the port (the image CNN); the id is the
     # one this case had while the calibration report was refused
     pytest.param("model.encoders.audio.type=pretrained_cnn", "item 8",

@@ -11,8 +11,11 @@ against the JAX modules with ``use_flash=True, flash_interpret=True``:
 * the classifier with both overrides: float32 logits, and a JAX tree built
   with bf16 encoders loading ``strict=True``;
 * a 3-step train-step trajectory and a ``Trainer`` epoch against JAX's;
-* the refusals: ``runtime.compute_dtype=bfloat16``, and ``dtype: bfloat16``
-  on the LSTM, GRU, CNN and MLP encoders, each naming item 13.
+* the refusals of bf16 settings beside one still outside the port (the
+  image encoder, item 8; the video resize, item 12; a GRU wider than its
+  kernels take): the bf16 compute dtype and ``dtype: bfloat16`` on the
+  LSTM, GRU, CNN and MLP encoders are ported since
+  (``test_torch_port_compute_bf16.py``).
 
 Tolerances.  Both sides round to bf16 at flax's points, but not always to
 the same ulp: GELU, softmax and the bias-gradient reductions are fused
@@ -328,14 +331,20 @@ def test_trainer_epoch_with_bf16_encoders_matches_jax(tmp_path):
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-2, err_msg=key)
 
 
-@pytest.mark.parametrize("override", [
-    ["runtime.compute_dtype=bfloat16"],
-    ["model.encoders.audio.dtype=bfloat16"],  # the LSTM of base.yaml
-    ["model.encoders.audio.encoder_type=gru", "model.encoders.audio.dtype=bfloat16"],
-    ["model.encoders.audio.encoder_type=cnn", "model.encoders.audio.dtype=bfloat16"],
-    ["model.encoders.video.type=mlp", "model.encoders.video.dtype=bfloat16"],
+# each case keeps the id it had while its bf16 setting was refused (item 13,
+# ported since) and holds that setting beside one still outside the port
+@pytest.mark.parametrize("override,item", [
+    (["runtime.compute_dtype=bfloat16", "model.encoders.video.type=pretrained_cnn"],
+     "item 8"),
+    (["model.encoders.audio.dtype=bfloat16", "model.frontend.video=resize"], "item 12"),
+    (["model.encoders.audio.encoder_type=gru", "model.encoders.audio.dtype=bfloat16",
+      "model.encoders.audio.hidden_dim=1064"], "shape ceilings"),
+    (["model.encoders.audio.type=pretrained_cnn", "model.encoders.audio.dtype=bfloat16"],
+     "item 8"),
+    (["model.encoders.video.type=pretrained_cnn", "model.encoders.video.dtype=bfloat16"],
+     "item 8"),
 ], ids=["compute_dtype", "lstm", "gru", "cnn", "mlp"])
-def test_bf16_outside_the_slice_raises(override):
+def test_bf16_outside_the_slice_raises(override, item):
     cfg = load_config(CONFIG, ["model.frontend.audio=logmel"] + override)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match=item):
         classifier_from_config(cfg)
