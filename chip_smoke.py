@@ -246,7 +246,11 @@
    artifact's logits bit for bit the in-memory int8 round trip's, each
    mode's first batch against the CPU's plain forward on the same rounded
    weights (1e-3), every mode's accuracy and ECE beside float32's and the
-   artifact's bytes beside the checkpoint's.  ``[sweep]`` runs ``tools.sweep
+   artifact's bytes beside the checkpoint's; then ``predict
+   --quantize-weights int8`` on ``[train_gru]``'s and ``[train_tf]``'s
+   ``best.ckpt`` (``[quantize_gru]``: log-mel and row 3 once per batch;
+   ``[quantize_tf]``: log-mel once and row 16 twice), each first batch
+   against the CPU's plain forward on the same rounded weights.  ``[sweep]`` runs ``tools.sweep
    --vmap-grid`` on the flagship for 1 epoch of the 96-clip train split:
    the reference's 3x2x2 grid as 2 programs of 6 members, each member
    stepping through rows 1, 11 and 12 and validating through rows 1 and 2
@@ -277,7 +281,21 @@
    ``[serve_tf_bf16]`` serves its ``best.ckpt`` (logits within 4 bf16 ulps
    of the largest CPU logit, the argmax wherever the CPU's top two are
    more than twice that apart), b32 and b1 latency.
-20. Prints the script's wall time, one JSON line describing every kernel
+20. Export (``tools.export``, the serving kernels as ``med_torch`` custom
+   ops): ``[export]``, ``[export_gru]``, ``[export_big]``,
+   ``[export_big_gru]``, ``[export_tf]`` and ``[export_tf_compute_bf16]``
+   export ``[train]``'s, ``[train_gru]``'s, ``[train_big]``'s,
+   ``[train_big_gru]``'s, ``[train_tf]``'s and ``[train_tf_compute_bf16]``'s
+   ``best.ckpt`` at b32 through the CLI (its round trip: the eager forward
+   and the loaded program once each, counted exactly), print the export
+   seconds and the ``.pt2`` bytes, hold the loaded program's logits on the
+   test split's first 32 clips bit for bit to the eager ``forward``'s with
+   each exported call's launches exact (log-mel once; rows 2, 3 once, 6e,
+   7e three times, 16 or 16b twice), and time both b32 forwards in the
+   same phase.  The flagship's file is also loaded and served in a fresh
+   interpreter that imports only ``multimodal_emotion_detection_tpu_torch
+   .ops``, bit for bit the eager logits.
+21. Prints the script's wall time, one JSON line describing every kernel
    (the one-layer and 2-layer cores' entries name their shared header as
    ``core``), nvidia-smi's name and power limit of the card, and as the
    last line ``{"ok": true, "device": {...}}``.
@@ -290,6 +308,7 @@ from __future__ import annotations
 
 import json
 import multiprocessing
+import os
 import statistics
 import subprocess
 import sys
@@ -4706,6 +4725,127 @@ def phase_quantize(counters, ckpt: Path, overrides, audio: np.ndarray,
     return launches
 
 
+EXPORT_FRESH = """
+import sys
+import torch
+import multimodal_emotion_detection_tpu_torch.ops  # noqa: F401
+program = torch.export.load(sys.argv[1]).module()
+clips = {m: t.cuda() for m, t in torch.load(sys.argv[2]).items()}
+with torch.inference_mode():
+    logits = program(clips)
+torch.save(logits.cpu(), sys.argv[3])
+print(sorted(m for m in sys.modules if m.startswith("multimodal_emotion")))
+"""
+
+
+def phase_export(counters, tag: str, ckpt: Path, overrides, expected, fresh: bool = False):
+    """``[export*]``: ``tools.export`` on ``ckpt`` at b32 (the CLI's round
+    trip runs the eager forward and the loaded program once each: twice
+    ``expected``), the file's bytes, then the loaded program on the test
+    split's first 32 clips bit for bit the eager ``forward``'s with its
+    launches exactly ``expected``, and both b32 forwards' p50 in turns;
+    with ``fresh`` the file served in a fresh interpreter that imports
+    only the port's ops.  Returns the exported call's launches."""
+    from multimodal_emotion_detection_tpu_torch.config import load_config
+    from multimodal_emotion_detection_tpu_torch.tools import export
+    from multimodal_emotion_detection_tpu_torch.tools._restore import restore_model
+    from multimodal_emotion_detection_tpu_torch.training.steps import forward
+
+    config = str(ROOT / "configs" / "base.yaml")
+    out = WORK / "export" / f"{tag}.pt2"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    _, export_s, _ = run_counted(
+        counters, {k: 2 * n for k, n in expected.items()}, tag, lambda: export.main([
+            "--checkpoint", str(ckpt), "--config", config, "--out", str(out),
+            "--batch", "32", *overrides]))
+    print(f"[{tag}] tools.export at b32: {export_s:.3f} s wall (restore, trace, save, "
+          f"load and the round trip); {out.stat().st_size} bytes of .pt2")
+    dev = torch.device("cuda")
+    cfg = load_config(config, overrides)
+    cfg.model.frontend.cache = False
+    model, _ = restore_model(cfg, ckpt, dev)
+    test = WORK / "train_data" / "test"
+    clips = {m: torch.from_numpy(np.load(test / f"{m}.npy")[:32]).to(dev)
+             for m in cfg.dataset.modalities}
+    program = export.load_exported(out).module()
+
+    def served():
+        with torch.inference_mode():
+            return program(clips)
+
+    eager = forward(model, clips)
+    got, _, launches = run_counted(counters, expected, tag, served)
+    same = got.dtype == eager.dtype and torch.equal(got, eager)
+    print(f"[{tag}] the loaded program vs the eager forward on 32 clips: bit for bit "
+          f"{same} (max abs diff {float((got.float() - eager.float()).abs().max()):.3e}); "
+          f"launches of one exported call { {k: v for k, v in launches.items() if v} }")
+    if not same:
+        raise RuntimeError(f"[{tag}] the exported program's logits differ from the eager "
+                           "forward's")
+    p50s = {"eager": [], "exported": []}
+    for _ in range(2):
+        for label, fn in (("eager", lambda: forward(model, clips)), ("exported", served)):
+            p50s[label].append(host_ms(fn, reps=40)[0])
+    print(f"[{tag}] b32 forward p50 (host clock around synchronize, 40 requests, in "
+          f"turns): exported {' / '.join(f'{v:.4f}' for v in p50s['exported'])} ms, "
+          f"eager {' / '.join(f'{v:.4f}' for v in p50s['eager'])} ms")
+    if fresh:
+        torch.save({m: t.cpu() for m, t in clips.items()}, out.with_suffix(".clips.pt"))
+        t0 = time.perf_counter()
+        done = subprocess.run(
+            [sys.executable, "-c", EXPORT_FRESH, str(out), str(out.with_suffix(".clips.pt")),
+             str(out.with_suffix(".logits.pt"))], capture_output=True, text=True,
+            cwd=WORK, env={**os.environ, "PYTHONPATH": str(ROOT)}, timeout=300)
+        if done.returncode != 0:
+            raise RuntimeError(f"[{tag}] the fresh process failed:\n{done.stderr[-3000:]}")
+        loaded = done.stdout.strip().splitlines()[-1]
+        fresh_logits = torch.load(out.with_suffix(".logits.pt"))
+        same = torch.equal(fresh_logits, eager.cpu())
+        print(f"[{tag}] served in a fresh interpreter ({time.perf_counter() - t0:.3f} s "
+              f"wall, its start included) that imported only {loaded}: bit for bit {same}")
+        if not same or "models" in loaded or "tools" in loaded:
+            raise RuntimeError(f"[{tag}] the fresh process's logits differ, or it imported "
+                               "more than the ops")
+    return launches
+
+
+def quantized_serve(counters, tag: str, ckpt: Path, overrides, expected,
+                    audio: np.ndarray, video: np.ndarray) -> dict:
+    """``predict --quantize-weights int8`` on ``ckpt`` over the test split,
+    launches exactly ``expected``; the first batch against the CPU's plain
+    forward on the same rounded weights (1e-3, argmax 32 / 32).  Returns
+    the launches."""
+    from multimodal_emotion_detection_tpu_torch.config import load_config
+    from multimodal_emotion_detection_tpu_torch.tools import predict
+    from multimodal_emotion_detection_tpu_torch.tools._restore import restore_model
+    from multimodal_emotion_detection_tpu_torch.training.steps import forward
+    from multimodal_emotion_detection_tpu_torch.utils import quantize as q
+
+    config = str(ROOT / "configs" / "base.yaml")
+    out = WORK / "quantize" / tag
+    _, wall, launches = run_counted(counters, expected, tag, lambda: predict.main([
+        "--checkpoint", str(ckpt), "--config", config, "--split", "test",
+        "--quantize-weights", "int8", "--out", str(out), *overrides]))
+    logits = np.load(out / "logits.npy")
+    if logits.shape != (audio.shape[0], 8) or not np.isfinite(logits).all():
+        raise RuntimeError(f"[{tag}] bad logits {logits.shape}")
+    cfg = load_config(config, overrides)
+    cfg.model.frontend.cache = False
+    model, _ = restore_model(cfg, ckpt, torch.device("cpu"))
+    q.load_params(model, q.quantize_params_for_eval(q.model_params(model), "int8"))
+    ref = forward(model, {"audio": torch.from_numpy(audio[:32]),
+                          "video": torch.from_numpy(video[:32])}).numpy()
+    err = float(np.abs(logits[:32] - ref).max())
+    agree = int((logits[:32].argmax(-1) == ref.argmax(-1)).sum())
+    print(f"[{tag}] predict --quantize-weights int8 over {audio.shape[0]} clips: "
+          f"{wall:.3f} s wall; launches { {k: v for k, v in launches.items() if v} }; "
+          f"first 32 clips vs the plain-version forward on the CPU on the same rounded "
+          f"weights: max abs err {err:.3e} (bound 1e-3), argmax agreement {agree}/32")
+    if err > 1e-3 or agree != 32:
+        raise RuntimeError(f"[{tag}] the card disagrees with the CPU")
+    return launches
+
+
 SWEEP_GRID_LRS = "1e-3,5e-4,2e-3"  # the reference's lr axis, 1e-3 first
 
 
@@ -5364,6 +5504,22 @@ def _run_phases(counters, pending, card_name: str, t_start: float) -> None:
     print(f"[time] train_bf16, serve_bf16, train_gru_bf16, train_tf_compute_bf16, "
           f"serve_tf_compute_bf16, train_audio_only_bf16, train_bf16_b256, "
           f"train_big_bf16_b256: {time.perf_counter() - t_compute:.1f} s")
+    # tools.export on six trained checkpoints at b32: the loaded program
+    # launches the eager forward's kernels (log-mel once, then rows 2, 3,
+    # 3 x 6e, 3 x 7e, 2 x 16 or 2 x 16b) and gives its logits bit for bit
+    t_export = time.perf_counter()
+    for tag, run, run_overrides, expected in (
+            ("export", train_run, train_overrides, {"logmel": 1, "lstm2_infer": 1}),
+            ("export_gru", gru_run, gru_overrides, {"logmel": 1, "gru2_infer": 1}),
+            ("export_big", big_run, big_overrides, {"logmel": 1, "lstm1_infer": 3}),
+            ("export_big_gru", big_gru_run, big_gru_overrides, {"logmel": 1, "gru1_infer": 3}),
+            ("export_tf", tf_run, tf_overrides, {"logmel": 1, "flash_fwd": 2}),
+            ("export_tf_compute_bf16", tfc_run, tfc_overrides,
+             {"logmel": 1, "flash_fwd_bf16": 2})):
+        by_path[tag] = timed(phase_export, counters, tag, run / "best.ckpt", run_overrides,
+                             expected, fresh=tag == "export")
+    print(f"[time] export, export_gru, export_big, export_big_gru, export_tf, "
+          f"export_tf_compute_bf16: {time.perf_counter() - t_export:.1f} s")
     # configs/base.yaml as written (raw waveform, LSTM 2x256) and with the
     # GRU: the pair once per step, its eval form once per eval or served
     # batch, no log-mel; a step takes ~0.6 s, so fewer timed reps, and the
@@ -5387,6 +5543,12 @@ def _run_phases(counters, pending, card_name: str, t_start: float) -> None:
     t_tools = time.perf_counter()
     by_path["quantize"] = timed(phase_quantize, counters, train_run / "best.ckpt",
                                 train_overrides, test_audio, test_video, name="quantize")
+    by_path["quantize_gru"] = timed(quantized_serve, counters, "quantize_gru",
+        gru_run / "best.ckpt", gru_overrides, {"logmel": batches, "gru2_infer": batches},
+        test_audio, test_video)
+    by_path["quantize_tf"] = timed(quantized_serve, counters, "quantize_tf",
+        tf_run / "best.ckpt", tf_overrides, {"logmel": batches, "flash_fwd": 2 * batches},
+        test_audio, test_video)
     by_path["sweep"] = timed(phase_sweep, counters, STEPS["train"][0], name="sweep")
     by_path["visualize"] = timed(phase_visualize, counters, hyb_run / "best.ckpt",
                                  hyb_overrides, test_audio, test_video, name="visualize")

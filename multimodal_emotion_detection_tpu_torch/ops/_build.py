@@ -9,6 +9,12 @@ a plain C interface: every pointer and the stream are ``void*``, and each
 entry returns a CUDA error code (0 on success).  Nothing here runs when
 the module is imported; a build or launch failure raises, and no caller
 falls back to another implementation.
+
+``kernel_op`` registers a serving kernel as a ``torch.library`` custom op
+in the ``med_torch`` namespace: its CUDA kernel launches the ``csrc/``
+kernel, its CPU kernel is the plain version, and its fake gives the
+output's shape and dtype without reading storage, so ``torch.export``
+traces the model with the op as one node.
 """
 
 from __future__ import annotations
@@ -20,12 +26,13 @@ import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Callable, Dict, Iterable, List
 
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+OPS_NAMESPACE = "med_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -165,3 +172,17 @@ def check_cuda(name: str, dtype: torch.dtype, tensors: Dict[str, torch.Tensor]) 
         devices.add(t.device)
     if len(devices) > 1:
         raise ValueError(f"{name}: tensors lie on several cards: {devices}")
+
+
+def kernel_op(name: str, schema: str, cpu: Callable, cuda: Callable,
+              fake: Callable):
+    """Register ``med_torch::<name>`` with ``schema`` (explicit, so no
+    annotation is evaluated): ``cpu`` its CPU kernel, ``cuda`` its CUDA
+    kernel, ``fake`` its fake (meta) kernel.  No other device has a
+    kernel, so a tensor there raises.  The op mutates nothing and returns
+    fresh tensors.  Returns the op, callable as a function."""
+    op = torch.library.custom_op(f"{OPS_NAMESPACE}::{name}", cpu, mutates_args=(),
+                                 device_types="cpu", schema=schema)
+    op.register_kernel("cuda")(cuda)
+    op.register_fake(fake)
+    return op

@@ -47,6 +47,8 @@ points, with P taken after the row's final max (the JAX kernel's
 one-block form, T <= 512); the kernels round P relative to the running
 max of their key tiles, which can put an element an ulp away.
 
+``flash_fwd`` calls the custom op ``med_torch::flash_fwd`` (both dtypes;
+``_build.kernel_op``), so ``torch.export`` traces a forward as one node.
 ``FlashAttention`` (an ``autograd.Function``) saves (q, k, v, bias, seed,
 O, LSE); its backward forms Delta = rowsum(dO * O) in float32 and takes the
 fused or the two-pass form by ``bwd_route(Tk)``, as the JAX package does
@@ -75,6 +77,7 @@ import torch
 from multimodal_emotion_detection_tpu_torch.ops._build import (
     CudaKernel,
     check_cuda,
+    kernel_op,
     stream_of,
 )
 
@@ -444,18 +447,10 @@ def _drop_args(rate: float):
     return drop_threshold(rate), 1.0 / (1.0 - rate) if rate > 0.0 else 1.0
 
 
-def flash_fwd(q, k, v, bias, seed, rate: float):
-    """Attention forward -> (O (B, H, Tq, D) in the operands' dtype, LSE
-    (B, H, Tq) float32).
-
-    On CUDA tensors this launches ``csrc/flash_fwd.cu`` (counted in
-    ``FLASH_FWD.launches``) or, on bf16 operands, ``csrc/flash_fwd_bf16.cu``
-    (``FLASH_FWD_BF16.launches``); on CPU tensors it runs
-    ``flash_fwd_reference``.
-    """
+def _fwd_launch(q, k, v, bias, seed, rate: float):
+    """The CUDA kernel of ``med_torch::flash_fwd``: the float32 form, or
+    the bf16 form on bf16 operands."""
     dtype = _operand_dtype("flash_fwd", q, k, v)
-    if q.device.type == "cpu":
-        return flash_fwd_reference(q, k, v, bias, seed, rate)
     b, h, tq, tk, d, seed_ptr = _checked("flash_fwd", q, k, v, bias, seed, rate)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     if dtype == torch.bfloat16:
@@ -474,6 +469,36 @@ def flash_fwd(q, k, v, bias, seed, rate: float):
                      o.data_ptr(), lse.data_ptr(), b, h, tq, tk, d,
                      1.0 / math.sqrt(d), *_drop_args(rate), stream_of(q))
     return o, lse
+
+
+def _fwd_plain(q, k, v, bias, seed, rate: float):
+    _operand_dtype("flash_fwd", q, k, v)
+    return flash_fwd_reference(q, k, v, bias, seed, rate)
+
+
+def _fwd_fake(q, k, v, bias, seed, rate: float):
+    _operand_dtype("flash_fwd", q, k, v)
+    return (q.new_empty(q.shape),
+            q.new_empty(q.shape[:3], dtype=torch.float32))
+
+
+FLASH_FWD_OP = kernel_op(
+    "flash_fwd",
+    "(Tensor q, Tensor k, Tensor v, Tensor? bias, Tensor? seed, float rate) "
+    "-> (Tensor, Tensor)",
+    cpu=_fwd_plain, cuda=_fwd_launch, fake=_fwd_fake)
+
+
+def flash_fwd(q, k, v, bias, seed, rate: float):
+    """Attention forward -> (O (B, H, Tq, D) in the operands' dtype, LSE
+    (B, H, Tq) float32).
+
+    Calls ``med_torch::flash_fwd``: on CUDA tensors it launches
+    ``csrc/flash_fwd.cu`` (counted in ``FLASH_FWD.launches``) or, on bf16
+    operands, ``csrc/flash_fwd_bf16.cu`` (``FLASH_FWD_BF16.launches``); on
+    CPU tensors it runs ``flash_fwd_reference``.
+    """
+    return FLASH_FWD_OP(q, k, v, bias, seed, float(rate))
 
 
 def _bwd_launch(form: str, q, k, v, bias, seed, rate, do, lse, delta,

@@ -5,10 +5,11 @@
     mel    = (re^2 + im^2) @ mel_filterbank
     out    = log(mel + eps)
 
-``logmel_cuda`` launches the fused kernel (``csrc/logmel.cu``: one FFT a
-frame, the filterbank as its non-zero runs) on a CUDA tensor, where the
-frame matrix and the spectrum never reach device memory, and runs
-``logmel_frames`` on a CPU tensor.  The basis and filterbank are built
+``logmel_cuda`` calls the custom op ``med_torch::logmel``, which launches
+the fused kernel (``csrc/logmel.cu``: one FFT a frame, the filterbank as
+its non-zero runs) on a CUDA tensor, where the frame matrix and the
+spectrum never reach device memory, and runs ``logmel_frames`` on a CPU
+tensor.  The basis and filterbank are built
 exactly as the JAX package builds them, so both packages use
 bit-identical float32 constants; the kernel's twiddle and window tables
 are rounded to float32 from float64 the same way.
@@ -27,6 +28,7 @@ import torch
 from multimodal_emotion_detection_tpu_torch.ops._build import (
     CudaKernel,
     check_cuda_f32,
+    kernel_op,
     stream_of,
 )
 
@@ -232,18 +234,9 @@ def _kernel_constants(params: LogMelParams, device: torch.device):
     return tuple(torch.from_numpy(a).to(device) for a in (tw, win, runs, weights))
 
 
-def logmel_cuda(wave: torch.Tensor, params: LogMelParams) -> torch.Tensor:
-    """Fused log-mel: wave (B, T) or (B, T, 1) -> (B, F, n_mels) float32.
-
-    On a CUDA tensor this launches ``csrc/logmel.cu`` (an FFT a frame; any
-    hop, n_fft a power of two in 64 .. 4096, n_mels <= 64) and counts the
-    launch in ``LOGMEL.launches``; on a CPU tensor it runs
-    ``logmel_frames``.  Any other device raises.
-    """
-    wave = _as_2d(wave)
-    if wave.device.type == "cpu":
-        return logmel_frames(wave, params)
-    wave = wave.to(torch.float32).contiguous()
+def _launch(wave: torch.Tensor, params: LogMelParams) -> torch.Tensor:
+    """The CUDA kernel of ``med_torch::logmel``: checks, tables, one launch."""
+    wave = _as_2d(wave).to(torch.float32).contiguous()
     b, t = wave.shape
     f = _check_frames(params, t)
     if params.n_mels > _MAX_MELS or params.n_fft not in FFT_SIZES:
@@ -266,6 +259,44 @@ def logmel_cuda(wave: torch.Tensor, params: LogMelParams) -> torch.Tensor:
         stream_of(wave),
     )
     return out
+
+
+def _fake(wave: torch.Tensor, params: LogMelParams) -> torch.Tensor:
+    wave = _as_2d(wave)
+    f = _check_frames(params, wave.shape[1])
+    return wave.new_empty((wave.shape[0], f, params.n_mels), dtype=torch.float32)
+
+
+def _with_params(fn):
+    """``fn(wave, params)`` as an op kernel over ``LogMelParams``' fields."""
+    def kernel(wave, sample_rate, n_fft, hop_length, win_length, n_mels, fmin,
+               fmax, log_epsilon):
+        return fn(wave, LogMelParams(sample_rate, n_fft, hop_length, win_length,
+                                     n_mels, fmin, fmax, log_epsilon))
+    return kernel
+
+
+LOGMEL_OP = kernel_op(
+    "logmel",
+    "(Tensor wave, int sample_rate, int n_fft, int hop_length, int win_length, "
+    "int n_mels, float fmin, float? fmax, float log_epsilon) -> Tensor",
+    cpu=_with_params(logmel_frames), cuda=_with_params(_launch),
+    fake=_with_params(_fake))
+
+
+def logmel_cuda(wave: torch.Tensor, params: LogMelParams) -> torch.Tensor:
+    """Fused log-mel: wave (B, T) or (B, T, 1) -> (B, F, n_mels) float32.
+
+    Calls ``med_torch::logmel``: on a CUDA tensor it launches
+    ``csrc/logmel.cu`` (an FFT a frame; any hop, n_fft a power of two in
+    64 .. 4096, n_mels <= 64) and counts the launch in
+    ``LOGMEL.launches``; on a CPU tensor it runs ``logmel_frames``.  Any
+    other device raises.
+    """
+    return LOGMEL_OP(wave, params.sample_rate, params.n_fft, params.hop_length,
+                     params.win_length, params.n_mels, float(params.fmin),
+                     None if params.fmax is None else float(params.fmax),
+                     float(params.log_epsilon))
 
 
 # the frontend's name in the JAX package; the device picks the route

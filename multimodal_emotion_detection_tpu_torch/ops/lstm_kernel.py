@@ -6,7 +6,11 @@ g, o; for a GRU layer ``w_ih`` (D, 3H), ``w_hh`` (H, 3H), ``b_ih`` and
 ``b_hh`` (3H,), gate order r, z, n.  Each layer-0 input projection (``x @
 w_ih + b``, or ``+ b_ih``) is one ``torch.matmul`` over all steps; each
 recurrence runs in its ``csrc/`` kernel on the card and in the loop of its
-plain version on the CPU.
+plain version on the CPU.  The four eval forms (``lstm2_infer``,
+``gru2_infer``, ``lstm1_infer``, ``gru1_infer``) call ``torch.library``
+custom ops of those names in the ``med_torch`` namespace
+(``_build.kernel_op``), so ``torch.export`` traces each as one node; the
+training kernels launch behind their ``autograd.Function``s.
 
 Two layers in one launch (H up to twice the SM count):
 
@@ -135,6 +139,7 @@ from multimodal_emotion_detection_tpu_torch.ops._build import (
     CudaKernel,
     check_cuda,
     check_cuda_f32,
+    kernel_op,
     load,
     stream_of,
 )
@@ -173,17 +178,8 @@ LSTM2_INFER = CudaKernel(
 )
 
 
-def lstm2_infer(x: torch.Tensor, layer0: Params, layer1: Params) -> torch.Tensor:
-    """x (B, T, D) -> final h of layer 1 (B, H), float32.
-
-    On a CUDA tensor this launches ``csrc/lstm2_infer.cu`` (one cooperative
-    cluster launch for the whole sequence on ``chain_plan_on``'s 2-layer
-    forward plan: layer 0 on one CTA set, layer 1 on another) and counts it
-    in ``LSTM2_INFER.launches``; on a CPU tensor it runs
-    ``lstm2_infer_reference``.  Any other device raises.
-    """
-    if x.device.type == "cpu":
-        return lstm2_infer_reference(x, layer0, layer1)
+def _lstm2_infer_launch(x: torch.Tensor, layer0: Params, layer1: Params) -> torch.Tensor:
+    """The CUDA kernel of ``med_torch::lstm2_infer``."""
     batch, t_len, _ = x.shape
     h_dim = layer0["w_hh"].shape[0]
     if t_len < 1 or batch < 1:
@@ -212,7 +208,43 @@ def lstm2_infer(x: torch.Tensor, layer0: Params, layer1: Params) -> torch.Tensor
         flags.data_ptr(), batch, t_len, h_dim, plan.upc, plan.ncl, plan.rgroups,
         plan.kc, stream_of(x),
     )
-    return h1[(t_len - 1) % 2]
+    # a fresh tensor: an op's output is no view of its scratch (opcheck
+    # holds its storage offset to the fake's)
+    return h1[(t_len - 1) % 2].clone()
+
+
+def _pair_infer_fake(x: torch.Tensor, layer0: Params, layer1: Params) -> torch.Tensor:
+    return x.new_empty((x.shape[0], layer0["w_hh"].shape[0]), dtype=torch.float32)
+
+
+def _lstm_pair_op(fn):
+    """``fn(x, layer0, layer1)`` as an op kernel over the six LSTM tensors."""
+    def kernel(x, w_ih0, w_hh0, b0, w_ih1, w_hh1, b1):
+        return fn(x, {"w_ih": w_ih0, "w_hh": w_hh0, "b": b0},
+                  {"w_ih": w_ih1, "w_hh": w_hh1, "b": b1})
+    return kernel
+
+
+LSTM2_INFER_OP = kernel_op(
+    "lstm2_infer",
+    "(Tensor x, Tensor w_ih0, Tensor w_hh0, Tensor b0, Tensor w_ih1, Tensor w_hh1, "
+    "Tensor b1) -> Tensor",
+    cpu=_lstm_pair_op(lstm2_infer_reference), cuda=_lstm_pair_op(_lstm2_infer_launch),
+    fake=_lstm_pair_op(_pair_infer_fake))
+
+
+def lstm2_infer(x: torch.Tensor, layer0: Params, layer1: Params) -> torch.Tensor:
+    """x (B, T, D) -> final h of layer 1 (B, H), float32.
+
+    Calls ``med_torch::lstm2_infer``: on a CUDA tensor it launches
+    ``csrc/lstm2_infer.cu`` (one cooperative cluster launch for the whole
+    sequence on ``chain_plan_on``'s 2-layer forward plan: layer 0 on one
+    CTA set, layer 1 on another) and counts it in
+    ``LSTM2_INFER.launches``; on a CPU tensor it runs
+    ``lstm2_infer_reference``.  Any other device raises.
+    """
+    return LSTM2_INFER_OP(x, layer0["w_ih"], layer0["w_hh"], layer0["b"],
+                          layer1["w_ih"], layer1["w_hh"], layer1["b"])
 
 
 # ---------------------------------------------------------------------------
@@ -1335,18 +1367,9 @@ def lstm1_train_fwd(ih: torch.Tensor, w_hh: torch.Tensor,
     return g, h_prev, c_prev, finals
 
 
-def lstm1_infer(ih: torch.Tensor, w_hh: torch.Tensor,
-                want_series: bool) -> torch.Tensor:
-    """Eval form of ``lstm1_train_fwd``: ih (T, B, 4H) -> the h series
-    (T, B, H) (the next layer's input) or, with ``want_series`` false, the
-    final h (B, H).  It stores no gates and no cell states.
-
-    On a CUDA tensor this launches ``csrc/lstm1_fwd.cu``'s eval entry (on
-    the training form's plan) and counts it in ``LSTM1_INFER.launches``; on a CPU tensor it runs
-    ``lstm1_infer_reference``.
-    """
-    if ih.device.type == "cpu":
-        return lstm1_infer_reference(ih, w_hh, want_series)
+def _lstm1_infer_launch(ih: torch.Tensor, w_hh: torch.Tensor,
+                        want_series: bool) -> torch.Tensor:
+    """The CUDA kernel of ``med_torch::lstm1_infer``."""
     t_len, batch, h_dim = _layer_shapes("lstm1_infer", ih, w_hh)
     ih, w_hh = ih.contiguous(), w_hh.contiguous()
     # the kernel's blocks exchange h through ``out``: the series itself,
@@ -1358,7 +1381,36 @@ def lstm1_infer(ih: torch.Tensor, w_hh: torch.Tensor,
     LSTM1_INFER(ih.data_ptr(), w_hh.data_ptr(), out.data_ptr(), carry.data_ptr(),
                 flags.data_ptr(), batch, t_len, h_dim, int(want_series), plan.upc,
                 plan.ncl, plan.rgroups, plan.kc, stream_of(ih))
-    return out if want_series else out[(t_len - 1) % 2]
+    return out if want_series else out[(t_len - 1) % 2].clone()
+
+
+def _layer_infer_fake(ih: torch.Tensor, w_hh: torch.Tensor, *rest) -> torch.Tensor:
+    """Shape and dtype of a one-layer eval form: ``rest`` ends with
+    ``want_series``."""
+    t_len, batch, h_dim = ih.shape[0], ih.shape[1], w_hh.shape[0]
+    shape = (t_len, batch, h_dim) if rest[-1] else (batch, h_dim)
+    return ih.new_empty(shape, dtype=torch.float32)
+
+
+LSTM1_INFER_OP = kernel_op(
+    "lstm1_infer", "(Tensor ih, Tensor w_hh, bool want_series) -> Tensor",
+    cpu=lambda ih, w_hh, want_series: lstm1_infer_reference(
+        ih, w_hh, want_series).contiguous(),
+    cuda=_lstm1_infer_launch, fake=_layer_infer_fake)
+
+
+def lstm1_infer(ih: torch.Tensor, w_hh: torch.Tensor,
+                want_series: bool) -> torch.Tensor:
+    """Eval form of ``lstm1_train_fwd``: ih (T, B, 4H) -> the h series
+    (T, B, H) (the next layer's input) or, with ``want_series`` false, the
+    final h (B, H).  It stores no gates and no cell states.
+
+    Calls ``med_torch::lstm1_infer``: on a CUDA tensor it launches
+    ``csrc/lstm1_fwd.cu``'s eval entry (on the training form's plan) and
+    counts it in ``LSTM1_INFER.launches``; on a CPU tensor it runs
+    ``lstm1_infer_reference``.
+    """
+    return LSTM1_INFER_OP(ih, w_hh, bool(want_series))
 
 
 def lstm_bwd_chain(g: torch.Tensor, c_prev: torch.Tensor, dh_series,
@@ -1587,16 +1639,8 @@ def _pair_launch(source: str, width: int, batch: int, h_dim: int,
     return plan, torch.zeros(2 * CHAIN_FLAGS, dtype=torch.int32, device=device)
 
 
-def gru2_infer(x: torch.Tensor, layer0: Params, layer1: Params) -> torch.Tensor:
-    """x (B, T, D) -> final h of the 2-layer GRU's layer 1 (B, H), float32.
-
-    On a CUDA tensor this launches ``csrc/gru2_infer.cu`` (one cooperative
-    cluster launch for the whole sequence on ``chain_plan_on``'s 2-layer
-    forward plan) and counts it in ``GRU2_INFER.launches``; on a CPU tensor
-    it runs ``gru2_infer_reference``.
-    """
-    if x.device.type == "cpu":
-        return gru2_infer_reference(x, layer0, layer1)
+def _gru2_infer_launch(x: torch.Tensor, layer0: Params, layer1: Params) -> torch.Tensor:
+    """The CUDA kernel of ``med_torch::gru2_infer``."""
     batch, t_len, _ = x.shape
     h_dim = layer0["w_hh"].shape[0]
     if t_len < 1 or batch < 1:
@@ -1618,7 +1662,36 @@ def gru2_infer(x: torch.Tensor, layer0: Params, layer1: Params) -> torch.Tensor:
         carry.data_ptr(), flags.data_ptr(), batch, t_len, h_dim, plan.upc, plan.ncl,
         plan.rgroups, plan.kc, stream_of(x),
     )
-    return h1[(t_len - 1) % 2]
+    return h1[(t_len - 1) % 2].clone()
+
+
+def _gru_pair_op(fn):
+    """``fn(x, layer0, layer1)`` as an op kernel over the eight GRU tensors."""
+    def kernel(x, w_ih0, w_hh0, b_ih0, b_hh0, w_ih1, w_hh1, b_ih1, b_hh1):
+        return fn(x, {"w_ih": w_ih0, "w_hh": w_hh0, "b_ih": b_ih0, "b_hh": b_hh0},
+                  {"w_ih": w_ih1, "w_hh": w_hh1, "b_ih": b_ih1, "b_hh": b_hh1})
+    return kernel
+
+
+GRU2_INFER_OP = kernel_op(
+    "gru2_infer",
+    "(Tensor x, Tensor w_ih0, Tensor w_hh0, Tensor b_ih0, Tensor b_hh0, Tensor w_ih1, "
+    "Tensor w_hh1, Tensor b_ih1, Tensor b_hh1) -> Tensor",
+    cpu=_gru_pair_op(gru2_infer_reference), cuda=_gru_pair_op(_gru2_infer_launch),
+    fake=_gru_pair_op(_pair_infer_fake))
+
+
+def gru2_infer(x: torch.Tensor, layer0: Params, layer1: Params) -> torch.Tensor:
+    """x (B, T, D) -> final h of the 2-layer GRU's layer 1 (B, H), float32.
+
+    Calls ``med_torch::gru2_infer``: on a CUDA tensor it launches
+    ``csrc/gru2_infer.cu`` (one cooperative cluster launch for the whole
+    sequence on ``chain_plan_on``'s 2-layer forward plan) and counts it in
+    ``GRU2_INFER.launches``; on a CPU tensor it runs
+    ``gru2_infer_reference``.
+    """
+    return GRU2_INFER_OP(x, *(layer[k] for layer in (layer0, layer1)
+                              for k in ("w_ih", "w_hh", "b_ih", "b_hh")))
 
 
 def gru2_train_fwd_residuals(x_tm: torch.Tensor, keep_tm: torch.Tensor,
@@ -2025,18 +2098,9 @@ def gru1_train_fwd(ih: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor):
     return gates, h_prev, h
 
 
-def gru1_infer(ih: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
-               want_series: bool) -> torch.Tensor:
-    """Eval form of ``gru1_train_fwd``: ih (T, B, 3H) -> the h series
-    (T, B, H) (the next layer's input) or, with ``want_series`` false, the
-    final h (B, H).  It stores no gates.
-
-    On a CUDA tensor this launches ``csrc/gru1_fwd.cu``'s eval entry (on
-    the training form's plan) and counts it in ``GRU1_INFER.launches``; on a CPU tensor it runs
-    ``gru1_infer_reference``.
-    """
-    if ih.device.type == "cpu":
-        return gru1_infer_reference(ih, w_hh, b_hh, want_series)
+def _gru1_infer_launch(ih: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
+                       want_series: bool) -> torch.Tensor:
+    """The CUDA kernel of ``med_torch::gru1_infer``."""
     (ih, w_hh, b_hh), (t_len, batch, h_dim) = _gru_layer("gru1_infer", ih, w_hh, b_hh)
     # the kernel's blocks exchange h through ``out``: the series itself,
     # or two slots used in turn when only the final h is wanted
@@ -2048,7 +2112,26 @@ def gru1_infer(ih: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
                carry.data_ptr(), flags.data_ptr(), batch, t_len, h_dim,
                int(want_series), plan.upc, plan.ncl, plan.rgroups, plan.kc,
                stream_of(ih))
-    return out if want_series else out[(t_len - 1) % 2]
+    return out if want_series else out[(t_len - 1) % 2].clone()
+
+
+GRU1_INFER_OP = kernel_op(
+    "gru1_infer", "(Tensor ih, Tensor w_hh, Tensor b_hh, bool want_series) -> Tensor",
+    cpu=gru1_infer_reference, cuda=_gru1_infer_launch, fake=_layer_infer_fake)
+
+
+def gru1_infer(ih: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
+               want_series: bool) -> torch.Tensor:
+    """Eval form of ``gru1_train_fwd``: ih (T, B, 3H) -> the h series
+    (T, B, H) (the next layer's input) or, with ``want_series`` false, the
+    final h (B, H).  It stores no gates.
+
+    Calls ``med_torch::gru1_infer``: on a CUDA tensor it launches
+    ``csrc/gru1_fwd.cu``'s eval entry (on the training form's plan) and
+    counts it in ``GRU1_INFER.launches``; on a CPU tensor it runs
+    ``gru1_infer_reference``.
+    """
+    return GRU1_INFER_OP(ih, w_hh, b_hh, bool(want_series))
 
 
 def gru_bwd_chain(gates: torch.Tensor, h_prev: torch.Tensor, dh_series,

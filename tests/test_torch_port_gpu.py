@@ -2270,3 +2270,141 @@ def test_bf16_compute_remat_pair_with_float32_streams_on_the_card():
         "LSTM2_BWD_CHAIN")]
     launched = _bf16_stack_check(dev, rnn, 32, 372, 64, 256, counters, seed=5)
     assert launched == [1, 1, 1, 0, 0, 0, 0]
+
+
+# the serving kernels as custom ops (med_torch::*): opcheck on the card's
+# tensors, each case launching its kernel
+OP_CASES = ["logmel", "logmel_3d_hop160", "lstm2_infer", "gru2_infer",
+            "lstm1_infer_series", "lstm1_infer_final", "gru1_infer_series",
+            "gru1_infer_final", "flash_fwd", "flash_fwd_bias_dropout", "flash_fwd_bf16",
+            "flash_fwd_bf16_d40_dropout"]
+
+
+def _op_case(name: str, dev):
+    """(op, its arguments on ``dev``, the kernel counter it ticks)."""
+    from multimodal_emotion_detection_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.RandomState(len(name))
+
+    def rand(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.randn(*shape)).astype(np.float32)).to(dev)
+
+    if name.startswith("logmel"):
+        params = logmel.LogMelParams(hop_length=160 if "hop160" in name else 128)
+        wave = rand(3, 16000, 1) if "3d" in name else rand(2, 8000)
+        return logmel.LOGMEL_OP, (wave, params.sample_rate, params.n_fft,
+                                  params.hop_length, params.win_length, params.n_mels,
+                                  params.fmin, params.fmax,
+                                  params.log_epsilon), logmel.LOGMEL
+    if name in ("lstm2_infer", "gru2_infer"):
+        gates, h = (4, 256) if name == "lstm2_infer" else (3, 256)
+        x = rand(4, 30, 8)
+        if gates == 4:
+            w = [rand(8, 4 * h, scale=0.06), rand(h, 4 * h, scale=0.06), rand(4 * h, scale=0.06),
+                 rand(h, 4 * h, scale=0.06), rand(h, 4 * h, scale=0.06), rand(4 * h, scale=0.06)]
+            return lstm_kernel.LSTM2_INFER_OP, (x, *w), lstm_kernel.LSTM2_INFER
+        w = [rand(8, 3 * h, scale=0.06), rand(h, 3 * h, scale=0.06), rand(3 * h, scale=0.06),
+             rand(3 * h, scale=0.06), rand(h, 3 * h, scale=0.06), rand(h, 3 * h, scale=0.06),
+             rand(3 * h, scale=0.06), rand(3 * h, scale=0.06)]
+        return lstm_kernel.GRU2_INFER_OP, (x, *w), lstm_kernel.GRU2_INFER
+    if name.startswith(("lstm1", "gru1")):
+        series, h = name.endswith("series"), 128
+        if name.startswith("lstm1"):
+            return lstm_kernel.LSTM1_INFER_OP, (rand(20, 3, 4 * h), rand(h, 4 * h, scale=0.08),
+                                                series), lstm_kernel.LSTM1_INFER
+        return lstm_kernel.GRU1_INFER_OP, (rand(20, 3, 3 * h), rand(h, 3 * h, scale=0.08),
+                                           rand(3 * h, scale=0.08), series), lstm_kernel.GRU1_INFER
+    half = "bf16" in name
+    d = 40 if "d40" in name else 64
+    dtype = torch.bfloat16 if half else torch.float32
+    q, k, v = (rand(2, 4, 37, d).to(dtype) for _ in range(3))
+    bias = None
+    if "bias" in name:
+        bias = torch.zeros(2, 37, device=dev)
+        bias[1, 20:] = fa.MASKED
+    rate = 0.1 if "dropout" in name else 0.0
+    seed = torch.tensor([7], dtype=torch.int64, device=dev) if rate else None
+    return fa.FLASH_FWD_OP, (q, k, v, bias, seed, rate), (
+        fa.FLASH_FWD_BF16 if half else fa.FLASH_FWD)
+
+
+@pytest.mark.parametrize("name", OP_CASES)
+def test_op_passes_opcheck_on_the_card(name):
+    dev = _card()
+    op, args, counter = _op_case(name, dev)
+    before = counter.launches
+    result = torch.library.opcheck(op, args)
+    torch.cuda.synchronize()
+    assert set(result.values()) == {"SUCCESS"}, result
+    assert counter.launches > before
+
+
+# the six configurations of tests/test_torch_port_export.py, narrowed the
+# same way, exported by the CLI on the card from seeded weights
+EXPORT_NARROW = ["model.frontend.audio=logmel", "model.encoders.audio.hidden_dim=128",
+                 "model.encoders.video.input_dim=16", "model.encoders.video.hidden_dim=32",
+                 "model.output_dim=16", "model.hidden_dim=32", "dataset.batch_size=8"]
+EXPORT_TF = ["model.encoders.audio.encoder_type=transformer",
+             "model.encoders.audio.hidden_dim=64"]
+EXPORT_CONFIGS = {
+    "flagship": ([], {"logmel": 1, "lstm2_infer": 1}),
+    "gru": (["model.encoders.audio.encoder_type=gru"], {"logmel": 1, "gru2_infer": 1}),
+    "lstm3": (["model.encoders.audio.num_layers=3"], {"logmel": 1, "lstm1_infer": 3}),
+    "gru3": (["model.encoders.audio.encoder_type=gru", "model.encoders.audio.num_layers=3"],
+             {"logmel": 1, "gru1_infer": 3}),
+    "transformer": (EXPORT_TF, {"logmel": 1, "flash_fwd": 2}),
+    "transformer_bf16": (EXPORT_TF + ["runtime.compute_dtype=bfloat16"],
+                         {"logmel": 1, "flash_fwd_bf16": 2}),
+}
+
+
+@pytest.mark.parametrize("name", list(EXPORT_CONFIGS))
+def test_exported_program_on_the_card_is_the_eager_forward(name, tmp_path):
+    """``tools.export`` on the card: the loaded program's logits bit for
+    bit the eager forward's on the same 8 clips, each exported call
+    launching exactly the eager forward's kernels."""
+    from pathlib import Path
+
+    from multimodal_emotion_detection_tpu_torch.config import load_config
+    from multimodal_emotion_detection_tpu_torch.models.classifier import (
+        classifier_from_config,
+        init_weights,
+    )
+    from multimodal_emotion_detection_tpu_torch.ops import flash_attention as fa
+    from multimodal_emotion_detection_tpu_torch.tools.export import load_exported
+    from multimodal_emotion_detection_tpu_torch.tools.export import main as export
+    from multimodal_emotion_detection_tpu_torch.training.checkpoints import save_checkpoint
+    from multimodal_emotion_detection_tpu_torch.training.steps import forward
+
+    dev = _card()
+    test = tmp_path / "data" / "test"
+    test.mkdir(parents=True)
+    rng = np.random.RandomState(11)
+    clips = {"audio": rng.randn(12, 40 * 128, 1).astype(np.float32),
+             "video": rng.rand(12, 4, 16).astype(np.float32)}
+    for m, a in clips.items():
+        np.save(test / f"{m}.npy", a)
+    np.save(test / "labels.npy", rng.randint(0, 8, 12).astype(np.int32))
+    base = str(Path(__file__).resolve().parents[1] / "configs" / "base.yaml")
+    overrides = EXPORT_NARROW + EXPORT_CONFIGS[name][0] + [
+        f"dataset.data_dir={tmp_path / 'data'}"]
+    cfg = load_config(base, overrides)
+    model = init_weights(classifier_from_config(cfg), torch.Generator().manual_seed(4))
+    save_checkpoint(tmp_path / "m.pt", model.state_dict(), {"seed": 4})
+    out = export(["--checkpoint", str(tmp_path / "m.pt"), "--config", base,
+                  "--out", str(tmp_path / "m.pt2"), "--batch", "8", *overrides])
+    program = load_exported(out).module()
+    batch = {m: torch.from_numpy(a[:8]).to(dev) for m, a in clips.items()}
+    eager = forward(model.to(dev), batch)
+    counters = {"logmel": logmel.LOGMEL, "lstm2_infer": lstm_kernel.LSTM2_INFER,
+                "gru2_infer": lstm_kernel.GRU2_INFER, "lstm1_infer": lstm_kernel.LSTM1_INFER,
+                "gru1_infer": lstm_kernel.GRU1_INFER, "flash_fwd": fa.FLASH_FWD,
+                "flash_fwd_bf16": fa.FLASH_FWD_BF16}
+    before = {k: c.launches for k, c in counters.items()}
+    with torch.inference_mode():
+        got = program(batch)
+    torch.cuda.synchronize()
+    launched = {k: c.launches - before[k] for k, c in counters.items()}
+    assert {k: n for k, n in launched.items() if n} == EXPORT_CONFIGS[name][1]
+    assert got.dtype == eager.dtype and got.device == eager.device
+    torch.testing.assert_close(got, eager, rtol=0, atol=0)
