@@ -295,7 +295,28 @@
    same phase.  The flagship's file is also loaded and served in a fresh
    interpreter that imports only ``multimodal_emotion_detection_tpu_torch
    .ops``, bit for bit the eager logits.
-21. Prints the script's wall time, one JSON line describing every kernel
+21. The way in: ``[import_ref]`` builds the reference's own model at
+   ``configs/base.yaml``'s widths (wired as the reference is, seeded torch
+   init), saves it as a Lightning-style ``.ckpt``, imports it with
+   ``utils/torch_import.py::import_reference_checkpoint``, saves a port
+   checkpoint and serves ``[serve]``'s 64 clips through the predict CLI at
+   b32 on the raw waveform (row 2 once a batch), the logits within 1e-3 of
+   the reference module's cuDNN forward on the card, argmax 64/64.
+   ``[serve_resize]`` serves the flagship with
+   ``model.frontend.video=resize`` at b32 on raw uint8 BGR frames at
+   1280x720 (2.1 GB a batch): logits within 1e-4 of the same model on the
+   ETL-flattened frames, 2 clips' resized frames against the numpy resize,
+   the frontend's device time beside its bound.  ``[etl]`` writes 96
+   RAVDESS-named 48 kHz WAVs and frame ``.npy`` files and runs the ETL
+   CLIs (``data.ravdess --no_video``, ``data.manifest --feature_len 24``;
+   no kernel launches), checks shapes, dtypes, peaks, split sizes and the
+   native resampler against its scipy plain version on every clip;
+   ``[train_etl]`` trains the flagship on the manifest ETL's output (rows
+   1, 11, 12 and 2 counted exactly).  ``[flops]`` prints ``utils/flops.py``'s
+   FLOPs per clip of every trained configuration, the share of the card's
+   datasheet peak at each train step's and ``[serve]``'s b32 p50, and a
+   device-to-device copy's bandwidth beside the datasheet HBM figure.
+22. Prints the script's wall time, one JSON line describing every kernel
    (the one-layer and 2-layer cores' entries name their shared header as
    ``core``), nvidia-smi's name and power limit of the card, and as the
    last line ``{"ok": true, "device": {...}}``.
@@ -3531,6 +3552,8 @@ TRAIN_ARTIFACTS = ("results.json", "best.ckpt", "checkpoints/last.ckpt",
 STEPS = {}
 # each serve_path path's forward p50 (ms) at b32 and b1
 SERVES = {}
+# each phase_train path's config file and overrides, for [flops]
+TRAINED = {}
 
 
 def phase_train(counters, tag: str, model_overrides, expected_fn,
@@ -3578,6 +3601,7 @@ def phase_train(counters, tag: str, model_overrides, expected_fn,
                  f"dataset.data_dir={data}", f"experiment.save_dir={WORK}",
                  f"experiment.name={tag}_run"]
     cfg = load_config(config_path, overrides)
+    TRAINED[tag] = (config_path, overrides)
     bsz = cfg.dataset.batch_size
     steps = 2 * sizes["train"] // bsz
     # validation every val_every_n_epochs epochs and at the last
@@ -4999,6 +5023,413 @@ def phase_visualize(counters, ckpt: Path, overrides, audio: np.ndarray,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the reference checkpoint import, the ETL, the on-device video resize and
+# the flop counts
+# ---------------------------------------------------------------------------
+
+
+class _RefFlagship(torch.nn.Module):
+    """The reference's model at ``configs/base.yaml``'s widths, wired as
+    the reference is and independent of the port, its modules under the
+    reference LightningModule's names (``encoders.<m>``, ``fusion_head``):
+    cuDNN's 2-layer LSTM 256 over the raw waveform (B, 48000, 1) and a
+    Linear to 128; the frame encoder (Linear 4096 -> 256 + ReLU, attention
+    pool, LayerNorm, Linear to 128); the concat head (256 -> 256 -> 8)."""
+
+    def __init__(self):
+        super().__init__()
+        nn = torch.nn
+        audio, video = nn.Module(), nn.Module()
+        audio.rnn = nn.LSTM(1, 256, num_layers=2, batch_first=True)
+        audio.projection = nn.Linear(256, 128)
+        video.frame_mlp = nn.Sequential(nn.Linear(4096, 256), nn.ReLU())
+        video.attention = nn.Linear(256, 1)
+        video.projection = nn.Sequential(nn.LayerNorm(256), nn.Linear(256, 128))
+        self.encoders = nn.ModuleDict({"audio": audio, "video": video})
+        self.fusion_head = nn.Sequential(nn.Linear(256, 256), nn.ReLU(), nn.Linear(256, 8))
+
+    def forward(self, audio, video):
+        a, v = self.encoders["audio"], self.encoders["video"]
+        _, (h_n, _) = a.rnn(audio)
+        x = v.frame_mlp(video)
+        w = torch.softmax(v.attention(x).squeeze(-1), dim=1)
+        ev = v.projection(torch.einsum("bt,bth->bh", w, x))
+        return self.fusion_head(torch.cat([a.projection(h_n[-1]), ev], dim=-1))
+
+
+def phase_import_ref(counters):
+    """``[import_ref]``: the reference's own model (``_RefFlagship``, seeded
+    torch init) saved as a Lightning-style ``.ckpt``, imported by
+    ``utils/torch_import.py::import_reference_checkpoint`` onto
+    ``configs/base.yaml`` as written, saved as a port checkpoint and served
+    over ``[serve]``'s 64 test clips at b32 by the predict CLI (row 2 once
+    a batch, no other kernel); the logits against the reference module's
+    own forward on the card (cuDNN, TF32 off): 1e-3 abs, argmax 64/64."""
+    from multimodal_emotion_detection_tpu_torch.config import load_config
+    from multimodal_emotion_detection_tpu_torch.models.classifier import (
+        classifier_from_config,
+    )
+    from multimodal_emotion_detection_tpu_torch.tools import predict
+    from multimodal_emotion_detection_tpu_torch.training.checkpoints import (
+        save_checkpoint,
+    )
+    from multimodal_emotion_detection_tpu_torch.utils.torch_import import (
+        import_reference_checkpoint,
+    )
+
+    data = WORK / "data"  # [serve]'s test split: 64 clips
+    audio = np.load(data / "test" / "audio.npy")
+    video = np.load(data / "test" / "video.npy")
+    torch.manual_seed(7)
+    ref = _RefFlagship().eval()
+    ref_ckpt = WORK / "reference_flagship.ckpt"
+    torch.save({"state_dict": ref.state_dict(), "epoch": 0}, ref_ckpt)
+    overrides = [f"dataset.data_dir={data}"]
+    config_path = str(ROOT / "configs" / "base.yaml")
+    t0 = time.perf_counter()
+    model = classifier_from_config(load_config(config_path, overrides))
+    model.load_state_dict(import_reference_checkpoint(str(ref_ckpt), model), strict=True)
+    ckpt = WORK / "reference_imported.pt"
+    save_checkpoint(ckpt, model.state_dict(), {"seed": 7})
+    print(f"[import_ref] {ref_ckpt.name} ({ref_ckpt.stat().st_size} bytes, "
+          f"{len(ref.state_dict())} reference tensors) imported onto configs/base.yaml "
+          f"({len(model.state_dict())} tensors, strict) and saved: "
+          f"{time.perf_counter() - t0:.3f} s")
+    out_dir = WORK / "predictions_import_ref"
+    batches = audio.shape[0] // 32
+    _, predict_s, launches = run_counted(
+        counters, {"lstm2_infer": batches}, "import_ref", lambda: predict.main([
+            "--checkpoint", str(ckpt), "--config", config_path, "--split", "test",
+            "--out", str(out_dir), *overrides]))
+    logits = np.load(out_dir / "logits.npy")
+    print(f"[import_ref] predict over {audio.shape[0]} clips at batch 32 (raw waveform, "
+          f"T 48,000): {predict_s:.3f} s wall; launches {launches}")
+
+    dev = torch.device("cuda")
+    ref = ref.to(dev)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        want = torch.cat([ref(torch.from_numpy(audio[i:i + 32]).to(dev),
+                              torch.from_numpy(video[i:i + 32]).to(dev))
+                          for i in range(0, audio.shape[0], 32)]).cpu().numpy()
+    ref_s = time.perf_counter() - t0
+    err = float(np.abs(logits - want).max())
+    agree = int((logits.argmax(-1) == want.argmax(-1)).sum())
+    print(f"[import_ref] logits vs the reference module's forward on the card (cuDNN "
+          f"nn.LSTM, TF32 off; {ref_s:.3f} s for the 2 batches): max abs err {err:.3e} "
+          f"(bound 1e-3; largest logit {float(np.abs(want).max()):.4f}), argmax "
+          f"agreement {agree}/{audio.shape[0]}")
+    if logits.shape != want.shape or err > 1e-3 or agree != audio.shape[0]:
+        raise RuntimeError("import_ref: the imported model disagrees with the reference")
+    return launches
+
+
+ETL_EMOTIONS, ETL_REPS, ETL_ACTORS = 8, 2, 6  # 96 clips
+ETL_SR, ETL_SECONDS = 48000, 3.5
+
+
+def _write_ravdess_media(root: Path) -> Path:
+    """96 RAVDESS-named 48 kHz 16-bit mono WAVs of 3.5 s (a tone per
+    emotion in noise, a level per clip), a (24, 4096) float32 frame ``.npy``
+    per clip and a manifest of both (``label,audio,video``)."""
+    import wave
+
+    rng = np.random.RandomState(11)
+    (root / "wavs").mkdir(parents=True, exist_ok=True)
+    (root / "frames").mkdir(exist_ok=True)
+    t = np.arange(int(ETL_SR * ETL_SECONDS)) / ETL_SR
+    rows = ["label,audio,video"]
+    for emotion in range(1, ETL_EMOTIONS + 1):
+        for rep in range(1, ETL_REPS + 1):
+            for actor in range(1, ETL_ACTORS + 1):
+                stem = f"03-01-{emotion:02d}-01-01-{rep:02d}-{actor:02d}"
+                y = rng.uniform(0.2, 0.6) * (np.sin(2 * np.pi * 110 * emotion * t)
+                                             + 0.3 * rng.randn(t.size))
+                with wave.open(str(root / "wavs" / f"{stem}.wav"), "wb") as w:
+                    w.setnchannels(1)
+                    w.setsampwidth(2)
+                    w.setframerate(ETL_SR)
+                    w.writeframes((np.clip(y, -1, 1) * 32767).astype("<i2").tobytes())
+                np.save(root / "frames" / f"{stem}.npy",
+                        rng.rand(24, 4096).astype(np.float32))
+                rows.append(f"{emotion - 1},wavs/{stem}.wav,frames/{stem}.npy")
+    (root / "manifest.csv").write_text("\n".join(rows) + "\n")
+    return root / "manifest.csv"
+
+
+def _split_sizes(root: Path):
+    return [len(np.load(root / s / "labels.npy")) for s in ("train", "val", "test")]
+
+
+def phase_etl(counters):
+    """``[etl]``: the port's two ETL CLIs on 96 written clips, counted (host
+    code: no kernel launches): ``data.ravdess --no_video`` and
+    ``data.manifest --feature_len 24``.  Checks the arrays' shapes and
+    dtypes, every clip's peak at 1, the split sizes (the numpy split where
+    sklearn is not installed, sklearn's where it is), the frames carried
+    over, and the native resampler against its scipy plain version on
+    every clip (float64, 1e-12).  Returns ``(launches, the manifest
+    ETL's output directory)``."""
+    import importlib.util
+
+    from multimodal_emotion_detection_tpu_torch.data import manifest, ravdess
+    from multimodal_emotion_detection_tpu_torch.utils import native, wav
+
+    root = WORK / "etl_media"
+    t0 = time.perf_counter()
+    manifest_csv = _write_ravdess_media(root)
+    print(f"[etl] wrote {ETL_EMOTIONS * ETL_REPS * ETL_ACTORS} RAVDESS-named WAVs "
+          f"({ETL_SR} Hz, 16-bit, {ETL_SECONDS} s) and frame .npy files: "
+          f"{time.perf_counter() - t0:.3f} s")
+    rav_out, man_out = WORK / "etl_ravdess", WORK / "etl_manifest"
+
+    def run():
+        t = time.perf_counter()
+        ravdess.main(["--audio_root", str(root / "wavs"), "--out_root", str(rav_out),
+                      "--no_video"])
+        mid = time.perf_counter()
+        manifest.main(["--manifest", str(manifest_csv), "--out_root", str(man_out),
+                       "--feature_len", "24"])
+        return mid - t, time.perf_counter() - mid
+
+    (rav_s, man_s), _, launches = run_counted(counters, {}, "etl", run)
+    print(f"[etl] data.ravdess --no_video {rav_s:.3f} s, data.manifest --feature_len 24 "
+          f"{man_s:.3f} s (host, the native resampler built with g++ at first use: "
+          f"{native.library_path().name}); launches {launches}")
+
+    n = ETL_EMOTIONS * ETL_REPS * ETL_ACTORS
+    sklearn = importlib.util.find_spec("sklearn") is not None
+    # 12 clips a class, val 0.15, test 0.15: sklearn's two stages give
+    # 67 / 14 / 15; the numpy split rounds per class, 8 / 2 / 2
+    want = [67, 14, 15] if sklearn else [64, 16, 16]
+    for out in (rav_out, man_out):
+        sizes = _split_sizes(out)
+        if sizes != want:
+            raise RuntimeError(f"etl: {out.name} splits {sizes}, expected {want}")
+        for split in ("train", "val", "test"):
+            a = np.load(out / split / "audio.npy")
+            lab = np.load(out / split / "labels.npy")
+            if a.dtype != np.float32 or a.shape[1:] != (48000, 1) or len(lab) != len(a):
+                raise RuntimeError(f"etl: {out.name}/{split} audio {a.dtype} {a.shape}")
+            if not (np.abs(a).max(axis=(1, 2)) == 1.0).all():
+                raise RuntimeError(f"etl: {out.name}/{split}: a clip's peak is not 1")
+            if lab.min() < 0 or lab.max() > 7:
+                raise RuntimeError(f"etl: {out.name}/{split} labels out of range")
+    frames = np.concatenate([np.load(man_out / s / "video.npy") for s in ("train", "val", "test")])
+    if frames.shape != (n, 24, 4096) or frames.dtype != np.float32:
+        raise RuntimeError(f"etl: manifest video {frames.dtype} {frames.shape}")
+    src = np.stack([np.load(p) for p in sorted((root / "frames").glob("*.npy"))])
+    if not np.array_equal(np.sort(frames.sum(axis=(1, 2))), np.sort(src.sum(axis=(1, 2)))):
+        raise RuntimeError("etl: the manifest's frames are not the clips' frames")
+    print(f"[etl] both outputs: splits {want} ({'sklearn' if sklearn else 'numpy'} split), "
+          "audio (N, 48000, 1) float32 each clip's peak 1, labels 0..7; the manifest's "
+          "video (N, 24, 4096) float32, the clips' frames")
+
+    t_native = t_plain = 0.0
+    err = 0.0
+    for path in sorted((root / "wavs").glob("*.wav")):
+        y, sr = wav.read_wav(path)
+        t = time.perf_counter()
+        ours = native.resample_poly_native(y, 1, 3, wav._KAISER_BEST_BETA,
+                                           wav._KAISER_BEST_HALF_CYCLES,
+                                           wav._KAISER_BEST_ROLLOFF)
+        t_native += time.perf_counter() - t
+        t = time.perf_counter()
+        plain = native.resample_poly_plain(y, 1, 3, wav._KAISER_BEST_BETA,
+                                           wav._KAISER_BEST_HALF_CYCLES,
+                                           wav._KAISER_BEST_ROLLOFF)
+        t_plain += time.perf_counter() - t
+        if ours.shape != plain.shape:
+            raise RuntimeError(f"etl: resample shapes {ours.shape} vs {plain.shape}")
+        err = max(err, float(np.abs(ours - plain).max()))
+    print(f"[etl] native resampler vs its scipy plain version on all {n} clips "
+          f"(48 kHz -> 16 kHz, kaiser_best, float64): max abs err {err:.3e} (bound 1e-12); "
+          f"host time {t_native:.3f} s native, {t_plain:.3f} s scipy")
+    if err > 1e-12:
+        raise RuntimeError("etl: the native resampler disagrees with scipy")
+    return launches, man_out
+
+
+def phase_train_etl(counters, data: Path):
+    """``[train_etl]``: the train CLI on the manifest ETL's output,
+    ``configs/base.yaml model.frontend.audio=logmel``, 2 epochs at b32:
+    rows 1, 11, 12 and 2 counted exactly."""
+    import contextlib
+
+    from multimodal_emotion_detection_tpu_torch import train
+
+    n_train, n_val, n_test = _split_sizes(data)
+    steps = 2 * -(-n_train // 32)
+    evals = 2 * -(-n_val // 32) + -(-n_test // 32)
+    overrides = ["model.frontend.audio=logmel", "training.max_epochs=2",
+                 f"dataset.data_dir={data}", f"experiment.save_dir={WORK}",
+                 "experiment.name=train_etl_run"]
+    config_path = str(ROOT / "configs" / "base.yaml")
+    with contextlib.chdir(WORK):
+        results, train_s, launches = run_counted(
+            counters, {"logmel": steps + evals, "lstm2_train_fwd": steps,
+                       "lstm2_bwd_chain": steps, "lstm2_infer": evals}, "train_etl",
+            lambda: train.main(["--config", config_path, *overrides]))
+    if not (WORK / "train_etl_run" / "best.ckpt").exists():
+        raise RuntimeError("train_etl: no best.ckpt")
+    if not all(np.isfinite(v) for v in results.values()):
+        raise RuntimeError(f"train_etl: non-finite results {results}")
+    print(f"[train_etl] train.main on the manifest ETL's {n_train} / {n_val} / {n_test} "
+          f"clips, 2 epochs at b32 ({steps} steps, {evals} eval batches): {train_s:.3f} s "
+          f"wall; launches {launches}; results {json.dumps(results)}")
+    return launches
+
+
+RESIZE_SHAPE = (32, 24, 720, 1280, 3)  # RAVDESS's 1280x720 BGR frames, b32
+BGR_LUMA = np.array([0.114, 0.587, 0.299], dtype=np.float32)
+
+
+def phase_serve_resize(counters):
+    """``[serve_resize]``: the flagship (``configs/base.yaml`` + log-mel)
+    with ``model.frontend.video=resize``, seeded weights, served at b32 on
+    raw uint8 BGR frames at 1280x720 (2.1 GB a batch, made on the card):
+    row 1 and row 2 once; the logits within 1e-4 of the same model's on
+    the ETL-flattened frames (``area_resize_np`` of the gray frames / 255,
+    on the CPU), argmax 32/32; the card's resized frames of 2 clips
+    against that numpy resize (1e-5); the b32 forward's latency beside the
+    flattened frames', and the frontend's device time beside its bound."""
+    from multimodal_emotion_detection_tpu_torch.config import load_config
+    from multimodal_emotion_detection_tpu_torch.models.classifier import (
+        classifier_from_config,
+        init_weights,
+    )
+    from multimodal_emotion_detection_tpu_torch.ops.resize import area_resize_np
+    from multimodal_emotion_detection_tpu_torch.training.steps import forward
+
+    dev = torch.device("cuda")
+    cfg = load_config(str(ROOT / "configs" / "base.yaml"),
+                      ["model.frontend.audio=logmel", "model.frontend.video=resize"])
+    model = init_weights(classifier_from_config(cfg), torch.Generator().manual_seed(0))
+    model = model.to(dev).eval()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    frames = torch.randint(0, 256, RESIZE_SHAPE, dtype=torch.uint8, device=dev, generator=gen)
+    audio = torch.randn(32, 48000, 1, device=dev, generator=gen)
+    logits, fwd_s, launches = run_counted(
+        counters, {"logmel": 1, "lstm2_infer": 1}, "serve_resize",
+        lambda: forward(model, {"audio": audio, "video": frames}).float().cpu().numpy())
+    print(f"[serve_resize] forward b32 on raw uint8 frames {tuple(frames.shape)} "
+          f"({frames.numel() / 1e9:.3f} GB): {fwd_s:.3f} s (first call); launches {launches}")
+
+    t0 = time.perf_counter()
+    host = frames.cpu().numpy()
+    flat = np.stack([(area_resize_np(clip.astype(np.float32) @ BGR_LUMA, 64, 64) / 255.0)
+                     .reshape(24, 4096).astype(np.float32) for clip in host])
+    del host
+    print(f"[serve_resize] the ETL-flattened frames on the CPU (numpy, the ETL's "
+          f"transform): {time.perf_counter() - t0:.3f} s")
+    flat_dev = torch.from_numpy(flat).to(dev)
+    want = forward(model, {"audio": audio, "video": flat_dev}).float().cpu().numpy()
+    err = float(np.abs(logits - want).max())
+    agree = int((logits.argmax(-1) == want.argmax(-1)).sum())
+    with torch.inference_mode():
+        small = model._apply_frontend("video", frames[:2]).cpu().numpy()
+    err_frames = float(np.abs(small - flat[:2]).max())
+    print(f"[serve_resize] logits vs the ETL-flattened route: max abs err {err:.3e} "
+          f"(bound 1e-4), argmax {agree}/32; resized frames of 2 clips vs the numpy "
+          f"resize: max abs err {err_frames:.3e} (bound 1e-5)")
+    if err > 1e-4 or agree != 32 or err_frames > 1e-5 or not np.isfinite(logits).all():
+        raise RuntimeError("serve_resize: the on-card resize disagrees with the ETL's")
+
+    raw_batch = {"audio": audio, "video": frames}
+    flat_batch = {"audio": audio, "video": flat_dev}
+    for label, batch in (("raw frames", raw_batch), ("flattened frames", flat_batch)):
+        p50, p90 = host_ms(lambda: forward(model, batch), reps=20)
+        print(f"[serve_resize] forward b32 on {label} (host clock around synchronize, "
+              f"20 requests, inputs on the card): p50 {p50:.4f} ms, p90 {p90:.4f} ms")
+    flush = L2Flush()
+    with torch.inference_mode():
+        ms = device_ms(lambda: model._apply_frontend("video", frames), flush, reps=10)
+    # the least work: each uint8 byte read once, the (32, 24, 4096) float32
+    # frames written once
+    nbytes = frames.numel() + flat.size * 4
+    bound_ms = 1e3 * nbytes / HBM_BYTES
+    print(f"[serve_resize] the video frontend alone (BGR -> gray, area resize, /255; "
+          f"CUDA events, L2 flushed, median of 10): {ms:.4f} ms against its bound "
+          f"{bound_ms:.4f} ms (bytes: {nbytes / 1e9:.3f} GB at {HBM_BYTES / 1e12:.2f} TB/s)")
+    profile_forward("serve_resize b32", lambda: forward(model, raw_batch), reps=5)
+    del frames, flat_dev, raw_batch, flat_batch, flush
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _path_dtype(cfg) -> str:
+    """The compute dtype of a path's matrix products: bf16 where the model
+    or an encoder computes in bf16, else float32 (TF32 off)."""
+    if cfg.runtime.compute_dtype == "bfloat16" or any(
+            dict(e).get("dtype") == "bfloat16" for e in cfg.model.encoders.values()):
+        return "bfloat16"
+    return "float32"
+
+
+def phase_flops(card_name: str):
+    """``[flops]``: ``utils/flops.py``'s analytic FLOPs per clip (train and
+    forward) of every configuration ``phase_train`` trained, the share of
+    the card's datasheet peak for the path's compute dtype at each train
+    step's b32 p50 (``[train]``'s first) and at ``[serve]``'s b32 forward
+    p50, and a device-to-device copy's bandwidth beside the datasheet HBM
+    figure."""
+    from multimodal_emotion_detection_tpu_torch.config import load_config
+    from multimodal_emotion_detection_tpu_torch.utils import flops
+
+    smi = nvidia_smi()
+    for tag, (config_path, overrides) in TRAINED.items():
+        cfg = load_config(config_path, overrides)
+        # the count walks every configured encoder; the classifier builds
+        # those of dataset.modalities only, and no log-mel without audio
+        mods = cfg.dataset.modalities
+        cfg.model.encoders = {m: e for m, e in dict(cfg.model.encoders).items() if m in mods}
+        if "audio" not in mods:
+            cfg.model.frontend.audio = "raw"
+        r = flops.classifier_flops_per_clip(cfg)
+        dtype = _path_dtype(cfg)
+        peak = flops.device_peak_flops(dtype)
+        note = (" (the fusion library is not modelled: the head counted as the concat "
+                "head)" if cfg.model.train_fusion == "library" else "")
+        line = (f"[flops] {tag} ({Path(config_path).name}): train {r['train'] / 1e9:.4f} "
+                f"GFLOP a clip, forward {r['forward'] / 1e9:.4f}{note}")
+        if tag in STEPS:
+            p50 = STEPS[tag][0]
+            m = flops.mfu(32e3 / p50, r["train"], peak)
+            line += (f"; train step b32 p50 {p50:.4f} ms: {m['achieved_tflops']:.4f} "
+                     f"TFLOP/s = {100 * m['mfu']:.3f}% of the {dtype} peak "
+                     f"{m['peak_tflops']:.1f} TFLOP/s")
+        print(line)
+    cfg = load_config(str(ROOT / "configs" / "base.yaml"), ["model.frontend.audio=logmel"])
+    fwd = flops.classifier_flops_per_clip(cfg)["forward"]
+    p50 = SERVES["serve"]["b32"]
+    m = flops.mfu(32e3 / p50, fwd, flops.device_peak_flops("float32"))
+    print(f"[flops] serve (the flagship): forward {fwd / 1e9:.4f} GFLOP a clip; b32 p50 "
+          f"{p50:.4f} ms: {m['achieved_tflops']:.4f} TFLOP/s = {100 * m['mfu']:.3f}% of "
+          f"the float32 peak {m['peak_tflops']:.1f} TFLOP/s")
+
+    src = torch.empty(512 * 1024 * 1024, dtype=torch.float32, device="cuda")  # 2 GiB
+    src.uniform_()
+    dst = torch.empty_like(src)
+    for _ in range(3):
+        dst.copy_(src)
+    reps = 20
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        dst.copy_(src)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / reps
+    moved = 2 * src.numel() * 4  # each byte read once and written once
+    print(f"[flops] device-to-device copy of {src.numel() * 4 / 2**30:.0f} GiB (CUDA events, "
+          f"{reps} copies): {ms:.4f} ms a copy = {moved / ms / 1e9:.4f} TB/s read + write, "
+          f"beside the datasheet HBM3 {flops.device_hbm_bw() / 1e12:.2f} TB/s "
+          f"({card_name}; nvidia-smi: {smi})")
+    del src, dst
+    torch.cuda.empty_cache()
+
+
 TRAIN_SPLITS = {"train": 96, "val": 64, "test": 64}
 # the reference's big sweep config (bench.py's big=True legs), log-mel
 # cached per split as the bench's big-config leg runs it
@@ -5157,6 +5588,10 @@ def _run_phases(counters, pending, card_name: str, t_start: float) -> None:
     kernels = {"logmel": timed(phase_logmel, logmel, flush, name="logmel"),
                "lstm2_infer": timed(phase_lstm, lstm_kernel, flush, name="lstm2_infer")}
     by_path = {"serve": timed(phase_serve, counters, name="serve")}
+    # a reference checkpoint imported and served (base.yaml as written, row
+    # 2 on [serve]'s clips), and the flagship on raw 1280x720 frames
+    by_path["import_ref"] = timed(phase_import_ref, counters, name="import_ref")
+    by_path["serve_resize"] = timed(phase_serve_resize, counters, name="serve_resize")
     kernels["lstm2_train_fwd"], train_inputs = timed(phase_lstm2_train_fwd, lstm_kernel, flush,
                                                              name="lstm2_train_fwd")
     kernels["lstm2_bwd_chain"] = timed(phase_lstm2_bwd_chain, lstm_kernel, lstm_vjp, flush,
@@ -5218,6 +5653,10 @@ def _run_phases(counters, pending, card_name: str, t_start: float) -> None:
 
     by_path["train"], train_run, train_overrides = timed(phase_train,
         counters, "train", ["model.frontend.audio=logmel"], flagship_counts)
+    # the ETL CLIs on written RAVDESS media (host code, no launch), then the
+    # flagship trained on the manifest ETL's output
+    by_path["etl"], etl_data = timed(phase_etl, counters, name="etl")
+    by_path["train_etl"] = timed(phase_train_etl, counters, etl_data, name="train_etl")
     # the streaming monitor on the flagship's seeded checkpoint ([serve]'s)
     by_path["stream"] = timed(phase_stream, counters, WORK / "flagship_seed0.pt",
                               name="stream")
@@ -5553,6 +5992,9 @@ def _run_phases(counters, pending, card_name: str, t_start: float) -> None:
     by_path["visualize"] = timed(phase_visualize, counters, hyb_run / "best.ckpt",
                                  hyb_overrides, test_audio, test_video, name="visualize")
     print(f"[time] quantize, sweep, visualize: {time.perf_counter() - t_tools:.1f} s")
+    # the analytic FLOPs of every trained configuration against the card's
+    # datasheet peaks, and the copy bandwidth beside the datasheet HBM's
+    timed(phase_flops, card_name, name="flops")
 
     # launches: the run of the path that MAIN_PATH names; launches_by_path:
     # every path's own run, the counts zeroed just before it

@@ -2,7 +2,9 @@
 
 The forward of the JAX package's ``MultimodalClassifier``: each modality's
 features go through its encoder (audio through the log-mel / MFCC frontend
-first), then
+first; with ``video_frontend='resize'`` raw (B, T, H, W[, 3]) video frames
+through BGR -> gray, the area resize to ``video_hw`` and /255 to
+(B, T, h*w), on the input's device, ``ops/resize.py``), then
 
 * ``train_fusion='concat'`` (the default): the embeddings concatenated in
   config modality order, then Linear -> ReLU -> Linear;
@@ -55,6 +57,7 @@ from multimodal_emotion_detection_tpu_torch.ops.logmel import (
     mfcc,
 )
 from multimodal_emotion_detection_tpu_torch.ops.lstm_kernel import residual_dtype
+from multimodal_emotion_detection_tpu_torch.ops.resize import area_resize, bgr_to_gray
 
 
 class MultimodalClassifier(nn.Module):
@@ -73,6 +76,8 @@ class MultimodalClassifier(nn.Module):
         audio_frontend: Optional[LogMelParams] = None,  # None -> raw waveform
         frontend_kind: str = "logmel",  # 'logmel' | 'mfcc'
         frontend_n_mfcc: int = 40,
+        video_frontend: str = "none",  # 'none' | 'resize'
+        video_hw: Tuple[int, int] = (64, 64),
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
@@ -83,6 +88,8 @@ class MultimodalClassifier(nn.Module):
         self.audio_frontend = audio_frontend
         self.frontend_kind = frontend_kind
         self.frontend_n_mfcc = frontend_n_mfcc
+        self.video_frontend = video_frontend
+        self.video_hw = tuple(video_hw)
         for modality in self.modalities:
             cfg = dict(encoder_configs.get(modality, {}))
             if modality == "audio" and audio_frontend is not None:
@@ -122,6 +129,16 @@ class MultimodalClassifier(nn.Module):
                 return mfcc(features, self.audio_frontend,
                             n_mfcc=self.frontend_n_mfcc)
             return log_mel_spectrogram(features, self.audio_frontend)
+        if (modality == "video" and self.video_frontend == "resize"
+                and features.ndim >= 4):
+            # (B, T, H, W[, 3]) raw frames (any dtype) -> gray -> area
+            # resize -> [0, 1] -> (B, T, h*w), float32
+            x = features
+            if x.ndim == 5 and x.shape[-1] == 3:
+                x = bgr_to_gray(x)
+            h, w = self.video_hw
+            x = area_resize(x, h, w) / 255.0
+            return x.reshape(x.shape[0], x.shape[1], h * w)
         return features
 
     def encode(
@@ -235,11 +252,6 @@ def classifier_from_config(config) -> MultimodalClassifier:
     nothing until a checkpoint or ``init_weights`` fills them."""
     model_cfg = config.model
     fe = model_cfg.frontend
-    if fe.video != "none":
-        raise NotImplementedError(
-            f"model.frontend.video={fe.video!r}: the on-device resize is "
-            "not ported yet (ROADMAP.md Queue 1 item 12)"
-        )
     frontend = None
     encoder_configs = {
         name: dict(cfg) for name, cfg in dict(model_cfg.encoders).items()
@@ -266,6 +278,8 @@ def classifier_from_config(config) -> MultimodalClassifier:
         audio_frontend=frontend,
         frontend_kind=fe.audio if fe.audio != "raw" else "logmel",
         frontend_n_mfcc=fe.n_mfcc,
+        video_frontend=fe.video,
+        video_hw=(fe.video_height, fe.video_width),
         dtype=ENCODER_DTYPES[config.runtime.compute_dtype],
     )
     try:

@@ -7,7 +7,9 @@ torch, numpy and the port, so it runs where JAX is not installed:
     python -m pytest --noconftest -m gpu tests/test_torch_port_gpu.py
 """
 
+import contextlib
 import copy
+import signal
 
 import numpy as np
 import pytest
@@ -2408,3 +2410,72 @@ def test_exported_program_on_the_card_is_the_eager_forward(name, tmp_path):
     assert {k: n for k, n in launched.items() if n} == EXPORT_CONFIGS[name][1]
     assert got.dtype == eager.dtype and got.device == eager.device
     torch.testing.assert_close(got, eager, rtol=0, atol=0)
+
+
+@contextlib.contextmanager
+def _time_limit(seconds: float):
+    """Fail the test past ``seconds`` of wall time (SIGALRM, raised in the
+    main thread once control is back in Python)."""
+    def expire(signum, frame):
+        raise TimeoutError(f"past its time limit of {seconds} s")
+
+    prev = signal.signal(signal.SIGALRM, expire)
+    signal.setitimer(signal.ITIMER_REAL, seconds)
+    try:
+        yield
+    finally:
+        signal.setitimer(signal.ITIMER_REAL, 0)
+        signal.signal(signal.SIGALRM, prev)
+
+
+def test_video_resize_on_card_in_full_float32_with_tf32_on():
+    # RAVDESS's 1280x720 BGR frames, 2 clips: the card's gray + area
+    # resize against the CPU's, with TF32 allowed for the process: the
+    # resize's products switch it off (a TF32 product would miss by ~0.05
+    # on the 0-255 scale), and the setting is restored after
+    from multimodal_emotion_detection_tpu_torch.ops.resize import area_resize, bgr_to_gray
+
+    dev = _card()
+    with _time_limit(120):
+        frames = torch.from_numpy(np.random.RandomState(3).randint(
+            0, 256, (2, 24, 720, 1280, 3)).astype(np.uint8))
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            card = area_resize(bgr_to_gray(frames.to(dev)), 64, 64).cpu()
+            assert torch.backends.cuda.matmul.allow_tf32 is True
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+        cpu = area_resize(bgr_to_gray(frames), 64, 64)
+        assert card.shape == (2, 24, 64, 64) and card.dtype == torch.float32
+        torch.testing.assert_close(card, cpu, rtol=0, atol=1e-3)
+
+
+def test_resize_classifier_on_card_matches_cpu():
+    # the flagship with model.frontend.video=resize on raw uint8 frames:
+    # log-mel and row 2 once, the logits as [serve]'s against the CPU's
+    from pathlib import Path
+
+    from multimodal_emotion_detection_tpu_torch.config import load_config
+    from multimodal_emotion_detection_tpu_torch.models.classifier import (
+        classifier_from_config,
+        init_weights,
+    )
+    from multimodal_emotion_detection_tpu_torch.training.steps import forward
+
+    dev = _card()
+    with _time_limit(300):
+        base = str(Path(__file__).resolve().parents[1] / "configs" / "base.yaml")
+        cfg = load_config(base, ["model.frontend.audio=logmel", "model.frontend.video=resize"])
+        model = init_weights(classifier_from_config(cfg), torch.Generator().manual_seed(2))
+        rng = np.random.RandomState(4)
+        batch = {"audio": torch.from_numpy(rng.randn(2, 48000, 1).astype(np.float32)),
+                 "video": torch.from_numpy(rng.randint(0, 256, (2, 24, 90, 160, 3))
+                                           .astype(np.uint8))}
+        want = forward(model, batch)
+        before = (logmel.LOGMEL.launches, lstm_kernel.LSTM2_INFER.launches)
+        got = forward(model.to(dev), {m: t.to(dev) for m, t in batch.items()}).cpu()
+        torch.cuda.synchronize()
+        assert (logmel.LOGMEL.launches - before[0],
+                lstm_kernel.LSTM2_INFER.launches - before[1]) == (1, 1)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-3)

@@ -2,9 +2,12 @@
 kernel wrappers take the plain path only for CPU tensors."""
 
 import ast
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 
 from multimodal_emotion_detection_tpu_torch.models.recurrent import FusedStackedRNN
@@ -37,6 +40,25 @@ def test_port_and_chip_smoke_import_no_jax():
         for f in files
     }
     assert not {f: mods for f, mods in bad.items() if mods}
+
+
+# the reference checkpoint import, the ETL and its native core, the video
+# resize and the flop counts: host code beside the kernels, JAX-free too
+HOST_MODULES = ("utils.torch_import", "utils.wav", "utils.native", "utils.flops",
+                "ops.resize", "data.ravdess", "data.manifest")
+
+
+@pytest.mark.parametrize("module", HOST_MODULES)
+def test_host_modules_load_no_jax(module):
+    path = ROOT / "multimodal_emotion_detection_tpu_torch" / (module.replace(".", "/") + ".py")
+    assert not set(_imported_top_levels(path)) & FORBIDDEN
+    # imported alone in a fresh interpreter, nothing of JAX comes with it
+    code = (f"import sys, multimodal_emotion_detection_tpu_torch.{module}\n"
+            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
+            "print(bad)\nsys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 COUNTERS = (logmel.LOGMEL, lstm_kernel.LSTM2_INFER, lstm_kernel.LSTM2_TRAIN_FWD,

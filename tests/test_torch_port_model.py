@@ -90,19 +90,23 @@ def test_classifier_logits_match_jax(jax_kernels):
     # one this case had while the transformer was refused
     pytest.param(["model.encoders.video.type=pretrained_cnn"], "item 8",
                  id="model.encoders.audio.encoder_type=transformer-item 8"),
-    # the on-device video resize; the id is the one this case had while
-    # the one-layer LSTM was refused
-    pytest.param("model.frontend.video=resize", "item 12",
+    # the on-device video resize is ported since: the case keeps the id it
+    # had while the one-layer LSTM was refused and holds the resize beside
+    # the image encoder, still outside the port
+    pytest.param(["model.frontend.video=resize",
+                  "model.encoders.video.type=pretrained_cnn"], "item 8",
                  id="model.encoders.audio.num_layers=1-item 3"),
     # the image encoder in bf16, still outside the port; the id is the one
     # this case had while the fusion library was refused
     pytest.param(["model.encoders.audio.dtype=bfloat16",
                   "model.encoders.video.type=pretrained_cnn"], "item 8",
                  id="model.train_fusion=library-item 7"),
-    # the bf16 compute dtype is ported since: the case keeps its id and
-    # holds it beside the video resize, still outside the port
-    pytest.param(["runtime.compute_dtype=bfloat16", "model.frontend.video=resize"],
-                 "item 12", id="runtime.compute_dtype=bfloat16-item 13"),
+    # the bf16 compute dtype and the video resize are ported since: the
+    # case keeps its id and holds both beside the image encoder, still
+    # outside the port
+    pytest.param(["runtime.compute_dtype=bfloat16", "model.frontend.video=resize",
+                  "model.encoders.video.type=pretrained_cnn"],
+                 "item 8", id="runtime.compute_dtype=bfloat16-item 13"),
 ])
 def test_configs_outside_the_slice_raise(override, item):
     extra = override if isinstance(override, list) else [override]

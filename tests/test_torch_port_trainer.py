@@ -203,10 +203,11 @@ def test_frontend_cache_gives_the_same_trajectory(data_dir, tmp_path):
 
 
 @pytest.mark.parametrize("override,item", [
-    # a setting still outside the port (the on-device video resize); the id
-    # is the one this case had while bf16 residual streams were refused
-    pytest.param("model.frontend.video=resize", "item 12",
-                 id="runtime.lstm_residual_dtype=bfloat16-item 13"),
+    # the on-device video resize is ported since: the case keeps the id it
+    # had while bf16 residual streams were refused and holds the resize
+    # beside the image encoder, still outside the port
+    pytest.param(["model.frontend.video=resize", "model.encoders.video.type=pretrained_cnn"],
+                 "item 8", id="runtime.lstm_residual_dtype=bfloat16-item 13"),
     # the bf16 compute dtype is ported since: the case keeps its id and
     # holds it beside the image encoder, still outside the port
     pytest.param(["runtime.compute_dtype=bfloat16",
@@ -215,8 +216,9 @@ def test_frontend_cache_gives_the_same_trajectory(data_dir, tmp_path):
     # three settings ported since (the epoch trace, synthetic data, the
     # host-streaming loader): each case keeps its id and holds another
     # setting still outside the port; pretrained weights moved to item 8
-    pytest.param(["model.encoders.audio.dtype=bfloat16", "model.frontend.video=resize"],
-                 "item 12", id="runtime.profile_dir=prof-item 5"),
+    pytest.param(["model.encoders.audio.dtype=bfloat16", "model.frontend.video=resize",
+                  "model.encoders.video.type=pretrained_cnn"],
+                 "item 8", id="runtime.profile_dir=prof-item 5"),
     pytest.param("model.encoders.video.weights_path=w.pth", "item 8",
                  id="model.encoders.video.weights_path=w.pth-item 5"),
     pytest.param("model.encoders.video.type=pretrained_cnn", "item 8",

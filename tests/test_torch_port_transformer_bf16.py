@@ -12,9 +12,9 @@ against the JAX modules with ``use_flash=True, flash_interpret=True``:
   with bf16 encoders loading ``strict=True``;
 * a 3-step train-step trajectory and a ``Trainer`` epoch against JAX's;
 * the refusals of bf16 settings beside one still outside the port (the
-  image encoder, item 8; the video resize, item 12; a GRU wider than its
-  kernels take): the bf16 compute dtype and ``dtype: bfloat16`` on the
-  LSTM, GRU, CNN and MLP encoders are ported since
+  image encoder, item 8; a GRU wider than its kernels take): the bf16
+  compute dtype, ``dtype: bfloat16`` on the LSTM, GRU, CNN and MLP
+  encoders and the video resize are ported since
   (``test_torch_port_compute_bf16.py``).
 
 Tolerances.  Both sides round to bf16 at flax's points, but not always to
@@ -333,10 +333,13 @@ def test_trainer_epoch_with_bf16_encoders_matches_jax(tmp_path):
 
 # each case keeps the id it had while its bf16 setting was refused (item 13,
 # ported since) and holds that setting beside one still outside the port
+# (the "lstm" case's video resize is ported since too: it holds both beside
+# the image encoder)
 @pytest.mark.parametrize("override,item", [
     (["runtime.compute_dtype=bfloat16", "model.encoders.video.type=pretrained_cnn"],
      "item 8"),
-    (["model.encoders.audio.dtype=bfloat16", "model.frontend.video=resize"], "item 12"),
+    (["model.encoders.audio.dtype=bfloat16", "model.frontend.video=resize",
+      "model.encoders.video.type=pretrained_cnn"], "item 8"),
     (["model.encoders.audio.encoder_type=gru", "model.encoders.audio.dtype=bfloat16",
       "model.encoders.audio.hidden_dim=1064"], "shape ceilings"),
     (["model.encoders.audio.type=pretrained_cnn", "model.encoders.audio.dtype=bfloat16"],
