@@ -316,7 +316,30 @@
    FLOPs per clip of every trained configuration, the share of the card's
    datasheet peak at each train step's and ``[serve]``'s b32 p50, and a
    device-to-device copy's bandwidth beside the datasheet HBM figure.
-22. Prints the script's wall time, one JSON line describing every kernel
+22. The image CNN video encoder (``CNN``: ``type: pretrained_cnn``, a
+   ResNet-18 over (B, 24, 64, 64, 3) frames, beside the flagship's audio
+   side) and the transformer encoder's ``lengths``.  ``[train_cnn]`` writes
+   96 / 32 / 32 clips and a seeded torchvision-layout ResNet-18
+   ``state_dict`` file, holds the trainer's graft bit for bit to the file
+   before the first step, trains through the train CLI with
+   ``weights_path`` for 2 epochs at b32 (log-mel once a batch, rows 11 /
+   12 once a step, row 2 once an eval batch), and holds one card step on 4
+   clips to the CPU's float64 step (``kinked_step_check``, the audio LSTM
+   float32 there); its p50, busy share and peak memory.  ``[serve_cnn]``
+   predicts on its ``best.ckpt`` (log-mel and row 2 once; 4 clips against
+   the CPU; b32 / b1 p50 and busy share), ``[mc_dropout_cnn_image]`` runs
+   ``--mc-dropout 3`` (the running statistics bit for bit through it),
+   ``[export_cnn]`` exports it with the rank-5 frames as input (bit for
+   bit the eager forward), ``[quantize_cnn]`` serves it in int8.
+   ``[cnn_bf16]`` / ``[cnn_compute_bf16]`` take one step and one forward
+   with ``model.encoders.video.dtype=bfloat16`` / ``runtime.compute_dtype=
+   bfloat16`` by the bf16 rule, the step's gradients leaf by leaf too.  ``[tf_lengths]`` / ``[tf_lengths_bf16]``
+   run the transformer config's encoder at (32, 372, 64) with lengths 372
+   .. 93 forward and backward (rows 16 / 17 or 16b / 17b once a block)
+   against the CPU on 4 clips, and time it with and without the lengths.
+   ``[flops]`` leaves ``[train_cnn]`` out and says so: ``utils/flops.py``
+   does not count the ResNet, as the JAX package's count does not.
+23. Prints the script's wall time, one JSON line describing every kernel
    (the one-layer and 2-layer cores' entries name their shared header as
    ``core``), nvidia-smi's name and power limit of the card, and as the
    last line ``{"ok": true, "device": {...}}``.
@@ -3561,7 +3584,8 @@ def phase_train(counters, tag: str, model_overrides, expected_fn,
                 config: str = "base.yaml", artifacts=TRAIN_ARTIFACTS,
                 kinked: bool = False, grad_bound: float = 1e-4,
                 contrast_f32: bool = False, half_encoders: bool = False,
-                contrast_stored: bool = False):
+                contrast_stored: bool = False, data: Path = None, sizes=None,
+                keep32=()):
     """The train CLI with ``configs/<config>`` for 2 epochs on synthetic 96
     / 64 / 64 clip splits at batch 32, from the work directory (relative
     outputs land there), with the launch counts checked
@@ -3576,7 +3600,10 @@ def phase_train(counters, tag: str, model_overrides, expected_fn,
     step with the gates stored on the same batch and masks further from it
     than that gap (the recompute engaged), and with ``half_encoders`` (bf16 encoders)
     ``half_step_check`` instead of the float32 bound; the train step's
-    latency over ``reps`` steps and its profile over ``profile_reps``.  Returns ``(launches, run directory,
+    latency over ``reps`` steps and its profile over ``profile_reps``.
+    ``data`` (split sizes ``sizes``) is a written data directory to train
+    on in place of the synthetic full-width splits; ``keep32`` goes to
+    ``kinked_step_check``.  Returns ``(launches, run directory,
     overrides)``."""
     import contextlib
     import csv
@@ -3591,11 +3618,12 @@ def phase_train(counters, tag: str, model_overrides, expected_fn,
         init_weights,
     )
 
-    sizes = TRAIN_SPLITS
-    data = WORK / "train_data"
-    if not (data / "test" / "labels.npy").exists():
-        for seed, (split, n) in enumerate(sizes.items()):
-            _write_split(data, split, n, 10 + seed)
+    if data is None:
+        sizes = TRAIN_SPLITS
+        data = WORK / "train_data"
+        if not (data / "test" / "labels.npy").exists():
+            for seed, (split, n) in enumerate(sizes.items()):
+                _write_split(data, split, n, 10 + seed)
     config_path = str(ROOT / "configs" / config)
     overrides = [*model_overrides, "training.max_epochs=2",
                  f"dataset.data_dir={data}", f"experiment.save_dir={WORK}",
@@ -3632,7 +3660,7 @@ def phase_train(counters, tag: str, model_overrides, expected_fn,
                    clip_norm=cfg.training.gradient_clip_norm,
                    modality_dropout=cfg.training.augmentation.modality_dropout)
     if kinked:
-        kinked_step_check(tag, cfg, step_kw)
+        kinked_step_check(tag, cfg, step_kw, rows=check_clips or None, keep32=keep32)
 
     # one train step on the card against the same step on the CPU (plain
     # versions), same weights, batch and masks
@@ -3738,7 +3766,8 @@ def _contrast_stored(tag: str, cfg, model, loader, rows: int, step_kw, sides,
 
 
 def _step_sides(cfg, model, loader, rows: int, step_kw, f64: bool = False,
-                with_cpu: bool = True, streamed: bool = False, reference=None):
+                with_cpu: bool = True, streamed: bool = False, reference=None,
+                keep32=()):
     """One ``train_step`` of a copy of ``model`` on the first ``rows`` clips
     of ``loader``'s first batch: on the card, then on the CPU with the
     card's masks replayed (plain versions), and with ``f64`` on the CPU in
@@ -3746,7 +3775,8 @@ def _step_sides(cfg, model, loader, rows: int, step_kw, f64: bool = False,
     ``streamed`` the card takes the batch as ``loader.stream`` copies it and
     gathers it by the identity, as the host-streaming trainer does; with
     ``reference`` (a model of the same tree) that model's step on the CPU
-    with the card's masks too (``cpu_ref``).  Returns
+    with the card's masks too (``cpu_ref``); the submodules named in
+    ``keep32`` stay float32 in the float64 step.  Returns
     ``{side: {noise, loss, grads, params, buffers}}``, every tensor on the
     CPU."""
     import copy
@@ -3774,6 +3804,9 @@ def _step_sides(cfg, model, loader, rows: int, step_kw, f64: bool = False,
     sides = {}
     for side, device, dtype, source in plan:
         m = copy.deepcopy(source).to(device, dtype)
+        if dtype == torch.float64:
+            for name in keep32:
+                getattr(m, name).to(torch.float32)
         opt, _ = build_optimizer(cfg.training, m.parameters(), len(loader))
         if side == "card":
             noise = Noise(torch.Generator(device=dev).manual_seed(0))
@@ -3791,7 +3824,7 @@ def _step_sides(cfg, model, loader, rows: int, step_kw, f64: bool = False,
     return sides
 
 
-def kinked_step_check(tag: str, cfg, step_kw) -> None:
+def kinked_step_check(tag: str, cfg, step_kw, rows: int = None, keep32=()) -> None:
     """The card step of a model whose gradient jumps at ReLU kinks that
     every (clip, step) element reaches (audio_only.yaml's CNN and its MLP
     form: ReLU after BatchNorm over (B, T, C)), held to the exact step.
@@ -3809,7 +3842,11 @@ def kinked_step_check(tag: str, cfg, step_kw) -> None:
     each buffer's largest entry, the gradients to 1e-4 of the largest, or
     to 4x the CPU float32 step's own distance where that is larger, and
     the updated parameters to 1e-5 where |g| is 10x past the card's
-    gradient error (Adam's step is lr * sign there), 2.2 lr anywhere."""
+    gradient error (Adam's step is lr * sign there), 2.2 lr anywhere.  The
+    step takes the first ``rows`` clips of the batch (all by default) on
+    every side.  The encoders named in ``keep32`` (``<modality>_encoder``)
+    stay float32 in the float64 step: the recurrent kernels' plain versions
+    compute in float32, as the JAX kernels do."""
     import copy
 
     from multimodal_emotion_detection_tpu_torch.data.loader import (
@@ -3827,8 +3864,8 @@ def kinked_step_check(tag: str, cfg, step_kw) -> None:
         cfg.dataset.name, cfg.dataset.data_dir, cfg.dataset.modalities,
         batch_size=cfg.dataset.batch_size, seed=cfg.seed, device=torch.device("cuda"))[0]
     _cache_logmel(cfg, loader)
-    rows = cfg.dataset.batch_size
-    sides = _step_sides(cfg, model, loader, rows, step_kw, f64=True)
+    rows = rows or cfg.dataset.batch_size
+    sides = _step_sides(cfg, model, loader, rows, step_kw, f64=True, keep32=keep32)
     exact = sides["cpu64"]
     g_max = max(float(g.abs().max()) for g in exact["grads"].values())
 
@@ -3856,8 +3893,9 @@ def kinked_step_check(tag: str, cfg, step_kw) -> None:
     buf_cpu = max(float((sides["cpu"]["buffers"][k].double() - b).abs().max())
                   / float(b.abs().max()) for k, b in exact["buffers"].items())
     worst_buf = max(buf_err, key=buf_err.get)
+    kept = f" ({', '.join(keep32)} float32 there)" if keep32 else ""
     print(f"[{tag}] one step on the same {rows} clips' log-mel features and masks, "
-          f"against the CPU's float64 step: loss card {sides['card']['loss']:.6f}, "
+          f"against the CPU's float64 step{kept}: loss card {sides['card']['loss']:.6f}, "
           f"float64 {exact['loss']:.6f}, abs err {loss_err:.3e} (bound 1e-4); gradients "
           f"max abs err card {card_abs / g_max:.3e} ({card_worst}), CPU float32 "
           f"{cpu_abs / g_max:.3e} ({cpu_worst}), card vs CPU float32 {pair / g_max:.3e}, "
@@ -3879,7 +3917,8 @@ HALF_GRAD_FLOOR = 2e-2
 HALF_LOSS_BOUND = 1e-2
 
 
-def half_step_check(tag: str, cfg, model, loader, rows: int, step_kw) -> None:
+def half_step_check(tag: str, cfg, model, loader, rows: int, step_kw,
+                    per_leaf: bool = False) -> None:
     """The card step of ``model`` (bf16 encoders) held to the CPU's float32
     step, not to the CPU bf16 step: bf16 rounds float32 values that cuBLAS
     and the CPU sum in other orders to other ulps, so the two bf16 steps
@@ -3890,7 +3929,10 @@ def half_step_check(tag: str, cfg, model, loader, rows: int, step_kw) -> None:
     max(HALF_GRAD_FLOOR, 2 x the CPU bf16 step's distance) of the largest
     gradient, and its loss within HALF_LOSS_BOUND of the CPU bf16 step's.
     The CPU bf16 step must differ from the float32 one (the rounding
-    engaged)."""
+    engaged).  With ``per_leaf`` every parameter tensor is held on its
+    own as well (``_per_leaf_check``), so that a leaf whose gradients are
+    small beside the largest (an encoder beside a ResNet stem) is not hidden
+    by the worst leaf's bound."""
     import copy
 
     reference = copy.deepcopy(model)
@@ -3922,6 +3964,50 @@ def half_step_check(tag: str, cfg, model, loader, rows: int, step_kw) -> None:
           f"card vs CPU bf16 {pair:.3e}")
     if not (card_d <= bound_d and loss_err <= HALF_LOSS_BOUND and cpu_d > 0.0):
         raise RuntimeError(f"{tag}: the card's bf16 step fails the bf16 step rule")
+    if per_leaf:
+        _per_leaf_check(tag, sides["card"]["grads"], sides["cpu"]["grads"], ref["grads"])
+
+
+LEAF_MULT = 2.0  # a leaf's card distance from float32, in its CPU bf16 distances
+LEAF_FLOOR = 1e-3  # of the leaf's float32 norm
+LEAF_ABS = 1e-4  # of the largest leaf's float32 norm: the float32 step's bound
+
+
+def _per_leaf_check(tag: str, card, cpu, ref) -> None:
+    """The bf16 step rule leaf by leaf: each parameter tensor's card
+    gradient within max(LEAF_MULT x the CPU bf16 gradient's L2 distance,
+    LEAF_FLOOR x its own float32 norm, LEAF_ABS x the largest leaf's) of
+    the CPU's float32 gradient.  The last term is for a leaf whose true
+    gradient is zero (an attention pool's score bias, which softmax over
+    time does not see): it holds only round-off, which no multiple of the
+    CPU's round-off bounds.  Prints, for the audio encoder, the image
+    backbone and the rest, the leaf nearest its bound: the card's and the
+    CPU's distances from float32 and its float32 norm, each of the largest
+    leaf's norm."""
+    top = max(float(g.norm()) for g in ref.values())
+    nearest = {}
+    failed = []
+    for k, g in ref.items():
+        card_d = float((card[k] - g).norm()) / top
+        cpu_d = float((cpu[k] - g).norm()) / top
+        norm = float(g.norm()) / top
+        use = card_d / max(LEAF_MULT * cpu_d, LEAF_FLOOR * norm, LEAF_ABS)
+        if use > 1.0:
+            failed.append(k)
+        group = ("audio_encoder" if k.startswith("audio_encoder.") else
+                 "video_encoder.backbone" if k.startswith("video_encoder.backbone.")
+                 else "the rest")
+        if use > nearest.get(group, (-1.0,))[0]:
+            nearest[group] = (use, k, card_d, cpu_d, norm)
+    print(f"[{tag}] leaf by leaf ({len(ref)} tensors): each card gradient's L2 distance "
+          f"from the CPU float32 step within max({LEAF_MULT:g} x the CPU bf16 one's, "
+          f"{LEAF_FLOOR:.0e} x its norm, {LEAF_ABS:.0e} x the largest leaf's norm "
+          f"{top:.3e}); nearest its bound, of that norm: " +
+          "; ".join(f"{group} {u:.3f} of its bound ({k}: card {c:.3e}, CPU {d:.3e}, "
+                    f"norm {n:.3e})" for group, (u, k, c, d, n) in nearest.items()))
+    if failed:
+        raise RuntimeError(f"{tag}: the card's bf16 gradients of {failed} fail the bf16 "
+                           f"rule leaf by leaf")
 
 
 def _step_check(tag: str, cfg, card, cpu, rows: int, grad_bound: float = 1e-4) -> float:
@@ -4762,14 +4848,16 @@ print(sorted(m for m in sys.modules if m.startswith("multimodal_emotion")))
 """
 
 
-def phase_export(counters, tag: str, ckpt: Path, overrides, expected, fresh: bool = False):
+def phase_export(counters, tag: str, ckpt: Path, overrides, expected, fresh: bool = False,
+                 data: Path = None):
     """``[export*]``: ``tools.export`` on ``ckpt`` at b32 (the CLI's round
     trip runs the eager forward and the loaded program once each: twice
     ``expected``), the file's bytes, then the loaded program on the test
     split's first 32 clips bit for bit the eager ``forward``'s with its
     launches exactly ``expected``, and both b32 forwards' p50 in turns;
     with ``fresh`` the file served in a fresh interpreter that imports
-    only the port's ops.  Returns the exported call's launches."""
+    only the port's ops.  The clips are ``data``'s test split (by default
+    the synthetic full-width one).  Returns the exported call's launches."""
     from multimodal_emotion_detection_tpu_torch.config import load_config
     from multimodal_emotion_detection_tpu_torch.tools import export
     from multimodal_emotion_detection_tpu_torch.tools._restore import restore_model
@@ -4788,7 +4876,7 @@ def phase_export(counters, tag: str, ckpt: Path, overrides, expected, fresh: boo
     cfg = load_config(config, overrides)
     cfg.model.frontend.cache = False
     model, _ = restore_model(cfg, ckpt, dev)
-    test = WORK / "train_data" / "test"
+    test = (data or WORK / "train_data") / "test"
     clips = {m: torch.from_numpy(np.load(test / f"{m}.npy")[:32]).to(dev)
              for m in cfg.dataset.modalities}
     program = export.load_exported(out).module()
@@ -5386,6 +5474,11 @@ def phase_flops(card_name: str):
         cfg.model.encoders = {m: e for m, e in dict(cfg.model.encoders).items() if m in mods}
         if "audio" not in mods:
             cfg.model.frontend.audio = "raw"
+        if any(dict(e).get("type") == "pretrained_cnn" for e in cfg.model.encoders.values()):
+            print(f"[flops] {tag} ({Path(config_path).name}): not counted; utils/flops.py "
+                  "does not model the image encoder's ResNet (pretrained_cnn), as the JAX "
+                  "package's count does not")
+            continue
         r = flops.classifier_flops_per_clip(cfg)
         dtype = _path_dtype(cfg)
         peak = flops.device_peak_flops(dtype)
@@ -5428,6 +5521,342 @@ def phase_flops(card_name: str):
           f"({card_name}; nvidia-smi: {smi})")
     del src, dst
     torch.cuda.empty_cache()
+
+
+CNN_SPLITS = {"train": 96, "val": 32, "test": 32}
+CNN_FRAMES = (24, 64, 64, 3)  # the ETL's 24 frames at 64x64, 3 channels
+# the image CNN classifier: the flagship's audio side (log-mel in the step,
+# LSTM 2x256) beside the ResNet-18 video encoder over (B, 24, 64, 64, 3)
+# frames, with torchvision-layout weights grafted at init
+CNN = ["model.frontend.audio=logmel", "model.encoders.video.type=pretrained_cnn",
+       "model.encoders.video.backbone=resnet18"]
+
+
+def _write_cnn_split(root: Path, split: str, n: int, seed: int) -> None:
+    d = root / split
+    d.mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    np.save(d / "audio.npy", rng.randn(n, 48000, 1).astype(np.float32))
+    np.save(d / "video.npy", rng.rand(n, *CNN_FRAMES).astype(np.float32))
+    np.save(d / "labels.npy", rng.randint(0, 8, n).astype(np.int32))
+
+
+def _torchvision_resnet18(path: Path, seed: int) -> dict:
+    """A torchvision-layout resnet18 ``state_dict`` (``conv1``, ``bn1``,
+    ``layer{s}.{b}.conv{i}`` / ``bn{i}``, ``.downsample.0`` / ``.1``,
+    ``num_batches_tracked``, ``fc``) of seeded values, He-normal kernels
+    and BatchNorm near identity, saved to ``path`` as ``torch.save``
+    writes a ``model.state_dict()``: what a user's local ImageNet file
+    holds, made here (no download)."""
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def conv(name, cout, cin, k):
+        std = (2.0 / (cin * k * k)) ** 0.5
+        sd[f"{name}.weight"] = torch.randn(cout, cin, k, k, generator=gen) * std
+
+    def bn(name, c):
+        sd[f"{name}.weight"] = 1.0 + 0.1 * torch.randn(c, generator=gen)
+        sd[f"{name}.bias"] = 0.1 * torch.randn(c, generator=gen)
+        sd[f"{name}.running_mean"] = 0.1 * torch.randn(c, generator=gen)
+        sd[f"{name}.running_var"] = 0.5 + torch.rand(c, generator=gen)
+        sd[f"{name}.num_batches_tracked"] = torch.tensor(100)
+
+    conv("conv1", 64, 3, 7)
+    bn("bn1", 64)
+    width = 64
+    for stage in range(4):
+        feat = 64 * 2 ** stage
+        for block in range(2):
+            p = f"layer{stage + 1}.{block}"
+            conv(f"{p}.conv1", feat, width, 3)
+            bn(f"{p}.bn1", feat)
+            conv(f"{p}.conv2", feat, feat, 3)
+            bn(f"{p}.bn2", feat)
+            if width != feat:
+                conv(f"{p}.downsample.0", feat, width, 1)
+                bn(f"{p}.downsample.1", feat)
+            width = feat
+    sd["fc.weight"] = 0.01 * torch.randn(1000, 512, generator=gen)
+    sd["fc.bias"] = torch.zeros(1000)
+    torch.save(sd, path)
+    return sd
+
+
+def phase_train_cnn(counters, flagship_counts):
+    """``[train_cnn]``: writes 96 / 32 / 32 clips (audio (N, 48000, 1),
+    video (N, 24, 64, 64, 3)) and a seeded torchvision-layout ResNet-18
+    file, then the train CLI for 2 epochs at b32 with the image encoder and
+    ``weights_path`` (the flagship's launches: log-mel once per batch, rows
+    11 / 12 once per step, row 2 once per eval batch).  The stem kernel and
+    running statistics after the trainer's graft, before the first step,
+    bit for bit the file's; one card step on 4 clips held to the CPU's
+    float64 step (``kinked_step_check``: ReLU after every BatchNorm; the
+    audio LSTM float32 there, its plain versions' dtype), the
+    step's p50, busy share and peak memory.  Returns ``(launches, run
+    directory, overrides, data directory)``."""
+    from multimodal_emotion_detection_tpu_torch.config import load_config
+    from multimodal_emotion_detection_tpu_torch.data.loader import create_dataloaders
+    from multimodal_emotion_detection_tpu_torch.training.loop import Trainer
+
+    data = WORK / "cnn_data"
+    t0 = time.perf_counter()
+    for seed, (split, n) in enumerate(CNN_SPLITS.items()):
+        _write_cnn_split(data, split, n, 40 + seed)
+    weights = WORK / "resnet18_torchvision.pth"
+    sd = _torchvision_resnet18(weights, 7)
+    overrides = [*CNN, f"model.encoders.video.weights_path={weights}"]
+    print(f"[train_cnn] wrote {sum(CNN_SPLITS.values())} clips with video "
+          f"{CNN_FRAMES} a clip and {weights.name} ({weights.stat().st_size} bytes, "
+          f"{len(sd)} tensors): {time.perf_counter() - t0:.3f} s")
+
+    # the trainer's graft, on the card, before its first step
+    cfg = load_config(str(ROOT / "configs" / "base.yaml"),
+                      [*overrides, f"dataset.data_dir={data}"])
+    trainer = Trainer(cfg, save_dir=WORK / "train_cnn_graft")
+    loader = create_dataloaders(cfg.dataset.name, cfg.dataset.data_dir,
+                                cfg.dataset.modalities, batch_size=32, seed=cfg.seed,
+                                device=torch.device("cuda"))[0]
+    trainer._build(loader)
+    backbone = trainer.model.video_encoder.backbone
+    same = {name: torch.equal(t.cpu(), sd[src]) for name, t, src in (
+        ("stem_conv.weight", backbone.stem_conv.weight, "conv1.weight"),
+        ("stem_bn.running_var", backbone.stem_bn.running_var, "bn1.running_var"),
+        ("stage3_block1.conv2.weight", backbone.stage3_block1.conv2.weight,
+         "layer4.1.conv2.weight"))}
+    print(f"[train_cnn] after the trainer's graft, before its first step, bit for bit "
+          f"the file's: {same}")
+    if not all(same.values()):
+        raise RuntimeError("[train_cnn] the grafted backbone differs from the file")
+    del trainer, loader
+
+    launches, run, run_overrides = phase_train(
+        counters, "train_cnn", overrides, flagship_counts, check_clips=4, reps=20,
+        profile_reps=3, kinked=True, data=data, sizes=CNN_SPLITS,
+        keep32=("audio_encoder",))
+    p50, busy, peak = STEPS["train_cnn"]
+    print(f"[train_cnn] train step b32 p50 {p50:.4f} ms, device busy "
+          f"{100 * busy if busy else float('nan'):.1f}%, peak allocated {peak:.4f} GB")
+    return launches, run, run_overrides, data
+
+
+def phase_serve_cnn(counters, run: Path, overrides, data: Path):
+    """``[serve_cnn]``: predict on ``[train_cnn]``'s ``best.ckpt`` at b32
+    (log-mel and row 2 once; logits against the CPU forward on 4 clips,
+    1e-3, argmax) and the b32 / b1 forward p50 and busy share; ``predict
+    --mc-dropout 3`` (log-mel and row 11 once a batch; the batch replayed on
+    the CPU with the card's masks; the running statistics bit for bit
+    through every MC forward); ``[export_cnn]`` (the (32, 24, 64, 64, 3)
+    frames as the program's input, bit for bit the eager forward) and
+    ``[quantize_cnn]`` (int8 weights, the conv kernels per output channel).
+    Returns ``{path: launches}``."""
+    test = data / "test"
+    audio, video = np.load(test / "audio.npy"), np.load(test / "video.npy")
+    served = {"logmel": 1, "lstm2_infer": 1}
+    ckpt = run / "best.ckpt"
+    out = {"serve_cnn": serve_path("serve_cnn", counters, served, ckpt, overrides, audio,
+                                   video, WORK / "predictions_cnn", check_clips=4,
+                                   reps=50, profile_reps=5)}
+    out["mc_dropout_cnn_image"] = phase_mc_dropout(
+        counters, "mc_dropout_cnn_image", ckpt, overrides, 3, audio, video,
+        WORK / "predictions_mc_cnn_image", "base.yaml", reps=10, profile_reps=3)
+    out["export_cnn"] = phase_export(counters, "export_cnn", ckpt, overrides, served,
+                                     data=data)
+    out["quantize_cnn"] = quantized_serve(counters, "quantize_cnn", ckpt, overrides,
+                                          served, audio, video)
+    return out
+
+
+def phase_cnn_bf16(counters, overrides, data: Path):
+    """``[cnn_bf16]``: the image CNN classifier with
+    ``model.encoders.video.dtype=bfloat16`` and with
+    ``runtime.compute_dtype=bfloat16`` (seeded, the file grafted): one card
+    step on 4 clips by the bf16 step rule, over the worst leaf and leaf by
+    leaf (``half_step_check(per_leaf=True)``: log-mel and rows 11 / 12
+    once), then one eval forward on 4 test clips (log-mel and
+    row 2 once) by the same rule: the card's logits' distance from the
+    CPU's float32 forward (every compute dtype float32, the same weights)
+    within max(4, 2 x the CPU bf16 forward's distance) bf16 ulps of its
+    largest logit, the argmax where its top two are more than twice that
+    apart.  (A ResNet-18 in bf16 ends several ulps from one in bf16 on other
+    hardware: each of its 20 convolutions rounds sums taken in another
+    order.)  Returns
+    ``{path: launches}`` of the steps."""
+    import copy
+
+    from multimodal_emotion_detection_tpu_torch.config import load_config
+    from multimodal_emotion_detection_tpu_torch.data.loader import create_dataloaders
+    from multimodal_emotion_detection_tpu_torch.models.classifier import (
+        classifier_from_config,
+        init_weights,
+        load_pretrained_encoder_weights,
+    )
+    from multimodal_emotion_detection_tpu_torch.training.steps import forward
+
+    dev = torch.device("cuda")
+    test = data / "test"
+    clips = {m: torch.from_numpy(np.load(test / f"{m}.npy")[:4]) for m in ("audio", "video")}
+    out = {}
+    for tag, extra in (("cnn_bf16", ["model.encoders.video.dtype=bfloat16"]),
+                       ("cnn_compute_bf16", HALF_COMPUTE)):
+        cfg = load_config(str(ROOT / "configs" / "base.yaml"),
+                          [*overrides, *extra, f"dataset.data_dir={data}"])
+        model = init_weights(classifier_from_config(cfg), torch.Generator().manual_seed(0))
+        load_pretrained_encoder_weights(model, cfg.model.encoders)
+        loader = create_dataloaders(cfg.dataset.name, cfg.dataset.data_dir,
+                                    cfg.dataset.modalities, batch_size=32, seed=cfg.seed,
+                                    device=dev)[0]
+        step_kw = dict(lr=cfg.training.learning_rate,
+                       clip_norm=cfg.training.gradient_clip_norm,
+                       modality_dropout=cfg.training.augmentation.modality_dropout)
+        _, step_s, out[tag] = run_counted(
+            counters, {"logmel": 1, "lstm2_train_fwd": 1, "lstm2_bwd_chain": 1}, tag,
+            lambda: half_step_check(tag, cfg, model, loader, 4, step_kw, per_leaf=True))
+        card_model = copy.deepcopy(model).to(dev).eval()
+        got, _, _ = run_counted(counters, {"logmel": 1, "lstm2_infer": 1}, tag,
+                                lambda: forward(card_model, {k: v.to(dev)
+                                                             for k, v in clips.items()}))
+        # the step rule's structure for the forward: the card's and the
+        # CPU's bf16 logits each against the CPU's float32 forward on the
+        # same weights
+        ref32_model = copy.deepcopy(model)
+        for module in ref32_model.modules():
+            if hasattr(module, "compute_dtype"):
+                module.compute_dtype = torch.float32
+        ref32 = forward(ref32_model, clips).float().numpy()
+        ref = forward(model.eval(), clips).float().numpy()
+        got = got.float().cpu().numpy()
+        ulp = 2.0 ** -8 * float(np.abs(ref32).max())
+        card_d = float(np.abs(got - ref32).max()) / ulp
+        cpu_d = float(np.abs(ref - ref32).max()) / ulp
+        bound = max(4.0, 2 * cpu_d)
+        top2 = np.sort(ref32, axis=-1)[:, -2:]
+        decided = top2[:, 1] - top2[:, 0] > 2 * bound * ulp
+        same = got.argmax(-1) == ref32.argmax(-1)
+        print(f"[{tag}] the step and its checks {step_s:.3f} s; one eval forward on 4 "
+              f"clips, logits' distance from the CPU float32 forward in bf16 ulps of its "
+              f"largest logit: card {card_d:.3f}, CPU bf16 {cpu_d:.3f} (card bound "
+              f"max(4, 2 x CPU) = {bound:.3f}); card vs CPU bf16 "
+              f"{float(np.abs(got - ref).max()) / ulp:.3f}; argmax "
+              f"{int(same[decided].sum())}/{int(decided.sum())} where decided "
+              f"({int(same.sum())}/4 in all)")
+        if card_d > bound or not same[decided].all() or cpu_d == 0.0:
+            raise RuntimeError(f"[{tag}] the card's bf16 forward fails the bf16 rule")
+    return out
+
+
+def phase_tf_lengths(counters, rows: int = 4):
+    """``[tf_lengths]``: the transformer config's audio encoder at full
+    width (``TRANSFORMER``: input 64, 2 blocks of 256, 4 heads) on (32, 372,
+    64) log-mel-sized inputs with ``lengths`` from 372 down to 93, in
+    training mode (dropout 0.1): forward and backward on the card, rows 16
+    / 17 once per block (16b / 17b in bf16), the first ``rows`` clips'
+    outputs and input gradients against the same clips on the CPU (the
+    Philox seeds replayed, the feed-forward masks cut to those clips; a
+    clip's output and input gradient depend on that clip alone), and the
+    parameters' gradients of a card call on those clips against the CPU's.
+    Float32: each to 1e-4 of its largest; bf16 (``dtype: bfloat16``): the
+    output within 4 bf16 ulps of the CPU's, the gradients by the bf16 step
+    rule against the CPU's float32 encoder.  The lengths must move the
+    output, and the call's p50 with them is printed beside the p50
+    without.  Returns ``{path: launches}``."""
+    import copy
+
+    from multimodal_emotion_detection_tpu_torch.config import load_config
+    from multimodal_emotion_detection_tpu_torch.models.classifier import (
+        classifier_from_config,
+        init_weights,
+    )
+    from multimodal_emotion_detection_tpu_torch.models.noise import Noise
+
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(32, 372, 64, generator=gen)
+    w = torch.randn(32, 128, generator=gen)
+    lengths = torch.linspace(372, 93, 32).round().long()
+    out = {}
+
+    def run(module, device, noise, n=32, lens=lengths):
+        m = copy.deepcopy(module).to(device).train()
+        xx = x[:n].to(device, copy=True).requires_grad_(True)
+        o = m(xx, noise=noise, lengths=None if lens is None else lens[:n].to(device))
+        (o.float() * w[:n].to(device)).sum().backward()
+        return {"out": o.detach().float().cpu(), "x": xx.grad.float().cpu(),
+                **{k: p.grad.float().cpu() for k, p in m.named_parameters()}}
+
+    def replay(noise):
+        # the seeds as drawn, the feed-forward keep masks cut to the clips
+        return Noise(replay=[t.cpu() if t.dtype == torch.int64 else t[:rows].cpu()
+                             for t in noise.drawn])
+
+    def err(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    for tag, extra, forms in (
+            ("tf_lengths", [], ("flash_fwd", "flash_bwd_fused")),
+            ("tf_lengths_bf16", ["model.encoders.audio.dtype=bfloat16"],
+             ("flash_fwd_bf16", "flash_bwd_fused_bf16"))):
+        cfg = load_config(str(ROOT / "configs" / "base.yaml"), TRANSFORMER + extra)
+        enc = init_weights(classifier_from_config(cfg),
+                           torch.Generator().manual_seed(0)).audio_encoder
+        noise = Noise(torch.Generator(device=dev).manual_seed(0))
+        card, _, out[tag] = run_counted(counters, {forms[0]: 2, forms[1]: 2}, tag,
+                                        lambda: run(enc, dev, noise))
+        small = Noise(torch.Generator(device=dev).manual_seed(1))
+        card_p = run(enc, dev, small, n=rows)
+        cpu_side = run(enc, cpu, replay(noise), n=rows)
+        cpu_p = run(enc, cpu, replay(small), n=rows)
+        params = [k for k in card_p if k not in ("out", "x")]
+        if tag == "tf_lengths":
+            errs = {"output": err(card["out"][:rows], cpu_side["out"]),
+                    "input gradient": err(card["x"][:rows], cpu_side["x"]),
+                    "parameter gradients": max(float((card_p[k] - cpu_p[k]).abs().max())
+                                               for k in params)
+                    / max(float(cpu_p[k].abs().max()) for k in params)}
+            ok = max(errs.values()) <= 1e-4
+            rule = ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + (
+                " of the largest (bounds 1e-4)")
+        else:
+            ref32 = copy.deepcopy(enc)
+            ref32.compute_dtype = torch.float32
+            f32 = run(ref32, cpu, replay(small), n=rows)
+            ulps = err(card["out"][:rows], cpu_side["out"]) / 2.0 ** -8
+            g_max = max(float(f32[k].abs().max()) for k in params)
+
+            def dist(side):
+                return max(float((side[k] - f32[k]).abs().max()) for k in params) / g_max
+
+            card_d, cpu_d = dist(card_p), dist(cpu_p)
+            bound = max(HALF_GRAD_FLOOR, 2 * cpu_d)
+            ok = ulps <= 4 and card_d <= bound and cpu_d > 0
+            rule = (f"output {ulps:.3f} bf16 ulps of the largest from the CPU bf16 "
+                    f"encoder's (bound 4); parameter gradients' distance from the CPU "
+                    f"float32 encoder's, of the largest: card {card_d:.3e}, CPU bf16 "
+                    f"{cpu_d:.3e} (bound {bound:.3e})")
+        # without the lengths the output moves (the padded keys count)
+        full = run(enc, dev, Noise(replay=list(noise.drawn)), lens=None)["out"]
+        moved = err(full, card["out"])
+        print(f"[{tag}] forward + backward at (32, 372, 64), lengths 372 .. 93: launches "
+              f"{ {k: v for k, v in out[tag].items() if v} }; card vs CPU on the first "
+              f"{rows} clips: {rule}; the output without lengths {moved:.3e} of the "
+              "largest away")
+        if not ok or moved < 1e-3:
+            raise RuntimeError(f"[{tag}] the card disagrees with the CPU, or the lengths "
+                               "do not reach the attention")
+        card_enc = copy.deepcopy(enc).to(dev).train()
+        xx = x.to(dev, copy=True).requires_grad_(True)
+        lens = lengths.to(dev)
+        step_gen = torch.Generator(device=dev)
+        p50s = {}
+        for label, ln in (("with lengths", lens), ("without", None)):
+            def call():
+                step_gen.manual_seed(0)
+                card_enc(xx, noise=Noise(step_gen), lengths=ln).float().sum().backward()
+            p50s[label] = host_ms(call, reps=30)[0]
+        print(f"[{tag}] encoder forward + backward p50 (host clock around synchronize, 30 "
+              f"calls): {p50s['with lengths']:.4f} ms with lengths, {p50s['without']:.4f} "
+              "ms without")
+    return out
 
 
 TRAIN_SPLITS = {"train": 96, "val": 64, "test": 64}
@@ -5504,13 +5933,51 @@ def timed(fn, *args, name=None, **kwargs):
         print(f"[time] {name}: {PHASE_S[name]:.1f} s")
 
 
+def kernel_counters():
+    """Every kernel's launch counter, by the name the kernels line uses."""
+    from multimodal_emotion_detection_tpu_torch.ops import logmel, lstm_kernel
+    from multimodal_emotion_detection_tpu_torch.ops import flash_attention as fa
+
+    return {"logmel": logmel.LOGMEL, "lstm2_infer": lstm_kernel.LSTM2_INFER,
+            "lstm2_train_fwd": lstm_kernel.LSTM2_TRAIN_FWD,
+            "lstm2_bwd_chain": lstm_kernel.LSTM2_BWD_CHAIN,
+            "lstm2_train_fwd_nogates": lstm_kernel.LSTM2_TRAIN_FWD_NOGATES,
+            "lstm2_bwd_chain_remat": lstm_kernel.LSTM2_BWD_CHAIN_REMAT,
+            "lstm1_train_fwd": lstm_kernel.LSTM1_TRAIN_FWD,
+            "lstm1_infer": lstm_kernel.LSTM1_INFER,
+            "lstm_bwd_chain": lstm_kernel.LSTM_BWD_CHAIN,
+            "gru2_infer": lstm_kernel.GRU2_INFER,
+            "gru2_train_fwd": lstm_kernel.GRU2_TRAIN_FWD,
+            "gru2_bwd_chain": lstm_kernel.GRU2_BWD_CHAIN,
+            "gru1_train_fwd": lstm_kernel.GRU1_TRAIN_FWD,
+            "gru1_infer": lstm_kernel.GRU1_INFER,
+            "gru_bwd_chain": lstm_kernel.GRU_BWD_CHAIN,
+            "flash_fwd": fa.FLASH_FWD, "flash_bwd_fused": fa.FLASH_BWD_FUSED,
+            "flash_bwd_dkv": fa.FLASH_BWD_DKV, "flash_bwd_dq": fa.FLASH_BWD_DQ,
+            "lstm2_train_fwd_legacy": lstm_kernel.LSTM2_TRAIN_FWD_LEGACY,
+            "lstm2_bwd_chain_legacy": lstm_kernel.LSTM2_BWD_CHAIN_LEGACY,
+            "gru2_train_fwd_legacy": lstm_kernel.GRU2_TRAIN_FWD_LEGACY,
+            "gru2_bwd_chain_legacy": lstm_kernel.GRU2_BWD_CHAIN_LEGACY,
+            "lstm2_train_fwd_bf16": lstm_kernel.LSTM2_TRAIN_FWD_BF16,
+            "lstm2_bwd_chain_bf16": lstm_kernel.LSTM2_BWD_CHAIN_BF16,
+            "gru2_train_fwd_bf16": lstm_kernel.GRU2_TRAIN_FWD_BF16,
+            "gru2_bwd_chain_bf16": lstm_kernel.GRU2_BWD_CHAIN_BF16,
+            "lstm1_train_fwd_bf16": lstm_kernel.LSTM1_TRAIN_FWD_BF16,
+            "lstm_bwd_chain_bf16": lstm_kernel.LSTM_BWD_CHAIN_BF16,
+            "lstm2_train_fwd_nogates_bf16": lstm_kernel.LSTM2_TRAIN_FWD_NOGATES_BF16,
+            "lstm2_bwd_chain_remat_bf16": lstm_kernel.LSTM2_BWD_CHAIN_REMAT_BF16,
+            "flash_fwd_bf16": fa.FLASH_FWD_BF16,
+            "flash_bwd_fused_bf16": fa.FLASH_BWD_FUSED_BF16,
+            "flash_bwd_dkv_bf16": fa.FLASH_BWD_DKV_BF16,
+                "flash_bwd_dq_bf16": fa.FLASH_BWD_DQ_BF16}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch sees no CUDA card")
     t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT))
-    from multimodal_emotion_detection_tpu_torch.ops import _build, logmel, lstm_kernel
-    from multimodal_emotion_detection_tpu_torch.ops import flash_attention as fa
+    from multimodal_emotion_detection_tpu_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5536,38 +6003,7 @@ def main() -> None:
             if "ptxas" in line or "spill" in line:
                 print(f"[build:{src}] {line.strip()}")
 
-    counters = {"logmel": logmel.LOGMEL, "lstm2_infer": lstm_kernel.LSTM2_INFER,
-                "lstm2_train_fwd": lstm_kernel.LSTM2_TRAIN_FWD,
-                "lstm2_bwd_chain": lstm_kernel.LSTM2_BWD_CHAIN,
-                "lstm2_train_fwd_nogates": lstm_kernel.LSTM2_TRAIN_FWD_NOGATES,
-                "lstm2_bwd_chain_remat": lstm_kernel.LSTM2_BWD_CHAIN_REMAT,
-                "lstm1_train_fwd": lstm_kernel.LSTM1_TRAIN_FWD,
-                "lstm1_infer": lstm_kernel.LSTM1_INFER,
-                "lstm_bwd_chain": lstm_kernel.LSTM_BWD_CHAIN,
-                "gru2_infer": lstm_kernel.GRU2_INFER,
-                "gru2_train_fwd": lstm_kernel.GRU2_TRAIN_FWD,
-                "gru2_bwd_chain": lstm_kernel.GRU2_BWD_CHAIN,
-                "gru1_train_fwd": lstm_kernel.GRU1_TRAIN_FWD,
-                "gru1_infer": lstm_kernel.GRU1_INFER,
-                "gru_bwd_chain": lstm_kernel.GRU_BWD_CHAIN,
-                "flash_fwd": fa.FLASH_FWD, "flash_bwd_fused": fa.FLASH_BWD_FUSED,
-                "flash_bwd_dkv": fa.FLASH_BWD_DKV, "flash_bwd_dq": fa.FLASH_BWD_DQ,
-                "lstm2_train_fwd_legacy": lstm_kernel.LSTM2_TRAIN_FWD_LEGACY,
-                "lstm2_bwd_chain_legacy": lstm_kernel.LSTM2_BWD_CHAIN_LEGACY,
-                "gru2_train_fwd_legacy": lstm_kernel.GRU2_TRAIN_FWD_LEGACY,
-                "gru2_bwd_chain_legacy": lstm_kernel.GRU2_BWD_CHAIN_LEGACY,
-                "lstm2_train_fwd_bf16": lstm_kernel.LSTM2_TRAIN_FWD_BF16,
-                "lstm2_bwd_chain_bf16": lstm_kernel.LSTM2_BWD_CHAIN_BF16,
-                "gru2_train_fwd_bf16": lstm_kernel.GRU2_TRAIN_FWD_BF16,
-                "gru2_bwd_chain_bf16": lstm_kernel.GRU2_BWD_CHAIN_BF16,
-                "lstm1_train_fwd_bf16": lstm_kernel.LSTM1_TRAIN_FWD_BF16,
-                "lstm_bwd_chain_bf16": lstm_kernel.LSTM_BWD_CHAIN_BF16,
-                "lstm2_train_fwd_nogates_bf16": lstm_kernel.LSTM2_TRAIN_FWD_NOGATES_BF16,
-                "lstm2_bwd_chain_remat_bf16": lstm_kernel.LSTM2_BWD_CHAIN_REMAT_BF16,
-                "flash_fwd_bf16": fa.FLASH_FWD_BF16,
-                "flash_bwd_fused_bf16": fa.FLASH_BWD_FUSED_BF16,
-                "flash_bwd_dkv_bf16": fa.FLASH_BWD_DKV_BF16,
-                "flash_bwd_dq_bf16": fa.FLASH_BWD_DQ_BF16}
+    counters = kernel_counters()
     # the raw phases' plain versions run on the CPU beside the card, one
     # worker process a job (RAW_JOBS); every worker is stopped on the way out
     pool = multiprocessing.get_context("spawn").Pool(len(RAW_JOBS))
@@ -5959,6 +6395,19 @@ def _run_phases(counters, pending, card_name: str, t_start: float) -> None:
                              expected, fresh=tag == "export")
     print(f"[time] export, export_gru, export_big, export_big_gru, export_tf, "
           f"export_tf_compute_bf16: {time.perf_counter() - t_export:.1f} s")
+    # the image CNN classifier (type: pretrained_cnn: ResNet-18 over
+    # (B, 24, 64, 64, 3) frames, torchvision-layout weights grafted at init)
+    # beside the flagship's audio side, trained, served, exported, quantized
+    # and stepped in bf16; then the transformer encoder with lengths
+    t_cnn = time.perf_counter()
+    by_path["train_cnn"], cnn_run, cnn_overrides, cnn_data = timed(
+        phase_train_cnn, counters, flagship_counts, name="train_cnn")
+    by_path.update(timed(phase_serve_cnn, counters, cnn_run, cnn_overrides, cnn_data,
+                         name="serve_cnn"))
+    by_path.update(timed(phase_cnn_bf16, counters, cnn_overrides, cnn_data, name="cnn_bf16"))
+    by_path.update(timed(phase_tf_lengths, counters, name="tf_lengths"))
+    print(f"[time] train_cnn, serve_cnn, cnn_bf16, tf_lengths: "
+          f"{time.perf_counter() - t_cnn:.1f} s")
     # configs/base.yaml as written (raw waveform, LSTM 2x256) and with the
     # GRU: the pair once per step, its eval form once per eval or served
     # batch, no log-mel; a step takes ~0.6 s, so fewer timed reps, and the

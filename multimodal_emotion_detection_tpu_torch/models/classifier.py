@@ -29,6 +29,8 @@ mode every dropout mask comes from the forward's ``noise``; the concat head
 has no dropout.  ``bn_eval`` sets every BatchNorm's mode (see
 ``models/encoders.py``): None follows the module's mode, True reads the
 running statistics in a training-mode forward (MC dropout).
+``load_pretrained_encoder_weights`` grafts local torchvision ResNet
+weights (``model.encoders.<m>.weights_path``) into the image encoders.
 """
 
 from __future__ import annotations
@@ -206,11 +208,11 @@ class MultimodalClassifier(nn.Module):
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random weights with the JAX package's initialisers: LSTM
-    tensors U(-1/sqrt(H), 1/sqrt(H)); Linear and Conv1d weights
-    lecun-normal over the fan-in (in, in x k for a convolution; truncated
-    at 2 sigma), biases zero; LayerNorm and BatchNorm scale 1, bias 0;
-    BatchNorm running mean 0, variance 1; Embedding rows normal with
-    variance 1/width."""
+    tensors U(-1/sqrt(H), 1/sqrt(H)); Linear, Conv1d and Conv2d weights
+    lecun-normal over the fan-in (in, in x k or in x kh x kw for a
+    convolution; truncated at 2 sigma), biases zero; LayerNorm and
+    BatchNorm scale 1, bias 0; BatchNorm running mean 0, variance 1;
+    Embedding rows normal with variance 1/width."""
     with torch.no_grad():
         for module in model.modules():
             if isinstance(module, _CellParams):
@@ -219,17 +221,60 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 nn.init.normal_(module.weight, 0.0,
                                 1.0 / math.sqrt(module.embedding_dim),
                                 generator=generator)
-            elif isinstance(module, (nn.Linear, nn.Conv1d)):
+            elif isinstance(module, (nn.Linear, nn.Conv1d, nn.Conv2d)):
                 fan_in = module.weight[0].numel()
                 std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
                 nn.init.trunc_normal_(module.weight, 0.0, std, -2 * std,
                                       2 * std, generator=generator)
-                nn.init.zeros_(module.bias)
+                if module.bias is not None:
+                    nn.init.zeros_(module.bias)
             elif isinstance(module, BatchNorm):
                 module.reset_parameters()
             elif isinstance(module, nn.LayerNorm):
                 nn.init.ones_(module.weight)
                 nn.init.zeros_(module.bias)
+    return model
+
+
+def load_pretrained_encoder_weights(model: nn.Module, encoder_configs) -> nn.Module:
+    """Graft locally saved torchvision ResNet ``state_dict`` s into
+    ``model``'s image encoders, in place: each
+    ``model.encoders.<modality>.weights_path`` replaces the parameters and
+    running statistics of ``<modality>_encoder.backbone``
+    (``models/resnet.py::load_torch_resnet_weights``).  Nothing is
+    downloaded.  The tensors keep their shapes and places, so an optimizer
+    built on ``model`` stays valid.  Returns ``model``."""
+    from multimodal_emotion_detection_tpu_torch.models.resnet import (
+        load_torch_resnet_weights,
+    )
+
+    for modality, cfg in dict(encoder_configs or {}).items():
+        cfg = dict(cfg)
+        path = cfg.get("weights_path")
+        if not path:
+            continue
+        if cfg.get("type") != "pretrained_cnn":
+            raise ValueError(
+                f"model.encoders.{modality}.weights_path requires "
+                f"type='pretrained_cnn', got {cfg.get('type')!r}"
+            )
+        enc = f"{modality}_encoder"
+        backbone = getattr(getattr(model, enc, None), "backbone", None)
+        if backbone is None:
+            raise ValueError(
+                f"No initialized backbone for modality '{modality}' "
+                f"(expected the module '{enc}.backbone')"
+            )
+        weights = load_torch_resnet_weights(path, variant=cfg.get("backbone", "resnet18"))
+        stem = weights["stem_conv.weight"].shape[1]
+        if stem != backbone.stem_conv.in_channels:
+            raise ValueError(
+                f"model.encoders.{modality}.weights_path holds a stem of {stem} "
+                f"channels; the backbone takes {backbone.stem_conv.in_channels} "
+                f"(model.encoders.{modality}.in_channels)")
+        # strict: every tensor of the backbone, each of its shape; copied
+        # into the tensors in place
+        backbone.load_state_dict(weights)
     return model
 
 

@@ -11,6 +11,9 @@
   (attention / average / max), LayerNorm, Linear projection;
 * ``SimpleMLPEncoder`` — [Linear -> BatchNorm -> ReLU -> Dropout] x n ->
   Linear, mean over time for a (B, T, D) input;
+* ``ImageCNNEncoder`` — a ResNet backbone (``models/resnet.py``) over
+  (B, H, W, C) images or (B, T, H, W, C) frames folded into the batch,
+  temporal pooling, dropout, LayerNorm, Linear projection;
 * ``build_encoder`` — the factory, with the JAX package's config keys,
   defaults and modality-name heuristics.
 
@@ -22,8 +25,9 @@ forward's ``Noise``; in eval mode it is the identity.  BatchNorm
 training mode and the running ones in eval mode, unless ``bn_eval`` says
 otherwise (``bn_eval=True``: running statistics in a training-mode
 forward, as MC dropout asks); every encoder takes ``bn_eval``, and those
-without BatchNorm ignore it.  Encoder kinds outside the port raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them.
+without BatchNorm ignore it.  ``lengths`` into an LSTM or GRU encoder
+raises ``NotImplementedError`` naming the ``ROADMAP.md`` items that port
+it.
 
 A per-encoder ``dtype: bfloat16`` (the JAX factory's mixed-precision
 override), or the model's compute dtype it overrides
@@ -34,14 +38,14 @@ and returns bf16 (``dense``), the position table is cast before the
 lookup, LayerNorm and BatchNorm take their statistics and normalise in
 float32 and round the result to bf16 once (``layer_norm``,
 ``models/batchnorm.py``; flax's ``_compute_stats`` / ``_normalize``), the
-CNN's convolutions run on bf16 input, weight and bias (``conv``), GELU,
-ReLU, softmax, dropout and the pooling act on bf16, attention runs the
-flash kernels' bf16 forms, and the LSTM and GRU hand their recurrent
-kernels bf16-rounded operands (``models/recurrent.py``).  Reductions sum
+CNN's and the ResNet's convolutions run on bf16 input, weight and bias
+(``conv``, ``conv2d``), GELU, ReLU, softmax, dropout and the pooling act
+on bf16, attention runs the flash kernels' bf16 forms, and the LSTM and
+GRU hand their recurrent kernels bf16-rounded operands
+(``models/recurrent.py``).  Reductions sum
 in float32 and round once (``masked_mean``), as ``jnp.sum`` / ``jnp.mean``
 do for bf16.  Each encoder returns its output in its own dtype; the
-classifier casts it to the model's.  The image encoder is refused, in
-either dtype (``ROADMAP.md`` Queue 1 item 8).
+classifier casts it to the model's.
 """
 
 from __future__ import annotations
@@ -66,6 +70,7 @@ from multimodal_emotion_detection_tpu_torch.models.noise import Noise, dropout
 from multimodal_emotion_detection_tpu_torch.models.recurrent import (
     FusedStackedRNN,
 )
+from multimodal_emotion_detection_tpu_torch.models.resnet import ResNet, feature_dim
 from multimodal_emotion_detection_tpu_torch.ops.flash_attention import (
     MASKED,
     flash_attention,
@@ -203,30 +208,40 @@ class SequenceEncoder(nn.Module):
                                        cell_type=encoder_type, dtype=dtype)
         self.projection = nn.Linear(hidden_dim, output_dim)
 
-    def _transformer(self, x: torch.Tensor, noise: Optional[Noise]) -> torch.Tensor:
+    def _transformer(self, x: torch.Tensor, noise: Optional[Noise],
+                     lengths: Optional[torch.Tensor]) -> torch.Tensor:
         batch, seq_len, _ = x.shape
+        valid = None
+        if lengths is not None:
+            # (B, T) True where a step lies within its row's length
+            valid = (torch.arange(seq_len, device=x.device)[None]
+                     < lengths.to(x.device)[:, None])
         # O(T^2) attention is impossible at raw-waveform lengths: past
         # max_len, attend in local blocks folded into the batch, then pool
         # over the whole sequence
         blockwise = seq_len > self.max_len
         t = seq_len
-        valid = bias = None
         if blockwise:
             block = self.attention_block
             t = seq_len + (-seq_len) % block
             x = F.pad(x, (0, 0, 0, t - seq_len))
-            valid = (torch.arange(t, device=x.device) < seq_len).expand(batch, t)
+            if valid is None:
+                valid = torch.ones((batch, seq_len), dtype=torch.bool, device=x.device)
+            valid = F.pad(valid, (0, t - seq_len))
         positions = torch.arange(t, device=x.device).clamp(max=self.max_len - 1)
         # the position table in x's dtype before the lookup, as flax's Embed
         pos = self.pos_embedding.weight.to(x.dtype)[positions]
         h = dense(self.input_proj, x) + pos[None]
+        block_valid = valid
         if blockwise:
             h = h.reshape(batch * (t // block), block, -1)
             block_valid = valid.reshape(-1, block).clone()
             # a fully padded block would softmax over nothing: keep one
             # sentinel key valid (its outputs are masked out in pooling)
             block_valid[:, 0] |= ~block_valid.any(dim=1)
-            bias = torch.where(block_valid, 0.0, MASKED).to(torch.float32)
+        # the key mask as the flash kernels' additive key bias
+        bias = (None if block_valid is None
+                else torch.where(block_valid, 0.0, MASKED).to(torch.float32))
         for i in range(self.num_layers):
             h = getattr(self, f"block_{i}")(h, bias, noise)
         if blockwise:
@@ -246,7 +261,16 @@ class SequenceEncoder(nn.Module):
         return dropout(h, p, noise)
 
     def forward(self, sequence: torch.Tensor, noise: Optional[Noise] = None,
-                bn_eval: Optional[bool] = None) -> torch.Tensor:
+                bn_eval: Optional[bool] = None,
+                lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``lengths`` (B,): each row's valid steps.  The transformer masks
+        the keys past them and pools over the valid steps; the CNN ignores
+        them, as the JAX encoder does."""
+        if lengths is not None and self.encoder_type in ("lstm", "gru"):
+            raise NotImplementedError(
+                "sequence lengths into the LSTM / GRU encoders (the final hidden "
+                "state at each row's last valid step) are not ported yet "
+                "(ROADMAP.md Queue 1 items 3 / 6)")
         if self.encoder_type == "cnn":
             # in the compute dtype, as the JAX encoders cast to theirs (the
             # weights' dtype where that is float32: a float64 copy's)
@@ -255,7 +279,7 @@ class SequenceEncoder(nn.Module):
             return dense(self.projection, self._cnn(x, noise, bn_eval))
         x = sequence.to(self.compute_dtype)
         if self.encoder_type == "transformer":
-            return dense(self.projection, self._transformer(x, noise))
+            return dense(self.projection, self._transformer(x, noise, lengths))
         return dense(self.projection, self.rnn(x, noise))
 
 
@@ -332,6 +356,65 @@ class SimpleMLPEncoder(nn.Module):
         return masked_mean(x, None, dim=1) if features.ndim == 3 else x
 
 
+class ImageCNNEncoder(nn.Module):
+    """ResNet backbone over (B, H, W, C) images -> dropout -> LayerNorm ->
+    projection, or over (B, T, H, W, C) frames folded to (B*T, H, W, C)
+    -> temporal pooling (attention / average / max, under ``mask``) ->
+    dropout -> LayerNorm -> projection.  The backbone's stem takes
+    ``in_channels`` channels (the config's ``in_channels``, 3 by default:
+    RGB, torchvision's layout, which ``weights_path`` grafts; 1 for gray
+    frames), where flax takes the count from the first input.  An
+    attention pool's parameters exist whatever the rank; the JAX tree has
+    them only where the encoder was built on frames."""
+
+    def __init__(self, backbone: str = "resnet18", output_dim: int = 128,
+                 temporal_pooling: str = "average", dropout: float = 0.1,
+                 dtype: torch.dtype = torch.float32, in_channels: int = 3):
+        super().__init__()
+        self.temporal_pooling = temporal_pooling
+        self.compute_dtype = dtype
+        self.dropout = float(dropout)
+        self.backbone = ResNet(backbone, in_channels)
+        width = feature_dim(backbone)
+        if temporal_pooling == "attention":
+            self.pool = AttentionPool(width)
+        self.proj_ln = nn.LayerNorm(width, eps=1e-5)
+        self.projection = nn.Linear(width, output_dim)
+
+    def forward(self, frames: torch.Tensor,
+                mask: Optional[torch.Tensor] = None,
+                noise: Optional[Noise] = None,
+                bn_eval: Optional[bool] = None) -> torch.Tensor:
+        if frames.ndim not in (4, 5):
+            raise ValueError(f"Expected rank-4/5 frames, got shape {tuple(frames.shape)}")
+        if frames.shape[-1] != self.backbone.stem_conv.in_channels:
+            raise ValueError(f"frames of shape {tuple(frames.shape)}: the backbone takes "
+                             f"{self.backbone.stem_conv.in_channels} channels last "
+                             f"(model.encoders.<modality>.in_channels)")
+        p = self.dropout if self.training else 0.0
+        running = use_running_average(self.training, bn_eval)
+        # the weights' dtype where the compute dtype is float32 (a float64
+        # copy's)
+        dtype = (self.compute_dtype if self.compute_dtype == torch.bfloat16
+                 else self.projection.weight.dtype)
+        if frames.ndim == 4:
+            pooled = self.backbone(frames.to(dtype), bn_eval=running)
+        else:
+            b, t = frames.shape[:2]
+            flat = frames.reshape((b * t,) + tuple(frames.shape[2:])).to(dtype)
+            feats = self.backbone(flat, bn_eval=running).reshape(b, t, -1)
+            if self.temporal_pooling == "attention":
+                pooled = self.pool(feats, mask)
+            elif self.temporal_pooling == "average":
+                pooled = masked_mean(feats, mask, dim=1)
+            elif self.temporal_pooling == "max":
+                pooled = masked_max(feats, mask, dim=1)
+            else:
+                raise ValueError(f"Unknown pooling: {self.temporal_pooling}")
+        pooled = dropout(pooled, p, noise)
+        return dense(self.projection, layer_norm(self.proj_ln, pooled))
+
+
 # ---------------------------------------------------------------------------
 # Factory
 # ---------------------------------------------------------------------------
@@ -359,6 +442,8 @@ def build_encoder(
     build (``scan_unroll``, ``fused``, ``inference_kernel``, ``use_flash``)
     are accepted and do not route: the device does.  ``dtype`` is the
     model's compute dtype; the config's ``dtype`` key overrides it.
+    ``pretrained_cnn`` reads ``in_channels``, the frames' channel count,
+    which flax takes from the first input (the JAX factory ignores it).
     """
     cfg = dict(encoder_config or {})
     enc_type = cfg.pop("type", None)
@@ -416,8 +501,15 @@ def build_encoder(
             dtype=dtype,
         )
     if enc_type == "pretrained_cnn":
-        raise NotImplementedError(
-            f"encoder type {enc_type!r} for modality '{modality}' is not "
-            "ported yet (ROADMAP.md Queue 1 item 8)"
+        # weights_path is read after the weights are made, not here
+        # (classifier.load_pretrained_encoder_weights, from the trainer)
+        cfg.pop("weights_path", None)
+        return ImageCNNEncoder(
+            backbone=cfg.pop("backbone", "resnet18"),
+            output_dim=output_dim,
+            temporal_pooling=cfg.pop("temporal_pooling", "average"),
+            dropout=rate,
+            dtype=dtype,
+            in_channels=cfg.pop("in_channels", 3),
         )
     raise ValueError(f"Unknown encoder type '{enc_type}' for modality '{modality}'")

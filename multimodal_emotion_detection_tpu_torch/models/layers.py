@@ -41,6 +41,31 @@ def conv(layer: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
             + layer.bias.to(x.dtype)[:, None])
 
 
+def conv2d(layer: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``layer`` (no bias) on NHWC ``x``, NHWC out, in ``x``'s dtype, as
+    flax's 2-D Conv with ``dtype``: in bf16 the convolution of the bf16
+    input and weight is rounded to bf16.  The convolution sees
+    ``x.permute(0, 3, 1, 2)``, an NCHW view in the channels_last layout,
+    so neither side is copied to another layout.
+
+    On the CPU, a bf16 input narrower than the kernel (H or W) runs as the
+    float32 convolution of the bf16-rounded input and weight, rounded to
+    bf16 once: the same exact products summed in float32.  There torch's
+    CPU bf16 kernel reads uninitialised memory in its backward (strided
+    3x3 and 7x7 convolutions of 1x1 and 4x1 inputs: gradients of 1e23 or
+    NaN, different on every call)."""
+    if x.dtype != torch.bfloat16:
+        y = F.conv2d(x.permute(0, 3, 1, 2), layer.weight, None, layer.stride, layer.padding)
+        return y.permute(0, 2, 3, 1)
+    weight = layer.weight.to(x.dtype)
+    if x.device.type == "cpu" and min(x.shape[1:3]) < max(layer.kernel_size):
+        y = F.conv2d(x.permute(0, 3, 1, 2).float(), weight.float(), None, layer.stride,
+                     layer.padding).to(x.dtype)
+    else:
+        y = F.conv2d(x.permute(0, 3, 1, 2), weight, None, layer.stride, layer.padding)
+    return y.permute(0, 2, 3, 1)
+
+
 def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     """``ln`` in ``x``'s dtype, as flax's LayerNorm with ``dtype``: in bf16
     the statistics and the normalisation run in float32 on the upcast

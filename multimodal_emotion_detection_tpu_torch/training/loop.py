@@ -35,6 +35,7 @@ from multimodal_emotion_detection_tpu_torch.data.loader import MultimodalLoader
 from multimodal_emotion_detection_tpu_torch.models.classifier import (
     classifier_from_config,
     init_weights,
+    load_pretrained_encoder_weights,
     logmel_params_from_config,
 )
 from multimodal_emotion_detection_tpu_torch.models.noise import Noise
@@ -64,17 +65,6 @@ from multimodal_emotion_detection_tpu_torch.utils.runtime import (
 FRONTEND_CHUNK = 128  # clips per log-mel call when caching a split
 
 
-def refuse_outside_slice(config) -> None:
-    """Raise ``NotImplementedError`` naming the ``ROADMAP.md`` item for a
-    training configuration the port does not run yet."""
-    for name, cfg in dict(config.model.encoders).items():
-        if dict(cfg).get("weights_path"):
-            raise NotImplementedError(
-                f"model.encoders.{name}.weights_path: pretrained encoder "
-                "weights, with the image CNN they load into, are not ported "
-                "yet (ROADMAP.md Queue 1 item 8)")
-
-
 def step_seed(seed: int, step: int) -> int:
     return (int(seed) * 1_000_003 + int(step)) % (2**63)
 
@@ -82,7 +72,6 @@ def step_seed(seed: int, step: int) -> int:
 class Trainer:
     def __init__(self, config, model: Optional[nn.Module] = None,
                  save_dir: Optional[Path] = None):
-        refuse_outside_slice(config)
         self.config = config
         self.device = device_from_config(config)
         if model is None:
@@ -109,6 +98,10 @@ class Trainer:
     # ------------------------------------------------------------------
     def _build(self, train_loader: MultimodalLoader) -> None:
         self._maybe_cache_frontend(train_loader)
+        # model.encoders.<m>.weights_path: the local torchvision weights
+        # replace the image backbone's after init, before the first step
+        # (a resumed run then loads its checkpoint over them)
+        load_pretrained_encoder_weights(self.model, self.config.model.encoders)
         self.optimizer, self._schedule = build_optimizer(
             self.config.training, self.model.parameters(), len(train_loader))
 

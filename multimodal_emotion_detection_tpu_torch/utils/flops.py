@@ -166,8 +166,8 @@ def encoder_forward_flops(enc_cfg: Dict[str, Any], output_dim: int,
         total += 2 * hidden * output_dim
         return T * total if T > 1 else total
     if etype == "pretrained_cnn":
-        raise ValueError("pretrained_cnn FLOPs not modeled (the image "
-                         "encoder is outside the port, ROADMAP.md item 8)")
+        raise ValueError("pretrained_cnn FLOPs not modeled (the conv "
+                         "backbones are not counted, as in the JAX package)")
     raise ValueError(f"Unknown encoder type {etype!r}")
 
 

@@ -10,14 +10,17 @@ name or layout on the way:
   (H*Dh, D) and its bias (H, Dh) a bias (H*Dh,), the ``out`` kernel
   (H, Dh, D) a weight (D, H*Dh);
 * a Conv ``kernel`` (k, in, out) of a ``conv*`` module becomes a Conv1d
-  ``weight`` (out, in, k);
+  ``weight`` (out, in, k), and a 2-D Conv ``kernel`` (kh, kw, in, out)
+  (HWIO) of a module named ``conv*`` or ``*conv`` (the ResNet's
+  ``conv1..3``, ``stem_conv``, ``downsample_conv``) a Conv2d ``weight``
+  (out, in, kh, kw) (OIHW);
 * a LayerNorm or BatchNorm ``scale`` becomes ``weight``, an Embed
   ``embedding`` ``weight``;
 * the ``batch_stats`` collection's BatchNorm ``mean`` and ``var`` become
   the buffers ``running_mean`` and ``running_var``.
 
-A 3-D kernel is told apart by its module's name, not its shape: one of
-any other module raises.
+A 3-D or 4-D kernel is told apart by its module's name, not its shape:
+one of any other module raises.
 
 ``jax_params_from_state_dict`` maps the other way, for the parameters
 alone (the JAX layout is what ``utils/quantize.py`` quantizes in).  A
@@ -49,6 +52,10 @@ _DENSE_GENERAL = ("query", "key", "value", "out")
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
 
+def _is_conv(module: str) -> bool:
+    return module.startswith("conv") or module.endswith("conv")
+
+
 def _kernel(prefix: str, arr: np.ndarray) -> np.ndarray:
     """A flax kernel at module path ``prefix`` as the torch weight."""
     module = prefix.rstrip(".").rpartition(".")[2]
@@ -62,10 +69,13 @@ def _kernel(prefix: str, arr: np.ndarray) -> np.ndarray:
         return flat.T
     if arr.ndim == 3 and module.startswith("conv"):
         return arr.transpose(2, 1, 0)
+    if arr.ndim == 4 and _is_conv(module):
+        return arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
     raise ValueError(
         f"{prefix}kernel has shape {arr.shape}; only 2-D Dense kernels, 3-D "
-        f"DenseGeneral kernels of {'/'.join(_DENSE_GENERAL)} and 3-D Conv "
-        "kernels of conv* modules are mapped")
+        f"DenseGeneral kernels of {'/'.join(_DENSE_GENERAL)}, 3-D Conv "
+        "kernels of conv* modules and 4-D Conv kernels of conv* / *conv "
+        "modules are mapped")
 
 
 def state_dict_from_jax_params(
@@ -150,6 +160,8 @@ def jax_params_from_state_dict(
                        else arr.T.reshape(arr.shape[1], h, -1))
             elif arr.ndim == 3 and module.startswith("conv"):
                 arr = arr.transpose(2, 1, 0)
+            elif arr.ndim == 4 and _is_conv(module):
+                arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
             elif arr.ndim == 2:
                 arr = arr.T
             else:

@@ -71,7 +71,6 @@ from multimodal_emotion_detection_tpu_torch.models.recurrent import FusedStacked
 from multimodal_emotion_detection_tpu_torch.ops import lstm_kernel, lstm_vjp
 from multimodal_emotion_detection_tpu_torch.tools.predict import main as port_predict
 from multimodal_emotion_detection_tpu_torch.training import optim
-from multimodal_emotion_detection_tpu_torch.training.loop import refuse_outside_slice
 from multimodal_emotion_detection_tpu_torch.training.steps import train_step
 from multimodal_emotion_detection_tpu_torch.utils.weights import (
     state_dict_from_jax_params,
@@ -473,12 +472,9 @@ def test_residual_bytes_in_bf16(cell, layers, hidden, route, f32_gb, bf16_gb):
 def test_bf16_with_remat_refused_naming_item_13():
     """Since the remat pair's bf16 forms were ported, bf16 residual streams
     with the gates rematerialised are taken everywhere the name's refusal
-    was: by the trainer's check, ``fused_lstm_final`` and the no-gates
-    forward; a residual dtype other than float32 and bf16 is still
-    refused."""
-    cfg = load_config(FAST, ["runtime.lstm_remat_gates=true"])
-    refuse_outside_slice(cfg)
-    refuse_outside_slice(load_config(FAST))  # fast.yaml as written is taken
+    was: by ``fused_lstm_final`` and the no-gates forward (the trainer has
+    no configuration check left); a residual dtype other than float32 and
+    bf16 is still refused."""
     x, keep, layers = _case("lstm", 20, b=2, t=3, d=4, h=8)
     params = [_torch(p) for p in layers]
     keep_t = torch.from_numpy(np.ascontiguousarray(keep.transpose(1, 2, 0, 3)))

@@ -43,9 +43,10 @@ def test_port_and_chip_smoke_import_no_jax():
 
 
 # the reference checkpoint import, the ETL and its native core, the video
-# resize and the flop counts: host code beside the kernels, JAX-free too
+# resize and the flop counts: host code beside the kernels, JAX-free too;
+# and the image encoder's ResNet backbone, cuDNN's convolutions
 HOST_MODULES = ("utils.torch_import", "utils.wav", "utils.native", "utils.flops",
-                "ops.resize", "data.ravdess", "data.manifest")
+                "ops.resize", "data.ravdess", "data.manifest", "models.resnet")
 
 
 @pytest.mark.parametrize("module", HOST_MODULES)

@@ -19,6 +19,7 @@ from multimodal_emotion_detection_tpu.models.classifier import (
 from multimodal_emotion_detection_tpu_torch.config import load_config
 from multimodal_emotion_detection_tpu_torch.models.classifier import (
     classifier_from_config,
+    init_weights,
 )
 from multimodal_emotion_detection_tpu_torch.training.steps import forward
 from multimodal_emotion_detection_tpu_torch.utils.weights import (
@@ -80,36 +81,52 @@ def test_classifier_logits_match_jax(jax_kernels):
     np.testing.assert_allclose(logits.numpy(), ref, rtol=1e-4, atol=1e-4)
 
 
+# the image encoder (type: pretrained_cnn) is ported since: its cases keep
+# their ids, build, and serve rank-5 frames, or refuse as the JAX package
+# does (the resize frontend hands the encoder rank-3 frames)
+RANK = "Expected rank-4/5 frames"
+
+
 @pytest.mark.parametrize("override,item", [
     # a GRU wider than every GRU kernel takes; the id is the one this case
     # had while every GRU was refused
     pytest.param(["model.encoders.audio.encoder_type=gru",
                   "model.encoders.audio.hidden_dim=1064"], "shape ceilings",
                  id="model.encoders.audio.encoder_type=gru-item 6"),
-    # an encoder kind still outside the port (the image CNN); the id is the
-    # one this case had while the transformer was refused
-    pytest.param(["model.encoders.video.type=pretrained_cnn"], "item 8",
+    # the image encoder on rank-5 frames; the id is the one this case had
+    # while the transformer was refused
+    pytest.param(["model.encoders.video.type=pretrained_cnn"], None,
                  id="model.encoders.audio.encoder_type=transformer-item 8"),
-    # the on-device video resize is ported since: the case keeps the id it
-    # had while the one-layer LSTM was refused and holds the resize beside
-    # the image encoder, still outside the port
+    # the on-device video resize beside the image encoder: rank-3 frames
+    # reach it, which JAX refuses too; the id is the one-layer LSTM's
     pytest.param(["model.frontend.video=resize",
-                  "model.encoders.video.type=pretrained_cnn"], "item 8",
+                  "model.encoders.video.type=pretrained_cnn"], RANK,
                  id="model.encoders.audio.num_layers=1-item 3"),
-    # the image encoder in bf16, still outside the port; the id is the one
-    # this case had while the fusion library was refused
+    # the image encoder beside a bf16 audio encoder; the id is the one this
+    # case had while the fusion library was refused
     pytest.param(["model.encoders.audio.dtype=bfloat16",
-                  "model.encoders.video.type=pretrained_cnn"], "item 8",
+                  "model.encoders.video.type=pretrained_cnn"], None,
                  id="model.train_fusion=library-item 7"),
-    # the bf16 compute dtype and the video resize are ported since: the
-    # case keeps its id and holds both beside the image encoder, still
-    # outside the port
+    # the bf16 compute dtype and the video resize beside the image encoder:
+    # refused as the JAX package refuses it
     pytest.param(["runtime.compute_dtype=bfloat16", "model.frontend.video=resize",
                   "model.encoders.video.type=pretrained_cnn"],
-                 "item 8", id="runtime.compute_dtype=bfloat16-item 13"),
+                 RANK, id="runtime.compute_dtype=bfloat16-item 13"),
 ])
 def test_configs_outside_the_slice_raise(override, item):
     extra = override if isinstance(override, list) else [override]
     cfg = load_config("configs/base.yaml", NARROW + extra)
-    with pytest.raises(NotImplementedError, match=item):
-        classifier_from_config(cfg)
+    if item == "shape ceilings":
+        with pytest.raises(NotImplementedError, match=item):
+            classifier_from_config(cfg)
+        return
+    model = init_weights(classifier_from_config(cfg), torch.Generator().manual_seed(0))
+    frames = np.random.RandomState(1).rand(2, 2, 16, 16, 3).astype(np.float32)
+    feats = {"audio": torch.from_numpy(_inputs()["audio"][:2]),
+             "video": torch.from_numpy(frames)}
+    if item is None:
+        logits = forward(model, feats)
+        assert logits.shape == (2, 8) and torch.isfinite(logits).all()
+    else:
+        with pytest.raises(ValueError, match=item):
+            forward(model, feats)

@@ -6,7 +6,8 @@ streamed bit for bit resident and against the JAX ``Trainer.fit`` on its
 host-streaming path (val loss / accuracy 1e-4), the train CLI's artifacts
 against JAX's on ``dataset.name=synthetic``, predict on a converted JAX
 ``best.ckpt`` against JAX's predict, ``runtime.profile_dir``'s one-epoch
-trace, and ``weights_path`` still refused."""
+trace, and ``weights_path`` refused on an encoder other than the image
+CNN."""
 
 import csv
 import importlib.util
@@ -255,5 +256,7 @@ def test_profile_dir_writes_one_trace_of_one_epoch(tmp_path):
 
 
 def test_weights_path_is_still_refused_naming_item_8(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # weights_path is ported since, for the image encoder alone: on an MLP
+    # encoder it raises the JAX package's error
+    with pytest.raises(ValueError, match="requires type='pretrained_cnn'"):
         port_train.main(_overrides(tmp_path, "model.encoders.sensor1.weights_path=w.pth"))

@@ -4,8 +4,8 @@ version): the artifact set and CSV cadence of the JAX ``train.main``,
 2 epochs of ``val/loss`` against the JAX ``Trainer.fit`` from the same
 weights (tolerance 1e-4, as the train-step test), resume, early stopping
 by validation checks, the predict CLI on the trained ``best.ckpt``,
-``frontend.cache``, and the configurations outside the slice raising
-``NotImplementedError`` with their ``ROADMAP.md`` item."""
+``frontend.cache``, and the image encoder's configurations: trained on
+rank-5 frames, or refused with the JAX package's errors."""
 
 import csv
 import json
@@ -202,39 +202,54 @@ def test_frontend_cache_gives_the_same_trajectory(data_dir, tmp_path):
                                    rtol=0, atol=1e-6, err_msg=key)
 
 
+@pytest.fixture(scope="module")
+def frame_dir(data_dir, tmp_path_factory):
+    """``data_dir`` with rank-5 video: (N, 2, 16, 16, 3) frames."""
+    root = tmp_path_factory.mktemp("port_trainer_frames")
+    for seed, split in enumerate(SIZES):
+        d = root / split
+        d.mkdir()
+        for name in ("audio.npy", "labels.npy"):
+            (d / name).write_bytes((data_dir / split / name).read_bytes())
+        frames = np.random.RandomState(20 + seed).rand(SIZES[split], 2, 16, 16, 3)
+        np.save(d / "video.npy", frames.astype(np.float32))
+    return root
+
+
+# the image encoder (type: pretrained_cnn) and its weights_path are ported
+# since: each case keeps its id, and trains on rank-5 frames or refuses as
+# the JAX package does, with its error (rank-3 features into the image
+# encoder; weights_path on another encoder)
+RANK, WEIGHTS = "Expected rank-4/5 frames", "requires type='pretrained_cnn'"
+
+
 @pytest.mark.parametrize("override,item", [
-    # the on-device video resize is ported since: the case keeps the id it
-    # had while bf16 residual streams were refused and holds the resize
-    # beside the image encoder, still outside the port
     pytest.param(["model.frontend.video=resize", "model.encoders.video.type=pretrained_cnn"],
-                 "item 8", id="runtime.lstm_residual_dtype=bfloat16-item 13"),
-    # the bf16 compute dtype is ported since: the case keeps its id and
-    # holds it beside the image encoder, still outside the port
+                 RANK, id="runtime.lstm_residual_dtype=bfloat16-item 13"),
     pytest.param(["runtime.compute_dtype=bfloat16",
-                  "model.encoders.audio.type=pretrained_cnn"], "item 8",
+                  "model.encoders.audio.type=pretrained_cnn"], RANK,
                  id="runtime.compute_dtype=bfloat16-item 13"),
-    # three settings ported since (the epoch trace, synthetic data, the
-    # host-streaming loader): each case keeps its id and holds another
-    # setting still outside the port; pretrained weights moved to item 8
     pytest.param(["model.encoders.audio.dtype=bfloat16", "model.frontend.video=resize",
                   "model.encoders.video.type=pretrained_cnn"],
-                 "item 8", id="runtime.profile_dir=prof-item 5"),
-    pytest.param("model.encoders.video.weights_path=w.pth", "item 8",
+                 RANK, id="runtime.profile_dir=prof-item 5"),
+    pytest.param("model.encoders.video.weights_path=w.pth", WEIGHTS,
                  id="model.encoders.video.weights_path=w.pth-item 5"),
-    pytest.param("model.encoders.video.type=pretrained_cnn", "item 8",
+    pytest.param("model.encoders.video.type=pretrained_cnn", None,
                  id="dataset.name=synthetic-item 5"),
-    # bf16 on the frame and MLP encoders is ported since: the case keeps its
-    # id and holds bf16 on the image encoder, still outside the port
     pytest.param(["model.encoders.video.type=pretrained_cnn",
                   "model.encoders.video.dtype=bfloat16"],
-                 "item 8", id="dataset.device_resident=false-item 5"),
-    # an encoder kind still outside the port (the image CNN); the id is the
-    # one this case had while the calibration report was refused
-    pytest.param("model.encoders.audio.type=pretrained_cnn", "item 8",
+                 None, id="dataset.device_resident=false-item 5"),
+    pytest.param("model.encoders.audio.type=pretrained_cnn", RANK,
                  id="model.fusion_type=uncertainty-item 9"),
 ])
-def test_training_configs_outside_the_slice_raise(data_dir, tmp_path, override,
-                                                  item):
+def test_training_configs_outside_the_slice_raise(data_dir, frame_dir, tmp_path,
+                                                  override, item):
     extra = [override] if isinstance(override, str) else override
-    with pytest.raises(NotImplementedError, match=item):
-        port_train.main(["--config", CONFIG, *_overrides(data_dir, tmp_path, *extra)])
+    if item is not None:
+        with pytest.raises(ValueError, match=item):
+            port_train.main(["--config", CONFIG, *_overrides(data_dir, tmp_path, *extra)])
+        return
+    results = port_train.main(["--config", CONFIG,
+                               *_overrides(frame_dir, tmp_path, *extra)])
+    assert all(np.isfinite(v) for v in results.values())
+    assert (tmp_path / "run" / "best.ckpt").exists()

@@ -11,11 +11,11 @@ against the JAX modules with ``use_flash=True, flash_interpret=True``:
 * the classifier with both overrides: float32 logits, and a JAX tree built
   with bf16 encoders loading ``strict=True``;
 * a 3-step train-step trajectory and a ``Trainer`` epoch against JAX's;
-* the refusals of bf16 settings beside one still outside the port (the
-  image encoder, item 8; a GRU wider than its kernels take): the bf16
-  compute dtype, ``dtype: bfloat16`` on the LSTM, GRU, CNN and MLP
-  encoders and the video resize are ported since
-  (``test_torch_port_compute_bf16.py``).
+* bf16 settings beside the image encoder (serving rank-5 frames, or
+  refusing rank-3 features as JAX does) and the refusal of a GRU wider
+  than its kernels take: the bf16 compute dtype, ``dtype: bfloat16`` on
+  the LSTM, GRU, CNN and MLP encoders and the video resize are ported
+  since (``test_torch_port_compute_bf16.py``).
 
 Tolerances.  Both sides round to bf16 at flax's points, but not always to
 the same ulp: GELU, softmax and the bias-gradient reductions are fused
@@ -60,6 +60,7 @@ from multimodal_emotion_detection_tpu_torch.config import load_config
 from multimodal_emotion_detection_tpu_torch.data.loader import create_dataloaders
 from multimodal_emotion_detection_tpu_torch.models.classifier import (
     classifier_from_config,
+    init_weights,
 )
 from multimodal_emotion_detection_tpu_torch.models.encoders import (
     FrameEncoder,
@@ -332,22 +333,39 @@ def test_trainer_epoch_with_bf16_encoders_matches_jax(tmp_path):
 
 
 # each case keeps the id it had while its bf16 setting was refused (item 13,
-# ported since) and holds that setting beside one still outside the port
-# (the "lstm" case's video resize is ported since too: it holds both beside
-# the image encoder)
+# ported since); the image encoder beside it is ported since too: it
+# serves rank-5 frames in bf16, or refuses as the JAX package does (the
+# resize frontend and the log-mel audio hand it rank-3 features)
+RANK = "Expected rank-4/5 frames"
+
+
 @pytest.mark.parametrize("override,item", [
     (["runtime.compute_dtype=bfloat16", "model.encoders.video.type=pretrained_cnn"],
-     "item 8"),
+     None),
     (["model.encoders.audio.dtype=bfloat16", "model.frontend.video=resize",
-      "model.encoders.video.type=pretrained_cnn"], "item 8"),
+      "model.encoders.video.type=pretrained_cnn"], RANK),
     (["model.encoders.audio.encoder_type=gru", "model.encoders.audio.dtype=bfloat16",
       "model.encoders.audio.hidden_dim=1064"], "shape ceilings"),
     (["model.encoders.audio.type=pretrained_cnn", "model.encoders.audio.dtype=bfloat16"],
-     "item 8"),
+     RANK),
     (["model.encoders.video.type=pretrained_cnn", "model.encoders.video.dtype=bfloat16"],
-     "item 8"),
+     None),
 ], ids=["compute_dtype", "lstm", "gru", "cnn", "mlp"])
 def test_bf16_outside_the_slice_raises(override, item):
     cfg = load_config(CONFIG, ["model.frontend.audio=logmel"] + override)
-    with pytest.raises(NotImplementedError, match=item):
-        classifier_from_config(cfg)
+    if item == "shape ceilings":
+        with pytest.raises(NotImplementedError, match=item):
+            classifier_from_config(cfg)
+        return
+    model = init_weights(classifier_from_config(cfg), torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(4)
+    feats = {"audio": torch.from_numpy(rng.randn(2, SAMPLES, 1).astype(np.float32)),
+             "video": torch.from_numpy(rng.rand(2, 2, 16, 16, 3).astype(np.float32))}
+    if item is not None:
+        with pytest.raises(ValueError, match=item):
+            forward(model, feats)
+        return
+    logits = forward(model, feats)
+    assert logits.shape == (2, 8) and torch.isfinite(logits.float()).all()
+    assert logits.dtype == (torch.bfloat16 if "runtime.compute_dtype=bfloat16" in override
+                            else torch.float32)

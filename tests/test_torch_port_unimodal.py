@@ -62,6 +62,7 @@ from multimodal_emotion_detection_tpu_torch.models.classifier import (
     init_weights,
 )
 from multimodal_emotion_detection_tpu_torch.models.encoders import (
+    ImageCNNEncoder,
     SequenceEncoder,
     SimpleMLPEncoder,
     build_encoder,
@@ -299,8 +300,20 @@ def test_build_encoder_routes_cnn_and_mlp_like_jax(cfg, kind, hidden):
 
 
 def test_build_encoder_still_refuses_pretrained_cnn():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        build_encoder("video", 8, 16, {"type": "pretrained_cnn"})
+    """Ported since: ``type: pretrained_cnn`` builds the image encoder with
+    the JAX factory's defaults (resnet18, average pooling, dropout 0.1),
+    and ``weights_path`` is left for the trainer."""
+    from multimodal_emotion_detection_tpu.models.encoders import (
+        build_encoder as jax_build_encoder,
+    )
+
+    cfg = {"type": "pretrained_cnn", "weights_path": "w.pth"}
+    enc = build_encoder("video", 8, 16, cfg)
+    jenc = jax_build_encoder("video", 8, 16, cfg)
+    assert isinstance(enc, ImageCNNEncoder)
+    assert (enc.backbone.variant, enc.temporal_pooling, enc.dropout) == (
+        jenc.backbone, jenc.temporal_pooling, jenc.dropout)
+    assert enc.projection.weight.shape == (16, 512)
 
 
 # ------------------------------------------------------------------- weights
@@ -336,7 +349,9 @@ def test_weights_map_conv_and_dense_general_kernels_in_one_tree():
 @pytest.mark.parametrize("tree,match", [
     ({"dense": {"kernel": np.zeros((2, 3, 4), np.float32)}}, "kernel has shape"),
     ({"pool": {"kernel": np.zeros((2, 3, 4), np.float32)}}, "kernel has shape"),
-    ({"conv1": {"kernel": np.zeros((2, 3, 4, 5), np.float32)}}, "kernel has shape"),
+    # a 4-D kernel of a conv module maps since the image encoder is ported
+    # (tests/test_torch_port_resnet.py); one of any other module still raises
+    ({"proj": {"kernel": np.zeros((2, 3, 4, 5), np.float32)}}, "kernel has shape"),
 ])
 def test_weights_refuse_an_unknown_3d_kernel(tree, match):
     with pytest.raises(ValueError, match=match):
